@@ -1,0 +1,767 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--docs N] [--vocab V] [--batches B] [--batch Q]
+                          [--report PATH]
+
+Drives the port's main path — the shard query phase of batched BM25
+bool-of-terms search, top-100 per query — through its public entry points
+(`ShardContext` → `search_shard_batch`) at the data size of a real shard, and
+holds every hand-written kernel of that path against its plain torch version
+on the card. Phases:
+
+  1. card facts (nvidia-smi, torch / CUDA / nvcc versions), build the kernels
+     from `elasticsearch_tpu_torch/csrc` (one nvcc per source, all at once);
+  2. a zipf(1.35) CSR corpus of 1,000,000 docs over a 200k-term vocabulary
+     (about 60 terms a doc, one text field), split into 3 segments of
+     600k / 300k / 100k docs, 1% of one segment tombstoned, packed on the card;
+  3. the main path: batches of 1024 `bool` queries of 4 `should` BM25 term
+     clauses (terms from df ranks 50-5000), top-100; each batch's dispatch
+     runs under `torch.cuda.set_sync_debug_mode("error")`;
+  4. a non-simple batch: 256 `bool` queries with must + should + must_not
+     and minimum_should_match 2, under BM25 and under TF-IDF (coord);
+  5. every kernel against its plain version on the same card tensors, at
+     every bucket shape phases 3-4 launched: bitwise;
+  6. end to end against an independent numpy term-at-a-time scorer;
+  7. the normal indexing path, small: mapper → analyzer → SegmentBuilder →
+     two segments → Searcher → parse_query → search_shard_batch, on the card
+     and on the CPU: identical hits;
+  8. times: QPS and batch latency of phase 3, each kernel's time (CUDA
+     events) beside its plain version's and its bound.
+
+Every phase asserts. The line before the last holds the kernels' JSON record;
+the last line is `{"ok": true, "device": {...}}`, printed only when every
+phase passed. Without CUDA the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+AVG_LEN = 60  # mean terms per doc (poisson), clipped to [5, 400]
+ZIPF_A = 1.35
+SEGMENT_SHARES = (0.6, 0.3, 0.1)
+TOMBSTONE_SEGMENT, TOMBSTONE_SHARE = 1, 0.01
+TERMS_PER_QUERY = 4
+RANKS = (50, 5000)  # df ranks the main-path query terms are drawn from
+BOOL_RANKS = (20, 400)  # denser terms for the must/should/must_not batch
+K = 100
+K1, B = 1.2, 0.75
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
+
+BM25_SETTINGS = {"index.similarity.default.type": "BM25"}
+TFIDF_SETTINGS = {}  # the index default, classic TF-IDF with coord
+RTOL = 1e-6  # port (float32, tree-ordered sums) vs the term-at-a-time scorer
+
+KERNELS = {
+    "sparse_score": {
+        "route": "cuda",
+        "source": "elasticsearch_tpu_torch/csrc/sparse_score.cu",
+        "replaces": "elasticsearch_tpu/ops/pallas_kernels.py:162",
+    },
+}
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# corpus (modelled on bench.py build_corpus / gen_queries)
+# ---------------------------------------------------------------------------
+
+
+def build_corpus(n_docs: int, vocab: int, seed: int):
+    """CSR postings of a zipf corpus: (terms, docs, freqs) sorted by (term,
+    doc), and the per-doc field lengths."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.poisson(AVG_LEN, n_docs), 5, 400).astype(np.int64)
+    term_of_tok = (rng.zipf(ZIPF_A, int(lengths.sum())).astype(np.int64) - 1) % vocab
+    doc_of_tok = np.repeat(np.arange(n_docs, dtype=np.int64), lengths)
+    # key order is (term, doc) order, so np.unique leaves the CSR sorted
+    keys, counts = np.unique(term_of_tok * n_docs + doc_of_tok, return_counts=True)
+    del term_of_tok, doc_of_tok
+    terms = keys // n_docs
+    docs = (keys % n_docs).astype(np.int32)
+    return terms, docs, counts.astype(np.float32), lengths
+
+
+def split_segments(terms, docs, freqs, lengths, vocab: int):
+    """Per segment: (lo, hi, CSR arrays over the whole vocabulary) for doc
+    ranges of SEGMENT_SHARES."""
+    n = len(lengths)
+    cuts = np.concatenate([[0], np.cumsum(np.round(np.asarray(SEGMENT_SHARES) * n))
+                           .astype(np.int64)])
+    cuts[-1] = n
+    out = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        sel = (docs >= lo) & (docs < hi)
+        t = terms[sel]
+        offsets = np.zeros(vocab + 1, np.int64)
+        np.cumsum(np.bincount(t, minlength=vocab), out=offsets[1:])
+        out.append(dict(lo=int(lo), hi=int(hi), offsets=offsets,
+                        docs=(docs[sel] - lo).astype(np.int32), freqs=freqs[sel],
+                        lengths=lengths[lo:hi]))
+    return out
+
+
+def term_name(t: int) -> str:
+    return f"t{t}"
+
+
+# ---------------------------------------------------------------------------
+# independent reference scorer (numpy, term at a time, float32)
+# ---------------------------------------------------------------------------
+
+
+def _decode_byte315(b: np.ndarray) -> np.ndarray:
+    bits = (b.astype(np.int32) << 21) + ((63 - 15) << 24)
+    return np.where(b == 0, np.float32(0.0), bits.view(np.float32))
+
+
+class Reference:
+    """Lucene 4 BM25 / classic TF-IDF bool scoring over the segments' CSR
+    arrays, one dense score array per segment, skipping tombstones."""
+
+    def __init__(self, segs: list[dict], norm_bytes: list[np.ndarray],
+                 lives: list[np.ndarray]):
+        self.segs, self.norm_bytes, self.lives = segs, norm_bytes, lives
+        self.max_doc = sum(s["hi"] - s["lo"] for s in segs)
+        self.df = sum(np.diff(s["offsets"]) for s in segs)
+        self.avgdl = np.float32(sum(int(s["lengths"].sum()) for s in segs)
+                                / self.max_doc)
+
+    def search(self, clauses, msm: int, sim: str, k: int):
+        """clauses: [(term id, group)] with group in should/must/must_not.
+        Returns (total, scores of every doc (-inf where no match), matched)."""
+        N = self.max_doc
+        scoring = [(t, g) for (t, g) in clauses if g != "must_not"]
+        n_must = sum(1 for _t, g in clauses if g == "must")
+        if sim == "bm25":
+            idf = {t: np.float32(np.log(1.0 + (N - self.df[t] + 0.5)
+                                        / (self.df[t] + 0.5))) for t, _g in clauses}
+            weight = {t: np.float32(idf[t] * np.float32(K1 + 1.0)) for t in idf}
+        else:
+            idf = {t: np.float32(1.0 + np.log(N / (self.df[t] + 1.0)))
+                   for t, _g in clauses}
+            qn = np.float32(1.0 / np.sqrt(sum(float(idf[t]) ** 2
+                                              for t, _g in scoring)))
+            weight = {t: np.float32(idf[t] * idf[t] * qn) for t in idf}
+        all_scores, all_match = [], []
+        for seg, nb, live in zip(self.segs, self.norm_bytes, self.lives):
+            n = seg["hi"] - seg["lo"]
+            f_norm = _decode_byte315(nb)
+            if sim == "bm25":
+                with np.errstate(divide="ignore"):
+                    dl = np.where(f_norm > 0, 1.0 / (f_norm * f_norm), 0.0)
+                denom = (K1 * (1.0 - B + B * dl / self.avgdl)).astype(np.float32)
+            score = np.zeros(n, np.float32)
+            n_should = np.zeros(n, np.int32)
+            n_must_hit = np.zeros(n, np.int32)
+            n_not = np.zeros(n, np.int32)
+            for t, g in clauses:
+                s, e = seg["offsets"][t], seg["offsets"][t + 1]
+                d, f = seg["docs"][s:e], seg["freqs"][s:e]
+                if g == "must_not":
+                    n_not[d] += 1
+                    continue
+                (n_must_hit if g == "must" else n_should)[d] += 1
+                if sim == "bm25":
+                    score[d] += weight[t] * (f / (f + denom[d]))
+                else:
+                    score[d] += weight[t] * (np.sqrt(f) * f_norm[d])
+            overlap = n_should + n_must_hit
+            match = (live & (n_must_hit == n_must) & (n_should >= msm)
+                     & (n_not == 0) & (overlap > 0))
+            if sim == "tfidf" and len(scoring) > 1:
+                score = score * (overlap.astype(np.float32) / np.float32(len(scoring)))
+            all_scores.append(np.where(match, score, -np.inf))
+            all_match.append(match)
+        match = np.concatenate(all_match)
+        return int(match.sum()), np.concatenate(all_scores), match
+
+
+def check_hits(name: str, top, ref_total: int, ref_scores: np.ndarray, k: int):
+    """The port's TopDocs against the reference: same total; min(k, total)
+    hits, each a matching doc with its reference score within RTOL; no
+    non-hit scoring above the k-th hit; order by score, where only near-equal
+    scores may swap."""
+    assert top.total == ref_total, f"{name}: total {top.total} != {ref_total}"
+    assert len(top.hits) == min(k, ref_total), f"{name}: {len(top.hits)} hits"
+    if not top.hits:
+        return
+    scores = np.array([s for s, _d in top.hits], np.float64)
+    docs = np.array([d for _s, d in top.hits], np.int64)
+    ref = ref_scores[docs].astype(np.float64)
+    assert np.all(np.isfinite(ref)), f"{name}: a hit the reference does not match"
+    tol = RTOL * np.abs(ref)
+    assert np.all(np.abs(scores - ref) <= tol), (
+        f"{name}: max rel err {np.max(np.abs(scores - ref) / np.abs(ref))}")
+    assert np.all(np.diff(ref) <= tol[1:] + tol[:-1]), f"{name}: order"
+    if len(docs) == k:
+        rest = ref_scores.astype(np.float64).copy()
+        rest[docs] = -np.inf
+        assert rest.max() <= ref[-1] * (1 + 2 * RTOL), f"{name}: missed a doc"
+
+
+# ---------------------------------------------------------------------------
+# kernel records: every launch's inputs, timing, bounds
+# ---------------------------------------------------------------------------
+
+
+class LaunchRecorder:
+    """Wraps the scoring module's `sparse_score`, until `close()`, to keep
+    the inputs of the first launch of every bucket shape and of every launch
+    of one chosen batch. It launches nothing itself and counts nothing."""
+
+    def __init__(self, scoring_module, sparse_score):
+        self.shapes: dict = {}  # shape key -> (args, kwargs, launches)
+        self.batch: list | None = None
+        self._orig = sparse_score
+        self._module = scoring_module
+
+        def recording(*args, **kwargs):
+            key = (tuple(args[0].shape), str(args[10].dtype), kwargs["k"],
+                   kwargs["passes"], kwargs["simple"], kwargs["use_coord"])
+            entry = self.shapes.setdefault(key, [args, kwargs, 0])
+            entry[2] += 1
+            if self.batch is not None:
+                self.batch.append((args, kwargs))
+            return self._orig(*args, **kwargs)
+
+        scoring_module.sparse_score = recording
+
+    def close(self) -> None:
+        self._module.sparse_score = self._orig
+
+
+class GcPauses:
+    """Host wall time spent in the interpreter's garbage collector since the
+    last `take()`."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self._t0 = None
+        gc.callbacks.append(self._callback)
+
+    def _callback(self, phase, _info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    def take(self) -> float:
+        ms, self.ms = self.ms, 0.0
+        return ms
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._callback)
+
+
+def launch_bound(args, kwargs) -> tuple[float, float, int]:
+    """(bytes, operations, real block rows) the launch's function must move
+    and do: each touched real postings block row (doc i32 + tf + norm byte)
+    read once, the clause arrays, LUTs and outputs; a few float operations
+    per posting plus the segment-sum steps."""
+    qblk, blk_docs, blk_tf, caches, coord = args[0], args[9], args[10], args[12], args[8]
+    Qb, TB = qblk.shape
+    k = kwargs["k"]
+    sentinel = blk_docs.shape[0] - 1
+    real = int((qblk != sentinel).sum().item())
+    posting = 4 + blk_tf.element_size() + 1
+    clause = Qb * TB * (4 + 4 + 1 + 4 + 4 + 4)  # qblk qw qconst qcnt qfid qmode
+    per_query = Qb * (4 + 4 + 4 * coord.shape[1])  # n_must msm coord
+    out = Qb * k * (4 + 4) + Qb * 4
+    nbytes = real * 128 * posting + clause + per_query + caches.numel() * 4 + out
+    ops = real * 128 * (6 + kwargs["passes"])
+    return float(nbytes), float(ops), real
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, device, reps: int) -> float:
+    """Mean ms of `fn` over `reps` runs after one warm run: CUDA events on the
+    card (host clock on the CPU, for rehearsals only)."""
+    import torch
+
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+# ---------------------------------------------------------------------------
+# the run
+# ---------------------------------------------------------------------------
+
+
+def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
+        bool_batch: int, n_check: int, seed: int, small_docs: int) -> dict:
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.common.smallfloat import encode_norm
+    from elasticsearch_tpu_torch.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.index.engine import Searcher
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import (
+        packed_for, packed_resident_bytes)
+    from elasticsearch_tpu_torch.ops.sparse_kernels import (
+        sparse_score, sparse_score_plain)
+    from elasticsearch_tpu_torch.search import (
+        ShardContext, SimilarityService, dispatch_shard_batch, parse_query)
+
+    on_card = device.type == "cuda"
+    report: dict = {"device": str(device)}
+    recorder = LaunchRecorder(scoring, sparse_score)
+
+    # -- 1. card facts, kernel builds ---------------------------------------
+    if on_card:
+        report["card"] = card_line()
+        nvcc = subprocess.run([cudaenv.nvcc_path(), "--version"],
+                              capture_output=True, text=True, timeout=60)
+        log("[1] card:", report["card"])
+        log("[1] torch", torch.__version__, "cuda", torch.version.cuda, "nvcc",
+            nvcc.stdout.strip().splitlines()[-1])
+        t0 = time.perf_counter()
+        logs = cudaenv.build_all()
+        report["build_s"] = time.perf_counter() - t0
+        for name, out in logs.items():
+            log(f"[1] built {name} in {report['build_s']:.1f} s")
+            for line in out.splitlines():
+                if "registers" in line or "spill" in line:
+                    log("[1]   ptxas:", line.strip())
+
+    # -- 2. the shard ------------------------------------------------------
+    t0 = time.perf_counter()
+    terms, docs, freqs, lengths = build_corpus(n_docs, vocab, seed)
+    df = np.bincount(terms, minlength=vocab)
+    csr = split_segments(terms, docs, freqs, lengths, vocab)
+    n_postings = len(docs)
+    del terms, docs, freqs
+    term_dict = {"body": {term_name(t): t for t in range(vocab)}}
+    segs = []
+    for g, s in enumerate(csr):
+        n = s["hi"] - s["lo"]
+        segs.append(segment_from_arrays(
+            term_dict, s["offsets"], s["docs"], s["freqs"],
+            {"body": encode_norm(s["lengths"])},
+            {"body": {"doc_count": n, "sum_ttf": int(s["lengths"].sum()),
+                      "sum_dfs": len(s["docs"])}},
+            np.ones(n, bool), np.ones(n, bool), gen=g))
+    report["corpus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for seg in segs:
+        packed_for(seg, device)
+    rng = np.random.default_rng(seed + 1)
+    dead_seg = segs[TOMBSTONE_SEGMENT]
+    dead = rng.choice(dead_seg.doc_count, int(dead_seg.doc_count * TOMBSTONE_SHARE),
+                      replace=False)
+    for local in dead:
+        dead_seg.delete_doc(int(local))
+    packs = [packed_for(seg, device) for seg in segs]  # re-masks the tombstones
+    if on_card:
+        torch.cuda.synchronize()
+    report["pack_s"] = time.perf_counter() - t0
+    resident = sum(packed_resident_bytes(p) for p in packs)
+    slots = sum(p.blk_docs.numel() for p in packs)
+    report.update(docs=n_docs, vocab=vocab, postings=n_postings,
+                  segments=[s["hi"] - s["lo"] for s in csr],
+                  tombstones=len(dead), resident_bytes=resident, slots=slots,
+                  tf_layouts=[p.tf_layout for p in packs])
+    log(f"[2] {n_docs} docs, {vocab} terms, {n_postings} postings in "
+        f"{report['segments']} docs/segment, {len(dead)} tombstones; corpus "
+        f"{report['corpus_s']:.1f} s, pack {report['pack_s']:.1f} s; resident "
+        f"{resident / 1e9:.3f} GB over {slots} slots "
+        f"({resident / max(slots, 1):.2f} B/slot), tf {report['tf_layouts']}")
+
+    def context(settings: dict, dev) -> ShardContext:
+        svc = MapperService(Settings.from_flat(settings))
+        svc.put_mapping("doc", {"properties": {"body": {"type": "string"}}})
+        return ShardContext(Searcher(segs), svc,
+                            SimilarityService(Settings.from_flat(settings), svc),
+                            device=dev)
+
+    def bool_body(clauses, msm=None):
+        body = {}
+        for t, g in clauses:
+            body.setdefault(g, []).append({"term": {"body": term_name(int(t))}})
+        if msm is not None:
+            body["minimum_should_match"] = msm
+        return {"bool": body}
+
+    ranked = np.argsort(-df, kind="stable")
+    pool = ranked[RANKS[0]: RANKS[1]]
+    ref = Reference(csr, [seg.norms["body"] for seg in segs],
+                    [seg.live & seg.parent_mask for seg in segs])
+
+    # -- 3. main path --------------------------------------------------------
+    bm25 = context(BM25_SETTINGS, device)
+    qrng = np.random.default_rng(seed + 2)
+    batches = []
+    for _ in range(n_batches + 1):  # the first batch warms up
+        rows = qrng.choice(pool, size=(batch, TERMS_PER_QUERY))
+        clause_rows = [[(t, "should") for t in row] for row in rows]
+        batches.append((clause_rows, [parse_query(bool_body(c)) for c in clause_rows]))
+
+    gc_pauses = GcPauses()
+
+    def run_batch(ctx, queries):
+        gc_pauses.take()
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = dispatch_shard_batch(ctx, queries, K)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        t1 = time.perf_counter()
+        results = pending.merge()
+        overflow = sum(len(sub) for (_s, _b, _p, _l, dense) in pending.seg_work
+                       for (sub, _r) in dense or ())
+        return (results, overflow, (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3,
+                gc_pauses.take())
+
+    # set-up before the timed batches: one warm-up batch, then the dense
+    # fallback's first use (the most frequent term overflows tb_max in every
+    # segment: it faults in each segment's f32 plane), timed cold and warm
+    run_batch(bm25, batches[0][1])
+    head = [parse_query(bool_body([(ranked[0], "should")]))]
+    cold_ms = run_batch(bm25, head)[2]
+    warm_ms = run_batch(bm25, head)[2]
+    report["dense_first_use_ms"] = dict(cold=cold_ms, warm=warm_ms)
+    log(f"[3] set-up: dense fallback's first use {cold_ms:.2f} ms, then {warm_ms:.2f} ms "
+        f"(one query over the most frequent term, all {len(segs)} segments)")
+    cudaenv.LAUNCHES.reset()
+    lat, dispatch, gc_ms, overflows, main_results = [], [], [], [], None
+    for bi, (_c, queries) in enumerate(batches[1:]):
+        recorder.batch = [] if bi == 0 else None
+        results, overflow, ms, dispatch_ms, gc_batch_ms = run_batch(bm25, queries)
+        if bi == 0:
+            main_results, main_batch = results, recorder.batch
+        lat.append(ms)
+        dispatch.append(dispatch_ms)
+        gc_ms.append(gc_batch_ms)
+        overflows.append(overflow)
+    overflow_pairs = sum(overflows)
+    recorder.batch = None
+    main_launches = cudaenv.LAUNCHES.snapshot()
+    lat_a = np.asarray(lat)
+    report["main"] = dict(
+        batches=n_batches, batch=batch, k=K, latency_ms=lat, dispatch_ms=dispatch,
+        gc_ms=gc_ms, overflow_per_batch=overflows,
+        p50_ms=float(np.percentile(lat_a, 50)), p99_ms=float(np.percentile(lat_a, 99)),
+        qps=float(n_batches * batch / (lat_a.sum() / 1e3)),
+        overflow_query_segments=overflow_pairs,
+        query_segments=n_batches * batch * len(segs), launches=main_launches)
+    m = report["main"]
+    log(f"[3] {n_batches} x {batch} queries: {m['qps']:.1f} QPS, batch p50 "
+        f"{m['p50_ms']:.2f} ms p99 {m['p99_ms']:.2f} ms (dispatch half p50 "
+        f"{np.median(dispatch):.2f} ms, garbage collection {sum(gc_ms):.1f} ms in "
+        f"all); {overflow_pairs} of "
+        f"{m['query_segments']} (query, segment) pairs past tb_max -> dense path; "
+        f"launches {main_launches}")
+    for r in main_results:
+        assert len(r.hits) <= K and all(np.isfinite(s) for s, _d in r.hits)
+    if on_card:
+        for name in KERNELS:
+            assert main_launches.get(name, 0) > 0, f"{name} never launched on the main path"
+
+    # -- 4. non-simple batches -------------------------------------------------
+    bool_pool = ranked[BOOL_RANKS[0]: BOOL_RANKS[1]]
+    brng = np.random.default_rng(seed + 3)
+    bool_clauses = []
+    for _ in range(bool_batch):
+        t = brng.choice(bool_pool, 5, replace=False)
+        bool_clauses.append([(t[0], "must"), (t[1], "should"), (t[2], "should"),
+                             (t[3], "should"), (t[4], "must_not")])
+    bool_queries = [parse_query(bool_body(c, msm=2)) for c in bool_clauses]
+    bool_results = {}
+    cudaenv.LAUNCHES.reset()
+    for sim, settings in (("bm25", BM25_SETTINGS), ("tfidf", TFIDF_SETTINGS)):
+        results, overflow, ms, _d, _g = run_batch(context(settings, device), bool_queries)
+        bool_results[sim] = results
+        report[f"bool_{sim}"] = dict(queries=bool_batch, ms=ms,
+                                     overflow_query_segments=overflow,
+                                     matched=sum(r.total for r in results))
+        log(f"[4] bool must+should+must_not msm=2 under {sim}: {ms:.2f} ms, "
+            f"{overflow} pairs on the dense path, "
+            f"{sum(1 for r in results if r.total)} of {bool_batch} queries match")
+    bool_launches = cudaenv.LAUNCHES.snapshot()
+    report["bool_launches"] = bool_launches
+    gc_pauses.close()
+    recorder.close()
+    report["resident_bytes_after_dense"] = sum(packed_resident_bytes(p) for p in packs)
+    log(f"[4] resident after the dense path ran: "
+        f"{report['resident_bytes_after_dense'] / 1e9:.3f} GB (the lazy f32 plane "
+        f"of {sum(p.blk_freqs is not None for p in packs)} segments)")
+    if on_card:
+        for name in KERNELS:
+            assert bool_launches.get(name, 0) > 0, f"{name} never launched in phase 4"
+
+    # -- 5. kernel against plain, every launched shape -----------------------
+    max_err = 0.0
+    for key, (args, kwargs, _n) in recorder.shapes.items():
+        got = sparse_score(*args, **kwargs)
+        want = sparse_score_plain(*args, **kwargs)
+        for g, w, what in zip(got, want, ("scores", "docs", "totals")):
+            assert torch.equal(g, w), f"kernel != plain on {what} at {key}"
+        fin = torch.isfinite(want[0])
+        if fin.any():
+            max_err = max(max_err, float((got[0][fin] - want[0][fin]).abs().max()))
+    report["kernel_vs_plain"] = dict(shapes=len(recorder.shapes), max_abs_err=max_err)
+    log(f"[5] sparse_score == plain (bitwise: scores, docs, totals) at all "
+        f"{len(recorder.shapes)} launched shapes; max abs err {max_err}")
+
+    # -- 6. end to end against the reference scorer ----------------------------
+    checked = 0
+    crng = np.random.default_rng(seed + 4)
+    main_clauses = batches[1][0]
+    for qi in crng.choice(len(main_results), min(n_check, len(main_results)), replace=False):
+        cl = [(int(t), g) for t, g in main_clauses[qi]]
+        total, scores, _m = ref.search(cl, msm=1, sim="bm25", k=K)
+        check_hits(f"main q{qi}", main_results[qi], total, scores, K)
+        checked += 1
+    for sim, results in bool_results.items():
+        for qi in crng.choice(len(results), min(n_check, len(results)), replace=False):
+            cl = [(int(t), g) for t, g in bool_clauses[qi]]
+            total, scores, _m = ref.search(cl, msm=2, sim=sim, k=K)
+            check_hits(f"bool {sim} q{qi}", results[qi], total, scores, K)
+            checked += 1
+    report["reference_checked"] = checked
+    log(f"[6] {checked} queries match the numpy term-at-a-time scorer "
+        f"(totals exact, scores rtol {RTOL}, order up to near-ties)")
+
+    # -- 7. the normal indexing path, small --------------------------------
+    small = small_index_check(device, small_docs, seed + 5)
+    report["small_index"] = small
+    log(f"[7] {small['docs']} docs through mapper -> analyzer -> SegmentBuilder "
+        f"-> {small['segments']} segments: {small['queries']} queries, hits on "
+        f"{device} == hits on cpu ({small['hits']} hits)")
+
+    # -- 8. times ------------------------------------------------------------
+    shapes = []
+    for key, (args, kwargs, n) in sorted(recorder.shapes.items()):
+        nbytes, ops, real = launch_bound(args, kwargs)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        reps = 20 if args[0].shape[1] < 256 else 5
+        k_ms = time_ms(lambda: sparse_score(*args, **kwargs), device, reps)
+        p_ms = time_ms(lambda: sparse_score_plain(*args, **kwargs), device, reps)
+        shapes.append(dict(Qb=key[0][0], TB=key[0][1], tf=key[1], k=key[2],
+                           passes=key[3], simple=key[4], use_coord=key[5],
+                           launches=n, real_blocks=real, ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by))
+    report["shapes"] = shapes
+    log("[8] per shape (launches: phases 3-4 with their warm-up): Qb TB tf k passes "
+        "simple coord "
+        "| launches | kernel ms | plain ms | bound ms")
+    for s in shapes:
+        log(f"[8]   {s['Qb']:5d} {s['TB']:4d} {s['tf']:>13s} {s['k']:4d} "
+            f"{s['passes']} {int(s['simple'])} {int(s['use_coord'])} | {s['launches']:4d} "
+            f"| {s['ms']:.4f} | {s['plain_ms']:.4f} | {s['bound_ms']:.5f} ({s['bound_by']})")
+
+    def replay(fn):
+        def go():
+            for a, kw in main_batch:
+                fn(*a, **kw)
+        return go
+
+    nbytes = sum(launch_bound(a, kw)[0] for a, kw in main_batch)
+    ops = sum(launch_bound(a, kw)[1] for a, kw in main_batch)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    k_ms = time_ms(replay(sparse_score), device, 5)
+    p_ms = time_ms(replay(sparse_score_plain), device, 5)
+    report["main_batch_kernels"] = dict(launches=len(main_batch), ms=k_ms,
+                                        plain_ms=p_ms, bound_ms=b_ms,
+                                        bound_by=b_by, bytes=nbytes, ops=ops)
+    log(f"[8] one main-path batch's {len(main_batch)} sparse_score launches: "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    if on_card:
+        prof = profile_batch(bm25, batches[1][1])
+        report["profiled_batch"] = prof
+        if prof["device_busy_ms"]:
+            log(f"[8] profiled main-path batch: wall {prof['wall_ms']:.2f} ms, device "
+                f"busy {prof['device_busy_ms']:.3f} ms, idle share {prof['idle_share']:.4f}")
+            for name, ms, n in prof["top"]:
+                log(f"[8]   {ms:9.3f} ms {n:5d}x {name}")
+        else:
+            log("[8] profiled main-path batch: the profiler saw no device time "
+                "(device idle share not measured)")
+        report["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[8] peak device memory allocated {report['peak_allocated_bytes'] / 1e9:.2f} GB")
+    report["kernels"] = [dict(
+        name="sparse_score", **KERNELS["sparse_score"],
+        launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+    return report
+
+
+def profile_batch(ctx, queries) -> dict:
+    """One main-path batch under torch.profiler: host wall time, device busy
+    time (kernels and copies, one stream) by name, and the device's idle
+    share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.search import dispatch_shard_batch
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch_shard_batch(ctx, queries, K).merge()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((e.key[:90], us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(ms for _n, ms, _c in rows)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=(1.0 - busy / wall_ms) if busy else None, top=rows[:12])
+
+
+def small_index_check(device, n_docs: int, seed: int) -> dict:
+    """About `n_docs` docs through the mapper, analyzer and SegmentBuilder
+    into two segments (one tombstone), searched on `device` and on the CPU."""
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.engine import Searcher
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.search import (
+        ShardContext, SimilarityService, parse_query, search_shard_batch)
+
+    rng = np.random.default_rng(seed)
+    words = [f"word{i}" for i in range(400)]
+    p = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    p /= p.sum()
+
+    def text(n):
+        return " ".join(rng.choice(words, n, p=p))
+
+    svc = MapperService(Settings.from_flat(BM25_SETTINGS))
+    segs = []
+    for g, (lo, hi) in enumerate(((0, n_docs * 2 // 3), (n_docs * 2 // 3, n_docs))):
+        b = SegmentBuilder(g)
+        for i in range(lo, hi):
+            src = {"title": text(int(rng.integers(2, 8))),
+                   "body": text(int(rng.integers(10, 120)))}
+            b.add(svc.mapper_for("doc").parse(src, str(i)))
+        segs.append(b.freeze())
+    segs[0].delete_doc(3)
+    bodies = [
+        {"match": {"body": "word1 word7 word30"}},
+        {"match": {"body": {"query": "word2 word5", "operator": "and"}}},
+        {"match": {"body": {"query": "word3 word9 word40 word77",
+                            "minimum_should_match": "75%"}}},
+        {"match": {"title": {"query": "word4 word11", "boost": 2.0}}},
+        {"bool": {"must": [{"match": {"body": "word6"}}],
+                  "should": [{"term": {"body": "word8"}}, {"match": {"title": "word12"}}],
+                  "must_not": [{"term": {"body": "word13"}}]}},
+        {"bool": {"should": [{"term": {"body": "word14"}}, {"term": {"body": "word15"}},
+                             {"term": {"title": "word16"}}],
+                  "minimum_should_match": 2}},
+        {"match": {"_all": "word17 word18"}},
+    ]
+    queries = [parse_query(b) for b in bodies]
+    sims = SimilarityService(Settings.from_flat(BM25_SETTINGS), svc)
+    out = {}
+    for dev in (device, "cpu"):
+        ctx = ShardContext(Searcher(segs), svc, sims, device=dev)
+        out[str(dev)] = [(r.total, r.hits) for r in search_shard_batch(ctx, queries, 20)]
+    got, want = out[str(device)], out["cpu"]
+    assert got == want, "small index: card hits differ from cpu hits"
+    n_hits = sum(len(h) for _t, h in want)
+    assert n_hits > 0 and all(t > 0 for t, _h in want)
+    return dict(docs=n_docs, segments=len(segs), queries=len(queries), hits=n_hits)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--docs", type=int, default=1_000_000)
+    ap.add_argument("--vocab", type=int, default=200_000)
+    ap.add_argument("--batches", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--bool-batch", type=int, default=256)
+    ap.add_argument("--check", type=int, default=64,
+                    help="queries per batch kind held against the reference scorer")
+    ap.add_argument("--small-docs", type=int, default=2000)
+    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--report", help="also write the full report as JSON here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke run needs the card",
+              file=sys.stderr)
+        return 2
+    here = Path(__file__).resolve().parent
+    if not (here / "elasticsearch_tpu_torch").is_dir() or shutil.which("nvidia-smi") is None:
+        print("chip_smoke: run from a checkout of the repository on a machine "
+              "with nvidia-smi", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    report = run(torch.device("cuda", 0), n_docs=args.docs, vocab=args.vocab,
+                 n_batches=args.batches, batch=args.batch,
+                 bool_batch=args.bool_batch, n_check=args.check, seed=args.seed,
+                 small_docs=args.small_docs)
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"[8] every number above: {report['card']}; wall {report['wall_s']:.1f} s")
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps(report, indent=1, default=str))
+    print(json.dumps({"kernels": report["kernels"]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
