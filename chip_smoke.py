@@ -22,12 +22,18 @@ on the card. Phases:
      and minimum_should_match 2, under BM25 and under TF-IDF (coord);
   5. every kernel against its plain version on the same card tensors, at
      every bucket shape phases 3-4 launched: bitwise;
+ 5b. `sparse_score` against its plain version on synthetic inputs, bitwise:
+     every TB rung 8-512 × {simple, bool, bool + coord} × tf plane {u8, i16,
+     f32}, with a row of fewer matches than k, a row all sentinel, and k = P
+     at TB = 8 — both kernel variants and every tf plane;
   6. end to end against an independent numpy term-at-a-time scorer;
   7. the normal indexing path, small: mapper → analyzer → SegmentBuilder →
      two segments → Searcher → parse_query → search_shard_batch, on the card
      and on the CPU: identical hits;
   8. times: QPS and batch latency of phase 3, each kernel's time (CUDA
-     events) beside its plain version's and its bound.
+     events) beside its plain version's and its bound; the same calls
+     replayed from a CUDA graph give their device time without the host's
+     launch cost.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -279,6 +285,109 @@ class GcPauses:
         gc.callbacks.remove(self._callback)
 
 
+GRID_TBS = (8, 16, 32, 64, 128, 256, 512)
+GRID_QB = 16
+GRID_CLAUSES = 8  # clauses a grid query splits its blocks into: passes = 3
+GRID_MODES = {"simple": (True, False), "bool": (False, False), "coord": (False, True)}
+GRID_DOC_PAD = 1 << 20
+
+
+def grid_planes(rng, TB: int, tf: str):
+    """Synthetic [NB, 128] planes for one grid rung: Qb·TB random block rows
+    over TB·32 docs (each doc about 4 times a query row, across clauses),
+    10% dead slots; then a row of 20 docs (fewer matches than k) and the
+    all-sentinel row last."""
+    NB = GRID_QB * TB + 2
+    docs = rng.integers(0, TB * 32, (NB, 128)).astype(np.int32)
+    docs[rng.random((NB, 128)) < 0.1] = GRID_DOC_PAD
+    docs[NB - 2] = rng.integers(0, 20, 128)
+    docs[NB - 1] = GRID_DOC_PAD
+    if tf == "u8":
+        tfs = rng.integers(1, 256, (NB, 128)).astype(np.uint8)
+    elif tf == "i16":
+        tfs = rng.integers(1, 3000, (NB, 128)).astype(np.int16)
+    else:
+        tfs = (rng.random((NB, 128)) * 40 + 0.25).astype(np.float32)
+    nb = rng.integers(0, 256, (NB, 128)).astype(np.uint8)
+    return docs, tfs, nb
+
+
+def grid_queries(rng, TB: int, NB: int, simple: bool, use_coord: bool):
+    """[Qb, TB] clause arrays: each row's blocks split into GRID_CLAUSES
+    clauses (bool: clause 0 must, clause 6 must_not, the rest should, msm 2);
+    row 0 holds only the 20-doc row, row 1 only the sentinel row."""
+    few, sentinel = NB - 2, NB - 1
+    qblk = rng.integers(0, NB - 2, (GRID_QB, TB)).astype(np.int32)
+    qblk[0] = sentinel
+    qblk[0, 0] = few
+    qblk[1] = sentinel
+    clause = np.arange(TB) * GRID_CLAUSES // TB  # clause of each block column
+    group = np.where(clause == 0, 1, np.where(clause == 6, 2, 0))
+    if simple:
+        group[:] = 0
+    qcnt = np.where(group == 0, 1, np.where(group == 1, 1 << 10, 1 << 20))
+    w = (rng.random((GRID_QB, GRID_CLAUSES)) * 3 + 0.1).astype(np.float32)
+    qw = np.where(group == 2, np.float32(0.0), w[:, clause]).astype(np.float32)
+    qconst = (rng.random((GRID_QB, GRID_CLAUSES)) < 0.1)[:, clause]
+    qfid = rng.integers(0, 2, (GRID_QB, GRID_CLAUSES)).astype(np.int32)[:, clause]
+    n_must = np.full(GRID_QB, 0 if simple else 1, np.int32)
+    msm = np.full(GRID_QB, 1 if simple else 2, np.int32)
+    coord = (rng.random((GRID_QB, GRID_CLAUSES + 1)) + 0.25).astype(np.float32)
+    if not use_coord:
+        coord[:] = 1.0
+    return dict(qblk=qblk, qw=qw, qconst=qconst,
+                qcnt=np.broadcast_to(qcnt, (GRID_QB, TB)).astype(np.int32),
+                qfid=qfid, n_must=n_must, msm=msm, coord=coord)
+
+
+def kernel_grid(device, seed: int, tbs=GRID_TBS) -> dict:
+    """The kernel against its plain version on synthetic inputs, bitwise:
+    every TB rung × {simple, bool, bool + coord} × tf plane {u8, i16, f32},
+    k = 100 (a row with fewer matches than k, a row all sentinel), plus
+    k = P at the smallest rung. Returns the checked cases and the kernel's
+    launches by name."""
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops.sparse_kernels import (
+        sparse_score, sparse_score_plain)
+
+    rng = np.random.default_rng(seed)
+    caches = torch.from_numpy((rng.random((2, 256)) * 2 + 0.1).astype(np.float32)).to(device)
+    modes = torch.tensor([0, 1], dtype=torch.int32, device=device)  # BM25, TF-IDF
+    before = cudaenv.LAUNCHES.snapshot()
+    cases = 0
+    for TB in tbs:
+        for tf in ("u8", "i16", "f32"):
+            docs, tfs, nb = grid_planes(rng, TB, tf)
+            planes = [torch.from_numpy(a).to(device) for a in (docs, tfs, nb)]
+            for mode, (simple, use_coord) in GRID_MODES.items():
+                q = {n: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for n, a in grid_queries(rng, TB, len(docs), simple, use_coord).items()}
+                args = (q["qblk"], q["qw"], q["qconst"], q["qcnt"], q["qfid"],
+                        modes[q["qfid"].long()], q["n_must"], q["msm"], q["coord"],
+                        *planes, caches)
+                ks = (min(K, TB * 128),) + ((TB * 128,) if TB == min(tbs) else ())
+                for k in ks:
+                    kw = dict(k=k, doc_pad=GRID_DOC_PAD, passes=3, simple=simple,
+                              use_coord=use_coord)
+                    got = sparse_score(*args, **kw)
+                    want = sparse_score_plain(*args, **kw)
+                    where = f"grid TB={TB} tf={tf} {mode} k={k}"
+                    for g, w_, what in zip(got, want, ("scores", "docs", "totals")):
+                        assert torch.equal(g, w_), f"kernel != plain on {what} at {where}"
+                    totals = want[2].tolist()
+                    assert totals[0] < k and totals[1] == 0, f"{where}: edge rows {totals[:2]}"
+                    assert bool(torch.isneginf(want[0][0, totals[0]:]).all()), where
+                    assert bool((want[1][1] == GRID_DOC_PAD).all()), where
+                    assert max(totals[2:]) > 0, f"{where}: no row matched"
+                    cases += 1
+    after = cudaenv.LAUNCHES.snapshot()
+    launches = {n: after.get(n, 0) - before.get(n, 0) for n in after
+                if after.get(n, 0) != before.get(n, 0)}
+    return dict(cases=cases, launches=launches)
+
+
 def launch_bound(args, kwargs) -> tuple[float, float, int]:
     """(bytes, operations, real block rows) the launch's function must move
     and do: each touched real postings block row (doc i32 + tf + norm byte)
@@ -326,6 +435,32 @@ def time_ms(fn, device, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms of `fn` on the card without the host's launch cost:
+    `reps` calls captured in one CUDA graph after a warm call, the graph
+    replayed 3 times between CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -345,7 +480,7 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     from elasticsearch_tpu_torch.ops.device_index import (
         packed_for, packed_resident_bytes)
     from elasticsearch_tpu_torch.ops.sparse_kernels import (
-        sparse_score, sparse_score_plain)
+        _launch_plan, sparse_score, sparse_score_plain)
     from elasticsearch_tpu_torch.search import (
         ShardContext, SimilarityService, dispatch_shard_batch, parse_query)
 
@@ -505,6 +640,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     if on_card:
         for name in KERNELS:
             assert main_launches.get(name, 0) > 0, f"{name} never launched on the main path"
+        for variant in ("sparse_score.smem", "sparse_score.global"):
+            assert main_launches.get(variant, 0) > 0, (
+                f"{variant} never launched on the main path")
 
     # -- 4. non-simple batches -------------------------------------------------
     bool_pool = ranked[BOOL_RANKS[0]: BOOL_RANKS[1]]
@@ -551,6 +689,13 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     report["kernel_vs_plain"] = dict(shapes=len(recorder.shapes), max_abs_err=max_err)
     log(f"[5] sparse_score == plain (bitwise: scores, docs, totals) at all "
         f"{len(recorder.shapes)} launched shapes; max abs err {max_err}")
+    grid = kernel_grid(device, seed + 6)
+    report["kernel_grid"] = grid
+    log(f"[5b] sparse_score == plain (bitwise) on {grid['cases']} synthetic cases; "
+        f"launches {grid['launches']}")
+    if on_card:
+        for variant in ("sparse_score.smem", "sparse_score.global"):
+            assert grid["launches"].get(variant, 0) > 0, f"{variant} never launched in 5b"
 
     # -- 6. end to end against the reference scorer ----------------------------
     checked = 0
@@ -586,18 +731,26 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         reps = 20 if args[0].shape[1] < 256 else 5
         k_ms = time_ms(lambda: sparse_score(*args, **kwargs), device, reps)
         p_ms = time_ms(lambda: sparse_score_plain(*args, **kwargs), device, reps)
+        k_graph = p_graph = None
+        if on_card:
+            k_graph = graph_ms(lambda: sparse_score(*args, **kwargs), reps)
+            p_graph = graph_ms(lambda: sparse_score_plain(*args, **kwargs), reps)
         shapes.append(dict(Qb=key[0][0], TB=key[0][1], tf=key[1], k=key[2],
+                           variant=_launch_plan(*key[0], key[4]).variant,
                            passes=key[3], simple=key[4], use_coord=key[5],
                            launches=n, real_blocks=real, ms=k_ms, plain_ms=p_ms,
+                           graph_ms=k_graph, plain_graph_ms=p_graph,
                            bound_ms=b_ms, bound_by=b_by))
     report["shapes"] = shapes
     log("[8] per shape (launches: phases 3-4 with their warm-up): Qb TB tf k passes "
-        "simple coord "
-        "| launches | kernel ms | plain ms | bound ms")
+        "simple coord variant "
+        "| launches | kernel ms | plain ms | bound ms | in a CUDA graph: kernel ms, plain ms")
     for s in shapes:
         log(f"[8]   {s['Qb']:5d} {s['TB']:4d} {s['tf']:>13s} {s['k']:4d} "
-            f"{s['passes']} {int(s['simple'])} {int(s['use_coord'])} | {s['launches']:4d} "
-            f"| {s['ms']:.4f} | {s['plain_ms']:.4f} | {s['bound_ms']:.5f} ({s['bound_by']})")
+            f"{s['passes']} {int(s['simple'])} {int(s['use_coord'])} {s['variant']:>6s} "
+            f"| {s['launches']:4d} "
+            f"| {s['ms']:.4f} | {s['plain_ms']:.4f} | {s['bound_ms']:.5f} ({s['bound_by']})"
+            + (f" | {s['graph_ms']:.4f}, {s['plain_graph_ms']:.4f}" if on_card else ""))
 
     def replay(fn):
         def go():
@@ -610,12 +763,17 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     b_ms, b_by = bound_ms(nbytes, ops)
     k_ms = time_ms(replay(sparse_score), device, 5)
     p_ms = time_ms(replay(sparse_score_plain), device, 5)
+    k_graph = graph_ms(replay(sparse_score), 2) if on_card else None
+    p_graph = graph_ms(replay(sparse_score_plain), 2) if on_card else None
     report["main_batch_kernels"] = dict(launches=len(main_batch), ms=k_ms,
-                                        plain_ms=p_ms, bound_ms=b_ms,
+                                        plain_ms=p_ms, graph_ms=k_graph,
+                                        plain_graph_ms=p_graph, bound_ms=b_ms,
                                         bound_by=b_by, bytes=nbytes, ops=ops)
     log(f"[8] one main-path batch's {len(main_batch)} sparse_score launches: "
         f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e6:.1f} MB)")
+        f"{nbytes / 1e6:.1f} MB)"
+        + (f"; in a CUDA graph: kernel {k_graph:.3f} ms, plain {p_graph:.3f} ms"
+           if on_card else ""))
     if on_card:
         prof = profile_batch(bm25, batches[1][1])
         report["profiled_batch"] = prof

@@ -11,7 +11,9 @@ optional coord factor, and keep the top k. In: [Qb, TB] clause arrays and the
 [NB, 128] planes; out: scores f32 [Qb, k], docs i32 [Qb, k], totals i32 [Qb].
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-`csrc/sparse_score.cu` (or raises); on a CPU tensor it runs the plain version
+`csrc/sparse_score.cu` (or raises), in the variant `_launch_plan` picks: all
+in shared memory up to 8192 slots a query, global scratch with tiled sorts
+above. On a CPU tensor it runs the plain version
 below, `sparse_candidates` + `sparse_reduce`, which repeats the kernel's
 arithmetic op for op. The two are bitwise equal: chip_smoke.py holds them
 against each other on the card at every bucket shape the main path launches,
@@ -22,6 +24,7 @@ package bit for bit.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -32,6 +35,43 @@ GROUP_SHOULD, GROUP_MUST, GROUP_MUST_NOT = 0, 1, 2
 _MUST_SHIFT, _NOT_SHIFT = 10, 20
 
 _TF_KIND = {torch.uint8: 0, torch.int16: 1, torch.float32: 2}
+
+SMEM_MAX_SLOTS = 8192  # largest P the shared-memory variant holds
+GLOBAL_TILE = 8192  # keys per shared tile of the global variant's sorts
+_VARIANT_CODE = {"smem": 0, "global": 1}
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch of the kernel runs: the variant, its threads per
+    block, its dynamic shared bytes, and the global scratch the wrapper
+    allocates ({name: (shape, dtype)}, empty for the smem variant)."""
+    variant: str
+    threads: int
+    shared_bytes: int
+    scratch: dict
+
+
+def _launch_plan(Qb: int, TB: int, simple: bool) -> LaunchPlan:
+    """The launch plan of a [Qb, TB] bucket (P = TB·128 slots per query).
+
+    TB is a bucket size of `plan_sparse_buckets`: a power of two ≥ 8.
+    P ≤ 8192: the smem variant — the whole reduction in shared memory (doc
+    keys 8 B, contributions ping/pong 8 B, counters ping/pong 8 B unless
+    simple, per slot), min(1024, P/2) threads, no global scratch. Above: the
+    global variant — 1024 threads, a 64 KB shared tile for the tiled sorts,
+    [Qb, P] doc keys and score keys and ping/pong [2, Qb, P] contributions
+    (and counters unless simple) in device memory."""
+    if TB < 8 or TB & (TB - 1):
+        raise ValueError(f"sparse_score: TB={TB} must be a power of two >= 8")
+    P = TB * BLOCK
+    if P <= SMEM_MAX_SLOTS:
+        return LaunchPlan("smem", min(1024, P // 2), P * (16 if simple else 24), {})
+    scratch = {"keys": ((Qb, P), torch.int64), "skeys": ((Qb, P), torch.int64),
+               "cbuf": ((2, Qb, P), torch.float32)}
+    if not simple:
+        scratch["nbuf"] = ((2, Qb, P), torch.int32)
+    return LaunchPlan("global", 1024, GLOBAL_TILE * 8, scratch)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +205,8 @@ def _lib():
             [p] * 9 + [i]            # qblk qw qconst qcnt qfid qmode n_must msm coord, C1
             + [p, p, i, p, p]        # blk_docs blk_tf tf_kind blk_nb caches
             + [i] * 7                # Qb TB k doc_pad passes simple use_coord
-            + [p, p, p]              # scratch: keys, contrib, counters
+            + [i] * 3                # the plan: variant, threads, shared bytes
+            + [p, p, p, p]           # scratch: keys, score keys, contrib, counters
             + [p, p, p, p])          # out scores, docs, totals; stream
         lib.sparse_score_launch.restype = ctypes.c_int
         lib.sparse_score_error_string.argtypes = [ctypes.c_int]
@@ -196,8 +237,7 @@ def _sparse_score_cuda(qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
     NB = blk_docs.shape[0]
     F = caches.shape[0]
     C1 = coord.shape[1]
-    if P & (P - 1):
-        raise ValueError(f"sparse_score: TB={TB} must be a power of two")
+    plan = _launch_plan(Qb, TB, simple)
     if not 1 <= k <= P:
         raise ValueError(f"sparse_score: k={k} outside [1, {P}]")
     if not 0 <= passes < 31 or (1 << passes) > P:
@@ -217,10 +257,10 @@ def _sparse_score_cuda(qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
     _check(blk_nb, "blk_nb", torch.uint8, (NB, BLOCK), device)
     _check(caches, "caches", torch.float32, (F, 256), device)
 
-    keys = torch.empty((Qb, P), dtype=torch.int64, device=device)
-    cbuf = torch.empty((2, Qb, P), dtype=torch.float32, device=device)
-    nbuf = torch.empty((2, Qb, P) if not simple else (1,), dtype=torch.int32,
-                       device=device)
+    scratch = {name: torch.empty(shape, dtype=dtype, device=device)
+               for name, (shape, dtype) in plan.scratch.items()}
+    keys, skeys, cbuf, nbuf = (scratch[n].data_ptr() if n in scratch else None
+                               for n in ("keys", "skeys", "cbuf", "nbuf"))
     scores = torch.empty((Qb, k), dtype=torch.float32, device=device)
     docs = torch.empty((Qb, k), dtype=torch.int32, device=device)
     totals = torch.empty((Qb,), dtype=torch.int32, device=device)
@@ -233,10 +273,12 @@ def _sparse_score_cuda(qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
         blk_docs.data_ptr(), blk_tf.data_ptr(), _TF_KIND[blk_tf.dtype],
         blk_nb.data_ptr(), caches.data_ptr(),
         Qb, TB, k, doc_pad, passes, int(simple), int(use_coord),
-        keys.data_ptr(), cbuf.data_ptr(), nbuf.data_ptr(),
+        _VARIANT_CODE[plan.variant], plan.threads, plan.shared_bytes,
+        keys, skeys, cbuf, nbuf,
         scores.data_ptr(), docs.data_ptr(), totals.data_ptr(), stream)
     if err != 0:
         msg = lib.sparse_score_error_string(err).decode()
         raise RuntimeError(f"sparse_score launch failed: CUDA error {err}: {msg}")
     cudaenv.LAUNCHES.bump("sparse_score")
+    cudaenv.LAUNCHES.bump(f"sparse_score.{plan.variant}")
     return scores, docs, totals

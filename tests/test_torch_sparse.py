@@ -17,7 +17,9 @@ from elasticsearch_tpu.ops import scoring as jscoring
 from elasticsearch_tpu.ops.device_index import BLOCK, TFN_BM25, TFN_TFIDF
 from elasticsearch_tpu_torch.ops import scoring as tscoring
 from elasticsearch_tpu_torch.ops.sparse_kernels import (
-    sparse_score, top_k_lowest_index)
+    _launch_plan, sparse_score, top_k_lowest_index)
+
+SMEM_LIMIT = 232_448  # dynamic shared bytes a Hopper block may use
 
 
 def _data(seed=3, NB=64, Qb=8, TB=16, F=3, doc_pad=10_240, tf_dtype=np.uint8):
@@ -230,3 +232,95 @@ def test_score_flat_sparse_matches_jax():
     assert list(out[3]) == list(ref[3]) and len(out[3]) >= 1
     assert out[2].sum() > 0
     _assert_bitwise([np.asarray(x) for x in ref[:3]], list(out[:3]))
+
+
+@pytest.mark.parametrize("TB", [8, 16, 32, 64])
+@pytest.mark.parametrize("simple", [True, False], ids=["simple", "bool"])
+def test_launch_plan_smem_variant_has_no_scratch(TB, simple):
+    """TB ≤ 64: the whole reduction in shared memory, no global scratch,
+    min(1024, P/2) threads, within a block's shared-memory limit."""
+    plan = _launch_plan(16, TB, simple)
+    P = TB * BLOCK
+    assert plan.variant == "smem"
+    assert plan.scratch == {}
+    assert plan.threads == min(1024, P // 2)
+    assert plan.shared_bytes == P * (16 if simple else 24) <= SMEM_LIMIT
+
+
+def test_launch_plan_smem_budget_at_8192_slots():
+    """At P = 8192: keys 64 KB + contributions 64 KB + counters 64 KB when
+    the query is not simple, 128 KB when it is, both under 232,448 bytes."""
+    assert _launch_plan(4, 64, False).shared_bytes == 192 * 1024 <= SMEM_LIMIT
+    assert _launch_plan(4, 64, True).shared_bytes == 128 * 1024 <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("TB", [128, 256, 512])
+@pytest.mark.parametrize("simple", [True, False], ids=["simple", "bool"])
+def test_launch_plan_global_variant_scratch(TB, simple):
+    """TB ≥ 128: the global variant with [Qb, P] scratch (doc keys, score
+    keys; contributions and, unless simple, counters double-buffered)."""
+    Qb, P = 32, TB * BLOCK
+    plan = _launch_plan(Qb, TB, simple)
+    assert plan.variant == "global"
+    assert plan.threads == 1024
+    assert plan.shared_bytes == 8192 * 8 <= SMEM_LIMIT
+    want = {"keys": ((Qb, P), torch.int64), "skeys": ((Qb, P), torch.int64),
+            "cbuf": ((2, Qb, P), torch.float32)}
+    if not simple:
+        want["nbuf"] = ((2, Qb, P), torch.int32)
+    assert plan.scratch == want
+
+
+@pytest.mark.parametrize("TB", [0, 3, 4, 12, 96, -8])
+def test_launch_plan_rejects_tb_not_a_power_of_two(TB):
+    """Bucket sizes are powers of two from 8 up; anything else is refused
+    before a launch."""
+    with pytest.raises(ValueError, match="power of two"):
+        _launch_plan(8, TB, True)
+
+
+def _top_k_by_descending_sort(values: np.ndarray, k: int):
+    """The kernel's top-k, step for step: the unsigned 64-bit key of each
+    (score, index) — ordered float image with its sign bit flipped in the high
+    half, 0xFFFFFFFF - index in the low half — sorted descending, first k;
+    score and index decoded back from the key."""
+    n = values.shape[1]
+    bits = values.view(np.int32)
+    ordered = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits).astype(np.int32)
+    high = (ordered.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+    low = np.uint64(0xFFFFFFFF) - np.arange(n, dtype=np.uint64)
+    keys = (high << np.uint64(32)) | low
+    top = np.sort(keys, axis=1)[:, ::-1][:, :k]
+    back = ((top >> np.uint64(32)).astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
+    scores = np.where(back < 0, back ^ 0x7FFFFFFF, back).astype(np.int32).view(np.float32)
+    index = (np.uint64(0xFFFFFFFF) - (top & np.uint64(0xFFFFFFFF))).astype(np.int64)
+    return scores, index
+
+
+def _score_rows(case: str, rng) -> tuple[np.ndarray, int]:
+    n = 256
+    if case == "ties":
+        v = rng.choice(np.array([0.5, 1.0, 2.0, -np.inf], np.float32), (4, n))
+        return v, 40
+    if case == "fewer_than_k":
+        v = np.full((4, n), -np.inf, np.float32)
+        v[np.arange(4), rng.integers(0, n, 4)] = rng.random(4).astype(np.float32)
+        v[0, :] = -np.inf  # a row with no match at all
+        return v, 10
+    if case == "k_equals_p":
+        v = rng.choice(np.array([0.25, 3.0, -np.inf], np.float32), (4, n))
+        return v, n
+    v = rng.choice(np.array([1.0, 0.0, -0.0, -1.5, -np.inf, np.nan], np.float32), (4, n))
+    return v, 64
+
+
+@pytest.mark.parametrize("case", ["ties", "fewer_than_k", "k_equals_p", "nan"])
+def test_top_k_by_descending_sort_equals_top_k_lowest_index(case):
+    """The kernel's top-k definition (a descending sort of the plain version's
+    keys, first k) against `top_k_lowest_index`: same indices, same score
+    bits — heavy ties, -inf fill with fewer matches than k, k = P, NaN."""
+    values, k = _score_rows(case, np.random.default_rng(11))
+    scores, index = _top_k_by_descending_sort(values, k)
+    want_scores, want_index = top_k_lowest_index(torch.from_numpy(values), k)
+    assert np.array_equal(index, want_index.numpy())
+    assert scores.view(np.int32).tobytes() == want_scores.numpy().view(np.int32).tobytes()
