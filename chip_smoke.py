@@ -6,9 +6,11 @@
 
 Drives the port's main path — the shard query phase of batched BM25
 bool-of-terms search, top-100 per query — through its public entry points
-(`ShardContext` → `search_shard_batch`) at the data size of a real shard, and
-holds every hand-written kernel of that path against its plain torch version
-on the card. Phases:
+(`ShardContext` → `search_shard_batch`) at the data size of a real shard,
+then the serving path — concurrent single requests through
+`parse_search_body` → `execute_query_phase` → the `DeviceBatcher` — and
+holds every hand-written kernel of those paths against its plain torch
+version on the card. Phases:
 
   1. card facts (nvidia-smi, torch / CUDA / nvcc versions), build the kernels
      from `elasticsearch_tpu_torch/csrc` (one nvcc per source, all at once);
@@ -33,7 +35,22 @@ on the card. Phases:
   8. times: QPS and batch latency of phase 3, each kernel's time (CUDA
      events) beside its plain version's and its bound; the same calls
      replayed from a CUDA graph give their device time without the host's
-     launch cost.
+     launch cost;
+  9. serving: 8192 single-request bodies (phase 3's traffic, half size 10 and
+     half size 100: k buckets 16 and 128) from 128 concurrent callers through
+     a DeviceBatcher at its default settings, the whole run under
+     `set_sync_debug_mode("error")`; every response held against
+     `search_shard_batch` at the same k (bitwise; the rare dense-path query
+     within 2 ulp, tie-tolerant), the batcher's occupancy, flushes and
+     double buffering asserted, every kernel shape it launched held bitwise
+     against the plain version; requests/s, per-request p50/p99 latency, the
+     merge's wait for batches merged while the next batch was already
+     launched, and the device's idle share over a profiled window; a spin
+     kernel standing in for batch N+1's launches shows that batch N's merge
+     does not wait for them while a pull enqueued at merge time does; then a
+     2-shard reduce
+     (`execute_query_phase` on each shard, `sort_docs`) at phase 7's size,
+     on the card and on the CPU: identical merged hits.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -48,6 +65,7 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -62,6 +80,13 @@ RANKS = (50, 5000)  # df ranks the main-path query terms are drawn from
 BOOL_RANKS = (20, 400)  # denser terms for the must/should/must_not batch
 K = 100
 K1, B = 1.2, 0.75
+
+SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
+SERVE_SIZES = (10, 100)  # phase 9: half the requests each, k buckets 16 and 128
+SERVE_PROFILED = 1024  # requests in phase 9's profiled window
+SPIN_CYCLES = 40_000_000  # phase 9's stand-in for batch N+1: ~20 ms at ~2 GHz
+TB_MAX = 512  # ops/scoring.py launch_flat_sparse: past it a query takes the dense path
+ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_dense.py)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -388,6 +413,25 @@ def kernel_grid(device, seed: int, tbs=GRID_TBS) -> dict:
     return dict(cases=cases, launches=launches)
 
 
+def check_shapes(shapes: dict) -> float:
+    """The kernel against its plain version on each recorded launch's own
+    inputs, bitwise; returns the largest absolute score difference."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score, sparse_score_plain
+
+    max_err = 0.0
+    for key, (args, kwargs, _n) in shapes.items():
+        got = sparse_score(*args, **kwargs)
+        want = sparse_score_plain(*args, **kwargs)
+        for g, w, what in zip(got, want, ("scores", "docs", "totals")):
+            assert torch.equal(g, w), f"kernel != plain on {what} at {key}"
+        fin = torch.isfinite(want[0])
+        if fin.any():
+            max_err = max(max_err, float((got[0][fin] - want[0][fin]).abs().max()))
+    return max_err
+
+
 def launch_bound(args, kwargs) -> tuple[float, float, int]:
     """(bytes, operations, real block rows) the launch's function must move
     and do: each touched real postings block row (doc i32 + tf + norm byte)
@@ -467,7 +511,9 @@ def graph_ms(fn, reps: int) -> float:
 
 
 def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
-        bool_batch: int, n_check: int, seed: int, small_docs: int) -> dict:
+        bool_batch: int, n_check: int, seed: int, small_docs: int,
+        serve_requests: int = SERVE_REQUESTS,
+        serve_callers: int = SERVE_CALLERS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -677,15 +723,7 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
             assert bool_launches.get(name, 0) > 0, f"{name} never launched in phase 4"
 
     # -- 5. kernel against plain, every launched shape -----------------------
-    max_err = 0.0
-    for key, (args, kwargs, _n) in recorder.shapes.items():
-        got = sparse_score(*args, **kwargs)
-        want = sparse_score_plain(*args, **kwargs)
-        for g, w, what in zip(got, want, ("scores", "docs", "totals")):
-            assert torch.equal(g, w), f"kernel != plain on {what} at {key}"
-        fin = torch.isfinite(want[0])
-        if fin.any():
-            max_err = max(max_err, float((got[0][fin] - want[0][fin]).abs().max()))
+    max_err = check_shapes(recorder.shapes)
     report["kernel_vs_plain"] = dict(shapes=len(recorder.shapes), max_abs_err=max_err)
     log(f"[5] sparse_score == plain (bitwise: scores, docs, totals) at all "
         f"{len(recorder.shapes)} launched shapes; max abs err {max_err}")
@@ -787,11 +825,350 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                 "(device idle share not measured)")
         report["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
         log(f"[8] peak device memory allocated {report['peak_allocated_bytes'] / 1e9:.2f} GB")
+
+    # -- 9. serving concurrent single requests through the DeviceBatcher -------
+    serving = serving_phase(device, bm25, packs, pool, seed=seed + 7,
+                            n_requests=serve_requests, n_callers=serve_callers)
+    report["serving"] = serving
+    reduce = shard_reduce_check(device, small_docs, seed + 8)
+    report["shard_reduce"] = reduce
+    log(f"[9] 2-shard reduce at {reduce['docs']} docs: execute_query_phase on each "
+        f"shard, sort_docs: merged hits on {device} == on cpu for "
+        f"{reduce['queries']} queries ({reduce['hits']} hits)")
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)]
     return report
+
+
+def within_ulps(a: float, b: float, ulps: int) -> bool:
+    ia = np.array(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.array(b, np.float32).view(np.int32).astype(np.int64)
+    return abs(int(ia) - int(ib)) <= ulps
+
+
+def tie_tolerant_equal(got, want, ulps: int = ULPS) -> bool:
+    """Same doc set, per-doc scores within `ulps`, identical order except
+    inside groups of scores within `ulps` of each other."""
+    if sorted(d for _, d in got) != sorted(d for _, d in want):
+        return False
+    want_by = {d: s for s, d in want}
+    if not all(within_ulps(s, want_by[d], ulps) for s, d in got):
+        return False
+    pos = {d: i for i, (_, d) in enumerate(got)}
+    for i, (sa, a) in enumerate(want):
+        for sb, b in want[i + 1:]:
+            if not within_ulps(sa, sb, 2 * ulps) and pos[a] > pos[b]:
+                return False
+    return True
+
+
+def serve(ctx, bodies: list, n_callers: int, sync_error: bool):
+    """`bodies` sent by `n_callers` threads at once, each request on its own
+    through `execute_query_phase(ctx, parse_search_body(body))`, back to
+    back (caller c sends bodies c, c + n_callers, ...). With `sync_error`
+    the whole run is under `torch.cuda.set_sync_debug_mode("error")`.
+    Returns (results, per-request ms, wall s, errors)."""
+    import torch
+
+    from elasticsearch_tpu_torch.search import execute_query_phase, parse_search_body
+
+    n = len(bodies)
+    results, lat_ms, errors = [None] * n, np.zeros(n), []
+    start = threading.Barrier(n_callers + 1)
+
+    def caller(c):
+        start.wait()
+        for i in range(c, n, n_callers):
+            t0 = time.perf_counter()
+            try:
+                results[i] = execute_query_phase(ctx, parse_search_body(bodies[i]))
+            except Exception as e:  # noqa: BLE001 — every error fails the phase below
+                errors.append((i, repr(e)))
+            lat_ms[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=caller, args=(c,), daemon=True)
+               for c in range(n_callers)]
+    for t in threads:
+        t.start()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t0
+    finally:
+        if sync_error:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not any(t.is_alive() for t in threads), "a serving caller hung"
+    return results, lat_ms, wall_s, errors
+
+
+def serving_phase(device, base, packs, pool, *, seed: int, n_requests: int,
+                  n_callers: int) -> dict:
+    """Phase 9: `n_requests` single-request search bodies (phase 3's traffic:
+    a bool of 4 should BM25 terms from df ranks 50-5000; half size 10, half
+    size 100) from `n_callers` concurrent callers through a DeviceBatcher at
+    the JAX package's default settings, on the phase 2 shard. Every response
+    is held against `search_shard_batch` at the same k before any time is
+    kept; then one window is profiled for the device's idle share, and the
+    merge's wait is held against a spin kernel enqueued after a dispatch."""
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, DeviceBatcher, ShardContext, parse_query, search_shard_batch)
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(pool, size=(n_requests, TERMS_PER_QUERY))
+    # page sizes in a random order: callers answered by one batch come back
+    # together, and with a size fixed per caller (or per round) each such
+    # cohort would be one k-bucket key that always fills one batch alone
+    sizes = rng.permutation(np.resize(np.asarray(SERVE_SIZES), n_requests))
+    bodies = [{"query": {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                             for t in row]}},
+               "size": int(size)} for row, size in zip(rows, sizes)]
+    # a (query, segment) pair past tb_max takes the dense path, whose
+    # scatter-add order is not fixed: those queries are held within ULPS
+    blocks = np.stack([np.diff(p.term_blk_start)[rows].sum(axis=1) for p in packs],
+                      axis=1)
+    dense = (blocks > TB_MAX).any(axis=1)
+    want = [None] * n_requests
+    for size in SERVE_SIZES:
+        idx = np.flatnonzero(sizes == size)
+        for lo in range(0, len(idx), 1024):
+            chunk = idx[lo: lo + 1024]
+            tops = search_shard_batch(base, [parse_query(bodies[i]["query"])
+                                             for i in chunk], size)
+            for i, td in zip(chunk, tops):
+                want[i] = (td.total, td.hits)
+
+    def serving_ctx():
+        return ShardContext(base.searcher, base.mapper_service,
+                            base.similarity_service, device=device,
+                            batcher=DeviceBatcher())
+
+    recorder = LaunchRecorder(scoring, sparse_score)
+    try:
+        warm = serving_ctx()  # first use of the k-16 and k-128 buckets, untimed
+        try:
+            warm_errors = serve(warm, bodies[: 2 * n_callers], n_callers,
+                                sync_error=False)[3]
+            assert not warm_errors, warm_errors[:3]
+        finally:
+            warm.batcher.shutdown()
+        ctx = serving_ctx()
+        errors_before = SERVING_COUNTERS["device_errors"]
+        cudaenv.LAUNCHES.reset()
+        try:
+            results, lat_ms, wall_s, errors = serve(ctx, bodies, n_callers,
+                                                    sync_error=on_card)
+        finally:
+            launches = cudaenv.LAUNCHES.snapshot()
+            stats = ctx.batcher.stats()
+            ctx.batcher.shutdown()
+    finally:
+        recorder.close()
+    device_errors = SERVING_COUNTERS["device_errors"] - errors_before
+
+    # correctness, before any time is kept
+    assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
+    n_dense = 0
+    for i, (r, (total, hits)) in enumerate(zip(results, want)):
+        got = [(sc, d) for sc, d, _sv in r.docs]
+        assert r.total == total, f"request {i}: total {r.total} != {total}"
+        if dense[i]:
+            n_dense += 1
+            assert tie_tolerant_equal(got, hits), f"request {i} (dense path): hits"
+        else:
+            assert got == hits, f"request {i}: hits differ from search_shard_batch"
+    if on_card:
+        assert launches.get("sparse_score", 0) > 0, "sparse_score never launched in phase 9"
+    assert stats["launches"] > 0 and stats["occupancy_mean"] > 1, stats
+    assert stats["splits"] == 0 and stats["pending_flushes"] > 0, stats
+    assert device_errors == 0, f"{device_errors} device errors"
+    max_err = check_shapes(recorder.shapes)
+
+    out = dict(
+        requests=n_requests, callers=n_callers, sizes=list(SERVE_SIZES),
+        dense_requests=n_dense, wall_s=wall_s, requests_per_s=n_requests / wall_s,
+        latency_ms=dict(p50=float(np.percentile(lat_ms, 50)),
+                        p99=float(np.percentile(lat_ms, 99)),
+                        max=float(lat_ms.max()), mean=float(lat_ms.mean())),
+        batcher=stats, launches=launches, device_errors=device_errors,
+        kernel_shapes=len(recorder.shapes), kernel_max_abs_err=max_err,
+        sync_debug="error over the whole serving run" if on_card else None)
+    log(f"[9] {n_requests} single requests from {n_callers} callers through the "
+        f"DeviceBatcher: {out['requests_per_s']:.1f} requests/s, latency p50 "
+        f"{out['latency_ms']['p50']:.2f} ms p99 {out['latency_ms']['p99']:.2f} ms "
+        f"max {out['latency_ms']['max']:.2f} ms; every response == search_shard_batch "
+        f"({n_dense} on the dense path within {ULPS} ulp, the rest bitwise)")
+    log(f"[9] batches {stats['launches']}, occupancy mean {stats['occupancy_mean']}; "
+        f"flushes full {stats['full_flushes']} linger {stats['linger_flushes']} "
+        f"deadline {stats['deadline_flushes']} pending {stats['pending_flushes']}; "
+        f"bypassed {stats['bypassed']}, splits {stats['splits']}; batch service "
+        f"p50 {stats['batch']['p50_ms']} ms p99 {stats['batch']['p99_ms']} ms; "
+        f"launches {launches}")
+    log(f"[9] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
+        f"phase 9 launched; max abs err {max_err}")
+    mw = stats["merge_wait"]
+    log(f"[9] {mw['count']} batches merged while the next batch was already "
+        f"launched: the merge's wait p50 {mw['p50_ms']} ms, p99 {mw['p99_ms']} ms, "
+        f"mean {mw['mean_ms']} ms")
+
+    if on_card:
+        ctx = serving_ctx()
+        try:
+            out["profiled"] = profile_serving(ctx, bodies[:SERVE_PROFILED], n_callers)
+            window = ctx.batcher.stats()
+        finally:
+            ctx.batcher.shutdown()
+        prof = out["profiled"]
+        prof.update(batches=window["launches"], merge_wait=window["merge_wait"])
+        if prof["device_busy_ms"]:
+            prof["device_busy_per_batch_ms"] = prof["device_busy_ms"] / window["launches"]
+            log(f"[9] profiled window of {SERVE_PROFILED} requests: wall "
+                f"{prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.3f} ms, "
+                f"idle share {prof['idle_share']:.4f}; {window['launches']} batches, "
+                f"device busy {prof['device_busy_per_batch_ms']:.3f} ms a batch (what a "
+                f"merge waits at most if its copies queue behind the next batch's "
+                f"launches) against a merge wait of p50 {window['merge_wait']['p50_ms']} "
+                f"ms, p99 {window['merge_wait']['p99_ms']} ms over "
+                f"{window['merge_wait']['count']} overlapped merges")
+            for name, ms, n in prof["top"]:
+                log(f"[9]   {ms:9.3f} ms {n:5d}x {name}")
+        else:
+            log("[9] profiled window: the profiler saw no device time "
+                "(device idle share not measured)")
+        check = merge_wait_check(base, [parse_query(b["query"]) for b in
+                                        bodies[:64]], 16)
+        out["merge_wait_check"] = check
+        log(f"[9] batch N's merge with a {check['spin_ms']:.2f} ms spin kernel "
+            f"enqueued after its dispatch (standing in for batch N+1): wait "
+            f"{np.median(check['split_wait_ms']):.3f} ms with the copies enqueued at "
+            f"the end of the dispatch, {np.median(check['at_merge_wait_ms']):.3f} ms "
+            f"with copies enqueued at merge time (medians of {len(check['split_wait_ms'])})")
+    return out
+
+
+def merge_wait_check(ctx, queries, k: int, reps: int = 5) -> dict:
+    """Batch N's merge waits for N's own device work only. After N's
+    dispatch a spin kernel (`torch.cuda._sleep`) stands in for batch N+1's
+    launches: N's merge, whose copies were enqueued at the end of its
+    dispatch (`cudaenv.pull_async`), does not wait for the spin, while
+    copies enqueued at merge time (`cudaenv.pull`, the order before the
+    split) do."""
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.search.execute import (
+        _result_tensors, dispatch_flat_batch, lower_flat)
+
+    plans = [lower_flat(q, ctx) for q in queries]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    end.synchronize()
+    spin_ms = start.elapsed_time(end)
+    split_ms, at_merge_ms = [], []
+    for _ in range(reps):
+        pending = dispatch_flat_batch(plans, ctx, k)
+        torch.cuda._sleep(SPIN_CYCLES)
+        pending.merge()
+        split_ms.append((pending.pull_t1 - pending.pull_t0) * 1e3)
+        torch.cuda.synchronize()
+        pending = dispatch_flat_batch(plans, ctx, k)
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        cudaenv.pull(_result_tensors(pending.seg_work))
+        at_merge_ms.append((time.perf_counter() - t0) * 1e3)
+        pending.merge()
+        torch.cuda.synchronize()
+    out = dict(queries=len(plans), k=k, spin_ms=spin_ms, split_wait_ms=split_ms,
+               at_merge_wait_ms=at_merge_ms)
+    assert np.median(at_merge_ms) - np.median(split_ms) > 0.5 * spin_ms, out
+    return out
+
+
+def profile_serving(ctx, bodies, n_callers) -> dict:
+    """One window of phase 9 under torch.profiler (device activity only, so
+    the callers' host work is not slowed by tracing): wall time, device busy
+    time by name, the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _r, _l, wall_s, errors = serve(ctx, bodies, n_callers, sync_error=False)
+    assert not errors, errors[:3]
+    return device_busy(prof, wall_s * 1e3)
+
+
+def device_busy(prof, wall_ms: float) -> dict:
+    """Device busy time by name from a profile, and its idle share."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((e.key[:90], us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(ms for _n, ms, _c in rows)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=(1.0 - busy / wall_ms) if busy else None, top=rows[:12])
+
+
+def shard_reduce_check(device, n_docs: int, seed: int) -> dict:
+    """Phase 7's documents split into two shards (one segment each):
+    `execute_query_phase` on each shard, then `sort_docs`, on `device` and on
+    the CPU — identical merged hits."""
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.engine import Searcher
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.search import (
+        ShardContext, SimilarityService, execute_query_phase, parse_search_body,
+        sort_docs)
+
+    svc = MapperService(Settings.from_flat(BM25_SETTINGS))
+    sims = SimilarityService(Settings.from_flat(BM25_SETTINGS), svc)
+    sources = small_sources(n_docs, seed)
+    shards = []
+    for lo, hi in ((0, n_docs // 2), (n_docs // 2, n_docs)):
+        b = SegmentBuilder(0)
+        for i in range(lo, hi):
+            b.add(svc.mapper_for("doc").parse(sources[i], str(i)))
+        shards.append(Searcher([b.freeze()]))
+    out = {}
+    for dev in (device, "cpu"):
+        ctxs = [ShardContext(sh, svc, sims, device=dev) for sh in shards]
+        merged = []
+        for query in SMALL_BODIES:
+            req = parse_search_body({"query": query, "size": 20})
+            m = sort_docs(req, [execute_query_phase(c, req, shard_id=i)
+                                for i, c in enumerate(ctxs)])
+            merged.append((m.total, m.hits))
+        out[str(dev)] = merged
+    assert out[str(device)] == out["cpu"], "2-shard reduce: card hits differ from cpu hits"
+    n_hits = sum(len(h) for _t, h in out["cpu"])
+    assert n_hits > 0 and all(t > 0 for t, _h in out["cpu"])
+    assert {s for _t, h in out["cpu"] for (_sc, s, _d, _v) in h} == {0, 1}
+    return dict(docs=n_docs, queries=len(SMALL_BODIES), hits=n_hits)
 
 
 def profile_batch(ctx, queries) -> dict:
@@ -808,19 +1185,7 @@ def profile_batch(ctx, queries) -> dict:
         t0 = time.perf_counter()
         dispatch_shard_batch(ctx, queries, K).merge()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((e.key[:90], us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(ms for _n, ms, _c in rows)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                idle_share=(1.0 - busy / wall_ms) if busy else None, top=rows[:12])
+    return device_busy(prof, wall_ms)
 
 
 def small_index_check(device, n_docs: int, seed: int) -> dict:
@@ -833,39 +1198,16 @@ def small_index_check(device, n_docs: int, seed: int) -> dict:
     from elasticsearch_tpu_torch.search import (
         ShardContext, SimilarityService, parse_query, search_shard_batch)
 
-    rng = np.random.default_rng(seed)
-    words = [f"word{i}" for i in range(400)]
-    p = 1.0 / np.arange(1, len(words) + 1) ** 1.1
-    p /= p.sum()
-
-    def text(n):
-        return " ".join(rng.choice(words, n, p=p))
-
     svc = MapperService(Settings.from_flat(BM25_SETTINGS))
+    sources = small_sources(n_docs, seed)
     segs = []
     for g, (lo, hi) in enumerate(((0, n_docs * 2 // 3), (n_docs * 2 // 3, n_docs))):
         b = SegmentBuilder(g)
         for i in range(lo, hi):
-            src = {"title": text(int(rng.integers(2, 8))),
-                   "body": text(int(rng.integers(10, 120)))}
-            b.add(svc.mapper_for("doc").parse(src, str(i)))
+            b.add(svc.mapper_for("doc").parse(sources[i], str(i)))
         segs.append(b.freeze())
     segs[0].delete_doc(3)
-    bodies = [
-        {"match": {"body": "word1 word7 word30"}},
-        {"match": {"body": {"query": "word2 word5", "operator": "and"}}},
-        {"match": {"body": {"query": "word3 word9 word40 word77",
-                            "minimum_should_match": "75%"}}},
-        {"match": {"title": {"query": "word4 word11", "boost": 2.0}}},
-        {"bool": {"must": [{"match": {"body": "word6"}}],
-                  "should": [{"term": {"body": "word8"}}, {"match": {"title": "word12"}}],
-                  "must_not": [{"term": {"body": "word13"}}]}},
-        {"bool": {"should": [{"term": {"body": "word14"}}, {"term": {"body": "word15"}},
-                             {"term": {"title": "word16"}}],
-                  "minimum_should_match": 2}},
-        {"match": {"_all": "word17 word18"}},
-    ]
-    queries = [parse_query(b) for b in bodies]
+    queries = [parse_query(b) for b in SMALL_BODIES]
     sims = SimilarityService(Settings.from_flat(BM25_SETTINGS), svc)
     out = {}
     for dev in (device, "cpu"):
@@ -876,6 +1218,37 @@ def small_index_check(device, n_docs: int, seed: int) -> dict:
     n_hits = sum(len(h) for _t, h in want)
     assert n_hits > 0 and all(t > 0 for t, _h in want)
     return dict(docs=n_docs, segments=len(segs), queries=len(queries), hits=n_hits)
+
+
+def small_sources(n_docs: int, seed: int) -> list[dict]:
+    """Phase 7's documents: a zipf(1.1) text over 400 words, a short title
+    and a body of 10-120 words each."""
+    rng = np.random.default_rng(seed)
+    words = [f"word{i}" for i in range(400)]
+    p = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    p /= p.sum()
+
+    def text(n):
+        return " ".join(rng.choice(words, n, p=p))
+
+    return [{"title": text(int(rng.integers(2, 8))),
+             "body": text(int(rng.integers(10, 120)))} for _ in range(n_docs)]
+
+
+SMALL_BODIES = [
+    {"match": {"body": "word1 word7 word30"}},
+    {"match": {"body": {"query": "word2 word5", "operator": "and"}}},
+    {"match": {"body": {"query": "word3 word9 word40 word77",
+                        "minimum_should_match": "75%"}}},
+    {"match": {"title": {"query": "word4 word11", "boost": 2.0}}},
+    {"bool": {"must": [{"match": {"body": "word6"}}],
+              "should": [{"term": {"body": "word8"}}, {"match": {"title": "word12"}}],
+              "must_not": [{"term": {"body": "word13"}}]}},
+    {"bool": {"should": [{"term": {"body": "word14"}}, {"term": {"body": "word15"}},
+                         {"term": {"title": "word16"}}],
+              "minimum_should_match": 2}},
+    {"match": {"_all": "word17 word18"}},
+]
 
 
 def main() -> int:

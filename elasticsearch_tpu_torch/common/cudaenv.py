@@ -14,7 +14,9 @@ of the JAX package's `common/jaxenv.py`.
   where it launches its kernel, and nowhere else.
 - `upload` / `pull` are the two directions of host↔device traffic on the
   serving path: uploads never synchronise, and `pull` brings a whole batch of
-  result tensors back behind one event wait.
+  result tensors back behind one event wait. `pull_async` is its enqueue
+  half (the end of a batch's dispatch) and `PendingPull.wait` its wait half
+  (the batch's merge).
 """
 
 from __future__ import annotations
@@ -89,23 +91,54 @@ def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def pull(tensors: list) -> list:
-    """Every tensor of a batch to host numpy arrays behind ONE wait: on the
-    card, non-blocking copies into pinned buffers and a single event
-    synchronise (the counterpart of the JAX package's one `jax.device_get`
-    per batch)."""
-    if not tensors:
-        return []
-    if tensors[0].device.type != "cuda":
-        return [t.numpy() for t in tensors]
+class PendingPull:
+    """One batch's device→host copies in flight: `pull_async` enqueued them
+    behind the batch's own launches and recorded one event after them;
+    `wait()` waits on that event alone and returns the host arrays.
+
+    The split matters under double buffering: when batch N merges, batch
+    N+1's launches are already on the stream. Copies enqueued at merge time
+    would queue behind N+1's kernels, so N's merge would wait for N+1's
+    device work. Enqueued at the end of N's dispatch, they wait for N's."""
+
+    __slots__ = ("_tensors", "_hosts", "_done")
+
+    def __init__(self, tensors: list, hosts: list, done):
+        # the device tensors stay referenced until the copies have run
+        self._tensors = tensors
+        self._hosts = hosts
+        self._done = done
+
+    def wait(self) -> list:
+        """The host arrays, after the one event wait (none on the CPU)."""
+        if self._done is not None:
+            self._done.synchronize()
+            self._done = None
+            self._tensors = None
+        return [h.numpy() for h in self._hosts]
+
+
+def pull_async(tensors: list) -> PendingPull:
+    """Enqueue every tensor of a batch for the host without synchronising:
+    on the card, non-blocking copies into pinned buffers on the current
+    stream and one event recorded after them; on the CPU the tensors are
+    the host buffers already."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return PendingPull(None, list(tensors), None)
     hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
              for t in tensors]
     for h, t in zip(hosts, tensors):
         h.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
-    done.synchronize()
-    return [h.numpy() for h in hosts]
+    return PendingPull(list(tensors), hosts, done)
+
+
+def pull(tensors: list) -> list:
+    """Every tensor of a batch to host numpy arrays behind ONE wait (the
+    counterpart of the JAX package's one `jax.device_get` per batch):
+    `pull_async` and its `wait()` in one call."""
+    return pull_async(tensors).wait()
 
 
 # ---------------------------------------------------------------------------

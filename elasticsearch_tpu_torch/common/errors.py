@@ -1,5 +1,6 @@
-"""The error classes the ported query phase raises (a trimmed copy of the
-JAX package's `common/errors.py` tree: same names, same REST statuses)."""
+"""The error classes the ported query phase and its serving path raise (a
+trimmed copy of the JAX package's `common/errors.py` tree: same names, same
+REST statuses)."""
 
 from __future__ import annotations
 
@@ -28,3 +29,21 @@ class MapperParsingError(ParsingError):
 
 class QueryParsingError(ParsingError):
     pass
+
+
+class CircuitBreakingError(SearchEngineError):
+    """A memory circuit breaker tripped. 429: the node is out of memory
+    headroom, not broken — clients back off and retry after `retry_after_s`.
+    `breaker` names the tripped breaker ("request" / "parent")."""
+
+    status = 429
+    retry_after_s = 1.0
+    breaker: str | None = None
+
+
+class RejectedExecutionError(SearchEngineError):
+    """A bounded queue rejected the work, or the executor behind it is shut
+    down. Transient by definition: 429 with a Retry-After hint."""
+
+    status = 429
+    retry_after_s = 1.0

@@ -1,6 +1,6 @@
 """Flat dotted-key settings with typed getters (a trimmed copy of the JAX
-package's `common/settings.py`: the accessors analysis, mapping and
-similarity read)."""
+package's `common/settings.py`: the accessors analysis, mapping,
+similarity, the breakers and the batcher read)."""
 
 from __future__ import annotations
 
@@ -47,6 +47,16 @@ class Settings(Mapping[str, Any]):
     def get_str(self, key: str, default: str | None = None) -> str | None:
         v = self._map.get(key)
         return default if v is None else str(v)
+
+    def get_int(self, key: str, default: int | None = None) -> int | None:
+        v = self._map.get(key)
+        if v is None:
+            return default
+        try:
+            return int(v)
+        except (TypeError, ValueError):
+            raise IllegalArgumentError(
+                f"failed to parse int setting [{key}] = [{v}]")
 
     def get_float(self, key: str, default: float | None = None) -> float | None:
         v = self._map.get(key)

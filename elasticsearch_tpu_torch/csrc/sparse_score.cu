@@ -68,8 +68,8 @@
 // strides between take shared memory and a block barrier each (30 of the 91
 // stages at 8192 keys).
 
-#include <atomic>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -477,20 +477,30 @@ __global__ void __launch_bounds__(kGlobalThreads) sparse_score_global(const Para
 
 // Launch `kernel` with the plan's threads and dynamic shared bytes. Above
 // 48 KB, static and dynamic together, a kernel needs its limit raised first:
-// done once per kernel and device, to the largest size asked for so far.
+// done per kernel and device, to the largest size asked for so far. The
+// raise is monotonic under the instantiation's lock: two host threads that
+// launch one instantiation with different sizes (a simple and a bool bucket
+// of one TB) could otherwise both see the limit short and set it in the
+// wrong order, leaving it below the larger launch, which is then refused.
+struct SharedLimit {
+  std::mutex mu;
+  int raised[kMaxDevices] = {};
+};
+
 template <typename Kernel>
-int launch(Kernel kernel, std::atomic<int>* raised, const Params& p, int Qb, int threads,
+int launch(Kernel kernel, SharedLimit* limit, const Params& p, int Qb, int threads,
            int shared_bytes, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (raised[dev].load() < shared_bytes) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               shared_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int seen = raised[dev].load();
-    while (seen < shared_bytes && !raised[dev].compare_exchange_weak(seen, shared_bytes)) {
+  {
+    std::lock_guard<std::mutex> hold(limit->mu);
+    if (limit->raised[dev] < shared_bytes) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 shared_bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      limit->raised[dev] = shared_bytes;
     }
   }
   Params args = p;
@@ -503,14 +513,14 @@ int launch(Kernel kernel, std::atomic<int>* raised, const Params& p, int Qb, int
 
 template <int P, int T>
 int launch_smem(const Params& p, int Qb, int shared_bytes, cudaStream_t stream) {
-  static std::atomic<int> raised[kMaxDevices];
-  return launch(sparse_score_smem<P, T>, raised, p, Qb, T, shared_bytes, stream);
+  static SharedLimit limit;
+  return launch(sparse_score_smem<P, T>, &limit, p, Qb, T, shared_bytes, stream);
 }
 
 int launch_global(const Params& p, int Qb, int threads, int shared_bytes,
                   cudaStream_t stream) {
-  static std::atomic<int> raised[kMaxDevices];
-  return launch(sparse_score_global, raised, p, Qb, threads, shared_bytes, stream);
+  static SharedLimit limit;
+  return launch(sparse_score_global, &limit, p, Qb, threads, shared_bytes, stream);
 }
 
 }  // namespace

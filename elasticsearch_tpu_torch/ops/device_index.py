@@ -243,10 +243,13 @@ def packed_for(seg: FrozenSegment, device: torch.device) -> PackedSegment:
 
 def ensure_blk_freqs(packed: PackedSegment) -> torch.Tensor:
     """Fault in the dense-fallback f32 freqs plane (sparse-only segments
-    never pay its 4 B/posting)."""
+    never pay its 4 B/posting). Under the pack lock, so two dispatching
+    threads upload it once."""
     if packed.blk_freqs is None:
-        packed.blk_freqs = upload(packed.host_freqs.reshape(-1, BLOCK),
-                                  packed.device)
+        with _PACK_LOCK:
+            if packed.blk_freqs is None:
+                packed.blk_freqs = upload(packed.host_freqs.reshape(-1, BLOCK),
+                                          packed.device)
     return packed.blk_freqs
 
 
@@ -267,13 +270,28 @@ def ensure_sim_tables(packed: PackedSegment,
     maps fields to cache rows for this launch. A changed cache (BM25 avgdl
     drift) swaps a 1 KB/field table, never the postings. Fields accumulate
     across calls; a re-ensure swaps packed.sim and never mutates an existing
-    SimTables."""
+    SimTables, so a dispatch in flight keeps the one it resolved its fids
+    against. The swap is a read-modify-write of packed.sim: under the pack
+    lock, so two dispatching threads never drop each other's fields."""
     cur = packed.sim
-    if cur is not None and all(
-        f in cur.key and cur.key[f] == (mode, cache.tobytes())
-        for f, (mode, cache) in tables.items()
-    ):
+    if _sim_current(cur, tables):
         return cur
+    with _PACK_LOCK:
+        cur = packed.sim
+        if _sim_current(cur, tables):
+            return cur
+        packed.sim = _merged_sim(packed, cur, tables)
+        return packed.sim
+
+
+def _sim_current(cur: SimTables | None, tables: dict) -> bool:
+    return cur is not None and all(
+        f in cur.key and cur.key[f] == (mode, cache.tobytes())
+        for f, (mode, cache) in tables.items())
+
+
+def _merged_sim(packed: PackedSegment, cur: SimTables | None,
+                tables: dict) -> SimTables:
     merged = dict(cur.key) if cur is not None else {}
     for f, (mode, cache) in tables.items():
         merged[f] = (mode, cache.tobytes())
@@ -287,8 +305,6 @@ def ensure_sim_tables(packed: PackedSegment,
         # the kernel keeps its [F, 256] shape — only padding slots read it
         modes = np.zeros(1, dtype=np.int32)
         caches = np.ones((1, 256), dtype=np.float32)
-    sim = SimTables(fields=fields, fid={f: i for i, f in enumerate(fields)},
-                    modes=upload(modes, packed.device),
-                    caches=upload(caches, packed.device), key=merged)
-    packed.sim = sim
-    return sim
+    return SimTables(fields=fields, fid={f: i for i, f in enumerate(fields)},
+                     modes=upload(modes, packed.device),
+                     caches=upload(caches, packed.device), key=merged)

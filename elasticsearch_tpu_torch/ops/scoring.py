@@ -27,6 +27,7 @@ from dataclasses import dataclass, field as dc_field
 import numpy as np
 import torch
 
+from ..common.breaker import reserve
 from ..common.cudaenv import pull, upload
 from .device_index import (
     BLOCK,
@@ -360,18 +361,31 @@ def plan_sparse_buckets(clause_lists: list, n_must: np.ndarray, msm: np.ndarray,
     return batches, overflow
 
 
+def staging_bytes(Qb: int, tb: int) -> int:
+    """Bytes of one bucket's [Qb, TB] clause arrays: qblk i32 + qw f32 +
+    qconst bool + qcnt i32 + qfid i32."""
+    return Qb * tb * (4 + 4 + 1 + 4 + 4)
+
+
 def launch_flat_sparse(packed: PackedSegment, clause_lists: list,
                        n_must: np.ndarray, msm: np.ndarray, coord: np.ndarray,
                        k: int, *, simple: bool = False, tb_max: int = 512,
-                       sim: SimTables | None = None):
+                       breaker=None, sim: SimTables | None = None):
     """Plan + launch every sparse bucket of a flat-query batch WITHOUT
     synchronising. Returns (launches, overflow_qids), launches =
-    [(SparseBatch, device result triple)]."""
+    [(SparseBatch, device result triple)].
+
+    The staging of the whole batch — every bucket's padded [Qb, TB] arrays —
+    is reserved on `breaker` (the request breaker) in one sum around the
+    launches: the coalesced launch is the allocation, not a request's share
+    of it."""
     batches, overflow = plan_sparse_buckets(
         clause_lists, n_must, msm, coord, packed.blk_docs.shape[0] - 1,
         tb_max=tb_max, simple=simple)
-    launches = [(sb, score_sparse_batch_async(packed, sb, k, sim=sim))
-                for sb in batches]
+    est = sum(staging_bytes(*sb.qblk.shape) for sb in batches)
+    with reserve(breaker, est, "<sparse_staging>"):
+        launches = [(sb, score_sparse_batch_async(packed, sb, k, sim=sim))
+                    for sb in batches]
     return launches, overflow
 
 

@@ -10,7 +10,11 @@ the whole batch to the host behind ONE wait and merges the segments' top-k
 (score desc, global doc asc — Lucene's order).
 
 Serving contracts carried over from the JAX package:
-- one host pull per batch (`cudaenv.pull` in `_merge_flat_plain`);
+- one host pull per batch: the dispatch half ends by enqueueing the batch's
+  device→host copies behind one event (`cudaenv.pull_async`), and the merge
+  half waits on that event alone (`PendingPull.wait`), so under the
+  batcher's double buffering batch N's merge never waits for batch N+1's
+  launches;
 - no device→host synchronisation while dispatching — chip_smoke.py runs the
   dispatch half under `torch.cuda.set_sync_debug_mode("error")`.
 
@@ -21,11 +25,12 @@ the port.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..common.cudaenv import default_device, pull
+from ..common.cudaenv import default_device, pull_async
 from ..common.errors import QueryParsingError
 from ..index.engine import Searcher
 from ..ops.device_index import (
@@ -57,12 +62,23 @@ class ShardContext:
 
     def __init__(self, searcher: Searcher, mapper_service,
                  similarity_service: SimilarityService | None = None,
-                 device=None):
+                 device=None, breakers=None, batcher=None):
         self.searcher = searcher
         self.mapper_service = mapper_service
         self.similarity_service = similarity_service or SimilarityService(
             mapper_service=mapper_service)
         self.device = default_device(device)
+        # a CircuitBreakerService, or None in unwired contexts: the sparse
+        # path reserves its per-batch staging on breaker("request")
+        self.breakers = breakers
+        # a cross-request DeviceBatcher (search/batcher.py), or None: single
+        # requests coalesce with concurrent ones when present
+        # (service._execute_flat_single)
+        self.batcher = batcher
+
+    def breaker(self, name: str):
+        """The named circuit breaker, or None when no service is wired."""
+        return None if self.breakers is None else self.breakers.breaker(name)
 
     @property
     def max_doc(self) -> int:
@@ -313,25 +329,42 @@ def _assemble_batch(plans: list[FlatPlan], finals: list):
 
 class _PendingFlat:
     """Device work in flight for one plain-plan batch: every segment's sparse
-    bucket launches and dense-overflow launches, with no host pull yet.
-    merge() performs the batch's one pull and the host top-k merge."""
+    bucket launches and dense-overflow launches, and the batch's device→host
+    copies enqueued behind them (`pull`, a cudaenv.PendingPull). merge()
+    waits for those copies — the batch's one wait — and merges the top-k on
+    the host, stamping the wait's host clocks in pull_t0 / pull_t1."""
 
-    __slots__ = ("Q", "k", "seg_work")
+    __slots__ = ("Q", "k", "seg_work", "pull", "pull_t0", "pull_t1")
 
-    def __init__(self, Q: int, k: int, seg_work: list):
+    def __init__(self, Q: int, k: int, seg_work: list, pull):
         self.Q = Q
         self.k = k
         # per segment: (seg, base, doc_pad, launches, dense) where dense is a
         # list of (query indices, device result triple), one per chunk
         self.seg_work = seg_work
+        self.pull = pull
+        self.pull_t0: float | None = None
+        self.pull_t1: float | None = None
 
     def merge(self) -> list[TopDocs]:
         return _merge_flat_plain(self)
 
 
+def _result_tensors(seg_work: list) -> list:
+    """Every result tensor of a batch, in the order the merge reads them."""
+    refs = []
+    for (_seg, _base, _doc_pad, launches, dense) in seg_work:
+        for (_sb, r) in launches:
+            refs.extend(r)
+        for (_sub, r) in dense or ():
+            refs.extend(r)
+    return refs
+
+
 def _dispatch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
                          k: int) -> _PendingFlat:
-    """Plan + launch a batch of plain flat plans across every segment without
+    """Plan + launch a batch of plain flat plans across every segment, then
+    enqueue the batch's device→host copies behind one event — all without
     any device→host synchronisation."""
     Q = len(plans)
     finals = [finalize_flat(p, ctx) for p in plans]
@@ -367,28 +400,26 @@ def _dispatch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
             clause_lists.append(cl)
         launches, overflow = launch_flat_sparse(
             packed, clause_lists, n_must, msm, coord_tbl, k, simple=simple,
-            sim=sim)
+            breaker=ctx.breaker("request"), sim=sim)
         dense = None
         if overflow:
             dense = _launch_dense_fallback(
                 overflow, finals, field_idx, all_fields, caches_stack,
                 n_must, msm, coord_tbl, packed, seg, k)
         seg_work.append((seg, base, packed.doc_pad, launches, dense))
-    return _PendingFlat(Q=Q, k=k, seg_work=seg_work)
+    return _PendingFlat(Q=Q, k=k, seg_work=seg_work,
+                        pull=pull_async(_result_tensors(seg_work)))
 
 
 def _merge_flat_plain(pending: _PendingFlat) -> list[TopDocs]:
-    """Merge half: ONE pull drains every launch of the batch (sparse buckets
-    + dense overflow across all segments), then the pure-host cross-segment
-    top-k merge."""
+    """Merge half: ONE wait — on the event recorded after this batch's own
+    copies — drains every launch of the batch (sparse buckets + dense
+    overflow across all segments), then the pure-host cross-segment top-k
+    merge."""
     Q, k = pending.Q, pending.k
-    refs = []
-    for (_seg, _base, _doc_pad, launches, dense) in pending.seg_work:
-        for (_sb, r) in launches:
-            refs.extend(r)
-        for (_sub, r) in dense or ():
-            refs.extend(r)
-    flat = iter(pull(refs))
+    pending.pull_t0 = time.monotonic()
+    flat = iter(pending.pull.wait())
+    pending.pull_t1 = time.monotonic()
     totals = np.zeros(Q, dtype=np.int64)
     seg_hits = []  # (scores [Q,k] f32, global_docs [Q,k] int64) per segment
     for (seg, base, doc_pad, launches, dense) in pending.seg_work:
@@ -474,11 +505,21 @@ def _launch_dense_fallback(overflow, finals, field_idx, all_fields,
     return out
 
 
+def dispatch_flat_batch(plans: list[FlatPlan], ctx: ShardContext,
+                        k: int) -> _PendingFlat:
+    """Dispatch half of execute_flat_batch for the cross-request batcher:
+    launches without synchronising and returns the pending handle whose
+    merge() yields the per-plan TopDocs. Every plan the port lowers is a
+    plain plan (the function_score and filtered families are later
+    slices)."""
+    return _dispatch_flat_plain(plans, ctx, k)
+
+
 def execute_flat_batch(plans: list[FlatPlan], ctx: ShardContext,
                        k: int) -> list[TopDocs]:
     """Run a batch of flat plans: dispatch every segment's launches, then
     merge the per-segment top-k on the host."""
-    return _dispatch_flat_plain(plans, ctx, k).merge()
+    return dispatch_flat_batch(plans, ctx, k).merge()
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "elasticsearch_tpu_torch.search.execute" in report["imported"]
-    assert "elasticsearch_tpu_torch.convert" in report["imported"]
+    for name in ("search.execute", "convert", "search.batcher",
+                 "search.service", "search.controller", "common.breaker",
+                 "common.deadline"):
+        assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []
