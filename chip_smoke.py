@@ -2,15 +2,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--docs N] [--vocab V] [--batches B] [--batch Q]
-                          [--report PATH]
+                          [--node-docs N] [--node-requests R] [--report PATH]
 
 Drives the port's main path — the shard query phase of batched BM25
 bool-of-terms search, top-100 per query — through its public entry points
 (`ShardContext` → `search_shard_batch`) at the data size of a real shard,
 then the serving path — concurrent single requests through
-`parse_search_body` → `execute_query_phase` → the `DeviceBatcher` — and
-holds every hand-written kernel of those paths against its plain torch
-version on the card. Phases:
+`parse_search_body` → `execute_query_phase` → the `DeviceBatcher` — then a
+port `Node` serving REST `_bulk` and `_search` over HTTP, and holds every
+hand-written kernel of those paths against its plain torch version on the
+card. Phases:
 
   1. card facts (nvidia-smi, torch / CUDA / nvcc versions), build the kernels
      from `elasticsearch_tpu_torch/csrc` (one nvcc per source, all at once);
@@ -50,7 +51,25 @@ version on the card. Phases:
      does not wait for them while a pull enqueued at merge time does; then a
      2-shard reduce
      (`execute_query_phase` on each shard, `sort_docs`) at phase 7's size,
-     on the card and on the CPU: identical merged hits.
+     on the card and on the CPU: identical merged hits;
+ 10. the node over HTTP: a port `Node` on the card, every thread pool at
+     its default size, serves REST on an ephemeral port; `PUT /corpus` with
+     the defaults (5 shards, 1 replica: health yellow on one node) and
+     `refresh_interval: -1`; 200,000 docs
+     (phase 2's generator rendered as tokens `t<rank>`) in `_bulk` requests
+     of 1,000 through the host analyzer into each shard's durable Engine,
+     then `_refresh`; 4,096 `_search` requests (phase 3's 4-term `bool` of
+     `should` terms, size 10, `_source` returned) from 64 client threads in
+     a process of their own, each on its own keep-alive connection, the
+     whole timed run under `set_sync_debug_mode("error")`. Every response's
+     total equals an exact
+     numpy count over the corpus, its ids and scores equal each shard's
+     `search_shard_batch` reduced by score desc, shard, doc; the kernel
+     launched from the node's DeviceBatcher and is bitwise equal to its
+     plain version at every shape phase 10 launched. Bulk docs/s,
+     requests/s, p50/p99, batcher occupancy and flushes, launches by
+     variant, the node process's CPU seconds by thread kind and the
+     device's idle share over a profiled window.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -62,6 +81,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -82,6 +102,9 @@ K = 100
 K1, B = 1.2, 0.75
 
 SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
+NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 200_000, 4096, 64  # phase 10's load and traffic
+NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
+NODE_PROFILED = 512  # requests in phase 10's profiled window
 SERVE_SIZES = (10, 100)  # phase 9: half the requests each, k buckets 16 and 128
 SERVE_PROFILED = 1024  # requests in phase 9's profiled window
 SPIN_CYCLES = 40_000_000  # phase 9's stand-in for batch N+1: ~20 ms at ~2 GHz
@@ -288,18 +311,24 @@ class LaunchRecorder:
 
 class GcPauses:
     """Host wall time spent in the interpreter's garbage collector since the
-    last `take()`."""
+    last `take()`, and since construction the collections and their ms by
+    generation (`by_gen`: a full collection walks every tracked object)."""
 
     def __init__(self):
         self.ms = 0.0
         self._t0 = None
+        self.by_gen = {g: dict(collections=0, ms=0.0) for g in range(3)}
         gc.callbacks.append(self._callback)
 
-    def _callback(self, phase, _info):
+    def _callback(self, phase, info):
         if phase == "start":
             self._t0 = time.perf_counter()
         elif self._t0 is not None:
-            self.ms += (time.perf_counter() - self._t0) * 1e3
+            ms = (time.perf_counter() - self._t0) * 1e3
+            self.ms += ms
+            gen = self.by_gen[info["generation"]]
+            gen["collections"] += 1
+            gen["ms"] += ms
             self._t0 = None
 
     def take(self) -> float:
@@ -513,7 +542,9 @@ def graph_ms(fn, reps: int) -> float:
 def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         bool_batch: int, n_check: int, seed: int, small_docs: int,
         serve_requests: int = SERVE_REQUESTS,
-        serve_callers: int = SERVE_CALLERS) -> dict:
+        serve_callers: int = SERVE_CALLERS, node_docs: int = NODE_DOCS,
+        node_requests: int = NODE_REQUESTS,
+        node_callers: int = NODE_CALLERS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -653,6 +684,7 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     log(f"[3] set-up: dense fallback's first use {cold_ms:.2f} ms, then {warm_ms:.2f} ms "
         f"(one query over the most frequent term, all {len(segs)} segments)")
     cudaenv.LAUNCHES.reset()
+    gc_before = {g: dict(v) for g, v in gc_pauses.by_gen.items()}
     lat, dispatch, gc_ms, overflows, main_results = [], [], [], [], None
     for bi, (_c, queries) in enumerate(batches[1:]):
         recorder.batch = [] if bi == 0 else None
@@ -666,10 +698,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     overflow_pairs = sum(overflows)
     recorder.batch = None
     main_launches = cudaenv.LAUNCHES.snapshot()
+    gc_gens = {g: {k: v[k] - gc_before[g][k] for k in v}
+               for g, v in gc_pauses.by_gen.items()}
     lat_a = np.asarray(lat)
     report["main"] = dict(
         batches=n_batches, batch=batch, k=K, latency_ms=lat, dispatch_ms=dispatch,
-        gc_ms=gc_ms, overflow_per_batch=overflows,
+        gc_ms=gc_ms, gc_by_generation=gc_gens, overflow_per_batch=overflows,
         p50_ms=float(np.percentile(lat_a, 50)), p99_ms=float(np.percentile(lat_a, 99)),
         qps=float(n_batches * batch / (lat_a.sum() / 1e3)),
         overflow_query_segments=overflow_pairs,
@@ -678,7 +712,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     log(f"[3] {n_batches} x {batch} queries: {m['qps']:.1f} QPS, batch p50 "
         f"{m['p50_ms']:.2f} ms p99 {m['p99_ms']:.2f} ms (dispatch half p50 "
         f"{np.median(dispatch):.2f} ms, garbage collection {sum(gc_ms):.1f} ms in "
-        f"all); {overflow_pairs} of "
+        f"all; collections, ms by generation "
+        + ", ".join(f"{g}: {v['collections']}, {v['ms']:.1f}" for g, v in gc_gens.items())
+        + f"); {overflow_pairs} of "
         f"{m['query_segments']} (query, segment) pairs past tb_max -> dense path; "
         f"launches {main_launches}")
     for r in main_results:
@@ -836,10 +872,17 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         f"shard, sort_docs: merged hits on {device} == on cpu for "
         f"{reduce['queries']} queries ({reduce['hits']} hits)")
 
+    # -- 10. the node over HTTP -----------------------------------------------
+    node = node_phase(device, vocab=vocab, seed=seed + 9, n_docs=node_docs,
+                      n_requests=node_requests, n_callers=node_callers)
+    report["node"] = node
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        node_launches=node["launches"].get("sparse_score", 0),
+        node_max_abs_err=node["kernel_max_abs_err"])]
     return report
 
 
@@ -1133,6 +1176,40 @@ def device_busy(prof, wall_ms: float) -> dict:
                 idle_share=(1.0 - busy / wall_ms) if busy else None, top=rows[:12])
 
 
+THREAD_KINDS = (("estpu_torch[search_batcher]", "drainer"),
+                ("estpu_torch[search]", "search pool"),
+                ("estpu_torch[generic]", "generic pool"),
+                ("process_request_thread", "HTTP handlers"))
+
+
+def thread_cpu_s() -> dict:
+    """CPU seconds (user + system) of each live thread of this process, from
+    /proc/self/task: {native thread id: (kind, seconds)}."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for t in threading.enumerate():
+        try:
+            stat = Path(f"/proc/self/task/{t.native_id}/stat").read_text()
+        except OSError:
+            continue
+        fields = stat.rsplit(")", 1)[1].split()  # fields 3.. of proc(5)
+        kind = next((k for prefix, k in THREAD_KINDS if prefix in t.name), "other")
+        out[t.native_id] = (kind, (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def host_cpu_split(before: dict, after: dict, process_s: float) -> dict:
+    """CPU seconds by thread kind between two `thread_cpu_s` readings; what
+    the process spent beyond them (threads that ended meanwhile, such as
+    the HTTP client threads, and the main thread) is `rest`."""
+    split: dict[str, float] = {}
+    for tid, (kind, s) in after.items():
+        split[kind] = split.get(kind, 0.0) + s - before.get(tid, (kind, 0.0))[1]
+    split.pop("other", None)
+    split["rest"] = process_s - sum(split.values())
+    return split
+
+
 def shard_reduce_check(device, n_docs: int, seed: int) -> dict:
     """Phase 7's documents split into two shards (one segment each):
     `execute_query_phase` on each shard, then `sort_docs`, on `device` and on
@@ -1220,6 +1297,324 @@ def small_index_check(device, n_docs: int, seed: int) -> dict:
     return dict(docs=n_docs, segments=len(segs), queries=len(queries), hits=n_hits)
 
 
+def node_corpus(n_docs: int, vocab: int, seed: int):
+    """Phase 10's documents: phase 2's generator (zipf(1.35) term ranks over
+    `vocab`, poisson(60) terms a doc clipped to [5, 400]) rendered as text of
+    tokens `t<rank>`, and the (term, doc) CSR of the whole corpus for exact
+    totals. Returns (texts, offsets[vocab + 1], docs)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.poisson(AVG_LEN, n_docs), 5, 400).astype(np.int64)
+    toks = (rng.zipf(ZIPF_A, int(lengths.sum())).astype(np.int64) - 1) % vocab
+    names = [term_name(t) for t in range(vocab)]
+    bounds = np.concatenate([[0], np.cumsum(lengths)]).tolist()
+    tok_list = toks.tolist()
+    texts = [" ".join(map(names.__getitem__, tok_list[lo:hi]))
+             for lo, hi in zip(bounds[:-1], bounds[1:])]
+    del tok_list
+    doc_of_tok = np.repeat(np.arange(n_docs, dtype=np.int64), lengths)
+    keys = np.unique(toks * n_docs + doc_of_tok)
+    offsets = np.zeros(vocab + 1, np.int64)
+    np.cumsum(np.bincount(keys // n_docs, minlength=vocab), out=offsets[1:])
+    return texts, offsets, (keys % n_docs).astype(np.int64)
+
+
+def http_json(conn, method: str, path: str, body=None, ndjson: str | None = None):
+    """One request on a keep-alive connection: (status, parsed JSON)."""
+    if ndjson is not None:
+        data, ctype = ndjson.encode(), "application/x-ndjson"
+    else:
+        data = None if body is None else json.dumps(body).encode()
+        ctype = "application/json"
+    conn.request(method, path, body=data, headers={"Content-Type": ctype})
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read())
+
+
+def http_clients(port: int, bodies: list, n_callers: int, pipe) -> None:
+    """Phase 10's HTTP clients, in a process of their own (a search front
+    end's connections do not share the node's interpreter): `n_callers`
+    threads, each on its own keep-alive connection, send `bodies` as `POST
+    /corpus/_search` back to back (caller c sends bodies c, c + n_callers,
+    ...). On `pipe`: sends "connected" once every connection is open, waits
+    for "go", sends (responses, per-request ms, wall s, errors) when the
+    last answer is in, and closes its connections on "close"."""
+    import http.client
+
+    n = len(bodies)
+    responses, lat_ms, errors = [None] * n, np.zeros(n), []
+    connected, start, done = (threading.Barrier(n_callers + 1) for _ in range(3))
+    close = threading.Event()
+
+    def caller(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            try:  # connect before the clock starts; a failure fails the phase
+                conn.connect()
+            except OSError as e:
+                errors.append((c, repr(e)))
+            connected.wait(timeout=120)
+            start.wait(timeout=600)
+            for i in range(c, n, n_callers):
+                t0 = time.perf_counter()
+                try:
+                    responses[i] = http_json(conn, "POST", "/corpus/_search", bodies[i])
+                except Exception as e:  # noqa: BLE001 — every error fails the phase
+                    errors.append((i, repr(e)))
+                lat_ms[i] = (time.perf_counter() - t0) * 1e3
+            done.wait(timeout=900)
+            close.wait(timeout=600)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=caller, args=(c,), daemon=True)
+               for c in range(n_callers)]
+    for t in threads:
+        t.start()
+    connected.wait(timeout=120)
+    pipe.send("connected")
+    assert pipe.recv() == "go"
+    start.wait(timeout=600)
+    t0 = time.perf_counter()
+    done.wait(timeout=900)
+    pipe.send((responses, lat_ms, time.perf_counter() - t0, errors))
+    assert pipe.recv() == "close"
+    close.set()
+    for t in threads:
+        t.join(timeout=60)
+
+
+def serve_http(port: int, bodies: list, n_callers: int, sync_error: bool):
+    """Run `http_clients` in a process of its own against the node on
+    `port`. Returns (responses, per-request ms, wall s, errors, the node
+    process's CPU s by thread kind over the run: read while every connection
+    and its server thread is still open)."""
+    import multiprocessing
+
+    import torch
+
+    def recv(conn, proc, timeout: float):
+        if not conn.poll(timeout):
+            raise TimeoutError(f"the HTTP client process sent nothing in {timeout} s "
+                               f"(alive: {proc.is_alive()})")
+        return conn.recv()
+
+    ctx = multiprocessing.get_context("spawn")
+    here, there = ctx.Pipe()
+    proc = ctx.Process(target=http_clients, args=(port, bodies, n_callers, there),
+                       daemon=True, name="http-clients")
+    proc.start()
+    try:
+        assert recv(here, proc, 180) == "connected"
+        if sync_error:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            cpu_before, process_before = thread_cpu_s(), time.process_time()
+            here.send("go")
+            responses, lat_ms, wall_s, errors = recv(here, proc, 900)
+            host_cpu = host_cpu_split(cpu_before, thread_cpu_s(),
+                                      time.process_time() - process_before)
+        finally:
+            if sync_error:
+                torch.cuda.set_sync_debug_mode(0)
+        here.send("close")
+        proc.join(timeout=60)
+        assert proc.exitcode == 0, f"HTTP client process exit code {proc.exitcode}"
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+    return responses, lat_ms, wall_s, errors, host_cpu
+
+
+def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
+               n_callers: int) -> dict:
+    """Phase 10: a port Node on `device` serving REST over HTTP — index
+    creation, `_bulk` into each shard's durable Engine, `_refresh`, then
+    concurrent `_search` requests checked against exact totals and the
+    shards' own `search_shard_batch`, with the kernel launched from the
+    node's DeviceBatcher."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, ShardContext, parse_query, search_shard_batch)
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    texts, offsets, inv_docs = node_corpus(n_docs, vocab, seed)
+    corpus_s = time.perf_counter() - t0
+    data_path = Path(__file__).resolve().parent / "build" / f"chip_smoke_node_{os.getpid()}"
+    shutil.rmtree(data_path, ignore_errors=True)
+    # the node as `python -m elasticsearch_tpu_torch` starts it: every pool
+    # at its default size (search: 8 threads, each held by one shard query
+    # phase until its batch is merged)
+    node = Node(name="smoke", registry=LocalTransportRegistry(), data_path=str(data_path),
+                settings={"node.device": str(device)}).start()
+    recorder = None
+    try:
+        port = node.start_http(0).port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        st, r = http_json(conn, "PUT", "/corpus", {"settings": {"refresh_interval": -1}})
+        assert st == 200 and r["acknowledged"], r
+        st, health = http_json(conn, "GET", "/_cluster/health")
+        assert st == 200 and health["status"] == "yellow" and \
+            health["active_primary_shards"] == NODE_SHARDS, health
+
+        # -- load: _bulk over HTTP, then _refresh ---------------------------
+        t0 = time.perf_counter()
+        for lo in range(0, n_docs, NODE_BULK):
+            lines = []
+            for i in range(lo, min(lo + NODE_BULK, n_docs)):
+                lines.append(json.dumps({"index": {"_index": "corpus", "_type": "doc",
+                                                   "_id": str(i)}}))
+                lines.append(json.dumps({"body": texts[i]}))
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+        bulk_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st, r = http_json(conn, "POST", "/corpus/_refresh")
+        assert st == 200 and r["_shards"] == {"total": NODE_SHARDS,
+                                              "successful": NODE_SHARDS, "failed": 0}, r
+        refresh_s = time.perf_counter() - t0
+        conn.close()
+        svc = node.indices.index_service("corpus")
+        engines = [svc.shard(sid).engine for sid in range(NODE_SHARDS)]
+        searchers = [e.acquire_searcher() for e in engines]
+        seg_docs = [[s.doc_count for s in sr.segments] for sr in searchers]
+        assert sum(map(sum, seg_docs)) == n_docs, seg_docs
+        log(f"[10] node on {device}: {n_docs} docs over HTTP in _bulk requests of "
+            f"{NODE_BULK} into {NODE_SHARDS} shards: {n_docs / bulk_s:.1f} docs/s "
+            f"({bulk_s:.1f} s; text rendered in {corpus_s:.1f} s), _refresh "
+            f"{refresh_s:.2f} s; segments per shard {[len(d) for d in seg_docs]}")
+
+        # -- traffic and its references -------------------------------------
+        df = np.diff(offsets)
+        ranked = np.argsort(-df, kind="stable")
+        rng = np.random.default_rng(seed + 1)
+        rows = rng.choice(ranked[RANKS[0]: RANKS[1]], size=(n_requests, TERMS_PER_QUERY))
+        bodies = [{"query": {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                                 for t in row]}},
+                   "size": NODE_SIZE} for row in rows]
+        totals = [int(np.unique(np.concatenate(
+            [inv_docs[offsets[t]: offsets[t + 1]] for t in row])).size) for row in rows]
+        want = [[] for _ in range(n_requests)]
+        for sid, searcher in enumerate(searchers):
+            ctx = ShardContext(searcher, svc.mapper_service, svc.similarity_service,
+                               device=device)
+            for lo in range(0, n_requests, 1024):
+                tops = search_shard_batch(ctx, [parse_query(b["query"])
+                                                for b in bodies[lo: lo + 1024]], NODE_SIZE)
+                for i, td in enumerate(tops, start=lo):
+                    want[i].extend((score, sid, doc) for score, doc in td.hits)
+        for i, entries in enumerate(want):
+            entries.sort(key=lambda e: (-e[0], e[1], e[2]))
+            hits = []
+            for score, sid, doc in entries[:NODE_SIZE]:
+                seg, local = searchers[sid].resolve(doc)
+                hits.append((seg.ids[local], score, sid))
+            want[i] = hits
+
+        recorder = LaunchRecorder(scoring, sparse_score)
+        # first query per shard packs its segments: warm before the timed run
+        warm = serve_http(port, bodies[: 2 * n_callers], n_callers, sync_error=False)
+        assert not warm[3], warm[3][:3]
+        errors_before = SERVING_COUNTERS["device_errors"]
+        stats_before = node.search_batcher.stats()
+        cudaenv.LAUNCHES.reset()
+        responses, lat_ms, wall_s, errors, host_cpu = serve_http(
+            port, bodies, n_callers, sync_error=on_card)
+        launches = cudaenv.LAUNCHES.snapshot()
+        stats = node.search_batcher.stats()
+        device_errors = SERVING_COUNTERS["device_errors"] - errors_before
+
+        # correctness, before any time is kept
+        assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
+        for i, (st, r) in enumerate(responses):
+            assert st == 200, (i, r)
+            assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
+                                    "failed": 0}, (i, r["_shards"])
+            assert r["hits"]["total"] == totals[i], \
+                f"request {i}: total {r['hits']['total']} != exact {totals[i]}"
+            got = [(h["_id"], h["_score"], h["_shard"]) for h in r["hits"]["hits"]]
+            assert got == want[i], f"request {i}: hits differ from the shards' reference"
+            assert all(h["_source"] == {"body": texts[int(h["_id"])]}
+                       for h in r["hits"]["hits"]), f"request {i}: _source"
+        if on_card:
+            assert launches.get("sparse_score", 0) > 0, \
+                "sparse_score never launched in phase 10"
+        assert device_errors == 0, f"{device_errors} device errors"
+        batches = stats["launches"] - stats_before["launches"]
+        items = stats["coalesced"] - stats_before["coalesced"]
+        flushes = {f: stats[f"{f}_flushes"] - stats_before[f"{f}_flushes"]
+                   for f in ("full", "linger", "deadline", "pending")}
+        recorder.close()
+        max_err = check_shapes(recorder.shapes)
+        out = dict(
+            docs=n_docs, shards=NODE_SHARDS, bulk=NODE_BULK, bulk_s=bulk_s,
+            bulk_docs_per_s=n_docs / bulk_s, refresh_s=refresh_s,
+            segments_per_shard=[len(d) for d in seg_docs],
+            requests=n_requests, callers=n_callers,
+            search_pool_threads=node.threadpool.stats()["search"]["threads"], wall_s=wall_s,
+            requests_per_s=n_requests / wall_s,
+            latency_ms=dict(p50=float(np.percentile(lat_ms, 50)),
+                            p99=float(np.percentile(lat_ms, 99)),
+                            max=float(lat_ms.max()), mean=float(lat_ms.mean())),
+            batches=batches, occupancy_mean=items / max(batches, 1), flushes=flushes,
+            batch_service_ms=stats["batch"], host_cpu_s=host_cpu,
+            bypassed=stats["bypassed"] - stats_before["bypassed"],
+            launches=launches, device_errors=device_errors,
+            kernel_shapes=len(recorder.shapes), kernel_max_abs_err=max_err,
+            sync_debug="error over the whole timed run" if on_card else None)
+        log(f"[10] {n_requests} _search requests over HTTP from {n_callers} "
+            f"connections (search pool {out['search_pool_threads']} threads): "
+            f"{out['requests_per_s']:.1f} requests/s, latency p50 "
+            f"{out['latency_ms']['p50']:.2f} ms p99 {out['latency_ms']['p99']:.2f} ms "
+            f"max {out['latency_ms']['max']:.2f} ms; every total == the exact count, "
+            f"every page == the shards' search_shard_batch reduced (ids, scores, shards)")
+        log(f"[10] node batcher: {batches} batches, occupancy mean "
+            f"{out['occupancy_mean']:.3f}; flushes {flushes}; bypassed {out['bypassed']}; "
+            f"batch service (all runs) p50 {stats['batch']['p50_ms']} ms p99 "
+            f"{stats['batch']['p99_ms']} ms; launches {launches}")
+        log(f"[10] host CPU s over the {wall_s:.2f} s timed run, by thread kind: "
+            + ", ".join(f"{k} {v:.2f} ({v / wall_s:.3f} of wall)"
+                        for k, v in host_cpu.items()))
+        log(f"[10] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
+            f"phase 10 launched; max abs err {max_err}")
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            before = node.search_batcher.stats()["launches"]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _r, _l, pwall_s, perrors, _cpu = serve_http(
+                    port, bodies[:NODE_PROFILED], n_callers, sync_error=False)
+            assert not perrors, perrors[:3]
+            out["profiled"] = device_busy(prof, pwall_s * 1e3)
+            out["profiled"]["batches"] = node.search_batcher.stats()["launches"] - before
+            p = out["profiled"]
+            if p["device_busy_ms"]:
+                log(f"[10] profiled window of {NODE_PROFILED} requests: wall "
+                    f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+                    f"idle share {p['idle_share']:.4f}, {p['batches']} batches")
+                for name, ms, n in p["top"]:
+                    log(f"[10]   {ms:9.3f} ms {n:5d}x {name}")
+            else:
+                log("[10] profiled window: the profiler saw no device time "
+                    "(device idle share not measured)")
+        return out
+    finally:
+        if recorder is not None:
+            recorder.close()
+        node.close()
+        shutil.rmtree(data_path, ignore_errors=True)
+
+
 def small_sources(n_docs: int, seed: int) -> list[dict]:
     """Phase 7's documents: a zipf(1.1) text over 400 words, a short title
     and a body of 10-120 words each."""
@@ -1262,6 +1657,10 @@ def main() -> int:
                     help="queries per batch kind held against the reference scorer")
     ap.add_argument("--small-docs", type=int, default=2000)
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--node-docs", type=int, default=NODE_DOCS,
+                    help="phase 10: docs bulked into the node")
+    ap.add_argument("--node-requests", type=int, default=NODE_REQUESTS,
+                    help="phase 10: _search requests in the timed run")
     ap.add_argument("--report", help="also write the full report as JSON here")
     args = ap.parse_args()
 
@@ -1280,7 +1679,8 @@ def main() -> int:
     report = run(torch.device("cuda", 0), n_docs=args.docs, vocab=args.vocab,
                  n_batches=args.batches, batch=args.batch,
                  bool_batch=args.bool_batch, n_check=args.check, seed=args.seed,
-                 small_docs=args.small_docs)
+                 small_docs=args.small_docs, node_docs=args.node_docs,
+                 node_requests=args.node_requests)
     report["wall_s"] = time.perf_counter() - t0
     log(f"[8] every number above: {report['card']}; wall {report['wall_s']:.1f} s")
     if args.report:

@@ -4,10 +4,10 @@
 
 Estimate bytes BEFORE a large allocation and trip with CircuitBreakingError
 (HTTP 429) instead of running the host or the card out of memory. A child
-breaker has its own limit and shares ONE parent budget. The port has one
-child, `request`, which the sparse path's per-batch staging reads; the
-`fielddata` and `in_flight_requests` children come with the slices that
-charge them (device-index loads, the transport).
+breaker has its own limit and shares ONE parent budget. The port has three
+children: `request` (the sparse path's per-batch staging), `fielddata`
+(segment packs and the lazy dense plane, `ops/device_index.py`) and
+`in_flight_requests` (encoded transport messages, `transport/service.py`).
 
 Rules:
 
@@ -19,43 +19,10 @@ Rules:
 from __future__ import annotations
 
 import contextlib
-import re
 import threading
 
-from .errors import CircuitBreakingError, IllegalArgumentError
-
-_NUM_RE = re.compile(r"^\s*(-?[\d.]+)\s*([a-zA-Z%]*)\s*$")
-_BYTE_SUFFIXES = {"b": 1, "k": 1024, "kb": 1024, "m": 1024**2, "mb": 1024**2,
-                  "g": 1024**3, "gb": 1024**3, "t": 1024**4, "tb": 1024**4,
-                  "p": 1024**5, "pb": 1024**5}
-
-
-def parse_bytes(value, default: int | None = None) -> int:
-    """Parse "512mb" → bytes. Ints pass through."""
-    if value is None:
-        if default is None:
-            raise IllegalArgumentError("missing byte size value")
-        return default
-    if isinstance(value, (int, float)):
-        return int(value)
-    m = _NUM_RE.match(str(value))
-    if not m:
-        raise IllegalArgumentError(f"failed to parse byte size [{value}]")
-    num, suffix = m.groups()
-    suffix = suffix.lower()
-    if suffix and suffix not in _BYTE_SUFFIXES:
-        raise IllegalArgumentError(f"unknown byte size unit [{suffix}] in [{value}]")
-    return int(float(num) * _BYTE_SUFFIXES.get(suffix, 1))
-
-
-def parse_ratio_or_bytes(value, total: int, default=None) -> int:
-    """A percentage ("85%") of `total`, or an absolute byte size."""
-    if value is None:
-        value = default
-    s = str(value)
-    if s.endswith("%"):
-        return int(total * float(s[:-1]) / 100.0)
-    return parse_bytes(value)
+from .errors import CircuitBreakingError
+from .units import parse_bytes, parse_ratio_or_bytes
 
 
 class MemoryCircuitBreaker:
@@ -164,12 +131,23 @@ def reserve(breaker: MemoryCircuitBreaker | None, bytes_: int, label: str = ""):
 
 class CircuitBreakerService:
     """The node's breaker hierarchy: one parent budget
-    (`indices.breaker.total.limit`, default 70% of the byte budget) over the
-    `request` breaker — per-request materialization, here the sparse path's
-    per-batch staging (`indices.breaker.request.limit`, default 60%).
+    (`indices.breaker.total.limit`, default 70% of the byte budget) over
+    three children:
+
+    - `request` — per-request materialization, here the sparse path's
+      per-batch staging (`indices.breaker.request.limit`, default 60%);
+    - `fielddata` — segment packs and the lazy dense plane
+      (`indices.fielddata.breaker.limit`, default 80%);
+    - `in_flight_requests` — encoded transport message bytes in flight
+      (`network.breaker.inflight_requests.limit`, default 100%).
 
     The byte budget comes from `indices.breaker.total_budget` ("64kb" /
     "2gb" / raw bytes; default the `total_budget_bytes` argument)."""
+
+    _CHILDREN = (("request", "indices.breaker.request.limit", "60%"),
+                 ("fielddata", "indices.fielddata.breaker.limit", "80%"),
+                 ("in_flight_requests",
+                  "network.breaker.inflight_requests.limit", "100%"))
 
     def __init__(self, settings=None, total_budget_bytes: int = 8 << 30):
         from .settings import Settings
@@ -182,12 +160,10 @@ class CircuitBreakerService:
                                  budget, default="70%"),
             "parent")
         self.breakers: dict[str, MemoryCircuitBreaker] = {
-            "request": MemoryCircuitBreaker(
-                parse_ratio_or_bytes(
-                    settings.get("indices.breaker.request.limit"),
-                    budget, default="60%"),
-                "request", parent=self.parent),
-        }
+            name: MemoryCircuitBreaker(
+                parse_ratio_or_bytes(settings.get(key), budget, default=dflt),
+                name, parent=self.parent)
+            for name, key, dflt in self._CHILDREN}
 
     def breaker(self, name: str = "request") -> MemoryCircuitBreaker:
         return self.breakers[name]

@@ -1,8 +1,8 @@
 """Logging facade (a trimmed copy of the JAX package's `common/logging.py`):
 component loggers under the port's own root, `estpu_torch`, so a process
 that runs both packages never shares handlers or levels between them. The
-node/shard prefixes and the `logger.*` level settings wait for the port's
-Node."""
+node/shard prefixes and the `logger.*` level settings belong to a later
+slice of the port's Node."""
 
 from __future__ import annotations
 

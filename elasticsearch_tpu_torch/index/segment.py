@@ -1,13 +1,19 @@
 """Write-once segments (a trimmed copy of the JAX package's `index/segment.py`:
-the Python-dict path of SegmentBuilder and the read side of FrozenSegment).
+the Python-dict path of SegmentBuilder, FrozenSegment, copy-on-write
+tombstoning and `merge_segments`).
 
 A segment is flat numpy arrays laid out for device packing: postings are CSR
 over term ids — `post_offsets[t]:post_offsets[t+1]` slices `post_docs`
-(ascending local doc ids) and `post_freqs`; norms are one byte315 byte per
-doc per field; deletes are tombstones in the `live` bitmap."""
+(ascending local doc ids), `post_freqs` and, per posting, its positions;
+norms are one byte315 byte per doc per field; numeric doc values are CSR
+float64 columns; `_source`, ids, types, routings and versions are stored per
+doc for the fetch phase and realtime gets; deletes are tombstones in the
+`live` bitmap. Nested documents and string doc values belong to later
+slices of the port."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
@@ -34,60 +40,72 @@ class FieldStats:
 
 
 class SegmentBuilder:
-    """Accumulates parsed documents, freezes into a FrozenSegment."""
+    """Accumulates parsed documents (the indexing buffer), freezes into a
+    FrozenSegment with the JAX package's exact CSR layout: fields sorted by
+    name, terms sorted per field, docs ascending per term."""
 
     def __init__(self, gen: int):
         self.gen = gen
-        # (field, term) -> list of (local_doc, freq)
-        self._postings: dict[tuple[str, str], list[tuple[int, int]]] = {}
+        # (field, term) -> list of (local_doc, freq, positions)
+        self._postings: dict[tuple[str, str], list] = {}
         self._field_lengths: dict[str, list[tuple[int, int]]] = {}
+        self._dv_num: dict[str, list[tuple[int, float]]] = {}
+        self._stored: list[dict | None] = []
         self._ids: list[str] = []
+        self._types: list[str] = []
+        self._routings: list[str | None] = []
+        self._versions: list[int] = []
         self.doc_count = 0
 
-    def add(self, doc: ParsedDocument) -> int:
+    def add(self, doc: ParsedDocument, version: int = 1) -> int:
         """Add one parsed document; returns its local doc id."""
         local = self.doc_count
         self.doc_count += 1
         for field_name, terms in doc.postings.items():
-            per_term: dict[str, int] = {}
-            for term, _pos in terms:
-                per_term[term] = per_term.get(term, 0) + 1
-            for term, freq in per_term.items():
+            per_term: dict[str, list[int]] = {}
+            for term, pos in terms:
+                per_term.setdefault(term, []).append(pos)
+            for term, positions in per_term.items():
                 self._postings.setdefault((field_name, term), []).append(
-                    (local, freq))
+                    (local, len(positions), positions))
         for field_name, length in doc.field_lengths.items():
             self._field_lengths.setdefault(field_name, []).append((local, length))
+        for field_name, vals in doc.doc_values_num.items():
+            self._dv_num.setdefault(field_name, []).extend((local, v) for v in vals)
+        self._stored.append(doc.source)
         self._ids.append(doc.id)
+        self._types.append(doc.type)
+        self._routings.append(doc.routing)
+        self._versions.append(version)
         return local
 
     def freeze(self) -> "FrozenSegment":
         D = self.doc_count
-        # fields sorted by name, terms sorted per field, docs ascending per term
         by_field: dict[str, list[str]] = {}
         for f, t in self._postings:
             by_field.setdefault(f, []).append(t)
         term_dict: dict[str, dict[str, int]] = {}
         offsets = [0]
-        docs_parts, freqs_parts = [], []
+        docs_parts, freqs_parts, pos_offsets, pos_parts = [], [], [0], []
         sum_dfs_by_field: dict[str, int] = {}
         tid = 0
         for f in sorted(by_field):
             td: dict[str, int] = {}
             for t in sorted(by_field[f]):
-                plist = sorted(self._postings[(f, t)])
+                plist = self._postings[(f, t)]
+                plist.sort(key=lambda e: e[0])
                 sum_dfs_by_field[f] = sum_dfs_by_field.get(f, 0) + len(plist)
                 td[t] = tid
                 docs_parts.append(np.fromiter((e[0] for e in plist),
                                               dtype=np.int32, count=len(plist)))
                 freqs_parts.append(np.fromiter((e[1] for e in plist),
                                                dtype=np.float32, count=len(plist)))
+                for e in plist:
+                    pos_parts.extend(e[2])
+                    pos_offsets.append(len(pos_parts))
                 offsets.append(offsets[-1] + len(plist))
                 tid += 1
             term_dict[f] = td
-        post_docs = (np.concatenate(docs_parts) if docs_parts
-                     else np.zeros(0, np.int32))
-        post_freqs = (np.concatenate(freqs_parts) if freqs_parts
-                      else np.zeros(0, np.float32))
 
         norms: dict[str, np.ndarray] = {}
         field_stats: dict[str, FieldStats] = {}
@@ -100,18 +118,37 @@ class SegmentBuilder:
                 doc_count=int((lengths > 0).sum()), sum_ttf=int(lengths.sum()),
                 sum_dfs=sum_dfs_by_field.get(f, 0))
 
+        dv_num: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        for f, entries in self._dv_num.items():
+            entries.sort(key=lambda e: e[0])
+            counts = np.zeros(D + 1, dtype=np.int64)
+            for local, _ in entries:
+                counts[local + 1] += 1
+            vals = np.fromiter((v for _, v in entries), dtype=np.float64,
+                               count=len(entries))
+            dv_num[f] = (np.cumsum(counts), vals)
+
         return FrozenSegment(
             gen=self.gen,
             doc_count=D,
             term_dict=term_dict,
             post_offsets=np.asarray(offsets, dtype=np.int64),
-            post_docs=post_docs,
-            post_freqs=post_freqs,
+            post_docs=(np.concatenate(docs_parts) if docs_parts
+                       else np.zeros(0, np.int32)),
+            post_freqs=(np.concatenate(freqs_parts) if freqs_parts
+                        else np.zeros(0, np.float32)),
             norms=norms,
             field_stats=field_stats,
             live=np.ones(D, dtype=bool),
             parent_mask=np.ones(D, dtype=bool),
             ids=list(self._ids),
+            types=list(self._types),
+            routings=list(self._routings),
+            versions=np.asarray(self._versions, dtype=np.int64),
+            stored=list(self._stored),
+            pos_offsets=np.asarray(pos_offsets, dtype=np.int64),
+            positions=np.asarray(pos_parts, dtype=np.int32),
+            dv_num=dv_num,
         )
 
 
@@ -128,6 +165,14 @@ class FrozenSegment:
     live: np.ndarray  # bool[D] — tombstones
     parent_mask: np.ndarray  # bool[D] — top-level (searchable) docs
     ids: list | None = None  # external doc ids, when known
+    # the stored side (None for a segment built from arrays by convert.py)
+    types: list | None = None
+    routings: list | None = None
+    versions: np.ndarray | None = None  # int64[D]
+    stored: list | None = None  # _source per doc
+    pos_offsets: np.ndarray | None = None  # int64[P+1]
+    positions: np.ndarray | None = None  # int32[sum of freqs]
+    dv_num: dict = dc_field(default_factory=dict)  # field -> (offsets[D+1], values)
     # per-device packed planes (ops/device_index.packed_for), keyed by device
     _device_cache: dict = dc_field(default_factory=dict, repr=False, compare=False)
     # bumped on every tombstone: a pack built under an older generation is
@@ -146,9 +191,93 @@ class FrozenSegment:
             return 0
         return int(self.post_offsets[tid + 1] - self.post_offsets[tid])
 
+    def live_count(self) -> int:
+        """Live top-level docs, memoized on the tombstone generation (the
+        merge policy sizes every segment on every plan)."""
+        cached = self._device_cache.get("live_count")
+        if cached is not None and cached[0] == self.live_gen:
+            return cached[1]
+        n = int((self.live & self.parent_mask).sum())
+        self._device_cache["live_count"] = (self.live_gen, n)
+        return n
+
     def delete_doc(self, local: int) -> None:
-        """Tombstone a doc in place."""
+        """Tombstone a doc in place (with_deletes is the copy-on-write form
+        that keeps acquired searchers' point-in-time view)."""
         global _LIVE_GEN
         self.live[local] = False
         _LIVE_GEN += 1
         self.live_gen = _LIVE_GEN
+
+    def with_deletes(self, locals_to_delete) -> "FrozenSegment":
+        """Copy-on-write tombstoning: a NEW segment object sharing every large
+        array but with a fresh live bitmap, so a previously acquired Searcher
+        keeps an immutable point-in-time view.
+
+        Every pack of the segment (one per device, under `("packed",
+        device)`) gets a shallow copy of its own: the postings planes stay
+        shared, but `blk_docs`, `live_parent` and `live_gen` become this
+        view's. `packed_for` re-masks a pack by reassigning those three, so
+        re-masking the new view's copy never touches the planes an older
+        view (a pinned fetch context, a batch in flight) still reads. A
+        shared entry would let the delete re-mask the old view's pack under
+        it."""
+        new = dataclasses.replace(self, live=self.live.copy(),
+                                  _device_cache=dict(self._device_cache))
+        new._device_cache.pop("live_count", None)
+        for local in locals_to_delete:
+            new.delete_doc(local)
+        for key, packed in list(new._device_cache.items()):
+            if isinstance(key, tuple) and key[0] == "packed":
+                new._device_cache[key] = dataclasses.replace(packed)
+        return new
+
+    def estimated_bytes(self) -> int:
+        """The merge policy's size of the segment: postings, positions,
+        norms and numeric columns — the JAX package's sum, so both engines
+        make the same merge choices for the same documents."""
+        n = self._device_cache.get("est_bytes")
+        if n is not None:
+            return n
+        n = self.post_docs.nbytes + self.post_freqs.nbytes
+        n += self.positions.nbytes if self.positions is not None else 0
+        n += sum(a.nbytes for a in self.norms.values())
+        n += sum(o.nbytes + v.nbytes for o, v in self.dv_num.values())
+        self._device_cache["est_bytes"] = n
+        return n
+
+
+def merge_segments(segments: list[FrozenSegment], gen: int) -> FrozenSegment:
+    """Merge the live docs of several segments, in order, into one new
+    segment: each doc's postings are rebuilt from the CSR arrays with their
+    positions, so the merged segment is the one indexing those docs afresh
+    would freeze."""
+    builder = SegmentBuilder(gen)
+    for seg in segments:
+        per_doc: list[dict[str, list[tuple[str, int]]]] = [
+            {} for _ in range(seg.doc_count)]
+        for f, td in seg.term_dict.items():
+            for term, tid in td.items():
+                s, e = int(seg.post_offsets[tid]), int(seg.post_offsets[tid + 1])
+                for i in range(s, e):
+                    poss = seg.positions[seg.pos_offsets[i]: seg.pos_offsets[i + 1]]
+                    per_doc[int(seg.post_docs[i])].setdefault(f, []).extend(
+                        (term, int(p)) for p in poss)
+        for local in range(seg.doc_count):
+            if not seg.live[local]:
+                continue
+            doc = ParsedDocument(id=seg.ids[local], type=seg.types[local],
+                                 uid=f"{seg.types[local]}#{seg.ids[local]}",
+                                 source=seg.stored[local],
+                                 routing=seg.routings[local])
+            doc.postings = {f: sorted(terms, key=lambda tp: tp[1])
+                            for f, terms in per_doc[local].items()}
+            # norm-bearing fields only: the meta fields carry no lengths
+            doc.field_lengths = {f: len(t) for f, t in doc.postings.items()
+                                 if f in seg.norms}
+            for f, (off, vals) in seg.dv_num.items():
+                v = vals[off[local]: off[local + 1]]
+                if len(v):
+                    doc.doc_values_num[f] = list(v)
+            builder.add(doc, version=int(seg.versions[local]))
+    return builder.freeze()

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..common.breaker import reserve
 from ..common.cudaenv import upload
 from ..index.segment import FrozenSegment
 
@@ -213,6 +214,18 @@ def packed_resident_bytes(packed: PackedSegment) -> int:
                          packed.blk_freqs) if t is not None)
 
 
+def pack_estimate_bytes(seg: FrozenSegment) -> int:
+    """Host staging + device bytes pack_segment allocates, the estimate the
+    fielddata breaker checks before packing: per slot the host docs i32,
+    freqs f32, tf and nb staging plus the device docs, tf and nb planes and
+    a 12 B allowance for the masking temporaries; per padded doc the live
+    mask (host and device) and each field's norm byte."""
+    NBpad, Dpad, layout = pack_shape_math(seg)
+    tf_b = np.dtype(_TF_DTYPE[layout]).itemsize
+    per_slot = (4 + 4 + tf_b + 1) + (4 + tf_b + 1) + 12
+    return NBpad * BLOCK * per_slot + Dpad * 2 + Dpad * len(seg.norms)
+
+
 _PACK_LOCK = threading.Lock()
 
 
@@ -221,15 +234,19 @@ def pack_cache_key(device: torch.device) -> tuple:
     return ("packed", str(device))
 
 
-def packed_for(seg: FrozenSegment, device: torch.device) -> PackedSegment:
+def packed_for(seg: FrozenSegment, device: torch.device,
+               breaker=None) -> PackedSegment:
     """The segment's pack on `device`, cached on the segment; re-masks the
-    live planes when tombstones changed since the pack. Uploads never
-    synchronise, so this is safe inside a dispatch."""
+    live planes when tombstones changed since the pack. A first pack
+    reserves `pack_estimate_bytes` on `breaker` (the node's fielddata child;
+    None in unwired contexts) while it runs. Uploads never synchronise, so
+    this is safe inside a dispatch."""
     key = pack_cache_key(device)
     with _PACK_LOCK:
         packed = seg._device_cache.get(key)
         if packed is None:
-            packed = pack_segment(seg, device)
+            with reserve(breaker, pack_estimate_bytes(seg), "<packed_segment>"):
+                packed = pack_segment(seg, device)
             seg._device_cache[key] = packed
         elif packed.live_gen != seg.live_gen:
             live_parent = _live_parent(seg, packed.doc_pad)
@@ -241,15 +258,17 @@ def packed_for(seg: FrozenSegment, device: torch.device) -> PackedSegment:
     return packed
 
 
-def ensure_blk_freqs(packed: PackedSegment) -> torch.Tensor:
+def ensure_blk_freqs(packed: PackedSegment, breaker=None) -> torch.Tensor:
     """Fault in the dense-fallback f32 freqs plane (sparse-only segments
-    never pay its 4 B/posting). Under the pack lock, so two dispatching
-    threads upload it once."""
+    never pay its 4 B/posting), its bytes reserved on `breaker` (fielddata)
+    around the upload. Under the pack lock, so two dispatching threads
+    upload it once."""
     if packed.blk_freqs is None:
         with _PACK_LOCK:
             if packed.blk_freqs is None:
-                packed.blk_freqs = upload(packed.host_freqs.reshape(-1, BLOCK),
-                                          packed.device)
+                with reserve(breaker, packed.host_freqs.nbytes, "<dense_freqs>"):
+                    packed.blk_freqs = upload(
+                        packed.host_freqs.reshape(-1, BLOCK), packed.device)
     return packed.blk_freqs
 
 

@@ -174,11 +174,16 @@ def _msm_value(s: str, clause_count: int) -> int:
 
 def lower_flat(query: Query, ctx: ShardContext) -> FlatPlan | None:
     """Lower a query to a flat clause list, or None when it needs the host
-    scorer (fuzzy match, must_not-only bool, non-term bool sub-clauses)."""
+    scorer (fuzzy match, must_not-only bool, non-term bool sub-clauses) or
+    reads a numeric, date or boolean field: those keep doc values only in
+    the port so far, and a clause on one must not answer "no match"."""
     plan = _lower_flat_inner(query, ctx)
     if plan is not None:
-        for c in plan.clauses:
-            if not isinstance(ctx.similarity_for(c.field),
+        for field in {c.field for c in plan.clauses}:
+            ft = ctx.field_type(field)
+            if ft is not None and not ft.is_text:
+                return None
+            if not isinstance(ctx.similarity_for(field),
                               (BM25Similarity, TFIDFSimilarity)):
                 return None
     return plan
@@ -385,7 +390,7 @@ def _dispatch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
 
     seg_work = []
     for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
-        packed = packed_for(seg, ctx.device)
+        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"))
         # a 1 KB/field LUT swap when stats moved, never a postings re-bake
         sim = ensure_sim_tables(packed, sim_tables)
         clause_lists = []
@@ -405,7 +410,8 @@ def _dispatch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
         if overflow:
             dense = _launch_dense_fallback(
                 overflow, finals, field_idx, all_fields, caches_stack,
-                n_must, msm, coord_tbl, packed, seg, k)
+                n_must, msm, coord_tbl, packed, seg, k,
+                breaker=ctx.breaker("fielddata"))
         seg_work.append((seg, base, packed.doc_pad, launches, dense))
     return _PendingFlat(Q=Q, k=k, seg_work=seg_work,
                         pull=pull_async(_result_tensors(seg_work)))
@@ -478,12 +484,13 @@ def _dense_entries(finals, seg, packed, field_idx) -> list:
 
 def _launch_dense_fallback(overflow, finals, field_idx, all_fields,
                            caches_stack, n_must, msm, coord_tbl, packed, seg,
-                           k) -> list:
+                           k, breaker=None) -> list:
     """Launch the overflow queries (block count past tb_max) on the dense
     program without synchronising, in chunks that keep its [Q, doc_pad+1]
     temporaries within budget. Returns [(query indices, device result
-    triple)] for the merge half."""
-    ensure_blk_freqs(packed)
+    triple)] for the merge half. The lazy f32 plane's first upload is
+    reserved on `breaker` (fielddata)."""
+    ensure_blk_freqs(packed, breaker)
     for f in all_fields:
         if f not in packed.norm_bytes:
             # a queried field this segment never indexed: all-zero norm row

@@ -3,9 +3,10 @@ port of the JAX package's `search/service.py` trimmed to the plain device
 branch (`parse_search_body`, `ShardQueryResult`, `SERVING_COUNTERS`,
 `_execute_flat_single`, `execute_query_phase`).
 
-A body may carry `query`, `from`, `size` and `timeout`. Every other key is a
-request feature (aggregations, sorting, post filters, rescoring, …) whose
-device or host path is a later slice of the port: it raises
+A body may carry `query`, `from`, `size`, `timeout` and `_source` (read by
+the fetch phase, `execute_fetch_phase`). Every other key is a request
+feature (aggregations, sorting, post filters, rescoring, highlighting, …)
+whose device or host path is a later slice of the port: it raises
 QueryParsingError rather than being silently ignored.
 
 There is no host scorer in the port yet, so a device error is not turned into
@@ -22,10 +23,11 @@ from dataclasses import dataclass
 from ..common.deadline import NO_DEADLINE, Deadline, parse_timevalue
 from ..common.errors import QueryParsingError, SearchEngineError
 from .execute import ShardContext, TopDocs, execute_flat_batch, lower_flat
+from .fetch import build_hit
 from .queries import Query, parse_query
 
 # the body keys this slice serves; the rest belong to later slices
-_SERVED_KEYS = ("query", "from", "size", "timeout")
+_SERVED_KEYS = ("query", "from", "size", "timeout", "_source")
 
 
 @dataclass
@@ -75,6 +77,8 @@ class ShardQueryResult:
     shard_id: int = 0
     # the deadline had expired before any segment was scored
     timed_out: bool = False
+    # the pinned query-time context the fetch phase reads (actions.py)
+    context_id: int | None = None
 
 
 # process-wide serving counters of the port (its own singleton: a process
@@ -134,3 +138,16 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
     return ShardQueryResult(total=td.total,
                             docs=[(s, d, None) for s, d in td.hits],
                             max_score=td.max_score, shard_id=shard_id)
+
+
+def execute_fetch_phase(ctx: ShardContext, req: ParsedSearchRequest,
+                        docs: list, index_name: str = "index",
+                        shard_id: int | None = None) -> list[dict]:
+    """docs: [(score, global_doc, sort_values|None)], the winners to
+    hydrate from the context's point-in-time searcher."""
+    hits = []
+    for score, g, _sort_values in docs:
+        seg, local = ctx.searcher.resolve(g)
+        hits.append(build_hit(seg, local, score, req.body,
+                              index_name=index_name, shard_id=shard_id))
+    return hits

@@ -443,7 +443,10 @@ def test_merge_wait_recorded_only_for_overlapped_merges(overlapped):
 def test_breaker_service_has_the_request_child_under_the_parent():
     svc = CircuitBreakerService(Settings.from_flat(
         {"indices.breaker.total_budget": "100kb"}))
-    assert set(svc.stats()) == {"request", "parent"}
+    assert set(svc.stats()) == {"request", "fielddata", "in_flight_requests",
+                                "parent"}
+    assert svc.breaker("fielddata").limit == 80 * 1024
+    assert svc.breaker("in_flight_requests").limit == 100 * 1024
     req = svc.breaker()
     assert req is svc.breaker("request") and req.limit == 60 * 1024
     assert svc.parent.limit == 70 * 1024

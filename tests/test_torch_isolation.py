@@ -34,6 +34,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("search.execute", "convert", "search.batcher",
                  "search.service", "search.controller", "common.breaker",
-                 "common.deadline"):
+                 "common.deadline", "node", "actions", "rest.controller",
+                 "http.server", "transport.service", "transport.local",
+                 "cluster.state", "cluster.service", "cluster.allocation",
+                 "cluster.routing", "discovery.zen", "gateway", "threadpool",
+                 "index.engine", "index.translog", "index.store",
+                 "index.merge_policy", "indices_service", "search.fetch",
+                 "common.stream", "common.xcontent", "common.units",
+                 "__main__"):
         assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []
