@@ -70,6 +70,28 @@ card. Phases:
      requests/s, p50/p99, batcher occupancy and flushes, launches by
      variant, the node process's CPU seconds by thread kind and the
      device's idle share over a profiled window.
+ 11. mixed traffic on phase 10's node and index: 2,048 `_search` requests
+     from the same 64 connections in a seeded random order, half phase 3's
+     4-term `bool` (the card's sparse path through the node's batcher), half
+     bodies the host scorer serves, a sixth each: `match_phrase` of two
+     adjacent tokens of a corpus doc; `bool` of a `must` term with a
+     `filter` of 20 `terms` (df ranks 20-400); `filtered`: phase 3's `bool`
+     with such a `terms` filter; `constant_score` over a 4-character
+     `prefix` (`t` and 3 digits, ~111 terms); no query (match_all) with a
+     `post_filter` term (df ranks 20-400); phase 3's `bool` with `min_score`
+     at half its own top score (the port's host search, before the clock).
+     The whole timed run under `set_sync_debug_mode("error")`. Every
+     response's total, ids, scores and shards equal each shard's host query
+     phase (`execute_query_phase(..., use_device=False)`) reduced by score
+     desc, shard, doc: bitwise for the host half; for the card's half the
+     same order within 2 ulp, tie-tolerant (the share that is bitwise is
+     printed), and bitwise against each shard's `search_shard_batch`. The
+     totals of the filter families equal exact numpy counts; the serving
+     counters show 5 host shard phases a host request and 5 sparse ones a
+     device request, and no device error; the kernel is bitwise equal to
+     its plain version at every shape phase 11 launched. Requests/s of the
+     mix, p50/p99 by family, the node's CPU seconds by thread kind and the
+     device's idle share over a profiled window.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -105,6 +127,9 @@ SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
 NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 200_000, 4096, 64  # phase 10's load and traffic
 NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
 NODE_PROFILED = 512  # requests in phase 10's profiled window
+MIXED_REQUESTS = 2048  # phase 11's traffic: half the card's, half the host's
+MIXED_HOST = ("phrase", "bool_filter", "filtered", "prefix", "post_filter", "min_score")
+FILTER_TERMS = 20  # terms of phase 11's `terms` filters, df ranks BOOL_RANKS
 SERVE_SIZES = (10, 100)  # phase 9: half the requests each, k buckets 16 and 128
 SERVE_PROFILED = 1024  # requests in phase 9's profiled window
 SPIN_CYCLES = 40_000_000  # phase 9's stand-in for batch N+1: ~20 ms at ~2 GHz
@@ -544,7 +569,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         serve_requests: int = SERVE_REQUESTS,
         serve_callers: int = SERVE_CALLERS, node_docs: int = NODE_DOCS,
         node_requests: int = NODE_REQUESTS,
-        node_callers: int = NODE_CALLERS) -> dict:
+        node_callers: int = NODE_CALLERS,
+        mixed_requests: int = MIXED_REQUESTS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -874,7 +900,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
 
     # -- 10. the node over HTTP -----------------------------------------------
     node = node_phase(device, vocab=vocab, seed=seed + 9, n_docs=node_docs,
-                      n_requests=node_requests, n_callers=node_callers)
+                      n_requests=node_requests, n_callers=node_callers,
+                      mixed_requests=mixed_requests)
     report["node"] = node
 
     report["kernels"] = [dict(
@@ -882,7 +909,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         node_launches=node["launches"].get("sparse_score", 0),
-        node_max_abs_err=node["kernel_max_abs_err"])]
+        node_max_abs_err=node["kernel_max_abs_err"],
+        mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
+        mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"])]
     return report
 
 
@@ -1427,7 +1456,7 @@ def serve_http(port: int, bodies: list, n_callers: int, sync_error: bool):
 
 
 def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
-               n_callers: int) -> dict:
+               n_callers: int, mixed_requests: int = MIXED_REQUESTS) -> dict:
     """Phase 10: a port Node on `device` serving REST over HTTP — index
     creation, `_bulk` into each shard's durable Engine, `_refresh`, then
     concurrent `_search` requests checked against exact totals and the
@@ -1607,12 +1636,222 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             else:
                 log("[10] profiled window: the profiler saw no device time "
                     "(device idle share not measured)")
+        out["mixed"] = mixed_phase(
+            device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
+            searchers=searchers, seed=seed + 2, n_requests=mixed_requests,
+            n_callers=n_callers)
         return out
     finally:
         if recorder is not None:
             recorder.close()
         node.close()
         shutil.rmtree(data_path, ignore_errors=True)
+
+
+def term_docs(offsets, inv_docs, terms) -> np.ndarray:
+    """The sorted docs that hold any of `terms`, from phase 10's CSR."""
+    return np.unique(np.concatenate([inv_docs[offsets[t]: offsets[t + 1]]
+                                     for t in terms]))
+
+
+def mixed_bodies(rng, texts, offsets, inv_docs, n_requests: int):
+    """Phase 11's traffic in a seeded random order: [(family, body, exact
+    total or None)]. The `min_score` bodies carry no threshold yet."""
+    df = np.diff(offsets)
+    ranked = np.argsort(-df, kind="stable")
+    pool, dense = ranked[RANKS[0]: RANKS[1]], ranked[BOOL_RANKS[0]: BOOL_RANKS[1]]
+
+    def should(row):
+        return {"bool": {"should": [{"term": {"body": term_name(int(t))}} for t in row]}}
+
+    def terms_filter(row):
+        return {"terms": {"body": [term_name(int(t)) for t in row]}}
+
+    n_host = n_requests // 2
+    out = [("device", {"query": should(row), "size": NODE_SIZE}, None)
+           for row in rng.choice(pool, size=(n_requests - n_host, TERMS_PER_QUERY))]
+    for i, family in enumerate(MIXED_HOST):
+        for _ in range(n_host // len(MIXED_HOST) + (i < n_host % len(MIXED_HOST))):
+            total = None
+            if family == "phrase":
+                toks = texts[int(rng.integers(len(texts)))].split()
+                j = int(rng.integers(len(toks) - 1))
+                body = {"query": {"match_phrase": {"body": f"{toks[j]} {toks[j + 1]}"}}}
+            elif family == "bool_filter":
+                must, filt = rng.choice(pool), rng.choice(dense, FILTER_TERMS, replace=False)
+                body = {"query": {"bool": {"must": [{"term": {"body": term_name(int(must))}}],
+                                           "filter": [terms_filter(filt)]}}}
+                total = np.intersect1d(term_docs(offsets, inv_docs, [must]),
+                                       term_docs(offsets, inv_docs, filt)).size
+            elif family == "filtered":
+                row = rng.choice(pool, TERMS_PER_QUERY)
+                filt = rng.choice(dense, FILTER_TERMS, replace=False)
+                body = {"query": {"filtered": {"query": should(row),
+                                               "filter": terms_filter(filt)}}}
+                total = np.intersect1d(term_docs(offsets, inv_docs, row),
+                                       term_docs(offsets, inv_docs, filt)).size
+            elif family == "prefix":
+                prefix = f"t{int(rng.integers(200, 1000))}"
+                body = {"query": {"constant_score": {"filter": {
+                    "prefix": {"body": prefix}}}}}
+            elif family == "post_filter":
+                t = int(rng.choice(dense))
+                body = {"post_filter": {"term": {"body": term_name(t)}}}
+                total = int(df[t])
+            else:  # min_score
+                body = {"query": should(rng.choice(pool, TERMS_PER_QUERY))}
+            body["size"] = NODE_SIZE
+            out.append((family, body, None if total is None else int(total)))
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+def host_reference(ctxs, body: dict):
+    """Each shard's host query phase, reduced by score desc, shard, doc:
+    (total, [(score, shard, doc)] of the page, top score)."""
+    from elasticsearch_tpu_torch.search import execute_query_phase, parse_search_body
+
+    req = parse_search_body(body)
+    entries, total, top = [], 0, float("nan")
+    for sid, ctx in enumerate(ctxs):
+        r = execute_query_phase(ctx, req, use_device=False, shard_id=sid)
+        total += r.total
+        entries.extend((score, sid, doc) for score, doc, _sv in r.docs)
+        if r.max_score == r.max_score:
+            top = r.max_score if top != top else max(top, r.max_score)
+    entries.sort(key=lambda e: (-e[0], e[1], e[2]))
+    return total, entries[: req.from_ + req.size], top
+
+
+def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
+                seed: int, n_requests: int, n_callers: int) -> dict:
+    """Phase 11: phase 10's node serves bodies that lower to the card's
+    sparse path and bodies the host scorer serves, side by side, from the
+    same connections; every response is held against the shards' host query
+    phases."""
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, ShardContext, parse_query, search_shard_batch)
+
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    svc = node.indices.index_service("corpus")
+    ctxs = [ShardContext(sr, svc.mapper_service, svc.similarity_service, device=device)
+            for sr in searchers]
+    rng = np.random.default_rng(seed)
+    traffic = mixed_bodies(rng, texts, offsets, inv_docs, n_requests)
+    for family, body, _total in traffic:
+        if family == "min_score":
+            _t, _e, top = host_reference(ctxs, body)
+            assert top == top, f"min_score body without a hit: {body}"
+            body["min_score"] = top / 2
+    bodies = [body for _f, body, _t in traffic]
+    families = np.array([f for f, _b, _t in traffic])
+
+    recorder = LaunchRecorder(scoring, sparse_score)
+    try:
+        before = dict(SERVING_COUNTERS)
+        cudaenv.LAUNCHES.reset()
+        responses, lat_ms, wall_s, errors, host_cpu = serve_http(
+            port, bodies, n_callers, sync_error=on_card)
+        launches = cudaenv.LAUNCHES.snapshot()
+        counted = {k: SERVING_COUNTERS[k] - before[k] for k in SERVING_COUNTERS}
+    finally:
+        recorder.close()
+
+    # correctness, before any time is kept
+    assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
+    n_device = int((families == "device").sum())
+    n_host = n_requests - n_device
+    assert counted == {"device_sparse": NODE_SHARDS * n_device, "device_errors": 0,
+                       "host": NODE_SHARDS * n_host}, counted
+    device_idx = [i for i, f in enumerate(families) if f == "device"]
+    card_ref = {}
+    for lo in range(0, len(device_idx), 1024):
+        chunk = device_idx[lo: lo + 1024]
+        for sid, ctx in enumerate(ctxs):
+            tops = search_shard_batch(ctx, [parse_query(bodies[i]["query"]) for i in chunk],
+                                      NODE_SIZE)
+            for i, td in zip(chunk, tops):
+                card_ref.setdefault(i, []).extend((s, sid, d) for s, d in td.hits)
+    def ident(sid: int, doc: int) -> str:
+        seg, local = searchers[sid].resolve(doc)
+        return seg.ids[local]
+
+    exact_device = 0
+    for i, ((st, r), (family, body, total)) in enumerate(zip(responses, traffic)):
+        assert st == 200, (i, family, r)
+        assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
+                                "failed": 0}, (i, family, r["_shards"])
+        ref_total, entries, _top = host_reference(ctxs, body)
+        assert r["hits"]["total"] == ref_total, (i, family, r["hits"]["total"], ref_total)
+        if total is not None:
+            assert ref_total == total, f"request {i} ({family}): total != exact {total}"
+        got = [(h["_score"], (h["_id"], h["_shard"])) for h in r["hits"]["hits"]]
+        want = [(score, (ident(sid, doc), sid)) for score, sid, doc in entries]
+        if family != "device":
+            assert got == want, f"request {i} ({family}): hits != the host query phases"
+            continue
+        assert tie_tolerant_equal(got, want), \
+            f"request {i}: card hits != host hits within {ULPS} ulp"
+        exact_device += got == want
+        card_hits = sorted(card_ref[i], key=lambda e: (-e[0], e[1], e[2]))[:NODE_SIZE]
+        assert [(s, (ident(sid, d), sid)) for s, sid, d in card_hits] == got, \
+            f"request {i}: hits != the shards' search_shard_batch"
+    if on_card:
+        assert launches.get("sparse_score", 0) > 0, "sparse_score never launched in phase 11"
+    max_err = check_shapes(recorder.shapes)
+
+    by_family = {}
+    for family in ("device",) + MIXED_HOST:
+        lat = lat_ms[families == family]
+        by_family[family] = dict(requests=int(len(lat)),
+                                 p50_ms=float(np.percentile(lat, 50)),
+                                 p99_ms=float(np.percentile(lat, 99)))
+    out = dict(requests=n_requests, callers=n_callers, wall_s=wall_s,
+               requests_per_s=n_requests / wall_s, latency_by_family=by_family,
+               serving_counters=counted, launches=launches, host_cpu_s=host_cpu,
+               device_bitwise_share=exact_device / max(n_device, 1),
+               kernel_shapes=len(recorder.shapes), kernel_max_abs_err=max_err,
+               card=card,
+               sync_debug="error over the whole timed run" if on_card else None)
+    log(f"[11] mixed traffic on the node: {n_requests} _search requests from "
+        f"{n_callers} connections, {n_device} to the card, {n_host} to the host "
+        f"scorer: {out['requests_per_s']:.1f} requests/s ({wall_s:.2f} s); {card}")
+    for family, v in by_family.items():
+        log(f"[11]   {family:11s} {v['requests']:5d} requests: p50 {v['p50_ms']:.2f} ms, "
+            f"p99 {v['p99_ms']:.2f} ms; {card}")
+    log(f"[11] every response == the shards' host query phases reduced (host half "
+        f"bitwise; card half within {ULPS} ulp, tie-tolerant, "
+        f"{out['device_bitwise_share']:.4f} of it bitwise, and bitwise == "
+        f"search_shard_batch); filter-family totals == exact counts; serving "
+        f"counters {counted}; launches {launches}")
+    log(f"[11] host CPU s over the {wall_s:.2f} s timed run, by thread kind: "
+        + ", ".join(f"{k} {v:.2f} ({v / wall_s:.3f} of wall)" for k, v in host_cpu.items())
+        + f"; {card}")
+    log(f"[11] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
+        f"phase 11 launched; max abs err {max_err}")
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _r, _l, pwall_s, perrors, _cpu = serve_http(
+                port, bodies[:NODE_PROFILED], n_callers, sync_error=False)
+        assert not perrors, perrors[:3]
+        out["profiled"] = p = device_busy(prof, pwall_s * 1e3)
+        if p["device_busy_ms"]:
+            log(f"[11] profiled window of {NODE_PROFILED} mixed requests: wall "
+                f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+                f"idle share {p['idle_share']:.4f}; {card}")
+        else:
+            log("[11] profiled window: the profiler saw no device time "
+                "(device idle share not measured)")
+    return out
 
 
 def small_sources(n_docs: int, seed: int) -> list[dict]:

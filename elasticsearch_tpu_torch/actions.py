@@ -18,8 +18,10 @@ package's `actions.py`), in the reference's interaction patterns:
 
 A shard whose query phase fails with a device error (anything that is not a
 SearchEngineError) fails the whole search: the REST layer answers 500 with
-the error. The host scorer that would answer instead comes with the
-fault-domain slice.
+the error, after the contexts of the shards that answered are freed. The
+host scorer serves such a shard instead once the fault domains are ported (a
+later slice). A shard whose fetch fails, with any error, drops its hits and
+records a `_shards.failures` entry; the rest of the page returns.
 
 Not in this slice: the SPMD mesh branch, DFS, the request cache, insights,
 tracing, profiles, admission control, failover across copies and hedging,
@@ -346,21 +348,29 @@ class ActionModule:
         shard_meta: dict[int, tuple] = {}
         wait_by = time.monotonic() + (QUERY_PHASE_TIMEOUT if deadline.remaining() is None
                                       else deadline.remaining() + 5.0)
-        for ordinal, (copy, fut) in enumerate(futs):
-            try:
-                r = fut_result(fut, max(0.0, wait_by - time.monotonic()))
-            except SearchEngineError as e:
-                failures.append({"index": copy.index, "shard": copy.shard_id,
-                                 "node": copy.node_id, "reason": str(e)})
-                terminals.append(e)
-                continue
-            shard_meta[ordinal] = (copy.index, copy.shard_id,
-                                   state.nodes.get(copy.node_id), r.get("ctx_id"))
-            results.append(ShardQueryResult(
-                total=r["total"], docs=[tuple(d) for d in r["docs"]],
-                max_score=r["max_score"] if r["max_score"] is not None else float("nan"),
-                shard_id=ordinal, timed_out=bool(r.get("timed_out")),
-                context_id=r.get("ctx_id")))
+        try:
+            for ordinal, (copy, fut) in enumerate(futs):
+                try:
+                    r = fut_result(fut, max(0.0, wait_by - time.monotonic()))
+                except SearchEngineError as e:
+                    failures.append({"index": copy.index, "shard": copy.shard_id,
+                                     "node": copy.node_id, "reason": str(e)})
+                    terminals.append(e)
+                    continue
+                shard_meta[ordinal] = (copy.index, copy.shard_id,
+                                       state.nodes.get(copy.node_id), r.get("ctx_id"))
+                results.append(ShardQueryResult(
+                    total=r["total"], docs=[tuple(d) for d in r["docs"]],
+                    max_score=r["max_score"] if r["max_score"] is not None
+                    else float("nan"),
+                    shard_id=ordinal, timed_out=bool(r.get("timed_out")),
+                    context_id=r.get("ctx_id")))
+        except Exception:
+            # an error that is not a shard failure (a device error) fails the
+            # search: no shard that answered, or answers later, keeps its
+            # context pinned
+            self._free_after_failure(futs, shard_meta, wait_by)
+            raise
         if not results and terminals and all(
                 isinstance(e, (CircuitBreakingError, RejectedExecutionError))
                 for e in terminals):
@@ -368,6 +378,31 @@ class ActionModule:
             raise terminals[-1]
         return self._finish_search(req, body, results, failures, shards,
                                    shard_meta, t0, timed_out=deadline.expired())
+
+    def _free_after_failure(self, futs, shard_meta: dict, wait_by: float):
+        """Free the pinned context of every shard whose query phase answered
+        or still answers before `wait_by`, and wait for the frees."""
+        pinned = [(index, shard, node, cid)
+                  for (index, shard, node, cid) in shard_meta.values()]
+        state = self.cluster_service.state
+        for ordinal, (copy, fut) in enumerate(futs):
+            if ordinal in shard_meta:
+                continue
+            try:
+                r = fut_result(fut, max(0.0, wait_by - time.monotonic()))
+            except Exception:  # noqa: BLE001 — a failed shard pinned nothing
+                continue
+            pinned.append((copy.index, copy.shard_id,
+                           state.nodes.get(copy.node_id), r.get("ctx_id")))
+        frees = [self.transport.send_request(node, A_FREE_CONTEXT, {
+            "index": index, "shard": shard, "ctx": cid})
+            for (index, shard, node, cid) in pinned if cid is not None]
+        for fut in frees:
+            try:
+                fut_result(fut, 30.0)
+            except Exception:  # noqa: BLE001 — the original error is the answer
+                self.logger.debug("freeing a pinned context failed",
+                                  exc_info=True)
 
     def _finish_search(self, req, body, results, failures, shards, shard_meta, t0,
                        timed_out: bool = False) -> dict:
@@ -392,7 +427,9 @@ class ActionModule:
         for ordinal, entries, fut in fetch_futs:
             try:
                 r = fut_result(fut, 30.0)
-            except SearchEngineError as e:
+            except Exception as e:  # noqa: BLE001 — any fetch failure drops
+                # that shard's hits (handler errors cross the local transport
+                # untyped); the rest of the page still returns
                 index_name, real_shard, _node, _cid = shard_meta[ordinal]
                 failures.append({"index": index_name, "shard": real_shard,
                                  "reason": f"fetch phase failed: {e}"})

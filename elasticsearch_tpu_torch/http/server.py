@@ -5,7 +5,8 @@ HTTP/1.1 keep-alive, one handler thread per connection, JSON in and out.
 A JSON body is parsed here when it is one line (or its Content-Type says
 JSON); multi-line bodies (the `_bulk` NDJSON) and lenient JSON reach their
 handlers as text. A SMILE, CBOR or YAML body answers 400 (those formats are
-a later slice of the port); a body that does not decode answers 400."""
+a later slice of the port); a body that does not decode answers 400. A
+response that does not encode answers 500 with the encoding error."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from urllib.parse import parse_qsl, unquote_plus, urlparse
 
 from ..common import xcontent
 from ..common.logging import get_logger
-from ..rest.controller import RestController, RestRequest
+from ..rest.controller import RestController, RestRequest, RestResponse
 
 
 def _parse_request_body(raw_bytes: bytes, ctype: str):
@@ -85,7 +86,14 @@ class HttpServer:
                         params.setdefault(unquote_plus(seg), "")
                 response = rest.dispatch(RestRequest(
                     method=method, path=parsed.path, params=params, body=body))
-                self._send(method, response.status, response.payload(),
+                try:
+                    payload = response.payload()
+                except Exception as e:  # noqa: BLE001 — unencodable response → 500
+                    response = RestResponse(500, {"error": {
+                        "type": "serialization_exception", "reason": str(e)},
+                        "status": 500})
+                    payload = response.payload()
+                self._send(method, response.status, payload,
                            response.content_type, response.headers)
 
             def do_GET(self):

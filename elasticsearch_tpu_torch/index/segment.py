@@ -6,10 +6,16 @@ A segment is flat numpy arrays laid out for device packing: postings are CSR
 over term ids — `post_offsets[t]:post_offsets[t+1]` slices `post_docs`
 (ascending local doc ids), `post_freqs` and, per posting, its positions;
 norms are one byte315 byte per doc per field; numeric doc values are CSR
-float64 columns; `_source`, ids, types, routings and versions are stored per
-doc for the fetch phase and realtime gets; deletes are tombstones in the
-`live` bitmap. Nested documents and string doc values belong to later
-slices of the port."""
+float64 columns; string fields keep each doc's count of values
+(`str_counts`, what `exists` reads; the values themselves are a later
+slice); `_source`, ids, types, routings and versions are stored per doc for
+the fetch phase and realtime gets; deletes are tombstones in the `live`
+bitmap. Nested documents belong to a later slice of the port.
+
+The read API of the host scorer (`postings`, `term_positions`,
+`terms_for_field`, `num_values`) has the JAX package's
+semantics. A segment built from arrays by `convert.py` has no ids, types or
+positions: what needs them raises instead of answering "no match"."""
 
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 
+from ..common.errors import IllegalArgumentError
 from ..common.smallfloat import encode_norm
 from ..mapper.core import ParsedDocument
 
@@ -50,6 +57,7 @@ class SegmentBuilder:
         self._postings: dict[tuple[str, str], list] = {}
         self._field_lengths: dict[str, list[tuple[int, int]]] = {}
         self._dv_num: dict[str, list[tuple[int, float]]] = {}
+        self._str_counts: dict[str, list[tuple[int, int]]] = {}
         self._stored: list[dict | None] = []
         self._ids: list[str] = []
         self._types: list[str] = []
@@ -72,6 +80,8 @@ class SegmentBuilder:
             self._field_lengths.setdefault(field_name, []).append((local, length))
         for field_name, vals in doc.doc_values_num.items():
             self._dv_num.setdefault(field_name, []).extend((local, v) for v in vals)
+        for field_name, n in doc.str_value_counts.items():
+            self._str_counts.setdefault(field_name, []).append((local, n))
         self._stored.append(doc.source)
         self._ids.append(doc.id)
         self._types.append(doc.type)
@@ -128,6 +138,13 @@ class SegmentBuilder:
                                count=len(entries))
             dv_num[f] = (np.cumsum(counts), vals)
 
+        str_counts: dict[str, np.ndarray] = {}
+        for f, entries in self._str_counts.items():
+            col = np.zeros(D, dtype=np.int32)
+            for local, n in entries:
+                col[local] += n
+            str_counts[f] = col
+
         return FrozenSegment(
             gen=self.gen,
             doc_count=D,
@@ -149,7 +166,12 @@ class SegmentBuilder:
             pos_offsets=np.asarray(pos_offsets, dtype=np.int64),
             positions=np.asarray(pos_parts, dtype=np.int32),
             dv_num=dv_num,
+            str_counts=str_counts,
         )
+
+
+# the port's per-segment filter cache under `_device_cache` (search/filters.py)
+FILTER_CACHE_KEY = ("filters",)
 
 
 @dataclass
@@ -173,6 +195,7 @@ class FrozenSegment:
     pos_offsets: np.ndarray | None = None  # int64[P+1]
     positions: np.ndarray | None = None  # int32[sum of freqs]
     dv_num: dict = dc_field(default_factory=dict)  # field -> (offsets[D+1], values)
+    str_counts: dict = dc_field(default_factory=dict)  # string field -> int32[D]
     # per-device packed planes (ops/device_index.packed_for), keyed by device
     _device_cache: dict = dc_field(default_factory=dict, repr=False, compare=False)
     # bumped on every tombstone: a pack built under an older generation is
@@ -190,6 +213,51 @@ class FrozenSegment:
         if tid is None:
             return 0
         return int(self.post_offsets[tid + 1] - self.post_offsets[tid])
+
+    def postings(self, field: str, term: str) -> tuple[np.ndarray, np.ndarray]:
+        """The term's (ascending local docs, freqs); empty when absent."""
+        tid = self.term_id(field, term)
+        if tid is None:
+            return np.zeros(0, np.int32), np.zeros(0, np.float32)
+        s, e = self.post_offsets[tid], self.post_offsets[tid + 1]
+        return self.post_docs[s:e], self.post_freqs[s:e]
+
+    def term_positions(self, field: str, term: str) -> list[np.ndarray]:
+        """Per matching doc, the token positions of this term (for phrase and
+        span queries)."""
+        tid = self.term_id(field, term)
+        if tid is None:
+            return []
+        positions = self.require("positions", "phrase and span queries")
+        s, e = int(self.post_offsets[tid]), int(self.post_offsets[tid + 1])
+        return [positions[self.pos_offsets[i]: self.pos_offsets[i + 1]]
+                for i in range(s, e)]
+
+    def terms_for_field(self, field: str) -> list[str]:
+        """The field's terms, sorted (memoized: the term dict never changes
+        after freeze)."""
+        key = ("terms", field)
+        terms = self._device_cache.get(key)
+        if terms is None:
+            terms = self._device_cache[key] = sorted(self.term_dict.get(field, ()))
+        return terms
+
+    def num_values(self, field: str, local: int) -> np.ndarray:
+        col = self.dv_num.get(field)
+        if col is None:
+            return np.zeros(0)
+        off, vals = col
+        return vals[off[local]: off[local + 1]]
+
+    def require(self, name: str, needed_by: str):
+        """The stored per-doc attribute `name` (ids, types, positions); a
+        segment built from arrays without it raises."""
+        value = getattr(self, name)
+        if value is None:
+            raise IllegalArgumentError(
+                f"{needed_by} need the segment's {name}, which a segment "
+                f"built from arrays (convert.py) does not carry")
+        return value
 
     def live_count(self) -> int:
         """Live top-level docs, memoized on the tombstone generation (the
@@ -221,10 +289,12 @@ class FrozenSegment:
         re-masking the new view's copy never touches the planes an older
         view (a pinned fetch context, a batch in flight) still reads. A
         shared entry would let the delete re-mask the old view's pack under
-        it."""
+        it. The view starts its own filter cache, so no mask cached under
+        another view's liveness serves it."""
         new = dataclasses.replace(self, live=self.live.copy(),
                                   _device_cache=dict(self._device_cache))
         new._device_cache.pop("live_count", None)
+        new._device_cache.pop(FILTER_CACHE_KEY, None)
         for local in locals_to_delete:
             new.delete_doc(local)
         for key, packed in list(new._device_cache.items()):
@@ -234,8 +304,9 @@ class FrozenSegment:
 
     def estimated_bytes(self) -> int:
         """The merge policy's size of the segment: postings, positions,
-        norms and numeric columns — the JAX package's sum, so both engines
-        make the same merge choices for the same documents."""
+        norms and numeric columns — the JAX package's sum (string columns
+        left out, as there), so both engines make the same merge choices
+        for the same documents."""
         n = self._device_cache.get("est_bytes")
         if n is not None:
             return n
@@ -279,5 +350,8 @@ def merge_segments(segments: list[FrozenSegment], gen: int) -> FrozenSegment:
                 v = vals[off[local]: off[local + 1]]
                 if len(v):
                     doc.doc_values_num[f] = list(v)
+            for f, counts in seg.str_counts.items():
+                if counts[local]:
+                    doc.str_value_counts[f] = int(counts[local])
             builder.add(doc, version=int(seg.versions[local]))
     return builder.freeze()

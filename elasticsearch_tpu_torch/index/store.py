@@ -61,6 +61,8 @@ class Store:
         for f, (off, vals) in seg.dv_num.items():
             arrays[f"dvn_off::{f}"] = off
             arrays[f"dvn_val::{f}"] = vals
+        for f, counts in seg.str_counts.items():
+            arrays[f"dvs_cnt::{f}"] = counts
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         _write_synced(npz_path, buf.getvalue())
@@ -99,6 +101,8 @@ class Store:
         norms = {k[len("norm::"):]: data[k] for k in data.files if k.startswith("norm::")}
         dv_num = {k[len("dvn_off::"):]: (data[k], data["dvn_val::" + k[len("dvn_off::"):]])
                   for k in data.files if k.startswith("dvn_off::")}
+        str_counts = {k[len("dvs_cnt::"):]: data[k]
+                      for k in data.files if k.startswith("dvs_cnt::")}
         return FrozenSegment(
             gen=meta["gen"],
             doc_count=meta["doc_count"],
@@ -118,6 +122,7 @@ class Store:
             pos_offsets=data["pos_offsets"],
             positions=data["positions"],
             dv_num=dv_num,
+            str_counts=str_counts,
         )
 
     def write_commit(self, commit_id: int, segment_files: dict, translog_gen: int,

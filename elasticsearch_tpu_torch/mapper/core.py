@@ -7,15 +7,18 @@ resolves an unseen field as the JAX package does: strings map to analyzed
 `string`, ISO-8601 strings to `date`, ints to `long`, floats to `double`,
 booleans to `boolean`, objects to `object`; `to_mapping` renders the
 resulting mapping the same way. A numeric, date or boolean value is coerced
-and stored in a doc-value column (numeric queries and aggregations read it
-in a later slice). Nested fields, multi-fields, copy_to, geo and the
-`_routing`/`_parent`/`_timestamp`/`_ttl` meta-fields belong to later slices
-and raise MapperParsingError."""
+and stored in a doc-value column, which term, terms and range queries and
+filters read (`search/filters.py`). A string field counts its values per
+document (the JAX package's string doc-value column holds them; the port
+keeps only the count, which `exists` and `missing` read). Nested fields,
+multi-fields, copy_to, geo and the `_routing`/`_parent`/`_timestamp`/`_ttl`
+meta-fields belong to later slices and raise MapperParsingError."""
 
 from __future__ import annotations
 
 import datetime as _dt
 import re
+import time
 from dataclasses import dataclass, field as dc_field
 from typing import Any
 
@@ -78,6 +81,30 @@ def parse_date(value: Any, formats: list[str] | None = None) -> int:
         except ValueError:
             continue
     raise MapperParsingError(f"failed to parse date field [{value}]")
+
+
+# "now-1d/d" style date math used by range queries
+_DATE_MATH_RE = re.compile(r"^now(?:([+-]\d+)([yMwdhHms]))?(?:/([yMwdhHms]))?$")
+_UNIT_MILLIS = {
+    "y": 365 * 86400_000, "M": 30 * 86400_000, "w": 7 * 86400_000,
+    "d": 86400_000, "h": 3600_000, "H": 3600_000, "m": 60_000, "s": 1000,
+}
+
+
+def parse_date_math(value: str, now_ms: int | None = None,
+                    formats: list[str] | None = None) -> int:
+    """`now`, `now-1d`, `now/d`, `now+2h/h` → epoch millis; any other value
+    parses as a date, in the mapping's `formats` when it names any."""
+    m = _DATE_MATH_RE.match(value)
+    if not m:
+        return parse_date(value, formats)
+    t = now_ms if now_ms is not None else int(time.time() * 1000)
+    if m.group(1):
+        t += int(m.group(1)) * _UNIT_MILLIS[m.group(2)]
+    if m.group(3):
+        unit = _UNIT_MILLIS[m.group(3)]
+        t = (t // unit) * unit
+    return t
 
 
 @dataclass
@@ -175,6 +202,8 @@ class ParsedDocument:
     field_lengths: dict[str, int] = dc_field(default_factory=dict)
     # field → numeric value(s) of the doc-value column
     doc_values_num: dict[str, list[float]] = dc_field(default_factory=dict)
+    # string field → how many values the doc gave it (null_value included)
+    str_value_counts: dict[str, int] = dc_field(default_factory=dict)
 
 
 def _infer_dynamic_type(value: Any, dynamic_date: bool = True) -> str | None:
@@ -332,6 +361,7 @@ class DocumentMapper:
                     continue
                 v = ft.null_value
             text = str(v)
+            doc.str_value_counts[ft.name] = doc.str_value_counts.get(ft.name, 0) + 1
             if ft.analyzed:
                 toks = analyzer.index_tokens(text)
                 for term, pos in toks:

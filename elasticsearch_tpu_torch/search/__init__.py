@@ -7,7 +7,7 @@ from .execute import (
     search_shard,
     search_shard_batch,
 )
-from .queries import parse_query
+from .queries import parse_filter, parse_query
 from .service import (
     SERVING_COUNTERS,
     ParsedSearchRequest,
@@ -20,6 +20,6 @@ from .similarity import SimilarityService
 __all__ = ["DeviceBatcher", "MergedTopDocs", "ParsedSearchRequest",
            "SERVING_COUNTERS", "ShardContext", "ShardQueryResult",
            "SimilarityService", "TopDocs", "dispatch_shard_batch",
-           "execute_query_phase", "merge_responses", "parse_query",
+           "execute_query_phase", "merge_responses", "parse_filter", "parse_query",
            "parse_search_body", "search_shard", "search_shard_batch",
            "sort_docs"]

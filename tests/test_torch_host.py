@@ -142,3 +142,35 @@ def test_bounded_pool_rejects_when_full_and_shutdown_frees_its_threads():
         if t.name.startswith("estpu_torch[search]"):
             t.join(timeout=5)
             assert not t.is_alive(), t.name
+
+
+def test_unencodable_response_is_a_500_body():
+    """A handler whose response does not encode as JSON answers a 500 JSON
+    body naming the error, as the JAX server does, and the connection keeps
+    serving."""
+    import http.client
+    import json
+
+    import numpy as np
+
+    from elasticsearch_tpu_torch.http.server import HttpServer
+    from elasticsearch_tpu_torch.rest.controller import RestController
+
+    rc = RestController()
+    rc.register("GET", "/bad", lambda r: {"x": np.float32(1)})
+    rc.register("GET", "/good", lambda r: {"x": 1})
+    server = HttpServer(rc, port=0).start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=10)
+    try:
+        conn.request("GET", "/bad")
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        assert resp.status == 500 and body["status"] == 500
+        assert body["error"]["type"] == "serialization_exception"
+        assert "float32" in body["error"]["reason"]
+        conn.request("GET", "/good")
+        resp = conn.getresponse()
+        assert (resp.status, json.loads(resp.read())) == (200, {"x": 1})
+    finally:
+        conn.close()
+        server.stop()

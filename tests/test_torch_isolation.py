@@ -41,6 +41,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "index.engine", "index.translog", "index.store",
                  "index.merge_policy", "indices_service", "search.fetch",
                  "common.stream", "common.xcontent", "common.units",
-                 "__main__"):
+                 "search.filters", "search.queries", "index.segment",
+                 "mapper.core", "__main__"):
         assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []

@@ -16,11 +16,25 @@ false, includes and excludes — the two responses must have equal `hits`
 `_source`) and equal `_shards` (the JAX node's `degraded` count, of a
 serving mode the port does not have yet, left out). Scores are bitwise:
 every query here rides the sparse path, where both packages are
-deterministic. Also pinned: the port's 400 for a body key it does not
-serve, 404 for a missing index on both nodes, 500 with a counted device
-error when the kernel fails, the fetch reading the query phase's pinned
-searcher across a refresh, and DeviceUnavailableError for a node built
-without CUDA and without `node.device: cpu`."""
+deterministic.
+
+The query DSL over REST: the bodies of
+tests/test_search_single_shard.py (TestQueryTypes, TestEdgeCases; nested and
+function_score left to later slices) on their documents, and of
+tests/test_dsl_long_tail.py (simple_query_string, fuzzy_like_this,
+mlt_field, wrapper) on theirs, go to both nodes. Their hits must be equal,
+bitwise where both packages serve the body on the host scorer, and
+tie-tolerant within 2 ulp where the JAX node serves it on a device family
+the port serves on the host (`filtered` whose query lowers, `post_filter`,
+`min_score`).
+
+Also pinned: the port's 400 for a body key it does not serve, a clause on a
+numeric field answering the JAX node's hits, 404 for a missing index on
+both nodes, 500 with a counted device error when the kernel fails, no
+context left pinned after a failed query phase, a failed fetch dropping
+only its shard's hits (as on the JAX node), the fetch reading the query
+phase's pinned searcher across a refresh, and DeviceUnavailableError for a
+node built without CUDA and without `node.device: cpu`."""
 
 import json
 import urllib.error
@@ -35,6 +49,7 @@ from elasticsearch_tpu_torch.common.cudaenv import DeviceUnavailableError
 from elasticsearch_tpu_torch.node import Node as PNode
 from elasticsearch_tpu_torch.search.service import SERVING_COUNTERS
 from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry as PReg
+from tests.test_torch_dense import _tie_tolerant_equal, _within_ulps
 
 WORDS = [f"w{i}" for i in range(30)]
 INDEXES = {
@@ -84,9 +99,62 @@ def _bulk_bodies(seed: int) -> list[str]:
     return ["\n".join(json.dumps(x) for x in part) + "\n" for part in (first, second)]
 
 
-@pytest.fixture(scope="module")
-def nodes(tmp_path_factory):
-    """(port base URL, JAX base URL, port node)."""
+# the documents of tests/test_search_single_shard.py and
+# tests/test_dsl_long_tail.py (its geo field left out)
+QT_DOCS = [
+    "the quick brown fox jumps over the lazy dog",
+    "quick brown foxes leap over lazy dogs in summer",
+    "the red fox and the brown bear",
+    "lazy afternoon with a quick snack",
+    "dogs and cats living together",
+    "the brown dog sleeps all day",
+    "fox",
+    "a a a a a a a a quick",
+    "brown brown brown fox fox quick",
+    "nothing relevant here at all",
+]
+DSL_DOCS = [
+    {"body": "quick brown fox", "tag": "a", "n": 1},
+    {"body": "lazy brown dog", "tag": "b", "n": 2},
+    {"body": "quick red wolf", "tag": "a", "n": 3},
+    {"body": "slow green turtle", "tag": "c", "n": 4},
+    {"body": "quick quince quest", "tag": "b", "n": 5},
+]
+DSL_INDEXES = {
+    "qt": {"number_of_shards": 2},
+    "qtbm": {"number_of_shards": 2,
+             "index": {"similarity": {"default": {"type": "BM25"}}}},
+    "qtdel": {"number_of_shards": 1},
+    "dsl": {"number_of_shards": 1},
+    "em": {"number_of_shards": 1},
+}
+
+
+def _dsl_bulks() -> list[str]:
+    """NDJSON bodies, each followed by a refresh: QT_DOCS four at a time (so
+    the shards hold several segments), then the rest."""
+    def op(index, doc_id, src):
+        return [{"index": {"_index": index, "_type": "doc", "_id": str(doc_id)}}, src]
+
+    bulks = []
+    for start in range(0, len(QT_DOCS), 4):
+        part = []
+        for index in ("qt", "qtbm", "qtdel"):
+            for i in range(start, min(start + 4, len(QT_DOCS))):
+                part += op(index, i, {"body": QT_DOCS[i], "num": i})
+        bulks.append(part)
+    last = [{"delete": {"_index": "qtdel", "_type": "doc", "_id": "6"}}]
+    for i, src in enumerate(DSL_DOCS):
+        last += op("dsl", i, src)
+    for i, src in enumerate(({"a": "x", "b": 1}, {"a": "y"}, {"a": ""}, {"b": 2})):
+        last += op("em", i, src)
+    bulks.append(last)
+    return ["\n".join(json.dumps(x) for x in part) + "\n" for part in bulks]
+
+
+def _node_pair(tmp_path_factory, fill):
+    """Boot a port node and a JAX node, run `fill(base URL)` on each, yield
+    (port base URL, JAX base URL, port node), then close both."""
     from elasticsearch_tpu.node import Node as JNode
     from elasticsearch_tpu.transport.local import LocalTransportRegistry as JReg
 
@@ -105,20 +173,51 @@ def nodes(tmp_path_factory):
         bases = [f"http://127.0.0.1:{p.start_http(0).port}",
                  f"http://127.0.0.1:{j.start_http(0).port}"]
         for base in bases:
-            for index, settings in INDEXES.items():
-                st, r = call(base, "PUT", f"/{index}",
-                             {"settings": {**settings, "refresh_interval": -1}})
-                assert st == 200 and r["acknowledged"], r
-            for bulk in _bulk_bodies(17):
-                st, r = call(base, "POST", "/_bulk", raw=bulk)
-                assert st == 200 and not r["errors"]
-                st, r = call(base, "POST", "/_refresh")
-                assert st == 200 and r["_shards"]["failed"] == 0
+            fill(base)
         yield bases[0], bases[1], p
     finally:
         p.close()
         j.close()
         torch.set_num_threads(threads)
+
+
+def _bulk_and_refresh(base, bulks):
+    for bulk in bulks:
+        st, r = call(base, "POST", "/_bulk", raw=bulk)
+        assert st == 200 and not r["errors"], r
+        st, r = call(base, "POST", "/_refresh")
+        assert st == 200 and r["_shards"]["failed"] == 0
+
+
+@pytest.fixture(scope="module")
+def nodes(tmp_path_factory):
+    """(port base URL, JAX base URL, port node) holding INDEXES."""
+    def fill(base):
+        for index, settings in INDEXES.items():
+            st, r = call(base, "PUT", f"/{index}",
+                         {"settings": {**settings, "refresh_interval": -1}})
+            assert st == 200 and r["acknowledged"], r
+        _bulk_and_refresh(base, _bulk_bodies(17))
+
+    yield from _node_pair(tmp_path_factory, fill)
+
+
+@pytest.fixture(scope="module")
+def dsl_nodes(tmp_path_factory):
+    """(port base URL, JAX base URL, port node) holding DSL_INDEXES."""
+    def fill(base):
+        for index, settings in DSL_INDEXES.items():
+            body = {"settings": {**settings, "refresh_interval": -1}}
+            if index == "dsl":
+                body["mappings"] = {"doc": {"properties": {
+                    "body": {"type": "string"},
+                    "tag": {"type": "string", "index": "not_analyzed"},
+                    "n": {"type": "integer"}}}}
+            st, r = call(base, "PUT", f"/{index}", body)
+            assert st == 200 and r["acknowledged"], r
+        _bulk_and_refresh(base, _dsl_bulks())
+
+    yield from _node_pair(tmp_path_factory, fill)
 
 
 BODIES = [
@@ -193,11 +292,17 @@ def test_port_refuses_what_it_does_not_serve(nodes):
         assert st == 404 and r["error"]["type"] == "IndexMissingException", r
     st, r = call(pbase, "GET", "/_nodes/stats")
     assert st == 400 and "No handler found" in r["error"]
-    # a numeric field keeps doc values only: its clauses fail the shards
-    # with the reason instead of answering "no match"
-    st, r = call(pbase, "POST", "/three/_search", {"query": {"term": {"n": 7}}})
-    assert st == 200 and r["_shards"]["failed"] == 3 and r["hits"]["total"] == 0
-    assert all("later slice" in f["reason"] for f in r["_shards"]["failures"])
+    # a clause on a numeric field answers from its doc-value column, with
+    # the JAX node's hits
+    for body in ({"query": {"term": {"n": 7}}},
+                 {"query": {"bool": {"must": [{"match": {"body": "w1"}}],
+                                     "should": [{"range": {"n": {"gte": 100}}}]}}}):
+        (pst, pr), (jst, jr) = (call(b, "POST", "/three/_search", body)
+                                for b in (pbase, jbase))
+        assert pst == jst == 200 and pr["hits"]["total"] > 0
+        jr["_shards"].pop("degraded")
+        assert (pr["hits"], pr["_shards"]) == (jr["hits"], jr["_shards"])
+        assert pr["_shards"]["failed"] == 0
 
 
 def test_device_error_is_a_500_and_counted(nodes, monkeypatch):
@@ -278,3 +383,177 @@ def test_launcher_serves_http_and_stops_on_sigterm(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+# bodies both nodes serve on the host scorer: hits bitwise
+HOST_BODIES = [
+    ("qt", {"query": {"match_all": {}}, "size": 20}),
+    ("qt", {"size": 4}),
+    ("qt", {"query": {"match_phrase": {"body": "quick brown"}}}),
+    ("qt", {"query": {"match_phrase": {"body": {"query": "quick brown", "slop": 2}}}}),
+    ("qtbm", {"query": {"match_phrase": {"body": {"query": "brown quick", "slop": 2}}}}),
+    ("qt", {"query": {"prefix": {"body": "fo"}}}),
+    ("qt", {"query": {"wildcard": {"body": "f*x"}}}),
+    ("qt", {"query": {"fuzzy": {"body": "foxs"}}}),
+    ("qt", {"query": {"regexp": {"body": "fox(es)?"}}}),
+    ("qt", {"query": {"range": {"num": {"gte": 3, "lt": 6}}}}),
+    ("qt", {"query": {"term": {"num": 3}}}),
+    ("qt", {"query": {"match": {"num": "3"}}}),  # lowers on both: no match
+    ("qt", {"query": {"filtered": {"query": {"match_all": {}},
+                                   "filter": {"range": {"num": {"lte": 2}}}}}}),
+    ("qt", {"query": {"ids": {"values": ["1", "3"]}}}),
+    ("qt", {"query": {"terms": {"body": ["bear", "cats"]}}}),
+    ("qtbm", {"query": {"terms": {"body": ["bear", "cats", "fox"],
+                                  "minimum_should_match": 1}}}),
+    ("qt", {"query": {"constant_score": {"filter": {"term": {"body": "fox"}},
+                                         "boost": 3.0}}}),
+    ("qt", {"query": {"bool": {"must": [{"match": {"body": "brown"}}],
+                               "filter": [{"range": {"num": {"gte": 2}}}]}}}),
+    ("qtbm", {"query": {"dis_max": {"queries": [{"term": {"body": "fox"}},
+                                                {"term": {"body": "dog"}}],
+                                    "tie_breaker": 0.5}}}),
+    ("qt", {"query": {"query_string": {"query": "body:fox AND body:brown"}}}),
+    ("qt", {"query": {"query_string": {"query": "fox -bear", "default_field": "body"}}}),
+    ("em", {"query": {"constant_score": {"filter": {"exists": {"field": "b"}}}}}),
+    ("em", {"query": {"constant_score": {"filter": {"missing": {"field": "b"}}}}}),
+    ("em", {"query": {"constant_score": {"filter": {"exists": {"field": "a"}}}}}),
+    ("qtdel", {"query": {"match": {"body": "fox"}}}),
+    ("qt", {"query": {"match": {"body": ""}}, "size": 5}),
+    ("qt", {"query": {"bool": {"should": [{"term": {"body": "fox"}}],
+                               "minimum_should_match": 5}}, "size": 5}),
+    ("qt", {"query": {"bool": {"must_not": [{"term": {"body": "fox"}}]}}, "size": 20}),
+    ("dsl", {"query": {"simple_query_string": {"query": "fox turtle", "fields": ["body"]}}}),
+    ("dsl", {"query": {"simple_query_string": {"query": "quick + brown", "fields": ["body"]}}}),
+    ("dsl", {"query": {"simple_query_string": {"query": "quick -red", "fields": ["body"]}}}),
+    ("dsl", {"query": {"simple_query_string": {"query": '"brown fox"', "fields": ["body"]}}}),
+    ("dsl", {"query": {"simple_query_string": {"query": "quin*", "fields": ["body"]}}}),
+    ("dsl", {"query": {"simple_query_string": {"query": "quick brown", "fields": ["body"],
+                                               "default_operator": "and"}}}),
+    ("dsl", {"query": {"simple_query_string": {"query": "+ | - fox", "fields": ["body"]}}}),
+    ("dsl", {"query": {"simple_query_string": {"query": "fox | turtle", "fields": ["body"],
+                                               "default_operator": "and"}}}),
+    ("dsl", {"query": {"fuzzy_like_this": {"fields": ["body"], "like_text": "quik brown",
+                                           "fuzziness": 1}}}),
+    ("dsl", {"query": {"fuzzy_like_this_field": {"body": {"like_text": "foxx",
+                                                          "fuzziness": 1}}}}),
+    ("dsl", {"query": {"flt": {"fields": ["body"], "like_text": "quicky"}}}),
+    ("dsl", {"query": {"more_like_this_field": {"body": {
+        "like_text": "quick brown fox", "min_term_freq": 1, "min_doc_freq": 1,
+        "minimum_should_match": 1}}}}),
+    ("dsl", {"query": {"wrapper": {"query": "eyJ0ZXJtIjogeyJ0YWciOiAiYSJ9fQ=="}}}),
+    ("dsl", {"query": {"constant_score": {"filter": {
+        "wrapper": {"query": '{"term": {"tag": "b"}}'}}}}}),
+]
+
+# bodies the JAX node serves on a device family and the port on the host:
+# hits tie-tolerant within 2 ulp
+DEVICE_FAMILY_BODIES = [
+    ("qt", {"query": {"filtered": {"query": {"match": {"body": "fox"}},
+                                   "filter": {"range": {"num": {"lte": 2}}}}}}),
+    ("qtbm", {"query": {"filtered": {"query": {"match": {"body": "brown dog"}},
+                                     "filter": {"exists": {"field": "num"}}}}}),
+    ("qt", {"query": {"match": {"body": "quick brown"}},
+            "post_filter": {"range": {"num": {"gte": 1}}}}),
+    ("qtbm", {"query": {"match": {"body": "lazy dog"}}, "filter": {"term": {"body": "the"}}}),
+    ("qt", {"query": {"match": {"body": "brown fox"}}, "min_score": 0.3}),
+    ("qtbm", {"query": {"match": {"body": "quick fox"}}, "min_score": 0.5, "size": 3}),
+]
+
+
+def _strip_degraded(r):
+    r["_shards"].pop("degraded", None)
+    return r
+
+
+@pytest.mark.parametrize("index,body", HOST_BODIES,
+                         ids=[f"host{i}" for i in range(len(HOST_BODIES))])
+def test_dsl_host_bodies_match_jax_node(dsl_nodes, index, body):
+    pbase, jbase, _p = dsl_nodes
+    (pst, pr), (jst, jr) = (call(b, "POST", f"/{index}/_search", body)
+                            for b in (pbase, jbase))
+    assert pst == jst == 200, (pr, jr)
+    assert pr["_shards"] == _strip_degraded(jr)["_shards"]
+    assert pr["hits"] == jr["hits"]
+
+
+@pytest.mark.parametrize("index,body", DEVICE_FAMILY_BODIES,
+                         ids=[f"family{i}" for i in range(len(DEVICE_FAMILY_BODIES))])
+def test_dsl_device_family_bodies_match_jax_node(dsl_nodes, index, body):
+    pbase, jbase, _p = dsl_nodes
+    (pst, pr), (jst, jr) = (call(b, "POST", f"/{index}/_search", body)
+                            for b in (pbase, jbase))
+    assert pst == jst == 200, (pr, jr)
+    assert pr["_shards"] == _strip_degraded(jr)["_shards"]
+    ph, jh = pr["hits"], jr["hits"]
+    assert ph["total"] == jh["total"] > 0
+    assert _within_ulps(ph["max_score"], jh["max_score"], 2)
+
+    def key(h):
+        return (h["_index"], h["_id"])
+
+    assert _tie_tolerant_equal([(h["_score"], key(h)) for h in ph["hits"]],
+                               [(h["_score"], key(h)) for h in jh["hits"]])
+    jby = {key(h): {k: v for k, v in h.items() if k != "_score"} for h in jh["hits"]}
+    for h in ph["hits"]:
+        assert {k: v for k, v in h.items() if k != "_score"} == jby[key(h)]
+
+
+def test_malformed_wrapper_is_the_jax_nodes_400(dsl_nodes):
+    pbase, jbase, _p = dsl_nodes
+    body = {"query": {"wrapper": {"query": "not json at all {"}}}
+    (pst, pr), (jst, jr) = (call(b, "POST", "/dsl/_search", body) for b in (pbase, jbase))
+    assert pst == jst == 400
+    assert pr["error"]["type"] == jr["error"]["type"] == "QueryParsingException"
+
+
+def test_failed_fetch_drops_only_its_shard_as_on_the_jax_node(dsl_nodes, monkeypatch):
+    """A shard's fetch that fails with a plain exception records a
+    `_shards.failures` entry and the other shard's hits still return, as on
+    the JAX node; no context stays pinned."""
+    import elasticsearch_tpu.actions as jactions
+    import elasticsearch_tpu_torch.actions as pactions
+
+    pbase, jbase, p = dsl_nodes
+
+    def failing_on_shard0(orig):
+        def fetch(*args, **kwargs):
+            if kwargs.get("shard_id") == 0:
+                raise RuntimeError("fetch lost its segment")
+            return orig(*args, **kwargs)
+        return fetch
+
+    for mod in (pactions, jactions):
+        monkeypatch.setattr(mod, "execute_fetch_phase",
+                            failing_on_shard0(mod.execute_fetch_phase))
+    body = {"query": {"match": {"body": "the quick brown fox dog"}}, "size": 20}
+    (pst, pr), (jst, jr) = (call(b, "POST", "/qt/_search", body) for b in (pbase, jbase))
+    assert pst == jst == 200, pr
+    pfail = pr["_shards"].pop("failures")
+    jfail = _strip_degraded(jr)["_shards"].pop("failures")
+    assert pr["_shards"] == jr["_shards"] and pr["_shards"]["failed"] == 1
+    assert [(f["index"], f["shard"]) for f in pfail] == \
+        [(f["index"], f["shard"]) for f in jfail] == [("qt", 0)]
+    assert pfail[0]["reason"].startswith("fetch phase failed:")
+    assert "fetch lost its segment" in pfail[0]["reason"]
+    assert pr["hits"] == jr["hits"] and 0 < len(pr["hits"]["hits"]) < 10
+    assert p.actions.pinned_contexts() == 0
+
+
+def test_failed_query_phase_leaves_no_context_pinned(dsl_nodes, monkeypatch):
+    """A query-phase error that is not a shard failure (a device error) is
+    a 500, and no shard that answered keeps its context pinned."""
+    import elasticsearch_tpu_torch.actions as pactions
+
+    pbase, _jbase, p = dsl_nodes
+    orig = pactions.execute_query_phase
+
+    def failing_on_shard1(ctx, req, **kwargs):
+        if kwargs.get("shard_id") == 1:
+            raise RuntimeError("sparse_score launch failed: device lost")
+        return orig(ctx, req, **kwargs)
+
+    monkeypatch.setattr(pactions, "execute_query_phase", failing_on_shard1)
+    assert p.actions.pinned_contexts() == 0
+    st, r = call(pbase, "POST", "/qt/_search", {"query": {"match": {"body": "fox"}}})
+    assert st == 500 and "device lost" in r["error"]["reason"]
+    assert p.actions.pinned_contexts() == 0

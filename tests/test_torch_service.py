@@ -6,7 +6,8 @@ port on `device="cpu"`) and must give identical totals and hits — bitwise,
 every query here rides the sparse path; `sort_docs` over two shards gives
 identical merged hits and `merge_responses` the same sections; an expired
 `timeout` answers `timed_out` with nothing scored on both sides. Request
-features the port has not reached raise QueryParsingError."""
+features the port has not reached raise QueryParsingError; `post_filter`,
+`filter` and `min_score` parse, and a body without a query is match_all."""
 
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ from elasticsearch_tpu_torch.mapper import MapperService as TMapperService
 from elasticsearch_tpu_torch.search import (
     DeviceBatcher, ShardContext, SimilarityService, execute_query_phase,
     merge_responses, parse_search_body, sort_docs)
+from elasticsearch_tpu_torch.search.filters import TermFilter
+from elasticsearch_tpu_torch.search.queries import MatchAllQuery
 from tests.test_torch_slice import SETTINGS, WORDS, _docs, shards  # noqa: F401
 
 BATCH_SETTINGS = {"search.batch.linger_ms": "1"}
@@ -183,16 +186,32 @@ def test_two_shard_reduce_matches_jax(two_shards):
         assert merge_responses(treq, tm, tresults, page, 3, 2, 2) == jresp
 
 
+# served since the host scorer: each key with the value the parse keeps
+_SERVED_FEATURES = {"post_filter": {"term": {"body": "w1"}},
+                    "filter": {"term": {"body": "w1"}}, "min_score": 0.5}
+
+
 @pytest.mark.parametrize("key", ["aggs", "aggregations", "sort", "post_filter",
                                  "filter", "rescore", "min_score", "suggest",
                                  "highlight", "explain", "profile"])
 def test_unported_request_features_raise(key):
-    with pytest.raises(QueryParsingError, match="later slice"):
-        parse_search_body({"query": {"match": {"body": "w1"}}, key: {}})
+    """The request features of later slices raise; `post_filter`, its older
+    name `filter`, and `min_score` parse into the request."""
+    body = {"query": {"match": {"body": "w1"}}, key: _SERVED_FEATURES.get(key, {})}
+    if key not in _SERVED_FEATURES:
+        with pytest.raises(QueryParsingError, match="later slice"):
+            parse_search_body(body)
+        return
+    req = parse_search_body(body)
+    if key == "min_score":
+        assert (req.min_score, req.post_filter) == (0.5, None)
+    else:
+        assert (req.min_score, req.post_filter) == (None, TermFilter("body", "w1"))
 
 
 def test_body_without_query_and_bad_timeout_raise():
-    with pytest.raises(QueryParsingError, match="later slice"):
-        parse_search_body({"size": 3})
+    """A body without a query is match_all (a bad timeout still raises)."""
+    req = parse_search_body({"size": 3})
+    assert req.query == MatchAllQuery() and req.size == 3
     with pytest.raises(QueryParsingError, match="time value"):
         parse_search_body({"query": {"match": {"body": "w1"}}, "timeout": "soon"})
