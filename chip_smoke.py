@@ -9,15 +9,19 @@ bool-of-terms search, top-100 per query — through its public entry points
 (`ShardContext` → `search_shard_batch`) at the data size of a real shard,
 then the serving path — concurrent single requests through
 `parse_search_body` → `execute_query_phase` → the `DeviceBatcher` — then a
-port `Node` serving REST `_bulk` and `_search` over HTTP, and holds every
-hand-written kernel of those paths against its plain torch version on the
-card. Phases:
+port `Node` serving REST `_bulk` and `_search` over HTTP, then the dense
+request-feature family (filtered, post_filter, min_score, function_score)
+at full width, and holds every hand-written kernel of those paths against
+its plain torch version on the card. Phases:
 
   1. card facts (nvidia-smi, torch / CUDA / nvcc versions), build the kernels
      from `elasticsearch_tpu_torch/csrc` (one nvcc per source, all at once);
   2. a zipf(1.35) CSR corpus of 1,000,000 docs over a 200k-term vocabulary
      (about 60 terms a doc, one text field), split into 3 segments of
      600k / 300k / 100k docs, 1% of one segment tombstoned, packed on the card;
+     two seeded numeric doc values in each segment's `dv_num`: `pop`
+     (integers 1-1000, missing on 1 doc in 7) and `likes` (integers 0-1000,
+     on every doc);
   3. the main path: batches of 1024 `bool` queries of 4 `should` BM25 term
      clauses (terms from df ranks 50-5000), top-100; each batch's dispatch
      runs under `torch.cuda.set_sync_debug_mode("error")`;
@@ -70,28 +74,51 @@ card. Phases:
      requests/s, p50/p99, batcher occupancy and flushes, launches by
      variant, the node process's CPU seconds by thread kind and the
      device's idle share over a profiled window.
- 11. mixed traffic on phase 10's node and index: 2,048 `_search` requests
+ 11. mixed traffic on phase 10's node and index: 1,024 `_search` requests
+     (2,048 before phase 12 joined the run: a cut for the time limit)
      from the same 64 connections in a seeded random order, half phase 3's
      4-term `bool` (the card's sparse path through the node's batcher), half
-     bodies the host scorer serves, a sixth each: `match_phrase` of two
-     adjacent tokens of a corpus doc; `bool` of a `must` term with a
-     `filter` of 20 `terms` (df ranks 20-400); `filtered`: phase 3's `bool`
-     with such a `terms` filter; `constant_score` over a 4-character
-     `prefix` (`t` and 3 digits, ~111 terms); no query (match_all) with a
-     `post_filter` term (df ranks 20-400); phase 3's `bool` with `min_score`
-     at half its own top score (the port's host search, before the clock).
-     The whole timed run under `set_sync_debug_mode("error")`. Every
-     response's total, ids, scores and shards equal each shard's host query
-     phase (`execute_query_phase(..., use_device=False)`) reduced by score
-     desc, shard, doc: bitwise for the host half; for the card's half the
-     same order within 2 ulp, tie-tolerant (the share that is bitwise is
-     printed), and bitwise against each shard's `search_shard_batch`. The
+     the other families a seventh each: on the host scorer `match_phrase` of
+     two adjacent tokens of a corpus doc, `bool` of a `must` term with a
+     `filter` of 20 `terms` (df ranks 20-400), `constant_score` over a
+     4-character `prefix` (`t` and 3 digits, ~111 terms), no query
+     (match_all) with a `post_filter` term (df ranks 20-400); on the card's dense
+     family (through the same batcher) `filtered`: phase 3's `bool` with such
+     a `terms` filter, phase 3's `bool` with a `post_filter` term (df ranks
+     20-400), and phase 3's `bool` with `min_score` at half its own top score
+     (the port's host search, before the clock). The whole timed run under
+     `set_sync_debug_mode("error")`. Every response's total, ids, scores and
+     shards equal each shard's host query phase (`execute_query_phase(...,
+     use_device=False)`) reduced by score desc, shard, doc: bitwise for the
+     host families; for the card's the same order within 2 ulp,
+     tie-tolerant (the share that is bitwise is printed by family), and the
+     sparse half bitwise against each shard's `search_shard_batch`. The
      totals of the filter families equal exact numpy counts; the serving
-     counters show 5 host shard phases a host request and 5 sparse ones a
-     device request, and no device error; the kernel is bitwise equal to
-     its plain version at every shape phase 11 launched. Requests/s of the
-     mix, p50/p99 by family, the node's CPU seconds by thread kind and the
+     counters show 5 host shard phases a host request, 5 `device_filtered`
+     ones a dense-family request and 5 sparse ones a sparse request, and no
+     device error; the kernel is bitwise equal to its plain version at every
+     shape phase 11 launched. Requests/s of the mix, p50/p99 by family
+     beside the run before these three families moved to the card (whose
+     `post_filter` family sent the match_all body), the node's CPU seconds
+     by thread kind and the
      device's idle share over a profiled window.
+ 12. the dense request-feature family at full width on phase 2's shard:
+     one batch of 256 requests a family — `filtered` (phase 3's `bool` under
+     a 20-term `terms` filter), `post_filter` (a term), `min_score` (half the
+     query's own top score), function_score rows (`field_value_factor` on
+     `pop`, log1p, times a weight filtered on `pop` >= 500, `boost_mode:
+     sum`) and function_score script (`_score * log(2 + doc['likes'].value)`)
+     — routed by the service (`device_plan`) and dispatched together,
+     twice: cold, then with every filter mask resident in a
+     DeviceFilterCache. Everything after the set-up under
+     `set_sync_debug_mode("error")`. 32 queries a family equal the host
+     scorer (2 ulp, tie-tolerant, totals exact; the script at 5 decimals)
+     and every query the same ops on CPU tensors; no query reruns on the
+     host; the script on `pop` (missing on 1 doc in 7) flags its query,
+     which reruns on the host scorer and raises ScriptError there, as in the
+     JAX package. Ms a batch by family (CUDA events and host wall), dense
+     launches, device→host copies and the filter cache's hits, builds and
+     resident bytes.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -127,8 +154,27 @@ SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
 NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 200_000, 4096, 64  # phase 10's load and traffic
 NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
 NODE_PROFILED = 512  # requests in phase 10's profiled window
-MIXED_REQUESTS = 2048  # phase 11's traffic: half the card's, half the host's
-MIXED_HOST = ("phrase", "bool_filter", "filtered", "prefix", "post_filter", "min_score")
+# phase 11's traffic, half phase 3's bool, half the other families: 1024
+# requests (2048 before phase 12 joined the run) and a profiled window of 512
+MIXED_REQUESTS, MIXED_PROFILED = 1024, 512
+MIXED_HOST = ("phrase", "bool_filter", "filtered", "prefix", "post_filter",
+              "post_filter_all", "min_score")
+MIXED_DENSE = ("filtered", "post_filter", "min_score")  # on the card's dense family
+# phase 11 before `filtered`, `post_filter` and `min_score` moved to the card
+# (2,048 requests; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): requests/s, and
+# p50 / p99 ms by family, printed beside this run's. Its `post_filter`
+# family sent the body that `post_filter_all` sends now (no query); nothing
+# then sent phase 3's `bool` with a post filter.
+HOST_FAMILIES_PHASE11 = {"requests_per_s": 12.6, "latency_ms": {
+    "device": (4860.25, 9178.82), "phrase": (5121.28, 9039.02),
+    "bool_filter": (4826.84, 7123.51), "filtered": (5038.40, 7792.09),
+    "prefix": (4826.27, 7067.53), "post_filter": None,
+    "post_filter_all": (4704.79, 6949.36), "min_score": (4849.22, 7432.51)}}
+POP_MISSING = 7  # phase 2's `pop` column: 1 doc in 7 has no value
+POP_RANGE, LIKES_RANGE = (1, 1000), (0, 1000)  # integer doc values, inclusive
+DENSE_BATCH, DENSE_CHECK = 256, 32  # phase 12: queries a family batch, host-checked
+DENSE_FAMILIES = ("filtered", "post_filter", "min_score", "fs_rows", "fs_script")
+FS_SCRIPT = "_score * log(2 + doc['likes'].value)"  # phase 12's script family
 FILTER_TERMS = 20  # terms of phase 11's `terms` filters, df ranks BOOL_RANKS
 SERVE_SIZES = (10, 100)  # phase 9: half the requests each, k buckets 16 and 128
 SERVE_PROFILED = 1024  # requests in phase 9's profiled window
@@ -206,6 +252,31 @@ def split_segments(terms, docs, freqs, lengths, vocab: int):
 
 def term_name(t: int) -> str:
     return f"t{t}"
+
+
+SHARD_MAPPING = {"properties": {"body": {"type": "string"}, "pop": {"type": "long"},
+                                "likes": {"type": "long"}}}
+
+
+def doc_value_columns(n_docs: int, seed: int) -> dict:
+    """Phase 2's numeric doc values, one per doc (NaN = none): `pop`,
+    integers in POP_RANGE with 1 doc in POP_MISSING without one, and
+    `likes`, integers in LIKES_RANGE on every doc."""
+    rng = np.random.default_rng(seed)
+    pop = rng.integers(POP_RANGE[0], POP_RANGE[1] + 1, n_docs).astype(np.float64)
+    pop[rng.random(n_docs) < 1.0 / POP_MISSING] = np.nan
+    likes = rng.integers(LIKES_RANGE[0], LIKES_RANGE[1] + 1, n_docs).astype(np.float64)
+    return {"pop": pop, "likes": likes}
+
+
+def dv_slice(col: np.ndarray, lo: int, hi: int):
+    """A segment's `dv_num` entry (offsets, values) for docs lo..hi of a
+    one-value-or-none column."""
+    part = col[lo:hi]
+    has = np.isfinite(part)
+    offsets = np.zeros(len(part) + 1, np.int64)
+    np.cumsum(has, out=offsets[1:])
+    return offsets, part[has]
 
 
 # ---------------------------------------------------------------------------
@@ -570,7 +641,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         serve_callers: int = SERVE_CALLERS, node_docs: int = NODE_DOCS,
         node_requests: int = NODE_REQUESTS,
         node_callers: int = NODE_CALLERS,
-        mixed_requests: int = MIXED_REQUESTS) -> dict:
+        mixed_requests: int = MIXED_REQUESTS, dense_batch: int = DENSE_BATCH,
+        dense_check: int = DENSE_CHECK) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -616,6 +688,7 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     n_postings = len(docs)
     del terms, docs, freqs
     term_dict = {"body": {term_name(t): t for t in range(vocab)}}
+    columns = doc_value_columns(n_docs, seed + 11)
     segs = []
     for g, s in enumerate(csr):
         n = s["hi"] - s["lo"]
@@ -624,7 +697,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
             {"body": encode_norm(s["lengths"])},
             {"body": {"doc_count": n, "sum_ttf": int(s["lengths"].sum()),
                       "sum_dfs": len(s["docs"])}},
-            np.ones(n, bool), np.ones(n, bool), gen=g))
+            np.ones(n, bool), np.ones(n, bool), gen=g,
+            dv_num={f: dv_slice(col, s["lo"], s["hi"]) for f, col in columns.items()}))
     report["corpus_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for seg in segs:
@@ -646,14 +720,16 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                   tombstones=len(dead), resident_bytes=resident, slots=slots,
                   tf_layouts=[p.tf_layout for p in packs])
     log(f"[2] {n_docs} docs, {vocab} terms, {n_postings} postings in "
-        f"{report['segments']} docs/segment, {len(dead)} tombstones; corpus "
+        f"{report['segments']} docs/segment, {len(dead)} tombstones; doc values "
+        + ", ".join(f"{f} on {int(np.isfinite(c).sum())} docs" for f, c in columns.items())
+        + "; corpus "
         f"{report['corpus_s']:.1f} s, pack {report['pack_s']:.1f} s; resident "
         f"{resident / 1e9:.3f} GB over {slots} slots "
         f"({resident / max(slots, 1):.2f} B/slot), tf {report['tf_layouts']}")
 
     def context(settings: dict, dev) -> ShardContext:
         svc = MapperService(Settings.from_flat(settings))
-        svc.put_mapping("doc", {"properties": {"body": {"type": "string"}}})
+        svc.put_mapping("doc", SHARD_MAPPING)
         return ShardContext(Searcher(segs), svc,
                             SimilarityService(Settings.from_flat(settings), svc),
                             device=dev)
@@ -694,7 +770,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                 torch.cuda.set_sync_debug_mode(0)
         t1 = time.perf_counter()
         results = pending.merge()
-        overflow = sum(len(sub) for (_s, _b, _p, _l, dense) in pending.seg_work
+        overflow = sum(len(sub) for part in pending.parts if part.kind == "plain"
+                       for (_s, _b, _p, _l, dense) in part.seg_work
                        for (sub, _r) in dense or ())
         return (results, overflow, (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3,
                 gc_pauses.take())
@@ -904,6 +981,10 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                       mixed_requests=mixed_requests)
     report["node"] = node
 
+    # -- 12. the dense request-feature family at full width -------------------
+    report["dense_family"] = dense_family_phase(
+        device, segs, ranked, seed=seed + 10, batch=dense_batch, n_check=dense_check)
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -911,7 +992,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         node_launches=node["launches"].get("sparse_score", 0),
         node_max_abs_err=node["kernel_max_abs_err"],
         mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
-        mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"])]
+        mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"],
+        dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"])]
     return report
 
 
@@ -1140,8 +1222,7 @@ def merge_wait_check(ctx, queries, k: int, reps: int = 5) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
-    from elasticsearch_tpu_torch.search.execute import (
-        _result_tensors, dispatch_flat_batch, lower_flat)
+    from elasticsearch_tpu_torch.search.execute import dispatch_flat_batch, lower_flat
 
     plans = [lower_flat(q, ctx) for q in queries]
     start = torch.cuda.Event(enable_timing=True)
@@ -1162,7 +1243,7 @@ def merge_wait_check(ctx, queries, k: int, reps: int = 5) -> dict:
         pending = dispatch_flat_batch(plans, ctx, k)
         torch.cuda._sleep(SPIN_CYCLES)
         t0 = time.perf_counter()
-        cudaenv.pull(_result_tensors(pending.seg_work))
+        cudaenv.pull(pending.tensors())
         at_merge_ms.append((time.perf_counter() - t0) * 1e3)
         pending.merge()
         torch.cuda.synchronize()
@@ -1695,6 +1776,11 @@ def mixed_bodies(rng, texts, offsets, inv_docs, n_requests: int):
                 body = {"query": {"constant_score": {"filter": {
                     "prefix": {"body": prefix}}}}}
             elif family == "post_filter":
+                row, t = rng.choice(pool, TERMS_PER_QUERY), int(rng.choice(dense))
+                body = {"query": should(row), "post_filter": {"term": {"body": term_name(t)}}}
+                total = np.intersect1d(term_docs(offsets, inv_docs, row),
+                                       term_docs(offsets, inv_docs, [t])).size
+            elif family == "post_filter_all":  # no query: match_all, on the host
                 t = int(rng.choice(dense))
                 body = {"post_filter": {"term": {"body": term_name(t)}}}
                 total = int(df[t])
@@ -1755,19 +1841,26 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
     recorder = LaunchRecorder(scoring, sparse_score)
     try:
         before = dict(SERVING_COUNTERS)
+        stats_before = node.search_batcher.stats()
         cudaenv.LAUNCHES.reset()
         responses, lat_ms, wall_s, errors, host_cpu = serve_http(
             port, bodies, n_callers, sync_error=on_card)
         launches = cudaenv.LAUNCHES.snapshot()
         counted = {k: SERVING_COUNTERS[k] - before[k] for k in SERVING_COUNTERS}
+        stats = node.search_batcher.stats()
     finally:
         recorder.close()
+    batches = stats["launches"] - stats_before["launches"]
+    items = stats["coalesced"] - stats_before["coalesced"]
 
     # correctness, before any time is kept
     assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
     n_device = int((families == "device").sum())
-    n_host = n_requests - n_device
-    assert counted == {"device_sparse": NODE_SHARDS * n_device, "device_errors": 0,
+    n_dense = int(np.isin(families, MIXED_DENSE).sum())
+    n_host = n_requests - n_device - n_dense
+    assert counted == {"device_sparse": NODE_SHARDS * n_device,
+                       "device_filtered": NODE_SHARDS * n_dense,
+                       "device_function_score": 0, "device_errors": 0,
                        "host": NODE_SHARDS * n_host}, counted
     device_idx = [i for i, f in enumerate(families) if f == "device"]
     card_ref = {}
@@ -1783,6 +1876,7 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
         return seg.ids[local]
 
     exact_device = 0
+    exact_dense = dict.fromkeys(MIXED_DENSE, 0)
     for i, ((st, r), (family, body, total)) in enumerate(zip(responses, traffic)):
         assert st == 200, (i, family, r)
         assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
@@ -1793,6 +1887,11 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
             assert ref_total == total, f"request {i} ({family}): total != exact {total}"
         got = [(h["_score"], (h["_id"], h["_shard"])) for h in r["hits"]["hits"]]
         want = [(score, (ident(sid, doc), sid)) for score, sid, doc in entries]
+        if family in MIXED_DENSE:
+            assert tie_tolerant_equal(got, want), \
+                f"request {i} ({family}): card hits != host hits within {ULPS} ulp"
+            exact_dense[family] += got == want
+            continue
         if family != "device":
             assert got == want, f"request {i} ({family}): hits != the host query phases"
             continue
@@ -1812,27 +1911,45 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
         by_family[family] = dict(requests=int(len(lat)),
                                  p50_ms=float(np.percentile(lat, 50)),
                                  p99_ms=float(np.percentile(lat, 99)))
+    dense_bitwise = {f: exact_dense[f] / max(int((families == f).sum()), 1)
+                     for f in MIXED_DENSE}
     out = dict(requests=n_requests, callers=n_callers, wall_s=wall_s,
                requests_per_s=n_requests / wall_s, latency_by_family=by_family,
                serving_counters=counted, launches=launches, host_cpu_s=host_cpu,
                device_bitwise_share=exact_device / max(n_device, 1),
+               dense_bitwise_share=dense_bitwise, batches=batches,
+               occupancy_mean=items / max(batches, 1), batch_service_ms=stats["batch"],
                kernel_shapes=len(recorder.shapes), kernel_max_abs_err=max_err,
                card=card,
                sync_debug="error over the whole timed run" if on_card else None)
     log(f"[11] mixed traffic on the node: {n_requests} _search requests from "
-        f"{n_callers} connections, {n_device} to the card, {n_host} to the host "
-        f"scorer: {out['requests_per_s']:.1f} requests/s ({wall_s:.2f} s); {card}")
+        f"{n_callers} connections, {n_device} to the card's sparse path, {n_dense} to "
+        f"its dense family, {n_host} to the host scorer: {out['requests_per_s']:.1f} "
+        f"requests/s ({wall_s:.2f} s; with those families on the host: "
+        f"{HOST_FAMILIES_PHASE11['requests_per_s']}); "
+        f"{card}")
     for family, v in by_family.items():
-        log(f"[11]   {family:11s} {v['requests']:5d} requests: p50 {v['p50_ms']:.2f} ms, "
-            f"p99 {v['p99_ms']:.2f} ms; {card}")
+        was = HOST_FAMILIES_PHASE11["latency_ms"][family]
+        where = "sparse" if family == "device" else \
+            "dense" if family in MIXED_DENSE else "host"
+        before = "no such family" if was is None else f"p50 {was[0]}, p99 {was[1]}"
+        if family == "post_filter_all":
+            before += ", sent as `post_filter`"
+        log(f"[11]   {family:15s} ({where:6s}) {v['requests']:5d} requests: p50 "
+            f"{v['p50_ms']:.2f} ms, p99 {v['p99_ms']:.2f} ms (before the move: "
+            f"{before}); {card}")
     log(f"[11] every response == the shards' host query phases reduced (host half "
-        f"bitwise; card half within {ULPS} ulp, tie-tolerant, "
-        f"{out['device_bitwise_share']:.4f} of it bitwise, and bitwise == "
-        f"search_shard_batch); filter-family totals == exact counts; serving "
-        f"counters {counted}; launches {launches}")
+        f"bitwise; the card's within {ULPS} ulp, tie-tolerant: the sparse half "
+        f"{out['device_bitwise_share']:.4f} bitwise, and bitwise == "
+        f"search_shard_batch; the dense families bitwise "
+        + ", ".join(f"{f} {v:.4f}" for f, v in dense_bitwise.items())
+        + f"); filter-family totals == exact counts; serving counters {counted}; "
+        f"launches {launches}")
     log(f"[11] host CPU s over the {wall_s:.2f} s timed run, by thread kind: "
         + ", ".join(f"{k} {v:.2f} ({v / wall_s:.3f} of wall)" for k, v in host_cpu.items())
-        + f"; {card}")
+        + f"; node batcher {batches} batches, occupancy mean {out['occupancy_mean']:.3f}, "
+        f"batch service (all runs) p50 {stats['batch']['p50_ms']} ms p99 "
+        f"{stats['batch']['p99_ms']} ms; {card}")
     log(f"[11] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
         f"phase 11 launched; max abs err {max_err}")
     if on_card:
@@ -1841,16 +1958,266 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _r, _l, pwall_s, perrors, _cpu = serve_http(
-                port, bodies[:NODE_PROFILED], n_callers, sync_error=False)
+                port, bodies[:MIXED_PROFILED], n_callers, sync_error=False)
         assert not perrors, perrors[:3]
         out["profiled"] = p = device_busy(prof, pwall_s * 1e3)
         if p["device_busy_ms"]:
-            log(f"[11] profiled window of {NODE_PROFILED} mixed requests: wall "
+            log(f"[11] profiled window of {MIXED_PROFILED} mixed requests: wall "
                 f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} ms, "
                 f"idle share {p['idle_share']:.4f}; {card}")
         else:
             log("[11] profiled window: the profiler saw no device time "
                 "(device idle share not measured)")
+    return out
+
+
+def tie_tolerant_close(got, want, rel: float) -> bool:
+    """`tie_tolerant_equal` at a relative tolerance: the same doc set, each
+    score within `rel`, the same order except between scores within 2 rel."""
+    if sorted(d for _, d in got) != sorted(d for _, d in want):
+        return False
+    want_by = {d: s for s, d in want}
+    if not all(abs(s - want_by[d]) <= rel * abs(want_by[d]) for s, d in got):
+        return False
+    pos = {d: i for i, (_, d) in enumerate(got)}
+    for i, (sa, a) in enumerate(want):
+        for sb, b in want[i + 1:]:
+            if abs(sa - sb) > 2 * rel * abs(sa) and pos[a] > pos[b]:
+                return False
+    return True
+
+
+def dense_family_bodies(rng, ranked, n: int) -> dict:
+    """Phase 12's traffic, `n` bodies a family: phase 3's 4-term `bool`
+    under each feature. filtered: a 20-term `terms` filter (df ranks
+    20-400); post_filter: a term filter (df ranks 20-400); min_score: the
+    query alone (its threshold is set from its own top score); fs_rows: one
+    spec for the whole family, `field_value_factor` on `pop` (log1p) times
+    a filtered weight, added to the score; fs_script: FS_SCRIPT, multiplied
+    in."""
+    pool, dense = ranked[RANKS[0]: RANKS[1]], ranked[BOOL_RANKS[0]: BOOL_RANKS[1]]
+
+    def should():
+        return {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                    for t in rng.choice(pool, TERMS_PER_QUERY)]}}
+
+    def terms(k):
+        return [term_name(int(t)) for t in rng.choice(dense, k, replace=False)]
+
+    out = {f: [] for f in DENSE_FAMILIES}
+    for _ in range(n):
+        out["filtered"].append({"query": {"filtered": {
+            "query": should(), "filter": {"terms": {"body": terms(FILTER_TERMS)}}}}})
+        out["post_filter"].append({"query": should(),
+                                   "post_filter": {"term": {"body": terms(1)[0]}}})
+        out["min_score"].append({"query": should()})
+        out["fs_rows"].append({"query": {"function_score": {
+            "query": should(),
+            "functions": [{"field_value_factor": {"field": "pop", "modifier": "log1p",
+                                                  "missing": 1}},
+                          {"filter": {"range": {"pop": {"gte": 500}}}, "weight": 2}],
+            "boost_mode": "sum"}}})
+        out["fs_script"].append({"query": {"function_score": {
+            "query": should(), "script_score": {"script": FS_SCRIPT}}}})
+    for bodies in out.values():
+        for b in bodies:
+            b["size"] = K
+    return out
+
+
+def dense_family_phase(device, segs, ranked, *, seed: int, batch: int,
+                       n_check: int) -> dict:
+    """Phase 12: the dense request-feature family at full width on phase
+    2's shard. For each family, one batch of `batch` requests' plans (the
+    service's own routing, `device_plan`) through `dispatch_flat_batch`,
+    twice: cold (every filter mask built on the host, then made resident in
+    the DeviceFilterCache) and warm (the masks resident). Everything after
+    the set-up runs under `set_sync_debug_mode("error")`. `n_check` queries a
+    family are held against the host scorer, every query against the same
+    ops on CPU tensors."""
+    import torch
+
+    from elasticsearch_tpu_torch.common.breaker import CircuitBreakerService
+    from elasticsearch_tpu_torch.common.errors import ScriptError
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.engine import Searcher
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import DeviceFilterCache, packed_for
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import (
+        ShardContext, SimilarityService, execute_query_phase, parse_query,
+        parse_search_body, search_shard_batch)
+    from elasticsearch_tpu_torch.search import execute as texecute
+    from elasticsearch_tpu_torch.search.service import device_plan
+
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    settings = Settings.from_flat({**BM25_SETTINGS,
+                                   "indices.filter_cache.min_sightings": 1})
+    svc = MapperService(settings)
+    svc.put_mapping("doc", SHARD_MAPPING)
+    sims = SimilarityService(settings, svc)
+    breakers = CircuitBreakerService(settings)
+    fcache = DeviceFilterCache(settings, breaker=breakers.breaker("fielddata"))
+    ctx = ShardContext(Searcher(segs), svc, sims, device=device, breakers=breakers,
+                       filter_cache=fcache)
+    cpu_ctx = ShardContext(Searcher(segs), svc, sims, device="cpu")
+    rng = np.random.default_rng(seed)
+    bodies = dense_family_bodies(rng, ranked, batch)
+
+    # set-up, before the clock: each min_score body's threshold is half its
+    # query's own top score (one plain batch on the card's sparse path)
+    recorder = LaunchRecorder(scoring, sparse_score)
+    try:
+        tops = search_shard_batch(ctx, [parse_query(b["query"])
+                                        for b in bodies["min_score"]], 1)
+    finally:
+        recorder.close()
+    for b, td in zip(bodies["min_score"], tops):
+        assert td.hits, f"min_score body without a hit: {b}"
+        b["min_score"] = td.max_score / 2
+    t0 = time.perf_counter()
+    for seg in segs:
+        packed_for(seg, torch.device("cpu"))  # the CPU leg's packs
+    cpu_pack_s = time.perf_counter() - t0
+    reqs = {f: [parse_search_body(b) for b in bs] for f, bs in bodies.items()}
+    routed = {f: [device_plan(ctx, r) for r in rs] for f, rs in reqs.items()}
+    want_counter = {"filtered": "device_filtered", "post_filter": "device_filtered",
+                    "min_score": "device_filtered", "fs_rows": "device_function_score",
+                    "fs_script": "device_function_score"}
+    for f, rs in routed.items():
+        assert all(r is not None and r[1] == want_counter[f] for r in rs), f
+    plans = {f: [plan for plan, _c in rs] for f, rs in routed.items()}
+
+    reruns = []
+    host_search = texecute._host_search
+    texecute._host_search = lambda c, q, k, **kw: reruns.append(q) or host_search(c, q, k, **kw)
+    out = {"card": card, "batch": batch, "cpu_pack_s": cpu_pack_s, "families": {}}
+    results = {}
+    handed_back = 0  # queries a merge hands back to the host scorer
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in DENSE_FAMILIES:
+            rows = []
+            for pass_name in ("cold", "warm"):
+                before = fcache.stats()
+                start = torch.cuda.Event(enable_timing=True) if on_card else None
+                end = torch.cuda.Event(enable_timing=True) if on_card else None
+                t0 = time.perf_counter()
+                if on_card:
+                    start.record()
+                # the host inputs, as a node's search thread builds them
+                preps = texecute.prepare_dense(plans[f], ctx)
+                tp = time.perf_counter()
+                pending = texecute.dispatch_flat_batch(plans[f], ctx, K, preps)
+                if on_card:
+                    end.record()
+                t1 = time.perf_counter()
+                res = pending.merge()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                ev_ms = None
+                if on_card:
+                    end.synchronize()
+                    ev_ms = start.elapsed_time(end)
+                after = fcache.stats()
+                handed_back += sum(td is None for td in res)
+                rows.append(dict(
+                    pass_=pass_name, wall_ms=wall_ms, dispatch_ms=(t1 - t0) * 1e3,
+                    prepare_ms=(tp - t0) * 1e3, device_ms=ev_ms,
+                    launches=sum(len(ls) for part in pending.parts if part.kind == "dense"
+                                 for (_s, _b, _d, ls) in part.seg_work),
+                    copies=len(pending.tensors()),
+                    cache_hits=after["hits"] - before["hits"],
+                    cache_builds=after["builds"] - before["builds"],
+                    cache_bytes=after["memory_size_in_bytes"]))
+                if pass_name == "cold":
+                    results[f] = res
+                else:  # resident masks: the same answers
+                    for a, b in zip(res, results[f]):
+                        assert a.total == b.total and (
+                            tie_tolerant_close(a.hits, b.hits, 1e-5) if f == "fs_script"
+                            else tie_tolerant_equal(a.hits, b.hits)), \
+                            f"{f}: the warm pass differs from the cold one"
+            out["families"][f] = rows
+        assert not handed_back and not reruns, \
+            f"{handed_back} queries handed back to the host scorer"
+
+        # the script on `pop`, missing on 1 doc in 7: every query is
+        # flagged bad, reruns on the host scorer, and raises there as the
+        # JAX package's does
+        pop_q = parse_query({"function_score": {
+            "query": bodies["fs_script"][0]["query"]["function_score"]["query"],
+            "script_score": {"script": "_score * log(2 + doc['pop'].value)"}}})
+        try:
+            search_shard_batch(ctx, [pop_q], K)
+            raise AssertionError("the pop script did not raise")
+        except ScriptError:
+            pass
+        assert len(reruns) == 1
+        texecute._host_search = host_search
+
+        # correctness: n_check queries a family against the host scorer, every
+        # query against the same ops on CPU tensors
+        checked = {}
+        for f in DENSE_FAMILIES:
+            idx = rng.choice(batch, min(n_check, batch), replace=False)
+            for i in idx:
+                ref = execute_query_phase(cpu_ctx, reqs[f][i], use_device=False)
+                got = [(s, d) for s, d in results[f][i].hits]
+                want = [(s, d) for s, d, _v in ref.docs]
+                assert results[f][i].total == ref.total, (f, i, "total vs host")
+                if f == "fs_script":
+                    assert tie_tolerant_close(got, want, 1e-5), (f, i, "host")
+                else:
+                    assert tie_tolerant_equal(got, want), (f, i, "host")
+            t0 = time.perf_counter()
+            cpu_plans = [device_plan(cpu_ctx, r)[0] for r in reqs[f]]
+            cpu_res = texecute.dispatch_flat_batch(cpu_plans, cpu_ctx, K).merge()
+            cpu_s = time.perf_counter() - t0
+            bitwise = 0
+            for i, (a, b) in enumerate(zip(results[f], cpu_res)):
+                assert a.total == b.total, (f, i, "total vs cpu")
+                if f == "fs_script":
+                    assert tie_tolerant_close(a.hits, b.hits, 1e-5), (f, i, "cpu")
+                else:
+                    assert tie_tolerant_equal(a.hits, b.hits), (f, i, "cpu")
+                bitwise += a.hits == b.hits
+            checked[f] = dict(host=len(idx), cpu=batch, cpu_bitwise_share=bitwise / batch,
+                              cpu_s=cpu_s, matched=sum(r.total for r in results[f]))
+        out["checked"] = checked
+    finally:
+        texecute._host_search = host_search
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+    max_err = check_shapes(recorder.shapes)
+    out.update(kernel_shapes=len(recorder.shapes), kernel_max_abs_err=max_err,
+               cache=fcache.stats(), fielddata_used=breakers.breaker("fielddata").used,
+               sync_debug="error after the set-up" if on_card else None)
+    log(f"[12] the dense family on phase 2's shard ({len(segs)} segments, "
+        f"{sum(s.doc_count for s in segs)} docs), batches of {batch} a family, "
+        f"top-{K}; {card}")
+    log("[12]   family      pass | ms a batch: events, host wall (dispatch; of it the "
+        "host inputs) | dense launches | copies | filter cache hits, builds, resident bytes")
+    for f, rows in out["families"].items():
+        for r in rows:
+            ev = f"{r['device_ms']:.3f}" if r["device_ms"] is not None else "not measured"
+            log(f"[12]   {f:11s} {r['pass_']:4s} | {ev}, {r['wall_ms']:.2f} "
+                f"({r['dispatch_ms']:.2f}; {r['prepare_ms']:.2f}) | {r['launches']} | "
+                f"{r['copies']} | "
+                f"{r['cache_hits']}, {r['cache_builds']}, {r['cache_bytes']}")
+    for f, c in out["checked"].items():
+        log(f"[12]   {f:11s} {c['host']} queries == the host scorer ("
+            + ("5 decimals" if f == "fs_script" else f"{ULPS} ulp, tie-tolerant")
+            + f", totals exact), all {c['cpu']} == the same ops on CPU tensors "
+            f"({c['cpu_bitwise_share']:.4f} bitwise; {c['cpu_s']:.1f} s on the CPU); "
+            f"{c['matched']} matches")
+    log(f"[12] no query reran on the host scorer; the script on pop (missing on 1 "
+        f"doc in {POP_MISSING}) flagged its query, reran it on the host scorer and "
+        f"raised ScriptError there; filter cache {out['cache']}; fielddata breaker "
+        f"{out['fielddata_used']} bytes; sparse_score == plain (bitwise) at all "
+        f"{len(recorder.shapes)} shapes the set-up launched; max abs err {max_err}")
     return out
 
 

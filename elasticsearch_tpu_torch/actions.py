@@ -475,13 +475,15 @@ class ActionModule:
 
     def _shard_ctx(self, index: str, shard_id: int) -> ShardContext:
         """The shard's current searcher in a context wired to the node's
-        device, breakers and ONE node-level DeviceBatcher."""
+        device, breakers, ONE node-level DeviceBatcher and ONE
+        DeviceFilterCache."""
         svc = self.indices.index_service(index)
         shard = svc.shard(shard_id)
         return ShardContext(shard.engine.acquire_searcher(), svc.mapper_service,
                             svc.similarity_service, device=self.node.device,
                             breakers=self.node.breakers,
-                            batcher=self.node.search_batcher)
+                            batcher=self.node.search_batcher,
+                            filter_cache=self.node.filter_cache)
 
     def _s_query_phase(self, request, channel):
         index, shard_id = request["index"], request["shard"]

@@ -13,7 +13,8 @@ of the JAX package's `common/jaxenv.py`.
 - `LAUNCHES` counts kernel launches by name: each wrapper bumps its count
   where it launches its kernel, and nowhere else.
 - `upload` / `pull` are the two directions of host↔device traffic on the
-  serving path: uploads never synchronise, and `pull` brings a whole batch of
+  serving path: uploads never synchronise (`upload_pinned` stages a large
+  host row in pinned memory first), and `pull` brings a whole batch of
   result tensors back behind one event wait. `pull_async` is its enqueue
   half (the end of a batch's dispatch) and `PendingPull.wait` its wait half
   (the batch's merge).
@@ -89,6 +90,19 @@ def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cpu":
         return t
     return t.to(device, non_blocking=True)
+
+
+def upload_pinned(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """`upload` for a large host row (a filter mask, a function row): on the
+    card the array is staged in pinned memory and copied without
+    synchronising, so the copy is a DMA the stream orders; on the CPU the
+    tensor shares `array`'s memory."""
+    if device.type == "cpu":
+        return upload(array, device)
+    arr = np.ascontiguousarray(array)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).pin_memory().to(device, non_blocking=True)
 
 
 class PendingPull:

@@ -128,6 +128,12 @@ class UnavailableShardsError(SearchEngineError):
     status = 503
 
 
+class ScriptError(SearchEngineError):
+    """A script failed to compile or to run (a REST 400)."""
+
+    status = 400
+
+
 class NotPortedError(IllegalArgumentError):
     """A feature of the JAX package that a later slice of the port serves."""
 

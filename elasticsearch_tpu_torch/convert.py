@@ -5,7 +5,7 @@ passes `np.asarray(...)` of its objects' fields); nothing here imports the
 JAX package.
 
 - `segment_from_arrays` builds a port FrozenSegment from a segment's CSR
-  postings, norms, field statistics and masks.
+  postings, norms, field statistics, masks and numeric doc-value columns.
 - `packed_from_arrays` builds a port PackedSegment on a device from already
   packed planes, and can install it as a segment's pack for that device.
 """
@@ -33,10 +33,13 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
                         post_docs: np.ndarray, post_freqs: np.ndarray,
                         norms: dict, field_stats: dict, live: np.ndarray,
                         parent_mask: np.ndarray, *, gen: int = 0,
-                        ids: list | None = None) -> FrozenSegment:
+                        ids: list | None = None,
+                        dv_num: dict | None = None) -> FrozenSegment:
     """A port segment from CSR arrays. `term_dict` is {field: {term: tid}},
     `norms` {field: uint8[D]}, `field_stats` {field: {"doc_count",
-    "sum_ttf", "sum_dfs"}}; `live` and `parent_mask` are bool[D]."""
+    "sum_ttf", "sum_dfs"}}; `live` and `parent_mask` are bool[D];
+    `dv_num` {field: (offsets int64[D+1], values float64[offsets[-1]])},
+    each doc's numeric values (the JAX segment's `dv_num` layout)."""
     live = np.array(live, dtype=bool)  # tombstones mutate it: own copy
     post_offsets = np.asarray(post_offsets, dtype=np.int64)
     if post_offsets[-1] != len(post_docs) or len(post_docs) != len(post_freqs):
@@ -44,6 +47,15 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
     for f, arr in norms.items():
         if len(arr) != len(live):
             raise ValueError(f"norms of [{f}] cover {len(arr)} docs, not {len(live)}")
+    columns = {}
+    for f, (off, vals) in (dv_num or {}).items():
+        off = np.asarray(off, dtype=np.int64)
+        vals = np.asarray(vals, dtype=np.float64)
+        if len(off) != len(live) + 1 or off[0] != 0 or off[-1] != len(vals) \
+                or np.any(np.diff(off) < 0):
+            raise ValueError(f"dv_num of [{f}]: offsets must rise from 0 to "
+                             f"len(values) over {len(live)} docs")
+        columns[f] = (off, vals)
     return FrozenSegment(
         gen=gen,
         doc_count=len(live),
@@ -58,6 +70,7 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
         live=live,
         parent_mask=np.asarray(parent_mask, dtype=bool),
         ids=ids,
+        dv_num=columns,
     )
 
 

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..common.logging import get_logger
 from ..common.errors import (
     DocumentAlreadyExistsError,
     EngineClosedError,
@@ -35,6 +36,8 @@ from .merge_policy import TieredMergePolicy
 from .segment import FieldStats, FrozenSegment, SegmentBuilder, merge_segments
 from .store import Store
 from .translog import CREATE, DELETE, INDEX, Translog, TranslogOp
+
+logger = get_logger("index.engine")
 
 INTERNAL, EXTERNAL = "internal", "external"
 
@@ -114,6 +117,10 @@ class Engine:
         self._merge_mutex = threading.Lock()
         self._searcher_version = 0
         self._searcher = Searcher([], version=0)
+        # callables (new searcher, segments the old view held that the new
+        # one does not) run on every view install, under _lock: they must
+        # be leaves (dict, counter and breaker work only)
+        self.view_listeners: list = []
 
     # ------------------------------------------------------------------ util
     def _check_open(self):
@@ -232,9 +239,21 @@ class Engine:
 
     def _install_searcher(self) -> Searcher:
         """A new point-in-time view over the current segment list (caller
-        holds _lock)."""
+        holds _lock); the view listeners get the segment objects the old
+        view held that the new one does not (an identity diff: a tombstone
+        view is a new object, a merge drops its sources)."""
+        old = self._searcher
         self._searcher_version += 1
         self._searcher = Searcher(list(self._segments), version=self._searcher_version)
+        if self.view_listeners:
+            current = {id(s) for s in self._searcher.segments}
+            dropped = [s for s in old.segments if id(s) not in current]
+            for listener in list(self.view_listeners):
+                try:
+                    listener(self._searcher, dropped)
+                except Exception:  # noqa: BLE001 — a cache's eviction must
+                    # never fail the refresh or merge that triggered it
+                    logger.warning("view listener failed", exc_info=True)
         return self._searcher
 
     def _index_uids(self, seg: FrozenSegment):

@@ -11,9 +11,11 @@ copy of the JAX package's `indices_service.py`).
 - `periodic_refresh`: the scheduled NRT refresh per shard honouring
   `index.refresh_interval` (-1 disables it), then a merge-policy check on
   the `merge` pool.
+- Each engine's view listener evicts the device filter masks of the
+  segments a new view dropped (the node's `DeviceFilterCache`).
 
-Peer recovery of replicas, index deletion, the indexing-memory controller
-and the cache and warmer listeners belong to later slices."""
+Peer recovery of replicas, index deletion, the indexing-memory controller,
+the request cache and the warmer's listeners belong to later slices."""
 
 from __future__ import annotations
 
@@ -77,8 +79,11 @@ class IndexService:
 
 class IndicesService:
     def __init__(self, node_id: str, data_path: str, transport, cluster_service,
-                 threadpool):
+                 threadpool, filter_cache=None):
         self.node_id = node_id
+        # the node's DeviceFilterCache (None in unwired contexts): the masks
+        # of segments an engine view drops leave with them
+        self.filter_cache = filter_cache
         self.data_path = data_path
         self.transport = transport
         self.cluster_service = cluster_service
@@ -155,10 +160,27 @@ class IndicesService:
                         pass
             if s.shard_id not in svc.shards and s.state == INITIALIZING:
                 shard = svc.create_shard(s.shard_id, s.primary)
+                self._wire_cache_listeners(shard.engine)
                 threading.Thread(target=self._recover_shard, args=(shard, s),
                                  daemon=True,
                                  name=f"estpu_torch-recover[{s.index}][{s.shard_id}]"
                                  ).start()
+
+    def _wire_cache_listeners(self, engine: Engine):
+        """Hang the node's device filter cache off the engine's view
+        listeners: the segments a new view dropped (merge sources, the
+        copies a tombstone view replaced) evict their resident masks. The
+        listener is a leaf: dict, counter and breaker work only (the engine
+        calls it under its lock)."""
+        fcache = self.filter_cache
+        if fcache is None:
+            return
+
+        def on_view_change(searcher, dropped):
+            if dropped:
+                fcache.evict_dropped(dropped, searcher.segments)
+
+        engine.view_listeners.append(on_view_change)
 
     def _recover_shard(self, shard: IndexShard, routing: ShardRouting):
         shard.state = RECOVERING

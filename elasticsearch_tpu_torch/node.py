@@ -1,8 +1,8 @@
 """Node assembly and client (a trimmed copy of the JAX package's `node.py`).
 
 A Node builds its services in dependency order — cluster service → gateway →
-thread pools → breakers → the node-level DeviceBatcher → transport →
-allocation → indices → actions → discovery — and `start()` elects itself master
+thread pools → breakers → the node-level DeviceFilterCache and DeviceBatcher
+→ transport → allocation → indices → actions → discovery — and `start()` elects itself master
 of a one-node cluster and lifts the not-recovered block. `start_http(port)`
 binds the REST surface (port 0 = ephemeral).
 
@@ -10,7 +10,10 @@ The node serves on the card unless told otherwise: its device is the
 `node.device` setting ("cpu" in the tests) resolved through
 `cudaenv.default_device`, so without CUDA and without that setting building
 a Node raises DeviceUnavailableError. Every shard's query phase on this node
-goes through ONE DeviceBatcher (`search_batcher`), as in the JAX node.
+goes through ONE DeviceBatcher (`search_batcher`), and its filtered plans
+read ONE DeviceFilterCache (`filter_cache`, charged to the fielddata
+breaker; its masks leave with the segments an engine view drops), as in the
+JAX node.
 
 `Client` is trimmed to `create_index`, `index`, `bulk`, `refresh`, `search`
 and `cluster_health`."""
@@ -34,6 +37,7 @@ from .common.settings import prepare_settings
 from .discovery.zen import ZenDiscovery
 from .gateway import LocalGateway
 from .indices_service import IndicesService
+from .ops.device_index import DeviceFilterCache
 from .search.batcher import DeviceBatcher
 from .threadpool import ThreadPool
 from .transport.local import DEFAULT_REGISTRY, LocalTransport
@@ -70,6 +74,10 @@ class Node:
                                         transport_address=address)
         self.threadpool = ThreadPool(self.settings)
         self.breakers = CircuitBreakerService(self.settings)
+        # hot filters' per-segment masks resident on the device, accounted on
+        # the fielddata breaker next to the packed postings
+        self.filter_cache = DeviceFilterCache(
+            self.settings, breaker=self.breakers.breaker("fielddata"))
         # cross-request device micro-batching: concurrent query phases on
         # this node's shards coalesce into bucketed launches
         self.search_batcher = DeviceBatcher(self.settings)
@@ -79,7 +87,8 @@ class Node:
         self.allocation = AllocationService()
         self.operation_routing = OperationRouting()
         self.indices = IndicesService(self.node_id, self.data_path, self.transport,
-                                      self.cluster_service, self.threadpool)
+                                      self.cluster_service, self.threadpool,
+                                      filter_cache=self.filter_cache)
         self.actions = ActionModule(self)
         # scheduled NRT refresh and merge-policy check (each index's
         # refresh_interval is honoured inside periodic_refresh)

@@ -16,6 +16,10 @@ term_blk_start[t+1]`, so a query term's postings are a slice of block rows.
 Shapes are padded to power-of-two buckets. The dense fallback's f32 freqs
 plane is uploaded lazily (`ensure_blk_freqs`) the first time a segment feeds
 the dense path.
+
+`DeviceFilterCache` keeps hot filters' padded per-segment doc masks resident
+on the device for the dense filtered family (`search/execute.py
+_filter_mask_row`).
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ import numpy as np
 import torch
 
 from ..common.breaker import reserve
-from ..common.cudaenv import upload
+from ..common.cudaenv import upload, upload_pinned
+from ..common.errors import CircuitBreakingError
+from ..common.settings import Settings
 from ..index.segment import FrozenSegment
 
 BLOCK = 128  # postings per block row
@@ -327,3 +333,216 @@ def _merged_sim(packed: PackedSegment, cur: SimTables | None,
     return SimTables(fields=fields, fid={f: i for i, f in enumerate(fields)},
                      modes=upload(modes, packed.device),
                      caches=upload(caches, packed.device), key=merged)
+
+
+# ---------------------------------------------------------------------------
+# device-resident filter masks
+# ---------------------------------------------------------------------------
+
+
+def filter_masks_key(device: torch.device) -> tuple:
+    """The key of a segment's filter-mask holder for `device` in its
+    `_device_cache` (the port's own key, beside its pack's)."""
+    return ("filter_masks", str(device))
+
+
+class _SegmentFilterMasks:
+    """Per-segment holder of device-resident filter masks, in
+    `seg._device_cache[filter_masks_key(device)]`. A tombstone view
+    (`FrozenSegment.with_deletes`) copies the device cache shallowly, so the
+    views of one segment SHARE this holder — eviction therefore asks whether
+    the holder is still referenced by a live segment, not whether the
+    segment object is. Filter masks do not depend on liveness (filters gate
+    matching; liveness is the dense core's separate live_parent gate), so
+    sharing them across tombstone views is exact."""
+
+    __slots__ = ("masks", "seen", "bytes", "dead")
+
+    def __init__(self):
+        self.masks: dict = {}  # filter key -> (device bool [Dpad], nbytes)
+        self.seen: dict = {}  # filter key -> sighting count
+        self.bytes = 0
+        self.dead = False  # evicted with its segment: never stores again
+
+
+class DeviceFilterCache:
+    """Node-level accounting and policy for per-segment device filter masks
+    (the JAX package's `DeviceFilterCache`).
+
+    Hot filters keep their padded per-segment doc masks resident on the
+    device, keyed by (segment, `Filter.key()`), so a filtered plan that hits
+    skips the host mask evaluation and its host→device copy; the dense core
+    reads the resident row and scores bitwise as it would with the host's
+    mask (the mask VALUES are identical). Population is by sightings: a
+    filter's first evaluation on a segment only counts it; the
+    `indices.filter_cache.min_sightings`-th (default 2nd) builds the padded
+    row on the host outside any lock, uploads it once from pinned memory
+    (no synchronisation), charges the fielddata breaker and publishes it
+    under the leaf lock. Masks leave with their segment when an engine view
+    drops it (`evict_dropped`, hung off the engine's view listeners) or by
+    `clear_segment`, and release their breaker bytes.
+    `indices.filter_cache.enable: false` turns the cache off.
+
+    `_lock` is a leaf guarding dicts and counters only: no mask is built,
+    uploaded or released to the breaker under it."""
+
+    def __init__(self, settings=None, breaker=None):
+        settings = settings or Settings.EMPTY
+        self.enabled = bool(
+            settings.get_bool("indices.filter_cache.enable", True))
+        self.min_sightings = max(1, int(
+            settings.get_int("indices.filter_cache.min_sightings", 2)))
+        self.breaker = breaker
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.builds = 0
+        self.evictions = 0
+        self.rejections = 0  # breaker-tripped stores
+        self._bytes = 0
+        self._masks = 0
+        self._devices: set = set()  # every device a holder was made for
+
+    def _holder(self, seg, device) -> _SegmentFilterMasks:
+        key = filter_masks_key(device)
+        holder = seg._device_cache.get(key)
+        if holder is None:
+            with self._lock:
+                self._devices.add(str(device))
+            # benign setdefault race: both racers publish an empty holder,
+            # one wins, neither has accounted bytes yet
+            holder = seg._device_cache.setdefault(key, _SegmentFilterMasks())
+        return holder
+
+    def lookup(self, seg, key: str, device):
+        """The resident row on `device` for (segment, filter key), or None.
+        A miss counts a sighting, which is what promotes the filter."""
+        holder = self._holder(seg, device)
+        with self._lock:
+            entry = holder.masks.get(key)
+            if entry is not None:
+                self.hits += 1
+            else:
+                self.misses += 1
+                holder.seen[key] = holder.seen.get(key, 0) + 1
+        return entry[0] if entry is not None else None
+
+    def maybe_store(self, seg, key: str, padded_mask: np.ndarray, device):
+        """Promote a freshly evaluated mask (the host bool [Dpad] row, built
+        outside any lock) once it has reached `min_sightings`: charge the
+        breaker, upload it (outside the leaf lock), publish under it.
+        Returns the device row (this one or a concurrent winner's), or None
+        while the filter is cold, the cache is off or the breaker trips."""
+        if not self.enabled:
+            return None
+        holder = self._holder(seg, device)
+        with self._lock:
+            if holder.dead:
+                return None  # segment evicted: a stale searcher must not
+                # repopulate bytes nobody will ever release
+            entry = holder.masks.get(key)
+            if entry is not None:
+                return entry[0]
+            if holder.seen.get(key, 0) < self.min_sightings:
+                return None
+        nbytes = int(padded_mask.nbytes)
+        if self.breaker is not None:
+            try:
+                self.breaker.add_estimate_and_maybe_break(nbytes, "<filter_mask>")
+            except CircuitBreakingError:
+                with self._lock:
+                    self.rejections += 1  # out of fielddata budget: the
+                return None               # host mask still serves
+        row = upload_pinned(padded_mask, device)  # the one copy, outside _lock
+        release = 0
+        with self._lock:
+            if holder.dead:
+                release = nbytes
+                row = None
+            else:
+                entry = holder.masks.get(key)
+                if entry is not None:
+                    release = nbytes  # concurrent winner: keep theirs
+                    row = entry[0]
+                else:
+                    holder.masks[key] = (row, nbytes)
+                    holder.bytes += nbytes
+                    self._bytes += nbytes
+                    self._masks += 1
+                    self.builds += 1
+        if release and self.breaker is not None:
+            self.breaker.release(release)
+        return row
+
+    def _drop(self, holder: _SegmentFilterMasks, dead: bool) -> int:
+        """Empty a holder under the lock; returns its bytes (the caller
+        releases them to the breaker outside the lock)."""
+        with self._lock:
+            if holder.dead:
+                return 0
+            holder.dead = dead
+            n = len(holder.masks)
+            released = holder.bytes
+            self._bytes -= holder.bytes
+            self._masks -= n
+            self.evictions += n
+            holder.masks.clear()
+            holder.seen.clear()
+            holder.bytes = 0
+        return released
+
+    def evict_dropped(self, dropped, live) -> int:
+        """Evict the masks of segments a new engine view dropped. `live` is
+        the new view's segments: a holder a live segment still shares (a
+        tombstone view of the same segment) stays. Returns the bytes
+        released."""
+        live_holders = {id(h) for s in live for h in list(s._device_cache.values())
+                        if isinstance(h, _SegmentFilterMasks)}
+        with self._lock:
+            devices = sorted(self._devices)
+        released = 0
+        for seg in dropped:
+            for device in devices:
+                key = filter_masks_key(device)
+                holder = seg._device_cache.get(key)
+                if holder is None:
+                    # plant a dead holder, so a straggler request still on
+                    # the old searcher cannot store bytes after this ran
+                    dead = _SegmentFilterMasks()
+                    dead.dead = True
+                    holder = seg._device_cache.setdefault(key, dead)
+                    if holder is dead:
+                        continue
+                if id(holder) not in live_holders:
+                    released += self._drop(holder, dead=True)
+        if released and self.breaker is not None:
+            self.breaker.release(released)
+        return released
+
+    def clear_segment(self, seg) -> int:
+        """Drop a live segment's resident masks and sighting counts (they
+        rebuild on later sightings); returns the bytes released."""
+        released = sum(self._drop(h, dead=False)
+                       for h in list(seg._device_cache.values())
+                       if isinstance(h, _SegmentFilterMasks))
+        if released and self.breaker is not None:
+            self.breaker.release(released)
+        return released
+
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return (self.hits / n) if n else 0.0
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "enabled": self.enabled,
+                "memory_size_in_bytes": self._bytes,
+                "masks": self._masks,
+                "hits": self.hits,
+                "misses": self.misses,
+                "builds": self.builds,
+                "evictions": self.evictions,
+                "rejections": self.rejections,
+                "hit_rate": round(self.hit_rate(), 4),
+            }

@@ -1,8 +1,8 @@
 """Batched query scoring on the device — the port of the JAX package's
-`ops/scoring.py` for the plain-plan path.
+`ops/scoring.py`: the plain-plan path and the dense request-feature family.
 
-Two programs score a batch of flat bool-of-terms queries against one packed
-segment:
+Two programs score a batch of plain flat bool-of-terms queries against one
+packed segment:
 
 - the SPARSE path (the hot path): queries are bucketed by how many postings
   blocks they touch (power-of-two TB buckets, chunked to a slot budget), and
@@ -15,6 +15,25 @@ segment:
   factor, take the top k. It is torch ops (the JAX package's XLA program
   `_score_batch_impl`, not a Pallas kernel); `index_add_` on the card adds in
   no fixed order, so it is held to ≤ 2 ulp of the reference.
+
+The dense family runs the dense program's core (`_dense_accumulate`,
+`_dense_semantics`) with a tail per request feature, all torch ops (the JAX
+package's XLA programs B4 and B6's F=0 core, not Pallas kernels):
+
+- `_dense_filtered_impl`: `match & fmask` — a FilteredQuery's filter (or a
+  post filter) gates matching, never scoring;
+- `_fs_rows_impl`: function_score whose functions never read `_score`: one
+  host-combined float32 row a segment (`search/functions.combined_doc_rows`),
+  then `max_boost`, `boost_mode`, the outer boost and `min_score`, in the
+  JAX package's float32 order;
+- `_fs_script_impl`: one `_score`-reading script_score, evaluated by the
+  torch twin of the script vectorizer over the [Q, Dpad] sub-scores, with a
+  per-query `bad` flag that sends the query to the host scorer.
+
+The outer boost and `min_score` are per-query rows here (the JAX package
+bakes them per launch): one launch serves every query of a spec whatever
+its threshold. Each launcher returns device tensors without synchronising;
+the caller pulls a whole batch behind one event (`cudaenv.pull_async`).
 
 Match-count packing: one int32 carries three counters — bits 0-9 matched
 SHOULD clauses, 10-19 MUST, 20-29 MUST_NOT.
@@ -207,6 +226,200 @@ def score_term_batch_async(packed: PackedSegment, batch: TermBatch, k: int):
         doc_pad=packed.doc_pad, simple=_detect_simple(batch))
 
 
+# ---------------------------------------------------------------------------
+# the dense request-feature family: filtered and function_score tails
+# ---------------------------------------------------------------------------
+
+
+def _bmode_combine(sub, comb, applied, bmode: str):
+    """boost_mode combine, float32, in `functions.apply_functions`' order.
+    applied=None means every doc has a function applied (no filter)."""
+    if bmode == "multiply":
+        return sub * comb
+    if bmode == "replace":
+        return comb if applied is None else torch.where(applied, comb, sub)
+    if bmode == "sum":
+        return sub + comb
+    if bmode == "avg":
+        return (sub + comb) / 2.0
+    if bmode == "max":
+        return torch.maximum(sub, comb)
+    if bmode == "min":
+        return torch.minimum(sub, comb)
+    raise ValueError(f"unknown boost_mode [{bmode}]")
+
+
+def _fs_tail(scores, match, comb, applied, max_boost: float, fboost, min_score,
+             gate, *, bmode: str, k: int):
+    """The function_score tail shared by both fs variants: cap, boost_mode,
+    outer boost (per query), the per-query min_score gate, top-k, total.
+    comb=None is a spec without functions: the outer boost and the gate
+    alone."""
+    if comb is None:
+        out = scores * fboost[:, None]
+    else:
+        comb = torch.clamp(comb, max=max_boost)
+        out = _bmode_combine(scores, comb, applied, bmode) * fboost[:, None]
+    match = match & (~gate[:, None] | (out >= min_score[:, None]))
+    masked = torch.where(match, out, float("-inf"))
+    top_scores, top_docs = top_k_lowest_index(masked, k)
+    return (top_scores, top_docs.to(torch.int32),
+            match.sum(dim=1, dtype=torch.int32))
+
+
+def _fs_rows_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
+                  qidx, blk, weight, fidx, group, tfmode, n_must, msm, coord,
+                  g_row, applies_row, fboost, min_score, gate,
+                  *, n_queries: int, k: int, doc_pad: int, bmode: str,
+                  max_boost: float):
+    """Dense core + host-combined function rows (g_row f32 [Dpad], applies_row
+    bool [Dpad]; both None when the spec has no function: then the tail is
+    the outer boost and min_score alone). fboost/min_score f32 [Q], gate
+    bool [Q] (has a min_score). Returns (scores [Q, k], docs i32, totals)."""
+    Q = n_queries
+    scores, flat_idx, valid = _dense_accumulate(
+        blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
+        group, tfmode, Q=Q, doc_pad=doc_pad)
+    scores, match = _dense_semantics(scores, flat_idx, valid, group,
+                                     live_parent, n_must, msm, coord,
+                                     Q=Q, doc_pad=doc_pad)
+    applied = comb = None
+    if g_row is not None:
+        applied = applies_row[None, :]
+        comb = torch.where(applied, g_row[None, :], 1.0)
+    return _fs_tail(scores, match, comb, applied, max_boost, fboost, min_score,
+                    gate, bmode=bmode, k=k)
+
+
+def _fs_script_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
+                    qidx, blk, weight, fidx, group, tfmode, n_must, msm, coord,
+                    col_rows, fmask_row, bad_row, parent_row,
+                    fboost, min_score, gate,
+                    *, n_queries: int, k: int, doc_pad: int, script,
+                    used_fields: tuple, bmode: str, max_boost: float,
+                    weight_s: float | None):
+    """Dense core + one `_score`-reading script evaluated over the [Q, Dpad]
+    sub-scores (the torch twin of the script vectorizer), its doc columns
+    as f32 [Dpad] rows (NaN = missing). fmask_row: the function's filter
+    (None: none). Returns (scores, docs, totals, bad [Q]): a query is bad
+    when a parent doc has a used column missing (`bad_row`) or a
+    non-finite script value — the host scorer reruns it, where the per-doc
+    evaluation decides (and may raise ScriptError)."""
+    from ..script import torch_vectorizer_cls
+
+    Q = n_queries
+    scores, flat_idx, valid = _dense_accumulate(
+        blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
+        group, tfmode, Q=Q, doc_pad=doc_pad)
+    scores, match = _dense_semantics(scores, flat_idx, valid, group,
+                                     live_parent, n_must, msm, coord,
+                                     Q=Q, doc_pad=doc_pad)
+    cols = dict(zip(used_fields, col_rows))
+    vec = torch_vectorizer_cls()(script, lambda f: cols[f], scores)
+    val = vec.vectorize()
+    if not isinstance(val, torch.Tensor):
+        val = torch.full((), val, dtype=torch.float32, device=scores.device)
+    val = torch.broadcast_to(val.to(torch.float32), scores.shape)
+    if weight_s is not None:
+        val = val * weight_s
+    applied = None if fmask_row is None else fmask_row[None, :]
+    comb = val if applied is None else torch.where(applied, val, 1.0)
+    top_scores, top_docs, total = _fs_tail(
+        scores, match, comb, applied, max_boost, fboost, min_score, gate,
+        bmode=bmode, k=k)
+    bad = (bad_row[None, :] | (parent_row[None, :] & ~torch.isfinite(val))).any(dim=1)
+    return top_scores, top_docs, total, bad
+
+
+def _dense_filtered_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
+                         qidx, blk, weight, fidx, group, tfmode, n_must, msm,
+                         coord, fmask, *, n_queries: int, k: int, doc_pad: int):
+    """Dense core with per-query filter masks (fmask bool [Q, Dpad]) gating
+    matching — the JAX package's `_dense_aggstats_impl` with no agg rows and
+    no bucket pairs (the F=0 core `score_filtered_batch` launches).
+    Returns (scores [Q, k], docs i32, totals)."""
+    Q = n_queries
+    scores, flat_idx, valid = _dense_accumulate(
+        blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
+        group, tfmode, Q=Q, doc_pad=doc_pad)
+    scores, match = _dense_semantics(scores, flat_idx, valid, group,
+                                     live_parent, n_must, msm, coord,
+                                     Q=Q, doc_pad=doc_pad)
+    match = match & fmask
+    masked = torch.where(match, scores, float("-inf"))
+    top_scores, top_docs = top_k_lowest_index(masked, k)
+    return (top_scores, top_docs.to(torch.int32),
+            match.sum(dim=1, dtype=torch.int32))
+
+
+def _f32(x: float) -> float:
+    """A Python number rounded to float32 (the JAX package's device scalar)."""
+    return float(np.float32(x))
+
+
+def _batch_args(packed: PackedSegment, batch: TermBatch) -> tuple:
+    """The dense core's leading arguments for one launch, uploaded without
+    synchronising."""
+    dev = packed.device
+    norms_stack, caches = _stack_args(packed, batch)
+    return (packed.blk_docs, ensure_blk_freqs(packed), packed.live_parent,
+            norms_stack, caches,
+            *(upload(a, dev) for a in (batch.qidx, batch.blk, batch.weight,
+                                       batch.fidx, batch.group, batch.tfmode,
+                                       batch.n_must, batch.msm, batch.coord)))
+
+
+def _tail_rows(packed: PackedSegment, fboost, min_score) -> tuple:
+    """Per-query outer boost, min_score and gate rows (min_score None: no
+    gate) as device tensors."""
+    dev = packed.device
+    gate = np.asarray([m is not None for m in min_score], bool)
+    return (upload(np.asarray([_f32(b) for b in fboost], np.float32), dev),
+            upload(np.asarray([_f32(0.0 if m is None else m) for m in min_score],
+                              np.float32), dev),
+            upload(gate, dev))
+
+
+def score_filtered_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
+                               fmask):
+    """Launch the filtered core; fmask is a bool [Q, Dpad] tensor on the
+    pack's device. Returns device (scores, docs, totals) unsynchronised."""
+    return _dense_filtered_impl(
+        *_batch_args(packed, batch), fmask, n_queries=batch.n_queries,
+        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad)
+
+
+def score_fs_rows_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
+                              g_row, applies_row, max_boost: float, fboost,
+                              min_score, bmode: str):
+    """Launch the rows variant: g_row f32 / applies_row bool [Dpad] tensors
+    on the pack's device (None for a spec without functions); fboost and
+    min_score per query (min_score None: no gate). Returns device (scores,
+    docs, totals) unsynchronised."""
+    return _fs_rows_impl(
+        *_batch_args(packed, batch), g_row, applies_row,
+        *_tail_rows(packed, fboost, min_score),
+        n_queries=batch.n_queries, k=min(k, packed.doc_pad),
+        doc_pad=packed.doc_pad, bmode=bmode, max_boost=_f32(max_boost))
+
+
+def score_fs_script_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
+                                script, used_fields: tuple, col_rows, fmask_row,
+                                bad_row, parent_row, weight, max_boost: float,
+                                fboost, min_score, bmode: str):
+    """Launch the script variant: its column (f32), filter, bad and parent
+    (bool) rows are [Dpad] tensors on the pack's device (fmask_row None
+    without a function filter). Returns device (scores, docs, totals, bad)
+    unsynchronised."""
+    return _fs_script_impl(
+        *_batch_args(packed, batch), tuple(col_rows), fmask_row, bad_row,
+        parent_row, *_tail_rows(packed, fboost, min_score),
+        n_queries=batch.n_queries, k=min(k, packed.doc_pad),
+        doc_pad=packed.doc_pad, script=script, used_fields=tuple(used_fields),
+        bmode=bmode, max_boost=_f32(max_boost),
+        weight_s=None if weight is None else _f32(weight))
+
+
 def finalize_score_result(scores: np.ndarray, docs: np.ndarray,
                           total: np.ndarray, doc_pad: int) -> ScoreResult:
     """Host-side [Q, k] post-processing: -inf slots → doc_pad sentinel, max_score."""
@@ -217,25 +430,23 @@ def finalize_score_result(scores: np.ndarray, docs: np.ndarray,
                        max_score=max_score)
 
 
-def build_term_batch(entries: list, n_queries: int, n_must: np.ndarray,
+def build_term_batch(cols: tuple, n_queries: int, n_must: np.ndarray,
                      msm: np.ndarray, coord: np.ndarray, norm_fields: list[str],
                      caches: np.ndarray, nb_pad_row: int) -> TermBatch:
-    """Assemble + bucket-pad the flat triple arrays. `entries` = list of
-    (qidx, blk_row, weight, fidx, group, tfmode); padding rows point at
-    `nb_pad_row`, a row of doc_pad sentinels that contributes nothing."""
-    M = _pow2_bucket(max(len(entries), 1), 16)
+    """Assemble + bucket-pad the flat triple arrays. `cols` = (qidx, blk_row,
+    weight, fidx, group, tfmode) columns of equal length (weight float64:
+    each rounds to float32 once, here); padding rows point at `nb_pad_row`,
+    a row of doc_pad sentinels that contributes nothing."""
+    n = len(cols[0])
+    M = _pow2_bucket(max(n, 1), 16)
     qidx = np.zeros(M, np.int32)
     blk = np.full(M, nb_pad_row, np.int32)
     weight = np.zeros(M, np.float32)
     fidx = np.zeros(M, np.int32)
     group = np.zeros(M, np.int32)
     tfmode = np.zeros(M, np.int32)
-    if entries:
-        # float64 holds every field exactly (weights are Python floats)
-        cols = np.asarray(entries, dtype=np.float64).T
-        n = len(entries)
-        for arr, col in zip((qidx, blk, weight, fidx, group, tfmode), cols):
-            arr[:n] = col
+    for arr, col in zip((qidx, blk, weight, fidx, group, tfmode), cols):
+        arr[:n] = col
     return TermBatch(
         n_queries=n_queries, qidx=qidx, blk=blk, weight=weight, fidx=fidx,
         group=group, tfmode=tfmode, n_must=n_must.astype(np.int32),

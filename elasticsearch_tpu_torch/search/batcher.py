@@ -1,9 +1,12 @@
 """Cross-request device micro-batching — the port of the JAX package's
 `search/batcher.py` `DeviceBatcher` (its flat family).
 
-Concurrent `execute_query_phase` calls each bring ONE plan; launched one at a
-time, every request would pay a full set of bucket launches and a host merge.
-The batcher coalesces them into one bucketed `dispatch_flat_batch`:
+Concurrent `execute_query_phase` calls each bring ONE plan — a plain one,
+or a filtered or function_score plan of the dense family, all under the
+same key, as in the JAX package; launched one at a time, every request
+would pay a full set of launches and a host merge. The batcher coalesces
+them into one `dispatch_flat_batch`, which launches each family of the
+batch and pulls them all behind one event:
 
     caller threads                     drainer (a daemon thread)
     ──────────────                     ─────────────────────────
@@ -30,10 +33,14 @@ Flush policy — whichever fires first:
                hold its answered futures hostage to the NEXT batch's linger;
                the card is busy anyway, so the queue flushes at once
 
+The drainer only launches and merges: each caller builds its plan's host
+inputs (filter mask rows, function rows) before queueing it, and serves a
+query the dense family hands back to the host scorer after its batch.
+
 Double buffering: the drainer dispatches batch N+1 BEFORE merging batch N, so
 batch N's host merge overlaps batch N+1's device work. The dispatch half
 never synchronises; it ends by enqueueing the batch's device→host copies
-behind one event (execute._dispatch_flat_plain), and the merge half waits on
+behind one event (execute.dispatch_flat_batch), and the merge half waits on
 that event alone — so N's merge waits for N's device work, never N+1's.
 Everything runs on the launching thread's current stream.
 
@@ -85,9 +92,11 @@ class _Item:
 
 class _FlatFamily:
     """Coalesces single-shard FlatPlans into dispatch_flat_batch launches.
-    payload = (plan, ShardContext); the batch runs with the LEADER item's
-    context — the key guarantees every member sees the identical segment
-    view and stats sources, so per-plan weights are identical either way."""
+    payload = (plan, ShardContext, the plan's `prepare_dense` input, built
+    by the caller); the batch runs with the LEADER item's context — the key
+    guarantees every member sees the identical segment view and stats
+    sources, so per-plan weights and segment rows are identical either
+    way."""
 
     @staticmethod
     def key(ctx, kb: int):
@@ -96,27 +105,43 @@ class _FlatFamily:
                 tuple(id(seg) for seg in s.segments), kb)
 
     @staticmethod
+    def prepare(plan, ctx):
+        from .execute import prepare_dense
+
+        return prepare_dense([plan], ctx)[0]
+
+    @staticmethod
     def dispatch(items, kb: int):
         from .execute import dispatch_flat_batch
 
         ctx = items[0].payload[1]
-        return dispatch_flat_batch([it.payload[0] for it in items], ctx, kb)
+        return dispatch_flat_batch([it.payload[0] for it in items], ctx, kb,
+                                   [it.payload[2] for it in items])
 
     @staticmethod
     def fan_out(handle, items):
         from .execute import TopDocs
 
         merged = handle.merge()
-        return [TopDocs(total=td.total, hits=td.hits[: it.k],
-                        max_score=td.max_score)
+        return [None if td is None else
+                TopDocs(total=td.total, hits=td.hits[: it.k], max_score=td.max_score)
                 for it, td in zip(items, merged)]
 
     @staticmethod
     def execute_single(item):
-        from .execute import execute_flat_batch
+        from .execute import dispatch_flat_batch
 
-        plan, ctx = item.payload
-        return execute_flat_batch([plan], ctx, item.k)[0]
+        plan, ctx, prep = item.payload
+        return dispatch_flat_batch([plan], ctx, item.k, [prep]).merge()[0]
+
+    @staticmethod
+    def finish(item, td):
+        """The caller's answer: a query the dense family handed back (None)
+        is served by the host scorer here, on the caller's thread."""
+        from .execute import host_reruns
+
+        plan, ctx, _prep = item.payload
+        return host_reruns([plan], [td], ctx, item.k)[0]
 
 
 class DeviceBatcher:
@@ -165,12 +190,15 @@ class DeviceBatcher:
         """Coalesce one shard-local FlatPlan with concurrent callers; blocks
         until the batch lands and returns this plan's TopDocs (hits trimmed
         to k). Launches the single plan directly when the batcher is shut
-        down, the queue is saturated, or the drainer has died."""
+        down, the queue is saturated, or the drainer has died. The plan's
+        host inputs are built before it is queued, and a host rerun runs
+        after its batch, both here on the caller's thread."""
         k = max(k, 1)
         kb = _k_bucket(k)
-        item = _Item(self._flat, self._flat.key(ctx, kb), (plan, ctx), k, kb,
+        item = _Item(self._flat, self._flat.key(ctx, kb),
+                     (plan, ctx, self._flat.prepare(plan, ctx)), k, kb,
                      deadline or NO_DEADLINE)
-        return self._submit(item)
+        return self._flat.finish(item, self._submit(item))
 
     def _submit(self, item: _Item):
         with self._cv:

@@ -6,7 +6,7 @@ A query lowers to a flat weighted-term plan (`lower_flat`); a whole batch of
 plans is finalized against shard-level term statistics (`finalize_flat`,
 `_assemble_batch`) and, per segment, dispatched to the device: the sparse
 kernel for every query within `tb_max` blocks, the dense program for the
-overflow (`_dispatch_flat_plain`). The merge half (`_merge_flat_plain`) pulls
+overflow (`_launch_flat_plain`). The merge half (`_PendingFlat.merge`) pulls
 the whole batch to the host behind ONE wait and merges the segments' top-k
 (score desc, global doc asc — Lucene's order).
 
@@ -19,6 +19,18 @@ Serving contracts carried over from the JAX package:
 - no device→host synchronisation while dispatching — chip_smoke.py runs the
   dispatch half under `torch.cuda.set_sync_debug_mode("error")`.
 
+A `filtered` query whose sub-query lowers, and a `function_score` whose
+sub-query lowers and whose functions read no `_score` (or are one
+vectorizable `_score`-reading script), lower to a plan that carries its
+filter (`filt`) or its function_score spec (`fs`); the batch sends them to
+the dense request-feature family — the dense program's core with the filter
+mask or the function tail (`ops/scoring.py`) — beside the plain plans, and
+the same one pull serves every family (`dispatch_flat_batch`). Their host
+inputs (mask rows, function rows) are built and uploaded by the thread that
+plans the query (`prepare_dense`), and a query the family hands back to the
+host scorer is served by its caller after the merge (`host_reruns`), so the
+batcher's drainer only launches and merges.
+
 A query that does not lower to a flat plan (phrases, multi-term expansion,
 spans, filters, a numeric term, a bool with a filter or with must_not only, a
 fuzzy match) runs on the host scorer (`HostScorer`): a recursive numpy
@@ -26,9 +38,7 @@ evaluation per segment into dense (scores float32[D], match bool[D]) with the
 same similarity math and the JAX package's expression order, so its scores
 are bitwise the JAX host scorer's. `search_shard_batch` sends the lowerable
 queries of a batch fused to the device and the rest to `_host_search`, as
-the JAX package does. `filtered` and `function_score` do not lower in the
-port: their device families are a later slice, so a `filtered` body is
-served on the host.
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -39,14 +49,16 @@ from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..common.cudaenv import default_device, pull_async
-from ..common.errors import NotPortedError, QueryParsingError
+from ..common.cudaenv import default_device, pull_async, upload_pinned
+from ..common.errors import NotPortedError, QueryParsingError, ScriptError
 from ..index.engine import Searcher
 from ..index.segment import FrozenSegment
 from ..ops.device_index import (
     TFN_BM25,
     TFN_TFIDF,
+    expand_ranges,
     ensure_blk_freqs,
     ensure_sim_tables,
     packed_for,
@@ -60,6 +72,9 @@ from ..ops.scoring import (
     dense_chunk,
     finalize_score_result,
     launch_flat_sparse,
+    score_filtered_batch_async,
+    score_fs_rows_batch_async,
+    score_fs_script_batch_async,
     score_term_batch_async,
 )
 from ..ops.sparse_kernels import GROUP_MUST, GROUP_MUST_NOT, GROUP_SHOULD
@@ -72,6 +87,7 @@ from .queries import (
     DisMaxQuery,
     FieldMaskingSpanQuery,
     FilteredQuery,
+    FunctionScoreQuery,
     FuzzyLikeThisQuery,
     FuzzyQuery,
     IdsQuery,
@@ -104,7 +120,7 @@ class ShardContext:
 
     def __init__(self, searcher: Searcher, mapper_service,
                  similarity_service: SimilarityService | None = None,
-                 device=None, breakers=None, batcher=None):
+                 device=None, breakers=None, batcher=None, filter_cache=None):
         self.searcher = searcher
         self.mapper_service = mapper_service
         self.similarity_service = similarity_service or SimilarityService(
@@ -117,6 +133,10 @@ class ShardContext:
         # requests coalesce with concurrent ones when present
         # (service._execute_flat_single)
         self.batcher = batcher
+        # the node's DeviceFilterCache (ops/device_index.py), or None: hot
+        # filters' masks stay resident on the device for the filtered family
+        # (_filter_mask_row)
+        self.filter_cache = filter_cache
 
     def breaker(self, name: str):
         """The named circuit breaker, or None when no service is wired."""
@@ -176,6 +196,18 @@ class FlatPlan:
     n_must: int
     coord_enabled: bool
     boost: float
+    # function_score plans: the wrapping FunctionScoreQuery (the dense family
+    # applies its function tail; also the host-rerun query), its kind, and
+    # the outer boost — it joins the TF-IDF queryNorm pre-pass
+    # (_weight_prepass walks through FunctionScoreQuery with it) but not the
+    # sub-query's clause weights
+    fs: object = None  # FunctionScoreQuery | None
+    fs_kind: str | None = None  # "rows" | "script" (classified at lower time)
+    norm_boost: float = 1.0
+    # FilteredQuery (or a post filter): the filter gates MATCHING only, as
+    # the host scorer's FilteredQuery branch; evaluated per segment (the
+    # filter caches) and fed to the dense family as a mask row
+    filt: object = None  # Filter | None
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +256,10 @@ def lower_flat(query: Query, ctx: ShardContext) -> FlatPlan | None:
     """Lower a query to a flat clause list, or None when it needs the host
     scorer: a term on a numeric field (a doc-value column), a fuzzy match, a
     bool with a filter, with must_not only or with sub-clauses that are not
-    single terms, every other query type, and any clause on a field whose
-    similarity the kernel does not fuse (BM25 and TF-IDF only)."""
+    single terms, a function_score or filtered query whose sub-query does
+    not lower (or whose functions `_classify_fs` sends to the host), every
+    other query type, and any clause on a field whose similarity the kernel
+    does not fuse (BM25 and TF-IDF only)."""
     plan = _lower_flat_inner(query, ctx)
     if plan is not None:
         for field in {c.field for c in plan.clauses}:
@@ -289,6 +323,56 @@ def _lower_flat_inner(query: Query, ctx: ShardContext) -> FlatPlan | None:
         return FlatPlan(clauses, msm=msm, n_must=n_must,
                         coord_enabled=not query.disable_coord and n_scoring > 1,
                         boost=query.boost)
+    if isinstance(query, FunctionScoreQuery):
+        # the function tail runs in the dense family (ops/scoring
+        # _fs_rows_impl / _fs_script_impl) when the sub-query lowers flat and
+        # the functions classify as "rows" or "script"
+        if query.query is None:
+            return None
+        sub = _lower_flat_inner(query.query, ctx)
+        if sub is None or sub.fs is not None or sub.filt is not None:
+            return None
+        kind = _classify_fs(query)
+        if kind is None:
+            return None
+        return FlatPlan(sub.clauses, msm=sub.msm, n_must=sub.n_must,
+                        coord_enabled=sub.coord_enabled, boost=sub.boost,
+                        fs=query, fs_kind=kind, norm_boost=query.boost)
+    if isinstance(query, FilteredQuery):
+        # the boost folds into the sub clauses (host: eval(q.query, b)); the
+        # filter becomes a match-gating mask row in the dense family
+        sub = _lower_flat_inner(query.query, ctx)
+        if sub is None or sub.fs is not None or sub.filt is not None:
+            return None
+        return FlatPlan(sub.clauses, msm=sub.msm, n_must=sub.n_must,
+                        coord_enabled=sub.coord_enabled,
+                        boost=sub.boost * query.boost, filt=query.filter)
+    return None
+
+
+def _classify_fs(q: FunctionScoreQuery):
+    """Device eligibility of a function_score spec:
+      "rows"   — no function reads _score: the values fold to host-combined
+                 float32 rows (functions.combined_doc_rows);
+      "script" — exactly one function, a _score-reading script_score inside
+                 the vectorizable subset: evaluated in the dense launch;
+      None     — host scorer."""
+    from ..script import compile_script, script_uses_score, script_vectorizable
+
+    score_readers = 0
+    for sf in q.functions:
+        if sf.kind == "script_score":
+            try:
+                cs = compile_script(sf.script, sf.params)
+            except ScriptError:
+                return None
+            if script_uses_score(cs):
+                score_readers += 1
+    if score_readers == 0:
+        return "rows"
+    if score_readers == 1 and len(q.functions) == 1 and script_vectorizable(
+            compile_script(q.functions[0].script, q.functions[0].params)):
+        return "script"
     return None
 
 
@@ -336,7 +420,7 @@ def finalize_flat(plan: FlatPlan, ctx: ShardContext):
             w = np.float32(idf * idf * c.boost * plan.boost)  # queryNorm folded below
             mode = MODE_TFIDF
         if c.group != GROUP_MUST_NOT:
-            ssw += float((idf * c.boost * plan.boost) ** 2)
+            ssw += float((idf * c.boost * plan.boost * plan.norm_boost) ** 2)
         resolved.append((c.field, c.term, float(w), fi, c.group, mode, df))
     qn = 1.0
     if isinstance(ctx.default_similarity, TFIDFSimilarity) and ssw > 0:
@@ -382,50 +466,156 @@ def _assemble_batch(plans: list[FlatPlan], finals: list):
 
 
 # ---------------------------------------------------------------------------
-# batched device execution: dispatch half, merge half
+# batched device execution: host inputs, dispatch half, merge half
 # ---------------------------------------------------------------------------
+
+# the dense-family input (`prepare_dense`) of a function_score plan whose
+# spec's rows raised ScriptError while they were built: the host scorer
+# serves that query, where the per-doc evaluation decides
+HOST_RERUN = "host_rerun"
+
+
+class _PlainPart:
+    """The plain plans of a batch, at batch positions `idx`: per segment
+    (seg, base, doc_pad, sparse launches, dense overflow launches)."""
+
+    kind = "plain"
+    __slots__ = ("idx", "seg_work")
+
+    def __init__(self, idx: list, seg_work: list):
+        self.idx = idx
+        self.seg_work = seg_work
+
+    def tensors(self) -> list:
+        refs = []
+        for (_seg, _base, _doc_pad, launches, dense) in self.seg_work:
+            for (_sb, r) in launches:
+                refs.extend(r)
+            for (_sub, r) in dense or ():
+                refs.extend(r)
+        return refs
+
+    def collect(self, flat, k: int) -> list[TopDocs]:
+        """The host merge over the pulled results (`flat`, an iterator in
+        `tensors()` order): per segment the sparse buckets and dense
+        overflow into [Q, k], then the cross-segment top-k."""
+        Q = len(self.idx)
+        totals = np.zeros(Q, dtype=np.int64)
+        seg_hits = []  # (scores [Q,k] f32, global_docs [Q,k] int64) per segment
+        for (seg, base, doc_pad, launches, dense) in self.seg_work:
+            sparse_pulled = [(next(flat), next(flat), next(flat)) for _ in launches]
+            scores, docs, tq = collect_flat_sparse(launches, sparse_pulled, Q, k,
+                                                   doc_pad)
+            for (sub, _r) in dense or ():
+                res = finalize_score_result(next(flat), next(flat), next(flat),
+                                            doc_pad)
+                kk = res.scores.shape[1]
+                scores[sub, :kk] = res.scores
+                docs[sub, :kk] = res.docs
+                scores[sub, kk:] = -np.inf
+                docs[sub, kk:] = doc_pad
+                tq[sub] = res.total_hits
+            totals += tq
+            seg_hits.append(_seg_hits(scores, docs, seg, base, doc_pad))
+        return _merge_seg_hits(seg_hits, totals, Q, k)
+
+
+class _DensePart:
+    """One dense-family launch set of a batch, at batch positions `idx`:
+    its filtered plans, or the function_score plans of one spec. Per segment
+    (seg, base, doc_pad, [(query rows of the part, device result tensors)])
+    — three tensors a launch, four for the function_score script variant
+    (its `bad` flags)."""
+
+    kind = "dense"
+    __slots__ = ("idx", "seg_work")
+
+    def __init__(self, idx: list):
+        self.idx = idx
+        self.seg_work: list = []
+
+    def tensors(self) -> list:
+        return [t for (_seg, _base, _doc_pad, launches) in self.seg_work
+                for (_sub, r) in launches for t in r]
+
+    def collect(self, flat, k: int) -> list[TopDocs | None]:
+        """The host merge over the pulled results: per segment its chunks
+        into [Q, k] (the -inf slots of a top-k dropped), then the
+        cross-segment top-k; None for a query a script flagged bad, which
+        the host scorer serves (`host_reruns`)."""
+        Q = len(self.idx)
+        totals = np.zeros(Q, dtype=np.int64)
+        seg_hits = []
+        host = set()
+        for (seg, base, doc_pad, launches) in self.seg_work:
+            scores = docs = None
+            tq = np.zeros(Q, dtype=np.int64)
+            for (sub, r) in launches:
+                ts, td, tt = next(flat), next(flat), next(flat)
+                if len(r) == 4:
+                    host.update(sub[np.nonzero(next(flat))[0]].tolist())
+                if scores is None:
+                    scores = np.full((Q, ts.shape[1]), -np.inf, np.float32)
+                    docs = np.full((Q, ts.shape[1]), doc_pad, np.int32)
+                scores[sub], docs[sub], tq[sub] = ts, td, tt
+            totals += tq
+            seg_hits.append(_seg_hits(scores, docs, seg, base, doc_pad))
+        merged = _merge_seg_hits(seg_hits, totals, Q, k)
+        return [None if qi in host else td for qi, td in enumerate(merged)]
 
 
 class _PendingFlat:
-    """Device work in flight for one plain-plan batch: every segment's sparse
-    bucket launches and dense-overflow launches, and the batch's device→host
-    copies enqueued behind them (`pull`, a cudaenv.PendingPull). merge()
-    waits for those copies — the batch's one wait — and merges the top-k on
-    the host, stamping the wait's host clocks in pull_t0 / pull_t1."""
+    """Device work in flight for one batch: every launch of its plans, in
+    `parts` (a _PlainPart and a _DensePart a family), and the batch's
+    device→host copies enqueued behind them (`pull`, a cudaenv.PendingPull).
+    merge() waits for those copies — the batch's one wait — and merges the
+    top-k on the host, stamping the wait's host clocks in pull_t0 /
+    pull_t1."""
 
-    __slots__ = ("Q", "k", "seg_work", "pull", "pull_t0", "pull_t1")
+    __slots__ = ("Q", "k", "parts", "pull", "pull_t0", "pull_t1")
 
-    def __init__(self, Q: int, k: int, seg_work: list, pull):
+    def __init__(self, Q: int, k: int, parts: list):
         self.Q = Q
         self.k = k
-        # per segment: (seg, base, doc_pad, launches, dense) where dense is a
-        # list of (query indices, device result triple), one per chunk
-        self.seg_work = seg_work
-        self.pull = pull
+        self.parts = parts
+        self.pull = pull_async(self.tensors())
         self.pull_t0: float | None = None
         self.pull_t1: float | None = None
 
-    def merge(self) -> list[TopDocs]:
-        return _merge_flat_plain(self)
+    def tensors(self) -> list:
+        """Every result tensor of the batch, in the order the merge reads
+        them."""
+        return [t for part in self.parts for t in part.tensors()]
+
+    def merge(self) -> list[TopDocs | None]:
+        """ONE wait — on the event recorded after this batch's own copies —
+        drains every launch of the batch, then each part's pure-host
+        cross-segment top-k merge. A query the dense family hands back to
+        the host scorer (a script's `bad` flag, HOST_RERUN) merges to None:
+        its caller serves it (`host_reruns`), not the merging thread."""
+        self.pull_t0 = time.monotonic()
+        flat = iter(self.pull.wait())
+        self.pull_t1 = time.monotonic()
+        out: list[TopDocs | None] = [None] * self.Q
+        for part in self.parts:
+            for i, td in zip(part.idx, part.collect(flat, self.k)):
+                out[i] = td
+        return out
 
 
-def _result_tensors(seg_work: list) -> list:
-    """Every result tensor of a batch, in the order the merge reads them."""
-    refs = []
-    for (_seg, _base, _doc_pad, launches, dense) in seg_work:
-        for (_sb, r) in launches:
-            refs.extend(r)
-        for (_sub, r) in dense or ():
-            refs.extend(r)
-    return refs
+def _seg_hits(scores, docs, seg, base: int, doc_pad: int):
+    """One segment's [Q, k] top-k with its padding and past-the-end slots
+    at -inf, its docs made global (the sentinel 2**62 sorts last)."""
+    valid = (docs < min(doc_pad, seg.doc_count)) & np.isfinite(scores)
+    gdocs = np.where(valid, docs.astype(np.int64) + base, np.int64(2**62))
+    return np.where(valid, scores, -np.inf), gdocs
 
 
-def _dispatch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
-                         k: int) -> _PendingFlat:
-    """Plan + launch a batch of plain flat plans across every segment, then
-    enqueue the batch's device→host copies behind one event — all without
-    any device→host synchronisation."""
-    Q = len(plans)
+def _launch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
+                       k: int) -> list:
+    """Plan + launch a batch of plain flat plans across every segment
+    without any device→host synchronisation; returns the per-segment work
+    (seg, base, doc_pad, sparse launches, dense overflow launches)."""
     finals = [finalize_flat(p, ctx) for p in plans]
     (all_fields, field_idx, cache_rows, caches_stack,
      coord_tbl, n_must, msm) = _assemble_batch(plans, finals)
@@ -467,39 +657,7 @@ def _dispatch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
                 n_must, msm, coord_tbl, packed, seg, k,
                 breaker=ctx.breaker("fielddata"))
         seg_work.append((seg, base, packed.doc_pad, launches, dense))
-    return _PendingFlat(Q=Q, k=k, seg_work=seg_work,
-                        pull=pull_async(_result_tensors(seg_work)))
-
-
-def _merge_flat_plain(pending: _PendingFlat) -> list[TopDocs]:
-    """Merge half: ONE wait — on the event recorded after this batch's own
-    copies — drains every launch of the batch (sparse buckets + dense
-    overflow across all segments), then the pure-host cross-segment top-k
-    merge."""
-    Q, k = pending.Q, pending.k
-    pending.pull_t0 = time.monotonic()
-    flat = iter(pending.pull.wait())
-    pending.pull_t1 = time.monotonic()
-    totals = np.zeros(Q, dtype=np.int64)
-    seg_hits = []  # (scores [Q,k] f32, global_docs [Q,k] int64) per segment
-    for (seg, base, doc_pad, launches, dense) in pending.seg_work:
-        sparse_pulled = [(next(flat), next(flat), next(flat)) for _ in launches]
-        scores, docs, tq = collect_flat_sparse(launches, sparse_pulled, Q, k,
-                                               doc_pad)
-        for (sub, _r) in dense or ():
-            res = finalize_score_result(next(flat), next(flat), next(flat),
-                                        doc_pad)
-            kk = res.scores.shape[1]
-            scores[sub, :kk] = res.scores
-            docs[sub, :kk] = res.docs
-            scores[sub, kk:] = -np.inf
-            docs[sub, kk:] = doc_pad
-            tq[sub] = res.total_hits
-        totals += tq
-        valid = (docs < min(doc_pad, seg.doc_count)) & np.isfinite(scores)
-        gdocs = np.where(valid, docs.astype(np.int64) + base, np.int64(2**62))
-        seg_hits.append((np.where(valid, scores, -np.inf), gdocs))
-    return _merge_seg_hits(seg_hits, totals, Q, k)
+    return seg_work
 
 
 def _merge_seg_hits(seg_hits, totals, Q: int, k: int) -> list[TopDocs]:
@@ -521,19 +679,39 @@ def _merge_seg_hits(seg_hits, totals, Q: int, k: int) -> list[TopDocs]:
     return out
 
 
-def _dense_entries(finals, seg, packed, field_idx) -> list:
-    """(qidx, block_row, weight, fidx, group, mode) triples for the dense
-    program, qidx = position in `finals`."""
-    entries = []
+def _dense_entries(finals, seg, packed, field_idx) -> tuple:
+    """The (qidx, block_row, weight, fidx, group, mode) columns of the dense
+    program's triples, qidx = position in `finals`: per query, per clause,
+    per block of the clause's term, in that order (the host scorer's clause
+    order, which the CPU's scatter-add keeps)."""
+    rows = []  # (qi, b0, nblocks, w, fidx, group, mode) per clause with blocks
     for qi, (resolved, _f, _c, _coord) in enumerate(finals):
         for (f, t, w, _fi, g, mode, df) in resolved:
             tid = seg.term_id(f, t)
             if tid is None:
                 continue
             b0, b1 = packed.blocks_for_term(tid)
-            for b in range(b0, b1):
-                entries.append((qi, b, w, field_idx[f], g, mode))
-    return entries
+            if b1 > b0:
+                rows.append((qi, b0, b1 - b0, w, field_idx[f], g, mode))
+    if not rows:
+        return tuple(np.zeros(0, dt) for dt in
+                     (np.int32, np.int32, np.float64, np.int32, np.int32, np.int32))
+    qi, b0, nb, w, fi, g, mode = (np.asarray(c) for c in zip(*rows))
+    nb = nb.astype(np.int64)
+    return (np.repeat(qi, nb), expand_ranges(b0, nb),
+            np.repeat(w.astype(np.float64), nb), np.repeat(fi, nb),
+            np.repeat(g, nb), np.repeat(mode, nb))
+
+
+def _ensure_norm_rows(packed, all_fields, breaker=None):
+    """Dense-launch prologue (every dense family goes through here): fault
+    in the lazy f32 freqs plane, its bytes on the fielddata `breaker`, and
+    give a queried field this segment never indexed an all-zero norm row."""
+    ensure_blk_freqs(packed, breaker)
+    for f in all_fields:
+        if f not in packed.norm_bytes:
+            packed.norm_bytes[f] = packed.live_parent.new_zeros(
+                packed.doc_pad, dtype=packed.blk_nb.dtype)
 
 
 def _launch_dense_fallback(overflow, finals, field_idx, all_fields,
@@ -542,45 +720,270 @@ def _launch_dense_fallback(overflow, finals, field_idx, all_fields,
     """Launch the overflow queries (block count past tb_max) on the dense
     program without synchronising, in chunks that keep its [Q, doc_pad+1]
     temporaries within budget. Returns [(query indices, device result
-    triple)] for the merge half. The lazy f32 plane's first upload is
-    reserved on `breaker` (fielddata)."""
-    ensure_blk_freqs(packed, breaker)
-    for f in all_fields:
-        if f not in packed.norm_bytes:
-            # a queried field this segment never indexed: all-zero norm row
-            packed.norm_bytes[f] = packed.live_parent.new_zeros(
-                packed.doc_pad, dtype=packed.blk_nb.dtype)
+    triple)] for the merge half."""
+    _ensure_norm_rows(packed, all_fields, breaker)
     out = []
     step = dense_chunk(packed.doc_pad)
     for start in range(0, len(overflow), step):
         chunk = overflow[start: start + step]
-        entries = _dense_entries([finals[qi] for qi in chunk], seg, packed,
-                                 field_idx)
-        if not entries:
+        cols = _dense_entries([finals[qi] for qi in chunk], seg, packed,
+                              field_idx)
+        if not len(cols[0]):
             continue
         sub = np.asarray(chunk, dtype=np.int64)
-        batch = build_term_batch(entries, len(chunk), n_must[sub], msm[sub],
+        batch = build_term_batch(cols, len(chunk), n_must[sub], msm[sub],
                                  coord_tbl[sub], list(all_fields), caches_stack,
                                  nb_pad_row=packed.blk_docs.shape[0] - 1)
         out.append((sub, score_term_batch_async(packed, batch, k)))
     return out
 
 
-def dispatch_flat_batch(plans: list[FlatPlan], ctx: ShardContext,
-                        k: int) -> _PendingFlat:
+# ---------------------------------------------------------------------------
+# the dense request-feature family: filtered and function_score plans
+# ---------------------------------------------------------------------------
+
+_FS_CHUNK = 256  # the widest dense-family launch: the JAX package's bound
+
+
+def _dense_step(doc_pad: int) -> int:
+    """Queries per dense-family launch: within DENSE_BUDGET_BYTES and never
+    wider than _FS_CHUNK."""
+    return min(dense_chunk(doc_pad), _FS_CHUNK)
+
+
+def _dense_segments(plans: list[FlatPlan], ctx: ShardContext):
+    """The per-batch planning of a dense part: finalized plans, the stacked
+    tables, and per segment (seg, base, packed) with the dense prologue
+    run, and a function that builds one chunk's TermBatch."""
+    finals = [finalize_flat(p, ctx) for p in plans]
+    (all_fields, field_idx, _cache_rows, caches_stack,
+     coord_tbl, n_must, msm) = _assemble_batch(plans, finals)
+
+    def chunk_batch(sub, seg, packed):
+        cols = _dense_entries([finals[i] for i in sub], seg, packed, field_idx)
+        return build_term_batch(cols, len(sub), n_must[sub], msm[sub],
+                                coord_tbl[sub], list(all_fields), caches_stack,
+                                nb_pad_row=packed.blk_docs.shape[0] - 1)
+
+    segs = []
+    for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
+        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"))
+        _ensure_norm_rows(packed, all_fields, ctx.breaker("fielddata"))
+        segs.append((seg, base, packed))
+    return segs, chunk_batch
+
+
+def _chunks(Q: int, doc_pad: int):
+    step = _dense_step(doc_pad)
+    return [np.arange(lo, min(Q, lo + step), dtype=np.int64)
+            for lo in range(0, Q, step)]
+
+
+def _filter_mask_row(f: Filter, seg, packed, ctx: ShardContext):
+    """A filter's bool [Dpad] mask row on one segment, on the pack's device:
+    the resident row from the node's DeviceFilterCache when (segment,
+    filter key) is held there (no host evaluation, no copy), else the host
+    mask (`segment_mask`, the per-segment host filter cache), padded, which
+    the cache may promote to residency (`maybe_store`: built outside locks,
+    uploaded once, published under its leaf lock) or which goes up as a
+    pinned, non-blocking copy. The mask VALUES are the same either way, so
+    cached plans score bitwise as uncached ones."""
+    fc = ctx.filter_cache
+    key = None
+    if fc is not None and fc.enabled and f.cacheable():
+        key = f.key()
+        row = fc.lookup(seg, key, packed.device)
+        if row is not None:
+            return row
+    m = np.zeros(packed.doc_pad, dtype=bool)
+    m[: seg.doc_count] = segment_mask(seg, f, ctx)
+    row = None if key is None else fc.maybe_store(seg, key, m, packed.device)
+    return row if row is not None else upload_pinned(m, packed.device)
+
+
+def _fs_seg_rows(fsq, kind: str, seg, packed, ctx: ShardContext) -> tuple:
+    """A function_score spec's rows on one segment, on the pack's device.
+    "rows": the doc-only function values combined on the host
+    (functions.combined_doc_rows — float32, bitwise the host tail's) and
+    where a function applies, (None, None) for a spec without functions.
+    "script": its columns' f32 rows (NaN: missing), the function's filter
+    row (None: none), the parent docs a missing column makes bad, the
+    parent docs. Raises ScriptError when a per-doc evaluation does."""
+    from ..script import compile_script, script_vector_info
+    from .functions import _column_first_value, combined_doc_rows
+
+    D, doc_pad, dev = seg.doc_count, packed.doc_pad, packed.device
+
+    def row(values, fill, dtype):
+        out = np.full(doc_pad, fill, dtype)
+        out[:D] = values
+        return upload_pinned(out, dev)
+
+    if kind == "rows":
+        if not fsq.functions:
+            return None, None
+        g, applies = combined_doc_rows(fsq, np.zeros(D, np.float32), seg, ctx)
+        return row(g, 1.0, np.float32), row(applies, False, bool)
+    sf = fsq.functions[0]
+    colmiss = np.zeros(D, bool)
+    col_rows = []
+    for f in script_vector_info(compile_script(sf.script, sf.params))[1]:
+        col = _column_first_value(seg, f)
+        colmiss |= np.isnan(col)
+        col_rows.append(row(col.astype(np.float32), np.nan, np.float32))
+    fmask_row = None if sf.filter is None else \
+        row(segment_mask(seg, sf.filter, ctx), False, bool)
+    return (tuple(col_rows), fmask_row, row(seg.parent_mask & colmiss, False, bool),
+            row(seg.parent_mask, False, bool))
+
+
+def prepare_dense(plans: list[FlatPlan], ctx: ShardContext) -> list:
+    """The host half of a batch's dense-family inputs, built and uploaded
+    on the calling thread — a node's search thread, before its plan joins
+    the batcher — so that the dispatch half only launches. Per plan: None
+    for a plain plan; a filtered plan's mask row on each segment
+    (`_filter_mask_row`); a function_score plan's spec rows on each segment
+    (`_fs_seg_rows`, built once for the plans of one spec); HOST_RERUN when
+    building them raised ScriptError, as the JAX package then reruns the
+    group on the host scorer."""
+    packs = None
+    by_spec: dict = {}
+    preps = []
+    for plan in plans:
+        if plan.fs is None and plan.filt is None:
+            preps.append(None)
+            continue
+        if packs is None:
+            packs = [(seg, packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata")))
+                     for seg in ctx.searcher.segments]
+        if plan.filt is not None:
+            preps.append([_filter_mask_row(plan.filt, seg, packed, ctx)
+                          for seg, packed in packs])
+            continue
+        key = _fs_group_key(plan.fs)
+        if key not in by_spec:
+            try:
+                by_spec[key] = [_fs_seg_rows(plan.fs, plan.fs_kind, seg, packed, ctx)
+                                for seg, packed in packs]
+            except ScriptError:
+                by_spec[key] = HOST_RERUN
+        preps.append(by_spec[key])
+    return preps
+
+
+def _launch_filtered(idx: list, plans: list[FlatPlan], masks: list,
+                     ctx: ShardContext, k: int) -> _DensePart:
+    """Launch filtered plans (a FilteredQuery's filter or a post filter as
+    each plan's `filt`) on the dense filtered core, chunked per segment,
+    without synchronising; `masks` holds each plan's mask rows by segment
+    (`prepare_dense`), stacked here on the device."""
+    part = _DensePart(idx)
+    segs, chunk_batch = _dense_segments(plans, ctx)
+    for j, (seg, base, packed) in enumerate(segs):
+        launches = []
+        for sub in _chunks(len(plans), packed.doc_pad):
+            fmask = torch.stack([masks[i][j] for i in sub])
+            launches.append((sub, score_filtered_batch_async(
+                packed, chunk_batch(sub, seg, packed), k, fmask)))
+        part.seg_work.append((seg, base, packed.doc_pad, launches))
+    return part
+
+
+def _fs_group_key(fsq) -> tuple:
+    """function_score plans whose specs are value-identical up to the outer
+    boost and min_score share launches (those two are per-query rows of the
+    launch). Dataclass reprs are content reprs."""
+    return (repr(fsq.functions), fsq.score_mode, fsq.boost_mode, fsq.max_boost)
+
+
+def _launch_fs(idx: list, plans: list[FlatPlan], seg_rows: list,
+               ctx: ShardContext, k: int) -> _DensePart:
+    """Launch a group of function_score plans sharing one spec (see
+    _fs_group_key) on the dense family, chunked per segment, without
+    synchronising; `seg_rows` holds the spec's rows by segment
+    (`prepare_dense`). "rows": the host-combined function values go in as a
+    row. "script": the one `_score`-reading script runs inside the launch
+    over its columns' rows; the queries it flags bad (a missing column or a
+    non-finite value on a parent doc) merge to None, and their callers rerun
+    them on the host scorer, which decides the errors."""
+    from ..script import compile_script, script_vector_info
+
+    fsq = plans[0].fs
+    kind = plans[0].fs_kind  # classified once at lower time
+    part = _DensePart(idx)
+    fboost = [p.fs.boost for p in plans]
+    min_score = [p.fs.min_score for p in plans]
+    if kind == "script":
+        sf = fsq.functions[0]
+        script = compile_script(sf.script, sf.params)
+        used_fields = script_vector_info(script)[1]
+    segs, chunk_batch = _dense_segments(plans, ctx)
+    for (seg, base, packed), rows in zip(segs, seg_rows):
+        launches = []
+        for sub in _chunks(len(plans), packed.doc_pad):
+            batch = chunk_batch(sub, seg, packed)
+            fb = [fboost[i] for i in sub]
+            ms = [min_score[i] for i in sub]
+            if kind == "rows":
+                r = score_fs_rows_batch_async(
+                    packed, batch, k, rows[0], rows[1], fsq.max_boost, fb, ms,
+                    fsq.boost_mode)
+            else:
+                r = score_fs_script_batch_async(
+                    packed, batch, k, script, used_fields, *rows, sf.weight,
+                    fsq.max_boost, fb, ms, fsq.boost_mode)
+            launches.append((sub, r))
+        part.seg_work.append((seg, base, packed.doc_pad, launches))
+    return part
+
+
+def dispatch_flat_batch(plans: list[FlatPlan], ctx: ShardContext, k: int,
+                        preps: list | None = None) -> _PendingFlat:
     """Dispatch half of execute_flat_batch for the cross-request batcher:
-    launches without synchronising and returns the pending handle whose
-    merge() yields the per-plan TopDocs. Every plan the port lowers is a
-    plain plan (the function_score and filtered families are later
-    slices)."""
-    return _dispatch_flat_plain(plans, ctx, k)
+    launches every family of the batch without synchronising — plain plans
+    on the sparse path, filtered plans on the dense filtered core,
+    function_score plans grouped by spec on the dense fs family — then
+    enqueues the whole batch's device→host copies behind one event, and
+    returns the pending handle whose merge() yields the per-plan TopDocs
+    (None for a query its caller serves on the host scorer). `preps` are
+    the plans' `prepare_dense` inputs, built here when not given; a plan
+    whose input is HOST_RERUN launches nothing."""
+    if preps is None:
+        preps = prepare_dense(plans, ctx)
+    parts = []
+    plain = [i for i, p in enumerate(plans) if p.fs is None and p.filt is None]
+    if plain:
+        parts.append(_PlainPart(plain, _launch_flat_plain(
+            [plans[i] for i in plain], ctx, k)))
+    filt = [i for i, p in enumerate(plans) if p.filt is not None]
+    if filt:
+        parts.append(_launch_filtered(filt, [plans[i] for i in filt],
+                                      [preps[i] for i in filt], ctx, k))
+    groups: dict = {}
+    for i, p in enumerate(plans):
+        if p.fs is not None and preps[i] is not HOST_RERUN:
+            groups.setdefault(_fs_group_key(p.fs), []).append(i)
+    for idx in groups.values():
+        parts.append(_launch_fs(idx, [plans[i] for i in idx], preps[idx[0]], ctx, k))
+    return _PendingFlat(Q=len(plans), k=k, parts=parts)
+
+
+def host_reruns(plans: list[FlatPlan], tds: list, ctx: ShardContext,
+                k: int) -> list[TopDocs]:
+    """A merged batch's answers, with each query the dense family handed
+    back (None) served by the host scorer on the calling thread — where the
+    per-doc evaluation decides, and may raise ScriptError, as the JAX
+    package's rerun does."""
+    return [td if td is not None else _host_search(ctx, plan.fs, k)
+            for plan, td in zip(plans, tds)]
 
 
 def execute_flat_batch(plans: list[FlatPlan], ctx: ShardContext,
                        k: int) -> list[TopDocs]:
-    """Run a batch of flat plans: dispatch every segment's launches, then
-    merge the per-segment top-k on the host."""
-    return dispatch_flat_batch(plans, ctx, k).merge()
+    """Run a batch of flat plans: dispatch every family's launches, merge
+    the per-segment top-k on the host, then serve the queries handed back
+    to the host scorer."""
+    return host_reruns(plans, dispatch_flat_batch(plans, ctx, k).merge(), ctx, k)
 
 
 # ---------------------------------------------------------------------------
@@ -624,6 +1027,8 @@ def _weight_prepass(query: Query, ctx: ShardContext) -> float:
         if isinstance(q, DisMaxQuery):
             return sum(walk(s, b) for s in q.queries)
         if isinstance(q, FilteredQuery):
+            return walk(q.query, b)
+        if isinstance(q, FunctionScoreQuery) and q.query is not None:
             return walk(q.query, b)
         return float(b * b)
 
@@ -807,6 +1212,9 @@ class HostScorer:
 
         if isinstance(q, FuzzyLikeThisQuery):
             return self.eval(self._rewrite_flt(q), b)
+
+        if isinstance(q, FunctionScoreQuery):
+            return self._eval_function_score(q, b)
 
         raise QueryParsingError(f"unsupported query type {type(q).__name__}")
 
@@ -1121,6 +1529,22 @@ class HostScorer:
                 shoulds.append(FuzzyQuery(field, t, fz, q.prefix_length))
         return BoolQuery(should=shoulds, minimum_should_match=1, boost=q.boost)
 
+    # -- function score ------------------------------------------------------
+    def _eval_function_score(self, q: FunctionScoreQuery, boost: float):
+        from .functions import apply_functions
+
+        if q.query is not None:
+            sub_scores, match = self.eval(q.query, 1.0)
+        elif q.filter is not None:
+            sub_scores, match = self._const(self._mask(q.filter), 1.0)
+        else:
+            sub_scores, match = self._const(np.ones(self.D, bool), 1.0)
+        scores = apply_functions(q, sub_scores, match, self.seg, self.ctx)
+        scores = (scores * np.float32(boost)).astype(np.float32)
+        if q.min_score is not None:
+            match = match & (scores >= np.float32(q.min_score))
+        return scores, match
+
 
 def _term_predicate(q):
     """The term test of a prefix, wildcard or regexp query."""
@@ -1433,7 +1857,8 @@ def dispatch_shard_batch(ctx: ShardContext, queries: list[Query],
     """The dispatch half of `search_shard_batch` for a batch of lowerable
     queries: plans and launches it with no device→host synchronisation;
     `.merge()` on the result performs the batch's one pull and returns the
-    per-query TopDocs. A query that does not lower raises: the host scorer
+    per-query TopDocs (None for a query handed back to the host scorer:
+    `host_reruns`). A query that does not lower raises: the host scorer
     has no dispatch half."""
     plans = []
     for q in queries:
@@ -1443,7 +1868,7 @@ def dispatch_shard_batch(ctx: ShardContext, queries: list[Query],
                 f"[{type(q).__name__}] does not lower to a flat device plan; "
                 "search_shard_batch serves it on the host scorer")
         plans.append(plan)
-    return _dispatch_flat_plain(plans, ctx, k)
+    return dispatch_flat_batch(plans, ctx, k)
 
 
 def search_shard(ctx: ShardContext, query: Query, k: int, use_device: bool = True,

@@ -12,9 +12,10 @@ its mask can depend on shard-wide term statistics (`common`, `mlt`).
 
 Served here: term, terms (values, not a lookup), range, prefix, exists,
 missing, ids, type, match_all, bool / and / or, not, query (a scoring query
-as a filter) and regexp. The geo filters, nested and has_child / has_parent,
-script, indices and terms lookups are later slices of the port: their
-parsers (`search/queries.py`) raise QueryParsingError saying so.
+as a filter), regexp and script (a sandboxed expression per doc, through
+`DocAccess`). The geo filters, nested and has_child / has_parent, indices
+and terms lookups are later slices of the port: their parsers
+(`search/queries.py`) raise QueryParsingError saying so.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Any
 
 import numpy as np
 
+from ..common.errors import NotPortedError
 from ..index.segment import FILTER_CACHE_KEY, FrozenSegment
 from ..mapper.core import parse_date_math
 
@@ -360,6 +362,61 @@ class RegexpFilter(Filter):
             if rex.fullmatch(term):
                 mask |= _postings_mask(seg, self.field, term)
         return mask
+
+
+@dataclass
+class ScriptFilter(Filter):
+    script: str
+    params: dict = dc_field(default_factory=dict)
+
+    def key(self):
+        return f"script:{self.script}:{sorted(self.params.items())!r}"
+
+    def evaluate(self, seg, ctx):
+        from ..script import compile_script
+
+        fn = compile_script(self.script, self.params)
+        mask = np.zeros(seg.doc_count, dtype=bool)
+        for local in range(seg.doc_count):
+            if seg.parent_mask[local]:
+                mask[local] = bool(fn(DocAccess(seg, local)))
+        return mask
+
+
+class DocAccess:
+    """Per-doc field access for scripts: doc['field'].value style. Numeric
+    doc values only: a segment keeps a string field's value count, not its
+    values (`FrozenSegment.str_counts`), so reading a string value raises
+    NotPortedError until the string doc values are ported."""
+
+    def __init__(self, seg: FrozenSegment, local: int):
+        self.seg = seg
+        self.local = local
+
+    def __getitem__(self, field: str):
+        nums = self.seg.num_values(field, self.local)
+        if len(nums):
+            return FieldVal(list(nums))
+        counts = self.seg.str_counts.get(field)
+        if counts is not None and counts[self.local] > 0:
+            raise NotPortedError(
+                f"a script reading the string values of [{field}] is not "
+                "ported yet: string doc values come with the aggregations "
+                "and sorts, a later slice of the port")
+        return FieldVal([])
+
+
+class FieldVal:
+    def __init__(self, values: list):
+        self.values = values
+
+    @property
+    def value(self):
+        return self.values[0] if self.values else None
+
+    @property
+    def empty(self):
+        return not self.values
 
 
 def _index_term(ctx, field: str, value) -> str:

@@ -12,12 +12,14 @@ fuzzy, ids, query_string, field, simple_query_string, common, boosting, the
 span family (span_term, span_near, span_or, span_first, span_not,
 span_multi, field_masking_span), type, more_like_this / mlt (and their
 `_field` forms), fuzzy_like_this / flt (and `_field`) and wrapper; the
-filters of `search/filters.py`. The query types and filters of later slices
-raise QueryParsingError naming the slice: function_score and the script
-filter with the dense feature family; nested, has_child, has_parent,
-top_children, geo_shape and the geo filters with the mapper's nested, join
-and geo fields; indices, template and terms lookups with the runtime that
-resolves them. A type the JAX package does not know is "unknown", as there.
+filters of `search/filters.py` (the script filter among them), and
+function_score (`ScoreFunction`: script_score, boost_factor, weight,
+random_score, field_value_factor and the numeric and date decays). The query
+types and filters of later slices raise QueryParsingError naming the slice:
+nested, has_child, has_parent, top_children, geo_shape, the geo filters and
+a geo decay with the mapper's nested, join and geo fields; indices, template
+and terms lookups with the runtime that resolves them. A type the JAX
+package does not know is "unknown", as there.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .filters import (
     QueryWrapperFilter,
     RangeFilter,
     RegexpFilter,
+    ScriptFilter,
     TermFilter,
     TermsFilter,
     TypeFilter,
@@ -305,6 +308,38 @@ class FuzzyLikeThisQuery(Query):
     boost: float = 1.0
 
 
+@dataclass
+class ScoreFunction:
+    kind: str  # script_score | boost_factor | random_score | gauss | exp | linear | field_value_factor
+    filter: Filter | None = None
+    # decay params
+    field: str | None = None
+    origin: Any = None
+    scale: Any = None
+    offset: Any = 0
+    decay: float = 0.5
+    # others
+    script: str | None = None
+    params: dict = dc_field(default_factory=dict)
+    factor: float = 1.0
+    modifier: str = "none"
+    missing: float | None = None
+    seed: int | None = None
+    weight: float | None = None
+
+
+@dataclass
+class FunctionScoreQuery(Query):
+    query: Query | None = None
+    filter: Filter | None = None
+    functions: list = dc_field(default_factory=list)  # list[ScoreFunction]
+    score_mode: str = "multiply"  # multiply sum avg first max min
+    boost_mode: str = "multiply"  # multiply replace sum avg max min
+    max_boost: float = float("inf")
+    min_score: float | None = None
+    boost: float = 1.0
+
+
 # ---------------------------------------------------------------------------
 # parsing
 # ---------------------------------------------------------------------------
@@ -556,9 +591,66 @@ def _unwrap_wrapper(spec) -> Any:
         raise QueryParsingError(f"wrapper: malformed embedded query: {e}")
 
 
+def _parse_function_score(spec) -> Query:
+    functions = []
+    for fspec in spec.get("functions", [spec] if any(
+        k in spec for k in ("script_score", "boost_factor", "random_score", "gauss",
+                            "exp", "linear", "field_value_factor")
+    ) else []):
+        functions.append(_parse_score_function(fspec))
+    return FunctionScoreQuery(
+        query=parse_query(spec["query"]) if "query" in spec else None,
+        filter=parse_filter(spec["filter"]) if "filter" in spec else None,
+        functions=functions,
+        score_mode=spec.get("score_mode", "multiply"),
+        boost_mode=spec.get("boost_mode", "multiply"),
+        max_boost=float(spec.get("max_boost", float("inf"))),
+        min_score=spec.get("min_score"),
+        boost=float(spec.get("boost", 1.0)),
+    )
+
+
+def _parse_score_function(fspec: dict) -> ScoreFunction:
+    filt = parse_filter(fspec["filter"]) if "filter" in fspec else None
+    weight = fspec.get("weight")
+    if "script_score" in fspec:
+        ss = fspec["script_score"]
+        return ScoreFunction("script_score", filt, script=ss.get("script"),
+                             params=ss.get("params", {}), weight=weight)
+    if "boost_factor" in fspec:
+        return ScoreFunction("boost_factor", filt, factor=float(fspec["boost_factor"]),
+                             weight=weight)
+    if "random_score" in fspec:
+        return ScoreFunction("random_score", filt,
+                             seed=fspec["random_score"].get("seed"), weight=weight)
+    if "field_value_factor" in fspec:
+        fv = fspec["field_value_factor"]
+        return ScoreFunction("field_value_factor", filt, field=fv.get("field"),
+                             factor=float(fv.get("factor", 1.0)),
+                             modifier=fv.get("modifier", "none"),
+                             missing=fv.get("missing"), weight=weight)
+    for decay in ("gauss", "exp", "linear"):
+        if decay in fspec:
+            dspec = fspec[decay]
+            (fname, params), = dspec.items()
+            origin = params.get("origin")
+            if isinstance(origin, (dict, list)) or (
+                    isinstance(origin, str) and "," in origin):
+                # a lat/lon origin: the decay is over a geo_point field
+                raise _later_slice(f"a geo {decay} decay on [{fname}]",
+                                   _LATER_QUERIES["geo_shape"])
+            return ScoreFunction(
+                decay, filt, field=fname, origin=origin,
+                scale=params.get("scale"), offset=params.get("offset", 0),
+                decay=float(params.get("decay", 0.5)), weight=weight,
+            )
+    if weight is not None:
+        return ScoreFunction("boost_factor", filt, factor=float(weight))
+    raise QueryParsingError(f"unknown score function {list(fspec)}")
+
+
 # where each refused query type and filter is ported
 _LATER_QUERIES = {
-    "function_score": "the dense feature family",
     "nested": "the mapper's nested documents",
     "has_child": "the mapper's parent/child joins",
     "has_parent": "the mapper's parent/child joins",
@@ -568,7 +660,6 @@ _LATER_QUERIES = {
     "template": "the multi-index search runtime",
 }
 _LATER_FILTERS = {
-    "script": "the dense feature family (scripts)",
     "nested": "the mapper's nested documents",
     "has_child": "the mapper's parent/child joins",
     "has_parent": "the mapper's parent/child joins",
@@ -662,6 +753,7 @@ _QUERY_PARSERS = {
     "more_like_this_field": _parse_mlt_field,
     "mlt_field": _parse_mlt_field,
     "wrapper": lambda s: parse_query(_unwrap_wrapper(s)),
+    "function_score": _parse_function_score,
 }
 
 
@@ -728,6 +820,7 @@ _FILTER_PARSERS = {
         *_field_spec({k: v for k, v in s.items() if not k.startswith("_")}, "value")),
     "query": lambda s: QueryWrapperFilter(parse_query(s)),
     "fquery": lambda s: QueryWrapperFilter(parse_query(s.get("query"))),
+    "script": lambda s: ScriptFilter(s.get("script", ""), s.get("params", {})),
     "limit": lambda s: MatchAllFilter(),  # limit filter is best-effort in the reference too
     "wrapper": lambda s: parse_filter(_unwrap_wrapper(s)),
 }

@@ -10,14 +10,25 @@ is a request feature (aggregations, sorting, rescoring, suggesters,
 highlighting, explain, profiles, …) whose path is a later slice of the port:
 it raises QueryParsingError rather than being silently ignored.
 
-`execute_query_phase` takes the JAX package's branches: a body with neither
-`post_filter` nor `min_score` lowers to a flat plan and runs on the card
-through the batcher, or, when it does not lower, on the host scorer
-(`_host_topk`); a body with either runs the general host path, the same top-k
-with the `min_score` gate and the post filter, under a request-breaker
-reservation. Where the JAX package serves `post_filter` and `min_score` on its
-device families, the port serves them on the host: those families are a later
-slice.
+`execute_query_phase` takes the JAX package's branches (its
+`search/service.py` :315-471, without the aggregation, sort and rescore
+halves, whose keys this slice refuses):
+
+- a body with neither `post_filter` nor `min_score` lowers to a flat plan
+  (a plain, `filtered` or `function_score` one) and runs on the card through
+  the batcher, or, when it does not lower, on the host scorer (`_host_topk`);
+- a `min_score` body without a post filter wraps its query in a
+  `FunctionScoreQuery(min_score=)`: when that lowers, the dense function
+  family's gate serves it on the card (counted `device_filtered`, as the
+  JAX package counts it);
+- a `post_filter` body without `min_score` whose query lowers to a plan
+  without functions runs on the dense filtered family, the post filter (and
+  the query's own filter) gating the hits (`device_filtered`);
+- every other body runs the general host path, the same top-k with the
+  `min_score` gate and the post filter, under a request-breaker reservation.
+
+Every device branch goes through the shard's batcher when one is wired, so
+a node's filtered, function_score and plain plans share its batches.
 
 There are no device fault domains in the port yet, so a device error on a
 lowerable body is not re-served by the host scorer: it is counted in
@@ -28,6 +39,7 @@ it on its own on the device).
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from dataclasses import dataclass
 
@@ -42,8 +54,14 @@ from .execute import (
     lower_flat,
 )
 from .fetch import build_hit
-from .filters import Filter
-from .queries import MatchAllQuery, Query, parse_filter, parse_query
+from .filters import BoolFilter, Filter
+from .queries import (
+    FunctionScoreQuery,
+    MatchAllQuery,
+    Query,
+    parse_filter,
+    parse_query,
+)
 
 # the body keys this slice serves; the rest belong to later slices
 _SERVED_KEYS = ("query", "from", "size", "timeout", "_source", "post_filter",
@@ -110,6 +128,8 @@ class ShardQueryResult:
 # that runs both packages counts each package's serving apart)
 SERVING_COUNTERS = {
     "device_sparse": 0,  # flat top-k served on the card's sparse path
+    "device_function_score": 0,  # a function_score plan on the dense family
+    "device_filtered": 0,  # filtered, post_filter or min_score on the dense family
     "device_errors": 0,  # the device path raised; the error reached the caller
     "host": 0,  # served by the host scorer
 }
@@ -149,20 +169,18 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
         # budget gone before any segment was scored: legal partial = nothing
         return ShardQueryResult(total=0, docs=[], max_score=float("nan"),
                                 shard_id=shard_id, timed_out=True)
+    routed = device_plan(ctx, req) if use_device else None
+    if routed is not None:
+        plan, counter = routed
+        td = _device_topk(ctx, plan, k, deadline)
+        _count(counter)
+        # the kernel runs at k >= 1; the min_score and post_filter branches
+        # trim to the page, as the JAX package's do
+        hits = td.hits if req.post_filter is None and req.min_score is None \
+            else td.hits[: max(k, 0)]
+        return ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in hits],
+                                max_score=td.max_score, shard_id=shard_id)
     if req.post_filter is None and req.min_score is None:
-        plan = lower_flat(req.query, ctx) if use_device else None
-        if plan is not None:
-            try:
-                td = _execute_flat_single(ctx, plan, max(k, 1), deadline)
-            except SearchEngineError:
-                raise  # breaker trips and parsing errors are the answer itself
-            except Exception:
-                _count("device_errors")
-                raise
-            _count("device_sparse")
-            return ShardQueryResult(total=td.total,
-                                    docs=[(s, d, None) for s, d in td.hits],
-                                    max_score=td.max_score, shard_id=shard_id)
         _count("host")
         td = _host_topk(ctx, req, k, deadline)
     else:
@@ -176,6 +194,46 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
                             docs=[(s, d, None) for s, d in td.hits],
                             max_score=td.max_score, shard_id=shard_id,
                             timed_out=td.timed_out)
+
+
+def device_plan(ctx: ShardContext, req: ParsedSearchRequest):
+    """The flat plan a request runs on the card, and the serving counter it
+    moves, or None when the host scorer serves it (the branches of the
+    module docstring)."""
+    if req.post_filter is None and req.min_score is None:
+        plan = lower_flat(req.query, ctx)
+        if plan is None:
+            return None
+        return plan, ("device_function_score" if plan.fs is not None
+                      else "device_filtered" if plan.filt is not None
+                      else "device_sparse")
+    if req.post_filter is None:
+        # the function_score rows family with no function IS a score gate:
+        # an empty spec around the query
+        plan = lower_flat(FunctionScoreQuery(query=req.query,
+                                             min_score=req.min_score), ctx)
+        return None if plan is None else (plan, "device_filtered")
+    if req.min_score is None:
+        plan = lower_flat(req.query, ctx)
+        if plan is None or plan.fs is not None:
+            return None
+        hit_filter = req.post_filter if plan.filt is None else \
+            BoolFilter(must=[plan.filt, req.post_filter])
+        return dataclasses.replace(plan, filt=hit_filter), "device_filtered"
+    return None
+
+
+def _device_topk(ctx: ShardContext, plan, k: int, deadline: Deadline) -> TopDocs:
+    """One plan on the card: a device error is counted and raised (there are
+    no device fault domains in the port yet); breaker trips and parsing or
+    script errors are the answer itself."""
+    try:
+        return _execute_flat_single(ctx, plan, max(k, 1), deadline)
+    except SearchEngineError:
+        raise
+    except Exception:
+        _count("device_errors")
+        raise
 
 
 def _host_topk(ctx: ShardContext, req: ParsedSearchRequest, k: int,

@@ -375,7 +375,7 @@ def test_device_error_reaches_the_caller_without_a_host_answer(
         calls.append(len(plans))
         raise RuntimeError("CUDA error: an illegal memory access was encountered")
 
-    monkeypatch.setattr(texecute, "_dispatch_flat_plain", broken)
+    monkeypatch.setattr(texecute, "_launch_flat_plain", broken)
     shard_ctx.batcher = make_batcher(**{"search.batch.linger_ms": 200,
                                         "search.batch.max_batch": 2})
     before = SERVING_COUNTERS["device_errors"]

@@ -19,14 +19,16 @@ every query here rides the sparse path, where both packages are
 deterministic.
 
 The query DSL over REST: the bodies of
-tests/test_search_single_shard.py (TestQueryTypes, TestEdgeCases; nested and
-function_score left to later slices) on their documents, and of
+tests/test_search_single_shard.py (TestQueryTypes, TestEdgeCases; nested
+left to a later slice) on their documents, and of
 tests/test_dsl_long_tail.py (simple_query_string, fuzzy_like_this,
 mlt_field, wrapper) on theirs, go to both nodes. Their hits must be equal,
 bitwise where both packages serve the body on the host scorer, and
-tie-tolerant within 2 ulp where the JAX node serves it on a device family
-the port serves on the host (`filtered` whose query lowers, `post_filter`,
-`min_score`).
+tie-tolerant within 2 ulp where both serve it on the dense device family
+(`filtered` whose query lowers, `post_filter`, `min_score`,
+`function_score`; a `_score`-reading script at 5 decimals), where the port
+node's serving counters show the family (`device_filtered`,
+`device_function_score`) once a shard.
 
 Also pinned: the port's 400 for a body key it does not serve, a clause on a
 numeric field answering the JAX node's hits, 404 for a missing index on
@@ -445,8 +447,8 @@ HOST_BODIES = [
         "wrapper": {"query": '{"term": {"tag": "b"}}'}}}}}),
 ]
 
-# bodies the JAX node serves on a device family and the port on the host:
-# hits tie-tolerant within 2 ulp
+# bodies both nodes serve on the dense device family: hits tie-tolerant
+# within 2 ulp; the serving counter each body moves on the port node
 DEVICE_FAMILY_BODIES = [
     ("qt", {"query": {"filtered": {"query": {"match": {"body": "fox"}},
                                    "filter": {"range": {"num": {"lte": 2}}}}}}),
@@ -457,7 +459,25 @@ DEVICE_FAMILY_BODIES = [
     ("qtbm", {"query": {"match": {"body": "lazy dog"}}, "filter": {"term": {"body": "the"}}}),
     ("qt", {"query": {"match": {"body": "brown fox"}}, "min_score": 0.3}),
     ("qtbm", {"query": {"match": {"body": "quick fox"}}, "min_score": 0.5, "size": 3}),
+    ("qt", {"query": {"function_score": {
+        "query": {"match": {"body": "brown fox"}},
+        "field_value_factor": {"field": "num", "modifier": "ln2p"}}}}),
+    ("qtbm", {"query": {"function_score": {
+        "query": {"match": {"body": "quick dog lazy"}},
+        "functions": [{"gauss": {"num": {"origin": 4, "scale": 3}}},
+                      {"filter": {"range": {"num": {"gte": 5}}}, "weight": 2}],
+        "boost_mode": "sum", "score_mode": "max"}}}),
+    ("qt", {"query": {"function_score": {
+        "query": {"match": {"body": "the brown"}}, "boost_factor": 3,
+        "max_boost": 2, "min_score": 0.2, "boost": 1.5}}}),
+    ("qtbm", {"query": {"function_score": {
+        "query": {"match": {"body": "brown"}},
+        "script_score": {"script": "_score * log(2 + doc['num'].value)"}}}}),
 ]
+_COUNTER = {"filtered": "device_filtered", "post_filter": "device_filtered",
+            "filter": "device_filtered", "min_score": "device_filtered",
+            "function_score": "device_function_score"}
+_SHARDS = {"qt": 2, "qtbm": 2}
 
 
 def _strip_degraded(r):
@@ -480,19 +500,30 @@ def test_dsl_host_bodies_match_jax_node(dsl_nodes, index, body):
                          ids=[f"family{i}" for i in range(len(DEVICE_FAMILY_BODIES))])
 def test_dsl_device_family_bodies_match_jax_node(dsl_nodes, index, body):
     pbase, jbase, _p = dsl_nodes
-    (pst, pr), (jst, jr) = (call(b, "POST", f"/{index}/_search", body)
-                            for b in (pbase, jbase))
+    before = dict(SERVING_COUNTERS)
+    pst, pr = call(pbase, "POST", f"/{index}/_search", body)
+    counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items() if v != before[k]}
+    jst, jr = call(jbase, "POST", f"/{index}/_search", body)
     assert pst == jst == 200, (pr, jr)
+    family = next((k for k in ("post_filter", "filter", "min_score") if k in body),
+                  next(iter(body["query"])))
+    assert counted == {_COUNTER[family]: _SHARDS[index]}, counted
     assert pr["_shards"] == _strip_degraded(jr)["_shards"]
     ph, jh = pr["hits"], jr["hits"]
     assert ph["total"] == jh["total"] > 0
-    assert _within_ulps(ph["max_score"], jh["max_score"], 2)
 
     def key(h):
         return (h["_index"], h["_id"])
 
-    assert _tie_tolerant_equal([(h["_score"], key(h)) for h in ph["hits"]],
-                               [(h["_score"], key(h)) for h in jh["hits"]])
+    got = [(h["_score"], key(h)) for h in ph["hits"]]
+    want = [(h["_score"], key(h)) for h in jh["hits"]]
+    if "script_score" in json.dumps(body):  # float32 device vs float64 host
+        assert [k for _s, k in got] == [k for _s, k in want]
+        assert all(g == pytest.approx(w, rel=1e-5) for (g, _), (w, _) in zip(got, want))
+        assert ph["max_score"] == pytest.approx(jh["max_score"], rel=1e-5)
+    else:
+        assert _within_ulps(ph["max_score"], jh["max_score"], 2)
+        assert _tie_tolerant_equal(got, want)
     jby = {key(h): {k: v for k, v in h.items() if k != "_score"} for h in jh["hits"]}
     for h in ph["hits"]:
         assert {k: v for k, v in h.items() if k != "_score"} == jby[key(h)]

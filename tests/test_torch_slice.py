@@ -222,12 +222,12 @@ def test_overflow_chunks_match_one_launch(overflow_shards, monkeypatch):
 
 
 def test_unported_queries_raise(shards):
-    """The query types of later slices raise at parse time; a range query
-    and a must_not-only bool, once refused, now run on the host scorer with
-    the JAX package's hits, in a batch beside a query the card serves."""
+    """The query types of later slices raise at parse time; a range query,
+    a must_not-only bool and a function_score, once refused, now run on the
+    host scorer with the JAX package's hits, in a batch beside a query the
+    card serves."""
     jctx, own, _conv = shards
-    for q in ({"function_score": {"query": {"match_all": {}}}},
-              {"nested": {"path": "c", "query": {"match_all": {}}}},
+    for q in ({"nested": {"path": "c", "query": {"match_all": {}}}},
               {"geo_shape": {"loc": {"shape": {}}}},
               {"constant_score": {"filter": {"geo_distance": {
                   "distance": "1km", "loc": [0, 0]}}}}):
@@ -235,7 +235,8 @@ def test_unported_queries_raise(shards):
             parse_query(q)
     served = [{"range": {"n": {"gte": 1}}},
               {"bool": {"must_not": [{"term": {"body": "w1"}}]}},
-              {"match": {"body": "w2 w3"}}]
+              {"match": {"body": "w2 w3"}},
+              {"function_score": {"query": {"match_all": {}}}}]
     got = _port_hits(own, served, 10)
     assert got == _jax_hits(jctx, served, 10)
     assert got[1][0] > 0
