@@ -21,7 +21,8 @@ its plain torch version on the card. Phases:
      600k / 300k / 100k docs, 1% of one segment tombstoned, packed on the card;
      two seeded numeric doc values in each segment's `dv_num`: `pop`
      (integers 1-1000, missing on 1 doc in 7) and `likes` (integers 0-1000,
-     on every doc);
+     on every doc), and a seeded keyword `cat` in `dv_str` (one of 200
+     values a doc, zipf(1.3) over them);
   3. the main path: batches of 1024 `bool` queries of 4 `should` BM25 term
      clauses (terms from df ranks 50-5000), top-100; each batch's dispatch
      runs under `torch.cuda.set_sync_debug_mode("error")`;
@@ -62,7 +63,7 @@ its plain torch version on the card. Phases:
      `refresh_interval: -1`; 200,000 docs
      (phase 2's generator rendered as tokens `t<rank>`) in `_bulk` requests
      of 1,000 through the host analyzer into each shard's durable Engine,
-     then `_refresh`; 4,096 `_search` requests (phase 3's 4-term `bool` of
+     then `_refresh`; 2,048 `_search` requests (phase 3's 4-term `bool` of
      `should` terms, size 10, `_source` returned) from 64 client threads in
      a process of their own, each on its own keep-alive connection, the
      whole timed run under `set_sync_debug_mode("error")`. Every response's
@@ -74,8 +75,9 @@ its plain torch version on the card. Phases:
      requests/s, p50/p99, batcher occupancy and flushes, launches by
      variant, the node process's CPU seconds by thread kind and the
      device's idle share over a profiled window.
- 11. mixed traffic on phase 10's node and index: 1,024 `_search` requests
-     (2,048 before phase 12 joined the run: a cut for the time limit)
+ 11. mixed traffic on phase 10's node and index: 512 `_search` requests
+     (2,048 before phase 12 joined the run, 1,024 before phase 13 did:
+     cuts for the time limit)
      from the same 64 connections in a seeded random order, half phase 3's
      4-term `bool` (the card's sparse path through the node's batcher), half
      the other families a seventh each: on the host scorer `match_phrase` of
@@ -119,6 +121,31 @@ its plain torch version on the card. Phases:
      JAX package. Ms a batch by family (CUDA events and host wall), dense
      launches, device→host copies and the filter cache's hits, builds and
      resident bytes.
+ 13. field sort and aggregations. The library leg, on phase 2's shard: 64
+     requests a family through `parse_search_body` → `execute_query_phase`,
+     each over phase 3's 4-term `bool` — `sort_asc` (`pop` asc, missing
+     last, top-100), `sort_desc_scores` (`likes` desc, `track_scores`),
+     `aggs_metric` (stats of `likes`, avg and value_count of `pop`),
+     `aggs_terms` (terms on `cat` with an avg of `pop`), `aggs_hist`
+     (histogram of `likes`, range of `pop`), `sort_aggs` and
+     `post_filter_aggs` — the timed run under `set_sync_debug_mode("error")`;
+     every response equal to the same request on the host path and on CPU
+     tensors (hits, sort values and totals exact, scores within 2 ulp,
+     aggregations' counts, keys, min and max exact and sums within rel
+     1e-5), the serving counters (`device_sort`, `device_aggs`,
+     `device_filtered`) a request, one device→host pull a request; ms a
+     request by family (CUDA events and host wall), launches and copies a
+     request, the resident bytes of the agg rows and bucket columns, and
+     the top device ops of one `aggs_terms` request. The node leg, on phase
+     10's node before it closes: a `catalog` index (5 shards) of 50,000 of
+     phase 10's texts with `pop`, `likes` and `cat`, bulked over HTTP, then
+     256 `_search` requests from the same 64 connections drawn in a seeded
+     order from the library leg's families, a `facets` body and a
+     `?sort=pop:desc` URL, under `set_sync_debug_mode("error")`; every
+     response equal to the shards' host query phases reduced by `sort_docs`
+     and `merge_responses`, totals equal to exact numpy counts, the serving
+     counters 5 a request; requests/s and p50/p99 by family; the search
+     pool's CPU split by span (`SpanClock`).
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -151,12 +178,13 @@ K = 100
 K1, B = 1.2, 0.75
 
 SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
-NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 200_000, 4096, 64  # phase 10's load and traffic
+NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 200_000, 2048, 64  # phase 10's load and traffic
 NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
 NODE_PROFILED = 512  # requests in phase 10's profiled window
-# phase 11's traffic, half phase 3's bool, half the other families: 1024
-# requests (2048 before phase 12 joined the run) and a profiled window of 512
-MIXED_REQUESTS, MIXED_PROFILED = 1024, 512
+# phase 11's traffic, half phase 3's bool, half the other families: 512
+# requests (2048 before phase 12 joined the run, 1024 before phase 13 did)
+# and a profiled window of 256
+MIXED_REQUESTS, MIXED_PROFILED = 512, 256
 MIXED_HOST = ("phrase", "bool_filter", "filtered", "prefix", "post_filter",
               "post_filter_all", "min_score")
 MIXED_DENSE = ("filtered", "post_filter", "min_score")  # on the card's dense family
@@ -175,6 +203,19 @@ POP_RANGE, LIKES_RANGE = (1, 1000), (0, 1000)  # integer doc values, inclusive
 DENSE_BATCH, DENSE_CHECK = 256, 32  # phase 12: queries a family batch, host-checked
 DENSE_FAMILIES = ("filtered", "post_filter", "min_score", "fs_rows", "fs_script")
 FS_SCRIPT = "_score * log(2 + doc['likes'].value)"  # phase 12's script family
+CAT_VALUES, CAT_ZIPF = 200, 1.3  # phase 2's keyword `cat`: zipf over 200 values
+SORT_AGG_REQUESTS = 64  # phase 13's library leg: requests a family
+SORT_AGG_FAMILIES = ("sort_asc", "sort_desc_scores", "aggs_metric", "aggs_terms",
+                     "aggs_hist", "sort_aggs", "post_filter_aggs")
+SORT_AGG_COUNTER = {"sort_asc": "device_sort", "sort_desc_scores": "device_sort",
+                    "aggs_metric": "device_aggs", "aggs_terms": "device_aggs",
+                    "aggs_hist": "device_aggs", "sort_aggs": "device_sort",
+                    "post_filter_aggs": "device_filtered", "facets": "host",
+                    "sort_url": "device_sort"}
+# phase 13's node leg: the `catalog` index (5 shards) and its traffic, the
+# library leg's families plus a `facets` body and a `?sort=pop:desc` URL
+CATALOG_DOCS, CATALOG_REQUESTS = 50_000, 256
+AGG_RTOL = 1e-5  # a sum or average from the card (tests/test_device_aggs.py)
 FILTER_TERMS = 20  # terms of phase 11's `terms` filters, df ranks BOOL_RANKS
 SERVE_SIZES = (10, 100)  # phase 9: half the requests each, k buckets 16 and 128
 SERVE_PROFILED = 1024  # requests in phase 9's profiled window
@@ -255,7 +296,8 @@ def term_name(t: int) -> str:
 
 
 SHARD_MAPPING = {"properties": {"body": {"type": "string"}, "pop": {"type": "long"},
-                                "likes": {"type": "long"}}}
+                                "likes": {"type": "long"},
+                                "cat": {"type": "string", "index": "not_analyzed"}}}
 
 
 def doc_value_columns(n_docs: int, seed: int) -> dict:
@@ -267,6 +309,25 @@ def doc_value_columns(n_docs: int, seed: int) -> dict:
     pop[rng.random(n_docs) < 1.0 / POP_MISSING] = np.nan
     likes = rng.integers(LIKES_RANGE[0], LIKES_RANGE[1] + 1, n_docs).astype(np.float64)
     return {"pop": pop, "likes": likes}
+
+
+def cat_column(n_docs: int, seed: int) -> np.ndarray:
+    """Phase 2's keyword `cat`, one value a doc: the rank of one of
+    CAT_VALUES values, zipf(CAT_ZIPF) over them."""
+    rng = np.random.default_rng(seed)
+    return ((rng.zipf(CAT_ZIPF, n_docs) - 1) % CAT_VALUES).astype(np.int32)
+
+
+def cat_name(c: int) -> str:
+    return f"c{c:03d}"  # zero-padded: the names sort as the ranks do
+
+
+def dv_str_slice(cats: np.ndarray, lo: int, hi: int):
+    """A segment's `dv_str` entry (sorted values, offsets, ordinals) for docs
+    lo..hi of the one-value `cat` column."""
+    uniq, inv = np.unique(cats[lo:hi], return_inverse=True)
+    return ([cat_name(int(c)) for c in uniq], np.arange(hi - lo + 1, dtype=np.int64),
+            inv.astype(np.int32))
 
 
 def dv_slice(col: np.ndarray, lo: int, hi: int):
@@ -642,7 +703,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         node_requests: int = NODE_REQUESTS,
         node_callers: int = NODE_CALLERS,
         mixed_requests: int = MIXED_REQUESTS, dense_batch: int = DENSE_BATCH,
-        dense_check: int = DENSE_CHECK) -> dict:
+        dense_check: int = DENSE_CHECK, sort_agg_requests: int = SORT_AGG_REQUESTS,
+        catalog_docs: int = CATALOG_DOCS,
+        catalog_requests: int = CATALOG_REQUESTS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -689,6 +752,7 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     del terms, docs, freqs
     term_dict = {"body": {term_name(t): t for t in range(vocab)}}
     columns = doc_value_columns(n_docs, seed + 11)
+    cats = cat_column(n_docs, seed + 12)
     segs = []
     for g, s in enumerate(csr):
         n = s["hi"] - s["lo"]
@@ -698,7 +762,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
             {"body": {"doc_count": n, "sum_ttf": int(s["lengths"].sum()),
                       "sum_dfs": len(s["docs"])}},
             np.ones(n, bool), np.ones(n, bool), gen=g,
-            dv_num={f: dv_slice(col, s["lo"], s["hi"]) for f, col in columns.items()}))
+            dv_num={f: dv_slice(col, s["lo"], s["hi"]) for f, col in columns.items()},
+            dv_str={"cat": dv_str_slice(cats, s["lo"], s["hi"])}))
     report["corpus_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for seg in segs:
@@ -722,7 +787,7 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     log(f"[2] {n_docs} docs, {vocab} terms, {n_postings} postings in "
         f"{report['segments']} docs/segment, {len(dead)} tombstones; doc values "
         + ", ".join(f"{f} on {int(np.isfinite(c).sum())} docs" for f, c in columns.items())
-        + "; corpus "
+        + f", cat ({CAT_VALUES} values, zipf {CAT_ZIPF}) on every doc; corpus "
         f"{report['corpus_s']:.1f} s, pack {report['pack_s']:.1f} s; resident "
         f"{resident / 1e9:.3f} GB over {slots} slots "
         f"({resident / max(slots, 1):.2f} B/slot), tf {report['tf_layouts']}")
@@ -978,12 +1043,18 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     # -- 10. the node over HTTP -----------------------------------------------
     node = node_phase(device, vocab=vocab, seed=seed + 9, n_docs=node_docs,
                       n_requests=node_requests, n_callers=node_callers,
-                      mixed_requests=mixed_requests)
+                      mixed_requests=mixed_requests, catalog_docs=catalog_docs,
+                      catalog_requests=catalog_requests)
     report["node"] = node
 
     # -- 12. the dense request-feature family at full width -------------------
     report["dense_family"] = dense_family_phase(
         device, segs, ranked, seed=seed + 10, batch=dense_batch, n_check=dense_check)
+
+    # -- 13. field sort and aggregations at full width (the node leg ran on
+    # phase 10's node, before it closed) -------------------------------------
+    report["sort_aggs"] = sort_agg_phase(device, segs, ranked, seed=seed + 13,
+                                         n_requests=sort_agg_requests)
 
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
@@ -1320,6 +1391,50 @@ def host_cpu_split(before: dict, after: dict, process_s: float) -> dict:
     return split
 
 
+class SpanClock:
+    """Calls, thread-CPU seconds and wall seconds spent inside chosen
+    functions of the port while installed (a `with` block), summed over the
+    threads that call them: [(span name, owner, attribute)] targets. A span
+    nested in another is counted in both."""
+
+    def __init__(self, targets: list):
+        self.targets = targets
+        self.lock = threading.Lock()
+        self.spans = {name: [0, 0.0, 0.0] for name, _owner, _attr in targets}
+        self.saved: list = []
+
+    def __enter__(self):
+        for name, owner, attr in self.targets:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._timed(self.spans[name], fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+        self.saved.clear()
+
+    def _timed(self, span: list, fn):
+        lock = self.lock
+
+        def timed(*args, **kwargs):
+            c0, w0 = time.thread_time(), time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                c, w = time.thread_time() - c0, time.perf_counter() - w0
+                with lock:
+                    span[0] += 1
+                    span[1] += c
+                    span[2] += w
+        return timed
+
+    def report(self) -> dict:
+        return {name: dict(calls=n, cpu_s=c, wall_s=w)
+                for name, (n, c, w) in self.spans.items()}
+
+
 def shard_reduce_check(device, n_docs: int, seed: int) -> dict:
     """Phase 7's documents split into two shards (one segment each):
     `execute_query_phase` on each shard, then `sort_docs`, on `device` and on
@@ -1445,7 +1560,7 @@ def http_clients(port: int, bodies: list, n_callers: int, pipe) -> None:
     end's connections do not share the node's interpreter): `n_callers`
     threads, each on its own keep-alive connection, send `bodies` as `POST
     /corpus/_search` back to back (caller c sends bodies c, c + n_callers,
-    ...). On `pipe`: sends "connected" once every connection is open, waits
+    ...); a (path, body) pair goes to its own path. On `pipe`: sends "connected" once every connection is open, waits
     for "go", sends (responses, per-request ms, wall s, errors) when the
     last answer is in, and closes its connections on "close"."""
     import http.client
@@ -1467,7 +1582,9 @@ def http_clients(port: int, bodies: list, n_callers: int, pipe) -> None:
             for i in range(c, n, n_callers):
                 t0 = time.perf_counter()
                 try:
-                    responses[i] = http_json(conn, "POST", "/corpus/_search", bodies[i])
+                    path, body = bodies[i] if isinstance(bodies[i], tuple) \
+                        else ("/corpus/_search", bodies[i])
+                    responses[i] = http_json(conn, "POST", path, body)
                 except Exception as e:  # noqa: BLE001 — every error fails the phase
                     errors.append((i, repr(e)))
                 lat_ms[i] = (time.perf_counter() - t0) * 1e3
@@ -1493,11 +1610,14 @@ def http_clients(port: int, bodies: list, n_callers: int, pipe) -> None:
         t.join(timeout=60)
 
 
-def serve_http(port: int, bodies: list, n_callers: int, sync_error: bool):
+def serve_http(port: int, bodies: list, n_callers: int, sync_error: bool,
+               window=None):
     """Run `http_clients` in a process of its own against the node on
     `port`. Returns (responses, per-request ms, wall s, errors, the node
     process's CPU s by thread kind over the run: read while every connection
-    and its server thread is still open)."""
+    and its server thread is still open). `window`, a context manager, is
+    entered as the clients start and left as they finish."""
+    import contextlib
     import multiprocessing
 
     import torch
@@ -1518,11 +1638,12 @@ def serve_http(port: int, bodies: list, n_callers: int, sync_error: bool):
         if sync_error:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            cpu_before, process_before = thread_cpu_s(), time.process_time()
-            here.send("go")
-            responses, lat_ms, wall_s, errors = recv(here, proc, 900)
-            host_cpu = host_cpu_split(cpu_before, thread_cpu_s(),
-                                      time.process_time() - process_before)
+            with window or contextlib.nullcontext():
+                cpu_before, process_before = thread_cpu_s(), time.process_time()
+                here.send("go")
+                responses, lat_ms, wall_s, errors = recv(here, proc, 900)
+                host_cpu = host_cpu_split(cpu_before, thread_cpu_s(),
+                                          time.process_time() - process_before)
         finally:
             if sync_error:
                 torch.cuda.set_sync_debug_mode(0)
@@ -1537,7 +1658,9 @@ def serve_http(port: int, bodies: list, n_callers: int, sync_error: bool):
 
 
 def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
-               n_callers: int, mixed_requests: int = MIXED_REQUESTS) -> dict:
+               n_callers: int, mixed_requests: int = MIXED_REQUESTS,
+               catalog_docs: int = CATALOG_DOCS,
+               catalog_requests: int = CATALOG_REQUESTS) -> dict:
     """Phase 10: a port Node on `device` serving REST over HTTP — index
     creation, `_bulk` into each shard's durable Engine, `_refresh`, then
     concurrent `_search` requests checked against exact totals and the
@@ -1721,6 +1844,10 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
             searchers=searchers, seed=seed + 2, n_requests=mixed_requests,
             n_callers=n_callers)
+        out["catalog"] = catalog_phase(
+            device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
+            seed=seed + 3, n_docs=min(catalog_docs, n_docs),
+            n_requests=catalog_requests, n_callers=n_callers)
         return out
     finally:
         if recorder is not None:
@@ -1860,7 +1987,8 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
     n_host = n_requests - n_device - n_dense
     assert counted == {"device_sparse": NODE_SHARDS * n_device,
                        "device_filtered": NODE_SHARDS * n_dense,
-                       "device_function_score": 0, "device_errors": 0,
+                       "device_function_score": 0, "device_aggs": 0,
+                       "device_sort": 0, "device_errors": 0,
                        "host": NODE_SHARDS * n_host}, counted
     device_idx = [i for i, f in enumerate(families) if f == "device"]
     card_ref = {}
@@ -2218,6 +2346,476 @@ def dense_family_phase(device, segs, ranked, *, seed: int, batch: int,
         f"raised ScriptError there; filter cache {out['cache']}; fielddata breaker "
         f"{out['fielddata_used']} bytes; sparse_score == plain (bitwise) at all "
         f"{len(recorder.shapes)} shapes the set-up launched; max abs err {max_err}")
+    return out
+
+
+def sort_agg_bodies(rng, pool, dense, n: int) -> dict:
+    """Phase 13's traffic, `n` bodies a family, each over phase 3's 4-term
+    `bool`: sort_asc (`pop` asc, missing last, top-100), sort_desc_scores
+    (`likes` desc with track_scores, size 10), aggs_metric (size 0; stats of
+    `likes`, avg and value_count of `pop`), aggs_terms (terms on `cat`, size
+    10, an avg of `pop` under each), aggs_hist (histogram of `likes`, interval
+    50; a range of `pop`), sort_aggs (sort on `pop`, stats of `likes`) and
+    post_filter_aggs (a term post filter, df ranks 20-400, and terms on
+    `cat`)."""
+    def should():
+        return {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                    for t in rng.choice(pool, TERMS_PER_QUERY)]}}
+
+    out = {f: [] for f in SORT_AGG_FAMILIES}
+    for _ in range(n):
+        out["sort_asc"].append({"query": should(), "size": K, "sort": [
+            {"pop": {"order": "asc", "missing": "_last"}}]})
+        out["sort_desc_scores"].append({"query": should(), "size": 10,
+                                        "sort": [{"likes": "desc"}], "track_scores": True})
+        out["aggs_metric"].append({"query": should(), "size": 0, "aggs": {
+            "likes_stats": {"stats": {"field": "likes"}},
+            "pop_avg": {"avg": {"field": "pop"}},
+            "pop_count": {"value_count": {"field": "pop"}}}})
+        out["aggs_terms"].append({"query": should(), "size": 0, "aggs": {
+            "cats": {"terms": {"field": "cat", "size": 10},
+                     "aggs": {"pop_avg": {"avg": {"field": "pop"}}}}}})
+        out["aggs_hist"].append({"query": should(), "size": 0, "aggs": {
+            "likes_hist": {"histogram": {"field": "likes", "interval": 50}},
+            "pop_ranges": {"range": {"field": "pop", "ranges": [
+                {"to": 250}, {"from": 250, "to": 750}, {"from": 750}]}}}})
+        out["sort_aggs"].append({"query": should(), "size": 10,
+                                 "sort": [{"pop": "asc"}],
+                                 "aggs": {"likes_stats": {"stats": {"field": "likes"}}}})
+        out["post_filter_aggs"].append({
+            "query": should(), "size": 10,
+            "post_filter": {"term": {"body": term_name(int(rng.choice(dense)))}},
+            "aggs": {"cats": {"terms": {"field": "cat", "size": 10}}}})
+    return out
+
+
+# the reduced fields that come from a float32 sum on the card, compared
+# within AGG_RTOL; an avg or sum agg's `value` is one too (`sum_agg_names`)
+AGG_SUM_KEYS = ("sum", "avg", "sum_of_squares", "variance", "std_deviation",
+                "std_deviation_bounds")
+
+
+def sum_agg_names(aggs: dict) -> set:
+    """The names of a body's avg and sum aggregations, at any depth."""
+    out = set()
+    for name, spec in aggs.items():
+        if "avg" in spec or "sum" in spec:
+            out.add(name)
+        out |= sum_agg_names(spec.get("aggs") or spec.get("aggregations") or {})
+    return out
+
+
+def agg_close(got, want, body: dict, rel: float = AGG_RTOL, path: str = "",
+              name: str | None = None, loose: bool = False) -> None:
+    """Reduced aggregations within tests/test_device_aggs.py's bar: the sums
+    and what derives from them (AGG_SUM_KEYS, the `value` of the body's avg
+    and sum aggs) within `rel`; counts, keys, min, max and every other
+    value exact."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        assert set(got) == set(want), (path, got, want)
+        sums = sum_agg_names(body.get("aggs") or body.get("aggregations") or {})
+        for key in got:
+            agg_close(got[key], want[key], body, rel, f"{path}.{key}", key,
+                      loose or key in AGG_SUM_KEYS or (key == "value" and name in sums))
+    elif isinstance(got, list) and isinstance(want, list):
+        assert len(got) == len(want), (path, got, want)
+        for i, (a, b) in enumerate(zip(got, want)):
+            agg_close(a, b, body, rel, f"{path}[{i}]", name, loose)
+    elif loose and isinstance(got, (int, float)) and isinstance(want, (int, float)):
+        assert abs(got - want) <= rel * abs(want), (path, got, want)
+    else:
+        assert got == want, (path, got, want)
+
+
+def shard_docs_match(got, want, sorted_hits: bool) -> bool:
+    """A query phase's docs [(score, doc, sort values)] against a reference:
+    a sorted search in the same order with the same sort values, its scores
+    NaN together or within 2 ulp; a scored one tie-tolerant within 2 ulp."""
+    if not sorted_hits:
+        return tie_tolerant_equal([(s, d) for s, d, _v in got],
+                                  [(s, d) for s, d, _v in want])
+    if [(d, v) for _s, d, v in got] != [(d, v) for _s, d, v in want]:
+        return False
+    return all((a != a and b != b) or within_ulps(a, b, ULPS)
+               for (a, _d, _v), (b, _e, _w) in zip(got, want))
+
+
+class CallCounts:
+    """Counts, until `close()`, the dense launches of the sorted, aggregating
+    and filtered launchers and the device→host pulls of the service, with the
+    tensors each pull copies. It launches and copies nothing itself."""
+
+    def __init__(self, texecute, tservice):
+        self.launches = 0
+        self.pulls = 0
+        self.copies = 0
+        self._saved = []
+        for name in ("score_agg_batch_async", "score_sorted_batch_async",
+                     "score_filtered_batch_async"):
+            self._wrap(texecute, name, self._launch)
+        self._wrap(tservice, "pull_async", self._pull)
+
+    def _wrap(self, module, name, counter):
+        orig = getattr(module, name)
+        self._saved.append((module, name, orig))
+
+        def counted(*args, **kwargs):
+            counter(args)
+            return orig(*args, **kwargs)
+
+        setattr(module, name, counted)
+
+    def _launch(self, _args):
+        self.launches += 1
+
+    def _pull(self, args):
+        self.pulls += 1
+        self.copies += len(args[0])
+
+    def take(self) -> tuple[int, int, int]:
+        out = (self.launches, self.pulls, self.copies)
+        self.launches = self.pulls = self.copies = 0
+        return out
+
+    def close(self) -> None:
+        for module, name, orig in self._saved:
+            setattr(module, name, orig)
+
+
+def agg_resident_bytes(packs) -> tuple[int, int]:
+    """(bytes of the resident agg-row stacks, of the bucket pair columns)."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    rows = sum(nbytes(t) for p in packs for t in p.agg_stacks.values())
+    cols = sum(nbytes(c[0]) + nbytes(c[1]) for p in packs for c in p.bucket_cols.values())
+    return rows, cols
+
+
+def sort_agg_phase(device, segs, ranked, *, seed: int, n_requests: int) -> dict:
+    """Phase 13, the library leg: `n_requests` bodies a family of
+    `sort_agg_bodies` through `parse_search_body` → `execute_query_phase` on
+    phase 2's shard, one caller, the timed run under
+    `set_sync_debug_mode("error")`. Every response equals the same request on
+    the host path (`use_device=False`) and on CPU tensors; the serving
+    counters show each family's device branch; one device→host pull a
+    request."""
+    import torch
+
+    from elasticsearch_tpu_torch.common.breaker import CircuitBreakerService
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.engine import Searcher
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.ops.device_index import packed_for
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, ShardContext, SimilarityService, execute_query_phase,
+        parse_search_body)
+    from elasticsearch_tpu_torch.search import execute as texecute
+    from elasticsearch_tpu_torch.search import service as tservice
+    from elasticsearch_tpu_torch.search.aggregations import reduce_aggs
+
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    settings = Settings.from_flat(BM25_SETTINGS)
+    svc = MapperService(settings)
+    svc.put_mapping("doc", SHARD_MAPPING)
+    sims = SimilarityService(settings, svc)
+    breakers = CircuitBreakerService(settings)
+    ctx = ShardContext(Searcher(segs), svc, sims, device=device, breakers=breakers)
+    cpu_ctx = ShardContext(Searcher(segs), svc, sims, device="cpu")
+    rng = np.random.default_rng(seed)
+    bodies = sort_agg_bodies(rng, ranked[RANKS[0]: RANKS[1]],
+                             ranked[BOOL_RANKS[0]: BOOL_RANKS[1]], n_requests)
+    reqs = {f: [parse_search_body(b) for b in bs] for f, bs in bodies.items()}
+
+    # set-up, before the clock: one request a family builds the agg rows,
+    # bucket columns and sort keys
+    t0 = time.perf_counter()
+    for f in SORT_AGG_FAMILIES:
+        execute_query_phase(ctx, reqs[f][0])
+    warm_s = time.perf_counter() - t0
+    packs = [packed_for(seg, device) for seg in segs]
+    counts = CallCounts(texecute, tservice)
+    before = dict(SERVING_COUNTERS)
+    results, rows = {}, {}
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in SORT_AGG_FAMILIES:
+            res, walls, events, calls = [], [], [], []
+            for req in reqs[f]:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)) if on_card else None
+                t0 = time.perf_counter()
+                if on_card:
+                    ev[0].record()
+                res.append(execute_query_phase(ctx, req))
+                if on_card:
+                    ev[1].record()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                events.append(ev)
+                calls.append(counts.take())
+            results[f] = res
+            rows[f] = (walls, events, calls)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+        counts.close()
+    counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items() if v != before[k]}
+    want_counted = {}
+    for f in SORT_AGG_FAMILIES:
+        want_counted[SORT_AGG_COUNTER[f]] = want_counted.get(SORT_AGG_COUNTER[f], 0) \
+            + n_requests
+    assert counted == want_counted, f"serving counters {counted} != {want_counted}"
+    if on_card:
+        torch.cuda.synchronize()
+    out = {"card": card, "requests_a_family": n_requests, "warm_s": warm_s,
+           "families": {}}
+    for f, (walls, events, calls) in rows.items():
+        dev_ms = [a.elapsed_time(b) for a, b in events] if on_card else None
+        pulls = {c[1] for c in calls}
+        assert pulls == {1}, f"{f}: device→host pulls a request {pulls}"
+        out["families"][f] = dict(
+            wall_ms_p50=float(np.percentile(walls, 50)), wall_ms_mean=float(np.mean(walls)),
+            events_ms_p50=float(np.percentile(dev_ms, 50)) if dev_ms else None,
+            events_ms_mean=float(np.mean(dev_ms)) if dev_ms else None,
+            launches=sorted({c[0] for c in calls}), copies=sorted({c[2] for c in calls}),
+            matched=sum(r.total for r in results[f]))
+    rows_b, cols_b = agg_resident_bytes(packs)
+    out.update(agg_rows_bytes=rows_b, bucket_cols_bytes=cols_b,
+               fielddata_used=breakers.breaker("fielddata").used)
+
+    # correctness: every response against the host path and the CPU tensors
+    t0 = time.perf_counter()
+    for f in SORT_AGG_FAMILIES:
+        sorted_hits = bool(reqs[f][0].sort)
+        for i, (req, got) in enumerate(zip(reqs[f], results[f])):
+            for ref_name, ref in (("host", execute_query_phase(ctx, req, use_device=False)),
+                                  ("cpu", execute_query_phase(cpu_ctx, req))):
+                assert got.total == ref.total, (f, i, ref_name, "total")
+                assert shard_docs_match(got.docs, ref.docs, sorted_hits), \
+                    (f, i, ref_name, "hits")
+                assert (got.max_score != got.max_score) == (ref.max_score != ref.max_score)
+                if got.max_score == got.max_score:
+                    assert within_ulps(got.max_score, ref.max_score, ULPS), (f, i, ref_name)
+                if req.aggs:
+                    agg_close(reduce_aggs(req.aggs, got.agg_partials),
+                              reduce_aggs(req.aggs, ref.agg_partials), req.body,
+                              AGG_RTOL, f"{f}[{i}] {ref_name}")
+            if sorted_hits and not req.track_scores:
+                assert all(s != s for s, _d, _v in got.docs), (f, i, "score not null")
+    out["check_s"] = time.perf_counter() - t0
+
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            execute_query_phase(ctx, reqs["aggs_terms"][1])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out["profiled_aggs_terms"] = device_busy(prof, wall_ms)
+
+    log(f"[13] field sort and aggregations on phase 2's shard ({len(segs)} segments, "
+        f"{sum(s.doc_count for s in segs)} docs): {n_requests} requests a family, one "
+        f"caller, through parse_search_body -> execute_query_phase; {card}")
+    log("[13]   family           | ms a request: events p50 / mean, host wall p50 / mean "
+        "| dense launches, pulls, copies a request | matches")
+    for f, r in out["families"].items():
+        ev = (f"{r['events_ms_p50']:.3f} / {r['events_ms_mean']:.3f}"
+              if r["events_ms_p50"] is not None else "not measured")
+        log(f"[13]   {f:16s} | {ev}, {r['wall_ms_p50']:.3f} / {r['wall_ms_mean']:.3f} "
+            f"| {r['launches']}, 1, {r['copies']} | {r['matched']}")
+    log(f"[13] serving counters over the run {counted}; every response == the host path "
+        f"and == the same ops on CPU tensors (hits, sort values, totals exact; scores "
+        f"{ULPS} ulp; aggregations: counts, keys, min, max exact, sums rel {AGG_RTOL}) "
+        f"({out['check_s']:.1f} s); resident agg rows {rows_b} bytes, bucket columns "
+        f"{cols_b} bytes; fielddata breaker {out['fielddata_used']} bytes; set-up "
+        f"{warm_s:.2f} s")
+    p = out.get("profiled_aggs_terms")
+    if p and p["device_busy_ms"]:
+        log(f"[13] one aggs_terms request under torch.profiler: wall {p['wall_ms']:.3f} ms, "
+            f"device busy {p['device_busy_ms']:.3f} ms, idle share {p['idle_share']:.4f}")
+        for name, ms, n in p["top"]:
+            log(f"[13]   {ms:9.3f} ms {n:5d}x {name}")
+    elif on_card:
+        log("[13] profiled aggs_terms request: the profiler saw no device time (not measured)")
+    return out
+
+
+def catalog_phase(device, node, port: int, *, texts, offsets, inv_docs, seed: int,
+                  n_docs: int, n_requests: int, n_callers: int) -> dict:
+    """Phase 13, the node leg, on phase 10's node: a `catalog` index of 5
+    shards (`refresh_interval: -1`) with `n_docs` of phase 10's texts and
+    the `pop`, `likes` and `cat` doc values, bulked over HTTP; then
+    `n_requests` `_search` requests from the same connections, drawn in a
+    seeded order from the library leg's families, a `facets` body and a
+    `?sort=pop:desc` URL, the timed run under `set_sync_debug_mode("error")`.
+    Every response equals the shards' host query phases reduced by the port's
+    `sort_docs` and `merge_responses`; totals equal exact numpy counts."""
+    import http.client
+
+    from elasticsearch_tpu_torch import actions as tactions
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, ShardContext, execute_query_phase, merge_responses,
+        parse_search_body, sort_docs)
+    from elasticsearch_tpu_torch.search import execute as texecute
+    from elasticsearch_tpu_torch.search import service as tservice
+
+    on_card = device.type == "cuda"
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    st, r = http_json(conn, "PUT", "/catalog", {
+        "settings": {"number_of_shards": NODE_SHARDS, "refresh_interval": -1},
+        "mappings": {"doc": SHARD_MAPPING}})
+    assert st == 200 and r["acknowledged"], r
+    columns = doc_value_columns(n_docs, seed)
+    cats = cat_column(n_docs, seed + 1)
+    t0 = time.perf_counter()
+    for lo in range(0, n_docs, NODE_BULK):
+        lines = []
+        for i in range(lo, min(lo + NODE_BULK, n_docs)):
+            src = {"body": texts[i], "likes": int(columns["likes"][i]),
+                   "cat": cat_name(int(cats[i]))}
+            if np.isfinite(columns["pop"][i]):
+                src["pop"] = int(columns["pop"][i])
+            lines.append(json.dumps({"index": {"_index": "catalog", "_type": "doc",
+                                               "_id": str(i)}}))
+            lines.append(json.dumps(src))
+        st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+        assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+    bulk_s = time.perf_counter() - t0
+    st, r = http_json(conn, "POST", "/catalog/_refresh")
+    assert st == 200 and r["_shards"]["failed"] == 0, r
+    conn.close()
+    svc = node.indices.index_service("catalog")
+    searchers = [svc.shard(sid).engine.acquire_searcher() for sid in range(NODE_SHARDS)]
+    assert sum(sr.max_doc for sr in searchers) == n_docs
+    ctxs = [ShardContext(sr, svc.mapper_service, svc.similarity_service, device=device)
+            for sr in searchers]
+
+    # the traffic: df ranks within the catalog's docs
+    inside = np.concatenate([[0], np.cumsum(inv_docs < n_docs)])
+    df = inside[offsets[1:]] - inside[offsets[:-1]]
+    ranked = np.argsort(-df, kind="stable")
+    rng = np.random.default_rng(seed + 2)
+    per = n_requests // (len(SORT_AGG_FAMILIES) + 2) + 1
+    fam = sort_agg_bodies(rng, ranked[RANKS[0]: RANKS[1]],
+                          ranked[BOOL_RANKS[0]: BOOL_RANKS[1]], per)
+    pool = ranked[RANKS[0]: RANKS[1]]
+
+    def should():
+        return {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                    for t in rng.choice(pool, TERMS_PER_QUERY)]}}
+
+    fam["facets"] = [{"query": should(), "size": 5, "facets": {
+        "cats": {"terms": {"field": "cat", "size": 10}}}} for _ in range(per)]
+    fam["sort_url"] = [{"query": should(), "size": 10} for _ in range(per)]
+    entries = [(f, b) for f, bs in fam.items() for b in bs]
+    entries = [entries[i] for i in rng.permutation(len(entries))[:n_requests]]
+
+    def path_of(f: str) -> str:
+        return "/catalog/_search" + ("?sort=pop:desc" if f == "sort_url" else "")
+
+    def exact_total(body) -> int:
+        terms = [int(c["term"]["body"][1:]) for c in body["query"]["bool"]["should"]]
+        docs = term_docs(offsets, inv_docs, terms)
+        if "post_filter" in body:
+            docs = np.intersect1d(docs, term_docs(
+                offsets, inv_docs, [int(body["post_filter"]["term"]["body"][1:])]))
+        return int((docs < n_docs).sum())
+
+    requests = [(path_of(f), b) for f, b in entries]
+    # first sightings pack each shard's segments and build its agg rows,
+    # bucket columns and sort keys: warm before the clock
+    warm = serve_http(port, requests[: 2 * n_callers]
+                      + [(path_of(f), bs[0]) for f, bs in fam.items()],
+                      n_callers, sync_error=False)
+    assert not warm[3], warm[3][:3]
+    before = dict(SERVING_COUNTERS)
+    # where the search pool's CPU goes: the shard query phase (its pull
+    # wait, the spin of `torch.cuda.Event.synchronize`, and its general host
+    # path inside it), the partials' pickling, the fetch phase and the
+    # coordinator's reduce
+    clock = SpanClock([
+        ("query phase", tactions, "execute_query_phase"),
+        ("query phase: pull wait", cudaenv.PendingPull, "wait"),
+        ("query phase: general host path", tservice, "_general_host_path"),
+        ("query phase: sorted launches", texecute, "score_sorted_batch_async"),
+        ("query phase: aggregating launches", texecute, "score_agg_batch_async"),
+        ("query phase: filtered launches", texecute, "score_filtered_batch_async"),
+        ("encode partials", tactions, "_encode_partials"),
+        ("fetch phase", tactions, "execute_fetch_phase"),
+        ("coordinator: sort_docs", tactions, "sort_docs"),
+        ("coordinator: merge_responses", tactions, "merge_responses")])
+    responses, lat_ms, wall_s, errors, host_cpu = serve_http(
+        port, requests, n_callers, sync_error=on_card, window=clock)
+    spans = clock.report()
+    counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items() if v != before[k]}
+    assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
+    want_counted = {}
+    for f, _b in entries:
+        c = SORT_AGG_COUNTER[f]
+        want_counted[c] = want_counted.get(c, 0) + NODE_SHARDS
+    assert counted == want_counted, f"serving counters {counted} != {want_counted}"
+
+    # every response against the shards' host query phases, reduced
+    t0 = time.perf_counter()
+    for i, ((f, body), (st, r)) in enumerate(zip(entries, responses)):
+        assert st == 200, (i, f, r)
+        assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
+                                "failed": 0}, (i, r["_shards"])
+        req = parse_search_body(dict(body, sort=[{"pop": "desc"}]) if f == "sort_url"
+                                else body)
+        res = [execute_query_phase(c, req, use_device=False, shard_id=sid)
+               for sid, c in enumerate(ctxs)]
+        merged = sort_docs(req, res)
+        want = merge_responses(req, merged, res, [], took_ms=0,
+                               total_shards=NODE_SHARDS, successful=NODE_SHARDS)
+        assert r["hits"]["total"] == want["hits"]["total"] == exact_total(body), \
+            (i, f, "total")
+        want_hits = []
+        for score, sid, doc, sv in merged.hits[req.from_: req.from_ + req.size]:
+            seg, local = searchers[sid].resolve(doc)
+            want_hits.append((score, (sid, seg.ids[local]), sv))
+        got_hits = [(float("nan") if h["_score"] is None else h["_score"],
+                     (h["_shard"], h["_id"]), h.get("sort")) for h in r["hits"]["hits"]]
+        assert shard_docs_match(got_hits, want_hits, bool(req.sort)), (i, f, "hits")
+        if req.aggs:
+            agg_close(r["aggregations"], want["aggregations"], req.body, AGG_RTOL,
+                      f"{f}[{i}]")
+        if req.facets:
+            assert r["facets"] == want["facets"], (i, f, "facets")
+    check_s = time.perf_counter() - t0
+    by_family = {}
+    for f in fam:
+        lat = np.asarray([ms for (g, _b), ms in zip(entries, lat_ms) if g == f])
+        if len(lat):
+            by_family[f] = dict(requests=len(lat), p50=float(np.percentile(lat, 50)),
+                                p99=float(np.percentile(lat, 99)))
+    out = dict(docs=n_docs, bulk_s=bulk_s, bulk_docs_per_s=n_docs / bulk_s,
+               segments_per_shard=[len(sr.segments) for sr in searchers],
+               requests=len(entries), callers=n_callers, wall_s=wall_s,
+               requests_per_s=len(entries) / wall_s, latency_ms=by_family,
+               counters=counted, host_cpu_s=host_cpu, spans=spans,
+               check_s=check_s,
+               sync_debug="error over the whole timed run" if on_card else None)
+    log(f"[13] node leg on phase 10's node: `catalog`, {NODE_SHARDS} shards, {n_docs} docs "
+        f"bulked over HTTP at {out['bulk_docs_per_s']:.1f} docs/s; {len(entries)} _search "
+        f"requests from {n_callers} connections: {out['requests_per_s']:.1f} requests/s; "
+        f"serving counters {counted}; every response == the shards' host query phases "
+        f"reduced (hits, sort values, totals == exact counts; aggregations: counts, "
+        f"keys, min, max exact, sums rel {AGG_RTOL}; facets exact; {check_s:.1f} s)")
+    for f, v in by_family.items():
+        log(f"[13]   {f:16s} {v['requests']:4d} requests, p50 {v['p50']:.2f} ms, "
+            f"p99 {v['p99']:.2f} ms")
+    log("[13] node leg CPU s by thread kind over the "
+        f"{wall_s:.2f} s window: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host_cpu.items()))
+    for name, v in spans.items():
+        log(f"[13]   span {name:35s} {v['calls']:5d} calls, CPU {v['cpu_s']:.2f} s, "
+            f"wall {v['wall_s']:.2f} s")
     return out
 
 

@@ -29,6 +29,8 @@ replica writes, get/update/delete-by-query, aliases and templates."""
 
 from __future__ import annotations
 
+import base64
+import pickle
 import threading
 import time
 import uuid
@@ -363,6 +365,8 @@ class ActionModule:
                     total=r["total"], docs=[tuple(d) for d in r["docs"]],
                     max_score=r["max_score"] if r["max_score"] is not None
                     else float("nan"),
+                    agg_partials=_decode_partials(r.get("agg_partials")),
+                    facet_partials=_decode_partials(r.get("facet_partials")),
                     shard_id=ordinal, timed_out=bool(r.get("timed_out")),
                     context_id=r.get("ctx_id")))
         except Exception:
@@ -499,6 +503,8 @@ class ActionModule:
             "docs": [[s, d, sv] for (s, d, sv) in result.docs],
             "max_score": None if result.max_score != result.max_score
             else result.max_score,
+            "agg_partials": _encode_partials(result.agg_partials),
+            "facet_partials": _encode_partials(result.facet_partials),
             "timed_out": result.timed_out,
             # the fetch must read the SAME point-in-time searcher these doc
             # ids come from
@@ -555,3 +561,16 @@ class ActionModule:
             raise IllegalArgumentError(f"broadcast op [{op}] is not ported yet")
         engine.refresh()
         return {"ok": True}
+
+
+def _encode_partials(partials):
+    """Aggregation and facet partials cross the transport pickled and
+    base64-encoded (they hold numpy arrays and sketches), as in the JAX
+    package."""
+    return base64.b64encode(pickle.dumps(partials)).decode("ascii") if partials else None
+
+
+def _decode_partials(blob):
+    if not blob:
+        return []
+    return pickle.loads(base64.b64decode(blob))

@@ -34,12 +34,15 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
                         norms: dict, field_stats: dict, live: np.ndarray,
                         parent_mask: np.ndarray, *, gen: int = 0,
                         ids: list | None = None,
-                        dv_num: dict | None = None) -> FrozenSegment:
+                        dv_num: dict | None = None,
+                        dv_str: dict | None = None) -> FrozenSegment:
     """A port segment from CSR arrays. `term_dict` is {field: {term: tid}},
     `norms` {field: uint8[D]}, `field_stats` {field: {"doc_count",
     "sum_ttf", "sum_dfs"}}; `live` and `parent_mask` are bool[D];
     `dv_num` {field: (offsets int64[D+1], values float64[offsets[-1]])},
-    each doc's numeric values (the JAX segment's `dv_num` layout)."""
+    each doc's numeric values (the JAX segment's `dv_num` layout); `dv_str`
+    {field: (sorted distinct values, offsets int64[D+1], ords int32)}, each
+    doc's string values as ordinals into the distinct values (`dv_str`)."""
     live = np.array(live, dtype=bool)  # tombstones mutate it: own copy
     post_offsets = np.asarray(post_offsets, dtype=np.int64)
     if post_offsets[-1] != len(post_docs) or len(post_docs) != len(post_freqs):
@@ -56,6 +59,16 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
             raise ValueError(f"dv_num of [{f}]: offsets must rise from 0 to "
                              f"len(values) over {len(live)} docs")
         columns[f] = (off, vals)
+    strings = {}
+    for f, (uniq, off, ords) in (dv_str or {}).items():
+        off = np.asarray(off, dtype=np.int64)
+        ords = np.asarray(ords, dtype=np.int32)
+        if list(uniq) != sorted(set(uniq)) or len(off) != len(live) + 1 \
+                or off[0] != 0 or off[-1] != len(ords) or np.any(np.diff(off) < 0) \
+                or (len(ords) and (ords.min() < 0 or ords.max() >= len(uniq))):
+            raise ValueError(f"dv_str of [{f}]: sorted distinct values and "
+                             f"ordinals into them over {len(live)} docs")
+        strings[f] = (list(uniq), off, ords)
     return FrozenSegment(
         gen=gen,
         doc_count=len(live),
@@ -71,6 +84,7 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
         parent_mask=np.asarray(parent_mask, dtype=bool),
         ids=ids,
         dv_num=columns,
+        dv_str=strings,
     )
 
 

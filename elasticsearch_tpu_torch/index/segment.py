@@ -6,14 +6,15 @@ A segment is flat numpy arrays laid out for device packing: postings are CSR
 over term ids — `post_offsets[t]:post_offsets[t+1]` slices `post_docs`
 (ascending local doc ids), `post_freqs` and, per posting, its positions;
 norms are one byte315 byte per doc per field; numeric doc values are CSR
-float64 columns; string fields keep each doc's count of values
-(`str_counts`, what `exists` reads; the values themselves are a later
-slice); `_source`, ids, types, routings and versions are stored per doc for
+float64 columns; string doc values are CSR ordinals into the segment's
+sorted distinct values (`dv_str`: (sorted terms, offsets[D+1], ords), the
+JAX package's layout, what `exists`, the string-keyed aggregations and sorts
+and a script's `doc[...]` read); `_source`, ids, types, routings and versions are stored per doc for
 the fetch phase and realtime gets; deletes are tombstones in the `live`
 bitmap. Nested documents belong to a later slice of the port.
 
 The read API of the host scorer (`postings`, `term_positions`,
-`terms_for_field`, `num_values`) has the JAX package's
+`terms_for_field`, `num_values`, `str_values`) has the JAX package's
 semantics. A segment built from arrays by `convert.py` has no ids, types or
 positions: what needs them raises instead of answering "no match"."""
 
@@ -57,7 +58,7 @@ class SegmentBuilder:
         self._postings: dict[tuple[str, str], list] = {}
         self._field_lengths: dict[str, list[tuple[int, int]]] = {}
         self._dv_num: dict[str, list[tuple[int, float]]] = {}
-        self._str_counts: dict[str, list[tuple[int, int]]] = {}
+        self._dv_str: dict[str, list[tuple[int, str]]] = {}
         self._stored: list[dict | None] = []
         self._ids: list[str] = []
         self._types: list[str] = []
@@ -80,8 +81,10 @@ class SegmentBuilder:
             self._field_lengths.setdefault(field_name, []).append((local, length))
         for field_name, vals in doc.doc_values_num.items():
             self._dv_num.setdefault(field_name, []).extend((local, v) for v in vals)
-        for field_name, n in doc.str_value_counts.items():
-            self._str_counts.setdefault(field_name, []).append((local, n))
+        for field_name, vals in doc.doc_values_str.items():
+            col = self._dv_str.setdefault(field_name, [])
+            for v in vals:
+                col.append((local, v))
         self._stored.append(doc.source)
         self._ids.append(doc.id)
         self._types.append(doc.type)
@@ -138,12 +141,17 @@ class SegmentBuilder:
                                count=len(entries))
             dv_num[f] = (np.cumsum(counts), vals)
 
-        str_counts: dict[str, np.ndarray] = {}
-        for f, entries in self._str_counts.items():
-            col = np.zeros(D, dtype=np.int32)
-            for local, n in entries:
-                col[local] += n
-            str_counts[f] = col
+        dv_str: dict[str, tuple[list[str], np.ndarray, np.ndarray]] = {}
+        for f, entries in self._dv_str.items():
+            entries.sort(key=lambda e: e[0])
+            uniq = sorted({v for _, v in entries})
+            ord_map = {v: i for i, v in enumerate(uniq)}
+            counts = np.zeros(D + 1, dtype=np.int64)
+            for local, _ in entries:
+                counts[local + 1] += 1
+            ords = np.fromiter((ord_map[v] for _, v in entries), dtype=np.int32,
+                               count=len(entries))
+            dv_str[f] = (uniq, np.cumsum(counts), ords)
 
         return FrozenSegment(
             gen=self.gen,
@@ -166,7 +174,7 @@ class SegmentBuilder:
             pos_offsets=np.asarray(pos_offsets, dtype=np.int64),
             positions=np.asarray(pos_parts, dtype=np.int32),
             dv_num=dv_num,
-            str_counts=str_counts,
+            dv_str=dv_str,
         )
 
 
@@ -195,7 +203,8 @@ class FrozenSegment:
     pos_offsets: np.ndarray | None = None  # int64[P+1]
     positions: np.ndarray | None = None  # int32[sum of freqs]
     dv_num: dict = dc_field(default_factory=dict)  # field -> (offsets[D+1], values)
-    str_counts: dict = dc_field(default_factory=dict)  # string field -> int32[D]
+    # string field -> (sorted distinct values, offsets[D+1], int32 ordinals)
+    dv_str: dict = dc_field(default_factory=dict)
     # per-device packed planes (ops/device_index.packed_for), keyed by device
     _device_cache: dict = dc_field(default_factory=dict, repr=False, compare=False)
     # bumped on every tombstone: a pack built under an older generation is
@@ -248,6 +257,13 @@ class FrozenSegment:
             return np.zeros(0)
         off, vals = col
         return vals[off[local]: off[local + 1]]
+
+    def str_values(self, field: str, local: int) -> list[str]:
+        col = self.dv_str.get(field)
+        if col is None:
+            return []
+        uniq, off, ords = col
+        return [uniq[o] for o in ords[off[local]: off[local + 1]]]
 
     def require(self, name: str, needed_by: str):
         """The stored per-doc attribute `name` (ids, types, positions); a
@@ -350,8 +366,9 @@ def merge_segments(segments: list[FrozenSegment], gen: int) -> FrozenSegment:
                 v = vals[off[local]: off[local + 1]]
                 if len(v):
                     doc.doc_values_num[f] = list(v)
-            for f, counts in seg.str_counts.items():
-                if counts[local]:
-                    doc.str_value_counts[f] = int(counts[local])
+            for f in seg.dv_str:
+                v = seg.str_values(f, local)
+                if v:
+                    doc.doc_values_str[f] = v
             builder.add(doc, version=int(seg.versions[local]))
     return builder.freeze()

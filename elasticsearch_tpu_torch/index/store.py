@@ -61,8 +61,9 @@ class Store:
         for f, (off, vals) in seg.dv_num.items():
             arrays[f"dvn_off::{f}"] = off
             arrays[f"dvn_val::{f}"] = vals
-        for f, counts in seg.str_counts.items():
-            arrays[f"dvs_cnt::{f}"] = counts
+        for f, (_uniq, off, ords) in seg.dv_str.items():
+            arrays[f"dvs_off::{f}"] = off
+            arrays[f"dvs_ord::{f}"] = ords
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         _write_synced(npz_path, buf.getvalue())
@@ -74,6 +75,7 @@ class Store:
                             for f, s in seg.field_stats.items()},
             "stored": seg.stored, "ids": seg.ids, "types": seg.types,
             "routings": seg.routings,
+            "dv_str_terms": {f: uniq for f, (uniq, _, _) in seg.dv_str.items()},
         }
         _write_synced(meta_path, json.dumps(meta).encode())
         return {os.path.basename(p): {"length": os.path.getsize(p),
@@ -101,8 +103,9 @@ class Store:
         norms = {k[len("norm::"):]: data[k] for k in data.files if k.startswith("norm::")}
         dv_num = {k[len("dvn_off::"):]: (data[k], data["dvn_val::" + k[len("dvn_off::"):]])
                   for k in data.files if k.startswith("dvn_off::")}
-        str_counts = {k[len("dvs_cnt::"):]: data[k]
-                      for k in data.files if k.startswith("dvs_cnt::")}
+        dv_str = {k[len("dvs_off::"):]: (meta["dv_str_terms"][k[len("dvs_off::"):]],
+                                        data[k], data["dvs_ord::" + k[len("dvs_off::"):]])
+                  for k in data.files if k.startswith("dvs_off::")}
         return FrozenSegment(
             gen=meta["gen"],
             doc_count=meta["doc_count"],
@@ -122,7 +125,7 @@ class Store:
             pos_offsets=data["pos_offsets"],
             positions=data["positions"],
             dv_num=dv_num,
-            str_counts=str_counts,
+            dv_str=dv_str,
         )
 
     def write_commit(self, commit_id: int, segment_files: dict, translog_gen: int,

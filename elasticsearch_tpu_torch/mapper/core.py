@@ -202,8 +202,9 @@ class ParsedDocument:
     field_lengths: dict[str, int] = dc_field(default_factory=dict)
     # field → numeric value(s) of the doc-value column
     doc_values_num: dict[str, list[float]] = dc_field(default_factory=dict)
-    # string field → how many values the doc gave it (null_value included)
-    str_value_counts: dict[str, int] = dc_field(default_factory=dict)
+    # string field → the doc's values as given (null_value included): the
+    # segment's string doc values
+    doc_values_str: dict[str, list[str]] = dc_field(default_factory=dict)
 
 
 def _infer_dynamic_type(value: Any, dynamic_date: bool = True) -> str | None:
@@ -361,7 +362,7 @@ class DocumentMapper:
                     continue
                 v = ft.null_value
             text = str(v)
-            doc.str_value_counts[ft.name] = doc.str_value_counts.get(ft.name, 0) + 1
+            doc.doc_values_str.setdefault(ft.name, []).append(text)
             if ft.analyzed:
                 toks = analyzer.index_tokens(text)
                 for term, pos in toks:

@@ -20,12 +20,18 @@ the dense path.
 `DeviceFilterCache` keeps hot filters' padded per-segment doc masks resident
 on the device for the dense filtered family (`search/execute.py
 _filter_mask_row`).
+
+The aggregating launches read two more resident stores on the pack: the
+per-doc metric folds of numeric columns (`ensure_agg_rows`, [F, 5, Dpad]
+float32 stacks of `agg_doc_rows`) and each bucket agg's (doc, bucket) pairs
+(`bucket_cols`, filled by `search/execute.py`); both are charged to the
+fielddata breaker while they are built, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 import torch
@@ -113,6 +119,12 @@ class PackedSegment:
     live_gen: int = 0  # the segment's tombstone generation the masks reflect
     sim: SimTables | None = None  # ensure_sim_tables state
     blk_freqs: torch.Tensor | None = None  # float32 [NBpad, B], dense path only
+    # field -> host f32 [5, Dpad] folds (None: not f32-exact); agg_doc_rows
+    agg_rows: dict = dc_field(default_factory=dict)
+    # tuple of fields -> device f32 [F, 5, Dpad] stack (FIFO, _AGG_STACKS_MAX)
+    agg_stacks: dict = dc_field(default_factory=dict)
+    # bucket-agg cache key -> device (pair docs, pair buckets int64, count)
+    bucket_cols: dict = dc_field(default_factory=dict)
 
     def blocks_for_term(self, tid: int) -> tuple[int, int]:
         return int(self.term_blk_start[tid]), int(self.term_blk_start[tid + 1])
@@ -333,6 +345,99 @@ def _merged_sim(packed: PackedSegment, cur: SimTables | None,
     return SimTables(fields=fields, fid={f: i for i, f in enumerate(fields)},
                      modes=upload(modes, packed.device),
                      caches=upload(caches, packed.device), key=merged)
+
+
+# ---------------------------------------------------------------------------
+# per-doc metric folds for the aggregating launches
+# ---------------------------------------------------------------------------
+
+_AGG_STACKS_MAX = 8  # device stacks kept per pack (distinct field tuples)
+_AGG_LOCK = threading.Lock()  # the pack's agg dicts (no device work under it)
+
+
+def agg_doc_rows(seg: FrozenSegment, field: str) -> np.ndarray | None:
+    """Per-doc metric folds of one numeric column: float32 [5, doc_count]
+    rows (count, sum, min, max, sumsq), or None when the column is
+    INTEGER-valued but not exactly float32-representable (longs and dates
+    past 2^24 stay on the exact host collectors); a fractional column is an
+    approximate real and takes the float32 launch. Multi-valued docs fold
+    exactly (cumsum difference and reduceat over the CSR); a doc without a
+    value has count 0 and ±inf min/max, which the masked reductions skip."""
+    D = seg.doc_count
+    rows = np.zeros((5, D), dtype=np.float32)
+    rows[2] = np.inf
+    rows[3] = -np.inf
+    col = seg.dv_num.get(field)
+    if col is None:
+        return rows
+    off, vals = col
+    if len(vals) and not np.array_equal(
+            vals.astype(np.float32).astype(np.float64), vals) \
+            and np.all(vals == np.floor(vals)):
+        return None
+    counts = np.diff(off)
+    c = np.zeros(len(vals) + 1)
+    np.cumsum(vals, out=c[1:])
+    sums = c[off[1:]] - c[off[:-1]]
+    c2 = np.zeros(len(vals) + 1)
+    np.cumsum(np.asarray(vals, dtype=np.float64) ** 2, out=c2[1:])
+    sumsq = c2[off[1:]] - c2[off[:-1]]
+    has = counts > 0
+    if len(vals):
+        # reduceat over the value-holding docs' own start offsets, so a run
+        # never absorbs the next docs' (empty) runs
+        starts = off[:-1][has]
+        rows[2][has] = np.minimum.reduceat(vals, starts)
+        rows[3][has] = np.maximum.reduceat(vals, starts)
+    rows[0] = counts
+    rows[1] = sums
+    rows[4] = sumsq
+    return rows
+
+
+def _pad_agg_rows(rows: np.ndarray, doc_pad: int) -> np.ndarray:
+    """[5, D] rows in a [5, doc_pad] canvas (padding: count 0, ±inf)."""
+    out = np.zeros((5, doc_pad), dtype=np.float32)
+    out[2] = np.inf
+    out[3] = -np.inf
+    out[:, : rows.shape[1]] = rows
+    return out
+
+
+def ensure_agg_rows(seg: FrozenSegment, packed: PackedSegment, fields,
+                    breaker=None) -> torch.Tensor | None:
+    """The resident [F, 5, Dpad] float32 stack of `fields` on the pack's
+    device, or None when a column is not f32-exact (the host collectors
+    serve the request). Per-field rows cache on the host; the device stacks,
+    one per field tuple, are FIFO-bounded. `breaker` (fielddata) holds the
+    stack's bytes (host rows and device copy) while it is built. The upload
+    is a pinned, non-blocking copy; the dicts are published under a lock
+    that covers no device work."""
+    key = tuple(fields)
+    stack = packed.agg_stacks.get(key)
+    if stack is not None:
+        return stack
+    est = len(key) * 5 * packed.doc_pad * 4 * 2
+    with reserve(breaker, est, f"<agg_rows>{list(key)}"):
+        rows = {}
+        for f in key:
+            r = packed.agg_rows.get(f, False)
+            if r is False:
+                folds = agg_doc_rows(seg, f)
+                r = None if folds is None else _pad_agg_rows(folds, packed.doc_pad)
+                with _AGG_LOCK:
+                    packed.agg_rows[f] = r
+            if r is None:
+                return None
+            rows[f] = r
+        stack = upload_pinned(np.stack([rows[f] for f in key]) if key else
+                              np.zeros((0, 5, packed.doc_pad), np.float32),
+                              packed.device)
+    with _AGG_LOCK:
+        while len(packed.agg_stacks) >= _AGG_STACKS_MAX:
+            packed.agg_stacks.pop(next(iter(packed.agg_stacks)), None)
+        packed.agg_stacks[key] = stack
+    return stack
 
 
 # ---------------------------------------------------------------------------

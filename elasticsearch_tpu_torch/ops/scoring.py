@@ -18,10 +18,15 @@ packed segment:
 
 The dense family runs the dense program's core (`_dense_accumulate`,
 `_dense_semantics`) with a tail per request feature, all torch ops (the JAX
-package's XLA programs B4 and B6's F=0 core, not Pallas kernels):
+package's XLA programs B4, B5 and B6, not Pallas kernels):
 
-- `_dense_filtered_impl`: `match & fmask` — a FilteredQuery's filter (or a
-  post filter) gates matching, never scoring;
+- `_dense_aggstats_impl`: `match & fmask` — a FilteredQuery's filter (or a
+  post filter) gates matching, never scoring — then the metric stats
+  (`agg_stat_reduction`) and the bucket counts (`_bucket_scatter`) of the
+  aggregations under the match; with no aggregation it is the filtered core
+  (the JAX package's `score_filtered_batch` is its F=0 call too);
+- `_dense_sort_impl`: the top k by a pre-folded field-sort key row, ties to
+  the lower doc;
 - `_fs_rows_impl`: function_score whose functions never read `_score`: one
   host-combined float32 row a segment (`search/functions.combined_doc_rows`),
   then `max_boost`, `boost_mode`, the outer boost and `min_score`, in the
@@ -331,13 +336,78 @@ def _fs_script_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
     return top_scores, top_docs, total, bad
 
 
-def _dense_filtered_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
+def agg_stat_reduction(match, agg_rows):
+    """Masked metric stats under a match mask. match: bool [Q, Dpad];
+    agg_rows: f32 [F, 5, Dpad] per-doc folds (device_index.agg_doc_rows:
+    count, sum, min, max, sumsq). Returns (counts int32 [Q, F], stats f32
+    [Q, F, 4] = (sum, min, max, sumsq)). Counts are an exact int32
+    reduction. The sums are masked float32 reductions, not a matmul: the
+    JAX package's `[Q, Dpad] @ [Dpad, 2F]` product would follow a
+    process-wide TF32 switch on the card (`torch.backends.cuda.matmul.
+    allow_tf32`, `set_float32_matmul_precision`), which rounds a fractional
+    value to 11 bits; a reduction never does."""
+    F = agg_rows.shape[0]
+    m = match[:, None, :]  # [Q, 1, Dpad]
+    lin = torch.cat([agg_rows[:, 1], agg_rows[:, 4]], dim=0)  # [2F, Dpad]
+    sums2 = torch.where(m, lin[None], 0.0).sum(dim=2)  # [Q, 2F]
+    cnt_rows = agg_rows[:, 0].to(torch.int32)  # [F, Dpad]
+    counts = torch.where(m, cnt_rows[None], 0).sum(dim=2, dtype=torch.int32)
+    has = m & (agg_rows[None, :, 0, :] > 0)  # [Q, F, Dpad]
+    mins = torch.where(has, agg_rows[None, :, 2, :], float("inf")).amin(dim=2)
+    maxs = torch.where(has, agg_rows[None, :, 3, :], float("-inf")).amax(dim=2)
+    stats = torch.stack([sums2[:, :F], mins, maxs, sums2[:, F:]], dim=2)
+    return counts, stats
+
+
+def _bucket_scatter(match, pdoc, pbucket, nb: int, sub_stack):
+    """One bucket agg's reductions: exact int32 doc counts per bucket over
+    its (doc, bucket) pairs (pdoc, pbucket int64 [NP]), plus, when the agg
+    carries metric sub-aggs (sub_stack [Fs, 5, Dpad]), per-bucket masked
+    stats of the per-doc folds scattered along the same pairs, so a doc
+    contributes once to each bucket it belongs to (the host's per-bucket
+    mask collection). The int32 scatters and the min/max ones give the same
+    result in any order; the float sums on the card add in no fixed order.
+    Returns (counts [Q, nb], sub counts [Q, Fs, nb] | None, sub stats
+    [Q, Fs, nb, 4] | None)."""
+    Q = match.shape[0]
+    hit = match[:, pdoc]  # [Q, NP]
+    counts = torch.zeros((Q, nb), dtype=torch.int32, device=match.device)
+    counts.index_add_(1, pbucket, hit.to(torch.int32))
+    if sub_stack is None:
+        return counts, None, None
+    Fs = sub_stack.shape[0]
+    m = hit[:, None, :]  # [Q, 1, NP]
+    cnt_g = sub_stack[:, 0][:, pdoc].to(torch.int32)  # [Fs, NP]
+    sub_cnt = torch.zeros((Q, Fs, nb), dtype=torch.int32, device=match.device)
+    sub_cnt.index_add_(2, pbucket, torch.where(m, cnt_g[None], 0))
+    has_vals = m & (cnt_g[None] > 0)  # min/max must ignore value-less docs
+    idx = pbucket.expand(Q, Fs, -1)
+    parts = []
+    for row, fill, op in ((1, 0.0, "add"), (2, float("inf"), "amin"),
+                          (3, float("-inf"), "amax"), (4, 0.0, "add")):
+        g = sub_stack[:, row][:, pdoc]  # [Fs, NP]
+        contrib = torch.where(m if op == "add" else has_vals, g[None], fill)
+        base = torch.full((Q, Fs, nb), fill, dtype=torch.float32,
+                          device=match.device)
+        if op == "add":
+            base.index_add_(2, pbucket, contrib)
+        else:
+            base.scatter_reduce_(2, idx, contrib, op)
+        parts.append(base)
+    return counts, sub_cnt, torch.stack(parts, dim=3)
+
+
+def _dense_aggstats_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
                          qidx, blk, weight, fidx, group, tfmode, n_must, msm,
-                         coord, fmask, *, n_queries: int, k: int, doc_pad: int):
-    """Dense core with per-query filter masks (fmask bool [Q, Dpad]) gating
-    matching — the JAX package's `_dense_aggstats_impl` with no agg rows and
-    no bucket pairs (the F=0 core `score_filtered_batch` launches).
-    Returns (scores [Q, k], docs i32, totals)."""
+                         coord, agg_rows, bucket_pairs, fmask, *, n_queries: int,
+                         k: int, doc_pad: int):
+    """Dense core + aggregations: per-query filter masks (fmask bool
+    [Q, Dpad], None: none) gate matching; the metric stats of `agg_rows`
+    (f32 [F, 5, Dpad], None: F = 0) and each bucket agg of `bucket_pairs`
+    ((pair docs, pair buckets, bucket count, sub-agg folds | None) each)
+    reduce under the match. With F = 0 and no bucket pairs it is the
+    filtered core the filtered family launches. Returns (scores [Q, k],
+    docs i32, totals, counts | None, stats | None, bucket results)."""
     Q = n_queries
     scores, flat_idx, valid = _dense_accumulate(
         blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
@@ -345,10 +415,47 @@ def _dense_filtered_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
     scores, match = _dense_semantics(scores, flat_idx, valid, group,
                                      live_parent, n_must, msm, coord,
                                      Q=Q, doc_pad=doc_pad)
-    match = match & fmask
+    if fmask is not None:
+        match = match & fmask
     masked = torch.where(match, scores, float("-inf"))
     top_scores, top_docs = top_k_lowest_index(masked, k)
+    counts, stats = (None, None) if agg_rows is None else \
+        agg_stat_reduction(match, agg_rows)
+    buckets = tuple(_bucket_scatter(match, pdoc, pbucket, nb, sub)
+                    for (pdoc, pbucket, nb, sub) in bucket_pairs)
     return (top_scores, top_docs.to(torch.int32),
+            match.sum(dim=1, dtype=torch.int32), counts, stats, buckets)
+
+
+def _dense_sort_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
+                     qidx, blk, weight, fidx, group, tfmode, n_must, msm, coord,
+                     fmask, key_row, *, n_queries: int, k: int, doc_pad: int,
+                     descending: bool):
+    """Dense core + field-sort top-k over a pre-folded f32 [Dpad] key row
+    (ascending semantics; sorting.device_sort_key_row bakes in the mode and
+    the missing policy). Ties go to the lower doc, as `lax.top_k` gives
+    them, and both order -0.0 below +0.0. Returns (keys [Q, k], docs i32,
+    the winners' scores, the top score over ALL matches (not only the
+    winners), totals)."""
+    Q = n_queries
+    scores, flat_idx, valid = _dense_accumulate(
+        blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
+        group, tfmode, Q=Q, doc_pad=doc_pad)
+    scores, match = _dense_semantics(scores, flat_idx, valid, group,
+                                     live_parent, n_must, msm, coord,
+                                     Q=Q, doc_pad=doc_pad)
+    if fmask is not None:
+        match = match & fmask
+    pad = float("-inf") if descending else float("inf")
+    sortable = torch.where(match, key_row[None, :], pad)
+    if descending:
+        top_keys, top_docs = top_k_lowest_index(sortable, k)
+    else:
+        neg, top_docs = top_k_lowest_index(-sortable, k)
+        top_keys = -neg
+    top_scores = torch.gather(scores, 1, top_docs)
+    qmax = torch.where(match, scores, float("-inf")).amax(dim=1)
+    return (top_keys, top_docs.to(torch.int32), top_scores, qmax,
             match.sum(dim=1, dtype=torch.int32))
 
 
@@ -384,9 +491,34 @@ def score_filtered_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
                                fmask):
     """Launch the filtered core; fmask is a bool [Q, Dpad] tensor on the
     pack's device. Returns device (scores, docs, totals) unsynchronised."""
-    return _dense_filtered_impl(
-        *_batch_args(packed, batch), fmask, n_queries=batch.n_queries,
-        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad)
+    return _dense_aggstats_impl(
+        *_batch_args(packed, batch), None, (), fmask, n_queries=batch.n_queries,
+        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad)[:3]
+
+
+def score_agg_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
+                          agg_rows, bucket_pairs=(), fmask=None):
+    """Launch the aggregating core: agg_rows f32 [F, 5, Dpad] (None: no
+    metric agg), bucket_pairs per bucket agg (pair docs, pair buckets int64
+    [NP], bucket count, sub-agg folds [Fs, 5, Dpad] | None), fmask bool
+    [Q, Dpad] | None, all on the pack's device. Returns device (scores,
+    docs, totals, counts, stats, bucket results) unsynchronised."""
+    return _dense_aggstats_impl(
+        *_batch_args(packed, batch), agg_rows, tuple(bucket_pairs), fmask,
+        n_queries=batch.n_queries, k=min(k, packed.doc_pad),
+        doc_pad=packed.doc_pad)
+
+
+def score_sorted_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
+                             key_row, descending: bool, fmask=None):
+    """Launch the field-sorted core: key_row f32 [Dpad], fmask bool
+    [Q, Dpad] | None, on the pack's device. Matched docs fill the first
+    min(total, k) slots of a query (padding ranks after the ±FLT_MAX keys
+    of missing values). Returns device (keys, docs, scores, top score,
+    totals) unsynchronised."""
+    return _dense_sort_impl(
+        *_batch_args(packed, batch), fmask, key_row, n_queries=batch.n_queries,
+        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad, descending=descending)
 
 
 def score_fs_rows_batch_async(packed: PackedSegment, batch: TermBatch, k: int,

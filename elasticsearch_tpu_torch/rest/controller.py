@@ -165,7 +165,7 @@ def _lenient_to_strict_json(text: str) -> str:
 _BULK_OPS = ("index", "create", "update", "delete")
 
 # `_search` query parameters the JAX node serves and this slice does not
-_LATER_SEARCH_PARAMS = ("q", "scroll", "sort", "fields", "profile",
+_LATER_SEARCH_PARAMS = ("q", "scroll", "fields", "profile",
                         "request_cache", "preference", "trace")
 
 
@@ -235,6 +235,12 @@ def build_rest_controller(node) -> RestController:
         for p in ("from", "size"):
             if req.param(p) is not None:
                 body[p] = int(req.param(p))
+        if req.param("sort"):
+            # ?sort=field:order,... (a bare name sorts ascending)
+            body["sort"] = [
+                ({s.split(":")[0]: s.split(":")[1]} if ":" in s else s)
+                for s in str(req.param("sort")).split(",")
+            ]
         if req.param("_source") is not None:
             sp = req.param("_source")
             body["_source"] = sp == "true" if sp in ("true", "false") \
@@ -255,7 +261,7 @@ def build_rest_controller(node) -> RestController:
             raise IllegalArgumentError(
                 f"search parameter(s) {later or ['search_type']} are not ported "
                 "yet (a later slice of the port): query strings, scrolls, "
-                "sorting, fields, profiles, the request cache and search types "
+                "fields, profiles, the request cache and search types "
                 "other than query_then_fetch")
         return client.search(req.path_params.get("index", "_all"), search_body(req),
                              routing=req.param("routing"))

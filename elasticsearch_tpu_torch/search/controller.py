@@ -1,15 +1,19 @@
 """The coordinating node's reduce across shards — a port of the JAX package's
-`search/controller.py` trimmed to score order: `sort_docs` merges the
-shards' top-k into the global top-(from+size) by (score desc, shard asc, doc
-asc), and `merge_responses` assembles `took`, `timed_out`, `_shards` and
-`hits`. Pure functions over shard results. DFS (`collect_dfs` /
-`aggregate_dfs`) and field sorting are later slices."""
+`search/controller.py`: `sort_docs` merges the shards' top-k into the global
+top-(from+size) by (score desc, shard asc, doc asc), or for a field sort by
+the hits' sort values (`compare_sort_values`), then shard, then doc; and
+`merge_responses` assembles `took`, `timed_out`, `_shards`, `hits` and the
+reduced `aggregations` and `facets`. Pure functions over shard results. DFS
+(`collect_dfs` / `aggregate_dfs`) is a later slice."""
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
+from .aggregations import facet_response, reduce_aggs
 from .service import ParsedSearchRequest, ShardQueryResult
+from .sorting import compare_sort_values
 
 
 @dataclass
@@ -23,9 +27,10 @@ class MergedTopDocs:
 
 def sort_docs(req: ParsedSearchRequest,
               shard_results: list[ShardQueryResult]) -> MergedTopDocs:
-    """Global top-(from+size) merge across shards in score order (score desc,
-    shard asc, doc asc). One shard-level partial (its deadline expired) marks
-    the whole merged result timed_out."""
+    """Global top-(from+size) merge across shards. Score order: (score desc,
+    shard asc, doc asc). Field order: the sort-value tuples through the
+    shared comparator, then shard, then doc. One shard-level partial (its
+    deadline expired) marks the whole merged result timed_out."""
     total = sum(r.total for r in shard_results)
     max_score = float("nan")
     for r in shard_results:
@@ -34,8 +39,13 @@ def sort_docs(req: ParsedSearchRequest,
                 else max(max_score, r.max_score)
     entries = [(score, r.shard_id, doc, sort_values)
                for r in shard_results for (score, doc, sort_values) in r.docs]
-    entries.sort(key=lambda e: (-e[0] if e[0] == e[0] else float("inf"),
-                                e[1], e[2]))
+    if req.sort:
+        entries.sort(key=functools.cmp_to_key(
+            lambda a, b: (compare_sort_values(a[3], b[3], req.sort)
+                          or (a[1] - b[1]) or (a[2] - b[2]))))
+    else:
+        entries.sort(key=lambda e: (-e[0] if e[0] == e[0] else float("inf"),
+                                    e[1], e[2]))
     k = req.from_ + req.size
     return MergedTopDocs(total=total, max_score=max_score, hits=entries[:k],
                          timed_out=any(r.timed_out for r in shard_results))
@@ -45,11 +55,9 @@ def merge_responses(req: ParsedSearchRequest, merged: MergedTopDocs,
                     shard_results: list[ShardQueryResult],
                     fetched_hits: list[dict], took_ms: int, total_shards: int,
                     successful: int, failures: list | None = None) -> dict:
-    """The response's `took`, `timed_out`, `_shards` and `hits` sections
-    (the JAX package's signature: `req` and `shard_results` feed the
-    sections of later slices — aggregations, suggest, profile).
-    `fetched_hits` are the hydrated hits of the page (the fetch phase is a
-    later slice: a caller passes what it has)."""
+    """The response: `took`, `timed_out`, `_shards`, `hits` (the hydrated
+    hits of the page), and the `aggregations` and `facets` reduced from every
+    shard's partials."""
     resp: dict = {
         "took": took_ms,
         "timed_out": merged.timed_out,
@@ -67,4 +75,13 @@ def merge_responses(req: ParsedSearchRequest, merged: MergedTopDocs,
     }
     if failures:
         resp["_shards"]["failures"] = failures
+    if req.aggs:
+        partials = [p for r in shard_results for p in r.agg_partials]
+        resp["aggregations"] = reduce_aggs(req.aggs, partials)
+    if req.facets:
+        facets = {}
+        for name, (agg, kind) in req.facets.items():
+            partials = [p[name] for r in shard_results for p in r.facet_partials]
+            facets[name] = facet_response(agg, kind, agg.finalize(agg.merge(partials)))
+        resp["facets"] = facets
     return resp

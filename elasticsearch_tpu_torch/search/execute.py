@@ -31,6 +31,17 @@ plans the query (`prepare_dense`), and a query the family hands back to the
 host scorer is served by its caller after the merge (`host_reruns`), so the
 batcher's drainer only launches and merges.
 
+A field sort or aggregations run a single plan from the calling thread, as
+in the JAX package (not through the batcher): `launch_flat_sorted` (the
+dense core's top k by a pre-folded sort-key row) and `launch_flat_aggs` (the
+dense core with the metric stats and bucket counts of the aggregations)
+launch every segment without synchronising and return a part whose
+`tensors()` the caller pulls once, with any other part of the request, and
+whose `collect()` merges the segments on the host (`execute_flat_sorted`,
+`execute_flat_aggs` do both for one plan, for the tests). `iter_match_masks`
+is the one per-segment (scores, match) source of the host scorer's top-k
+(`_host_search`) and of the general host path.
+
 A query that does not lower to a flat plan (phrases, multi-term expansion,
 spans, filters, a numeric term, a bool with a filter or with must_not only, a
 fuzzy match) runs on the host scorer (`HostScorer`): a recursive numpy
@@ -51,7 +62,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..common.cudaenv import default_device, pull_async, upload_pinned
+from ..common.breaker import reserve
+from ..common.cudaenv import default_device, pull_async, upload, upload_pinned
 from ..common.errors import NotPortedError, QueryParsingError, ScriptError
 from ..index.engine import Searcher
 from ..index.segment import FrozenSegment
@@ -59,6 +71,7 @@ from ..ops.device_index import (
     TFN_BM25,
     TFN_TFIDF,
     expand_ranges,
+    ensure_agg_rows,
     ensure_blk_freqs,
     ensure_sim_tables,
     packed_for,
@@ -72,12 +85,15 @@ from ..ops.scoring import (
     dense_chunk,
     finalize_score_result,
     launch_flat_sparse,
+    score_agg_batch_async,
     score_filtered_batch_async,
     score_fs_rows_batch_async,
     score_fs_script_batch_async,
+    score_sorted_batch_async,
     score_term_batch_async,
 )
 from ..ops.sparse_kernels import GROUP_MUST, GROUP_MUST_NOT, GROUP_SHOULD
+from .aggregations import _bucket_cache_put, bucket_cache_key, bucket_cols_for
 from .filters import Filter, IdsFilter, RangeFilter, TermFilter, segment_mask
 from .queries import (
     BoolQuery,
@@ -112,6 +128,7 @@ from .queries import (
     WildcardQuery,
 )
 from .similarity import BM25Similarity, SimilarityService, TFIDFSimilarity
+from .sorting import device_sort_key_row
 
 
 class ShardContext:
@@ -987,6 +1004,228 @@ def execute_flat_batch(plans: list[FlatPlan], ctx: ShardContext,
 
 
 # ---------------------------------------------------------------------------
+# single-plan field sort and aggregations (the JAX package launches these
+# from the shard's search thread, not through the batcher; so does the port)
+# ---------------------------------------------------------------------------
+
+
+def _single_plan_segments(plan: FlatPlan, ctx: ShardContext):
+    """A single plan's finalized tables, per segment (seg, base, packed),
+    and a function that builds a segment's one-query TermBatch (the dense
+    prologue run)."""
+    finals = [finalize_flat(plan, ctx)]
+    (all_fields, field_idx, _cache_rows, caches_stack,
+     coord_tbl, n_must, msm) = _assemble_batch([plan], finals)
+    segs = [(seg, base, packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata")))
+            for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases)]
+
+    def seg_batch(seg, packed):
+        _ensure_norm_rows(packed, all_fields, ctx.breaker("fielddata"))
+        entries = _dense_entries(finals, seg, packed, field_idx)
+        return build_term_batch(entries, 1, n_must, msm, coord_tbl,
+                                list(all_fields), caches_stack,
+                                nb_pad_row=packed.blk_docs.shape[0] - 1)
+
+    return segs, seg_batch
+
+
+def _plan_fmask(plan: FlatPlan, seg, packed, ctx: ShardContext):
+    """A plan's filter as a [1, Dpad] mask on the pack's device, or None."""
+    if plan.filt is None:
+        return None
+    return _filter_mask_row(plan.filt, seg, packed, ctx)[None, :]
+
+
+class _SortedPart:
+    """One field-sorted plan's launches, a result tuple (keys, docs,
+    scores, top score, totals) per segment."""
+
+    __slots__ = ("spec", "k", "seg_work")
+
+    def __init__(self, spec, k: int):
+        self.spec = spec
+        self.k = k
+        self.seg_work: list = []  # (segment index, base, device results)
+
+    def tensors(self) -> list:
+        return [t for (_si, _base, r) in self.seg_work for t in r]
+
+    def collect(self, flat):
+        """(total, max_score, [(key, global doc, segment index, local doc,
+        score)] in the host lexsort's order: key, then global doc)."""
+        total = 0
+        max_score = float("nan")
+        cand = []
+        for si, base, _r in self.seg_work:
+            keys, docs, scores, qmax, tq = (next(flat) for _ in range(5))
+            (seg_total,) = tq.tolist()
+            total += seg_total
+            if seg_total:
+                (m,) = qmax.tolist()
+                max_score = m if max_score != max_score else max(max_score, m)
+            n = min(seg_total, keys.shape[1])
+            cand.extend(
+                (ki, base + di, si, di, sc)
+                for ki, di, sc in zip(keys[0, :n].tolist(), docs[0, :n].tolist(),
+                                      scores[0, :n].tolist()))
+        cand.sort(key=lambda e: (-e[0] if self.spec.reverse else e[0], e[1]))
+        return total, max_score, cand[: max(self.k, 0)]
+
+
+def sort_key_rows(ctx: ShardContext, spec) -> list | None:
+    """Each segment's host sort-key row of `spec`
+    (sorting.device_sort_key_row), or None when a segment's column refuses
+    one. A caller checks this before it launches anything of the request,
+    so a refusal launches nothing."""
+    rows = []
+    for seg in ctx.searcher.segments:
+        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"))
+        row = device_sort_key_row(spec, seg, packed.doc_pad)
+        if row is None:
+            return None
+        rows.append(row)
+    return rows
+
+
+def launch_flat_sorted(plan: FlatPlan, ctx: ShardContext, k: int, spec,
+                       key_rows: list) -> _SortedPart:
+    """Launch a single plan's field-sorted dense program on every segment
+    without synchronising, ordered by `key_rows` (`sort_key_rows`)."""
+    segs, seg_batch = _single_plan_segments(plan, ctx)
+    part = _SortedPart(spec, k)
+    for si, ((seg, base, packed), row) in enumerate(zip(segs, key_rows)):
+        part.seg_work.append((si, base, score_sorted_batch_async(
+            packed, seg_batch(seg, packed), k, upload_pinned(row, packed.device),
+            spec.reverse, fmask=_plan_fmask(plan, seg, packed, ctx))))
+    return part
+
+
+def execute_flat_sorted(plan: FlatPlan, ctx: ShardContext, k: int, spec):
+    """Single-plan field-sorted execution: (total, max_score, ordered
+    entries [(key, global doc, segment index, local doc, score)]), or None
+    when a segment's column refuses device keys. One pull for the plan. The
+    entry the tests hold against the JAX package's of the same name; the
+    service launches through `launch_flat_sorted` and pulls a request once."""
+    key_rows = sort_key_rows(ctx, spec)
+    if key_rows is None:
+        return None
+    part = launch_flat_sorted(plan, ctx, k, spec, key_rows)
+    return part.collect(iter(pull_async(part.tensors()).wait()))
+
+
+def _bucket_pairs_on(agg, seg, packed, ctx: ShardContext):
+    """A bucket agg's (doc, bucket) pairs on one segment as device int64
+    tensors and its keys: the host pairs from `bucket_cols_for`, their
+    device copy cached on the pack under the same key, charged to the
+    fielddata breaker while it is built."""
+    pdoc, pbucket, keys = bucket_cols_for(agg, seg, ctx)
+    ck = bucket_cache_key(agg)
+    dev = packed.bucket_cols.get(ck)
+    if dev is None:
+        with reserve(ctx.breaker("fielddata"), 16 * len(pdoc), "<bucket_cols>"):
+            dev = (upload(pdoc.astype(np.int64), packed.device),
+                   upload(pbucket.astype(np.int64), packed.device),
+                   max(len(keys), 1))
+        dev = _bucket_cache_put(packed.bucket_cols, ck, dev)
+    return dev, keys
+
+
+class _AggPart:
+    """One aggregating plan's launches: per segment the top-k, the metric
+    stats and each bucket agg's counts (None entries are not pulled)."""
+
+    __slots__ = ("k", "seg_work")
+
+    def __init__(self, k: int):
+        self.k = k
+        self.seg_work: list = []  # (seg, base, doc_pad, bucket keys, results)
+
+    @staticmethod
+    def _flat(r) -> list:
+        scores, docs, tq, counts, stats, buckets = r
+        out = [scores, docs, tq] + ([] if counts is None else [counts, stats])
+        for b in buckets:
+            out.extend(t for t in b if t is not None)
+        return out
+
+    def tensors(self) -> list:
+        return [t for (_s, _b, _d, _k, r) in self.seg_work for t in self._flat(r)]
+
+    def collect(self, flat):
+        """(TopDocs, per segment (counts int [F], stats f32 [F, 4], [(keys,
+        bucket counts, sub counts | None, sub stats | None)]))."""
+        totals = np.zeros(1, dtype=np.int64)
+        seg_hits, seg_stats = [], []
+        for (seg, base, doc_pad, seg_keys, r) in self.seg_work:
+            scores, docs, tq = next(flat), next(flat), next(flat)
+            if r[3] is None:
+                counts, stats = np.zeros((1, 0), np.int32), np.zeros((1, 0, 4), np.float32)
+            else:
+                counts, stats = next(flat), next(flat)
+            buckets = []
+            for keys, (_c, sc, ss) in zip(seg_keys, r[5]):
+                bc = next(flat)
+                sub_c = None if sc is None else next(flat)[0]
+                sub_s = None if ss is None else next(flat)[0]
+                buckets.append((keys, bc[0], sub_c, sub_s))
+            totals += tq
+            seg_hits.append(_seg_hits(scores, docs, seg, base, doc_pad))
+            seg_stats.append((counts[0], stats[0], buckets))
+        return _merge_seg_hits(seg_hits, totals, 1, self.k)[0], seg_stats
+
+
+def launch_flat_aggs(plan: FlatPlan, ctx: ShardContext, k: int,
+                     fields: list[str], bucket_aggs=()) -> _AggPart | None:
+    """Launch a single plan's dense program with its aggregations on every
+    segment without synchronising: the metric stats of `fields` (numeric
+    columns) and, per (bucket agg, sub-agg field order | None) of
+    `bucket_aggs`, the counts over its (doc, bucket) pairs with its metric
+    sub-aggs' stats. None (nothing launched) when a column, on any segment,
+    is not f32-exact: the host collectors serve the request."""
+    segs, seg_batch = _single_plan_segments(plan, ctx)
+    fd = ctx.breaker("fielddata")
+    rows = []
+    for seg, _base, packed in segs:
+        stack = ensure_agg_rows(seg, packed, fields, breaker=fd) if fields else None
+        if fields and stack is None:
+            return None
+        subs = []
+        for _agg, sub_order in bucket_aggs:
+            sub = ensure_agg_rows(seg, packed, sub_order, breaker=fd) \
+                if sub_order else None
+            if sub_order and sub is None:
+                return None
+            subs.append(sub)
+        rows.append((stack, subs))
+    part = _AggPart(k)
+    for (seg, base, packed), (stack, subs) in zip(segs, rows):
+        pairs, seg_keys = [], []
+        for (agg, _order), sub in zip(bucket_aggs, subs):
+            (pdoc, pbucket, nb), keys = _bucket_pairs_on(agg, seg, packed, ctx)
+            pairs.append((pdoc, pbucket, nb, sub))
+            seg_keys.append(keys)
+        r = score_agg_batch_async(packed, seg_batch(seg, packed), k, stack,
+                                  pairs, fmask=_plan_fmask(plan, seg, packed, ctx))
+        part.seg_work.append((seg, base, packed.doc_pad, seg_keys, r))
+    return part
+
+
+def execute_flat_aggs(plan: FlatPlan, ctx: ShardContext, k: int,
+                      fields: list[str], bucket_aggs=()):
+    """Single-plan dense execution with the aggregations reduced in the
+    launch: (TopDocs, per-segment (counts int [F], stats float32 [F, 4] =
+    (sum, min, max, sumsq) over the matched docs, [(keys, counts, sub
+    counts | None, sub stats | None)] per bucket agg)), or (None, None)
+    when a column is not f32-exact. One pull for the plan. The entry the
+    tests hold against the JAX package's of the same name; the service
+    launches through `launch_flat_aggs` and pulls a request once."""
+    part = launch_flat_aggs(plan, ctx, k, fields, bucket_aggs)
+    if part is None:
+        return None, None
+    return part.collect(iter(pull_async(part.tensors()).wait()))
+
+
+# ---------------------------------------------------------------------------
 # host scorer (general path)
 # ---------------------------------------------------------------------------
 
@@ -1847,6 +2086,17 @@ def host_match_mask(query: Query, seg: FrozenSegment, ctx: ShardContext) -> np.n
     return match
 
 
+def iter_match_masks(ctx: ShardContext, query: Query):
+    """Lazily yield per-segment (scores, match over live, parent docs): a
+    deadline-aware caller (`_host_search`, the general host path of
+    execute_query_phase) stops between segments and keeps the segments
+    already scored as a partial result."""
+    qn = query_norm_for(query, ctx)
+    for seg in ctx.searcher.segments:
+        scores, match = HostScorer(ctx, seg, qn).eval(query)
+        yield scores, match & seg.live & seg.parent_mask
+
+
 # ---------------------------------------------------------------------------
 # shard-level entry points
 # ---------------------------------------------------------------------------
@@ -1904,27 +2154,20 @@ def search_shard_batch(ctx: ShardContext, queries: list[Query], k: int,
 
 
 def _host_search(ctx: ShardContext, query: Query, k: int,
-                 extra_filter: Filter | None = None, deadline=None,
-                 min_score: float | None = None) -> TopDocs:
-    """The host scorer's top-k over the searcher's segments. A hit must
-    score at least `min_score` and pass `extra_filter` (the post filter);
-    the total and `max_score` count the hits that do."""
-    qn = query_norm_for(query, ctx)
+                 deadline=None) -> TopDocs:
+    """The host scorer's top-k over the searcher's segments
+    (`iter_match_masks`), stopping between segments at the deadline."""
     all_scores: list[np.ndarray] = []
     all_docs: list[np.ndarray] = []
     total = 0
     timed_out = False
-    for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
+    masks = iter_match_masks(ctx, query)
+    for base in ctx.searcher.bases:
         # host-side segment boundary: expiry keeps the segments already scored
         if deadline is not None and deadline.expired():
             timed_out = True
             break
-        scores, match = HostScorer(ctx, seg, qn).eval(query)
-        match = match & seg.live & seg.parent_mask
-        if min_score is not None:
-            match = match & (scores >= np.float32(min_score))
-        if extra_filter is not None:
-            match = match & segment_mask(seg, extra_filter, ctx)
+        scores, match = next(masks)
         idx = np.nonzero(match)[0]
         total += len(idx)
         if len(idx):

@@ -1,11 +1,12 @@
 """Fetch phase: hydrate winning doc ids into hits (a trimmed copy of the JAX
 package's `search/fetch.py`: `filter_source`, `source_spec`, `build_hit`).
 
-A hit carries `_index`, `_type`, `_id`, `_score`, `_shard` and `_source`,
-the source whole, left out (`"_source": false`) or filtered by
-includes/excludes patterns. Highlighting, stored and script fields,
-`version` and sort values belong to later slices: `parse_search_body`
-refuses the body keys that ask for them."""
+A hit carries `_index`, `_type`, `_id`, `_score` (null in a sorted search
+without `track_scores`), `_shard`, `_source` — the source whole, left out
+(`"_source": false`) or filtered by includes/excludes patterns — and, in a
+sorted search, its `sort` values. Highlighting, stored and script fields and
+`version` belong to later slices: `parse_search_body` refuses the body keys
+that ask for them."""
 
 from __future__ import annotations
 
@@ -70,16 +71,19 @@ def source_spec(body: dict):
 
 
 def build_hit(seg, local: int, score: float, body: dict,
-              index_name: str = "index", shard_id: int | None = None) -> dict:
+              index_name: str = "index", sort_values: list | None = None,
+              shard_id: int | None = None) -> dict:
     hit: dict[str, Any] = {
         "_index": index_name,
         "_type": seg.types[local],
         "_id": seg.ids[local],
-        "_score": None if score != score else score,  # NaN → null
+        "_score": None if score != score else score,  # NaN → null (sorted hits)
     }
     if shard_id is not None:
         hit["_shard"] = shard_id
     enabled, includes, excludes = source_spec(body)
     if enabled and seg.stored[local] is not None:
         hit["_source"] = filter_source(seg.stored[local], includes, excludes)
+    if sort_values is not None:
+        hit["sort"] = sort_values
     return hit

@@ -29,7 +29,6 @@ from typing import Any
 
 import numpy as np
 
-from ..common.errors import NotPortedError
 from ..index.segment import FILTER_CACHE_KEY, FrozenSegment
 from ..mapper.core import parse_date_math
 
@@ -208,7 +207,8 @@ class PrefixFilter(Filter):
 @dataclass
 class ExistsFilter(Filter):
     """Docs with a value in the field: a posting, a numeric value, or a
-    string value that analyzed to no token (its count in `str_counts`)."""
+    string doc value (`dv_str`, which also holds a value that analyzed to no
+    token)."""
 
     field: str
 
@@ -226,9 +226,10 @@ class ExistsFilter(Filter):
         if col is not None:
             off, _ = col
             mask |= np.diff(off) > 0
-        counts = seg.str_counts.get(self.field)
-        if counts is not None:
-            mask |= counts > 0
+        scol = seg.dv_str.get(self.field)
+        if scol is not None:
+            _, off, _ = scol
+            mask |= np.diff(off) > 0
         return mask
 
 
@@ -384,10 +385,8 @@ class ScriptFilter(Filter):
 
 
 class DocAccess:
-    """Per-doc field access for scripts: doc['field'].value style. Numeric
-    doc values only: a segment keeps a string field's value count, not its
-    values (`FrozenSegment.str_counts`), so reading a string value raises
-    NotPortedError until the string doc values are ported."""
+    """Per-doc field access for scripts: doc['field'].value style, over the
+    numeric doc values, else the string ones."""
 
     def __init__(self, seg: FrozenSegment, local: int):
         self.seg = seg
@@ -397,13 +396,7 @@ class DocAccess:
         nums = self.seg.num_values(field, self.local)
         if len(nums):
             return FieldVal(list(nums))
-        counts = self.seg.str_counts.get(field)
-        if counts is not None and counts[self.local] > 0:
-            raise NotPortedError(
-                f"a script reading the string values of [{field}] is not "
-                "ported yet: string doc values come with the aggregations "
-                "and sorts, a later slice of the port")
-        return FieldVal([])
+        return FieldVal(self.seg.str_values(field, self.local))
 
 
 class FieldVal:

@@ -1,34 +1,47 @@
 """The shard's request entry: a search body → the query phase, on the card
 or on the host scorer — a port of the JAX package's `search/service.py`
 (`parse_search_body`, `ShardQueryResult`, `SERVING_COUNTERS`,
-`_execute_flat_single`, `execute_query_phase`).
+`_execute_flat_single`, `execute_query_phase`, `reduce_and_respond`).
 
 A body may carry `query` (none: match_all), `from`, `size`, `timeout`,
 `_source` (read by the fetch phase, `execute_fetch_phase`), `post_filter`
-(and the top-level `filter`, its older name) and `min_score`. Every other key
-is a request feature (aggregations, sorting, rescoring, suggesters,
-highlighting, explain, profiles, …) whose path is a later slice of the port:
-it raises QueryParsingError rather than being silently ignored.
+(and the top-level `filter`, its older name), `min_score`, `sort`,
+`track_scores`, `aggs` (or `aggregations`) and `facets`. Every other key is a
+request feature (rescoring, suggesters, highlighting, explain, profiles, …)
+whose path is a later slice of the port: it raises QueryParsingError rather
+than being silently ignored.
 
 `execute_query_phase` takes the JAX package's branches (its
-`search/service.py` :315-471, without the aggregation, sort and rescore
-halves, whose keys this slice refuses):
+`search/service.py` :315-603, without the rescore and suggest halves):
 
-- a body with neither `post_filter` nor `min_score` lowers to a flat plan
-  (a plain, `filtered` or `function_score` one) and runs on the card through
-  the batcher, or, when it does not lower, on the host scorer (`_host_topk`);
-- a `min_score` body without a post filter wraps its query in a
-  `FunctionScoreQuery(min_score=)`: when that lowers, the dense function
-  family's gate serves it on the card (counted `device_filtered`, as the
-  JAX package counts it);
-- a `post_filter` body without `min_score` whose query lowers to a plan
-  without functions runs on the dense filtered family, the post filter (and
-  the query's own filter) gating the hits (`device_filtered`);
-- every other body runs the general host path, the same top-k with the
-  `min_score` gate and the post filter, under a request-breaker reservation.
+- a body with no mask-needing feature lowers to a flat plan (a plain,
+  `filtered` or `function_score` one) and runs on the card through the
+  batcher, or, when it does not lower, on the host scorer (`_host_search`);
+- aggregations alone (every one device-eligible, the query lowering without
+  functions): one aggregating launch a segment (`_try_device_aggs`,
+  counted `device_aggs`);
+- a `min_score` body without a post filter (nor aggs or sort) wraps its
+  query in a `FunctionScoreQuery(min_score=)`: the dense function family's
+  gate serves it on the card (counted `device_filtered`, as the JAX package
+  counts it);
+- a `post_filter` body without `min_score` or sort whose query lowers to a
+  plan without functions runs on the dense filtered family, the post
+  filter (and the query's own filter) gating the hits; its aggregations,
+  when it has any, reduce over the query's own matches in a second launch
+  (`_try_device_post_filter`; `device_filtered`);
+- a sort on one numeric field (with device-eligible aggs or none): the
+  field-sorted launch orders the hits (`_try_device_sort`, `device_sort`);
+- every gated body (post filter, `min_score`, sort, aggregations, facets)
+  that no device branch serves runs the general host path: per-segment
+  score and match arrays, the gates, the sort keys, the host collectors of
+  the aggregations and facets, under a request-breaker reservation of
+  `max_doc * (5 + 16 * (aggs + facets))` bytes.
 
-Every device branch goes through the shard's batcher when one is wired, so
-a node's filtered, function_score and plain plans share its batches.
+A plain, filtered or function_score plan goes through the shard's batcher
+when one is wired, so a node's plans share its batches. The sorted and
+aggregating launches are single plans from the calling thread, as in the
+JAX package, and every device launch of one request is pulled behind one
+event (`cudaenv.pull_async`).
 
 There are no device fault domains in the port yet, so a device error on a
 lowerable body is not re-served by the host scorer: it is counted in
@@ -41,20 +54,40 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
+
+import numpy as np
 
 from ..common.breaker import reserve as breaker_reserve
+from ..common.cudaenv import pull_async
 from ..common.deadline import NO_DEADLINE, Deadline, parse_timevalue
 from ..common.errors import QueryParsingError, SearchEngineError
+from .aggregations import (
+    device_agg_field,
+    device_bucket_eligible,
+    device_bucket_partial,
+    device_bucket_subs,
+    device_partial,
+    facet_response,
+    parse_aggs,
+    parse_facets,
+    reduce_aggs,
+)
 from .execute import (
     ShardContext,
     TopDocs,
     _host_search,
+    _launch_filtered,
     execute_flat_batch,
+    iter_match_masks,
+    launch_flat_aggs,
+    launch_flat_sorted,
     lower_flat,
+    prepare_dense,
+    sort_key_rows,
 )
 from .fetch import build_hit
-from .filters import BoolFilter, Filter
+from .filters import BoolFilter, Filter, segment_mask
 from .queries import (
     FunctionScoreQuery,
     MatchAllQuery,
@@ -62,10 +95,17 @@ from .queries import (
     parse_filter,
     parse_query,
 )
+from .sorting import (
+    apply_missing,
+    parse_sort,
+    sort_key_column,
+    sort_values_for_docs,
+)
 
 # the body keys this slice serves; the rest belong to later slices
 _SERVED_KEYS = ("query", "from", "size", "timeout", "_source", "post_filter",
-                "filter", "min_score")
+                "filter", "min_score", "sort", "aggs", "aggregations", "facets",
+                "track_scores")
 
 
 @dataclass
@@ -74,8 +114,12 @@ class ParsedSearchRequest:
     post_filter: Filter | None
     from_: int
     size: int
+    sort: list  # list[SortSpec]
+    aggs: dict
+    facets: dict
     min_score: float | None
     body: dict
+    track_scores: bool = False
     # the request-body `timeout` in seconds (None: no budget)
     timeout_s: float | None = None
 
@@ -85,15 +129,16 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
     later = sorted(k for k in body if k not in _SERVED_KEYS)
     if later:
         raise QueryParsingError(
-            f"search body key(s) {later} are not ported yet: aggregations, "
-            "sorting, rescoring, suggesters and the rest of the request "
-            "features are later slices of the port")
+            f"search body key(s) {later} are not ported yet: rescoring, "
+            "suggesters, highlighting and the rest of the request features "
+            "are later slices of the port")
     try:
         timeout_s = parse_timevalue(body.get("timeout"))
     except ValueError as e:
         raise QueryParsingError(str(e)) from None  # malformed timeout is a 400
     query = parse_query(body.get("query")) if body.get("query") else MatchAllQuery()
-    # the top-level "filter" is the post filter (it gates hits only)
+    # the top-level "filter" is the post filter (it gates hits, not
+    # aggregations or facets)
     post_filter = parse_filter(body["filter"]) if body.get("filter") else \
         parse_filter(body["post_filter"]) if body.get("post_filter") else None
     return ParsedSearchRequest(
@@ -101,8 +146,12 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
         post_filter=post_filter,
         from_=int(body.get("from", 0)),
         size=int(body.get("size", 10)),
+        sort=parse_sort(body.get("sort")),
+        aggs=parse_aggs(body.get("aggs") or body.get("aggregations") or {}),
+        facets=parse_facets(body.get("facets") or {}),
         min_score=body.get("min_score"),
         body=body,
+        track_scores=bool(body.get("track_scores", False)),
         timeout_s=timeout_s,
     )
 
@@ -116,6 +165,8 @@ class ShardQueryResult:
     # [(score, global_doc, sort_values|None)] — length ≤ from+size
     docs: list
     max_score: float
+    agg_partials: list = dc_field(default_factory=list)  # one dict a segment
+    facet_partials: list = dc_field(default_factory=list)
     shard_id: int = 0
     # the deadline expired before any segment was scored, or between two
     # segments on the host scorer (the hits cover the segments scored)
@@ -130,6 +181,8 @@ SERVING_COUNTERS = {
     "device_sparse": 0,  # flat top-k served on the card's sparse path
     "device_function_score": 0,  # a function_score plan on the dense family
     "device_filtered": 0,  # filtered, post_filter or min_score on the dense family
+    "device_aggs": 0,  # aggregations reduced in the dense launch
+    "device_sort": 0,  # field-sorted launch (with or without aggregations)
     "device_errors": 0,  # the device path raised; the error reached the caller
     "host": 0,  # served by the host scorer
 }
@@ -155,12 +208,13 @@ def _execute_flat_single(ctx: ShardContext, plan, k: int,
 def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
                         use_device: bool = True, shard_id: int = 0,
                         deadline: Deadline | None = None) -> ShardQueryResult:
-    """The shard's query phase: top from+size (score, global doc) hits and
-    the total. The time budget is the coordinator's remaining budget when
-    given, else the request's own `timeout`; an expired budget answers
-    `timed_out` with nothing scored, the host scorer stops between segments,
-    and a launched batch always completes whole. `use_device=False` serves
-    every body on the host scorer."""
+    """The shard's query phase: top from+size (score, global doc, sort
+    values) hits, the total and the aggregation and facet partials. The time
+    budget is the coordinator's remaining budget when given, else the
+    request's own `timeout`; an expired budget answers `timed_out` with
+    nothing scored, the host scorer stops between segments, and a launched
+    batch always completes whole. `use_device=False` serves every body on
+    the host scorer."""
     if deadline is None:
         deadline = Deadline.after(req.timeout_s) if req.timeout_s is not None \
             else NO_DEADLINE
@@ -169,37 +223,69 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
         # budget gone before any segment was scored: legal partial = nothing
         return ShardQueryResult(total=0, docs=[], max_score=float("nan"),
                                 shard_id=shard_id, timed_out=True)
-    routed = device_plan(ctx, req) if use_device else None
-    if routed is not None:
-        plan, counter = routed
-        td = _device_topk(ctx, plan, k, deadline)
-        _count(counter)
-        # the kernel runs at k >= 1; the min_score and post_filter branches
-        # trim to the page, as the JAX package's do
-        hits = td.hits if req.post_filter is None and req.min_score is None \
-            else td.hits[: max(k, 0)]
-        return ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in hits],
-                                max_score=td.max_score, shard_id=shard_id)
-    if req.post_filter is None and req.min_score is None:
-        _count("host")
-        td = _host_topk(ctx, req, k, deadline)
-    else:
-        # the general host path: its per-segment score and match arrays are
-        # reserved on the request breaker up front
-        with breaker_reserve(ctx.breaker("request"), ctx.searcher.max_doc * 5,
-                             "<query_phase_host>"):
-            _count("host")
-            td = _host_topk(ctx, req, k, deadline)
-    return ShardQueryResult(total=td.total,
-                            docs=[(s, d, None) for s, d in td.hits],
+    if use_device:
+        device = _device_branch(ctx, req, k, shard_id, deadline)
+        if device is not None:
+            return device
+    if req.aggs or req.facets or req.sort or req.post_filter is not None \
+            or req.min_score is not None:
+        return _general_host_path(ctx, req, k, shard_id, deadline)
+    _count("host")
+    td = _host_search(ctx, req.query, max(k, 1), deadline=deadline)
+    return ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in td.hits],
                             max_score=td.max_score, shard_id=shard_id,
                             timed_out=td.timed_out)
 
 
+def _device_branch(ctx: ShardContext, req: ParsedSearchRequest, k: int,
+                   shard_id: int, deadline: Deadline) -> ShardQueryResult | None:
+    """The device branches of the module docstring, in the JAX package's
+    order; None when the host scorer serves the body. A device error is
+    counted and raised."""
+    try:
+        if req.aggs and not (req.facets or req.sort) and req.post_filter is None \
+                and req.min_score is None:
+            res = _try_device_aggs(ctx, req, k, shard_id)
+            if res is not None:
+                _count("device_aggs")
+            return res
+        if req.sort and len(req.sort) == 1 and not req.facets \
+                and req.post_filter is None and req.min_score is None:
+            res = _try_device_sort(ctx, req, k, shard_id)
+            if res is not None:
+                _count("device_sort")
+            return res
+        if req.aggs and req.post_filter is not None and not (req.sort or req.facets) \
+                and req.min_score is None:
+            res = _try_device_post_filter(ctx, req, k, shard_id)
+            if res is not None:
+                _count("device_filtered")
+            return res
+        routed = device_plan(ctx, req)
+        if routed is None:
+            return None
+        plan, counter = routed
+        td = _execute_flat_single(ctx, plan, max(k, 1), deadline)
+    except SearchEngineError:
+        raise  # breaker trips, parsing or script errors are the answer itself
+    except Exception:
+        _count("device_errors")
+        raise
+    _count(counter)
+    # the kernel runs at k >= 1; the min_score and post_filter branches trim
+    # to the page, as the JAX package's do
+    hits = td.hits if req.post_filter is None and req.min_score is None \
+        else td.hits[: max(k, 0)]
+    return ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in hits],
+                            max_score=td.max_score, shard_id=shard_id)
+
+
 def device_plan(ctx: ShardContext, req: ParsedSearchRequest):
-    """The flat plan a request runs on the card, and the serving counter it
-    moves, or None when the host scorer serves it (the branches of the
-    module docstring)."""
+    """The flat plan a request without sort, aggregations or facets runs on
+    the card through the batcher, and the serving counter it moves, or None
+    (another branch, or the host scorer, serves it)."""
+    if req.aggs or req.facets or req.sort:
+        return None
     if req.post_filter is None and req.min_score is None:
         plan = lower_flat(req.query, ctx)
         if plan is None:
@@ -217,31 +303,261 @@ def device_plan(ctx: ShardContext, req: ParsedSearchRequest):
         plan = lower_flat(req.query, ctx)
         if plan is None or plan.fs is not None:
             return None
-        hit_filter = req.post_filter if plan.filt is None else \
-            BoolFilter(must=[plan.filt, req.post_filter])
-        return dataclasses.replace(plan, filt=hit_filter), "device_filtered"
+        return _hit_plan(plan, req.post_filter), "device_filtered"
     return None
 
 
-def _device_topk(ctx: ShardContext, plan, k: int, deadline: Deadline) -> TopDocs:
-    """One plan on the card: a device error is counted and raised (there are
-    no device fault domains in the port yet); breaker trips and parsing or
-    script errors are the answer itself."""
-    try:
-        return _execute_flat_single(ctx, plan, max(k, 1), deadline)
-    except SearchEngineError:
-        raise
-    except Exception:
-        _count("device_errors")
-        raise
+def _hit_plan(plan, post_filter: Filter):
+    """The plan whose hits pass the query's own filter and the post filter."""
+    hit_filter = post_filter if plan.filt is None else \
+        BoolFilter(must=[plan.filt, post_filter])
+    return dataclasses.replace(plan, filt=hit_filter)
 
 
-def _host_topk(ctx: ShardContext, req: ParsedSearchRequest, k: int,
-               deadline: Deadline = NO_DEADLINE) -> TopDocs:
-    """The host scorer's top-k; a hit must reach `min_score` and pass the
-    post filter, and the total and `max_score` count only such hits."""
-    return _host_search(ctx, req.query, max(k, 1), extra_filter=req.post_filter,
-                        deadline=deadline, min_score=req.min_score)
+def _agg_launch(ctx: ShardContext, req: ParsedSearchRequest, k: int):
+    """Launch the request's aggregations with its query in one aggregating
+    launch a segment, without synchronising: (the launch part, a function
+    from its collected per-segment stats to the agg partials), or None when
+    an aggregation, a column or the query needs the host path (nothing
+    launched). Metric aggs reduce to masked stats, bucket aggs
+    (terms/histogram/range/filter/… with metric sub-aggs) to exact counts
+    over host-built (doc, bucket) pairs."""
+    metric_fields = {}
+    bucket_names = []
+    bucket_subs: dict[str, tuple] = {}
+    for name, agg in req.aggs.items():
+        f = device_agg_field(agg, ctx)
+        if f is not None:
+            metric_fields[name] = f
+        elif device_bucket_eligible(agg):
+            subs = device_bucket_subs(agg, ctx) if agg.subs else {}
+            if subs is None:
+                return None  # a sub-agg can't ride the launch
+            bucket_names.append(name)
+            # one field order for the launch's stack and the partials' rows
+            bucket_subs[name] = (subs, sorted(set(subs.values())))
+        else:
+            return None
+    plan = lower_flat(req.query, ctx)
+    if plan is None or plan.fs is not None:
+        return None
+    fields = sorted(set(metric_fields.values()))
+    fpos = {f: i for i, f in enumerate(fields)}
+    bucket_aggs = [(req.aggs[n], bucket_subs[n][1] or None) for n in bucket_names]
+    part = launch_flat_aggs(plan, ctx, max(k, 1), fields, bucket_aggs)
+    if part is None:
+        return None  # a column wasn't f32-exact — host path
+    bpos = {n: i for i, n in enumerate(bucket_names)}
+
+    def bucket_partial(name, agg, buckets, seg):
+        keys, bcounts, sub_cnt, sub_stats = buckets[bpos[name]]
+        field_of, order = bucket_subs[name]
+        sub_data = (agg.subs, field_of, order, sub_cnt, sub_stats) if field_of else None
+        return device_bucket_partial(agg, keys, bcounts, seg=seg, sub_data=sub_data)
+
+    def partials(seg_stats) -> list[dict]:
+        return [
+            {name: (device_partial(agg, counts[fpos[metric_fields[name]]],
+                                   stats[fpos[metric_fields[name]]])
+                    if name in metric_fields
+                    else bucket_partial(name, agg, buckets, seg))
+             for name, agg in req.aggs.items()}
+            for (counts, stats, buckets), seg in zip(seg_stats, ctx.searcher.segments)]
+
+    return part, partials
+
+
+def _pull(parts: list):
+    """The request's one pull: every part's result tensors behind one event."""
+    return iter(pull_async([t for p in parts for t in p.tensors()]).wait())
+
+
+def _try_device_aggs(ctx: ShardContext, req: ParsedSearchRequest, k: int,
+                     shard_id: int = 0) -> ShardQueryResult | None:
+    """The query and its aggregations in one aggregating launch a segment;
+    None when an aggregation (or the query) needs the host path."""
+    launched = _agg_launch(ctx, req, k)
+    if launched is None:
+        return None
+    part, partials = launched
+    td, seg_stats = part.collect(_pull([part]))
+    # the launch's k is at least 1 so max_score stays observable; the hits
+    # trim to the page (size 0: none, as on the host path)
+    return ShardQueryResult(
+        total=td.total, docs=[(s, d, None) for s, d in td.hits[: max(k, 0)]],
+        max_score=td.max_score, agg_partials=partials(seg_stats),
+        shard_id=shard_id)
+
+
+def _try_device_post_filter(ctx: ShardContext, req: ParsedSearchRequest, k: int,
+                            shard_id: int = 0) -> ShardQueryResult | None:
+    """A post filter with aggregations: the aggregating launch sees the
+    query's own matches, the hit launch (the filtered core) gates on the
+    query's filter and the post filter — the host path's split — and one
+    pull serves both."""
+    plan = lower_flat(req.query, ctx)
+    if plan is None or plan.fs is not None:
+        return None
+    launched = _agg_launch(ctx, req, 0)
+    if launched is None:
+        return None
+    agg_part, partials = launched
+    hit_plan = _hit_plan(plan, req.post_filter)
+    hit_part = _launch_filtered([0], [hit_plan], prepare_dense([hit_plan], ctx),
+                                ctx, max(k, 1))
+    flat = _pull([agg_part, hit_part])
+    _td, seg_stats = agg_part.collect(flat)
+    (td,) = hit_part.collect(flat, max(k, 1))
+    return ShardQueryResult(
+        total=td.total, docs=[(s, d, None) for s, d in td.hits[: max(k, 0)]],
+        max_score=td.max_score, agg_partials=partials(seg_stats),
+        shard_id=shard_id)
+
+
+def _try_device_sort(ctx: ShardContext, req: ParsedSearchRequest, k: int,
+                     shard_id: int = 0) -> ShardQueryResult | None:
+    """A one-field sort: the field-sorted launch orders the hits; None when
+    the spec, a column or the query needs the host path. The response's sort
+    VALUES come from the host extractor (exact float64, None for missing);
+    only the order rides the card. Device-eligible aggregations ride a
+    second launch over the same match set (any other sends the request to
+    the host path), pulled with the sorted one."""
+    spec = req.sort[0]
+    if spec.kind != "field":
+        return None
+    plan = lower_flat(req.query, ctx)
+    if plan is None or plan.fs is not None:
+        return None
+    # every refusal comes before the first launch: the key rows, then the
+    # aggregations' eligibility (`_agg_launch` launches only when all pass)
+    key_rows = sort_key_rows(ctx, spec)
+    if key_rows is None:
+        return None
+    parts, partials = [], None
+    if req.aggs:
+        launched = _agg_launch(ctx, req, 0)
+        if launched is None:
+            return None  # a host-only agg sends the whole request host-side
+        parts.append(launched[0])
+        partials = launched[1]
+    sorted_part = launch_flat_sorted(plan, ctx, max(k, 1), spec, key_rows)
+    flat = _pull(parts + [sorted_part])
+    agg_partials = partials(parts[0].collect(flat)[1]) if parts else []
+    total, max_score, entries = sorted_part.collect(flat)
+    values_by_rank = _sort_values_by_rank(
+        req.sort, ctx, [(si, local) for (_key, _g, si, local, _s) in entries])
+    docs = [
+        (s if req.track_scores else float("nan"), g, values_by_rank[rank])
+        for rank, (_key, g, _si, _local, s) in enumerate(entries)
+    ][: max(k, 0)]
+    return ShardQueryResult(total=total, docs=docs, max_score=max_score,
+                            agg_partials=agg_partials, shard_id=shard_id)
+
+
+def _general_host_path(ctx: ShardContext, req: ParsedSearchRequest, k: int,
+                       shard_id: int, deadline: Deadline) -> ShardQueryResult:
+    """The general host path of the JAX package: per-segment (scores,
+    match) from the host scorer, the `min_score` gate, the post filter on
+    the hits only, the sort keys (or the score), the aggregation and facet
+    partials over the un-post-filtered matches. The whole materialization
+    is reserved on the request breaker up front; the deadline is checked
+    between segments (a partial answer is `timed_out`). The order is the
+    JAX package's Python sort over (keys, global doc), computed as one
+    lexsort over the same keys."""
+    est = ctx.searcher.max_doc * (5 + 16 * (len(req.aggs) + len(req.facets)))
+    with breaker_reserve(ctx.breaker("request"), est, "<query_phase_host>"):
+        _count("host")
+        timed_out = False
+        seg_results = []
+        masks_iter = iter_match_masks(ctx, req.query)
+        seg_masks_for_aggs = []
+        key_parts, score_parts, g_parts, si_parts, local_parts = [], [], [], [], []
+        total = 0
+        max_score = float("nan")
+        for si, (seg, base) in enumerate(zip(ctx.searcher.segments,
+                                             ctx.searcher.bases)):
+            if si > 0 and deadline.expired():
+                timed_out = True
+                break
+            scores, match = next(masks_iter)
+            seg_results.append((scores, match))
+            if req.min_score is not None:
+                match = match & (scores >= np.float32(req.min_score))
+            seg_masks_for_aggs.append((seg, match, scores))
+            hit_mask = match
+            if req.post_filter is not None:
+                hit_mask = match & segment_mask(seg, req.post_filter, ctx)
+            idx = np.nonzero(hit_mask)[0]
+            total += len(idx)
+            if not len(idx):
+                continue
+            seg_scores = scores[idx]
+            m = float(seg_scores.max())
+            max_score = m if max_score != max_score else max(max_score, m)
+            if req.sort:
+                key_parts.append([
+                    apply_missing(sort_key_column(spec, seg, ctx, scores), spec)[idx]
+                    * (-1.0 if spec.reverse else 1.0) for spec in req.sort])
+            else:
+                key_parts.append([-seg_scores.astype(np.float64)])
+            score_parts.append(seg_scores)
+            g_parts.append(base + idx.astype(np.int64))
+            si_parts.append(np.full(len(idx), si, np.int64))
+            local_parts.append(idx)
+        top = []
+        if score_parts:
+            gdocs = np.concatenate(g_parts)
+            keys = [np.concatenate([kp[j] for kp in key_parts])
+                    for j in range(len(key_parts[0]))]
+            order = np.lexsort([gdocs] + keys[::-1])[: max(k, 0)]
+            scores_all = np.concatenate(score_parts)
+            si_all, local_all = np.concatenate(si_parts), np.concatenate(local_parts)
+            top = [(float(scores_all[i]), int(gdocs[i]), int(si_all[i]),
+                    int(local_all[i])) for i in order]
+        if req.sort:
+            sort_vals_by_rank = _sort_values_by_rank(
+                req.sort, ctx, [(si, local) for (_s, _g, si, local) in top],
+                scores_by_seg={si: r[0] for si, r in enumerate(seg_results)})
+            score_in_sort = _score_in_sort(req.sort)
+            docs = [(s if req.track_scores or score_in_sort else float("nan"), g,
+                     sort_vals_by_rank[rank])
+                    for rank, (s, g, _si, _l) in enumerate(top)]
+        else:
+            docs = [(s, g, None) for (s, g, _si, _l) in top]
+        agg_partials = [
+            {n: a.collect(seg, ctx, mask, scores) for n, a in req.aggs.items()}
+            for seg, mask, scores in seg_masks_for_aggs] if req.aggs else []
+        facet_partials = [
+            {n: agg.collect(seg, ctx, mask, scores)
+             for n, (agg, _kind) in req.facets.items()}
+            for seg, mask, scores in seg_masks_for_aggs] if req.facets else []
+        return ShardQueryResult(
+            total=total, docs=docs, max_score=max_score, agg_partials=agg_partials,
+            facet_partials=facet_partials, shard_id=shard_id, timed_out=timed_out)
+
+
+def _sort_values_by_rank(specs: list, ctx: ShardContext, seg_locals: list,
+                         scores_by_seg: dict | None = None) -> dict:
+    """rank -> sort-value list, extracted per segment so the column reads
+    vectorize — the one site of the response's "sort" arrays (host path and
+    device sort). seg_locals: (segment index, local doc) per rank;
+    scores_by_seg supplies the score arrays of `_score` specs (host path)."""
+    by_seg: dict[int, list[int]] = {}
+    for rank, (si, _local) in enumerate(seg_locals):
+        by_seg.setdefault(si, []).append(rank)
+    out: dict[int, list] = {}
+    for si, ranks in by_seg.items():
+        seg = ctx.searcher.segments[si]
+        locals_ = np.asarray([seg_locals[r][1] for r in ranks])
+        scores = scores_by_seg.get(si) if scores_by_seg else None
+        vals = sort_values_for_docs(specs, seg, ctx, locals_, scores)
+        for r, v in zip(ranks, vals):
+            out[r] = v
+    return out
+
+
+def _score_in_sort(sort: list) -> bool:
+    return any(s.kind == "score" for s in sort)
 
 
 def execute_fetch_phase(ctx: ShardContext, req: ParsedSearchRequest,
@@ -250,8 +566,38 @@ def execute_fetch_phase(ctx: ShardContext, req: ParsedSearchRequest,
     """docs: [(score, global_doc, sort_values|None)], the winners to
     hydrate from the context's point-in-time searcher."""
     hits = []
-    for score, g, _sort_values in docs:
+    for score, g, sort_values in docs:
         seg, local = ctx.searcher.resolve(g)
-        hits.append(build_hit(seg, local, score, req.body,
-                              index_name=index_name, shard_id=shard_id))
+        hits.append(build_hit(seg, local, score, req.body, index_name=index_name,
+                              sort_values=sort_values, shard_id=shard_id))
     return hits
+
+
+def reduce_and_respond(ctx: ShardContext, req: ParsedSearchRequest,
+                       result: ShardQueryResult, took_ms: int = 0,
+                       index_name: str = "index") -> dict:
+    """Single-shard convenience: query result → full response body. The
+    entry the tests hold against the JAX package's of the same name; a node
+    reduces its shards' results in `controller.merge_responses`."""
+    page = result.docs[req.from_: req.from_ + req.size]
+    hits = execute_fetch_phase(ctx, req, page, index_name=index_name)
+    resp: dict = {
+        "took": took_ms,
+        "timed_out": False,
+        "_shards": {"total": 1, "successful": 1, "failed": 0},
+        "hits": {
+            "total": result.total,
+            "max_score": None if result.max_score != result.max_score
+            else result.max_score,
+            "hits": hits,
+        },
+    }
+    if req.aggs:
+        resp["aggregations"] = reduce_aggs(req.aggs, result.agg_partials)
+    if req.facets:
+        resp["facets"] = {
+            name: facet_response(agg, kind, agg.finalize(agg.merge(
+                [p[name] for p in result.facet_partials])))
+            for name, (agg, kind) in req.facets.items()
+        }
+    return resp

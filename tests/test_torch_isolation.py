@@ -43,6 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "common.stream", "common.xcontent", "common.units",
                  "search.filters", "search.queries", "index.segment",
                  "mapper.core", "__main__", "script", "search.functions",
-                 "ops.device_index", "ops.scoring"):
+                 "ops.device_index", "ops.scoring", "common.sketches",
+                 "search.sorting", "search.aggregations"):
         assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []

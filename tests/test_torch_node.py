@@ -51,6 +51,7 @@ from elasticsearch_tpu_torch.common.cudaenv import DeviceUnavailableError
 from elasticsearch_tpu_torch.node import Node as PNode
 from elasticsearch_tpu_torch.search.service import SERVING_COUNTERS
 from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry as PReg
+from tests.test_torch_aggs import _agg_equal
 from tests.test_torch_dense import _tie_tolerant_equal, _within_ulps
 
 WORDS = [f"w{i}" for i in range(30)]
@@ -286,7 +287,7 @@ def test_whole_cluster_search_and_health_match_jax_node(nodes):
 def test_port_refuses_what_it_does_not_serve(nodes):
     pbase, jbase, _p = nodes
     st, r = call(pbase, "POST", "/three/_search",
-                 {"query": {"match": {"body": "w1"}}, "aggs": {"m": {"max": {"field": "n"}}}})
+                 {"query": {"match": {"body": "w1"}}, "highlight": {"fields": {"body": {}}}})
     assert st == 400 and r["error"]["type"] == "QueryParsingException"
     assert "later slice" in r["error"]["reason"]
     for base in (pbase, jbase):
@@ -588,3 +589,79 @@ def test_failed_query_phase_leaves_no_context_pinned(dsl_nodes, monkeypatch):
     st, r = call(pbase, "POST", "/qt/_search", {"query": {"match": {"body": "fox"}}})
     assert st == 500 and "device lost" in r["error"]["reason"]
     assert p.actions.pinned_contexts() == 0
+
+
+# -- field sort, aggregations and facets over REST ---------------------------
+
+# (body, the port's serving counter a shard moves, the query string)
+SORT_AGG_CASES = {
+    "sort_desc": ({"query": {"match": {"body": "w1 w2"}}, "sort": [{"n": "desc"}],
+                   "size": 20}, "device_sort", ""),
+    "sort_track_scores": ({"query": {"match": {"body": "w3"}},
+                           "sort": [{"n": {"order": "asc", "missing": "_first"}}],
+                           "track_scores": True, "size": 15}, "device_sort", ""),
+    "sort_url": ({"query": {"match": {"body": "w4 w5"}}, "size": 12}, "device_sort",
+                 "?sort=n:desc"),
+    "sort_string_then_score": ({"query": {"match": {"body": "w6"}},
+                                "sort": [{"meta.tag": "desc"}, "_score"], "size": 25},
+                               "host", ""),
+    "aggs": ({"query": {"match": {"body": "w1"}}, "size": 5, "aggs": {
+        "tags": {"terms": {"field": "meta.tag"},
+                 "aggs": {"n_avg": {"avg": {"field": "n"}}}},
+        "n_stats": {"stats": {"field": "n"}},
+        "h": {"histogram": {"field": "n", "interval": 50}},
+        "r": {"range": {"field": "n", "ranges": [{"to": 100}, {"from": 100}]}}}},
+             "device_aggs", ""),
+    "aggs_host": ({"query": {"match": {"body": "w2"}}, "size": 0, "aggs": {
+        "c": {"cardinality": {"field": "meta.tag"}},
+        "p": {"percentiles": {"field": "n", "percents": [25, 50, 99]}},
+        "e": {"extended_stats": {"field": "n"}}}}, "host", ""),
+    "post_filter_aggs": ({"query": {"match": {"body": "w2 w4"}}, "size": 10,
+                          "post_filter": {"range": {"n": {"gte": 100}}},
+                          "aggs": {"tags": {"terms": {"field": "meta.tag"}},
+                                   "m": {"max": {"field": "n"}}}},
+                         "device_filtered", ""),
+    "sort_aggs": ({"query": {"match": {"body": "w7"}}, "sort": [{"n": "asc"}],
+                   "size": 8, "aggs": {"s": {"sum": {"field": "n"}}}},
+                  "device_sort", ""),
+    "facets": ({"query": {"match": {"body": "w5"}}, "size": 3, "facets": {
+        "tags": {"terms": {"field": "meta.tag"}},
+        "st": {"statistical": {"field": "n"}},
+        "h": {"histogram": {"field": "n", "interval": 40}}}}, "host", ""),
+}
+
+
+@pytest.mark.parametrize("index", ["three", "bm25"])
+@pytest.mark.parametrize("case", list(SORT_AGG_CASES))
+def test_sort_aggs_and_facets_match_jax_node(nodes, index, case):
+    """A sorted body, a `?sort=` URL, metric and bucket aggs, a post filter
+    with aggs and facets: the port node answers the JAX node's hits (ids,
+    shards, sources, sort values; `_score` null without `track_scores`,
+    else within 2 ulp), its aggregations within rel 1e-5 and its facets
+    exactly, and its serving counters show the path once a shard."""
+    body, counter, query_string = SORT_AGG_CASES[case]
+    pbase, jbase, _p = nodes
+    before = dict(SERVING_COUNTERS)
+    pst, pr = call(pbase, "POST", f"/{index}/_search{query_string}", body)
+    counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items() if v != before[k]}
+    jst, jr = call(jbase, "POST", f"/{index}/_search{query_string}", body)
+    assert pst == jst == 200, (pr, jr)
+    assert counted == {counter: 3}, counted
+    assert pr["_shards"] == _strip_degraded(jr)["_shards"]
+    ph, jh = pr["hits"], jr["hits"]
+    assert ph["total"] == jh["total"] > 0
+    assert (ph["max_score"] is None) == (jh["max_score"] is None)
+    if ph["max_score"] is not None:
+        assert _within_ulps(ph["max_score"], jh["max_score"], 2)
+    assert [{k: v for k, v in h.items() if k != "_score"} for h in ph["hits"]] == \
+        [{k: v for k, v in h.items() if k != "_score"} for h in jh["hits"]]
+    for h, w in zip(ph["hits"], jh["hits"]):
+        assert (h["_score"] is None) == (w["_score"] is None)
+        if h["_score"] is not None:
+            assert _within_ulps(h["_score"], w["_score"], 2)
+    if "sort" in body or query_string:
+        assert all("sort" in h for h in ph["hits"])
+        if not body.get("track_scores") and "_score" not in body.get("sort", []):
+            assert all(h["_score"] is None for h in ph["hits"])
+    _agg_equal(pr.get("aggregations"), jr.get("aggregations"))
+    assert pr.get("facets") == jr.get("facets")

@@ -28,6 +28,7 @@ from elasticsearch_tpu.script import compile_script as jcompile
 from elasticsearch_tpu.script import jax_vectorizer_cls
 from elasticsearch_tpu.script import script_vector_info as jvector_info
 from elasticsearch_tpu.search import ShardContext as JShardContext
+from elasticsearch_tpu.search.filters import DocAccess as JDocAccess
 from elasticsearch_tpu.search.filters import segment_mask as jsegment_mask
 from elasticsearch_tpu.search.queries import parse_filter as jparse_filter
 from elasticsearch_tpu.search.similarity import SimilarityService as JSim
@@ -221,11 +222,17 @@ def test_runtime_errors_raise_in_both(engines, src):
 
 
 def test_doc_access_reads_numbers_and_refuses_string_values(engines):
-    _jctx, tctx = engines
+    """Numbers, then string doc values (`dv_str`): a script reading a
+    string field answers with the doc's value, as the JAX package's
+    DocAccess does (before the string doc values were ported it raised)."""
+    jctx, tctx = engines
     seg = tctx.searcher.segments[0]
     local = next(i for i in range(seg.doc_count) if len(seg.num_values("n", i)))
     acc = DocAccess(seg, local)
     assert acc["n"].value == seg.num_values("n", local)[0] and not acc["n"].empty
     assert acc["absent"].empty and acc["absent"].value is None
-    with pytest.raises(ScriptError, match="string values"):
-        compile_script("doc['t'].value")(acc)
+    jseg = jctx.searcher.segments[0]
+    for i in range(seg.doc_count):
+        got = compile_script("doc['t'].value")(DocAccess(seg, i))
+        assert got == jcompile("doc['t'].value")(JDocAccess(jseg, i))
+        assert got in ("x y", "y")

@@ -186,9 +186,13 @@ def test_two_shard_reduce_matches_jax(two_shards):
         assert merge_responses(treq, tm, tresults, page, 3, 2, 2) == jresp
 
 
-# served since the host scorer: each key with the value the parse keeps
+# served since the host scorer (post_filter, filter, min_score) and the
+# field sort and aggregations: each key with a value the parse keeps
 _SERVED_FEATURES = {"post_filter": {"term": {"body": "w1"}},
-                    "filter": {"term": {"body": "w1"}}, "min_score": 0.5}
+                    "filter": {"term": {"body": "w1"}}, "min_score": 0.5,
+                    "aggs": {"m": {"max": {"field": "n"}}},
+                    "aggregations": {"m": {"max": {"field": "n"}}},
+                    "sort": [{"n": "desc"}]}
 
 
 @pytest.mark.parametrize("key", ["aggs", "aggregations", "sort", "post_filter",
@@ -196,14 +200,19 @@ _SERVED_FEATURES = {"post_filter": {"term": {"body": "w1"}},
                                  "highlight", "explain", "profile"])
 def test_unported_request_features_raise(key):
     """The request features of later slices raise; `post_filter`, its older
-    name `filter`, and `min_score` parse into the request."""
+    name `filter`, `min_score`, `sort` and the aggregations parse into the
+    request."""
     body = {"query": {"match": {"body": "w1"}}, key: _SERVED_FEATURES.get(key, {})}
     if key not in _SERVED_FEATURES:
         with pytest.raises(QueryParsingError, match="later slice"):
             parse_search_body(body)
         return
     req = parse_search_body(body)
-    if key == "min_score":
+    if key in ("aggs", "aggregations"):
+        assert list(req.aggs) == ["m"] and req.post_filter is None
+    elif key == "sort":
+        assert [(s.field, s.order) for s in req.sort] == [("n", "desc")]
+    elif key == "min_score":
         assert (req.min_score, req.post_filter) == (0.5, None)
     else:
         assert (req.min_score, req.post_filter) == (None, TermFilter("body", "w1"))
