@@ -146,6 +146,30 @@ its plain torch version on the card. Phases:
      and `merge_responses`, totals equal to exact numpy counts, the serving
      counters 5 a request; requests/s and p50/p99 by family; the search
      pool's CPU split by span (`SpanClock`).
+ 14. the write path. The library leg, on phase 2's corpus without
+     tombstones: its three segments packed on the card, their merged
+     segment built from the same CSR in one piece (`merged_csr`: not
+     `merge_segments`, which walks every posting in Python), packed by
+     `pack_segment_concat` (B7 on the card) and by the staged
+     `pack_segment`, every field bitwise equal; the concat's host half (of
+     it the per-term tables) and device program (CUDA events, and in a CUDA
+     graph) against B7's bound, the staged pack's host wall, each one's
+     upload bytes; 64 of phase 3's queries, top-100, over the merged pack
+     and over the three sources: equal hits (bitwise but where a query
+     reaches the dense fallback: 2 ulp, tie-tolerant), `sparse_score`
+     launches and ms a batch. The node leg, on phase 10's node before it
+     closes: a `writes` index (5 shards, `refresh_interval: -1`) of 10,000
+     of phase 10's texts (20,000 before a run on a slow host passed 950
+     s); one `_search` opens the warmer's gate; then 4 rounds of a `_bulk`
+     of 1,000 new docs, `_refresh`, a wait for the
+     warmer, and 64 `_search` requests from 64 connections under
+     `set_sync_debug_mode("error")`, every response equal to exact totals
+     and the shards' `search_shard_batch`; `PACK_LEDGER` shows >= 20 delta
+     packs after the gate, all on the `warmer` or `merge` pool (none on the
+     query path); then `POST /writes/_optimize`: one segment a shard, each
+     packed by the concat on the `merge` pool, the same hits; requests/s,
+     p50 and the drainer's `sparse_score` launches a request before and
+     after the optimize.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -216,6 +240,9 @@ SORT_AGG_COUNTER = {"sort_asc": "device_sort", "sort_desc_scores": "device_sort"
 # library leg's families plus a `facets` body and a `?sort=pop:desc` URL
 CATALOG_DOCS, CATALOG_REQUESTS = 50_000, 256
 AGG_RTOL = 1e-5  # a sum or average from the card (tests/test_device_aggs.py)
+# phase 14's node leg: the `writes` index (5 shards), its rounds of a _bulk
+# of NODE_BULK docs, _refresh and WRITE_REQUESTS _search requests
+WRITE_DOCS, WRITE_ROUNDS, WRITE_REQUESTS = 10_000, 4, 64
 FILTER_TERMS = 20  # terms of phase 11's `terms` filters, df ranks BOOL_RANKS
 SERVE_SIZES = (10, 100)  # phase 9: half the requests each, k buckets 16 and 128
 SERVE_PROFILED = 1024  # requests in phase 9's profiled window
@@ -705,7 +732,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         mixed_requests: int = MIXED_REQUESTS, dense_batch: int = DENSE_BATCH,
         dense_check: int = DENSE_CHECK, sort_agg_requests: int = SORT_AGG_REQUESTS,
         catalog_docs: int = CATALOG_DOCS,
-        catalog_requests: int = CATALOG_REQUESTS) -> dict:
+        catalog_requests: int = CATALOG_REQUESTS, write_docs: int = WRITE_DOCS,
+        write_requests: int = WRITE_REQUESTS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -1044,7 +1072,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     node = node_phase(device, vocab=vocab, seed=seed + 9, n_docs=node_docs,
                       n_requests=node_requests, n_callers=node_callers,
                       mixed_requests=mixed_requests, catalog_docs=catalog_docs,
-                      catalog_requests=catalog_requests)
+                      catalog_requests=catalog_requests, write_docs=write_docs,
+                      write_requests=write_requests)
     report["node"] = node
 
     # -- 12. the dense request-feature family at full width -------------------
@@ -1055,6 +1084,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     # phase 10's node, before it closed) -------------------------------------
     report["sort_aggs"] = sort_agg_phase(device, segs, ranked, seed=seed + 13,
                                          n_requests=sort_agg_requests)
+
+    # -- 14. the write path: B7's concat at full width on phase 2's corpus
+    # without tombstones (the node leg ran on phase 10's node, before it
+    # closed) ---------------------------------------------------------------
+    report["write_path"] = write_path_phase(
+        device, csr, vocab, [[t for t, _g in c] for c in batches[1][0]], seed=seed + 14)
 
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
@@ -1660,7 +1695,8 @@ def serve_http(port: int, bodies: list, n_callers: int, sync_error: bool,
 def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
                n_callers: int, mixed_requests: int = MIXED_REQUESTS,
                catalog_docs: int = CATALOG_DOCS,
-               catalog_requests: int = CATALOG_REQUESTS) -> dict:
+               catalog_requests: int = CATALOG_REQUESTS, write_docs: int = WRITE_DOCS,
+               write_requests: int = WRITE_REQUESTS) -> dict:
     """Phase 10: a port Node on `device` serving REST over HTTP — index
     creation, `_bulk` into each shard's durable Engine, `_refresh`, then
     concurrent `_search` requests checked against exact totals and the
@@ -1848,6 +1884,10 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
             seed=seed + 3, n_docs=min(catalog_docs, n_docs),
             n_requests=catalog_requests, n_callers=n_callers)
+        out["writes"] = writes_node_phase(
+            device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
+            seed=seed + 4, n_docs=min(write_docs, n_docs - WRITE_ROUNDS * NODE_BULK),
+            n_requests=write_requests, n_callers=n_callers)
         return out
     finally:
         if recorder is not None:
@@ -2816,6 +2856,414 @@ def catalog_phase(device, node, port: int, *, texts, offsets, inv_docs, seed: in
     for name, v in spans.items():
         log(f"[13]   span {name:35s} {v['calls']:5d} calls, CPU {v['cpu_s']:.2f} s, "
             f"wall {v['wall_s']:.2f} s")
+    return out
+
+
+def merged_csr(csr: list, vocab: int):
+    """The CSR of phase 2's three segments as one segment, in one piece:
+    each term's postings of segment 0, then 1, then 2, doc ids rebased (what
+    `merge_segments` makes of fully live sources, without its walk over
+    every posting). Returns (offsets, docs, freqs, lengths)."""
+    from elasticsearch_tpu_torch.ops.device_index import expand_ranges
+
+    counts = [np.diff(s["offsets"]) for s in csr]
+    offsets = np.zeros(vocab + 1, np.int64)
+    np.cumsum(np.sum(counts, axis=0), out=offsets[1:])
+    docs = np.empty(int(offsets[-1]), np.int32)
+    freqs = np.empty(int(offsets[-1]), np.float32)
+    prior = offsets[:-1].copy()
+    for s, c in zip(csr, counts):
+        dest = expand_ranges(prior, c)
+        docs[dest] = s["docs"] + s["lo"]
+        freqs[dest] = s["freqs"]
+        prior += c
+    return offsets, docs, freqs, np.concatenate([s["lengths"] for s in csr])
+
+
+def csr_segment(term_dict, offsets, docs, freqs, lengths, gen: int):
+    """A fully live port segment of one text field from CSR arrays."""
+    from elasticsearch_tpu_torch.common.smallfloat import encode_norm
+    from elasticsearch_tpu_torch.convert import segment_from_arrays
+
+    n = len(lengths)
+    return segment_from_arrays(
+        term_dict, offsets, docs, freqs, {"body": encode_norm(lengths)},
+        {"body": {"doc_count": n, "sum_ttf": int(lengths.sum()), "sum_dfs": len(docs)}},
+        np.ones(n, bool), np.ones(n, bool), gen=gen)
+
+
+def packs_equal(a, b) -> list:
+    """The fields where two packs differ (tensors bitwise, on the card)."""
+    import torch
+
+    bad = [f for f in ("gen", "doc_count", "doc_pad", "tf_layout", "tf_integral",
+                       "live_gen") if getattr(a, f) != getattr(b, f)]
+    for f in ("blk_docs", "blk_tf", "blk_nb", "live_parent"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            bad.append(f)
+    if a.norm_bytes.keys() != b.norm_bytes.keys() or not all(
+            torch.equal(a.norm_bytes[f], b.norm_bytes[f]) for f in a.norm_bytes):
+        bad.append("norm_bytes")
+    for f in ("term_blk_start", "host_docs", "host_freqs"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            bad.append(f)
+    return bad
+
+
+def plane_bytes(p) -> int:
+    return sum(t.numel() * t.element_size() for t in (p.blk_docs, p.blk_tf, p.blk_nb))
+
+
+def write_path_phase(device, csr: list, vocab: int, query_rows, *, seed: int) -> dict:
+    """Phase 14, the library leg, on phase 2's corpus without tombstones: the
+    three segments packed on the card, their merged segment built from the
+    same CSR in one piece, packed by `pack_segment_concat` (B7 on the card:
+    host half and device program timed apart) and by the staged
+    `pack_segment`, every field held bitwise; then phase 3's queries over
+    the merged pack and over the three sources, hits held equal."""
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.engine import Searcher
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.ops import device_index, scoring
+    from elasticsearch_tpu_torch.ops.device_index import (
+        BLOCK, concat_source_packs, pack_cache_key, pack_segment, pack_segment_concat,
+        pack_shape_math, packed_for, tf_plane_itemsize)
+    from elasticsearch_tpu_torch.search import (
+        ShardContext, SimilarityService, parse_query, search_shard_batch)
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    term_dict = {"body": {term_name(t): t for t in range(vocab)}}
+    sources = [csr_segment(term_dict, s["offsets"], s["docs"], s["freqs"], s["lengths"],
+                           gen=g) for g, s in enumerate(csr)]
+    t0 = time.perf_counter()
+    src_packs = [packed_for(seg, device) for seg in sources]
+    sync()
+    sources_pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    merged = csr_segment(term_dict, *merged_csr(csr, vocab), gen=len(csr))
+    merged_build_s = time.perf_counter() - t0
+    assert concat_source_packs(sources, device) is not None, "sources not eligible"
+
+    # B7: the device program's CUDA events and host call time, inside the
+    # concat's host wall
+    program = {}
+    real_program = scoring.concat_pack_planes
+
+    def timed_program(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+        if ev:
+            ev[0].record()
+        t = time.perf_counter()
+        out = real_program(*args, **kwargs)
+        program["host_s"] = time.perf_counter() - t
+        if ev:
+            ev[1].record()
+        program["events"], program["args"], program["kwargs"] = ev, args, kwargs
+        return out
+
+    real_tables = device_index.concat_tables
+
+    def timed_tables(*args, **kwargs):
+        t = time.perf_counter()
+        out = real_tables(*args, **kwargs)
+        program["tables_s"] = time.perf_counter() - t
+        return out
+
+    scoring.concat_pack_planes = timed_program
+    device_index.concat_tables = timed_tables
+    runs = []
+    try:
+        for _ in range(2):  # the first call warms the allocator
+            t0 = time.perf_counter()
+            concat = pack_segment_concat(merged, sources, device)
+            returned_s = time.perf_counter() - t0
+            sync()
+            assert concat is not None, "pack_segment_concat refused eligible sources"
+            ev = program["events"]
+            runs.append(dict(wall_s=time.perf_counter() - t0, returned_s=returned_s,
+                             host_s=program["host_s"], tables_s=program["tables_s"],
+                             events_ms=ev[0].elapsed_time(ev[1]) if ev else None))
+            if len(runs) == 1:
+                del concat
+    finally:
+        scoring.concat_pack_planes = real_program
+        device_index.concat_tables = real_tables
+    args, kwargs = program["args"], program["kwargs"]
+    graph_program_ms = None
+    if on_card:
+        try:
+            graph_program_ms = graph_ms(lambda: real_program(*args, **kwargs), 1)
+        except Exception as e:  # noqa: BLE001 — a time, not a check
+            graph_program_ms = f"not measured: {e!r}"
+    del args, kwargs, program["args"], program["kwargs"]
+    t0 = time.perf_counter()
+    staged = pack_segment(merged, device)
+    sync()
+    staged_s = time.perf_counter() - t0
+    bad = packs_equal(concat, staged)
+    assert not bad, f"concat pack != staged pack in {bad}"
+
+    NBpad, Dpad, layout = pack_shape_math(merged)
+    W, T = len(sources), vocab
+    norm_cols = Dpad * (1 + len(merged.norms))  # live mask + norm bytes
+    staged_upload = NBpad * BLOCK * (4 + tf_plane_itemsize(layout) + 1) + norm_cols
+    tables = NBpad * 4 * 2 + (2 * W + 1) * T * 4 + W * 4 * 2
+    concat_upload = tables + norm_cols
+    b7_bytes = sum(plane_bytes(p) for p in src_packs) + tables + plane_bytes(concat)
+    b7_bound_ms, b7_bound_by = bound_ms(b7_bytes, 0.0)
+
+    # phase 3's queries over 1 merged segment and over the 3 sources
+    def ctx_for(segs):
+        settings = Settings.from_flat(BM25_SETTINGS)
+        svc = MapperService(settings)
+        svc.put_mapping("doc", SHARD_MAPPING)
+        return ShardContext(Searcher(segs), svc, SimilarityService(settings, svc),
+                            device=device)
+
+    def dense(p, row) -> bool:  # past tb_max: the dense fallback
+        return sum(int(p.term_blk_start[t + 1] - p.term_blk_start[t]) for t in row) > TB_MAX
+
+    rows = query_rows[:64]
+    queries = [parse_query({"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                                for t in row]}}) for row in rows]
+    merged._device_cache[pack_cache_key(device)] = concat
+    results, per = {}, {}
+    for name, segs in (("merged", [merged]), ("sources", sources)):
+        ctx = ctx_for(segs)
+        search_shard_batch(ctx, queries, K)  # the lazy dense planes, if any
+        cudaenv.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        results[name] = search_shard_batch(ctx, queries, K)
+        ms = (time.perf_counter() - t0) * 1e3
+        per[name] = dict(segments=len(segs), ms=ms,
+                         launches=cudaenv.LAUNCHES.snapshot().get("sparse_score", 0))
+    bitwise = tolerant = 0
+    for i, (m, s) in enumerate(zip(results["merged"], results["sources"])):
+        assert m.total == s.total, f"query {i}: total {m.total} != {s.total}"
+        if dense(concat, rows[i]) or any(dense(p, rows[i]) for p in src_packs):
+            # the dense fallback adds in no fixed order: 2 ulp, tie-tolerant
+            assert tie_tolerant_equal(m.hits, s.hits), f"query {i}: hits differ"
+            tolerant += 1
+        else:
+            assert m.hits == s.hits, f"query {i}: hits not bitwise equal"
+            bitwise += 1
+    out = dict(
+        docs=merged.doc_count, postings=len(merged.post_docs), slots=NBpad * BLOCK,
+        tf_layout=layout, sources_pack_s=sources_pack_s, merged_build_s=merged_build_s,
+        concat_runs=runs, concat_wall_s=runs[-1]["wall_s"],
+        concat_host_half_s=runs[-1]["returned_s"] - runs[-1]["host_s"],
+        concat_tables_s=runs[-1]["tables_s"],
+        program_events_ms=runs[-1].get("events_ms"), program_graph_ms=graph_program_ms,
+        staged_s=staged_s, concat_upload_bytes=concat_upload,
+        staged_upload_bytes=staged_upload, b7_bytes=b7_bytes, b7_bound_ms=b7_bound_ms,
+        b7_bound_by=b7_bound_by, queries=len(queries), bitwise=bitwise,
+        tolerant=tolerant, search=per)
+    log(f"[14] library leg: {merged.doc_count} docs, {out['postings']} postings in 3 fully "
+        f"live segments, packed in {sources_pack_s:.2f} s; merged segment from the same "
+        f"CSR in {merged_build_s:.2f} s; pack_segment_concat == pack_segment(merged) in "
+        f"every field (bitwise, {out['slots']} slots, tf {layout})")
+    log(f"[14] B7 concat: wall {out['concat_wall_s'] * 1e3:.3f} ms (first call "
+        f"{runs[0]['wall_s'] * 1e3:.3f} ms), host half {out['concat_host_half_s'] * 1e3:.3f} ms "
+        f"(of it the per-term tables {out['concat_tables_s'] * 1e3:.3f} ms, the rest the "
+        f"retained host copies and the columns), "
+        f"device program {out['program_events_ms']} ms (events; host call "
+        f"{runs[-1]['host_s'] * 1e3:.3f} ms), in a CUDA graph {graph_program_ms} ms; bound "
+        f"{b7_bound_ms:.4f} ms ({b7_bound_by}, {b7_bytes / 1e6:.1f} MB); uploads "
+        f"{concat_upload / 1e6:.2f} MB against the staged pack's "
+        f"{staged_upload / 1e6:.2f} MB, which took {staged_s * 1e3:.3f} ms (host wall)")
+    log(f"[14] {len(queries)} of phase 3's queries, top-{K}: hits over 1 merged segment == "
+        f"over the 3 sources ({bitwise} bitwise, {tolerant} within {ULPS} ulp: the dense "
+        f"fallback); sparse_score launches, ms a batch: 1 segment "
+        f"{per['merged']['launches']}, {per['merged']['ms']:.3f}; 3 segments "
+        f"{per['sources']['launches']}, {per['sources']['ms']:.3f}")
+    for seg in (merged, *sources):
+        seg._device_cache.clear()
+    del concat, staged, src_packs, results
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def writes_node_phase(device, node, port: int, *, texts, offsets, inv_docs, seed: int,
+                      n_docs: int, n_requests: int, n_callers: int) -> dict:
+    """Phase 14, the node leg, on phase 10's node: a `writes` index (5
+    shards, `refresh_interval: -1`) of `n_docs` of phase 10's texts; one
+    `_search` opens the warmer's gate; then WRITE_ROUNDS rounds of a
+    `_bulk` of NODE_BULK new docs, `_refresh`, a wait for the warmer, and
+    `n_requests` `_search` requests under `set_sync_debug_mode("error")`,
+    every response held against exact totals and the shards'
+    `search_shard_batch`; every pack after the gate on the warmer or merge
+    pool; then `_optimize`: one segment a shard, packed by the concat on
+    the merge pool, the same hits."""
+    import http.client
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER
+    from elasticsearch_tpu_torch.search import ShardContext, parse_query, search_shard_batch
+
+    on_card = device.type == "cuda"
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    st, r = http_json(conn, "PUT", "/writes", {"settings": {
+        "number_of_shards": NODE_SHARDS, "refresh_interval": -1}})
+    assert st == 200 and r["acknowledged"], r
+    indexed = 0
+
+    def bulk(lo, hi):
+        for a in range(lo, hi, NODE_BULK):
+            lines = []
+            for i in range(a, min(a + NODE_BULK, hi)):
+                lines.append(json.dumps({"index": {"_index": "writes", "_type": "doc",
+                                                   "_id": str(i)}}))
+                lines.append(json.dumps({"body": texts[i]}))
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+        st, r = http_json(conn, "POST", "/writes/_refresh")
+        assert st == 200 and r["_shards"]["failed"] == 0, r
+
+    t0 = time.perf_counter()
+    bulk(0, n_docs)
+    indexed = n_docs
+    load_s = time.perf_counter() - t0
+    svc = node.indices.index_service("writes")
+    engines = [svc.shard(sid).engine for sid in range(NODE_SHARDS)]
+
+    inside = np.concatenate([[0], np.cumsum(inv_docs < n_docs)])
+    df = inside[offsets[1:]] - inside[offsets[:-1]]
+    ranked = np.argsort(-df, kind="stable")
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(ranked[RANKS[0]: RANKS[1]], size=(n_requests, TERMS_PER_QUERY))
+    bodies = [{"query": {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                             for t in row]}}, "size": NODE_SIZE}
+              for row in rows]
+
+    def drained() -> bool:
+        st = node.warmer.stats()
+        return st["packs_done"] >= st["packs_scheduled"]
+
+    def wait_drained(timeout=120.0):
+        deadline = time.perf_counter() + timeout
+        while not drained():
+            assert time.perf_counter() < deadline, f"warmer not drained: {node.warmer.stats()}"
+            time.sleep(0.01)
+
+    def check(responses, step):
+        """Each response against the exact total over the indexed docs and
+        the shards' search_shard_batch reduced by score desc, shard, doc."""
+        searchers = [e.acquire_searcher() for e in engines]
+        want = [[] for _ in bodies]
+        for sid, searcher in enumerate(searchers):
+            ctx = ShardContext(searcher, svc.mapper_service, svc.similarity_service,
+                               device=device)
+            tops = search_shard_batch(ctx, [parse_query(b["query"]) for b in bodies],
+                                      NODE_SIZE)
+            for i, td in enumerate(tops):
+                want[i].extend((score, sid, doc) for score, doc in td.hits)
+        hits = []
+        for i, ((st, r), row) in enumerate(zip(responses, rows)):
+            assert st == 200, (step, i, r)
+            assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
+                                    "failed": 0}, (step, i, r["_shards"])
+            docs = term_docs(offsets, inv_docs, [int(t) for t in row])
+            assert r["hits"]["total"] == int((docs < indexed).sum()), (step, i, "total")
+            want[i].sort(key=lambda e: (-e[0], e[1], e[2]))
+            ref = []
+            for score, sid, doc in want[i][:NODE_SIZE]:
+                seg, local = searchers[sid].resolve(doc)
+                ref.append((seg.ids[local], score, sid))
+            got = [(h["_id"], h["_score"], h["_shard"]) for h in r["hits"]["hits"]]
+            assert got == ref, (step, i, "hits")
+            hits.append(got)
+        return hits
+
+    # the gate: the first search packs inline, by design; nothing after it may
+    st, r = http_json(conn, "POST", "/writes/_search", bodies[0])
+    assert st == 200 and all(e.search_active for e in engines), r
+    wait_drained()
+    PACK_LEDGER.forget("writes")
+    rounds = []
+    for rnd in range(WRITE_ROUNDS):
+        t0 = time.perf_counter()
+        bulk(indexed, indexed + NODE_BULK)
+        indexed += NODE_BULK
+        refresh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wait_drained()
+        warm_s = time.perf_counter() - t0
+        cudaenv.LAUNCHES.reset()
+        responses, lat_ms, wall_s, errors, _cpu = serve_http(
+            port, [("/writes/_search", b) for b in bodies], n_callers, sync_error=on_card)
+        assert not errors, f"round {rnd}: {len(errors)} requests failed, first {errors[:3]}"
+        launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+        before_hits = check(responses, f"round {rnd}")
+        rounds.append(dict(bulk_refresh_s=refresh_s, warm_wait_s=warm_s,
+                           segments=[e.segment_count() for e in engines],
+                           requests_per_s=len(bodies) / wall_s,
+                           p50_ms=float(np.percentile(lat_ms, 50)),
+                           launches_per_request=launches / len(bodies)))
+    ledger = PACK_LEDGER.stats("writes")
+    assert ledger["delta_packs"] >= WRITE_ROUNDS * NODE_SHARDS, ledger
+    assert set(ledger["pools"]) <= {"warmer", "merge"}, ledger["pools"]
+    if on_card:
+        assert rounds[-1]["launches_per_request"] > 0, "sparse_score never launched"
+
+    # _optimize: one segment a shard, packed by the concat on the merge pool
+    before = rounds[-1]
+    PACK_LEDGER.forget("writes")
+    t0 = time.perf_counter()
+    st, r = http_json(conn, "POST", "/writes/_optimize")
+    assert st == 200 and r["_shards"]["failed"] == 0, r
+    optimize_s = time.perf_counter() - t0
+    wait_drained()
+    compact_s = time.perf_counter() - t0
+    conn.close()
+    assert [e.segment_count() for e in engines] == [1] * NODE_SHARDS
+    ledger_opt = PACK_LEDGER.stats("writes")
+    compacts = [e for e in ledger_opt["recent"] if e["kind"] == "compact"]
+    assert ledger_opt["compacts"] == NODE_SHARDS and set(ledger_opt["pools"]) == {"merge"}, \
+        ledger_opt
+    assert all(e["method"] == "concat" for e in compacts), compacts
+    cudaenv.LAUNCHES.reset()
+    responses, lat_ms, wall_s, errors, _cpu = serve_http(
+        port, [("/writes/_search", b) for b in bodies], n_callers, sync_error=on_card)
+    assert not errors, f"after _optimize: {len(errors)} requests failed, first {errors[:3]}"
+    launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+    after_hits = check(responses, "after _optimize")
+    assert after_hits == before_hits, "hits changed across _optimize"
+    after = dict(requests_per_s=len(bodies) / wall_s, p50_ms=float(np.percentile(lat_ms, 50)),
+                 launches_per_request=launches / len(bodies))
+    out = dict(docs=indexed, load_s=load_s, rounds=rounds, ledger=ledger,
+               optimize_s=optimize_s, compact_s=compact_s,
+               compact_ms=[e["ms"] for e in compacts], before=before, after=after,
+               requests=len(bodies), callers=n_callers,
+               sync_debug="error over each round's requests" if on_card else None)
+    log(f"[14] node leg on phase 10's node: `writes`, {NODE_SHARDS} shards, {n_docs} docs "
+        f"({load_s:.1f} s), then {WRITE_ROUNDS} rounds of _bulk {NODE_BULK} + _refresh + "
+        f"{len(bodies)} _search: every response == exact totals and the shards' "
+        f"search_shard_batch; after the gate {ledger['delta_packs']} delta packs, "
+        f"{ledger['remasks']} remasks, {ledger['packs']} packs, pools {ledger['pools']} "
+        f"(zero on the query path)")
+    for i, rd in enumerate(rounds):
+        log(f"[14]   round {i}: bulk+refresh {rd['bulk_refresh_s']:.2f} s, warmer "
+            f"{rd['warm_wait_s']:.3f} s, segments {rd['segments']}, "
+            f"{rd['requests_per_s']:.1f} requests/s, p50 {rd['p50_ms']:.2f} ms, "
+            f"{rd['launches_per_request']:.3f} launches a request")
+    log(f"[14] _optimize {optimize_s:.2f} s, compaction packs (concat, merge pool) "
+        f"{out['compact_ms']} ms; before / after on the same {len(bodies)} bodies: "
+        f"{before['requests_per_s']:.1f} / {after['requests_per_s']:.1f} requests/s, p50 "
+        f"{before['p50_ms']:.2f} / {after['p50_ms']:.2f} ms, sparse_score launches a "
+        f"request {before['launches_per_request']:.3f} / "
+        f"{after['launches_per_request']:.3f}; hits (ids, shards, float32 scores) unchanged")
     return out
 
 

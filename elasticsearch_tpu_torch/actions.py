@@ -14,7 +14,7 @@ package's `actions.py`), in the reference's interaction patterns:
   reduces the shards' top-k (`sort_docs`), fetches the winners from the
   pinned contexts and frees the contexts that won nothing
   (`merge_responses` assembles the response);
-- broadcast: `refresh` (and `flush`) on every active shard.
+- broadcast: `refresh`, `flush` and `optimize` on every active shard.
 
 A shard whose query phase fails with a device error (anything that is not a
 SearchEngineError) fails the whole search: the REST layer answers 500 with
@@ -487,10 +487,15 @@ class ActionModule:
                             svc.similarity_service, device=self.node.device,
                             breakers=self.node.breakers,
                             batcher=self.node.search_batcher,
-                            filter_cache=self.node.filter_cache)
+                            filter_cache=self.node.filter_cache, index_name=index)
 
     def _s_query_phase(self, request, channel):
         index, shard_id = request["index"], request["shard"]
+        # opens the warmer's gate (warmer.py): from the shard's first search
+        # on, every new view's packs and remasks run on the warmer and
+        # merge pools; a shard that has never served a search stays off the
+        # device
+        self.indices.index_service(index).shard(shard_id).engine.search_active = True
         req = parse_search_body(request.get("body") or {})
         ctx = self._shard_ctx(index, shard_id)
         budget = request.get("deadline_s")
@@ -528,8 +533,7 @@ class ActionModule:
 
     # ================= broadcast =================
     def broadcast(self, index_expr, op: str) -> dict:
-        """refresh on every active shard copy (flush and the other broadcast
-        ops come with their REST routes)."""
+        """refresh, flush or optimize on every active shard copy."""
         state = self.cluster_service.state
         indices = state.metadata.resolve_indices(index_expr) if index_expr else \
             state.metadata.index_names()
@@ -557,9 +561,14 @@ class ActionModule:
         engine = self.indices.index_service(request["index"]) \
             .shard(request["shard"]).engine
         op = request["op"]
-        if op != "refresh":
+        if op == "refresh":
+            engine.refresh()
+        elif op == "flush":
+            engine.flush()
+        elif op == "optimize":
+            engine.optimize()
+        else:
             raise IllegalArgumentError(f"broadcast op [{op}] is not ported yet")
-        engine.refresh()
         return {"ok": True}
 
 

@@ -23,6 +23,7 @@ from .ops.device_index import (
     TF_U8,
     PackedSegment,
     pack_cache_key,
+    tf_plane_integral,
 )
 
 _LAYOUT_OF_DTYPE = {np.dtype(np.uint8): TF_U8, np.dtype(np.int16): TF_I16,
@@ -125,6 +126,7 @@ def packed_from_arrays(blk_docs: np.ndarray, blk_tf: np.ndarray,
         # a later re-mask never needs a dead doc's id back
         host_docs=host_docs,
         host_freqs=blk_tf.astype(np.float32).reshape(-1),
+        tf_integral=tf_plane_integral(blk_tf.reshape(-1), layout),
     )
     if segment is not None:
         packed.live_gen = segment.live_gen

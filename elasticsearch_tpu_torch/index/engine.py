@@ -12,11 +12,15 @@ trimmed copy of the JAX package's `index/engine.py`: `Searcher` and
   translog; `recover_from_store` loads the last commit and replays the
   translog after it;
 - merges: `maybe_merge` runs the tiered policy (the merge itself outside the
-  engine lock), `optimize` force-merges.
+  engine lock), `optimize` force-merges;
+- device packs: a refreshed segment carries a pack hint (`delta_pack`
+  beside older segments, `pack` on an empty shard), a merged one a
+  `compact` hint naming its sources when every source has a resident pack
+  (ops/device_index.pack_segment_concat reads them); the warmer schedules
+  the packs from the view listeners once `search_active` is set.
 
 Recovery holds, replica operations, delete-by-query and TTL wait for the
-slice with replicas; the pack hints and view listeners wait for the warmer
-and the caches."""
+slice with replicas."""
 
 from __future__ import annotations
 
@@ -95,6 +99,12 @@ class GetResult:
     routing: str | None = None
 
 
+def _resident(seg: FrozenSegment) -> bool:
+    """Whether the segment holds a pack for some device (its
+    `("packed", device)` keys)."""
+    return any(isinstance(k, tuple) and k[0] == "packed" for k in seg._device_cache)
+
+
 class Engine:
     def __init__(self, path: str, mapper_service, settings=None):
         self.path = path
@@ -121,6 +131,10 @@ class Engine:
         # one does not) run on every view install, under _lock: they must
         # be leaves (dict, counter and breaker work only)
         self.view_listeners: list = []
+        # set by the shard query phase: the warmer packs a view's segments
+        # off the query path only for a shard that has served a search (a
+        # write-only shard's refreshes stay off the device)
+        self.search_active = False
 
     # ------------------------------------------------------------------ util
     def _check_open(self):
@@ -272,6 +286,10 @@ class Engine:
             new_seg: FrozenSegment | None = None
             if self._buffer.doc_count > 0:
                 new_seg = self._buffer.freeze()
+                # a refresh's increment beside resident segments is a delta
+                # pack: bounded by the buffer, not the index
+                new_seg._device_cache["pack_hint"] = {
+                    "kind": "delta_pack" if self._segments else "pack"}
                 self._segments.append(new_seg)
                 self._next_gen += 1
                 self._buffer = SegmentBuilder(self._next_gen)
@@ -344,7 +362,18 @@ class Engine:
                           merged: FrozenSegment, start: int):
         """Splice `merged` over the source window; persist it and commit
         before the sources' files go when any of them was committed. Caller
-        holds _lock."""
+        holds _lock.
+
+        The merged segment gets the `compact` pack hint; it names the
+        sources only when each has a resident pack on some device (the
+        concat reads the packs of the device it packs for, and re-stages if
+        one is missing there): a hint on a write-only shard, whose pack may
+        never run, would otherwise hold the merged-away arrays."""
+        if merged.doc_count:
+            hint = {"kind": "compact"}
+            if all(_resident(s) for s in sources):
+                hint["sources"] = tuple(sources)
+            merged._device_cache["pack_hint"] = hint
         end = start + len(sources)
         old_gens = [seg.gen for seg in sources]
         any_persisted = any(g in self._persisted_gens for g in old_gens)

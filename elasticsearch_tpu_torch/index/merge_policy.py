@@ -6,20 +6,15 @@ same segments, and so the same global doc ids and tie order.
 Merges take a contiguous window of the segment list (doc order, and with it
 tie order, is preserved); sizes are live-prorated, so delete-heavy segments
 become candidates. Settings (`index.merge.policy.*`): max_merge_at_once
-(10) and segments_per_tier (10). The JAX package's max_merged_segment_bytes,
-floor_segment_bytes and expunge_deletes_allowed settings are constants here
-at its defaults (5gb, 2mb, 10%); their settings wait for a route or caller
-that sets them."""
+(10), segments_per_tier (10), max_merged_segment_bytes (5gb),
+floor_segment_bytes (2mb) and expunge_deletes_allowed (10: the percent of
+deleted docs that makes a segment a candidate even within the tier
+budget)."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-
-MAX_MERGED_SEGMENT_BYTES = 5 * 1024 ** 3
-FLOOR_SEGMENT_BYTES = 2 * 1024 ** 2
-EXPUNGE_DELETES_ALLOWED = 0.10  # share of deleted docs that makes a segment a candidate
-
 
 @dataclass
 class MergeSpec:
@@ -40,6 +35,12 @@ class TieredMergePolicy:
         self.max_merge_at_once = int(_f("index.merge.policy.max_merge_at_once", 10))
         self.segments_per_tier = max(
             2.0, _f("index.merge.policy.segments_per_tier", 10.0))
+        self.max_merged_segment = int(
+            _f("index.merge.policy.max_merged_segment_bytes", 5 * 1024 ** 3))
+        self.floor_segment = int(
+            _f("index.merge.policy.floor_segment_bytes", 2 * 1024 ** 2))
+        self.expunge_deletes_allowed = _f(
+            "index.merge.policy.expunge_deletes_allowed", 10.0) / 100.0
 
     def _size(self, seg) -> int:
         """Live-prorated byte size."""
@@ -49,7 +50,7 @@ class TieredMergePolicy:
         return max(int(total * live_frac), 1)
 
     def _floored(self, size: int) -> int:
-        return max(size, FLOOR_SEGMENT_BYTES)
+        return max(size, self.floor_segment)
 
     def allowed_segment_count(self, sizes: list[int]) -> int:
         """Tier budget: segments_per_tier per size level, levels growing by
@@ -80,7 +81,7 @@ class TieredMergePolicy:
         delete_heavy = [
             i for i, s in enumerate(segments)
             if s.doc_count > 0 and
-            1.0 - s.live_count() / s.doc_count > EXPUNGE_DELETES_ALLOWED]
+            1.0 - s.live_count() / s.doc_count > self.expunge_deletes_allowed]
         if not over_budget and not delete_heavy:
             return None
         best: tuple[float, MergeSpec] | None = None
@@ -88,7 +89,7 @@ class TieredMergePolicy:
             for start in range(0, n - width + 1):
                 window = sizes[start:start + width]
                 total = sum(window)
-                if total > MAX_MERGED_SEGMENT_BYTES:
+                if total > self.max_merged_segment:
                     continue
                 if not over_budget and not any(
                         start <= i < start + width for i in delete_heavy):

@@ -180,6 +180,9 @@ class SegmentBuilder:
 
 # the port's per-segment filter cache under `_device_cache` (search/filters.py)
 FILTER_CACHE_KEY = ("filters",)
+# the per-device keys of an in-flight pack's Future and claim flag
+# (ops/device_index.pack_future_keys): a tombstone view drops them
+_PACK_COORDINATION = ("pack_future", "pack_claimed")
 
 
 @dataclass
@@ -306,16 +309,24 @@ class FrozenSegment:
         view (a pinned fetch context, a batch in flight) still reads. A
         shared entry would let the delete re-mask the old view's pack under
         it. The view starts its own filter cache, so no mask cached under
-        another view's liveness serves it."""
+        another view's liveness serves it.
+
+        Pack coordination is per view too: the view drops the in-flight pack
+        futures, their claim flags and the pack hint. A copied future would
+        resolve into the old view's cache and strand this view's waiters;
+        the view coordinates its own pack or remask."""
         new = dataclasses.replace(self, live=self.live.copy(),
                                   _device_cache=dict(self._device_cache))
-        new._device_cache.pop("live_count", None)
-        new._device_cache.pop(FILTER_CACHE_KEY, None)
+        cache = new._device_cache
+        for key in list(cache):
+            if key in ("live_count", FILTER_CACHE_KEY, "pack_hint") or (
+                    isinstance(key, tuple) and key[0] in _PACK_COORDINATION):
+                del cache[key]
         for local in locals_to_delete:
             new.delete_doc(local)
-        for key, packed in list(new._device_cache.items()):
+        for key, packed in list(cache.items()):
             if isinstance(key, tuple) and key[0] == "packed":
-                new._device_cache[key] = dataclasses.replace(packed)
+                cache[key] = dataclasses.replace(packed)
         return new
 
     def estimated_bytes(self) -> int:

@@ -11,11 +11,12 @@ copy of the JAX package's `indices_service.py`).
 - `periodic_refresh`: the scheduled NRT refresh per shard honouring
   `index.refresh_interval` (-1 disables it), then a merge-policy check on
   the `merge` pool.
-- Each engine's view listener evicts the device filter masks of the
-  segments a new view dropped (the node's `DeviceFilterCache`).
+- Each engine's view listeners evict the device filter masks of the
+  segments a new view dropped (the node's `DeviceFilterCache`), then hand
+  the view to the node's warmer, which packs it off the query path.
 
-Peer recovery of replicas, index deletion, the indexing-memory controller,
-the request cache and the warmer's listeners belong to later slices."""
+Peer recovery of replicas, index deletion, the indexing-memory controller
+and the request cache belong to later slices."""
 
 from __future__ import annotations
 
@@ -79,11 +80,13 @@ class IndexService:
 
 class IndicesService:
     def __init__(self, node_id: str, data_path: str, transport, cluster_service,
-                 threadpool, filter_cache=None):
+                 threadpool, filter_cache=None, warmer=None):
         self.node_id = node_id
         # the node's DeviceFilterCache (None in unwired contexts): the masks
         # of segments an engine view drops leave with them
         self.filter_cache = filter_cache
+        # the node's IndexWarmerService (None in unwired contexts)
+        self.warmer = warmer
         self.data_path = data_path
         self.transport = transport
         self.cluster_service = cluster_service
@@ -161,6 +164,10 @@ class IndicesService:
             if s.shard_id not in svc.shards and s.state == INITIALIZING:
                 shard = svc.create_shard(s.shard_id, s.primary)
                 self._wire_cache_listeners(shard.engine)
+                if self.warmer is not None:
+                    # after the cache listeners: listeners run in order, so
+                    # the warmer sees a view whose dropped masks are evicted
+                    self.warmer.wire(s.index, shard.engine)
                 threading.Thread(target=self._recover_shard, args=(shard, s),
                                  daemon=True,
                                  name=f"estpu_torch-recover[{s.index}][{s.shard_id}]"

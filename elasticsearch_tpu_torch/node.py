@@ -2,9 +2,10 @@
 
 A Node builds its services in dependency order — cluster service → gateway →
 thread pools → breakers → the node-level DeviceFilterCache and DeviceBatcher
-→ transport → allocation → indices → actions → discovery — and `start()` elects itself master
-of a one-node cluster and lifts the not-recovered block. `start_http(port)`
-binds the REST surface (port 0 = ephemeral).
+→ the warmer → transport → allocation → indices → actions → discovery — and
+`start()` elects itself master of a one-node cluster and lifts the
+not-recovered block. `start_http(port)` binds the REST surface (port 0 =
+ephemeral).
 
 The node serves on the card unless told otherwise: its device is the
 `node.device` setting ("cpu" in the tests) resolved through
@@ -12,11 +13,12 @@ The node serves on the card unless told otherwise: its device is the
 a Node raises DeviceUnavailableError. Every shard's query phase on this node
 goes through ONE DeviceBatcher (`search_batcher`), and its filtered plans
 read ONE DeviceFilterCache (`filter_cache`, charged to the fielddata
-breaker; its masks leave with the segments an engine view drops), as in the
-JAX node.
+breaker; its masks leave with the segments an engine view drops), and ONE
+IndexWarmerService packs every new view's segments for the node's device
+on the `warmer` and `merge` pools, as in the JAX node.
 
-`Client` is trimmed to `create_index`, `index`, `bulk`, `refresh`, `search`
-and `cluster_health`."""
+`Client` is trimmed to `create_index`, `index`, `bulk`, `refresh`, `flush`,
+`optimize`, `search` and `cluster_health`."""
 
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from .search.batcher import DeviceBatcher
 from .threadpool import ThreadPool
 from .transport.local import DEFAULT_REGISTRY, LocalTransport
 from .transport.service import TransportService
+from .warmer import IndexWarmerService
 
 
 class Node:
@@ -81,6 +84,11 @@ class Node:
         # cross-request device micro-batching: concurrent query phases on
         # this node's shards coalesce into bucketed launches
         self.search_batcher = DeviceBatcher(self.settings)
+        # every searcher install schedules the new view's packs and remasks
+        # on the warmer and merge pools, off the query path
+        self.warmer = IndexWarmerService(
+            self.settings, self.device, self.threadpool,
+            breaker=self.breakers.breaker("fielddata"))
         self.transport = TransportService(LocalTransport(address, self.registry),
                                           self.local_node, self.threadpool)
         self.transport.in_flight_breaker = self.breakers.breaker("in_flight_requests")
@@ -88,7 +96,8 @@ class Node:
         self.operation_routing = OperationRouting()
         self.indices = IndicesService(self.node_id, self.data_path, self.transport,
                                       self.cluster_service, self.threadpool,
-                                      filter_cache=self.filter_cache)
+                                      filter_cache=self.filter_cache,
+                                      warmer=self.warmer)
         self.actions = ActionModule(self)
         # scheduled NRT refresh and merge-policy check (each index's
         # refresh_interval is honoured inside periodic_refresh)
@@ -121,6 +130,7 @@ class Node:
         self._closed = True
         if self.http is not None:
             self.http.stop()
+        self.warmer.close()
         self.gateway.persist_now()
         self.indices.close()
         self.cluster_service.close()
@@ -156,6 +166,12 @@ class Client:
 
     def refresh(self, index=None):
         return self.actions.broadcast(index, "refresh")
+
+    def flush(self, index=None):
+        return self.actions.broadcast(index, "flush")
+
+    def optimize(self, index=None):
+        return self.actions.broadcast(index, "optimize")
 
     def search(self, index=None, body=None, routing=None):
         return self.actions.search(index or "_all", body, routing=routing)

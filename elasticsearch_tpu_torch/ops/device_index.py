@@ -1,6 +1,6 @@
 """Device-resident packed postings in the quantized layout (a port of the JAX
-package's `ops/device_index.py`: the pack, the similarity LUTs and the lazy
-dense plane).
+package's `ops/device_index.py`: the pack, its coordination and ledger, the
+compaction concat, the similarity LUTs and the lazy dense plane).
 
 A frozen segment's CSR postings are re-blocked into fixed-shape tensors:
 
@@ -17,6 +17,18 @@ Shapes are padded to power-of-two buckets. The dense fallback's f32 freqs
 plane is uploaded lazily (`ensure_blk_freqs`) the first time a segment feeds
 the dense path.
 
+A segment's pack for a device lives in its `_device_cache` under
+`pack_cache_key(device)`. `packed_for` returns a resident, current pack
+with one dict read and no lock; a cold pack or remask is coordinated by a
+claimable per-segment, per-device Future (`begin_warm`, `run_warm`, the
+warmer's half in `warmer.py`), and runs with no lock held: `_PACK_LOCK`
+covers dict work and the publishing assignments only. Every pack is
+recorded in the process-wide `PACK_LEDGER` with its kind and the pool that
+ran it. A merged segment whose sources are resident and fully live is
+packed by `pack_segment_concat`, which concatenates the sources' planes on
+the device (`ops/scoring.concat_pack_planes`) instead of re-staging them
+from the host.
+
 `DeviceFilterCache` keeps hot filters' padded per-segment doc masks resident
 on the device for the dense filtered family (`search/execute.py
 _filter_mask_row`).
@@ -31,6 +43,10 @@ fielddata breaker while they are built, as in the JAX package.
 from __future__ import annotations
 
 import threading
+import time
+from collections import OrderedDict
+from itertools import repeat
+from concurrent.futures import Future
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
@@ -71,6 +87,29 @@ def expand_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     return np.repeat(np.asarray(starts, dtype=np.int64), counts) + within
 
 
+def tf_plane_itemsize(layout: str) -> int:
+    return np.dtype(_TF_DTYPE[layout]).itemsize
+
+
+def _all_integral(post_freqs: np.ndarray) -> bool:
+    """Whether every value is an integer, scanned in bounded chunks."""
+    chunk = 1 << 20
+    for i in range(0, len(post_freqs), chunk):
+        c = post_freqs[i: i + chunk]
+        if not np.all(c == np.floor(c)):
+            return False
+    return True
+
+
+def tf_plane_integral(post_freqs: np.ndarray, layout: str) -> bool:
+    """Whether a segment's raw tf values are all integers. The u8 and i16
+    rungs are integral by construction; the f32 escape holds both huge
+    integral tf and fractional tf, and only the former survives a merge
+    exactly (merge_segments rebuilds tf as the position count), which is
+    what gates the compaction concat."""
+    return layout != TF_F32 or _all_integral(post_freqs)
+
+
 def choose_tf_layout(post_freqs: np.ndarray) -> str:
     """The narrowest exact tf-plane dtype for a segment's raw frequencies."""
     if len(post_freqs) == 0:
@@ -78,12 +117,8 @@ def choose_tf_layout(post_freqs: np.ndarray) -> str:
     mx = float(post_freqs.max())
     if mx > 32767:
         return TF_F32
-    if post_freqs.dtype.kind not in "iu":
-        chunk = 1 << 20
-        for i in range(0, len(post_freqs), chunk):
-            c = post_freqs[i: i + chunk]
-            if not np.all(c == np.floor(c)):
-                return TF_F32
+    if post_freqs.dtype.kind not in "iu" and not _all_integral(post_freqs):
+        return TF_F32
     return TF_U8 if mx <= 255 else TF_I16
 
 
@@ -117,6 +152,9 @@ class PackedSegment:
     host_docs: np.ndarray  # int32 [NBpad*B] raw (unmasked) doc ids, for re-masks
     host_freqs: np.ndarray  # float32 [NBpad*B], source of the lazy dense plane
     live_gen: int = 0  # the segment's tombstone generation the masks reflect
+    # every raw tf is an integer (u8/i16 by construction; f32 checked): the
+    # compaction concat needs it (merge_segments rebuilds tf from positions)
+    tf_integral: bool = True
     sim: SimTables | None = None  # ensure_sim_tables state
     blk_freqs: torch.Tensor | None = None  # float32 [NBpad, B], dense path only
     # field -> host f32 [5, Dpad] folds (None: not f32-exact); agg_doc_rows
@@ -144,6 +182,16 @@ def _live_parent(seg: FrozenSegment, Dpad: int) -> np.ndarray:
     live_parent = np.zeros(Dpad, dtype=bool)
     live_parent[: seg.doc_count] = seg.live & seg.parent_mask
     return live_parent
+
+
+def _norm_bytes(seg: FrozenSegment, Dpad: int, device) -> dict:
+    """Each field's norm bytes as a padded uint8 [Dpad] tensor on `device`."""
+    out = {}
+    for f, arr in seg.norms.items():
+        padded = np.zeros(Dpad, dtype=np.uint8)
+        padded[: seg.doc_count] = arr
+        out[f] = upload(padded, device)
+    return out
 
 
 def _mask_docs(host_docs: np.ndarray, live_parent: np.ndarray,
@@ -184,12 +232,8 @@ def pack_segment(seg: FrozenSegment, device: torch.device) -> PackedSegment:
     if NB:
         blk_field[:NB] = np.repeat(fid_of_tid, nblks)
 
+    live_gen = seg.live_gen
     live_parent = _live_parent(seg, Dpad)
-    norm_bytes = {}
-    for f, arr in seg.norms.items():
-        padded = np.zeros(Dpad, dtype=np.uint8)
-        padded[: seg.doc_count] = arr
-        norm_bytes[f] = upload(padded, device)
 
     # per-posting norm byte of the block's owning field (norm-less meta
     # fields keep byte 0)
@@ -217,10 +261,11 @@ def pack_segment(seg: FrozenSegment, device: torch.device) -> PackedSegment:
         tf_layout=tf_layout,
         term_blk_start=blk_start,
         live_parent=upload(live_parent, device),
-        norm_bytes=norm_bytes,
+        norm_bytes=_norm_bytes(seg, Dpad, device),
         host_docs=flat_docs,
         host_freqs=flat_freqs,
-        live_gen=seg.live_gen,
+        live_gen=live_gen,
+        tf_integral=tf_plane_integral(seg.post_freqs, tf_layout),
     )
 
 
@@ -239,11 +284,112 @@ def pack_estimate_bytes(seg: FrozenSegment) -> int:
     a 12 B allowance for the masking temporaries; per padded doc the live
     mask (host and device) and each field's norm byte."""
     NBpad, Dpad, layout = pack_shape_math(seg)
-    tf_b = np.dtype(_TF_DTYPE[layout]).itemsize
+    tf_b = tf_plane_itemsize(layout)
     per_slot = (4 + 4 + tf_b + 1) + (4 + tf_b + 1) + 12
     return NBpad * BLOCK * per_slot + Dpad * 2 + Dpad * len(seg.norms)
 
 
+def _pool_label() -> str:
+    """Which named thread pool runs the current thread, the ledger's pack
+    attribution: pool workers are named "estpu_torch[<pool>]_N"
+    (threadpool._BoundedPool), the batcher's drainer
+    "estpu_torch[search_batcher]"; any other thread (a test's main thread, a
+    raw Thread) reads as "other"."""
+    name = threading.current_thread().name
+    prefix = "estpu_torch["
+    if name.startswith(prefix) and "]" in name:
+        return name[len(prefix): name.index("]")]
+    return "other"
+
+
+# the ledger's kinds: "pack" (a segment's first full pack), "delta_pack" (a
+# refresh's new segment beside resident ones: bounded by the buffer, not the
+# index), "remask" (a tombstone view's live-mask refresh), "compact" (a
+# merged segment's pack: concatenated on the device from the sources'
+# resident planes when eligible, re-staged from the host otherwise; the
+# event's `method` says which)
+PACK_KINDS = ("pack", "delta_pack", "remask", "compact")
+_KIND_COUNTER = {"pack": "packs", "delta_pack": "delta_packs",
+                 "remask": "remasks", "compact": "compacts"}
+
+
+class PackLedger:
+    """Process-wide record of every pack, keyed by index (the JAX package's
+    `PackLedger`): each pack's wall time, resident bytes, tf layout, kind
+    (PACK_KINDS), the pool whose thread did the work (`pool`: "warmer",
+    "merge", "search", "other"; what says whether a pack ran on the query
+    path) and, for a compaction, its `method` ("concat" or "staged").
+    Bounded: at most MAX_INDICES indices (least recently used leave), each
+    with cumulative counters and a ring of its RING latest events. `_lock`
+    is a leaf (dict work only); recording happens on the cold pack path."""
+
+    MAX_INDICES = 256
+    RING = 16
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._by_index: OrderedDict[str, dict] = OrderedDict()
+
+    def record(self, index: str | None, gen: int, ms: float, nbytes: int,
+               layout: str, kind: str = "pack", pool: str | None = None,
+               method: str | None = None) -> None:
+        index = index or "_unattributed"
+        pool = pool or _pool_label()
+        with self._lock:
+            entry = self._by_index.get(index)
+            if entry is None:
+                entry = {"packs": 0, "delta_packs": 0, "remasks": 0,
+                         "compacts": 0, "pack_ms_total": 0.0,
+                         "pools": {}, "recent": []}
+                self._by_index[index] = entry
+                while len(self._by_index) > self.MAX_INDICES:
+                    self._by_index.popitem(last=False)
+            else:
+                self._by_index.move_to_end(index)
+            entry[_KIND_COUNTER.get(kind, "packs")] += 1
+            entry["pack_ms_total"] += ms
+            pools = entry["pools"]
+            pools[pool] = pools.get(pool, 0) + 1
+            event = {"kind": kind, "generation": int(gen), "ms": round(ms, 3),
+                     "bytes": int(nbytes), "tf_layout": layout, "pool": pool}
+            if method is not None:
+                event["method"] = method
+            recent = entry["recent"]
+            recent.append(event)
+            if len(recent) > self.RING:
+                del recent[: len(recent) - self.RING]
+
+    def forget(self, index: str) -> None:
+        """Drop an index's entry (a deleted index; a caller opening a fresh
+        window of observation)."""
+        with self._lock:
+            self._by_index.pop(index, None)
+
+    @staticmethod
+    def _row(e: dict) -> dict:
+        return {"packs": e["packs"], "delta_packs": e["delta_packs"],
+                "remasks": e["remasks"], "compacts": e["compacts"],
+                "pack_ms_total": round(e["pack_ms_total"], 3),
+                "pools": dict(e["pools"]), "recent": list(e["recent"])}
+
+    def stats(self, index: str | None = None) -> dict:
+        with self._lock:
+            if index is not None:
+                e = self._by_index.get(index)
+                return {} if e is None else self._row(e)
+            return {idx: self._row(e) for idx, e in self._by_index.items()}
+
+
+PACK_LEDGER = PackLedger()
+
+
+# ---------------------------------------------------------------------------
+# pack coordination: claimable per-segment, per-device futures
+# ---------------------------------------------------------------------------
+
+# a LEAF lock over `_device_cache` dict work and the publishing assignments
+# only: no pack, remask, upload or Future wait runs under it, and the warmed
+# fast path (a resident, current pack) never takes it
 _PACK_LOCK = threading.Lock()
 
 
@@ -252,42 +398,359 @@ def pack_cache_key(device: torch.device) -> tuple:
     return ("packed", str(device))
 
 
-def packed_for(seg: FrozenSegment, device: torch.device,
-               breaker=None) -> PackedSegment:
-    """The segment's pack on `device`, cached on the segment; re-masks the
-    live planes when tombstones changed since the pack. A first pack
-    reserves `pack_estimate_bytes` on `breaker` (the node's fielddata child;
-    None in unwired contexts) while it runs. Uploads never synchronise, so
-    this is safe inside a dispatch."""
-    key = pack_cache_key(device)
+def pack_future_keys(device: torch.device) -> tuple[tuple, tuple]:
+    """The keys of the in-flight pack's Future and of its claim flag for
+    `device` (per device, as the pack is; per view: `with_deletes` drops
+    them)."""
+    return ("pack_future", str(device)), ("pack_claimed", str(device))
+
+
+def _current(seg: FrozenSegment, packed: PackedSegment | None) -> bool:
+    return packed is not None and packed.live_gen == seg.live_gen
+
+
+def begin_warm(seg: FrozenSegment, device: torch.device) -> Future | None:
+    """Install the in-flight marker for a pack (or remask) about to be
+    scheduled off the query path. Returns the Future a racing search waits
+    on, or None when the pack is resident and current or another is in
+    flight. Dict work only: safe from an engine view listener, which runs
+    under the engine lock.
+
+    The marker is claimable: whoever claims it first packs — normally the
+    scheduled warmer or merge task, but a search arriving before the task
+    starts steals the work and packs inline, resolving the same future. So
+    a wait is only ever on a pack that is running on some thread, which
+    ends without needing a pool slot: no waiter deadlocks behind pack work
+    queued on its own pool."""
+    cache = seg._device_cache
+    fkey, ckey = pack_future_keys(device)
     with _PACK_LOCK:
-        packed = seg._device_cache.get(key)
+        if _current(seg, cache.get(pack_cache_key(device))) \
+                or cache.get(fkey) is not None:
+            return None
+        fut: Future = Future()
+        cache[fkey] = fut
+        cache[ckey] = False
+        return fut
+
+
+def cancel_warm(seg: FrozenSegment, device: torch.device, fut: Future) -> None:
+    """Withdraw a begin_warm future whose submission the pool rejected:
+    clear the marker and resolve the future with None, so a racer already
+    waiting loops and packs inline. A no-op once a racer claimed the work
+    (the claimant owns the future then)."""
+    cache = seg._device_cache
+    fkey, ckey = pack_future_keys(device)
+    with _PACK_LOCK:
+        if cache.get(fkey) is not fut or cache.get(ckey):
+            return
+        cache.pop(fkey, None)
+        cache.pop(ckey, None)
+    if not fut.done():
+        fut.set_result(None)
+
+
+def run_warm(seg: FrozenSegment, device: torch.device, fut: Future,
+             breaker=None, owner: str | None = None) -> PackedSegment | None:
+    """The warmer or merge pool's body for a begin_warm future: claim it and
+    pack. Returns None at once when a racing search claimed it first (that
+    search resolves the future on its own thread). A failure resolves the
+    future with the exception, so waiters fail as an inline pack would,
+    clears the marker, so a later search retries inline, and raises."""
+    cache = seg._device_cache
+    fkey, ckey = pack_future_keys(device)
+    with _PACK_LOCK:
+        if cache.get(fkey) is not fut or cache.get(ckey):
+            return None
+        cache[ckey] = True
+    return _perform_pack(seg, device, fut, breaker, owner)
+
+
+def _perform_pack(seg: FrozenSegment, device: torch.device, fut: Future,
+                  breaker, owner: str | None) -> PackedSegment:
+    """Pack (full, delta or compaction) or remask one segment for `device`
+    with no lock held, publish under the leaf lock and resolve `fut`, which
+    the caller claimed."""
+    cache = seg._device_cache
+    key = pack_cache_key(device)
+    fkey, ckey = pack_future_keys(device)
+    try:
+        t0 = time.monotonic()
+        packed: PackedSegment | None = cache.get(key)
         if packed is None:
-            with reserve(breaker, pack_estimate_bytes(seg), "<packed_segment>"):
-                packed = pack_segment(seg, device)
-            seg._device_cache[key] = packed
-        elif packed.live_gen != seg.live_gen:
-            live_parent = _live_parent(seg, packed.doc_pad)
-            packed.blk_docs = upload(
-                _mask_docs(packed.host_docs, live_parent, packed.doc_pad)
-                .reshape(-1, BLOCK), device)
-            packed.live_parent = upload(live_parent, device)
-            packed.live_gen = seg.live_gen
-    return packed
+            hint = cache.get("pack_hint") or {}
+            kind = hint.get("kind", "pack")
+            sources = hint.get("sources")
+            new = None
+            method = "staged" if kind == "compact" else None
+            if kind == "compact" and sources:
+                with reserve(breaker, concat_estimate_bytes(seg, sources),
+                             f"<segment_compact>[{seg.gen}]"):
+                    new = pack_segment_concat(seg, sources, device)
+                if new is not None:
+                    method = "concat"
+            if new is None:
+                with reserve(breaker, pack_estimate_bytes(seg),
+                             f"<segment_pack>[{seg.gen}]"):
+                    new = pack_segment(seg, device)
+            with _PACK_LOCK:
+                cache[key] = new
+                cache.pop(fkey, None)
+                cache.pop(ckey, None)
+                cache.pop("pack_hint", None)  # drops the sources' refs
+            PACK_LEDGER.record(owner, seg.gen, (time.monotonic() - t0) * 1e3,
+                               packed_resident_bytes(new), new.tf_layout,
+                               kind=kind, method=method)
+            fut.set_result(new)
+            return new
+        # remask: the pack is resident but this view's tombstones moved.
+        # The postings carry the live mask inline (the sparse scan has no
+        # per-posting live gather): re-mask from the raw host copy
+        live_gen = seg.live_gen
+        live_parent = _live_parent(seg, packed.doc_pad)
+        docs = upload(_mask_docs(packed.host_docs, live_parent, packed.doc_pad)
+                      .reshape(-1, BLOCK), device)
+        lp = upload(live_parent, device)
+        with _PACK_LOCK:
+            packed.blk_docs = docs
+            packed.live_parent = lp
+            packed.live_gen = live_gen  # last: a lock-free reader that sees
+            cache.pop(fkey, None)       # the gen sees the planes
+            cache.pop(ckey, None)
+        PACK_LEDGER.record(owner, seg.gen, (time.monotonic() - t0) * 1e3,
+                           packed_resident_bytes(packed), packed.tf_layout,
+                           kind="remask")
+        fut.set_result(packed)
+        return packed
+    except BaseException as e:  # noqa: BLE001 — waiters must never hang
+        with _PACK_LOCK:
+            if cache.get(fkey) is fut:
+                cache.pop(fkey, None)
+                cache.pop(ckey, None)
+        fut.set_exception(e)
+        raise
+
+
+def packed_for(seg: FrozenSegment, device: torch.device, breaker=None,
+               owner: str | None = None) -> PackedSegment:
+    """The segment's pack on `device`, re-masked when its tombstones moved.
+
+    A resident, current pack is one dict read, with no lock. Otherwise the
+    call coordinates through the segment's in-flight Future for `device`: it
+    claims and packs inline when no pack is in flight or when a scheduled
+    warm pack has not started yet (a steal), and waits, with no lock held,
+    only for a pack another thread is running. In the warmed loop every
+    query-path call is a hit and the warmer and merge pools do all the
+    packing (PACK_LEDGER's pools say so).
+
+    `breaker` (the node's fielddata child; None unwired) is charged only by
+    the call that packs, with the pack's estimate, while it runs; a trip
+    raises CircuitBreakingError, and a failed pack another thread ran
+    raises here too (later calls retry). `owner` (the index name) goes to
+    the ledger. Uploads never synchronise, so this is safe inside a
+    dispatch."""
+    cache = seg._device_cache
+    key = pack_cache_key(device)
+    packed = cache.get(key)
+    if _current(seg, packed):
+        return packed
+    fkey, ckey = pack_future_keys(device)
+    while True:
+        with _PACK_LOCK:
+            packed = cache.get(key)
+            if _current(seg, packed):
+                return packed
+            fut = cache.get(fkey)
+            own = True
+            if fut is None:
+                fut = Future()
+                cache[fkey] = fut
+                cache[ckey] = True
+            elif not cache.get(ckey):
+                cache[ckey] = True  # steal a scheduled pack not started yet
+            else:
+                own = False
+        if own:
+            return _perform_pack(seg, device, fut, breaker, owner)
+        fut.result()  # a pack running on another thread: wait, no lock held
+        with _PACK_LOCK:
+            # a resolved future is never waited on twice
+            if cache.get(fkey) is fut:
+                cache.pop(fkey, None)
+                cache.pop(ckey, None)
 
 
 def ensure_blk_freqs(packed: PackedSegment, breaker=None) -> torch.Tensor:
     """Fault in the dense-fallback f32 freqs plane (sparse-only segments
     never pay its 4 B/posting), its bytes reserved on `breaker` (fielddata)
-    around the upload. Under the pack lock, so two dispatching threads
-    upload it once."""
-    if packed.blk_freqs is None:
-        with _PACK_LOCK:
-            if packed.blk_freqs is None:
-                with reserve(breaker, packed.host_freqs.nbytes, "<dense_freqs>"):
-                    packed.blk_freqs = upload(
-                        packed.host_freqs.reshape(-1, BLOCK), packed.device)
-    return packed.blk_freqs
+    around the upload. The upload runs with no lock held; the first plane
+    published under the pack lock wins, so every caller gets the same
+    tensor (two racing callers may both upload: the loser's copy is
+    dropped)."""
+    plane = packed.blk_freqs
+    if plane is not None:
+        return plane
+    with reserve(breaker, packed.host_freqs.nbytes, "<dense_freqs>"):
+        plane = upload(packed.host_freqs.reshape(-1, BLOCK), packed.device)
+    with _PACK_LOCK:
+        if packed.blk_freqs is None:
+            packed.blk_freqs = plane
+        return packed.blk_freqs
+
+
+# ---------------------------------------------------------------------------
+# compaction: a merged segment's pack from its sources' resident planes
+# ---------------------------------------------------------------------------
+
+# per-slot allowance for the concat program's device temporaries (the
+# gather index, selects and gathered values alive at its peak)
+CONCAT_TRANSIENT_SLOT_BYTES = 8
+
+_TF_RANK = {TF_U8: 0, TF_I16: 1, TF_F32: 2}
+
+
+def concat_source_packs(sources, device: torch.device) -> list | None:
+    """The sources' packs on `device` when the compaction concat is legal,
+    else None (the caller re-stages with pack_segment):
+
+    - every source fully live (merge_segments drops a tombstoned source's
+      postings, which breaks the posting-for-posting alignment) with its
+      pack resident and current (no remask pending);
+    - every source's tf integral (a merge rebuilds tf as the position
+      count: a fractional f32 tf would not come back bitwise)."""
+    key = pack_cache_key(device)
+    packs = []
+    for src in sources:
+        packed = src._device_cache.get(key)
+        if not _current(src, packed) or not bool(src.live.all()) \
+                or not packed.tf_integral:
+            return None
+        packs.append(packed)
+    return packs
+
+
+def concat_estimate_bytes(merged: FrozenSegment, sources) -> int:
+    """Host staging plus device bytes pack_segment_concat allocates, the
+    fielddata breaker's estimate for a compaction, exact for the concat
+    layout as pack_estimate_bytes is for the staged one: per slot the
+    retained host docs and freqs, the device docs, tf and nb planes and the
+    program's temporaries; the blk_term and blk_j0 rows and the [W+1, T]
+    and [W, T] tables (host and device); per padded doc the live mask, each
+    norm byte and 8 B a numeric column."""
+    NBpad, Dpad, layout = pack_shape_math(merged)
+    tf_b = tf_plane_itemsize(layout)
+    W = len(sources)
+    T = len(merged.post_offsets) - 1
+    per_slot = (4 + 4) + (4 + tf_b + 1) + CONCAT_TRANSIENT_SLOT_BYTES
+    return (NBpad * BLOCK * per_slot + NBpad * 4 * 2
+            + (2 * W + 1) * T * 4 * 2 + Dpad * 2
+            + Dpad * len(merged.norms) + Dpad * 8 * len(merged.dv_num))
+
+
+def concat_tables(merged: FrozenSegment, sources, packs) -> tuple | None:
+    """The concat program's host inputs: per merged term and source the
+    posting count and the source's first block (`cnt`, `starts`, [W, T]),
+    their cumulative counts over sources (`cum`, [W+1, T]), each merged
+    block's term and first within-term posting (`blk_term`, `blk_j0`,
+    [NBpad]; pad rows get an offset no source holds) and the merged
+    `term_blk_start`. Terms resolve by name, a field at a time. None when
+    the per-term counts disagree with the merged CSR."""
+    NBpad, _Dpad, _layout = pack_shape_math(merged)
+    T = len(merged.post_offsets) - 1
+    counts_m = np.diff(merged.post_offsets)
+    W = len(sources)
+    cnt = np.zeros((W, T), dtype=np.int32)
+    starts = np.zeros((W, T), dtype=np.int32)
+    src_counts = [np.diff(src.post_offsets) for src in sources]
+    for f, td_m in merged.term_dict.items():
+        tids_m = np.fromiter(td_m.values(), dtype=np.int64, count=len(td_m))
+        for s, (src, packed) in enumerate(zip(sources, packs)):
+            td_s = src.term_dict.get(f)
+            if not td_s:
+                continue
+            tids_s = np.fromiter(map(td_s.get, td_m, repeat(-1)), dtype=np.int64,
+                                 count=len(td_m))
+            hit = tids_s >= 0
+            cnt[s, tids_m[hit]] = src_counts[s][tids_s[hit]]
+            starts[s, tids_m[hit]] = packed.term_blk_start[tids_s[hit]]
+    cum = np.zeros((W + 1, T), dtype=np.int32)
+    np.cumsum(cnt, axis=0, out=cum[1:])
+    if not np.array_equal(cum[-1], counts_m):
+        return None
+    nblks = (counts_m + BLOCK - 1) // BLOCK
+    blk_start = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(nblks, out=blk_start[1:])
+    NB = int(blk_start[-1])
+    blk_term = np.zeros(NBpad, dtype=np.int32)
+    # pad rows: an offset past every source's count, so no select takes
+    # them and they keep the sentinel and zero the staged pack writes
+    blk_j0 = np.full(NBpad, 1 << 30, dtype=np.int32)
+    if NB:
+        blk_term[:NB] = np.repeat(np.arange(T, dtype=np.int32), nblks)
+        blk_j0[:NB] = ((np.arange(NB, dtype=np.int64)
+                        - np.repeat(blk_start[:-1], nblks)) * BLOCK).astype(np.int32)
+    return blk_term, blk_j0, cum, starts, blk_start
+
+
+def pack_segment_concat(merged: FrozenSegment, sources,
+                        device: torch.device) -> PackedSegment | None:
+    """A merged segment's pack on `device`, assembled by concatenating its
+    sources' resident planes (one gather/select program,
+    ops/scoring.concat_pack_planes, tf widened along the choose_tf_layout
+    ladder) instead of re-staging its postings from the host: the upload is
+    the O(NB + W·T + D) tables and columns, not the O(postings) planes.
+    Legal only when the merge kept every posting in source order; the
+    result equals pack_segment(merged, device) field by field. None when
+    ineligible: a source tombstoned, not resident or not current, a
+    fractional f32 tf, dropped docs, tf-layout drift, or per-term counts
+    that disagree with the merged CSR (the caller re-stages)."""
+    from .scoring import concat_pack_planes
+
+    packs = concat_source_packs(sources, device)
+    if packs is None or not len(merged.post_docs):
+        return None
+    if merged.doc_count != sum(s.doc_count for s in sources):
+        return None  # docs were dropped: source order is not merged order
+    NBpad, Dpad, layout = pack_shape_math(merged)
+    widest = max((p.tf_layout for p in packs), key=_TF_RANK.__getitem__)
+    if layout != widest:
+        return None  # the tf drifted between the sources and the merged CSR
+    live_gen = merged.live_gen
+    tables = concat_tables(merged, sources, packs)
+    if tables is None:
+        return None
+    blk_term, blk_j0, cum, starts, blk_start = tables
+    bases = np.cumsum([0] + [s.doc_count for s in sources[:-1]]).astype(np.int32)
+    doc_pads = np.asarray([p.doc_pad for p in packs], dtype=np.int32)
+    out_docs, out_tf, out_nb = concat_pack_planes(
+        upload(blk_term, device), upload(blk_j0, device), upload(cum, device),
+        upload(starts, device), upload(bases, device), upload(doc_pads, device),
+        [p.blk_docs for p in packs], [p.blk_tf for p in packs],
+        [p.blk_nb for p in packs], doc_pad_new=Dpad, tf_layout=layout)
+
+    # the retained host copies (remasks, the lazy dense plane): host only
+    flat_docs = np.full(NBpad * BLOCK, Dpad, dtype=np.int32)
+    flat_freqs = np.zeros(NBpad * BLOCK, dtype=np.float32)
+    slots = expand_ranges(blk_start[:-1] * BLOCK, np.diff(merged.post_offsets))
+    flat_docs[slots] = merged.post_docs
+    flat_freqs[slots] = merged.post_freqs
+    return PackedSegment(
+        gen=merged.gen,
+        doc_count=merged.doc_count,
+        doc_pad=Dpad,
+        device=device,
+        blk_docs=out_docs,
+        blk_tf=out_tf,
+        blk_nb=out_nb,
+        tf_layout=layout,
+        term_blk_start=blk_start,
+        live_parent=upload(_live_parent(merged, Dpad), device),
+        norm_bytes=_norm_bytes(merged, Dpad, device),
+        host_docs=flat_docs,
+        host_freqs=flat_freqs,
+        live_gen=live_gen,
+        tf_integral=True,  # every source's tf is integral
+    )
 
 
 def tfn_values(freqs: np.ndarray, nb: np.ndarray, cache: np.ndarray,
@@ -308,17 +771,20 @@ def ensure_sim_tables(packed: PackedSegment,
     drift) swaps a 1 KB/field table, never the postings. Fields accumulate
     across calls; a re-ensure swaps packed.sim and never mutates an existing
     SimTables, so a dispatch in flight keeps the one it resolved its fids
-    against. The swap is a read-modify-write of packed.sim: under the pack
-    lock, so two dispatching threads never drop each other's fields."""
-    cur = packed.sim
-    if _sim_current(cur, tables):
-        return cur
-    with _PACK_LOCK:
+    against. The swap is a compare-and-swap of packed.sim: the merged
+    tables are built and uploaded with no lock held, then published under
+    the pack lock only if packed.sim is still the one they were merged
+    from (else the merge reruns), so two dispatching threads never drop
+    each other's fields."""
+    while True:
         cur = packed.sim
         if _sim_current(cur, tables):
             return cur
-        packed.sim = _merged_sim(packed, cur, tables)
-        return packed.sim
+        merged = _merged_sim(packed, cur, tables)
+        with _PACK_LOCK:
+            if packed.sim is cur:
+                packed.sim = merged
+                return merged
 
 
 def _sim_current(cur: SimTables | None, tables: dict) -> bool:

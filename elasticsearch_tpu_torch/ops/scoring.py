@@ -765,3 +765,73 @@ def score_flat_sparse(packed: PackedSegment, clause_lists: list,
                                                len(clause_lists), k,
                                                packed.doc_pad)
     return scores, docs, totals, overflow
+
+
+# ---------------------------------------------------------------------------
+# compaction concat (B7): a merged segment's planes from resident sources
+# ---------------------------------------------------------------------------
+
+_TF_TORCH = {"u8": torch.uint8, "i16": torch.int16, "f32": torch.float32}
+# output rows a step of the concat: bounds its temporaries (about 40 B a
+# slot of a step) whatever the merged segment's size
+_CONCAT_ROWS = 1 << 15
+
+
+def _concat_impl(blk_term, blk_j0, cum, starts, bases, doc_pads,
+                 src_docs, src_tf, src_nb, *, doc_pad_new: int, tf_layout: str):
+    """The gather/select program that assembles a merged segment's quantized
+    planes from its sources' resident planes (device to device: no host
+    staging of the postings), the JAX package's `_concat_impl` as torch
+    ops.
+
+    Per output slot (block row nb, lane): the merged term is `blk_term[nb]`
+    (blocks never span terms), the within-term posting `blk_j0[nb] + lane`;
+    the per-term cumulative source counts `cum` pick the source that holds
+    it, and the gather index is that source's block start plus the offset
+    within the source. A source slot masked to its sentinel (a non-parent
+    doc) maps to the new sentinel, any other doc shifts by the source's doc
+    base; tf widens along the u8 → i16 → f32 ladder (exact for the integral
+    tf the gate admits). Pad rows carry a huge `blk_j0`, so no select takes
+    them and they keep the sentinel and zeros pack_segment writes. Gathers
+    and `torch.where` only: no host sync."""
+    NB = blk_term.shape[0]
+    B = src_docs[0].shape[1]
+    dev = blk_term.device
+    out_docs = torch.full((NB, B), doc_pad_new, dtype=torch.int32, device=dev)
+    out_tf = torch.zeros((NB, B), dtype=_TF_TORCH[tf_layout], device=dev)
+    out_nb = torch.zeros((NB, B), dtype=torch.uint8, device=dev)
+    sentinel = torch.full((), doc_pad_new, dtype=torch.int32, device=dev)
+    lane = torch.arange(B, dtype=torch.int64, device=dev)
+    flat = [(d.reshape(-1), t.reshape(-1), n.reshape(-1))
+            for d, t, n in zip(src_docs, src_tf, src_nb)]
+    for r0 in range(0, NB, _CONCAT_ROWS):
+        rows = slice(r0, min(NB, r0 + _CONCAT_ROWS))
+        term = blk_term[rows].long()
+        j = blk_j0[rows].long()[:, None] + lane
+        o_docs, o_tf, o_nb = out_docs[rows], out_tf[rows], out_nb[rows]
+        for s, (sd, st, sn) in enumerate(flat):
+            lo = cum[s][term].long()[:, None]
+            sel = (j >= lo) & (j < cum[s + 1][term].long()[:, None])
+            slot = (starts[s][term].long()[:, None] * B + (j - lo)) \
+                .clamp_(0, sd.numel() - 1)
+            d = sd[slot]
+            d = torch.where(d >= doc_pads[s], sentinel, d + bases[s])
+            o_docs.copy_(torch.where(sel, d, o_docs))
+            o_tf.copy_(torch.where(sel, st[slot].to(o_tf.dtype), o_tf))
+            o_nb.copy_(torch.where(sel, sn[slot], o_nb))
+    return out_docs, out_tf, out_nb
+
+
+def concat_pack_planes(blk_term, blk_j0, cum, starts, bases, doc_pads,
+                       src_docs, src_tf, src_nb, *, doc_pad_new: int,
+                       tf_layout: str):
+    """Launch the concat program on the sources' device: int32 `blk_term`,
+    `blk_j0` [NBpad], `cum` [W+1, T], `starts` [W, T], `bases` and
+    `doc_pads` [W], and the W sources' [NB_s, 128] planes. Returns the
+    merged segment's (blk_docs, blk_tf, blk_nb), resident, with no pull."""
+    if not src_docs or len({t.device for t in (blk_term, *src_docs)}) != 1:
+        raise ValueError("the concat needs at least one source, and every "
+                         "input on one device")
+    return _concat_impl(blk_term, blk_j0, cum, starts, bases, doc_pads,
+                        list(src_docs), list(src_tf), list(src_nb),
+                        doc_pad_new=int(doc_pad_new), tf_layout=tf_layout)

@@ -3,7 +3,8 @@
 
 Routes: `GET /`, `PUT|POST /{index}`, `PUT|POST /{index}/{type}/{id}`,
 `POST /{index}/{type}`, `_bulk` NDJSON (at `/`, `/{index}` and
-`/{index}/{type}`), `_refresh`, `GET /_cluster/health` and `_search` (at
+`/{index}/{type}`), `_refresh`, `_flush` and `_optimize` (at `/` and
+`/{index}`), `GET /_cluster/health` and `_search` (at
 `/`, `/{index}` and `/{index}/{type}`, GET or POST). A route that is not
 ported answers 400 "No handler found", as the JAX controller answers an
 unknown route; a missing index answers 404. Handlers call the node Client:
@@ -272,9 +273,11 @@ def build_rest_controller(node) -> RestController:
 
     rc.register("PUT,POST", "/{index}",
                 lambda r: client.create_index(r.path_params["index"], _parse_body(r)))
-    rc.register("POST,GET", "/_refresh", lambda r: client.refresh(None))
-    rc.register("POST,GET", "/{index}/_refresh",
-                lambda r: client.refresh(r.path_params["index"]))
+    for op in ("refresh", "flush", "optimize"):
+        rc.register("POST,GET", f"/_{op}",
+                    (lambda o: lambda r: getattr(client, o)(None))(op))
+        rc.register("POST,GET", "/{index}/_" + op,
+                    (lambda o: lambda r: getattr(client, o)(r.path_params["index"]))(op))
     rc.register("GET", "/_cluster/health",
                 lambda r: client.cluster_health(
                     wait_for_status=r.param("wait_for_status"),

@@ -137,7 +137,8 @@ class ShardContext:
 
     def __init__(self, searcher: Searcher, mapper_service,
                  similarity_service: SimilarityService | None = None,
-                 device=None, breakers=None, batcher=None, filter_cache=None):
+                 device=None, breakers=None, batcher=None, filter_cache=None,
+                 index_name: str | None = None):
         self.searcher = searcher
         self.mapper_service = mapper_service
         self.similarity_service = similarity_service or SimilarityService(
@@ -154,6 +155,9 @@ class ShardContext:
         # filters' masks stay resident on the device for the filtered family
         # (_filter_mask_row)
         self.filter_cache = filter_cache
+        # the index this shard belongs to (None unknown): the pack ledger's
+        # owner of the packs this context's searches make
+        self.index_name = index_name
 
     def breaker(self, name: str):
         """The named circuit breaker, or None when no service is wired."""
@@ -651,7 +655,8 @@ def _launch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
 
     seg_work = []
     for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
-        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"))
+        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"),
+                            owner=ctx.index_name)
         # a 1 KB/field LUT swap when stats moved, never a postings re-bake
         sim = ensure_sim_tables(packed, sim_tables)
         clause_lists = []
@@ -784,7 +789,8 @@ def _dense_segments(plans: list[FlatPlan], ctx: ShardContext):
 
     segs = []
     for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
-        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"))
+        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"),
+                            owner=ctx.index_name)
         _ensure_norm_rows(packed, all_fields, ctx.breaker("fielddata"))
         segs.append((seg, base, packed))
     return segs, chunk_batch
@@ -871,7 +877,8 @@ def prepare_dense(plans: list[FlatPlan], ctx: ShardContext) -> list:
             preps.append(None)
             continue
         if packs is None:
-            packs = [(seg, packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata")))
+            packs = [(seg, packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"),
+                                      owner=ctx.index_name))
                      for seg in ctx.searcher.segments]
         if plan.filt is not None:
             preps.append([_filter_mask_row(plan.filt, seg, packed, ctx)
@@ -1016,7 +1023,8 @@ def _single_plan_segments(plan: FlatPlan, ctx: ShardContext):
     finals = [finalize_flat(plan, ctx)]
     (all_fields, field_idx, _cache_rows, caches_stack,
      coord_tbl, n_must, msm) = _assemble_batch([plan], finals)
-    segs = [(seg, base, packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata")))
+    segs = [(seg, base, packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"),
+                                   owner=ctx.index_name))
             for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases)]
 
     def seg_batch(seg, packed):
@@ -1079,7 +1087,8 @@ def sort_key_rows(ctx: ShardContext, spec) -> list | None:
     so a refusal launches nothing."""
     rows = []
     for seg in ctx.searcher.segments:
-        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"))
+        packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"),
+                            owner=ctx.index_name)
         row = device_sort_key_row(spec, seg, packed.doc_pad)
         if row is None:
             return None

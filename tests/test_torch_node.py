@@ -36,9 +36,15 @@ both nodes, 500 with a counted device error when the kernel fails, no
 context left pinned after a failed query phase, a failed fetch dropping
 only its shard's hits (as on the JAX node), the fetch reading the query
 phase's pinned searcher across a refresh, and DeviceUnavailableError for a
-node built without CUDA and without `node.device: cpu`."""
+node built without CUDA and without `node.device: cpu`.
+
+The write path: three bulk and refresh rounds (deletes and overwrites
+included), then `_optimize`, then `_flush`, on both nodes; the hits JSON is
+equal after each step, and the port node packs on its warmer and merge
+pools only."""
 
 import json
+import time
 import urllib.error
 import urllib.request
 
@@ -665,3 +671,98 @@ def test_sort_aggs_and_facets_match_jax_node(nodes, index, case):
             assert all(h["_score"] is None for h in ph["hits"])
     _agg_equal(pr.get("aggregations"), jr.get("aggregations"))
     assert pr.get("facets") == jr.get("facets")
+
+
+# ---------------------------------------------------------------------------
+# the write path: refreshes, _optimize and _flush
+# ---------------------------------------------------------------------------
+
+WRITE_BODIES = [
+    {"query": {"match": {"body": "w1 w2 w3"}}, "size": 20},
+    {"query": {"bool": {"must": [{"term": {"body": "w2"}}],
+                        "should": [{"term": {"title": "w4"}}],
+                        "must_not": [{"term": {"body": "w5"}}]}}, "size": 15},
+    {"query": {"match": {"title": "over written"}}, "size": 5},
+]
+
+
+def _write_bulks(seed: int) -> list[str]:
+    """Three `_bulk` bodies into `wr`: new documents each round, the later
+    rounds also deleting and overwriting earlier ones across segments."""
+    rng = np.random.default_rng(seed)
+
+    def doc(i):
+        return {"title": " ".join(rng.choice(WORDS[:12], 2)),
+                "body": " ".join(rng.choice(WORDS[:20], int(rng.integers(2, 25)))), "n": i}
+
+    bulks = []
+    for r in range(3):
+        ops = []
+        for i in range(60 * r, 60 * r + 60):
+            ops += [{"index": {"_index": "wr", "_type": "doc", "_id": str(i)}}, doc(i)]
+        for i in range(r, 60 * r, 11):
+            ops.append({"delete": {"_index": "wr", "_type": "doc", "_id": str(i)}})
+        for i in range(r + 3, 60 * r, 17):
+            ops += [{"index": {"_index": "wr", "_type": "doc", "_id": str(i)}},
+                    {"title": "over written", "body": "w1 w1 w2 w3", "n": -i}]
+        bulks.append("\n".join(json.dumps(x) for x in ops) + "\n")
+    return bulks
+
+
+def test_writes_optimize_and_flush_match_jax_node(tmp_path_factory):
+    """The same bulks into a 3-shard index on both nodes, three refresh
+    rounds, then `_optimize`, then `_flush`: after each step every search
+    answers the JAX node's hits JSON (bitwise scores: the sparse path), and
+    `_optimize` and `_flush` answer as on the JAX node. On the port node
+    each shard ends with one segment, and after its first search every pack
+    ran on the warmer or merge pool."""
+    from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER
+
+    def fill(base):
+        st, r = call(base, "PUT", "/wr", {"settings": {"number_of_shards": 3,
+                                                       "refresh_interval": -1}})
+        assert st == 200 and r["acknowledged"], r
+
+    pair = _node_pair(tmp_path_factory, fill)
+    pbase, jbase, pnode = next(pair)
+
+    def same_hits(step):
+        for body in WRITE_BODIES:
+            (pst, pr), (jst, jr) = (call(b, "POST", "/wr/_search", body)
+                                    for b in (pbase, jbase))
+            assert pst == jst == 200, (step, pr, jr)
+            assert pr["_shards"] == _strip_degraded(jr)["_shards"], step
+            assert pr["hits"] == jr["hits"], step
+
+    def wait_drained():
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            st = pnode.warmer.stats()
+            if st["packs_done"] >= st["packs_scheduled"]:
+                return
+            time.sleep(0.02)
+
+    try:
+        for r, bulk in enumerate(_write_bulks(23)):
+            for base in (pbase, jbase):
+                st, resp = call(base, "POST", "/_bulk", raw=bulk)
+                assert st == 200 and not resp["errors"], resp
+                assert call(base, "POST", "/wr/_refresh")[0] == 200
+            wait_drained()  # the refresh's caller waits for the warmer
+            same_hits(f"refresh {r}")
+            if r == 0:
+                PACK_LEDGER.forget("wr")  # the gate's inline packs
+        for op in ("_optimize", "_flush"):
+            (pst, pr), (jst, jr) = (call(b, "POST", f"/wr/{op}") for b in (pbase, jbase))
+            assert pst == jst == 200 and pr == jr, (op, pr, jr)
+            assert pr["_shards"]["failed"] == 0
+            wait_drained()
+            same_hits(op)
+        svc = pnode.indices.index_service("wr")
+        assert [svc.shard(s).engine.segment_count() for s in range(3)] == [1, 1, 1]
+        wait_drained()
+        st = PACK_LEDGER.stats("wr")
+        assert st["compacts"] == 3 and st["delta_packs"] >= 6, st
+        assert set(st["pools"]) <= {"warmer", "merge"}, st["pools"]
+    finally:
+        pair.close()
