@@ -170,6 +170,35 @@ its plain torch version on the card. Phases:
      packed by the concat on the `merge` pool, the same hits; requests/s,
      p50 and the drainer's `sparse_score` launches a request before and
      after the optimize.
+ 15. device faults on the card. (a) On phase 10's node before it closes,
+     from 16 connections of this process: the card's answers to 16 of
+     phase 3's `bool` bodies (`corpus`) and 8 each of `filtered`,
+     function_score rows, a field sort and a terms agg (`catalog`) pinned
+     with `_shards.degraded` 0; then each fault domain armed in turn with a
+     persistent kind — `pull:*`, `compile:sparse`, `compile:filtered`,
+     `compile:function_score`, `compile:sorted`, `compile:aggs`, and
+     `pack:writes` before a 1,000-doc `_bulk` and `_refresh` into phase
+     14's index: the first request of the family that meets the seam trips
+     it; then all the bodies again under `set_sync_debug_mode("error")`:
+     every answer 200 at its family's bar (scores within 2 ulp of the
+     card's, tie-tolerant; sort order and values exact; aggregations as in
+     phase 13; `pack:writes` against the shards' host query phases), every
+     shard of a blocked family degraded, the others on the card, the blocked
+     family's serving counter unmoved and `sparse_score` launched by the
+     admitted half-open probes only; disarmed, the domain closes by probe
+     within 15 s and `sparse_score` launches again. Then `oom` twice at
+     `pull:splits` (a 1-shard index, so the searches coalesce): the batch
+     splits, one search degrades, the circuit stays closed. Time to trip,
+     requests/s degraded against the card on the same bodies, time to
+     recover. (b) In a child process (this script, `--sticky-child`, 60 s
+     limit): a node whose start builds `sparse_score` into a fresh build
+     directory (no nvcc after it), 2 shards of 5,000 of phase 10's texts,
+     32 `bool` searches pinned on the card, an out-of-range CUDA index and
+     a synchronize (a device-side assert, code 710), then the 32 searches
+     again: each 200, `_shards.degraded` 2, bitwise equal to the shards'
+     host query phases and within 2 ulp of the pinned answers, every
+     failure persistent; the child prints one JSON line and leaves with
+     `os._exit`. Phases 1-14 degrade nothing and count no device error.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -179,6 +208,7 @@ phase passed. Without CUDA the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import fnmatch
 import gc
 import json
 import os
@@ -205,6 +235,9 @@ SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
 NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 200_000, 2048, 64  # phase 10's load and traffic
 NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
 NODE_PROFILED = 512  # requests in phase 10's profiled window
+# a search response's `_shards` on phase 10's node: every shard answered from
+# the card, none degraded to the host path
+SHARDS_OK = {"total": NODE_SHARDS, "successful": NODE_SHARDS, "degraded": 0, "failed": 0}
 # phase 11's traffic, half phase 3's bool, half the other families: 512
 # requests (2048 before phase 12 joined the run, 1024 before phase 13 did)
 # and a profiled window of 256
@@ -248,6 +281,33 @@ SERVE_SIZES = (10, 100)  # phase 9: half the requests each, k buckets 16 and 128
 SERVE_PROFILED = 1024  # requests in phase 9's profiled window
 SPIN_CYCLES = 40_000_000  # phase 9's stand-in for batch N+1: ~20 ms at ~2 GHz
 TB_MAX = 512  # ops/scoring.py launch_flat_sparse: past it a query takes the dense path
+# phase 15 (a): connections, bodies (phase 3's bool; each dense family), and
+# the domains armed in turn: (domain, kind, the families whose launch meets
+# its seam, the families its open circuit sends to the host path)
+FAULT_CONNECTIONS, FAULT_BOOL, FAULT_FAMILY = 16, 16, 8
+# the card's and the first (pull:*) domain's degraded window send the bodies
+# this many times: the two request rates compared over 240 requests each
+FAULT_RATE_REPS = 5
+FAULT_DOMAINS = (
+    ("pull:*", "transfer", {"bool", "filtered"},
+     {"bool", "filtered", "function_score", "sort", "aggs"}),
+    ("compile:sparse", "launch", {"bool"}, {"bool"}),
+    ("compile:filtered", "launch", {"filtered"}, {"filtered"}),
+    ("compile:function_score", "launch", {"function_score"}, {"function_score"}),
+    ("compile:sorted", "launch", {"sort"}, {"sort"}),
+    ("compile:aggs", "launch", {"aggs"}, {"aggs"}),
+    ("pack:writes", "launch", {"writes"}, {"writes"}))
+FAULT_COUNTER = {"bool": "device_sparse", "writes": "device_sparse",
+                 "filtered": "device_filtered",
+                 "function_score": "device_function_score",
+                 "sort": "device_sort", "aggs": "device_aggs"}
+SPLIT_DOCS = 2000  # phase 15 (a)'s 1-shard `splits` index for the oom step
+RECOVER_S = 15.0  # a disarmed domain closes within this
+# phase 15 (a)'s defect: dynamic shared memory past the card's 227 KB a block,
+# which the CUDA runtime refuses before the launch (a code no search degrades on)
+DEFECT_SHARED_BYTES = 1 << 20
+# phase 15 (b): the child's node and searches, and its time limit
+STICKY_DOCS, STICKY_SHARDS, STICKY_SEARCHES, STICKY_TIMEOUT_S = 5000, 2, 32, 60
 ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_dense.py)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -1091,6 +1151,14 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     report["write_path"] = write_path_phase(
         device, csr, vocab, [[t for t, _g in c] for c in batches[1][0]], seed=seed + 14)
 
+    # phases 1-14 served nothing on the host path by degrade: every degrade
+    # and device error of the process is phase 15's
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+    faults = node["faults"]["counted"]
+    for key in ("degraded", "device_errors"):
+        assert SERVING_COUNTERS[key] == faults[key], \
+            f"{key}: {SERVING_COUNTERS[key]} in the run, {faults[key]} of them phase 15's"
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1099,7 +1167,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         node_max_abs_err=node["kernel_max_abs_err"],
         mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
         mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"],
-        dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"])]
+        dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"],
+        fault_launches=node["faults"]["launches"])]
     return report
 
 
@@ -1806,8 +1875,7 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
         assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
         for i, (st, r) in enumerate(responses):
             assert st == 200, (i, r)
-            assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
-                                    "failed": 0}, (i, r["_shards"])
+            assert r["_shards"] == SHARDS_OK, (i, r["_shards"])
             assert r["hits"]["total"] == totals[i], \
                 f"request {i}: total {r['hits']['total']} != exact {totals[i]}"
             got = [(h["_id"], h["_score"], h["_shard"]) for h in r["hits"]["hits"]]
@@ -1888,6 +1956,13 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
             seed=seed + 4, n_docs=min(write_docs, n_docs - WRITE_ROUNDS * NODE_BULK),
             n_requests=write_requests, n_callers=n_callers)
+        # -- 15. device faults on the card ----------------------------------
+        out["faults"] = faults_phase(device, node, port, texts=texts, ranked=ranked,
+                                     bool_bodies=bodies, seed=seed + 5)
+        if on_card:
+            out["sticky"] = sticky_phase(device, texts, bodies)
+        else:
+            log("[15] (b) the sticky fault needs the card: not run on the CPU")
         return out
     finally:
         if recorder is not None:
@@ -2028,7 +2103,7 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
     assert counted == {"device_sparse": NODE_SHARDS * n_device,
                        "device_filtered": NODE_SHARDS * n_dense,
                        "device_function_score": 0, "device_aggs": 0,
-                       "device_sort": 0, "device_errors": 0,
+                       "device_sort": 0, "device_errors": 0, "degraded": 0,
                        "host": NODE_SHARDS * n_host}, counted
     device_idx = [i for i, f in enumerate(families) if f == "device"]
     card_ref = {}
@@ -2047,8 +2122,7 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
     exact_dense = dict.fromkeys(MIXED_DENSE, 0)
     for i, ((st, r), (family, body, total)) in enumerate(zip(responses, traffic)):
         assert st == 200, (i, family, r)
-        assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
-                                "failed": 0}, (i, family, r["_shards"])
+        assert r["_shards"] == SHARDS_OK, (i, family, r["_shards"])
         ref_total, entries, _top = host_reference(ctxs, body)
         assert r["hits"]["total"] == ref_total, (i, family, r["hits"]["total"], ref_total)
         if total is not None:
@@ -2804,8 +2878,7 @@ def catalog_phase(device, node, port: int, *, texts, offsets, inv_docs, seed: in
     t0 = time.perf_counter()
     for i, ((f, body), (st, r)) in enumerate(zip(entries, responses)):
         assert st == 200, (i, f, r)
-        assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
-                                "failed": 0}, (i, r["_shards"])
+        assert r["_shards"] == SHARDS_OK, (i, r["_shards"])
         req = parse_search_body(dict(body, sort=[{"pop": "desc"}]) if f == "sort_url"
                                 else body)
         res = [execute_query_phase(c, req, use_device=False, shard_id=sid)
@@ -3172,8 +3245,7 @@ def writes_node_phase(device, node, port: int, *, texts, offsets, inv_docs, seed
         hits = []
         for i, ((st, r), row) in enumerate(zip(responses, rows)):
             assert st == 200, (step, i, r)
-            assert r["_shards"] == {"total": NODE_SHARDS, "successful": NODE_SHARDS,
-                                    "failed": 0}, (step, i, r["_shards"])
+            assert r["_shards"] == SHARDS_OK, (step, i, r["_shards"])
             docs = term_docs(offsets, inv_docs, [int(t) for t in row])
             assert r["hits"]["total"] == int((docs < indexed).sum()), (step, i, "total")
             want[i].sort(key=lambda e: (-e[0], e[1], e[2]))
@@ -3267,6 +3339,578 @@ def writes_node_phase(device, node, port: int, *, texts, offsets, inv_docs, seed
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: device faults on the card
+# ---------------------------------------------------------------------------
+
+
+def http_burst(port: int, requests: list, n_conn: int) -> tuple[list, float]:
+    """`requests` [(path, body)] sent by `n_conn` threads of this process,
+    each on its own keep-alive connection: (responses, wall s)."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = [None] * len(requests)
+    local = threading.local()
+    conns = []
+
+    def send(i):
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            conn = local.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            conns.append(conn)
+        path, body = requests[i]
+        out[i] = http_json(conn, "POST", path, body)
+
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(n_conn) as ex:
+            list(ex.map(send, range(len(requests))))
+    finally:
+        for conn in conns:
+            conn.close()
+    return out, time.perf_counter() - t0
+
+
+def fault_hits(family: str, r: dict) -> list:
+    """A response's page as phase 13's comparator reads it: [(score, (shard,
+    id), sort values)]."""
+    return [(float("nan") if h["_score"] is None else h["_score"],
+             (h["_shard"], h["_id"]), h.get("sort")) for h in r["hits"]["hits"]]
+
+
+def at_fault_bar(family: str, body: dict, got: dict, want: dict) -> None:
+    """Phase 15's bar between a degraded answer and the card's: totals
+    exact; a field sort in the same order with the same sort values; scores
+    tie-tolerant within 2 ulp (the host scorer against the card, tests/
+    test_torch_host_scorer.py's bar); aggregations as phase 13 holds them."""
+    assert got["hits"]["total"] == want["hits"]["total"], (family, "total")
+    assert shard_docs_match(fault_hits(family, got), fault_hits(family, want),
+                            family == "sort"), (family, "hits")
+    if family == "aggs":
+        agg_close(got["aggregations"], want["aggregations"], body)
+
+
+def faults_phase(device, node, port: int, *, texts, ranked, bool_bodies, seed: int,
+                 n_conn: int = FAULT_CONNECTIONS) -> dict:
+    """Phase 15 (a), on phase 10's node: the device fault domains on the
+    card. Pins the card's answers to FAULT_BOOL of phase 3's `bool` bodies
+    (`corpus`) and FAULT_FAMILY each of `filtered`, function_score rows,
+    a field sort and a terms agg (`catalog`), then arms each domain of
+    FAULT_DOMAINS in turn with a persistent kind: the blocked families
+    answer 200 from the host path at their bar with `_shards.degraded`, the
+    domain is open, the blocked family launches nothing (`sparse_score`'s
+    count, the dense families' serving counters) under
+    `set_sync_debug_mode("error")` while the others stay on the card; then
+    disarms and waits for the probe to close it. `pack:writes` is armed
+    before a 1,000-doc `_bulk` and `_refresh` into phase 14's `writes`
+    index, its answers held against the shards' host query phases. Last,
+    `oom` twice at `pull:corpus`: the circuit stays closed, the batch is
+    split and the neighbours are served by the card. The card's answers and
+    the `pull:*` window are sent FAULT_RATE_REPS times over, the two request
+    rates compared."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.common.devicehealth import CLOSED, DEVICE_HEALTH, OPEN
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS, ShardContext
+    from elasticsearch_tpu_torch.transport.faults import DEVICE_FAULTS
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    assert SERVING_COUNTERS["degraded"] == 0 and SERVING_COUNTERS["device_errors"] == 0, \
+        f"phases before 15 degraded: {SERVING_COUNTERS}"
+    # a warm pack that failed on the card is recorded by the warmer, not by
+    # the serving counters
+    assert not DEVICE_HEALTH.dirty, f"phases before 15 failed: {DEVICE_HEALTH.stats()}"
+    assert node.warmer.stats()["pack_failures"] == 0, node.warmer.stats()
+    counted0 = dict(SERVING_COUNTERS)
+    rng = np.random.default_rng(seed)
+    dense = dense_family_bodies(rng, ranked, FAULT_FAMILY)
+    sa = sort_agg_bodies(rng, ranked[RANKS[0]: RANKS[1]],
+                         ranked[BOOL_RANKS[0]: BOOL_RANKS[1]], FAULT_FAMILY)
+    entries = ([("bool", "/corpus/_search", b) for b in bool_bodies[:FAULT_BOOL]]
+               + [("filtered", "/catalog/_search", b) for b in dense["filtered"]]
+               + [("function_score", "/catalog/_search", b) for b in dense["fs_rows"]]
+               + [("sort", "/catalog/_search", b) for b in sa["sort_asc"]]
+               + [("aggs", "/catalog/_search", b) for b in sa["aggs_terms"]])
+    writes = [("writes", "/writes/_search", b) for b in bool_bodies[:FAULT_BOOL]]
+    launched = {"sparse_score": 0}
+
+    def take_launches() -> int:
+        n = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+        cudaenv.LAUNCHES.reset()
+        launched["sparse_score"] += n
+        return n
+
+    def send(batch, sync_error=False):
+        if sync_error and on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            responses, wall = http_burst(port, [(p, b) for _f, p, b in batch], n_conn)
+        finally:
+            if sync_error and on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        for (f, _p, _b), (st, r) in zip(batch, responses):
+            assert st == 200, (f, r)
+        return [r for _st, r in responses], wall
+
+    def deltas(before) -> dict:
+        return {k: SERVING_COUNTERS[k] - before[k] for k in SERVING_COUNTERS}
+
+    # -- the card's answers, pinned ------------------------------------------
+    DEVICE_HEALTH.reset()
+    take_launches()
+    before = dict(SERVING_COUNTERS)
+    base, base_wall = send(entries * FAULT_RATE_REPS)
+    base_requests = len(base)
+    d = deltas(before)
+    for (f, _p, _b), r in zip(entries * FAULT_RATE_REPS, base):
+        assert r["_shards"] == SHARDS_OK, (f, r["_shards"])
+    for i, ((f, _p, b), r) in enumerate(zip(entries * FAULT_RATE_REPS, base)):
+        at_fault_bar(f, b, r, base[i % len(entries)])
+    base = base[: len(entries)]
+    per = {f: FAULT_RATE_REPS * sum(1 for g, _p, _b in entries if g == f)
+           for f in FAULT_COUNTER}
+    for f, counter in FAULT_COUNTER.items():
+        if f in per:
+            assert d[counter] >= NODE_SHARDS * per[f], (f, d)
+    assert d["degraded"] == 0 and d["device_errors"] == 0, d
+    base_launches = take_launches()
+    if on_card:
+        assert base_launches > 0, "sparse_score never launched in phase 15's baseline"
+
+    svc = node.indices.index_service("writes")
+    write_engines = [svc.shard(sid).engine for sid in range(NODE_SHARDS)]
+    write_ctxs = None
+
+    def writes_ref(body) -> dict:
+        """The shards' host query phases on `writes`, reduced, as a response."""
+        total, ents, _top = host_reference(write_ctxs, body)
+        searchers = [c.searcher for c in write_ctxs]
+        hits = []
+        for score, sid, doc in ents:
+            seg, local = searchers[sid].resolve(doc)
+            hits.append({"_score": score, "_shard": sid, "_id": seg.ids[local]})
+        return {"hits": {"total": total, "hits": hits}}
+
+    # the most segments a shard of a searched index holds (a probe's launches)
+    seg_max = max(len(node.indices.index_service(ix).shard(sid).engine
+                      .acquire_searcher().segments)
+                  for ix in ("corpus", "writes") for sid in range(NODE_SHARDS)) + 1
+    domains = []
+    try:
+        for domain, kind, tripping, blocked in FAULT_DOMAINS:
+            batch = writes if domain.startswith("pack:") else entries
+            t_arm = time.perf_counter()
+            DEVICE_FAULTS.arm(error=kind, domain=domain, times=10 ** 6)
+            try:
+                if domain.startswith("pack:"):
+                    conn_lines = []
+                    lo = len(texts) - NODE_BULK
+                    for i in range(lo, len(texts)):
+                        conn_lines.append(json.dumps({"index": {
+                            "_index": "writes", "_type": "doc", "_id": f"f{i}"}}))
+                        conn_lines.append(json.dumps({"body": texts[i]}))
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+                    st, r = http_json(conn, "POST", "/_bulk",
+                                      ndjson="\n".join(conn_lines) + "\n")
+                    assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+                    st, r = http_json(conn, "POST", "/writes/_refresh")
+                    conn.close()
+                    assert st == 200 and r["_shards"]["failed"] == 0, r
+                    write_ctxs = [ShardContext(e.acquire_searcher(), svc.mapper_service,
+                                               svc.similarity_service, device=device)
+                                  for e in write_engines]
+                    want = [writes_ref(b) for _f, _p, b in batch]
+                else:
+                    want = base
+                # the trip: one request of each family that meets the seam
+                first = {}
+                for i, (f, _p, _b) in enumerate(batch):
+                    if f in tripping:
+                        first.setdefault(f, i)
+                trip, _w = send([batch[i] for i in first.values()])
+                trip_s = time.perf_counter() - t_arm
+                for i, r in zip(first.values(), trip):
+                    f, _p, b = batch[i]
+                    assert r["_shards"]["degraded"] >= 1, (domain, f, r["_shards"])
+                    at_fault_bar(f, b, r, want[i])
+                opened = sorted(dom for dom, c in DEVICE_HEALTH.stats()["domains"].items()
+                                if c["state"] == OPEN)
+                assert opened, (domain, DEVICE_HEALTH.stats())
+                assert all(fnmatch.fnmatchcase(dom, domain) for dom in opened), \
+                    (domain, opened)
+                # the degraded window: the blocked families launch nothing
+                # but the half-open probes the circuit admits (each fails
+                # again while armed, and its request degrades too)
+                take_launches()
+                before = dict(SERVING_COUNTERS)
+                probes0 = DEVICE_HEALTH.stats()["probes"]
+                window = batch * (FAULT_RATE_REPS if not domains else 1)
+                got, wall = send(window, sync_error=True)
+                d = deltas(before)
+                win_launches = take_launches()
+                win_probes = DEVICE_HEALTH.stats()["probes"] - probes0
+                for i, ((f, _p, b), r) in enumerate(zip(window, got)):
+                    want_deg = NODE_SHARDS if f in blocked else 0
+                    assert r["_shards"]["degraded"] == want_deg, (domain, f, r["_shards"])
+                    at_fault_bar(f, b, r, want[i % len(batch)])
+                for f, counter in FAULT_COUNTER.items():
+                    n = sum(1 for g, _p, _b in window if g == f)
+                    if f in blocked:
+                        assert d[counter] == 0, (domain, f, counter, d)
+                    elif n:
+                        assert d[counter] >= NODE_SHARDS * n, (domain, f, counter, d)
+                if {"bool", "writes"} & blocked:
+                    # a probe's shard phase launches once a segment at most
+                    assert win_launches <= win_probes * seg_max, \
+                        (domain, win_launches, win_probes)
+                elif on_card:
+                    assert win_launches > 0, (domain, "sparse_score stopped")
+                n_blocked = sum(1 for f, _p, _b in window if f in blocked)
+                assert d["degraded"] == NODE_SHARDS * n_blocked, (domain, d)
+            finally:
+                DEVICE_FAULTS.disarm()
+            # recovery: searches past the backoff window are the probes
+            t_dis = time.perf_counter()
+            probes = [batch[i] for i in first.values()]
+            while DEVICE_HEALTH.any_open:
+                assert time.perf_counter() - t_dis < RECOVER_S, \
+                    (domain, "not recovered", DEVICE_HEALTH.stats())
+                for (f, _p, b), r, i in zip(probes, send(probes)[0], first.values()):
+                    at_fault_bar(f, b, r, want[i])
+            recover_s = time.perf_counter() - t_dis
+            take_launches()
+            after, _w = send(probes)
+            for (f, _p, b), r, i in zip(probes, after, first.values()):
+                assert r["_shards"]["degraded"] == 0, (domain, f, r["_shards"])
+                at_fault_bar(f, b, r, want[i])
+            after_launches = take_launches()
+            if on_card and {"bool", "writes"} & blocked:
+                assert after_launches > 0, (domain, "sparse_score did not launch again")
+            st = DEVICE_HEALTH.stats()
+            domains.append(dict(
+                domain=domain, kind=kind, blocked=sorted(blocked), opened=opened,
+                trip_s=trip_s, recover_s=recover_s, requests=len(window),
+                degraded=d["degraded"], requests_per_s=len(window) / wall,
+                window_launches=win_launches, window_probes=win_probes,
+                after_launches=after_launches,
+                probes=st["probes"], recoveries=st["recoveries"],
+                failures=st["failures"]))
+            assert st["recoveries"] >= len(opened), (domain, st)
+            DEVICE_HEALTH.reset()
+
+        # -- oom twice at pull:splits: contained, the circuit stays closed --
+        # (one shard, so the concurrent searches share a key and coalesce)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        st, r = http_json(conn, "PUT", "/splits", {"settings": {
+            "number_of_shards": 1, "refresh_interval": -1}})
+        assert st == 200, r
+        lines = []
+        for i in range(min(SPLIT_DOCS, len(texts))):
+            lines.append(json.dumps({"index": {"_index": "splits", "_type": "doc",
+                                               "_id": str(i)}}))
+            lines.append(json.dumps({"body": texts[i]}))
+        st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+        assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+        st, r = http_json(conn, "POST", "/splits/_refresh")
+        conn.close()
+        bools = [("bool", "/splits/_search", b) for b in bool_bodies[:FAULT_BOOL]]
+        pinned, _w = send(bools)  # packs the shard; the card's answers
+        batcher = node.search_batcher
+        linger = batcher.linger_s
+        batcher.linger_s = 0.02  # hold the first batch open for its neighbours
+        splits0 = batcher.stats()["device_splits"]
+        before = dict(SERVING_COUNTERS)
+        injected0 = DEVICE_FAULTS.injected
+        DEVICE_FAULTS.arm(error="oom", domain="pull:splits", times=2)
+        try:
+            got, _w = send(bools)
+        finally:
+            DEVICE_FAULTS.disarm()
+            batcher.linger_s = linger
+        d = deltas(before)
+        deg = sum(r["_shards"]["degraded"] for r in got)
+        for (f, _p, b), r, p in zip(bools, got, pinned):
+            at_fault_bar(f, b, r, p)
+        splits = batcher.stats()["device_splits"] - splits0
+        assert DEVICE_FAULTS.injected - injected0 == 2
+        assert deg <= 2 and d["degraded"] == deg, (deg, d)
+        assert DEVICE_HEALTH.state("pull:splits") == CLOSED and not DEVICE_HEALTH.any_open
+        assert splits >= 1, f"device_splits did not grow ({splits})"
+        assert d["device_sparse"] == len(bools) - deg, d
+        oom = dict(requests=len(bools), degraded=deg, device_splits=splits,
+                   device_sparse=d["device_sparse"],
+                   failures=DEVICE_HEALTH.stats()["failures"])
+
+        # -- a defect on the card: the wrapper's launch refused as planned --
+        # (the search answers 500 and moves no circuit; the next launches)
+        defect = None
+        if on_card:
+            defect = defect_step(port, bools[0][2], pinned[0], take_launches)
+    finally:
+        DEVICE_FAULTS.disarm()
+        DEVICE_HEALTH.reset()
+        take_launches()
+
+    pull = domains[0]
+    out = dict(base_requests=base_requests, base_requests_per_s=base_requests / base_wall,
+               degraded_requests_per_s=pull["requests_per_s"], trip_s=pull["trip_s"],
+               recover_s=[dm["recover_s"] for dm in domains], domains=domains, oom=oom,
+               defect=defect, launches=launched["sparse_score"], connections=n_conn,
+               wall_s=time.perf_counter() - t_phase,
+               counted={k: v - counted0[k] for k, v in SERVING_COUNTERS.items()},
+               sync_debug="error over each degraded window" if on_card else None)
+    log(f"[15] (a) device faults on phase 10's node, {n_conn} connections: the card's "
+        f"answers to {len(entries)} bodies ({FAULT_BOOL} bool on `corpus`; "
+        f"{FAULT_FAMILY} each filtered, function_score, sort, aggs on `catalog`) pinned, "
+        f"{base_requests} requests at {out['base_requests_per_s']:.1f} requests/s")
+    for dm in domains:
+        log(f"[15]   {dm['domain']:24s} ({dm['kind']}): blocks {dm['blocked']}; opened "
+            f"{dm['opened']} in {dm['trip_s']:.3f} s; {dm['requests']} requests degraded "
+            f"{dm['degraded']} shard phases at {dm['requests_per_s']:.1f} requests/s, "
+            f"sparse_score {dm['window_launches']} launches in the window (by "
+            f"{dm['window_probes']} probes); recovered in "
+            f"{dm['recover_s']:.3f} s ({dm['probes']} probes), then {dm['after_launches']} "
+            f"launches")
+    log(f"[15]   time to trip (pull:*) {out['trip_s']:.3f} s; requests/s degraded "
+        f"{out['degraded_requests_per_s']:.1f} against {out['base_requests_per_s']:.1f} on "
+        f"the card (the same {len(entries)} bodies, {pull['requests']} and "
+        f"{base_requests} requests); time to recover "
+        f"{min(out['recover_s']):.3f}-{max(out['recover_s']):.3f} s")
+    log(f"[15]   oom x2 at pull:splits (1 shard): {oom['requests']} requests, "
+        f"{oom['degraded']} degraded, device_splits +{oom['device_splits']}, "
+        f"{oom['device_sparse']} served on the card, circuit closed; sparse_score "
+        f"{out['launches']} launches over phase 15 (a), {out['wall_s']:.1f} s")
+    if defect is not None:
+        log(f"[15]   defect: a launch planned with {DEFECT_SHARED_BYTES} shared bytes -> "
+            f"HTTP {defect['status']} ({defect['reason']}; {defect['classified']}), "
+            f"device_errors +{defect['device_errors']}, degraded +{defect['degraded']}, "
+            f"no circuit; the next search 200 on the card ({defect['after_launches']} "
+            f"launches)")
+    return out
+
+
+def defect_step(port: int, body: dict, pinned: dict, take_launches) -> dict:
+    """One `bool` search on `splits` whose `sparse_score` launch is planned
+    with DEFECT_SHARED_BYTES of shared memory: the CUDA runtime refuses it, the
+    wrapper raises its code as a CudaError of the kernel, and the search
+    answers 500 with no degrade and no circuit moved (a defect is the
+    program's, common/devicehealth); the next search, planned as usual, is
+    served by the card."""
+    import dataclasses
+    import http.client
+    import re
+
+    from elasticsearch_tpu_torch.common.cudaenv import CudaError
+    from elasticsearch_tpu_torch.common.devicehealth import (DEVICE_HEALTH,
+                                                             classify_device_error)
+    from elasticsearch_tpu_torch.ops import sparse_kernels
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+
+    plan_fn = sparse_kernels._launch_plan
+    before = dict(SERVING_COUNTERS)
+    health = DEVICE_HEALTH.stats()
+    take_launches()
+    sparse_kernels._launch_plan = lambda Qb, TB, simple: dataclasses.replace(
+        plan_fn(Qb, TB, simple), shared_bytes=DEFECT_SHARED_BYTES)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        st, r = http_json(conn, "POST", "/splits/_search", body)
+    finally:
+        sparse_kernels._launch_plan = plan_fn
+    d = {k: SERVING_COUNTERS[k] - before[k] for k in ("device_errors", "degraded")}
+    refused = take_launches()
+    reason = r.get("error", {}).get("reason", "") if isinstance(r.get("error"), dict) else ""
+    assert st == 500 and r["error"]["type"] == "CudaError", (st, r)
+    found = re.search(r"sparse_score launch failed: CUDA error (\d+)", reason)
+    assert found, reason
+    code = int(found.group(1))
+    classified = classify_device_error(CudaError(code, reason, kernel="sparse_score"))
+    assert classified == "defect", (code, classified)
+    assert d == {"device_errors": 1, "degraded": 0}, d
+    assert refused == 0, refused
+    assert DEVICE_HEALTH.stats() == health, (health, DEVICE_HEALTH.stats())
+    st2, r2 = http_json(conn, "POST", "/splits/_search", body)
+    conn.close()
+    assert st2 == 200 and r2["_shards"]["degraded"] == 0, (st2, r2.get("_shards"))
+    at_fault_bar("bool", body, r2, pinned)
+    after = take_launches()
+    assert after > 0, "sparse_score did not launch after the defect"
+    return dict(status=st, reason=reason, code=code, classified=classified,
+                after_launches=after, **d)
+
+
+def sticky_phase(device, texts, bool_bodies) -> dict:
+    """Phase 15 (b): a real sticky fault, in a child process (this script
+    with `--sticky-child`): a node of STICKY_SHARDS shards over
+    STICKY_DOCS of phase 10's texts, STICKY_SEARCHES `bool` searches pinned
+    on the card, a device-side assert, the same searches again — each 200,
+    bitwise equal to the shards' host query phases, within 2 ulp of the
+    pinned ones, every shard degraded, every failure persistent. The child
+    prints one JSON line; this checks it field by field and reports the
+    child's exit status."""
+    from elasticsearch_tpu_torch.common import cudaenv
+
+    here = Path(__file__).resolve().parent
+    work = here / "build" / f"chip_smoke_sticky_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    inp = work / "input.json"
+    inp.write_text(json.dumps({"texts": texts[:STICKY_DOCS],
+                               "bodies": bool_bodies[:STICKY_SEARCHES],
+                               "device": str(device), "work": str(work)}))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--sticky-child", str(inp)], cwd=here,
+                              capture_output=True, text=True, timeout=STICKY_TIMEOUT_S)
+    finally:
+        wall_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert lines, (f"the sticky child printed no result (exit {proc.returncode}):\n"
+                   + proc.stdout[-2000:] + proc.stderr[-4000:])
+    res = json.loads(lines[-1])
+    shutil.rmtree(work, ignore_errors=True)
+    assert res["built_at_start"] == cudaenv.kernel_sources(), res["built_at_start"]
+    assert sorted(res["start_checks"]) == cudaenv.kernel_sources() and \
+        all(n > 0 for n in res["start_checks"].values()), res["start_checks"]
+    assert res["nvcc_after_start"] == 0, res
+    assert res["pinned_degraded"] == 0 and res["pinned_launches"] > 0, res
+    assert res["pinned_within_bar"] == STICKY_SEARCHES, res
+    assert res["assert_code"] == 710 and res["assert_class"] == "persistent", res
+    assert res["status"] == [200] * STICKY_SEARCHES, res["status"]
+    assert res["degraded"] == [STICKY_SHARDS] * STICKY_SEARCHES, res["degraded"]
+    assert res["bitwise_host"] == STICKY_SEARCHES, res
+    assert res["within_bar_pinned"] == STICKY_SEARCHES, res
+    assert res["failures"]["transient"] == 0 and res["failures"]["persistent"] >= 1, res
+    res.update(exit_code=proc.returncode, wall_s=wall_s)
+    log(f"[15] (b) sticky fault in a child process ({wall_s:.1f} s, exit code "
+        f"{proc.returncode}): node start built {res['built_at_start']} and checked "
+        f"{res['start_checks']} launches in {res['build_s']:.1f} s, no nvcc after it; "
+        f"{STICKY_SEARCHES} searches pinned on the "
+        f"card ({res['pinned_launches']} sparse_score launches); {res['assert_error']} "
+        f"-> code {res['assert_code']}, {res['assert_class']}; then {STICKY_SEARCHES} "
+        f"searches: all 200, _shards.degraded {STICKY_SHARDS} each, bitwise equal to the "
+        f"host query phases and within {ULPS} ulp of the pinned ones, at "
+        f"{res['degraded_requests_per_s']:.1f} requests/s; failures {res['failures']}, "
+        f"open {res['open']}")
+    return res
+
+
+def sticky_child(path: str) -> None:
+    """The child of phase 15 (b); prints one JSON line, then leaves with
+    os._exit (the poisoned context's teardown may abort)."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.common.devicehealth import (
+        DEVICE_HEALTH, classify_device_error, cuda_error_code)
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS, ShardContext
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    inp = json.loads(Path(path).read_text())
+    work = Path(inp["work"])
+    device = torch.device(inp["device"])
+    texts, bodies = inp["texts"], inp["bodies"]
+    # a fresh build directory: the node's start builds every kernel
+    cudaenv.BUILD_DIR = work / "kernels"
+    t0 = time.perf_counter()
+    node = Node(name="sticky", registry=LocalTransportRegistry(),
+                data_path=str(work / "data"), settings={"node.device": str(device)}).start()
+    build_s = time.perf_counter() - t0
+    nvcc = []
+    popen = cudaenv.subprocess.Popen
+
+    def counting_popen(*a, **k):
+        nvcc.append(a)
+        return popen(*a, **k)
+
+    cudaenv.subprocess.Popen = counting_popen
+    port = node.start_http(0).port
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    st, r = http_json(conn, "PUT", "/sticky", {"settings": {
+        "number_of_shards": STICKY_SHARDS, "refresh_interval": -1}})
+    assert st == 200, r
+    for lo in range(0, len(texts), NODE_BULK):
+        lines = []
+        for i in range(lo, min(lo + NODE_BULK, len(texts))):
+            lines.append(json.dumps({"index": {"_index": "sticky", "_type": "doc",
+                                               "_id": str(i)}}))
+            lines.append(json.dumps({"body": texts[i]}))
+        st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+        assert st == 200 and not r["errors"], r
+    st, r = http_json(conn, "POST", "/sticky/_refresh")
+    assert st == 200, r
+
+    def page(r):
+        return [(h["_score"], (h["_shard"], h["_id"])) for h in r["hits"]["hits"]]
+
+    cudaenv.LAUNCHES.reset()
+    pinned = [http_json(conn, "POST", "/sticky/_search", b)[1] for b in bodies]
+    pinned_launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+    svc = node.indices.index_service("sticky")
+    ctxs = [ShardContext(svc.shard(sid).engine.acquire_searcher(), svc.mapper_service,
+                         svc.similarity_service, device=device)
+            for sid in range(STICKY_SHARDS)]
+    refs = []
+    for b in bodies:
+        total, ents, _top = host_reference(ctxs, b)
+        hits = []
+        for score, sid, doc in ents:
+            seg, local = ctxs[sid].searcher.resolve(doc)
+            hits.append((score, (sid, seg.ids[local])))
+        refs.append((total, hits))
+    # the fault: an out-of-range index on the card, then a synchronize
+    x = torch.zeros(8, device=device)
+    idx = torch.full((1,), 1 << 20, dtype=torch.long, device=device)
+    err = None
+    try:
+        x[idx].sum()
+        torch.cuda.synchronize(device)
+    except Exception as e:  # noqa: BLE001 — the sticky error itself
+        err = e
+    code = cuda_error_code(err)[1] if err is not None else None
+    status, degraded, bitwise, within = [], [], 0, 0
+    t1 = time.perf_counter()
+    for b, p, (total, hits) in zip(bodies, pinned, refs):
+        st, r = http_json(conn, "POST", "/sticky/_search", b)
+        status.append(st)
+        if st != 200:
+            degraded.append(None)
+            continue
+        degraded.append(r["_shards"].get("degraded"))
+        bitwise += int(r["hits"]["total"] == total and page(r) == hits)
+        within += int(r["hits"]["total"] == p["hits"]["total"]
+                      and tie_tolerant_equal(page(r), page(p)))
+    wall = time.perf_counter() - t1
+    stats = DEVICE_HEALTH.stats()
+    res = dict(
+        built_at_start=sorted(node.kernel_builds), build_s=build_s,
+        start_checks=node.kernel_checks,
+        nvcc_after_start=len(nvcc),
+        pinned_degraded=sum(r["_shards"]["degraded"] for r in pinned),
+        pinned_launches=pinned_launches,
+        pinned_within_bar=sum(int(tie_tolerant_equal(page(p), hits) and p["hits"]["total"] == t)
+                              for p, (t, hits) in zip(pinned, refs)),
+        assert_error=f"{type(err).__name__}: {str(err).splitlines()[0]}" if err else None,
+        assert_code=code,
+        assert_class=classify_device_error(err) if err is not None else None,
+        status=status, degraded=degraded, bitwise_host=bitwise, within_bar_pinned=within,
+        degraded_requests_per_s=len(bodies) / wall, failures=stats["failures"],
+        open=sorted(d for d, c in stats["domains"].items() if c["state"] != "closed"),
+        counters={k: SERVING_COUNTERS[k] for k in ("degraded", "device_errors")})
+    print(json.dumps(res), flush=True)
+    sys.stderr.flush()
+    os._exit(0)
+
+
 def small_sources(n_docs: int, seed: int) -> list[dict]:
     """Phase 7's documents: a zipf(1.1) text over 400 words, a short title
     and a body of 10-120 words each."""
@@ -3314,7 +3958,10 @@ def main() -> int:
     ap.add_argument("--node-requests", type=int, default=NODE_REQUESTS,
                     help="phase 10: _search requests in the timed run")
     ap.add_argument("--report", help="also write the full report as JSON here")
+    ap.add_argument("--sticky-child", help=argparse.SUPPRESS)  # phase 15 (b)'s child
     args = ap.parse_args()
+    if args.sticky_child:
+        sticky_child(args.sticky_child)  # leaves with os._exit
 
     import torch
 

@@ -16,11 +16,13 @@ package's `actions.py`), in the reference's interaction patterns:
   (`merge_responses` assembles the response);
 - broadcast: `refresh`, `flush` and `optimize` on every active shard.
 
-A shard whose query phase fails with a device error (anything that is not a
-SearchEngineError) fails the whole search: the REST layer answers 500 with
-the error, after the contexts of the shards that answered are freed. The
-host scorer serves such a shard instead once the fault domains are ported (a
-later slice). A shard whose fetch fails, with any error, drops its hits and
+A shard whose device attempt fails with a CUDA error, or whose device
+fault domain is open, answers from the host path (search/service.py): its
+result crosses the transport with `degraded`, and pins and frees its context
+like any other. A query phase that raises anything else that is not a
+SearchEngineError (a host bug) fails the whole search: the REST layer
+answers 500 with the error, after the contexts of the shards that answered
+are freed. A shard whose fetch fails, with any error, drops its hits and
 records a `_shards.failures` entry; the rest of the page returns.
 
 Not in this slice: the SPMD mesh branch, DFS, the request cache, insights,
@@ -368,11 +370,11 @@ class ActionModule:
                     agg_partials=_decode_partials(r.get("agg_partials")),
                     facet_partials=_decode_partials(r.get("facet_partials")),
                     shard_id=ordinal, timed_out=bool(r.get("timed_out")),
-                    context_id=r.get("ctx_id")))
+                    context_id=r.get("ctx_id"), degraded=bool(r.get("degraded"))))
         except Exception:
-            # an error that is not a shard failure (a device error) fails the
-            # search: no shard that answered, or answers later, keeps its
-            # context pinned
+            # an error that is not a shard failure (a host bug; a device
+            # error degrades inside the shard) fails the search: no shard
+            # that answered, or answers later, keeps its context pinned
             self._free_after_failure(futs, shard_meta, wait_by)
             raise
         if not results and terminals and all(
@@ -511,6 +513,7 @@ class ActionModule:
             "agg_partials": _encode_partials(result.agg_partials),
             "facet_partials": _encode_partials(result.facet_partials),
             "timed_out": result.timed_out,
+            "degraded": result.degraded,
             # the fetch must read the SAME point-in-time searcher these doc
             # ids come from
             "ctx_id": self._pin_context(index, shard_id, ctx),

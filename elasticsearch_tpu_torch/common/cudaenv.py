@@ -10,6 +10,10 @@ of the JAX package's `common/jaxenv.py`.
   package, keyed by a hash of the source and flags, so an edited source is
   rebuilt. `build_all` starts one `nvcc` per source at once. A failed build
   raises `KernelBuildError`; nothing falls back to a plain version.
+- `CudaError` is what a kernel wrapper raises when its launch returns a
+  `cudaError_t` other than success: `.code` is that code, `.kernel` the
+  kernel whose launch returned it, and `.sticky` says whether the context
+  is lost with it (common/devicehealth classifies it).
 - `LAUNCHES` counts kernel launches by name: each wrapper bumps its count
   where it launches its kernel, and nowhere else.
 - `upload` / `pull` are the two directions of host↔device traffic on the
@@ -17,7 +21,7 @@ of the JAX package's `common/jaxenv.py`.
   host row in pinned memory first), and `pull` brings a whole batch of
   result tensors back behind one event wait. `pull_async` is its enqueue
   half (the end of a batch's dispatch) and `PendingPull.wait` its wait half
-  (the batch's merge).
+  (the batch's merge); a failed wait `abandon`s the staging.
 """
 
 from __future__ import annotations
@@ -48,7 +52,66 @@ class DeviceUnavailableError(RuntimeError):
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a kernel source."""
+    """nvcc is missing or refused a kernel source, or a built kernel
+    disagreed with its plain version in its start check."""
+
+
+# cudaError_t codes after which every later CUDA call of the process fails:
+# illegal address, launch timeout, device-side assert, illegal instruction,
+# misaligned address, invalid address space, invalid program counter, launch
+# failure
+STICKY_CODES = frozenset({700, 702, 710, 715, 716, 717, 718, 719})
+# a launch the card refuses as configured: invalid configuration, invalid
+# device function, no kernel image for the device, too many resources
+LAUNCH_CONFIG_CODES = frozenset({9, 98, 209, 701})
+# the context stays usable and the same call may succeed once pressure
+# drains: memory allocation, devices unavailable, a wait timed out
+TRANSIENT_CODES = frozenset({2, 46, 909})
+# cudaGetErrorString's text of each code above, as PyTorch's own "CUDA
+# error: <text>" messages carry it
+ERROR_STRINGS = {
+    2: "out of memory",
+    9: "invalid configuration argument",
+    46: "busy or unavailable",
+    98: "invalid device function",
+    209: "no kernel image is available",
+    700: "an illegal memory access was encountered",
+    701: "too many resources requested for launch",
+    702: "the launch timed out and was terminated",
+    710: "device-side assert triggered",
+    715: "an illegal instruction was encountered",
+    716: "misaligned address",
+    717: "operation not supported on global/shared address space",
+    718: "invalid program counter",
+    719: "unspecified launch failure",
+    909: "timeout specified for the wait operation has lapsed",
+}
+
+
+def error_code_of(message: str) -> int | None:
+    """The cudaError_t whose text `message` carries, when it is one of
+    ERROR_STRINGS."""
+    low = message.lower()
+    for code, text in ERROR_STRINGS.items():
+        if text in low:
+            return code
+    return None
+
+
+class CudaError(RuntimeError):
+    """A CUDA call of the port's own failed: `code` is its cudaError_t,
+    `kernel` the kernel whose launch returned it (None for an error that no
+    launch of the port's raised), `sticky` whether the process's context is
+    lost with it."""
+
+    def __init__(self, code: int, message: str, kernel: str | None = None):
+        super().__init__(message)
+        self.code = int(code)
+        self.kernel = kernel
+
+    @property
+    def sticky(self) -> bool:
+        return self.code in STICKY_CODES
 
 
 def default_device(device=None) -> torch.device:
@@ -130,6 +193,15 @@ class PendingPull:
             self._done = None
             self._tensors = None
         return [h.numpy() for h in self._hosts]
+
+    def abandon(self) -> None:
+        """Drop the batch's staging after a failed wait, with no CUDA call
+        (no event query, no synchronise: after a sticky error each would
+        raise again). The pinned buffers and the device tensors go back to
+        their caching allocators with their last reference."""
+        self._done = None
+        self._tensors = None
+        self._hosts = []
 
 
 def pull_async(tensors: list) -> PendingPull:

@@ -3,9 +3,16 @@
 A Node builds its services in dependency order — cluster service → gateway →
 thread pools → breakers → the node-level DeviceFilterCache and DeviceBatcher
 → the warmer → transport → allocation → indices → actions → discovery — and
-`start()` elects itself master of a one-node cluster and lifts the
+`start()` builds every kernel of `csrc/` on a CUDA device (the port's
+counterpart of the JAX node's compile-warm cycle: one nvcc per source, all
+at once, and each library loaded, so no search runs nvcc) and launches each
+once on a tiny input against its plain version (`KERNEL_START_CHECKS`); a
+kernel that does not build, launch or agree stops the start, the node does
+not degrade past it. Then it elects itself master of a one-node cluster and
+lifts the
 not-recovered block. `start_http(port)` binds the REST surface (port 0 =
-ephemeral).
+ephemeral). `device_health()` reads the device fault domains
+(common/devicehealth) and the warmer's pack counters in process.
 
 The node serves on the card unless told otherwise: its device is the
 `node.device` setting ("cpu" in the tests) resolved through
@@ -31,20 +38,26 @@ from .cluster.allocation import AllocationService
 from .cluster.routing import OperationRouting
 from .cluster.service import ClusterService
 from .cluster.state import DiscoveryNode
+from .common import cudaenv
 from .common.breaker import CircuitBreakerService
 from .common.cudaenv import default_device
+from .common.devicehealth import DEVICE_HEALTH
 from .common.errors import NotPortedError
 from .common.logging import get_logger
 from .common.settings import prepare_settings
 from .discovery.zen import ZenDiscovery
 from .gateway import LocalGateway
 from .indices_service import IndicesService
+from .ops import sparse_kernels
 from .ops.device_index import DeviceFilterCache
 from .search.batcher import DeviceBatcher
 from .threadpool import ThreadPool
 from .transport.local import DEFAULT_REGISTRY, LocalTransport
 from .transport.service import TransportService
 from .warmer import IndexWarmerService
+
+# each kernel source of csrc/ and the check a node's start launches it with
+KERNEL_START_CHECKS = {"sparse_score": sparse_kernels.start_check}
 
 
 class Node:
@@ -106,11 +119,32 @@ class Node:
         self.discovery = ZenDiscovery(self.local_node, self.cluster_service,
                                       self.allocation)
         self.http = None
+        # the kernels the start built: {name: nvcc output} (empty when every
+        # library was current), the launches each start check made, and the
+        # seconds the build and the checks took
+        self.kernel_builds: dict = {}
+        self.kernel_checks: dict = {}
+        self.kernel_build_s = 0.0
         self._closed = False
 
     def start(self, seeds: list[str] | None = None) -> "Node":
-        """Elect this node master of its one-node cluster and recover the
-        (fresh) cluster state; seeds naming other nodes raise."""
+        """Build, load and check every kernel on a CUDA device, then elect
+        this node master of its one-node cluster and recover the (fresh)
+        cluster state; seeds naming other nodes raise."""
+        if self.device.type == "cuda":
+            t0 = time.monotonic()
+            try:
+                self.kernel_builds = cudaenv.build_all()
+                for name in cudaenv.kernel_sources():
+                    cudaenv.load_library(name)
+                    self.kernel_checks[name] = KERNEL_START_CHECKS[name](self.device)
+            except BaseException:
+                self.close()  # its pool threads would keep the process alive
+                raise
+            self.kernel_build_s = time.monotonic() - t0
+            self.logger.info("kernels %s current in %.1f s (built %s)",
+                             cudaenv.kernel_sources(), self.kernel_build_s,
+                             sorted(self.kernel_builds))
         self.discovery.start(seeds or [])
         self.gateway.recover_fresh()
         self.logger.info("started [%s] on [%s]", self.name, self.device)
@@ -142,6 +176,12 @@ class Node:
 
     def client(self) -> "Client":
         return Client(self)
+
+    def device_health(self) -> dict:
+        """The device fault domains' circuits and counters (the process's
+        DEVICE_HEALTH), and the warmer's pack counters. The REST route and
+        the metric families of these come with the observability slice."""
+        return {"health": DEVICE_HEALTH.stats(), "warmer": self.warmer.stats()}
 
 
 class Client:

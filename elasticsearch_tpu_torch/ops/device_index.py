@@ -54,9 +54,11 @@ import torch
 
 from ..common.breaker import reserve
 from ..common.cudaenv import upload, upload_pinned
+from ..common.devicehealth import tag_domain
 from ..common.errors import CircuitBreakingError
 from ..common.settings import Settings
 from ..index.segment import FrozenSegment
+from ..transport.faults import DEVICE_FAULTS
 
 BLOCK = 128  # postings per block row
 
@@ -475,6 +477,11 @@ def _perform_pack(seg: FrozenSegment, device: torch.device, fut: Future,
     key = pack_cache_key(device)
     fkey, ckey = pack_future_keys(device)
     try:
+        # the seeded device-error seam (transport/faults.DEVICE_FAULTS): one
+        # attribute read disarmed; armed, the pack fails here, before any
+        # publish, so no half-packed segment lands in the cache
+        if DEVICE_FAULTS.active:
+            DEVICE_FAULTS.check(f"pack:{owner}")
         t0 = time.monotonic()
         packed: PackedSegment | None = cache.get(key)
         if packed is None:
@@ -523,6 +530,8 @@ def _perform_pack(seg: FrozenSegment, device: torch.device, fut: Future,
         fut.set_result(packed)
         return packed
     except BaseException as e:  # noqa: BLE001 — waiters must never hang
+        if isinstance(e, Exception):
+            tag_domain(e, f"pack:{owner}")  # the fault domain's attribution
         with _PACK_LOCK:
             if cache.get(fkey) is fut:
                 cache.pop(fkey, None)

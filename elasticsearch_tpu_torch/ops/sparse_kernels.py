@@ -197,6 +197,44 @@ def sparse_score(qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
     return _sparse_score_cuda(*args, **kwargs)
 
 
+def start_check(device) -> int:
+    """Launch the kernel once in each variant and mode on a tiny seeded
+    input and hold it against its plain version, bitwise: a node's start
+    runs it, so a kernel built for another architecture, one that asks for
+    more than the card has or one that faults or disagrees on its first
+    launch stops the start instead of failing every search. Raises the
+    launch's CudaError, or KernelBuildError on a disagreement; returns the
+    launches it checked."""
+    g = torch.Generator().manual_seed(0)
+    caches = (torch.rand((2, 256), generator=g) * 2 + 0.1).to(device)
+    Qb, doc_pad, checked = 2, 1 << 20, 0
+    for TB in (8, 2 * SMEM_MAX_SLOTS // BLOCK):  # the smem and the global variant
+        NB = 2 * TB
+        planes = (torch.randint(0, TB * 32, (NB, BLOCK), generator=g, dtype=torch.int32),
+                  torch.randint(1, 256, (NB, BLOCK), generator=g).to(torch.uint8),
+                  torch.randint(0, 256, (NB, BLOCK), generator=g).to(torch.uint8))
+        qblk = torch.randint(0, NB, (Qb, TB), generator=g, dtype=torch.int32)
+        qw = torch.rand((Qb, TB), generator=g) + 0.1
+        must = torch.arange(TB) >= TB // 2  # the second half of a row: one must clause
+        for simple in (True, False):
+            qcnt = torch.where(must & (not simple), 1 << _MUST_SHIFT, 1)
+            zeros = torch.zeros((Qb, TB), dtype=torch.int32)
+            args = [t.to(device) for t in (
+                qblk, qw, zeros.bool(), qcnt.expand(Qb, TB).to(torch.int32).contiguous(),
+                zeros, zeros, torch.full((Qb,), 0 if simple else 1, dtype=torch.int32),
+                torch.ones(Qb, dtype=torch.int32), torch.ones((Qb, 3)), *planes)]
+            kw = dict(k=10, doc_pad=doc_pad, passes=3, simple=simple, use_coord=False)
+            got = sparse_score(*args, caches, **kw)
+            want = sparse_score_plain(*args, caches, **kw)
+            for a, b, what in zip(got, want, ("scores", "docs", "totals")):
+                if not torch.equal(a, b):
+                    raise cudaenv.KernelBuildError(
+                        f"sparse_score: the start check's {what} at TB={TB} "
+                        f"simple={simple} disagree with the plain version")
+            checked += 1
+    return checked
+
+
 def _lib():
     lib = cudaenv.load_library("sparse_score")
     if not getattr(lib, "_sparse_score_bound", False):
@@ -278,7 +316,8 @@ def _sparse_score_cuda(qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
         scores.data_ptr(), docs.data_ptr(), totals.data_ptr(), stream)
     if err != 0:
         msg = lib.sparse_score_error_string(err).decode()
-        raise RuntimeError(f"sparse_score launch failed: CUDA error {err}: {msg}")
+        raise cudaenv.CudaError(err, f"sparse_score launch failed: CUDA error "
+                                     f"{err}: {msg}", kernel="sparse_score")
     cudaenv.LAUNCHES.bump("sparse_score")
     cudaenv.LAUNCHES.bump(f"sparse_score.{plan.variant}")
     return scores, docs, totals

@@ -46,9 +46,11 @@ Everything runs on the launching thread's current stream.
 
 When a coalesced batch fails (a breaker trip, a device error), the drainer
 replays each item on its own, on the device, so only the request that really
-fails carries the error; its neighbours keep their answers. Nothing falls
-back to the host. No launch or wait happens while the condition or the
-stats lock is held.
+fails carries the error; its neighbours keep their answers. The batch-level
+error is never recorded against a fault domain's circuit: the replay decides
+which member was poisoned, and that member's caller records its own error
+and degrades to the host scorer (search/service.py). No launch or wait
+happens while the condition or the stats lock is held.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from collections import deque
 from concurrent.futures import Future
 
 from ..common.deadline import NO_DEADLINE, Deadline
+from ..common.devicehealth import DEGRADABLE, classify_device_error
 from ..common.errors import RejectedExecutionError
 from ..common.logging import get_logger
 from ..common.metrics import HistogramMetric
@@ -177,6 +180,7 @@ class DeviceBatcher:
         self._pending_flushes = 0  # flushed early because a merge was waiting
         self._bypassed = 0  # queue full / drainer dead / shut down -> inline
         self._splits = 0  # coalesced launch failed -> per-item replay
+        self._device_splits = 0  # ... of them on a failure of the card
         # batch service-time tail (dispatch start -> fan-out done)
         self.service_hist = HistogramMetric()
         # the merge's one wait (pull_t1 - pull_t0) for batches merged while
@@ -369,12 +373,18 @@ class DeviceBatcher:
         """A coalesced launch failed (breaker trip, device error): replay every
         item on its own, on the device, so only the request that actually
         fails carries the error — its neighbours must not inherit an error
-        sized for the batch."""
+        sized for the batch. A failure of the card counts a device split
+        and is NOT recorded against a circuit here: each member's own verdict
+        reaches the fault domains through its future (the caller's
+        service._device_failed), so neighbours' collateral never advances
+        one."""
         if len(items) == 1:
             items[0].future.set_exception(err)
             return
         with self._stats_lock:
             self._splits += 1
+            if classify_device_error(err) in DEGRADABLE:
+                self._device_splits += 1
         for it in items:
             try:
                 res = family.execute_single(it)
@@ -421,6 +431,7 @@ class DeviceBatcher:
                 "pending_flushes": self._pending_flushes,
                 "bypassed": self._bypassed,
                 "splits": self._splits,
+                "device_splits": self._device_splits,
                 "queue": len(self._queue),
                 "ewma_batch_ms": round(self._ewma_cost * 1000.0, 3),
             }

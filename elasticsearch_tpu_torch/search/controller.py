@@ -2,7 +2,8 @@
 `search/controller.py`: `sort_docs` merges the shards' top-k into the global
 top-(from+size) by (score desc, shard asc, doc asc), or for a field sort by
 the hits' sort values (`compare_sort_values`), then shard, then doc; and
-`merge_responses` assembles `took`, `timed_out`, `_shards`, `hits` and the
+`merge_responses` assembles `took`, `timed_out`, `_shards` (with `degraded`,
+the shards served on the host path on a device fault), `hits` and the
 reduced `aggregations` and `facets`. Pure functions over shard results. DFS
 (`collect_dfs` / `aggregate_dfs`) is a later slice."""
 
@@ -64,6 +65,9 @@ def merge_responses(req: ParsedSearchRequest, merged: MergedTopDocs,
         "_shards": {
             "total": total_shards,
             "successful": successful,
+            # shards that answered (counted successful) on the host path
+            # because a device fault domain was open or the device failed
+            "degraded": sum(1 for r in shard_results if r.degraded),
             "failed": total_shards - successful,
         },
         "hits": {

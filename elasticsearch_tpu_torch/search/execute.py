@@ -57,13 +57,16 @@ from __future__ import annotations
 import re
 import time
 from collections import Counter
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..common.breaker import reserve
-from ..common.cudaenv import default_device, pull_async, upload, upload_pinned
+from ..common.cudaenv import (PendingPull, default_device, pull_async, upload,
+                              upload_pinned)
+from ..common.devicehealth import tag_domain
 from ..common.errors import NotPortedError, QueryParsingError, ScriptError
 from ..index.engine import Searcher
 from ..index.segment import FrozenSegment
@@ -127,8 +130,36 @@ from .queries import (
     TermQuery,
     WildcardQuery,
 )
+from ..transport.faults import DEVICE_FAULTS
 from .similarity import BM25Similarity, SimilarityService, TFIDFSimilarity
 from .sorting import device_sort_key_row
+
+
+@contextmanager
+def _domain_seam(domain: str):
+    """A device seam of the fault domains (common/devicehealth): the seeded
+    error injection (transport/faults.DEVICE_FAULTS; one attribute read
+    when disarmed) and the domain's tag on whatever the body raises."""
+    try:
+        if DEVICE_FAULTS.active:
+            DEVICE_FAULTS.check(domain)
+        yield
+    except Exception as e:  # noqa: BLE001 — re-raised tagged
+        raise tag_domain(e, domain)
+
+
+def wait_pull(pull: PendingPull, index: str | None) -> list:
+    """The batch's one wait, behind the `pull:<index>` seam. A kernel fault
+    surfaces here, at the sync after the launches, not at the launch. A
+    failed wait abandons the batch's staging with no further CUDA call: after
+    a sticky error every call would raise again."""
+    try:
+        if DEVICE_FAULTS.active:
+            DEVICE_FAULTS.check(f"pull:{index}")
+        return pull.wait()
+    except Exception as e:  # noqa: BLE001 — re-raised tagged
+        pull.abandon()
+        raise tag_domain(e, f"pull:{index}")
 
 
 class ShardContext:
@@ -593,12 +624,13 @@ class _PendingFlat:
     top-k on the host, stamping the wait's host clocks in pull_t0 /
     pull_t1."""
 
-    __slots__ = ("Q", "k", "parts", "pull", "pull_t0", "pull_t1")
+    __slots__ = ("Q", "k", "parts", "index", "pull", "pull_t0", "pull_t1")
 
-    def __init__(self, Q: int, k: int, parts: list):
+    def __init__(self, Q: int, k: int, parts: list, index: str | None = None):
         self.Q = Q
         self.k = k
         self.parts = parts
+        self.index = index  # the owning index: the pull's fault domain
         self.pull = pull_async(self.tensors())
         self.pull_t0: float | None = None
         self.pull_t1: float | None = None
@@ -615,7 +647,7 @@ class _PendingFlat:
         the host scorer (a script's `bad` flag, HOST_RERUN) merges to None:
         its caller serves it (`host_reruns`), not the merging thread."""
         self.pull_t0 = time.monotonic()
-        flat = iter(self.pull.wait())
+        flat = iter(wait_pull(self.pull, self.index))
         self.pull_t1 = time.monotonic()
         out: list[TopDocs | None] = [None] * self.Q
         for part in self.parts:
@@ -669,15 +701,19 @@ def _launch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
                 b0, b1 = packed.blocks_for_term(tid)
                 cl.append((b0, b1, w, g, mode == MODE_CONST, sim.fid[f]))
             clause_lists.append(cl)
-        launches, overflow = launch_flat_sparse(
-            packed, clause_lists, n_must, msm, coord_tbl, k, simple=simple,
-            breaker=ctx.breaker("request"), sim=sim)
+        # the compile-family seams: a launch's failure is tagged with its
+        # family's fault domain (a kernel fault itself surfaces at the pull)
+        with _domain_seam("compile:sparse"):
+            launches, overflow = launch_flat_sparse(
+                packed, clause_lists, n_must, msm, coord_tbl, k, simple=simple,
+                breaker=ctx.breaker("request"), sim=sim)
         dense = None
         if overflow:
-            dense = _launch_dense_fallback(
-                overflow, finals, field_idx, all_fields, caches_stack,
-                n_must, msm, coord_tbl, packed, seg, k,
-                breaker=ctx.breaker("fielddata"))
+            with _domain_seam("compile:dense"):
+                dense = _launch_dense_fallback(
+                    overflow, finals, field_idx, all_fields, caches_stack,
+                    n_must, msm, coord_tbl, packed, seg, k,
+                    breaker=ctx.breaker("fielddata"))
         seg_work.append((seg, base, packed.doc_pad, launches, dense))
     return seg_work
 
@@ -900,16 +936,18 @@ def _launch_filtered(idx: list, plans: list[FlatPlan], masks: list,
     """Launch filtered plans (a FilteredQuery's filter or a post filter as
     each plan's `filt`) on the dense filtered core, chunked per segment,
     without synchronising; `masks` holds each plan's mask rows by segment
-    (`prepare_dense`), stacked here on the device."""
+    (`prepare_dense`), stacked here on the device. Fault domain
+    `compile:filtered`."""
     part = _DensePart(idx)
-    segs, chunk_batch = _dense_segments(plans, ctx)
-    for j, (seg, base, packed) in enumerate(segs):
-        launches = []
-        for sub in _chunks(len(plans), packed.doc_pad):
-            fmask = torch.stack([masks[i][j] for i in sub])
-            launches.append((sub, score_filtered_batch_async(
-                packed, chunk_batch(sub, seg, packed), k, fmask)))
-        part.seg_work.append((seg, base, packed.doc_pad, launches))
+    with _domain_seam("compile:filtered"):
+        segs, chunk_batch = _dense_segments(plans, ctx)
+        for j, (seg, base, packed) in enumerate(segs):
+            launches = []
+            for sub in _chunks(len(plans), packed.doc_pad):
+                fmask = torch.stack([masks[i][j] for i in sub])
+                launches.append((sub, score_filtered_batch_async(
+                    packed, chunk_batch(sub, seg, packed), k, fmask)))
+            part.seg_work.append((seg, base, packed.doc_pad, launches))
     return part
 
 
@@ -929,7 +967,14 @@ def _launch_fs(idx: list, plans: list[FlatPlan], seg_rows: list,
     row. "script": the one `_score`-reading script runs inside the launch
     over its columns' rows; the queries it flags bad (a missing column or a
     non-finite value on a parent doc) merge to None, and their callers rerun
-    them on the host scorer, which decides the errors."""
+    them on the host scorer, which decides the errors. Fault domain
+    `compile:function_score`."""
+    with _domain_seam("compile:function_score"):
+        return _launch_fs_group(idx, plans, seg_rows, ctx, k)
+
+
+def _launch_fs_group(idx: list, plans: list[FlatPlan], seg_rows: list,
+                     ctx: ShardContext, k: int) -> _DensePart:
     from ..script import compile_script, script_vector_info
 
     fsq = plans[0].fs
@@ -989,7 +1034,7 @@ def dispatch_flat_batch(plans: list[FlatPlan], ctx: ShardContext, k: int,
             groups.setdefault(_fs_group_key(p.fs), []).append(i)
     for idx in groups.values():
         parts.append(_launch_fs(idx, [plans[i] for i in idx], preps[idx[0]], ctx, k))
-    return _PendingFlat(Q=len(plans), k=k, parts=parts)
+    return _PendingFlat(Q=len(plans), k=k, parts=parts, index=ctx.index_name)
 
 
 def host_reruns(plans: list[FlatPlan], tds: list, ctx: ShardContext,
@@ -1099,13 +1144,15 @@ def sort_key_rows(ctx: ShardContext, spec) -> list | None:
 def launch_flat_sorted(plan: FlatPlan, ctx: ShardContext, k: int, spec,
                        key_rows: list) -> _SortedPart:
     """Launch a single plan's field-sorted dense program on every segment
-    without synchronising, ordered by `key_rows` (`sort_key_rows`)."""
-    segs, seg_batch = _single_plan_segments(plan, ctx)
+    without synchronising, ordered by `key_rows` (`sort_key_rows`). Fault
+    domain `compile:sorted`."""
     part = _SortedPart(spec, k)
-    for si, ((seg, base, packed), row) in enumerate(zip(segs, key_rows)):
-        part.seg_work.append((si, base, score_sorted_batch_async(
-            packed, seg_batch(seg, packed), k, upload_pinned(row, packed.device),
-            spec.reverse, fmask=_plan_fmask(plan, seg, packed, ctx))))
+    with _domain_seam("compile:sorted"):
+        segs, seg_batch = _single_plan_segments(plan, ctx)
+        for si, ((seg, base, packed), row) in enumerate(zip(segs, key_rows)):
+            part.seg_work.append((si, base, score_sorted_batch_async(
+                packed, seg_batch(seg, packed), k, upload_pinned(row, packed.device),
+                spec.reverse, fmask=_plan_fmask(plan, seg, packed, ctx))))
     return part
 
 
@@ -1119,7 +1166,7 @@ def execute_flat_sorted(plan: FlatPlan, ctx: ShardContext, k: int, spec):
     if key_rows is None:
         return None
     part = launch_flat_sorted(plan, ctx, k, spec, key_rows)
-    return part.collect(iter(pull_async(part.tensors()).wait()))
+    return part.collect(iter(wait_pull(pull_async(part.tensors()), ctx.index_name)))
 
 
 def _bucket_pairs_on(agg, seg, packed, ctx: ShardContext):
@@ -1190,7 +1237,14 @@ def launch_flat_aggs(plan: FlatPlan, ctx: ShardContext, k: int,
     columns) and, per (bucket agg, sub-agg field order | None) of
     `bucket_aggs`, the counts over its (doc, bucket) pairs with its metric
     sub-aggs' stats. None (nothing launched) when a column, on any segment,
-    is not f32-exact: the host collectors serve the request."""
+    is not f32-exact: the host collectors serve the request. Fault domain
+    `compile:aggs`."""
+    with _domain_seam("compile:aggs"):
+        return _launch_aggs(plan, ctx, k, fields, bucket_aggs)
+
+
+def _launch_aggs(plan: FlatPlan, ctx: ShardContext, k: int, fields: list[str],
+                 bucket_aggs) -> _AggPart | None:
     segs, seg_batch = _single_plan_segments(plan, ctx)
     fd = ctx.breaker("fielddata")
     rows = []
@@ -1231,7 +1285,7 @@ def execute_flat_aggs(plan: FlatPlan, ctx: ShardContext, k: int,
     part = launch_flat_aggs(plan, ctx, k, fields, bucket_aggs)
     if part is None:
         return None, None
-    return part.collect(iter(pull_async(part.tensors()).wait()))
+    return part.collect(iter(wait_pull(pull_async(part.tensors()), ctx.index_name)))
 
 
 # ---------------------------------------------------------------------------

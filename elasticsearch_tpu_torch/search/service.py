@@ -43,11 +43,26 @@ aggregating launches are single plans from the calling thread, as in the
 JAX package, and every device launch of one request is pulled behind one
 event (`cudaenv.pull_async`).
 
-There are no device fault domains in the port yet, so a device error on a
-lowerable body is not re-served by the host scorer: it is counted in
-`SERVING_COUNTERS["device_errors"]` and raised to the caller (through the
-batcher's future when the request was coalesced, after the batcher replayed
-it on its own on the device).
+Device fault domains (common/devicehealth), as in the JAX package's
+`search/service.py` :166-233 and :321-500: every device branch first asks
+whether one of its domains is open (`_blocked_domain`: `pack:<index>`, the
+`compile:<family>` domains of the families it may launch, `pull:<index>`;
+one attribute read while every domain is closed). An open domain, a
+failure of the card (a transient or persistent CUDA error; through the
+batcher's future when the request was coalesced: the batcher replays a
+failed batch member by member, so only the poisoned member fails) or a
+fielddata breaker trip while packing degrades the request to the host
+path: the host scorer or the general host path answers, the result is
+marked `degraded` (`_shards.degraded` at the coordinator),
+`SERVING_COUNTERS["degraded"]` counts it, and a CUDA error advances its
+domain's circuit (`_device_failed`). The degraded path makes no CUDA call,
+so it answers after a sticky error too. A request or parent breaker trip
+stays a 429 and a SearchEngineError (a script or parsing error) stays the
+answer. A defect of the port's own launches (a launch-configuration code,
+an unexpected code from a kernel wrapper) and an exception that is not a
+CUDA error (a host bug) are counted in `device_errors`, move no circuit
+and reach the caller as a 500: serving them from the host would hide a
+program fault behind the card (the JAX package degrades any exception).
 """
 
 from __future__ import annotations
@@ -61,7 +76,9 @@ import numpy as np
 from ..common.breaker import reserve as breaker_reserve
 from ..common.cudaenv import pull_async
 from ..common.deadline import NO_DEADLINE, Deadline, parse_timevalue
-from ..common.errors import QueryParsingError, SearchEngineError
+from ..common.devicehealth import DEGRADABLE, DEVICE_HEALTH, classify_device_error
+from ..common.errors import CircuitBreakingError, QueryParsingError, SearchEngineError
+from ..common.logging import get_logger
 from .aggregations import (
     device_agg_field,
     device_bucket_eligible,
@@ -85,6 +102,7 @@ from .execute import (
     lower_flat,
     prepare_dense,
     sort_key_rows,
+    wait_pull,
 )
 from .fetch import build_hit
 from .filters import BoolFilter, Filter, segment_mask
@@ -173,6 +191,9 @@ class ShardQueryResult:
     timed_out: bool = False
     # the pinned query-time context the fetch phase reads (actions.py)
     context_id: int | None = None
+    # served on the host path because a device fault domain was open or the
+    # device attempt failed (`_shards.degraded` counts such shards)
+    degraded: bool = False
 
 
 # process-wide serving counters of the port (its own singleton: a process
@@ -183,15 +204,65 @@ SERVING_COUNTERS = {
     "device_filtered": 0,  # filtered, post_filter or min_score on the dense family
     "device_aggs": 0,  # aggregations reduced in the dense launch
     "device_sort": 0,  # field-sorted launch (with or without aggregations)
-    "device_errors": 0,  # the device path raised; the error reached the caller
+    "device_errors": 0,  # a device attempt raised (degraded, or a host bug raised)
+    "degraded": 0,  # served on the host path on a device failure or an open domain
     "host": 0,  # served by the host scorer
 }
 _COUNTERS_LOCK = threading.Lock()
+_device_error_logged: set = set()
 
 
 def _count(path: str):
     with _COUNTERS_LOCK:
         SERVING_COUNTERS[path] += 1
+
+
+def _device_failed(e: BaseException, ctx: ShardContext) -> None:
+    """A device attempt failed on the card or with a fielddata breaker trip:
+    the search still answers on the host path. Counts it, advances the
+    domain the raiser tagged (untagged errors attribute to the index's
+    `pull:` domain, as in the JAX package; a trip is no CUDA error and moves
+    no circuit) and logs each error type once."""
+    with _COUNTERS_LOCK:
+        SERVING_COUNTERS["device_errors"] += 1
+        SERVING_COUNTERS["degraded"] += 1
+    domain = getattr(e, "_estpu_device_domain", None) or f"pull:{ctx.index_name}"
+    DEVICE_HEALTH.record_failure(domain, e)
+    key = type(e).__name__
+    if key not in _device_error_logged:
+        _device_error_logged.add(key)
+        get_logger("search.device").warning(
+            f"device serving failed ({key}: {e}); the host scorer answers "
+            "(logged once per error type)")
+
+
+def _domains_for(ctx: ShardContext, families: tuple) -> tuple:
+    """The fault domains one device attempt on this shard exercises: the
+    index's pack and pull domains and each compile family it may launch."""
+    idx = str(ctx.index_name)
+    return (f"pack:{idx}",) + tuple(f"compile:{f}" for f in families) \
+        + (f"pull:{idx}",)
+
+
+def _blocked_domain(ctx: ShardContext, families: tuple) -> str | None:
+    """The open fault domain that sends this request to the host path
+    before any launch, or None (all closed, or this caller was admitted as
+    the probe). One plain attribute read when every domain is closed."""
+    if not DEVICE_HEALTH.any_open:
+        return None
+    return DEVICE_HEALTH.blocked(_domains_for(ctx, families))
+
+
+def _device_degraded() -> None:
+    """An open fault domain skipped the device path: count the degrade."""
+    _count("degraded")
+
+
+def _note_device_ok(ctx: ShardContext, families: tuple) -> None:
+    """A clean device outcome: closes a half-open domain this request just
+    probed (one attribute read when no device failure was ever recorded)."""
+    if DEVICE_HEALTH.dirty:
+        DEVICE_HEALTH.note_success(_domains_for(ctx, families))
 
 
 def _execute_flat_single(ctx: ShardContext, plan, k: int,
@@ -223,61 +294,91 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
         # budget gone before any segment was scored: legal partial = nothing
         return ShardQueryResult(total=0, docs=[], max_score=float("nan"),
                                 shard_id=shard_id, timed_out=True)
+    degraded = False
     if use_device:
-        device = _device_branch(ctx, req, k, shard_id, deadline)
+        device, degraded = _device_branch(ctx, req, k, shard_id, deadline)
         if device is not None:
             return device
     if req.aggs or req.facets or req.sort or req.post_filter is not None \
             or req.min_score is not None:
-        return _general_host_path(ctx, req, k, shard_id, deadline)
-    _count("host")
-    td = _host_search(ctx, req.query, max(k, 1), deadline=deadline)
-    return ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in td.hits],
-                            max_score=td.max_score, shard_id=shard_id,
-                            timed_out=td.timed_out)
+        res = _general_host_path(ctx, req, k, shard_id, deadline)
+    else:
+        _count("host")
+        td = _host_search(ctx, req.query, max(k, 1), deadline=deadline)
+        res = ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in td.hits],
+                               max_score=td.max_score, shard_id=shard_id,
+                               timed_out=td.timed_out)
+    res.degraded = degraded
+    return res
 
 
 def _device_branch(ctx: ShardContext, req: ParsedSearchRequest, k: int,
-                   shard_id: int, deadline: Deadline) -> ShardQueryResult | None:
+                   shard_id: int, deadline: Deadline):
     """The device branches of the module docstring, in the JAX package's
-    order; None when the host scorer serves the body. A device error is
-    counted and raised."""
-    try:
-        if req.aggs and not (req.facets or req.sort) and req.post_filter is None \
-                and req.min_score is None:
-            res = _try_device_aggs(ctx, req, k, shard_id)
-            if res is not None:
-                _count("device_aggs")
-            return res
-        if req.sort and len(req.sort) == 1 and not req.facets \
-                and req.post_filter is None and req.min_score is None:
-            res = _try_device_sort(ctx, req, k, shard_id)
-            if res is not None:
-                _count("device_sort")
-            return res
-        if req.aggs and req.post_filter is not None and not (req.sort or req.facets) \
-                and req.min_score is None:
-            res = _try_device_post_filter(ctx, req, k, shard_id)
-            if res is not None:
-                _count("device_filtered")
-            return res
-        routed = device_plan(ctx, req)
-        if routed is None:
-            return None
-        plan, counter = routed
+    order: (the device's result or None, degraded). None and not degraded:
+    the host path serves the body as it would anyway."""
+    if req.aggs and not (req.facets or req.sort) and req.post_filter is None \
+            and req.min_score is None:
+        return _guarded(ctx, ("aggs",), "device_aggs",
+                        lambda: _try_device_aggs(ctx, req, k, shard_id))
+    if req.sort and len(req.sort) == 1 and not req.facets \
+            and req.post_filter is None and req.min_score is None:
+        # the families the branch launches: a probe admitted here proves
+        # only those (the JAX package gates every sort on `aggs` too)
+        return _guarded(ctx, ("sorted", "aggs") if req.aggs else ("sorted",),
+                        "device_sort", lambda: _try_device_sort(ctx, req, k, shard_id))
+    if req.aggs and req.post_filter is not None and not (req.sort or req.facets) \
+            and req.min_score is None:
+        return _guarded(ctx, ("filtered", "aggs"), "device_filtered",
+                        lambda: _try_device_post_filter(ctx, req, k, shard_id))
+    routed = device_plan(ctx, req)
+    if routed is None:
+        return None, False
+    plan, counter = routed
+    families = ("function_score",) if plan.fs is not None else \
+        ("filtered",) if plan.filt is not None else ("sparse", "dense")
+
+    def run_plan() -> ShardQueryResult:
         td = _execute_flat_single(ctx, plan, max(k, 1), deadline)
+        # the kernel runs at k >= 1; the min_score and post_filter branches
+        # trim to the page, as the JAX package's do
+        hits = td.hits if req.post_filter is None and req.min_score is None \
+            else td.hits[: max(k, 0)]
+        return ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in hits],
+                                max_score=td.max_score, shard_id=shard_id)
+
+    return _guarded(ctx, families, counter, run_plan)
+
+
+def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt):
+    """One device branch inside the fault domains: (result, degraded).
+    Skipped, degraded, when one of its domains is open; degraded on a
+    failure of the card or a fielddata breaker trip (`_device_failed`); on
+    success the serving counter moves and a probed domain closes. A request
+    or parent trip, a SearchEngineError, a defect and a host bug raise."""
+    if _blocked_domain(ctx, families) is not None:
+        _device_degraded()  # an open fault domain: no launch
+        return None, True
+    try:
+        res = attempt()
+    except CircuitBreakingError as e:
+        if getattr(e, "breaker", None) != "fielddata":
+            raise  # request/parent trip: load shedding (429), not degradable
+        _device_failed(e, ctx)  # out of device-pack budget: the host serves
+        return None, True
     except SearchEngineError:
-        raise  # breaker trips, parsing or script errors are the answer itself
-    except Exception:
-        _count("device_errors")
-        raise
+        raise  # parsing and script errors are the answer itself
+    except Exception as e:  # noqa: BLE001 — classified right below
+        if classify_device_error(e) not in DEGRADABLE:
+            _count("device_errors")
+            raise  # a defect or a host bug: no circuit moves, the caller sees it
+        _device_failed(e, ctx)
+        return None, True
+    if res is None:
+        return None, False  # a refusal before any launch: the host path serves it
+    _note_device_ok(ctx, families)
     _count(counter)
-    # the kernel runs at k >= 1; the min_score and post_filter branches trim
-    # to the page, as the JAX package's do
-    hits = td.hits if req.post_filter is None and req.min_score is None \
-        else td.hits[: max(k, 0)]
-    return ShardQueryResult(total=td.total, docs=[(s, d, None) for s, d in hits],
-                            max_score=td.max_score, shard_id=shard_id)
+    return res, False
 
 
 def device_plan(ctx: ShardContext, req: ParsedSearchRequest):
@@ -367,9 +468,11 @@ def _agg_launch(ctx: ShardContext, req: ParsedSearchRequest, k: int):
     return part, partials
 
 
-def _pull(parts: list):
-    """The request's one pull: every part's result tensors behind one event."""
-    return iter(pull_async([t for p in parts for t in p.tensors()]).wait())
+def _pull(ctx: ShardContext, parts: list):
+    """The request's one pull: every part's result tensors behind one event,
+    behind the `pull:<index>` seam."""
+    return iter(wait_pull(pull_async([t for p in parts for t in p.tensors()]),
+                          ctx.index_name))
 
 
 def _try_device_aggs(ctx: ShardContext, req: ParsedSearchRequest, k: int,
@@ -380,7 +483,7 @@ def _try_device_aggs(ctx: ShardContext, req: ParsedSearchRequest, k: int,
     if launched is None:
         return None
     part, partials = launched
-    td, seg_stats = part.collect(_pull([part]))
+    td, seg_stats = part.collect(_pull(ctx, [part]))
     # the launch's k is at least 1 so max_score stays observable; the hits
     # trim to the page (size 0: none, as on the host path)
     return ShardQueryResult(
@@ -405,7 +508,7 @@ def _try_device_post_filter(ctx: ShardContext, req: ParsedSearchRequest, k: int,
     hit_plan = _hit_plan(plan, req.post_filter)
     hit_part = _launch_filtered([0], [hit_plan], prepare_dense([hit_plan], ctx),
                                 ctx, max(k, 1))
-    flat = _pull([agg_part, hit_part])
+    flat = _pull(ctx, [agg_part, hit_part])
     _td, seg_stats = agg_part.collect(flat)
     (td,) = hit_part.collect(flat, max(k, 1))
     return ShardQueryResult(
@@ -441,7 +544,7 @@ def _try_device_sort(ctx: ShardContext, req: ParsedSearchRequest, k: int,
         parts.append(launched[0])
         partials = launched[1]
     sorted_part = launch_flat_sorted(plan, ctx, max(k, 1), spec, key_rows)
-    flat = _pull(parts + [sorted_part])
+    flat = _pull(ctx, parts + [sorted_part])
     agg_partials = partials(parts[0].collect(flat)[1]) if parts else []
     total, max_score, entries = sorted_part.collect(flat)
     values_by_rank = _sort_values_by_rank(

@@ -31,14 +31,27 @@ with no lock held.
 `indices.warmer.enabled` is read and reported as in the JAX package, where
 it switches the cache re-prime off and leaves pack warming on; the re-prime
 (the request cache's hot bodies, the filter cache's hot keys) waits for the
-request cache. A failed warm pack is counted and not retried: later
-searches retry inline."""
+request cache.
+
+A warm pack that fails on the card (a transient or persistent CUDA error,
+common/devicehealth) is retried on its pool, up to
+`indices.warmer.pack_retries` (2) times after decorrelated-jitter backoffs
+from `indices.warmer.pack_retry_base` (0.05 s), as in the JAX package's
+`warmer.py`: the failed attempt cleared its marker and resolved its future,
+so a waiter never sees a half-packed segment, and a search that claimed the
+fresh marker meanwhile packs it instead. The final failure is counted and
+recorded against the `pack:<index>` fault domain (no query waits on a warm
+pack's future, so nothing else would classify it); a clean pack notes
+success there, closing the domain when it was the recovery probe."""
 
 from __future__ import annotations
 
 import threading
+import time
 
+from .common.devicehealth import DEGRADABLE, DEVICE_HEALTH, classify_device_error
 from .common.logging import get_logger
+from .common.retry import RetryPolicy
 from .ops.device_index import begin_warm, cancel_warm, run_warm
 
 
@@ -52,12 +65,17 @@ class IndexWarmerService:
         self.device = device
         self.threadpool = threadpool
         self.breaker = breaker  # the fielddata child: each pack's estimate
+        self.pack_retry_budget = max(0, settings.get_int(
+            "indices.warmer.pack_retries", 2))
+        self._retry_policy = RetryPolicy(base_s=settings.get_float(
+            "indices.warmer.pack_retry_base", 0.05), cap_s=1.0)
         self.logger = get_logger("indices.warmer")
         self._lock = threading.Lock()  # leaf: counters only
         self.packs_scheduled = 0
         self.packs_done = 0
         self.packs_stolen = 0  # claimed by a racing search before we ran
         self.pack_failures = 0
+        self.pack_retries = 0  # CUDA-error failures retried on the pool
         self.rejected = 0  # pool rejections (shut down)
         self.closed = False
 
@@ -96,21 +114,51 @@ class IndexWarmerService:
 
     def _run_pack(self, seg, fut, index: str) -> None:
         """The pool's body: claim and pack. A failure (a breaker trip, a
-        device error) reached any waiter through the future; it is counted
-        here and not retried."""
-        try:
-            res = run_warm(seg, self.device, fut, breaker=self.breaker, owner=index)
-        except Exception as e:  # noqa: BLE001
+        device error) reached any waiter through the future; a failure of
+        the card is retried here after a backoff while the budget lasts, and
+        the final failure is counted and recorded against `pack:<index>` (a
+        defect of the program is neither retried nor recorded)."""
+        attempts = 0
+        prev_sleep = None
+        while True:
+            try:
+                res = run_warm(seg, self.device, fut, breaker=self.breaker,
+                               owner=index)
+            except Exception as e:  # noqa: BLE001
+                attempts += 1
+                cls = classify_device_error(e)
+                if cls in DEGRADABLE and attempts <= self.pack_retry_budget:
+                    # back off on this pool thread (never the query path),
+                    # then re-arm: a search that claimed the fresh marker
+                    # meanwhile packs it, and this task stands down
+                    prev_sleep = self._retry_policy.next_backoff(prev_sleep)
+                    time.sleep(prev_sleep)
+                    fut = begin_warm(seg, self.device)
+                    if fut is None:
+                        with self._lock:
+                            self.packs_done += 1
+                        return  # packed, or a pack is in flight elsewhere
+                    with self._lock:
+                        self.pack_retries += 1
+                    continue
+                with self._lock:
+                    self.packs_done += 1
+                    self.pack_failures += 1
+                DEVICE_HEALTH.record_failure(
+                    getattr(e, "_estpu_device_domain", None) or f"pack:{index}", e)
+                log = self.logger.warning if cls == "defect" else self.logger.debug
+                log("warm pack failed [%s][gen %s] after %d attempt(s): %s",
+                    index, seg.gen, attempts, e)
+                return
             with self._lock:
                 self.packs_done += 1
-                self.pack_failures += 1
-            self.logger.debug("warm pack failed [%s][gen %s]: %s", index,
-                              seg.gen, e)
+                if res is None:
+                    self.packs_stolen += 1  # a racing search packed it inline
+            if res is not None:
+                # a clean pack resets the domain's strikes (and closes it
+                # when this was the recovery probe)
+                DEVICE_HEALTH.note_success((f"pack:{index}",))
             return
-        with self._lock:
-            self.packs_done += 1
-            if res is None:
-                self.packs_stolen += 1  # a racing search packed it inline
 
     def close(self) -> None:
         """Schedule nothing more (the node is closing; the pools' queued
@@ -124,4 +172,5 @@ class IndexWarmerService:
                     "packs_done": self.packs_done,
                     "packs_stolen": self.packs_stolen,
                     "pack_failures": self.pack_failures,
+                    "pack_retries": self.pack_retries,
                     "rejected": self.rejected}

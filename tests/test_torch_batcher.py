@@ -6,8 +6,9 @@ inline, a failing batch fails only the failing request, a pending merge is
 not delayed by the next batch's linger — with the JAX test's timing margins;
 plus concurrency against `search_shard_batch`, the per-batch staging
 reservation on the request breaker, the enqueue/wait halves of the pull, the
-merge wait recorded for overlapped merges and a device error that reaches
-the caller with no host answer."""
+merge wait recorded for overlapped merges, a host error that reaches the
+caller with no host answer and a CUDA error that degrades each caller to
+the host scorer."""
 
 import threading
 import time
@@ -366,14 +367,18 @@ def test_merge_reads_the_pull_enqueued_at_dispatch(shard_ctx):
 
 def test_device_error_reaches_the_caller_without_a_host_answer(
         shard_ctx, monkeypatch):
-    """A device error inside the dispatch half: the batcher replays each
-    item on its own — on the device path again — and the error reaches
-    every caller; execute_query_phase counts it and returns nothing."""
+    """An error inside the dispatch half that is not a CUDA error (a host
+    bug): the batcher replays each item on its own — on the device path
+    again — and the error reaches every caller; execute_query_phase counts
+    it and returns nothing, and no fault domain moves. (A CUDA error there
+    degrades each caller to the host scorer instead: the test below.)"""
+    from elasticsearch_tpu_torch.common.devicehealth import DEVICE_HEALTH
+
     calls = []
 
     def broken(plans, ctx, k):
         calls.append(len(plans))
-        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        raise RuntimeError("dispatch bug: an illegal memory access in host code")
 
     monkeypatch.setattr(texecute, "_launch_flat_plain", broken)
     shard_ctx.batcher = make_batcher(**{"search.batch.linger_ms": 200,
@@ -391,6 +396,48 @@ def test_device_error_reaches_the_caller_without_a_host_answer(
     assert SERVING_COUNTERS["device_errors"] - before == 2
     # one coalesced attempt of both, then one device attempt per item
     assert sorted(calls) == [1, 1, 2], calls
+    assert not DEVICE_HEALTH.dirty and not DEVICE_HEALTH.any_open
+
+
+def test_cuda_error_in_a_batch_degrades_each_caller_to_the_host_scorer(
+        shard_ctx, monkeypatch):
+    """A CUDA error inside the dispatch half: the batcher replays each item
+    on its own (a device split, recorded against no circuit), each caller
+    records its own failure and answers from the host scorer, marked
+    degraded; the persistent error trips the domain it was tagged with."""
+    from elasticsearch_tpu_torch.common.devicehealth import DEVICE_HEALTH, OPEN
+
+    calls = []
+
+    def broken(plans, ctx, k):
+        calls.append(len(plans))
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(texecute, "_launch_flat_plain", broken)
+    shard_ctx.batcher = make_batcher(**{"search.batch.linger_ms": 200,
+                                        "search.batch.max_batch": 2})
+    before = dict(SERVING_COUNTERS)
+    bodies = [{"query": {"match": {"body": t}}} for t in ("quick", "lazy dog")]
+    try:
+        out, errs = run_threads(
+            lambda i: execute_query_phase(shard_ctx, parse_search_body(bodies[i])), 2)
+        assert errs == [None, None], errs
+        for body, res in zip(bodies, out):
+            host = execute_query_phase(shard_ctx, parse_search_body(body),
+                                       use_device=False)
+            assert res.degraded and not host.degraded
+            assert (res.total, res.docs) == (host.total, host.docs)
+        assert SERVING_COUNTERS["device_errors"] - before["device_errors"] == 2
+        assert SERVING_COUNTERS["degraded"] - before["degraded"] == 2
+        assert shard_ctx.batcher.stats()["device_splits"] == 1
+        assert sorted(calls) == [1, 1, 2], calls
+        # untagged by a seam (the launch itself was replaced): the index's
+        # pull domain, as in the JAX package
+        assert DEVICE_HEALTH.state(f"pull:{shard_ctx.index_name}") == OPEN
+        assert DEVICE_HEALTH.stats()["failures"] == {"transient": 0, "persistent": 2}
+    finally:
+        shard_ctx.batcher.shutdown()
+        DEVICE_HEALTH.reset()
 
 
 def test_stats_shape(shard_ctx):
@@ -402,8 +449,8 @@ def test_stats_shape(shard_ctx):
         b.shutdown()
     assert set(st) == {"launches", "coalesced", "occupancy_mean",
                        "full_flushes", "linger_flushes", "deadline_flushes",
-                       "pending_flushes", "bypassed", "splits", "queue",
-                       "ewma_batch_ms", "batch", "merge_wait"}
+                       "pending_flushes", "bypassed", "splits", "device_splits",
+                       "queue", "ewma_batch_ms", "batch", "merge_wait"}
     assert st["launches"] >= 1 and st["batch"]["count"] == st["launches"]
     assert st["merge_wait"]["count"] <= st["launches"]
 
