@@ -11,8 +11,8 @@ then the serving path — concurrent single requests through
 `parse_search_body` → `execute_query_phase` → the `DeviceBatcher` — then a
 port `Node` serving REST `_bulk` and `_search` over HTTP, then the dense
 request-feature family (filtered, post_filter, min_score, function_score)
-at full width, and holds every hand-written kernel of those paths against
-its plain torch version on the card. Phases:
+at full width, then the percolator, and holds every hand-written kernel of
+those paths against its plain torch version on the card. Phases:
 
   1. card facts (nvidia-smi, torch / CUDA / nvcc versions), build the kernels
      from `elasticsearch_tpu_torch/csrc` (one nvcc per source, all at once);
@@ -121,9 +121,10 @@ its plain torch version on the card. Phases:
      JAX package. Ms a batch by family (CUDA events and host wall), dense
      launches, device→host copies and the filter cache's hits, builds and
      resident bytes.
- 13. field sort and aggregations. The library leg, on phase 2's shard: 64
-     requests a family through `parse_search_body` → `execute_query_phase`,
-     each over phase 3's 4-term `bool` — `sort_asc` (`pop` asc, missing
+ 13. field sort and aggregations. The library leg, on phase 2's shard: 32
+     requests a family (64 before phase 16 joined the run) through
+     `parse_search_body` → `execute_query_phase`, each over phase 3's 4-term
+     `bool` — `sort_asc` (`pop` asc, missing
      last, top-100), `sort_desc_scores` (`likes` desc, `track_scores`),
      `aggs_metric` (stats of `likes`, avg and value_count of `pop`),
      `aggs_terms` (terms on `cat` with an avg of `pop`), `aggs_hist`
@@ -199,6 +200,31 @@ its plain torch version on the card. Phases:
      host query phases and within 2 ulp of the pinned answers, every
      failure persistent; the child prints one JSON line and leaves with
      `os._exit`. Phases 1-14 degrade nothing and count no device error.
+ 16. the percolator on the card. (a) The library leg: a registry of 10,000
+     queries made from the seed over phase 10's vocabulary, a quarter each
+     `match` of 1-3 terms, `term`, `bool` of a `must` and a `must_not` term
+     (phase 3's df ranks) and `match_phrase` of two adjacent tokens of a
+     corpus text (host-only), percolates 32 of phase 10's texts: each
+     document's matches equal the host loop's (the same registry with its
+     batch gate raised), every percolation is one batch on the card
+     (`device_percolate`, no fallback, one pull, `sparse_score.smem`
+     launched, one one-document pack under `_unattributed`), and the kernel
+     is bitwise equal to its plain version at every (Qb, TB, k = 1) shape
+     launched; percolations/s on the card and on the host loop, and one
+     percolation's wall split into parse, one-document pack (ms, bytes),
+     lowering, dispatch (CUDA events on the device), pull and the host-only
+     queries. (b) On phase 10's node: an `alerts` index (1 shard, 0
+     replicas) with 1,000 of those queries registered by `PUT
+     /alerts/.percolator/{id}` from 16 connections, then 128 `_percolate`
+     requests from 16 connections (requests/s, p50/p99), 8 `_mpercolate`
+     bodies of 8 items (one a missing document: a 404 in place), 16
+     existing documents of an `alert_docs` index read by GET and percolated
+     against `alerts`, and 16 `_percolate/count` requests, every answer
+     equal to the node's host loop; DELETE of 100 queries (the matched ones
+     first), after which no answer names them; `compile:percolate` armed:
+     every answer 200 from the host loop, no launch, a fallback each; then
+     disarmed, the domain closes by probe within 15 s and the card serves
+     again. No pack is booked against `alerts`.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -261,7 +287,10 @@ DENSE_BATCH, DENSE_CHECK = 256, 32  # phase 12: queries a family batch, host-che
 DENSE_FAMILIES = ("filtered", "post_filter", "min_score", "fs_rows", "fs_script")
 FS_SCRIPT = "_score * log(2 + doc['likes'].value)"  # phase 12's script family
 CAT_VALUES, CAT_ZIPF = 200, 1.3  # phase 2's keyword `cat`: zipf over 200 values
-SORT_AGG_REQUESTS = 64  # phase 13's library leg: requests a family
+# phase 13's library leg: requests a family (64 before phase 16 joined the
+# run: each is checked against the host path and CPU tensors at 1M docs,
+# about 150 s for 64, cut for the run's time)
+SORT_AGG_REQUESTS = 32
 SORT_AGG_FAMILIES = ("sort_asc", "sort_desc_scores", "aggs_metric", "aggs_terms",
                      "aggs_hist", "sort_aggs", "post_filter_aggs")
 SORT_AGG_COUNTER = {"sort_asc": "device_sort", "sort_desc_scores": "device_sort",
@@ -309,6 +338,14 @@ DEFECT_SHARED_BYTES = 1 << 20
 # phase 15 (b): the child's node and searches, and its time limit
 STICKY_DOCS, STICKY_SHARDS, STICKY_SEARCHES, STICKY_TIMEOUT_S = 5000, 2, 32, 60
 ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_dense.py)
+# phase 16: the library leg's registry and documents (32, cut from 64 for
+# the run's time); the node leg's registered queries (1,000, cut from
+# PERC_QUERIES), _percolate requests (128, cut from 256) and connections,
+# _mpercolate bodies (8, cut from 16) and their items, existing documents
+# (and _percolate/count requests), and the queries deleted
+PERC_QUERIES, PERC_DOCS = 10_000, 32
+PERC_NODE_QUERIES, PERC_REQUESTS, PERC_CONNECTIONS = 1000, 128, 16
+PERC_MULTI, PERC_MULTI_ITEMS, PERC_EXISTING, PERC_DELETES = 8, 8, 16, 100
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -793,7 +830,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         dense_check: int = DENSE_CHECK, sort_agg_requests: int = SORT_AGG_REQUESTS,
         catalog_docs: int = CATALOG_DOCS,
         catalog_requests: int = CATALOG_REQUESTS, write_docs: int = WRITE_DOCS,
-        write_requests: int = WRITE_REQUESTS) -> dict:
+        write_requests: int = WRITE_REQUESTS, perc_queries: int = PERC_QUERIES,
+        perc_docs: int = PERC_DOCS, perc_node_queries: int = PERC_NODE_QUERIES,
+        perc_requests: int = PERC_REQUESTS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -1133,7 +1172,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                       n_requests=node_requests, n_callers=node_callers,
                       mixed_requests=mixed_requests, catalog_docs=catalog_docs,
                       catalog_requests=catalog_requests, write_docs=write_docs,
-                      write_requests=write_requests)
+                      write_requests=write_requests, perc_queries=perc_queries,
+                      perc_docs=perc_docs, perc_node_queries=perc_node_queries,
+                      perc_requests=perc_requests)
     report["node"] = node
 
     # -- 12. the dense request-feature family at full width -------------------
@@ -1152,12 +1193,14 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         device, csr, vocab, [[t for t, _g in c] for c in batches[1][0]], seed=seed + 14)
 
     # phases 1-14 served nothing on the host path by degrade: every degrade
-    # and device error of the process is phase 15's
+    # and device error of the process is phase 15's or phase 16's armed
+    # percolations'
     from elasticsearch_tpu_torch.search import SERVING_COUNTERS
-    faults = node["faults"]["counted"]
+    faults, perc = node["faults"]["counted"], node["percolate"]["counted"]
     for key in ("degraded", "device_errors"):
-        assert SERVING_COUNTERS[key] == faults[key], \
-            f"{key}: {SERVING_COUNTERS[key]} in the run, {faults[key]} of them phase 15's"
+        assert SERVING_COUNTERS[key] == faults[key] + perc[key], \
+            (f"{key}: {SERVING_COUNTERS[key]} in the run, {faults[key]} of them phase "
+             f"15's, {perc[key]} phase 16's")
 
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
@@ -1168,7 +1211,11 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
         mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"],
         dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"],
-        fault_launches=node["faults"]["launches"])]
+        fault_launches=node["faults"]["launches"],
+        percolate_launches=node["percolate"]["node"]["launches"],
+        percolate_shapes=[(s["Qb"], s["TB"], s["k"])
+                          for s in node["percolate"]["library"]["shapes"]],
+        percolate_max_abs_err=node["percolate"]["library"]["kernel_max_abs_err"])]
     return report
 
 
@@ -1765,7 +1812,9 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
                n_callers: int, mixed_requests: int = MIXED_REQUESTS,
                catalog_docs: int = CATALOG_DOCS,
                catalog_requests: int = CATALOG_REQUESTS, write_docs: int = WRITE_DOCS,
-               write_requests: int = WRITE_REQUESTS) -> dict:
+               write_requests: int = WRITE_REQUESTS, perc_queries: int = PERC_QUERIES,
+               perc_docs: int = PERC_DOCS, perc_node_queries: int = PERC_NODE_QUERIES,
+               perc_requests: int = PERC_REQUESTS) -> dict:
     """Phase 10: a port Node on `device` serving REST over HTTP — index
     creation, `_bulk` into each shard's durable Engine, `_refresh`, then
     concurrent `_search` requests checked against exact totals and the
@@ -1963,6 +2012,11 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             out["sticky"] = sticky_phase(device, texts, bodies)
         else:
             log("[15] (b) the sticky fault needs the card: not run on the CPU")
+        # -- 16. the percolator on the card ---------------------------------
+        out["percolate"] = percolate_phase(
+            device, node, port, texts=texts, ranked=ranked, seed=seed + 6,
+            n_queries=perc_queries, n_docs=perc_docs, node_queries=perc_node_queries,
+            n_requests=perc_requests)
         return out
     finally:
         if recorder is not None:
@@ -2103,7 +2157,8 @@ def mixed_phase(device, node, port: int, *, texts, offsets, inv_docs, searchers,
     assert counted == {"device_sparse": NODE_SHARDS * n_device,
                        "device_filtered": NODE_SHARDS * n_dense,
                        "device_function_score": 0, "device_aggs": 0,
-                       "device_sort": 0, "device_errors": 0, "degraded": 0,
+                       "device_sort": 0, "device_percolate": 0,
+                       "device_percolate_fallbacks": 0, "device_errors": 0, "degraded": 0,
                        "host": NODE_SHARDS * n_host}, counted
     device_idx = [i for i, f in enumerate(families) if f == "device"]
     card_ref = {}
@@ -3344,13 +3399,14 @@ def writes_node_phase(device, node, port: int, *, texts, offsets, inv_docs, seed
 # ---------------------------------------------------------------------------
 
 
-def http_burst(port: int, requests: list, n_conn: int) -> tuple[list, float]:
-    """`requests` [(path, body)] sent by `n_conn` threads of this process,
-    each on its own keep-alive connection: (responses, wall s)."""
+def http_requests(port: int, requests: list, n_conn: int) -> tuple[list, np.ndarray, float]:
+    """`requests` [(method, path, JSON body or None, NDJSON text or None)]
+    sent by `n_conn` threads of this process, each on its own keep-alive
+    connection: (responses, per-request ms, wall s)."""
     import http.client
     from concurrent.futures import ThreadPoolExecutor
 
-    out = [None] * len(requests)
+    out, lat_ms = [None] * len(requests), np.zeros(len(requests))
     local = threading.local()
     conns = []
 
@@ -3359,8 +3415,10 @@ def http_burst(port: int, requests: list, n_conn: int) -> tuple[list, float]:
         if conn is None:
             conn = local.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
             conns.append(conn)
-        path, body = requests[i]
-        out[i] = http_json(conn, "POST", path, body)
+        method, path, body, ndjson = requests[i]
+        t0 = time.perf_counter()
+        out[i] = http_json(conn, method, path, body, ndjson=ndjson)
+        lat_ms[i] = (time.perf_counter() - t0) * 1e3
 
     t0 = time.perf_counter()
     try:
@@ -3369,7 +3427,15 @@ def http_burst(port: int, requests: list, n_conn: int) -> tuple[list, float]:
     finally:
         for conn in conns:
             conn.close()
-    return out, time.perf_counter() - t0
+    return out, lat_ms, time.perf_counter() - t0
+
+
+def http_burst(port: int, requests: list, n_conn: int) -> tuple[list, float]:
+    """`requests` [(path, body)] POSTed by `n_conn` threads of this process,
+    each on its own keep-alive connection: (responses, wall s)."""
+    out, _lat_ms, wall_s = http_requests(
+        port, [("POST", path, body, None) for path, body in requests], n_conn)
+    return out, wall_s
 
 
 def fault_hits(family: str, r: dict) -> list:
@@ -3909,6 +3975,408 @@ def sticky_child(path: str) -> None:
     print(json.dumps(res), flush=True)
     sys.stderr.flush()
     os._exit(0)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the percolator on the card
+# ---------------------------------------------------------------------------
+
+
+def percolator_queries(rng, texts, ranked, n: int) -> list[dict]:
+    """Phase 16's registry, a quarter of each kind: `match` of 1-3 terms,
+    `term`, `bool` of a `must` term and a `must_not` term (terms from phase
+    3's df ranks), and `match_phrase` of two adjacent tokens of a corpus
+    text, neither among the RANKS[0] most frequent terms (host-only: a
+    phrase does not lower flat)."""
+    pool = ranked[RANKS[0]: RANKS[1]]
+    common = {term_name(int(t)) for t in ranked[: RANKS[0]]}
+    t = lambda: term_name(int(rng.choice(pool)))  # noqa: E731
+    out = []
+    for i in range(n):
+        kind = i % 4
+        if kind == 0:
+            out.append({"match": {"body": " ".join(t() for _ in range(rng.integers(1, 4)))}})
+        elif kind == 1:
+            out.append({"term": {"body": t()}})
+        elif kind == 2:
+            out.append({"bool": {"must": [{"term": {"body": t()}}],
+                                 "must_not": [{"term": {"body": t()}}]}})
+        else:
+            pairs = []
+            while not pairs:
+                toks = texts[int(rng.integers(len(texts)))].split()
+                pairs = [j for j in range(len(toks) - 1)
+                         if toks[j] not in common and toks[j + 1] not in common]
+            at = pairs[int(rng.integers(len(pairs)))]
+            out.append({"match_phrase": {"body": f"{toks[at]} {toks[at + 1]}"}})
+    return out
+
+
+class PullCounts:
+    """Counts, until `close()`, the batched device→host pulls of the flat
+    path (`search/execute.py`'s `pull_async`). It pulls nothing itself."""
+
+    def __init__(self, texecute):
+        self.n = 0
+        self._module, self._orig = texecute, texecute.pull_async
+
+        def counted(tensors):
+            self.n += 1
+            return self._orig(tensors)
+
+        texecute.pull_async = counted
+
+    def close(self) -> None:
+        self._module.pull_async = self._orig
+
+
+def host_loop(registry, doc: dict, mapper_service, device) -> list[str]:
+    """The registry's pure host loop on the same document (its batch gate
+    raised for the call)."""
+    cls = type(registry)
+    gate = cls.DEVICE_BATCH_MIN
+    cls.DEVICE_BATCH_MIN = 1 << 62
+    try:
+        return registry.percolate(doc, mapper_service, device=device)
+    finally:
+        cls.DEVICE_BATCH_MIN = gate
+
+
+def percolate_phase(device, node, port: int, *, texts, ranked, seed: int,
+                    n_queries: int = PERC_QUERIES, n_docs: int = PERC_DOCS,
+                    node_queries: int = PERC_NODE_QUERIES,
+                    n_requests: int = PERC_REQUESTS) -> dict:
+    """Phase 16: the percolator on the card. (a) The library leg: a
+    registry of `n_queries` over phase 10's vocabulary percolates `n_docs` of
+    phase 10's texts on the card and on its host loop. (b) The node leg, on
+    phase 10's node: an `alerts` index (1 shard, 0 replicas) with
+    `node_queries` of them registered over HTTP, `_percolate`,
+    `_mpercolate`, existing-document and `_percolate/count` traffic, a
+    DELETE of 100 queries, and the `compile:percolate` domain armed and
+    recovered."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch import percolator as tperc
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.common.devicehealth import CLOSED, DEVICE_HEALTH, OPEN
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.mapper import MapperService
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER, packed_for
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score, sparse_score_plain
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+    from elasticsearch_tpu_torch.search import execute as texecute
+    from elasticsearch_tpu_torch.transport.faults import DEVICE_FAULTS
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    counted0 = dict(SERVING_COUNTERS)
+    rng = np.random.default_rng(seed)
+    bodies = percolator_queries(rng, texts, ranked, n_queries)
+    docs = [{"body": texts[int(i)]} for i in rng.choice(len(texts), n_docs, replace=False)]
+
+    # -- (a) the library leg --------------------------------------------------
+    registry = tperc.PercolatorRegistry()
+    for i, q in enumerate(bodies):
+        registry.register(f"p{i}", {"query": q})
+    svc = MapperService(Settings.from_flat({}))
+    svc.put_mapping("doc", {"properties": {"body": {"type": "string"}}})
+    host_loop(registry, docs[0], svc, device)  # warm the host scorer's paths
+    registry.percolate(docs[0], svc, device=device)  # and the card's
+    recorder = LaunchRecorder(scoring, sparse_score)
+    pulls = PullCounts(texecute)
+    before = dict(SERVING_COUNTERS)
+    packs_before = PACK_LEDGER.stats("_unattributed").get("packs", 0)
+    card, card_s, launches, pulled = [], [], [], []
+    try:
+        for doc in docs:
+            snap, n_pulls = cudaenv.LAUNCHES.snapshot(), pulls.n
+            t0 = time.perf_counter()
+            card.append(registry.percolate(doc, svc, device=device))
+            card_s.append(time.perf_counter() - t0)
+            after = cudaenv.LAUNCHES.snapshot()
+            launches.append({k: after[k] - snap.get(k, 0) for k in after
+                             if after[k] != snap.get(k, 0)})
+            pulled.append(pulls.n - n_pulls)
+    finally:
+        recorder.close()
+        pulls.close()
+    host, host_s = [], []
+    for doc in docs:
+        t0 = time.perf_counter()
+        host.append(host_loop(registry, doc, svc, device))
+        host_s.append(time.perf_counter() - t0)
+    counted = {k: SERVING_COUNTERS[k] - before[k] for k in SERVING_COUNTERS
+               if SERVING_COUNTERS[k] != before[k]}
+    packs = PACK_LEDGER.stats("_unattributed").get("packs", 0) - packs_before
+    for d, (got, want) in enumerate(zip(card, host)):
+        assert got == want, f"document {d}: the card's matches != the host loop's"
+    assert counted.get("device_percolate", 0) == n_docs, counted
+    assert not counted.get("device_percolate_fallbacks") and \
+        not counted.get("device_errors") and not counted.get("degraded"), counted
+    assert all(p == 1 for p in pulled), f"pulls a percolation {pulled}"
+    assert packs == n_docs, f"{packs} unattributed packs for {n_docs} percolations"
+    if on_card:
+        for d, n in enumerate(launches):
+            assert n.get("sparse_score.smem", 0) > 0, \
+                f"document {d}: sparse_score.smem did not launch ({n})"
+    shapes = sorted(recorder.shapes)
+    assert all(key[2] == 1 for key in shapes), f"a launch not at k = 1: {shapes}"
+    max_err = check_shapes(recorder.shapes)
+    # each launched shape timed as phase 8 times the main path's: CUDA events
+    # around host launches, and on the card a CUDA graph (device time)
+    timed = []
+    for key in shapes:
+        args, kwargs, n = recorder.shapes[key]
+        nbytes, ops, real = launch_bound(args, kwargs)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        timed.append(dict(
+            Qb=key[0][0], TB=key[0][1], tf=key[1], k=key[2], passes=key[3],
+            simple=key[4], launches=n, real_blocks=real, bound_ms=b_ms, bound_by=b_by,
+            ms=time_ms(lambda: sparse_score(*args, **kwargs), device, 20),
+            plain_ms=time_ms(lambda: sparse_score_plain(*args, **kwargs), device, 20),
+            graph_ms=graph_ms(lambda: sparse_score(*args, **kwargs), 20) if on_card else None,
+            plain_graph_ms=graph_ms(lambda: sparse_score_plain(*args, **kwargs), 20)
+            if on_card else None))
+    flat = len(tperc.split_flat(list(registry._queries.items()),
+                                tperc.one_doc_context(docs[0], svc, "doc", device))[0])
+
+    # one percolation's wall, step by step (docs[1])
+    items = list(registry._queries.items())
+    split: dict = {}
+    t0 = time.perf_counter()
+    ctx = tperc.one_doc_context(docs[1], svc, "doc", device)
+    split["parse_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    packed = packed_for(ctx.searcher.segments[0], device)
+    if on_card:
+        torch.cuda.synchronize()
+    split["pack_ms"] = (time.perf_counter() - t0) * 1e3
+    split["pack_bytes"] = PACK_LEDGER.stats("_unattributed")["recent"][-1]["bytes"]
+    split["pack_slots"] = int(packed.blk_docs.numel())
+    t0 = time.perf_counter()
+    plans, qids, rest = tperc.split_flat(items, ctx)
+    split["lower_ms"] = (time.perf_counter() - t0) * 1e3
+    if on_card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    t0 = time.perf_counter()
+    pending = texecute.dispatch_flat_batch(plans, ctx, 1)
+    split["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
+    if on_card:
+        ev[1].record()
+    t0 = time.perf_counter()
+    tds = pending.merge()
+    split["pull_ms"] = (time.perf_counter() - t0) * 1e3
+    if on_card:
+        split["events_ms"] = ev[0].elapsed_time(ev[1])
+    t0 = time.perf_counter()
+    rest_matches = tperc.host_matches(rest, ctx)
+    split["host_only_ms"] = (time.perf_counter() - t0) * 1e3
+    split["host_only_queries"] = len(rest)
+    assert sorted([q for q, td in zip(qids, tds) if td.total > 0] + rest_matches) == host[1]
+
+    library = dict(
+        queries=n_queries, flat=flat, docs=n_docs,
+        matches_mean=float(np.mean([len(m) for m in card])),
+        card_per_s=n_docs / sum(card_s), host_per_s=n_docs / sum(host_s),
+        card_ms=dict(p50=float(np.median(card_s) * 1e3), max=float(max(card_s) * 1e3)),
+        host_ms=dict(p50=float(np.median(host_s) * 1e3), max=float(max(host_s) * 1e3)),
+        launches_per_percolation=float(np.mean([sum(v for k, v in n.items() if "." in k)
+                                                for n in launches])) if on_card else None,
+        pulls_per_percolation=float(np.mean(pulled)), unattributed_packs=packs,
+        shapes=timed, kernel_max_abs_err=max_err, split=split, counted=counted,
+        wall_s=time.perf_counter() - t_phase)
+    log(f"[16] (a) {library['wall_s']:.1f} s: {n_queries} registered queries ({flat} "
+        f"lower flat) over phase 10's vocabulary, {n_docs} of phase 10's texts: the card's matches == the host "
+        f"loop's for every document ({library['matches_mean']:.1f} matches a document); "
+        f"{library['card_per_s']:.2f} percolations/s on the card (p50 "
+        f"{library['card_ms']['p50']:.1f} ms) against {library['host_per_s']:.2f} on the "
+        f"host loop (p50 {library['host_ms']['p50']:.1f} ms); launches a percolation "
+        f"{library['launches_per_percolation']}, pulls {library['pulls_per_percolation']}, "
+        f"one-document packs {packs} (under _unattributed)")
+    log(f"[16] (a) sparse_score == plain (bitwise) at all {len(timed)} shapes the "
+        f"percolations launched; max abs err {max_err}. Per shape: Qb TB k tf passes "
+        f"simple | launches | kernel ms | plain ms | bound ms"
+        + (" | in a CUDA graph: kernel ms, plain ms" if on_card else ""))
+    for t in timed:
+        log(f"[16]   {t['Qb']:5d} {t['TB']:3d} {t['k']} {t['tf']:>13s} {t['passes']} "
+            f"{int(t['simple'])} | {t['launches']:3d} | {t['ms']:.4f} | {t['plain_ms']:.4f} "
+            f"| {t['bound_ms']:.3g} ({t['bound_by']})"
+            + (f" | {t['graph_ms']:.4f}, {t['plain_graph_ms']:.4f}" if on_card else ""))
+    log(f"[16] (a) one percolation: parse {split['parse_ms']:.2f} ms, one-doc pack "
+        f"{split['pack_ms']:.2f} ms ({split['pack_bytes']} B, {split['pack_slots']} slots), "
+        f"lowering {split['lower_ms']:.1f} ms, dispatch (plan + launch) "
+        f"{split['dispatch_ms']:.1f} ms"
+        + (f" (CUDA events around it: {split['events_ms']:.3f} ms, the device waiting "
+           f"on the host)" if on_card else "")
+        + f", pull {split['pull_ms']:.2f} ms, host-only queries "
+        f"{split['host_only_ms']:.1f} ms ({len(rest)})")
+
+    # -- (b) the node leg -----------------------------------------------------
+    t_node = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    for index in ("alerts", "alert_docs"):
+        st, r = http_json(conn, "PUT", f"/{index}", {"settings": {
+            "number_of_shards": 1, "number_of_replicas": 0, "refresh_interval": -1}})
+        assert st == 200 and r["acknowledged"], r
+    conn.close()
+    reg_reqs = [("PUT", f"/alerts/.percolator/a{i}", {"query": q}, None)
+                for i, q in enumerate(bodies[:node_queries])]
+    t0 = time.perf_counter()
+    res, _lat, _w = http_requests(port, reg_reqs, PERC_CONNECTIONS)
+    register_s = time.perf_counter() - t0
+    assert all(st == 201 for st, _r in res), [r for st, r in res if st != 201][:2]
+    nreg = node.percolator.registry("alerts")
+    assert nreg.count() == node_queries
+    nsvc = node.indices.index_service("alerts").mapper_service
+
+    def references():
+        return [host_loop(nreg, doc, nsvc, node.device) for doc in docs]
+
+    def answer(matches):
+        return {"total": len(matches),
+                "_shards": {"total": 1, "successful": 1, "failed": 0},
+                "matches": [{"_index": "alerts", "_id": q} for q in matches]}
+
+    refs = references()
+    before = dict(SERVING_COUNTERS)
+    snap = cudaenv.LAUNCHES.snapshot()
+    perc = [("POST", "/alerts/doc/_percolate", {"doc": docs[i % n_docs]}, None)
+            for i in range(n_requests)]
+    res, lat_ms, wall_s = http_requests(port, perc, PERC_CONNECTIONS)
+    node_launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0) - snap.get("sparse_score", 0)
+    for i, (st, r) in enumerate(res):
+        assert st == 200 and r == answer(refs[i % n_docs]), (i, st, r)
+    served = SERVING_COUNTERS["device_percolate"] - before["device_percolate"]
+    assert served == n_requests, f"{served} of {n_requests} percolations on the card"
+    if on_card:  # a document that shares no term with a flat query launches nothing
+        assert node_launches > 0, "sparse_score never launched in phase 16's node leg"
+
+    # _mpercolate (one missing document a body), existing documents (GET
+    # first) and _percolate/count
+    res, _l, _w = http_requests(port, [("PUT", f"/alert_docs/doc/e{i}", docs[i % n_docs], None)
+                                       for i in range(PERC_EXISTING)], PERC_CONNECTIONS)
+    assert all(st == 201 for st, _r in res), res[:2]
+    missing = [{"percolate": {"index": "alert_docs", "id": "missing",
+                              "percolate_index": "alerts"}}, {}]
+    mbodies = []
+    for b in range(PERC_MULTI):
+        lines = []
+        for j in range(PERC_MULTI_ITEMS - 1):
+            lines += [{"percolate": {"index": "alerts", "type": "doc"}},
+                      {"doc": docs[(b * PERC_MULTI_ITEMS + j) % n_docs]}]
+        lines += missing
+        mbodies.append("\n".join(json.dumps(x) for x in lines) + "\n")
+    gets, _l, _w = http_requests(port, [("GET", f"/alert_docs/doc/e{i}", None, None)
+                                        for i in range(PERC_EXISTING)], PERC_CONNECTIONS)
+    for i, (st, r) in enumerate(gets):
+        assert st == 200 and r["found"] and r["_source"] == docs[i % n_docs], (i, st, r)
+    mixed = [("POST", "/_mpercolate", None, body) for body in mbodies] + \
+        [("GET", f"/alert_docs/doc/e{i}/_percolate?percolate_index=alerts", None, None)
+         for i in range(PERC_EXISTING)] + \
+        [("POST", "/alerts/doc/_percolate/count", {"doc": docs[i % n_docs]}, None)
+         for i in range(PERC_EXISTING)]
+    res, _l, mixed_s = http_requests(port, mixed, PERC_CONNECTIONS)
+    for b, (st, r) in enumerate(res[:PERC_MULTI]):
+        assert st == 200 and len(r["responses"]) == PERC_MULTI_ITEMS, (b, st)
+        for j, item in enumerate(r["responses"][:-1]):
+            assert item == answer(refs[(b * PERC_MULTI_ITEMS + j) % n_docs]), (b, j, item)
+        assert r["responses"][-1]["status"] == 404 and \
+            r["responses"][-1]["error"].startswith("DocumentMissingException["), r
+    for i, (st, r) in enumerate(res[PERC_MULTI: PERC_MULTI + PERC_EXISTING]):
+        assert st == 200 and r == answer(refs[i % n_docs]), (i, st, r)
+    for i, (st, r) in enumerate(res[PERC_MULTI + PERC_EXISTING:]):
+        assert st == 200 and r == {"total": len(refs[i % n_docs]),
+                                   "_shards": answer([])["_shards"]}, (i, st, r)
+
+    # DELETE 100 queries, the matched ones first: no later answer names them
+    matched = sorted({q for m in refs for q in m}, key=lambda q: int(q[1:]))
+    rest_ids = [f"a{i}" for i in range(node_queries) if f"a{i}" not in set(matched)]
+    gone = (matched + rest_ids)[:PERC_DELETES]
+    res, _l, _w = http_requests(port, [("DELETE", f"/alerts/.percolator/{q}", None, None)
+                                       for q in gone], PERC_CONNECTIONS)
+    assert all(st == 200 and r["found"] for st, r in res), res[:2]
+    assert nreg.count() == node_queries - len(gone)
+    refs = references()
+    assert not set(gone) & {q for m in refs for q in m}
+    res, _l, _w = http_requests(port, perc[:n_docs], PERC_CONNECTIONS)
+    for i, (st, r) in enumerate(res):
+        assert st == 200 and r == answer(refs[i]), (i, st, r)
+        assert not set(gone) & {m["_id"] for m in r["matches"]}
+
+    # compile:percolate armed: the host loop answers; disarmed, the card again
+    before = dict(SERVING_COUNTERS)
+    snap = cudaenv.LAUNCHES.snapshot()
+    DEVICE_FAULTS.arm(error="launch", domain=tperc.PERCOLATE_DOMAIN, times=1 << 30)
+    try:
+        res, _l, armed_s = http_requests(port, perc[:PERC_CONNECTIONS], PERC_CONNECTIONS)
+        armed_launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0) - \
+            snap.get("sparse_score", 0)
+        for i, (st, r) in enumerate(res):
+            assert st == 200 and r == answer(refs[i % n_docs]), (i, st, r)
+        assert DEVICE_HEALTH.state(tperc.PERCOLATE_DOMAIN) == OPEN
+        d = {k: SERVING_COUNTERS[k] - before[k] for k in SERVING_COUNTERS}
+        assert d["device_percolate"] == 0 and \
+            d["device_percolate_fallbacks"] == PERC_CONNECTIONS, d
+        assert armed_launches == 0, f"{armed_launches} launches while armed"
+    finally:
+        DEVICE_FAULTS.disarm()
+    t_disarm = time.perf_counter()
+    probes = 0
+    while DEVICE_HEALTH.state(tperc.PERCOLATE_DOMAIN) != CLOSED:
+        assert time.perf_counter() - t_disarm < RECOVER_S, DEVICE_HEALTH.stats()
+        (st, r), = http_requests(port, perc[:1], 1)[0]
+        assert st == 200 and r == answer(refs[0]), r
+        probes += 1
+        time.sleep(0.01)
+    recover_s = time.perf_counter() - t_disarm
+    # the card again: documents one at a time until one launches (a document
+    # sharing no term with a flat query is a batch that launches nothing)
+    served = SERVING_COUNTERS["device_percolate"]
+    snap = cudaenv.LAUNCHES.snapshot()
+    for i in range(n_docs):
+        (st, r), = http_requests(port, perc[i: i + 1], 1)[0]
+        assert st == 200 and r == answer(refs[i]), (i, st, r)
+        assert SERVING_COUNTERS["device_percolate"] == served + i + 1
+        after_launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0) - \
+            snap.get("sparse_score", 0)
+        if after_launches or not on_card:
+            break
+    if on_card:
+        assert after_launches > 0, "the card did not serve after the recovery"
+    assert not PACK_LEDGER.stats("alerts"), "a percolation's pack attributed to `alerts`"
+    out_node = dict(
+        queries=node_queries, register_s=register_s, requests=n_requests,
+        connections=PERC_CONNECTIONS, wall_s=wall_s, requests_per_s=n_requests / wall_s,
+        latency_ms=dict(p50=float(np.percentile(lat_ms, 50)),
+                        p99=float(np.percentile(lat_ms, 99)), max=float(lat_ms.max())),
+        launches=node_launches, mixed_requests=len(mixed), mixed_s=mixed_s,
+        deleted=len(gone), armed=dict(requests=PERC_CONNECTIONS, wall_s=armed_s,
+                                      launches=armed_launches, recover_s=recover_s,
+                                      probes=probes, after_launches=after_launches),
+        leg_s=time.perf_counter() - t_node)
+    log(f"[16] (b) {out_node['leg_s']:.1f} s on phase 10's node, `alerts` (1 shard, 0 "
+        f"replicas): {node_queries} "
+        f"queries registered over HTTP in {register_s:.1f} s; {n_requests} _percolate "
+        f"requests from {PERC_CONNECTIONS} connections: {out_node['requests_per_s']:.1f} "
+        f"requests/s, p50 {out_node['latency_ms']['p50']:.1f} ms p99 "
+        f"{out_node['latency_ms']['p99']:.1f} ms, sparse_score {node_launches} launches; "
+        f"every answer == the node's host loop")
+    log(f"[16] (b) {PERC_MULTI} _mpercolate bodies of {PERC_MULTI_ITEMS} (one missing "
+        f"document each: 404 in place), {PERC_EXISTING} existing documents (GET first) "
+        f"and {PERC_EXISTING} _percolate/count in {mixed_s:.2f} s: == the host loop; "
+        f"DELETE {len(gone)} queries: no later answer names them")
+    log(f"[16] (b) compile:percolate armed: {PERC_CONNECTIONS} answers 200 from the host "
+        f"loop in {armed_s:.2f} s, 0 launches, fallbacks +{PERC_CONNECTIONS}; disarmed, "
+        f"closed in {recover_s:.3f} s ({probes} probes), then the card ({after_launches} "
+        f"launches)")
+    out = dict(library=library, node=out_node, wall_s=time.perf_counter() - t_phase,
+               counted={k: v - counted0[k] for k, v in SERVING_COUNTERS.items()})
+    log(f"[16] {out['wall_s']:.1f} s in all")
+    return out
 
 
 def small_sources(n_docs: int, seed: int) -> list[dict]:

@@ -14,7 +14,15 @@ package's `actions.py`), in the reference's interaction patterns:
   reduces the shards' top-k (`sort_docs`), fetches the winners from the
   pinned contexts and frees the contexts that won nothing
   (`merge_responses` assembles the response);
-- broadcast: `refresh`, `flush` and `optimize` on every active shard.
+- broadcast: `refresh`, `flush` and `optimize` on every active shard;
+- single-shard reads: `get_doc` reads one active copy of the document's
+  shard (realtime from the engine's version map unless `realtime` is
+  false, after a refresh when asked; type `_all` walks the index's types);
+- the single-document delete goes to the primary (`_p_delete`). A
+  `.percolator` document written or deleted through the single-document
+  actions registers or unregisters its query on the node's percolator
+  (`_register_percolator`); one in a `_bulk` does not, as in the JAX
+  package.
 
 A shard whose device attempt fails with a CUDA error, or whose device
 fault domain is open, answers from the host path (search/service.py): its
@@ -27,7 +35,7 @@ records a `_shards.failures` entry; the rest of the page returns.
 
 Not in this slice: the SPMD mesh branch, DFS, the request cache, insights,
 tracing, profiles, admission control, failover across copies and hedging,
-replica writes, get/update/delete-by-query, aliases and templates."""
+replica writes, mget, update, delete-by-query, aliases and templates."""
 
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from .common.errors import (
     CircuitBreakingError,
     IllegalArgumentError,
     IndexAlreadyExistsError,
+    IndexMissingError,
     MasterNotDiscoveredError,
     RejectedExecutionError,
     SearchEngineError,
@@ -68,6 +77,8 @@ A_CREATE_INDEX = "indices:admin/create"
 A_MAPPING_UPDATED = "internal:cluster/mapping_updated"
 A_INDEX_PRIMARY = "indices:data/write/index[p]"
 A_BULK_SHARD = "indices:data/write/bulk[s]"
+A_DELETE_PRIMARY = "indices:data/write/delete[p]"
+A_GET = "indices:data/read/get[s]"
 A_QUERY_PHASE = "indices:data/read/search[phase/query]"
 A_FETCH_PHASE = "indices:data/read/search[phase/fetch]"
 A_FREE_CONTEXT = "indices:data/read/search[free-context]"
@@ -104,6 +115,8 @@ class ActionModule:
         # data-path actions, each on its named pool
         t.register_handler(A_INDEX_PRIMARY, self._p_index, executor="index")
         t.register_handler(A_BULK_SHARD, self._p_bulk_shard, executor="bulk")
+        t.register_handler(A_DELETE_PRIMARY, self._p_delete, executor="index")
+        t.register_handler(A_GET, self._s_get, executor="get")
         t.register_handler(A_QUERY_PHASE, self._s_query_phase, executor="search")
         t.register_handler(A_FETCH_PHASE, self._s_fetch_phase, executor="search")
         t.register_handler(A_FREE_CONTEXT, self._s_free_context, executor="search")
@@ -212,6 +225,12 @@ class ActionModule:
         req = {"index": index, "type": type_name, "id": doc_id, "source": source,
                "routing": routing, "version": version, "version_type": version_type,
                "op_type": op_type, "refresh": refresh}
+        return self._route_to_primary(index, doc_id, routing, A_INDEX_PRIMARY, req)
+
+    def _route_to_primary(self, index: str, doc_id: str, routing, action: str,
+                          req: dict) -> dict:
+        """Send a single-document write to its shard's primary, waiting up to
+        10 s for the primary to be active."""
         state = self.cluster_service.state
         state.blocks.check("write")
         deadline = time.monotonic() + 10.0
@@ -220,15 +239,28 @@ class ActionModule:
             node = self._primary_node(state, index, sid)
             if node is not None:
                 req["shard"] = sid
-                return self.transport.submit_request(node, A_INDEX_PRIMARY, req)
+                return self.transport.submit_request(node, action, req)
             if time.monotonic() > deadline:
                 raise UnavailableShardsError(
                     f"primary not active for [{index}] doc [{doc_id}]")
             time.sleep(0.05)  # wait for the next cluster state
             state = self.cluster_service.state
 
+    def _register_percolator(self, index: str, request: dict, delete: bool = False):
+        """A `.percolator` document's query joins (or leaves) the index's
+        percolator registry, before the engine write, as in the JAX
+        package."""
+        if request.get("type") != ".percolator":
+            return
+        if delete:
+            self.node.percolator.unregister_query(index, request["id"])
+        else:
+            self.node.percolator.register_query(index, request["id"],
+                                                request.get("source") or {})
+
     def _p_index(self, request, channel):
         index, shard_id = request["index"], request["shard"]
+        self._register_percolator(index, request)
         shard = self.indices.index_service(index).shard(shard_id)
         mapper = shard.engine.mapper_service.mapper_for(request["type"])
         known_before = set(mapper.fields)
@@ -251,6 +283,28 @@ class ActionModule:
         shard.engine.maybe_flush()
         return {"_index": index, "_type": request["type"], "_id": request["id"],
                 "_version": version, "created": created}
+
+    def delete_doc(self, index: str, type_name: str, doc_id: str, routing=None,
+                   version=None, version_type="internal", refresh=False) -> dict:
+        resolved = self.cluster_service.state.metadata.resolve_indices(index)
+        if len(resolved) != 1:  # a write names one index
+            raise IndexMissingError(index)
+        index = resolved[0]
+        req = {"index": index, "type": type_name, "id": doc_id, "routing": routing,
+               "version": version, "version_type": version_type, "refresh": refresh}
+        return self._route_to_primary(index, doc_id, routing, A_DELETE_PRIMARY, req)
+
+    def _p_delete(self, request, channel):
+        index, shard_id = request["index"], request["shard"]
+        self._register_percolator(index, request, delete=True)
+        shard = self.indices.index_service(index).shard(shard_id)
+        version, found = shard.engine.delete(
+            request["type"], request["id"], version=request.get("version"),
+            version_type=request.get("version_type", "internal"))
+        if request.get("refresh"):
+            shard.engine.refresh()
+        return {"_index": index, "_type": request["type"], "_id": request["id"],
+                "_version": version, "found": found}
 
     def bulk(self, operations: list[dict], refresh=False) -> dict:
         """Group the ops per (index, shard) and send every group to its
@@ -534,6 +588,46 @@ class ActionModule:
         self._take_pinned(request.get("ctx"), request["index"], request["shard"])
         return {}
 
+    # ================= single-shard reads =================
+    def get_doc(self, index: str, type_name: str, doc_id: str, routing=None,
+                realtime=True, refresh=False) -> dict:
+        state = self.cluster_service.state
+        state.blocks.check("read")
+        index = state.metadata.resolve_indices(index)[0]
+        copy = self.routing.get_shard_copy(state, index, doc_id, routing)
+        return self.transport.submit_request(state.nodes.get(copy.node_id), A_GET, {
+            "index": index, "shard": copy.shard_id, "type": type_name, "id": doc_id,
+            "realtime": realtime, "refresh": refresh}, timeout=10.0)
+
+    def _s_get(self, request, channel):
+        shard = self.indices.index_service(request["index"]).shard(request["shard"])
+        if request.get("refresh"):
+            shard.engine.refresh()
+        type_name = request["type"] or "_all"
+        if type_name == "_all":
+            # the first type that holds the id
+            r = None
+            for t in shard.engine.mapper_service.types():
+                r = shard.engine.get(t, request["id"],
+                                     realtime=request.get("realtime", True))
+                if r.found:
+                    type_name = t
+                    break
+            if r is None or not r.found:
+                return {"_index": request["index"], "_type": request["type"],
+                        "_id": request["id"], "found": False}
+        else:
+            r = shard.engine.get(type_name, request["id"],
+                                 realtime=request.get("realtime", True))
+        out = {"_index": request["index"], "_type": type_name,
+               "_id": request["id"], "found": r.found}
+        if r.found:
+            out["_version"] = r.version
+            out["_source"] = r.source
+            if r.routing is not None:
+                out["_routing"] = str(r.routing)
+        return out
+
     # ================= broadcast =================
     def broadcast(self, index_expr, op: str) -> dict:
         """refresh, flush or optimize on every active shard copy."""
@@ -573,6 +667,50 @@ class ActionModule:
         else:
             raise IllegalArgumentError(f"broadcast op [{op}] is not ported yet")
         return {"ok": True}
+
+
+def filter_source(src: dict, includes, excludes) -> dict:
+    """A GET's `_source` filtering with wildcard paths (the JAX package's
+    `actions.filter_source`): an include naming an object keeps its whole
+    subtree; an include naming a deeper path descends."""
+    import fnmatch
+
+    def norm(spec):
+        if spec is None:
+            return []
+        if isinstance(spec, str):
+            return [s.strip() for s in spec.split(",") if s.strip()]
+        return [str(s) for s in spec]
+
+    includes, excludes = norm(includes), norm(excludes)
+
+    def is_ancestor(path, pattern):
+        """`path` is a strict ancestor of a path the pattern could match."""
+        pa, pp = path.split("."), pattern.split(".")
+        if len(pa) >= len(pp):
+            return False
+        return all(fnmatch.fnmatch(a, b) for a, b in zip(pa, pp))
+
+    def walk(obj, prefix, included):
+        out = {}
+        for k, v in obj.items():
+            path = f"{prefix}{k}"
+            if excludes and any(fnmatch.fnmatch(path, p) for p in excludes):
+                continue
+            hit = included or not includes or any(fnmatch.fnmatch(path, p)
+                                                 for p in includes)
+            if isinstance(v, dict):
+                if hit:
+                    out[k] = walk(v, path + ".", included=True)
+                elif any(is_ancestor(path, p) for p in includes):
+                    sub = walk(v, path + ".", included=False)
+                    if sub:
+                        out[k] = sub
+            elif hit:
+                out[k] = v
+        return out
+
+    return walk(src, "", included=False)
 
 
 def _encode_partials(partials):

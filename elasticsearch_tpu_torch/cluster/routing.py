@@ -36,6 +36,14 @@ class OperationRouting:
         h = djb2_hash(str(routing) if routing is not None else str(doc_id))
         return abs(h) % meta.number_of_shards
 
+    def get_shard_copy(self, state: ClusterState, index: str, doc_id: str,
+                       routing: str | None = None) -> ShardRouting:
+        """One active copy of the document's shard group, for a single-shard
+        read."""
+        group = state.routing_table.index(index).shard(
+            self.shard_id(state, index, doc_id, routing))
+        return self._pick(group)
+
     def search_shards(self, state: ClusterState, indices: list[str],
                       routing: str | None = None) -> list[ShardRouting]:
         """One active copy of every relevant shard group; `routing` (a comma

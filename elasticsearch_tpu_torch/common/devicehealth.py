@@ -7,7 +7,8 @@ serving stack's device touchpoints:
 
 - ``pack:<index>``    — segment packing (ops/device_index pack/compact/remask)
 - ``compile:<family>``— a family's launch (sparse/dense/filtered/
-  function_score/sorted/aggs)
+  function_score/sorted/aggs/percolate; a percolation's whole batch, its
+  one-document pack and pull included, is ``compile:percolate``)
 - ``mesh:<index>``    — the mesh executor for one index (a later slice)
 - ``pull:<index>``    — the batch's one device→host wait
 

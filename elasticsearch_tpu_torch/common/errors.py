@@ -20,6 +20,16 @@ class SearchEngineError(Exception):
         name = type(self).__name__
         return name[:-len("Error")] + "Exception" if name.endswith("Error") else name
 
+    def es1_string(self) -> str:
+        """The ES 1.x one-string rendering, `Type[message]` with nested
+        causes: the shape of a per-item error (`_mpercolate`)."""
+        out = f"{self.wire_name()}[{self.message}]"
+        if self.cause is not None:
+            inner = (self.cause.es1_string() if isinstance(self.cause, SearchEngineError)
+                     else f"{type(self.cause).__name__}[{self.cause}]")
+            out += f"; nested: {inner}"
+        return out
+
     def to_dict(self) -> dict:
         d = {"type": self.wire_name(), "reason": self.message}
         if self.cause is not None:
@@ -46,6 +56,10 @@ class QueryParsingError(ParsingError):
 
 class InvalidIndexNameError(IllegalArgumentError):
     pass
+
+
+class DocumentMissingError(SearchEngineError):
+    status = 404
 
 
 class IndexMissingError(SearchEngineError):
@@ -132,6 +146,10 @@ class ScriptError(SearchEngineError):
     """A script failed to compile or to run (a REST 400)."""
 
     status = 400
+
+
+class PercolateError(SearchEngineError):
+    pass
 
 
 class NotPortedError(IllegalArgumentError):

@@ -450,6 +450,9 @@ class MapperService:
             self.mappers[type_name] = m
         return m
 
+    def types(self) -> list[str]:
+        return list(self.mappers)
+
     def field_type(self, field: str) -> FieldType | None:
         for mapper in self.mappers.values():
             ft = mapper.field_type(field)

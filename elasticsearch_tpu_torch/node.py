@@ -24,8 +24,13 @@ breaker; its masks leave with the segments an engine view drops), and ONE
 IndexWarmerService packs every new view's segments for the node's device
 on the `warmer` and `merge` pools, as in the JAX node.
 
-`Client` is trimmed to `create_index`, `index`, `bulk`, `refresh`, `flush`,
-`optimize`, `search` and `cluster_health`."""
+`percolator`, the node's PercolatorService, keeps a query registry per
+index fed by the single-document writes of `.percolator` documents and
+percolates on the node's device.
+
+`Client` is trimmed to `create_index`, `index`, `get`, `delete`, `bulk`,
+`refresh`, `flush`, `optimize`, `search`, `percolate`, `count_percolate`,
+`mpercolate` and `cluster_health`."""
 
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from .gateway import LocalGateway
 from .indices_service import IndicesService
 from .ops import sparse_kernels
 from .ops.device_index import DeviceFilterCache
+from .percolator import PercolatorService
 from .search.batcher import DeviceBatcher
 from .threadpool import ThreadPool
 from .transport.local import DEFAULT_REGISTRY, LocalTransport
@@ -112,6 +118,7 @@ class Node:
                                       filter_cache=self.filter_cache,
                                       warmer=self.warmer)
         self.actions = ActionModule(self)
+        self.percolator = PercolatorService(self)
         # scheduled NRT refresh and merge-policy check (each index's
         # refresh_interval is honoured inside periodic_refresh)
         self.threadpool.schedule_with_fixed_delay(
@@ -201,6 +208,16 @@ class Client:
                                       version=version, version_type=version_type,
                                       op_type=op_type, refresh=refresh)
 
+    def get(self, index, doc_type, id, routing=None, realtime=True, refresh=False):
+        return self.actions.get_doc(index, doc_type, id, routing=routing,
+                                    realtime=realtime, refresh=refresh)
+
+    def delete(self, index, doc_type, id, routing=None, version=None,
+               version_type="internal", refresh=False):
+        return self.actions.delete_doc(index, doc_type, id, routing=routing,
+                                       version=version, version_type=version_type,
+                                       refresh=refresh)
+
     def bulk(self, operations, refresh=False):
         return self.actions.bulk(operations, refresh=refresh)
 
@@ -215,6 +232,15 @@ class Client:
 
     def search(self, index=None, body=None, routing=None):
         return self.actions.search(index or "_all", body, routing=routing)
+
+    def percolate(self, index, body):
+        return self.node.percolator.percolate(index, body)
+
+    def count_percolate(self, index, body):
+        return self.node.percolator.count_percolate(index, body)
+
+    def mpercolate(self, requests):
+        return self.node.percolator.multi_percolate(requests)
 
     def cluster_health(self, index=None, wait_for_status=None, timeout=10.0):
         deadline = time.monotonic() + timeout

@@ -2,10 +2,15 @@
 (a trimmed copy of the JAX package's `rest/controller.py`).
 
 Routes: `GET /`, `PUT|POST /{index}`, `PUT|POST /{index}/{type}/{id}`,
-`POST /{index}/{type}`, `_bulk` NDJSON (at `/`, `/{index}` and
+`POST /{index}/{type}`, `GET|HEAD /{index}/{type}/{id}` (404 with
+`found: false` when missing), `DELETE /{index}/{type}/{id}` (404 when not
+found), `_bulk` NDJSON (at `/`, `/{index}` and
 `/{index}/{type}`), `_refresh`, `_flush` and `_optimize` (at `/` and
-`/{index}`), `GET /_cluster/health` and `_search` (at
-`/`, `/{index}` and `/{index}/{type}`, GET or POST). A route that is not
+`/{index}`), `GET /_cluster/health`, `_search` (at
+`/`, `/{index}` and `/{index}/{type}`, GET or POST), `_percolate` and
+`_percolate/count` (at `/{index}/{type}` and, for an existing document,
+`/{index}/{type}/{id}`) and `_mpercolate` NDJSON (at `/`, `/{index}` and
+`/{index}/{type}`). A route that is not
 ported answers 400 "No handler found", as the JAX controller answers an
 unknown route; a missing index answers 404. Handlers call the node Client:
 REST is a thin adapter, as in the JAX package."""
@@ -18,6 +23,7 @@ import re
 from dataclasses import dataclass, field as dc_field
 from typing import Callable
 
+from ..actions import filter_source
 from ..common.errors import IllegalArgumentError, SearchEngineError
 
 VERSION = "0.2.0"
@@ -194,6 +200,45 @@ def build_rest_controller(node) -> RestController:
     rc.register("PUT,POST", "/{index}/{type}/{id}", doc_index)
     rc.register("POST", "/{index}/{type}", doc_index)
 
+    def doc_get(req):
+        if req.param("fields") is not None:
+            raise IllegalArgumentError(
+                "GET parameter [fields] is not ported yet (a later slice of the "
+                "port: stored fields come with the document APIs)")
+        r = client.get(req.path_params["index"], req.path_params["type"],
+                       req.path_params["id"], routing=req.param("routing"),
+                       realtime=req.bool_param("realtime", True),
+                       refresh=req.bool_param("refresh"))
+        if not r["found"]:
+            return RestResponse(404, {"_index": r.get("_index"),
+                                      "_type": r.get("_type"),
+                                      "_id": r.get("_id"), "found": False})
+        out = {k: v for k, v in r.items()
+               if k in ("_index", "_type", "_id", "_version", "found")}
+        src_param = req.param("_source")
+        src = r.get("_source")
+        if src is not None and str(src_param).lower() != "false":
+            includes = req.param("_source_include")
+            if src_param not in (None, "true", True):
+                includes = src_param
+            if includes or req.param("_source_exclude"):
+                src = filter_source(src, includes, req.param("_source_exclude"))
+            out["_source"] = src
+        return RestResponse(200, out)
+
+    rc.register("GET,HEAD", "/{index}/{type}/{id}", doc_get)
+
+    def doc_delete(req):
+        r = client.delete(req.path_params["index"], req.path_params["type"],
+                          req.path_params["id"], routing=req.param("routing"),
+                          version=int(req.param("version")) if req.param("version")
+                          else None,
+                          version_type=req.param("version_type", "internal"),
+                          refresh=req.bool_param("refresh"))
+        return RestResponse(200 if r["found"] else 404, r)
+
+    rc.register("DELETE", "/{index}/{type}/{id}", doc_delete)
+
     def bulk(req):
         # one stream of parsed JSON objects from every accepted body shape
         # (an NDJSON string, a list of strings, a list of objects)
@@ -270,6 +315,38 @@ def build_rest_controller(node) -> RestController:
     rc.register("GET,POST", "/{index}/_search", search)
     rc.register("GET,POST", "/{index}/{type}/_search", search)
     rc.register("GET,POST", "/_search", search)
+
+    def percolate(req):
+        return node.percolator.percolate(
+            req.path_params["index"], _parse_body(req),
+            doc_type=req.path_params["type"],
+            doc_id=req.param("id"),  # the path's, else `?id=`
+            version=req.param("version"),
+            percolate_index=req.param("percolate_index"),
+            percolate_type=req.param("percolate_type"))
+
+    def count_percolate(req):
+        return node.percolator.count_percolate(
+            req.path_params["index"], _parse_body(req), doc_type=req.path_params["type"],
+            doc_id=req.path_params.get("id"))
+
+    rc.register("GET,POST", "/{index}/{type}/_percolate", percolate)
+    rc.register("GET,POST", "/{index}/{type}/{id}/_percolate", percolate)
+    rc.register("GET,POST", "/{index}/{type}/_percolate/count", count_percolate)
+    rc.register("GET,POST", "/{index}/{type}/{id}/_percolate/count", count_percolate)
+
+    def mpercolate(req):
+        raw = req.body if isinstance(req.body, str) else ""
+        lines = [ln for ln in raw.split("\n") if ln.strip()]
+        requests = [(json.loads(lines[i]), json.loads(lines[i + 1]))
+                    for i in range(0, len(lines) - 1, 2)]
+        return node.percolator.multi_percolate(
+            requests, default_index=req.path_params.get("index"),
+            default_type=req.path_params.get("type"))
+
+    rc.register("GET,POST", "/_mpercolate", mpercolate)
+    rc.register("GET,POST", "/{index}/_mpercolate", mpercolate)
+    rc.register("GET,POST", "/{index}/{type}/_mpercolate", mpercolate)
 
     rc.register("PUT,POST", "/{index}",
                 lambda r: client.create_index(r.path_params["index"], _parse_body(r)))

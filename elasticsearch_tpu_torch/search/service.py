@@ -204,6 +204,8 @@ SERVING_COUNTERS = {
     "device_filtered": 0,  # filtered, post_filter or min_score on the dense family
     "device_aggs": 0,  # aggregations reduced in the dense launch
     "device_sort": 0,  # field-sorted launch (with or without aggregations)
+    "device_percolate": 0,  # batched percolation launches (percolator.py)
+    "device_percolate_fallbacks": 0,  # a percolation's batch served by the host loop
     "device_errors": 0,  # a device attempt raised (degraded, or a host bug raised)
     "degraded": 0,  # served on the host path on a device failure or an open domain
     "host": 0,  # served by the host scorer
@@ -244,13 +246,15 @@ def _domains_for(ctx: ShardContext, families: tuple) -> tuple:
         + (f"pull:{idx}",)
 
 
-def _blocked_domain(ctx: ShardContext, families: tuple) -> str | None:
+def _blocked_domain(ctx: ShardContext, families: tuple,
+                    domains: tuple | None = None) -> str | None:
     """The open fault domain that sends this request to the host path
     before any launch, or None (all closed, or this caller was admitted as
-    the probe). One plain attribute read when every domain is closed."""
+    the probe). One plain attribute read when every domain is closed.
+    `domains` replaces the shard's domains of `families`."""
     if not DEVICE_HEALTH.any_open:
         return None
-    return DEVICE_HEALTH.blocked(_domains_for(ctx, families))
+    return DEVICE_HEALTH.blocked(domains or _domains_for(ctx, families))
 
 
 def _device_degraded() -> None:
@@ -258,11 +262,12 @@ def _device_degraded() -> None:
     _count("degraded")
 
 
-def _note_device_ok(ctx: ShardContext, families: tuple) -> None:
+def _note_device_ok(ctx: ShardContext, families: tuple,
+                    domains: tuple | None = None) -> None:
     """A clean device outcome: closes a half-open domain this request just
     probed (one attribute read when no device failure was ever recorded)."""
     if DEVICE_HEALTH.dirty:
-        DEVICE_HEALTH.note_success(_domains_for(ctx, families))
+        DEVICE_HEALTH.note_success(domains or _domains_for(ctx, families))
 
 
 def _execute_flat_single(ctx: ShardContext, plan, k: int,
@@ -350,13 +355,16 @@ def _device_branch(ctx: ShardContext, req: ParsedSearchRequest, k: int,
     return _guarded(ctx, families, counter, run_plan)
 
 
-def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt):
+def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt,
+             domains: tuple | None = None):
     """One device branch inside the fault domains: (result, degraded).
     Skipped, degraded, when one of its domains is open; degraded on a
     failure of the card or a fielddata breaker trip (`_device_failed`); on
     success the serving counter moves and a probed domain closes. A request
-    or parent trip, a SearchEngineError, a defect and a host bug raise."""
-    if _blocked_domain(ctx, families) is not None:
+    or parent trip, a SearchEngineError, a defect and a host bug raise.
+    `domains` replaces the shard's domains of `families` (`_domains_for`)
+    for a branch that owns a domain of its own (the percolator's)."""
+    if _blocked_domain(ctx, families, domains) is not None:
         _device_degraded()  # an open fault domain: no launch
         return None, True
     try:
@@ -376,7 +384,7 @@ def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt):
         return None, True
     if res is None:
         return None, False  # a refusal before any launch: the host path serves it
-    _note_device_ok(ctx, families)
+    _note_device_ok(ctx, families, domains)
     _count(counter)
     return res, False
 

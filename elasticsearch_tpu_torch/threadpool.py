@@ -4,7 +4,7 @@ trimmed copy of the JAX package's `threadpool.py`).
 A pool whose queue is full rejects the task with RejectedExecutionError
 (HTTP 429) instead of queueing it forever. The pools are the ones the
 one-node slice runs work on: `generic` (transport dispatch, recoveries),
-`index`, `bulk`, `search`, `management`, `refresh`, `merge` (merges and
+`index`, `bulk`, `get`, `search`, `management`, `refresh`, `merge` (merges and
 compaction packs) and `warmer` (the other packs off the query path). The JAX
 package's one-shot timer wheel serves hedged and timed shard attempts, which
 wait for the slice with replicas.
@@ -24,14 +24,15 @@ from .common.logging import get_logger
 
 logger = get_logger("threadpool")
 
-_DEFAULT_SIZES = {"generic": 8, "index": 4, "bulk": 4, "search": 8,
+_DEFAULT_SIZES = {"generic": 8, "index": 4, "bulk": 4, "get": 4, "search": 8,
                   "management": 2, "refresh": 2, "merge": 2, "warmer": 2}
 
 # queue bounds (`threadpool.<name>.queue_size`; -1 = unbounded): the dispatch
 # trampoline and the maintenance pools stay unbounded, as in the JAX package
 # (a rejected warm pack would only move its pack onto the query path)
 _DEFAULT_QUEUES = {"generic": -1, "management": -1, "merge": -1, "warmer": -1,
-                   "index": 200, "bulk": 200, "search": 1000, "refresh": 1000}
+                   "index": 200, "bulk": 200, "get": 1000, "search": 1000,
+                   "refresh": 1000}
 
 
 class _ScheduledTask:

@@ -45,6 +45,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "mapper.core", "__main__", "script", "search.functions",
                  "ops.device_index", "ops.scoring", "common.sketches",
                  "search.sorting", "search.aggregations", "warmer",
-                 "common.devicehealth", "common.retry", "transport.faults"):
+                 "common.devicehealth", "common.retry", "transport.faults",
+                 "percolator"):
         assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []
