@@ -199,7 +199,14 @@ those paths against its plain torch version on the card. Phases:
      again: each 200, `_shards.degraded` 2, bitwise equal to the shards'
      host query phases and within 2 ulp of the pinned answers, every
      failure persistent; the child prints one JSON line and leaves with
-     `os._exit`. Phases 1-14 degrade nothing and count no device error.
+     `os._exit` (its node flushed its shards before the fault). Then a
+     second child (`--restart-child`, 60 s limit) starts a node on the card
+     over the same `path.data` and build directory: its start finds every
+     kernel built (no nvcc) and passes the start check, the gateway restores
+     the index and its shards recover from their stores, and the 32
+     searches answer 200, `degraded` 0, with `sparse_score` launched,
+     bitwise equal to the answers pinned before the fault. Phases 1-14
+     degrade nothing and count no device error.
  16. the percolator on the card. (a) The library leg: a registry of 10,000
      queries made from the seed over phase 10's vocabulary, a quarter each
      `match` of 1-3 terms, `term`, `bool` of a `must` and a `must_not` term
@@ -225,6 +232,32 @@ those paths against its plain torch version on the card. Phases:
      every answer 200 from the host loop, no launch, a fallback each; then
      disarmed, the domain closes by probe within 15 s and the card serves
      again. No pack is booked against `alerts`.
+ 17. restart and serving hygiene. (a) A node (`restart`, 2 shards, 0
+     replicas) over 10,000 of phase 10's texts: two `_bulk` rounds each with
+     a `_refresh` (the second overwrites 10 documents), a `_flush`, a
+     DELETE, a third `_bulk` and a single-document index bringing a new
+     field through dynamic mapping, both left in the translog, a
+     `_refresh`, then 64 of phase 10's `bool` searches whose hits are
+     recorded. The node closes and a new node starts in this process over
+     the same data: it reaches green, its mapping holds the dynamic field,
+     a GET of a translog-only document and the 64 searches answer bitwise
+     as before the close; the recovery's wall clock by step (the start with
+     its kernel check, the gateway's metadata, the shards' stores and
+     translogs, the first search with its inline packs, `PACK_LEDGER`'s
+     packs by kind). (b) Staging, printed by earlier phases: phase 3 the
+     scratch pools' allocations and reuses over its batches (a warmed
+     repeat batch allocates none), phase 10 the host→device copies per
+     `sparse_score` launch in its profiled window (one buffer a launch) and
+     the drainer's CPU seconds there. (c) Admission, on the restarted node:
+     after at least 10 observed shard phases `?timeout=1ms` answers 429
+     with `Retry-After` and the controller counts it; a body with no
+     timeout answers 200. (d) The watchdog: `DEVICE_PULL` stalls one pull
+     of the index for 2 s; a `batch_stall` event naming it reaches the
+     node's journal within the stall threshold plus two watchdog periods,
+     and the stalled search answers 200 with its recorded hits; phase 15's
+     windows left `device_degraded` and `device_recovered` events in phase
+     10's journal. The kernel is bitwise equal to its plain version at
+     every shape phase 17 launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -335,8 +368,14 @@ RECOVER_S = 15.0  # a disarmed domain closes within this
 # phase 15 (a)'s defect: dynamic shared memory past the card's 227 KB a block,
 # which the CUDA runtime refuses before the launch (a code no search degrades on)
 DEFECT_SHARED_BYTES = 1 << 20
-# phase 15 (b): the child's node and searches, and its time limit
+# phase 15 (b): the child's node and searches, and its time limit (the
+# restart child's too)
 STICKY_DOCS, STICKY_SHARDS, STICKY_SEARCHES, STICKY_TIMEOUT_S = 5000, 2, 32, 60
+# phase 17: the restarted index's texts (10,000, cut from 20,000 for the
+# run's time) and recorded searches, the pull's stall, and the restarted
+# node's watchdog period
+RESTART_DOCS, RESTART_SEARCHES, RESTART_STALL_S = 10_000, 64, 2.0
+RESTART_SETTINGS = {"watchdog.interval": "250ms"}
 ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_dense.py)
 # phase 16: the library leg's registry and documents (32, cut from 64 for
 # the run's time); the node leg's registered queries (1,000, cut from
@@ -980,6 +1019,11 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         f"(one query over the most frequent term, all {len(segs)} segments)")
     cudaenv.LAUNCHES.reset()
     gc_before = {g: dict(v) for g, v in gc_pauses.by_gen.items()}
+    # the pools of staging sets (ops/scoring.SparseScratchPool), one a
+    # segment's pack
+    pools = list({id(p): p for p in (packed_for(seg, device).sparse_scratch
+                                     for seg in segs)}.values())
+    scratch_before = (sum(p.allocs for p in pools), sum(p.reuses for p in pools))
     lat, dispatch, gc_ms, overflows, main_results = [], [], [], [], None
     for bi, (_c, queries) in enumerate(batches[1:]):
         recorder.batch = [] if bi == 0 else None
@@ -1004,6 +1048,20 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         overflow_query_segments=overflow_pairs,
         query_segments=n_batches * batch * len(segs), launches=main_launches)
     m = report["main"]
+    # the staging sets over the timed batches, then a warmed repeat batch,
+    # which must allocate none
+    timed = (sum(p.allocs for p in pools), sum(p.reuses for p in pools))
+    run_batch(bm25, batches[1][1])
+    repeat_allocs = sum(p.allocs for p in pools) - timed[0]
+    m["scratch"] = dict(allocs=timed[0] - scratch_before[0],
+                        reuses=timed[1] - scratch_before[1],
+                        repeat_allocs=repeat_allocs)
+    assert repeat_allocs == 0, f"a warmed repeat batch allocated {repeat_allocs} sets"
+    log(f"[3] staging: {m['scratch']['allocs']} staging sets allocated and "
+        f"{m['scratch']['reuses']} reused over the {n_batches} timed batches "
+        f"(one buffer and one host->device copy a launch); a warmed repeat batch "
+        f"allocated "
+        f"{repeat_allocs}")
     log(f"[3] {n_batches} x {batch} queries: {m['qps']:.1f} QPS, batch p50 "
         f"{m['p50_ms']:.2f} ms p99 {m['p99_ms']:.2f} ms (dispatch half p50 "
         f"{np.median(dispatch):.2f} ms, garbage collection {sum(gc_ms):.1f} ms in "
@@ -1504,8 +1562,10 @@ def device_busy(prof, wall_ms: float) -> dict:
             rows.append((e.key[:90], us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(ms for _n, ms, _c in rows)
+    copies = {name: n for name, _ms, n in rows if name.startswith("Memcpy")}
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                idle_share=(1.0 - busy / wall_ms) if busy else None, top=rows[:12])
+                idle_share=(1.0 - busy / wall_ms) if busy else None, top=rows[:12],
+                copies=copies)
 
 
 THREAD_KINDS = (("estpu_torch[search_batcher]", "drainer"),
@@ -1977,22 +2037,36 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
 
             torch.cuda.synchronize()
             before = node.search_batcher.stats()["launches"]
+            launches0 = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _r, _l, pwall_s, perrors, _cpu = serve_http(
+                _r, _l, pwall_s, perrors, pcpu = serve_http(
                     port, bodies[:NODE_PROFILED], n_callers, sync_error=False)
             assert not perrors, perrors[:3]
             out["profiled"] = device_busy(prof, pwall_s * 1e3)
             out["profiled"]["batches"] = node.search_batcher.stats()["launches"] - before
             p = out["profiled"]
+            # 17 (b): the staging's host->device copies a sparse_score launch
+            # (eight copies a launch before the staging was pooled into one
+            # buffer) and the drainer's CPU in the window
+            p["sparse_launches"] = (cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+                                    - launches0)
+            p["htod_copies"] = sum(n for name, n in p["copies"].items() if "HtoD" in name)
+            p["htod_per_launch"] = p["htod_copies"] / max(p["sparse_launches"], 1)
+            p["host_cpu_s"] = pcpu
             if p["device_busy_ms"]:
                 log(f"[10] profiled window of {NODE_PROFILED} requests: wall "
                     f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} ms, "
                     f"idle share {p['idle_share']:.4f}, {p['batches']} batches")
                 for name, ms, n in p["top"]:
                     log(f"[10]   {ms:9.3f} ms {n:5d}x {name}")
+                log(f"[17] (b) staging in phase 10's profiled window: {p['htod_copies']} "
+                    f"host->device copies for {p['sparse_launches']} sparse_score launches, "
+                    f"{p['htod_per_launch']:.3f} a launch ({p['copies']}); drainer CPU "
+                    f"{pcpu.get('drainer', 0.0):.2f} s over the {pwall_s:.2f} s window")
+                assert p["sparse_launches"] > 0 and p["htod_per_launch"] < 2.0, p["copies"]
             else:
                 log("[10] profiled window: the profiler saw no device time "
-                    "(device idle share not measured)")
+                    "(device idle share and copies a launch not measured)")
         out["mixed"] = mixed_phase(
             device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
             searchers=searchers, seed=seed + 2, n_requests=mixed_requests,
@@ -2017,6 +2091,8 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             device, node, port, texts=texts, ranked=ranked, seed=seed + 6,
             n_queries=perc_queries, n_docs=perc_docs, node_queries=perc_node_queries,
             n_requests=perc_requests)
+        # -- 17. restart and serving hygiene --------------------------------
+        out["restart"] = restart_phase(device, node, texts=texts, bodies=bodies)
         return out
     finally:
         if recorder is not None:
@@ -3840,7 +3916,6 @@ def sticky_phase(device, texts, bool_bodies) -> dict:
     assert lines, (f"the sticky child printed no result (exit {proc.returncode}):\n"
                    + proc.stdout[-2000:] + proc.stderr[-4000:])
     res = json.loads(lines[-1])
-    shutil.rmtree(work, ignore_errors=True)
     assert res["built_at_start"] == cudaenv.kernel_sources(), res["built_at_start"]
     assert sorted(res["start_checks"]) == cudaenv.kernel_sources() and \
         all(n > 0 for n in res["start_checks"].values()), res["start_checks"]
@@ -3864,6 +3939,41 @@ def sticky_phase(device, texts, bool_bodies) -> dict:
         f"host query phases and within {ULPS} ulp of the pinned ones, at "
         f"{res['degraded_requests_per_s']:.1f} requests/s; failures {res['failures']}, "
         f"open {res['open']}")
+
+    # the restart: a second process over the same path.data
+    rinp = work / "restart.json"
+    rinp.write_text(json.dumps({"bodies": bool_bodies[:STICKY_SEARCHES],
+                                "pages": res.pop("pinned_pages"),
+                                "totals": res.pop("pinned_totals"),
+                                "device": str(device), "work": str(work)}))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--restart-child", str(rinp)], cwd=here,
+                              capture_output=True, text=True, timeout=STICKY_TIMEOUT_S)
+    finally:
+        restart_wall_s = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert proc.returncode == 0 and lines, (
+        f"the restart child failed (exit {proc.returncode}):\n"
+        + proc.stdout[-2000:] + proc.stderr[-4000:])
+    rs = json.loads(lines[-1])
+    assert rs["built_at_start"] == [], rs  # every kernel was built: no nvcc
+    assert sorted(rs["start_checks"]) == cudaenv.kernel_sources() and \
+        all(n > 0 for n in rs["start_checks"].values()), rs["start_checks"]
+    assert rs["status"] == [200] * STICKY_SEARCHES, rs["status"]
+    assert rs["degraded"] == 0 and rs["launches"] > 0, rs
+    assert rs["bitwise_pinned"] == STICKY_SEARCHES, rs
+    rs.update(wall_s=restart_wall_s)
+    res["restart"] = rs
+    log(f"[15] (b) restart in a second process ({restart_wall_s:.1f} s): node start "
+        f"{rs['start_s']:.2f} s (kernels current, start check {rs['start_checks']} in "
+        f"{rs['build_s']:.2f} s), shards recovered from their stores in "
+        f"{rs['recover_s']:.2f} s; {STICKY_SEARCHES} searches all 200 on the card "
+        f"(degraded 0, {rs['launches']} sparse_score launches, "
+        f"{rs['requests_per_s']:.1f} requests/s), bitwise equal to the answers pinned "
+        f"before the fault")
     return res
 
 
@@ -3914,9 +4024,11 @@ def sticky_child(path: str) -> None:
         assert st == 200 and not r["errors"], r
     st, r = http_json(conn, "POST", "/sticky/_refresh")
     assert st == 200, r
-
-    def page(r):
-        return [(h["_score"], (h["_shard"], h["_id"])) for h in r["hits"]["hits"]]
+    # the shards' segments and a commit on disk: this process leaves with
+    # os._exit, which would lose a translog's buffered tail, and the restart
+    # child recovers from these stores
+    st, r = http_json(conn, "POST", "/sticky/_flush")
+    assert st == 200, r
 
     cudaenv.LAUNCHES.reset()
     pinned = [http_json(conn, "POST", "/sticky/_search", b)[1] for b in bodies]
@@ -3971,10 +4083,68 @@ def sticky_child(path: str) -> None:
         status=status, degraded=degraded, bitwise_host=bitwise, within_bar_pinned=within,
         degraded_requests_per_s=len(bodies) / wall, failures=stats["failures"],
         open=sorted(d for d, c in stats["domains"].items() if c["state"] != "closed"),
-        counters={k: SERVING_COUNTERS[k] for k in ("degraded", "device_errors")})
+        counters={k: SERVING_COUNTERS[k] for k in ("degraded", "device_errors")},
+        pinned_pages=[page(p) for p in pinned],
+        pinned_totals=[p["hits"]["total"] for p in pinned])
     print(json.dumps(res), flush=True)
     sys.stderr.flush()
     os._exit(0)
+
+
+def page(r) -> list:
+    """A search response's hits as (score, (shard, id)) pairs."""
+    return [(h["_score"], (h["_shard"], h["_id"])) for h in r["hits"]["hits"]]
+
+
+def restart_child(path: str) -> None:
+    """Phase 15 (b)'s second child: a node on the card over the sticky
+    child's `path.data` and build directory; prints one JSON line."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    inp = json.loads(Path(path).read_text())
+    work = Path(inp["work"])
+    device = torch.device(inp["device"])
+    cudaenv.BUILD_DIR = work / "kernels"  # the sticky child built there
+    t0 = time.perf_counter()
+    node = Node(name="sticky", registry=LocalTransportRegistry(),
+                data_path=str(work / "data"), settings={"node.device": str(device)}).start()
+    try:
+        start_s = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", node.start_http(0).port, timeout=120)
+        while True:  # the shards recover from their stores
+            st, health = http_json(conn, "GET", "/_cluster/health/sticky")
+            if st == 200 and health["active_primary_shards"] == STICKY_SHARDS:
+                break
+            assert time.perf_counter() - t0 < STICKY_TIMEOUT_S / 2, health
+            time.sleep(0.02)
+        recover_s = time.perf_counter() - t0 - start_s
+        cudaenv.LAUNCHES.reset()
+        degraded0 = SERVING_COUNTERS["degraded"]
+        t1 = time.perf_counter()
+        answers = [http_json(conn, "POST", "/sticky/_search", b) for b in inp["bodies"]]
+        wall = time.perf_counter() - t1
+        conn.close()
+        bitwise = sum(
+            int(st == 200 and r["hits"]["total"] == total
+                and json.loads(json.dumps(page(r))) == pinned)
+            for (st, r), pinned, total in zip(answers, inp["pages"], inp["totals"]))
+        res = dict(built_at_start=sorted(node.kernel_builds), start_checks=node.kernel_checks,
+                   start_s=start_s, build_s=node.kernel_build_s, recover_s=recover_s,
+                   status=[st for st, _r in answers],
+                   degraded=sum(r["_shards"]["degraded"] for _st, r in answers)
+                   + SERVING_COUNTERS["degraded"] - degraded0,
+                   launches=cudaenv.LAUNCHES.snapshot().get("sparse_score", 0),
+                   bitwise_pinned=bitwise, requests_per_s=len(answers) / wall)
+    finally:
+        node.close()
+    print(json.dumps(res), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4379,6 +4549,211 @@ def percolate_phase(device, node, port: int, *, texts, ranked, seed: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: restart and serving hygiene
+# ---------------------------------------------------------------------------
+
+
+def http_headers(conn, method: str, path: str, body=None):
+    """One request on a keep-alive connection: (status, JSON, headers)."""
+    conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read()), dict(resp.getheaders())
+
+
+def restart_phase(device, node10, *, texts, bodies, n_docs: int = RESTART_DOCS,
+                  n_searches: int = RESTART_SEARCHES) -> dict:
+    """Phase 17 (a), (c) and (d) (its (b) is printed by phases 3 and 10): a
+    node closed after writes at every stage of durability restarts in this
+    process over its data, answers as before, rejects an unservable budget,
+    and journals a stalled pull. `node10` is phase 10's node, whose journal
+    holds phase 15's trips and recoveries."""
+    import http.client
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.transport.faults import DEVICE_PULL
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    journal = node10.events.stats()["by_type"]
+    if on_card:  # phase 15's windows tripped and closed domains on the card
+        assert journal["device_degraded"] >= 1 and journal["device_recovered"] >= 1, journal
+    n = min(n_docs, len(texts))
+    a, b = int(n * 0.4), int(n * 0.8)
+    idx = "restart"
+    data_path = Path(__file__).resolve().parent / "build" / f"chip_smoke_restart_{os.getpid()}"
+    shutil.rmtree(data_path, ignore_errors=True)
+    settings = {"node.device": str(device), **RESTART_SETTINGS}
+    searches = bodies[:n_searches]
+
+    def bulk(conn, lo, hi, offset=0):
+        for start in range(lo, hi, NODE_BULK):
+            lines = []
+            for i in range(start, min(start + NODE_BULK, hi)):
+                lines.append(json.dumps({"index": {"_index": idx, "_type": "doc",
+                                                   "_id": str(i)}}))
+                lines.append(json.dumps({"body": texts[i + offset]}))
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+
+    def answers(conn):
+        out = []
+        for body in searches:
+            st, r = http_json(conn, "POST", f"/{idx}/_search", body)
+            assert st == 200 and r["_shards"]["failed"] == 0, (st, r)
+            out.append((r["hits"]["total"],
+                        [(h["_id"], h["_score"], h["_shard"]) for h in r["hits"]["hits"]]))
+        return out
+
+    recorder = LaunchRecorder(scoring, sparse_score)
+    node = Node(name="restart", registry=LocalTransportRegistry(),
+                data_path=str(data_path), settings=settings).start()
+    try:
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", node.start_http(0).port, timeout=600)
+        st, r = http_json(conn, "PUT", f"/{idx}", {"settings": {
+            "number_of_shards": 2, "number_of_replicas": 0, "refresh_interval": -1}})
+        assert st == 200, r
+        bulk(conn, 0, a)
+        assert http_json(conn, "POST", f"/{idx}/_refresh")[0] == 200
+        bulk(conn, a, b)
+        bulk(conn, 0, 10, offset=b)  # overwrites across the segments
+        assert http_json(conn, "POST", f"/{idx}/_refresh")[0] == 200
+        assert http_json(conn, "POST", f"/{idx}/_flush")[0] == 200
+        # after the flush: the translog alone holds what follows
+        st, r = http_json(conn, "DELETE", f"/{idx}/doc/{a}")
+        assert st == 200 and r["found"], r
+        bulk(conn, b, n)
+        st, r = http_json(conn, "PUT", f"/{idx}/doc/dyn", {"body": texts[0], "tag": "dynamic"})
+        assert st == 201, r
+        assert http_json(conn, "POST", f"/{idx}/_refresh")[0] == 200
+        load_s = time.perf_counter() - t0
+        recorded = answers(conn)
+        gets = {i: http_json(conn, "GET", f"/{idx}/doc/{i}") for i in (str(n - 1), "dyn", str(a))}
+        conn.close()
+    finally:
+        node.close()
+    PACK_LEDGER.forget(idx)
+
+    # -- the restart -----------------------------------------------------
+    t0 = time.perf_counter()
+    node = Node(name="restart", registry=LocalTransportRegistry(),
+                data_path=str(data_path), settings=settings).start()
+    try:
+        start_s = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", node.start_http(0).port, timeout=600)
+        while True:
+            st, health = http_json(conn, "GET", f"/_cluster/health/{idx}")
+            if st == 200 and health["status"] == "green":
+                break
+            assert time.perf_counter() - t0 < 60, health
+            time.sleep(0.01)
+        green_s = time.perf_counter() - t0 - start_s
+        props = node.cluster_service.state.metadata.index(idx).mappings_dict()["doc"]["properties"]
+        assert "tag" in props, props
+        for i, want in gets.items():
+            assert http_json(conn, "GET", f"/{idx}/doc/{i}") == want, i
+        assert gets[str(a)][0] == 404 and gets["dyn"][1]["_source"]["tag"] == "dynamic"
+        cudaenv.LAUNCHES.reset()
+        t1 = time.perf_counter()
+        first = answers(conn)[:1]
+        first_s = time.perf_counter() - t1
+        packs = {k: v for k, v in PACK_LEDGER.stats(idx).items()
+                 if k in ("packs", "delta_packs", "remasks", "compacts", "pools")}
+        got = first + answers(conn)[1:]
+        assert got == recorded, [i for i, (g, w) in enumerate(zip(got, recorded)) if g != w]
+        launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+        if on_card:
+            assert launches > 0, "sparse_score never launched on the restarted node"
+        log(f"[17] (a) `{idx}`: {n} texts in 2 shards ({load_s:.1f} s: two _bulk rounds "
+            f"and refreshes, a _flush, a DELETE, a third _bulk and a dynamic field in the "
+            f"translog); closed and restarted over the same data: start "
+            f"{start_s:.2f} s (its kernel check {node.kernel_build_s:.2f} s, the "
+            f"gateway's metadata {start_s - node.kernel_build_s:.2f} s), stores and "
+            f"translogs to green {green_s:.2f} s, the first search {first_s * 1e3:.1f} ms "
+            f"with its inline packs {packs}; GETs, the mapping and {len(got)} searches "
+            f"bitwise as before the close ({launches} sparse_score launches)")
+
+        # -- (c) admission --------------------------------------------------
+        adm = node.actions.admission.stats()
+        assert adm["observed"] >= 10, adm
+        st, r, headers = http_headers(conn, "POST", f"/{idx}/_search?timeout=1ms", searches[0])
+        adm2 = node.actions.admission.stats()
+        assert st == 429 and int(headers["Retry-After"]) >= 1, (st, r, adm)
+        assert adm2["rejected"] == adm["rejected"] + 1, adm2
+        st, r = http_json(conn, "POST", f"/{idx}/_search", searches[0])
+        assert st == 200 and r["hits"]["total"] == recorded[0][0], (st, r)
+        log(f"[17] (c) admission after {adm['observed']} observed shard phases (EWMA "
+            f"{adm['ewma_shard_phase_ms']} ms, p50 {adm['shard_phase']['p50_ms']} ms): "
+            f"?timeout=1ms -> 429 with Retry-After {headers['Retry-After']}, "
+            f"rejected {adm2['rejected']}; a body without a timeout -> 200")
+
+        # -- (d) the watchdog ------------------------------------------------
+        dog = node.watchdog
+        out = {}
+
+        def stalled():
+            c2 = http.client.HTTPConnection("127.0.0.1", conn.port, timeout=60)
+            t = time.perf_counter()
+            out["r"] = http_json(c2, "POST", f"/{idx}/_search", searches[1])
+            out["dt"] = time.perf_counter() - t
+            c2.close()
+
+        seq0 = max((e["seq"] for e in node.events.events()), default=0)
+        threshold = max(dog.batch_min_s, dog.batch_factor * node.search_batcher._ewma_cost)
+        DEVICE_PULL.arm(RESTART_STALL_S, index=idx, times=1)
+        try:
+            th = threading.Thread(target=stalled)
+            t_start = time.perf_counter()
+            th.start()
+            ev = None
+            while ev is None and time.perf_counter() - t_start < RESTART_STALL_S:
+                ev = next((e for e in node.events.events() if e["type"] == "batch_stall"
+                           and e["seq"] > seq0 and e["attrs"]["shard"] == idx), None)
+                time.sleep(0.01)
+            detected_s = time.perf_counter() - t_start
+            th.join(60)
+        finally:
+            DEVICE_PULL.disarm()
+        assert ev is not None, "no batch_stall event during the stall"
+        assert detected_s <= threshold + 2 * dog.interval_s + 0.35, (detected_s, threshold)
+        st, r = out["r"]
+        assert st == 200 and out["dt"] >= RESTART_STALL_S, (st, out["dt"])
+        assert (r["hits"]["total"], [(h["_id"], h["_score"], h["_shard"])
+                                     for h in r["hits"]["hits"]]) == recorded[1]
+        log(f"[17] (d) DEVICE_PULL stalled one `{idx}` pull {RESTART_STALL_S:.1f} s: "
+            f"batch_stall (batch {ev['attrs']['batch']}, age {ev['attrs']['age_ms']} ms) "
+            f"in the journal {detected_s:.2f} s after the search (threshold "
+            f"{threshold:.2f} s, period {dog.interval_s:.2f} s); the search answered 200 "
+            f"in {out['dt']:.2f} s with its recorded hits; phase 10's journal: "
+            f"device_degraded {journal['device_degraded']}, device_recovered "
+            f"{journal['device_recovered']} (phase 15's windows)")
+        conn.close()
+        events = node.events.stats()
+    finally:
+        node.close()
+        recorder.close()
+        shutil.rmtree(data_path, ignore_errors=True)
+        PACK_LEDGER.forget(idx)
+    max_err = check_shapes(recorder.shapes)
+    wall_s = time.perf_counter() - t_phase
+    log(f"[17] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
+        f"phase 17 launched; max abs err {max_err}; {wall_s:.1f} s in all")
+    return dict(docs=n, load_s=load_s, start_s=start_s, kernel_check_s=node.kernel_build_s,
+                green_s=green_s, first_search_ms=first_s * 1e3, packs=packs,
+                searches=len(got), launches=launches, admission=adm2,
+                stall=dict(detected_s=detected_s, threshold_s=threshold,
+                           period_s=dog.interval_s, search_s=out["dt"]),
+                events=events, phase10_journal=journal, kernel_shapes=len(recorder.shapes),
+                kernel_max_abs_err=max_err, wall_s=wall_s)
+
+
 def small_sources(n_docs: int, seed: int) -> list[dict]:
     """Phase 7's documents: a zipf(1.1) text over 400 words, a short title
     and a body of 10-120 words each."""
@@ -4427,9 +4802,13 @@ def main() -> int:
                     help="phase 10: _search requests in the timed run")
     ap.add_argument("--report", help="also write the full report as JSON here")
     ap.add_argument("--sticky-child", help=argparse.SUPPRESS)  # phase 15 (b)'s child
+    ap.add_argument("--restart-child", help=argparse.SUPPRESS)  # ... and its restart
     args = ap.parse_args()
     if args.sticky_child:
         sticky_child(args.sticky_child)  # leaves with os._exit
+    if args.restart_child:
+        restart_child(args.restart_child)
+        return 0
 
     import torch
 

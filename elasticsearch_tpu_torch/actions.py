@@ -33,9 +33,16 @@ answers 500 with the error, after the contexts of the shards that answered
 are freed. A shard whose fetch fails, with any error, drops its hits and
 records a `_shards.failures` entry; the rest of the page returns.
 
+Admission control (`self.admission`, search/service.py
+SearchAdmissionController): the coordinator observes every shard phase's
+latency, from the fan-out to its future's resolution, failed phases too
+(but not overload rejections, which resolve at once); a search whose
+remaining `timeout` budget cannot cover one expected phase answers 429
+with Retry-After before the fan-out.
+
 Not in this slice: the SPMD mesh branch, DFS, the request cache, insights,
-tracing, profiles, admission control, failover across copies and hedging,
-replica writes, mget, update, delete-by-query, aliases and templates."""
+tracing, profiles, failover across copies and hedging, replica writes,
+mget, update, delete-by-query, aliases and templates."""
 
 from __future__ import annotations
 
@@ -66,6 +73,7 @@ from .mapper import MapperService
 from .search.controller import merge_responses, sort_docs
 from .search.execute import ShardContext
 from .search.service import (
+    SearchAdmissionController,
     ShardQueryResult,
     execute_fetch_phase,
     execute_query_phase,
@@ -107,6 +115,9 @@ class ActionModule:
         self._pinned: dict[int, tuple] = {}  # cid -> (expiry, index, shard, ctx)
         self._pinned_lock = threading.Lock()
         self._pinned_next = 1
+        # deadline-aware admission: a search whose budget cannot cover one
+        # expected shard phase is rejected (429) before the fan-out
+        self.admission = SearchAdmissionController()
         t = self.transport
         for action, fn in [(A_CREATE_INDEX, self._m_create_index),
                            (A_MAPPING_UPDATED, self._m_mapping_updated),
@@ -391,13 +402,21 @@ class ActionModule:
         req = parse_search_body(body)
         deadline = Deadline.after(req.timeout_s) if req.timeout_s is not None \
             else NO_DEADLINE
+        # a budget that cannot cover one expected shard phase: 429 now
+        self.admission.admit(deadline)
         shards = self.routing.search_shards(state, indices, routing)
         # every shard's query phase in flight at once
+        t_fanout = time.monotonic()
         futs = [(copy, self.transport.send_request(
             state.nodes.get(copy.node_id), A_QUERY_PHASE, {
                 "index": copy.index, "shard": copy.shard_id, "body": body or {},
                 "deadline_s": deadline.remaining()}))
             for copy in shards]
+        for _copy, fut in futs:
+            # the phase's latency ends at its resolution, not when this loop
+            # collects it behind a slower shard
+            fut.add_done_callback(
+                lambda f: setattr(f, "completed_at", time.monotonic()))
         results: list[ShardQueryResult] = []
         failures, terminals = [], []
         # ordinal -> (index, real shard id, node, pinned context id): the
@@ -414,7 +433,17 @@ class ActionModule:
                     failures.append({"index": copy.index, "shard": copy.shard_id,
                                      "node": copy.node_id, "reason": str(e)})
                     terminals.append(e)
+                    # a failed phase feeds admission too (a node whose phases
+                    # time out must raise the signal), an overload rejection
+                    # not: it resolves at once and would drag the signal down
+                    if not isinstance(e, (CircuitBreakingError,
+                                          RejectedExecutionError)):
+                        self.admission.observe(
+                            getattr(fut, "completed_at", time.monotonic())
+                            - t_fanout)
                     continue
+                self.admission.observe(
+                    getattr(fut, "completed_at", time.monotonic()) - t_fanout)
                 shard_meta[ordinal] = (copy.index, copy.shard_id,
                                        state.nodes.get(copy.node_id), r.get("ctx_id"))
                 results.append(ShardQueryResult(

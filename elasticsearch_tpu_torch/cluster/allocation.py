@@ -1,7 +1,7 @@
 """Shard allocation on a lone node (a trimmed copy of the JAX package's
 `cluster/allocation.py`): `reroute` assigns every UNASSIGNED primary to the
 one data node; `apply_started_shards` moves INITIALIZING → STARTED;
-`new_index_routing` builds a created index's table.
+`new_index_routing` builds a created or restored (gateway) index's table.
 
 A replica never lands beside its primary, so on one node every replica
 stays unassigned and health is yellow. The decider chain (filters,

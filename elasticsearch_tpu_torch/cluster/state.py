@@ -5,7 +5,9 @@ version+1.
 
 Trimmed to what a one-node cluster reads: index metadata keeps settings,
 mappings, state and version (aliases, warmers and templates are later
-slices), and `resolve_indices` resolves names and wildcards."""
+slices), and `resolve_indices` resolves names and wildcards. `to_dict` and
+`from_dict` round-trip the metadata the gateway persists under
+`path.data/_state`."""
 
 from __future__ import annotations
 
@@ -192,6 +194,12 @@ class IndexMetaData:
                 "mappings": dict(self.mappings), "state": self.state,
                 "version": self.version}
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "IndexMetaData":
+        return cls(d["name"], tuple(sorted(d.get("settings", {}).items())),
+                   tuple(d.get("mappings", {}).items()),
+                   d.get("state", "open"), d.get("version", 1))
+
 
 @dataclass(frozen=True)
 class MetaData:
@@ -242,6 +250,15 @@ class MetaData:
     def to_dict(self) -> dict:
         return {"indices": {n: m.to_dict() for n, m in self.indices},
                 "version": self.version}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MetaData":
+        """The inverse of `to_dict`; a file the JAX package wrote loads too
+        (its templates, aliases, warmers and cluster settings are not read:
+        the port has none of them yet)."""
+        return cls(tuple(sorted((n, IndexMetaData.from_dict(m))
+                                for n, m in d.get("indices", {}).items())),
+                   d.get("version", 0))
 
 
 BLOCK_NO_MASTER = ("no_master", "all")

@@ -18,10 +18,17 @@ of the JAX package's `common/jaxenv.py`.
   where it launches its kernel, and nowhere else.
 - `upload` / `pull` are the two directions of host↔device traffic on the
   serving path: uploads never synchronise (`upload_pinned` stages a large
-  host row in pinned memory first), and `pull` brings a whole batch of
-  result tensors back behind one event wait. `pull_async` is its enqueue
-  half (the end of a batch's dispatch) and `PendingPull.wait` its wait half
-  (the batch's merge); a failed wait `abandon`s the staging.
+  host row in pinned memory first; `upload_buffer` sends a whole staged
+  buffer — a sparse launch's arrays — with one copy), and `pull` brings a
+  whole batch of result tensors back behind one event wait. `pull_async`
+  is its enqueue half (the end of a batch's dispatch) and
+  `PendingPull.wait` its wait half (the batch's merge); a failed wait
+  `abandon`s the staging.
+- `park` keeps the pinned host buffers of a pull that failed with the
+  context lost alive for the rest of the process: PyTorch frees a pinned
+  block that a copy used by recording a CUDA event on its stream, and
+  after a sticky error that call fails inside a destructor, which aborts
+  the process.
 """
 
 from __future__ import annotations
@@ -168,6 +175,32 @@ def upload_pinned(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).pin_memory().to(device, non_blocking=True)
 
 
+# pinned host buffers of pulls that failed with the context lost, never
+# freed (`park`)
+_PARKED: list = []
+_PARKED_LOCK = threading.Lock()
+
+
+def park(buffers) -> None:
+    """Keep pinned host buffers alive until the process ends: freeing them
+    makes a CUDA call (an event record), which after a sticky error aborts
+    the process from a destructor. A sticky error ends the process's useful
+    life anyway (a restart is the cure), so the few buffers of the batches
+    that failed with it are kept instead."""
+    with _PARKED_LOCK:
+        _PARKED.append(buffers)
+
+
+def upload_buffer(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A staged host buffer on `device` with ONE copy: on the card a
+    non-blocking copy from `buf` (pageable memory, which the driver has
+    taken when the call returns, so its owner may write `buf` again at
+    once); on the CPU the buffer itself."""
+    if device.type == "cpu":
+        return buf
+    return buf.to(device, non_blocking=True)
+
+
 class PendingPull:
     """One batch's device→host copies in flight: `pull_async` enqueued them
     behind the batch's own launches and recorded one event after them;
@@ -194,11 +227,15 @@ class PendingPull:
             self._tensors = None
         return [h.numpy() for h in self._hosts]
 
-    def abandon(self) -> None:
+    def abandon(self, context_lost: bool = False) -> None:
         """Drop the batch's staging after a failed wait, with no CUDA call
         (no event query, no synchronise: after a sticky error each would
-        raise again). The pinned buffers and the device tensors go back to
-        their caching allocators with their last reference."""
+        raise again). The device tensors and the pinned host buffers go back
+        to their caching allocators with their last reference, unless the
+        failure may have lost the context: then the pinned buffers are
+        parked, never freed (`park`)."""
+        if context_lost and self._done is not None:
+            park(self._hosts)
         self._done = None
         self._tensors = None
         self._hosts = []

@@ -76,7 +76,8 @@ import random
 import threading
 import time
 
-from .cudaenv import LAUNCH_CONFIG_CODES, TRANSIENT_CODES, CudaError, error_code_of
+from .cudaenv import (LAUNCH_CONFIG_CODES, STICKY_CODES, TRANSIENT_CODES,
+                      CudaError, error_code_of)
 from .retry import RetryPolicy
 
 logger = logging.getLogger("elasticsearch_tpu_torch.devicehealth")
@@ -125,6 +126,13 @@ def classify_device_error(error: BaseException) -> str | None:
             and not error.sticky:
         return "defect"  # a launch of the port's returned an unexpected code
     return "persistent"
+
+
+def context_lost(error: BaseException) -> bool:
+    """Whether `error` may have lost the process's CUDA context: a CUDA
+    error with a sticky code, or one whose code nothing names."""
+    is_cuda, code = cuda_error_code(error)
+    return is_cuda and (code is None or code in STICKY_CODES)
 
 
 def tag_domain(error: BaseException, domain: str) -> BaseException:
@@ -179,6 +187,8 @@ class DeviceHealth:
         self._domains: dict[str, _DomainCircuit] = {}
         self._policy = RetryPolicy(base_s=base_s, cap_s=cap_s, rng=rng)
         self._clock = clock
+        # node journals the transitions are published to: key -> publish
+        self._publishers: dict[object, object] = {}
         self._failures = {"transient": 0, "persistent": 0}
         self._trips = 0
         self._probes = 0
@@ -290,12 +300,30 @@ class DeviceHealth:
         for ev in events:
             self._publish(*ev)
 
-    # --- transitions, logged outside the leaf lock --------------------------
+    # --- transitions, published outside the leaf lock ----------------------
+    def register_publisher(self, key, publish) -> None:
+        """`publish(type_, message, severity=..., key=..., **attrs)` — the
+        EventJournal.publish signature; a node registers its journal so
+        trips and recoveries land beside the watchdog's events."""
+        with self._lock:
+            self._publishers[key] = publish
+
+    def unregister_publisher(self, key) -> None:
+        with self._lock:
+            self._publishers.pop(key, None)
+
     def _publish(self, type_, domain, severity, message, attrs) -> None:
-        """Log a trip or a recovery (the event journal that also records
-        them comes with the stall watchdog)."""
+        """Log a trip or a recovery and hand it to every registered
+        journal (`device_degraded`, `device_recovered`)."""
         log = logger.warning if severity == "warn" else logger.info
         log("%s: %s", type_, message)
+        with self._lock:
+            publishers = list(self._publishers.values())
+        for publish in publishers:
+            try:
+                publish(type_, message, severity=severity, key=domain, **attrs)
+            except Exception:  # noqa: BLE001 — telemetry must not fail serving
+                logger.exception("device-health event publish failed")
 
     # --- introspection ------------------------------------------------------
     def state(self, domain: str) -> str:
@@ -322,7 +350,8 @@ class DeviceHealth:
             }
 
     def reset(self) -> None:
-        """Forget every domain and counter (test isolation)."""
+        """Forget every domain and counter (test isolation; publishers
+        stay)."""
         with self._lock:
             self._domains.clear()
             self._failures = {"transient": 0, "persistent": 0}

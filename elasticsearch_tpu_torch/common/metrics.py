@@ -1,13 +1,55 @@
-"""Latency histograms (a trimmed copy of the JAX package's `common/metrics.py`
-`HistogramMetric`): tail percentiles over fixed log-spaced buckets. The
-port's only writer of each histogram is the batcher's drainer thread, so one
-leaf lock serves; the JAX package's per-thread lock stripes wait for a slice
-with many concurrent writers."""
+"""Counters, means and latency histograms (a trimmed copy of the JAX
+package's `common/metrics.py`): `CounterMetric` and `MeanMetric` (the search
+admission controller's rollup and rejections), and `HistogramMetric`, tail
+percentiles over fixed log-spaced buckets. Each metric takes one leaf lock;
+the JAX package's per-thread lock stripes for the histogram wait for a
+measurement that shows its lock contended (the pools' queue waits are its
+busiest writers)."""
 
 from __future__ import annotations
 
 import bisect
 import threading
+
+
+class CounterMetric:
+    __slots__ = ("_lock", "_count")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._count = 0
+
+    def inc(self, n: int = 1):
+        with self._lock:
+            self._count += n
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+
+class MeanMetric:
+    """Tracks (count, sum) — e.g. query count + total time."""
+
+    __slots__ = ("_lock", "_count", "_sum")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._count = 0
+        self._sum = 0.0
+
+    def inc(self, value: float):
+        with self._lock:
+            self._count += 1
+            self._sum += value
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def mean(self) -> float:
+        return self._sum / self._count if self._count else 0.0
 
 
 class HistogramMetric:

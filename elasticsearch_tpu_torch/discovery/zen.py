@@ -4,7 +4,7 @@ id among the master-eligible nodes it knows, which is itself), installs
 itself as master, lifts the no-master block and reroutes.
 
 Pinging other nodes, joins, publishing, fault detection and re-election are
-the slice with two nodes (ROADMAP A6b): a node started with seed addresses
+the slice with two nodes (ROADMAP A5): a node started with seed addresses
 other than its own raises NotPortedError."""
 
 from __future__ import annotations

@@ -1,34 +1,50 @@
-"""Local gateway, trimmed to a fresh start (a trimmed copy of the JAX
-package's `gateway.py`): the node persists the cluster metadata under
-`path.data/_state` on every change, and on start it lifts the
-state-not-recovered block.
+"""Local gateway: cluster metadata persistence and startup recovery (a
+trimmed copy of the JAX package's `gateway.py`, ROADMAP A5a).
 
-Recovering that metadata (and the shards' stores) on a restart is the slice
-with gateway recovery (ROADMAP A6b): a node started over a `path.data` that
-already holds cluster metadata raises NotPortedError instead of silently
-starting empty beside the old data."""
+The node persists the cluster MetaData (indices, settings, mappings) under
+`path.data/_state` on every change. On start, `maybe_recover` restores the
+persisted indices once `gateway.recover_after_nodes` nodes are present and
+lifts the state-not-recovered block; the restored indices get fresh
+routing, and the post-recovery reroute assigns their primaries to this
+node, whose shards then recover from their stores and translogs
+(indices_service). A fresh `path.data` recovers nothing and only lifts the
+block.
+
+A lone port node is all the cluster there is, so `recover_after_nodes`
+above 1 could never be met: it raises NotPortedError at construction (two
+nodes are the slice with zen discovery, ROADMAP A5). Index templates are
+not restored: the port has none yet (A6)."""
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 
+from .cluster.allocation import AllocationService, new_index_routing
 from .cluster.service import URGENT
-from .cluster.state import BLOCK_STATE_NOT_RECOVERED, ClusterState
+from .cluster.state import BLOCK_STATE_NOT_RECOVERED, ClusterState, MetaData
 from .common.errors import NotPortedError
 from .common.logging import get_logger
+from .common.settings import Settings
 
 
 class LocalGateway:
-    def __init__(self, data_path: str, cluster_service):
+    def __init__(self, data_path: str, cluster_service,
+                 settings: Settings | None = None):
         self.dir = os.path.join(data_path, "_state")
         self.cluster_service = cluster_service
-        self.logger = get_logger("gateway")
-        if os.path.exists(self.meta_path):
+        self.settings = settings or Settings.EMPTY
+        self.recover_after_nodes = self.settings.get_int(
+            "gateway.recover_after_nodes", 1)
+        if self.recover_after_nodes > 1:
             raise NotPortedError(
-                f"[{data_path}] holds cluster metadata from an earlier run; "
-                "recovering it is not ported yet (the gateway-recovery slice) "
-                "— start the node over an empty path.data")
+                f"gateway.recover_after_nodes [{self.recover_after_nodes}] "
+                "cannot be met: the port runs one node until the slice with "
+                "two nodes (zen discovery, ROADMAP A5)")
+        self.logger = get_logger("gateway")
+        self._recovered = False
+        self._lock = threading.Lock()
         os.makedirs(self.dir, exist_ok=True)
         cluster_service.add_listener(self._on_change)
 
@@ -36,6 +52,7 @@ class LocalGateway:
     def meta_path(self) -> str:
         return os.path.join(self.dir, "metadata.json")
 
+    # persistence ------------------------------------------------------------
     def _on_change(self, event):
         if event.metadata_changed():
             self.persist_now()
@@ -51,12 +68,54 @@ class LocalGateway:
         except OSError as e:
             self.logger.warning("metadata persist failed: %s", e)
 
-    def recover_fresh(self):
-        """A fresh cluster has no state to recover: lift the block."""
+    def load_metadata(self) -> MetaData | None:
+        if not os.path.exists(self.meta_path):
+            return None
+        with open(self.meta_path) as fh:
+            return MetaData.from_dict(json.load(fh))
 
-        def update(state: ClusterState) -> ClusterState:
-            return state.next_version(
-                blocks=state.blocks.without_global(BLOCK_STATE_NOT_RECOVERED))
+    # recovery ---------------------------------------------------------------
+    def maybe_recover(self):
+        """Restore the persisted metadata and lift the not-recovered block,
+        then reroute the restored shards onto this node.
 
-        self.cluster_service.submit_state_update_task(
-            "gateway-recovery", update, priority=URGENT).result(10)
+        The lock covers only the recovered-check and the task submission;
+        the wait on the cluster-state thread happens with no lock held, so a
+        state task that re-entered the gateway (a metadata listener calling
+        back in) could not deadlock against it."""
+        with self._lock:
+            if self._recovered:
+                return
+            state = self.cluster_service.state
+            if state.nodes.master_id != state.nodes.local_id or \
+                    state.nodes.local_id is None:
+                return  # no master elected yet: discovery starts first
+            persisted = self.load_metadata()
+            self._recovered = True
+            names = [] if persisted is None else persisted.index_names()
+
+            def update(current: ClusterState) -> ClusterState:
+                md = current.metadata
+                rt = current.routing_table
+                for name in names:
+                    if md.has_index(name):
+                        continue
+                    meta = persisted.index(name)
+                    md = md.with_index(meta)
+                    if meta.state == "open":
+                        rt = rt.with_index(new_index_routing(
+                            name, meta.number_of_shards, meta.number_of_replicas))
+                return current.next_version(
+                    metadata=md, routing_table=rt,
+                    blocks=current.blocks.without_global(BLOCK_STATE_NOT_RECOVERED))
+
+            fut = self.cluster_service.submit_state_update_task(
+                "gateway-recovery", update, priority=URGENT)
+        fut.result(10)
+        if names:
+            self.logger.info("recovered %d indices from [%s]: %s", len(names),
+                             self.meta_path, names)
+            # allocation of the restored shards goes through the reroute
+            self.cluster_service.submit_state_update_task(
+                "gateway-post-recovery-reroute",
+                AllocationService().reroute).result(10)

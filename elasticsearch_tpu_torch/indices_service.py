@@ -6,8 +6,9 @@ copy of the JAX package's `indices_service.py`).
 - `IndicesService.cluster_changed` (IndicesClusterStateService's role): on
   every cluster-state change, create the shards the routing table assigns
   here, recover each primary from its local store (a fresh shard recovers
-  nothing; the translog replay runs all the same) on a thread of its own,
-  and report shard-started to the master.
+  nothing; a restarted node's shard reloads its last commit, tombstones
+  included, and replays its translog) on a thread of its own, and report
+  shard-started to the master.
 - `periodic_refresh`: the scheduled NRT refresh per shard honouring
   `index.refresh_interval` (-1 disables it), then a merge-policy check on
   the `merge` pool.

@@ -8,11 +8,18 @@ counterpart of the JAX node's compile-warm cycle: one nvcc per source, all
 at once, and each library loaded, so no search runs nvcc) and launches each
 once on a tiny input against its plain version (`KERNEL_START_CHECKS`); a
 kernel that does not build, launch or agree stops the start, the node does
-not degrade past it. Then it elects itself master of a one-node cluster and
-lifts the
-not-recovered block. `start_http(port)` binds the REST surface (port 0 =
-ephemeral). `device_health()` reads the device fault domains
+not degrade past it. Then it elects itself master of a one-node cluster,
+and the gateway restores the indices an earlier run persisted under
+`path.data` (a fresh `path.data` restores nothing) and lifts the
+not-recovered block; each restored shard recovers from its store and
+translog (indices_service). `start_http(port)` binds the REST surface (port
+0 = ephemeral). `device_health()` reads the device fault domains
 (common/devicehealth) and the warmer's pack counters in process.
+
+`events` is the node's EventJournal (common/events): the StallWatchdog
+(`watchdog`, ticking on the management pool) journals batches stalled in
+their pull, pool queue-wait spikes and breakers dwelling near their limit,
+and DEVICE_HEALTH publishes each fault domain's trip and recovery there.
 
 The node serves on the card unless told otherwise: its device is the
 `node.device` setting ("cpu" in the tests) resolved through
@@ -48,6 +55,7 @@ from .common.breaker import CircuitBreakerService
 from .common.cudaenv import default_device
 from .common.devicehealth import DEVICE_HEALTH
 from .common.errors import NotPortedError
+from .common.events import EventJournal, StallWatchdog
 from .common.logging import get_logger
 from .common.settings import prepare_settings
 from .discovery.zen import ZenDiscovery
@@ -81,11 +89,12 @@ class Node:
             raise NotPortedError(
                 "transport.type [tcp] is not ported yet (the slice with two "
                 "nodes); the port node runs the local transport")
-        # a path.data holding an earlier run's state raises here, before any
-        # pool or transport thread starts
+        # settings a lone node cannot meet raise here, before any pool or
+        # transport thread starts
         self.cluster_service = ClusterService(self.name)
         try:
-            self.gateway = LocalGateway(self.data_path, self.cluster_service)
+            self.gateway = LocalGateway(self.data_path, self.cluster_service,
+                                        self.settings)
         except Exception:
             self.cluster_service.close()
             raise
@@ -96,6 +105,12 @@ class Node:
                                         transport_address=address)
         self.threadpool = ThreadPool(self.settings)
         self.breakers = CircuitBreakerService(self.settings)
+        # the bounded journal of stall and pressure events, fed by the
+        # management-pool watchdog (started with the node) and by the device
+        # fault domains' trips and recoveries
+        self.events = EventJournal(self.settings, node_name=self.name,
+                                   node_id=self.node_id)
+        DEVICE_HEALTH.register_publisher(self.node_id, self.events.publish)
         # hot filters' per-segment masks resident on the device, accounted on
         # the fielddata breaker next to the packed postings
         self.filter_cache = DeviceFilterCache(
@@ -125,6 +140,7 @@ class Node:
             0.5, self.indices.periodic_refresh, name="refresh")
         self.discovery = ZenDiscovery(self.local_node, self.cluster_service,
                                       self.allocation)
+        self.watchdog = StallWatchdog(self, self.settings)
         self.http = None
         # the kernels the start built: {name: nvcc output} (empty when every
         # library was current), the launches each start check made, and the
@@ -136,8 +152,9 @@ class Node:
 
     def start(self, seeds: list[str] | None = None) -> "Node":
         """Build, load and check every kernel on a CUDA device, then elect
-        this node master of its one-node cluster and recover the (fresh)
-        cluster state; seeds naming other nodes raise."""
+        this node master of its one-node cluster, recover the cluster state
+        persisted under `path.data` and start the watchdog; seeds naming
+        other nodes raise."""
         if self.device.type == "cuda":
             t0 = time.monotonic()
             try:
@@ -153,7 +170,8 @@ class Node:
                              cudaenv.kernel_sources(), self.kernel_build_s,
                              sorted(self.kernel_builds))
         self.discovery.start(seeds or [])
-        self.gateway.recover_fresh()
+        self.gateway.maybe_recover()
+        self.watchdog.start()
         self.logger.info("started [%s] on [%s]", self.name, self.device)
         return self
 
@@ -169,6 +187,8 @@ class Node:
         if self._closed:
             return
         self._closed = True
+        DEVICE_HEALTH.unregister_publisher(self.node_id)
+        self.watchdog.stop()
         if self.http is not None:
             self.http.stop()
         self.warmer.close()

@@ -165,6 +165,9 @@ class PackedSegment:
     agg_stacks: dict = dc_field(default_factory=dict)
     # bucket-agg cache key -> device (pair docs, pair buckets int64, count)
     bucket_cols: dict = dc_field(default_factory=dict)
+    # ops/scoring.SparseScratchPool of the sparse launches' staging sets
+    # (made at the first launch)
+    sparse_scratch: object | None = None
 
     def blocks_for_term(self, tid: int) -> tuple[int, int]:
         return int(self.term_blk_start[tid]), int(self.term_blk_start[tid + 1])

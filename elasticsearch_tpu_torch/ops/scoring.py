@@ -46,13 +46,14 @@ SHOULD clauses, 10-19 MUST, 20-29 MUST_NOT.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 import torch
 
 from ..common.breaker import reserve
-from ..common.cudaenv import pull, upload
+from ..common.cudaenv import pull, upload, upload_buffer
 from .device_index import (
     BLOCK,
     PackedSegment,
@@ -590,6 +591,118 @@ def build_term_batch(cols: tuple, n_queries: int, n_must: np.ndarray,
 # sparse candidate-centric path (the serving hot path)
 # ---------------------------------------------------------------------------
 
+# the staging arrays of one sparse bucket in the order they sit in its one
+# host buffer: the 4-byte arrays first, the 1-byte qconst last, each at an
+# offset aligned like the caching allocator's blocks, so every typed view
+# keeps its dtype's alignment on both sides of the copy
+_STAGING_FIELDS = (("qblk", np.int32), ("qw", np.float32), ("qcnt", np.int32),
+                   ("qfid", np.int32), ("n_must", np.int32), ("msm", np.int32),
+                   ("coord", np.float32), ("qconst", np.bool_))
+_STAGING_ALIGN = 256
+_TORCH_DTYPES = {np.int32: torch.int32, np.float32: torch.float32,
+                 np.bool_: torch.bool}
+
+
+def _staging_layout(Qb: int, tb: int, c1: int) -> tuple[list, int]:
+    """[(name, dtype, shape, offset, bytes)] of a [Qb, TB] bucket's staging
+    set with coord [Qb, c1], and the buffer's size in bytes."""
+    shapes = {"n_must": (Qb,), "msm": (Qb,), "coord": (Qb, c1)}
+    layout, off = [], 0
+    for name, dt in _STAGING_FIELDS:
+        shape = shapes.get(name, (Qb, tb))
+        nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
+        layout.append((name, dt, shape, off, nbytes))
+        off += -(-nbytes // _STAGING_ALIGN) * _STAGING_ALIGN
+    return layout, off
+
+
+class StagingSet:
+    """The eight staging arrays of one sparse bucket as typed numpy views
+    into ONE host buffer: `to_device` sends the whole buffer with one copy
+    and returns typed device views of it. `key` is every dimension that
+    sizes the buffer: (Qb, TB, C+1).
+
+    The buffer is pageable memory: a copy from pageable memory has taken its
+    source when the call returns (the driver stages it), so a set can be
+    written again as soon as its launch has returned."""
+
+    __slots__ = ("key", "buf", "layout", "arrays")
+
+    def __init__(self, Qb: int, tb: int, c1: int):
+        self.key = (Qb, tb, c1)
+        self.layout, nbytes = _staging_layout(Qb, tb, c1)
+        self.buf = torch.empty(nbytes, dtype=torch.uint8)
+        host = self.buf.numpy()
+        self.arrays = {name: host[off: off + n].view(dt).reshape(shape)
+                       for (name, dt, shape, off, n) in self.layout}
+
+    def reset(self, sentinel_row: int) -> None:
+        """Padding values: every slot at the sentinel block row, weight and
+        counters 0, coord 1."""
+        a = self.arrays
+        a["qblk"].fill(sentinel_row)
+        for name in ("qw", "qcnt", "qfid", "n_must", "msm", "qconst"):
+            a[name].fill(0)
+        a["coord"].fill(1.0)
+
+    def to_device(self, device: torch.device) -> dict:
+        """name -> the array as a tensor on `device`, from ONE upload of the
+        buffer (on the CPU: views of the host buffer itself)."""
+        dbuf = upload_buffer(self.buf, device)
+        return {name: dbuf[off: off + n].view(_TORCH_DTYPES[dt]).view(shape)
+                for (name, dt, shape, off, n) in self.layout}
+
+
+class SparseScratchPool:
+    """Reusable staging sets for plan_sparse_buckets, held by each packed
+    segment (`PackedSegment.sparse_scratch`, made at its first launch).
+
+    The planner would otherwise allocate eight arrays for every bucket of
+    every launch, even when the shapes repeat on every warmed batch. The
+    pool hands out and takes back `StagingSet`s keyed by (Qb, TB, C+1): a
+    warmed repeat batch makes 0 new allocations (`allocs` stays flat). A
+    set is borrowed from take() until its bucket's launch has returned:
+    by then the launch has copied it (a pageable copy takes its source
+    before it returns; on the CPU the plain version has run), so
+    launch_flat_sparse gives every set back before it returns, on success
+    and on failure alike. Check-out and check-in keep concurrent launches
+    on one segment apart; the free list is bounded, so a burst of
+    concurrency does not hold staging memory forever."""
+
+    _MAX_FREE = 4  # sets kept per shape
+
+    def __init__(self):
+        self._free: dict[tuple, list] = {}
+        self._lock = threading.Lock()
+        self.allocs = 0  # fresh allocations (a warmed repeat adds none)
+        self.reuses = 0
+
+    @staticmethod
+    def staging_bytes(Qb: int, tb: int, c1: int) -> int:
+        """Bytes of one staging set: its one buffer, alignment included."""
+        return _staging_layout(Qb, tb, c1)[1]
+
+    def take(self, Qb: int, tb: int, c1: int, sentinel_row: int) -> StagingSet:
+        with self._lock:
+            lst = self._free.get((Qb, tb, c1))
+            st = lst.pop() if lst else None
+            if st is None:
+                self.allocs += 1
+            else:
+                self.reuses += 1
+        if st is None:
+            st = StagingSet(Qb, tb, c1)
+        st.reset(sentinel_row)
+        return st
+
+    def give(self, st: StagingSet) -> None:
+        """Take back a set whose launch has returned (one past the bound is
+        dropped)."""
+        with self._lock:
+            lst = self._free.setdefault(st.key, [])
+            if len(lst) < self._MAX_FREE:
+                lst.append(st)
+
 
 @dataclass
 class SparseBatch:
@@ -607,6 +720,7 @@ class SparseBatch:
     coord: np.ndarray  # float32 [Qb, C+1]
     passes: int  # segment-sum doubling passes = ceil(log2(max clauses per query))
     simple: bool  # pure-should all-BM25 msm<=1 no-coord (match ≡ score>0)
+    staging: StagingSet  # the set whose buffer the eight arrays above view
 
 
 def _sparse_impl(blk_docs, blk_tf, blk_nb, caches, modes,
@@ -624,25 +738,26 @@ def _sparse_impl(blk_docs, blk_tf, blk_nb, caches, modes,
 
 def score_sparse_batch_async(packed: PackedSegment, sb: SparseBatch, k: int,
                              sim: SimTables | None = None):
-    """Launch one sparse bucket: its arrays are uploaded (without
-    synchronising) beside the segment's planes. Returns device tensors
-    (scores, docs, totals) without synchronising. `sim` is the SimTables the
-    planner resolved fids against (default: the segment's current one)."""
+    """Launch one sparse bucket: its staging set goes to the device with ONE
+    copy (without synchronising) beside the segment's planes. Returns
+    device tensors (scores, docs, totals) without synchronising. `sim` is
+    the SimTables the planner resolved fids against (default: the
+    segment's current one). The set is free again once this returns."""
     sim = sim if sim is not None else packed.sim
-    dev = packed.device
     TB = sb.qblk.shape[1]
+    t = sb.staging.to_device(packed.device)
     return _sparse_impl(
         packed.blk_docs, packed.blk_tf, packed.blk_nb, sim.caches, sim.modes,
-        upload(sb.qblk, dev), upload(sb.qw, dev), upload(sb.qconst, dev),
-        upload(sb.qcnt, dev), upload(sb.qfid, dev), upload(sb.n_must, dev),
-        upload(sb.msm, dev), upload(sb.coord, dev),
+        t["qblk"], t["qw"], t["qconst"], t["qcnt"], t["qfid"], t["n_must"],
+        t["msm"], t["coord"],
         k=min(k, TB * BLOCK), doc_pad=packed.doc_pad, passes=sb.passes,
         simple=sb.simple,
         use_coord=not sb.simple and not bool(np.all(sb.coord == 1.0)))
 
 
 def plan_sparse_buckets(clause_lists: list, n_must: np.ndarray, msm: np.ndarray,
-                        coord: np.ndarray, sentinel_row: int, *,
+                        coord: np.ndarray, sentinel_row: int,
+                        scratch: SparseScratchPool, *,
                         tb_max: int = 512, slot_budget: int = 32768,
                         simple: bool = False):
     """Bucket queries by block count and build SparseBatches.
@@ -650,7 +765,11 @@ def plan_sparse_buckets(clause_lists: list, n_must: np.ndarray, msm: np.ndarray,
     clause_lists: per query, list of (b0, b1, weight, group, is_const, fid)
     block ranges — `fid` is the clause field's SimTables cache row.
     Returns (batches, overflow_qids): overflow queries (TB > tb_max) need the
-    dense fallback; queries with zero blocks appear in no batch (zero hits)."""
+    dense fallback; queries with zero blocks appear in no batch (zero hits).
+
+    `scratch` (the packed segment's SparseScratchPool) supplies each
+    bucket's staging set; the caller gives the sets back once their
+    launches have returned (launch_flat_sparse does)."""
     Q = len(clause_lists)
     tb_q = [sum(b1 - b0 for (b0, b1, _w, _g, _c, _fi) in cl)
             for cl in clause_lists]
@@ -666,15 +785,13 @@ def plan_sparse_buckets(clause_lists: list, n_must: np.ndarray, msm: np.ndarray,
         for start in range(0, len(qis), max_q):
             chunk = qis[start: start + max_q]
             Qb = _pow2_bucket(len(chunk), 8)
-            qblk = np.full((Qb, tb), sentinel_row, np.int32)
-            qw = np.zeros((Qb, tb), np.float32)
-            qconst = np.zeros((Qb, tb), bool)
-            qcnt = np.zeros((Qb, tb), np.int32)
-            qfid = np.zeros((Qb, tb), np.int32)
+            c1 = coord.shape[1]
+            st = scratch.take(Qb, tb, c1, sentinel_row)
+            a = st.arrays
+            qblk, qw, qconst, qcnt, qfid = (a["qblk"], a["qw"], a["qconst"],
+                                            a["qcnt"], a["qfid"])
+            bn_must, bmsm, bcoord = a["n_must"], a["msm"], a["coord"]
             qids = np.full(Qb, -1, np.int32)
-            bn_must = np.zeros(Qb, np.int32)
-            bmsm = np.zeros(Qb, np.int32)
-            bcoord = np.ones((Qb, coord.shape[1]), np.float32)
             maxc = 1
             for row, qi in enumerate(chunk):
                 qids[row] = qi
@@ -700,14 +817,8 @@ def plan_sparse_buckets(clause_lists: list, n_must: np.ndarray, msm: np.ndarray,
                 n_queries=len(chunk), qids=qids, qblk=qblk, qw=qw,
                 qconst=qconst, qcnt=qcnt, qfid=qfid, n_must=bn_must, msm=bmsm,
                 coord=bcoord, passes=max(0, (maxc - 1).bit_length()),
-                simple=simple))
+                simple=simple, staging=st))
     return batches, overflow
-
-
-def staging_bytes(Qb: int, tb: int) -> int:
-    """Bytes of one bucket's [Qb, TB] clause arrays: qblk i32 + qw f32 +
-    qconst bool + qcnt i32 + qfid i32."""
-    return Qb * tb * (4 + 4 + 1 + 4 + 4)
 
 
 def launch_flat_sparse(packed: PackedSegment, clause_lists: list,
@@ -716,19 +827,27 @@ def launch_flat_sparse(packed: PackedSegment, clause_lists: list,
                        breaker=None, sim: SimTables | None = None):
     """Plan + launch every sparse bucket of a flat-query batch WITHOUT
     synchronising. Returns (launches, overflow_qids), launches =
-    [(SparseBatch, device result triple)].
+    [(SparseBatch, device result triple)]. The buckets' staging sets go back
+    to the segment's SparseScratchPool before this returns, whether the
+    launches succeeded or raised: a returned launch has copied its set.
 
-    The staging of the whole batch — every bucket's padded [Qb, TB] arrays —
-    is reserved on `breaker` (the request breaker) in one sum around the
-    launches: the coalesced launch is the allocation, not a request's share
-    of it."""
+    The staging of the whole batch — every bucket's set — is reserved on
+    `breaker` (the request breaker) in one sum around the launches: the
+    coalesced launch is the allocation, not a request's share of it."""
+    scratch = packed.sparse_scratch
+    if scratch is None:
+        scratch = packed.sparse_scratch = SparseScratchPool()
     batches, overflow = plan_sparse_buckets(
         clause_lists, n_must, msm, coord, packed.blk_docs.shape[0] - 1,
-        tb_max=tb_max, simple=simple)
-    est = sum(staging_bytes(*sb.qblk.shape) for sb in batches)
-    with reserve(breaker, est, "<sparse_staging>"):
-        launches = [(sb, score_sparse_batch_async(packed, sb, k, sim=sim))
-                    for sb in batches]
+        scratch, tb_max=tb_max, simple=simple)
+    est = sum(SparseScratchPool.staging_bytes(*sb.staging.key) for sb in batches)
+    try:
+        with reserve(breaker, est, "<sparse_staging>"):
+            launches = [(sb, score_sparse_batch_async(packed, sb, k, sim=sim))
+                        for sb in batches]
+    finally:
+        for sb in batches:
+            scratch.give(sb.staging)
     return launches, overflow
 
 

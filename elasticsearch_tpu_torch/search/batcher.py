@@ -44,6 +44,11 @@ behind one event (execute.dispatch_flat_batch), and the merge half waits on
 that event alone — so N's merge waits for N's device work, never N+1's.
 Everything runs on the launching thread's current stream.
 
+In-flight markers: the drainer pushes (batch id, dispatch time, family,
+occupancy, index) before it dispatches a batch and pops it once the batch is
+merged; `inflight()` reads the oldest without a lock, for the stall
+watchdog (common/events), which ages a batch wedged in its pull.
+
 When a coalesced batch fails (a breaker trip, a device error), the drainer
 replays each item on its own, on the device, so only the request that really
 fails carries the error; its neighbours keep their answers. The batch-level
@@ -55,6 +60,7 @@ happens while the condition or the stats lock is held.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -75,6 +81,14 @@ _MERGE_WAIT_BOUNDS = tuple(1e-5 * 2.0 ** i for i in range(18))
 
 def _k_bucket(k: int) -> int:
     return _pow2_bucket(k, _K_MIN)
+
+
+def _index_label(item) -> str:
+    """The index an in-flight batch serves (its leader's context), for the
+    watchdog; never raises, whatever a payload holds."""
+    payload = item.payload
+    ctx = payload[1] if isinstance(payload, tuple) and len(payload) > 1 else None
+    return getattr(ctx, "index_name", None) or "flat"
 
 
 class _Item:
@@ -187,6 +201,13 @@ class DeviceBatcher:
         # the next batch was already launched: double buffering hides the
         # device only while this stays near zero
         self.merge_wait_hist = HistogramMetric(_MERGE_WAIT_BOUNDS)
+        self._batch_ids = itertools.count(1)
+        # dispatched, unmerged batches, oldest first, written only by the
+        # drainer and read unlocked by the stall watchdog: (batch id,
+        # dispatch time, family, occupancy, index). Pushed before the
+        # dispatch, so a hang inside it ages too; under double buffering
+        # the head is batch N, still merging while N+1 is dispatched
+        self._inflight_q: deque[tuple] = deque()
         self._flat = _FlatFamily()
 
     # -- public entry point --------------------------------------------------
@@ -255,7 +276,7 @@ class DeviceBatcher:
             raise
 
     def _drain(self):
-        pending = None  # (family, items, handle, t0): dispatched, unmerged
+        pending = None  # (family, items, handle, t0, id): dispatched, unmerged
         while True:
             batch = None
             with self._cv:
@@ -276,17 +297,21 @@ class DeviceBatcher:
             items, reason = batch
             t0 = time.monotonic()
             family = items[0].family
+            batch_id = next(self._batch_ids)
+            self._inflight_q.append(
+                (batch_id, t0, "flat", len(items), _index_label(items[0])))
             try:
                 # dispatch-then-merge double buffering: batch N+1's device
                 # work is enqueued BEFORE batch N's host merge runs
                 handle = family.dispatch(items, items[0].kb)
             except Exception as e:  # noqa: BLE001 — replay decides per item
+                self._retire_inflight(batch_id)
                 self._split(family, items, e)
                 continue
             self._note_flush(reason)
             if pending is not None:
                 self._finish(*pending, overlapped=True)
-            pending = (family, items, handle, t0)
+            pending = (family, items, handle, t0, batch_id)
             with self._cv:
                 queue_empty = not self._queue
             if queue_empty:
@@ -347,7 +372,7 @@ class DeviceBatcher:
         self._queue.extend(rest)
         return taken, reason
 
-    def _finish(self, family, items, handle, t0: float,
+    def _finish(self, family, items, handle, t0: float, batch_id: int = 0,
                 overlapped: bool = False):
         """Merge a dispatched batch and fan results out to the item futures.
         `overlapped`: the next batch is already launched, so the merge's
@@ -355,8 +380,10 @@ class DeviceBatcher:
         try:
             results = family.fan_out(handle, items)
         except Exception as e:  # noqa: BLE001 — replay decides per item
+            self._retire_inflight(batch_id)
             self._split(family, items, e)
             return
+        self._retire_inflight(batch_id)  # merged: the stall marker retires
         dt = time.monotonic() - t0
         # histogram locks are leaves — observed outside _stats_lock
         self.service_hist.observe(dt)
@@ -410,6 +437,30 @@ class DeviceBatcher:
         for it in items:
             if not it.future.done():
                 it.future.set_exception(err)
+
+    def _retire_inflight(self, batch_id: int):
+        """Drop one batch's in-flight marker (drainer thread only): almost
+        always the head; a batch whose dispatch failed while an older one
+        was pending sits behind it."""
+        q = self._inflight_q
+        if q and q[0][0] == batch_id:
+            q.popleft()
+            return
+        for entry in list(q):
+            if entry[0] == batch_id:
+                q.remove(entry)
+                return
+
+    def inflight(self) -> dict | None:
+        """The oldest dispatched, unmerged batch as the stall watchdog sees
+        it: {batch, age_s, family, occupancy, shard}, or None. One unlocked
+        read of the deque's head, on the watchdog's clock."""
+        try:
+            batch_id, t0, family, occupancy, label = self._inflight_q[0]
+        except IndexError:
+            return None
+        return {"batch": batch_id, "age_s": time.monotonic() - t0,
+                "family": family, "occupancy": occupancy, "shard": label}
 
     # -- lifecycle / observability -------------------------------------------
     def shutdown(self):

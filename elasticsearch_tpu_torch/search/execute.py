@@ -66,7 +66,7 @@ import torch
 from ..common.breaker import reserve
 from ..common.cudaenv import (PendingPull, default_device, pull_async, upload,
                               upload_pinned)
-from ..common.devicehealth import tag_domain
+from ..common.devicehealth import context_lost, tag_domain
 from ..common.errors import NotPortedError, QueryParsingError, ScriptError
 from ..index.engine import Searcher
 from ..index.segment import FrozenSegment
@@ -130,7 +130,7 @@ from .queries import (
     TermQuery,
     WildcardQuery,
 )
-from ..transport.faults import DEVICE_FAULTS
+from ..transport.faults import DEVICE_FAULTS, DEVICE_PULL
 from .similarity import BM25Similarity, SimilarityService, TFIDFSimilarity
 from .sorting import device_sort_key_row
 
@@ -152,13 +152,18 @@ def wait_pull(pull: PendingPull, index: str | None) -> list:
     """The batch's one wait, behind the `pull:<index>` seam. A kernel fault
     surfaces here, at the sync after the launches, not at the launch. A
     failed wait abandons the batch's staging with no further CUDA call: after
-    a sticky error every call would raise again."""
+    a sticky error every call would raise again. An armed DEVICE_PULL stalls
+    the wait first, as a hung card would (one attribute read disarmed)."""
+    if DEVICE_PULL.active:
+        stall = DEVICE_PULL.delay_for(index)
+        if stall > 0.0:
+            time.sleep(stall)
     try:
         if DEVICE_FAULTS.active:
             DEVICE_FAULTS.check(f"pull:{index}")
         return pull.wait()
     except Exception as e:  # noqa: BLE001 — re-raised tagged
-        pull.abandon()
+        pull.abandon(context_lost=context_lost(e))
         raise tag_domain(e, f"pull:{index}")
 
 

@@ -63,6 +63,10 @@ an unexpected code from a kernel wrapper) and an exception that is not a
 CUDA error (a host bug) are counted in `device_errors`, move no circuit
 and reach the caller as a 500: serving them from the host would hide a
 program fault behind the card (the JAX package degrades any exception).
+
+`SearchAdmissionController` is the coordinator's admission control (the JAX
+package's, copied): a search whose remaining budget cannot cover one
+expected shard phase answers 429 before the fan-out.
 """
 
 from __future__ import annotations
@@ -77,7 +81,13 @@ from ..common.breaker import reserve as breaker_reserve
 from ..common.cudaenv import pull_async
 from ..common.deadline import NO_DEADLINE, Deadline, parse_timevalue
 from ..common.devicehealth import DEGRADABLE, DEVICE_HEALTH, classify_device_error
-from ..common.errors import CircuitBreakingError, QueryParsingError, SearchEngineError
+from ..common.errors import (
+    CircuitBreakingError,
+    QueryParsingError,
+    RejectedExecutionError,
+    SearchEngineError,
+)
+from ..common.metrics import CounterMetric, HistogramMetric, MeanMetric
 from ..common.logging import get_logger
 from .aggregations import (
     device_agg_field,
@@ -712,3 +722,71 @@ def reduce_and_respond(ctx: ShardContext, req: ParsedSearchRequest,
             for name, (agg, kind) in req.facets.items()
         }
     return resp
+
+
+# ---------------------------------------------------------------------------
+# deadline-aware admission control (coordinator side)
+# ---------------------------------------------------------------------------
+
+
+class SearchAdmissionController:
+    """Reject unservable searches BEFORE the fan-out.
+
+    A request whose remaining Deadline budget is smaller than the node's
+    recent shard-phase latency cannot finish in time: running it anyway
+    burns a search worker, transport slots and breaker headroom on an answer
+    the client has already given up on. The coordinator observes each shard
+    phase's latency (`observe`) and turns such requests into an immediate
+    429 with a Retry-After hint (`admit`).
+
+    A request without a `timeout` is always admitted, and nothing is
+    rejected before `min_samples` observations: a cold node's first
+    searches (which pack their segments inline) must not close admission
+    for everyone. `admit` compares against an EWMA of the observations, not
+    the lifetime mean, so one slow phase stops weighing within ~1/alpha
+    further observations."""
+
+    EWMA_ALPHA = 0.2  # ~5-sample memory
+
+    def __init__(self, min_samples: int = 10):
+        self.min_samples = min_samples
+        self.latency = MeanMetric()  # lifetime rollup
+        self.histogram = HistogramMetric()  # the same observations' tail
+        self.rejected = CounterMetric()
+        self._ewma = 0.0  # the decaying signal admit() compares against
+        self._ewma_lock = threading.Lock()
+
+    def observe(self, seconds: float):
+        s = max(0.0, float(seconds))
+        self.latency.inc(s)
+        self.histogram.observe(s)
+        with self._ewma_lock:
+            self._ewma = s if self.latency.count <= 1 else \
+                self.EWMA_ALPHA * s + (1.0 - self.EWMA_ALPHA) * self._ewma
+
+    def admit(self, deadline: Deadline):
+        """Raise RejectedExecutionError (429) when the remaining budget
+        cannot cover one expected shard phase; a no-op while unbounded or
+        cold."""
+        remaining = deadline.remaining()
+        if remaining is None or self.latency.count < self.min_samples:
+            return
+        expected = self._ewma
+        if remaining < expected:
+            self.rejected.inc()
+            err = RejectedExecutionError(
+                f"rejected before fan-out: remaining budget "
+                f"[{remaining * 1000:.0f}ms] < expected shard phase "
+                f"[{expected * 1000:.0f}ms]")
+            # the hint: when the request WOULD be servable, one phase on
+            err.retry_after_s = max(expected, 0.001)
+            raise err
+
+    def stats(self) -> dict:
+        return {
+            "observed": self.latency.count,
+            "mean_shard_phase_ms": round(self.latency.mean * 1000.0, 3),
+            "ewma_shard_phase_ms": round(self._ewma * 1000.0, 3),
+            "rejected": self.rejected.count,
+            "shard_phase": self.histogram.stats(),
+        }

@@ -9,6 +9,10 @@ compaction packs) and `warmer` (the other packs off the query path). The JAX
 package's one-shot timer wheel serves hedged and timed shard attempts, which
 wait for the slice with replicas.
 
+Each pool records the wait of every task in its queue in a
+`HistogramMetric` (`pool_histograms()`), which the stall watchdog reads for
+queue-wait spikes. A scheduled task stops at `cancel()`.
+
 `shutdown()` stops the scheduler and shuts every executor down without
 waiting: an idle worker exits at once, so after `Node.close()` no pool
 thread keeps the process alive."""
@@ -21,6 +25,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 from .common.errors import RejectedExecutionError
 from .common.logging import get_logger
+from .common.metrics import HistogramMetric
 
 logger = get_logger("threadpool")
 
@@ -41,6 +46,10 @@ class _ScheduledTask:
         self.fn = fn
         self.pool = pool
         self.next = time.monotonic() + interval
+        self.cancelled = threading.Event()
+
+    def cancel(self):
+        self.cancelled.set()
 
 
 class _BoundedPool:
@@ -59,6 +68,9 @@ class _BoundedPool:
         self.active = 0
         self.rejected = 0
         self.completed = 0
+        # time each task spent queued: "slow because queued" apart from
+        # "slow because running"
+        self.queue_wait = HistogramMetric()
 
     def submit(self, fn, *args, **kwargs) -> Future:
         with self._lock:
@@ -72,7 +84,8 @@ class _BoundedPool:
                         f"(queued [{self.queued}], active [{self.active}])")
             self.queued += 1
         try:
-            return self.executor.submit(self._run, fn, args, kwargs)
+            return self.executor.submit(self._run, fn, args, kwargs,
+                                        time.monotonic())
         except RuntimeError:
             with self._lock:
                 self.queued -= 1
@@ -80,7 +93,8 @@ class _BoundedPool:
             raise RejectedExecutionError(
                 f"rejected execution on [{self.name}]: pool is shut down") from None
 
-    def _run(self, fn, args, kwargs):
+    def _run(self, fn, args, kwargs, t_submit: float):
+        self.queue_wait.observe(time.monotonic() - t_submit)
         with self._lock:
             self.queued -= 1
             self.active += 1
@@ -141,6 +155,7 @@ class ThreadPool:
         while not self._shutdown.wait(0.05):
             now = time.monotonic()
             with self._tasks_lock:
+                self._tasks = [t for t in self._tasks if not t.cancelled.is_set()]
                 due = [t for t in self._tasks if now >= t.next]
             for task in due:
                 task.next = now + task.interval
@@ -159,3 +174,7 @@ class ThreadPool:
 
     def stats(self) -> dict:
         return {name: pool.stats() for name, pool in self._pools.items()}
+
+    def pool_histograms(self) -> dict:
+        """name -> that pool's queue-wait HistogramMetric."""
+        return {name: pool.queue_wait for name, pool in self._pools.items()}

@@ -1,7 +1,8 @@
-"""Seeded device-error injection for the fault-domain circuits — the port of
-the JAX package's `transport/faults.py` `DeviceFaults` and
-`make_device_error` (its transport `FaultPolicy` comes with the slice with
-two nodes, its `DevicePullFaults` with the stall watchdog).
+"""Seeded device-error injection for the fault-domain circuits, and stall
+injection for the batch's one pull — the port of the JAX package's
+`transport/faults.py` `DeviceFaults`, `make_device_error` and
+`DevicePullFaults` (its transport `FaultPolicy` comes with the slice with
+two nodes).
 
 The kinds are the JAX package's, and each keeps its JAX class under the
 port's classifier (common/devicehealth), so one arm moves both packages'
@@ -123,3 +124,54 @@ class DeviceFaults:
 # the port's own process-wide injector (a process that runs both packages
 # arms each package's apart)
 DEVICE_FAULTS = DeviceFaults()
+
+
+class DevicePullFaults:
+    """Deterministic stall injection for a batch's one device→host wait
+    (search/execute.wait_pull): a pull whose owning index matches `index`
+    sleeps `delay_s` before it waits, at most `times` injections in all
+    (then it disarms itself). It wedges the drainer's merge the way a hung
+    card would, for the stall watchdog's tests.
+
+    The hot-path gate is one attribute read (`active`, a plain bool; the
+    shipped default is disarmed). `delay_for` takes only the leaf `_lock`
+    for the countdown when armed; the caller sleeps outside it."""
+
+    def __init__(self):
+        self.active = False  # the one hot-path read
+        self._lock = threading.Lock()
+        self._delay_s = 0.0
+        self._index = "*"
+        self._remaining = 0
+        self.injected = 0
+
+    def arm(self, delay_s: float, index: str = "*", times: int = 1):
+        with self._lock:
+            self._delay_s = float(delay_s)
+            self._index = index
+            self._remaining = int(times)
+            self.active = True
+        return self
+
+    def disarm(self):
+        with self._lock:
+            self.active = False
+            self._remaining = 0
+
+    def delay_for(self, index: str | None) -> float:
+        """The stall to apply to one pull (0.0: none); decrements the
+        budget under the leaf lock."""
+        with self._lock:
+            if not self.active or self._remaining <= 0:
+                return 0.0
+            if not _glob_match(str(index), self._index):
+                return 0.0
+            self._remaining -= 1
+            if self._remaining <= 0:
+                self.active = False
+            self.injected += 1
+            return self._delay_s
+
+
+# the port's own process-wide stall injector
+DEVICE_PULL = DevicePullFaults()

@@ -8,10 +8,11 @@ gateway, the master-node actions) against the JAX package's.
   tables (replicas stay unassigned: health yellow).
 - A created index's metadata — settings, and mappings after dynamic mapping
   through the index API — equals the JAX node's, as does cluster health.
-- A node started with another node's address, a restart over the same
-  `path.data`, and the tcp transport raise NotPortedError naming the later
-  slice; the state's blocks lift only once the node elected itself and
-  recovered."""
+- A node started with another node's address, a gateway that waits for
+  more than one node, and the tcp transport raise NotPortedError naming
+  the later slice; a restart over the same `path.data` starts
+  (tests/test_torch_gateway.py holds what it recovers); the state's blocks
+  lift only once the node elected itself and recovered."""
 
 import numpy as np
 import pytest
@@ -181,6 +182,14 @@ def test_lone_node_raises_for_what_a_later_slice_serves(tmp_path):
         assert node.cluster_service.state.nodes.master_id == "t2"
     finally:
         node.close()
-    with pytest.raises(NotPortedError, match="gateway-recovery"):
-        PNode(name="t3", settings={"node.device": "cpu"}, registry=PReg(),
-              data_path=str(tmp_path / "b"))
+    with pytest.raises(NotPortedError, match="slice with two"):
+        PNode(name="t3", settings={"node.device": "cpu",
+                                   "gateway.recover_after_nodes": 2},
+              registry=PReg(), data_path=str(tmp_path / "b"))
+    node = PNode(name="t3", settings={"node.device": "cpu"}, registry=PReg(),
+                 data_path=str(tmp_path / "b"))
+    try:
+        node.start()
+        assert node.cluster_service.state.blocks.global_blocks == ()
+    finally:
+        node.close()

@@ -125,8 +125,13 @@ def test_sparse_k_exceeds_slots():
     with compile_tag("sparse"):
         ref = [np.asarray(x) for x in jscoring.score_sparse_batch_async(
             jp, jscoring.SparseBatch(**fields), k, sim=jsim)]
+    # the port stages a bucket's arrays as views into one buffer
+    st = tscoring.StagingSet(8, d["qblk"].shape[1], d["coord"].shape[1])
+    for name, arr in st.arrays.items():
+        arr[...] = d[name]
     out = [x.numpy() for x in tscoring.score_sparse_batch_async(
-        tp, tscoring.SparseBatch(**fields), k, sim=tsim)]
+        tp, tscoring.SparseBatch(**dict(fields, **st.arrays), staging=st), k,
+        sim=tsim)]
     assert out[0].shape == (8, 8 * BLOCK)
     assert np.isneginf(out[0]).any()
     _assert_bitwise(ref, out)
