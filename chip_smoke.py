@@ -11,7 +11,8 @@ then the serving path — concurrent single requests through
 `parse_search_body` → `execute_query_phase` → the `DeviceBatcher` — then a
 port `Node` serving REST `_bulk` and `_search` over HTTP, then the dense
 request-feature family (filtered, post_filter, min_score, function_score)
-at full width, then the percolator, and holds every hand-written kernel of
+at full width, then the percolator, then an index with custom analysis and
+the flat mapper's field types, and holds every hand-written kernel of
 those paths against its plain torch version on the card. Phases:
 
   1. card facts (nvidia-smi, torch / CUDA / nvcc versions), build the kernels
@@ -138,9 +139,10 @@ those paths against its plain torch version on the card. Phases:
      request by family (CUDA events and host wall), launches and copies a
      request, the resident bytes of the agg rows and bucket columns, and
      the top device ops of one `aggs_terms` request. The node leg, on phase
-     10's node before it closes: a `catalog` index (5 shards) of 50,000 of
-     phase 10's texts with `pop`, `likes` and `cat`, bulked over HTTP, then
-     256 `_search` requests from the same 64 connections drawn in a seeded
+     10's node before it closes: a `catalog` index (5 shards) of 25,000 of
+     phase 10's texts (50,000 before phase 18 joined the run) with `pop`,
+     `likes` and `cat`, bulked over HTTP, then 128 `_search` requests (256
+     before phase 18) from the same 64 connections drawn in a seeded
      order from the library leg's families, a `facets` body and a
      `?sort=pop:desc` URL, under `set_sync_debug_mode("error")`; every
      response equal to the shards' host query phases reduced by `sort_docs`
@@ -258,6 +260,37 @@ those paths against its plain torch version on the card. Phases:
      windows left `device_degraded` and `device_recovered` events in phase
      10's journal. The kernel is bitwise equal to its plain version at
      every shape phase 17 launched.
+ 18. analysis, similarities and the flat mapper, on a port node of its own
+     on the card (5 shards, `refresh_interval: -1`, as phase 10's): a
+     site-search index `library` in the shape Elasticsearch's 1.x guide
+     documents, 20,000 seeded English-like documents (2,000 generated stems
+     under the suffixes "", s, es, ed, ing, ation, ness, drawn zipf(1.2);
+     Lucene's 33 English stop words at about 40% of the tokens; bodies of
+     poisson(60) tokens with a little HTML, titles of 6-12), an `english`
+     title with `raw` and `shingles` sub-fields and copies into
+     `title_shingles` and `title_raw` (parsing fills no sub-field, as in the
+     JAX package), a `body_en` body (html_strip, standard, lowercase, stop,
+     50 seeded synonym groups, porter_stem) with a `copy_to` catch-all and a
+     token_count sub-field, `ip`, `integer`, a `token_count` `words`,
+     `_routing.path` and `_timestamp`, BM25 with k1 1.4 and b 0.6; and
+     `library_dfr`, 5,000 of the documents in 1 shard under DFR (g, l, h2).
+     `GET /library/_mapping` renders the sub-fields and copy_to; a
+     single-document write without routing into a `_routing.required` type
+     answers 400, a `_bulk` item without one is indexed (both as the JAX
+     node does). 512 `_search` requests from 32 connections in a seeded
+     order, an eighth each of `match` on `body`, `match` on the title's
+     shingles, an exact title, `query_string` on the catch-all with the
+     english analyzer, a 4-term `bool` across title and body, `multi_match`,
+     `ip_range` and a sort on `words` (a sixteenth each, the card's dense
+     family), and `match` on `library_dfr`; the run under
+     `set_sync_debug_mode("error")`. Every response equals the node's own
+     host query phases reduced (the card's families within 2 ulp,
+     tie-tolerant, `library_dfr` bitwise, `ip_range` counts exact); the
+     DFR requests alone launch nothing and count only `host`. Bulk docs/s
+     beside phase 10's, the mapper's parse CPU ms a document, requests/s,
+     p50/p99 by family, `sparse_score` launches and ms a launch at each
+     shape, the device's idle share over a profiled window; the kernel is
+     bitwise equal to its plain version at every shape phase 18 launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -333,7 +366,9 @@ SORT_AGG_COUNTER = {"sort_asc": "device_sort", "sort_desc_scores": "device_sort"
                     "sort_url": "device_sort"}
 # phase 13's node leg: the `catalog` index (5 shards) and its traffic, the
 # library leg's families plus a `facets` body and a `?sort=pop:desc` URL
-CATALOG_DOCS, CATALOG_REQUESTS = 50_000, 256
+# (50,000 docs and 256 requests before phase 18 joined the run: cut for the
+# run's time)
+CATALOG_DOCS, CATALOG_REQUESTS = 25_000, 128
 AGG_RTOL = 1e-5  # a sum or average from the card (tests/test_device_aggs.py)
 # phase 14's node leg: the `writes` index (5 shards), its rounds of a _bulk
 # of NODE_BULK docs, _refresh and WRITE_REQUESTS _search requests
@@ -385,6 +420,15 @@ ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_de
 PERC_QUERIES, PERC_DOCS = 10_000, 32
 PERC_NODE_QUERIES, PERC_REQUESTS, PERC_CONNECTIONS = 1000, 128, 16
 PERC_MULTI, PERC_MULTI_ITEMS, PERC_EXISTING, PERC_DELETES = 8, 8, 16, 100
+# phase 18: the `library` index (20,000 docs, cut from a real deployment's
+# millions for the run's time), `library_dfr` (5,000 of them), the traffic
+# and its connections; the text: stems, their zipf exponent, the stop words'
+# share of tokens, mean tokens a body, synonym groups, tenants
+ANALYSIS_DOCS, ANALYSIS_DFR_DOCS = 20_000, 5_000
+ANALYSIS_REQUESTS, ANALYSIS_CALLERS = 512, 32
+ANALYSIS_PROFILED = 128  # `library` requests in phase 18's profiled window
+ANALYSIS_STEMS, ANALYSIS_ZIPF, ANALYSIS_STOP_SHARE = 2000, 1.2, 0.4
+ANALYSIS_BODY, ANALYSIS_SYNONYMS, ANALYSIS_TENANTS = 60, 50, 16
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -871,7 +915,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         catalog_requests: int = CATALOG_REQUESTS, write_docs: int = WRITE_DOCS,
         write_requests: int = WRITE_REQUESTS, perc_queries: int = PERC_QUERIES,
         perc_docs: int = PERC_DOCS, perc_node_queries: int = PERC_NODE_QUERIES,
-        perc_requests: int = PERC_REQUESTS) -> dict:
+        perc_requests: int = PERC_REQUESTS, analysis_docs: int = ANALYSIS_DOCS,
+        analysis_dfr_docs: int = ANALYSIS_DFR_DOCS,
+        analysis_requests: int = ANALYSIS_REQUESTS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -1260,6 +1306,11 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
             (f"{key}: {SERVING_COUNTERS[key]} in the run, {faults[key]} of them phase "
              f"15's, {perc[key]} phase 16's")
 
+    # -- 18. analysis, similarities and the flat mapper on a node of its own --
+    report["analysis"] = analysis = analysis_phase(
+        device, seed=seed + 18, n_docs=analysis_docs, n_dfr_docs=analysis_dfr_docs,
+        n_requests=analysis_requests, phase10_docs_per_s=node["bulk_docs_per_s"])
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1273,7 +1324,10 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         percolate_launches=node["percolate"]["node"]["launches"],
         percolate_shapes=[(s["Qb"], s["TB"], s["k"])
                           for s in node["percolate"]["library"]["shapes"]],
-        percolate_max_abs_err=node["percolate"]["library"]["kernel_max_abs_err"])]
+        percolate_max_abs_err=node["percolate"]["library"]["kernel_max_abs_err"],
+        analysis_launches=analysis["launches"].get("sparse_score", 0),
+        analysis_shapes=[(s["Qb"], s["TB"], s["k"]) for s in analysis["kernel_shapes"]],
+        analysis_max_abs_err=analysis["kernel_max_abs_err"])]
     return report
 
 
@@ -4752,6 +4806,491 @@ def restart_phase(device, node10, *, texts, bodies, n_docs: int = RESTART_DOCS,
                            period_s=dog.interval_s, search_s=out["dt"]),
                 events=events, phase10_journal=journal, kernel_shapes=len(recorder.shapes),
                 kernel_max_abs_err=max_err, wall_s=wall_s)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: analysis, similarities and the flat mapper on the card
+# ---------------------------------------------------------------------------
+
+# Lucene's English stop set (StopAnalyzer.ENGLISH_STOP_WORDS_SET, the port's
+# analysis/core.py ENGLISH_STOP_WORDS)
+ENGLISH_STOP = ("a an and are as at be but by for if in into is it no not of on or "
+                "such that the their then there these they this to was will with").split()
+ANALYSIS_SUFFIXES = ("", "s", "es", "ed", "ing", "ation", "ness")
+_CONSONANTS, _VOWELS = "bcdfghklmnprstvwz", "aeiou"
+
+
+def analysis_vocab(rng, n_stems: int) -> list[str]:
+    """`n_stems` distinct pronounceable stems (2-3 consonant-vowel
+    syllables and a closing consonant), seeded."""
+    stems, seen = [], set()
+    while len(stems) < n_stems:
+        n = int(rng.integers(2, 4))
+        w = "".join(_CONSONANTS[int(rng.integers(len(_CONSONANTS)))]
+                    + _VOWELS[int(rng.integers(len(_VOWELS)))] for _ in range(n))
+        w += _CONSONANTS[int(rng.integers(len(_CONSONANTS)))]
+        if w not in seen:
+            seen.add(w)
+            stems.append(w)
+    return stems
+
+
+class EnglishText:
+    """Phase 18's English-like text: stems drawn zipf(ANALYSIS_ZIPF) under
+    the suffixes, the stop words mixed in at ANALYSIS_STOP_SHARE."""
+
+    def __init__(self, rng, stems: list[str]):
+        self.rng, self.stems = rng, stems
+        p = 1.0 / np.arange(1, len(stems) + 1) ** ANALYSIS_ZIPF
+        self.cdf = np.cumsum(p / p.sum())
+
+    def words(self, n: int, stop_share: float = ANALYSIS_STOP_SHARE) -> list[str]:
+        rng = self.rng
+        ranks = np.minimum(np.searchsorted(self.cdf, rng.random(n)), len(self.stems) - 1)
+        suffix = rng.integers(0, len(ANALYSIS_SUFFIXES), n)
+        stop = rng.random(n) < stop_share
+        stops = rng.integers(0, len(ENGLISH_STOP), n)
+        return [ENGLISH_STOP[int(stops[i])] if stop[i] else
+                self.stems[int(ranks[i])] + ANALYSIS_SUFFIXES[int(suffix[i])]
+                for i in range(n)]
+
+
+def analysis_documents(n_docs: int, seed: int):
+    """(stems, synonym rules, documents) of phase 18's `library` index."""
+    rng = np.random.default_rng(seed)
+    stems = analysis_vocab(rng, ANALYSIS_STEMS)
+    text = EnglishText(rng, stems)
+    groups = rng.choice(500, size=(ANALYSIS_SYNONYMS, 3), replace=False)
+    rules = [",".join(stems[int(i)] for i in g[: 2 + int(rng.integers(0, 2))])
+             for g in groups]
+    docs = []
+    for i in range(n_docs):
+        words = text.words(max(1, int(rng.poisson(ANALYSIS_BODY))))
+        if rng.random() < 0.3:  # a little markup
+            a = int(rng.integers(0, len(words)))
+            words[a] = f"<b>{words[a]}</b>"
+            words.insert(0, "<p>")
+            words.append("</p>")
+        body = " ".join(words)
+        docs.append({
+            "title": " ".join(text.words(int(rng.integers(6, 13)), stop_share=0.25)),
+            "body": body,
+            "words": len(words),
+            "client_ip": "%d.%d.%d.%d" % tuple(int(x) for x in rng.integers(1, 255, 4)),
+            "views": int(rng.integers(0, 100_000)),
+            "tenant": f"tenant{int(rng.integers(0, ANALYSIS_TENANTS))}",
+            "published": f"2014-{1 + i % 12:02d}-{1 + i % 28:02d}T{i % 24:02d}:00:00Z"})
+    return stems, rules, docs
+
+
+def analysis_index_body(rules: list[str], n_shards: int, similarity: dict) -> dict:
+    """The `library` index: an `english` title with a not-analyzed `raw` and
+    a `shingles` sub-field, a `body_en` body (html_strip, standard,
+    lowercase, stop, synonyms, porter_stem) with a `copy_to` catch-all and a
+    token_count sub-field, `ip`, `integer`, `token_count`, `_routing.path`
+    and `_timestamp`. As in the JAX package, parsing fills no sub-field, so
+    the title also copies into `title_shingles` and `title_raw`, which the
+    shingle and exact-match traffic reads."""
+    return {
+        "settings": {
+            "number_of_shards": n_shards, "number_of_replicas": 0,
+            "refresh_interval": -1,
+            "index": {"similarity": {"default": similarity}},
+            "analysis": {
+                "filter": {"syn": {"type": "synonym", "synonyms": rules},
+                           "sh": {"type": "shingle", "min_shingle_size": 2,
+                                  "max_shingle_size": 3}},
+                "analyzer": {
+                    "body_en": {"char_filter": ["html_strip"], "tokenizer": "standard",
+                                "filter": ["lowercase", "stop", "syn", "porter_stem"]},
+                    "shingles": {"tokenizer": "standard",
+                                 "filter": ["lowercase", "sh"]}}}},
+        "mappings": {
+            "book": {
+                "_routing": {"path": "tenant"},
+                "_timestamp": {"enabled": True, "path": "published"},
+                "properties": {
+                    "title": {"type": "string", "analyzer": "english",
+                              "fields": {"raw": {"type": "string",
+                                                 "index": "not_analyzed"},
+                                         "shingles": {"type": "string",
+                                                      "analyzer": "shingles"}},
+                              "copy_to": ["title_shingles", "title_raw"]},
+                    "title_shingles": {"type": "string", "analyzer": "shingles"},
+                    "title_raw": {"type": "string", "index": "not_analyzed"},
+                    "body": {"type": "string", "analyzer": "body_en",
+                             "copy_to": "all_text",
+                             "fields": {"length": {"type": "token_count",
+                                                   "analyzer": "standard"}}},
+                    "words": {"type": "token_count", "analyzer": "standard"},
+                    "client_ip": {"type": "ip"},
+                    "views": {"type": "integer"},
+                    "tenant": {"type": "string", "index": "not_analyzed"},
+                    "published": {"type": "date"}}},
+            "private": {"_routing": {"required": True},
+                        "properties": {"body": {"type": "string",
+                                                "analyzer": "body_en"}}}}}
+
+
+def analysis_traffic(rng, stems, docs, analysis, n_requests: int) -> list[tuple]:
+    """Phase 18's requests in a seeded order: (family, index, body), an
+    eighth each of `match` on `body`, `match` on the title's shingles, an
+    exact title, `query_string` on the catch-all with the english analyzer,
+    a 4-term `bool` across title and body, `multi_match`, `ip_range` and a
+    sort on a token_count field (a sixteenth each), and the `match` bodies
+    sent to `library_dfr`."""
+    text = EnglishText(rng, stems)
+    per = n_requests // 8
+    english, body_en = analysis.analyzer("english"), analysis.analyzer("body_en")
+
+    def term(analyzer):
+        while True:
+            terms = analyzer.terms(text.words(1, stop_share=0.0)[0])
+            if terms:
+                return terms[0]
+
+    out = []
+    for _ in range(per):
+        out.append(("match", "library", {"query": {"match": {
+            "body": " ".join(text.words(int(rng.integers(2, 5)), 0.0))}}, "size": 10}))
+        out.append(("shingles", "library", {"query": {"match": {
+            "title_shingles": " ".join(text.words(int(rng.integers(2, 4)), 0.0))}},
+            "size": 10}))
+        out.append(("raw", "library", {"query": {"term": {
+            "title_raw": docs[int(rng.integers(len(docs)))]["title"]}}, "size": 10}))
+        out.append(("query_string", "library", {"query": {"query_string": {
+            "query": " ".join(text.words(int(rng.integers(2, 4)), 0.0)),
+            "default_field": "all_text", "analyzer": "english"}}, "size": 10}))
+        out.append(("bool", "library", {"query": {"bool": {"should": [
+            {"term": {"title": term(english)}}, {"term": {"body": term(body_en)}},
+            {"term": {"title": term(english)}}, {"term": {"body": term(body_en)}}]}},
+            "size": 10}))
+        out.append(("multi_match", "library", {"query": {"multi_match": {
+            "query": " ".join(text.words(int(rng.integers(2, 4)), 0.0)),
+            "fields": ["title", "body"]}}, "size": 10}))
+        out.append(("dfr", "library_dfr", {"query": {"match": {
+            "body": " ".join(text.words(int(rng.integers(2, 5)), 0.0))}}, "size": 10}))
+    for _ in range(per // 2):
+        out.append(("ip_range", "library", {"query": {"match": {
+            "body": " ".join(text.words(2, 0.0))}}, "size": 0, "aggs": {"ips": {
+                "ip_range": {"field": "client_ip", "ranges": [
+                    {"to": "64.0.0.0"}, {"from": "64.0.0.0", "to": "128.0.0.0"},
+                    {"from": "128.0.0.0", "to": "192.168.0.0"},
+                    {"from": "192.168.0.0"}]}}}}))
+        out.append(("sort", "library", {"query": {"match": {
+            "body": " ".join(text.words(2, 0.0))}}, "size": 10,
+            "sort": [{"words": {"order": "desc"}}]}))
+    return [out[i] for i in rng.permutation(len(out))]
+
+
+def analysis_phase(device, *, seed: int, n_docs: int = ANALYSIS_DOCS,
+                   n_dfr_docs: int = ANALYSIS_DFR_DOCS,
+                   n_requests: int = ANALYSIS_REQUESTS,
+                   n_callers: int = ANALYSIS_CALLERS,
+                   phase10_docs_per_s: float | None = None) -> dict:
+    """Phase 18: a port Node of its own on `device` (5 shards, like phase
+    10's) holding `library`, a site-search index with custom analysis, the
+    flat mapper's multi-fields, copy_to, ip, token_count, `_routing` and
+    `_timestamp`, and BM25 with its own k1 and b, and `library_dfr` (1
+    shard, DFR). Every response equals the node's own host query phases
+    reduced; `library_dfr` launches nothing on the card."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch import actions as tactions
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.mapper.core import DocumentMapper
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score, sparse_score_plain
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, ShardContext, execute_query_phase, merge_responses,
+        parse_search_body, sort_docs)
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    stems, rules, docs = analysis_documents(n_docs, seed)
+    steps = {"documents": time.perf_counter() - t_phase}
+    data_path = Path(__file__).resolve().parent / "build" / f"chip_smoke_analysis_{os.getpid()}"
+    shutil.rmtree(data_path, ignore_errors=True)
+    node = Node(name="analysis", registry=LocalTransportRegistry(), data_path=str(data_path),
+                settings={"node.device": str(device)}).start()
+    recorder = None
+    try:
+        port = node.start_http(0).port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        st, r = http_json(conn, "PUT", "/library", analysis_index_body(
+            rules, NODE_SHARDS, {"type": "BM25", "k1": 1.4, "b": 0.6}))
+        assert st == 200 and r["acknowledged"], r
+        st, r = http_json(conn, "PUT", "/library_dfr", analysis_index_body(
+            rules, 1, {"type": "DFR", "basic_model": "g", "after_effect": "l",
+                       "normalization": "h2"}))
+        assert st == 200 and r["acknowledged"], r
+
+        # -- the bulk, with the mapper's parse timed in its own threads ------
+        parse_cpu = {"s": 0.0, "docs": 0}
+        lock = threading.Lock()
+        orig_parse = DocumentMapper.parse
+
+        def timed_parse(self, *a, **kw):
+            t0 = time.thread_time()
+            try:
+                return orig_parse(self, *a, **kw)
+            finally:
+                dt = time.thread_time() - t0
+                with lock:
+                    parse_cpu["s"] += dt
+                    parse_cpu["docs"] += 1
+
+        def bulk(index, lo, hi):
+            for start in range(lo, hi, NODE_BULK):
+                lines = []
+                for i in range(start, min(start + NODE_BULK, hi)):
+                    lines.append(json.dumps({"index": {"_index": index, "_type": "book",
+                                                       "_id": str(i)}}))
+                    lines.append(json.dumps(docs[i]))
+                st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+                assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+
+        DocumentMapper.parse = timed_parse
+        try:
+            t0 = time.perf_counter()
+            bulk("library", 0, n_docs)
+            bulk_s = time.perf_counter() - t0
+        finally:
+            DocumentMapper.parse = orig_parse
+        t0 = time.perf_counter()
+        bulk("library_dfr", 0, min(n_dfr_docs, n_docs))
+        steps["bulk"], steps["bulk_dfr"] = bulk_s, time.perf_counter() - t0
+        for index in ("library", "library_dfr"):
+            st, r = http_json(conn, "POST", f"/{index}/_refresh")
+            assert st == 200 and r["_shards"]["failed"] == 0, r
+        parse_ms = parse_cpu["s"] * 1e3 / max(parse_cpu["docs"], 1)
+
+        # -- the mapping and the routing rules -------------------------------
+        st, m = http_json(conn, "GET", "/library/_mapping")
+        assert st == 200, m
+        props = m["library"]["mappings"]["book"]["properties"]
+        assert set(props["title"]["fields"]) == {"raw", "shingles"}, props["title"]
+        assert props["title"]["copy_to"] == ["title_shingles", "title_raw"], props["title"]
+        # the mapping as the index was created with it (a `_bulk` does not
+        # put the dynamic copy_to target into the cluster's mapping)
+        assert props["body"]["copy_to"] == "all_text" and \
+            props["body"]["fields"]["length"]["type"] == "token_count", props["body"]
+        assert props["client_ip"] == {"type": "ip"}, props
+        assert m["library"]["mappings"]["book"]["_routing"] == {"path": "tenant"}
+        st, r = http_json(conn, "PUT", "/library/private/p1", {"body": "no routing"})
+        assert st == 400 and r["error"]["type"] == "RoutingMissingException", (st, r)
+        st, r = http_json(conn, "PUT", "/library/private/p1?routing=tenant1",
+                          {"body": "routed"})
+        assert st == 201, (st, r)
+        # a _bulk item is not checked for its routing, in either package
+        st, r = http_json(conn, "POST", "/_bulk", ndjson=json.dumps(
+            {"index": {"_index": "library", "_type": "private", "_id": "p2"}}) + "\n"
+            + json.dumps({"body": "bulk without routing"}) + "\n")
+        assert st == 200 and not r["errors"] and \
+            r["items"][0]["index"]["status"] == 201, r
+        st, r = http_json(conn, "GET", "/library/book/7")
+        assert st == 200 and r["_source"] == docs[7], r
+        st, r = http_json(conn, "POST", "/library/_refresh")
+        assert st == 200, r
+        conn.close()
+
+        svc = {i: node.indices.index_service(i) for i in ("library", "library_dfr")}
+        searchers = {i: [svc[i].shard(sid).engine.acquire_searcher()
+                         for sid in sorted(svc[i].shards)] for i in svc}
+        ctxs = {i: [ShardContext(sr, svc[i].mapper_service, svc[i].similarity_service,
+                                 device=device) for sr in searchers[i]] for i in svc}
+        assert sum(sr.max_doc for sr in searchers["library"]) == n_docs + 2
+        fields = sorted(searchers["library"][0].segments[0].term_dict)
+        terms = {f: sum(len(s.segments[0].term_dict.get(f, ())) for s in
+                        searchers["library"]) for f in ("title", "title_shingles", "body",
+                                                        "all_text")}
+        log(f"[18] `library` on {device}: {n_docs} docs over HTTP in _bulk requests of "
+            f"{NODE_BULK} into {NODE_SHARDS} shards: {n_docs / bulk_s:.1f} docs/s "
+            f"({bulk_s:.1f} s; phase 10 "
+            + (f"{phase10_docs_per_s:.1f}" if phase10_docs_per_s else "not run")
+            + f" docs/s with the standard analyzer); DocumentMapper.parse {parse_ms:.3f} "
+            f"CPU ms a document over {parse_cpu['docs']} parses; {len(fields)} indexed "
+            f"fields a segment; terms a shard's first segment summed: {terms}; "
+            f"`library_dfr` {min(n_dfr_docs, n_docs)} docs, 1 shard; {card}")
+
+        # -- the traffic ------------------------------------------------------
+        rng = np.random.default_rng(seed + 1)
+        traffic = analysis_traffic(rng, stems, docs, svc["library"].mapper_service.analysis,
+                                   n_requests)
+        requests = [(f"/{index}/_search", body) for _f, index, body in traffic]
+        families = np.array([f for f, _i, _b in traffic])
+        # first sightings pack each shard and build its sort keys and bucket
+        # columns: warm before the clock
+        t0 = time.perf_counter()
+        warm = serve_http(port, requests[: 2 * n_callers], n_callers, sync_error=False)
+        assert not warm[3], warm[3][:3]
+        steps["warm"] = time.perf_counter() - t0
+        recorder = LaunchRecorder(scoring, sparse_score)
+        before = dict(SERVING_COUNTERS)
+        cudaenv.LAUNCHES.reset()
+        responses, lat_ms, wall_s, errors, host_cpu = serve_http(
+            port, requests, n_callers, sync_error=on_card)
+        launches = cudaenv.LAUNCHES.snapshot()
+        counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items() if v != before[k]}
+        recorder.close()
+        steps["run"] = wall_s
+        assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
+        n_of = {f: int((families == f).sum()) for f in set(families)}
+        assert counted.get("device_sparse", 0) > 0, counted
+        assert counted.get("device_aggs", 0) == NODE_SHARDS * n_of["ip_range"], counted
+        assert counted.get("device_sort", 0) == NODE_SHARDS * n_of["sort"], counted
+        assert counted.get("degraded", 0) == 0 and counted.get("device_errors", 0) == 0, \
+            counted
+        if on_card:
+            assert launches.get("sparse_score", 0) > 0, "sparse_score never launched in phase 18"
+
+        # -- every response against the node's own host query phases ----------
+        t0 = time.perf_counter()
+        exact = dict.fromkeys(n_of, 0)
+        for i, ((family, index, body), (st, r)) in enumerate(zip(traffic, responses)):
+            shards = len(ctxs[index])
+            assert st == 200, (i, family, r)
+            assert r["_shards"] == {"total": shards, "successful": shards,
+                                    "degraded": 0, "failed": 0}, (i, r["_shards"])
+            req = parse_search_body(body)
+            res = [execute_query_phase(c, req, use_device=False, shard_id=sid)
+                   for sid, c in enumerate(ctxs[index])]
+            merged = sort_docs(req, res)
+            want = merge_responses(req, merged, res, [], took_ms=0,
+                                   total_shards=shards, successful=shards)
+            assert r["hits"]["total"] == want["hits"]["total"], (i, family, "total")
+            want_hits = []
+            for score, sid, doc, sv in merged.hits[req.from_: req.from_ + req.size]:
+                seg, local = searchers[index][sid].resolve(doc)
+                want_hits.append((score, (sid, seg.ids[local]), sv))
+            got_hits = [(float("nan") if h["_score"] is None else h["_score"],
+                         (h["_shard"], h["_id"]), h.get("sort")) for h in r["hits"]["hits"]]
+            if family == "dfr":  # both answers from the host scorer
+                assert got_hits == want_hits, (i, family, "hits")
+            else:
+                assert shard_docs_match(got_hits, want_hits, bool(req.sort)), \
+                    (i, family, "hits")
+            exact[family] += len(got_hits) == len(want_hits) and all(
+                g[1:] == w[1:] and (g[0] == w[0] or (g[0] != g[0] and w[0] != w[0]))
+                for g, w in zip(got_hits, want_hits))
+            if req.aggs:
+                agg_close(r["aggregations"], want["aggregations"], req.body, AGG_RTOL,
+                          f"{family}[{i}]")
+                assert sum(b["doc_count"] for b in r["aggregations"]["ips"]["buckets"]) \
+                    == r["hits"]["total"], (i, r["aggregations"])
+        check_s = steps["check"] = time.perf_counter() - t0
+        totals = {f: int(sum(r["hits"]["total"] for (g, _i, _b), (_s, r)
+                             in zip(traffic, responses) if g == f)) for f in n_of}
+        assert all(v > 0 for v in totals.values()), totals
+
+        # -- library_dfr alone: no device work --------------------------------
+        dfr = [req for req, f in zip(requests, families) if f == "dfr"]
+        before = dict(SERVING_COUNTERS)
+        cudaenv.LAUNCHES.reset()
+        d_resp, _dl, d_wall, d_err, _dc = serve_http(port, dfr, n_callers, sync_error=on_card)
+        dfr_launches = cudaenv.LAUNCHES.snapshot()
+        steps["dfr_run"] = d_wall
+        dfr_counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items() if v != before[k]}
+        assert not d_err, d_err[:3]
+        assert dfr_counted == {"host": len(dfr)}, dfr_counted
+        assert not any(dfr_launches.values()), dfr_launches
+        want_dfr = [r for (f, _i, _b), r in zip(traffic, responses) if f == "dfr"]
+        assert [r["hits"] for _s, r in d_resp] == [r["hits"] for _s, r in want_dfr]
+
+        # -- the kernel at phase 18's shapes -----------------------------------
+        t0 = time.perf_counter()
+        max_err = check_shapes(recorder.shapes)
+        shapes = []
+        for key, (args, kwargs, n) in recorder.shapes.items():
+            nbytes, ops, _real = launch_bound(args, kwargs)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            shapes.append(dict(
+                Qb=int(args[0].shape[0]), TB=int(args[0].shape[1]), tf=str(args[10].dtype),
+                k=kwargs["k"], passes=kwargs["passes"], simple=kwargs["simple"],
+                use_coord=kwargs["use_coord"], launches=n, ms=time_ms(lambda: sparse_score(*args, **kwargs), device, 5),
+                plain_ms=time_ms(lambda: sparse_score_plain(*args, **kwargs), device, 5),
+                bound_ms=b_ms, bound_by=b_by))
+
+        steps["kernel_checks"] = time.perf_counter() - t0
+        by_family = {}
+        for f in n_of:
+            lat = lat_ms[families == f]
+            by_family[f] = dict(requests=int(len(lat)), p50_ms=float(np.percentile(lat, 50)),
+                                p99_ms=float(np.percentile(lat, 99)),
+                                bitwise_share=exact[f] / max(n_of[f], 1))
+        out = dict(docs=n_docs, dfr_docs=min(n_dfr_docs, n_docs), shards=NODE_SHARDS,
+                   bulk_s=bulk_s, bulk_docs_per_s=n_docs / bulk_s,
+                   phase10_docs_per_s=phase10_docs_per_s, parse_cpu_ms_a_doc=parse_ms,
+                   fields_a_segment=len(fields), terms=terms, requests=len(traffic),
+                   callers=n_callers, wall_s=wall_s,
+                   requests_per_s=len(traffic) / wall_s, latency_by_family=by_family,
+                   counters=counted, launches=launches, host_cpu_s=host_cpu,
+                   check_s=check_s, hits_by_family=totals, dfr_wall_s=d_wall,
+                   dfr_counters=dfr_counted, dfr_launches=dfr_launches,
+                   kernel_shapes=shapes, kernel_max_abs_err=max_err, card=card,
+                   sync_debug="error over both timed runs" if on_card else None)
+        log(f"[18] {len(traffic)} _search requests from {n_callers} connections: "
+            f"{out['requests_per_s']:.1f} requests/s ({wall_s:.2f} s); serving counters "
+            f"{counted}; launches {launches}; every response == the node's host query "
+            f"phases reduced (card families within {ULPS} ulp, tie-tolerant; `dfr` "
+            f"bitwise; ip_range counts exact; {check_s:.1f} s); {card}")
+        for f, v in by_family.items():
+            log(f"[18]   {f:13s} {v['requests']:4d} requests: p50 {v['p50_ms']:.2f} ms, "
+                f"p99 {v['p99_ms']:.2f} ms, bitwise {v['bitwise_share']:.4f}, hits "
+                f"{totals[f]}")
+        log(f"[18] `library_dfr` alone: {len(dfr)} requests in {d_wall:.2f} s, counters "
+            f"{dfr_counted}, launches {dfr_launches or 'none'}; hits == the mixed run's")
+        log(f"[18] host CPU s over the {wall_s:.2f} s run, by thread kind: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in host_cpu.items()))
+        for sh in shapes:
+            log(f"[18]   sparse_score Qb {sh['Qb']} TB {sh['TB']} {sh['tf']} k {sh['k']} "
+                f"passes {sh['passes']} simple {sh['simple']} coord {sh['use_coord']}: "
+                f"{sh['launches']} launches, "
+                f"{sh['ms']:.4f} ms a launch (plain {sh['plain_ms']:.4f}, bound "
+                f"{sh['bound_ms']:.6f} {sh['bound_by']})")
+        log(f"[18] sparse_score == plain (bitwise) at all {len(shapes)} shapes phase 18 "
+            f"launched; max abs err {max_err}")
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            lib = [req for req, f in zip(requests, families)
+                   if f != "dfr"][:ANALYSIS_PROFILED]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _r, _l, pwall_s, perrors, _c = serve_http(port, lib, n_callers,
+                                                          sync_error=False)
+            steps["profiled"] = time.perf_counter() - t0
+            assert not perrors, perrors[:3]
+            out["profiled"] = p = device_busy(prof, pwall_s * 1e3)
+            if p["device_busy_ms"]:
+                log(f"[18] profiled window of {len(lib)} `library` requests: wall "
+                    f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+                    f"idle share {p['idle_share']:.4f}; {card}")
+                for name, ms, n in p["top"][:6]:
+                    log(f"[18]   {ms:9.3f} ms {n:5d}x {name}")
+            else:
+                log("[18] profiled window: the profiler saw no device time "
+                    "(device idle share not measured)")
+        out["wall_phase_s"] = time.perf_counter() - t_phase
+        out["steps_s"] = steps
+        log(f"[18] phase 18 took {out['wall_phase_s']:.1f} s; by step (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+        return out
+    finally:
+        if recorder is not None:
+            recorder.close()
+        node.close()
+        shutil.rmtree(data_path, ignore_errors=True)
+        from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER
+
+        for index in ("library", "library_dfr"):
+            PACK_LEDGER.forget(index)
 
 
 def small_sources(n_docs: int, seed: int) -> list[dict]:

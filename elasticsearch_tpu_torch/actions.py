@@ -63,10 +63,12 @@ from .common.errors import (
     IndexMissingError,
     MasterNotDiscoveredError,
     RejectedExecutionError,
+    RoutingMissingError,
     SearchEngineError,
     UnavailableShardsError,
 )
 from .common.logging import get_logger
+from .common.names import is_pattern, name_matches
 from .common.settings import Settings, validate_index_name
 from .indices_service import ACTION_SHARD_STARTED
 from .mapper import MapperService
@@ -82,6 +84,7 @@ from .search.service import (
 from .transport import fut_result
 
 A_CREATE_INDEX = "indices:admin/create"
+A_PUT_MAPPING = "indices:admin/mapping/put"
 A_MAPPING_UPDATED = "internal:cluster/mapping_updated"
 A_INDEX_PRIMARY = "indices:data/write/index[p]"
 A_BULK_SHARD = "indices:data/write/bulk[s]"
@@ -120,6 +123,7 @@ class ActionModule:
         self.admission = SearchAdmissionController()
         t = self.transport
         for action, fn in [(A_CREATE_INDEX, self._m_create_index),
+                           (A_PUT_MAPPING, self._m_put_mapping),
                            (A_MAPPING_UPDATED, self._m_mapping_updated),
                            (ACTION_SHARD_STARTED, self._m_shard_started)]:
             t.register_handler(action, self._master_wrap(fn))
@@ -175,24 +179,55 @@ class ActionModule:
         ok = self._wait_for_active_primaries(index, timeout=10.0)
         return {"acknowledged": True, "index": index, "primaries_active": ok}
 
+    def _m_put_mapping(self, request, channel):
+        """Merge a type's mapping into each named index's mapping in the
+        cluster state, through a throwaway mapper (a conflict raises
+        MapperParsingError and changes nothing)."""
+        indices = self.cluster_service.state.metadata.resolve_indices(request["index"])
+        type_name = request["type"]
+        mapping = request["body"].get(type_name, request["body"])
+
+        def update(state: ClusterState) -> ClusterState:
+            md = state.metadata
+            for index in indices:
+                meta = md.require_index(index)
+                svc = MapperService(meta.settings)
+                existing = meta.mapping(type_name)
+                if existing:
+                    svc.put_mapping(type_name, existing)
+                svc.put_mapping(type_name, mapping)
+                md = md.with_index(meta.with_mapping(
+                    type_name, svc.mappings_dict()[type_name]))
+            return state.next_version(metadata=md)
+
+        self._submit(f"put-mapping[{indices}/{type_name}]", update)
+        return {"acknowledged": True}
+
     def _m_mapping_updated(self, request, channel):
         """A data node's dynamic mapping grew: merge it into the index's
         mapping in the cluster state (a conflict raises)."""
-        index, type_name = request["index"], request["type"]
+        return self._m_put_mapping(
+            {"index": request["index"], "type": request["type"],
+             "body": request["mapping"]}, channel)
 
-        def update(state: ClusterState) -> ClusterState:
-            meta = state.metadata.require_index(index)
-            svc = MapperService(meta.settings)
-            existing = meta.mapping(type_name)
-            if existing:
-                svc.put_mapping(type_name, existing)
-            svc.put_mapping(type_name, request["mapping"])
-            merged = svc.mappings_dict()[type_name]
-            return state.next_version(metadata=state.metadata.with_index(
-                meta.with_mapping(type_name, merged)))
-
-        self._submit(f"put-mapping[{index}/{type_name}]", update)
-        return {"acknowledged": True}
+    def get_mapping(self, index=None, doc_type=None) -> dict:
+        """`{index: {"mappings": {type: mapping}}}` from the cluster state; a
+        type expression filters the types, an index without a matching type
+        is left out, and so is an index without mappings when the index
+        expression lists several."""
+        state = self.cluster_service.state
+        out = {}
+        for name in state.metadata.resolve_indices(index or "_all"):
+            mappings = state.metadata.index(name).mappings_dict()
+            if doc_type:
+                mappings = {t: m for t, m in mappings.items()
+                            if name_matches(t, doc_type)}
+                if not mappings:
+                    continue
+            if not mappings and (index is None or is_pattern(index)):
+                continue
+            out[name] = {"mappings": mappings}
+        return out
 
     def _m_shard_started(self, request, channel):
         shard = ShardRouting.from_dict(request["shard"])
@@ -227,12 +262,27 @@ class ActionModule:
         return state.nodes.get(primary.node_id)
 
     # ================= writes, primary only =================
+    def _required_routing_check(self, index: str, type_name: str, doc_id: str,
+                                routing) -> None:
+        """A type whose mapping has `_routing.required` refuses a
+        single-document write without a routing value (a `_routing.path`
+        in the source does not count here, nor is a `_bulk` item checked:
+        the JAX package's behaviour)."""
+        if routing is not None:
+            return
+        meta = self.cluster_service.state.metadata.index(index)
+        mapping = meta.mapping(type_name) if meta is not None and type_name \
+            and type_name != "_all" else None
+        if mapping and mapping.get("_routing", {}).get("required"):
+            raise RoutingMissingError(index, type_name, doc_id)
+
     def index_doc(self, index: str, type_name: str, doc_id: str | None,
                   source: dict, routing=None, version=None,
                   version_type="internal", op_type="index", refresh=False) -> dict:
         self._ensure_index(index)
         if doc_id is None:
             doc_id = uuid.uuid4().hex[:20]
+        self._required_routing_check(index, type_name, doc_id, routing)
         req = {"index": index, "type": type_name, "id": doc_id, "source": source,
                "routing": routing, "version": version, "version_type": version_type,
                "op_type": op_type, "refresh": refresh}
@@ -301,6 +351,7 @@ class ActionModule:
         if len(resolved) != 1:  # a write names one index
             raise IndexMissingError(index)
         index = resolved[0]
+        self._required_routing_check(index, type_name, doc_id, routing)
         req = {"index": index, "type": type_name, "id": doc_id, "routing": routing,
                "version": version, "version_type": version_type, "refresh": refresh}
         return self._route_to_primary(index, doc_id, routing, A_DELETE_PRIMARY, req)

@@ -1,3 +1,11 @@
-from .core import AnalysisService, Analyzer
+from .core import (
+    CHAR_FILTERS,
+    TOKEN_FILTERS,
+    TOKENIZERS,
+    AnalysisService,
+    Analyzer,
+    Token,
+)
 
-__all__ = ["AnalysisService", "Analyzer"]
+__all__ = ["CHAR_FILTERS", "TOKEN_FILTERS", "TOKENIZERS", "AnalysisService",
+           "Analyzer", "Token"]

@@ -173,3 +173,14 @@ class RejectedExecutionError(SearchEngineError):
 
     status = 429
     retry_after_s = 1.0
+
+
+class RoutingMissingError(IllegalArgumentError):
+    def __init__(self, index: str, type_: str, id_: str):
+        super().__init__(f"routing is required for [{index}]/[{type_}]/[{id_}]")
+
+
+class SimilarityNotSupportedError(SearchEngineError):
+    """A phrase or span query over a field whose similarity has no `idf`
+    (DFR, IB, LM): the shard fails with the JAX package's AttributeError
+    message as its reason."""

@@ -52,6 +52,9 @@ class Settings(Mapping[str, Any]):
     def __repr__(self) -> str:
         return f"Settings({self._map!r})"
 
+    def get(self, key: str, default=None):
+        return self._map.get(key, default)
+
     def get_str(self, key: str, default: str | None = None) -> str | None:
         v = self._map.get(key)
         return default if v is None else str(v)
@@ -99,7 +102,11 @@ class Settings(Mapping[str, Any]):
     def get_list(self, key: str, default: list | None = None) -> list:
         v = self._map.get(key)
         if v is None:
-            return list(default or [])
+            # a flattened list: key.0, key.1, ...
+            items = []
+            while f"{key}.{len(items)}" in self._map:
+                items.append(self._map[f"{key}.{len(items)}"])
+            return items if items else list(default or [])
         if isinstance(v, (list, tuple)):
             return list(v)
         return [p.strip() for p in str(v).split(",") if p.strip()]
@@ -116,6 +123,12 @@ class Settings(Mapping[str, Any]):
             s._map.update(other._map)
         else:
             _flatten_dict(dict(other), "", s._map)
+        return s
+
+    def by_prefix(self, prefix: str) -> "Settings":
+        s = Settings()
+        s._map.update({k[len(prefix):]: v for k, v in self._map.items()
+                       if k.startswith(prefix)})
         return s
 
     def groups(self, prefix: str) -> dict[str, "Settings"]:

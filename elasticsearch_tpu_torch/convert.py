@@ -5,7 +5,8 @@ passes `np.asarray(...)` of its objects' fields); nothing here imports the
 JAX package.
 
 - `segment_from_arrays` builds a port FrozenSegment from a segment's CSR
-  postings, norms, field statistics, masks and numeric doc-value columns.
+  postings, norms, field statistics, masks, numeric and string doc-value
+  columns and routing values.
 - `packed_from_arrays` builds a port PackedSegment on a device from already
   packed planes, and can install it as a segment's pack for that device.
 """
@@ -36,18 +37,22 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
                         parent_mask: np.ndarray, *, gen: int = 0,
                         ids: list | None = None,
                         dv_num: dict | None = None,
-                        dv_str: dict | None = None) -> FrozenSegment:
+                        dv_str: dict | None = None,
+                        routings: list | None = None) -> FrozenSegment:
     """A port segment from CSR arrays. `term_dict` is {field: {term: tid}},
     `norms` {field: uint8[D]}, `field_stats` {field: {"doc_count",
     "sum_ttf", "sum_dfs"}}; `live` and `parent_mask` are bool[D];
     `dv_num` {field: (offsets int64[D+1], values float64[offsets[-1]])},
     each doc's numeric values (the JAX segment's `dv_num` layout); `dv_str`
     {field: (sorted distinct values, offsets int64[D+1], ords int32)}, each
-    doc's string values as ordinals into the distinct values (`dv_str`)."""
+    doc's string values as ordinals into the distinct values (`dv_str`);
+    `routings` each doc's routing value (None where it has none)."""
     live = np.array(live, dtype=bool)  # tombstones mutate it: own copy
     post_offsets = np.asarray(post_offsets, dtype=np.int64)
     if post_offsets[-1] != len(post_docs) or len(post_docs) != len(post_freqs):
         raise ValueError("post_offsets must end at len(post_docs) == len(post_freqs)")
+    if routings is not None and len(routings) != len(live):
+        raise ValueError(f"routings cover {len(routings)} docs, not {len(live)}")
     for f, arr in norms.items():
         if len(arr) != len(live):
             raise ValueError(f"norms of [{f}] cover {len(arr)} docs, not {len(live)}")
@@ -84,6 +89,7 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
         live=live,
         parent_mask=np.asarray(parent_mask, dtype=bool),
         ids=ids,
+        routings=None if routings is None else list(routings),
         dv_num=columns,
         dv_str=strings,
     )

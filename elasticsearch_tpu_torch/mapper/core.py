@@ -1,18 +1,30 @@
 """Document mapping: JSON docs → per-field term streams, field lengths and
-numeric columns (a trimmed copy of the JAX package's `mapper/core.py`).
+numeric columns (a copy of the JAX package's `mapper/core.py`, its flat
+half).
 
 Field lengths decide the norm bytes and so the scores: they are computed
-exactly as the JAX package computes them, `_all` included. Dynamic mapping
-resolves an unseen field as the JAX package does: strings map to analyzed
-`string`, ISO-8601 strings to `date`, ints to `long`, floats to `double`,
-booleans to `boolean`, objects to `object`; `to_mapping` renders the
-resulting mapping the same way. A numeric, date or boolean value is coerced
-and stored in a doc-value column, which term, terms and range queries and
-filters read (`search/filters.py`). A string field counts its values per
-document (the JAX package's string doc-value column holds them; the port
-keeps only the count, which `exists` and `missing` read). Nested fields,
-multi-fields, copy_to, geo and the `_routing`/`_parent`/`_timestamp`/`_ttl`
-meta-fields belong to later slices and raise MapperParsingError."""
+exactly as the JAX package computes them, `_all` included. A field's length
+is its number of indexed terms (`len(terms)`): stacked synonyms count, and
+no overlap discount is applied. Values of one field are 100 positions apart.
+Dynamic mapping resolves an unseen field as the JAX package does: strings
+map to analyzed `string`, ISO-8601 strings to `date`, ints to `long`, floats
+to `double`, booleans to `boolean`, objects to `object`; `to_mapping`
+renders the resulting mapping the same way. A numeric, date, boolean, `ip`
+or `token_count` value is coerced and stored in a doc-value column, which
+term, terms and range queries and filters read (`search/filters.py`); a
+`token_count` value is the number given in the document, as in the JAX
+package. A string field keeps its values per document (the segment's string
+doc values).
+
+Multi-fields (`fields`, and the legacy `multi_field` type) register their
+sub-fields `full.sub`, which `to_mapping` renders under the parent's
+`fields`; as in the JAX package, parsing indexes no value into a sub-field.
+`copy_to` indexes a field's values into its targets (a missing target is
+mapped dynamically with the source's type) and adds nothing to `_all`.
+`_routing` (`required`, `path`) and `_timestamp` (`enabled`, `path`) are
+served. Nested fields, geo types and the `_parent` meta-field come with the
+second half of the mapper's slice, `_ttl` with the document APIs' slice;
+they raise MapperParsingError."""
 
 from __future__ import annotations
 
@@ -28,7 +40,7 @@ from ..common.settings import Settings
 
 TEXT_TYPES = {"string", "text"}
 NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float", "date",
-                 "boolean"}
+                 "boolean", "ip", "token_count"}
 
 _INT_BOUNDS = {"byte": (-(2**7), 2**7 - 1), "short": (-(2**15), 2**15 - 1),
                "integer": (-(2**31), 2**31 - 1), "long": (-(2**63), 2**63 - 1)}
@@ -41,13 +53,36 @@ _ISO_RE = re.compile(
 META_FIELDS = ("_uid", "_id", "_type", "_source", "_all", "_routing", "_parent",
                "_timestamp", "_ttl", "_version", "_size", "_index", "_boost")
 
-_LATER_META = ("_routing", "_parent", "_timestamp", "_ttl")
+_SECOND_HALF = "the mapper's second half (geo, nested, parent/child)"
+# meta-fields and field types of later slices, with the slice that serves each
+_LATER_META = {"_parent": _SECOND_HALF, "_ttl": "the document APIs (its expiry purger)"}
+_LATER_TYPES = {"nested": _SECOND_HALF, "geo_point": _SECOND_HALF,
+                "geo_shape": _SECOND_HALF}
 
 
-def _not_ported(what: str) -> MapperParsingError:
+def _not_ported(what: str, slice_: str | None = None) -> MapperParsingError:
+    where = f": {slice_}" if slice_ else ""
     return MapperParsingError(
-        f"{what} is not ported yet (a later slice of the port); this slice "
-        "maps string, numeric, date, boolean and object fields")
+        f"{what} is not ported yet (a later slice of the port{where}); this "
+        "slice maps string, numeric, date, boolean, ip, token_count and "
+        "object fields, multi-fields and copy_to")
+
+
+def parse_ip(value: str) -> int:
+    parts = str(value).split(".")
+    if len(parts) != 4:
+        raise MapperParsingError(f"failed to parse ip [{value}]")
+    n = 0
+    for p in parts:
+        b = int(p)
+        if not 0 <= b <= 255:
+            raise MapperParsingError(f"failed to parse ip [{value}]")
+        n = (n << 8) | b
+    return n
+
+
+def format_ip(n: int) -> str:
+    return ".".join(str((n >> s) & 0xFF) for s in (24, 16, 8, 0))
 
 
 def parse_date(value: Any, formats: list[str] | None = None) -> int:
@@ -122,6 +157,7 @@ class FieldType:
     null_value: Any = None
     include_in_all: bool = True
     doc_values: bool = True
+    copy_to: list[str] = dc_field(default_factory=list)
 
     @property
     def is_text(self) -> bool:
@@ -141,19 +177,19 @@ class FieldType:
 
     def coerce(self, value: Any):
         """A raw JSON value as the column stores it: ints, floats, epoch
-        millis for dates, 0/1 for booleans."""
+        millis for dates, 0/1 for booleans, an int for an ip."""
         t = self.type
         if value is None:
             value = self.null_value
             if value is None:
                 return None
-        if t in _INT_BOUNDS:
+        if t in _INT_BOUNDS or t == "token_count":
             try:
                 v = int(float(value)) if not isinstance(value, bool) else int(value)
             except (TypeError, ValueError):
                 raise MapperParsingError(
                     f"failed to parse [{self.name}] value [{value}] as {t}")
-            lo, hi = _INT_BOUNDS[t]
+            lo, hi = _INT_BOUNDS.get(t, _INT_BOUNDS["long"])
             if not lo <= v <= hi:
                 raise MapperParsingError(
                     f"value [{value}] out of range for {t} field [{self.name}]")
@@ -166,9 +202,13 @@ class FieldType:
                     f"failed to parse [{self.name}] value [{value}] as {t}")
         if t == "date":
             return parse_date(value, self.formats)
-        if isinstance(value, bool):
-            return 1 if value else 0
-        return 1 if str(value).lower() in ("true", "1", "on", "yes") else 0
+        if t == "boolean":
+            if isinstance(value, bool):
+                return 1 if value else 0
+            return 1 if str(value).lower() in ("true", "1", "on", "yes") else 0
+        if t == "ip":
+            return parse_ip(value) if isinstance(value, str) else int(value)
+        return value
 
     def to_mapping(self) -> dict:
         d: dict[str, Any] = {"type": "string" if self.type == "text" else self.type}
@@ -184,6 +224,8 @@ class FieldType:
             d["analyzer"] = self.analyzer
         if self.null_value is not None:
             d["null_value"] = self.null_value
+        if self.copy_to:
+            d["copy_to"] = self.copy_to
         return d
 
 
@@ -196,6 +238,7 @@ class ParsedDocument:
     uid: str
     source: dict
     routing: str | None = None
+    timestamp: int | None = None
     # field → list[(term, position)]
     postings: dict[str, list[tuple[str, int]]] = dc_field(default_factory=dict)
     # field → token count (for norms)
@@ -231,14 +274,20 @@ class DocumentMapper:
         self.type = type_name
         self.analysis = analysis
         mapping = mapping or {}
-        later = [m for m in _LATER_META if m in mapping]
-        if later:
-            raise _not_ported(f"meta-field mapping {later}")
+        for meta, slice_ in _LATER_META.items():
+            if meta in mapping:
+                raise _not_ported(f"meta-field mapping [{meta}]", slice_)
         self.dynamic = mapping.get("dynamic", True)
         self.date_detection = mapping.get("date_detection", True)
         self.source_enabled = mapping.get("_source", {}).get("enabled", True)
         self.all_enabled = mapping.get("_all", {}).get("enabled", True)
+        self.routing_required = mapping.get("_routing", {}).get("required", False)
+        self.routing_path = mapping.get("_routing", {}).get("path")
+        self.timestamp_enabled = mapping.get("_timestamp", {}).get("enabled", False)
+        self.timestamp_path = mapping.get("_timestamp", {}).get("path")
         self.fields: dict[str, FieldType] = {}
+        # set when parsing mapped a field dynamically (a copy_to target too)
+        self._mapping_dirty = False
         self._parse_properties(mapping.get("properties", {}), prefix="")
 
     def _parse_properties(self, props: dict, prefix: str):
@@ -248,14 +297,22 @@ class DocumentMapper:
                 raise MapperParsingError(f"invalid mapping for field [{full}]")
             ftype = spec.get("type")
             if ftype == "nested":
-                raise _not_ported(f"nested field [{full}]")
+                raise _not_ported(f"nested field [{full}]", _SECOND_HALF)
             if ftype in (None, "object") and ("properties" in spec or ftype == "object"):
                 self.fields[full] = FieldType(name=full, type="object")
                 self._parse_properties(spec.get("properties", {}), prefix=f"{full}.")
                 continue
-            if spec.get("fields") or ftype == "multi_field" or spec.get("copy_to"):
-                raise _not_ported(f"multi-field / copy_to of [{full}]")
+            if ftype == "multi_field":
+                # legacy multi_field: sub-fields full.sub, the one named like
+                # the field is the field itself
+                for sub, subspec in spec.get("fields", {}).items():
+                    sub_full = full if sub == name else f"{full}.{sub}"
+                    self.fields[sub_full] = self._field_type_from_spec(sub_full, subspec)
+                continue
             self.fields[full] = self._field_type_from_spec(full, spec)
+            for sub, subspec in spec.get("fields", {}).items():
+                self.fields[f"{full}.{sub}"] = self._field_type_from_spec(
+                    f"{full}.{sub}", subspec)
 
     def _field_type_from_spec(self, full: str, spec: dict) -> FieldType:
         ftype = spec.get("type", "string")
@@ -265,10 +322,13 @@ class DocumentMapper:
             ftype = "string"
             spec = {**spec, "index": "not_analyzed"}
         if ftype not in TEXT_TYPES and ftype not in NUMERIC_TYPES:
-            raise _not_ported(f"field type [{ftype}] of [{full}]")
+            raise _not_ported(f"field type [{ftype}] of [{full}]", _LATER_TYPES.get(ftype))
         index = spec.get("index", "analyzed" if ftype in TEXT_TYPES else "yes")
         if index == "yes":
             index = "analyzed" if ftype in TEXT_TYPES else "not_analyzed"
+        copy_to = spec.get("copy_to", [])
+        if isinstance(copy_to, str):
+            copy_to = [copy_to]
         return FieldType(
             name=full,
             type=ftype,
@@ -281,18 +341,32 @@ class DocumentMapper:
             null_value=spec.get("null_value"),
             include_in_all=spec.get("include_in_all", True),
             doc_values=spec.get("doc_values", True),
+            copy_to=copy_to,
         )
 
     def field_type(self, name: str) -> FieldType | None:
         return self.fields.get(name)
 
-    def parse(self, source: dict, doc_id: str,
-              routing: str | None = None) -> ParsedDocument:
+    def parse(self, source: dict, doc_id: str, routing: str | None = None,
+              timestamp=None) -> ParsedDocument:
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
         doc = ParsedDocument(id=doc_id, type=self.type,
                              uid=f"{self.type}#{doc_id}", source=source,
                              routing=routing)
+        # an explicit timestamp always takes effect; the `_timestamp` doc
+        # value is stored only when the meta-field is enabled
+        if timestamp is not None:
+            doc.timestamp = parse_date(timestamp)
+        elif self.timestamp_enabled:
+            if self.timestamp_path and self.timestamp_path in source:
+                doc.timestamp = parse_date(source[self.timestamp_path])
+            else:
+                doc.timestamp = int(time.time() * 1000)
+        if self.routing_path and routing is None and self.routing_path in source:
+            doc.routing = str(source[self.routing_path])
+        if doc.timestamp is not None and self.timestamp_enabled:
+            doc.doc_values_num["_timestamp"] = [float(doc.timestamp)]
         all_terms: list[tuple[str, int]] = []
         self._parse_object(source, "", doc, all_terms)
         if self.all_enabled and all_terms:
@@ -319,6 +393,7 @@ class DocumentMapper:
                     if not self.dynamic:
                         continue
                     self.fields[full] = FieldType(name=full, type="object")
+                    self._mapping_dirty = True
                 self._parse_object(value, f"{full}.", doc, all_terms)
                 continue
             values = value if isinstance(value, list) else [value]
@@ -339,17 +414,26 @@ class DocumentMapper:
                     continue
                 ft = self._field_type_from_spec(full, {"type": inferred})
                 self.fields[full] = ft
+                self._mapping_dirty = True
             self._index_values(ft, values, doc, all_terms)
+            for target in ft.copy_to:
+                tft = self.fields.get(target)
+                if tft is None:
+                    tft = self._field_type_from_spec(target, {"type": ft.type})
+                    self.fields[target] = tft
+                    self._mapping_dirty = True
+                self._index_values(tft, values, doc, all_terms=[])
 
     def _index_values(self, ft: FieldType, values: list, doc: ParsedDocument,
                       all_terms: list):
         if not ft.searchable and not ft.doc_values:
             return
         if ft.is_numeric:
-            col = [float(cv) for cv in (ft.coerce(v) for v in values)
-                   if cv is not None]
-            if col:
-                doc.doc_values_num.setdefault(ft.name, []).extend(col)
+            col = doc.doc_values_num.setdefault(ft.name, [])
+            col.extend(float(cv) for cv in (ft.coerce(v) for v in values)
+                       if cv is not None)
+            if not col:
+                doc.doc_values_num.pop(ft.name, None)
             return
         if not ft.is_text:
             raise _not_ported(f"field type [{ft.type}] of [{ft.name}]")
@@ -379,21 +463,39 @@ class DocumentMapper:
 
     def to_mapping(self) -> dict:
         """The mapping as the cluster state stores it (the JAX package's
-        rendering: leaf fields under nested `properties`, objects implied)."""
+        rendering: leaf fields under nested `properties`, objects implied,
+        a sub-field under its parent's `fields`)."""
         props: dict[str, Any] = {}
+        multi = []  # (parent_parts, leaf, ft)
         for name, ft in sorted(self.fields.items()):
             if ft.type == "object":
                 continue
             parts = name.split(".")
+            parent = self.fields.get(".".join(parts[:-1])) if len(parts) > 1 else None
+            if parent is not None and parent.type != "object":
+                multi.append((parts[:-1], parts[-1], ft))
+                continue
             node = props
             for p in parts[:-1]:
                 node = node.setdefault(p, {}).setdefault("properties", {})
             node[parts[-1]] = ft.to_mapping()
+        for parent_parts, leaf, ft in multi:
+            node = props
+            for i, p in enumerate(parent_parts):
+                if i:
+                    node = node.setdefault("properties", {})
+                node = node.setdefault(p, {})
+            node.setdefault("fields", {})[leaf] = ft.to_mapping()
         out: dict[str, Any] = {"properties": props}
         if not self.source_enabled:
             out["_source"] = {"enabled": False}
         if not self.all_enabled:
             out["_all"] = {"enabled": False}
+        if self.routing_required or self.routing_path:
+            out["_routing"] = {k: v for k, v in (("required", self.routing_required),
+                                                 ("path", self.routing_path)) if v}
+        if self.timestamp_enabled:
+            out["_timestamp"] = {"enabled": True}
         return out
 
     def merge(self, new_mapping: dict) -> list[str]:

@@ -45,7 +45,7 @@ import tempfile
 import time
 import uuid
 
-from .actions import A_CREATE_INDEX, ActionModule
+from .actions import A_CREATE_INDEX, A_PUT_MAPPING, ActionModule
 from .cluster.allocation import AllocationService
 from .cluster.routing import OperationRouting
 from .cluster.service import ClusterService
@@ -221,6 +221,14 @@ class Client:
     def create_index(self, index, body=None):
         return self.node.transport.submit_request(
             self.node.local_node, A_CREATE_INDEX, {"index": index, "body": body or {}})
+
+    def put_mapping(self, index, doc_type, body):
+        return self.node.transport.submit_request(
+            self.node.local_node, A_PUT_MAPPING,
+            {"index": index or "_all", "type": doc_type, "body": body})
+
+    def get_mapping(self, index=None, doc_type=None):
+        return self.actions.get_mapping(index, doc_type)
 
     def index(self, index, doc_type, body, id=None, routing=None, version=None,
               version_type="internal", op_type="index", refresh=False):

@@ -10,7 +10,11 @@ found), `_bulk` NDJSON (at `/`, `/{index}` and
 `/`, `/{index}` and `/{index}/{type}`, GET or POST), `_percolate` and
 `_percolate/count` (at `/{index}/{type}` and, for an existing document,
 `/{index}/{type}/{id}`) and `_mpercolate` NDJSON (at `/`, `/{index}` and
-`/{index}/{type}`). A route that is not
+`/{index}/{type}`), and the mapping API: `PUT|POST` `/{index}/{type}/_mapping`,
+`/{index}/_mapping/{type}` and `/_mapping/{type}` (`_mappings` too), `GET`
+`/_mapping`, `/{index}/_mapping`, `/{index}/{type}/_mapping`,
+`/{index}/_mapping/{type}` and `/_mapping/{type}`; `DELETE` of a mapping
+answers 400 naming its later slice. A route that is not
 ported answers 400 "No handler found", as the JAX controller answers an
 unknown route; a missing index answers 404. Handlers call the node Client:
 REST is a thin adapter, as in the JAX package."""
@@ -24,7 +28,7 @@ from dataclasses import dataclass, field as dc_field
 from typing import Callable
 
 from ..actions import filter_source
-from ..common.errors import IllegalArgumentError, SearchEngineError
+from ..common.errors import IllegalArgumentError, NotPortedError, SearchEngineError
 
 VERSION = "0.2.0"
 
@@ -350,6 +354,31 @@ def build_rest_controller(node) -> RestController:
 
     rc.register("PUT,POST", "/{index}",
                 lambda r: client.create_index(r.path_params["index"], _parse_body(r)))
+
+    def put_mapping(req):
+        return client.put_mapping(req.path_params.get("index"),
+                                  req.path_params["type"], _parse_body(req))
+
+    def delete_mapping(req):
+        raise NotPortedError(
+            "DELETE _mapping is not ported yet (a later slice of the port: the "
+            "document APIs, whose delete-by-query removes the type's documents)")
+
+    for suffix in ("_mapping", "_mappings"):
+        rc.register("PUT,POST", "/{index}/{type}/" + suffix, put_mapping)
+        rc.register("PUT,POST", "/{index}/" + suffix + "/{type}", put_mapping)
+        rc.register("PUT,POST", "/" + suffix + "/{type}", put_mapping)
+        rc.register("DELETE", "/{index}/{type}/" + suffix, delete_mapping)
+        rc.register("DELETE", "/{index}/" + suffix + "/{type}", delete_mapping)
+    rc.register("GET", "/{index}/_mapping",
+                lambda r: client.get_mapping(r.path_params["index"]))
+    rc.register("GET", "/{index}/{type}/_mapping",
+                lambda r: client.get_mapping(r.path_params["index"], r.path_params["type"]))
+    rc.register("GET", "/{index}/_mapping/{type}",
+                lambda r: client.get_mapping(r.path_params["index"], r.path_params["type"]))
+    rc.register("GET", "/_mapping", lambda r: client.get_mapping())
+    rc.register("GET", "/_mapping/{type}",
+                lambda r: client.get_mapping(None, r.path_params["type"]))
     for op in ("refresh", "flush", "optimize"):
         rc.register("POST,GET", f"/_{op}",
                     (lambda o: lambda r: getattr(client, o)(None))(op))

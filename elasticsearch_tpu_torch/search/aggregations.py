@@ -23,10 +23,13 @@ sub-aggs scatter along the same pairs; `device_partial` and
 partial shapes, so merge and finalize are shared. The legacy facets map onto
 the same aggregations (`parse_facets`, `facet_response`).
 
+`ip_range` converts its bounds with the mapper's `parse_ip` and selects on
+the host's float64 column, so an IPv4 value above 2^24 keeps its exact
+value; only the per-bucket counts ride the card, as for `range`.
+
 Later slices of the port answer QueryParsingError: `geo_bounds`,
-`geo_distance` and `geohash_grid` (the geo_point mapping), `nested` (nested
-documents) and `ip_range` (the ip mapping type), and the `geo_distance`
-facet.
+`geo_distance` and `geohash_grid` (the geo_point mapping) and `nested`
+(nested documents), and the `geo_distance` facet.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import numpy as np
 
 from ..common.breaker import reserve
 from ..common.errors import QueryParsingError
-from ..mapper.core import parse_date_math
+from ..mapper.core import parse_date_math, parse_ip
 from .filters import segment_mask
 from .queries import parse_filter
 
@@ -345,7 +348,7 @@ def device_bucket_eligible(agg: Agg) -> bool:
         return "now" not in repr(agg.spec)
     if not agg.spec.get("field") or agg.spec.get("script"):
         return False
-    if type(agg) in (RangeAgg, DateRangeAgg):
+    if type(agg) in (RangeAgg, DateRangeAgg, IpRangeAgg):
         return not any("now" in str(b)
                        for r in agg.spec.get("ranges", [])
                        for b in (r.get("from"), r.get("to")) if b is not None)
@@ -807,6 +810,13 @@ class DateRangeAgg(RangeAgg):
     key_is_date = True
 
 
+class IpRangeAgg(RangeAgg):
+    def _convert(self, v):
+        if v is None:
+            return None
+        return float(parse_ip(v)) if isinstance(v, str) else float(v)
+
+
 class HistogramAgg(_BucketAgg):
     def _interval(self) -> float:
         return float(self.spec.get("interval", 1))
@@ -1036,6 +1046,7 @@ _AGG_REGISTRY: dict[str, type] = {
     "significant_terms": SignificantTermsAgg,
     "range": RangeAgg,
     "date_range": DateRangeAgg,
+    "ip_range": IpRangeAgg,
     "histogram": HistogramAgg,
     "date_histogram": DateHistogramAgg,
     "filter": FilterAgg,
@@ -1050,7 +1061,6 @@ _LATER_AGGS = {
     "geo_distance": "the geo_point mapping",
     "geohash_grid": "the geo_point mapping",
     "nested": "nested documents",
-    "ip_range": "the ip mapping type",
 }
 
 

@@ -67,7 +67,8 @@ from ..common.breaker import reserve
 from ..common.cudaenv import (PendingPull, default_device, pull_async, upload,
                               upload_pinned)
 from ..common.devicehealth import context_lost, tag_domain
-from ..common.errors import NotPortedError, QueryParsingError, ScriptError
+from ..common.errors import QueryParsingError, ScriptError, SimilarityNotSupportedError
+from ..common.smallfloat import decode_norm_doclen
 from ..index.engine import Searcher
 from ..index.segment import FrozenSegment
 from ..ops.device_index import (
@@ -131,7 +132,8 @@ from .queries import (
     WildcardQuery,
 )
 from ..transport.faults import DEVICE_FAULTS, DEVICE_PULL
-from .similarity import BM25Similarity, SimilarityService, TFIDFSimilarity
+from .similarity import (BM25Similarity, FreqNormSimilarity, SimilarityService,
+                         TFIDFSimilarity)
 from .sorting import device_sort_key_row
 
 
@@ -1298,6 +1300,18 @@ def execute_flat_aggs(plan: FlatPlan, ctx: ShardContext, k: int,
 # ---------------------------------------------------------------------------
 
 
+def _idf_of(sim):
+    """`sim.idf`, which the phrase and span scorers read. A freq/norm
+    similarity (DFR, IB, LM) has none: the JAX package's scorer raises
+    AttributeError there, which its node reports as that shard's failure.
+    The port fails the shard with the same reason (a SearchEngineError, so
+    the coordinator records a shard failure instead of answering 500)."""
+    try:
+        return sim.idf
+    except AttributeError as e:
+        raise SimilarityNotSupportedError(str(e)) from None
+
+
 def _weight_prepass(query: Query, ctx: ShardContext) -> float:
     """Sum of squared leaf weights (Lucene getValueForNormalization pre-pass)."""
 
@@ -1380,14 +1394,18 @@ class HostScorer:
             # tf factor first, then weight — bit-parity with the kernels'
             # in-scan tfn
             vals = w * (freqs / (freqs + cache[nb]))
-        elif isinstance(sim, TFIDFSimilarity):
+        elif isinstance(sim, FreqNormSimilarity):
+            # freq/doc-len similarities (DFR, IB, LM*): host only
+            dl = decode_norm_doclen(nb)
+            ttf = sum(int(s.postings(field, term)[1].sum())
+                      for s in ctx.searcher.segments
+                      if s.doc_freq(field, term) > 0)
+            vals = sim.score_freqs(freqs, dl, df, ttf, ctx.field_stats(field),
+                                   ctx.max_doc, boost)
+        else:
             idf = TFIDFSimilarity.idf(df, ctx.max_doc)
             w = np.float32(idf * idf * boost) * self.qn
             vals = w * (np.sqrt(freqs, dtype=np.float32) * cache[nb])
-        else:
-            raise NotPortedError(
-                f"similarity [{sim.name}] of [{field}] is not ported yet: "
-                "DFR, IB and LM come with a later slice of the port")
         scores[docs] = vals.astype(np.float32)
         match[docs] = True
         return scores, match
@@ -1667,8 +1685,9 @@ class HostScorer:
         sim = ctx.similarity_for(field)
         cache = sim.norm_cache(ctx.field_stats(field), ctx.max_doc)
         norms = seg.norms.get(field)
+        idf = _idf_of(sim)
         idf_sum = np.float32(sum(
-            float(sim.idf(ctx.doc_freq(f, t), ctx.max_doc))
+            float(idf(ctx.doc_freq(f, t), ctx.max_doc))
             for (f, t) in sorted(termset) if ctx.doc_freq(f, t) > 0))
         for d, sp in spans.items():
             freq = len(sp)
@@ -1736,6 +1755,8 @@ class HostScorer:
         candidates = sorted(set.intersection(*doc_sets)) if doc_sets else []
         if not candidates:
             return scores, match
+        sim = ctx.similarity_for(q.field)
+        idf = _idf_of(sim)
         if q.slop == 0:
             docs, freq = _exact_phrase_freqs(seg, q.field, terms[:-1], last_terms,
                                              rel_pos)
@@ -1755,11 +1776,10 @@ class HostScorer:
         docs, freq = docs[keep], freq[keep].astype(np.float32)
         if not len(docs):
             return scores, match
-        sim = ctx.similarity_for(q.field)
         norms = seg.norms.get(q.field)
         cache = sim.norm_cache(ctx.field_stats(q.field), ctx.max_doc)
         idf_sum = np.float32(sum(
-            float(sim.idf(ctx.doc_freq(q.field, t), ctx.max_doc))
+            float(idf(ctx.doc_freq(q.field, t), ctx.max_doc))
             for t in terms if ctx.doc_freq(q.field, t) > 0
         ))
         cnb = cache[norms[docs]] if norms is not None else np.full(len(docs), cache[0])

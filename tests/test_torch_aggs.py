@@ -520,7 +520,7 @@ def test_bucket_pairs_match_jax(ctxs):
 
 
 @pytest.mark.parametrize("kind", ["geo_bounds", "geo_distance", "geohash_grid",
-                                  "nested", "ip_range"])
+                                  "nested"])
 def test_later_slice_aggs_answer_400(kind):
     with pytest.raises(QueryParsingError, match="later slice"):
         parse_search_body({"aggs": {"x": {kind: {"field": "loc"}}}})

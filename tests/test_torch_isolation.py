@@ -46,6 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "ops.device_index", "ops.scoring", "common.sketches",
                  "search.sorting", "search.aggregations", "warmer",
                  "common.devicehealth", "common.retry", "transport.faults",
-                 "percolator", "common.events", "common.metrics"):
+                 "percolator", "common.events", "common.metrics",
+                 "analysis.core", "search.similarity", "common.names",
+                 "common.settings", "common.errors"):
         assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []

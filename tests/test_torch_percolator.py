@@ -448,8 +448,17 @@ def test_armed_domain_serves_the_host_loop_then_recovers(nodes, alerts):
     card = [_percolate_both(nodes, d) for d in alerts]  # the batch, unarmed
     before = dict(SERVING_COUNTERS)
     DEVICE_FAULTS.arm(error="transfer", domain="compile:percolate", times=10**6)
-    for d, want in zip(alerts, card):
-        assert _percolate_both(nodes, d) == want  # 200, the JAX node's matches
+    # the circuits' clock stands still while armed: a percolation slower
+    # than the first jittered backoff (~70-110 ms) would otherwise admit a
+    # probe, and its failure, between two of them
+    clock = DEVICE_HEALTH._clock
+    frozen = clock()
+    DEVICE_HEALTH._clock = lambda: frozen
+    try:
+        for d, want in zip(alerts, card):
+            assert _percolate_both(nodes, d) == want  # 200, the JAX node's matches
+    finally:
+        DEVICE_HEALTH._clock = clock
     assert DEVICE_HEALTH.state("compile:percolate") == OPEN
     # the first trips the domain; the open domain skips the next launches
     assert DEVICE_FAULTS.injected >= 1
