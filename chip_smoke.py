@@ -61,10 +61,11 @@ those paths against its plain torch version on the card. Phases:
  10. the node over HTTP: a port `Node` on the card, every thread pool at
      its default size, serves REST on an ephemeral port; `PUT /corpus` with
      the defaults (5 shards, 1 replica: health yellow on one node) and
-     `refresh_interval: -1`; 200,000 docs
-     (phase 2's generator rendered as tokens `t<rank>`) in `_bulk` requests
-     of 1,000 through the host analyzer into each shard's durable Engine,
-     then `_refresh`; 2,048 `_search` requests (phase 3's 4-term `bool` of
+     `refresh_interval: -1`; 150,000 docs (200,000 before phase 19 joined
+     the run) (phase 2's generator rendered as tokens `t<rank>`) in `_bulk`
+     requests of 1,000 through the host analyzer into each shard's durable
+     Engine, then `_refresh`; 1,024 `_search` requests (2,048 before phase
+     19) (phase 3's 4-term `bool` of
      `should` terms, size 10, `_source` returned) from 64 client threads in
      a process of their own, each on its own keep-alive connection, the
      whole timed run under `set_sync_debug_mode("error")`. Every response's
@@ -76,9 +77,9 @@ those paths against its plain torch version on the card. Phases:
      requests/s, p50/p99, batcher occupancy and flushes, launches by
      variant, the node process's CPU seconds by thread kind and the
      device's idle share over a profiled window.
- 11. mixed traffic on phase 10's node and index: 512 `_search` requests
-     (2,048 before phase 12 joined the run, 1,024 before phase 13 did:
-     cuts for the time limit)
+ 11. mixed traffic on phase 10's node and index: 256 `_search` requests
+     (2,048 before phase 12 joined the run, 1,024 before phase 13 did, 512
+     before phase 19 did: cuts for the time limit)
      from the same 64 connections in a seeded random order, half phase 3's
      4-term `bool` (the card's sparse path through the node's batcher), half
      the other families a seventh each: on the host scorer `match_phrase` of
@@ -122,8 +123,9 @@ those paths against its plain torch version on the card. Phases:
      JAX package. Ms a batch by family (CUDA events and host wall), dense
      launches, device→host copies and the filter cache's hits, builds and
      resident bytes.
- 13. field sort and aggregations. The library leg, on phase 2's shard: 32
-     requests a family (64 before phase 16 joined the run) through
+ 13. field sort and aggregations. The library leg, on phase 2's shard: 16
+     requests a family (64 before phase 16 joined the run, 32 before phase
+     19 did) through
      `parse_search_body` → `execute_query_phase`, each over phase 3's 4-term
      `bool` — `sort_asc` (`pop` asc, missing
      last, top-100), `sort_desc_scores` (`likes` desc, `track_scores`),
@@ -213,7 +215,8 @@ those paths against its plain torch version on the card. Phases:
      queries made from the seed over phase 10's vocabulary, a quarter each
      `match` of 1-3 terms, `term`, `bool` of a `must` and a `must_not` term
      (phase 3's df ranks) and `match_phrase` of two adjacent tokens of a
-     corpus text (host-only), percolates 32 of phase 10's texts: each
+     corpus text (host-only), percolates 16 of phase 10's texts (32 before
+     phase 19 joined the run): each
      document's matches equal the host loop's (the same registry with its
      batch gate raised), every percolation is one batch on the card
      (`device_percolate`, no fallback, one pull, `sparse_score.smem`
@@ -263,7 +266,8 @@ those paths against its plain torch version on the card. Phases:
  18. analysis, similarities and the flat mapper, on a port node of its own
      on the card (5 shards, `refresh_interval: -1`, as phase 10's): a
      site-search index `library` in the shape Elasticsearch's 1.x guide
-     documents, 20,000 seeded English-like documents (2,000 generated stems
+     documents, 10,000 seeded English-like documents (20,000 before phase
+     19 joined the run; 2,000 generated stems
      under the suffixes "", s, es, ed, ing, ation, ness, drawn zipf(1.2);
      Lucene's 33 English stop words at about 40% of the tokens; bodies of
      poisson(60) tokens with a little HTML, titles of 6-12), an `english`
@@ -273,7 +277,8 @@ those paths against its plain torch version on the card. Phases:
      50 seeded synonym groups, porter_stem) with a `copy_to` catch-all and a
      token_count sub-field, `ip`, `integer`, a `token_count` `words`,
      `_routing.path` and `_timestamp`, BM25 with k1 1.4 and b 0.6; and
-     `library_dfr`, 5,000 of the documents in 1 shard under DFR (g, l, h2).
+     `library_dfr`, 2,500 of the documents (5,000 before phase 19) in 1
+     shard under DFR (g, l, h2).
      `GET /library/_mapping` renders the sub-fields and copy_to; a
      single-document write without routing into a `_routing.required` type
      answers 400, a `_bulk` item without one is indexed (both as the JAX
@@ -291,6 +296,35 @@ those paths against its plain torch version on the card. Phases:
      p50/p99 by family, `sparse_score` launches and ms a launch at each
      shape, the device's idle share over a profiled window; the kernel is
      bitwise equal to its plain version at every shape phase 18 launched.
+ 19. nested documents, parent/child joins and geo fields, on a port node of
+     its own on the card (5 shards, 0 replicas, `refresh_interval: -1`), in
+     the shapes of the Elasticsearch 1.x guide's own examples: `blogposts`
+     (10,000 posts around 50 seeded city centres with a `location`
+     geo_point and 0-8 nested `comments` of name, comment, age, stars and
+     date, about 40,000 Lucene documents, by `_bulk` with a refresh half
+     way) and `company` (100 branches with a `geo_shape` area, 2,000
+     `employee` children under `_parent: {type: branch}`, written one by
+     one with `PUT ?parent=`: a `_bulk` sets no parent). 384 `_search`
+     requests from 32 connections in a seeded order, a twelfth each: a flat
+     `match` (the card's `sparse_score` over nested packs), `nested` with
+     `score_mode: avg`, a `bool` with a nested range filter, `filtered` with
+     that filter, `filtered` with `geo_distance` (50 km), size-0
+     `geo_distance` ranges with `geohash_grid` precision 3 (the aggregating
+     launch), `geo_bounds` with a `nested` `avg` of `comments.stars`, a
+     `_geo_distance` sort, a gauss geo decay, `has_child` (`max`),
+     `has_parent` and a `geo_shape` filter; the run under
+     `set_sync_debug_mode("error")`. Every response equals the node's own
+     host query phases reduced (the card's families within 2 ulp,
+     tie-tolerant; the host's bitwise; aggregations exact but sums); each
+     family alone counts its device program on every shard (the card's) or
+     `host` only with no launch (the host's); a DELETE of a post takes its
+     comments out of the nested counts; after `_optimize` each shard's
+     merged pack equals a fresh `pack_segment` and the nested range matches
+     nothing on the card's `filtered` as on the host (a merge drops the
+     children's doc values, the JAX package's behaviour). Requests/s, p50
+     and p99 by family, `sparse_score` launches and ms a launch at each
+     shape, the device's idle share over a profiled window; the kernel is
+     bitwise equal to its plain version at every shape phase 19 launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -324,16 +358,18 @@ K = 100
 K1, B = 1.2, 0.75
 
 SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
-NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 200_000, 2048, 64  # phase 10's load and traffic
+# phase 10's load and traffic (200,000 docs and 2,048 requests before phase
+# 19 joined the run: cut for the run's time)
+NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 150_000, 1024, 64
 NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
-NODE_PROFILED = 512  # requests in phase 10's profiled window
+NODE_PROFILED = 256  # requests in phase 10's profiled window (512 before phase 19)
 # a search response's `_shards` on phase 10's node: every shard answered from
 # the card, none degraded to the host path
 SHARDS_OK = {"total": NODE_SHARDS, "successful": NODE_SHARDS, "degraded": 0, "failed": 0}
-# phase 11's traffic, half phase 3's bool, half the other families: 512
-# requests (2048 before phase 12 joined the run, 1024 before phase 13 did)
-# and a profiled window of 256
-MIXED_REQUESTS, MIXED_PROFILED = 512, 256
+# phase 11's traffic, half phase 3's bool, half the other families: 256
+# requests (2048 before phase 12 joined the run, 1024 before phase 13 did,
+# 512 before phase 19 did) and a profiled window of 128 (256 before)
+MIXED_REQUESTS, MIXED_PROFILED = 256, 128
 MIXED_HOST = ("phrase", "bool_filter", "filtered", "prefix", "post_filter",
               "post_filter_all", "min_score")
 MIXED_DENSE = ("filtered", "post_filter", "min_score")  # on the card's dense family
@@ -354,9 +390,9 @@ DENSE_FAMILIES = ("filtered", "post_filter", "min_score", "fs_rows", "fs_script"
 FS_SCRIPT = "_score * log(2 + doc['likes'].value)"  # phase 12's script family
 CAT_VALUES, CAT_ZIPF = 200, 1.3  # phase 2's keyword `cat`: zipf over 200 values
 # phase 13's library leg: requests a family (64 before phase 16 joined the
-# run: each is checked against the host path and CPU tensors at 1M docs,
-# about 150 s for 64, cut for the run's time)
-SORT_AGG_REQUESTS = 32
+# run, 32 before phase 19 did: each is checked against the host path and
+# CPU tensors at 1M docs, about 89 s for 32, cut for the run's time)
+SORT_AGG_REQUESTS = 16
 SORT_AGG_FAMILIES = ("sort_asc", "sort_desc_scores", "aggs_metric", "aggs_terms",
                      "aggs_hist", "sort_aggs", "post_filter_aggs")
 SORT_AGG_COUNTER = {"sort_asc": "device_sort", "sort_desc_scores": "device_sort",
@@ -412,23 +448,31 @@ STICKY_DOCS, STICKY_SHARDS, STICKY_SEARCHES, STICKY_TIMEOUT_S = 5000, 2, 32, 60
 RESTART_DOCS, RESTART_SEARCHES, RESTART_STALL_S = 10_000, 64, 2.0
 RESTART_SETTINGS = {"watchdog.interval": "250ms"}
 ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_dense.py)
-# phase 16: the library leg's registry and documents (32, cut from 64 for
-# the run's time); the node leg's registered queries (1,000, cut from
+# phase 16: the library leg's registry and documents (16, cut from 64 and
+# then 32 for the run's time); the node leg's registered queries (1,000, cut from
 # PERC_QUERIES), _percolate requests (128, cut from 256) and connections,
 # _mpercolate bodies (8, cut from 16) and their items, existing documents
 # (and _percolate/count requests), and the queries deleted
-PERC_QUERIES, PERC_DOCS = 10_000, 32
+PERC_QUERIES, PERC_DOCS = 10_000, 16
 PERC_NODE_QUERIES, PERC_REQUESTS, PERC_CONNECTIONS = 1000, 128, 16
 PERC_MULTI, PERC_MULTI_ITEMS, PERC_EXISTING, PERC_DELETES = 8, 8, 16, 100
-# phase 18: the `library` index (20,000 docs, cut from a real deployment's
-# millions for the run's time), `library_dfr` (5,000 of them), the traffic
+# phase 18: the `library` index (10,000 docs, cut from a real deployment's
+# millions for the run's time; 20,000 before phase 19 joined the run),
+# `library_dfr` (2,500 of them; 5,000 before), the traffic
 # and its connections; the text: stems, their zipf exponent, the stop words'
 # share of tokens, mean tokens a body, synonym groups, tenants
-ANALYSIS_DOCS, ANALYSIS_DFR_DOCS = 20_000, 5_000
+ANALYSIS_DOCS, ANALYSIS_DFR_DOCS = 10_000, 2_500
 ANALYSIS_REQUESTS, ANALYSIS_CALLERS = 512, 32
 ANALYSIS_PROFILED = 128  # `library` requests in phase 18's profiled window
 ANALYSIS_STEMS, ANALYSIS_ZIPF, ANALYSIS_STOP_SHARE = 2000, 1.2, 0.4
 ANALYSIS_BODY, ANALYSIS_SYNONYMS, ANALYSIS_TENANTS = 60, 50, 16
+# phase 19: `blogposts` (10,000 posts, cut from a real blog's hundreds of
+# thousands for the run's time; about 40,000 Lucene documents with their
+# nested comments) around GEO_CITIES seeded city centres, `company` (100
+# branches, 2,000 employees, written one by one: a _bulk sets no parent),
+# the traffic, its connections and the profiled window
+GEO_POSTS, GEO_BRANCHES, GEO_EMPLOYEES, GEO_CITIES = 10_000, 100, 2_000, 50
+GEO_REQUESTS, GEO_CALLERS, GEO_PROFILED = 384, 32, 48
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -917,7 +961,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         perc_docs: int = PERC_DOCS, perc_node_queries: int = PERC_NODE_QUERIES,
         perc_requests: int = PERC_REQUESTS, analysis_docs: int = ANALYSIS_DOCS,
         analysis_dfr_docs: int = ANALYSIS_DFR_DOCS,
-        analysis_requests: int = ANALYSIS_REQUESTS) -> dict:
+        analysis_requests: int = ANALYSIS_REQUESTS, geo_posts: int = GEO_POSTS,
+        geo_branches: int = GEO_BRANCHES, geo_employees: int = GEO_EMPLOYEES,
+        geo_requests: int = GEO_REQUESTS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -1311,6 +1357,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         device, seed=seed + 18, n_docs=analysis_docs, n_dfr_docs=analysis_dfr_docs,
         n_requests=analysis_requests, phase10_docs_per_s=node["bulk_docs_per_s"])
 
+    # -- 19. nested documents, parent/child joins and geo fields on a node of
+    # its own -----------------------------------------------------------------
+    report["geo_nested"] = geo = geo_nested_phase(
+        device, seed=seed + 19, n_posts=geo_posts, n_branches=geo_branches,
+        n_employees=geo_employees, n_requests=geo_requests)
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1327,7 +1379,11 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         percolate_max_abs_err=node["percolate"]["library"]["kernel_max_abs_err"],
         analysis_launches=analysis["launches"].get("sparse_score", 0),
         analysis_shapes=[(s["Qb"], s["TB"], s["k"]) for s in analysis["kernel_shapes"]],
-        analysis_max_abs_err=analysis["kernel_max_abs_err"])]
+        analysis_max_abs_err=analysis["kernel_max_abs_err"],
+        geo_nested_launches=geo["launches"].get("sparse_score", 0),
+        geo_nested_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                           for s in geo["kernel_shapes"]],
+        geo_nested_max_abs_err=geo["kernel_max_abs_err"])]
     return report
 
 
@@ -5175,9 +5231,7 @@ def analysis_phase(device, *, seed: int, n_docs: int = ANALYSIS_DOCS,
             else:
                 assert shard_docs_match(got_hits, want_hits, bool(req.sort)), \
                     (i, family, "hits")
-            exact[family] += len(got_hits) == len(want_hits) and all(
-                g[1:] == w[1:] and (g[0] == w[0] or (g[0] != g[0] and w[0] != w[0]))
-                for g, w in zip(got_hits, want_hits))
+            exact[family] += same_hits_exact(got_hits, want_hits)
             if req.aggs:
                 agg_close(r["aggregations"], want["aggregations"], req.body, AGG_RTOL,
                           f"{family}[{i}]")
@@ -5290,6 +5344,530 @@ def analysis_phase(device, *, seed: int, n_docs: int = ANALYSIS_DOCS,
         from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER
 
         for index in ("library", "library_dfr"):
+            PACK_LEDGER.forget(index)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: nested documents, parent/child joins and geo fields
+# ---------------------------------------------------------------------------
+
+GEO_FAMILIES = (  # (family, index, on the card)
+    ("flat", "blogposts", True), ("nested", "blogposts", False),
+    ("nested_range", "blogposts", False), ("nested_filtered", "blogposts", True),
+    ("geo_distance", "blogposts", True), ("geo_buckets", "blogposts", True),
+    ("geo_host_aggs", "blogposts", False), ("geo_sort", "blogposts", False),
+    ("geo_decay", "blogposts", True), ("has_child", "company", False),
+    ("has_parent", "company", False), ("geo_shape", "company", True))
+BLOG_MAPPING = {"properties": {
+    "title": {"type": "string"}, "body": {"type": "string"},
+    "location": {"type": "geo_point"},
+    "comments": {"type": "nested", "properties": {
+        "name": {"type": "string", "index": "not_analyzed"},
+        "comment": {"type": "string"}, "age": {"type": "integer"},
+        "stars": {"type": "integer"}, "date": {"type": "date"}}}}}
+COMPANY_MAPPINGS = {
+    "branch": {"properties": {"name": {"type": "string"},
+                              "city": {"type": "string", "index": "not_analyzed"},
+                              "country": {"type": "string", "index": "not_analyzed"},
+                              "area": {"type": "geo_shape"}}},
+    "employee": {"_parent": {"type": "branch"},
+                 "properties": {"name": {"type": "string"}, "dob": {"type": "date"},
+                                "hobby": {"type": "string"}}}}
+
+
+def geo_documents(n_posts: int, n_branches: int, n_employees: int, seed: int):
+    """Phase 19's data, in the shapes of the Elasticsearch 1.x guide's own
+    examples: blog posts with a `location` around GEO_CITIES seeded city
+    centres and 0-8 nested comments (name, comment, age, stars, date), and
+    a company's branches (a `geo_shape` area around a city) with employees
+    under them. Returns (cities, stems, posts, branches, employees)."""
+    rng = np.random.default_rng(seed)
+    stems = analysis_vocab(rng, 3000)
+    text = EnglishText(rng, stems)
+    cities = np.stack([rng.uniform(-50, 65, GEO_CITIES),
+                       rng.uniform(-150, 150, GEO_CITIES)], axis=1)
+    names = [f"{stems[int(i)]}_{j}" for j, i in enumerate(rng.integers(0, 500, 200))]
+    posts = []
+    for i in range(n_posts):
+        lat, lon = cities[int(rng.integers(GEO_CITIES))]
+        post = {"title": " ".join(text.words(int(rng.integers(4, 10)), stop_share=0.2)),
+                "body": " ".join(text.words(max(3, int(rng.poisson(40))))),
+                "location": {"lat": float(np.clip(lat + rng.normal(0, 0.3), -89, 89)),
+                             "lon": float(np.clip(lon + rng.normal(0, 0.3), -179, 179))}}
+        n = int(rng.integers(0, 9))
+        if n:
+            post["comments"] = [{
+                "name": names[int(rng.integers(len(names)))],
+                "comment": " ".join(text.words(max(2, int(rng.poisson(10))))),
+                "age": int(rng.integers(16, 80)), "stars": int(rng.integers(1, 6)),
+                "date": f"2014-{1 + int(rng.integers(12)):02d}-{1 + int(rng.integers(28)):02d}"}
+                for _ in range(n)]
+        posts.append(post)
+    branches = []
+    for i in range(n_branches):
+        c = int(rng.integers(GEO_CITIES))
+        lat, lon = cities[c]
+        w = float(rng.uniform(0.2, 1.5))
+        branches.append((f"br{i}", {
+            "name": f"branch {' '.join(text.words(2, stop_share=0.0))} {i}",
+            "city": f"city{c}", "country": f"country{c % 12}",
+            "area": {"type": "envelope", "coordinates": [[float(lon - w), float(lat + w)],
+                                                         [float(lon + w), float(lat - w)]]}}))
+    hobbies = stems[:40]
+    employees = [(f"e{i}", f"br{int(rng.integers(n_branches))}", {
+        "name": f"{names[int(rng.integers(len(names)))]} {stems[int(rng.integers(3000))]}",
+        "dob": f"19{int(rng.integers(50, 99))}-{1 + int(rng.integers(12)):02d}-"
+               f"{1 + int(rng.integers(28)):02d}",
+        "hobby": " ".join(hobbies[int(h)] for h in rng.integers(0, 40, 2))})
+        for i in range(n_employees)]
+    return cities, stems, posts, branches, employees
+
+
+def geo_traffic(rng, cities, stems, n_requests: int) -> list[tuple]:
+    """(family, index, body): the GEO_FAMILIES in a seeded order, each an
+    equal share; words drawn from the `top` most common stems (a geo
+    family's from the 30 most common, so its filter has hits to gate)."""
+    def words(n, top=300):
+        return " ".join(stems[int(i)] for i in rng.integers(0, top, n))
+
+    def city():
+        lat, lon = cities[int(rng.integers(GEO_CITIES))]
+        return {"lat": float(lat), "lon": float(lon)}
+
+    nested_range = {"nested": {"path": "comments", "query": {
+        "range": {"comments.stars": {"gte": 4}}}}}
+    out = []
+    order = rng.permutation(np.arange(n_requests) % len(GEO_FAMILIES))
+    for fi in order:
+        family, index, _card = GEO_FAMILIES[int(fi)]
+        if family == "flat":
+            body = {"query": {"match": {"body": words(3)}}}
+        elif family == "nested":
+            body = {"query": {"nested": {"path": "comments", "score_mode": "avg", "query": {
+                "match": {"comments.comment": words(2)}}}}}
+        elif family == "nested_range":
+            body = {"query": {"bool": {"must": [{"match": {"body": words(2)}}],
+                                       "filter": [nested_range]}}}
+        elif family == "nested_filtered":
+            body = {"query": {"filtered": {"query": {"match": {"body": words(2)}},
+                                           "filter": nested_range}}}
+        elif family == "geo_distance":
+            body = {"query": {"filtered": {"query": {"match": {"body": words(2, 30)}},
+                                           "filter": {"geo_distance": {
+                                               "distance": "50km", "location": city()}}}}}
+        elif family == "geo_buckets":
+            body = {"size": 0, "query": {"match": {"body": words(2)}}, "aggs": {
+                "rings": {"geo_distance": {"field": "location", "origin": city(),
+                                           "unit": "km", "ranges": [
+                                               {"to": 100}, {"from": 100, "to": 1000},
+                                               {"from": 1000}]}},
+                "grid": {"geohash_grid": {"field": "location", "precision": 3}}}}
+        elif family == "geo_host_aggs":
+            body = {"size": 0, "query": {"match": {"body": words(2)}}, "aggs": {
+                "bounds": {"geo_bounds": {"field": "location"}},
+                "comments": {"nested": {"path": "comments"}, "aggs": {
+                    "stars": {"avg": {"field": "comments.stars"}}}}}}
+        elif family == "geo_sort":
+            body = {"query": {"match": {"body": words(2)}}, "sort": [
+                {"_geo_distance": {"location": city(), "order": "asc", "unit": "km"}}]}
+        elif family == "geo_decay":
+            body = {"query": {"function_score": {
+                "query": {"match": {"body": words(2)}},
+                "functions": [{"gauss": {"location": {"origin": city(),
+                                                      "scale": "100km"}}}]}}}
+        elif family == "has_child":
+            body = {"query": {"has_child": {"type": "employee", "score_mode": "max",
+                                            "query": {"match": {"hobby": words(2, 40)}}}}}
+        elif family == "has_parent":
+            body = {"query": {"has_parent": {"parent_type": "branch", "query": {
+                "term": {"country": f"country{int(rng.integers(12))}"}}}}}
+        else:  # geo_shape
+            c = city()
+            body = {"query": {"filtered": {
+                "query": {"match": {"name": f"branch {words(1, 30)}"}},
+                "filter": {"geo_shape": {"area": {"shape": {
+                    "type": "envelope",
+                    "coordinates": [[c["lon"] - 2, c["lat"] + 2],
+                                    [c["lon"] + 2, c["lat"] - 2]]}}}}}}}
+        body.setdefault("size", 10)
+        out.append((family, index, body))
+    return out
+
+
+def put_many(port: int, puts: list, n_conn: int = 16) -> None:
+    """Single-document PUTs from `n_conn` keep-alive connections at once
+    (one connection waits out a delayed ACK on every small response)."""
+    import http.client
+
+    def worker(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            for path, src in puts[c::n_conn]:
+                st, r = http_json(conn, "PUT", path, src)
+                assert st == 201, (path, st, r)
+        finally:
+            conn.close()
+
+    errors = []
+
+    def run(c):
+        try:
+            worker(c)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(n_conn)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def same_hits_exact(got, want) -> bool:
+    """Host pages: equal ids and sort values, scores bitwise (NaN with NaN)."""
+    return len(got) == len(want) and all(
+        g[1:] == w[1:] and (g[0] == w[0] or (g[0] != g[0] and w[0] != w[0]))
+        for g, w in zip(got, want))
+
+
+def geo_nested_phase(device, *, seed: int, n_posts: int = GEO_POSTS,
+                     n_branches: int = GEO_BRANCHES, n_employees: int = GEO_EMPLOYEES,
+                     n_requests: int = GEO_REQUESTS,
+                     n_callers: int = GEO_CALLERS) -> dict:
+    """Phase 19: a port Node of its own on `device` (5 shards, 0 replicas,
+    `refresh_interval: -1`) holding `blogposts` (nested comments, a
+    geo_point) and `company` (branches with a geo_shape area, employees
+    under `_parent`, written one by one with `?parent=`). Every response
+    equals the node's own host query phases reduced; `sparse_score` runs
+    over nested packs and is bitwise at each launched shape; each family
+    alone launches the card's programs or none; a DELETE takes a post's
+    comments out of every count; an `_optimize`'s merged packs equal fresh
+    packs and lose the children's doc values on the card as on the host."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import (PACK_LEDGER, pack_cache_key,
+                                                          pack_segment, packed_for)
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score, sparse_score_plain
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, ShardContext, execute_query_phase, merge_responses,
+        parse_search_body, sort_docs)
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    cities, stems, posts, branches, employees = geo_documents(
+        n_posts, n_branches, n_employees, seed)
+    n_comments = sum(len(p.get("comments", ())) for p in posts)
+    steps = {"documents": time.perf_counter() - t_phase}
+    data_path = Path(__file__).resolve().parent / "build" / f"chip_smoke_geo_{os.getpid()}"
+    shutil.rmtree(data_path, ignore_errors=True)
+    node = Node(name="geo", registry=LocalTransportRegistry(), data_path=str(data_path),
+                settings={"node.device": str(device)}).start()
+    recorder = None
+    settings = {"number_of_shards": NODE_SHARDS, "number_of_replicas": 0,
+                "refresh_interval": -1}
+    try:
+        port = node.start_http(0).port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        for index, mappings in (("blogposts", {"blogpost": BLOG_MAPPING}),
+                                ("company", COMPANY_MAPPINGS)):
+            st, r = http_json(conn, "PUT", f"/{index}",
+                              {"settings": settings, "mappings": mappings})
+            assert st == 200 and r["acknowledged"], r
+
+        # -- the writes: posts by _bulk (two refreshes: two segments a shard),
+        # branches and employees one by one (a _bulk sets no parent) ----------
+        t0 = time.perf_counter()
+        for lo, hi in ((0, n_posts // 2), (n_posts // 2, n_posts)):
+            for start in range(lo, hi, NODE_BULK):
+                lines = []
+                for i in range(start, min(start + NODE_BULK, hi)):
+                    lines.append(json.dumps({"index": {"_index": "blogposts",
+                                                       "_type": "blogpost",
+                                                       "_id": str(i)}}))
+                    lines.append(json.dumps(posts[i]))
+                st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+                assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+            st, r = http_json(conn, "POST", "/blogposts/_refresh")
+            assert st == 200, r
+        bulk_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        put_many(port, [(f"/company/branch/{bid}", src) for bid, src in branches])
+        st, r = http_json(conn, "POST", "/company/_refresh")
+        put_many(port, [(f"/company/employee/{eid}?parent={parent}", src)
+                        for eid, parent, src in employees])
+        singles_s = time.perf_counter() - t0
+        st, r = http_json(conn, "PUT", "/company/employee/orphan", {"name": "no parent"})
+        assert st == 400 and r["error"]["type"] == "RoutingMissingException", (st, r)
+        st, r = http_json(conn, "GET", f"/company/employee/{employees[0][0]}"
+                                       f"?parent={employees[0][1]}")
+        assert st == 200 and r["_source"] == employees[0][2], r
+        for index in ("blogposts", "company"):
+            st, r = http_json(conn, "POST", f"/{index}/_refresh")
+            assert st == 200 and r["_shards"]["failed"] == 0, r
+        steps["bulk"], steps["singles"] = bulk_s, singles_s
+
+        svc = {i: node.indices.index_service(i) for i in ("blogposts", "company")}
+
+        def contexts():
+            searchers = {i: [svc[i].shard(sid).engine.acquire_searcher()
+                             for sid in sorted(svc[i].shards)] for i in svc}
+            return searchers, {i: [ShardContext(sr, svc[i].mapper_service,
+                                                svc[i].similarity_service, device=device)
+                                   for sr in searchers[i]] for i in svc}
+
+        searchers, ctxs = contexts()
+        lucene_docs = sum(sr.max_doc for sr in searchers["blogposts"])
+        assert lucene_docs == n_posts + n_comments, (lucene_docs, n_posts, n_comments)
+        log(f"[19] `blogposts` on {device}: {n_posts} posts with {n_comments} nested "
+            f"comments ({lucene_docs} Lucene documents) over HTTP in _bulk requests of "
+            f"{NODE_BULK} into {NODE_SHARDS} shards: {n_posts / bulk_s:.1f} posts/s "
+            f"({lucene_docs / bulk_s:.1f} documents/s, {bulk_s:.1f} s); `company`: "
+            f"{n_branches} branches and {n_employees} employees by single-document PUT "
+            f"?parent= in {singles_s:.1f} s; {card}")
+
+        # -- the traffic --------------------------------------------------------
+        rng = np.random.default_rng(seed + 1)
+        traffic = geo_traffic(rng, cities, stems, n_requests)
+        requests = [(f"/{index}/_search", body) for _f, index, body in traffic]
+        families = np.array([f for f, _i, _b in traffic])
+        t0 = time.perf_counter()  # first sightings pack each shard: warm first
+        warm = serve_http(port, requests[:n_callers], n_callers, sync_error=False)
+        assert not warm[3], warm[3][:3]
+        steps["warm"] = time.perf_counter() - t0
+        recorder = LaunchRecorder(scoring, sparse_score)
+        before = dict(SERVING_COUNTERS)
+        cudaenv.LAUNCHES.reset()
+        responses, lat_ms, wall_s, errors, host_cpu = serve_http(
+            port, requests, n_callers, sync_error=on_card)
+        launches = cudaenv.LAUNCHES.snapshot()
+        counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items() if v != before[k]}
+        recorder.close()
+        steps["run"] = wall_s
+        assert not errors, f"{len(errors)} requests failed, first {errors[:3]}"
+        assert counted.get("degraded", 0) == 0 and counted.get("device_errors", 0) == 0, \
+            counted
+        if on_card:
+            assert launches.get("sparse_score", 0) > 0, "sparse_score never launched in phase 19"
+
+        # -- every response against the node's own host query phases ----------
+        t0 = time.perf_counter()
+        card_family = {f: c for f, _i, c in GEO_FAMILIES}
+
+        def check(family, index, body, st, r, tag):
+            shards = len(ctxs[index])
+            assert st == 200, (tag, family, r)
+            assert r["_shards"] == {"total": shards, "successful": shards,
+                                    "degraded": 0, "failed": 0}, (tag, r["_shards"])
+            req = parse_search_body(body)
+            res = [execute_query_phase(c, req, use_device=False, shard_id=sid)
+                   for sid, c in enumerate(ctxs[index])]
+            merged = sort_docs(req, res)
+            want = merge_responses(req, merged, res, [], took_ms=0,
+                                   total_shards=shards, successful=shards)
+            assert r["hits"]["total"] == want["hits"]["total"], (tag, family, "total")
+            want_hits = []
+            for score, sid, doc, sv in merged.hits[req.from_: req.from_ + req.size]:
+                seg, local = searchers[index][sid].resolve(doc)
+                want_hits.append((score, (sid, seg.ids[local]), sv))
+            got_hits = [(float("nan") if h["_score"] is None else h["_score"],
+                         (h["_shard"], h["_id"]), h.get("sort")) for h in r["hits"]["hits"]]
+            if card_family[family]:
+                assert shard_docs_match(got_hits, want_hits, bool(req.sort)), \
+                    (tag, family, "hits")
+            else:  # both from the host scorer
+                assert same_hits_exact(got_hits, want_hits), (tag, family, "hits")
+            if req.aggs:
+                agg_close(r["aggregations"], want["aggregations"], req.body, AGG_RTOL,
+                          f"{family}[{tag}]")
+            return r["hits"]["total"]
+
+        totals = dict.fromkeys(set(families), 0)
+        for i, ((family, index, body), (st, r)) in enumerate(zip(traffic, responses)):
+            totals[family] += check(family, index, body, st, r, i)
+        check_s = steps["check"] = time.perf_counter() - t0
+        assert all(v > 0 for v in totals.values()), totals
+
+        # -- each family alone: the card's launch its programs, the host's none
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        alone = {}
+        for family, index, is_card in GEO_FAMILIES:
+            bodies = [b for f, _i, b in traffic if f == family][:4]
+            before = dict(SERVING_COUNTERS)
+            cudaenv.LAUNCHES.reset()
+            for body in bodies:
+                st, r = http_json(conn, "POST", f"/{index}/_search", body)
+                assert st == 200, r
+            fam_launches = cudaenv.LAUNCHES.snapshot()
+            fam_counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items()
+                           if v != before[k]}
+            device_counted = {k: v for k, v in fam_counted.items() if k.startswith("device_")}
+            alone[family] = dict(counters=fam_counted, launches=fam_launches)
+            if is_card:
+                assert sum(device_counted.values()) == NODE_SHARDS * len(bodies), \
+                    (family, fam_counted)
+                if family == "flat" and on_card:
+                    assert fam_launches.get("sparse_score", 0) > 0, (family, fam_launches)
+            else:
+                assert fam_counted == {"host": NODE_SHARDS * len(bodies)}, \
+                    (family, fam_counted)
+                assert not any(fam_launches.values()), (family, fam_launches)
+        steps["alone"] = time.perf_counter() - t0
+
+        # -- a DELETE of a post with comments: its children leave every count --
+        count_body = {"size": 0, "query": {"match_all": {}}, "aggs": {
+            "c": {"nested": {"path": "comments"}, "aggs": {
+                "stars": {"stats": {"field": "comments.stars"}}}}}}
+        victim = next(i for i, p in enumerate(posts) if len(p.get("comments", ())) >= 3)
+        st, r0 = http_json(conn, "POST", "/blogposts/_search", count_body)
+        assert st == 200, r0
+        st, r = http_json(conn, "DELETE", f"/blogposts/blogpost/{victim}")
+        assert st == 200 and r["found"], r
+        st, r = http_json(conn, "POST", "/blogposts/_refresh")
+        st, r1 = http_json(conn, "POST", "/blogposts/_search", count_body)
+        assert st == 200, r1
+        gone = len(posts[victim]["comments"])
+        assert r1["hits"]["total"] == r0["hits"]["total"] - 1, (r0["hits"], r1["hits"])
+        assert r1["aggregations"]["c"]["doc_count"] == \
+            r0["aggregations"]["c"]["doc_count"] - gone, (r0["aggregations"], r1["aggregations"])
+        assert r1["aggregations"]["c"]["stars"]["count"] == \
+            r0["aggregations"]["c"]["stars"]["count"] - gone
+        searchers, ctxs = contexts()
+        assert sum(sr.max_doc for sr in searchers["blogposts"]) == lucene_docs
+        assert sum(seg.live_count() for sr in searchers["blogposts"]
+                   for seg in sr.segments) == n_posts - 1
+
+        # -- _optimize: merged packs equal fresh packs; the children's doc
+        # values are gone, on the card as on the host -------------------------
+        ranged = [(f, i, b) for f, i, b in traffic
+                  if f in ("nested_range", "nested_filtered")][:8]
+        pre = [http_json(conn, "POST", f"/{i}/_search", b)[1]["hits"]["total"]
+               for _f, i, b in ranged]
+        assert sum(pre) > 0, pre
+        t0 = time.perf_counter()
+        st, r = http_json(conn, "POST", "/blogposts/_optimize")
+        assert st == 200, r
+        deadline = time.perf_counter() + 120
+        while True:
+            w = node.warmer.stats()
+            if w["packs_done"] >= w["packs_scheduled"]:
+                break
+            assert time.perf_counter() < deadline, f"warmer not drained: {w}"
+            time.sleep(0.05)
+        steps["optimize"] = time.perf_counter() - t0
+        searchers, ctxs = contexts()
+        key = pack_cache_key(device)
+        bad = []
+        for sr in searchers["blogposts"]:
+            assert len(sr.segments) == 1, len(sr.segments)
+            seg = sr.segments[0]
+            merged_pack = seg._device_cache.get(key) or packed_for(seg, device)
+            bad += packs_equal(merged_pack, pack_segment(seg, device))
+            assert not any(f.startswith("comments.") for f in seg.dv_num), sorted(seg.dv_num)
+        assert not bad, f"merged packs differ from fresh packs in {bad}"
+        before = dict(SERVING_COUNTERS)
+        for (family, index, body), n_pre in zip(ranged, pre):
+            st, r = http_json(conn, "POST", f"/{index}/_search", body)
+            assert check(family, index, body, st, r, "optimized") == 0, (family, n_pre)
+        post_counted = {k: v - before[k] for k, v in SERVING_COUNTERS.items()
+                        if v != before[k]}
+        assert post_counted.get("device_filtered", 0) > 0, post_counted
+        for family in ("flat", "geo_buckets", "has_child"):
+            f, index, body = next(t for t in traffic if t[0] == family)
+            st, r = http_json(conn, "POST", f"/{index}/_search", body)
+            check(f, index, body, st, r, "optimized")
+        conn.close()
+
+        # -- the kernel at phase 19's shapes -----------------------------------
+        t0 = time.perf_counter()
+        max_err = check_shapes(recorder.shapes)
+        shapes = []
+        for _key, (args, kwargs, n) in recorder.shapes.items():
+            nbytes, ops, _real = launch_bound(args, kwargs)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            shapes.append(dict(
+                Qb=int(args[0].shape[0]), TB=int(args[0].shape[1]), tf=str(args[10].dtype),
+                k=kwargs["k"], passes=kwargs["passes"], simple=kwargs["simple"],
+                use_coord=kwargs["use_coord"], launches=n,
+                ms=time_ms(lambda: sparse_score(*args, **kwargs), device, 5),
+                plain_ms=time_ms(lambda: sparse_score_plain(*args, **kwargs), device, 5),
+                bound_ms=b_ms, bound_by=b_by))
+        steps["kernel_checks"] = time.perf_counter() - t0
+        by_family = {}
+        for f in sorted(set(families)):
+            lat = lat_ms[families == f]
+            by_family[f] = dict(requests=int(len(lat)), p50_ms=float(np.percentile(lat, 50)),
+                                p99_ms=float(np.percentile(lat, 99)), hits=totals[f])
+        out = dict(posts=n_posts, comments=n_comments, lucene_docs=lucene_docs,
+                   branches=n_branches, employees=n_employees, shards=NODE_SHARDS,
+                   bulk_s=bulk_s, singles_s=singles_s, requests=len(traffic),
+                   callers=n_callers, wall_s=wall_s, requests_per_s=len(traffic) / wall_s,
+                   latency_by_family=by_family, counters=counted, launches=launches,
+                   alone=alone, host_cpu_s=host_cpu, check_s=check_s,
+                   kernel_shapes=shapes, kernel_max_abs_err=max_err, card=card,
+                   sync_debug="error over the timed run" if on_card else None)
+        log(f"[19] {len(traffic)} _search requests from {n_callers} connections: "
+            f"{out['requests_per_s']:.1f} requests/s ({wall_s:.2f} s); serving counters "
+            f"{counted}; launches {launches}; every response == the node's host query "
+            f"phases reduced (card families within {ULPS} ulp, tie-tolerant; host "
+            f"families bitwise; aggregations exact but sums; {check_s:.1f} s); {card}")
+        for f, v in by_family.items():
+            log(f"[19]   {f:15s} {v['requests']:4d} requests: p50 {v['p50_ms']:.2f} ms, "
+                f"p99 {v['p99_ms']:.2f} ms, hits {v['hits']}; alone "
+                f"{alone[f]['counters']}, launches {alone[f]['launches'] or 'none'}")
+        log(f"[19] DELETE of post {victim}: its {gone} comments left the nested count; "
+            f"_optimize to 1 segment a shard in {steps['optimize']:.2f} s: merged packs == "
+            f"fresh packs, the nested range matches 0 on the card's `filtered` and the "
+            f"host (children's doc values dropped, the JAX package's behaviour)")
+        log(f"[19] host CPU s over the {wall_s:.2f} s run, by thread kind: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in host_cpu.items()))
+        for sh in shapes:
+            log(f"[19]   sparse_score Qb {sh['Qb']} TB {sh['TB']} {sh['tf']} k {sh['k']} "
+                f"passes {sh['passes']} simple {sh['simple']} coord {sh['use_coord']}: "
+                f"{sh['launches']} launches, {sh['ms']:.4f} ms a launch (plain "
+                f"{sh['plain_ms']:.4f}, bound {sh['bound_ms']:.6f} {sh['bound_by']})")
+        log(f"[19] sparse_score == plain (bitwise) at all {len(shapes)} shapes phase 19 "
+            f"launched over nested packs; max abs err {max_err}")
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _r, _l, pwall_s, perrors, _c = serve_http(port, requests[:GEO_PROFILED],
+                                                          n_callers, sync_error=False)
+            steps["profiled"] = time.perf_counter() - t0
+            assert not perrors, perrors[:3]
+            out["profiled"] = p = device_busy(prof, pwall_s * 1e3)
+            if p["device_busy_ms"]:
+                log(f"[19] profiled window of {GEO_PROFILED} requests: wall "
+                    f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+                    f"idle share {p['idle_share']:.4f}; {card}")
+                for name, ms, n in p["top"][:6]:
+                    log(f"[19]   {ms:9.3f} ms {n:5d}x {name}")
+            else:
+                log("[19] profiled window: the profiler saw no device time "
+                    "(device idle share not measured)")
+        out["wall_phase_s"] = time.perf_counter() - t_phase
+        out["steps_s"] = steps
+        log(f"[19] phase 19 took {out['wall_phase_s']:.1f} s; by step (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+        return out
+    finally:
+        if recorder is not None:
+            recorder.close()
+        node.close()
+        shutil.rmtree(data_path, ignore_errors=True)
+        for index in ("blogposts", "company"):
             PACK_LEDGER.forget(index)
 
 

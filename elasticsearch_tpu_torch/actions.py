@@ -264,29 +264,36 @@ class ActionModule:
     # ================= writes, primary only =================
     def _required_routing_check(self, index: str, type_name: str, doc_id: str,
                                 routing) -> None:
-        """A type whose mapping has `_routing.required` refuses a
-        single-document write without a routing value (a `_routing.path`
-        in the source does not count here, nor is a `_bulk` item checked:
-        the JAX package's behaviour)."""
+        """A type whose mapping has `_routing.required` or `_parent` refuses
+        a single-document write without a routing value (a `parent` routes
+        the document; a `_routing.path` in the source does not count here,
+        nor is a `_bulk` item checked: the JAX package's behaviour)."""
         if routing is not None:
             return
         meta = self.cluster_service.state.metadata.index(index)
         mapping = meta.mapping(type_name) if meta is not None and type_name \
             and type_name != "_all" else None
-        if mapping and mapping.get("_routing", {}).get("required"):
+        if mapping and (mapping.get("_routing", {}).get("required")
+                        or "_parent" in mapping):
             raise RoutingMissingError(index, type_name, doc_id)
 
     def index_doc(self, index: str, type_name: str, doc_id: str | None,
                   source: dict, routing=None, version=None,
-                  version_type="internal", op_type="index", refresh=False) -> dict:
+                  version_type="internal", op_type="index", refresh=False,
+                  parent=None) -> dict:
+        """Index a document on its primary; a child's `parent` routes it
+        when no `routing` is given."""
         self._ensure_index(index)
         if doc_id is None:
             doc_id = uuid.uuid4().hex[:20]
-        self._required_routing_check(index, type_name, doc_id, routing)
+        effective_routing = routing if routing is not None else parent
+        self._required_routing_check(index, type_name, doc_id, effective_routing)
         req = {"index": index, "type": type_name, "id": doc_id, "source": source,
-               "routing": routing, "version": version, "version_type": version_type,
-               "op_type": op_type, "refresh": refresh}
-        return self._route_to_primary(index, doc_id, routing, A_INDEX_PRIMARY, req)
+               "routing": routing, "parent": parent, "version": version,
+               "version_type": version_type, "op_type": op_type,
+               "refresh": refresh}
+        return self._route_to_primary(index, doc_id, effective_routing,
+                                      A_INDEX_PRIMARY, req)
 
     def _route_to_primary(self, index: str, doc_id: str, routing, action: str,
                           req: dict) -> dict:
@@ -329,7 +336,7 @@ class ActionModule:
             request["type"], request["id"], request["source"],
             routing=request.get("routing"), version=request.get("version"),
             version_type=request.get("version_type", "internal"),
-            op_type=request.get("op_type", "index"))
+            op_type=request.get("op_type", "index"), parent=request.get("parent"))
         if set(mapper.fields) - known_before:
             # the dynamic mapping grew: propagate it to the cluster state
             try:
@@ -346,15 +353,18 @@ class ActionModule:
                 "_version": version, "created": created}
 
     def delete_doc(self, index: str, type_name: str, doc_id: str, routing=None,
-                   version=None, version_type="internal", refresh=False) -> dict:
+                   version=None, version_type="internal", refresh=False,
+                   parent=None) -> dict:
         resolved = self.cluster_service.state.metadata.resolve_indices(index)
         if len(resolved) != 1:  # a write names one index
             raise IndexMissingError(index)
         index = resolved[0]
-        self._required_routing_check(index, type_name, doc_id, routing)
+        effective_routing = routing if routing is not None else parent
+        self._required_routing_check(index, type_name, doc_id, effective_routing)
         req = {"index": index, "type": type_name, "id": doc_id, "routing": routing,
                "version": version, "version_type": version_type, "refresh": refresh}
-        return self._route_to_primary(index, doc_id, routing, A_DELETE_PRIMARY, req)
+        return self._route_to_primary(index, doc_id, effective_routing,
+                                      A_DELETE_PRIMARY, req)
 
     def _p_delete(self, request, channel):
         index, shard_id = request["index"], request["shard"]
@@ -670,11 +680,12 @@ class ActionModule:
 
     # ================= single-shard reads =================
     def get_doc(self, index: str, type_name: str, doc_id: str, routing=None,
-                realtime=True, refresh=False) -> dict:
+                realtime=True, refresh=False, parent=None) -> dict:
         state = self.cluster_service.state
         state.blocks.check("read")
         index = state.metadata.resolve_indices(index)[0]
-        copy = self.routing.get_shard_copy(state, index, doc_id, routing)
+        effective_routing = routing if routing is not None else parent
+        copy = self.routing.get_shard_copy(state, index, doc_id, effective_routing)
         return self.transport.submit_request(state.nodes.get(copy.node_id), A_GET, {
             "index": index, "shard": copy.shard_id, "type": type_name, "id": doc_id,
             "realtime": realtime, "refresh": refresh}, timeout=10.0)
@@ -706,6 +717,8 @@ class ActionModule:
             out["_source"] = r.source
             if r.routing is not None:
                 out["_routing"] = str(r.routing)
+            if r.parent is not None:
+                out["_parent"] = str(r.parent)
         return out
 
     # ================= broadcast =================

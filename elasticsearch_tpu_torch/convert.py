@@ -6,7 +6,10 @@ JAX package.
 
 - `segment_from_arrays` builds a port FrozenSegment from a segment's CSR
   postings, norms, field statistics, masks, numeric and string doc-value
-  columns and routing values.
+  columns, routing values and, for a nested segment, its ids, types and
+  nested paths (the children's `__nested__` type and path, their parent's
+  id); a child's `_parent` pointers travel in the `_parent` string
+  column.
 - `packed_from_arrays` builds a port PackedSegment on a device from already
   packed planes, and can install it as a segment's pack for that device.
 """
@@ -38,21 +41,34 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
                         ids: list | None = None,
                         dv_num: dict | None = None,
                         dv_str: dict | None = None,
-                        routings: list | None = None) -> FrozenSegment:
+                        routings: list | None = None,
+                        types: list | None = None,
+                        nested_paths: list | None = None) -> FrozenSegment:
     """A port segment from CSR arrays. `term_dict` is {field: {term: tid}},
     `norms` {field: uint8[D]}, `field_stats` {field: {"doc_count",
     "sum_ttf", "sum_dfs"}}; `live` and `parent_mask` are bool[D];
     `dv_num` {field: (offsets int64[D+1], values float64[offsets[-1]])},
     each doc's numeric values (the JAX segment's `dv_num` layout); `dv_str`
     {field: (sorted distinct values, offsets int64[D+1], ords int32)}, each
-    doc's string values as ordinals into the distinct values (`dv_str`);
-    `routings` each doc's routing value (None where it has none)."""
+    doc's string values as ordinals into the distinct values (`dv_str`;
+    `_parent` holds a child document's parent id); `routings` each doc's
+    routing value (None where it has none); `types` each doc's type and
+    `nested_paths` each doc's nested path (None for a top-level doc): a
+    segment with nested children (False in `parent_mask`) needs both, with
+    `ids`, for its blocks."""
     live = np.array(live, dtype=bool)  # tombstones mutate it: own copy
     post_offsets = np.asarray(post_offsets, dtype=np.int64)
     if post_offsets[-1] != len(post_docs) or len(post_docs) != len(post_freqs):
         raise ValueError("post_offsets must end at len(post_docs) == len(post_freqs)")
-    if routings is not None and len(routings) != len(live):
-        raise ValueError(f"routings cover {len(routings)} docs, not {len(live)}")
+    for name, per_doc in (("routings", routings), ("ids", ids), ("types", types),
+                          ("nested_paths", nested_paths)):
+        if per_doc is not None and len(per_doc) != len(live):
+            raise ValueError(f"{name} cover {len(per_doc)} docs, not {len(live)}")
+    parent_mask = np.asarray(parent_mask, dtype=bool)
+    if not parent_mask.all() and (nested_paths is None or ids is None
+                                  or types is None):
+        raise ValueError("a segment with nested children needs its ids, types "
+                         "and nested_paths")
     for f, arr in norms.items():
         if len(arr) != len(live):
             raise ValueError(f"norms of [{f}] cover {len(arr)} docs, not {len(live)}")
@@ -87,9 +103,11 @@ def segment_from_arrays(term_dict: dict, post_offsets: np.ndarray,
                                    int(s.get("sum_dfs", 0)))
                      for f, s in field_stats.items()},
         live=live,
-        parent_mask=np.asarray(parent_mask, dtype=bool),
-        ids=ids,
+        parent_mask=parent_mask,
+        ids=None if ids is None else list(ids),
+        types=None if types is None else list(types),
         routings=None if routings is None else list(routings),
+        nested_paths=None if nested_paths is None else list(nested_paths),
         dv_num=columns,
         dv_str=strings,
     )

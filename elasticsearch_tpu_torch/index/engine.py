@@ -87,6 +87,7 @@ class VersionEntry:
     # retained source for the realtime get of unrefreshed docs
     source: dict | None = None
     routing: str | None = None
+    parent: str | None = None
 
 
 @dataclass
@@ -97,6 +98,7 @@ class GetResult:
     version: int = 0
     source: dict | None = None
     routing: str | None = None
+    parent: str | None = None
 
 
 def _resident(seg: FrozenSegment) -> bool:
@@ -189,8 +191,10 @@ class Engine:
     def index(self, type_name: str, doc_id: str, source: dict,
               routing: str | None = None, version=None,
               version_type: str = INTERNAL, op_type: str = "index",
+              parent: str | None = None,
               _from_translog: bool = False) -> tuple[int, bool]:
-        """Index or create a document. Returns (new_version, created)."""
+        """Index or create a document (a child of `parent` when given).
+        Returns (new_version, created)."""
         with self._lock:
             self._check_open()
             mapper = self.mapper_service.mapper_for(type_name)
@@ -200,16 +204,16 @@ class Engine:
             if op_type == "create" and not created:
                 raise DocumentAlreadyExistsError(f"[{type_name}][{doc_id}] already exists")
             new_version = self._check_version(uid, version, version_type)
-            parsed = mapper.parse(source, doc_id, routing=routing)
+            parsed = mapper.parse(source, doc_id, routing=routing, parent=parent)
             if not _from_translog:
                 self.translog.add(TranslogOp(
                     CREATE if op_type == "create" else INDEX, type_name, doc_id,
-                    source, routing=routing, version=new_version))
+                    source, routing=routing, version=new_version, parent=parent))
             self._tombstone_latest(uid)
             local = self._buffer.add(parsed, version=new_version)
             self._version_map[uid] = VersionEntry(
                 version=new_version, location=("buffer", local), source=source,
-                routing=parsed.routing)
+                routing=parsed.routing, parent=parsed.parent)
             return new_version, created
 
     def delete(self, type_name: str, doc_id: str, version=None,
@@ -240,7 +244,7 @@ class Engine:
                     return GetResult(found=False)
                 if realtime and entry.source is not None:
                     return GetResult(True, doc_id, type_name, entry.version,
-                                     entry.source, entry.routing)
+                                     entry.source, entry.routing, entry.parent)
             loc = self._uid_index.get(uid)
             if loc is None:
                 return GetResult(found=False)
@@ -248,8 +252,10 @@ class Engine:
             if seg is None or not seg.live[loc[1]]:
                 return GetResult(found=False)
             local = loc[1]
+            parent_vals = seg.str_values("_parent", local)
             return GetResult(True, doc_id, type_name, int(seg.versions[local]),
-                             seg.stored[local], seg.routings[local])
+                             seg.stored[local], seg.routings[local],
+                             parent_vals[0] if parent_vals else None)
 
     def _install_searcher(self) -> Searcher:
         """A new point-in-time view over the current segment list (caller
@@ -421,6 +427,8 @@ class Engine:
         source_gens = {seg.gen for seg in sources}
         for seg in sources:
             for local in range(seg.doc_count):
+                if not seg.parent_mask[local]:
+                    continue
                 uid = f"{seg.types[local]}#{seg.ids[local]}"
                 cur = self._uid_index.get(uid)
                 if cur is not None and cur[0] in source_gens:
@@ -493,6 +501,8 @@ class Engine:
             return replayed
 
     def _replay_op(self, op: TranslogOp):
+        # the logged `parent` is not passed on, as in the JAX package: a child
+        # replayed from the translog has no parent pointer (a kept behaviour)
         try:
             if op.op in (CREATE, INDEX):
                 self.index(op.type, op.id, op.source or {}, routing=op.routing,

@@ -11,7 +11,11 @@ sorted distinct values (`dv_str`: (sorted terms, offsets[D+1], ords), the
 JAX package's layout, what `exists`, the string-keyed aggregations and sorts
 and a script's `doc[...]` read); `_source`, ids, types, routings and versions are stored per doc for
 the fetch phase and realtime gets; deletes are tombstones in the `live`
-bitmap. Nested documents belong to a later slice of the port.
+bitmap. Nested documents are real documents in block order, as in Lucene's
+block join: a parent's nested children come right before it, with type
+`__nested__`, the parent's id, their path in `nested_paths` and False in
+`parent_mask`, which keeps them out of every top-level search; tombstoning a
+parent tombstones its block.
 
 The read API of the host scorer (`postings`, `term_positions`,
 `terms_for_field`, `num_values`, `str_values`) has the JAX package's
@@ -64,10 +68,21 @@ class SegmentBuilder:
         self._types: list[str] = []
         self._routings: list[str | None] = []
         self._versions: list[int] = []
+        self._parent_mask: list[bool] = []
+        self._nested_paths: list[str | None] = []
         self.doc_count = 0
 
     def add(self, doc: ParsedDocument, version: int = 1) -> int:
-        """Add one parsed document; returns its local doc id."""
+        """Add one parsed document, its nested children first (block
+        order); returns the parent's local doc id."""
+        for path, sub in doc.nested_docs:
+            self._add_one(sub, None, doc.id, "__nested__", None, version,
+                          False, path)
+        return self._add_one(doc, doc.source, doc.id, doc.type, doc.routing,
+                             version, True, None)
+
+    def _add_one(self, doc: ParsedDocument, source, doc_id, type_name, routing,
+                 version: int, top_level: bool, path: str | None) -> int:
         local = self.doc_count
         self.doc_count += 1
         for field_name, terms in doc.postings.items():
@@ -85,11 +100,13 @@ class SegmentBuilder:
             col = self._dv_str.setdefault(field_name, [])
             for v in vals:
                 col.append((local, v))
-        self._stored.append(doc.source)
-        self._ids.append(doc.id)
-        self._types.append(doc.type)
-        self._routings.append(doc.routing)
+        self._stored.append(source)
+        self._ids.append(doc_id)
+        self._types.append(type_name)
+        self._routings.append(routing)
         self._versions.append(version)
+        self._parent_mask.append(top_level)
+        self._nested_paths.append(path)
         return local
 
     def freeze(self) -> "FrozenSegment":
@@ -165,7 +182,7 @@ class SegmentBuilder:
             norms=norms,
             field_stats=field_stats,
             live=np.ones(D, dtype=bool),
-            parent_mask=np.ones(D, dtype=bool),
+            parent_mask=np.asarray(self._parent_mask, dtype=bool),
             ids=list(self._ids),
             types=list(self._types),
             routings=list(self._routings),
@@ -175,6 +192,7 @@ class SegmentBuilder:
             positions=np.asarray(pos_parts, dtype=np.int32),
             dv_num=dv_num,
             dv_str=dv_str,
+            nested_paths=list(self._nested_paths),
         )
 
 
@@ -208,6 +226,9 @@ class FrozenSegment:
     dv_num: dict = dc_field(default_factory=dict)  # field -> (offsets[D+1], values)
     # string field -> (sorted distinct values, offsets[D+1], int32 ordinals)
     dv_str: dict = dc_field(default_factory=dict)
+    # per doc, a nested child's path (None for a top-level doc); None for a
+    # segment built from arrays without it
+    nested_paths: list | None = None
     # per-device packed planes (ops/device_index.packed_for), keyed by device
     _device_cache: dict = dc_field(default_factory=dict, repr=False, compare=False)
     # bumped on every tombstone: a pack built under an older generation is
@@ -289,12 +310,20 @@ class FrozenSegment:
         return n
 
     def delete_doc(self, local: int) -> None:
-        """Tombstone a doc in place (with_deletes is the copy-on-write form
-        that keeps acquired searchers' point-in-time view)."""
+        """Tombstone a doc and its block of nested children in place
+        (with_deletes is the copy-on-write form that keeps acquired
+        searchers' point-in-time view)."""
         global _LIVE_GEN
         self.live[local] = False
         _LIVE_GEN += 1
         self.live_gen = _LIVE_GEN
+        if self.nested_paths is None:
+            return
+        i = local - 1
+        while i >= 0 and not self.parent_mask[i] and self.nested_paths[i] is not None \
+                and self.ids[i] == self.ids[local]:
+            self.live[i] = False
+            i -= 1
 
     def with_deletes(self, locals_to_delete) -> "FrozenSegment":
         """Copy-on-write tombstoning: a NEW segment object sharing every large
@@ -348,8 +377,15 @@ class FrozenSegment:
 def merge_segments(segments: list[FrozenSegment], gen: int) -> FrozenSegment:
     """Merge the live docs of several segments, in order, into one new
     segment: each doc's postings are rebuilt from the CSR arrays with their
-    positions, so the merged segment is the one indexing those docs afresh
-    would freeze."""
+    positions, so for top-level documents the merged segment is the one
+    indexing them afresh would freeze.
+
+    The walk goes block by block (a run of nested children, then their
+    parent); a dead parent drops its block. As in the JAX package, a child
+    is rebuilt from its postings only: its numeric and string doc values do
+    not survive the merge (a nested `range` that matched before a merge
+    matches nothing after it), and a trailing run of children with no
+    parent is dropped."""
     builder = SegmentBuilder(gen)
     for seg in segments:
         per_doc: list[dict[str, list[tuple[str, int]]]] = [
@@ -361,25 +397,41 @@ def merge_segments(segments: list[FrozenSegment], gen: int) -> FrozenSegment:
                     poss = seg.positions[seg.pos_offsets[i]: seg.pos_offsets[i + 1]]
                     per_doc[int(seg.post_docs[i])].setdefault(f, []).extend(
                         (term, int(p)) for p in poss)
-        for local in range(seg.doc_count):
-            if not seg.live[local]:
+        local = 0
+        while local < seg.doc_count:
+            block_start = local
+            while local < seg.doc_count and not seg.parent_mask[local]:
+                local += 1
+            if local >= seg.doc_count:
+                break
+            parent = local
+            local += 1
+            if not seg.live[parent]:
                 continue
-            doc = ParsedDocument(id=seg.ids[local], type=seg.types[local],
-                                 uid=f"{seg.types[local]}#{seg.ids[local]}",
-                                 source=seg.stored[local],
-                                 routing=seg.routings[local])
+            doc = ParsedDocument(id=seg.ids[parent], type=seg.types[parent],
+                                 uid=f"{seg.types[parent]}#{seg.ids[parent]}",
+                                 source=seg.stored[parent],
+                                 routing=seg.routings[parent])
             doc.postings = {f: sorted(terms, key=lambda tp: tp[1])
-                            for f, terms in per_doc[local].items()}
+                            for f, terms in per_doc[parent].items()}
             # norm-bearing fields only: the meta fields carry no lengths
             doc.field_lengths = {f: len(t) for f, t in doc.postings.items()
                                  if f in seg.norms}
             for f, (off, vals) in seg.dv_num.items():
-                v = vals[off[local]: off[local + 1]]
+                v = vals[off[parent]: off[parent + 1]]
                 if len(v):
                     doc.doc_values_num[f] = list(v)
             for f in seg.dv_str:
-                v = seg.str_values(f, local)
+                v = seg.str_values(f, parent)
                 if v:
                     doc.doc_values_str[f] = v
-            builder.add(doc, version=int(seg.versions[local]))
+            for child in range(block_start, parent):
+                sub = ParsedDocument(id=doc.id, type=doc.type, uid=doc.uid,
+                                     source={})
+                sub.postings = {f: sorted(terms, key=lambda tp: tp[1])
+                                for f, terms in per_doc[child].items()}
+                sub.field_lengths = {f: len(t) for f, t in sub.postings.items()
+                                     if f in seg.norms}
+                doc.nested_docs.append((seg.nested_paths[child] or "", sub))
+            builder.add(doc, version=int(seg.versions[parent]))
     return builder.freeze()

@@ -74,7 +74,7 @@ class Store:
             "field_stats": {f: [s.doc_count, s.sum_ttf, s.sum_dfs]
                             for f, s in seg.field_stats.items()},
             "stored": seg.stored, "ids": seg.ids, "types": seg.types,
-            "routings": seg.routings,
+            "routings": seg.routings, "nested_paths": seg.nested_paths,
             "dv_str_terms": {f: uniq for f, (uniq, _, _) in seg.dv_str.items()},
         }
         _write_synced(meta_path, json.dumps(meta).encode())
@@ -126,6 +126,7 @@ class Store:
             positions=data["positions"],
             dv_num=dv_num,
             dv_str=dv_str,
+            nested_paths=meta.get("nested_paths"),
         )
 
     def write_commit(self, commit_id: int, segment_files: dict, translog_gen: int,

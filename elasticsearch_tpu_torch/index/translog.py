@@ -23,9 +23,10 @@ FLUSH_THRESHOLD_SIZE = 200 * 1024 * 1024
 
 
 class TranslogOp:
-    """One logged operation; `query`, `parent`, `timestamp` and `ttl` are
-    written for the JAX package's record layout (delete-by-query and the
-    time meta-fields are later slices of the port, so they stay None)."""
+    """One logged operation; `query`, `timestamp` and `ttl` are written for
+    the JAX package's record layout (delete-by-query and the time
+    meta-fields are later slices of the port, so they stay None). `parent`
+    is logged but, as in the JAX package, not replayed (Engine._replay_op)."""
 
     __slots__ = ("op", "type", "id", "source", "routing", "version", "query",
                  "parent", "timestamp", "ttl")

@@ -22,13 +22,23 @@ sub-fields `full.sub`, which `to_mapping` renders under the parent's
 `copy_to` indexes a field's values into its targets (a missing target is
 mapped dynamically with the source's type) and adds nothing to `_all`.
 `_routing` (`required`, `path`) and `_timestamp` (`enabled`, `path`) are
-served. Nested fields, geo types and the `_parent` meta-field come with the
-second half of the mapper's slice, `_ttl` with the document APIs' slice;
-they raise MapperParsingError."""
+served; `_ttl` comes with the document APIs' slice and raises
+MapperParsingError.
+
+A `nested` object's values become nested documents of their own
+(`ParsedDocument.nested_docs`, one per object, parsed under the object's
+path), which the segment stores before their parent. A `geo_point` (a
+`{lat, lon}` object, a `"lat,lon"` string, a geohash or a `[lon, lat]`
+pair) lands in two numeric columns, `field.lat` and `field.lon`; a
+`geo_shape` is stored as the canonical JSON of its normalized form in the
+string doc values. A child document of a `_parent` mapping stores its
+parent's id in the `_parent` string doc values and as a `_parent` term
+(`parent_type#id`), and is routed by it when no routing is given."""
 
 from __future__ import annotations
 
 import datetime as _dt
+import json
 import re
 import time
 from dataclasses import dataclass, field as dc_field
@@ -36,6 +46,7 @@ from typing import Any
 
 from ..analysis import AnalysisService, Analyzer
 from ..common.errors import MapperParsingError
+from ..common.geo import geohash_decode, normalize_shape
 from ..common.settings import Settings
 
 TEXT_TYPES = {"string", "text"}
@@ -53,19 +64,18 @@ _ISO_RE = re.compile(
 META_FIELDS = ("_uid", "_id", "_type", "_source", "_all", "_routing", "_parent",
                "_timestamp", "_ttl", "_version", "_size", "_index", "_boost")
 
-_SECOND_HALF = "the mapper's second half (geo, nested, parent/child)"
-# meta-fields and field types of later slices, with the slice that serves each
-_LATER_META = {"_parent": _SECOND_HALF, "_ttl": "the document APIs (its expiry purger)"}
-_LATER_TYPES = {"nested": _SECOND_HALF, "geo_point": _SECOND_HALF,
-                "geo_shape": _SECOND_HALF}
+GEO_TYPES = {"geo_point", "geo_shape"}
+# meta-fields of later slices, with the slice that serves each
+_LATER_META = {"_ttl": "the document APIs (its expiry purger)"}
 
 
 def _not_ported(what: str, slice_: str | None = None) -> MapperParsingError:
     where = f": {slice_}" if slice_ else ""
     return MapperParsingError(
         f"{what} is not ported yet (a later slice of the port{where}); this "
-        "slice maps string, numeric, date, boolean, ip, token_count and "
-        "object fields, multi-fields and copy_to")
+        "slice maps string, numeric, date, boolean, ip, token_count, "
+        "geo_point, geo_shape, object and nested fields, multi-fields and "
+        "copy_to")
 
 
 def parse_ip(value: str) -> int:
@@ -158,6 +168,7 @@ class FieldType:
     include_in_all: bool = True
     doc_values: bool = True
     copy_to: list[str] = dc_field(default_factory=list)
+    nested: bool = False  # an object of type nested
 
     @property
     def is_text(self) -> bool:
@@ -239,6 +250,7 @@ class ParsedDocument:
     source: dict
     routing: str | None = None
     timestamp: int | None = None
+    parent: str | None = None
     # field → list[(term, position)]
     postings: dict[str, list[tuple[str, int]]] = dc_field(default_factory=dict)
     # field → token count (for norms)
@@ -248,6 +260,8 @@ class ParsedDocument:
     # string field → the doc's values as given (null_value included): the
     # segment's string doc values
     doc_values_str: dict[str, list[str]] = dc_field(default_factory=dict)
+    # nested documents in block order: (nested path, their ParsedDocument)
+    nested_docs: list[tuple[str, "ParsedDocument"]] = dc_field(default_factory=list)
 
 
 def _infer_dynamic_type(value: Any, dynamic_date: bool = True) -> str | None:
@@ -283,6 +297,7 @@ class DocumentMapper:
         self.all_enabled = mapping.get("_all", {}).get("enabled", True)
         self.routing_required = mapping.get("_routing", {}).get("required", False)
         self.routing_path = mapping.get("_routing", {}).get("path")
+        self.parent_type = mapping.get("_parent", {}).get("type")
         self.timestamp_enabled = mapping.get("_timestamp", {}).get("enabled", False)
         self.timestamp_path = mapping.get("_timestamp", {}).get("path")
         self.fields: dict[str, FieldType] = {}
@@ -296,10 +311,10 @@ class DocumentMapper:
             if not isinstance(spec, dict):
                 raise MapperParsingError(f"invalid mapping for field [{full}]")
             ftype = spec.get("type")
-            if ftype == "nested":
-                raise _not_ported(f"nested field [{full}]", _SECOND_HALF)
-            if ftype in (None, "object") and ("properties" in spec or ftype == "object"):
-                self.fields[full] = FieldType(name=full, type="object")
+            if ftype in (None, "object", "nested") and (
+                    "properties" in spec or ftype in ("object", "nested")):
+                self.fields[full] = FieldType(name=full, type="object",
+                                              nested=ftype == "nested")
                 self._parse_properties(spec.get("properties", {}), prefix=f"{full}.")
                 continue
             if ftype == "multi_field":
@@ -321,8 +336,9 @@ class DocumentMapper:
         if ftype == "keyword":  # alias: not_analyzed string
             ftype = "string"
             spec = {**spec, "index": "not_analyzed"}
-        if ftype not in TEXT_TYPES and ftype not in NUMERIC_TYPES:
-            raise _not_ported(f"field type [{ftype}] of [{full}]", _LATER_TYPES.get(ftype))
+        if ftype not in TEXT_TYPES and ftype not in NUMERIC_TYPES \
+                and ftype not in GEO_TYPES:
+            raise _not_ported(f"field type [{ftype}] of [{full}]")
         index = spec.get("index", "analyzed" if ftype in TEXT_TYPES else "yes")
         if index == "yes":
             index = "analyzed" if ftype in TEXT_TYPES else "not_analyzed"
@@ -348,12 +364,12 @@ class DocumentMapper:
         return self.fields.get(name)
 
     def parse(self, source: dict, doc_id: str, routing: str | None = None,
-              timestamp=None) -> ParsedDocument:
+              timestamp=None, parent: str | None = None) -> ParsedDocument:
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
         doc = ParsedDocument(id=doc_id, type=self.type,
                              uid=f"{self.type}#{doc_id}", source=source,
-                             routing=routing)
+                             routing=routing, parent=parent)
         # an explicit timestamp always takes effect; the `_timestamp` doc
         # value is stored only when the meta-field is enabled
         if timestamp is not None:
@@ -365,6 +381,14 @@ class DocumentMapper:
                 doc.timestamp = int(time.time() * 1000)
         if self.routing_path and routing is None and self.routing_path in source:
             doc.routing = str(source[self.routing_path])
+        if parent is not None:
+            # a child document: the parent pointer for the joins, and its
+            # routing when none is given
+            doc.parent = str(parent)
+            doc.doc_values_str["_parent"] = [doc.parent]
+            doc.postings["_parent"] = [(f"{self.parent_type or 'doc'}#{doc.parent}", 0)]
+            if doc.routing is None:
+                doc.routing = doc.parent
         if doc.timestamp is not None and self.timestamp_enabled:
             doc.doc_values_num["_timestamp"] = [float(doc.timestamp)]
         all_terms: list[tuple[str, int]] = []
@@ -392,13 +416,23 @@ class DocumentMapper:
                             f"strict dynamic mapping: unknown field [{full}]")
                     if not self.dynamic:
                         continue
-                    self.fields[full] = FieldType(name=full, type="object")
+                    self.fields[full] = ft = FieldType(name=full, type="object")
                     self._mapping_dirty = True
-                self._parse_object(value, f"{full}.", doc, all_terms)
+                if ft.nested:
+                    self._add_nested(doc, full, value)
+                else:
+                    self._parse_object(value, f"{full}.", doc, all_terms)
                 continue
             values = value if isinstance(value, list) else [value]
-            if values and all(isinstance(v, dict) for v in values):
-                # array of objects, non-nested: flatten each
+            if values and all(isinstance(v, dict) for v in values) \
+                    and ft is not None and ft.nested:
+                for v in values:
+                    self._add_nested(doc, full, v)
+                continue
+            if values and all(isinstance(v, dict) for v in values) and (
+                    ft is None or ft.type not in GEO_TYPES):
+                # array of objects, non-nested: flatten each (a geo type
+                # takes its object form as a leaf value)
                 for v in values:
                     self._parse_object(v, f"{full}.", doc, all_terms)
                 continue
@@ -424,6 +458,13 @@ class DocumentMapper:
                     self._mapping_dirty = True
                 self._index_values(tft, values, doc, all_terms=[])
 
+    def _add_nested(self, doc: ParsedDocument, path: str, obj: dict):
+        """One nested object as a document of its own, parsed under `path`
+        (it adds nothing to the parent's `_all`)."""
+        sub = ParsedDocument(id=doc.id, type=self.type, uid=doc.uid, source=obj)
+        self._parse_object(obj, f"{path}.", sub, [])
+        doc.nested_docs.append((path, sub))
+
     def _index_values(self, ft: FieldType, values: list, doc: ParsedDocument,
                       all_terms: list):
         if not ft.searchable and not ft.doc_values:
@@ -435,7 +476,27 @@ class DocumentMapper:
             if not col:
                 doc.doc_values_num.pop(ft.name, None)
             return
+        if ft.type == "geo_point":
+            for lat, lon in _parse_geo_points(values):
+                doc.doc_values_num.setdefault(f"{ft.name}.lat", []).append(lat)
+                doc.doc_values_num.setdefault(f"{ft.name}.lon", []).append(lon)
+            return
+        if ft.type == "geo_shape":
+            # relations evaluate on the host from the parsed form
+            # (search/filters.py GeoShapeFilter)
+            for v in values:
+                if not isinstance(v, dict):
+                    raise MapperParsingError(f"failed to parse geo_shape [{v}]")
+                try:
+                    kind, data = normalize_shape(v)
+                except ValueError as e:
+                    raise MapperParsingError(str(e))
+                doc.doc_values_str.setdefault(ft.name, []).append(
+                    json.dumps([kind, data], separators=(",", ":")))
+            return
         if not ft.is_text:
+            if all(v is None for v in values):
+                return  # an empty array (or null) of an object: nothing
             raise _not_ported(f"field type [{ft.type}] of [{ft.name}]")
         analyzer = self.analysis.analyzer(ft.analyzer)
         terms = doc.postings.setdefault(ft.name, [])
@@ -477,7 +538,10 @@ class DocumentMapper:
                 continue
             node = props
             for p in parts[:-1]:
-                node = node.setdefault(p, {}).setdefault("properties", {})
+                obj_ft = self.fields.get(".".join(parts[: parts.index(p) + 1]))
+                node = node.setdefault(
+                    p, {"type": "nested"} if obj_ft and obj_ft.nested else {})
+                node = node.setdefault("properties", {})
             node[parts[-1]] = ft.to_mapping()
         for parent_parts, leaf, ft in multi:
             node = props
@@ -494,6 +558,8 @@ class DocumentMapper:
         if self.routing_required or self.routing_path:
             out["_routing"] = {k: v for k, v in (("required", self.routing_required),
                                                  ("path", self.routing_path)) if v}
+        if self.parent_type:
+            out["_parent"] = {"type": self.parent_type}
         if self.timestamp_enabled:
             out["_timestamp"] = {"enabled": True}
         return out
@@ -514,6 +580,32 @@ class DocumentMapper:
             elif mine.analyzer != ft.analyzer:
                 conflicts.append(f"mapper [{name}] has different analyzer")
         return conflicts
+
+
+def _parse_geo_points(values: list) -> list[tuple[float, float]]:
+    """One or many points: {lat, lon}, "lat,lon", a geohash or [lon, lat];
+    a bare numeric pair is ONE point (GeoJSON order), anything else is read
+    element by element."""
+    if len(values) == 2 and all(isinstance(x, (int, float)) for x in values):
+        return [(float(values[1]), float(values[0]))]
+    return [_parse_geo_point(v) for v in values]
+
+
+def _parse_geo_point(v) -> tuple[float, float]:
+    if isinstance(v, dict):
+        return float(v["lat"]), float(v["lon"])
+    if isinstance(v, str):
+        if "," in v:
+            lat, lon = v.split(",")
+            return float(lat), float(lon)
+        try:  # a bare string is a geohash
+            return geohash_decode(v.strip().lower())
+        except (KeyError, ValueError):
+            raise MapperParsingError(f"failed to parse geohash [{v}]")
+    if isinstance(v, list):
+        if len(v) == 2 and all(isinstance(x, (int, float)) for x in v):
+            return float(v[1]), float(v[0])  # GeoJSON order [lon, lat]
+    raise MapperParsingError(f"failed to parse geo_point [{v}]")
 
 
 class MapperService:

@@ -231,20 +231,24 @@ class Client:
         return self.actions.get_mapping(index, doc_type)
 
     def index(self, index, doc_type, body, id=None, routing=None, version=None,
-              version_type="internal", op_type="index", refresh=False):
+              version_type="internal", op_type="index", refresh=False,
+              parent=None):
         return self.actions.index_doc(index, doc_type, id, body, routing=routing,
                                       version=version, version_type=version_type,
-                                      op_type=op_type, refresh=refresh)
+                                      op_type=op_type, refresh=refresh,
+                                      parent=parent)
 
-    def get(self, index, doc_type, id, routing=None, realtime=True, refresh=False):
+    def get(self, index, doc_type, id, routing=None, realtime=True, refresh=False,
+            parent=None):
         return self.actions.get_doc(index, doc_type, id, routing=routing,
-                                    realtime=realtime, refresh=refresh)
+                                    realtime=realtime, refresh=refresh,
+                                    parent=parent)
 
     def delete(self, index, doc_type, id, routing=None, version=None,
-               version_type="internal", refresh=False):
+               version_type="internal", refresh=False, parent=None):
         return self.actions.delete_doc(index, doc_type, id, routing=routing,
                                        version=version, version_type=version_type,
-                                       refresh=refresh)
+                                       refresh=refresh, parent=parent)
 
     def bulk(self, operations, refresh=False):
         return self.actions.bulk(operations, refresh=refresh)

@@ -14,7 +14,10 @@ found), `_bulk` NDJSON (at `/`, `/{index}` and
 `/{index}/_mapping/{type}` and `/_mapping/{type}` (`_mappings` too), `GET`
 `/_mapping`, `/{index}/_mapping`, `/{index}/{type}/_mapping`,
 `/{index}/_mapping/{type}` and `/_mapping/{type}`; `DELETE` of a mapping
-answers 400 naming its later slice. A route that is not
+answers 400 naming its later slice. The single-document index, GET, HEAD
+and DELETE take `?parent=`, which routes the document when no `routing` is
+given (a `_bulk` item's parent is ignored, as in the JAX package; GET
+answers no `_parent` key over REST, as there). A route that is not
 ported answers 400 "No handler found", as the JAX controller answers an
 unknown route; a missing index answers 404. Handlers call the node Client:
 REST is a thin adapter, as in the JAX package."""
@@ -198,7 +201,8 @@ def build_rest_controller(node) -> RestController:
             id=req.path_params.get("id"), routing=req.param("routing"),
             version=int(req.param("version")) if req.param("version") else None,
             version_type=req.param("version_type", "internal"),
-            op_type=req.param("op_type", "index"), refresh=req.bool_param("refresh"))
+            op_type=req.param("op_type", "index"), refresh=req.bool_param("refresh"),
+            parent=req.param("parent"))
         return RestResponse(201 if r.get("created") else 200, r)
 
     rc.register("PUT,POST", "/{index}/{type}/{id}", doc_index)
@@ -211,6 +215,7 @@ def build_rest_controller(node) -> RestController:
                 "port: stored fields come with the document APIs)")
         r = client.get(req.path_params["index"], req.path_params["type"],
                        req.path_params["id"], routing=req.param("routing"),
+                       parent=req.param("parent"),
                        realtime=req.bool_param("realtime", True),
                        refresh=req.bool_param("refresh"))
         if not r["found"]:
@@ -235,6 +240,7 @@ def build_rest_controller(node) -> RestController:
     def doc_delete(req):
         r = client.delete(req.path_params["index"], req.path_params["type"],
                           req.path_params["id"], routing=req.param("routing"),
+                          parent=req.param("parent"),
                           version=int(req.param("version")) if req.param("version")
                           else None,
                           version_type=req.param("version_type", "internal"),

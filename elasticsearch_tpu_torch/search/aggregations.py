@@ -6,9 +6,10 @@ merges partials (across segments and shards alike), then finalizes the
 response — the shape of the reference's Aggregator / InternalAggregation.
 
   metrics : avg, sum, min, max, stats, extended_stats, value_count,
-            cardinality, percentiles, top_hits
-  buckets : terms, significant_terms, range, date_range, histogram,
-            date_histogram, filter, filters, global, missing
+            cardinality, percentiles, top_hits, geo_bounds
+  buckets : terms, significant_terms, range, date_range, ip_range,
+            histogram, date_histogram, filter, filters, global, missing,
+            nested, geo_distance, geohash_grid
 
 Sub-aggregations nest arbitrarily (bucket → mask → child collect). Collect
 is vectorized numpy over the doc-value columns, so its partials are the JAX
@@ -27,9 +28,11 @@ the same aggregations (`parse_facets`, `facet_response`).
 the host's float64 column, so an IPv4 value above 2^24 keeps its exact
 value; only the per-bucket counts ride the card, as for `range`.
 
-Later slices of the port answer QueryParsingError: `geo_bounds`,
-`geo_distance` and `geohash_grid` (the geo_point mapping) and `nested`
-(nested documents), and the `geo_distance` facet.
+`geo_distance` and `geohash_grid` compute each point's distance (float64
+`haversine_m`) or cell on the host and ride the card's count scatter as
+deduplicated (doc, bucket) pairs, as in the JAX package; `geo_bounds` and
+`nested` (the path's children of the matching parents, `_parent_of_map`)
+collect on the host. The `geo_distance` facet maps onto `geo_distance`.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ import numpy as np
 
 from ..common.breaker import reserve
 from ..common.errors import QueryParsingError
+from ..common.geo import geohash_encode
 from ..mapper.core import parse_date_math, parse_ip
-from .filters import segment_mask
+from .filters import haversine_m, parse_distance, parse_point, segment_mask
 from .queries import parse_filter
 
 # ---------------------------------------------------------------------------
@@ -91,10 +95,6 @@ def parse_aggs(spec: dict) -> dict[str, Agg]:
             raise QueryParsingError(f"aggregation [{name}] must have exactly one type")
         kind = kinds[0]
         cls = _AGG_REGISTRY.get(kind)
-        if kind in _LATER_AGGS:
-            raise QueryParsingError(
-                f"aggregation [{name}]: the [{kind}] aggregation is not ported "
-                f"yet: it needs {_LATER_AGGS[kind]}, a later slice of the port")
         if cls is None:
             raise QueryParsingError(f"unknown aggregation type [{kind}]")
         out[name] = cls(name, body[kind], subs)
@@ -333,7 +333,7 @@ def device_partial(agg: Agg, count, st):
 
 def device_bucket_eligible(agg: Agg) -> bool:
     """Bucket aggs the device path serves: terms / significant_terms /
-    histogram / date_histogram / range family on a plain field,
+    histogram / date_histogram / range family / geo buckets on a plain field,
     plus the mask-shaped buckets (filter / filters / missing — their masks are
     host-evaluated per segment like FilteredQuery). Bucket KEYS are computed
     host-side (exact — calendar bucketing and range bound conversion included);
@@ -353,7 +353,7 @@ def device_bucket_eligible(agg: Agg) -> bool:
                        for r in agg.spec.get("ranges", [])
                        for b in (r.get("from"), r.get("to")) if b is not None)
     return type(agg) in (TermsAgg, SignificantTermsAgg, HistogramAgg,
-                         DateHistogramAgg)
+                         DateHistogramAgg, GeoDistanceAgg, GeohashGridAgg)
 
 
 _BUCKET_CACHE_MAX = 8  # distinct bucket-agg shapes cached per segment
@@ -442,6 +442,44 @@ def _bucket_cols_build(agg: Agg, seg, ctx, ckey, field) -> tuple:
                  if pair_parts else np.zeros(0, np.int64))
         out = ((pairs // max(len(masks), 1)).astype(np.int32),
                (pairs % max(len(masks), 1)).astype(np.int32), keys)
+        return _bucket_cache_put(seg._device_cache, ckey, out)
+    if isinstance(agg, (GeoDistanceAgg, GeohashGridAgg)):
+        # geo buckets: each value's distance or cell on the host (the origin
+        # and precision are in the cache key), then the same deduplicated
+        # pair machinery
+        field2 = agg.spec.get("field")
+        lat_col = seg.dv_num.get(f"{field2}.lat")
+        lon_col = seg.dv_num.get(f"{field2}.lon")
+        if lat_col is None or lon_col is None or not len(lat_col[1]):
+            out = (empty[0], empty[1],
+                   [r.get("key") or f"{r.get('from', '*')}-{r.get('to', '*')}"
+                    for r in agg.spec.get("ranges", [])]
+                   if isinstance(agg, GeoDistanceAgg) else [])
+            return _bucket_cache_put(seg._device_cache, ckey, out)
+        off, lats = lat_col
+        _, lons = lon_col
+        counts = np.diff(off)
+        doc_of_val = np.repeat(np.arange(seg.doc_count, dtype=np.int64), counts)
+        if isinstance(agg, GeohashGridAgg):
+            cells = agg._cells(lats, lons)
+            uniq_c = sorted(set(cells))
+            cpos = {c: i for i, c in enumerate(uniq_c)}
+            inv = np.asarray([cpos[c] for c in cells], dtype=np.int64)
+            pairs = np.unique(doc_of_val * len(uniq_c) + inv)
+            out = ((pairs // len(uniq_c)).astype(np.int32),
+                   (pairs % len(uniq_c)).astype(np.int32), uniq_c)
+            return _bucket_cache_put(seg._device_cache, ckey, out)
+        d = agg._distances(lats, lons)
+        ranges = agg.spec.get("ranges", [])
+        keys = [agg._range_key(r) for r in ranges]
+        pair_parts = [
+            doc_of_val[agg._range_sel(d, r)] * max(len(ranges), 1) + ri
+            for ri, r in enumerate(ranges)
+        ]
+        pairs = (np.unique(np.concatenate(pair_parts)) if pair_parts
+                 else np.zeros(0, np.int64))
+        out = ((pairs // max(len(ranges), 1)).astype(np.int32),
+               (pairs % max(len(ranges), 1)).astype(np.int32), keys)
         return _bucket_cache_put(seg._device_cache, ckey, out)
     if isinstance(agg, RangeAgg):
         # range buckets: a value can fall in several (overlapping) ranges —
@@ -548,7 +586,7 @@ def device_bucket_partial(agg: Agg, keys: list, counts: np.ndarray,
             b["to"] = agg._convert(r.get("to"))
             out.append(b)
         return out
-    if isinstance(agg, (FilterAgg, FiltersAgg, MissingAgg)):
+    if isinstance(agg, (FilterAgg, FiltersAgg, MissingAgg, GeoDistanceAgg)):
         return [mk(bi, k, c) for bi, (k, c) in enumerate(zip(keys, counts))]
     if isinstance(agg, SignificantTermsAgg):
         field = agg.spec.get("field")
@@ -564,6 +602,30 @@ def device_bucket_partial(agg: Agg, keys: list, counts: np.ndarray,
         return out
     return [mk(bi, k, c)
             for bi, (k, c) in enumerate(zip(keys, counts)) if c > 0]
+
+
+class GeoBoundsAgg(Agg):
+    def collect(self, seg, ctx, mask, scores=None):
+        field = self.spec.get("field")
+        _, lats = _field_values(seg, f"{field}.lat", mask)
+        _, lons = _field_values(seg, f"{field}.lon", mask)
+        if not len(lats):
+            return None
+        return (float(lats.max()), float(lons.min()), float(lats.min()), float(lons.max()))
+
+    def merge(self, partials):
+        ps = [p for p in partials if p is not None]
+        if not ps:
+            return None
+        return (max(p[0] for p in ps), min(p[1] for p in ps),
+                min(p[2] for p in ps), max(p[3] for p in ps))
+
+    def finalize(self, merged):
+        if merged is None:
+            return {}
+        top, left, bottom, right = merged
+        return {"bounds": {"top_left": {"lat": top, "lon": left},
+                           "bottom_right": {"lat": bottom, "lon": right}}}
 
 
 class CardinalityAgg(Agg):
@@ -980,6 +1042,118 @@ class MissingAgg(_BucketAgg):
         return out
 
 
+class NestedAgg(_BucketAgg):
+    """Switches the collection scope to the nested child docs of `path`
+    whose parents match."""
+
+    def collect(self, seg, ctx, mask, scores=None):
+        from .execute import _parent_of_map
+
+        path = self.spec.get("path")
+        child_sel = np.asarray([p == path for p in seg.nested_paths], dtype=bool)
+        parents = _parent_of_map(seg)
+        cmask = np.zeros(seg.doc_count, dtype=bool)
+        idx = np.nonzero(child_sel)[0]
+        if len(idx):
+            pidx = parents[idx]
+            ok = pidx >= 0
+            cmask[idx[ok]] = mask[pidx[ok]]
+        return [self._bucket_partial(seg, ctx, "nested", cmask, scores)]
+
+    def merge(self, partials):
+        return self._merge_buckets(partials)
+
+    def finalize(self, merged):
+        e = next(iter(merged.values())) if merged else {"key": "nested", "doc_count": 0, "subs": {}}
+        out = {"doc_count": e["doc_count"]}
+        out.update(self._finalize_subs(e["subs"]) if e["subs"] else {})
+        return out
+
+
+class GeoDistanceAgg(_BucketAgg):
+    def _distances(self, lats: np.ndarray, lons: np.ndarray) -> np.ndarray:
+        """Per-value distance from the spec origin in spec units: the one
+        origin parse and haversine, shared with the device pair builder."""
+        lat0, lon0 = parse_point(self.spec.get("origin") or self.spec.get("point")
+                                 or self.spec.get("center"))
+        unit = parse_distance("1" + self.spec.get("unit", "m"))
+        return haversine_m(lat0, lon0, lats, lons) / unit
+
+    @staticmethod
+    def _range_sel(d: np.ndarray, r: dict) -> np.ndarray:
+        sel = np.ones(len(d), dtype=bool)
+        if r.get("from") is not None:
+            sel &= d >= float(r["from"])
+        if r.get("to") is not None:
+            sel &= d < float(r["to"])
+        return sel
+
+    @staticmethod
+    def _range_key(r: dict) -> str:
+        frm, to = r.get("from"), r.get("to")
+        return r.get("key") or \
+            f"{frm if frm is not None else '*'}-{to if to is not None else '*'}"
+
+    def collect(self, seg, ctx, mask, scores=None):
+        field = self.spec.get("field")
+        docs_lat, lats = _field_values(seg, f"{field}.lat", mask)
+        _, lons = _field_values(seg, f"{field}.lon", mask)
+        d = self._distances(lats, lons)
+        buckets = []
+        for r in self.spec.get("ranges", []):
+            sel = self._range_sel(d, r)
+            bmask = np.zeros(seg.doc_count, dtype=bool)
+            bmask[docs_lat[sel]] = True
+            bmask &= mask
+            buckets.append(self._bucket_partial(seg, ctx, self._range_key(r),
+                                                bmask, scores))
+        return buckets
+
+    def merge(self, partials):
+        return self._merge_buckets(partials)
+
+    def finalize(self, merged):
+        return {"buckets": [self._finalize_bucket(e) for e in merged.values()]}
+
+
+class GeohashGridAgg(_BucketAgg):
+    """Buckets per geohash cell at `precision`, doc-deduplicated counts,
+    ordered by count desc then cell asc."""
+
+    def _cells(self, lats: np.ndarray, lons: np.ndarray) -> list:
+        precision = int(self.spec.get("precision", 5))
+        return [geohash_encode(float(la), float(lo), precision)
+                for la, lo in zip(lats, lons)]
+
+    def collect(self, seg, ctx, mask, scores=None):
+        field = self.spec.get("field")
+        docs, lats = _field_values(seg, f"{field}.lat", mask)
+        _, lons = _field_values(seg, f"{field}.lon", mask)
+        by_cell: dict[str, set] = {}
+        for d, cell in zip(docs, self._cells(lats, lons)):
+            by_cell.setdefault(cell, set()).add(int(d))
+        buckets = []
+        for cell, ds in by_cell.items():
+            if not self.subs:
+                # docs are already mask-filtered; the per-cell mask is only
+                # needed to drive sub-agg collection
+                buckets.append({"key": cell, "doc_count": len(ds), "subs": {}})
+                continue
+            bmask = np.zeros(seg.doc_count, dtype=bool)
+            bmask[list(ds)] = True
+            buckets.append(self._bucket_partial(seg, ctx, cell, bmask, scores))
+        return buckets
+
+    def merge(self, partials):
+        return self._merge_buckets(partials)
+
+    def finalize(self, merged):
+        entries = sorted(merged.values(),
+                         key=lambda e: (-e["doc_count"], e["key"]))
+        size = int(self.spec.get("size", 10000) or 10000)
+        return {"buckets": [self._finalize_bucket(e) for e in entries[:size]]}
+
+
 class SignificantTermsAgg(TermsAgg):
     """Simplified significance: foreground/background frequency ratio scoring
     (the reference uses JLH; same monotone intent, documented deviation)."""
@@ -1042,6 +1216,7 @@ _AGG_REGISTRY: dict[str, type] = {
     "cardinality": CardinalityAgg,
     "percentiles": PercentilesAgg,
     "top_hits": TopHitsAgg,
+    "geo_bounds": GeoBoundsAgg,
     "terms": TermsAgg,
     "significant_terms": SignificantTermsAgg,
     "range": RangeAgg,
@@ -1053,14 +1228,9 @@ _AGG_REGISTRY: dict[str, type] = {
     "filters": FiltersAgg,
     "global": GlobalAgg,
     "missing": MissingAgg,
-}
-
-# aggregation types of the JAX package that later slices of the port bring
-_LATER_AGGS = {
-    "geo_bounds": "the geo_point mapping",
-    "geo_distance": "the geo_point mapping",
-    "geohash_grid": "the geo_point mapping",
-    "nested": "nested documents",
+    "nested": NestedAgg,
+    "geo_distance": GeoDistanceAgg,
+    "geohash_grid": GeohashGridAgg,
 }
 
 
@@ -1089,9 +1259,7 @@ def parse_facets(spec: dict) -> dict[str, tuple[Agg, str]]:
         elif kind == "range":
             agg = RangeAgg(name, fspec)
         elif kind == "geo_distance":
-            raise QueryParsingError(
-                f"facet [{name}]: the [geo_distance] facet is not ported yet: "
-                "it needs the geo_point mapping, a later slice of the port")
+            agg = GeoDistanceAgg(name, fspec)
         elif kind in ("query",):
             agg = FilterAgg(name, {"query": fspec})
         elif kind in ("filter",):
@@ -1124,6 +1292,10 @@ def facet_response(agg: Agg, kind: str, reduced: dict) -> dict:
         ]}
     if kind in ("query", "filter"):
         return {"_type": kind, "count": reduced["doc_count"]}
+    if kind == "geo_distance":
+        return {"_type": "geo_distance", "ranges": [
+            {**b, "count": b.pop("doc_count")} for b in [dict(b) for b in reduced["buckets"]]
+        ]}
     if kind == "terms_stats":
         return {"_type": "terms_stats", "entries": [
             {"term": b["key"], "count": b["doc_count"], **b.get("stats", {})}

@@ -110,11 +110,14 @@ from .queries import (
     FunctionScoreQuery,
     FuzzyLikeThisQuery,
     FuzzyQuery,
+    HasChildQuery,
+    HasParentQuery,
     IdsQuery,
     MatchAllQuery,
     MatchQuery,
     MoreLikeThisQuery,
     MultiMatchQuery,
+    NestedQuery,
     PhraseQuery,
     PrefixQuery,
     Query,
@@ -1351,6 +1354,8 @@ def _weight_prepass(query: Query, ctx: ShardContext) -> float:
             return walk(q.query, b)
         if isinstance(q, FunctionScoreQuery) and q.query is not None:
             return walk(q.query, b)
+        if isinstance(q, NestedQuery):
+            return walk(q.query, b)
         return float(b * b)
 
     return walk(query, 1.0)
@@ -1540,6 +1545,18 @@ class HostScorer:
 
         if isinstance(q, FunctionScoreQuery):
             return self._eval_function_score(q, b)
+
+        if isinstance(q, NestedQuery):
+            mask, scores = child_match_to_parents(
+                seg, ctx, q.path, q.query, score_mode=q.score_mode,
+                query_norm=float(self.qn))
+            return (scores * np.float32(b)).astype(np.float32), mask
+
+        if isinstance(q, (HasChildQuery, HasParentQuery)):
+            # the join is shard-wide (_shard_join, when the query is the
+            # whole query); inside another query it matches nothing, as in
+            # the JAX package
+            return np.zeros(self.D, np.float32), np.zeros(self.D, bool)
 
         raise QueryParsingError(f"unsupported query type {type(q).__name__}")
 
@@ -2169,6 +2186,124 @@ def parse_query_string(q: QueryStringQuery, ctx: ShardContext) -> Query:
     return BoolQuery(must=must, should=should, must_not=must_not, boost=q.boost)
 
 
+# ---------------------------------------------------------------------------
+# nested and parent/child joins
+# ---------------------------------------------------------------------------
+
+
+def _parent_of_map(seg: FrozenSegment) -> np.ndarray:
+    """Per doc, the local id of its block's parent (a parent maps to itself;
+    a trailing run of children with no parent to -1), cached on the
+    segment."""
+    cache = seg._device_cache
+    pm = cache.get("parent_of")
+    if pm is None:
+        pm = np.zeros(seg.doc_count, dtype=np.int64)
+        parent = -1
+        for local in range(seg.doc_count - 1, -1, -1):
+            if seg.parent_mask[local]:
+                parent = local
+            pm[local] = parent
+        cache["parent_of"] = pm
+    return pm
+
+
+def child_match_to_parents(seg: FrozenSegment, ctx: ShardContext, path: str, inner,
+                           score_mode: str = "none", query_norm: float = 1.0):
+    """Block join: evaluate `inner` (a Query or a Filter) over the nested
+    children of `path` and gather to their parents: (parent mask, parent
+    scores by `score_mode`: avg, sum / total, max, or 1.0 for none). The
+    children's liveness is not read: a dead parent's block is dead with it."""
+    child_sel = np.asarray([p == path for p in seg.require(
+        "nested_paths", "nested queries")], dtype=bool)
+    if isinstance(inner, Filter):
+        cmask = segment_mask(seg, inner, ctx)
+        cscores = cmask.astype(np.float32)
+    else:
+        cscores, cmask = HostScorer(ctx, seg, query_norm).eval(inner)
+    cmask = cmask & child_sel
+    parents = _parent_of_map(seg)
+    pmask = np.zeros(seg.doc_count, dtype=bool)
+    pscores = np.zeros(seg.doc_count, dtype=np.float32)
+    pcounts = np.zeros(seg.doc_count, dtype=np.int32)
+    idx = np.nonzero(cmask)[0]
+    if len(idx):
+        pidx = parents[idx]
+        valid = pidx >= 0
+        idx, pidx = idx[valid], pidx[valid]
+        pmask[pidx] = True
+        if score_mode in ("sum", "avg", "total"):
+            np.add.at(pscores, pidx, cscores[idx])
+            np.add.at(pcounts, pidx, 1)
+            if score_mode == "avg":
+                nz = pcounts > 0
+                pscores[nz] = pscores[nz] / pcounts[nz]
+        elif score_mode == "max":
+            np.maximum.at(pscores, pidx, cscores[idx])
+        else:
+            pscores[pidx] = 1.0
+    return pmask, pscores
+
+
+def _shard_join(ctx: ShardContext, q: Query):
+    """The cross-segment parent/child join: per-segment (scores, match) for
+    a has_child / has_parent query, else None.
+
+    has_child gathers the matching docs of `child_type` to their `_parent`
+    ids over every segment (scores summed, or maxed for `max`) and matches
+    the top-level docs with those ids; has_parent matches the docs whose
+    `_parent` names a matching doc of `parent_type`. As in the JAX package,
+    the inner query's matches are not gated on liveness (a deleted child
+    still selects its parent until a merge drops it), and the scores are
+    the inner query's without a query norm."""
+    if not isinstance(q, (HasChildQuery, HasParentQuery)):
+        return None
+    out = []
+    segments = ctx.searcher.segments
+    if isinstance(q, HasChildQuery):
+        parent_ids: dict[str, float] = {}
+        for seg in segments:
+            s, m = HostScorer(ctx, seg, 1.0).eval(q.query)
+            types = seg.require("types", "parent/child joins")
+            m = m & np.asarray([t == q.child_type for t in types], dtype=bool)
+            locs = np.nonzero(m)[0]
+            for local, sval in zip(locs.tolist(), s[locs].tolist()):
+                pid = (seg.str_values("_parent", local) or [None])[0]
+                if pid is None:
+                    continue
+                prev = parent_ids.get(pid, 0.0)
+                parent_ids[pid] = max(prev, sval) if q.score_mode == "max" \
+                    else prev + sval
+        for seg in segments:
+            match = np.zeros(seg.doc_count, bool)
+            scores = np.zeros(seg.doc_count, np.float32)
+            for local in range(seg.doc_count):
+                if seg.parent_mask[local] and seg.ids[local] in parent_ids:
+                    match[local] = True
+                    scores[local] = parent_ids[seg.ids[local]] \
+                        if q.score_mode != "none" else 1.0
+            out.append((scores * np.float32(q.boost), match))
+        return out
+    matched_parents: dict[str, float] = {}
+    for seg in segments:
+        s, m = HostScorer(ctx, seg, 1.0).eval(q.query)
+        types = seg.require("types", "parent/child joins")
+        m = m & np.asarray([t == q.parent_type for t in types], dtype=bool)
+        locs = np.nonzero(m)[0]
+        for local, sval in zip(locs.tolist(), s[locs].tolist()):
+            matched_parents[str(seg.ids[local])] = sval
+    for seg in segments:
+        match = np.zeros(seg.doc_count, bool)
+        scores = np.zeros(seg.doc_count, np.float32)
+        for local in range(seg.doc_count):
+            pid = (seg.str_values("_parent", local) or [None])[0]
+            if pid is not None and pid in matched_parents:
+                match[local] = True
+                scores[local] = matched_parents[pid] if q.score_mode != "none" else 1.0
+        out.append((scores * np.float32(q.boost), match))
+    return out
+
+
 def host_match_mask(query: Query, seg: FrozenSegment, ctx: ShardContext) -> np.ndarray:
     _, match = HostScorer(ctx, seg).eval(query)
     return match
@@ -2178,10 +2313,15 @@ def iter_match_masks(ctx: ShardContext, query: Query):
     """Lazily yield per-segment (scores, match over live, parent docs): a
     deadline-aware caller (`_host_search`, the general host path of
     execute_query_phase) stops between segments and keeps the segments
-    already scored as a partial result."""
+    already scored as a partial result. A has_child / has_parent query
+    reads its segments' slices of the shard-wide join (`_shard_join`)."""
     qn = query_norm_for(query, ctx)
-    for seg in ctx.searcher.segments:
-        scores, match = HostScorer(ctx, seg, qn).eval(query)
+    join = _shard_join(ctx, query)
+    for si, seg in enumerate(ctx.searcher.segments):
+        if join is not None:
+            scores, match = join[si]
+        else:
+            scores, match = HostScorer(ctx, seg, qn).eval(query)
         yield scores, match & seg.live & seg.parent_mask
 
 

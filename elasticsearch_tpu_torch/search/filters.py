@@ -13,13 +13,21 @@ its mask can depend on shard-wide term statistics (`common`, `mlt`).
 Served here: term, terms (values, not a lookup), range, prefix, exists,
 missing, ids, type, match_all, bool / and / or, not, query (a scoring query
 as a filter), regexp and script (a sandboxed expression per doc, through
-`DocAccess`). The geo filters, nested and has_child / has_parent, indices
-and terms lookups are later slices of the port: their parsers
-(`search/queries.py`) raise QueryParsingError saying so.
+`DocAccess`); nested (a block join of the inner query or filter over the
+path's children, `execute.child_match_to_parents`); has_child / has_parent
+(`HasChildFilter`: the shard-wide join `execute._shard_join`, once per
+searcher, never in the per-segment cache); and the geo filters over a
+`geo_point`'s `field.lat` / `field.lon` columns (`geo_distance`,
+`geo_distance_range`, `geo_bounding_box`, `geo_polygon`, `geohash_cell`)
+or a `geo_shape`'s stored shapes (`geo_shape`, its parsed shapes cached on
+the segment under `("geo_shapes",)`), with the JAX package's float64
+`haversine_m`. Indices and terms lookups are later slices of the port:
+their parsers (`search/queries.py`) raise QueryParsingError saying so.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import threading
 from bisect import bisect_left
@@ -29,6 +37,9 @@ from typing import Any
 
 import numpy as np
 
+from ..common.errors import QueryParsingError
+from ..common.geo import (geohash_bbox, geohash_neighbors, shape_within,
+                          shapes_intersect)
 from ..index.segment import FILTER_CACHE_KEY, FrozenSegment
 from ..mapper.core import parse_date_math
 
@@ -382,6 +393,286 @@ class ScriptFilter(Filter):
             if seg.parent_mask[local]:
                 mask[local] = bool(fn(DocAccess(seg, local)))
         return mask
+
+
+@dataclass
+class NestedFilter(Filter):
+    path: str
+    inner: Any  # Query or Filter on the path's child docs
+
+    def key(self):
+        return f"nested:{self.path}:{getattr(self.inner, 'key', lambda: repr(self.inner))()}"
+
+    def cacheable(self):
+        # a query inside is not cached, as a query used as a filter is not
+        return isinstance(self.inner, Filter) and self.inner.cacheable()
+
+    def evaluate(self, seg, ctx):
+        from .execute import child_match_to_parents
+
+        return child_match_to_parents(seg, ctx, self.path, self.inner)[0]
+
+
+@dataclass
+class GeoDistanceFilter(Filter):
+    field: str
+    lat: float
+    lon: float
+    distance_m: float
+
+    def key(self):
+        return f"geodist:{self.field}:{self.lat}:{self.lon}:{self.distance_m}"
+
+    def evaluate(self, seg, ctx):
+        return _geo_points_mask(
+            seg, self.field,
+            lambda lats, lons: haversine_m(self.lat, self.lon, lats, lons)
+            <= self.distance_m)
+
+
+def _geo_points_mask(seg, field: str, hit_fn) -> np.ndarray:
+    """A doc mask from the multi-valued point columns: hit_fn(lats, lons) ->
+    bool[V] per value, OR-scattered to the docs (every point-based geo
+    filter)."""
+    lat_col = seg.dv_num.get(f"{field}.lat")
+    lon_col = seg.dv_num.get(f"{field}.lon")
+    mask = np.zeros(seg.doc_count, dtype=bool)
+    if lat_col is None or lon_col is None:
+        return mask
+    off, lats = lat_col
+    _, lons = lon_col
+    hit = hit_fn(lats, lons)
+    counts = np.diff(off)
+    doc_of_val = np.repeat(np.arange(seg.doc_count), counts)
+    np.logical_or.at(mask, doc_of_val, hit)
+    return mask
+
+
+@dataclass
+class GeoShapeFilter(Filter):
+    """Docs whose stored shape relates to the query shape: the shape column
+    is parsed once a segment (cached) and the relation computed exactly
+    (common/geo.py)."""
+
+    field: str
+    shape: tuple  # normalized (kind, data)
+    relation: str = "intersects"  # intersects | within | disjoint
+
+    def key(self):
+        return f"geoshape:{self.field}:{self.relation}:" \
+               f"{json.dumps(self.shape, sort_keys=True)}"
+
+    def _doc_shapes(self, seg):
+        """Parsed per-doc shape lists, cached on the segment."""
+        cache = seg._device_cache.setdefault(("geo_shapes",), {})
+        parsed = cache.get(self.field)
+        if parsed is None:
+            parsed = [None] * seg.doc_count
+            for d in range(seg.doc_count):
+                vals = seg.str_values(self.field, d)
+                if vals:
+                    parsed[d] = [tuple(json.loads(v)) for v in vals]
+            cache[self.field] = parsed
+        return parsed
+
+    def evaluate(self, seg, ctx):
+        mask = np.zeros(seg.doc_count, dtype=bool)
+        q = self.shape
+        for d, shapes in enumerate(self._doc_shapes(seg)):
+            if not shapes:
+                continue
+            if self.relation == "within":
+                mask[d] = any(shape_within(s, q) for s in shapes)
+            elif self.relation == "disjoint":
+                mask[d] = not any(shapes_intersect(s, q) for s in shapes)
+            else:
+                mask[d] = any(shapes_intersect(s, q) for s in shapes)
+        return mask
+
+
+@dataclass
+class GeohashCellFilter(Filter):
+    """Docs whose geo_point falls in the geohash cell (and, with
+    `neighbors`, its 8 neighbours): a bounding-box test over the point
+    columns (a point is in the cell iff the cell prefixes its geohash)."""
+
+    field: str
+    geohash: str
+    neighbors: bool = False
+
+    def key(self):
+        return f"geohashcell:{self.field}:{self.geohash}:{self.neighbors}"
+
+    def evaluate(self, seg, ctx):
+        cells = [self.geohash] + (geohash_neighbors(self.geohash)
+                                  if self.neighbors else [])
+
+        def hit(lats, lons):
+            h = np.zeros(len(lats), dtype=bool)
+            for cell in cells:
+                lat_lo, lat_hi, lon_lo, lon_hi = geohash_bbox(cell)
+                h |= ((lats >= lat_lo) & (lats < lat_hi)
+                      & (lons >= lon_lo) & (lons < lon_hi))
+            return h
+
+        return _geo_points_mask(seg, self.field, hit)
+
+
+@dataclass
+class GeoBoundingBoxFilter(Filter):
+    field: str
+    top: float
+    left: float
+    bottom: float
+    right: float
+
+    def key(self):
+        return f"geobb:{self.field}:{self.top}:{self.left}:{self.bottom}:{self.right}"
+
+    def evaluate(self, seg, ctx):
+        def hit(lats, lons):
+            h = (lats <= self.top) & (lats >= self.bottom)
+            if self.left <= self.right:
+                return h & (lons >= self.left) & (lons <= self.right)
+            return h & ((lons >= self.left) | (lons <= self.right))  # dateline
+
+        return _geo_points_mask(seg, self.field, hit)
+
+
+@dataclass
+class HasChildFilter(Filter):
+    """Parent docs with a matching child (or children of a matching parent),
+    never scored: a slice of the query form's shard-wide join
+    (execute._shard_join), since parent/child links span segments."""
+
+    query: Any  # HasChildQuery or HasParentQuery with score_mode "none"
+
+    def key(self):
+        q = self.query
+        inner_key = repr(q.query)
+        return f"haschildf:{type(q).__name__}:{getattr(q, 'child_type', getattr(q, 'parent_type', None))}:{inner_key}"
+
+    def cacheable(self):
+        # the join spans the whole shard: a per-segment cached mask would go
+        # stale when a child lands in (or leaves) another segment
+        return False
+
+    def evaluate(self, seg, ctx):
+        from .execute import _shard_join
+
+        # one join per (searcher, filter): a searcher's segments never change
+        cache = getattr(ctx.searcher, "_join_cache", None)
+        if cache is None:
+            cache = ctx.searcher._join_cache = {}
+        join = cache.get(self.key())
+        if join is None:
+            join = cache[self.key()] = _shard_join(ctx, self.query)
+        for si, s in enumerate(ctx.searcher.segments):
+            if s is seg:
+                return join[si][1]
+        return np.zeros(seg.doc_count, dtype=bool)
+
+
+@dataclass
+class GeoPolygonFilter(Filter):
+    """Docs with a point inside the polygon (ray casting, vectorized over
+    every stored point)."""
+
+    field: str
+    points: tuple  # ((lat, lon), ...), closed or open ring
+
+    def key(self):
+        return f"geopoly:{self.field}:{self.points}"
+
+    def evaluate(self, seg, ctx):
+        pts = [p for p in self.points]
+        if len(pts) > 1 and pts[0] == pts[-1]:
+            pts = pts[:-1]  # drop the explicit closing point
+        lat_v = np.asarray([p[0] for p in pts])
+        lon_v = np.asarray([p[1] for p in pts])
+
+        def inside(lats, lons):
+            hit = np.zeros(len(lats), dtype=bool)
+            n = len(lat_v)
+            for i in range(n):
+                j = (i - 1) % n
+                crosses = ((lat_v[i] > lats) != (lat_v[j] > lats)) & (
+                    lons < (lon_v[j] - lon_v[i]) * (lats - lat_v[i])
+                    / (lat_v[j] - lat_v[i] + 1e-300) + lon_v[i])
+                hit ^= crosses
+            return hit
+
+        return _geo_points_mask(seg, self.field, inside)
+
+
+@dataclass
+class GeoDistanceRangeFilter(Filter):
+    """Docs whose point's distance from the origin falls between the bounds
+    (`include_lower` / `include_upper`)."""
+
+    field: str
+    lat: float
+    lon: float
+    from_m: float | None = None
+    to_m: float | None = None
+    include_lower: bool = True
+    include_upper: bool = True
+
+    def key(self):
+        return (f"geodistrange:{self.field}:{self.lat}:{self.lon}:"
+                f"{self.from_m}:{self.to_m}:{self.include_lower}:{self.include_upper}")
+
+    def evaluate(self, seg, ctx):
+        def hit(lats, lons):
+            d = haversine_m(self.lat, self.lon, lats, lons)
+            ok = np.ones(len(d), dtype=bool)
+            if self.from_m is not None:
+                ok &= (d >= self.from_m) if self.include_lower else (d > self.from_m)
+            if self.to_m is not None:
+                ok &= (d <= self.to_m) if self.include_upper else (d < self.to_m)
+            return ok
+
+        return _geo_points_mask(seg, self.field, hit)
+
+
+EARTH_RADIUS_M = 6371008.7714
+
+
+def haversine_m(lat1, lon1, lat2, lon2):
+    """Great-circle metres, vectorized, float64 (the JAX package's)."""
+    la1, lo1 = np.radians(lat1), np.radians(lon1)
+    la2, lo2 = np.radians(lat2), np.radians(lon2)
+    a = np.sin((la2 - la1) / 2) ** 2 + np.cos(la1) * np.cos(la2) * np.sin((lo2 - lo1) / 2) ** 2
+    return 2 * EARTH_RADIUS_M * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+
+
+_DIST_RE = re.compile(r"^\s*([\d.]+)\s*([a-zA-Z]*)\s*$")
+_DIST_UNITS = {
+    "m": 1.0, "meters": 1.0, "km": 1000.0, "kilometers": 1000.0,
+    "mi": 1609.344, "miles": 1609.344, "yd": 0.9144, "ft": 0.3048,
+    "in": 0.0254, "cm": 0.01, "mm": 0.001, "nmi": 1852.0, "": 1.0,
+}
+
+
+def parse_point(point) -> tuple[float, float]:
+    """(lat, lon) from a query's point: {lat, lon}, "lat,lon" or [lon, lat]
+    (GeoJSON order)."""
+    if isinstance(point, dict):
+        return float(point["lat"]), float(point["lon"])
+    if isinstance(point, str):
+        lat, lon = (float(x) for x in point.split(","))
+        return lat, lon
+    return float(point[1]), float(point[0])
+
+
+def parse_distance(s) -> float:
+    """A distance (`"50km"`, `"2mi"`, a number of metres) in metres."""
+    if isinstance(s, (int, float)):
+        return float(s)
+    m = _DIST_RE.match(str(s))
+    if not m:
+        raise QueryParsingError(f"failed to parse distance [{s}]")
+    return float(m.group(1)) * _DIST_UNITS.get(m.group(2).lower(), 1.0)
 
 
 class DocAccess:

@@ -1,7 +1,9 @@
 """function_score score functions (a copy of the JAX package's
-`search/functions.py`, its geo decay left to the slice with geo fields).
+`search/functions.py`).
 
-Decay functions (gauss/exp/linear over numeric and date fields),
+Decay functions (gauss/exp/linear over numeric, date and geo_point fields;
+a geo decay's distance is the float64 `haversine_m` from the origin to the
+doc's first point, in metres, its scale and offset distances),
 script_score, field_value_factor, random_score and boost_factor, with
 filters, weights, score_mode/boost_mode combination and max_boost capping.
 
@@ -26,7 +28,7 @@ import numpy as np
 
 from ..common.errors import QueryParsingError
 from ..mapper.core import parse_date_math
-from .filters import segment_mask
+from .filters import haversine_m, parse_distance, parse_point, segment_mask
 
 
 def vectorized_script_eval(fn, seg, scores: np.ndarray):
@@ -77,16 +79,21 @@ def _parse_scale(sf, ft) -> float:
         from ..common.units import parse_time
 
         return parse_time(sf.scale) * 1000.0
+    if ft is not None and ft.type == "geo_point":
+        return parse_distance(sf.scale)
     return float(sf.scale)
 
 
-def _parse_origin(sf, ft) -> float:
+def _parse_origin(sf, ft):
+    """The origin: epoch millis for a date, (lat, lon) for a geo_point."""
     if ft is not None and ft.type == "date":
         if sf.origin is None:
             import time
 
             return time.time() * 1000.0
         return float(parse_date_math(str(sf.origin)))
+    if ft is not None and ft.type == "geo_point":
+        return parse_point(sf.origin)
     return float(sf.origin)
 
 
@@ -97,6 +104,8 @@ def _parse_offset(sf, ft) -> float:
         from ..common.units import parse_time
 
         return parse_time(sf.offset) * 1000.0
+    if ft is not None and ft.type == "geo_point":
+        return parse_distance(sf.offset)
     return float(sf.offset)
 
 
@@ -166,9 +175,15 @@ def evaluate_function(sf, seg, ctx, sub_scores: np.ndarray) -> np.ndarray:
         scale = _parse_scale(sf, ft)
         offset = _parse_offset(sf, ft)
         decay = sf.decay
-        origin = _parse_origin(sf, ft)
-        vals = _column_first_value(seg, sf.field)
-        dist = np.abs(vals - origin)
+        if ft is not None and ft.type == "geo_point":
+            lat0, lon0 = _parse_origin(sf, ft)
+            lats = _column_first_value(seg, f"{sf.field}.lat")
+            lons = _column_first_value(seg, f"{sf.field}.lon")
+            dist = haversine_m(lat0, lon0, lats, lons)
+        else:
+            origin = _parse_origin(sf, ft)
+            vals = _column_first_value(seg, sf.field)
+            dist = np.abs(vals - origin)
         dist = np.maximum(0.0, dist - offset)
         if sf.kind == "gauss":
             sigma2 = -(scale * scale) / (2.0 * math.log(decay))

@@ -14,12 +14,16 @@ span_multi, field_masking_span), type, more_like_this / mlt (and their
 `_field` forms), fuzzy_like_this / flt (and `_field`) and wrapper; the
 filters of `search/filters.py` (the script filter among them), and
 function_score (`ScoreFunction`: script_score, boost_factor, weight,
-random_score, field_value_factor and the numeric and date decays). The query
-types and filters of later slices raise QueryParsingError naming the slice:
-nested, has_child, has_parent, top_children, geo_shape, the geo filters and
-a geo decay with the mapper's nested, join and geo fields; indices, template
-and terms lookups with the runtime that resolves them. A type the JAX
-package does not know is "unknown", as there.
+random_score, field_value_factor and the numeric, date and geo decays);
+nested (`NestedQuery`, a block join over the path's children),
+has_child / has_parent / top_children (`HasChildQuery`, `HasParentQuery`:
+the shard-wide join of `execute._shard_join` when the query is the whole
+query, no match inside another query, as in the JAX package) and geo_shape
+(a constant score over `GeoShapeFilter`), with the nested, has_child,
+has_parent and geo filters. The query types and filters of later slices
+raise QueryParsingError naming the slice: indices, template and terms
+lookups with the runtime that resolves them. A type the JAX package does
+not know is "unknown", as there.
 """
 
 from __future__ import annotations
@@ -28,13 +32,22 @@ from dataclasses import dataclass, field as dc_field
 from typing import Any
 
 from ..common.errors import QueryParsingError
+from ..common.geo import geohash_encode, normalize_shape
 from .filters import (
     BoolFilter,
     ExistsFilter,
     Filter,
+    GeoBoundingBoxFilter,
+    GeoDistanceFilter,
+    GeoDistanceRangeFilter,
+    GeohashCellFilter,
+    GeoPolygonFilter,
+    GeoShapeFilter,
+    HasChildFilter,
     IdsFilter,
     MatchAllFilter,
     MissingFilter,
+    NestedFilter,
     NotFilter,
     PrefixFilter,
     QueryWrapperFilter,
@@ -44,6 +57,8 @@ from .filters import (
     TermFilter,
     TermsFilter,
     TypeFilter,
+    parse_distance,
+    parse_point,
 )
 
 
@@ -340,6 +355,30 @@ class FunctionScoreQuery(Query):
     boost: float = 1.0
 
 
+@dataclass
+class NestedQuery(Query):
+    path: str
+    query: Query  # or a Filter (the `filter` form)
+    score_mode: str = "avg"  # avg | sum | max | total | none
+    boost: float = 1.0
+
+
+@dataclass
+class HasChildQuery(Query):
+    child_type: str
+    query: Query
+    score_mode: str = "none"
+    boost: float = 1.0
+
+
+@dataclass
+class HasParentQuery(Query):
+    parent_type: str
+    query: Query
+    score_mode: str = "none"
+    boost: float = 1.0
+
+
 # ---------------------------------------------------------------------------
 # parsing
 # ---------------------------------------------------------------------------
@@ -591,6 +630,18 @@ def _unwrap_wrapper(spec) -> Any:
         raise QueryParsingError(f"wrapper: malformed embedded query: {e}")
 
 
+def _parse_nested_q(spec) -> Query:
+    # a nested "filter" spec goes through the FILTER parser (missing and
+    # exists are no queries; term means another thing as a filter):
+    # child_match_to_parents takes a Query or a Filter
+    inner = (parse_query(spec["query"]) if "query" in spec
+             else parse_filter(spec.get("filter")))
+    return NestedQuery(
+        path=spec["path"], query=inner,
+        score_mode=spec.get("score_mode", "avg"), boost=float(spec.get("boost", 1.0)),
+    )
+
+
 def _parse_function_score(spec) -> Query:
     functions = []
     for fspec in spec.get("functions", [spec] if any(
@@ -633,14 +684,8 @@ def _parse_score_function(fspec: dict) -> ScoreFunction:
         if decay in fspec:
             dspec = fspec[decay]
             (fname, params), = dspec.items()
-            origin = params.get("origin")
-            if isinstance(origin, (dict, list)) or (
-                    isinstance(origin, str) and "," in origin):
-                # a lat/lon origin: the decay is over a geo_point field
-                raise _later_slice(f"a geo {decay} decay on [{fname}]",
-                                   _LATER_QUERIES["geo_shape"])
             return ScoreFunction(
-                decay, filt, field=fname, origin=origin,
+                decay, filt, field=fname, origin=params.get("origin"),
                 scale=params.get("scale"), offset=params.get("offset", 0),
                 decay=float(params.get("decay", 0.5)), weight=weight,
             )
@@ -651,24 +696,10 @@ def _parse_score_function(fspec: dict) -> ScoreFunction:
 
 # where each refused query type and filter is ported
 _LATER_QUERIES = {
-    "nested": "the mapper's nested documents",
-    "has_child": "the mapper's parent/child joins",
-    "has_parent": "the mapper's parent/child joins",
-    "top_children": "the mapper's parent/child joins",
-    "geo_shape": "the mapper's geo fields",
     "indices": "the multi-index search runtime",
     "template": "the multi-index search runtime",
 }
 _LATER_FILTERS = {
-    "nested": "the mapper's nested documents",
-    "has_child": "the mapper's parent/child joins",
-    "has_parent": "the mapper's parent/child joins",
-    "geo_distance": "the mapper's geo fields",
-    "geo_bounding_box": "the mapper's geo fields",
-    "geo_shape": "the mapper's geo fields",
-    "geohash_cell": "the mapper's geo fields",
-    "geo_polygon": "the mapper's geo fields",
-    "geo_distance_range": "the mapper's geo fields",
     "indices": "the multi-index search runtime",
 }
 
@@ -754,6 +785,20 @@ _QUERY_PARSERS = {
     "mlt_field": _parse_mlt_field,
     "wrapper": lambda s: parse_query(_unwrap_wrapper(s)),
     "function_score": _parse_function_score,
+    "nested": _parse_nested_q,
+    "has_child": lambda s: HasChildQuery(s.get("type", s.get("child_type")),
+                                         parse_query(s.get("query") or s.get("filter")),
+                                         s.get("score_mode", s.get("score_type", "none")),
+                                         float(s.get("boost", 1.0))),
+    "has_parent": lambda s: HasParentQuery(s.get("parent_type", s.get("type")),
+                                           parse_query(s.get("query") or s.get("filter")),
+                                           s.get("score_mode", s.get("score_type", "none")),
+                                           float(s.get("boost", 1.0))),
+    "top_children": lambda s: HasChildQuery(s.get("type"), parse_query(s.get("query")),
+                                            s.get("score", "max"), float(s.get("boost", 1.0))),
+    "geo_shape": lambda s: ConstantScoreQuery(
+        filter=_parse_geo_shape_f({k: v for k, v in s.items() if k != "boost"}),
+        boost=float(s.get("boost", 1.0))),
 }
 
 
@@ -792,6 +837,125 @@ def _parse_range_f(spec) -> Filter:
     return RangeFilter(field=fname, **kw)
 
 
+def _parse_geo_polygon_f(spec) -> Filter:
+    """{field: {points: [...]}}."""
+    spec = {k: v for k, v in spec.items() if k not in ("_cache", "_cache_key", "_name")}
+    (fname, body), = spec.items()
+    pts = tuple(parse_point(p) for p in body.get("points", []))
+    if len({p for p in pts}) < 3:
+        raise QueryParsingError("geo_polygon requires at least 3 distinct points")
+    return GeoPolygonFilter(fname, pts)
+
+
+def _parse_geo_distance_range_f(spec) -> Filter:
+    """geo_distance with from/to/gt/gte/lt/lte distance bounds around the
+    origin point."""
+    spec = {k: v for k, v in spec.items()
+            if k not in ("_cache", "_cache_key", "_name", "distance_type",
+                         "optimize_bbox", "unit")}
+    from_m = to_m = None
+    include_lower = include_upper = True
+    for k in ("from", "gte", "gt"):
+        if k in spec:
+            from_m = parse_distance(spec.pop(k))
+            include_lower = k != "gt"
+    for k in ("to", "lte", "lt"):
+        if k in spec:
+            to_m = parse_distance(spec.pop(k))
+            include_upper = k != "lt"
+    if "include_lower" in spec:
+        include_lower = bool(spec.pop("include_lower"))
+    if "include_upper" in spec:
+        include_upper = bool(spec.pop("include_upper"))
+    (fname, point), = spec.items()
+    lat, lon = parse_point(point)
+    return GeoDistanceRangeFilter(fname, lat, lon, from_m, to_m,
+                                  include_lower, include_upper)
+
+
+def _parse_has_child_f(spec) -> Filter:
+    """Parent docs with a matching child; never scores (score_mode none).
+    The cross-segment join lives in filters.HasChildFilter (a
+    QueryWrapperFilter would evaluate segment-local and match nothing)."""
+    inner = (parse_query(spec["query"]) if "query" in spec
+             else ConstantScoreQuery(filter=parse_filter(spec.get("filter"))))
+    return HasChildFilter(
+        HasChildQuery(spec.get("type", spec.get("child_type")), inner, "none"))
+
+
+def _parse_has_parent_f(spec) -> Filter:
+    """Child docs of a matching parent; never scores."""
+    inner = (parse_query(spec["query"]) if "query" in spec
+             else ConstantScoreQuery(filter=parse_filter(spec.get("filter"))))
+    return HasChildFilter(
+        HasParentQuery(spec.get("parent_type", spec.get("type")), inner, "none"))
+
+
+def _parse_geo_distance_f(spec) -> Filter:
+    spec = {k: v for k, v in spec.items() if k not in ("_cache", "_name", "distance_type", "optimize_bbox")}
+    dist = parse_distance(spec.pop("distance"))
+    spec.pop("unit", None)  # a unit-less distance is metres, as in the JAX package
+    (fname, point), = spec.items()
+    lat, lon = parse_point(point)
+    return GeoDistanceFilter(fname, lat, lon, dist)
+
+
+def _parse_geo_bbox_f(spec) -> Filter:
+    spec = {k: v for k, v in spec.items() if k not in ("_cache", "_name", "type")}
+    (fname, box), = spec.items()
+    if "top_left" in box:
+        tl, br = box["top_left"], box["bottom_right"]
+        if isinstance(tl, dict):
+            top, left = tl["lat"], tl["lon"]
+            bottom, right = br["lat"], br["lon"]
+        else:
+            left, top = tl[0], tl[1]
+            right, bottom = br[0], br[1]
+    else:
+        top, left, bottom, right = box["top"], box["left"], box["bottom"], box["right"]
+    return GeoBoundingBoxFilter(fname, float(top), float(left), float(bottom), float(right))
+
+
+def _parse_geo_shape_f(spec) -> Filter:
+    """{field: {shape: {...}, relation}}."""
+    spec = {k: v for k, v in spec.items() if k not in ("_cache", "_name")}
+    (fname, body), = spec.items()
+    shape_spec = body.get("shape")
+    if shape_spec is None:
+        raise QueryParsingError("geo_shape requires [shape]")
+    try:
+        shape = normalize_shape(shape_spec)
+    except ValueError as e:
+        raise QueryParsingError(str(e))
+    relation = str(body.get("relation", "intersects")).lower()
+    if relation not in ("intersects", "within", "disjoint"):
+        raise QueryParsingError(f"unknown geo_shape relation [{relation}]")
+    return GeoShapeFilter(fname, shape, relation)
+
+
+def _parse_geohash_cell_f(spec) -> Filter:
+    """{field: pin, precision, neighbors}."""
+    spec = {k: v for k, v in spec.items() if k not in ("_cache", "_name")}
+    neighbors = bool(spec.pop("neighbors", False))
+    precision = spec.pop("precision", None)
+    (fname, pin), = spec.items()
+    if isinstance(pin, dict):
+        h = geohash_encode(float(pin["lat"]), float(pin["lon"]),
+                           int(precision or 12))
+    elif isinstance(pin, str) and "," in pin:
+        lat, lon = (float(x) for x in pin.split(","))
+        h = geohash_encode(lat, lon, int(precision or 12))
+    elif isinstance(pin, str):
+        h = pin.strip().lower()
+        if precision is not None:
+            h = h[: int(precision)]
+    else:  # [lon, lat]
+        h = geohash_encode(float(pin[1]), float(pin[0]), int(precision or 12))
+    if not h:
+        raise QueryParsingError("geohash_cell requires a non-empty cell")
+    return GeohashCellFilter(fname, h, neighbors)
+
+
 _FILTER_PARSERS = {
     "term": lambda s: (lambda f, o: TermFilter(f, o.get("value")))(
         *_field_spec({k: v for k, v in s.items() if not k.startswith("_")}, "value")),
@@ -820,7 +984,17 @@ _FILTER_PARSERS = {
         *_field_spec({k: v for k, v in s.items() if not k.startswith("_")}, "value")),
     "query": lambda s: QueryWrapperFilter(parse_query(s)),
     "fquery": lambda s: QueryWrapperFilter(parse_query(s.get("query"))),
+    "nested": lambda s: NestedFilter(s["path"], parse_query(s.get("query")) if "query" in s
+                                     else parse_filter(s.get("filter"))),
+    "geo_distance": _parse_geo_distance_f,
+    "geo_bounding_box": _parse_geo_bbox_f,
+    "geo_shape": _parse_geo_shape_f,
+    "geohash_cell": _parse_geohash_cell_f,
     "script": lambda s: ScriptFilter(s.get("script", ""), s.get("params", {})),
     "limit": lambda s: MatchAllFilter(),  # limit filter is best-effort in the reference too
+    "geo_polygon": _parse_geo_polygon_f,
+    "geo_distance_range": _parse_geo_distance_range_f,
+    "has_child": _parse_has_child_f,
+    "has_parent": _parse_has_parent_f,
     "wrapper": lambda s: parse_filter(_unwrap_wrapper(s)),
 }

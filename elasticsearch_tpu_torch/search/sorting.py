@@ -1,5 +1,5 @@
-"""Sort: field / score / script sort keys over doc-value columns (a copy of
-the JAX package's `search/sorting.py`).
+"""Sort: field / score / geo-distance / script sort keys over doc-value
+columns (a copy of the JAX package's `search/sorting.py`).
 
 Per-segment vectorized key extraction with the multi-valued `mode`
 reductions (min/max/avg/sum) and `missing` handling (_last/_first or a
@@ -8,8 +8,10 @@ re-compares them (`compare_sort_values`). `device_sort_key_row` folds one
 numeric column into the float32 key row of the card's field-sort launch
 (`ops/scoring.py _dense_sort_impl`), or refuses it for the host path.
 
-The `_geo_distance` sort is a later slice of the port (it needs the
-`geo_point` mapping): `parse_sort` answers it with QueryParsingError.
+The `_geo_distance` sort keys each doc by the float64 `haversine_m` from the
+origin to its points (reduced by `mode`, `min` by default) in the sort's
+`unit` (km by default); it stays on the host: `device_sort_key_row`
+refuses every kind but a field sort, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,19 +21,24 @@ from typing import Any
 import numpy as np
 
 from ..common.errors import QueryParsingError
+from .filters import haversine_m, parse_distance, parse_point
 
 
 class SortSpec:
-    __slots__ = ("field", "order", "mode", "missing", "kind", "script", "params")
+    __slots__ = ("field", "order", "mode", "missing", "kind", "lat", "lon", "unit",
+                 "script", "params")
 
     def __init__(self, field: str, order: str = "asc", mode: str | None = None,
-                 missing: Any = "_last", kind: str = "field", script=None,
-                 params=None):
+                 missing: Any = "_last", kind: str = "field", lat=0.0, lon=0.0,
+                 unit=1.0, script=None, params=None):
         self.field = field
         self.order = order
         self.mode = mode
         self.missing = missing
         self.kind = kind
+        self.lat = lat
+        self.lon = lon
+        self.unit = unit
         self.script = script
         self.params = params or {}
 
@@ -41,7 +48,7 @@ class SortSpec:
 
 
 def parse_sort(spec) -> list[SortSpec]:
-    """"sort": ["_score", {"price": "desc"}, {"_script": {...}}, "field"]"""
+    """"sort": ["_score", {"price": "desc"}, {"_geo_distance": {...}}, "field"]"""
     if spec is None:
         return []
     if not isinstance(spec, list):
@@ -61,9 +68,13 @@ def parse_sort(spec) -> list[SortSpec]:
             order = opts if isinstance(opts, str) else opts.get("order", "desc")
             out.append(SortSpec("_score", order, kind="score"))
         elif field == "_geo_distance":
-            raise QueryParsingError(
-                "the [_geo_distance] sort is not ported yet: it needs the "
-                "geo_point mapping, a later slice of the port")
+            opts = dict(opts)
+            order = opts.pop("order", "asc")
+            unit = parse_distance("1" + opts.pop("unit", "km"))
+            mode = opts.pop("mode", None)
+            (gfield, point), = opts.items()
+            lat, lon = parse_point(point)
+            out.append(SortSpec(gfield, order, mode, kind="geo", lat=lat, lon=lon, unit=unit))
         elif field == "_script":
             out.append(SortSpec("_script", opts.get("order", "asc"), kind="script",
                                 script=opts.get("script"), params=opts.get("params")))
@@ -102,6 +113,16 @@ def sort_key_column(spec: SortSpec, seg, ctx, scores: np.ndarray | None) -> np.n
     D = seg.doc_count
     if spec.kind == "score":
         return (scores if scores is not None else np.zeros(D)).astype(np.float64)
+    if spec.kind == "geo":
+        lat_col = seg.dv_num.get(f"{spec.field}.lat")
+        lon_col = seg.dv_num.get(f"{spec.field}.lon")
+        if lat_col is None or lon_col is None:
+            return np.full(D, np.nan)
+        off, lats = lat_col
+        _, lons = lon_col
+        d = haversine_m(spec.lat, spec.lon, lats, lons) / spec.unit
+        mode = spec.mode or "min"
+        return _reduce_multi(off, d, D, mode if mode in ("min", "max", "avg", "sum") else "min")
     if spec.kind == "script":
         from ..script import compile_script
         from .filters import DocAccess

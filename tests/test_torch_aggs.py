@@ -19,7 +19,9 @@ doc in 7; two segments, three tombstones). For every body:
 Also here: the aggregating launch itself against the JAX package's
 (`execute_flat_aggs`), the runtime cases of tests/test_search_runtime.py
 `TestAggregations` and the facets, the multi-shard reduce
-(`merge_responses`), the later-slice answers (geo, nested, ip_range), the
+(`merge_responses`), the geo and nested aggregations and the
+`geo_distance` facet (once later-slice answers, served since the mapper's
+second half), the
 string doc values (`dv_str`) through `merge_segments`, `with_deletes` and a
 store round trip, and a device error on an aggregating or sorted body
 (counted and raised: the port has no fault domains yet)."""
@@ -46,7 +48,6 @@ from elasticsearch_tpu.search.service import execute_query_phase as jphase
 from elasticsearch_tpu.search.service import parse_search_body as jparse_body
 from elasticsearch_tpu.search.service import reduce_and_respond as jrespond
 from elasticsearch_tpu.search.similarity import SimilarityService as JSim
-from elasticsearch_tpu_torch.common.errors import QueryParsingError
 from elasticsearch_tpu_torch.common.settings import Settings as TSettings
 from elasticsearch_tpu_torch.index.engine import Engine as TEngine
 from elasticsearch_tpu_torch.index.segment import merge_segments
@@ -519,16 +520,90 @@ def test_bucket_pairs_match_jax(ctxs):
             assert tk == jk
 
 
+GEO_MAPPING = {"properties": {
+    "loc": {"type": "geo_point"},
+    "comments": {"type": "nested", "properties": {
+        "who": {"type": "string", "index": "not_analyzed"},
+        "stars": {"type": "integer"}}}}}
+CITIES = [(40.71, -74.0), (51.5, -0.12), (48.86, 2.35), (35.68, 139.69)]
+
+
+def _geo_docs() -> list[dict]:
+    rng = np.random.default_rng(23)
+    out = []
+    for i in range(300):
+        lat, lon = CITIES[i % len(CITIES)]
+        d = {"body": " ".join(rng.choice(WORDS, size=4)),
+             "loc": {"lat": float(lat + rng.normal(0, 0.3)),
+                     "lon": float(lon + rng.normal(0, 0.3))},
+             "comments": [{"who": WORDS[int(rng.integers(5))],
+                           "stars": int(rng.integers(1, 6))}
+                          for _ in range(int(rng.integers(0, 4)))]}
+        if i % 11 == 0:
+            d.pop("loc")
+        out.append(d)
+    return out
+
+
+@pytest.fixture(scope="module")
+def geo_ctxs(tmp_path_factory):
+    """Two segments with tombstoned nested blocks, points around 4 cities."""
+    jctx, tctx, engines = _pair(tmp_path_factory, _geo_docs(), settings=BM25,
+                                mapping=GEO_MAPPING, refresh_at=149)
+    try:
+        yield jctx, tctx
+    finally:
+        for e in engines:
+            e.close()
+
+
+GEO_AGGS = {
+    "geo_bounds": ({"geo_bounds": {"field": "loc"}}, "host"),
+    "geo_distance": ({"geo_distance": {
+        "field": "loc", "origin": {"lat": 51.5, "lon": -0.12}, "unit": "km",
+        "ranges": [{"to": 20}, {"from": 20, "to": 400}, {"from": 400}]},
+        "aggs": {"s": {"sum": {"field": "comments.stars"}}}}, "device_aggs"),
+    "geohash_grid": ({"geohash_grid": {"field": "loc", "precision": 3}},
+                     "device_aggs"),
+    "nested": ({"nested": {"path": "comments"},
+                "aggs": {"avg_stars": {"avg": {"field": "comments.stars"}},
+                         "who": {"terms": {"field": "comments.who"}}}}, "host"),
+}
+
+
 @pytest.mark.parametrize("kind", ["geo_bounds", "geo_distance", "geohash_grid",
                                   "nested"])
-def test_later_slice_aggs_answer_400(kind):
-    with pytest.raises(QueryParsingError, match="later slice"):
-        parse_search_body({"aggs": {"x": {kind: {"field": "loc"}}}})
+def test_later_slice_aggs_answer_400(geo_ctxs, kind):
+    """Served since the mapper's second half: each aggregation gives the JAX
+    package's answer on the card's path and the host's, and takes the same
+    branch (the geo buckets ride the aggregating launch, `geo_bounds` and
+    `nested` go to the host collectors, as in the JAX package)."""
+    spec, expect = GEO_AGGS[kind]
+    req, _dev, host = _both(geo_ctxs, {
+        "query": {"match": {"body": "alpha gamma"}}, "size": 5,
+        "aggs": {"x": spec}}, expect=expect)
+    got = reduce_aggs(req.aggs, host.agg_partials)["x"]
+    if kind == "geo_bounds":
+        assert got["bounds"]["top_left"]["lat"] > got["bounds"]["bottom_right"]["lat"]
+    elif kind == "nested":
+        assert got["doc_count"] > 0 and got["who"]["buckets"]
+    else:
+        assert sum(b["doc_count"] for b in got["buckets"]) > 0
 
 
-def test_geo_distance_facet_answers_400():
-    with pytest.raises(QueryParsingError, match="later slice"):
-        parse_search_body({"facets": {"x": {"geo_distance": {"field": "loc"}}}})
+def test_geo_distance_facet_answers_400(geo_ctxs):
+    """Served: the `geo_distance` facet answers the JAX node's ranges."""
+    jctx, tctx = geo_ctxs
+    body = {"query": {"match_all": {}}, "size": 0, "facets": {"x": {"geo_distance": {
+        "field": "loc", "origin": "40.71,-74.0", "unit": "km",
+        "ranges": [{"to": 30}, {"from": 30, "to": 6000}, {"from": 6000}]}}}}
+    req, jreq = parse_search_body(body), jparse_body(body)
+    for use_device in (True, False):
+        got = reduce_and_respond(tctx, req, execute_query_phase(
+            tctx, req, use_device=use_device))
+        want = jrespond(jctx, jreq, jphase(jctx, jreq, use_device=use_device))
+        assert got["facets"] == want["facets"]
+        assert sum(r["count"] for r in got["facets"]["x"]["ranges"]) > 0
 
 
 def test_device_error_is_counted_and_raised(ctxs, monkeypatch):

@@ -12,8 +12,9 @@ synonyms.
   the document gives.
 - `to_mapping()` and `merge()` (conflicts included) are equal; the mapper
   service's dynamic fields and a `copy_to` target made dynamically too.
-- `_parent` and `_ttl` still raise, naming their slices; so do `nested`,
-  `geo_point` and `geo_shape`.
+- `_ttl` still raises, naming its slice; `_parent`, `nested`, `geo_point`
+  and `geo_shape` (served since the mapper's second half) map, render and
+  parse a document as the JAX mapper does.
 - A JAX segment built with these mappings, carried across by
   `convert.segment_from_arrays` (doc values and routings included), scores
   the same as the JAX device path, and so does the port's own index of the
@@ -268,18 +269,46 @@ def test_merge_and_to_mapping_match_jax(i):
     assert tms2.mappings_dict() == jms2.mappings_dict()
 
 
+# a document for each served mapping: (mapping, parse arguments)
+_SECOND_HALF_DOCS = {
+    "_parent": ({"title": "a reply"}, {"parent": "7"}),
+    "nested": ({"title": "post", "c": [{"who": "ann", "n": 3}, {"who": "bo", "n": 5}]},
+               {}),
+    "geo_point": ({"loc": [{"lat": 40.7, "lon": -74.0}, "51.5,-0.12", "u4pruydqqvj",
+                           [2.35, 48.86]]}, {}),
+    "geo_shape": ({"shape": {"type": "envelope",
+                             "coordinates": [[-10.0, 50.0], [5.0, 40.0]]}}, {}),
+}
+
+
 @pytest.mark.parametrize("mapping,slice_", [
-    ({"_parent": {"type": "blog"}}, "second half"),
+    ({"_parent": {"type": "blog"}}, None),
     ({"_ttl": {"enabled": True}}, "document APIs"),
-    ({"properties": {"c": {"type": "nested", "properties": {}}}}, "second half"),
-    ({"properties": {"loc": {"type": "geo_point"}}}, "second half"),
-    ({"properties": {"shape": {"type": "geo_shape"}}}, "second half"),
+    ({"properties": {"c": {"type": "nested", "properties": {
+        "who": {"type": "string", "index": "not_analyzed"},
+        "n": {"type": "integer"}}}}}, None),
+    ({"properties": {"loc": {"type": "geo_point"}}}, None),
+    ({"properties": {"shape": {"type": "geo_shape"}}}, None),
 ], ids=["_parent", "_ttl", "nested", "geo_point", "geo_shape"])
-def test_later_slices_still_raise(mapping, slice_):
+def test_later_slices_still_raise(request, mapping, slice_):
+    """`_ttl` still raises naming its slice; the mapper's second half
+    (`_parent`, `nested`, `geo_point`, `geo_shape`) maps, renders and parses
+    as the JAX mapper does, nested children included."""
     tms = TMapperService()
-    with pytest.raises(MapperParsingError, match="later slice") as err:
-        tms.put_mapping("doc", mapping)
-    assert slice_ in str(err.value)
+    if slice_ is not None:
+        with pytest.raises(MapperParsingError, match="later slice") as err:
+            tms.put_mapping("doc", mapping)
+        assert slice_ in str(err.value)
+        return
+    jms, tms = _services(settings={}, mapping=mapping)
+    assert tms.mappings_dict() == jms.mappings_dict()
+    src, kwargs = _SECOND_HALF_DOCS[request.node.callspec.id]
+    jdoc = jms.mapper_for("doc").parse(copy.deepcopy(src), "1", **kwargs)
+    tdoc = tms.mapper_for("doc").parse(copy.deepcopy(src), "1", **kwargs)
+    assert _parsed(tdoc) == _parsed(jdoc)
+    assert tdoc.parent == jdoc.parent
+    assert [(p, _parsed(d)) for p, d in tdoc.nested_docs] == \
+        [(p, _parsed(d)) for p, d in jdoc.nested_docs]
 
 
 # --- a JAX segment carried across, and the port's own index ---------------

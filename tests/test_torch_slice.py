@@ -222,17 +222,26 @@ def test_overflow_chunks_match_one_launch(overflow_shards, monkeypatch):
 
 
 def test_unported_queries_raise(shards):
-    """The query types of later slices raise at parse time; a range query,
-    a must_not-only bool and a function_score, once refused, now run on the
-    host scorer with the JAX package's hits, in a batch beside a query the
-    card serves."""
+    """Once refused at parse time, now served: `nested` and a `geo_distance`
+    filter on an index without such fields match nothing on both packages'
+    host scorers, and a `geo_shape` without coordinates raises the JAX
+    package's QueryParsingError; a range query, a must_not-only bool and a
+    function_score run on the host scorer with the JAX package's hits, in a
+    batch beside a query the card serves."""
+    from elasticsearch_tpu.common.errors import QueryParsingError as JQueryParsingError
+    from elasticsearch_tpu.search import parse_query as jparse
+
     jctx, own, _conv = shards
     for q in ({"nested": {"path": "c", "query": {"match_all": {}}}},
-              {"geo_shape": {"loc": {"shape": {}}}},
               {"constant_score": {"filter": {"geo_distance": {
                   "distance": "1km", "loc": [0, 0]}}}}):
-        with pytest.raises(QueryParsingError, match="later slice"):
-            parse_query(q)
+        assert _port_hits(own, [q], 10) == _jax_hits(jctx, [q], 10) == [(0, [])]
+    bad = {"geo_shape": {"loc": {"shape": {}}}}
+    with pytest.raises(JQueryParsingError) as jerr:
+        jparse(bad)
+    with pytest.raises(QueryParsingError, match="coordinates") as terr:
+        parse_query(bad)
+    assert str(terr.value) == str(jerr.value)
     served = [{"range": {"n": {"gte": 1}}},
               {"bool": {"must_not": [{"term": {"body": "w1"}}]}},
               {"match": {"body": "w2 w3"}},

@@ -34,7 +34,6 @@ from elasticsearch_tpu.search.service import execute_query_phase as jphase
 from elasticsearch_tpu.search.service import parse_search_body as jparse_body
 from elasticsearch_tpu.search.service import reduce_and_respond as jrespond
 from elasticsearch_tpu.search.sorting import parse_sort as jparse_sort
-from elasticsearch_tpu_torch.common.errors import QueryParsingError
 from elasticsearch_tpu_torch.search import (
     SERVING_COUNTERS, ShardQueryResult, execute_query_phase, parse_search_body,
     sort_docs)
@@ -378,7 +377,29 @@ def test_search_runtime_sort_cases(products, body, ids):
     assert got["hits"]["total"] == want["hits"]["total"]
 
 
-def test_geo_distance_sort_is_a_later_slice():
-    with pytest.raises(QueryParsingError, match="geo_point"):
-        parse_search_body({"sort": [{"_geo_distance": {
-            "loc": {"lat": 40.7, "lon": -74.0}, "order": "asc", "unit": "km"}}]})
+def test_geo_distance_sort_is_a_later_slice(tmp_path_factory):
+    """Served since geo fields were ported: the `_geo_distance` sort goes
+    to the host path (the JAX package's device sort refuses it too) and
+    gives the JAX package's order and sort values."""
+    mapping = {"properties": {"loc": {"type": "geo_point"}}}
+    rng = np.random.default_rng(5)
+    docs = [{"body": str(rng.choice(["alpha", "beta"])),
+             "loc": {"lat": float(rng.uniform(40, 41)),
+                     "lon": float(rng.uniform(-75, -73))}} for _ in range(60)]
+    docs[7].pop("loc")
+    jctx, tctx, engines = _pair(tmp_path_factory, docs, mapping=mapping)
+    try:
+        body = {"query": {"match": {"body": "alpha"}}, "size": 20, "sort": [
+            {"_geo_distance": {"loc": {"lat": 40.7, "lon": -74.0},
+                               "order": "asc", "unit": "km"}}]}
+        req, jreq = parse_search_body(body), jparse_body(body)
+        before = SERVING_COUNTERS["host"]
+        got = reduce_and_respond(tctx, req, execute_query_phase(tctx, req))
+        assert SERVING_COUNTERS["host"] == before + 1
+        want = jrespond(jctx, jreq, jphase(jctx, jreq))
+        assert [(h["_id"], h["sort"]) for h in got["hits"]["hits"]] == \
+            [(h["_id"], h["sort"]) for h in want["hits"]["hits"]]
+        assert got["hits"]["total"] == want["hits"]["total"]
+    finally:
+        for e in engines:
+            e.close()
