@@ -115,7 +115,8 @@ those paths against its plain torch version on the card. Phases:
      — routed by the service (`device_plan`) and dispatched together,
      twice: cold, then with every filter mask resident in a
      DeviceFilterCache. Everything after the set-up under
-     `set_sync_debug_mode("error")`. 32 queries a family equal the host
+     `set_sync_debug_mode("error")`. 16 queries a family (32 before phase
+     20 joined the run) equal the host
      scorer (2 ulp, tie-tolerant, totals exact; the script at 5 decimals)
      and every query the same ops on CPU tensors; no query reruns on the
      host; the script on `pop` (missing on 1 doc in 7) flags its query,
@@ -123,9 +124,9 @@ those paths against its plain torch version on the card. Phases:
      JAX package. Ms a batch by family (CUDA events and host wall), dense
      launches, device→host copies and the filter cache's hits, builds and
      resident bytes.
- 13. field sort and aggregations. The library leg, on phase 2's shard: 16
+ 13. field sort and aggregations. The library leg, on phase 2's shard: 8
      requests a family (64 before phase 16 joined the run, 32 before phase
-     19 did) through
+     19 did, 16 before phase 20 did) through
      `parse_search_body` → `execute_query_phase`, each over phase 3's 4-term
      `bool` — `sort_asc` (`pop` asc, missing
      last, top-100), `sort_desc_scores` (`likes` desc, `track_scores`),
@@ -325,6 +326,30 @@ those paths against its plain torch version on the card. Phases:
      and p99 by family, `sparse_score` launches and ms a launch at each
      shape, the device's idle share over a profiled window; the kernel is
      bitwise equal to its plain version at every shape phase 19 launched.
+ 20. the search runtime, on phase 10's node before it closes. (a) 128 of
+     phase 10's `bool` bodies as `dfs_query_then_fetch` and as
+     `query_then_fetch` from 16 connections, each leg under
+     `set_sync_debug_mode("error")`: every DFS page equals the shards' host
+     query phases under `aggregate_dfs` of their `collect_dfs` (tie-tolerant
+     within 2 ulp), every plain one the shards' own; every DFS plan launched
+     outside the drainer (the batcher's `direct` count, nothing coalesced);
+     the legs' requests/s and p50/p99, where their CPU goes, and the
+     similarity-table flips (none: `corpus` is TF-IDF); then `dfs_bm25`, a
+     BM25 index of 5,000 of phase 10's texts, and 64 DFS and plain bodies
+     at once, each equal to its reference while the packs' tables flip (at
+     least once). (b) 64 size-0 aggregating bodies on `catalog` three
+     times: a miss pass; a hit pass with 320 shard hits, no launch, no pull
+     and no serving counter moved, equal to the first; a 1,000-document
+     `_bulk` and `_refresh`, the warmer's re-prime of every shard (0
+     failed, every pack on the warmer pool); a third pass equal to a
+     `request_cache: false` pass (sums within rel 1e-5) with the re-primed
+     shard hits. (c) a size-100 scroll and a scan walked to their end equal
+     to the buffered top 1,000, cleared, then 404; `_count` on three routes
+     equal to the size-0 totals and the exact count, with `q=` too; an
+     `_msearch` of 8 equal to the 8 searches; `preference=_shards:0,2`
+     totalling those shards' counts; 16 `rescore` bodies equal to the
+     shards' host query phases, bitwise, on the host path only. The kernel
+     bitwise equal to its plain version at every shape phase 20 launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -385,14 +410,17 @@ HOST_FAMILIES_PHASE11 = {"requests_per_s": 12.6, "latency_ms": {
     "post_filter_all": (4704.79, 6949.36), "min_score": (4849.22, 7432.51)}}
 POP_MISSING = 7  # phase 2's `pop` column: 1 doc in 7 has no value
 POP_RANGE, LIKES_RANGE = (1, 1000), (0, 1000)  # integer doc values, inclusive
-DENSE_BATCH, DENSE_CHECK = 256, 32  # phase 12: queries a family batch, host-checked
+# phase 12: queries a family batch, and of them host-checked (32 before
+# phase 20 joined the run: cut for the command's time)
+DENSE_BATCH, DENSE_CHECK = 256, 16
 DENSE_FAMILIES = ("filtered", "post_filter", "min_score", "fs_rows", "fs_script")
 FS_SCRIPT = "_score * log(2 + doc['likes'].value)"  # phase 12's script family
 CAT_VALUES, CAT_ZIPF = 200, 1.3  # phase 2's keyword `cat`: zipf over 200 values
 # phase 13's library leg: requests a family (64 before phase 16 joined the
-# run, 32 before phase 19 did: each is checked against the host path and
-# CPU tensors at 1M docs, about 89 s for 32, cut for the run's time)
-SORT_AGG_REQUESTS = 16
+# run, 32 before phase 19 did, 16 before phase 20 did: each is checked
+# against the host path and CPU tensors at 1M docs, about 89 s for 32, cut
+# for the run's time)
+SORT_AGG_REQUESTS = 8
 SORT_AGG_FAMILIES = ("sort_asc", "sort_desc_scores", "aggs_metric", "aggs_terms",
                      "aggs_hist", "sort_aggs", "post_filter_aggs")
 SORT_AGG_COUNTER = {"sort_asc": "device_sort", "sort_desc_scores": "device_sort",
@@ -473,6 +501,14 @@ ANALYSIS_BODY, ANALYSIS_SYNONYMS, ANALYSIS_TENANTS = 60, 50, 16
 # the traffic, its connections and the profiled window
 GEO_POSTS, GEO_BRANCHES, GEO_EMPLOYEES, GEO_CITIES = 10_000, 100, 2_000, 50
 GEO_REQUESTS, GEO_CALLERS, GEO_PROFILED = 384, 32, 48
+# phase 20 on phase 10's node: (a) phase 10's `bool` bodies sent as DFS and
+# as plain, a BM25 index of phase 10's texts for the similarity-table flips
+# and its mixed DFS + plain burst; (b) the request cache's size-0 bodies on
+# `catalog` and the documents bulked between its passes; (c) rescore bodies;
+# the connections of every leg
+RUNTIME_DFS, RUNTIME_BM25_DOCS, RUNTIME_MIXED = 128, 5_000, 64
+RUNTIME_CACHE, RUNTIME_CACHE_BULK, RUNTIME_RESCORE = 64, 1000, 16
+RUNTIME_CONN = 16
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -963,7 +999,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         analysis_dfr_docs: int = ANALYSIS_DFR_DOCS,
         analysis_requests: int = ANALYSIS_REQUESTS, geo_posts: int = GEO_POSTS,
         geo_branches: int = GEO_BRANCHES, geo_employees: int = GEO_EMPLOYEES,
-        geo_requests: int = GEO_REQUESTS) -> dict:
+        geo_requests: int = GEO_REQUESTS, runtime_dfs: int = RUNTIME_DFS,
+        runtime_bm25_docs: int = RUNTIME_BM25_DOCS, runtime_mixed: int = RUNTIME_MIXED,
+        runtime_cache: int = RUNTIME_CACHE, runtime_rescore: int = RUNTIME_RESCORE) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -1324,7 +1362,10 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                       catalog_requests=catalog_requests, write_docs=write_docs,
                       write_requests=write_requests, perc_queries=perc_queries,
                       perc_docs=perc_docs, perc_node_queries=perc_node_queries,
-                      perc_requests=perc_requests)
+                      perc_requests=perc_requests, runtime=dict(
+                          n_dfs=runtime_dfs, n_bm25_docs=runtime_bm25_docs,
+                          n_mixed=runtime_mixed, n_cache=runtime_cache,
+                          n_rescore=runtime_rescore))
     report["node"] = node
 
     # -- 12. the dense request-feature family at full width -------------------
@@ -1367,8 +1408,14 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        node_launches=node["launches"].get("sparse_score", 0),
+        # phase 10's timed run and phase 20's legs, on phase 10's node
+        node_launches=node["launches"].get("sparse_score", 0)
+        + node["runtime"]["launches"].get("sparse_score", 0),
         node_max_abs_err=node["kernel_max_abs_err"],
+        runtime_launches=node["runtime"]["launches"].get("sparse_score", 0),
+        runtime_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                        for s in node["runtime"]["kernel_shapes"]],
+        runtime_max_abs_err=node["runtime"]["kernel_max_abs_err"],
         mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
         mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"],
         dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"],
@@ -1876,6 +1923,14 @@ def http_json(conn, method: str, path: str, body=None, ndjson: str | None = None
     return resp.status, json.loads(resp.read())
 
 
+def uncached(body: dict) -> dict:
+    """A `size: 0` body (one the node's request cache would answer once it
+    has seen it) asked to skip the cache: the phases that count each
+    request's launches and serving counters send their size-0 bodies so;
+    phase 20 measures the cache itself."""
+    return {**body, "request_cache": False} if body.get("size") == 0 else body
+
+
 def http_clients(port: int, bodies: list, n_callers: int, pipe) -> None:
     """Phase 10's HTTP clients, in a process of their own (a search front
     end's connections do not share the node's interpreter): `n_callers`
@@ -1984,7 +2039,7 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
                catalog_requests: int = CATALOG_REQUESTS, write_docs: int = WRITE_DOCS,
                write_requests: int = WRITE_REQUESTS, perc_queries: int = PERC_QUERIES,
                perc_docs: int = PERC_DOCS, perc_node_queries: int = PERC_NODE_QUERIES,
-               perc_requests: int = PERC_REQUESTS) -> dict:
+               perc_requests: int = PERC_REQUESTS, runtime: dict | None = None) -> dict:
     """Phase 10: a port Node on `device` serving REST over HTTP — index
     creation, `_bulk` into each shard's durable Engine, `_refresh`, then
     concurrent `_search` requests checked against exact totals and the
@@ -2203,6 +2258,11 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             n_requests=perc_requests)
         # -- 17. restart and serving hygiene --------------------------------
         out["restart"] = restart_phase(device, node, texts=texts, bodies=bodies)
+        # -- 20. the search runtime -----------------------------------------
+        out["runtime"] = runtime_phase(
+            device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
+            bodies=bodies, catalog_docs=out["catalog"]["docs"], seed=seed + 20,
+            **(runtime or {}))
         return out
     finally:
         if recorder is not None:
@@ -3067,7 +3127,7 @@ def catalog_phase(device, node, port: int, *, texts, offsets, inv_docs, seed: in
     fam["facets"] = [{"query": should(), "size": 5, "facets": {
         "cats": {"terms": {"field": "cat", "size": 10}}}} for _ in range(per)]
     fam["sort_url"] = [{"query": should(), "size": 10} for _ in range(per)]
-    entries = [(f, b) for f, bs in fam.items() for b in bs]
+    entries = [(f, uncached(b)) for f, bs in fam.items() for b in bs]
     entries = [entries[i] for i in rng.permutation(len(entries))[:n_requests]]
 
     def path_of(f: str) -> str:
@@ -3085,7 +3145,7 @@ def catalog_phase(device, node, port: int, *, texts, offsets, inv_docs, seed: in
     # first sightings pack each shard's segments and build its agg rows,
     # bucket columns and sort keys: warm before the clock
     warm = serve_http(port, requests[: 2 * n_callers]
-                      + [(path_of(f), bs[0]) for f, bs in fam.items()],
+                      + [(path_of(f), uncached(bs[0])) for f, bs in fam.items()],
                       n_callers, sync_error=False)
     assert not warm[3], warm[3][:3]
     before = dict(SERVING_COUNTERS)
@@ -3687,7 +3747,7 @@ def faults_phase(device, node, port: int, *, texts, ranked, bool_bodies, seed: i
                + [("filtered", "/catalog/_search", b) for b in dense["filtered"]]
                + [("function_score", "/catalog/_search", b) for b in dense["fs_rows"]]
                + [("sort", "/catalog/_search", b) for b in sa["sort_asc"]]
-               + [("aggs", "/catalog/_search", b) for b in sa["aggs_terms"]])
+               + [("aggs", "/catalog/_search", uncached(b)) for b in sa["aggs_terms"]])
     writes = [("writes", "/writes/_search", b) for b in bool_bodies[:FAULT_BOOL]]
     launched = {"sparse_score": 0}
 
@@ -4876,6 +4936,484 @@ ANALYSIS_SUFFIXES = ("", "s", "es", "ed", "ing", "ation", "ness")
 _CONSONANTS, _VOWELS = "bcdfghklmnprstvwz", "aeiou"
 
 
+def runtime_phase(device, node, port: int, *, texts, offsets, inv_docs, bodies,
+                  catalog_docs: int, seed: int, n_dfs: int = RUNTIME_DFS,
+                  n_bm25_docs: int = RUNTIME_BM25_DOCS, n_mixed: int = RUNTIME_MIXED,
+                  n_cache: int = RUNTIME_CACHE, n_bulk: int = RUNTIME_CACHE_BULK,
+                  n_rescore: int = RUNTIME_RESCORE, n_conn: int = RUNTIME_CONN) -> dict:
+    """Phase 20, on phase 10's node before it closes: the search runtime.
+    (a) `n_dfs` of phase 10's `bool` bodies as `dfs_query_then_fetch` and as
+    `query_then_fetch` from `n_conn` connections, each leg under
+    `set_sync_debug_mode("error")`; every DFS answer against the shards'
+    host query phases under `aggregate_dfs` of their `collect_dfs`, every
+    plain one against the shards' own; then a BM25 index of `n_bm25_docs`
+    of phase 10's texts and a burst of `n_mixed` DFS and plain bodies at
+    once, whose answers hold while the packs' similarity tables flip. (b)
+    `n_cache` size-0 aggregating bodies on `catalog` three times: a miss
+    pass, a hit pass that launches nothing, then after a `_bulk` of
+    `n_bulk` documents, `_refresh` and the warmer's re-prime a third pass
+    equal to a `request_cache: false` pass. (c) a scroll and a scan walk,
+    `_count` on three routes and with `q=`, an `_msearch` of 8,
+    `preference=_shards:0,2` and `n_rescore` rescore bodies against the
+    host path. `sparse_score` against its plain version at every shape the
+    phase launched."""
+    import contextlib
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch import actions as tactions
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER, SIM_SWAPS
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import (
+        SERVING_COUNTERS, DeviceBatcher, ShardContext, execute_query_phase, parse_query)
+    from elasticsearch_tpu_torch.search import execute as texecute
+    from elasticsearch_tpu_torch.search import service as tservice
+    from elasticsearch_tpu_torch.search.controller import aggregate_dfs, collect_dfs
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    launches: dict = {}
+    recorder = LaunchRecorder(scoring, sparse_score)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def take() -> dict:
+        """This leg's launches since the last take, counted into the
+        phase's, and the counts set to 0 again."""
+        snap = cudaenv.LAUNCHES.snapshot()
+        cudaenv.LAUNCHES.reset()
+        for name, n in snap.items():
+            launches[name] = launches.get(name, 0) + n
+        return snap
+
+    def timed(requests, sync_error: bool, clock=None):
+        """`requests` from `n_conn` connections of this process; with a
+        `clock` (a SpanClock) also the node process's CPU s by thread kind
+        over the run, in `clock.host_cpu`."""
+        if sync_error and on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with clock or contextlib.nullcontext():
+                cpu0, process0 = thread_cpu_s(), time.process_time()
+                got, lat, wall = http_requests(port, requests, n_conn)
+                if clock is not None:
+                    clock.host_cpu = host_cpu_split(cpu0, thread_cpu_s(),
+                                                    time.process_time() - process0)
+        finally:
+            if sync_error and on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        for i, (st, r) in enumerate(got):
+            assert st == 200, (i, requests[i][1], r)
+        return got, lat, wall
+
+    def clock():
+        """Where a leg's time goes: the shard's DFS collection, the query
+        phase, its direct launches (DFS) or its wait on the batcher
+        (plain), and inside either the steps of a flat batch (summed over
+        the search threads and the drainer), the pull wait, the fetch and
+        the coordinator's reduce."""
+        return SpanClock([
+            ("dfs phase: collect_dfs", tactions, "collect_dfs"),
+            ("query phase", tactions, "execute_query_phase"),
+            ("query phase: direct launch and merge", tservice, "execute_flat_batch"),
+            ("query phase: through the batcher", DeviceBatcher, "execute"),
+            ("flat batch: finalize_flat", texecute, "finalize_flat"),
+            ("flat batch: _assemble_batch", texecute, "_assemble_batch"),
+            ("flat batch: packed_for", texecute, "packed_for"),
+            ("flat batch: ensure_sim_tables", texecute, "ensure_sim_tables"),
+            ("flat batch: launch_flat_sparse", texecute, "launch_flat_sparse"),
+            ("flat batch:   plan_sparse_buckets", scoring, "plan_sparse_buckets"),
+            ("flat batch:   staging copy to device", scoring.StagingSet, "to_device"),
+            ("flat batch:   _sparse_impl", scoring, "_sparse_impl"),
+            ("flat batch:     sparse_score launch", scoring, "sparse_score"),
+            ("flat batch: prepare_dense", texecute, "prepare_dense"),
+            ("flat batch: merge", texecute._PendingFlat, "merge"),
+            ("pull wait", cudaenv.PendingPull, "wait"),
+            ("fetch phase", tactions, "execute_fetch_phase"),
+            ("coordinator: sort_docs", tactions, "sort_docs"),
+            ("coordinator: merge_responses", tactions, "merge_responses")])
+
+    def cache_clock():
+        """Where a size-0 pass's time goes on the shard (the search pool)
+        and the coordinator: the request's parse and context, the cache's
+        key, lookup and decode, the pin, the query phase a miss runs, and
+        the reduce of the aggregation partials."""
+        return SpanClock([
+            ("coordinator: search", tactions.ActionModule, "search"),
+            ("shard: parse_search_body", tactions, "parse_search_body"),
+            ("shard: _shard_ctx", tactions.ActionModule, "_shard_ctx"),
+            ("shard: request_fingerprint", tactions, "request_fingerprint"),
+            ("shard: cache get", type(node.request_cache), "get"),
+            ("shard: decode cached partial", tactions, "_decode_cached_partial"),
+            ("shard: encode partial", tactions, "_encode_cached_partial"),
+            ("shard: cache put", type(node.request_cache), "put"),
+            ("shard: _pin_context", tactions.ActionModule, "_pin_context"),
+            ("shard: query phase (miss)", tactions, "execute_query_phase"),
+            ("coordinator: decode partials", tactions, "_decode_partials"),
+            ("coordinator: sort_docs", tactions, "sort_docs"),
+            ("coordinator: merge_responses", tactions, "merge_responses"),
+            ("fetch phase", tactions, "execute_fetch_phase")])
+
+    def lat_stats(lat, wall, n) -> dict:
+        return dict(requests=n, requests_per_s=n / wall,
+                    p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)))
+
+    def ctxs_of(index: str, stats=None):
+        svc = node.indices.index_service(index)
+        return [ShardContext(svc.shard(sid).engine.acquire_searcher(), svc.mapper_service,
+                             svc.similarity_service, device=device, global_stats=stats)
+                for sid in range(NODE_SHARDS)]
+
+    def dfs_ctxs(ctxs, body):
+        q = parse_query(body["query"])
+        agg = aggregate_dfs([collect_dfs(c, q, shard_id=i) for i, c in enumerate(ctxs)])
+        return [ShardContext(c.searcher, c.mapper_service, c.similarity_service,
+                             device=device, global_stats=agg) for c in ctxs]
+
+    def check_page(r, ctxs, body, exact: bool = False) -> bool:
+        """The response against the shards' host query phases reduced:
+        the total exactly, the page tie-tolerant within 2 ulp (bitwise
+        when `exact`); returns whether the page was bitwise equal."""
+        total, page, _top = host_reference(ctxs, body)
+        assert r["_shards"] == SHARDS_OK, r["_shards"]
+        assert r["hits"]["total"] == total, (r["hits"]["total"], total)
+        got = [(h["_score"], (h["_shard"], h["_id"])) for h in r["hits"]["hits"]]
+        want = []
+        for score, sid, doc in page:
+            seg, local = ctxs[sid].searcher.resolve(doc)
+            want.append((score, (sid, seg.ids[local])))
+        if exact:
+            assert got == want, body
+        else:
+            assert tie_tolerant_equal(got, want), body
+        return got == want
+
+    try:
+        # -- (a) DFS on phase 10's `corpus` (TF-IDF) ------------------------
+        dfs_bodies = bodies[:n_dfs]
+        plain_req = [("POST", "/corpus/_search", b, None) for b in dfs_bodies]
+        dfs_req = [("POST", "/corpus/_search?search_type=dfs_query_then_fetch", b, None)
+                   for b in dfs_bodies]
+        stats0, swaps0 = node.search_batcher.stats(), SIM_SWAPS["changed"]
+        cudaenv.LAUNCHES.reset()  # what earlier phases launched is not this one's
+        dfs_clock, plain_clock = clock(), clock()
+        dfs_resp, dfs_lat, dfs_wall = timed(dfs_req, sync_error=True, clock=dfs_clock)
+        dfs_launch = take()
+        stats1, swaps1 = node.search_batcher.stats(), SIM_SWAPS["changed"]
+        plain_resp, plain_lat, plain_wall = timed(plain_req, sync_error=True,
+                                                  clock=plain_clock)
+        plain_launch = take()
+        stats2 = node.search_batcher.stats()
+        host = ctxs_of("corpus")
+        bitwise = sum(check_page(r, dfs_ctxs(host, b), b)
+                      for b, (_st, r) in zip(dfs_bodies, dfs_resp))
+        for b, (_st, r) in zip(dfs_bodies, plain_resp):
+            check_page(r, host, b)
+        differs = sum(d[1]["hits"]["hits"] != p[1]["hits"]["hits"]
+                      for d, p in zip(dfs_resp, plain_resp))
+        direct = stats1["direct"] - stats0["direct"]
+        assert direct == n_dfs * NODE_SHARDS, direct  # no DFS plan was queued
+        assert stats1["coalesced"] == stats0["coalesced"], "a DFS plan entered the batcher"
+        assert stats2["direct"] == stats1["direct"]
+        if on_card:
+            assert dfs_launch.get("sparse_score", 0) > 0, dfs_launch
+            assert plain_launch.get("sparse_score", 0) > 0, plain_launch
+        assert differs > 0, "the index's statistics changed no page"
+        out["dfs"] = dict(dfs=lat_stats(dfs_lat, dfs_wall, n_dfs),
+                          plain=lat_stats(plain_lat, plain_wall, n_dfs),
+                          direct_launches=direct,
+                          dfs_sparse_launches=dfs_launch.get("sparse_score", 0),
+                          plain_sparse_launches=plain_launch.get("sparse_score", 0),
+                          plain_batches=stats2["launches"] - stats1["launches"],
+                          flips=swaps1 - swaps0, bitwise_pages=int(bitwise),
+                          pages_changed_by_dfs=int(differs),
+                          spans=dict(dfs=dfs_clock.report(), plain=plain_clock.report()),
+                          host_cpu_s=dict(dfs=dfs_clock.host_cpu, plain=plain_clock.host_cpu))
+        a = out["dfs"]
+        log(f"[20] (a) `corpus` (TF-IDF, {NODE_SHARDS} shards): {n_dfs} "
+            f"dfs_query_then_fetch from {n_conn} connections at "
+            f"{a['dfs']['requests_per_s']:.1f} requests/s (p50 {a['dfs']['p50_ms']:.2f} ms, "
+            f"p99 {a['dfs']['p99_ms']:.2f} ms) against query_then_fetch's "
+            f"{a['plain']['requests_per_s']:.1f} (p50 {a['plain']['p50_ms']:.2f} ms, p99 "
+            f"{a['plain']['p99_ms']:.2f} ms); {direct} DFS plans launched outside the "
+            f"drainer ({a['dfs_sparse_launches']} sparse_score launches) against "
+            f"{a['plain_batches']} batches for the plain leg; similarity-table flips "
+            f"{a['flips']}; every DFS page == the shards' host query phases under "
+            f"aggregate_dfs (tie-tolerant 2 ulp; {bitwise} of {n_dfs} bitwise), "
+            f"{differs} pages differ from the plain leg's")
+        for leg, wall in (("dfs", dfs_wall), ("plain", plain_wall)):
+            log(f"[20] (a) {leg} leg, CPU s by thread kind over its {wall:.2f} s: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in a["host_cpu_s"][leg].items()))
+            for name, v in a["spans"][leg].items():
+                log(f"[20]   span {name:38s} {v['calls']:5d} calls, CPU {v['cpu_s']:.2f} s, "
+                    f"wall {v['wall_s']:.2f} s")
+
+        # -- (a) the flips: a BM25 index, DFS and plain at once --------------
+        n_bm25 = min(n_bm25_docs, len(texts))
+        st, r = http_json(conn, "PUT", "/dfs_bm25", {"settings": {
+            "number_of_shards": NODE_SHARDS, "refresh_interval": -1,
+            "index": {"similarity": {"default": {"type": "BM25"}}}}})
+        assert st == 200 and r["acknowledged"], r
+        t0 = time.perf_counter()
+        for lo in range(0, n_bm25, NODE_BULK):
+            lines = []
+            for i in range(lo, min(lo + NODE_BULK, n_bm25)):
+                lines.append(json.dumps({"index": {"_index": "dfs_bm25", "_type": "doc",
+                                                   "_id": str(i)}}))
+                lines.append(json.dumps({"body": texts[i]}))
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+        st, r = http_json(conn, "POST", "/dfs_bm25/_refresh")
+        assert st == 200 and r["_shards"]["failed"] == 0, r
+        bm25_load_s = time.perf_counter() - t0
+        inside = np.concatenate([[0], np.cumsum(inv_docs < n_bm25)])
+        bdf = inside[offsets[1:]] - inside[offsets[:-1]]
+        branked = np.argsort(-bdf, kind="stable")
+        rng = np.random.default_rng(seed)
+        rows = rng.choice(branked[BOOL_RANKS[0]: BOOL_RANKS[1]], size=(n_mixed, TERMS_PER_QUERY))
+        mixed = [{"query": {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                                for t in row]}}, "size": NODE_SIZE}
+                 for row in rows]
+        # each shard's first search packs it inline: warm before the burst
+        timed([("POST", "/dfs_bm25/_search", b, None) for b in mixed[:2 * n_conn]], False)
+        mixed_req = [("POST", "/dfs_bm25/_search" + (
+            "?search_type=dfs_query_then_fetch" if i % 2 == 0 else ""), b, None)
+            for i, b in enumerate(mixed)]
+        swaps0 = SIM_SWAPS["changed"]
+        take()
+        mixed_resp, mixed_lat, mixed_wall = timed(mixed_req, sync_error=True)
+        mixed_launch = take()
+        flips = SIM_SWAPS["changed"] - swaps0
+        bhost = ctxs_of("dfs_bm25")
+        for i, (b, (_st, r)) in enumerate(zip(mixed, mixed_resp)):
+            check_page(r, dfs_ctxs(bhost, b) if i % 2 == 0 else bhost, b)
+        assert flips > 0, "the BM25 packs' tables never flipped under DFS and plain"
+        out["dfs_bm25"] = dict(docs=n_bm25, load_s=bm25_load_s, flips=flips,
+                               sparse_launches=mixed_launch.get("sparse_score", 0),
+                               **lat_stats(mixed_lat, mixed_wall, n_mixed))
+        log(f"[20] (a) `dfs_bm25` (BM25, {n_bm25} docs, loaded in {bm25_load_s:.1f} s): "
+            f"{n_mixed} requests, DFS and plain alternating, at "
+            f"{out['dfs_bm25']['requests_per_s']:.1f} requests/s; {flips} similarity-table "
+            f"flips over the burst; every page == its host reference (the DFS ones under "
+            f"aggregate_dfs, tie-tolerant 2 ulp)")
+
+        # -- (b) the shard request cache on `catalog` -------------------------
+        inside = np.concatenate([[0], np.cumsum(inv_docs < catalog_docs)])
+        cdf = inside[offsets[1:]] - inside[offsets[:-1]]
+        cranked = np.argsort(-cdf, kind="stable")
+        fam = sort_agg_bodies(np.random.default_rng(seed + 1), cranked[RANKS[0]: RANKS[1]],
+                              cranked[BOOL_RANKS[0]: BOOL_RANKS[1]], n_cache // 3 + 1)
+        cache_bodies = [b for trio in zip(fam["aggs_metric"], fam["aggs_terms"],
+                                          fam["aggs_hist"]) for b in trio][:n_cache]
+        cache_req = [("POST", "/catalog/_search", b, None) for b in cache_bodies]
+        rcache = node.request_cache
+        calls, pulls = CallCounts(texecute, tservice), PullCounts(texecute)
+        try:
+            rc0 = rcache.stats()
+            miss_clock, hit_clock = cache_clock(), cache_clock()
+            pass1, lat1, wall1 = timed(cache_req, sync_error=False, clock=miss_clock)
+            rc1 = rcache.stats()
+            take()
+            calls.take()
+            pulls.n = 0
+            counters = dict(SERVING_COUNTERS)
+            pass2, lat2, wall2 = timed(cache_req, sync_error=True, clock=hit_clock)
+            hit_launch, (dense_launches, dense_pulls, _c), flat_pulls = \
+                take(), calls.take(), pulls.n
+            rc2 = rcache.stats()
+        finally:
+            calls.close()
+            pulls.close()
+        assert rc1["misses"] - rc0["misses"] == n_cache * NODE_SHARDS, (rc0, rc1)
+        assert rc1["stores"] - rc0["stores"] == n_cache * NODE_SHARDS, (rc0, rc1)
+        assert (rc2["hits"] - rc1["hits"], rc2["misses"] - rc1["misses"]) == \
+            (n_cache * NODE_SHARDS, 0), (rc1, rc2)
+        assert not sum(hit_launch.values()) and not dense_launches and \
+            not dense_pulls and not flat_pulls, (hit_launch, dense_launches, dense_pulls,
+                                                 flat_pulls)
+        assert dict(SERVING_COUNTERS) == counters, "a hit reached a query phase"
+        for (_s1, r1), (_s2, r2) in zip(pass1, pass2):
+            assert (r2["hits"], r2["_shards"], r2["aggregations"]) == \
+                (r1["hits"], r1["_shards"], r1["aggregations"])
+        # a write, the refresh, and the warmer's re-prime of the new views
+        PACK_LEDGER.forget("catalog")
+        warm0 = node.warmer.stats()
+        lo = catalog_docs
+        hi = min(lo + n_bulk, len(texts))
+        wrng = np.random.default_rng(seed + 2)
+        lines = []
+        for i in range(lo, hi):
+            lines.append(json.dumps({"index": {"_index": "catalog", "_type": "doc",
+                                               "_id": str(i)}}))
+            lines.append(json.dumps({"body": texts[i], "likes": int(wrng.integers(0, 1001)),
+                                     "pop": int(wrng.integers(1, 1001)),
+                                     "cat": cat_name(int(wrng.integers(CAT_VALUES)))}))
+        st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+        assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+        t_write = time.perf_counter()
+        st, r = http_json(conn, "POST", "/catalog/_refresh")
+        assert st == 200 and r["_shards"]["failed"] == 0, r
+        deadline = time.perf_counter() + 60.0
+        while True:
+            w = node.warmer.stats()
+            if w["reprimes"] - warm0["reprimes"] >= NODE_SHARDS and \
+                    w["packs_done"] >= w["packs_scheduled"]:
+                break
+            assert time.perf_counter() < deadline, f"the re-prime never finished: {w}"
+            time.sleep(0.01)
+        reprime_s = time.perf_counter() - t_write
+        assert w["query_failures"] == warm0["query_failures"], w
+        assert w["pack_failures"] == warm0["pack_failures"], w
+        rc3 = rcache.stats()
+        take()
+        pass3, lat3, wall3 = timed(cache_req, sync_error=False)
+        pass3_launch = take()
+        rc4 = rcache.stats()
+        fresh, _lat, _wall = timed([("POST", "/catalog/_search", uncached(b), None)
+                                    for b in cache_bodies], sync_error=False)
+        ledger = PACK_LEDGER.stats("catalog")
+        assert ledger and set(ledger["pools"]) <= {"warmer", "merge"}, ledger
+        hits3 = rc4["hits"] - rc3["hits"]
+        assert hits3 > 0, (rc3, rc4)
+        for b, (_s3, r3), (_s4, r4) in zip(cache_bodies, pass3, fresh):
+            assert (r3["hits"], r3["_shards"]) == (r4["hits"], r4["_shards"]), b
+            agg_close(r3["aggregations"], r4["aggregations"], b)
+        assert sum(r["hits"]["total"] for _s, r in pass3) >= \
+            sum(r["hits"]["total"] for _s, r in pass1)
+        out["cache"] = dict(
+            bodies=n_cache, miss=lat_stats(lat1, wall1, n_cache),
+            hit=lat_stats(lat2, wall2, n_cache), after_refresh=lat_stats(lat3, wall3, n_cache),
+            shard_hits=rc2["hits"] - rc1["hits"], hit_launches=sum(hit_launch.values()),
+            hit_pulls=dense_pulls + flat_pulls, bulk_docs=hi - lo, reprime_s=reprime_s,
+            reprimes=w["reprimes"] - warm0["reprimes"],
+            queries_warmed=w["queries_warmed"] - warm0["queries_warmed"],
+            query_failures=w["query_failures"] - warm0["query_failures"],
+            filters_seeded=w["filters_seeded"] - warm0["filters_seeded"],
+            pass3_shard_hits=hits3, pass3_launches=pass3_launch,
+            pack_pools=ledger["pools"], entries=rc4["entries"],
+            memory_bytes=rc4["memory_size_in_bytes"], compressions=rc4["compressions"],
+            spans=dict(miss=miss_clock.report(), hit=hit_clock.report()),
+            host_cpu_s=dict(miss=miss_clock.host_cpu, hit=hit_clock.host_cpu))
+        c = out["cache"]
+        log(f"[20] (b) request cache on `catalog`: {n_cache} size-0 aggregating bodies, "
+            f"miss pass p50 {c['miss']['p50_ms']:.2f} ms ({c['miss']['requests_per_s']:.1f} "
+            f"requests/s), hit pass p50 {c['hit']['p50_ms']:.2f} ms "
+            f"({c['hit']['requests_per_s']:.1f} requests/s): {c['shard_hits']} shard hits, "
+            f"0 launches and 0 pulls, answers == the miss pass; a {c['bulk_docs']}-doc _bulk "
+            f"and _refresh, {c['reprimes']} re-primes ({c['queries_warmed']} bodies warmed, "
+            f"0 failed, {c['filters_seeded']} filter keys seeded) in {reprime_s:.2f} s; "
+            f"the next pass: {hits3} shard hits, p50 {c['after_refresh']['p50_ms']:.2f} ms, "
+            f"every answer == a request_cache=false pass (sums rel {AGG_RTOL}); packs "
+            f"by pool {ledger['pools']}; {c['entries']} entries, {c['memory_bytes']} bytes")
+        for leg, wall in (("miss", wall1), ("hit", wall2)):
+            log(f"[20] (b) {leg} pass, CPU s by thread kind over its {wall:.2f} s: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in c["host_cpu_s"][leg].items()))
+            for name, v in c["spans"][leg].items():
+                log(f"[20]   span {name:38s} {v['calls']:5d} calls, CPU {v['cpu_s']:.3f} s, "
+                    f"wall {v['wall_s']:.3f} s")
+
+        # -- (c) scroll, scan, _count, _msearch, preference, rescore ---------
+        svc = node.indices.index_service("corpus")
+        pool = np.argsort(-np.diff(offsets), kind="stable")[RANKS[0]: RANKS[0] + 40]
+        scroll_body = {"query": {"match": {"body": " ".join(
+            term_name(int(t)) for t in pool[:2])}}, "size": 100}
+        st, full = http_json(conn, "POST", "/corpus/_search", {**scroll_body, "size": 1000})
+        assert st == 200 and len(full["hits"]["hits"]) == min(1000, full["hits"]["total"])
+        walks = {}
+        for kind, path in (("scroll", "/corpus/_search?scroll=1m"),
+                           ("scan", "/corpus/_search?scroll=1m&search_type=scan")):
+            st, first = http_json(conn, "POST", path, scroll_body)
+            assert st == 200, first
+            sid, seen, pages = first["_scroll_id"], list(first["hits"]["hits"]), 1
+            assert len(seen) == (0 if kind == "scan" else 100)
+            while True:
+                st, r = http_json(conn, "POST", "/_search/scroll", {"scroll_id": sid})
+                assert st == 200 and r["hits"]["total"] == len(full["hits"]["hits"]), r
+                if not r["hits"]["hits"]:
+                    break
+                seen.extend(r["hits"]["hits"])
+                pages += 1
+            assert seen == full["hits"]["hits"], f"the {kind} walk != the buffered top"
+            st, r = http_json(conn, "DELETE", f"/_search/scroll/{sid}")
+            assert st == 200 and r == {"succeeded": True}
+            st, r = http_json(conn, "POST", "/_search/scroll", {"scroll_id": sid})
+            assert st == 404 and r["error"]["type"] == "SearchContextMissingException", r
+            walks[kind] = pages
+        count_body = {"query": bodies[0]["query"]}
+        counts = {}
+        for path in ("/corpus/_count", "/corpus/doc/_count", "/_count"):
+            st, r = http_json(conn, "POST", path, count_body)
+            st2, s = http_json(conn, "POST", path.replace("_count", "_search"),
+                               {**count_body, "size": 0})
+            assert st == st2 == 200 and r["count"] == s["hits"]["total"], (path, r, s)
+            counts[path] = r["count"]
+        terms = [int(c["term"]["body"][1:]) for c in bodies[0]["query"]["bool"]["should"]]
+        exact = int(term_docs(offsets, inv_docs, terms).size)
+        assert counts["/corpus/_count"] == counts["/corpus/doc/_count"] == exact
+        q = term_name(int(pool[3]))
+        st, r = http_json(conn, "GET", f"/corpus/_count?q=body:{q}")
+        st2, s = http_json(conn, "GET", f"/corpus/_search?q=body:{q}&size=0")
+        assert st == st2 == 200 and r["count"] == s["hits"]["total"] == \
+            int(term_docs(offsets, inv_docs, [int(pool[3])]).size), (r, s)
+        ms_bodies = bodies[:8]
+        ndjson = "".join(json.dumps({"index": "corpus"}) + "\n" + json.dumps(b) + "\n"
+                         for b in ms_bodies)
+        st, ms = http_json(conn, "POST", "/_msearch", ndjson=ndjson)
+        assert st == 200 and len(ms["responses"]) == 8, ms
+        for b, got in zip(ms_bodies, ms["responses"]):
+            st, one = http_json(conn, "POST", "/corpus/_search", b)
+            assert st == 200 and (got["hits"], got["_shards"]) == (one["hits"], one["_shards"])
+        pref_body = bodies[1]
+        st, r = http_json(conn, "POST", "/corpus/_search?preference=_shards:0,2", pref_body)
+        assert st == 200 and r["_shards"]["total"] == 2, r
+        assert {h["_shard"] for h in r["hits"]["hits"]} <= {0, 2}
+        per_shard = [execute_query_phase(host[sid], tservice.parse_search_body(pref_body),
+                                         use_device=False).total for sid in (0, 2)]
+        assert r["hits"]["total"] == sum(per_shard), (r["hits"]["total"], per_shard)
+        rescore_bodies = [dict(b, size=20, rescore={"window_size": 50, "query": {
+            "rescore_query": {"match": {"body": " ".join(
+                term_name(int(t)) for t in pool[5 + 2 * i: 7 + 2 * i])}},
+            "query_weight": 0.7, "rescore_query_weight": 1.5}})
+            for i, b in enumerate(bodies[2: 2 + n_rescore])]
+        counters = dict(SERVING_COUNTERS)
+        take()
+        rs_resp, _lat, _wall = timed([("POST", "/corpus/_search", b, None)
+                                      for b in rescore_bodies], sync_error=False)
+        rescore_launch = take()
+        moved = {k: v - counters[k] for k, v in SERVING_COUNTERS.items() if v != counters[k]}
+        assert moved == {"host": n_rescore * NODE_SHARDS}, moved
+        assert not sum(rescore_launch.values()), rescore_launch
+        for b, (_st, r) in zip(rescore_bodies, rs_resp):
+            check_page(r, host, b, exact=True)
+        out["rest"] = dict(scroll_pages=walks["scroll"], scan_pages=walks["scan"],
+                           buffered=len(full["hits"]["hits"]), counts=counts,
+                           msearch=len(ms_bodies), preference_total=r["hits"]["total"],
+                           rescore=n_rescore)
+        log(f"[20] (c) scroll: {walks['scroll']} pages of 100 == the buffered top "
+            f"{len(full['hits']['hits'])}, scan: {walks['scan']} pages (the first empty) == "
+            f"it, both cleared then 404; _count {counts} == the size-0 totals (and the "
+            f"exact count), with q= too; _msearch of 8 == the 8 searches; "
+            f"preference=_shards:0,2 total == shards 0 and 2's; {n_rescore} rescore bodies "
+            f"== the shards' host query phases reduced (bitwise, host path only)")
+        conn.close()
+        recorder.close()
+        out["kernel_shapes"] = [dict(Qb=k[0][0], TB=k[0][1], k=k[2], launches=v[2])
+                                for k, v in recorder.shapes.items()]
+        out["kernel_max_abs_err"] = check_shapes(recorder.shapes)
+        out["launches"] = launches
+        out["wall_s"] = time.perf_counter() - t_phase
+        log(f"[20] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
+            f"phase 20 launched ({launches.get('sparse_score', 0)} launches); max abs err "
+            f"{out['kernel_max_abs_err']}; phase 20 took {out['wall_s']:.1f} s")
+        return out
+    finally:
+        recorder.close()
+        conn.close()
+
+
 def analysis_vocab(rng, n_stems: int) -> list[str]:
     """`n_stems` distinct pronounceable stems (2-3 consonant-vowel
     syllables and a closing consonant), seeded."""
@@ -5027,12 +5565,12 @@ def analysis_traffic(rng, stems, docs, analysis, n_requests: int) -> list[tuple]
         out.append(("dfr", "library_dfr", {"query": {"match": {
             "body": " ".join(text.words(int(rng.integers(2, 5)), 0.0))}}, "size": 10}))
     for _ in range(per // 2):
-        out.append(("ip_range", "library", {"query": {"match": {
+        out.append(("ip_range", "library", uncached({"query": {"match": {
             "body": " ".join(text.words(2, 0.0))}}, "size": 0, "aggs": {"ips": {
                 "ip_range": {"field": "client_ip", "ranges": [
                     {"to": "64.0.0.0"}, {"from": "64.0.0.0", "to": "128.0.0.0"},
                     {"from": "128.0.0.0", "to": "192.168.0.0"},
-                    {"from": "192.168.0.0"}]}}}}))
+                    {"from": "192.168.0.0"}]}}}})))
         out.append(("sort", "library", {"query": {"match": {
             "body": " ".join(text.words(2, 0.0))}}, "size": 10,
             "sort": [{"words": {"order": "desc"}}]}))
@@ -5490,7 +6028,7 @@ def geo_traffic(rng, cities, stems, n_requests: int) -> list[tuple]:
                     "coordinates": [[c["lon"] - 2, c["lat"] + 2],
                                     [c["lon"] + 2, c["lat"] - 2]]}}}}}}}
         body.setdefault("size", 10)
-        out.append((family, index, body))
+        out.append((family, index, uncached(body)))
     return out
 
 

@@ -13,7 +13,22 @@ package's `actions.py`), in the reference's interaction patterns:
   onto the card, and pins that context for the fetch. The coordinator
   reduces the shards' top-k (`sort_docs`), fetches the winners from the
   pinned contexts and frees the contexts that won nothing
-  (`merge_responses` assembles the response);
+  (`merge_responses` assembles the response). `preference` picks the shard
+  groups and copies (cluster/routing.py); `count` is a `size: 0` search;
+- `dfs_query_then_fetch` (and `dfs_query_and_fetch`, served the same way):
+  a DFS phase on every shard first (`_s_dfs_phase`, search/controller
+  `collect_dfs`), all in flight at once; the coordinator sums the shards'
+  statistics (`aggregate_dfs`) and sends them with every query phase, whose
+  context weighs its clauses with them (`_shard_ctx(dfs=)`) and launches
+  outside the batcher (search/service.py). A shard whose DFS phase fails
+  is left out of the query phase and reported in `_shards.failures`;
+- the shard request cache (search/request_cache.py, `node.request_cache`):
+  a cache-eligible body's query phase first looks up (index, shard, view
+  version, fingerprint) and a hit answers the stored partial with no
+  launch; a miss stores its partial, unless it timed out, with `degraded`
+  false (a degraded answer is bitwise the card's). A DFS request never
+  uses the cache. `warm_shard_queries` is the warmer's re-prime of a new
+  view;
 - broadcast: `refresh`, `flush` and `optimize` on every active shard;
 - single-shard reads: `get_doc` reads one active copy of the document's
   shard (realtime from the engine's version map unless `realtime` is
@@ -40,9 +55,9 @@ latency, from the fan-out to its future's resolution, failed phases too
 remaining `timeout` budget cannot cover one expected phase answers 429
 with Retry-After before the fan-out.
 
-Not in this slice: the SPMD mesh branch, DFS, the request cache, insights,
-tracing, profiles, failover across copies and hedging, replica writes,
-mget, update, delete-by-query, aliases and templates."""
+Not in this slice: the SPMD mesh branch, insights, tracing, profiles, the
+slowlog, cache-affinity routing, failover across copies and hedging,
+replica writes, mget, update, delete-by-query, aliases and templates."""
 
 from __future__ import annotations
 
@@ -70,10 +85,20 @@ from .common.errors import (
 from .common.logging import get_logger
 from .common.names import is_pattern, name_matches
 from .common.settings import Settings, validate_index_name
+from .common.stream import StreamInput, StreamOutput
+from .index.segment import FieldStats
 from .indices_service import ACTION_SHARD_STARTED
 from .mapper import MapperService
-from .search.controller import merge_responses, sort_docs
+from .search.controller import (
+    DfsResult,
+    aggregate_dfs,
+    collect_dfs,
+    merge_responses,
+    sort_docs,
+)
 from .search.execute import ShardContext
+from .search.queries import MatchAllQuery, parse_query
+from .search.request_cache import cache_policy, request_fingerprint
 from .search.service import (
     SearchAdmissionController,
     ShardQueryResult,
@@ -93,11 +118,14 @@ A_GET = "indices:data/read/get[s]"
 A_QUERY_PHASE = "indices:data/read/search[phase/query]"
 A_FETCH_PHASE = "indices:data/read/search[phase/fetch]"
 A_FREE_CONTEXT = "indices:data/read/search[free-context]"
+A_DFS_PHASE = "indices:data/read/search[phase/dfs]"
 A_SHARD_BROADCAST = "indices:admin/broadcast[s]"
 
 # how long the coordinator waits for a shard phase when the request set no
 # budget of its own
 QUERY_PHASE_TIMEOUT = 60.0
+DFS_PHASE_TIMEOUT = 30.0
+DFS_SEARCH_TYPES = ("dfs_query_then_fetch", "dfs_query_and_fetch")
 
 
 class ActionModule:
@@ -135,6 +163,7 @@ class ActionModule:
         t.register_handler(A_QUERY_PHASE, self._s_query_phase, executor="search")
         t.register_handler(A_FETCH_PHASE, self._s_fetch_phase, executor="search")
         t.register_handler(A_FREE_CONTEXT, self._s_free_context, executor="search")
+        t.register_handler(A_DFS_PHASE, self._s_dfs_phase, executor="search")
         t.register_handler(A_SHARD_BROADCAST, self._s_broadcast,
                            executor="management")
 
@@ -455,7 +484,8 @@ class ActionModule:
         return {"items": out}
 
     # ================= scatter-gather search =================
-    def search(self, index_expr, body: dict | None = None, routing=None) -> dict:
+    def search(self, index_expr, body: dict | None = None, routing=None,
+               search_type: str = "query_then_fetch", preference=None) -> dict:
         t0 = time.monotonic()
         state = self.cluster_service.state
         indices = state.metadata.resolve_indices(index_expr)
@@ -465,21 +495,30 @@ class ActionModule:
             else NO_DEADLINE
         # a budget that cannot cover one expected shard phase: 429 now
         self.admission.admit(deadline)
-        shards = self.routing.search_shards(state, indices, routing)
-        # every shard's query phase in flight at once
+        shards = self.routing.search_shards(state, indices, routing, preference)
+        dfs_stats, dfs_failed = None, set()
+        if search_type in DFS_SEARCH_TYPES:
+            dfs_stats, dfs_failed = self._dfs_round(state, shards, body, deadline)
+        # every shard's query phase in flight at once (a shard whose DFS
+        # phase failed is left out: stats that omit it would skew the rest)
         t_fanout = time.monotonic()
-        futs = [(copy, self.transport.send_request(
-            state.nodes.get(copy.node_id), A_QUERY_PHASE, {
-                "index": copy.index, "shard": copy.shard_id, "body": body or {},
-                "deadline_s": deadline.remaining()}))
-            for copy in shards]
-        for _copy, fut in futs:
+        failures, terminals = [], []
+        futs = []
+        for ordinal, copy in enumerate(shards):
+            if ordinal in dfs_failed:
+                failures.append({"index": copy.index, "shard": copy.shard_id,
+                                 "reason": "dfs phase failed on every copy"})
+                continue
+            futs.append((ordinal, copy, self.transport.send_request(
+                state.nodes.get(copy.node_id), A_QUERY_PHASE, {
+                    "index": copy.index, "shard": copy.shard_id, "body": body or {},
+                    "deadline_s": deadline.remaining(), "dfs": dfs_stats})))
+        for _o, _copy, fut in futs:
             # the phase's latency ends at its resolution, not when this loop
             # collects it behind a slower shard
             fut.add_done_callback(
                 lambda f: setattr(f, "completed_at", time.monotonic()))
         results: list[ShardQueryResult] = []
-        failures, terminals = [], []
         # ordinal -> (index, real shard id, node, pinned context id): the
         # coordinator's merge identity is the ordinal, as (index, shard)
         # pairs of two indices can share a shard id
@@ -487,7 +526,7 @@ class ActionModule:
         wait_by = time.monotonic() + (QUERY_PHASE_TIMEOUT if deadline.remaining() is None
                                       else deadline.remaining() + 5.0)
         try:
-            for ordinal, (copy, fut) in enumerate(futs):
+            for ordinal, copy, fut in futs:
                 try:
                     r = fut_result(fut, max(0.0, wait_by - time.monotonic()))
                 except SearchEngineError as e:
@@ -521,7 +560,7 @@ class ActionModule:
             # that answered, or answers later, keeps its context pinned
             self._free_after_failure(futs, shard_meta, wait_by)
             raise
-        if not results and terminals and all(
+        if not results and terminals and not dfs_failed and all(
                 isinstance(e, (CircuitBreakingError, RejectedExecutionError))
                 for e in terminals):
             # every shard was shed by overload protection: a 429, not a partial
@@ -529,13 +568,47 @@ class ActionModule:
         return self._finish_search(req, body, results, failures, shards,
                                    shard_meta, t0, timed_out=deadline.expired())
 
+    def _dfs_round(self, state, shards, body, deadline: Deadline):
+        """Every shard's DFS phase at once, then the global statistics every
+        query phase weighs its clauses with: (the wire form of
+        `aggregate_dfs`, the ordinals whose DFS phase failed). A lone node
+        holds one copy of a shard, so a failed phase has no copy to fail
+        over to (failover across copies comes with replicas, A5)."""
+        futs = [self.transport.send_request(
+            state.nodes.get(copy.node_id), A_DFS_PHASE, {
+                "index": copy.index, "shard": copy.shard_id, "body": body or {}})
+            for copy in shards]
+        results, failed = [], set()
+        for ordinal, (copy, fut) in enumerate(zip(shards, futs)):
+            remaining = deadline.remaining()
+            try:
+                r = fut_result(fut, DFS_PHASE_TIMEOUT if remaining is None
+                               else min(DFS_PHASE_TIMEOUT, remaining))
+            except SearchEngineError:
+                failed.add(ordinal)
+                continue
+            results.append(DfsResult(
+                shard_id=copy.shard_id, max_doc=r["max_doc"],
+                term_df={(f, t): v for f, t, v in r["term_df"]},
+                field_stats={f: FieldStats(*v) for f, v in r["field_stats"].items()}))
+        agg = aggregate_dfs(results)
+        return {"max_doc": agg["max_doc"],
+                "term_df": [[f, t, v] for (f, t), v in agg["df"].items()],
+                "field_stats": {f: [s.doc_count, s.sum_ttf, s.sum_dfs]
+                                for f, s in agg["field_stats"].items()}}, failed
+
+    def count(self, index_expr, body=None) -> dict:
+        """`_count`: a `size: 0` search's total and `_shards`."""
+        r = self.search(index_expr, {**(body or {}), "size": 0})
+        return {"count": r["hits"]["total"], "_shards": r["_shards"]}
+
     def _free_after_failure(self, futs, shard_meta: dict, wait_by: float):
         """Free the pinned context of every shard whose query phase answered
         or still answers before `wait_by`, and wait for the frees."""
         pinned = [(index, shard, node, cid)
                   for (index, shard, node, cid) in shard_meta.values()]
         state = self.cluster_service.state
-        for ordinal, (copy, fut) in enumerate(futs):
+        for ordinal, copy, fut in futs:
             if ordinal in shard_meta:
                 continue
             try:
@@ -623,45 +696,99 @@ class ActionModule:
         with self._pinned_lock:
             return len(self._pinned)
 
-    def _shard_ctx(self, index: str, shard_id: int) -> ShardContext:
+    def _shard_ctx(self, index: str, shard_id: int, dfs: dict | None = None) -> ShardContext:
         """The shard's current searcher in a context wired to the node's
         device, breakers, ONE node-level DeviceBatcher and ONE
-        DeviceFilterCache."""
+        DeviceFilterCache; `dfs`, the coordinator's global statistics, in
+        their wire form. Opens the warmer's gate (warmer.py): from the
+        shard's first search on, every new view's packs and remasks run on
+        the warmer and merge pools; a shard that has never served a search
+        stays off the device."""
         svc = self.indices.index_service(index)
         shard = svc.shard(shard_id)
+        shard.engine.search_active = True
+        global_stats = None
+        if dfs:
+            global_stats = {
+                "max_doc": dfs["max_doc"],
+                "df": {(f, t): v for f, t, v in dfs["term_df"]},
+                "field_stats": {f: FieldStats(*v) for f, v in dfs["field_stats"].items()},
+            }
         return ShardContext(shard.engine.acquire_searcher(), svc.mapper_service,
                             svc.similarity_service, device=self.node.device,
                             breakers=self.node.breakers,
                             batcher=self.node.search_batcher,
-                            filter_cache=self.node.filter_cache, index_name=index)
+                            filter_cache=self.node.filter_cache, index_name=index,
+                            global_stats=global_stats)
 
     def _s_query_phase(self, request, channel):
         index, shard_id = request["index"], request["shard"]
-        # opens the warmer's gate (warmer.py): from the shard's first search
-        # on, every new view's packs and remasks run on the warmer and
-        # merge pools; a shard that has never served a search stays off the
-        # device
-        self.indices.index_service(index).shard(shard_id).engine.search_active = True
-        req = parse_search_body(request.get("body") or {})
-        ctx = self._shard_ctx(index, shard_id)
+        body = request.get("body") or {}
+        req = parse_search_body(body)
+        dfs = request.get("dfs")
+        ctx = self._shard_ctx(index, shard_id, dfs)
         budget = request.get("deadline_s")
         if req.timeout_s is not None:
             budget = req.timeout_s if budget is None else min(budget, req.timeout_s)
         deadline = Deadline.after(budget) if budget is not None else NO_DEADLINE
+        # the shard request cache: a hit answers before the query phase, with
+        # no launch; a DFS request's weights are its own and never cache
+        rcache = self.node.request_cache
+        cache_key = None
+        if rcache.enabled and dfs is None and cache_policy(body):
+            cache_key = (index, shard_id, ctx.searcher.version,
+                         request_fingerprint(body))
+            data = rcache.get(cache_key)
+            if data is not None:
+                out = _decode_cached_partial(data)
+                out["ctx_id"] = self._pin_context(index, shard_id, ctx)
+                return out
         result = execute_query_phase(ctx, req, shard_id=shard_id, deadline=deadline)
-        return {
-            "total": result.total,
-            "docs": [[s, d, sv] for (s, d, sv) in result.docs],
-            "max_score": None if result.max_score != result.max_score
-            else result.max_score,
-            "agg_partials": _encode_partials(result.agg_partials),
-            "facet_partials": _encode_partials(result.facet_partials),
-            "timed_out": result.timed_out,
-            "degraded": result.degraded,
-            # the fetch must read the SAME point-in-time searcher these doc
-            # ids come from
-            "ctx_id": self._pin_context(index, shard_id, ctx),
-        }
+        partial = _shard_partial_dict(result)
+        if cache_key is not None and not result.timed_out:
+            # `degraded` says how this run was served, not what it found:
+            # the host path's partial is bitwise the card's, and a hit is
+            # served from memory; `body` enters the shard's hot bodies
+            data = _encode_cached_partial({**partial, "degraded": False})
+            if data is not None:
+                rcache.put(cache_key, data, body=body)
+        # the fetch must read the SAME point-in-time searcher these doc ids
+        # come from
+        return {**partial, "ctx_id": self._pin_context(index, shard_id, ctx)}
+
+    def warm_shard_queries(self, index: str, shard_id: int, bodies: list[dict],
+                           budget_s: float = 5.0) -> tuple[int, int]:
+        """The warmer's re-prime (warmer.py, on the `warmer` pool): run the
+        shard's hottest cached bodies on its current view and store their
+        partials, so a hot body's first sighting after a refresh is a hit.
+        A key already present is skipped; a timed-out partial is not
+        stored. Returns (warmed, failed): a body that raises counts as
+        failed and never reaches the pool."""
+        rcache = self.node.request_cache
+        if not rcache.enabled:
+            return 0, 0
+        warmed = failed = 0
+        for body in bodies:
+            try:
+                ctx = self._shard_ctx(index, shard_id)
+                key = (index, shard_id, ctx.searcher.version, request_fingerprint(body))
+                if rcache.peek(key):
+                    continue  # a live request (or an earlier warm) stored it
+                result = execute_query_phase(ctx, parse_search_body(dict(body)),
+                                             shard_id=shard_id,
+                                             deadline=Deadline.after(budget_s))
+                if result.timed_out:
+                    continue
+                data = _encode_cached_partial(_shard_partial_dict(result))
+                # body=None: the warm store leaves the hot bodies' ranking
+                # to live traffic
+                if data is not None and rcache.put(key, data):
+                    warmed += 1
+            except Exception:  # noqa: BLE001 — counted; the pool must not die
+                self.logger.debug("re-prime of [%s][%d] failed", index, shard_id,
+                                  exc_info=True)
+                failed += 1
+        return warmed, failed
 
     def _s_fetch_phase(self, request, channel):
         # the pinned query-time context; an expired pin falls back to the
@@ -677,6 +804,19 @@ class ActionModule:
     def _s_free_context(self, request, channel):
         self._take_pinned(request.get("ctx"), request["index"], request["shard"])
         return {}
+
+    def _s_dfs_phase(self, request, channel):
+        """One shard's DFS statistics for the body's query, in wire form."""
+        ctx = self._shard_ctx(request["index"], request["shard"])
+        body = request.get("body") or {}
+        query = parse_query(body["query"]) if body.get("query") else MatchAllQuery()
+        dfs = collect_dfs(ctx, query, shard_id=request["shard"])
+        return {
+            "max_doc": dfs.max_doc,
+            "term_df": [[f, t, v] for (f, t), v in dfs.term_df.items()],
+            "field_stats": {f: [s.doc_count, s.sum_ttf, s.sum_dfs]
+                            for f, s in dfs.field_stats.items()},
+        }
 
     # ================= single-shard reads =================
     def get_doc(self, index: str, type_name: str, doc_id: str, routing=None,
@@ -804,6 +944,38 @@ def filter_source(src: dict, includes, excludes) -> dict:
         return out
 
     return walk(src, "", included=False)
+
+
+def _shard_partial_dict(result: ShardQueryResult) -> dict:
+    """The wire and cache form of one shard's query-phase partial: the one
+    construction site of the live query phase and the re-prime, so a warmed
+    entry decodes as a live one does."""
+    return {
+        "total": result.total,
+        "docs": [[s, d, sv] for (s, d, sv) in result.docs],
+        "max_score": None if result.max_score != result.max_score
+        else result.max_score,
+        "agg_partials": _encode_partials(result.agg_partials),
+        "facet_partials": _encode_partials(result.facet_partials),
+        "timed_out": result.timed_out,
+        "degraded": result.degraded,
+    }
+
+
+def _encode_cached_partial(partial: dict) -> bytes | None:
+    """A partial through the binary wire codec (common/stream.py): the bytes
+    the cache stores and charges, and a hit's isolated copy. None (nothing
+    is stored) for a value the codec refuses."""
+    try:
+        out = StreamOutput()
+        out.write_value(partial)
+        return out.bytes()
+    except SearchEngineError:
+        return None
+
+
+def _decode_cached_partial(data: bytes) -> dict:
+    return StreamInput(data).read_value()
 
 
 def _encode_partials(partials):

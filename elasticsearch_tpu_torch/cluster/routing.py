@@ -4,8 +4,14 @@ the JAX package's `cluster/routing.py`).
 shard_id = |djb2(routing ?: id)| % number_of_shards, with the JAX package's
 exact DJB2 (32-bit overflow, Java int sign), so the port places every
 document on the shard the JAX package places it. `search_shards` picks one
-active copy of every shard group round-robin; `preference`, adaptive replica
-selection and hedging belong to the slice with replicas."""
+active copy of every shard group, honouring `preference` as the JAX
+package's does: `_shards:N,M` (with an optional `;<preference>` for the
+copy) searches only those shard groups (`split_preference`), `_primary` the
+primary, `_local` and `_prefer_node:x` a copy on that node when there is
+one, `_only_node:x` only that node's copy, and any other string a copy
+fixed by its djb2; without a preference, round-robin. Adaptive replica
+selection, cache-affinity routing and hedging belong to the slice with
+replicas."""
 
 from __future__ import annotations
 
@@ -44,10 +50,24 @@ class OperationRouting:
             self.shard_id(state, index, doc_id, routing))
         return self._pick(group)
 
+    @staticmethod
+    def split_preference(preference: str | None) \
+            -> tuple[set[int] | None, str | None]:
+        """`_shards:0,2[;pref]` → ({0, 2}, the copy preference after the
+        `;` or None); any other preference → (None, itself or None)."""
+        if not preference or not preference.startswith("_shards:"):
+            return None, preference or None
+        spec, _, copy_pref = preference[len("_shards:"):].partition(";")
+        return ({int(s) for s in spec.split(",") if s.strip()},
+                copy_pref or None)
+
     def search_shards(self, state: ClusterState, indices: list[str],
-                      routing: str | None = None) -> list[ShardRouting]:
+                      routing: str | None = None,
+                      preference: str | None = None) -> list[ShardRouting]:
         """One active copy of every relevant shard group; `routing` (a comma
-        list) narrows the groups to the ones its values hash to."""
+        list) narrows the groups to the ones its values hash to, and a
+        `_shards:` preference to the ones it names."""
+        only_shards, preference = self.split_preference(preference)
         out = []
         for index in indices:
             table = state.routing_table.index(index)
@@ -60,8 +80,41 @@ class OperationRouting:
             else:
                 shard_ids = range(len(table.shards))
             for sid in shard_ids:
-                out.append(self._pick(table.shard(sid)))
+                if only_shards is not None and sid not in only_shards:
+                    continue
+                out.append(self._select(table.shard(sid), state, preference))
         return out
+
+    def _select(self, group: IndexShardRoutingTable, state: ClusterState,
+                preference: str | None) -> ShardRouting:
+        """One active copy of the group under the copy preference."""
+        if not preference:
+            return self._pick(group)
+        active = group.active_shards()
+        if not active:
+            return self._pick(group)  # raises NoShardAvailableError
+        if preference == "_primary":
+            for s in active:
+                if s.primary:
+                    return s
+            raise NoShardAvailableError("primary not active")
+        if preference == "_local" or preference.startswith("_prefer_node:"):
+            node_id = state.nodes.local_id if preference == "_local" \
+                else preference.split(":", 1)[1]
+            for s in active:
+                if node_id and s.node_id == node_id:
+                    return s
+            # no such copy: the plain choice (hashing the literal would pin
+            # every coordinator to one copy)
+            return self._pick(group)
+        if preference.startswith("_only_node:"):
+            node_id = preference.split(":", 1)[1]
+            for s in active:
+                if s.node_id == node_id:
+                    return s
+            raise NoShardAvailableError(f"no copy on node [{node_id}]")
+        # a custom string (a session key): a copy fixed by its hash
+        return active[abs(djb2_hash(preference)) % len(active)]
 
     def _pick(self, group: IndexShardRoutingTable) -> ShardRouting:
         active = group.active_shards()

@@ -155,6 +155,9 @@ class CircuitBreakerService:
         settings = settings or Settings.EMPTY
         budget = parse_bytes(settings.get("indices.breaker.total_budget"),
                              default=int(total_budget_bytes))
+        # the byte budget the limits are shares of (the request cache's
+        # size is one too)
+        self.total_budget = budget
         self.parent = MemoryCircuitBreaker(
             parse_ratio_or_bytes(settings.get("indices.breaker.total.limit"),
                                  budget, default="70%"),

@@ -184,3 +184,12 @@ class SimilarityNotSupportedError(SearchEngineError):
     """A phrase or span query over a field whose similarity has no `idf`
     (DFR, IB, LM): the shard fails with the JAX package's AttributeError
     message as its reason."""
+
+
+class SearchContextMissingError(SearchEngineError):
+    """A scroll id the node does not hold (never issued, or cleared)."""
+
+    status = 404
+
+    def __init__(self, context_id):
+        super().__init__(f"no search context found for id [{context_id}]")

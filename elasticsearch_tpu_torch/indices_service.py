@@ -12,12 +12,15 @@ copy of the JAX package's `indices_service.py`).
 - `periodic_refresh`: the scheduled NRT refresh per shard honouring
   `index.refresh_interval` (-1 disables it), then a merge-policy check on
   the `merge` pool.
-- Each engine's view listeners evict the device filter masks of the
-  segments a new view dropped (the node's `DeviceFilterCache`), then hand
-  the view to the node's warmer, which packs it off the query path.
+- Each engine's view listeners drop the shard's request-cache entries of
+  every superseded view (the node's `ShardRequestCache`) and evict the
+  device filter masks of the segments a new view dropped (the node's
+  `DeviceFilterCache`), then hand the view to the node's warmer, which
+  packs it off the query path and re-primes the shard's hot cached bodies.
+  A closing shard releases every cache byte it holds.
 
-Peer recovery of replicas, index deletion, the indexing-memory controller
-and the request cache belong to later slices."""
+Peer recovery of replicas, index deletion and the indexing-memory
+controller belong to later slices."""
 
 from __future__ import annotations
 
@@ -81,11 +84,14 @@ class IndexService:
 
 class IndicesService:
     def __init__(self, node_id: str, data_path: str, transport, cluster_service,
-                 threadpool, filter_cache=None, warmer=None):
+                 threadpool, filter_cache=None, warmer=None, request_cache=None):
         self.node_id = node_id
         # the node's DeviceFilterCache (None in unwired contexts): the masks
         # of segments an engine view drops leave with them
         self.filter_cache = filter_cache
+        # the node's ShardRequestCache (None in unwired contexts): a view's
+        # install drops the entries of the views before it
+        self.request_cache = request_cache
         # the node's IndexWarmerService (None in unwired contexts)
         self.warmer = warmer
         self.data_path = data_path
@@ -164,31 +170,48 @@ class IndicesService:
                         pass
             if s.shard_id not in svc.shards and s.state == INITIALIZING:
                 shard = svc.create_shard(s.shard_id, s.primary)
-                self._wire_cache_listeners(shard.engine)
+                self._wire_cache_listeners(shard.engine, s.index, s.shard_id)
                 if self.warmer is not None:
                     # after the cache listeners: listeners run in order, so
-                    # the warmer sees a view whose dropped masks are evicted
-                    self.warmer.wire(s.index, shard.engine)
+                    # the warmer sees a view whose superseded entries and
+                    # dropped masks are gone (a re-prime never races them)
+                    self.warmer.wire(s.index, s.shard_id, shard.engine)
                 threading.Thread(target=self._recover_shard, args=(shard, s),
                                  daemon=True,
                                  name=f"estpu_torch-recover[{s.index}][{s.shard_id}]"
                                  ).start()
 
-    def _wire_cache_listeners(self, engine: Engine):
-        """Hang the node's device filter cache off the engine's view
-        listeners: the segments a new view dropped (merge sources, the
-        copies a tombstone view replaced) evict their resident masks. The
-        listener is a leaf: dict, counter and breaker work only (the engine
-        calls it under its lock)."""
+    def _wire_cache_listeners(self, engine: Engine, index: str, shard_id: int):
+        """Hang the node's caches off the engine's view listeners: a new
+        view drops the shard's request-cache entries of older views, and
+        the segments it dropped (merge sources, the copies a tombstone view
+        replaced) evict their resident masks. The listener is a leaf: dict,
+        counter and breaker work only (the engine calls it under its lock)."""
+        rcache = self.request_cache
         fcache = self.filter_cache
-        if fcache is None:
+        if rcache is None and fcache is None:
             return
 
         def on_view_change(searcher, dropped):
-            if dropped:
+            if rcache is not None:
+                rcache.invalidate_shard(index, shard_id, searcher.version)
+            if fcache is not None and dropped:
                 fcache.evict_dropped(dropped, searcher.segments)
 
         engine.view_listeners.append(on_view_change)
+
+    def _drop_shard_caches(self, shard: IndexShard):
+        """A closing shard releases every cache byte it holds: its
+        request-cache entries of every view and the filter masks of the
+        segments of its last view."""
+        if self.request_cache is not None:
+            self.request_cache.invalidate_shard(shard.index, shard.shard_id, None)
+        if self.filter_cache is not None:
+            try:
+                segs = shard.engine.acquire_searcher().segments
+            except SearchEngineError:
+                segs = []
+            self.filter_cache.evict_dropped(segs, ())
 
     def _recover_shard(self, shard: IndexShard, routing: ShardRouting):
         shard.state = RECOVERING
@@ -222,5 +245,6 @@ class IndicesService:
         with self._lock:
             for svc in self.indices.values():
                 for shard in svc.shards.values():
+                    self._drop_shard_caches(shard)
                     shard.engine.close()
             self.indices.clear()

@@ -1,8 +1,9 @@
 """Node assembly and client (a trimmed copy of the JAX package's `node.py`).
 
 A Node builds its services in dependency order — cluster service → gateway →
-thread pools → breakers → the node-level DeviceFilterCache and DeviceBatcher
-→ the warmer → transport → allocation → indices → actions → discovery — and
+thread pools → breakers → the node-level ShardRequestCache, DeviceFilterCache
+and DeviceBatcher → the warmer → transport → allocation → indices → actions
+→ discovery — and
 `start()` builds every kernel of `csrc/` on a CUDA device (the port's
 counterpart of the JAX node's compile-warm cycle: one nvcc per source, all
 at once, and each library loaded, so no search runs nvcc) and launches each
@@ -27,17 +28,20 @@ The node serves on the card unless told otherwise: its device is the
 a Node raises DeviceUnavailableError. Every shard's query phase on this node
 goes through ONE DeviceBatcher (`search_batcher`), and its filtered plans
 read ONE DeviceFilterCache (`filter_cache`, charged to the fielddata
-breaker; its masks leave with the segments an engine view drops), and ONE
+breaker; its masks leave with the segments an engine view drops), its
+cache-eligible bodies ONE ShardRequestCache (`request_cache`, charged to the
+request breaker; a new view drops the entries of the older ones), and ONE
 IndexWarmerService packs every new view's segments for the node's device
-on the `warmer` and `merge` pools, as in the JAX node.
+on the `warmer` and `merge` pools and re-primes the hot cached bodies, as
+in the JAX node.
 
 `percolator`, the node's PercolatorService, keeps a query registry per
 index fed by the single-document writes of `.percolator` documents and
 percolates on the node's device.
 
 `Client` is trimmed to `create_index`, `index`, `get`, `delete`, `bulk`,
-`refresh`, `flush`, `optimize`, `search`, `percolate`, `count_percolate`,
-`mpercolate` and `cluster_health`."""
+`refresh`, `flush`, `optimize`, `search`, `msearch`, `count`, `percolate`,
+`count_percolate`, `mpercolate` and `cluster_health`."""
 
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from .common import cudaenv
 from .common.breaker import CircuitBreakerService
 from .common.cudaenv import default_device
 from .common.devicehealth import DEVICE_HEALTH
-from .common.errors import NotPortedError
+from .common.errors import NotPortedError, SearchEngineError
 from .common.events import EventJournal, StallWatchdog
 from .common.logging import get_logger
 from .common.settings import prepare_settings
@@ -65,6 +69,7 @@ from .ops import sparse_kernels
 from .ops.device_index import DeviceFilterCache
 from .percolator import PercolatorService
 from .search.batcher import DeviceBatcher
+from .search.request_cache import ShardRequestCache
 from .threadpool import ThreadPool
 from .transport.local import DEFAULT_REGISTRY, LocalTransport
 from .transport.service import TransportService
@@ -111,6 +116,11 @@ class Node:
         self.events = EventJournal(self.settings, node_name=self.name,
                                    node_id=self.node_id)
         DEVICE_HEALTH.register_publisher(self.node_id, self.events.publish)
+        # the shard request cache: a cache-eligible body's partial per shard
+        # view, accounted on the request breaker
+        self.request_cache = ShardRequestCache(
+            self.settings, breaker=self.breakers.breaker("request"),
+            total_budget=self.breakers.total_budget)
         # hot filters' per-segment masks resident on the device, accounted on
         # the fielddata breaker next to the packed postings
         self.filter_cache = DeviceFilterCache(
@@ -122,7 +132,7 @@ class Node:
         # on the warmer and merge pools, off the query path
         self.warmer = IndexWarmerService(
             self.settings, self.device, self.threadpool,
-            breaker=self.breakers.breaker("fielddata"))
+            breaker=self.breakers.breaker("fielddata"), node=self)
         self.transport = TransportService(LocalTransport(address, self.registry),
                                           self.local_node, self.threadpool)
         self.transport.in_flight_breaker = self.breakers.breaker("in_flight_requests")
@@ -131,7 +141,8 @@ class Node:
         self.indices = IndicesService(self.node_id, self.data_path, self.transport,
                                       self.cluster_service, self.threadpool,
                                       filter_cache=self.filter_cache,
-                                      warmer=self.warmer)
+                                      warmer=self.warmer,
+                                      request_cache=self.request_cache)
         self.actions = ActionModule(self)
         self.percolator = PercolatorService(self)
         # scheduled NRT refresh and merge-policy check (each index's
@@ -262,8 +273,25 @@ class Client:
     def optimize(self, index=None):
         return self.actions.broadcast(index, "optimize")
 
-    def search(self, index=None, body=None, routing=None):
-        return self.actions.search(index or "_all", body, routing=routing)
+    def search(self, index=None, body=None, routing=None,
+               search_type="query_then_fetch", preference=None):
+        return self.actions.search(index or "_all", body, routing=routing,
+                                   search_type=search_type, preference=preference)
+
+    def msearch(self, requests):
+        """`[(header, body)]` → `{"responses": [...]}`, each search on the
+        header's `index` (`_all` when absent); an error answers in its place
+        as `{"error": ..., "status": ...}`, as on the JAX node."""
+        responses = []
+        for header, body in requests:
+            try:
+                responses.append(self.search(header.get("index", "_all"), body))
+            except SearchEngineError as e:
+                responses.append({"error": e.es1_string(), "status": e.status})
+        return {"responses": responses}
+
+    def count(self, index=None, body=None):
+        return self.actions.count(index or "_all", body)
 
     def percolate(self, index, body):
         return self.node.percolator.percolate(index, body)

@@ -396,6 +396,10 @@ PACK_LEDGER = PackLedger()
 # only: no pack, remask, upload or Future wait runs under it, and the warmed
 # fast path (a resident, current pack) never takes it
 _PACK_LOCK = threading.Lock()
+# swaps of a pack's similarity tables that replaced a field's LUT (BM25
+# avgdl drift after a write, or a DFS request's index-wide statistics
+# against the shard's own), counted under _PACK_LOCK
+SIM_SWAPS = {"changed": 0}
 
 
 def pack_cache_key(device: torch.device) -> tuple:
@@ -796,6 +800,9 @@ def ensure_sim_tables(packed: PackedSegment,
         with _PACK_LOCK:
             if packed.sim is cur:
                 packed.sim = merged
+                if cur is not None and any(
+                        f in cur.key and cur.key[f] != merged.key[f] for f in tables):
+                    SIM_SWAPS["changed"] += 1
                 return merged
 
 
@@ -1111,6 +1118,39 @@ class DeviceFilterCache:
         if released and self.breaker is not None:
             self.breaker.release(released)
         return released
+
+    # -- the warmer's re-prime ------------------------------------------------
+    def hot_keys(self, segs) -> set:
+        """The filter keys resident, or seen at least `min_sightings` times,
+        on any of `segs` (any device): what the re-prime carries from an old
+        view's segments onto the new view's."""
+        keys: set = set()
+        with self._lock:
+            for seg in segs:
+                for holder in list(seg._device_cache.values()):
+                    if isinstance(holder, _SegmentFilterMasks):
+                        keys.update(holder.masks.keys())
+                        keys.update(k for k, c in holder.seen.items()
+                                    if c >= self.min_sightings)
+        return keys
+
+    def seed(self, seg, keys, device) -> int:
+        """Mark `keys` seen `min_sightings` times on the segment's holder for
+        `device`, so their next evaluation there stores the mask at once.
+        Counter work only: no mask is built or uploaded. Returns the keys
+        seeded."""
+        if not self.enabled or not keys:
+            return 0
+        holder = self._holder(seg, device)
+        seeded = 0
+        with self._lock:
+            if holder.dead:
+                return 0
+            for k in keys:
+                if k not in holder.masks and holder.seen.get(k, 0) < self.min_sightings:
+                    holder.seen[k] = self.min_sightings
+                    seeded += 1
+        return seeded
 
     def hit_rate(self) -> float:
         n = self.hits + self.misses

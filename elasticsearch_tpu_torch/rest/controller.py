@@ -7,31 +7,55 @@ Routes: `GET /`, `PUT|POST /{index}`, `PUT|POST /{index}/{type}/{id}`,
 found), `_bulk` NDJSON (at `/`, `/{index}` and
 `/{index}/{type}`), `_refresh`, `_flush` and `_optimize` (at `/` and
 `/{index}`), `GET /_cluster/health`, `_search` (at
-`/`, `/{index}` and `/{index}/{type}`, GET or POST), `_percolate` and
+`/`, `/{index}` and `/{index}/{type}`, GET or POST, with `?q=`,
+`?search_type=` (the `dfs_` types run the DFS phase, any other is served as
+`query_then_fetch`, as on the JAX node), `?preference=`,
+`?request_cache=`, `?routing=`, `?scroll=`), the scroll API
+(`GET|POST /_search/scroll[/{scroll_id}]`, `DELETE` to clear), `_msearch`
+NDJSON (at `/` and `/{index}`), `_count` (at `/`, `/{index}` and
+`/{index}/{type}`), `_percolate` and
 `_percolate/count` (at `/{index}/{type}` and, for an existing document,
 `/{index}/{type}/{id}`) and `_mpercolate` NDJSON (at `/`, `/{index}` and
 `/{index}/{type}`), and the mapping API: `PUT|POST` `/{index}/{type}/_mapping`,
 `/{index}/_mapping/{type}` and `/_mapping/{type}` (`_mappings` too), `GET`
 `/_mapping`, `/{index}/_mapping`, `/{index}/{type}/_mapping`,
 `/{index}/_mapping/{type}` and `/_mapping/{type}`; `DELETE` of a mapping
-answers 400 naming its later slice. The single-document index, GET, HEAD
+answers 400 naming its later slice, as do the `_search` parameters
+`fields`, `profile` and `trace`. The single-document index, GET, HEAD
 and DELETE take `?parent=`, which routes the document when no `routing` is
 given (a `_bulk` item's parent is ignored, as in the JAX package; GET
 answers no `_parent` key over REST, as there). A route that is not
 ported answers 400 "No handler found", as the JAX controller answers an
 unknown route; a missing index answers 404. Handlers call the node Client:
-REST is a thin adapter, as in the JAX package."""
+REST is a thin adapter, as in the JAX package.
+
+The scroll is the JAX node's, kept as it is: a `?scroll=` search buffers the
+top `max(size, 10) * 10` hits of one search (`from` 0) in a registry the
+controller holds, and each `/_search/scroll` call pages `size` hits through
+the buffer, reporting the buffer's length as `hits.total`; the keep-alive
+is never enforced; `search_type=scan` answers its first page with no hits;
+an id the registry does not hold answers 404 SearchContextMissingException.
+`_msearch` runs each item on its header's `index` (`_all` when absent, the
+path's index is not read, as on the JAX node) and renders a failed item's
+error in its place."""
 
 from __future__ import annotations
 
 import json
 import math
 import re
+import threading
+import uuid
 from dataclasses import dataclass, field as dc_field
 from typing import Callable
 
 from ..actions import filter_source
-from ..common.errors import IllegalArgumentError, NotPortedError, SearchEngineError
+from ..common.errors import (
+    IllegalArgumentError,
+    NotPortedError,
+    SearchContextMissingError,
+    SearchEngineError,
+)
 
 VERSION = "0.2.0"
 
@@ -178,9 +202,9 @@ def _lenient_to_strict_json(text: str) -> str:
 
 _BULK_OPS = ("index", "create", "update", "delete")
 
-# `_search` query parameters the JAX node serves and this slice does not
-_LATER_SEARCH_PARAMS = ("q", "scroll", "fields", "profile",
-                        "request_cache", "preference", "trace")
+# `_search` query parameters the JAX node serves and the port does not yet:
+# stored fields (the fetch slice, A6b), profiles and traces (A7)
+_LATER_SEARCH_PARAMS = ("fields", "profile", "trace")
 
 
 def build_rest_controller(node) -> RestController:
@@ -288,6 +312,8 @@ def build_rest_controller(node) -> RestController:
 
     def search_body(req):
         body = dict(_parse_body(req))
+        if req.param("q"):
+            body["query"] = {"query_string": {"query": req.param("q")}}
         for p in ("from", "size"):
             if req.param(p) is not None:
                 body[p] = int(req.param(p))
@@ -309,22 +335,102 @@ def build_rest_controller(node) -> RestController:
                 if req.param("_source_exclude") else []}
         if req.param("timeout") is not None:
             body["timeout"] = req.param("timeout")
+        if req.param("request_cache") is not None:
+            # overrides the cache's size-0 default (search/request_cache.py);
+            # it rides the body to the shards
+            body["request_cache"] = req.bool_param("request_cache")
         return body
 
     def search(req):
         later = [p for p in _LATER_SEARCH_PARAMS if req.param(p) is not None]
-        if later or req.param("search_type", "query_then_fetch") != "query_then_fetch":
+        if later:
             raise IllegalArgumentError(
-                f"search parameter(s) {later or ['search_type']} are not ported "
-                "yet (a later slice of the port): query strings, scrolls, "
-                "fields, profiles, the request cache and search types "
-                "other than query_then_fetch")
-        return client.search(req.path_params.get("index", "_all"), search_body(req),
-                             routing=req.param("routing"))
+                f"search parameter(s) {later} are not ported yet (later slices "
+                "of the port: stored fields come with the fetch slice, A6b; "
+                "profiles and traces with observability, A7)")
+        body = search_body(req)
+        index = req.path_params.get("index", "_all")
+        search_type = req.param("search_type", "query_then_fetch")
+        if req.param("scroll"):
+            return scrolled_search(index, body, scan=search_type == "scan")
+        return client.search(index, body, routing=req.param("routing"),
+                             search_type=search_type,
+                             preference=req.param("preference"))
+
+    # scroll id -> (buffered hits, page size, next position)
+    scrolls: dict[str, tuple] = {}
+    scrolls_lock = threading.Lock()
+
+    def scrolled_search(index, body, scan=False):
+        r = client.search(index, {**body, "from": 0,
+                                  "size": max(body.get("size", 10), 10) * 10})
+        sid = uuid.uuid4().hex
+        size = body.get("size", 10)
+        hits = r["hits"]["hits"]
+        with scrolls_lock:
+            scrolls[sid] = (hits, size, 0 if scan else size)
+        r["_scroll_id"] = sid
+        r["hits"]["hits"] = [] if scan else hits[:size]
+        return r
+
+    def raw_scroll_id(req):
+        """A body that is not JSON is the scroll id itself."""
+        if isinstance(req.body, str) and req.body and \
+                not req.body.lstrip().startswith("{"):
+            return req.body.strip()
+        return None
+
+    def scroll(req):
+        raw = raw_scroll_id(req)
+        body = _parse_body(req) if raw is None else {}
+        sid = (req.path_params.get("scroll_id") or body.get("scroll_id")
+               or req.param("scroll_id") or raw)
+        with scrolls_lock:
+            if sid not in scrolls:
+                raise SearchContextMissingError(0)
+            hits, size, pos = scrolls[sid]
+            scrolls[sid] = (hits, size, pos + size)
+        return {"_scroll_id": sid, "hits": {"total": len(hits),
+                                            "hits": hits[pos: pos + size]},
+                "timed_out": False,
+                "_shards": {"total": 1, "successful": 1, "failed": 0}}
+
+    def clear_scroll(req):
+        if req.path_params.get("scroll_id"):
+            sids = req.path_params["scroll_id"].split(",")
+        else:
+            sids = _parse_body(req).get("scroll_id", [])
+            if isinstance(sids, str):
+                sids = sids.split(",")
+        with scrolls_lock:
+            for sid in sids:
+                scrolls.pop(sid, None)
+        return {"succeeded": True}
 
     rc.register("GET,POST", "/{index}/_search", search)
     rc.register("GET,POST", "/{index}/{type}/_search", search)
     rc.register("GET,POST", "/_search", search)
+    rc.register("GET,POST", "/_search/scroll", scroll)
+    rc.register("GET,POST", "/_search/scroll/{scroll_id}", scroll)
+    rc.register("DELETE", "/_search/scroll", clear_scroll)
+    rc.register("DELETE", "/_search/scroll/{scroll_id}", clear_scroll)
+
+    def msearch(req):
+        raw = req.body if isinstance(req.body, str) else ""
+        lines = [ln for ln in raw.split("\n") if ln.strip()]
+        return client.msearch([(json.loads(lines[i]), json.loads(lines[i + 1]))
+                               for i in range(0, len(lines) - 1, 2)])
+
+    rc.register("GET,POST", "/_msearch", msearch)
+    rc.register("GET,POST", "/{index}/_msearch", msearch)
+
+    def count(req):
+        # routing and preference are not read, as on the JAX node
+        return client.count(req.path_params.get("index", "_all"), search_body(req))
+
+    rc.register("GET,POST", "/_count", count)
+    rc.register("GET,POST", "/{index}/_count", count)
+    rc.register("GET,POST", "/{index}/{type}/_count", count)
 
     def percolate(req):
         return node.percolator.percolate(

@@ -193,6 +193,9 @@ class DeviceBatcher:
         self._deadline_flushes = 0
         self._pending_flushes = 0  # flushed early because a merge was waiting
         self._bypassed = 0  # queue full / drainer dead / shut down -> inline
+        # plans their caller launched beside the drainer, never queued: the
+        # DFS phase's global statistics are the plan's own (service.py)
+        self._direct = 0
         self._splits = 0  # coalesced launch failed -> per-item replay
         self._device_splits = 0  # ... of them on a failure of the card
         # batch service-time tail (dispatch start -> fan-out done)
@@ -462,6 +465,12 @@ class DeviceBatcher:
         return {"batch": batch_id, "age_s": time.monotonic() - t0,
                 "family": family, "occupancy": occupancy, "shard": label}
 
+    def note_direct(self):
+        """Count a plan its caller launches directly instead of queueing
+        (search/service.py `_execute_flat_single` under DFS statistics)."""
+        with self._stats_lock:
+            self._direct += 1
+
     # -- lifecycle / observability -------------------------------------------
     def shutdown(self):
         with self._cv:
@@ -481,6 +490,7 @@ class DeviceBatcher:
                 "deadline_flushes": self._deadline_flushes,
                 "pending_flushes": self._pending_flushes,
                 "bypassed": self._bypassed,
+                "direct": self._direct,
                 "splits": self._splits,
                 "device_splits": self._device_splits,
                 "queue": len(self._queue),

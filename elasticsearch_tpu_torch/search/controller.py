@@ -4,17 +4,115 @@ top-(from+size) by (score desc, shard asc, doc asc), or for a field sort by
 the hits' sort values (`compare_sort_values`), then shard, then doc; and
 `merge_responses` assembles `took`, `timed_out`, `_shards` (with `degraded`,
 the shards served on the host path on a device fault), `hits` and the
-reduced `aggregations` and `facets`. Pure functions over shard results. DFS
-(`collect_dfs` / `aggregate_dfs`) is a later slice."""
+reduced `aggregations` and `facets`.
+
+The DFS phase of `dfs_query_then_fetch`: `collect_dfs` gathers one shard's
+document frequency for every term the query scores and the statistics of
+every field it scores (its flat plan's clauses, or a walk of the query tree
+when it does not lower), and `aggregate_dfs` sums the shards' into the
+global view each shard's query phase then weighs its clauses with
+(`ShardContext.global_stats`), so every shard scores with the index's
+statistics rather than its own.
+
+Pure functions over shard results."""
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
 
+from ..index.segment import FieldStats
 from .aggregations import facet_response, reduce_aggs
 from .service import ParsedSearchRequest, ShardQueryResult
 from .sorting import compare_sort_values
+
+
+@dataclass
+class DfsResult:
+    """One shard's statistics from the DFS phase: its max_doc, the df of
+    every term the query scores and the statistics of every field it
+    scores."""
+
+    shard_id: int
+    max_doc: int
+    term_df: dict  # (field, term) -> df
+    field_stats: dict  # field -> FieldStats
+
+
+def aggregate_dfs(results: list[DfsResult]) -> dict:
+    """Sum the shards' statistics into the global view every shard's query
+    phase reads (`ShardContext.global_stats`)."""
+    df: dict = {}
+    fstats: dict[str, FieldStats] = {}
+    max_doc = 0
+    for r in results:
+        max_doc += r.max_doc
+        for key, v in r.term_df.items():
+            df[key] = df.get(key, 0) + v
+        for f, s in r.field_stats.items():
+            cur = fstats.get(f)
+            fstats[f] = s if cur is None else cur.merged(s)
+    return {"df": df, "max_doc": max_doc, "field_stats": fstats}
+
+
+def collect_dfs(ctx, query, shard_id: int = 0) -> DfsResult:
+    """The DFS phase on one shard: the df of every term the query scores
+    (its flat plan's clauses when it lowers, else a walk of its tree) and
+    the statistics of every field it scores, from the shard's own
+    searcher."""
+    from .execute import lower_flat
+
+    term_df: dict = {}
+    fields: set = set()
+    plan = lower_flat(query, ctx)
+    if plan is not None:
+        for c in plan.clauses:
+            term_df[(c.field, c.term)] = ctx.searcher.doc_freq(c.field, c.term)
+            fields.add(c.field)
+    else:
+        _walk_terms(query, ctx, term_df, fields)
+    return DfsResult(
+        shard_id=shard_id,
+        max_doc=ctx.searcher.max_doc,
+        term_df=term_df,
+        field_stats={f: ctx.searcher.field_stats(f) for f in fields},
+    )
+
+
+def _walk_terms(query, ctx, term_df: dict, fields: set):
+    """The terms and fields of a query that does not lower: terms, matches
+    and phrases (analyzed), multi_match, and what bool, dis_max, filtered,
+    function_score and nested wrap. Other queries keep the shard's own
+    statistics."""
+    from .queries import (
+        BoolQuery, DisMaxQuery, FilteredQuery, FunctionScoreQuery, MatchQuery,
+        MultiMatchQuery, NestedQuery, PhraseQuery, TermQuery,
+    )
+
+    if isinstance(query, TermQuery):
+        term_df[(query.field, str(query.value))] = ctx.searcher.doc_freq(
+            query.field, str(query.value))
+        fields.add(query.field)
+    elif isinstance(query, (MatchQuery, PhraseQuery)):
+        for t in ctx.analyze(query.field, query.text):
+            term_df[(query.field, t)] = ctx.searcher.doc_freq(query.field, t)
+        fields.add(query.field)
+    elif isinstance(query, MultiMatchQuery):
+        for fspec in query.fields:
+            f = fspec.split("^")[0]
+            for t in ctx.analyze(f, query.text):
+                term_df[(f, t)] = ctx.searcher.doc_freq(f, t)
+            fields.add(f)
+    elif isinstance(query, BoolQuery):
+        for sub in query.must + query.should + query.must_not:
+            _walk_terms(sub, ctx, term_df, fields)
+    elif isinstance(query, DisMaxQuery):
+        for sub in query.queries:
+            _walk_terms(sub, ctx, term_df, fields)
+    elif isinstance(query, (FilteredQuery, FunctionScoreQuery, NestedQuery)):
+        inner = getattr(query, "query", None)
+        if inner is not None and not callable(getattr(inner, "evaluate", None)):
+            _walk_terms(inner, ctx, term_df, fields)
 
 
 @dataclass

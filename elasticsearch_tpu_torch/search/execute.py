@@ -179,11 +179,16 @@ class ShardContext:
     def __init__(self, searcher: Searcher, mapper_service,
                  similarity_service: SimilarityService | None = None,
                  device=None, breakers=None, batcher=None, filter_cache=None,
-                 index_name: str | None = None):
+                 index_name: str | None = None, global_stats: dict | None = None):
         self.searcher = searcher
         self.mapper_service = mapper_service
         self.similarity_service = similarity_service or SimilarityService(
             mapper_service=mapper_service)
+        # the DFS phase's override of the shard's own statistics:
+        # {"df": {(field, term): df}, "max_doc": N, "field_stats": {field:
+        # FieldStats}} (search/controller.aggregate_dfs); everything that
+        # weighs a clause reads max_doc, doc_freq and field_stats below
+        self.global_stats = global_stats or {}
         self.device = default_device(device)
         # a CircuitBreakerService, or None in unwired contexts: the sparse
         # path reserves its per-batch staging on breaker("request")
@@ -206,12 +211,18 @@ class ShardContext:
 
     @property
     def max_doc(self) -> int:
-        return self.searcher.max_doc
+        return self.global_stats.get("max_doc", self.searcher.max_doc)
 
     def doc_freq(self, field: str, term: str) -> int:
+        dfs = self.global_stats.get("df")
+        if dfs is not None and (field, term) in dfs:
+            return dfs[(field, term)]
         return self.searcher.doc_freq(field, term)
 
     def field_stats(self, field: str):
+        fs = self.global_stats.get("field_stats")
+        if fs is not None and field in fs:
+            return fs[field]
         return self.searcher.field_stats(field)
 
     def field_type(self, field: str):

@@ -6,13 +6,14 @@ or on the host scorer — a port of the JAX package's `search/service.py`
 A body may carry `query` (none: match_all), `from`, `size`, `timeout`,
 `_source` (read by the fetch phase, `execute_fetch_phase`), `post_filter`
 (and the top-level `filter`, its older name), `min_score`, `sort`,
-`track_scores`, `aggs` (or `aggregations`) and `facets`. Every other key is a
-request feature (rescoring, suggesters, highlighting, explain, profiles, …)
-whose path is a later slice of the port: it raises QueryParsingError rather
-than being silently ignored.
+`track_scores`, `aggs` (or `aggregations`), `facets`, `rescore` and
+`request_cache` (read by the shard's request cache, actions.py). Every
+other key is a request feature (suggesters, highlighting, explain,
+profiles, …) whose path is a later slice of the port: it raises
+QueryParsingError rather than being silently ignored.
 
 `execute_query_phase` takes the JAX package's branches (its
-`search/service.py` :315-603, without the rescore and suggest halves):
+`search/service.py` :315-603, without the suggest half):
 
 - a body with no mask-needing feature lowers to a flat plan (a plain,
   `filtered` or `function_score` one) and runs on the card through the
@@ -31,14 +32,20 @@ than being silently ignored.
   (`_try_device_post_filter`; `device_filtered`);
 - a sort on one numeric field (with device-eligible aggs or none): the
   field-sorted launch orders the hits (`_try_device_sort`, `device_sort`);
-- every gated body (post filter, `min_score`, sort, aggregations, facets)
-  that no device branch serves runs the general host path: per-segment
-  score and match arrays, the gates, the sort keys, the host collectors of
-  the aggregations and facets, under a request-breaker reservation of
-  `max_doc * (5 + 16 * (aggs + facets))` bytes.
+- every gated body (post filter, `min_score`, sort, aggregations, facets,
+  rescore) that no device branch serves runs the general host path:
+  per-segment score and match arrays, the gates, the sort keys, the
+  rescore of the top window (`_apply_rescore`, the JAX package's
+  QueryRescorer), the host collectors of the aggregations and facets,
+  under a request-breaker reservation of `max_doc * (5 + 16 * (aggs +
+  facets))` bytes. A body with `rescore` never takes a device branch.
 
 A plain, filtered or function_score plan goes through the shard's batcher
-when one is wired, so a node's plans share its batches. The sorted and
+when one is wired, so a node's plans share its batches, except under the
+DFS phase's global statistics (`ctx.global_stats`): the batcher coalesces
+plans by segment view and k only, and a batch launches with its leader's
+context, so such a plan launches directly from its calling thread
+(`DeviceBatcher.note_direct` counts it). The sorted and
 aggregating launches are single plans from the calling thread, as in the
 JAX package, and every device launch of one request is pulled behind one
 event (`cudaenv.pull_async`).
@@ -101,6 +108,7 @@ from .aggregations import (
     reduce_aggs,
 )
 from .execute import (
+    HostScorer,
     ShardContext,
     TopDocs,
     _host_search,
@@ -111,6 +119,7 @@ from .execute import (
     launch_flat_sorted,
     lower_flat,
     prepare_dense,
+    query_norm_for,
     sort_key_rows,
     wait_pull,
 )
@@ -133,7 +142,7 @@ from .sorting import (
 # the body keys this slice serves; the rest belong to later slices
 _SERVED_KEYS = ("query", "from", "size", "timeout", "_source", "post_filter",
                 "filter", "min_score", "sort", "aggs", "aggregations", "facets",
-                "track_scores")
+                "track_scores", "rescore", "request_cache")
 
 
 @dataclass
@@ -150,6 +159,8 @@ class ParsedSearchRequest:
     track_scores: bool = False
     # the request-body `timeout` in seconds (None: no budget)
     timeout_s: float | None = None
+    # the `rescore` specs, in order (a single object reads as a list of one)
+    rescore: list = dc_field(default_factory=list)
 
 
 def parse_search_body(body: dict | None) -> ParsedSearchRequest:
@@ -157,9 +168,9 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
     later = sorted(k for k in body if k not in _SERVED_KEYS)
     if later:
         raise QueryParsingError(
-            f"search body key(s) {later} are not ported yet: rescoring, "
-            "suggesters, highlighting and the rest of the request features "
-            "are later slices of the port")
+            f"search body key(s) {later} are not ported yet (later slices of "
+            "the port: suggesters, highlighting, explain and stored fields "
+            "come with the fetch slice, A6b; profiles with observability, A7)")
     try:
         timeout_s = parse_timevalue(body.get("timeout"))
     except ValueError as e:
@@ -169,6 +180,9 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
     # aggregations or facets)
     post_filter = parse_filter(body["filter"]) if body.get("filter") else \
         parse_filter(body["post_filter"]) if body.get("post_filter") else None
+    rescore = body.get("rescore") or []
+    if isinstance(rescore, dict):
+        rescore = [rescore]
     return ParsedSearchRequest(
         query=query,
         post_filter=post_filter,
@@ -181,6 +195,7 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
         body=body,
         track_scores=bool(body.get("track_scores", False)),
         timeout_s=timeout_s,
+        rescore=rescore,
     )
 
 
@@ -285,9 +300,13 @@ def _execute_flat_single(ctx: ShardContext, plan, k: int,
     """One plan's device execution — through the shard's cross-request
     DeviceBatcher when one is wired (coalescing with concurrent searches
     into one bucketed launch; search/batcher.py), else a direct single-plan
-    launch."""
+    launch. A plan under the DFS phase's global statistics always launches
+    directly: its clause weights and similarity tables are its own, and a
+    shared batch launches with its leader's context."""
     if ctx.batcher is not None:
-        return ctx.batcher.execute(plan, ctx, k, deadline=deadline)
+        if not ctx.global_stats:
+            return ctx.batcher.execute(plan, ctx, k, deadline=deadline)
+        ctx.batcher.note_direct()
     return execute_flat_batch([plan], ctx, k)[0]
 
 
@@ -315,7 +334,7 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
         if device is not None:
             return device
     if req.aggs or req.facets or req.sort or req.post_filter is not None \
-            or req.min_score is not None:
+            or req.min_score is not None or req.rescore:
         res = _general_host_path(ctx, req, k, shard_id, deadline)
     else:
         _count("host")
@@ -331,7 +350,9 @@ def _device_branch(ctx: ShardContext, req: ParsedSearchRequest, k: int,
                    shard_id: int, deadline: Deadline):
     """The device branches of the module docstring, in the JAX package's
     order: (the device's result or None, degraded). None and not degraded:
-    the host path serves the body as it would anyway."""
+    the host path serves the body as it would anyway (a rescore always)."""
+    if req.rescore:
+        return None, False
     if req.aggs and not (req.facets or req.sort) and req.post_filter is None \
             and req.min_score is None:
         return _guarded(ctx, ("aggs",), "device_aggs",
@@ -635,6 +656,8 @@ def _general_host_path(ctx: ShardContext, req: ParsedSearchRequest, k: int,
             si_all, local_all = np.concatenate(si_parts), np.concatenate(local_parts)
             top = [(float(scores_all[i]), int(gdocs[i]), int(si_all[i]),
                     int(local_all[i])) for i in order]
+        if req.rescore and top:
+            top = _apply_rescore(ctx, req, top)
         if req.sort:
             sort_vals_by_rank = _sort_values_by_rank(
                 req.sort, ctx, [(si, local) for (_s, _g, si, local) in top],
@@ -655,6 +678,54 @@ def _general_host_path(ctx: ShardContext, req: ParsedSearchRequest, k: int,
         return ShardQueryResult(
             total=total, docs=docs, max_score=max_score, agg_partials=agg_partials,
             facet_partials=facet_partials, shard_id=shard_id, timed_out=timed_out)
+
+
+def _apply_rescore(ctx: ShardContext, req: ParsedSearchRequest, top: list) -> list:
+    """The JAX package's QueryRescorer, spec by spec: the top `window_size`
+    entries (sort keys, score, global doc, segment, local doc) are scored by
+    the rescore query on the host scorer and combined by `score_mode` with
+    `query_weight` and `rescore_query_weight` (an entry the rescore query
+    does not match keeps its score times `query_weight`), then re-sorted
+    within the window by (-score, doc), whatever order the body's sort gave
+    it; the entries past the window keep their place."""
+    for rspec in req.rescore:
+        window = int(rspec.get("window_size", 10))
+        qspec = rspec.get("query", {})
+        rq = parse_query(qspec.get("rescore_query"))
+        qw = float(qspec.get("query_weight", 1.0))
+        rw = float(qspec.get("rescore_query_weight", 1.0))
+        mode = qspec.get("score_mode", "total")
+        qn = query_norm_for(rq, ctx)
+        window_entries = top[:window]
+        rest = top[window:]
+        by_seg: dict[int, list[int]] = {}
+        for i, (_s, _g, si, _local) in enumerate(window_entries):
+            by_seg.setdefault(si, []).append(i)
+        new_entries = list(window_entries)
+        for si, idxs in by_seg.items():
+            rscores, rmatch = HostScorer(ctx, ctx.searcher.segments[si], qn).eval(rq)
+            for i in idxs:
+                s, g, si2, local = window_entries[i]
+                if rmatch[local]:
+                    rs = float(rscores[local])
+                    if mode == "total":
+                        ns = s * qw + rs * rw
+                    elif mode == "multiply":
+                        ns = s * qw * rs * rw
+                    elif mode == "avg":
+                        ns = (s * qw + rs * rw) / 2.0
+                    elif mode == "max":
+                        ns = max(s * qw, rs * rw)
+                    elif mode == "min":
+                        ns = min(s * qw, rs * rw)
+                    else:
+                        raise QueryParsingError(f"unknown rescore score_mode [{mode}]")
+                else:
+                    ns = s * qw
+                new_entries[i] = (ns, g, si2, local)
+        new_entries.sort(key=lambda e: (-e[0], e[1]))
+        top = new_entries + rest
+    return top
 
 
 def _sort_values_by_rank(specs: list, ctx: ShardContext, seg_locals: list,

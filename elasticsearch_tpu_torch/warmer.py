@@ -1,5 +1,5 @@
-"""Index warmer: device packs off the query path (the pack half of the JAX
-package's `warmer.py`).
+"""Index warmer: device packs off the query path and the request cache's
+re-prime (the JAX package's `warmer.py`, without its compile warming).
 
 Every searcher install (refresh, merge publish, optimize, recovery) calls
 the warmer from the engine's view listeners, and it schedules the cold
@@ -14,7 +14,17 @@ search that touches a segment:
 - **compaction packs**: a merged segment carries a `compact` pack hint; its
   pack runs on the `merge` pool and concatenates the sources' resident
   planes on the device (pack_segment_concat) when they are eligible;
-- **remasks**: a tombstone view re-masks on the `warmer` pool too.
+- **remasks**: a tombstone view re-masks on the `warmer` pool too;
+- **the re-prime** (`indices.warmer.enabled`, default true): when the
+  shard's request cache holds a body hit at least once, `_re_prime` runs on
+  the `warmer` pool after the packs are scheduled. It seeds the filter keys
+  that were hot on the old view's segments onto the new ones
+  (`DeviceFilterCache.hot_keys`/`seed`: counter work, no mask built), then
+  replays the shard's `indices.warmer.top_n` (8) most hit bodies on the
+  new view through the node's query phase and batcher
+  (`actions.warm_shard_queries`), storing their partials, so a hot body's
+  first sighting after a refresh is a hit. A body that fails is counted in
+  `query_failures` and never reaches the pool (as in the JAX package).
 
 The steady state of a node that writes and searches is then a cache hit in
 every query-path `packed_for`, with zero query-path packs (PACK_LEDGER's
@@ -28,10 +38,8 @@ leaf — begin_warm is dict work and a submit never blocks (both pools are
 unbounded); every pack, upload and device program runs on a pool thread
 with no lock held.
 
-`indices.warmer.enabled` is read and reported as in the JAX package, where
-it switches the cache re-prime off and leaves pack warming on; the re-prime
-(the request cache's hot bodies, the filter cache's hot keys) waits for the
-request cache.
+`indices.warmer.enabled: false` switches the re-prime off and leaves pack
+warming on, as in the JAX package.
 
 A warm pack that fails on the card (a transient or persistent CUDA error,
 common/devicehealth) is retried on its pool, up to
@@ -50,6 +58,7 @@ import threading
 import time
 
 from .common.devicehealth import DEGRADABLE, DEVICE_HEALTH, classify_device_error
+from .common.errors import SearchEngineError
 from .common.logging import get_logger
 from .common.retry import RetryPolicy
 from .ops.device_index import begin_warm, cancel_warm, run_warm
@@ -60,11 +69,18 @@ class IndexWarmerService:
     listeners (wired per shard by indices_service after the cache
     listeners)."""
 
-    def __init__(self, settings, device, threadpool, breaker=None):
+    def __init__(self, settings, device, threadpool, breaker=None, node=None):
         self.enabled = bool(settings.get_bool("indices.warmer.enabled", True))
+        self.top_n = max(0, settings.get_int("indices.warmer.top_n", 8))
+        # each replayed body's time budget: a wedged replay must not hold a
+        # warmer thread
+        self.query_budget_s = settings.get_float("indices.warmer.query_timeout", 5.0)
         self.device = device
         self.threadpool = threadpool
         self.breaker = breaker  # the fielddata child: each pack's estimate
+        # the node whose request cache, filter cache and actions the
+        # re-prime reads (None: packs only)
+        self.node = node
         self.pack_retry_budget = max(0, settings.get_int(
             "indices.warmer.pack_retries", 2))
         self._retry_policy = RetryPolicy(base_s=settings.get_float(
@@ -77,25 +93,45 @@ class IndexWarmerService:
         self.pack_failures = 0
         self.pack_retries = 0  # CUDA-error failures retried on the pool
         self.rejected = 0  # pool rejections (shut down)
+        self.reprimes = 0
+        self.queries_warmed = 0
+        self.query_failures = 0
+        self.filters_seeded = 0
         self.closed = False
 
-    def wire(self, index: str, engine) -> None:
+    def wire(self, index: str, shard_id: int, engine) -> None:
         """Append this shard's warm listener to the engine's view
         listeners (run under the engine lock on every searcher install)."""
 
         def on_view_change(searcher, dropped):
             if searcher is not None:
-                self.on_view_installed(index, engine, searcher)
+                self.on_view_installed(index, shard_id, engine, searcher, dropped)
 
         engine.view_listeners.append(on_view_change)
 
-    def on_view_installed(self, index: str, engine, searcher) -> None:
-        """Schedule the new view's packs and remasks: a `compact` hint on
-        the `merge` pool, everything else on `warmer`. A leaf under the
-        engine lock; a rejected submit withdraws its marker, so the query
-        path packs inline instead of waiting on work nobody will do."""
-        if self.closed or not engine.search_active:
+    def on_view_installed(self, index: str, shard_id: int, engine, searcher,
+                          dropped=()) -> None:
+        """Schedule the new view's packs and remasks (a `compact` hint on
+        the `merge` pool, everything else on `warmer`), then its re-prime.
+        A leaf under the engine lock; a rejected submit withdraws its
+        marker, so the query path packs inline instead of waiting on work
+        nobody will do."""
+        if self.closed:
             return
+        if engine.search_active:
+            self._schedule_packs(index, searcher)
+        rcache = getattr(self.node, "request_cache", None)
+        if (not self.enabled or rcache is None or not rcache.enabled
+                or not rcache.has_hot(index, shard_id)):
+            return
+        try:
+            self.threadpool.submit("warmer", self._re_prime, index, shard_id,
+                                   engine, list(dropped or ()))
+        except Exception:  # noqa: BLE001 — a rejected or shut-down pool
+            with self._lock:
+                self.rejected += 1
+
+    def _schedule_packs(self, index: str, searcher) -> None:
         for seg in searcher.segments:
             fut = begin_warm(seg, self.device)
             if fut is None:
@@ -160,6 +196,36 @@ class IndexWarmerService:
                 DEVICE_HEALTH.note_success((f"pack:{index}",))
             return
 
+    def _re_prime(self, index: str, shard_id: int, engine, dropped) -> None:
+        """The pool's re-prime of one shard's new view: seed the filter keys
+        hot on the old view's segments onto the new ones, then replay the
+        shard's most hit cached bodies (`actions.warm_shard_queries`)."""
+        node = self.node
+        try:
+            searcher = engine.acquire_searcher()
+        except SearchEngineError:
+            return  # the engine closed under us
+        fcache = node.filter_cache
+        if fcache is not None and fcache.enabled:
+            keys = fcache.hot_keys(list(dropped) + list(searcher.segments))
+            if keys:
+                seeded = sum(fcache.seed(seg, keys, self.device)
+                             for seg in searcher.segments)
+                if seeded:
+                    with self._lock:
+                        self.filters_seeded += seeded
+        if self.top_n <= 0:
+            return
+        bodies = node.request_cache.hot_bodies(index, shard_id, self.top_n)
+        if not bodies:
+            return
+        warmed, failed = node.actions.warm_shard_queries(
+            index, shard_id, bodies, budget_s=self.query_budget_s)
+        with self._lock:
+            self.reprimes += 1
+            self.queries_warmed += warmed
+            self.query_failures += failed
+
     def close(self) -> None:
         """Schedule nothing more (the node is closing; the pools' queued
         packs are cancelled with them, and their markers stay claimable)."""
@@ -173,4 +239,8 @@ class IndexWarmerService:
                     "packs_stolen": self.packs_stolen,
                     "pack_failures": self.pack_failures,
                     "pack_retries": self.pack_retries,
+                    "reprimes": self.reprimes,
+                    "queries_warmed": self.queries_warmed,
+                    "query_failures": self.query_failures,
+                    "filters_seeded": self.filters_seeded,
                     "rejected": self.rejected}

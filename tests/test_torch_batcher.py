@@ -449,8 +449,8 @@ def test_stats_shape(shard_ctx):
         b.shutdown()
     assert set(st) == {"launches", "coalesced", "occupancy_mean",
                        "full_flushes", "linger_flushes", "deadline_flushes",
-                       "pending_flushes", "bypassed", "splits", "device_splits",
-                       "queue", "ewma_batch_ms", "batch", "merge_wait"}
+                       "pending_flushes", "bypassed", "direct", "splits",
+                       "device_splits", "queue", "ewma_batch_ms", "batch", "merge_wait"}
     assert st["launches"] >= 1 and st["batch"]["count"] == st["launches"]
     assert st["merge_wait"]["count"] <= st["launches"]
 

@@ -511,7 +511,8 @@ def test_filter_cache_evicts_dropped_segments_and_releases_breaker(tmp_path):
     fc = DeviceFilterCache(TSettings.from_flat(
         {"indices.filter_cache.min_sightings": 1}), breaker=fielddata)
     IndicesService._wire_cache_listeners(
-        type("Indices", (), {"filter_cache": fc})(), eng)
+        type("Indices", (), {"filter_cache": fc, "request_cache": None})(), eng,
+        "idx", 0)
     try:
         _fill(eng, _docs())
         sim = SimilarityService(tset, tsvc)

@@ -879,12 +879,12 @@ def test_device_family_degrades_at_its_bar_and_recovers(nodes, case):
     there). With both trackers' clocks held, so that no probe is admitted,
     the nodes answer alike: the same hits and `_shards`, `degraded`
     included; the port's answer is the card's at the family's bar, and its
-    family launches nothing. Disarmed, both recover. The JAX node's request
-    cache, which the port does not have yet, is bypassed: it would answer
-    the `size: 0` body without a search."""
+    family launches nothing. Disarmed, both recover. Both nodes' request
+    caches are bypassed: they would answer the `size: 0` body without a
+    search."""
     p, pc, j, jc = nodes
     body, domain, counter, bar = FAMILY_CASES[case]
-    jbody = {**body, "request_cache": False}
+    body = jbody = {**body, "request_cache": False}
     before = SERVING_COUNTERS[counter]
     base = pc.search(IDX_FAM, body)
     assert SERVING_COUNTERS[counter] - before == FAM_SHARDS  # the card's branch

@@ -185,13 +185,15 @@ def test_two_shard_reduce_matches_jax(two_shards):
         assert merge_responses(treq, tm, tresults, page, 3, 2, 2) == jresp
 
 
-# served since the host scorer (post_filter, filter, min_score) and the
-# field sort and aggregations: each key with a value the parse keeps
+# served since the host scorer (post_filter, filter, min_score), the field
+# sort and aggregations, and the search runtime (rescore): each key with a
+# value the parse keeps
+_RESCORE = {"window_size": 5, "query": {"rescore_query": {"match": {"body": "w2"}}}}
 _SERVED_FEATURES = {"post_filter": {"term": {"body": "w1"}},
                     "filter": {"term": {"body": "w1"}}, "min_score": 0.5,
                     "aggs": {"m": {"max": {"field": "n"}}},
                     "aggregations": {"m": {"max": {"field": "n"}}},
-                    "sort": [{"n": "desc"}]}
+                    "sort": [{"n": "desc"}], "rescore": _RESCORE}
 
 
 @pytest.mark.parametrize("key", ["aggs", "aggregations", "sort", "post_filter",
@@ -199,8 +201,8 @@ _SERVED_FEATURES = {"post_filter": {"term": {"body": "w1"}},
                                  "highlight", "explain", "profile"])
 def test_unported_request_features_raise(key):
     """The request features of later slices raise; `post_filter`, its older
-    name `filter`, `min_score`, `sort` and the aggregations parse into the
-    request."""
+    name `filter`, `min_score`, `sort`, the aggregations and `rescore` parse
+    into the request."""
     body = {"query": {"match": {"body": "w1"}}, key: _SERVED_FEATURES.get(key, {})}
     if key not in _SERVED_FEATURES:
         with pytest.raises(QueryParsingError, match="later slice"):
@@ -213,6 +215,8 @@ def test_unported_request_features_raise(key):
         assert [(s.field, s.order) for s in req.sort] == [("n", "desc")]
     elif key == "min_score":
         assert (req.min_score, req.post_filter) == (0.5, None)
+    elif key == "rescore":
+        assert req.rescore == [_RESCORE] and req.post_filter is None
     else:
         assert (req.min_score, req.post_filter) == (None, TermFilter("body", "w1"))
 
