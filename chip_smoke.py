@@ -9,7 +9,8 @@ bool-of-terms search, top-100 per query — through its public entry points
 (`ShardContext` → `search_shard_batch`) at the data size of a real shard,
 then the serving path — concurrent single requests through
 `parse_search_body` → `execute_query_phase` → the `DeviceBatcher` — then a
-port `Node` serving REST `_bulk` and `_search` over HTTP, then the dense
+port `Node` serving REST `_bulk` and `_search` over HTTP (with highlighted
+traffic and the fetch slice's requests since phase 21), then the dense
 request-feature family (filtered, post_filter, min_score, function_score)
 at full width, then the percolator, then an index with custom analysis and
 the flat mapper's field types, and holds every hand-written kernel of
@@ -61,8 +62,8 @@ those paths against its plain torch version on the card. Phases:
  10. the node over HTTP: a port `Node` on the card, every thread pool at
      its default size, serves REST on an ephemeral port; `PUT /corpus` with
      the defaults (5 shards, 1 replica: health yellow on one node) and
-     `refresh_interval: -1`; 150,000 docs (200,000 before phase 19 joined
-     the run) (phase 2's generator rendered as tokens `t<rank>`) in `_bulk`
+     `refresh_interval: -1`; 100,000 docs (200,000 before phase 19 joined
+     the run, 150,000 before phase 21 did) (phase 2's generator rendered as tokens `t<rank>`) in `_bulk`
      requests of 1,000 through the host analyzer into each shard's durable
      Engine, then `_refresh`; 1,024 `_search` requests (2,048 before phase
      19) (phase 3's 4-term `bool` of
@@ -350,6 +351,28 @@ those paths against its plain torch version on the card. Phases:
      totalling those shards' counts; 16 `rescore` bodies equal to the
      shards' host query phases, bitwise, on the host path only. The kernel
      bitwise equal to its plain version at every shape phase 20 launched.
+ 21. fetch, on phase 10's node before it closes. (a) 128 of phase 10's
+     `bool` bodies from 16 connections, plain and then with `highlight` (the
+     plain highlighter on even requests and `fvh` on odd ones: `corpus`
+     holds one text field), `fields: ["body"]`, `version` and a script
+     field, each leg under `set_sync_debug_mode("error")`: every
+     highlighted page equal to the plain leg's (ids, scores, shards in
+     order) and each of its hits equal to the host path's fetch of it on
+     its shard; both legs launch `sparse_score`, of the same order; each
+     leg's requests/s, p50/p99, the search pool's CPU by span (the query
+     phase, the fetch, `build_highlights` and each highlighter apart), CPU
+     s by thread kind and the device's idle share over a profiled window of
+     64. (b) `fetch_small` (3 shards, BM25, 2,000 of phase 10's texts with a
+     title, a keyword tag, a `completion` and a `binary` field): `_suggest`
+     with a term, a phrase, a completion and a fuzzy completion suggester
+     twice (the second from the request cache, no launch, the same JSON),
+     then a write and `_refresh` (the next answer holds the new top
+     completion); `_explain` (its value the hit's score within 2 ulp),
+     `_termvector` with term statistics, an `_mtermvectors` of 8, `_mlt`,
+     an `indices` query, a `template` query and a terms lookup (each equal
+     to its plain counterpart), each request's wall and launches printed.
+     The kernel bitwise equal to its plain version at every shape phase 21
+     launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -384,8 +407,8 @@ K1, B = 1.2, 0.75
 
 SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
 # phase 10's load and traffic (200,000 docs and 2,048 requests before phase
-# 19 joined the run: cut for the run's time)
-NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 150_000, 1024, 64
+# 19 joined the run, 150,000 docs before phase 21 did: cut for the run's time)
+NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 100_000, 1024, 64
 NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
 NODE_PROFILED = 256  # requests in phase 10's profiled window (512 before phase 19)
 # a search response's `_shards` on phase 10's node: every shard answered from
@@ -509,6 +532,11 @@ GEO_REQUESTS, GEO_CALLERS, GEO_PROFILED = 384, 32, 48
 RUNTIME_DFS, RUNTIME_BM25_DOCS, RUNTIME_MIXED = 128, 5_000, 64
 RUNTIME_CACHE, RUNTIME_CACHE_BULK, RUNTIME_RESCORE = 64, 1000, 16
 RUNTIME_CONN = 16
+# phase 21 on phase 10's node: (a) phase 10's `bool` bodies sent plain and
+# highlighted, their connections and profiled window; (b) the small index's
+# documents and shards
+FETCH_REQUESTS, FETCH_CONN, FETCH_PROFILED = 128, 16, 64
+FETCH_SMALL_DOCS, FETCH_SHARDS = 2000, 3
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -1001,7 +1029,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         geo_branches: int = GEO_BRANCHES, geo_employees: int = GEO_EMPLOYEES,
         geo_requests: int = GEO_REQUESTS, runtime_dfs: int = RUNTIME_DFS,
         runtime_bm25_docs: int = RUNTIME_BM25_DOCS, runtime_mixed: int = RUNTIME_MIXED,
-        runtime_cache: int = RUNTIME_CACHE, runtime_rescore: int = RUNTIME_RESCORE) -> dict:
+        runtime_cache: int = RUNTIME_CACHE, runtime_rescore: int = RUNTIME_RESCORE,
+        fetch_requests: int = FETCH_REQUESTS, fetch_docs: int = FETCH_SMALL_DOCS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -1365,7 +1394,8 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                       perc_requests=perc_requests, runtime=dict(
                           n_dfs=runtime_dfs, n_bm25_docs=runtime_bm25_docs,
                           n_mixed=runtime_mixed, n_cache=runtime_cache,
-                          n_rescore=runtime_rescore))
+                          n_rescore=runtime_rescore),
+                      fetch=dict(n_requests=fetch_requests, n_small=fetch_docs))
     report["node"] = node
 
     # -- 12. the dense request-feature family at full width -------------------
@@ -1408,14 +1438,19 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        # phase 10's timed run and phase 20's legs, on phase 10's node
+        # phase 10's timed run and phase 20's and 21's legs, on phase 10's node
         node_launches=node["launches"].get("sparse_score", 0)
-        + node["runtime"]["launches"].get("sparse_score", 0),
+        + node["runtime"]["launches"].get("sparse_score", 0)
+        + node["fetch"]["launches"].get("sparse_score", 0),
         node_max_abs_err=node["kernel_max_abs_err"],
         runtime_launches=node["runtime"]["launches"].get("sparse_score", 0),
         runtime_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                         for s in node["runtime"]["kernel_shapes"]],
         runtime_max_abs_err=node["runtime"]["kernel_max_abs_err"],
+        fetch_launches=node["fetch"]["launches"].get("sparse_score", 0),
+        fetch_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                      for s in node["fetch"]["kernel_shapes"]],
+        fetch_max_abs_err=node["fetch"]["kernel_max_abs_err"],
         mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
         mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"],
         dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"],
@@ -2039,7 +2074,8 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
                catalog_requests: int = CATALOG_REQUESTS, write_docs: int = WRITE_DOCS,
                write_requests: int = WRITE_REQUESTS, perc_queries: int = PERC_QUERIES,
                perc_docs: int = PERC_DOCS, perc_node_queries: int = PERC_NODE_QUERIES,
-               perc_requests: int = PERC_REQUESTS, runtime: dict | None = None) -> dict:
+               perc_requests: int = PERC_REQUESTS, runtime: dict | None = None,
+               fetch: dict | None = None) -> dict:
     """Phase 10: a port Node on `device` serving REST over HTTP — index
     creation, `_bulk` into each shard's durable Engine, `_refresh`, then
     concurrent `_search` requests checked against exact totals and the
@@ -2263,6 +2299,9 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
             device, node, port, texts=texts, offsets=offsets, inv_docs=inv_docs,
             bodies=bodies, catalog_docs=out["catalog"]["docs"], seed=seed + 20,
             **(runtime or {}))
+        # -- 21. fetch: highlighting, suggesters, term vectors ---------------
+        out["fetch"] = fetch_phase(device, node, port, texts=texts, bodies=bodies,
+                                   seed=seed + 21, **(fetch or {}))
         return out
     finally:
         if recorder is not None:
@@ -3643,6 +3682,319 @@ def writes_node_phase(device, node, port: int, *, texts, offsets, inv_docs, seed
 # ---------------------------------------------------------------------------
 # phase 15: device faults on the card
 # ---------------------------------------------------------------------------
+
+
+def fetch_phase(device, node, port: int, *, texts, bodies, seed: int,
+                n_requests: int = FETCH_REQUESTS, n_small: int = FETCH_SMALL_DOCS,
+                n_conn: int = FETCH_CONN) -> dict:
+    """Phase 21, on phase 10's node before it closes: the fetch slice. (a)
+    `n_requests` of phase 10's `bool` bodies from `n_conn` connections, plain
+    and with `highlight` (the plain highlighter on even requests, `fvh` on
+    odd ones: `corpus` holds one text field), `fields`, `version` and a
+    script field; each leg's requests/s, p50/p99, the search pool's CPU by
+    span, its `sparse_score` launches and, on the card, the device's idle
+    share over a profiled window; every highlighted page equal to the plain
+    leg's and each hit equal to the host path's fetch of it. (b) on a small
+    index of its own with a `completion` and a `binary` field: `_suggest`
+    (term, phrase, completion, fuzzy) twice around a write and a `_refresh`
+    with the request cache on, `_explain`, `_termvector` with term
+    statistics, an `_mtermvectors` of 8, `_mlt`, an `indices` query, a
+    `template` query and a terms lookup, each checked, its wall and launches
+    printed. `sparse_score` against its plain version at every shape the
+    phase launched."""
+    import contextlib
+
+    import torch
+
+    from elasticsearch_tpu_torch import actions as tactions
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import ShardContext, parse_search_body
+    from elasticsearch_tpu_torch.search import fetch as tfetch
+    from elasticsearch_tpu_torch.search import service as tservice
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    launches: dict = {}
+    recorder = LaunchRecorder(scoring, sparse_score)
+
+    def take() -> dict:
+        """Launches since the last take, counted into the phase's, and the
+        counts set to 0 again."""
+        snap = cudaenv.LAUNCHES.snapshot()
+        cudaenv.LAUNCHES.reset()
+        for name, n in snap.items():
+            launches[name] = launches.get(name, 0) + n
+        return snap
+
+    def clock():
+        """Where a leg's time goes: the shard's query phase and inside it the
+        `sparse_score` launches, the fetch phase and inside it each hit's
+        assembly, its highlights and the two highlighters, and the
+        coordinator's reduce."""
+        return SpanClock([
+            ("query phase", tactions, "execute_query_phase"),
+            ("query phase:   sparse_score launch", scoring, "sparse_score"),
+            ("fetch phase", tactions, "execute_fetch_phase"),
+            ("fetch:   build_hit", tservice, "build_hit"),
+            ("fetch:     build_highlights", tfetch, "build_highlights"),
+            ("fetch:       highlight_field (plain)", tfetch, "highlight_field"),
+            ("fetch:       fvh_highlight_field", tfetch, "fvh_highlight_field"),
+            ("coordinator: sort_docs", tactions, "sort_docs"),
+            ("coordinator: merge_responses", tactions, "merge_responses")])
+
+    def leg(requests, profiled: bool):
+        """One leg from `n_conn` connections: (responses, stats, spans,
+        CPU s by thread kind); on the card a second, profiled pass of its
+        first FETCH_PROFILED requests gives the device's idle share."""
+        take()
+        c = clock()
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with c:
+                cpu0, process0 = thread_cpu_s(), time.process_time()
+                got, lat, wall = http_requests(port, requests, n_conn)
+                cpu = host_cpu_split(cpu0, thread_cpu_s(), time.process_time() - process0)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        sparse = take().get("sparse_score", 0)
+        for i, (st, r) in enumerate(got):
+            assert st == 200 and r["_shards"] == SHARDS_OK, (i, r)
+        stats = dict(requests=len(requests), requests_per_s=len(requests) / wall,
+                     p50_ms=float(np.percentile(lat, 50)),
+                     p99_ms=float(np.percentile(lat, 99)), wall_s=wall,
+                     sparse_launches=sparse)
+        if on_card and profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _g, _l, pwall = http_requests(port, requests[:FETCH_PROFILED], n_conn)
+            p = device_busy(prof, pwall * 1e3)
+            stats["idle_share"] = p["idle_share"]
+            stats["profiled"] = dict(requests=FETCH_PROFILED, wall_ms=p["wall_ms"],
+                                     device_busy_ms=p["device_busy_ms"], top=p["top"][:5])
+            take()
+        return got, stats, c.report(), cpu
+
+    try:
+        # -- (a) highlighted traffic on `corpus` -------------------------------
+        n = min(n_requests, len(bodies))
+        plain = [("POST", "/corpus/_search", b, None) for b in bodies[:n]]
+        rich_bodies = [{**b, "fields": ["body"], "version": True,
+                        "script_fields": {"twice": {"script": "_score * 2"}},
+                        "highlight": {"fields": {"body": {} if i % 2 == 0
+                                                 else {"type": "fvh"}}}}
+                       for i, b in enumerate(bodies[:n])]
+        rich = [("POST", "/corpus/_search", b, None) for b in rich_bodies]
+        cudaenv.LAUNCHES.reset()  # what earlier phases launched is not this one's
+        plain_resp, plain_stats, plain_spans, plain_cpu = leg(plain, profiled=True)
+        rich_resp, rich_stats, rich_spans, rich_cpu = leg(rich, profiled=True)
+        # correctness: the same pages as the plain leg; each hit the host
+        # path's fetch of it on its shard's context
+        svc = node.indices.index_service("corpus")
+        host = [ShardContext(svc.shard(sid).engine.acquire_searcher(), svc.mapper_service,
+                             svc.similarity_service, device="cpu", index_name="corpus")
+                for sid in range(NODE_SHARDS)]
+        where = [{} for _ in host]
+        for sid, ctx in enumerate(host):
+            for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
+                for local, doc_id in enumerate(seg.ids):
+                    where[sid][doc_id] = base + local
+        highlighted = 0
+        for i, ((_s1, p), (_s2, r)) in enumerate(zip(plain_resp, rich_resp)):
+            assert [(h["_id"], h["_score"], h["_shard"]) for h in r["hits"]["hits"]] == \
+                [(h["_id"], h["_score"], h["_shard"]) for h in p["hits"]["hits"]], i
+            req = parse_search_body(rich_bodies[i])
+            for h in r["hits"]["hits"]:
+                sid = h["_shard"]
+                (want,) = tservice.execute_fetch_phase(
+                    host[sid], req, [(h["_score"], where[sid][h["_id"]], None)],
+                    index_name="corpus", shard_id=sid)
+                assert h == want, (i, h, want)
+                assert h["_version"] == 1 and h["fields"]["body"] == [texts[int(h["_id"])]]
+                highlighted += "highlight" in h
+        assert highlighted > 0
+        if on_card:
+            for stats in (plain_stats, rich_stats):
+                assert stats["sparse_launches"] > 0, stats
+            ratio = rich_stats["sparse_launches"] / plain_stats["sparse_launches"]
+            assert 0.25 <= ratio <= 4.0, (plain_stats, rich_stats)
+        out["traffic"] = dict(
+            plain=plain_stats, highlighted=rich_stats, hits_highlighted=highlighted,
+            spans=dict(plain=plain_spans, highlighted=rich_spans),
+            host_cpu_s=dict(plain=plain_cpu, highlighted=rich_cpu))
+        a = out["traffic"]
+        for name, stats in (("plain", plain_stats), ("highlighted", rich_stats)):
+            log(f"[21] (a) {name} leg: {n} of phase 10's bool bodies from {n_conn} "
+                f"connections, {stats['requests_per_s']:.1f} requests/s, p50 "
+                f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms, "
+                f"{stats['sparse_launches']} sparse_score launches"
+                + (f", device idle share {stats['idle_share']:.4f} over a profiled "
+                   f"window of {FETCH_PROFILED}" if stats.get("idle_share") is not None
+                   else ", device idle share not measured"))
+            log(f"[21] (a) {name} leg, CPU s by thread kind over {stats['wall_s']:.2f} s: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in a["host_cpu_s"][name].items()))
+            for span, v in a["spans"][name].items():
+                log(f"[21]   span {span:38s} {v['calls']:5d} calls, CPU {v['cpu_s']:.3f} s, "
+                    f"wall {v['wall_s']:.3f} s")
+        log(f"[21] (a) every highlighted page == the plain leg's (ids, scores, shards); "
+            f"each hit == the host path's fetch of it ({highlighted} hits highlighted, "
+            f"plain on even requests, fvh on odd ones)")
+
+        # -- (b) the rest of the slice on a small index of its own -------------
+        out["small"] = fetch_small_index(port, texts, n_small, seed, take)
+        recorder.close()
+        out["kernel_shapes"] = [dict(Qb=k[0][0], TB=k[0][1], k=k[2], launches=v[2])
+                                for k, v in recorder.shapes.items()]
+        out["kernel_max_abs_err"] = check_shapes(recorder.shapes)
+        out["launches"] = launches
+        out["wall_s"] = time.perf_counter() - t_phase
+        log(f"[21] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
+            f"phase 21 launched ({launches.get('sparse_score', 0)} launches); max abs err "
+            f"{out['kernel_max_abs_err']}; phase 21 took {out['wall_s']:.1f} s")
+        return out
+    finally:
+        recorder.close()
+
+
+def fetch_small_index(port: int, texts, n_docs: int, seed: int, take) -> dict:
+    """Phase 21 (b): `fetch_small` (`FETCH_SHARDS` shards, BM25) of `n_docs`
+    of phase 10's texts with a title, a `completion` and a `binary` field and
+    a keyword tag, and a lookup document; then each request of the slice's
+    surface once, checked, with its wall and launches."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    rng = np.random.default_rng(seed)
+    walls: dict = {}
+
+    def req(name, method, path, body=None, ndjson=None, status=200):
+        take()
+        t0 = time.perf_counter()
+        st, r = http_json(conn, method, path, body, ndjson=ndjson)
+        walls[name] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                           launches=take().get("sparse_score", 0))
+        assert st == status, (name, st, r)
+        return r
+
+    try:
+        # BM25: no query norm, so the host scorer's indices query and the
+        # card's plain query score alike (within 2 ulp)
+        st, r = http_json(conn, "PUT", "/fetch_small", {
+            "settings": {"number_of_shards": FETCH_SHARDS, "refresh_interval": -1,
+                         "index": {"similarity": {"default": {"type": "BM25"}}}},
+            "mappings": {"doc": {"properties": {
+                "title": {"type": "string"}, "body": {"type": "string"},
+                "tag": {"type": "string", "index": "not_analyzed"},
+                "suggest": {"type": "completion"}, "blob": {"type": "binary"}}}}})
+        assert st == 200 and r["primaries_active"], r
+        docs = []
+        for i in range(n_docs):
+            words = texts[i].split()
+            docs.append({"title": " ".join(words[:3]), "body": texts[i],
+                         "tag": words[0], "blob": "aGVsbG8=",
+                         "suggest": {"input": [" ".join(words[:2]), words[2]],
+                                     "output": f"{words[0]} {words[1]} #{i}",
+                                     "weight": int(rng.integers(1, 1000))}})
+        t0 = time.perf_counter()
+        lines = []
+        for i, d in enumerate(docs):
+            lines += [json.dumps({"index": {"_index": "fetch_small", "_type": "doc",
+                                            "_id": str(i)}}), json.dumps(d)]
+        st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+        assert st == 200 and not r["errors"], r.get("items", [])[:2]
+        tags = sorted({d["tag"] for d in docs[:40]})[:5]
+        st, r = http_json(conn, "PUT", "/fetch_small/lists/l1", {"tags": tags})
+        assert st == 201, r
+        st, r = http_json(conn, "POST", "/fetch_small/_refresh")
+        assert st == 200 and r["_shards"]["failed"] == 0, r
+        load_s = time.perf_counter() - t0
+        # warm each shard's first search (it packs the shard inline)
+        http_json(conn, "POST", "/fetch_small/_search",
+                  {"query": {"match": {"body": docs[0]["tag"]}}, "request_cache": False})
+
+        # _suggest: term, phrase, completion and fuzzy completion, twice
+        # (the second from the request cache), then a write and a refresh
+        w = docs[7]["body"].split()
+        long = next((t for t in w if len(t) >= 5), w[0])
+        typo = long[:-1] + ("9" if long[-1] != "9" else "8")
+        prefix = docs[3]["suggest"]["input"][0][:3]
+        suggest = {"term": {"text": typo, "term": {"field": "body", "suggest_mode": "always"}},
+                   "phrase": {"text": f"{w[1]} {typo}", "phrase": {"field": "body"}},
+                   "completion": {"text": prefix, "completion": {"field": "suggest"}},
+                   "fuzzy": {"text": prefix + "x", "completion": {
+                       "field": "suggest", "fuzzy": {"fuzziness": 1}}}}
+        first = req("suggest (miss)", "POST", "/fetch_small/_suggest", suggest)
+        second = req("suggest (hit)", "POST", "/fetch_small/_suggest", suggest)
+        assert second == first and walls["suggest (hit)"]["launches"] == 0
+        assert all(first[k][0]["options"] for k in ("term", "completion", "fuzzy")), first
+        top = {"input": prefix + "zz", "output": "the new top", "weight": 100_000}
+        st, r = http_json(conn, "PUT", "/fetch_small/doc/new", {
+            "title": "new", "body": w[1], "suggest": top})
+        assert st == 201, r
+        assert http_json(conn, "POST", "/fetch_small/_refresh")[0] == 200
+        third = req("suggest (after refresh)", "POST", "/fetch_small/_suggest", suggest)
+        assert third["completion"][0]["options"][0]["text"] == "the new top", third
+
+        # _explain: matched, its value the hit's score (the explain search's
+        # bool with an ids filter runs on the host scorer: within 2 ulp)
+        q = {"match": {"body": " ".join(w[:2])}}
+        r = req("search (for explain)", "POST", "/fetch_small/_search", {"query": q, "size": 1})
+        hit = r["hits"]["hits"][0]
+        r = req("explain", "POST", f"/fetch_small/doc/{hit['_id']}/_explain", {"query": q})
+        assert r["matched"] and within_ulps(r["explanation"]["value"], hit["_score"], ULPS), \
+            (r, hit)
+
+        # term vectors: each field's tokens and statistics
+        r = req("termvector", "GET", "/fetch_small/doc/7/_termvector?term_statistics=true")
+        tv = r["term_vectors"]["body"]
+        assert sum(t["term_freq"] for t in tv["terms"].values()) == len(w)
+        assert all(t["doc_freq"] >= 1 and t["ttf"] >= t["term_freq"]
+                   for t in tv["terms"].values())
+        r = req("mtermvectors of 8", "POST", "/fetch_small/doc/_mtermvectors",
+                {"ids": [str(i) for i in range(8)]})
+        assert len(r["docs"]) == 8 and all(d["found"] for d in r["docs"])
+
+        # more like this: similar documents, the document itself excluded
+        r = req("mlt", "GET", "/fetch_small/doc/7/_mlt?min_term_freq=1&min_doc_freq=1"
+                "&mlt_fields=body")
+        assert r["hits"]["total"] > 0 and "7" not in [h["_id"] for h in r["hits"]["hits"]]
+
+        # indices query, template query, terms lookup: each equal to its
+        # plain counterpart (the indices query runs on the host scorer: the
+        # same order within 2 ulp, tie-tolerant)
+        plain_q = {"match": {"body": " ".join(w[2:5])}}
+        want = req("plain query", "POST", "/fetch_small/_search", {"query": plain_q})
+
+        def page(resp):
+            return [(h["_score"], (h["_shard"], h["_id"])) for h in resp["hits"]["hits"]]
+
+        r = req("indices query", "POST", "/fetch_small/_search", {"query": {"indices": {
+            "indices": ["fetch_*"], "query": plain_q, "no_match_query": "none"}}})
+        assert r["hits"]["total"] == want["hits"]["total"]
+        assert tie_tolerant_equal(page(r), page(want)), "indices query"
+        r = req("template query", "POST", "/fetch_small/_search", {"query": {"template": {
+            "query": {"match": {"body": "{{q}}"}}, "params": {"q": " ".join(w[2:5])}}}})
+        assert r["hits"] == want["hits"], "template query"
+        literal = {"filtered": {"query": plain_q, "filter": {"terms": {"tag": tags}}}}
+        lookup = {"filtered": {"query": plain_q, "filter": {"terms": {"tag": {
+            "index": "fetch_small", "type": "lists", "id": "l1", "path": "tags"}}}}}
+        want = req("terms literal", "POST", "/fetch_small/_search", {"query": literal})
+        r = req("terms lookup", "POST", "/fetch_small/_search", {"query": lookup})
+        assert r["hits"] == want["hits"]
+        log(f"[21] (b) `fetch_small` ({FETCH_SHARDS} shards, {n_docs} docs with a "
+            f"completion and a binary field) loaded in {load_s:.1f} s; each request "
+            f"checked, wall ms and sparse_score launches:")
+        for name, v in walls.items():
+            log(f"[21]   {name:26s} {v['wall_ms']:9.2f} ms {v['launches']:4d} launches")
+        return dict(docs=n_docs, load_s=load_s, requests=walls)
+    finally:
+        conn.close()
 
 
 def http_requests(port: int, requests: list, n_conn: int) -> tuple[list, np.ndarray, float]:

@@ -33,6 +33,14 @@ package's `actions.py`), in the reference's interaction patterns:
 - single-shard reads: `get_doc` reads one active copy of the document's
   shard (realtime from the engine's version map unless `realtime` is
   false, after a refresh when asked; type `_all` walks the index's types);
+  `term_vector` re-analyzes one document's stored `_source` on one copy of
+  its shard (`_s_termvector`, on the `get` pool), `multi_termvector`
+  answers each document's in place, and `more_like_this` searches the
+  document's text fields minus the document itself;
+- a search body's terms lookups are resolved once on the coordinating node
+  against the GET path (`_lookup_get`) before any shard runs, and each
+  shard's suggester output rides its query-phase partial (and the request
+  cache's entry) to the coordinator, which merges them;
 - the single-document delete goes to the primary (`_p_delete`). A
   `.percolator` document written or deleted through the single-document
   actions registers or unregisters its query on the node's percolator
@@ -73,6 +81,7 @@ from .cluster.state import ClusterState, IndexMetaData, ShardRouting
 from .common.deadline import NO_DEADLINE, Deadline
 from .common.errors import (
     CircuitBreakingError,
+    DocumentMissingError,
     IllegalArgumentError,
     IndexAlreadyExistsError,
     IndexMissingError,
@@ -97,7 +106,7 @@ from .search.controller import (
     sort_docs,
 )
 from .search.execute import ShardContext
-from .search.queries import MatchAllQuery, parse_query
+from .search.queries import MatchAllQuery, parse_query, resolve_terms_lookups
 from .search.request_cache import cache_policy, request_fingerprint
 from .search.service import (
     SearchAdmissionController,
@@ -115,6 +124,7 @@ A_INDEX_PRIMARY = "indices:data/write/index[p]"
 A_BULK_SHARD = "indices:data/write/bulk[s]"
 A_DELETE_PRIMARY = "indices:data/write/delete[p]"
 A_GET = "indices:data/read/get[s]"
+A_TERMVECTOR = "indices:data/read/termvector[s]"
 A_QUERY_PHASE = "indices:data/read/search[phase/query]"
 A_FETCH_PHASE = "indices:data/read/search[phase/fetch]"
 A_FREE_CONTEXT = "indices:data/read/search[free-context]"
@@ -160,6 +170,7 @@ class ActionModule:
         t.register_handler(A_BULK_SHARD, self._p_bulk_shard, executor="bulk")
         t.register_handler(A_DELETE_PRIMARY, self._p_delete, executor="index")
         t.register_handler(A_GET, self._s_get, executor="get")
+        t.register_handler(A_TERMVECTOR, self._s_termvector, executor="get")
         t.register_handler(A_QUERY_PHASE, self._s_query_phase, executor="search")
         t.register_handler(A_FETCH_PHASE, self._s_fetch_phase, executor="search")
         t.register_handler(A_FREE_CONTEXT, self._s_free_context, executor="search")
@@ -196,7 +207,11 @@ class ActionModule:
             flat["index.number_of_shards"] = int(flat["index.number_of_shards"])
             flat["index.number_of_replicas"] = int(flat["index.number_of_replicas"])
             meta = IndexMetaData(name=index, settings_map=tuple(sorted(flat.items())))
+            # the mappings are parsed before the state changes (a mapping the
+            # port refuses answers 400 and creates nothing) and kept as given
+            svc = MapperService(meta.settings)
             for t, m in (body.get("mappings") or {}).items():
+                svc.put_mapping(t, m)
                 meta = meta.with_mapping(t, m)
             new = state.next_version(
                 metadata=state.metadata.with_index(meta),
@@ -490,6 +505,9 @@ class ActionModule:
         state = self.cluster_service.state
         indices = state.metadata.resolve_indices(index_expr)
         state.blocks.check("read")
+        # terms lookups resolve here, once, against the GET path: every
+        # shard sees the same literal values
+        body = resolve_terms_lookups(body, self._lookup_get)
         req = parse_search_body(body)
         deadline = Deadline.after(req.timeout_s) if req.timeout_s is not None \
             else NO_DEADLINE
@@ -553,7 +571,8 @@ class ActionModule:
                     agg_partials=_decode_partials(r.get("agg_partials")),
                     facet_partials=_decode_partials(r.get("facet_partials")),
                     shard_id=ordinal, timed_out=bool(r.get("timed_out")),
-                    context_id=r.get("ctx_id"), degraded=bool(r.get("degraded"))))
+                    context_id=r.get("ctx_id"), degraded=bool(r.get("degraded")),
+                    suggest=r.get("suggest")))
         except Exception:
             # an error that is not a shard failure (a host bug; a device
             # error degrades inside the shard) fails the search: no shard
@@ -861,6 +880,125 @@ class ActionModule:
                 out["_parent"] = str(r.parent)
         return out
 
+    def _lookup_get(self, index, type_name, doc_id, routing=None):
+        """A terms lookup's document: a missing document resolves to no
+        terms, a missing index raises (`get_doc`'s IndexMissingError)."""
+        return self.get_doc(index, type_name or "_all", doc_id, routing=routing)
+
+    def term_vector(self, index: str, type_name: str, doc_id: str, routing=None,
+                    fields=None, positions=True, offsets=True,
+                    term_statistics=False, field_statistics=True) -> dict:
+        """The term vectors of one document, read on one copy of its shard
+        (`_s_termvector`)."""
+        state = self.cluster_service.state
+        state.blocks.check("read")
+        index = state.metadata.resolve_indices(index)[0]
+        copy = self.routing.get_shard_copy(state, index, doc_id, routing)
+        return self.transport.submit_request(
+            state.nodes.get(copy.node_id), A_TERMVECTOR, {
+                "index": index, "shard": copy.shard_id, "type": type_name,
+                "id": doc_id, "fields": list(fields) if fields else None,
+                "positions": positions, "offsets": offsets,
+                "term_statistics": term_statistics,
+                "field_statistics": field_statistics}, timeout=10.0)
+
+    def multi_termvector(self, docs: list[dict]) -> dict:
+        """`_mtermvectors`: each document's term vectors, an error in its
+        place."""
+        out = []
+        for d in docs:
+            try:
+                out.append(self.term_vector(
+                    d["_index"], d.get("_type", "_all"), d["_id"],
+                    routing=d.get("routing"), fields=d.get("fields"),
+                    positions=d.get("positions", True),
+                    offsets=d.get("offsets", True),
+                    term_statistics=d.get("term_statistics", False),
+                    field_statistics=d.get("field_statistics", True)))
+            except SearchEngineError as e:
+                out.append({"_index": d.get("_index"), "_id": d.get("_id"),
+                            "error": e.to_dict()})
+        return {"docs": out}
+
+    def _s_termvector(self, request, channel):
+        """One document's term vectors, re-derived by analyzing its stored
+        `_source` text fields with each field's search analyzer (exact for
+        write-once segments): per term its frequency and, when asked, its
+        tokens' positions and offsets, its document frequency and total
+        term frequency in the shard; per field its statistics."""
+        index, shard_id = request["index"], request["shard"]
+        shard = self.indices.index_service(index).shard(shard_id)
+        r = shard.engine.get(request["type"], request["id"], realtime=True)
+        out = {"_index": index, "_type": request["type"], "_id": request["id"],
+               "found": r.found}
+        if not r.found:
+            return out
+        out["_version"] = r.version
+        ctx = self._shard_ctx(index, shard_id)
+        wanted = request.get("fields")
+        tv = {}
+        for field, texts in sorted(_flatten_text_fields(r.source).items()):
+            if wanted is not None and field not in wanted:
+                continue
+            ft = ctx.field_type(field)
+            if ft is not None and getattr(ft, "index", "analyzed") == "no":
+                continue
+            terms: dict[str, dict] = {}
+            for text in texts:
+                for tok in ctx.analyze_tokens(field, str(text)):
+                    e = terms.setdefault(tok.term, {"term_freq": 0, "tokens": []})
+                    e["term_freq"] += 1
+                    t = {}
+                    if request.get("positions", True):
+                        t["position"] = tok.position
+                    if request.get("offsets", True):
+                        t["start_offset"] = tok.start
+                        t["end_offset"] = tok.end
+                    if t:
+                        e["tokens"].append(t)
+            if not terms:
+                continue
+            if request.get("term_statistics"):
+                for term, e in terms.items():
+                    e["doc_freq"] = ctx.doc_freq(field, term)
+                    e["ttf"] = sum(int(seg.postings(field, term)[1].sum())
+                                   for seg in ctx.searcher.segments)
+            entry = {"terms": terms}
+            if request.get("field_statistics", True):
+                fs = ctx.field_stats(field)
+                entry["field_statistics"] = {
+                    "doc_count": fs.doc_count, "sum_ttf": fs.sum_ttf,
+                    "sum_doc_freq": fs.sum_dfs}
+            tv[field] = entry
+        out["term_vectors"] = tv
+        return out
+
+    def more_like_this(self, index: str, type_name: str, doc_id: str,
+                       mlt_fields=None, search_body=None, routing=None,
+                       **mlt_params) -> dict:
+        """`_mlt`: GET the document, search a `bool` of a `more_like_this`
+        over its text fields (or `mlt_fields`) that must not match its own
+        id. The host scorer rewrites the `more_like_this` clause, so the
+        search runs on the host, as in the JAX package."""
+        doc = self.get_doc(index, type_name, doc_id, routing=routing)
+        if not doc.get("found"):
+            raise DocumentMissingError(f"[{index}][{type_name}][{doc_id}] missing")
+        flat = _flatten_text_fields(doc.get("_source") or {})
+        if mlt_fields:
+            flat = {f: v for f, v in flat.items() if f in set(mlt_fields)}
+        like_text = " ".join(str(t) for texts in flat.values() for t in texts)
+        mlt = {"fields": sorted(flat) or ["_all"], "like_text": like_text}
+        for k in ("min_term_freq", "min_doc_freq", "max_query_terms",
+                  "minimum_should_match", "percent_terms_to_match", "boost_terms"):
+            if mlt_params.get(k) is not None:
+                mlt[k] = mlt_params[k]
+        body = dict(search_body or {})
+        body["query"] = {"bool": {
+            "must": [{"more_like_this": mlt}],
+            "must_not": [{"ids": {"type": type_name, "values": [doc_id]}}],
+        }}
+        return self.search(index, body)
+
     # ================= broadcast =================
     def broadcast(self, index_expr, op: str) -> dict:
         """refresh, flush or optimize on every active shard copy."""
@@ -946,6 +1084,27 @@ def filter_source(src: dict, includes, excludes) -> dict:
     return walk(src, "", included=False)
 
 
+def _flatten_text_fields(source: dict, prefix: str = "") -> dict[str, list]:
+    """A `_source` flattened to dotted path -> its string values (term
+    vectors and more-like-this read text fields only)."""
+    out: dict[str, list] = {}
+    for key, value in (source or {}).items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            for k, v in _flatten_text_fields(value, path + ".").items():
+                out.setdefault(k, []).extend(v)
+        elif isinstance(value, list):
+            for item in value:
+                if isinstance(item, dict):
+                    for k, v in _flatten_text_fields(item, path + ".").items():
+                        out.setdefault(k, []).extend(v)
+                elif isinstance(item, str):
+                    out.setdefault(path, []).append(item)
+        elif isinstance(value, str):
+            out.setdefault(path, []).append(value)
+    return out
+
+
 def _shard_partial_dict(result: ShardQueryResult) -> dict:
     """The wire and cache form of one shard's query-phase partial: the one
     construction site of the live query phase and the re-prime, so a warmed
@@ -957,6 +1116,7 @@ def _shard_partial_dict(result: ShardQueryResult) -> dict:
         else result.max_score,
         "agg_partials": _encode_partials(result.agg_partials),
         "facet_partials": _encode_partials(result.facet_partials),
+        "suggest": result.suggest,
         "timed_out": result.timed_out,
         "degraded": result.degraded,
     }

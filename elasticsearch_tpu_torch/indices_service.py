@@ -150,36 +150,46 @@ class IndicesService:
             self._apply_state(event.state)
 
     def _apply_state(self, state: ClusterState):
+        """Build each assigned shard's index service and shard, and start
+        its recovery. An index whose service or shard fails to build is
+        logged and skipped: the other indexes' shards still start."""
         for s in state.routing_table.all_shards():
             if s.node_id != self.node_id or s.state not in (INITIALIZING, STARTED):
                 continue
             meta = state.metadata.index(s.index)
             if meta is None:
                 continue
-            svc = self.indices.get(s.index)
-            if svc is None:
-                svc = IndexService(s.index, meta.settings, meta.mappings_dict(),
-                                   os.path.join(self.data_path, "indices"))
-                self.indices[s.index] = svc
-            else:
-                # mapping updates reach the live mappers through the state
-                for t, m in meta.mappings_dict().items():
-                    try:
-                        svc.mapper_service.put_mapping(t, m)
-                    except SearchEngineError:
-                        pass
-            if s.shard_id not in svc.shards and s.state == INITIALIZING:
-                shard = svc.create_shard(s.shard_id, s.primary)
-                self._wire_cache_listeners(shard.engine, s.index, s.shard_id)
-                if self.warmer is not None:
-                    # after the cache listeners: listeners run in order, so
-                    # the warmer sees a view whose superseded entries and
-                    # dropped masks are gone (a re-prime never races them)
-                    self.warmer.wire(s.index, s.shard_id, shard.engine)
-                threading.Thread(target=self._recover_shard, args=(shard, s),
-                                 daemon=True,
-                                 name=f"estpu_torch-recover[{s.index}][{s.shard_id}]"
-                                 ).start()
+            try:
+                self._apply_shard(s, meta)
+            except Exception:  # noqa: BLE001 — one index must not stop the rest
+                self.logger.warning("failed to start shard [%s][%d]", s.index,
+                                    s.shard_id, exc_info=True)
+
+    def _apply_shard(self, s, meta):
+        svc = self.indices.get(s.index)
+        if svc is None:
+            svc = IndexService(s.index, meta.settings, meta.mappings_dict(),
+                               os.path.join(self.data_path, "indices"))
+            self.indices[s.index] = svc
+        else:
+            # mapping updates reach the live mappers through the state
+            for t, m in meta.mappings_dict().items():
+                try:
+                    svc.mapper_service.put_mapping(t, m)
+                except SearchEngineError:
+                    pass
+        if s.shard_id not in svc.shards and s.state == INITIALIZING:
+            shard = svc.create_shard(s.shard_id, s.primary)
+            self._wire_cache_listeners(shard.engine, s.index, s.shard_id)
+            if self.warmer is not None:
+                # after the cache listeners: listeners run in order, so
+                # the warmer sees a view whose superseded entries and
+                # dropped masks are gone (a re-prime never races them)
+                self.warmer.wire(s.index, s.shard_id, shard.engine)
+            threading.Thread(target=self._recover_shard, args=(shard, s),
+                             daemon=True,
+                             name=f"estpu_torch-recover[{s.index}][{s.shard_id}]"
+                             ).start()
 
     def _wire_cache_listeners(self, engine: Engine, index: str, shard_id: int):
         """Hang the node's caches off the engine's view listeners: a new

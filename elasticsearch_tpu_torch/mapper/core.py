@@ -23,7 +23,9 @@ sub-fields `full.sub`, which `to_mapping` renders under the parent's
 mapped dynamically with the source's type) and adds nothing to `_all`.
 `_routing` (`required`, `path`) and `_timestamp` (`enabled`, `path`) are
 served; `_ttl` comes with the document APIs' slice and raises
-MapperParsingError.
+MapperParsingError. A `binary` field is kept in `_source` only, and a field
+of any other type the mapper does not list (`completion`, `murmur3`, ...)
+stores its values as string doc values, as the JAX mapper keeps them.
 
 A `nested` object's values become nested documents of their own
 (`ParsedDocument.nested_docs`, one per object, parsed under the object's
@@ -69,13 +71,9 @@ GEO_TYPES = {"geo_point", "geo_shape"}
 _LATER_META = {"_ttl": "the document APIs (its expiry purger)"}
 
 
-def _not_ported(what: str, slice_: str | None = None) -> MapperParsingError:
-    where = f": {slice_}" if slice_ else ""
+def _not_ported(what: str, slice_: str) -> MapperParsingError:
     return MapperParsingError(
-        f"{what} is not ported yet (a later slice of the port{where}); this "
-        "slice maps string, numeric, date, boolean, ip, token_count, "
-        "geo_point, geo_shape, object and nested fields, multi-fields and "
-        "copy_to")
+        f"{what} is not ported yet (a later slice of the port: {slice_})")
 
 
 def parse_ip(value: str) -> int:
@@ -336,9 +334,6 @@ class DocumentMapper:
         if ftype == "keyword":  # alias: not_analyzed string
             ftype = "string"
             spec = {**spec, "index": "not_analyzed"}
-        if ftype not in TEXT_TYPES and ftype not in NUMERIC_TYPES \
-                and ftype not in GEO_TYPES:
-            raise _not_ported(f"field type [{ftype}] of [{full}]")
         index = spec.get("index", "analyzed" if ftype in TEXT_TYPES else "yes")
         if index == "yes":
             index = "analyzed" if ftype in TEXT_TYPES else "not_analyzed"
@@ -494,10 +489,14 @@ class DocumentMapper:
                 doc.doc_values_str.setdefault(ft.name, []).append(
                     json.dumps([kind, data], separators=(",", ":")))
             return
+        if ft.type == "binary":
+            return  # kept in _source only
         if not ft.is_text:
-            if all(v is None for v in values):
-                return  # an empty array (or null) of an object: nothing
-            raise _not_ported(f"field type [{ft.type}] of [{ft.name}]")
+            # a type the mapper does not list: its values as string doc values
+            for v in values:
+                if v is not None:
+                    doc.doc_values_str.setdefault(ft.name, []).append(str(v))
+            return
         analyzer = self.analysis.analyzer(ft.analyzer)
         terms = doc.postings.setdefault(ft.name, [])
         pos_base = doc.field_lengths.get(ft.name, 0)

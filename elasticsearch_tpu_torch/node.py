@@ -40,7 +40,8 @@ index fed by the single-document writes of `.percolator` documents and
 percolates on the node's device.
 
 `Client` is trimmed to `create_index`, `index`, `get`, `delete`, `bulk`,
-`refresh`, `flush`, `optimize`, `search`, `msearch`, `count`, `percolate`,
+`refresh`, `flush`, `optimize`, `search`, `msearch`, `count`, `suggest`,
+`termvector`, `mtermvectors`, `mlt`, `explain`, `percolate`,
 `count_percolate`, `mpercolate` and `cluster_health`."""
 
 from __future__ import annotations
@@ -292,6 +293,45 @@ class Client:
 
     def count(self, index=None, body=None):
         return self.actions.count(index or "_all", body)
+
+    def suggest(self, index, body):
+        """`_suggest`: a size-0 search of the suggesters alone (the request
+        cache takes it, as any size-0 body), its `suggest` section."""
+        r = self.search(index, {"size": 0, "suggest": body})
+        return r.get("suggest", {})
+
+    def termvector(self, index, doc_type, id, routing=None, fields=None,
+                   positions=True, offsets=True, term_statistics=False,
+                   field_statistics=True):
+        return self.actions.term_vector(index, doc_type, id, routing=routing,
+                                        fields=fields, positions=positions,
+                                        offsets=offsets,
+                                        term_statistics=term_statistics,
+                                        field_statistics=field_statistics)
+
+    def mtermvectors(self, docs):
+        return self.actions.multi_termvector(docs)
+
+    def mlt(self, index, doc_type, id, mlt_fields=None, search_body=None,
+            routing=None, **mlt_params):
+        return self.actions.more_like_this(index, doc_type, id,
+                                           mlt_fields=mlt_fields,
+                                           search_body=search_body,
+                                           routing=routing, **mlt_params)
+
+    def explain(self, index, doc_type, id, body):
+        """`_explain`, as the JAX node answers it: a search of a `bool` that
+        must match the body's query and filters on the id; `matched`, and
+        the hit's score as the explanation's value."""
+        r = self.search(index, {"query": {"bool": {
+            "must": [body.get("query", {"match_all": {}})],
+            "filter": [{"ids": {"values": [id]}}]}}, "size": 1})
+        matched = r["hits"]["total"] > 0
+        out = {"_index": index, "_type": doc_type, "_id": id, "matched": matched}
+        if matched:
+            out["explanation"] = {"value": r["hits"]["hits"][0]["_score"],
+                                  "description": "score of matching document"}
+        return out
 
     def percolate(self, index, body):
         return self.node.percolator.percolate(index, body)

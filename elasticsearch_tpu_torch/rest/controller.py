@@ -19,15 +19,24 @@ NDJSON (at `/` and `/{index}`), `_count` (at `/`, `/{index}` and
 `/{index}/{type}`), and the mapping API: `PUT|POST` `/{index}/{type}/_mapping`,
 `/{index}/_mapping/{type}` and `/_mapping/{type}` (`_mappings` too), `GET`
 `/_mapping`, `/{index}/_mapping`, `/{index}/{type}/_mapping`,
-`/{index}/_mapping/{type}` and `/_mapping/{type}`; `DELETE` of a mapping
-answers 400 naming its later slice, as do the `_search` parameters
-`fields`, `profile` and `trace`. The single-document index, GET, HEAD
-and DELETE take `?parent=`, which routes the document when no `routing` is
-given (a `_bulk` item's parent is ignored, as in the JAX package; GET
-answers no `_parent` key over REST, as there). A route that is not
-ported answers 400 "No handler found", as the JAX controller answers an
-unknown route; a missing index answers 404. Handlers call the node Client:
-REST is a thin adapter, as in the JAX package.
+`/{index}/_mapping/{type}` and `/_mapping/{type}`; `_suggest` (at `/` and
+`/{index}`), `/{index}/{type}/{id}/_explain` (with `?q=`, and the GET
+section the `_source` parameters ask for), `_termvector` and
+`_termvectors` of a document, `_mtermvectors` (at `/`, `/{index}` and
+`/{index}/{type}`; the query parameters are each document's defaults) and
+`/{index}/{type}/{id}/_mlt`. `?fields=` on `_search` reads as the body's
+`fields`. `DELETE` of a mapping answers 400 naming its later slice, as do
+the `_search` parameters `profile` and `trace` and the `fields` parameter
+of GET and `_explain` (the document APIs, A6c). The single-document index,
+GET, HEAD and DELETE take `?parent=`, which routes the document when no
+`routing` is given (a `_bulk` item's parent is ignored, as in the JAX
+package; GET answers no `_parent` key over REST, as there). Every other
+route of the JAX node answers 400 NotPortedError naming the slice that
+brings it (`_LATER_ROUTES`), so that none falls through to a wider route
+such as the document write; a route the JAX node lacks too answers 400 "No
+handler found", as the JAX controller answers it; a missing index answers
+404. Handlers call the node Client: REST is a thin adapter, as in the JAX
+package.
 
 The scroll is the JAX node's, kept as it is: a `?scroll=` search buffers the
 top `max(size, 10) * 10` hits of one search (`from` 0) in a registry the
@@ -203,8 +212,95 @@ def _lenient_to_strict_json(text: str) -> str:
 _BULK_OPS = ("index", "create", "update", "delete")
 
 # `_search` query parameters the JAX node serves and the port does not yet:
-# stored fields (the fetch slice, A6b), profiles and traces (A7)
-_LATER_SEARCH_PARAMS = ("fields", "profile", "trace")
+# profiles and traces (A7)
+_LATER_SEARCH_PARAMS = ("profile", "trace")
+
+# Every (methods, route) of the JAX node that a port node does not serve
+# yet, by the slice that brings it. Each answers 400 NotPortedError naming
+# its slice, so that no such request falls through to a wider route (a
+# POST to `/{index}/_close` would otherwise index a document of type
+# `_close`). A slice that lands deletes its rows.
+_LATER_ROUTES = {
+    "A6c, the document APIs": [
+        ("PUT,POST", "/{index}/{type}/{id}/_create"),
+        ("GET,HEAD", "/{index}/{type}/{id}/_source"),
+        ("POST", "/{index}/{type}/{id}/_update"),
+        ("GET,POST", "/_mget"), ("GET,POST", "/{index}/_mget"),
+        ("GET,POST", "/{index}/{type}/_mget"),
+        ("DELETE", "/{index}/_query"), ("DELETE", "/{index}/{type}/_query"),
+    ],
+    "A6d, index administration": [
+        ("DELETE,HEAD", "/{index}"), ("HEAD", "/{index}/{type}"),
+        ("POST", "/{index}/_open"), ("POST", "/{index}/_close"),
+        ("GET", "/_mapping/field/{field}"), ("GET", "/{index}/_mapping/field/{field}"),
+        ("GET", "/_mapping/{type}/field/{field}"),
+        ("GET", "/{index}/_mapping/{type}/field/{field}"),
+        ("PUT,GET", "/{index}/_settings"), ("PUT,GET", "/_settings"),
+        ("GET", "/{index}/_settings/{name}"), ("GET", "/_settings/{name}"),
+        ("POST,GET", "/_aliases"), ("GET", "/{index}/_aliases"),
+        ("PUT,POST,DELETE,GET,HEAD", "/{index}/_alias/{name}"),
+        ("PUT,POST,GET,HEAD", "/_alias/{name}"),
+        ("PUT,POST,DELETE,GET", "/{index}/_aliases/{name}"),
+        ("PUT,POST,GET", "/_aliases/{name}"), ("GET", "/_alias"),
+        ("GET,HEAD", "/{index}/_alias"),
+        ("PUT,POST,DELETE,GET", "/_template/{name}"), ("GET", "/_template"),
+        ("PUT,POST,GET", "/_warmer/{name}"),
+        ("PUT,POST,DELETE,GET", "/{index}/_warmer/{name}"),
+        ("PUT,POST,GET", "/{index}/{type}/_warmer/{name}"),
+        ("PUT,POST", "/_warmers/{name}"), ("PUT,POST,DELETE", "/{index}/_warmers/{name}"),
+        ("PUT,POST", "/{index}/{type}/_warmers/{name}"),
+        ("GET", "/_warmer"), ("GET", "/{index}/_warmer"),
+        ("GET,POST", "/_validate/query"), ("GET,POST", "/{index}/_validate/query"),
+        ("GET,POST", "/_analyze"), ("GET,POST", "/{index}/_analyze"),
+        ("POST", "/_cache/clear"), ("POST", "/{index}/_cache/clear"),
+        ("POST", "/_gateway/snapshot"), ("POST", "/{index}/_gateway/snapshot"),
+    ],
+    "A7, observability and the admin REST surface": [
+        ("GET", "/_stats"), ("GET", "/{index}/_stats"),
+        ("GET", "/_status"), ("GET", "/{index}/_status"),
+        ("GET", "/_segments"), ("GET", "/{index}/_segments"),
+        ("GET", "/_cluster/state"), ("GET", "/_cluster/state/{metric}"),
+        ("GET", "/_cluster/state/{metric}/{index}"), ("GET", "/_cluster/pending_tasks"),
+        ("GET", "/_cluster/stats"), ("GET", "/_cluster/stats/nodes/{node_id}"),
+        ("POST", "/_shutdown"), ("POST", "/_cluster/nodes/_shutdown"),
+        ("POST", "/_cluster/nodes/{node_id}/_shutdown"),
+        ("PUT,GET", "/_cluster/settings"), ("POST", "/_cluster/reroute"),
+        ("GET", "/_nodes"), ("GET", "/_nodes/stats"), ("GET", "/_nodes/stats/{metric}"),
+        ("GET", "/_nodes/{node_id}/stats"), ("GET", "/_nodes/{node_id}/stats/{metric}"),
+        ("GET", "/_cluster/nodes/hot_threads"), ("GET", "/_nodes/hot_threads"),
+        ("GET", "/_insights/queries"), ("GET", "/_events"), ("GET", "/_traces"),
+        ("GET", "/_tasks"), ("GET", "/_prometheus/metrics"),
+        ("POST", "/_nodes/_local/profiler/start"), ("POST", "/_nodes/_local/profiler/stop"),
+        ("GET", "/_cat"), ("GET", "/_cat/health"), ("GET", "/_cat/nodes"),
+        ("GET", "/_cat/indices"), ("GET", "/_cat/shards"), ("GET", "/_cat/shards/{index}"),
+        ("GET", "/_cat/master"), ("GET", "/_cat/allocation"),
+        ("GET", "/_cat/allocation/{node_id}"), ("GET", "/_cat/count"),
+        ("GET", "/_cat/count/{index}"), ("GET", "/_cat/aliases"),
+        ("GET", "/_cat/aliases/{name}"), ("GET", "/_cat/pending_tasks"),
+        ("GET", "/_cat/recovery"), ("GET", "/_cat/thread_pool"), ("GET", "/_cat/batcher"),
+        ("GET", "/_cat/caches"), ("GET", "/_cat/segments"),
+        ("GET", "/_cat/segments/{index}"), ("GET", "/_cat/events"),
+    ],
+    "A9, the sidecars": [
+        ("PUT,POST,GET,DELETE", "/_snapshot/{repo}"), ("GET", "/_snapshot"),
+        ("POST", "/_snapshot/{repo}/_verify"),
+        ("PUT,GET,DELETE", "/_snapshot/{repo}/{snapshot}"),
+        ("GET", "/_snapshot/{repo}/{snapshot}/_status"),
+        ("POST", "/_snapshot/{repo}/{snapshot}/_restore"),
+    ],
+}
+
+
+def _register_later_routes(rc: "RestController"):
+    """A handler that answers 400 for every row of `_LATER_ROUTES`."""
+    for slice_, routes in _LATER_ROUTES.items():
+        for methods, template in routes:
+            def refuse(req, template=template, slice_=slice_):
+                raise NotPortedError(
+                    f"[{req.method} {template}] is not ported yet (a later slice "
+                    f"of the port: {slice_})")
+
+            rc.register(methods, template, refuse)
 
 
 def build_rest_controller(node) -> RestController:
@@ -232,16 +328,16 @@ def build_rest_controller(node) -> RestController:
     rc.register("PUT,POST", "/{index}/{type}/{id}", doc_index)
     rc.register("POST", "/{index}/{type}", doc_index)
 
-    def doc_get(req):
+    def refuse_get_fields(req):
         if req.param("fields") is not None:
-            raise IllegalArgumentError(
+            raise NotPortedError(
                 "GET parameter [fields] is not ported yet (a later slice of the "
-                "port: stored fields come with the document APIs)")
-        r = client.get(req.path_params["index"], req.path_params["type"],
-                       req.path_params["id"], routing=req.param("routing"),
-                       parent=req.param("parent"),
-                       realtime=req.bool_param("realtime", True),
-                       refresh=req.bool_param("refresh"))
+                "port: stored fields come with the document APIs, A6c)")
+
+    def render_get(req, r) -> RestResponse:
+        """A GET response: 404 when not found, else the `_source` unless
+        `?_source=false`, filtered by `_source` patterns or
+        `_source_include` / `_source_exclude`."""
         if not r["found"]:
             return RestResponse(404, {"_index": r.get("_index"),
                                       "_type": r.get("_type"),
@@ -258,6 +354,13 @@ def build_rest_controller(node) -> RestController:
                 src = filter_source(src, includes, req.param("_source_exclude"))
             out["_source"] = src
         return RestResponse(200, out)
+
+    def doc_get(req):
+        refuse_get_fields(req)
+        return render_get(req, client.get(
+            req.path_params["index"], req.path_params["type"], req.path_params["id"],
+            routing=req.param("routing"), parent=req.param("parent"),
+            realtime=req.bool_param("realtime", True), refresh=req.bool_param("refresh")))
 
     rc.register("GET,HEAD", "/{index}/{type}/{id}", doc_get)
 
@@ -333,6 +436,8 @@ def build_rest_controller(node) -> RestController:
                 if req.param("_source_include") else [],
                 "excludes": str(req.param("_source_exclude")).split(",")
                 if req.param("_source_exclude") else []}
+        if req.param("fields") is not None:
+            body["fields"] = str(req.param("fields")).split(",")
         if req.param("timeout") is not None:
             body["timeout"] = req.param("timeout")
         if req.param("request_cache") is not None:
@@ -346,8 +451,7 @@ def build_rest_controller(node) -> RestController:
         if later:
             raise IllegalArgumentError(
                 f"search parameter(s) {later} are not ported yet (later slices "
-                "of the port: stored fields come with the fetch slice, A6b; "
-                "profiles and traces with observability, A7)")
+                "of the port: profiles and traces come with observability, A7)")
         body = search_body(req)
         index = req.path_params.get("index", "_all")
         search_type = req.param("search_type", "query_then_fetch")
@@ -432,6 +536,81 @@ def build_rest_controller(node) -> RestController:
     rc.register("GET,POST", "/{index}/_count", count)
     rc.register("GET,POST", "/{index}/{type}/_count", count)
 
+    def suggest(req):
+        return client.suggest(req.path_params.get("index", "_all"), _parse_body(req))
+
+    rc.register("GET,POST", "/_suggest", suggest)
+    rc.register("GET,POST", "/{index}/_suggest", suggest)
+
+    def explain(req):
+        refuse_get_fields(req)
+        body = _parse_body(req)
+        if req.param("q"):
+            body = {"query": {"query_string": {"query": req.param("q")}}}
+        index, doc_type, doc_id = (req.path_params[k] for k in ("index", "type", "id"))
+        out = client.explain(index, doc_type, doc_id, body)
+        # `_source` parameters attach the document's GET section
+        if req.param("_source") is not None or req.param("_source_include") \
+                or req.param("_source_exclude"):
+            g = client.get(index, doc_type, doc_id, routing=req.param("routing"))
+            if g.get("found"):
+                rendered = render_get(req, g).body
+                out["get"] = {"found": True, **({"_source": rendered["_source"]}
+                                                if "_source" in rendered else {})}
+        return out
+
+    rc.register("GET,POST", "/{index}/{type}/{id}/_explain", explain)
+
+    def termvector(req):
+        fields = req.param("fields")
+        return client.termvector(
+            req.path_params["index"], req.path_params["type"], req.path_params["id"],
+            routing=req.param("routing"),
+            fields=fields.split(",") if fields else _parse_body(req).get("fields"),
+            positions=req.bool_param("positions", True),
+            offsets=req.bool_param("offsets", True),
+            term_statistics=req.bool_param("term_statistics", False),
+            field_statistics=req.bool_param("field_statistics", True))
+
+    rc.register("GET,POST", "/{index}/{type}/{id}/_termvector", termvector)
+    rc.register("GET,POST", "/{index}/{type}/{id}/_termvectors", termvector)
+
+    def mtermvectors(req):
+        body = _parse_body(req)
+        ids = body.get("ids") or (
+            str(req.param("ids")).split(",") if req.param("ids") else [])
+        docs = body.get("docs", []) + [{"_id": i} for i in ids]
+        for d in docs:
+            d.setdefault("_index", req.path_params.get("index"))
+            d.setdefault("_type", req.path_params.get("type", "_all"))
+            # query parameters are each document's defaults
+            for flag, default in (("term_statistics", False), ("field_statistics", True),
+                                  ("positions", True), ("offsets", True)):
+                if req.param(flag) is not None:
+                    d.setdefault(flag, req.bool_param(flag, default))
+            if req.param("routing") is not None:
+                d.setdefault("routing", req.param("routing"))
+            if req.param("fields") is not None:
+                d.setdefault("fields", str(req.param("fields")).split(","))
+        return client.mtermvectors(docs)
+
+    rc.register("GET,POST", "/_mtermvectors", mtermvectors)
+    rc.register("GET,POST", "/{index}/_mtermvectors", mtermvectors)
+    rc.register("GET,POST", "/{index}/{type}/_mtermvectors", mtermvectors)
+
+    def mlt(req):
+        fields = req.param("mlt_fields")
+        params = {k: int(req.param(k)) for k in
+                  ("min_term_freq", "min_doc_freq", "max_query_terms")
+                  if req.param(k) is not None}
+        return client.mlt(
+            req.path_params["index"], req.path_params["type"], req.path_params["id"],
+            mlt_fields=fields.split(",") if fields else None,
+            search_body=_parse_body(req) or None, routing=req.param("routing"),
+            **params)
+
+    rc.register("GET,POST", "/{index}/{type}/{id}/_mlt", mlt)
+
     def percolate(req):
         return node.percolator.percolate(
             req.path_params["index"], _parse_body(req),
@@ -502,4 +681,5 @@ def build_rest_controller(node) -> RestController:
                     timeout=float(str(r.param("timeout", "10")).rstrip("s"))))
     rc.register("GET", "/_cluster/health/{index}",
                 lambda r: client.cluster_health(index=r.path_params["index"]))
+    _register_later_routes(rc)
     return rc

@@ -3,8 +3,9 @@
 top-(from+size) by (score desc, shard asc, doc asc), or for a field sort by
 the hits' sort values (`compare_sort_values`), then shard, then doc; and
 `merge_responses` assembles `took`, `timed_out`, `_shards` (with `degraded`,
-the shards served on the host path on a device fault), `hits` and the
-reduced `aggregations` and `facets`.
+the shards served on the host path on a device fault), `hits`, the
+reduced `aggregations` and `facets`, and the shards' suggestions merged
+(`_merge_suggest`).
 
 The DFS phase of `dfs_query_then_fetch`: `collect_dfs` gathers one shard's
 document frequency for every term the query scores and the statistics of
@@ -155,8 +156,8 @@ def merge_responses(req: ParsedSearchRequest, merged: MergedTopDocs,
                     fetched_hits: list[dict], took_ms: int, total_shards: int,
                     successful: int, failures: list | None = None) -> dict:
     """The response: `took`, `timed_out`, `_shards`, `hits` (the hydrated
-    hits of the page), and the `aggregations` and `facets` reduced from every
-    shard's partials."""
+    hits of the page), the `aggregations` and `facets` reduced from every
+    shard's partials, and the shards' `suggest` entries merged."""
     resp: dict = {
         "took": took_ms,
         "timed_out": merged.timed_out,
@@ -186,4 +187,37 @@ def merge_responses(req: ParsedSearchRequest, merged: MergedTopDocs,
             partials = [p[name] for r in shard_results for p in r.facet_partials]
             facets[name] = facet_response(agg, kind, agg.finalize(agg.merge(partials)))
         resp["facets"] = facets
+    suggest = _merge_suggest(shard_results)
+    if suggest is not None:
+        resp["suggest"] = suggest
     return resp
+
+
+def _merge_suggest(shard_results: list[ShardQueryResult]) -> dict | None:
+    """The shards' suggester entries merged, as in the JAX package: each
+    entry's options unioned over the shards in their order, one option a
+    text (the highest score; the first seen on a tie), ranked by (score
+    desc, freq desc, text) and cut to 5. None when no shard suggested."""
+    any_suggest = [r.suggest for r in shard_results if r.suggest is not None]
+    if not any_suggest:
+        return None
+    out: dict = {}
+    for s in any_suggest:
+        for name, entries in s.items():
+            if name not in out:
+                out[name] = [dict(e, options=list(e["options"])) for e in entries]
+            else:
+                for mine, theirs in zip(out[name], entries):
+                    mine["options"].extend(theirs["options"])
+    for entries in out.values():
+        for e in entries:
+            seen = {}
+            for o in e["options"]:
+                key = o["text"]
+                if key not in seen or o.get("score", 0) > seen[key].get("score", 0):
+                    seen[key] = o
+            e["options"] = sorted(
+                seen.values(),
+                key=lambda o: (-o.get("score", 0), -o.get("freq", 0), o["text"]),
+            )[:5]
+    return out

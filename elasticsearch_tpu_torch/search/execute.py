@@ -54,6 +54,7 @@ the JAX package does.
 
 from __future__ import annotations
 
+import fnmatch
 import re
 import time
 from collections import Counter
@@ -113,6 +114,7 @@ from .queries import (
     HasChildQuery,
     HasParentQuery,
     IdsQuery,
+    IndicesQuery,
     MatchAllQuery,
     MatchQuery,
     MoreLikeThisQuery,
@@ -240,6 +242,14 @@ class ShardContext:
     @property
     def default_similarity(self):
         return self.similarity_service.default
+
+    def all_terms(self, field: str) -> list[str]:
+        """The field's terms over every segment, sorted (the term
+        suggester's candidates)."""
+        terms: set[str] = set()
+        for seg in self.searcher.segments:
+            terms.update(seg.term_dict.get(field, ()))
+        return sorted(terms)
 
 
 @dataclass
@@ -1568,6 +1578,19 @@ class HostScorer:
             # whole query); inside another query it matches nothing, as in
             # the JAX package
             return np.zeros(self.D, np.float32), np.zeros(self.D, bool)
+
+        if isinstance(q, IndicesQuery):
+            # the query on the named indices, no_match_query elsewhere
+            # (match_all by default, nothing for "none"); an unwired
+            # context's index (None) counts as a match. lower_flat takes
+            # no indices query: it always runs here, as in the JAX package,
+            # whose boost applies twice (in `b` and again below), kept
+            name = ctx.index_name
+            if name is None or any(fnmatch.fnmatch(name, p) for p in q.indices or []):
+                return self.eval(q.query, b * q.boost)
+            if q.no_match_none:
+                return np.zeros(self.D, np.float32), np.zeros(self.D, bool)
+            return self.eval(q.no_match_query or MatchAllQuery(), b * q.boost)
 
         raise QueryParsingError(f"unsupported query type {type(q).__name__}")
 

@@ -10,7 +10,7 @@ segment's masks pass `FILTER_CACHE_SEGMENT_BYTES`; a masked view made by
 `with_deletes` starts its own cache. A query used as a filter is not cached:
 its mask can depend on shard-wide term statistics (`common`, `mlt`).
 
-Served here: term, terms (values, not a lookup), range, prefix, exists,
+Served here: term, terms, range, prefix, exists,
 missing, ids, type, match_all, bool / and / or, not, query (a scoring query
 as a filter), regexp and script (a sandboxed expression per doc, through
 `DocAccess`); nested (a block join of the inner query or filter over the
@@ -21,12 +21,15 @@ searcher, never in the per-segment cache); and the geo filters over a
 `geo_distance_range`, `geo_bounding_box`, `geo_polygon`, `geohash_cell`)
 or a `geo_shape`'s stored shapes (`geo_shape`, its parsed shapes cached on
 the segment under `("geo_shapes",)`), with the JAX package's float64
-`haversine_m`. Indices and terms lookups are later slices of the port:
-their parsers (`search/queries.py`) raise QueryParsingError saying so.
+`haversine_m`; indices (`IndicesFilter`: the inner filter on the named
+indices, read against `ctx.index_name`, `no_match_filter` elsewhere). A
+terms lookup reaches no filter: the coordinating node resolves it into
+values first (`search/queries.py resolve_terms_lookups`).
 """
 
 from __future__ import annotations
 
+import fnmatch
 import json
 import re
 import threading
@@ -537,6 +540,40 @@ class GeoBoundingBoxFilter(Filter):
             return h & ((lons >= self.left) | (lons <= self.right))  # dateline
 
         return _geo_points_mask(seg, self.field, hit)
+
+
+@dataclass
+class IndicesFilter(Filter):
+    """The filter on the indices its patterns name, `no_match_filter`
+    elsewhere (match_all by default, nothing for "none"). The index is the
+    shard context's `index_name` (None: an unwired context, which counts as
+    a match)."""
+
+    indices: tuple
+    filter: Any = None
+    no_match_filter: Any = None  # None: match_all
+    no_match_none: bool = False
+
+    def key(self):
+        inner_key = getattr(self.filter, "key", lambda: repr(self.filter))()
+        nm_key = (getattr(self.no_match_filter, "key",
+                          lambda: repr(self.no_match_filter))()
+                  if self.no_match_filter is not None else "all")
+        return f"indices:{self.indices}:{inner_key}:{nm_key}:{self.no_match_none}"
+
+    def cacheable(self):
+        return (self.filter is None or self.filter.cacheable()) and (
+            self.no_match_filter is None or self.no_match_filter.cacheable())
+
+    def evaluate(self, seg, ctx):
+        name = getattr(ctx, "index_name", None)
+        if name is None or any(fnmatch.fnmatch(name, pat) for pat in self.indices):
+            return segment_mask(seg, self.filter, ctx)
+        if self.no_match_none:
+            return np.zeros(seg.doc_count, dtype=bool)
+        if self.no_match_filter is None:
+            return np.ones(seg.doc_count, dtype=bool)
+        return segment_mask(seg, self.no_match_filter, ctx)
 
 
 @dataclass

@@ -20,14 +20,20 @@ has_child / has_parent / top_children (`HasChildQuery`, `HasParentQuery`:
 the shard-wide join of `execute._shard_join` when the query is the whole
 query, no match inside another query, as in the JAX package) and geo_shape
 (a constant score over `GeoShapeFilter`), with the nested, has_child,
-has_parent and geo filters. The query types and filters of later slices
-raise QueryParsingError naming the slice: indices, template and terms
-lookups with the runtime that resolves them. A type the JAX package does
-not know is "unknown", as there.
+has_parent and geo filters; indices (`IndicesQuery`, `IndicesFilter`: the
+inner query or filter on the named indices, `no_match_query` elsewhere,
+read against the shard's `ShardContext.index_name`) and template (the
+`params` substituted into the query, then parsed). A terms lookup (the
+values of another document's field) is resolved by the coordinating node
+before the shards run (`resolve_terms_lookups`, against the node's GET
+path); one that reaches a shard unresolved raises QueryParsingError, as in
+the JAX package. A type the JAX package does not know is "unknown", as
+there.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field as dc_field
 from typing import Any
 
@@ -45,6 +51,7 @@ from .filters import (
     GeoShapeFilter,
     HasChildFilter,
     IdsFilter,
+    IndicesFilter,
     MatchAllFilter,
     MissingFilter,
     NestedFilter,
@@ -225,6 +232,15 @@ class BoostingQuery(Query):
 
 
 @dataclass
+class IndicesQuery(Query):
+    indices: list
+    query: Query = None
+    no_match_query: Query | None = None  # None: match_all (the default)
+    boost: float = 1.0
+    no_match_none: bool = False  # "no_match_query": "none"
+
+
+@dataclass
 class MoreLikeThisQuery(Query):
     fields: list
     like_text: str
@@ -395,8 +411,6 @@ def parse_query(body: Any) -> Query:
     kind, spec = next(iter(body.items()))
     parser = _QUERY_PARSERS.get(kind)
     if parser is None:
-        if kind in _LATER_QUERIES:
-            raise _later_slice(f"query type [{kind}]", _LATER_QUERIES[kind])
         raise QueryParsingError(f"unknown query type [{kind}]")
     return parser(spec)
 
@@ -411,8 +425,6 @@ def parse_filter(body: Any) -> Filter:
     kind, spec = next(iter(body.items()))
     parser = _FILTER_PARSERS.get(kind)
     if parser is None:
-        if kind in _LATER_FILTERS:
-            raise _later_slice(f"filter type [{kind}]", _LATER_FILTERS[kind])
         raise QueryParsingError(f"unknown filter type [{kind}]")
     return parser(spec)
 
@@ -614,7 +626,6 @@ def _parse_mlt_field(spec) -> Query:
 def _unwrap_wrapper(spec) -> Any:
     """{"query": <base64 JSON or raw JSON str>}."""
     import base64
-    import json as _json
 
     raw = spec.get("query") if isinstance(spec, dict) else spec
     if isinstance(raw, (dict, list)):
@@ -625,9 +636,45 @@ def _unwrap_wrapper(spec) -> Any:
     except Exception:  # noqa: BLE001 — not base64: treat as raw JSON
         pass
     try:
-        return _json.loads(s)
+        return json.loads(s)
     except ValueError as e:
         raise QueryParsingError(f"wrapper: malformed embedded query: {e}")
+
+
+def _parse_indices_common(spec, parse_inner):
+    """The indices query's and filter's shape: (inner, no_match, "none"
+    given, indices); `no_match_query` (`no_match_filter`) is "all" (the
+    default), "none" or a spec."""
+    inner = parse_inner(spec.get("query") if "query" in spec else spec.get("filter"))
+    nm = spec.get("no_match_query", spec.get("no_match_filter"))
+    no_match_none = isinstance(nm, str) and nm.lower() == "none"
+    no_match = parse_inner(nm) if isinstance(nm, dict) else None
+    return inner, no_match, no_match_none, _as_list(spec.get("indices", spec.get("index")))
+
+
+def _parse_indices_q(spec) -> Query:
+    inner, no_match, none, indices = _parse_indices_common(spec, parse_query)
+    return IndicesQuery(indices, inner, no_match, float(spec.get("boost", 1.0)),
+                        no_match_none=none)
+
+
+def _parse_indices_f(spec) -> Filter:
+    inner, no_match, none, indices = _parse_indices_common(spec, parse_filter)
+    return IndicesFilter(tuple(indices), inner, no_match, no_match_none=none)
+
+
+def _parse_template(spec) -> Query:
+    """`params` substituted for `{{name}}` in `query` (an object or a JSON
+    string), then the result parsed."""
+    tpl = spec.get("query")
+    params = spec.get("params") or {}
+
+    def subst(s: str) -> str:
+        for k, v in params.items():
+            s = s.replace("{{%s}}" % k, str(v))
+        return s
+
+    return parse_query(json.loads(subst(tpl if isinstance(tpl, str) else json.dumps(tpl))))
 
 
 def _parse_nested_q(spec) -> Query:
@@ -692,22 +739,6 @@ def _parse_score_function(fspec: dict) -> ScoreFunction:
     if weight is not None:
         return ScoreFunction("boost_factor", filt, factor=float(weight))
     raise QueryParsingError(f"unknown score function {list(fspec)}")
-
-
-# where each refused query type and filter is ported
-_LATER_QUERIES = {
-    "indices": "the multi-index search runtime",
-    "template": "the multi-index search runtime",
-}
-_LATER_FILTERS = {
-    "indices": "the multi-index search runtime",
-}
-
-
-def _later_slice(what: str, where: str) -> QueryParsingError:
-    return QueryParsingError(
-        f"{what} is not ported yet: it comes with {where}, a later slice of "
-        "the port")
 
 
 _QUERY_PARSERS = {
@@ -784,6 +815,8 @@ _QUERY_PARSERS = {
     "more_like_this_field": _parse_mlt_field,
     "mlt_field": _parse_mlt_field,
     "wrapper": lambda s: parse_query(_unwrap_wrapper(s)),
+    "indices": _parse_indices_q,
+    "template": _parse_template,
     "function_score": _parse_function_score,
     "nested": _parse_nested_q,
     "has_child": lambda s: HasChildQuery(s.get("type", s.get("child_type")),
@@ -809,16 +842,85 @@ def _as_list(v):
     return v if isinstance(v, list) else [v]
 
 
+def resolve_terms_lookups(body, get_fn):
+    """Rewrite the terms LOOKUP specs of a raw request body into plain value
+    lists by fetching each referenced document, once a request on the
+    coordinating node, so every shard sees the same values.
+
+    get_fn(index, type, id, routing) -> a GET response dict (or None). A
+    missing document resolves to no terms; a missing index raises (the
+    get's IndexMissingError). Returns the original object when nothing
+    needed rewriting."""
+    def walk(obj):
+        if isinstance(obj, list):
+            new = [walk(v) for v in obj]
+            return new if any(a is not b for a, b in zip(new, obj)) else obj
+        if not isinstance(obj, dict):
+            return obj
+        out = {}
+        changed = False
+        for k, v in obj.items():
+            if k in ("terms", "in") and isinstance(v, dict):
+                fields = {fk: fv for fk, fv in v.items()
+                          if not fk.startswith("_") and fk not in
+                          ("execution", "minimum_should_match",
+                           "minimum_match", "boost", "disable_coord")}
+                if len(fields) == 1:
+                    (fk, fv), = fields.items()
+                    if isinstance(fv, dict) and "id" in fv and "path" in fv:
+                        values = _fetch_lookup_terms(fv, get_fn)
+                        out[k] = {**{ok: ov for ok, ov in v.items() if ok != fk},
+                                  fk: values}
+                        changed = True
+                        continue
+            nv = walk(v)
+            changed = changed or (nv is not v)
+            out[k] = nv
+        return out if changed else obj
+
+    return walk(body)
+
+
+def _fetch_lookup_terms(spec: dict, get_fn) -> list:
+    index = spec.get("index")
+    if not index:
+        raise QueryParsingError("terms lookup requires [index]")
+    doc = get_fn(index, spec.get("type"), str(spec["id"]), spec.get("routing"))
+    src = (doc or {}).get("_source")
+    if not doc or not doc.get("found") or src is None:
+        return []
+    values: list = []
+
+    def extract(node, parts):
+        if not parts:
+            if isinstance(node, list):
+                values.extend(node)
+            elif node is not None:
+                values.append(node)
+            return
+        head, rest = parts[0], parts[1:]
+        if isinstance(node, list):
+            for item in node:
+                extract(item, parts)
+        elif isinstance(node, dict) and head in node:
+            extract(node[head], rest)
+
+    extract(src, str(spec.get("path", "")).split("."))
+    return values
+
+
 def _parse_terms_f(spec) -> Filter:
     spec = {k: v for k, v in spec.items() if k not in ("execution", "_cache", "_cache_key", "_name")}
     if len(spec) != 1:
         raise QueryParsingError("terms filter requires exactly one field")
     fname, values = next(iter(spec.items()))
     if isinstance(values, dict):
-        # a terms lookup: its values live in another document, fetched by
-        # the coordinating node before the shards run
-        raise _later_slice(f"terms lookup on [{fname}]",
-                           "the multi-index search runtime")
+        # a terms lookup: the coordinating node resolves it against the GET
+        # path before the shards run (resolve_terms_lookups); one that gets
+        # here had no coordinator
+        raise QueryParsingError(
+            f"terms lookup on [{fname}] must be resolved by the coordinating "
+            f"node (index/type/id/path get) before shard execution")
     return TermsFilter(fname, list(values))
 
 
@@ -996,5 +1098,6 @@ _FILTER_PARSERS = {
     "geo_distance_range": _parse_geo_distance_range_f,
     "has_child": _parse_has_child_f,
     "has_parent": _parse_has_parent_f,
+    "indices": _parse_indices_f,
     "wrapper": lambda s: parse_filter(_unwrap_wrapper(s)),
 }

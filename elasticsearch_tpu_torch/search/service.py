@@ -4,16 +4,19 @@ or on the host scorer — a port of the JAX package's `search/service.py`
 `_execute_flat_single`, `execute_query_phase`, `reduce_and_respond`).
 
 A body may carry `query` (none: match_all), `from`, `size`, `timeout`,
-`_source` (read by the fetch phase, `execute_fetch_phase`), `post_filter`
-(and the top-level `filter`, its older name), `min_score`, `sort`,
-`track_scores`, `aggs` (or `aggregations`), `facets`, `rescore` and
-`request_cache` (read by the shard's request cache, actions.py). Every
-other key is a request feature (suggesters, highlighting, explain,
-profiles, …) whose path is a later slice of the port: it raises
-QueryParsingError rather than being silently ignored.
+`post_filter` (and the top-level `filter`, its older name), `min_score`,
+`sort`, `track_scores`, `aggs` (or `aggregations`), `facets`, `rescore`,
+`suggest`, `explain`, `request_cache` (read by the shard's request cache,
+actions.py) and the keys the fetch phase reads (`execute_fetch_phase`,
+fetch.py): `_source`, `fields`, `stored_fields`, `script_fields`, `version`
+and `highlight`. `profile` belongs to a later slice of the port (A7): it
+raises QueryParsingError rather than being silently ignored, as does any
+other key.
 
 `execute_query_phase` takes the JAX package's branches (its
-`search/service.py` :315-603, without the suggest half):
+`search/service.py` :290-603). The body's suggesters run first
+(`run_suggest`, on the host), and their output rides the shard's result
+on every branch, a degraded one included. Then:
 
 - a body with no mask-needing feature lowers to a flat plan (a plain,
   `filtered` or `function_score` one) and runs on the card through the
@@ -21,6 +24,9 @@ QueryParsingError rather than being silently ignored.
 - aggregations alone (every one device-eligible, the query lowering without
   functions): one aggregating launch a segment (`_try_device_aggs`,
   counted `device_aggs`);
+- `explain: true` keeps a body off the branches below (they read
+  `req.explain` in the JAX package); a body with no mask-needing feature
+  stays on the flat plan, as there;
 - a `min_score` body without a post filter (nor aggs or sort) wraps its
   query in a `FunctionScoreQuery(min_score=)`: the dense function family's
   gate serves it on the card (counted `device_filtered`, as the JAX package
@@ -38,7 +44,8 @@ QueryParsingError rather than being silently ignored.
   rescore of the top window (`_apply_rescore`, the JAX package's
   QueryRescorer), the host collectors of the aggregations and facets,
   under a request-breaker reservation of `max_doc * (5 + 16 * (aggs +
-  facets))` bytes. A body with `rescore` never takes a device branch.
+  facets))` bytes. A body with `rescore` never takes a device branch, nor
+  does a gated body with `explain`.
 
 A plain, filtered or function_score plan goes through the shard's batcher
 when one is wired, so a node's plans share its batches, except under the
@@ -138,11 +145,13 @@ from .sorting import (
     sort_key_column,
     sort_values_for_docs,
 )
+from .suggest import run_suggest
 
-# the body keys this slice serves; the rest belong to later slices
+# the body keys the port serves; the rest belong to later slices
 _SERVED_KEYS = ("query", "from", "size", "timeout", "_source", "post_filter",
                 "filter", "min_score", "sort", "aggs", "aggregations", "facets",
-                "track_scores", "rescore", "request_cache")
+                "track_scores", "rescore", "request_cache", "suggest", "explain",
+                "highlight", "fields", "stored_fields", "script_fields", "version")
 
 
 @dataclass
@@ -161,6 +170,9 @@ class ParsedSearchRequest:
     timeout_s: float | None = None
     # the `rescore` specs, in order (a single object reads as a list of one)
     rescore: list = dc_field(default_factory=list)
+    # the body's `suggest` section (None: no suggester)
+    suggest: dict | None = None
+    explain: bool = False
 
 
 def parse_search_body(body: dict | None) -> ParsedSearchRequest:
@@ -169,8 +181,7 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
     if later:
         raise QueryParsingError(
             f"search body key(s) {later} are not ported yet (later slices of "
-            "the port: suggesters, highlighting, explain and stored fields "
-            "come with the fetch slice, A6b; profiles with observability, A7)")
+            "the port: profiles come with observability, A7)")
     try:
         timeout_s = parse_timevalue(body.get("timeout"))
     except ValueError as e:
@@ -196,6 +207,8 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
         track_scores=bool(body.get("track_scores", False)),
         timeout_s=timeout_s,
         rescore=rescore,
+        suggest=body.get("suggest"),
+        explain=bool(body.get("explain", False)),
     )
 
 
@@ -219,6 +232,8 @@ class ShardQueryResult:
     # served on the host path because a device fault domain was open or the
     # device attempt failed (`_shards.degraded` counts such shards)
     degraded: bool = False
+    # the shard's suggester output, {name: entries} (None: no suggester)
+    suggest: dict | None = None
 
 
 # process-wide serving counters of the port (its own singleton: a process
@@ -324,14 +339,18 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
         deadline = Deadline.after(req.timeout_s) if req.timeout_s is not None \
             else NO_DEADLINE
     k = req.from_ + req.size
+    # the suggesters never touch the card: their output rides every branch
+    suggest_out = run_suggest(ctx, req.suggest) if req.suggest else None
     if deadline.expired():
         # budget gone before any segment was scored: legal partial = nothing
         return ShardQueryResult(total=0, docs=[], max_score=float("nan"),
-                                shard_id=shard_id, timed_out=True)
+                                shard_id=shard_id, timed_out=True,
+                                suggest=suggest_out)
     degraded = False
     if use_device:
         device, degraded = _device_branch(ctx, req, k, shard_id, deadline)
         if device is not None:
+            device.suggest = suggest_out
             return device
     if req.aggs or req.facets or req.sort or req.post_filter is not None \
             or req.min_score is not None or req.rescore:
@@ -343,6 +362,7 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
                                max_score=td.max_score, shard_id=shard_id,
                                timed_out=td.timed_out)
     res.degraded = degraded
+    res.suggest = suggest_out
     return res
 
 
@@ -350,9 +370,13 @@ def _device_branch(ctx: ShardContext, req: ParsedSearchRequest, k: int,
                    shard_id: int, deadline: Deadline):
     """The device branches of the module docstring, in the JAX package's
     order: (the device's result or None, degraded). None and not degraded:
-    the host path serves the body as it would anyway (a rescore always)."""
+    the host path serves the body as it would anyway (a rescore always, and
+    a gated body with `explain`)."""
     if req.rescore:
         return None, False
+    if req.explain and (req.aggs or req.facets or req.sort or req.min_score is not None
+                        or req.post_filter is not None):
+        return None, False  # the JAX package's gated branches read `explain`
     if req.aggs and not (req.facets or req.sort) and req.post_filter is None \
             and req.min_score is None:
         return _guarded(ctx, ("aggs",), "device_aggs",
@@ -760,8 +784,9 @@ def execute_fetch_phase(ctx: ShardContext, req: ParsedSearchRequest,
     hits = []
     for score, g, sort_values in docs:
         seg, local = ctx.searcher.resolve(g)
-        hits.append(build_hit(seg, local, score, req.body, index_name=index_name,
-                              sort_values=sort_values, shard_id=shard_id))
+        hits.append(build_hit(seg, local, score, req.body, req.query, ctx,
+                              index_name=index_name, sort_values=sort_values,
+                              shard_id=shard_id))
     return hits
 
 
@@ -792,6 +817,8 @@ def reduce_and_respond(ctx: ShardContext, req: ParsedSearchRequest,
                 [p[name] for p in result.facet_partials])))
             for name, (agg, kind) in req.facets.items()
         }
+    if result.suggest is not None:
+        resp["suggest"] = result.suggest
     return resp
 
 

@@ -48,6 +48,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "common.devicehealth", "common.retry", "transport.faults",
                  "percolator", "common.events", "common.metrics",
                  "analysis.core", "search.similarity", "common.names",
-                 "common.settings", "common.errors"):
+                 "common.settings", "common.errors", "search.suggest",
+                 "search.request_cache"):
         assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []

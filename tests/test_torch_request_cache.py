@@ -376,11 +376,19 @@ def _wait(pred, what: str, timeout: float = 20.0):
     raise AssertionError(f"timed out waiting for {what}")
 
 
+def _warmer_idle(node) -> bool:
+    pool = node.threadpool.stats()["warmer"]
+    return pool["queue"] == 0 and pool["active"] == 0
+
+
 def _reprime_round(pbase, jbase, p, j, body, start):
     """Sight `body` twice (a store, then a hit), write to one shard and
-    refresh; returns the warmer stats before the write."""
+    refresh; returns the warmer stats before the write, read once both
+    warmers are idle (a re-prime an earlier write scheduled must not count
+    as this write's)."""
     for _ in range(2):
         _same(*[call(b, "POST", "/rc/_search", body)[1] for b in (pbase, jbase)])
+    _wait(lambda: _warmer_idle(p) and _warmer_idle(j), "idle warmers")
     warm = [n.warmer.stats() for n in (p, j)]
     for base in (pbase, jbase):
         _write(base, start, 1)

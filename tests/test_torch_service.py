@@ -186,23 +186,27 @@ def test_two_shard_reduce_matches_jax(two_shards):
 
 
 # served since the host scorer (post_filter, filter, min_score), the field
-# sort and aggregations, and the search runtime (rescore): each key with a
-# value the parse keeps
+# sort and aggregations, the search runtime (rescore) and the fetch slice
+# (suggest, highlight, explain): each key with a value the parse keeps
 _RESCORE = {"window_size": 5, "query": {"rescore_query": {"match": {"body": "w2"}}}}
+_SUGGEST = {"s": {"text": "w1", "term": {"field": "body"}}}
 _SERVED_FEATURES = {"post_filter": {"term": {"body": "w1"}},
                     "filter": {"term": {"body": "w1"}}, "min_score": 0.5,
                     "aggs": {"m": {"max": {"field": "n"}}},
                     "aggregations": {"m": {"max": {"field": "n"}}},
-                    "sort": [{"n": "desc"}], "rescore": _RESCORE}
+                    "sort": [{"n": "desc"}], "rescore": _RESCORE,
+                    "suggest": _SUGGEST, "highlight": {"fields": {"body": {}}},
+                    "explain": True}
 
 
 @pytest.mark.parametrize("key", ["aggs", "aggregations", "sort", "post_filter",
                                  "filter", "rescore", "min_score", "suggest",
                                  "highlight", "explain", "profile"])
 def test_unported_request_features_raise(key):
-    """The request features of later slices raise; `post_filter`, its older
-    name `filter`, `min_score`, `sort`, the aggregations and `rescore` parse
-    into the request."""
+    """The request features of later slices (`profile`) raise;
+    `post_filter`, its older name `filter`, `min_score`, `sort`, the
+    aggregations, `rescore`, `suggest`, `highlight` and `explain` parse into
+    the request."""
     body = {"query": {"match": {"body": "w1"}}, key: _SERVED_FEATURES.get(key, {})}
     if key not in _SERVED_FEATURES:
         with pytest.raises(QueryParsingError, match="later slice"):
@@ -217,6 +221,10 @@ def test_unported_request_features_raise(key):
         assert (req.min_score, req.post_filter) == (0.5, None)
     elif key == "rescore":
         assert req.rescore == [_RESCORE] and req.post_filter is None
+    elif key in ("suggest", "highlight", "explain"):
+        assert (req.suggest, req.explain, req.body[key]) == (
+            _SUGGEST if key == "suggest" else None, key == "explain",
+            _SERVED_FEATURES[key])
     else:
         assert (req.min_score, req.post_filter) == (None, TermFilter("body", "w1"))
 
