@@ -373,6 +373,32 @@ those paths against its plain torch version on the card. Phases:
      to its plain counterpart), each request's wall and launches printed.
      The kernel bitwise equal to its plain version at every shape phase 21
      launched.
+ 22. documents under search, on a node of its own (`indices.ttl.interval:
+     1s`): `website` (5 shards, `refresh_interval: 1s`; type `blog`, 5,000
+     posts of phase 10's texts with `title`, `body`, one of 50 not-analyzed
+     `tags` and `views`, `_timestamp` on; type `draft`, 500) and `sessions`
+     (1 shard, `_ttl` default 3s). Timed: 512 requests from 16
+     connections, 40% phase 10's `bool` searches, 25% `_update` scripts
+     `ctx._source.views += n` on a zipf-hot set of 200 posts with
+     `retry_on_conflict: 5`, 10% `_update` with a `doc` that replaces
+     `title` and `body`, 10% `_mget` of 10 (half `docs`, half `ids`), 10%
+     GET `_source` with `_source_include`, 5% `_create` (half taken: 409);
+     then a `_bulk` of 500 `update` items, a delete-by-query of 5 tags
+     (about 10% of the posts) while 128 searches run, `DELETE
+     _mapping/draft`, and the TTL leg (2,000 sessions, then `_count` polled
+     to 0). Checked, after a final `_refresh`: every acknowledged write read
+     back (`views` equal to the acknowledged increments, each `doc` merge,
+     each created id); 256 searches equal to the shards' host query phases,
+     none naming a deleted, dropped or purged document; `_count` per tag
+     equal to a count of the expected sources; `sparse_score` bitwise
+     against its plain version at every shape the phase launched over the
+     tombstoned views; no query-path pack after the gate. Printed:
+     requests/s and p50/p99 by family, the mix's CPU by span (the query
+     phase, `_update`, the background merges, the warm packs), conflicts and
+     retries, an `_update`'s CPU by round trip and script, the delete-by-query's wall
+     (resolve, tombstone, refresh, repack), searches/s beside writes and
+     alone, the purge's lag from expiry to `_count` 0, the device's idle
+     share over a profiled window, and the phase's launches.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -537,6 +563,25 @@ RUNTIME_CONN = 16
 # documents and shards
 FETCH_REQUESTS, FETCH_CONN, FETCH_PROFILED = 128, 16, 64
 FETCH_SMALL_DOCS, FETCH_SHARDS = 2000, 3
+# phase 22 on a node of its own: `website` posts (5,000, cut from a site's
+# hundreds of thousands: from 20,000 after a 190 s phase on the card, and
+# from 10,000 after a 136 s phase on a slow host, where the background
+# merges' Python walk took 36 CPU s of the mix) and drafts, `sessions`;
+# the timed traffic (512 requests, cut from 2,048 after the first run and
+# from 1,024 after a 160 s phase at 10,000 posts) and
+# its connections, its mix by family, the hot posts and their zipf
+# exponent, the tags and the tags deleted by query; the bulk of updates
+# (500, cut from 1,000 with it), the searches beside the delete-by-query,
+# the checked searches, the update CPU leg, the no-write search leg and the
+# profiled window (64 each, cut from 256 with it)
+DOC_POSTS, DOC_DRAFTS, DOC_SESSIONS = 5_000, 500, 2_000
+DOC_REQUESTS, DOC_CONN = 512, 16
+DOC_MIX = (("search", 0.40), ("increment", 0.25), ("doc", 0.10), ("mget", 0.10),
+           ("source", 0.10), ("create", 0.05))
+DOC_HOT, DOC_HOT_ZIPF, DOC_TAGS, DOC_DBQ_TAGS = 200, 1.1, 50, 5
+DOC_BULK_UPDATES, DOC_DBQ_SEARCHES, DOC_CHECKS = 500, 128, 256
+DOC_UPDATE_CPU, DOC_SEARCH_ONLY, DOC_PROFILED = 64, 64, 64
+DOC_TTL_S = 3.0  # `sessions`' default TTL; the purger runs every second
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -1030,7 +1075,10 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         geo_requests: int = GEO_REQUESTS, runtime_dfs: int = RUNTIME_DFS,
         runtime_bm25_docs: int = RUNTIME_BM25_DOCS, runtime_mixed: int = RUNTIME_MIXED,
         runtime_cache: int = RUNTIME_CACHE, runtime_rescore: int = RUNTIME_RESCORE,
-        fetch_requests: int = FETCH_REQUESTS, fetch_docs: int = FETCH_SMALL_DOCS) -> dict:
+        fetch_requests: int = FETCH_REQUESTS, fetch_docs: int = FETCH_SMALL_DOCS,
+        doc_posts: int = DOC_POSTS, doc_drafts: int = DOC_DRAFTS,
+        doc_sessions: int = DOC_SESSIONS, doc_requests: int = DOC_REQUESTS,
+        doc_bulk_updates: int = DOC_BULK_UPDATES, doc_checks: int = DOC_CHECKS) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.common import cudaenv
@@ -1434,6 +1482,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         device, seed=seed + 19, n_posts=geo_posts, n_branches=geo_branches,
         n_employees=geo_employees, n_requests=geo_requests)
 
+    # -- 22. documents under search on a node of its own ----------------------
+    report["documents"] = documents = documents_phase(
+        device, vocab=vocab, seed=seed + 22, n_posts=doc_posts, n_drafts=doc_drafts,
+        n_sessions=doc_sessions, n_requests=doc_requests,
+        n_bulk_updates=doc_bulk_updates, n_checks=doc_checks)
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1465,7 +1519,11 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         geo_nested_launches=geo["launches"].get("sparse_score", 0),
         geo_nested_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                            for s in geo["kernel_shapes"]],
-        geo_nested_max_abs_err=geo["kernel_max_abs_err"])]
+        geo_nested_max_abs_err=geo["kernel_max_abs_err"],
+        documents_launches=documents["launches"].get("sparse_score", 0),
+        documents_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                          for s in documents["kernel_shapes"]],
+        documents_max_abs_err=documents["kernel_max_abs_err"])]
     return report
 
 
@@ -6759,6 +6817,612 @@ def geo_nested_phase(device, *, seed: int, n_posts: int = GEO_POSTS,
         shutil.rmtree(data_path, ignore_errors=True)
         for index in ("blogposts", "company"):
             PACK_LEDGER.forget(index)
+
+
+# ---------------------------------------------------------------------------
+# phase 22: documents under search
+# ---------------------------------------------------------------------------
+
+DOC_BLOG = {"properties": {"title": {"type": "string"}, "body": {"type": "string"},
+                           "tags": {"type": "string", "index": "not_analyzed"},
+                           "views": {"type": "integer"}},
+            "_timestamp": {"enabled": True}}
+
+
+def tag_name(t: int) -> str:
+    return f"tag{t:02d}"
+
+
+class ConflictCount:
+    """Counts, while installed (a `with` block), the VersionConflictErrors
+    the index round trip of an `_update` raises (each is retried while
+    `retry_on_conflict` lasts, then answered 409)."""
+
+    def __init__(self, owner):
+        self.owner, self.n, self.lock = owner, 0, threading.Lock()
+
+    def __enter__(self):
+        from elasticsearch_tpu_torch.common.errors import VersionConflictError
+
+        self.orig = orig = self.owner.index_doc
+        counter = self
+
+        def index_doc(*args, **kwargs):
+            try:
+                return orig(*args, **kwargs)
+            except VersionConflictError:
+                with counter.lock:
+                    counter.n += 1
+                raise
+
+        self.owner.index_doc = index_doc
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.index_doc = self.orig
+
+
+def documents_phase(device, *, vocab: int, seed: int, n_posts: int = DOC_POSTS,
+                    n_drafts: int = DOC_DRAFTS, n_sessions: int = DOC_SESSIONS,
+                    n_requests: int = DOC_REQUESTS, n_bulk_updates: int = DOC_BULK_UPDATES,
+                    n_checks: int = DOC_CHECKS, n_conn: int = DOC_CONN) -> dict:
+    """Phase 22: a port Node of its own on `device` (`indices.ttl.interval:
+    1s`) holding `website` (5 shards, `refresh_interval: 1s`; `blog` posts
+    and `draft`s) and `sessions` (1 shard, `_ttl` default 3s): search on the
+    card while documents are updated, created, deleted by query, dropped
+    with their type and expired. Every acknowledged write is read back,
+    every checked search equals the shards' host query phases and names no
+    deleted document, and `sparse_score` is bitwise against its plain
+    version at every shape the phase launched over the tombstoned views."""
+    import http.client
+    from collections import Counter
+
+    import torch
+
+    from elasticsearch_tpu_torch import actions as tactions
+    from elasticsearch_tpu_torch import warmer as twarmer
+    from elasticsearch_tpu_torch.actions import A_GET, A_INDEX_PRIMARY, A_SHARD_BROADCAST
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.index import engine as tengine
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.mapper.core import DocumentMapper
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.script import UpdateScript
+    from elasticsearch_tpu_torch.search import (
+        ShardContext, execute_query_phase, parse_search_body, sort_docs)
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    rng = np.random.default_rng(seed)
+    n_extra = 1024  # texts for the `doc` updates and the created posts
+    texts, offsets, inv_docs = node_corpus(n_posts + n_extra, vocab, seed)
+    tag_of = rng.integers(0, DOC_TAGS, n_posts)
+    dbq_tags = [tag_name(t) for t in range(10, 10 + DOC_DBQ_TAGS)]
+
+    def post(text: str, tag: int) -> dict:
+        return {"title": " ".join(text.split()[:5]), "body": text,
+                "tags": [tag_name(int(tag))], "views": 0}
+
+    expected = {str(i): post(texts[i], tag_of[i]) for i in range(n_posts)}
+    safe = [str(i) for i in rng.permutation(n_posts) if tag_name(tag_of[i]) not in dbq_tags]
+    hot = safe[:DOC_HOT]
+    hot_p = 1.0 / np.arange(1, DOC_HOT + 1) ** DOC_HOT_ZIPF
+    hot_p /= hot_p.sum()
+    doc_ids = iter(safe[DOC_HOT:])  # each `doc` update edits a post of its own
+    extra = iter(range(n_posts, n_posts + n_extra))
+    new_ids = iter(range(10 ** 6))
+    df = np.diff(offsets)
+    ranked = np.argsort(-df, kind="stable")
+    rows = rng.choice(ranked[RANKS[0]: RANKS[1]], size=(4096, TERMS_PER_QUERY))
+    bodies = [{"query": {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                             for t in row]}}, "size": NODE_SIZE}
+              for row in rows]
+    body_it = iter(bodies)
+    families = [f for f, _p in DOC_MIX]
+    mix_p = np.array([p for _f, p in DOC_MIX])
+
+    def traffic(n: int):
+        """`n` requests of the mix: [(method, path, body, None)] and beside
+        each (family, key, what it writes when acknowledged)."""
+        reqs, meta = [], []
+        for fam in rng.choice(families, size=n, p=mix_p / mix_p.sum()):
+            if fam == "search":
+                reqs.append(("POST", "/website/_search", next(body_it), None))
+                meta.append((fam, None, None))
+            elif fam == "increment":
+                key = hot[int(rng.choice(DOC_HOT, p=hot_p))]
+                reqs.append(("POST", f"/website/blog/{key}/_update?retry_on_conflict=5",
+                             {"script": "ctx._source.views += n", "params": {"n": 1}}, None))
+                meta.append((fam, key, None))
+            elif fam == "doc":
+                key, new = next(doc_ids), post(texts[next(extra)], 0)
+                edit = {"title": new["title"], "body": new["body"]}
+                reqs.append(("POST", f"/website/blog/{key}/_update", {"doc": edit}, None))
+                meta.append((fam, key, edit))
+            elif fam == "mget":
+                ids = [str(i) for i in rng.choice(n_posts, 10, replace=False)]
+                if rng.random() < 0.5:
+                    reqs.append(("POST", "/website/blog/_mget", {"ids": ids}, None))
+                else:
+                    reqs.append(("POST", "/_mget", {"docs": [
+                        {"_index": "website", "_type": "blog", "_id": i} for i in ids]}, None))
+                meta.append((fam, ids, None))
+            elif fam == "source":
+                key = str(int(rng.integers(n_posts)))
+                reqs.append(("GET", f"/website/blog/{key}/_source?_source_include=title,views",
+                             None, None))
+                meta.append((fam, key, None))
+            else:  # create: half new ids, half taken
+                if rng.random() < 0.5:
+                    key = f"new{next(new_ids)}"
+                    src = post(texts[next(extra)], rng.integers(DOC_TAGS))
+                else:
+                    key, src = str(int(rng.integers(n_posts))), {"title": "taken"}
+                reqs.append(("PUT", f"/website/blog/{key}/_create", src, None))
+                meta.append((fam, key, src))
+        return reqs, meta
+
+    acked = Counter()  # hot post -> acknowledged increments
+    tally = Counter()  # (family, outcome) -> requests
+
+    def account(meta, responses):
+        """Fold a leg's answers into `expected` and the tallies; a request
+        that failed in a way its family does not allow fails the phase."""
+        for (fam, key, payload), (st, r) in zip(meta, responses):
+            if fam == "search":
+                assert st == 200 and r["_shards"] == SHARDS_OK, (fam, st, r)
+            elif fam == "increment":
+                assert st in (200, 409), (fam, key, st, r)
+                if st == 200:
+                    acked[key] += 1
+                    expected[key]["views"] += 1
+            elif fam == "doc":
+                assert st == 200, (fam, key, st, r)
+                expected[key].update(payload)
+            elif fam == "mget":
+                assert st == 200 and [d["_id"] for d in r["docs"]] == key and \
+                    all(d["found"] for d in r["docs"]), (fam, st, r)
+            elif fam == "source":
+                assert st == 200 and "title" in r and set(r) <= {"title", "views"}, r
+            else:
+                taken = not key.startswith("new")
+                assert st == (409 if taken else 201), (fam, key, st, r)
+                if not taken:
+                    expected[key] = dict(payload)
+            tally[(fam, st)] += 1
+
+    data_path = Path(__file__).resolve().parent / "build" / f"chip_smoke_docs_{os.getpid()}"
+    shutil.rmtree(data_path, ignore_errors=True)
+    node = Node(name="documents", registry=LocalTransportRegistry(),
+                data_path=str(data_path),
+                settings={"node.device": str(device), "indices.ttl.interval": "1s"}).start()
+    recorder = None
+    launches: dict = {}
+    steps: dict = {}
+
+    def take() -> dict:
+        snap = cudaenv.LAUNCHES.snapshot()
+        cudaenv.LAUNCHES.reset()
+        for name, n in snap.items():
+            launches[name] = launches.get(name, 0) + n
+        return snap
+
+    def drained() -> bool:
+        st = node.warmer.stats()
+        return st["packs_done"] >= st["packs_scheduled"]
+
+    def wait_drained(timeout: float = 120.0):
+        deadline = time.perf_counter() + timeout
+        while not drained():
+            assert time.perf_counter() < deadline, f"warmer not drained: {node.warmer.stats()}"
+            time.sleep(0.01)
+
+    def by_family(meta, lat_ms) -> dict:
+        fams = np.array([m[0] for m in meta])
+        out = {}
+        for f in families:
+            lat = lat_ms[fams == f]
+            if len(lat):
+                out[f] = dict(requests=int(len(lat)), p50_ms=float(np.percentile(lat, 50)),
+                              p99_ms=float(np.percentile(lat, 99)))
+        return out
+
+    try:
+        port = node.start_http(0).port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        st, r = http_json(conn, "PUT", "/website", {
+            "settings": {"number_of_shards": NODE_SHARDS, "number_of_replicas": 0,
+                         "refresh_interval": "1s"},
+            "mappings": {"blog": DOC_BLOG, "draft": DOC_BLOG}})
+        assert st == 200 and r["acknowledged"], r
+        st, r = http_json(conn, "PUT", "/sessions", {
+            "settings": {"number_of_shards": 1, "number_of_replicas": 0},
+            "mappings": {"session": {"_ttl": {"enabled": True, "default": f"{DOC_TTL_S:g}s"},
+                                     "properties": {"user": {"type": "string",
+                                                             "index": "not_analyzed"}}}}})
+        assert st == 200 and r["acknowledged"], r
+
+        # -- the posts and drafts by _bulk ----------------------------------
+        t0 = time.perf_counter()
+        docs = [("blog", str(i), expected[str(i)]) for i in range(n_posts)] + \
+            [("draft", f"d{i}", post(texts[i], 40 + i % 10)) for i in range(n_drafts)]
+        for lo in range(0, len(docs), NODE_BULK):
+            lines = []
+            for type_name, doc_id, src in docs[lo: lo + NODE_BULK]:
+                lines.append(json.dumps({"index": {"_index": "website", "_type": type_name,
+                                                   "_id": doc_id}}))
+                lines.append(json.dumps(src))
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], (st, r.get("items", [])[:2])
+        st, r = http_json(conn, "POST", "/website/_refresh")
+        assert st == 200 and r["_shards"]["failed"] == 0, r
+        steps["bulk"] = bulk_s = time.perf_counter() - t0
+        log(f"[22] `website` on {device}: {n_posts} posts and {n_drafts} drafts over HTTP "
+            f"in _bulk requests of {NODE_BULK} into {NODE_SHARDS} shards: "
+            f"{len(docs) / bulk_s:.1f} docs/s ({bulk_s:.1f} s); {card}")
+
+        # -- the gate: every shard's first search packs inline; none after --
+        t0 = time.perf_counter()
+        warm, _l, _w = http_requests(port, [("POST", "/website/_search", b, None)
+                                            for b in bodies[-2 * n_conn:]], n_conn)
+        assert all(st == 200 for st, _r in warm), warm[:2]
+        wait_drained()
+        PACK_LEDGER.forget("website")
+        stolen0 = node.warmer.stats()["packs_stolen"]
+        steps["warm"] = time.perf_counter() - t0
+        recorder = LaunchRecorder(scoring, sparse_score)
+        # the phase counts from here: nothing launched before (an earlier
+        # phase, this phase's gate) is its own
+        cudaenv.LAUNCHES.reset()
+
+        # -- searches alone: the same bodies with no writes on this node -----
+        alone_bodies = bodies[-2 * n_conn - DOC_SEARCH_ONLY: -2 * n_conn]
+        got, lat, wall = http_requests(port, [("POST", "/website/_search", b, None)
+                                              for b in alone_bodies], n_conn)
+        assert all(st == 200 and r["_shards"] == SHARDS_OK for st, r in got), got[:2]
+        alone = dict(requests=len(alone_bodies), searches_per_s=len(alone_bodies) / wall,
+                     p50_ms=float(np.percentile(lat, 50)),
+                     p99_ms=float(np.percentile(lat, 99)),
+                     sparse_launches=take().get("sparse_score", 0))
+        steps["searches_alone"] = wall
+
+        # -- the timed mix ----------------------------------------------------
+        reqs, meta = traffic(n_requests)
+        counter = ConflictCount(tactions.ActionModule)
+        mclock = SpanClock([
+            ("query phase (search pool)", tactions, "execute_query_phase"),
+            ("_update (coordinator)", tactions.ActionModule, "update_doc"),
+            ("refresh (refresh pool and writes)", Engine, "refresh"),
+            ("merge_segments (merge pool)", tengine, "merge_segments"),
+            ("warm packs (warmer and merge pools)", twarmer, "run_warm")])
+        with counter, mclock:
+            cpu0, process0 = thread_cpu_s(), time.process_time()
+            responses, lat_ms, wall_s = http_requests(port, reqs, n_conn)
+            host_cpu = host_cpu_split(cpu0, thread_cpu_s(), time.process_time() - process0)
+        account(meta, responses)
+        mix_tally = {f"{f}:{s}": n for (f, s), n in sorted(tally.items())}
+        mixed_launches = take()
+        steps["mixed"] = wall_s
+        n_search = sum(1 for m in meta if m[0] == "search")
+        exhausted = tally[("increment", 409)]
+        mixed = dict(requests=len(reqs), connections=n_conn, wall_s=wall_s,
+                     requests_per_s=len(reqs) / wall_s, searches=n_search,
+                     searches_per_s=n_search / wall_s,
+                     latency_by_family=by_family(meta, lat_ms), host_cpu_s=host_cpu,
+                     process_cpu_s=sum(host_cpu.values()), spans=mclock.report(),
+                     conflicts=counter.n, retries=counter.n - exhausted,
+                     increments_409=exhausted, launches=mixed_launches)
+        if on_card:
+            assert mixed_launches.get("sparse_score", 0) > 0, "no launch beside the writes"
+
+        # -- the device's idle share over a profiled window of the mix ---------
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            preqs, pmeta = traffic(DOC_PROFILED)
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                presp, _pl, pwall = http_requests(port, preqs, n_conn)
+            account(pmeta, presp)
+            mixed["profiled"] = device_busy(prof, pwall * 1e3)
+            take()
+            steps["profiled"] = time.perf_counter() - t0
+
+        # -- an _update's CPU: its get round trip, its script, its index round
+        # trip (4 connections, nothing else running) ----------------------------
+        ureqs, umeta = [], []
+        for _ in range(DOC_UPDATE_CPU):
+            key = hot[int(rng.choice(DOC_HOT, p=hot_p))]
+            ureqs.append(("POST", f"/website/blog/{key}/_update?retry_on_conflict=5",
+                          {"script": "ctx._source.views += n", "params": {"n": 1}}, None))
+            umeta.append(("increment", key, None))
+        handlers = node.transport.handlers
+        uclock = SpanClock([
+            ("_update (coordinator)", tactions.ActionModule, "update_doc"),
+            ("  get round trip", tactions.ActionModule, "get_doc"),
+            ("    shard GET (get pool)", handlers[A_GET], "fn"),
+            ("  script", UpdateScript, "run"),
+            ("  index round trip", tactions.ActionModule, "index_doc"),
+            ("    shard index (index pool)", handlers[A_INDEX_PRIMARY], "fn"),
+            ("      mapper parse", DocumentMapper, "parse")])
+        with uclock:
+            uresp, ulat, uwall = http_requests(port, ureqs, 4)
+        steps["update_cpu"] = uwall
+        account(umeta, uresp)
+        update_cpu = dict(requests=len(ureqs), wall_s=uwall,
+                          p50_ms=float(np.percentile(ulat, 50)), spans=uclock.report())
+
+        # -- a _bulk of update items -------------------------------------------
+        keys = [hot[int(i)] for i in rng.choice(DOC_HOT, size=n_bulk_updates, p=hot_p)]
+        lines = []
+        for key in keys:
+            lines += [json.dumps({"update": {"_index": "website", "_type": "blog",
+                                             "_id": key}}),
+                      json.dumps({"script": "ctx._source.views += 1"})]
+        t0 = time.perf_counter()
+        st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+        steps["bulk_updates"] = bulk_updates_s = time.perf_counter() - t0
+        assert st == 200 and not r["errors"], [i for i in r["items"] if "error" in i["update"]][:2]
+        for key, item in zip(keys, r["items"]):
+            assert item["update"]["status"] == 200 and item["update"]["_id"] == key, item
+            acked[key] += 1
+            expected[key]["views"] += 1
+
+        # -- delete-by-query of 5 tags while searches run ----------------------
+        deleted = {k for k, src in expected.items() if set(src["tags"]) & set(dbq_tags)}
+        dclock = SpanClock([
+            ("shard delete-by-query (management pool)", handlers[A_SHARD_BROADCAST], "fn"),
+            ("  resolve (host_match_mask)", tactions, "host_match_mask"),
+            ("  tombstone (delete_by_uids)", Engine, "delete_by_uids"),
+            ("  refresh (every caller)", Engine, "refresh")])
+        beside = {}
+        searches = [("POST", "/website/_search", next(body_it), None)
+                    for _ in range(DOC_DBQ_SEARCHES)]
+        runner = threading.Thread(target=lambda: beside.update(
+            r=http_requests(port, searches, n_conn)))
+        with dclock:
+            runner.start()
+            t0 = time.perf_counter()
+            st, r = http_json(conn, "DELETE", "/website/blog/_query", {"query": {
+                "filtered": {"filter": {"terms": {"tags": dbq_tags}}}}})
+            dbq_s = time.perf_counter() - t0
+            runner.join(timeout=600)
+        assert st == 200 and r["_indices"]["website"]["deleted"] == len(deleted), \
+            (r, len(deleted))
+        t0 = time.perf_counter()
+        wait_drained()
+        repack_s = time.perf_counter() - t0
+        got, blat, bwall = beside["r"]
+        assert all(s == 200 and g["_shards"] == SHARDS_OK for s, g in got), got[:2]
+        for key in deleted:
+            expected.pop(key)
+        dbq = dict(deleted=len(deleted), share=len(deleted) / (n_posts + sum(
+            1 for k in expected if k.startswith("new"))), wall_s=dbq_s, repack_s=repack_s,
+                   spans=dclock.report(), searches_beside=len(searches),
+                   searches_beside_per_s=len(searches) / bwall,
+                   searches_beside_p50_ms=float(np.percentile(blat, 50)),
+                   searches_beside_p99_ms=float(np.percentile(blat, 99)))
+        steps["delete_by_query"] = bwall
+        take()
+
+        # -- DELETE _mapping of `draft` ----------------------------------------
+        t0 = time.perf_counter()
+        st, r = http_json(conn, "DELETE", "/website/_mapping/draft")
+        drop_s = time.perf_counter() - t0
+        assert st == 200 and r == {"acknowledged": True}, r
+        st, r = http_json(conn, "GET", "/website/_mapping")
+        assert st == 200 and list(r["website"]["mappings"]) == ["blog"], r
+
+        # -- the TTL leg: sessions expire and the purger deletes them -----------
+        t0 = time.perf_counter()
+        for lo in range(0, n_sessions, NODE_BULK):
+            lines = []
+            for i in range(lo, min(lo + NODE_BULK, n_sessions)):
+                lines += [json.dumps({"index": {"_index": "sessions", "_type": "session",
+                                                "_id": str(i)}}),
+                          json.dumps({"user": f"u{i % 97}"})]
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], r.get("items", [])[:2]
+        t_written = time.perf_counter()
+        st, r = http_json(conn, "POST", "/sessions/_refresh")
+        st, r = http_json(conn, "GET", "/sessions/_count")
+        assert st == 200 and r["count"] > 0, r
+        counted = r["count"]
+        while True:
+            st, r = http_json(conn, "GET", "/sessions/_count")
+            if r["count"] == 0:
+                break
+            assert time.perf_counter() - t_written < DOC_TTL_S + 30, r
+            time.sleep(0.05)
+        purge_lag_s = time.perf_counter() - (t_written + DOC_TTL_S)
+        ttl = dict(sessions=n_sessions, bulk_s=t_written - t0, counted_after_bulk=counted,
+                   lag_s=purge_lag_s)
+        steps["ttl"] = time.perf_counter() - t0
+
+        # -- the checks, after a final _refresh --------------------------------
+        t0 = time.perf_counter()
+        st, r = http_json(conn, "POST", "/website/_refresh")
+        assert st == 200, r
+        wait_drained()
+        # since the gate, every query-path pack was a warm pack the warmer had
+        # scheduled and a racing search ran first (a steal, by design since
+        # the write path's slice): no view went unscheduled
+        ledger = PACK_LEDGER.stats("website")
+        query_path = {p: n for p, n in ledger.get("pools", {}).items()
+                      if p not in ("warmer", "merge")}
+        stolen = node.warmer.stats()["packs_stolen"] - stolen0
+        assert sum(query_path.values()) == stolen, (ledger.get("pools"), stolen)
+        PACK_LEDGER.forget("website")
+        # every acknowledged write read back (and every deleted one gone)
+        keys = sorted(set(expected) | deleted | {k for k in hot})
+        wrong = []
+        for lo in range(0, len(keys), 500):
+            chunk = keys[lo: lo + 500]
+            st, r = http_json(conn, "POST", "/website/blog/_mget", {"ids": chunk})
+            assert st == 200, r
+            for key, d in zip(chunk, r["docs"]):
+                want = expected.get(key)
+                if (want is None) == d["found"] or (want is not None and d["_source"] != want):
+                    wrong.append((key, d, want))
+        assert not wrong, wrong[:3]
+        assert all(expected[k]["views"] == acked[k] for k in hot), "views != acknowledged"
+        # the checked searches, through the card over the tombstoned views
+        svc = node.indices.index_service("website")
+        check_bodies = [next(body_it) for _ in range(n_checks)]
+        take()
+        got, _l, check_wall = http_requests(port, [("POST", "/website/_search", b, None)
+                                                   for b in check_bodies], n_conn)
+        check_launches = take()
+        searchers = [svc.shard(sid).engine.acquire_searcher() for sid in range(NODE_SHARDS)]
+        dead = sum(int((~seg.live).sum()) for sr in searchers for seg in sr.segments)
+        assert dead > 0, "no tombstone in the views the checks searched"
+        ctxs = [ShardContext(sr, svc.mapper_service, svc.similarity_service, device=device)
+                for sr in searchers]
+        hits_seen = 0
+        for i, ((st, r), body) in enumerate(zip(got, check_bodies)):
+            assert st == 200 and r["_shards"] == SHARDS_OK, (i, r)
+            req = parse_search_body(body)
+            res = [execute_query_phase(c, req, use_device=False, shard_id=sid)
+                   for sid, c in enumerate(ctxs)]
+            merged = sort_docs(req, res)
+            assert r["hits"]["total"] == merged.total, (i, r["hits"]["total"], merged.total)
+            want = []
+            for score, sid, doc, sv in merged.hits[: req.size]:
+                seg, local = searchers[sid].resolve(doc)
+                want.append((score, (sid, seg.ids[local]), sv))
+            have = [(h["_score"], (h["_shard"], h["_id"]), None) for h in r["hits"]["hits"]]
+            assert shard_docs_match(have, want, False), (i, have, want)
+            for h in r["hits"]["hits"]:
+                assert h["_type"] == "blog" and h["_id"] in expected, h
+            hits_seen += len(have)
+        assert hits_seen > 0
+        if on_card:
+            assert check_launches.get("sparse_score", 0) > 0, check_launches
+        # _count per tag, against the expected sources
+        by_tag = Counter(t for src in expected.values() for t in src["tags"])
+        for t in range(DOC_TAGS):
+            st, r = http_json(conn, "POST", "/website/_count",
+                              {"query": {"term": {"tags": tag_name(t)}}})
+            assert st == 200 and r["count"] == by_tag.get(tag_name(t), 0), (t, r)
+        st, r = http_json(conn, "POST", "/website/_count", {"query": {"filtered": {
+            "filter": {"type": {"value": "draft"}}}}})
+        assert r["count"] == 0, r
+        st, r = http_json(conn, "POST", "/sessions/_search", {"query": {"match_all": {}}})
+        assert st == 200 and r["hits"]["total"] == 0, r
+        # and none at all over the checks, on the drained views
+        check_pools = dict(PACK_LEDGER.stats("website").get("pools", {}))
+        assert set(check_pools) <= {"warmer", "merge"}, check_pools
+        steps["checks"] = time.perf_counter() - t0
+        conn.close()
+        take()  # the `_count` checks' launches too
+        recorder.close()
+
+        # -- the kernel at phase 22's shapes ---------------------------------
+        t0 = time.perf_counter()
+        recorded = sum(n for _args, _kwargs, n in recorder.shapes.values())
+        if on_card:  # every counted launch is one the shapes' checks hold
+            assert launches.get("sparse_score", 0) == recorded, (launches, recorded)
+        max_err = check_shapes(recorder.shapes)
+        shapes = [dict(Qb=int(args[0].shape[0]), TB=int(args[0].shape[1]),
+                       tf=str(args[10].dtype), k=kwargs["k"], launches=n)
+                  for _key, (args, kwargs, n) in recorder.shapes.items()]
+        steps["kernel_checks"] = time.perf_counter() - t0
+        out = dict(posts=n_posts, drafts=n_drafts, card=card, bulk_s=bulk_s,
+                   searches_alone=alone, mixed=mixed, update_cpu=update_cpu,
+                   bulk_updates=dict(items=n_bulk_updates, wall_s=bulk_updates_s),
+                   delete_by_query=dbq, drop_type_s=drop_s, ttl=ttl,
+                   checks=dict(searches=n_checks, wall_s=check_wall, hits=hits_seen,
+                               dead_docs=dead, launches=check_launches,
+                               ledger_pools=check_pools),
+                   packs=dict(pools=dict(ledger.get("pools", {})), query_path=query_path,
+                              stolen=stolen),
+                   tally=mix_tally,
+                   tally_all_legs={f"{f}:{s}": n for (f, s), n in sorted(tally.items())},
+                   launches=launches, kernel_shapes=shapes, kernel_max_abs_err=max_err)
+
+        log(f"[22] searches alone: {alone['requests']} of phase 10's bool bodies from "
+            f"{n_conn} connections, {alone['searches_per_s']:.1f} searches/s, p50 "
+            f"{alone['p50_ms']:.2f} ms p99 {alone['p99_ms']:.2f} ms; {card}")
+        log(f"[22] the mix: {mixed['requests']} requests from {n_conn} connections, "
+            f"{mixed['requests_per_s']:.1f} requests/s ({wall_s:.2f} s), of them "
+            f"{n_search} searches: {mixed['searches_per_s']:.1f} searches/s beside the "
+            f"writes; the mix's outcomes {mix_tally}; {card}")
+        for f, v in mixed["latency_by_family"].items():
+            log(f"[22]   {f:10s} {v['requests']:5d} requests: p50 {v['p50_ms']:.2f} ms, "
+                f"p99 {v['p99_ms']:.2f} ms")
+        log(f"[22] conflicts: {mixed['conflicts']} version conflicts on the index round "
+            f"trip, {mixed['retries']} retried, {mixed['increments_409']} increments "
+            f"answered 409 after retry_on_conflict 5")
+        log(f"[22] CPU s by thread kind over the mix ({mixed['process_cpu_s']:.2f} s of "
+            f"the process in {wall_s:.2f} s): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in host_cpu.items()))
+        for span, v in mixed["spans"].items():
+            log(f"[22]   span {span:38s} {v['calls']:5d} calls, CPU {v['cpu_s']:.3f} s, "
+                f"wall {v['wall_s']:.3f} s")
+        if mixed.get("profiled"):
+            p = mixed["profiled"]
+            if p["device_busy_ms"]:
+                log(f"[22] profiled window of {DOC_PROFILED} mixed requests: wall "
+                    f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+                    f"idle share {p['idle_share']:.4f}; {card}")
+                for name, ms, n in p["top"][:6]:
+                    log(f"[22]   {ms:9.3f} ms {n:5d}x {name}")
+            else:
+                log("[22] profiled window: the profiler saw no device time "
+                    "(device idle share not measured)")
+        log(f"[22] an _update's CPU ({DOC_UPDATE_CPU} increments from 4 connections, "
+            f"p50 {update_cpu['p50_ms']:.2f} ms):")
+        for span, v in update_cpu["spans"].items():
+            log(f"[22]   span {span:32s} {v['calls']:5d} calls, CPU "
+                f"{v['cpu_s'] * 1e3 / max(v['calls'], 1):.3f} ms a call, wall "
+                f"{v['wall_s'] * 1e3 / max(v['calls'], 1):.3f} ms a call")
+        log(f"[22] _bulk of {n_bulk_updates} update items: {bulk_updates_s:.2f} s "
+            f"({n_bulk_updates / bulk_updates_s:.1f} updates/s)")
+        log(f"[22] delete-by-query of {DOC_DBQ_TAGS} tags: {len(deleted)} posts "
+            f"({dbq['share']:.3f} of them) in {dbq_s:.3f} s, the warmer's repack after it "
+            f"{repack_s:.3f} s; {len(searches)} searches beside it at "
+            f"{dbq['searches_beside_per_s']:.1f} searches/s, p50 "
+            f"{dbq['searches_beside_p50_ms']:.2f} ms, p99 "
+            f"{dbq['searches_beside_p99_ms']:.2f} ms")
+        for span, v in dbq["spans"].items():
+            log(f"[22]   span {span:42s} {v['calls']:5d} calls, CPU {v['cpu_s']:.3f} s, "
+                f"wall {v['wall_s']:.3f} s")
+        log(f"[22] DELETE _mapping/draft ({n_drafts} drafts) in {drop_s:.3f} s; TTL: "
+            f"{n_sessions} sessions bulked in {ttl['bulk_s']:.2f} s, `_count` 0 "
+            f"{purge_lag_s:.2f} s after the last one's expiry (purger every 1 s)")
+        log(f"[22] checks: every acknowledged write read back ({len(keys)} ids by _mget; "
+            f"{sum(acked.values())} increments on {DOC_HOT} hot posts); {n_checks} searches "
+            f"== the shards' host query phases (within {ULPS} ulp, tie-tolerant; "
+            f"{hits_seen} hits, none deleted, dropped or purged) over views holding "
+            f"{dead} tombstones; `_count` per tag == the expected sources")
+        log(f"[22] packs since the gate by pool {dict(ledger.get('pools', {}))}: "
+            f"{sum(query_path.values())} on the query path, each a warm pack the warmer "
+            f"had scheduled and a racing search ran first ({stolen} stolen); none over "
+            f"the checks")
+        for sh in shapes:
+            log(f"[22]   sparse_score Qb {sh['Qb']} TB {sh['TB']} {sh['tf']} k {sh['k']}: "
+                f"{sh['launches']} launches")
+        log(f"[22] sparse_score == plain (bitwise) at all {len(shapes)} shapes phase 22 "
+            f"launched ({launches.get('sparse_score', 0)} launches in the phase, "
+            f"{recorded} of them recorded at those shapes); max abs "
+            f"err {max_err}")
+        out["wall_phase_s"] = time.perf_counter() - t_phase
+        out["steps_s"] = steps
+        log(f"[22] phase 22 took {out['wall_phase_s']:.1f} s; by step (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+        return out
+    finally:
+        if recorder is not None:
+            recorder.close()
+        node.close()
+        shutil.rmtree(data_path, ignore_errors=True)
+
 
 
 def small_sources(n_docs: int, seed: int) -> list[dict]:

@@ -5,8 +5,17 @@ package's `actions.py`), in the reference's interaction patterns:
   started — forwarded to the master, which mutates the cluster state on its
   single state thread;
 - replication, primary only (a one-node cluster leaves every replica
-  unassigned): `index_doc` routes a document to its primary by djb2;
-  `bulk` groups the ops per shard and sends every group at once;
+  unassigned): `index_doc` routes a document to its primary by djb2, with
+  its `timestamp` and `ttl`; `bulk` groups the ops per shard and sends
+  every group at once;
+- the update API (`update_doc`): get → modify → index on the coordinator,
+  with the read version as a compare-and-set and `retry_on_conflict`
+  retries; `doc` merges deep, `upsert` / `doc_as_upsert` create, a
+  `script` (script/UpdateScript) edits `ctx` and may set `ctx.op` to
+  `none` (a noop) or `delete`. A bulk `update` item runs it from the bulk
+  pool: its get and index round trips go to the `get` and `index` pools,
+  which it never holds, so nesting cannot deadlock. No lock is held
+  across either round trip;
 - scatter-gather search, `query_then_fetch`: one query phase per shard, all
   in flight at once over the transport; each runs `execute_query_phase` on
   the shard's point-in-time searcher through the node's one DeviceBatcher
@@ -29,10 +38,18 @@ package's `actions.py`), in the reference's interaction patterns:
   false (a degraded answer is bitwise the card's). A DFS request never
   uses the cache. `warm_shard_queries` is the warmer's re-prime of a new
   view;
-- broadcast: `refresh`, `flush` and `optimize` on every active shard;
+- broadcast: `refresh`, `flush` and `optimize` on every active shard, and
+  `delete_by_query`: each shard resolves the query's matches on the host
+  (`host_match_mask` over live parent documents: a nested parent takes its
+  children), tombstones them in one logged op (`Engine.delete_by_uids`)
+  and refreshes, so the next view leaves them out; `_m_delete_mapping`
+  drops types from the cluster state, then deletes their documents so;
 - single-shard reads: `get_doc` reads one active copy of the document's
   shard (realtime from the engine's version map unless `realtime` is
-  false, after a refresh when asked; type `_all` walks the index's types);
+  false, after a refresh when asked; type `_all` walks the index's types),
+  with `_timestamp` and the remaining `_ttl`; `multi_get` runs one GET a
+  document and shapes each by its `fields` and `_source` (a missing index
+  or a type that does not hold the id answers `found: false`);
   `term_vector` re-analyzes one document's stored `_source` on one copy of
   its shard (`_s_termvector`, on the `get` pool), `multi_termvector`
   answers each document's in place, and `more_like_this` searches the
@@ -65,7 +82,8 @@ with Retry-After before the fan-out.
 
 Not in this slice: the SPMD mesh branch, insights, tracing, profiles, the
 slowlog, cache-affinity routing, failover across copies and hedging,
-replica writes, mget, update, delete-by-query, aliases and templates."""
+replica writes (of index, delete, update and delete-by-query alike),
+aliases and templates."""
 
 from __future__ import annotations
 
@@ -75,11 +93,14 @@ import threading
 import time
 import uuid
 
+import numpy as np
+
 from .cluster.allocation import new_index_routing
 from .cluster.service import HIGH, URGENT
 from .cluster.state import ClusterState, IndexMetaData, ShardRouting
 from .common.deadline import NO_DEADLINE, Deadline
 from .common.errors import (
+    ActionRequestValidationError,
     CircuitBreakingError,
     DocumentMissingError,
     IllegalArgumentError,
@@ -89,7 +110,9 @@ from .common.errors import (
     RejectedExecutionError,
     RoutingMissingError,
     SearchEngineError,
+    TypeMissingError,
     UnavailableShardsError,
+    VersionConflictError,
 )
 from .common.logging import get_logger
 from .common.names import is_pattern, name_matches
@@ -105,7 +128,8 @@ from .search.controller import (
     merge_responses,
     sort_docs,
 )
-from .search.execute import ShardContext
+from .script import compile_update_script
+from .search.execute import ShardContext, host_match_mask
 from .search.queries import MatchAllQuery, parse_query, resolve_terms_lookups
 from .search.request_cache import cache_policy, request_fingerprint
 from .search.service import (
@@ -119,6 +143,7 @@ from .transport import fut_result
 
 A_CREATE_INDEX = "indices:admin/create"
 A_PUT_MAPPING = "indices:admin/mapping/put"
+A_DELETE_MAPPING = "indices:admin/mapping/delete"
 A_MAPPING_UPDATED = "internal:cluster/mapping_updated"
 A_INDEX_PRIMARY = "indices:data/write/index[p]"
 A_BULK_SHARD = "indices:data/write/bulk[s]"
@@ -162,6 +187,7 @@ class ActionModule:
         t = self.transport
         for action, fn in [(A_CREATE_INDEX, self._m_create_index),
                            (A_PUT_MAPPING, self._m_put_mapping),
+                           (A_DELETE_MAPPING, self._m_delete_mapping),
                            (A_MAPPING_UPDATED, self._m_mapping_updated),
                            (ACTION_SHARD_STARTED, self._m_shard_started)]:
             t.register_handler(action, self._master_wrap(fn))
@@ -254,6 +280,42 @@ class ActionModule:
             {"index": request["index"], "type": request["type"],
              "body": request["mapping"]}, channel)
 
+    def _m_delete_mapping(self, request, channel):
+        """Drop the matching types' mappings from every resolved index, then
+        delete their documents (`delete_by_query` on a `type` filter); no
+        matching type answers 404 TypeMissingException."""
+        state0 = self.cluster_service.state
+        indices = state0.metadata.resolve_indices(request["index"])
+        type_expr = request["type"]
+        matched = {
+            index: [t for t, _ in state0.metadata.require_index(index).mappings
+                    if name_matches(t, type_expr)]
+            for index in indices}
+        if not any(matched.values()):
+            raise TypeMissingError(f"type[[{type_expr}]] missing")
+
+        def update(state: ClusterState) -> ClusterState:
+            md = state.metadata
+            for index, types in matched.items():
+                meta = md.require_index(index)
+                for t in types:
+                    meta = meta.without_mapping(t)
+                md = md.with_index(meta)
+            return state.next_version(metadata=md)
+
+        self._submit(f"delete-mapping[{indices}/{type_expr}]", update)
+        for index, types in matched.items():
+            for t in types:
+                try:
+                    self.delete_by_query(index, {"query": {
+                        "filtered": {"query": {"match_all": {}},
+                                     "filter": {"type": {"value": t}}}}})
+                except SearchEngineError as e:
+                    self.logger.warning(
+                        "delete-mapping [%s/%s]: mapping removed but the purge of "
+                        "its documents failed: %s", index, t, e)
+        return {"acknowledged": True}
+
     def get_mapping(self, index=None, doc_type=None) -> dict:
         """`{index: {"mappings": {type: mapping}}}` from the cluster state; a
         type expression filters the types, an index without a matching type
@@ -324,7 +386,7 @@ class ActionModule:
     def index_doc(self, index: str, type_name: str, doc_id: str | None,
                   source: dict, routing=None, version=None,
                   version_type="internal", op_type="index", refresh=False,
-                  parent=None) -> dict:
+                  parent=None, timestamp=None, ttl=None) -> dict:
         """Index a document on its primary; a child's `parent` routes it
         when no `routing` is given."""
         self._ensure_index(index)
@@ -333,9 +395,9 @@ class ActionModule:
         effective_routing = routing if routing is not None else parent
         self._required_routing_check(index, type_name, doc_id, effective_routing)
         req = {"index": index, "type": type_name, "id": doc_id, "source": source,
-               "routing": routing, "parent": parent, "version": version,
-               "version_type": version_type, "op_type": op_type,
-               "refresh": refresh}
+               "routing": routing, "parent": parent, "timestamp": timestamp,
+               "ttl": ttl, "version": version, "version_type": version_type,
+               "op_type": op_type, "refresh": refresh}
         return self._route_to_primary(index, doc_id, effective_routing,
                                       A_INDEX_PRIMARY, req)
 
@@ -380,7 +442,8 @@ class ActionModule:
             request["type"], request["id"], request["source"],
             routing=request.get("routing"), version=request.get("version"),
             version_type=request.get("version_type", "internal"),
-            op_type=request.get("op_type", "index"), parent=request.get("parent"))
+            op_type=request.get("op_type", "index"), parent=request.get("parent"),
+            timestamp=request.get("timestamp"), ttl=request.get("ttl"))
         if set(mapper.fields) - known_before:
             # the dynamic mapping grew: propagate it to the cluster state
             try:
@@ -396,13 +459,17 @@ class ActionModule:
         return {"_index": index, "_type": request["type"], "_id": request["id"],
                 "_version": version, "created": created}
 
+    def _resolve_index_write(self, index: str) -> str:
+        """A write names one concrete index (aliases come with A6d)."""
+        resolved = self.cluster_service.state.metadata.resolve_indices(index)
+        if len(resolved) != 1:
+            raise IndexMissingError(index)
+        return resolved[0]
+
     def delete_doc(self, index: str, type_name: str, doc_id: str, routing=None,
                    version=None, version_type="internal", refresh=False,
                    parent=None) -> dict:
-        resolved = self.cluster_service.state.metadata.resolve_indices(index)
-        if len(resolved) != 1:  # a write names one index
-            raise IndexMissingError(index)
-        index = resolved[0]
+        index = self._resolve_index_write(index)
         effective_routing = routing if routing is not None else parent
         self._required_routing_check(index, type_name, doc_id, effective_routing)
         req = {"index": index, "type": type_name, "id": doc_id, "routing": routing,
@@ -421,6 +488,103 @@ class ActionModule:
             shard.engine.refresh()
         return {"_index": index, "_type": request["type"], "_id": request["id"],
                 "_version": version, "found": found}
+
+    def update_doc(self, index: str, type_name: str, doc_id: str, body: dict,
+                   routing=None, retry_on_conflict: int = 0, parent=None,
+                   refresh=False, fields=None, ttl=None, timestamp=None,
+                   version=None, version_type="internal") -> dict:
+        """The update API: get → modify → index on this coordinating node,
+        the index carrying the read version (a compare-and-set), a
+        VersionConflictError retried `retry_on_conflict` times; a missing
+        index is created as the index action creates it."""
+        self._ensure_index(index)
+        index = self._resolve_index_write(index)
+        effective_routing = routing if routing is not None else parent
+        self._required_routing_check(index, type_name, doc_id, effective_routing)
+        if isinstance(fields, str):
+            fields = [f.strip() for f in fields.split(",")]
+        last_error = None
+        for _ in range(retry_on_conflict + 1):
+            try:
+                current = self.get_doc(index, type_name, doc_id,
+                                       routing=effective_routing)
+                noop = False
+                if not current["found"]:
+                    # an internal compare-and-set against a missing document
+                    # is a conflict, not a 404
+                    if version is not None and version_type == "internal":
+                        raise VersionConflictError(
+                            f"{type_name}#{doc_id}", 0, version)
+                    if "upsert" in body:
+                        source = body["upsert"]
+                    elif body.get("doc_as_upsert") and "doc" in body:
+                        source = body["doc"]
+                    else:
+                        raise DocumentMissingError(
+                            f"[{index}][{type_name}][{doc_id}] missing")
+                    r = self.index_doc(index, type_name, doc_id, source,
+                                       routing=routing, parent=parent,
+                                       version=version, version_type=version_type,
+                                       op_type="create" if version is None else "index",
+                                       refresh=refresh, ttl=ttl, timestamp=timestamp)
+                else:
+                    source = dict(current["_source"])
+                    op = "index"
+                    if "script" in body:
+                        us = compile_update_script(body["script"],
+                                                   body.get("params", {}),
+                                                   lang=body.get("lang"))
+                        ctx = {"_source": source, "op": "index",
+                               "_index": index, "_type": type_name, "_id": doc_id,
+                               "_version": current.get("_version"),
+                               "_routing": current.get("_routing"),
+                               "_parent": current.get("_parent"),
+                               "_ttl": ttl, "_timestamp": timestamp}
+                        us.run(ctx)
+                        source = ctx.get("_source", source)
+                        op = ctx.get("op", "index")
+                        if ctx.get("_ttl") is not None:
+                            ttl = ctx["_ttl"]
+                        if ctx.get("_timestamp") is not None:
+                            timestamp = ctx["_timestamp"]
+                    elif "doc" in body:
+                        _deep_merge(source, body["doc"])
+                    if op == "delete":
+                        r = self.delete_doc(index, type_name, doc_id, routing=routing,
+                                            parent=parent, refresh=refresh)
+                        r.pop("found", None)
+                    elif op == "none":
+                        noop = True
+                        r = {"_index": index, "_type": type_name, "_id": doc_id,
+                             "_version": current["_version"]}
+                    else:
+                        r = self.index_doc(index, type_name, doc_id, source,
+                                           routing=routing, parent=parent,
+                                           version=version if version is not None
+                                           else current["_version"],
+                                           version_type=version_type,
+                                           refresh=refresh, ttl=ttl,
+                                           timestamp=timestamp)
+                out = {"_index": index, "_type": type_name, "_id": doc_id,
+                       "_version": r.get("_version", current.get("_version", 1))}
+                if fields:
+                    # the get section from the state in hand: no further round
+                    # trip, and the version reported is the one written
+                    pseudo = {"found": True, "_source": source,
+                              "_version": out["_version"]}
+                    if effective_routing is not None:
+                        pseudo["_routing"] = str(effective_routing)
+                    if parent is not None:
+                        pseudo["_parent"] = str(parent)
+                    shaped = shape_get(pseudo, fields, None)
+                    out["get"] = {k: shaped[k] for k in ("found", "_source", "fields")
+                                  if k in shaped}
+                if noop:
+                    out["noop"] = True
+                return out
+            except VersionConflictError as e:
+                last_error = e
+        raise last_error
 
     def bulk(self, operations: list[dict], refresh=False) -> dict:
         """Group the ops per (index, shard) and send every group to its
@@ -486,10 +650,16 @@ class ActionModule:
                     version, found = shard.engine.delete(item["type"], item["id"])
                     out.append({**base, "_version": version, "found": found,
                                 "status": 200 if found else 404, "op": op})
+                elif op == "update":
+                    # the update API from this bulk-pool thread: its round
+                    # trips run on the get and index pools
+                    r = self.update_doc(index, item["type"], item["id"],
+                                        item.get("source") or {},
+                                        routing=item.get("routing"))
+                    out.append({**r, "status": 200, "op": op})
                 else:
-                    out.append({"error": f"bulk op [{op}] is not ported yet "
-                                         "(a later slice of the port)",
-                                "status": 400, "op": op})
+                    out.append({"error": f"unknown bulk op [{op}]", "status": 400,
+                                "op": op})
             except SearchEngineError as e:
                 out.append({**base, "error": e.to_dict(), "status": e.status,
                             "op": op})
@@ -878,7 +1048,51 @@ class ActionModule:
                 out["_routing"] = str(r.routing)
             if r.parent is not None:
                 out["_parent"] = str(r.parent)
+            if r.timestamp is not None:
+                out["_timestamp"] = int(r.timestamp)
+            if r.ttl is not None:
+                out["_ttl"] = int(r.ttl)
         return out
+
+    def multi_get(self, docs: list[dict]) -> dict:
+        """`_mget`: the request is validated first (no documents, or a
+        document without an index or an id, answers 400), then one GET a
+        document, shaped by its `fields` and `_source`; a missing index, or
+        a type that does not hold the id, answers `found: false` in its
+        place, any other error its error."""
+        if not docs:
+            raise ActionRequestValidationError("Validation Failed: no documents to get")
+        for i, d in enumerate(docs):
+            if not d.get("_id"):
+                raise ActionRequestValidationError(
+                    f"Validation Failed: {i + 1}: id is missing")
+            if not d.get("_index"):
+                raise ActionRequestValidationError(
+                    f"Validation Failed: {i + 1}: index is missing")
+        out = []
+        for d in docs:
+            type_name = d.get("_type") or "_all"
+            try:
+                r = self.get_doc(d["_index"], type_name, str(d["_id"]),
+                                 routing=d.get("routing") or d.get("_routing"),
+                                 parent=d.get("parent") or d.get("_parent"),
+                                 realtime=d.get("realtime", True),
+                                 refresh=d.get("refresh", False))
+                if d.get("_type") and r.get("_type") != d["_type"]:
+                    r = {"_index": d["_index"], "_type": d["_type"],
+                         "_id": str(d["_id"]), "found": False}
+                fields = d.get("fields") or d.get("_fields")
+                src_spec = d.get("_source")
+                if r.get("found") and (fields or src_spec is not None):
+                    r = shape_get(r, fields, src_spec)
+                out.append(r)
+            except IndexMissingError:
+                out.append({"_index": d["_index"], "_type": d.get("_type"),
+                            "_id": str(d["_id"]), "found": False})
+            except SearchEngineError as e:
+                out.append({"_index": d.get("_index"), "_type": d.get("_type"),
+                            "_id": str(d.get("_id")), "error": e.to_dict()})
+        return {"docs": out}
 
     def _lookup_get(self, index, type_name, doc_id, routing=None):
         """A terms lookup's document: a missing document resolves to no
@@ -1000,6 +1214,28 @@ class ActionModule:
         return self.search(index, body)
 
     # ================= broadcast =================
+    def delete_by_query(self, index_expr, body) -> dict:
+        """Every active copy of every resolved index's shards deletes the
+        body's matches (`_s_broadcast` op `delete_by_query`); the primaries'
+        counts are summed per index."""
+        body = resolve_terms_lookups(body, self._lookup_get)
+        state = self.cluster_service.state
+        indices = state.metadata.resolve_indices(index_expr)
+        futs = []
+        for index in indices:
+            for group in state.routing_table.index(index).shards:
+                for copy in group.active_shards():
+                    futs.append((index, copy, self.transport.send_request(
+                        state.nodes.get(copy.node_id), A_SHARD_BROADCAST, {
+                            "index": index, "shard": copy.shard_id,
+                            "op": "delete_by_query", "body": body})))
+        deleted = dict.fromkeys(indices, 0)
+        for index, copy, fut in futs:
+            r = fut_result(fut, 30.0)
+            if copy.primary:
+                deleted[index] += r.get("deleted", 0)
+        return {"_indices": {i: {"deleted": n} for i, n in deleted.items()}}
+
     def broadcast(self, index_expr, op: str) -> dict:
         """refresh, flush or optimize on every active shard copy."""
         state = self.cluster_service.state
@@ -1035,6 +1271,18 @@ class ActionModule:
             engine.flush()
         elif op == "optimize":
             engine.optimize()
+        elif op == "delete_by_query":
+            ctx = self._shard_ctx(request["index"], request["shard"])
+            query_body = (request.get("body") or {}).get("query")
+            query = parse_query(query_body)
+            uids = []
+            for seg in ctx.searcher.segments:
+                mask = host_match_mask(query, seg, ctx) & seg.live & seg.parent_mask
+                uids.extend(f"{seg.types[local]}#{seg.ids[local]}"
+                            for local in np.nonzero(mask)[0])
+            engine.delete_by_uids(uids, query=query_body)
+            engine.refresh()
+            return {"ok": True, "deleted": len(uids)}
         else:
             raise IllegalArgumentError(f"broadcast op [{op}] is not ported yet")
         return {"ok": True}
@@ -1082,6 +1330,87 @@ def filter_source(src: dict, includes, excludes) -> dict:
         return out
 
     return walk(src, "", included=False)
+
+
+def shape_get(r: dict, fields, src_spec, includes=None, excludes=None) -> dict:
+    """A found GET shaped by its `fields` (the `fields` section; `_source`
+    kept only when `fields` names it) and its `_source` spec (true, false,
+    patterns, or includes and excludes). `includes` and `excludes` are
+    REST's `_source_include` and `_source_exclude`; a pattern spec takes
+    the place of `includes`. The one rule of GET, `_mget`, `_explain`'s
+    and `_update`'s get sections and `Client.get(fields=)`."""
+    shaped = {k: v for k, v in r.items() if k != "_source"}
+    src = r.get("_source")
+    keep_source = True
+    if fields:
+        fdict, fsrc = _extract_fields(r, fields)
+        if fdict:
+            shaped["fields"] = fdict
+        keep_source = fsrc is not None
+    if src_spec is False or src_spec == "false":
+        keep_source = False
+    elif src_spec is True or src_spec == "true":
+        keep_source = True
+    elif isinstance(src_spec, (str, list)):
+        includes, keep_source = src_spec, True
+    elif isinstance(src_spec, dict):
+        includes = src_spec.get("include") or src_spec.get("includes")
+        excludes = src_spec.get("exclude") or src_spec.get("excludes")
+        keep_source = True
+    if keep_source and src is not None:
+        if includes or excludes:
+            src = filter_source(src, includes, excludes)
+        shaped["_source"] = src
+    return shaped
+
+
+def _extract_fields(get_response: dict, fields) -> tuple[dict, dict | None]:
+    """The `fields` section of a GET or update response, and the `_source`
+    when `fields` names it: `_routing` and `_parent` as strings,
+    `_timestamp` and `_ttl` as integers, a source leaf as a list."""
+    if isinstance(fields, str):
+        fields = [f.strip() for f in fields.split(",")]
+    out: dict = {}
+    source_out = None
+    src = get_response.get("_source") or {}
+    for f in fields or []:
+        if f == "_source":
+            source_out = src
+        elif f in ("_routing", "_parent"):
+            v = get_response.get(f)
+            if v is not None:
+                out[f] = str(v)
+        elif f in ("_timestamp", "_ttl"):
+            v = get_response.get(f)
+            if v is not None:
+                out[f] = int(v)
+        else:
+            vals = _source_leaf(src, f)
+            if vals:
+                out[f] = vals
+    return out, source_out
+
+
+def _source_leaf(src: dict, path: str) -> list:
+    """The value at a dotted path of a `_source`, as a list (empty when
+    the path is missing)."""
+    cur = src
+    for part in path.split("."):
+        if isinstance(cur, dict) and part in cur:
+            cur = cur[part]
+        else:
+            return []
+    return cur if isinstance(cur, list) else [cur]
+
+
+def _deep_merge(dst: dict, src: dict):
+    """An update's `doc` merged into the current `_source`: objects merge
+    key by key, any other value replaces."""
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _deep_merge(dst[k], v)
+        else:
+            dst[k] = v
 
 
 def _flatten_text_fields(source: dict, prefix: str = "") -> dict[str, list]:

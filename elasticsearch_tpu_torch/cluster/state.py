@@ -189,6 +189,10 @@ class IndexMetaData:
         return replace(self, mappings=others + ((type_name, json.dumps(mapping)),),
                        version=self.version + 1)
 
+    def without_mapping(self, type_name: str) -> "IndexMetaData":
+        others = tuple((t, m) for t, m in self.mappings if t != type_name)
+        return replace(self, mappings=others, version=self.version + 1)
+
     def to_dict(self) -> dict:
         return {"name": self.name, "settings": dict(self.settings_map),
                 "mappings": dict(self.mappings), "state": self.state,

@@ -78,6 +78,10 @@ class IndexAlreadyExistsError(SearchEngineError):
         self.index = index
 
 
+class TypeMissingError(SearchEngineError):
+    status = 404
+
+
 class IndexShardMissingError(SearchEngineError):
     status = 404
 
@@ -173,6 +177,17 @@ class RejectedExecutionError(SearchEngineError):
 
     status = 429
     retry_after_s = 1.0
+
+
+class ActionRequestValidationError(IllegalArgumentError):
+    """A request that failed validation before it ran (`_mget` without
+    documents, or a document without an index or id)."""
+
+
+class AlreadyExpiredError(SearchEngineError):
+    """A document whose `_ttl` expired before it was indexed."""
+
+    status = 400
 
 
 class RoutingMissingError(IllegalArgumentError):

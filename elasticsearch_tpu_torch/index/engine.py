@@ -2,9 +2,13 @@
 trimmed copy of the JAX package's `index/engine.py`: `Searcher` and
 `Engine`).
 
-- writes: `index` (internal / external versions, `create` conflicts) and
-  `delete` go to the translog first, then to the in-memory buffer;
-  a realtime `get` is served from the version map before a refresh;
+- writes: `index` (internal / external versions, `create` conflicts, a
+  `timestamp` and a `ttl`), `delete` and `delete_by_uids` (the tombstones
+  of a delete-by-query or a TTL purge, logged as one op with its uids) go
+  to the translog first, then to the in-memory buffer; a realtime `get`
+  is served from the version map before a refresh, with the document's
+  timestamp and its remaining TTL (`_remaining_ttl`, read on the wall
+  clock);
 - views: `refresh` freezes the buffer into a new segment and applies
   tombstones copy-on-write (`FrozenSegment.with_deletes`), so a searcher
   acquired earlier keeps its point-in-time view;
@@ -12,20 +16,22 @@ trimmed copy of the JAX package's `index/engine.py`: `Searcher` and
   translog; `recover_from_store` loads the last commit and replays the
   translog after it;
 - merges: `maybe_merge` runs the tiered policy (the merge itself outside the
-  engine lock), `optimize` force-merges;
+  engine lock; a tombstone queued on a source meanwhile moves to the merged
+  segment, where the JAX engine drops it and keeps the old copy live),
+  `optimize` force-merges;
 - device packs: a refreshed segment carries a pack hint (`delta_pack`
   beside older segments, `pack` on an empty shard), a merged one a
   `compact` hint naming its sources when every source has a resident pack
   (ops/device_index.pack_segment_concat reads them); the warmer schedules
   the packs from the view listeners once `search_active` is set.
 
-Recovery holds, replica operations, delete-by-query and TTL wait for the
-slice with replicas."""
+Recovery holds and replica operations wait for the slice with replicas."""
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,7 +45,7 @@ from ..common.errors import (
 from .merge_policy import TieredMergePolicy
 from .segment import FieldStats, FrozenSegment, SegmentBuilder, merge_segments
 from .store import Store
-from .translog import CREATE, DELETE, INDEX, Translog, TranslogOp
+from .translog import CREATE, DELETE, DELETE_BY_QUERY, INDEX, Translog, TranslogOp
 
 logger = get_logger("index.engine")
 
@@ -88,6 +94,8 @@ class VersionEntry:
     source: dict | None = None
     routing: str | None = None
     parent: str | None = None
+    timestamp: int | None = None
+    ttl: int | None = None
 
 
 @dataclass
@@ -99,12 +107,36 @@ class GetResult:
     source: dict | None = None
     routing: str | None = None
     parent: str | None = None
+    timestamp: int | None = None
+    ttl: int | None = None  # milliseconds left at read time
 
 
 def _resident(seg: FrozenSegment) -> bool:
     """Whether the segment holds a pack for some device (its
     `("packed", device)` keys)."""
     return any(isinstance(k, tuple) and k[0] == "packed" for k in seg._device_cache)
+
+
+def _merged_locals(sources: list[FrozenSegment]) -> dict[tuple[int, int], int]:
+    """(source gen, parent local) -> the parent's local in the segment
+    `merge_segments(sources)` builds: live blocks in order, each a run of
+    children and then its parent."""
+    out, merged = {}, 0
+    for seg in sources:
+        local = 0
+        while local < seg.doc_count:
+            block_start = local
+            while local < seg.doc_count and not seg.parent_mask[local]:
+                local += 1
+            if local >= seg.doc_count:
+                break
+            parent = local
+            local += 1
+            if seg.live[parent]:
+                merged += parent - block_start
+                out[(seg.gen, parent)] = merged
+                merged += 1
+    return out
 
 
 class Engine:
@@ -191,7 +223,7 @@ class Engine:
     def index(self, type_name: str, doc_id: str, source: dict,
               routing: str | None = None, version=None,
               version_type: str = INTERNAL, op_type: str = "index",
-              parent: str | None = None,
+              parent: str | None = None, timestamp=None, ttl=None,
               _from_translog: bool = False) -> tuple[int, bool]:
         """Index or create a document (a child of `parent` when given).
         Returns (new_version, created)."""
@@ -204,16 +236,19 @@ class Engine:
             if op_type == "create" and not created:
                 raise DocumentAlreadyExistsError(f"[{type_name}][{doc_id}] already exists")
             new_version = self._check_version(uid, version, version_type)
-            parsed = mapper.parse(source, doc_id, routing=routing, parent=parent)
+            parsed = mapper.parse(source, doc_id, routing=routing, timestamp=timestamp,
+                                  ttl=ttl, parent=parent)
             if not _from_translog:
                 self.translog.add(TranslogOp(
                     CREATE if op_type == "create" else INDEX, type_name, doc_id,
-                    source, routing=routing, version=new_version, parent=parent))
+                    source, routing=routing, version=new_version, parent=parent,
+                    timestamp=timestamp, ttl=ttl))
             self._tombstone_latest(uid)
             local = self._buffer.add(parsed, version=new_version)
             self._version_map[uid] = VersionEntry(
                 version=new_version, location=("buffer", local), source=source,
-                routing=parsed.routing, parent=parsed.parent)
+                routing=parsed.routing, parent=parsed.parent,
+                timestamp=parsed.timestamp, ttl=parsed.ttl)
             return new_version, created
 
     def delete(self, type_name: str, doc_id: str, version=None,
@@ -233,6 +268,23 @@ class Engine:
             self._version_map[uid] = VersionEntry(version=new_version, deleted=True)
             return new_version, found
 
+    def delete_by_uids(self, uids: list[str], query: dict | None = None,
+                       _from_translog: bool = False):
+        """Tombstone every live document of `uids` (`type#id`), the matches a
+        delete-by-query or a TTL purge resolved; logged as one op with the
+        uids, so a replay runs no query. Each tombstone bumps the version."""
+        with self._lock:
+            self._check_open()
+            if not _from_translog:
+                self.translog.add(TranslogOp(DELETE_BY_QUERY, query=query,
+                                             source={"uids": list(uids)}))
+            for uid in uids:
+                current, deleted = self._current_version(uid)
+                if current is None or deleted:
+                    continue
+                self._tombstone_latest(uid)
+                self._version_map[uid] = VersionEntry(version=current + 1, deleted=True)
+
     def get(self, type_name: str, doc_id: str, realtime: bool = True) -> GetResult:
         """Realtime get: the version map first, then the segments."""
         with self._lock:
@@ -244,7 +296,9 @@ class Engine:
                     return GetResult(found=False)
                 if realtime and entry.source is not None:
                     return GetResult(True, doc_id, type_name, entry.version,
-                                     entry.source, entry.routing, entry.parent)
+                                     entry.source, entry.routing, entry.parent,
+                                     entry.timestamp,
+                                     self._remaining_ttl(entry.timestamp, entry.ttl))
             loc = self._uid_index.get(uid)
             if loc is None:
                 return GetResult(found=False)
@@ -253,9 +307,26 @@ class Engine:
                 return GetResult(found=False)
             local = loc[1]
             parent_vals = seg.str_values("_parent", local)
+            ts_vals = seg.num_values("_timestamp", local)
+            exp_vals = seg.num_values("_expiry", local)
+            ts = int(ts_vals[0]) if len(ts_vals) else None
+            ttl = None
+            if len(exp_vals):
+                base = ts if ts is not None else 0
+                ttl = self._remaining_ttl(base, int(exp_vals[0]) - base)
             return GetResult(True, doc_id, type_name, int(seg.versions[local]),
                              seg.stored[local], seg.routings[local],
-                             parent_vals[0] if parent_vals else None)
+                             parent_vals[0] if parent_vals else None, ts, ttl)
+
+    @staticmethod
+    def _remaining_ttl(timestamp, ttl):
+        """A stored TTL as the milliseconds left now, strictly below the
+        stored value (time has passed since the write even when the clock's
+        millisecond has not ticked)."""
+        if ttl is None:
+            return None
+        base = timestamp if timestamp is not None else int(time.time() * 1000)
+        return max(0, (base + ttl) - int(time.time() * 1000) - 1)
 
     def _install_searcher(self) -> Searcher:
         """A new point-in-time view over the current segment list (caller
@@ -425,6 +496,14 @@ class Engine:
             return False
         self._replace_segments(sources, merged, start)
         source_gens = {seg.gen for seg in sources}
+        # a tombstone queued on a source since the merge was planned (an
+        # update's old copy, a delete) moves to the merged copy: dropped, it
+        # would leave the old copy live beside the new one
+        moved = _merged_locals(sources)
+        self._pending_deletes = [
+            (merged.gen, moved[loc]) if loc[0] in source_gens else loc
+            for loc in self._pending_deletes
+            if loc[0] not in source_gens or loc in moved]
         for seg in sources:
             for local in range(seg.doc_count):
                 if not seg.parent_mask[local]:
@@ -510,6 +589,9 @@ class Engine:
                            _from_translog=True)
             elif op.op == DELETE:
                 self.delete(op.type, op.id, _from_translog=True)
+            elif op.op == DELETE_BY_QUERY:
+                self.delete_by_uids((op.source or {}).get("uids", []),
+                                    _from_translog=True)
         except VersionConflictError:
             pass  # replay after a delete can revisit a version; newest wins
 

@@ -2,10 +2,10 @@
 byte-compatible: the JAX `Translog` reads the port's files back to the same
 ops and the other way round).
 
-Every engine mutation is appended before it is acknowledged, replayed on
-recovery, and rolled at each flush. Records are length-prefixed,
-CRC-checked frames of the wire codec, so a torn tail write is detected and
-truncated, not replayed. Auto-flush thresholds: 5k ops or 200MB."""
+Every engine mutation (create, index, delete, delete-by-query) is appended
+before it is acknowledged, replayed on recovery, and rolled at each flush.
+Records are length-prefixed, CRC-checked frames of the wire codec, so a
+torn tail write is detected and truncated, not replayed. Auto-flush thresholds: 5k ops or 200MB."""
 
 from __future__ import annotations
 
@@ -16,17 +16,18 @@ import zlib
 
 from ..common.stream import StreamInput, StreamOutput
 
-CREATE, INDEX, DELETE = 1, 2, 3
+CREATE, INDEX, DELETE, DELETE_BY_QUERY = 1, 2, 3, 4
 
 FLUSH_THRESHOLD_OPS = 5000
 FLUSH_THRESHOLD_SIZE = 200 * 1024 * 1024
 
 
 class TranslogOp:
-    """One logged operation; `query`, `timestamp` and `ttl` are written for
-    the JAX package's record layout (delete-by-query and the time
-    meta-fields are later slices of the port, so they stay None). `parent`
-    is logged but, as in the JAX package, not replayed (Engine._replay_op)."""
+    """One logged operation. An index or create logs the document's
+    `timestamp` and `ttl` as given; a delete-by-query (op 4) logs its
+    query and, in `source`, the uids it resolved (`{"uids": [...]}`), so a
+    replay runs no query. `parent`, `timestamp` and `ttl` are logged but, as
+    in the JAX package, not replayed (Engine._replay_op)."""
 
     __slots__ = ("op", "type", "id", "source", "routing", "version", "query",
                  "parent", "timestamp", "ttl")

@@ -21,9 +21,11 @@ sub-fields `full.sub`, which `to_mapping` renders under the parent's
 `fields`; as in the JAX package, parsing indexes no value into a sub-field.
 `copy_to` indexes a field's values into its targets (a missing target is
 mapped dynamically with the source's type) and adds nothing to `_all`.
-`_routing` (`required`, `path`) and `_timestamp` (`enabled`, `path`) are
-served; `_ttl` comes with the document APIs' slice and raises
-MapperParsingError. A `binary` field is kept in `_source` only, and a field
+`_routing` (`required`, `path`), `_timestamp` (`enabled`, `path`) and
+`_ttl` (`enabled`, `default`) are served: a document's TTL (its own, else
+the default; a string is a time value, a number milliseconds) lands as its
+absolute expiry in the `_expiry` doc-value column, from its timestamp (else
+the wall clock), and one already past raises AlreadyExpiredError. A `binary` field is kept in `_source` only, and a field
 of any other type the mapper does not list (`completion`, `murmur3`, ...)
 stores its values as string doc values, as the JAX mapper keeps them.
 
@@ -47,9 +49,10 @@ from dataclasses import dataclass, field as dc_field
 from typing import Any
 
 from ..analysis import AnalysisService, Analyzer
-from ..common.errors import MapperParsingError
+from ..common.errors import AlreadyExpiredError, MapperParsingError
 from ..common.geo import geohash_decode, normalize_shape
 from ..common.settings import Settings
+from ..common.units import parse_time
 
 TEXT_TYPES = {"string", "text"}
 NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float", "date",
@@ -67,13 +70,6 @@ META_FIELDS = ("_uid", "_id", "_type", "_source", "_all", "_routing", "_parent",
                "_timestamp", "_ttl", "_version", "_size", "_index", "_boost")
 
 GEO_TYPES = {"geo_point", "geo_shape"}
-# meta-fields of later slices, with the slice that serves each
-_LATER_META = {"_ttl": "the document APIs (its expiry purger)"}
-
-
-def _not_ported(what: str, slice_: str) -> MapperParsingError:
-    return MapperParsingError(
-        f"{what} is not ported yet (a later slice of the port: {slice_})")
 
 
 def parse_ip(value: str) -> int:
@@ -248,6 +244,7 @@ class ParsedDocument:
     source: dict
     routing: str | None = None
     timestamp: int | None = None
+    ttl: int | None = None  # milliseconds
     parent: str | None = None
     # field → list[(term, position)]
     postings: dict[str, list[tuple[str, int]]] = dc_field(default_factory=dict)
@@ -286,9 +283,6 @@ class DocumentMapper:
         self.type = type_name
         self.analysis = analysis
         mapping = mapping or {}
-        for meta, slice_ in _LATER_META.items():
-            if meta in mapping:
-                raise _not_ported(f"meta-field mapping [{meta}]", slice_)
         self.dynamic = mapping.get("dynamic", True)
         self.date_detection = mapping.get("date_detection", True)
         self.source_enabled = mapping.get("_source", {}).get("enabled", True)
@@ -298,6 +292,8 @@ class DocumentMapper:
         self.parent_type = mapping.get("_parent", {}).get("type")
         self.timestamp_enabled = mapping.get("_timestamp", {}).get("enabled", False)
         self.timestamp_path = mapping.get("_timestamp", {}).get("path")
+        self.ttl_enabled = mapping.get("_ttl", {}).get("enabled", False)
+        self.default_ttl = mapping.get("_ttl", {}).get("default")
         self.fields: dict[str, FieldType] = {}
         # set when parsing mapped a field dynamically (a copy_to target too)
         self._mapping_dirty = False
@@ -359,7 +355,7 @@ class DocumentMapper:
         return self.fields.get(name)
 
     def parse(self, source: dict, doc_id: str, routing: str | None = None,
-              timestamp=None, parent: str | None = None) -> ParsedDocument:
+              timestamp=None, ttl=None, parent: str | None = None) -> ParsedDocument:
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
         doc = ParsedDocument(id=doc_id, type=self.type,
@@ -374,6 +370,11 @@ class DocumentMapper:
                 doc.timestamp = parse_date(source[self.timestamp_path])
             else:
                 doc.timestamp = int(time.time() * 1000)
+        if self.ttl_enabled:
+            raw_ttl = ttl if ttl is not None else self.default_ttl
+            if raw_ttl is not None:
+                doc.ttl = int(parse_time(raw_ttl) * 1000) if isinstance(raw_ttl, str) \
+                    else int(raw_ttl)
         if self.routing_path and routing is None and self.routing_path in source:
             doc.routing = str(source[self.routing_path])
         if parent is not None:
@@ -384,6 +385,13 @@ class DocumentMapper:
             doc.postings["_parent"] = [(f"{self.parent_type or 'doc'}#{doc.parent}", 0)]
             if doc.routing is None:
                 doc.routing = doc.parent
+        if doc.ttl is not None:
+            now = int(time.time() * 1000)
+            expiry = (doc.timestamp if doc.timestamp is not None else now) + doc.ttl
+            if expiry < now:
+                raise AlreadyExpiredError(
+                    f"already expired [{doc_id}]: expiry [{expiry}] < now")
+            doc.doc_values_num["_expiry"] = [float(expiry)]
         if doc.timestamp is not None and self.timestamp_enabled:
             doc.doc_values_num["_timestamp"] = [float(doc.timestamp)]
         all_terms: list[tuple[str, int]] = []
@@ -561,6 +569,8 @@ class DocumentMapper:
             out["_parent"] = {"type": self.parent_type}
         if self.timestamp_enabled:
             out["_timestamp"] = {"enabled": True}
+        if self.ttl_enabled:
+            out["_ttl"] = {"enabled": True}
         return out
 
     def merge(self, new_mapping: dict) -> list[str]:

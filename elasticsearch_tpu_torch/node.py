@@ -37,12 +37,21 @@ in the JAX node.
 
 `percolator`, the node's PercolatorService, keeps a query registry per
 index fed by the single-document writes of `.percolator` documents and
-percolates on the node's device.
+percolates on the node's device. `script_service` is the node's
+ScriptService (its named scripts in the port's process registry).
 
-`Client` is trimmed to `create_index`, `index`, `get`, `delete`, `bulk`,
-`refresh`, `flush`, `optimize`, `search`, `msearch`, `count`, `suggest`,
-`termvector`, `mtermvectors`, `mlt`, `explain`, `percolate`,
-`count_percolate`, `mpercolate` and `cluster_health`."""
+The TTL purger (`_purge_expired`, every `indices.ttl.interval`, 60 s by
+default, on the generic pool) reads each primary shard's `_expiry` doc
+values and deletes the documents whose expiry has passed, in one logged
+tombstone op a shard, then refreshes; `close()` cancels it. Replicas wait
+for A5, as every replica write does.
+
+`Client` is trimmed to `create_index`, `put_mapping`, `get_mapping`,
+`delete_mapping`, `index`, `create`, `get`, `mget`, `delete`, `update`,
+`bulk`, `delete_by_query`, `refresh`, `flush`, `optimize`, `search`,
+`msearch`, `count`, `suggest`, `termvector`, `mtermvectors`, `mlt`,
+`explain`, `percolate`, `count_percolate`, `mpercolate` and
+`cluster_health`."""
 
 from __future__ import annotations
 
@@ -50,7 +59,10 @@ import tempfile
 import time
 import uuid
 
-from .actions import A_CREATE_INDEX, A_PUT_MAPPING, ActionModule
+import numpy as np
+
+from .actions import (A_CREATE_INDEX, A_DELETE_MAPPING, A_PUT_MAPPING, ActionModule,
+                      shape_get)
 from .cluster.allocation import AllocationService
 from .cluster.routing import OperationRouting
 from .cluster.service import ClusterService
@@ -69,6 +81,7 @@ from .indices_service import IndicesService
 from .ops import sparse_kernels
 from .ops.device_index import DeviceFilterCache
 from .percolator import PercolatorService
+from .script import ScriptService
 from .search.batcher import DeviceBatcher
 from .search.request_cache import ShardRequestCache
 from .threadpool import ThreadPool
@@ -146,10 +159,15 @@ class Node:
                                       request_cache=self.request_cache)
         self.actions = ActionModule(self)
         self.percolator = PercolatorService(self)
+        self.script_service = ScriptService()
         # scheduled NRT refresh and merge-policy check (each index's
         # refresh_interval is honoured inside periodic_refresh)
         self.threadpool.schedule_with_fixed_delay(
             0.5, self.indices.periodic_refresh, name="refresh")
+        # the TTL purger: expired documents leave every primary shard
+        self._ttl_task = self.threadpool.schedule_with_fixed_delay(
+            self.settings.get_time("indices.ttl.interval", 60.0),
+            self._purge_expired, name="generic")
         self.discovery = ZenDiscovery(self.local_node, self.cluster_service,
                                       self.allocation)
         self.watchdog = StallWatchdog(self, self.settings)
@@ -199,6 +217,7 @@ class Node:
         if self._closed:
             return
         self._closed = True
+        self._ttl_task.cancel()
         DEVICE_HEALTH.unregister_publisher(self.node_id)
         self.watchdog.stop()
         if self.http is not None:
@@ -215,6 +234,33 @@ class Node:
 
     def client(self) -> "Client":
         return Client(self)
+
+    def _purge_expired(self):
+        """Delete, on every primary shard, the live documents whose `_expiry`
+        has passed: one `delete_by_uids` op a shard, then a refresh."""
+        now = time.time() * 1000
+        for index, svc in list(self.indices.indices.items()):
+            for sid, shard in list(svc.shards.items()):
+                if not shard.primary:
+                    continue
+                try:
+                    uids = []
+                    for seg in shard.engine.acquire_searcher().segments:
+                        col = seg.dv_num.get("_expiry")
+                        if col is None:
+                            continue
+                        off, vals = col
+                        doc_of_val = np.repeat(np.arange(seg.doc_count), np.diff(off))
+                        for local in doc_of_val[vals < now]:
+                            if seg.live[local] and seg.parent_mask[local]:
+                                uids.append(f"{seg.types[local]}#{seg.ids[local]}")
+                    if uids:
+                        shard.engine.delete_by_uids(uids, query={"expired": True})
+                        shard.engine.refresh()
+                        self.logger.info("ttl purged %d docs from [%s][%d]",
+                                         len(uids), index, sid)
+                except SearchEngineError:
+                    continue
 
     def device_health(self) -> dict:
         """The device fault domains' circuits and counters (the process's
@@ -242,19 +288,46 @@ class Client:
     def get_mapping(self, index=None, doc_type=None):
         return self.actions.get_mapping(index, doc_type)
 
+    def delete_mapping(self, index, doc_type):
+        return self.node.transport.submit_request(
+            self.node.local_node, A_DELETE_MAPPING,
+            {"index": index or "_all", "type": doc_type})
+
     def index(self, index, doc_type, body, id=None, routing=None, version=None,
               version_type="internal", op_type="index", refresh=False,
-              parent=None):
+              parent=None, timestamp=None, ttl=None):
         return self.actions.index_doc(index, doc_type, id, body, routing=routing,
                                       version=version, version_type=version_type,
                                       op_type=op_type, refresh=refresh,
-                                      parent=parent)
+                                      parent=parent, timestamp=timestamp, ttl=ttl)
+
+    def create(self, index, doc_type, body, id=None, **kw):
+        return self.index(index, doc_type, body, id=id, op_type="create", **kw)
 
     def get(self, index, doc_type, id, routing=None, realtime=True, refresh=False,
-            parent=None):
-        return self.actions.get_doc(index, doc_type, id, routing=routing,
-                                    realtime=realtime, refresh=refresh,
-                                    parent=parent)
+            parent=None, fields=None):
+        """A GET; `fields` shapes it as `_mget` shapes a document (the
+        `fields` section, `_source` only when named)."""
+        r = self.actions.get_doc(index, doc_type, id, routing=routing,
+                                 realtime=realtime, refresh=refresh, parent=parent)
+        if fields and r.get("found"):
+            r = shape_get(r, fields, None)
+        return r
+
+    def mget(self, docs):
+        return self.actions.multi_get(docs)
+
+    def update(self, index, doc_type, id, body, routing=None, retry_on_conflict=0,
+               parent=None, refresh=False, fields=None, ttl=None, timestamp=None,
+               version=None, version_type="internal"):
+        return self.actions.update_doc(index, doc_type, id, body, routing=routing,
+                                       retry_on_conflict=retry_on_conflict,
+                                       parent=parent, refresh=refresh, fields=fields,
+                                       ttl=ttl, timestamp=timestamp, version=version,
+                                       version_type=version_type)
+
+    def delete_by_query(self, index, body):
+        return self.actions.delete_by_query(index, body)
 
     def delete(self, index, doc_type, id, routing=None, version=None,
                version_type="internal", refresh=False, parent=None):

@@ -1,10 +1,21 @@
 """REST layer: path-template routing and the handlers of the one-node slice
 (a trimmed copy of the JAX package's `rest/controller.py`).
 
-Routes: `GET /`, `PUT|POST /{index}`, `PUT|POST /{index}/{type}/{id}`,
-`POST /{index}/{type}`, `GET|HEAD /{index}/{type}/{id}` (404 with
-`found: false` when missing), `DELETE /{index}/{type}/{id}` (404 when not
-found), `_bulk` NDJSON (at `/`, `/{index}` and
+Routes: `GET /`, `PUT|POST /{index}`, `PUT|POST /{index}/{type}/{id}`
+(with `?timestamp=` and `?ttl=`), `POST /{index}/{type}`, `PUT|POST
+/{index}/{type}/{id}/_create` (409 when the id exists), `GET|HEAD
+/{index}/{type}/{id}` (404 with `found: false` when missing; `?fields=`
+answers the `fields` section, and the `_source` only when it names it or
+`_source` is asked), `GET|HEAD /{index}/{type}/{id}/_source` (the bare
+source, filtered by `_source_include` / `_source_exclude`), `POST
+/{index}/{type}/{id}/_update` (`doc`, `upsert`, `doc_as_upsert`, a
+`script` with `params` and `lang`, also as query parameters,
+`retry_on_conflict`, `fields`), `_mget` (at `/`, `/{index}` and
+`/{index}/{type}`, the `docs` or the `ids` form; the path's index and type
+and the query parameters are each document's defaults), `DELETE
+/{index}/_query` and `/{index}/{type}/_query` (delete-by-query, every type
+of the index, as on the JAX node), `DELETE /{index}/{type}/{id}` (404 when
+not found), `_bulk` NDJSON (at `/`, `/{index}` and
 `/{index}/{type}`), `_refresh`, `_flush` and `_optimize` (at `/` and
 `/{index}`), `GET /_cluster/health`, `_search` (at
 `/`, `/{index}` and `/{index}/{type}`, GET or POST, with `?q=`,
@@ -25,9 +36,11 @@ section the `_source` parameters ask for), `_termvector` and
 `_termvectors` of a document, `_mtermvectors` (at `/`, `/{index}` and
 `/{index}/{type}`; the query parameters are each document's defaults) and
 `/{index}/{type}/{id}/_mlt`. `?fields=` on `_search` reads as the body's
-`fields`. `DELETE` of a mapping answers 400 naming its later slice, as do
-the `_search` parameters `profile` and `trace` and the `fields` parameter
-of GET and `_explain` (the document APIs, A6c). The single-document index,
+`fields`, on `_explain` as a GET's. `DELETE` of a mapping (at
+`/{index}/{type}/_mapping` and `/{index}/_mapping/{type}`, `_mappings` too)
+drops the types and deletes their documents. The `_search` parameters
+`profile` and `trace` answer 400 naming their later slice. The
+single-document index,
 GET, HEAD and DELETE take `?parent=`, which routes the document when no
 `routing` is given (a `_bulk` item's parent is ignored, as in the JAX
 package; GET answers no `_parent` key over REST, as there). Every other
@@ -58,7 +71,7 @@ import uuid
 from dataclasses import dataclass, field as dc_field
 from typing import Callable
 
-from ..actions import filter_source
+from ..actions import filter_source, shape_get
 from ..common.errors import (
     IllegalArgumentError,
     NotPortedError,
@@ -221,14 +234,6 @@ _LATER_SEARCH_PARAMS = ("profile", "trace")
 # POST to `/{index}/_close` would otherwise index a document of type
 # `_close`). A slice that lands deletes its rows.
 _LATER_ROUTES = {
-    "A6c, the document APIs": [
-        ("PUT,POST", "/{index}/{type}/{id}/_create"),
-        ("GET,HEAD", "/{index}/{type}/{id}/_source"),
-        ("POST", "/{index}/{type}/{id}/_update"),
-        ("GET,POST", "/_mget"), ("GET,POST", "/{index}/_mget"),
-        ("GET,POST", "/{index}/{type}/_mget"),
-        ("DELETE", "/{index}/_query"), ("DELETE", "/{index}/{type}/_query"),
-    ],
     "A6d, index administration": [
         ("DELETE,HEAD", "/{index}"), ("HEAD", "/{index}/{type}"),
         ("POST", "/{index}/_open"), ("POST", "/{index}/_close"),
@@ -322,47 +327,66 @@ def build_rest_controller(node) -> RestController:
             version=int(req.param("version")) if req.param("version") else None,
             version_type=req.param("version_type", "internal"),
             op_type=req.param("op_type", "index"), refresh=req.bool_param("refresh"),
-            parent=req.param("parent"))
+            parent=req.param("parent"), timestamp=req.param("timestamp"),
+            ttl=req.param("ttl"))
         return RestResponse(201 if r.get("created") else 200, r)
 
     rc.register("PUT,POST", "/{index}/{type}/{id}", doc_index)
     rc.register("POST", "/{index}/{type}", doc_index)
 
-    def refuse_get_fields(req):
-        if req.param("fields") is not None:
-            raise NotPortedError(
-                "GET parameter [fields] is not ported yet (a later slice of the "
-                "port: stored fields come with the document APIs, A6c)")
+    def doc_create(req):
+        r = client.create(req.path_params["index"], req.path_params["type"],
+                          _parse_body(req), id=req.path_params["id"],
+                          routing=req.param("routing"), parent=req.param("parent"),
+                          version=int(req.param("version")) if req.param("version")
+                          else None,
+                          version_type=req.param("version_type", "internal"),
+                          refresh=req.bool_param("refresh"),
+                          timestamp=req.param("timestamp"), ttl=req.param("ttl"))
+        return RestResponse(201, r)
+
+    rc.register("PUT,POST", "/{index}/{type}/{id}/_create", doc_create)
 
     def render_get(req, r) -> RestResponse:
-        """A GET response: 404 when not found, else the `_source` unless
-        `?_source=false`, filtered by `_source` patterns or
+        """A GET response: 404 when not found; else the `fields` section
+        `?fields=` asks for, and the `_source` unless `?_source=false` or
+        `?fields=` leaves it out, filtered by `_source` patterns or
         `_source_include` / `_source_exclude`."""
         if not r["found"]:
             return RestResponse(404, {"_index": r.get("_index"),
                                       "_type": r.get("_type"),
                                       "_id": r.get("_id"), "found": False})
-        out = {k: v for k, v in r.items()
-               if k in ("_index", "_type", "_id", "_version", "found")}
         src_param = req.param("_source")
-        src = r.get("_source")
-        if src is not None and str(src_param).lower() != "false":
-            includes = req.param("_source_include")
-            if src_param not in (None, "true", True):
-                includes = src_param
-            if includes or req.param("_source_exclude"):
-                src = filter_source(src, includes, req.param("_source_exclude"))
-            out["_source"] = src
-        return RestResponse(200, out)
+        if src_param is not None and str(src_param).lower() == "false":
+            src_param = False
+        shaped = shape_get(r, req.param("fields"), src_param,
+                           req.param("_source_include"), req.param("_source_exclude"))
+        return RestResponse(200, {k: v for k, v in shaped.items() if k in (
+            "_index", "_type", "_id", "_version", "found", "fields", "_source")})
 
     def doc_get(req):
-        refuse_get_fields(req)
         return render_get(req, client.get(
             req.path_params["index"], req.path_params["type"], req.path_params["id"],
             routing=req.param("routing"), parent=req.param("parent"),
             realtime=req.bool_param("realtime", True), refresh=req.bool_param("refresh")))
 
     rc.register("GET,HEAD", "/{index}/{type}/{id}", doc_get)
+
+    def doc_source(req):
+        r = client.get(req.path_params["index"], req.path_params["type"],
+                       req.path_params["id"], routing=req.param("routing"),
+                       parent=req.param("parent"),
+                       realtime=req.bool_param("realtime", True),
+                       refresh=req.bool_param("refresh"))
+        if not r["found"]:
+            return RestResponse(404, {"found": False})
+        src = r["_source"]
+        if req.param("_source_include") or req.param("_source_exclude"):
+            src = filter_source(src, req.param("_source_include"),
+                                req.param("_source_exclude"))
+        return src
+
+    rc.register("GET,HEAD", "/{index}/{type}/{id}/_source", doc_source)
 
     def doc_delete(req):
         r = client.delete(req.path_params["index"], req.path_params["type"],
@@ -375,6 +399,67 @@ def build_rest_controller(node) -> RestController:
         return RestResponse(200 if r["found"] else 404, r)
 
     rc.register("DELETE", "/{index}/{type}/{id}", doc_delete)
+
+    def doc_update(req):
+        body = _parse_body(req)
+        # `script` and `lang` may come as query parameters
+        if req.param("script") is not None:
+            body.setdefault("script", req.param("script"))
+        if req.param("lang") is not None:
+            body.setdefault("lang", req.param("lang"))
+        return client.update(req.path_params["index"], req.path_params["type"],
+                             req.path_params["id"], body,
+                             routing=req.param("routing"), parent=req.param("parent"),
+                             refresh=req.bool_param("refresh"),
+                             fields=req.param("fields"), ttl=req.param("ttl"),
+                             timestamp=req.param("timestamp"),
+                             version=int(req.param("version"))
+                             if req.param("version") else None,
+                             version_type=req.param("version_type", "internal"),
+                             retry_on_conflict=int(req.param("retry_on_conflict", 0)))
+
+    rc.register("POST", "/{index}/{type}/{id}/_update", doc_update)
+
+    def mget(req):
+        body = _parse_body(req)
+        default_index = body.get("index") or req.path_params.get("index")
+        default_type = body.get("type") or req.path_params.get("type")
+        docs = body.get("docs")
+        if docs is None and "ids" in body:
+            docs = [{"_index": default_index, "_type": default_type, "_id": i}
+                    for i in body["ids"]]
+        # the query parameters are each document's defaults
+        source_param = req.param("_source")
+        if source_param in ("true", "false"):
+            source_param = source_param == "true"
+        elif isinstance(source_param, str):
+            source_param = source_param.split(",")
+        if req.param("_source_include") or req.param("_source_exclude"):
+            source_param = {
+                "include": str(req.param("_source_include")).split(",")
+                if req.param("_source_include") else [],
+                "exclude": str(req.param("_source_exclude")).split(",")
+                if req.param("_source_exclude") else []}
+        for d in docs or []:
+            if not d.get("_index") and default_index:
+                d["_index"] = default_index
+            if not d.get("_type") and default_type:
+                d["_type"] = default_type
+            if req.param("fields") is not None:
+                d.setdefault("fields", str(req.param("fields")).split(","))
+            if source_param is not None:
+                d.setdefault("_source", source_param)
+            if req.param("realtime") is not None:
+                d.setdefault("realtime", req.bool_param("realtime", True))
+            if req.param("refresh") is not None:
+                d.setdefault("refresh", req.bool_param("refresh"))
+            if req.param("routing") is not None:
+                d.setdefault("routing", req.param("routing"))
+        return client.mget(docs or [])
+
+    rc.register("GET,POST", "/_mget", mget)
+    rc.register("GET,POST", "/{index}/_mget", mget)
+    rc.register("GET,POST", "/{index}/{type}/_mget", mget)
 
     def bulk(req):
         # one stream of parsed JSON objects from every accepted body shape
@@ -532,6 +617,12 @@ def build_rest_controller(node) -> RestController:
         # routing and preference are not read, as on the JAX node
         return client.count(req.path_params.get("index", "_all"), search_body(req))
 
+    def delete_by_query(req):
+        return client.delete_by_query(req.path_params["index"], search_body(req))
+
+    rc.register("DELETE", "/{index}/_query", delete_by_query)
+    rc.register("DELETE", "/{index}/{type}/_query", delete_by_query)
+
     rc.register("GET,POST", "/_count", count)
     rc.register("GET,POST", "/{index}/_count", count)
     rc.register("GET,POST", "/{index}/{type}/_count", count)
@@ -543,20 +634,19 @@ def build_rest_controller(node) -> RestController:
     rc.register("GET,POST", "/{index}/_suggest", suggest)
 
     def explain(req):
-        refuse_get_fields(req)
         body = _parse_body(req)
         if req.param("q"):
             body = {"query": {"query_string": {"query": req.param("q")}}}
         index, doc_type, doc_id = (req.path_params[k] for k in ("index", "type", "id"))
         out = client.explain(index, doc_type, doc_id, body)
-        # `_source` parameters attach the document's GET section
+        # `_source` and `fields` parameters attach the document's GET section
         if req.param("_source") is not None or req.param("_source_include") \
-                or req.param("_source_exclude"):
+                or req.param("_source_exclude") or req.param("fields"):
             g = client.get(index, doc_type, doc_id, routing=req.param("routing"))
             if g.get("found"):
                 rendered = render_get(req, g).body
-                out["get"] = {"found": True, **({"_source": rendered["_source"]}
-                                                if "_source" in rendered else {})}
+                out["get"] = {"found": True, **{k: rendered[k] for k in
+                                                ("fields", "_source") if k in rendered}}
         return out
 
     rc.register("GET,POST", "/{index}/{type}/{id}/_explain", explain)
@@ -651,9 +741,7 @@ def build_rest_controller(node) -> RestController:
                                   req.path_params["type"], _parse_body(req))
 
     def delete_mapping(req):
-        raise NotPortedError(
-            "DELETE _mapping is not ported yet (a later slice of the port: the "
-            "document APIs, whose delete-by-query removes the type's documents)")
+        return client.delete_mapping(req.path_params["index"], req.path_params["type"])
 
     for suffix in ("_mapping", "_mappings"):
         rc.register("PUT,POST", "/{index}/{type}/" + suffix, put_mapping)

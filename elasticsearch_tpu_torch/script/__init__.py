@@ -18,8 +18,15 @@ Three evaluators share one AST walk:
   float32 tensors on the launch's device (the device tier, which the
   function_score script family runs inside its dense launch).
 
-Stored and file scripts (`ScriptService`) and update scripts
-(`UpdateScript`) come with the slice that ports the update API.
+Update scripts (`UpdateScript`, `compile_update_script`) run in statement
+mode over a mutable `ctx` (`ctx._source`, `ctx.op`, `ctx._ttl`, ...): the
+same whitelist plus assignments, `if` and literal containers, with every
+attribute chain rooted at `ctx`, no dunder attribute, no call outside the
+whitelist and no rebinding of `ctx` or of a builtin. Named scripts live in
+this package's own process-wide registry (`_named`), which `compile_script`
+resolves a source through; a node's `ScriptService` puts and removes its
+own entries there. The script-file watcher that feeds it from a directory
+comes with the sidecars' slice.
 """
 
 from __future__ import annotations
@@ -332,12 +339,119 @@ def check_lang(lang):
         raise ScriptError(f"script_lang not supported [{lang}]")
 
 
+class _AttrDict:
+    """Attribute access over a plain dict, so mvel-shaped update scripts
+    (`ctx._source.foo = ...`) run unmodified."""
+
+    __slots__ = ("_d",)
+
+    def __init__(self, d: dict):
+        object.__setattr__(self, "_d", d)
+
+    def __getattr__(self, k):
+        try:
+            v = self._d[k]
+        except KeyError:
+            raise AttributeError(k) from None
+        return _AttrDict(v) if isinstance(v, dict) else v
+
+    def __setattr__(self, k, v):
+        self._d[k] = v
+
+    def __getitem__(self, k):
+        v = self._d[k]
+        return _AttrDict(v) if isinstance(v, dict) else v
+
+    def __setitem__(self, k, v):
+        self._d[k] = v
+
+    def __contains__(self, k):
+        return k in self._d
+
+
+_STMT_NODES = _ALLOWED_NODES + (
+    ast.Module, ast.Assign, ast.AugAssign, ast.Expr, ast.If, ast.Store,
+    ast.List, ast.Dict, ast.Tuple,
+)
+
+
+class UpdateScript:
+    """A statement-mode script over a mutable `ctx` (an update script sets
+    `ctx._source`, `ctx.op`, `ctx._ttl`, `ctx._timestamp`)."""
+
+    def __init__(self, source: str, params: dict):
+        self.source = source
+        self.params = dict(params or {})
+        try:
+            self.tree = ast.parse(source, mode="exec")
+        except SyntaxError as e:
+            raise ScriptError(f"script compile error: {e}") from None
+        for node in ast.walk(self.tree):
+            if not isinstance(node, _STMT_NODES):
+                raise ScriptError(
+                    f"disallowed construct [{type(node).__name__}] in script "
+                    f"[{self.source}]")
+            if isinstance(node, ast.Attribute):
+                # attribute chains are rooted at `ctx` (an _AttrDict) and never
+                # reach a dunder: no `().__class__...` escape
+                if node.attr.startswith("__"):
+                    raise ScriptError(f"disallowed attribute [{node.attr}]")
+                base = node
+                while isinstance(base, (ast.Attribute, ast.Subscript)):
+                    base = base.value
+                if not (isinstance(base, ast.Name) and base.id == "ctx"):
+                    raise ScriptError(
+                        "attribute access is only allowed on ctx.*")
+            if isinstance(node, ast.Call):
+                if not isinstance(node.func, ast.Name) or \
+                        node.func.id not in _ALLOWED_FUNCS:
+                    raise ScriptError("only whitelisted functions may be called")
+            if isinstance(node, (ast.Assign, ast.AugAssign)):
+                targets = node.targets if isinstance(node, ast.Assign) else \
+                    [node.target]
+                for t in targets:
+                    if isinstance(t, ast.Name) and t.id in (
+                            *_ALLOWED_FUNCS, "ctx"):
+                        raise ScriptError(
+                            f"cannot rebind builtin name [{t.id}]")
+        self._code = compile(self.tree, "<update-script>", "exec")
+
+    def run(self, ctx: dict, **extra):
+        env = {"ctx": _AttrDict(ctx), **_ALLOWED_FUNCS, **self.params, **extra}
+        try:
+            exec(self._code, {"__builtins__": {}}, env)  # noqa: S102 — sandboxed AST
+        except ScriptError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            raise ScriptError(f"script runtime error: {e}") from None
+        return ctx
+
+
+def compile_update_script(source: str, params: dict | None = None,
+                          lang=None) -> UpdateScript:
+    check_lang(lang)
+    return UpdateScript(source, params or {})
+
+
 _cache: dict[tuple, CompiledScript] = {}
+
+# named scripts: name -> {owner (a ScriptService's id): source}, the
+# newest owner's source winning, so one in-process node removing its
+# script never drops another's of the same name
+_named: dict[str, dict[int, str]] = {}
+
+
+def _resolve_named(name: str) -> str | None:
+    owners = _named.get(name)
+    if owners:
+        return next(reversed(owners.values()))
+    return None
 
 
 def compile_script(source: str, params: dict | None = None,
                    lang=None) -> CompiledScript:
     check_lang(lang)
+    source = _resolve_named(source) or source
     key = (source, tuple(sorted((params or {}).items())))
     try:
         cs = _cache.get(key)
@@ -347,3 +461,26 @@ def compile_script(source: str, params: dict | None = None,
         cs = CompiledScript(source, params or {})
         _cache[key] = cs
     return cs
+
+
+class ScriptService:
+    """A node's named scripts in the process registry (`_named`), and the
+    compile of a source or a name."""
+
+    def __init__(self):
+        self._sid = id(self)
+
+    def put(self, name: str, source: str):
+        owners = _named.setdefault(name, {})
+        owners.pop(self._sid, None)  # a re-put makes this owner the newest
+        owners[self._sid] = source
+
+    def remove(self, name: str):
+        owners = _named.get(name)
+        if owners is not None:
+            owners.pop(self._sid, None)
+            if not owners:
+                _named.pop(name, None)
+
+    def compile(self, source_or_name: str, params: dict | None = None) -> CompiledScript:
+        return compile_script(source_or_name, params)

@@ -17,7 +17,8 @@ with its mesh and warmer off, every index at `refresh_interval: -1`).
   a `_routing.required` type (a single-document write without routing
   answers 400 on both; a `_bulk` item without routing is indexed on both),
   and a percolator query on a `body_en` field give the same answers.
-- `DELETE _mapping` answers 400 on the port, naming its later slice.
+- `DELETE _mapping` of a type of its own (at both routes) drops the type
+  and its documents as on the JAX node.
 - A restart over `path.data` keeps the custom analyzer, the multi-fields,
   the copy_to target and the DFR default, with the same hits as before and
   as the restarted JAX node."""
@@ -462,12 +463,23 @@ def test_percolator_on_body_en_matches_jax_node(nodes):
 
 
 def test_delete_mapping_names_its_later_slice(nodes):
-    pbase = nodes[0]
-    for path in ("/an/doc/_mapping", "/an/_mapping/doc"):
-        st, r = call(pbase, "DELETE", path)
-        assert st == 400 and "later slice" in r["error"]["reason"]
-    # nothing was deleted
-    assert "doc" in call(pbase, "GET", "/an/_mapping")[1]["an"]["mappings"]
+    """`DELETE _mapping` (served since the document APIs' slice) drops a
+    type of its own and its documents, at both routes, as on the JAX node;
+    the index's other types keep theirs."""
+    for i, path in enumerate(("/an/gone{}/_mapping", "/an/_mapping/gone{}")):
+        _both(nodes, "PUT", f"/an/gone{i}/1?refresh=true", {"body": "gone soon"})
+        _both(nodes, "POST", "/an/_refresh")
+        st, pr, jr = _both(nodes, "DELETE", path.format(i))
+        assert st == 200 and pr == jr == {"acknowledged": True}
+        st, pr, jr = _both(nodes, "GET", "/an/_mapping")
+        assert pr == jr and f"gone{i}" not in pr["an"]["mappings"]
+        st, pr, jr = _both(nodes, "POST", "/an/_count", {"query": {"filtered": {
+            "filter": {"type": {"value": f"gone{i}"}}}}})
+        assert pr == jr and pr["count"] == 0
+    st, pr, _jr = _both(nodes, "GET", "/an/_mapping")
+    assert "doc" in pr["an"]["mappings"]
+    st, pr, jr = _both(nodes, "DELETE", "/an/_mapping/nothere")
+    assert st == 404 and pr == jr
 
 
 @pytest.mark.parametrize("mapping", [
@@ -475,14 +487,11 @@ def test_delete_mapping_names_its_later_slice(nodes):
     {"properties": {"c": {"type": "nested"}}},
     {"properties": {"loc": {"type": "geo_point"}}}], ids=["parent", "ttl", "nested", "geo"])
 def test_later_mapping_features_answer_400_on_the_port(nodes, mapping, request):
-    """`_ttl` still answers 400 naming its slice; `_parent`, `nested` and
+    """`_ttl` (since the document APIs' slice), `_parent`, `nested` and
     `geo_point` (the mapper's second half) are put as on the JAX node, which
     then renders the same mapping."""
     name = request.node.callspec.id
     st, r = call(nodes[0], "PUT", f"/an/kid_{name}/_mapping", mapping)
-    if name == "ttl":
-        assert st == 400 and "later slice" in r["error"]["reason"]
-        return
     jst, jr = call(nodes[1], "PUT", f"/an/kid_{name}/_mapping", mapping)
     assert (st, r) == (jst, jr) == (200, {"acknowledged": True})
     got = call(nodes[0], "GET", f"/an/kid_{name}/_mapping")

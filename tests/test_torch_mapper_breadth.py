@@ -12,9 +12,9 @@ synonyms.
   the document gives.
 - `to_mapping()` and `merge()` (conflicts included) are equal; the mapper
   service's dynamic fields and a `copy_to` target made dynamically too.
-- `_ttl` still raises, naming its slice; `_parent`, `nested`, `geo_point`
-  and `geo_shape` (served since the mapper's second half) map, render and
-  parse a document as the JAX mapper does.
+- `_ttl` (served since the document APIs' slice), `_parent`, `nested`,
+  `geo_point` and `geo_shape` (since the mapper's second half) map, render
+  and parse a document as the JAX mapper does.
 - A JAX segment built with these mappings, carried across by
   `convert.segment_from_arrays` (doc values and routings included), scores
   the same as the JAX device path, and so does the port's own index of the
@@ -272,6 +272,7 @@ def test_merge_and_to_mapping_match_jax(i):
 # a document for each served mapping: (mapping, parse arguments)
 _SECOND_HALF_DOCS = {
     "_parent": ({"title": "a reply"}, {"parent": "7"}),
+    "_ttl": ({"title": "a session"}, {"timestamp": 4102444800000, "ttl": "90m"}),
     "nested": ({"title": "post", "c": [{"who": "ann", "n": 3}, {"who": "bo", "n": 5}]},
                {}),
     "geo_point": ({"loc": [{"lat": 40.7, "lon": -74.0}, "51.5,-0.12", "u4pruydqqvj",
@@ -283,7 +284,7 @@ _SECOND_HALF_DOCS = {
 
 @pytest.mark.parametrize("mapping,slice_", [
     ({"_parent": {"type": "blog"}}, None),
-    ({"_ttl": {"enabled": True}}, "document APIs"),
+    ({"_ttl": {"enabled": True}}, None),
     ({"properties": {"c": {"type": "nested", "properties": {
         "who": {"type": "string", "index": "not_analyzed"},
         "n": {"type": "integer"}}}}}, None),
@@ -291,9 +292,10 @@ _SECOND_HALF_DOCS = {
     ({"properties": {"shape": {"type": "geo_shape"}}}, None),
 ], ids=["_parent", "_ttl", "nested", "geo_point", "geo_shape"])
 def test_later_slices_still_raise(request, mapping, slice_):
-    """`_ttl` still raises naming its slice; the mapper's second half
-    (`_parent`, `nested`, `geo_point`, `geo_shape`) maps, renders and parses
-    as the JAX mapper does, nested children included."""
+    """`_ttl` (since the document APIs' slice) and the mapper's second half
+    (`_parent`, `nested`, `geo_point`, `geo_shape`) map, render and parse as
+    the JAX mapper does, nested children included; a TTL lands as the same
+    `_expiry` doc value."""
     tms = TMapperService()
     if slice_ is not None:
         with pytest.raises(MapperParsingError, match="later slice") as err:

@@ -5,12 +5,13 @@ indexes after it from starting).
 The mapper, module against module: a `binary` field is kept in `_source`
 only, a `completion`, `murmur3` or other unlisted type keeps its values as
 string doc values, as the JAX mapper does (the same rendered mapping and the
-same parsed document). `_ttl` still raises, naming its slice.
+same parsed document). `_ttl` maps as in the JAX mapper (served since the
+document APIs' slice).
 
 Node against node over REST: `binary`, `completion` and `murmur3` indexes
 start, index a document and serve the same search, GET and mapping as the
-JAX node's. On the port, a `_ttl` mapping at `PUT /{index}` answers 400
-and leaves no index in the metadata. An index whose service fails to build
+JAX node's, and so does an index created with a `_ttl` mapping. An index
+whose service fails to build
 (metadata written without the create action's check, as a node that ran
 before the repair persisted it) stays red on its own: an index created
 after it starts green, also after a restart over the same `path.data`."""
@@ -55,8 +56,23 @@ def test_mapper_keeps_unlisted_types_as_the_jax_mapper(kind):
 
 
 def test_ttl_still_raises_naming_its_slice():
-    with pytest.raises(MapperParsingError, match="document APIs"):
-        TMapperService().put_mapping("doc", {"_ttl": {"enabled": True}})
+    """`_ttl` maps, renders and parses as in the JAX mapper (its refusal went
+    with the document APIs' slice): a document's TTL from the default."""
+    from elasticsearch_tpu.mapper import MapperService as JMapperService
+
+    mapping = {"_ttl": {"enabled": True, "default": "1d"},
+               "properties": {"title": {"type": "string"}}}
+    jms, tms = JMapperService(), TMapperService()
+    for ms in (jms, tms):
+        ms.put_mapping("doc", mapping)
+    assert tms.mappings_dict() == jms.mappings_dict()
+    assert tms.mappings_dict()["doc"]["_ttl"] == {"enabled": True}
+    jdoc, tdoc = (ms.mapper_for("doc").parse({"title": "x"}, "1",
+                                             timestamp=4102444800000)
+                  for ms in (jms, tms))
+    assert tdoc.ttl == jdoc.ttl == 86_400_000
+    assert tdoc.doc_values_num == jdoc.doc_values_num
+    assert tdoc.doc_values_num["_expiry"] == [4102444800000.0 + 86_400_000]
 
 
 @pytest.fixture(scope="module")
@@ -101,13 +117,30 @@ def test_index_starts_and_serves_as_the_jax_node(nodes, kind):
 
 
 def test_ttl_at_create_answers_400_and_creates_nothing(nodes):
-    pbase, _jbase, pnode = nodes
-    st, r = call(pbase, "PUT", "/c7_ttl", {"mappings": {"doc": {"_ttl": {"enabled": True}}}})
-    assert st == 400 and "document APIs" in r["error"]["reason"], r
-    assert not pnode.cluster_service.state.metadata.has_index("c7_ttl")
-    assert call(pbase, "GET", "/c7_ttl/_mapping")[0] == 404
-    st, r = call(pbase, "PUT", "/c7_after_ttl", {"settings": {"number_of_replicas": 0}})
-    assert st == 200 and r["primaries_active"], r
+    """An index created with a `_ttl` mapping (refused before the document
+    APIs' slice) starts, maps and serves a document as on the JAX node."""
+    pbase, jbase, pnode = nodes
+    answers = []
+    for path, method, body in (
+            ("/c7_ttl", "PUT", {"settings": {"number_of_shards": 1,
+                                             "number_of_replicas": 0},
+                                "mappings": {"doc": {"_ttl": {"enabled": True,
+                                                              "default": "1d"}}}}),
+            ("/_cluster/health/c7_ttl", "GET", None),
+            ("/c7_ttl/_mapping", "GET", None),
+            ("/c7_ttl/doc/1", "PUT", {"title": "quick fox"}),
+            ("/c7_ttl/_refresh", "POST", None),
+            ("/c7_ttl/_search", "POST", {"query": {"match": {"title": "fox"}}})):
+        (pst, pr), (jst, jr) = (call(b, method, path, body) for b in (pbase, jbase))
+        pr.pop("took", None), jr.pop("took", None)
+        assert (pst, pr) == (jst, jr), path
+        answers.append((pst, pr))
+    assert answers[0][1]["acknowledged"] and answers[1][1]["status"] == "green"
+    assert answers[5][1]["hits"]["total"] == 1
+    assert pnode.cluster_service.state.metadata.has_index("c7_ttl")
+    # the document's remaining TTL: positive, under the default
+    st, r = call(pbase, "GET", "/c7_ttl/doc/1?fields=_ttl")
+    assert st == 200 and 0 < r["fields"]["_ttl"] < 86_400_000, r
 
 
 def _put_unchecked_index(node, name: str, mappings: dict):
@@ -131,7 +164,8 @@ def test_an_index_after_a_failing_one_starts(tmp_path):
                  data_path=data).start()
     try:
         base = f"http://127.0.0.1:{node.start_http(0).port}"
-        _put_unchecked_index(node, "aaa_broken", {"doc": {"_ttl": {"enabled": True}}})
+        # a mapping the port's mapper refuses: a field spec that is no object
+        _put_unchecked_index(node, "aaa_broken", {"doc": {"properties": {"f": "string"}}})
         st, r = call(base, "PUT", "/zzz_after", {"settings": {"number_of_replicas": 0}})
         assert st == 200 and r["primaries_active"], r
         assert call(base, "PUT", "/zzz_after/doc/1", {"body": "x"})[0] == 201

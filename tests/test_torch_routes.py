@@ -67,7 +67,7 @@ def test_port_registers_every_jax_route_and_no_other():
     assert port == jax, (sorted(jax - port), sorted(port - jax))
     later = {(m, re.sub(r"\{\w+\}", "{}", t)) for m, t, _s in LATER}
     assert len(later) == len(LATER)  # no pair twice in the table
-    assert len(jax) == 255 and len(later) == 150
+    assert len(jax) == 255 and len(later) == 137
 
 
 @pytest.fixture(scope="module")

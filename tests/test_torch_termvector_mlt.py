@@ -12,7 +12,7 @@ minus the document (on the host scorer, as the JAX node does), with
 `mlt_fields` and a search body; `_explain` searches the query with an
 `ids` filter and reports `matched` and the hit's score, with `?q=` and the
 GET section of the `_source` parameters. Pinned on the port: `?fields=` on
-`_explain` answers 400 naming the document APIs (A6c), as on GET."""
+`_explain` answers the JAX node's `fields` section, as on GET."""
 
 import json
 
@@ -156,8 +156,12 @@ def test_explain_cases_match_jax_node(nodes, path, body):
 
 
 def test_explain_fields_param_answers_400_on_the_port(nodes):
-    """`?fields=` on `_explain`, as on GET, comes with the document APIs."""
-    for path in ("/lib/book/0/_explain?fields=title", "/lib/book/0?fields=title"):
-        st, r = call(nodes[0], "GET", path)
-        assert st == 400 and r["error"]["type"] == "NotPortedException", (path, r)
-        assert "A6c" in r["error"]["reason"]
+    """`?fields=` on `_explain`, as on GET (served since the document APIs'
+    slice), answers the JAX node's `fields` section."""
+    for path in ("/lib/book/0/_explain?fields=title", "/lib/book/0?fields=title",
+                 "/lib/book/0/_explain?fields=title,_source",
+                 "/lib/book/0?fields=title&_source=true"):
+        (pst, pr), (jst, jr) = (call(b, "GET", path) for b in nodes[:2])
+        assert pst == jst == 200 and pr == jr, (path, pr, jr)
+        section = pr.get("get", pr)
+        assert section["fields"]["title"], (path, pr)
