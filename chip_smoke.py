@@ -399,6 +399,37 @@ those paths against its plain torch version on the card. Phases:
      (resolve, tombstone, refresh, repack), searches/s beside writes and
      alone, the purge's lag from expiry to `_count` 0, the device's idle
      share over a profiled window, and the phase's launches.
+ 23. index lifecycle, on a node of its own, in the shape of Elasticsearch:
+     The Definitive Guide's time-based indexes: a template `logs-*` (1
+     shard, 0 replicas, `refresh_interval: -1`, `message`, not-analyzed
+     `user_id` and `level`, `date`, the alias `last_7_days`), 7 day indexes
+     of 2,000 events created by it, the write alias `logs_current` moved
+     each day in one `_aliases` call (each day's last event written
+     through it), a search warmer a day (a `bool` of 4 terms of df ranks
+     50-500, so each day holds some) and 50
+     filtered aliases `user_<n>`. The first `_refresh` runs the warmers
+     (their launches counted). 64 `bool` searches through `last_7_days`
+     (7 shards, sparse) and through the concrete indexes, 64 `match`
+     searches through 8 `user_<n>` aliases (the dense filtered family) and
+     the same bodies filtered on the concrete indexes, from 16
+     connections: equal pages, and 16 of them held against the shards'
+     host query phases (2 ulp, tie-tolerant); a profiled window. Retired:
+     settings on the two oldest days (a write block: 403), both closed
+     (`logs-*` and `last_7_days` searches, reads and writes answer 403),
+     one opened (its `_count` and pages as before the close), both
+     deleted; `torch.cuda.memory_allocated()` falls by at least 90% of the
+     bytes the port counts resident for each (its packs and filter masks).
+     Three cycles of create, fill, search and delete of one more day leave
+     the allocated bytes within 5% of a day's resident bytes. `_cache/
+     clear` brings the filter masks, the request cache and both breakers to
+     0 and the searches answer as before; one call each of `_validate`,
+     `_analyze`, `_mapping/field`, `_gateway/snapshot`, HEAD of index,
+     type and alias, and GET of settings, aliases, templates and warmers.
+     Printed: the wall p50 and max of create, alias swap, settings, close,
+     open and delete, searches/s and p50/p99 of each leg, the warmers'
+     launches and wall, the bytes each close and delete released, the
+     device's idle share, and `sparse_score`'s launches and shapes, each
+     held bitwise against its plain version.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -582,6 +613,23 @@ DOC_HOT, DOC_HOT_ZIPF, DOC_TAGS, DOC_DBQ_TAGS = 200, 1.1, 50, 5
 DOC_BULK_UPDATES, DOC_DBQ_SEARCHES, DOC_CHECKS = 500, 128, 256
 DOC_UPDATE_CPU, DOC_SEARCH_ONLY, DOC_PROFILED = 64, 64, 64
 DOC_TTL_S = 3.0  # `sessions`' default TTL; the purger runs every second
+# phase 23 on a node of its own: time-based `logs-*` indexes, a day each
+# (2,000 events a day, cut from a deployment's millions for the phase's
+# 60 s; 7 days and 3 create-fill-search-delete cycles of one more), the
+# users their `user_id` is drawn from (zipf over 50) and the users given a
+# filtered alias searched, the searches of each leg and their connections,
+# the checked searches (half through `last_7_days`, half through the user
+# aliases) and the profiled window of each kind (legs of 64, 16 checks and
+# windows of 32, cut from 128, 64 and 64 after a 93.9 s phase on the card,
+# 57.9 s of it the searches and their host checks)
+LIFE_DAYS, LIFE_DAY_DOCS, LIFE_CYCLES = 7, 2_000, 3
+LIFE_USERS, LIFE_USER_ZIPF, LIFE_ALIAS_USERS = 50, 1.2, 8
+LIFE_REQUESTS, LIFE_CONN, LIFE_CHECKS, LIFE_PROFILED = 64, 16, 16, 32
+LIFE_LEVELS = (("info", 0.8), ("warn", 0.15), ("error", 0.05))
+# a closed or deleted day's device bytes (its packs and filter masks) that
+# memory_allocated() must give back, and the growth over the cycles it may
+# show, as shares of one day's resident bytes
+LIFE_RELEASED_SHARE, LIFE_GROWTH_SHARE = 0.9, 0.05
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -803,18 +851,29 @@ def check_hits(name: str, top, ref_total: int, ref_scores: np.ndarray, k: int):
 class LaunchRecorder:
     """Wraps the scoring module's `sparse_score`, until `close()`, to keep
     the inputs of the first launch of every bucket shape and of every launch
-    of one chosen batch. It launches nothing itself and counts nothing."""
+    of one chosen batch. It launches nothing itself and counts nothing.
+    With `copy_inputs` it keeps copies of the first launch's tensors (their
+    bytes in `held_bytes`), so it holds no pack of an index that closes."""
 
-    def __init__(self, scoring_module, sparse_score):
+    def __init__(self, scoring_module, sparse_score, copy_inputs: bool = False):
         self.shapes: dict = {}  # shape key -> (args, kwargs, launches)
         self.batch: list | None = None
+        self.held_bytes = 0
         self._orig = sparse_score
         self._module = scoring_module
+
+        def keep(a):
+            if copy_inputs and hasattr(a, "clone"):
+                self.held_bytes += a.numel() * a.element_size()
+                return a.clone()
+            return a
 
         def recording(*args, **kwargs):
             key = (tuple(args[0].shape), str(args[10].dtype), kwargs["k"],
                    kwargs["passes"], kwargs["simple"], kwargs["use_coord"])
-            entry = self.shapes.setdefault(key, [args, kwargs, 0])
+            entry = self.shapes.get(key)
+            if entry is None:
+                entry = self.shapes[key] = [tuple(keep(a) for a in args), kwargs, 0]
             entry[2] += 1
             if self.batch is not None:
                 self.batch.append((args, kwargs))
@@ -1488,6 +1547,10 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         n_sessions=doc_sessions, n_requests=doc_requests,
         n_bulk_updates=doc_bulk_updates, n_checks=doc_checks)
 
+    # -- 23. index lifecycle on a node of its own -----------------------------
+    report["lifecycle"] = lifecycle = lifecycle_phase(device, vocab=vocab,
+                                                      seed=seed + 23)
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1523,7 +1586,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         documents_launches=documents["launches"].get("sparse_score", 0),
         documents_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                           for s in documents["kernel_shapes"]],
-        documents_max_abs_err=documents["kernel_max_abs_err"])]
+        documents_max_abs_err=documents["kernel_max_abs_err"],
+        lifecycle_launches=lifecycle["launches"].get("sparse_score", 0),
+        lifecycle_warmer_launches=lifecycle["refresh"]["warmer_launches"],
+        lifecycle_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                          for s in lifecycle["kernel_shapes"]],
+        lifecycle_max_abs_err=lifecycle["kernel_max_abs_err"])]
     return report
 
 
@@ -7423,6 +7491,548 @@ def documents_phase(device, *, vocab: int, seed: int, n_posts: int = DOC_POSTS,
         node.close()
         shutil.rmtree(data_path, ignore_errors=True)
 
+
+
+# ---------------------------------------------------------------------------
+# phase 23: index lifecycle
+# ---------------------------------------------------------------------------
+
+
+def day_name(d: int) -> str:
+    return f"logs-2014.01.{d + 1:02d}"
+
+
+def lifecycle_phase(device, *, vocab: int, seed: int, n_days: int = LIFE_DAYS,
+                    day_docs: int = LIFE_DAY_DOCS, n_cycles: int = LIFE_CYCLES,
+                    n_requests: int = LIFE_REQUESTS, n_checks: int = LIFE_CHECKS,
+                    n_conn: int = LIFE_CONN) -> dict:
+    """Phase 23: a port Node of its own on `device` holding time-based
+    indexes in the shape of Elasticsearch: The Definitive Guide (1.x),
+    "Index per Time Frame", "Index Templates", "Retiring Data" and "Faking
+    Index per User with Aliases": a template `logs-*` (1 shard, 0
+    replicas, `refresh_interval: -1`, `message` text, not-analyzed
+    `user_id` and `level`, a `date`, the alias `last_7_days`), a day index a
+    day created by it, the write alias `logs_current` moved each day in one
+    `_aliases` call, a search warmer a day and filtered aliases `user_<n>`.
+    The days fill, their searches run through the aliases (7 shards sparse;
+    filtered aliases on the dense filtered family) and are held against the
+    shards' host query phases; the oldest days are retired (settings,
+    close, open, delete) and the card's memory checked to go back; the
+    caches clear; one call of each remaining route. `sparse_score` bitwise
+    against its plain version at every shape the phase launched, the
+    warmers' launches among them."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import (
+        _SegmentFilterMasks, pack_cache_key, packed_resident_bytes)
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import (
+        ShardContext, execute_query_phase, parse_search_body, sort_docs)
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    rng = np.random.default_rng(seed)
+    total_days = n_days + n_cycles
+    texts, offsets, _inv = node_corpus(total_days * day_docs, vocab, seed)
+    user_p = 1.0 / np.arange(1, LIFE_USERS + 1) ** LIFE_USER_ZIPF
+    user_p /= user_p.sum()
+    levels = [lv for lv, _p in LIFE_LEVELS]
+    level_p = np.array([p for _lv, p in LIFE_LEVELS])
+    ranked = np.argsort(-np.diff(offsets), kind="stable")
+
+    def bool_body():
+        row = rng.choice(ranked[RANKS[0]: RANKS[1]], TERMS_PER_QUERY)
+        return {"query": {"bool": {"should": [{"term": {"message": term_name(int(t))}}
+                                              for t in row]}}, "size": NODE_SIZE}
+
+    def match_body():
+        row = rng.choice(ranked[RANKS[0] // 10: RANKS[1] // 10], 2)
+        return {"query": {"match": {"message": " ".join(term_name(int(t))
+                                                        for t in row)}},
+                "size": NODE_SIZE}
+
+    def events(d: int) -> list:
+        users = rng.choice(LIFE_USERS, day_docs, p=user_p)
+        lv = rng.choice(len(levels), day_docs, p=level_p)
+        return [{"message": texts[d * day_docs + i], "user_id": f"u{int(users[i])}",
+                 "level": levels[int(lv[i])],
+                 "date": f"2014-01-{d + 1:02d}T{i * 86399 // day_docs // 3600:02d}:00:00"}
+                for i in range(day_docs)]
+
+    data_path = Path(__file__).resolve().parent / "build" / f"chip_smoke_life_{os.getpid()}"
+    shutil.rmtree(data_path, ignore_errors=True)
+    node = Node(name="lifecycle", registry=LocalTransportRegistry(),
+                data_path=str(data_path), settings={"node.device": str(device)}).start()
+    recorder = None
+    launches: dict = {}
+    steps: dict = {}
+    walls = {k: [] for k in ("create", "alias_swap", "settings", "close", "open",
+                             "delete")}
+
+    def take() -> dict:
+        snap = cudaenv.LAUNCHES.snapshot()
+        cudaenv.LAUNCHES.reset()
+        for name, n in snap.items():
+            launches[name] = launches.get(name, 0) + n
+        return snap
+
+    def wait_drained(timeout: float = 120.0):
+        deadline = time.perf_counter() + timeout
+        while True:
+            st = node.warmer.stats()
+            if st["packs_done"] >= st["packs_scheduled"] and \
+                    node.search_batcher.stats()["queue"] == 0:
+                return
+            assert time.perf_counter() < deadline, f"not drained: {st}"
+            time.sleep(0.01)
+
+    def allocated() -> int:
+        """The card's allocated bytes once the warmer and the batcher are
+        drained and the collector ran, less the recorder's input copies."""
+        wait_drained()
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - recorder.held_bytes
+
+    def resident(index: str) -> int:
+        """The bytes the port counts resident for an index: its segments'
+        packed planes (`packed_resident_bytes`) and filter masks."""
+        svc = node.indices.indices.get(index)
+        out = 0
+        for shard in (svc.shards.values() if svc else ()):
+            for seg in shard.engine.acquire_searcher().segments:
+                packed = seg._device_cache.get(pack_cache_key(device))
+                if packed is not None:
+                    out += packed_resident_bytes(packed)
+                out += sum(h.bytes for h in list(seg._device_cache.values())
+                           if isinstance(h, _SegmentFilterMasks))
+        return out
+
+    def timed(kind: str, conn, method: str, path: str, body=None):
+        t0 = time.perf_counter()
+        st, r = http_json(conn, method, path, body)
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+        assert st == 200 and r.get("acknowledged"), (kind, path, st, r)
+        return r
+
+    def check(expr: str, bodies: list, got: list, alias_filter=None) -> int:
+        """Each response against the shards' host query phases over the
+        indices `expr` resolves to (a filtered alias's filter wrapped in as
+        its shards wrap it): tie-tolerant within 2 ulp. Returns the hits."""
+        names = node.cluster_service.state.metadata.resolve_indices(expr)
+        searchers, ctxs = [], []
+        for name in names:
+            svc = node.indices.index_service(name)
+            sr = svc.shard(0).engine.acquire_searcher()
+            searchers.append(sr)
+            ctxs.append(ShardContext(sr, svc.mapper_service, svc.similarity_service,
+                                     device=device))
+        seen = 0
+        for body, (st, r) in zip(bodies, got):
+            assert st == 200 and r["_shards"]["failed"] == 0 and \
+                r["_shards"]["degraded"] == 0, (expr, st, r)
+            if alias_filter is not None:
+                body = {**body, "query": {"filtered": {"query": body["query"],
+                                                       "filter": alias_filter}}}
+            req = parse_search_body(body)
+            merged = sort_docs(req, [execute_query_phase(c, req, use_device=False,
+                                                         shard_id=o)
+                                     for o, c in enumerate(ctxs)])
+            assert r["hits"]["total"] == merged.total, (expr, r["hits"]["total"],
+                                                        merged.total)
+            want = []
+            for score, o, doc, sv in merged.hits[: req.size]:
+                seg, local = searchers[o].resolve(doc)
+                want.append((score, (names[o], seg.ids[local]), sv))
+            have = [(h["_score"], (h["_index"], h["_id"]), None)
+                    for h in r["hits"]["hits"]]
+            assert shard_docs_match(have, want, False), (expr, have, want)
+            seen += len(have)
+        return seen
+
+    def leg(path: str, bodies: list) -> dict:
+        got, lat, wall = http_requests(port, [("POST", path, b, None) for b in bodies],
+                                       n_conn)
+        return dict(got=got, requests=len(bodies), searches_per_s=len(bodies) / wall,
+                    p50_ms=float(np.percentile(lat, 50)),
+                    p99_ms=float(np.percentile(lat, 99)), wall_s=wall)
+
+    def stats_of(lg: dict) -> dict:
+        return {k: v for k, v in lg.items() if k != "got"}
+
+    try:
+        port = node.start_http(0).port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+        # -- the template, the days, the write alias, the warmers -------------
+        t0 = time.perf_counter()
+        st, r = http_json(conn, "PUT", "/_template/logs", {
+            "template": "logs-*", "order": 0,
+            "settings": {"number_of_shards": 1, "number_of_replicas": 0,
+                         "refresh_interval": -1},
+            "mappings": {"event": {"properties": {
+                "message": {"type": "string"},
+                "user_id": {"type": "string", "index": "not_analyzed"},
+                "level": {"type": "string", "index": "not_analyzed"},
+                "date": {"type": "date"}}}},
+            "aliases": {"last_7_days": {}}})
+        assert st == 200 and r == {"acknowledged": True}, r
+        day_events = {}
+        # a day's warmer: a `bool` of denser terms (df ranks 50-500), so each
+        # day holds some of them and its warmer launches
+        warmer_bodies = [{"query": {"bool": {"should": [
+            {"term": {"message": term_name(int(t))}}
+            for t in rng.choice(ranked[RANKS[0]: RANKS[1] // 10], TERMS_PER_QUERY)]}},
+            "size": NODE_SIZE} for _ in range(total_days)]
+        bulk_s = 0.0
+        for d in range(n_days):
+            day = day_name(d)
+            timed("create", conn, "PUT", f"/{day}")
+            actions = [{"add": {"index": day, "alias": "logs_current"}}]
+            if d:
+                actions.insert(0, {"remove": {"index": day_name(d - 1),
+                                              "alias": "logs_current"}})
+            timed("alias_swap", conn, "POST", "/_aliases", {"actions": actions})
+            st, r = http_json(conn, "PUT", f"/{day}/_warmer/day_warmer",
+                              warmer_bodies[d])
+            assert st == 200, r
+            day_events[day] = events(d)
+            tb = time.perf_counter()
+            docs = day_events[day]
+            for lo in range(0, len(docs) - 1, NODE_BULK):
+                lines = []
+                for i in range(lo, min(lo + NODE_BULK, len(docs) - 1)):
+                    lines += [json.dumps({"index": {"_index": day, "_type": "event",
+                                                    "_id": str(i)}}),
+                              json.dumps(docs[i])]
+                st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+                assert st == 200 and not r["errors"], r.get("items", [])[:2]
+            # the day's last event through the write alias
+            st, r = http_json(conn, "PUT", f"/logs_current/event/{len(docs) - 1}",
+                              docs[-1])
+            assert st == 201 and r["_index"] == day, r
+            bulk_s += time.perf_counter() - tb
+        st, r = http_json(conn, "GET", "/_alias/logs_current")
+        assert list(r) == [day_name(n_days - 1)], r
+        users = [f"u{u}" for u in range(LIFE_USERS)]
+        st, r = http_json(conn, "POST", "/_aliases", {"actions": [
+            {"add": {"index": "logs-*", "alias": f"user_{u}",
+                     "filter": {"term": {"user_id": u}}, "routing": u}} for u in users]})
+        assert st == 200, r
+        steps["create_fill"] = time.perf_counter() - t0
+
+        # the phase counts from here; the first refresh runs each day's
+        # warmer on its new view (through the batcher: the day's first
+        # search, which packs it inline)
+        recorder = LaunchRecorder(scoring, sparse_score, copy_inputs=True)
+        cudaenv.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        st, r = http_json(conn, "POST", "/_refresh")
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        assert st == 200 and r["_shards"]["failed"] == 0, r
+        warm_launches = take().get("sparse_score", 0)
+        if on_card:
+            assert warm_launches >= n_days, ("warmers launched nothing", warm_launches)
+        wait_drained()
+        counts = {}
+        for d in range(n_days):
+            st, r = http_json(conn, "GET", f"/{day_name(d)}/_count")
+            assert r["count"] == day_docs, (d, r)
+            counts[day_name(d)] = r["count"]
+
+        # -- searches through the aliases, against the concrete indexes ------
+        t0 = time.perf_counter()
+        concrete = ",".join(day_name(d) for d in range(n_days))
+        alias_users = [users[int(u)] for u in
+                       np.argsort(-user_p, kind="stable")[:LIFE_ALIAS_USERS]]
+        b7 = [bool_body() for _ in range(n_requests)]
+        bu = [match_body() for _ in range(n_requests)]
+        # warm every day's filter masks' first sighting and every shape's
+        # first launch outside the clocks
+        leg("/last_7_days/_search", b7[:n_conn])
+        for u in alias_users:
+            leg(f"/user_{u}/_search", bu[:2])
+        legs = {"last_7_days": leg("/last_7_days/_search", b7),
+                "concrete": leg(f"/{concrete}/_search", b7)}
+        per_user = [(u, bu[i::LIFE_ALIAS_USERS]) for i, u in enumerate(alias_users)]
+        got_alias, lat_alias, t_alias = [], [], time.perf_counter()
+        for u, bodies in per_user:
+            lg = leg(f"/user_{u}/_search", bodies)
+            got_alias.append((u, bodies, lg["got"]))
+        alias_wall = time.perf_counter() - t_alias
+        filtered = [{**b, "query": {"filtered": {"query": b["query"], "filter": {
+            "term": {"user_id": u}}}}} for u, bodies in per_user for b in bodies]
+        legs["user_aliases"] = dict(requests=len(filtered),
+                                    searches_per_s=len(filtered) / alias_wall,
+                                    wall_s=alias_wall)
+        legs["concrete_filtered"] = leg(f"/{concrete}/_search", filtered)
+        assert [r["hits"] for _s, r in legs["last_7_days"]["got"]] == \
+            [r["hits"] for _s, r in legs["concrete"]["got"]]
+        i = 0
+        for u, bodies, got in got_alias:
+            for (_st, r), (_st2, r2) in zip(got, legs["concrete_filtered"]["got"][
+                    i: i + len(bodies)]):
+                assert r["hits"] == r2["hits"], u
+            i += len(bodies)
+        search_launches = take()
+        hits_checked = check("last_7_days", b7[: n_checks // 2], legs["last_7_days"]["got"])
+        for u, bodies, got in got_alias:
+            hits_checked += check(f"user_{u}",
+                                  bodies[: max(1, n_checks // 2 // len(per_user))],
+                                  got, alias_filter={"term": {"user_id": u}})
+        assert hits_checked > 0
+        profiled = None
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            pbodies = [(f"/user_{alias_users[i % len(alias_users)]}/_search", b)
+                       for i, b in enumerate(bu[:LIFE_PROFILED])] + \
+                [("/last_7_days/_search", b) for b in b7[:LIFE_PROFILED]]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _g, pwall = http_burst(port, pbodies, n_conn)
+            profiled = device_busy(prof, pwall * 1e3)
+        take()
+        steps["search"] = time.perf_counter() - t0
+
+        # -- retire: settings, close two, open one, delete the oldest ---------
+        t0 = time.perf_counter()
+        old = [day_name(0), day_name(1)]
+        for day in old:
+            timed("settings", conn, "PUT", f"/{day}/_settings", {"settings": {
+                "index.routing.allocation.include.box_type": "cold",
+                "index.blocks.write": True}})
+        st, r = http_json(conn, "PUT", f"/{old[0]}/event/x", {"message": "late"})
+        assert st == 403, r  # the write block of a retired day
+        keep_bodies = b7[:8]
+        before_close = [http_json(conn, "POST", f"/{old[1]}/_search", b)[1]["hits"]
+                        for b in keep_bodies]
+        released = {}
+        for day in old:
+            res = resident(day)
+            a0 = allocated()
+            timed("close", conn, "POST", f"/{day}/_close")
+            a1 = allocated()
+            released[f"close {day}"] = dict(resident=res, released=a0 - a1)
+        st, r = http_json(conn, "POST", "/logs-*/_search", b7[0])
+        assert st == 403 and r["error"]["type"] == "ClusterBlockException", r
+        st, r = http_json(conn, "POST", "/last_7_days/_search", b7[0])
+        assert st == 403, r
+        for method, path, body in (("GET", f"/{old[0]}/_count", None),
+                                   ("PUT", f"/{old[1]}/event/x", {"message": "x"}),
+                                   ("GET", f"/{old[1]}/event/1", None)):
+            st, r = http_json(conn, method, path, body)
+            assert st == 403, (path, r)
+        timed("open", conn, "POST", f"/{old[1]}/_open")
+        st, r = http_json(conn, "GET", f"/_cluster/health?wait_for_status=green")
+        assert st == 200 and r["status"] == "green", r
+        st, r = http_json(conn, "GET", f"/{old[1]}/_count")
+        assert r["count"] == counts[old[1]], r
+        after_open = [http_json(conn, "POST", f"/{old[1]}/_search", b)[1]["hits"]
+                      for b in keep_bodies]
+        assert after_open == before_close
+        res = resident(old[0])  # closed: nothing resident
+        a0 = allocated()
+        timed("delete", conn, "DELETE", f"/{old[0]}")
+        a1 = allocated()
+        released[f"delete {old[0]}"] = dict(resident=res, released=a0 - a1)
+        # a resident day's delete: the open day 1, searched first
+        for b in keep_bodies:
+            http_json(conn, "POST", f"/{old[1]}/_search", b)
+        res = resident(old[1])
+        a0 = allocated()
+        timed("delete", conn, "DELETE", f"/{old[1]}")
+        a1 = allocated()
+        released[f"delete {old[1]}"] = dict(resident=res, released=a0 - a1)
+        if on_card:
+            for what, v in released.items():
+                if what.startswith("close") or v["resident"]:
+                    assert v["released"] >= LIFE_RELEASED_SHARE * v["resident"], (what, v)
+        st, r = http_json(conn, "POST", "/last_7_days/_search", b7[0])
+        assert st == 200 and r["_shards"]["total"] == n_days - 2, r
+        take()
+        steps["retire"] = time.perf_counter() - t0
+
+        # -- cycles: create, fill, search and delete one more day -------------
+        t0 = time.perf_counter()
+        cycles = []
+        for c in range(n_cycles):
+            d = n_days + c
+            day = day_name(d)
+            timed("create", conn, "PUT", f"/{day}")
+            docs = events(d)
+            lines = []
+            for i, src in enumerate(docs):
+                lines += [json.dumps({"index": {"_index": day, "_type": "event",
+                                                "_id": str(i)}}), json.dumps(src)]
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], r.get("items", [])[:2]
+            st, r = http_json(conn, "POST", f"/{day}/_refresh")
+            assert st == 200, r
+            fbody = [{**b, "query": {"filtered": {"query": b["query"], "filter": {
+                "term": {"user_id": alias_users[0]}}}}} for b in bu[:8]]
+            got = leg(f"/{day}/_search", b7[:16] + fbody + fbody)["got"]
+            assert all(st == 200 for st, _r in got), got[:2]
+            res = resident(day)
+            timed("delete", conn, "DELETE", f"/{day}")
+            cycles.append(dict(day=day, resident=res, allocated=allocated()))
+        if on_card:
+            base = cycles[0]["allocated"]
+            for cy in cycles[1:]:
+                assert abs(cy["allocated"] - base) <= LIFE_GROWTH_SHARE * cycles[0]["resident"], \
+                    cycles
+        take()
+        steps["cycles"] = time.perf_counter() - t0
+
+        # -- the caches clear ------------------------------------------------
+        t0 = time.perf_counter()
+        fb = [(f"/user_{u}/_search", b) for u, bodies, _g in got_alias for b in bodies[:2]]
+        first, _w = http_burst(port, fb, n_conn)
+        before_clear = dict(filter=node.filter_cache.stats()["memory_size_in_bytes"],
+                            request=node.request_cache.stats()["memory_size_in_bytes"])
+        st, r = http_json(conn, "POST", "/_cache/clear?filter=true&request=true")
+        assert st == 200 and r["_shards"]["failed"] == 0, r
+        wait_drained()
+        assert node.filter_cache.stats()["memory_size_in_bytes"] == 0
+        assert node.request_cache.stats()["memory_size_in_bytes"] == 0
+        assert not node.request_cache._entries
+        assert node.breakers.breaker("fielddata").used == 0
+        assert node.breakers.breaker("request").used == 0
+        again, _w = http_burst(port, fb, n_conn)
+        assert [r["hits"] for _s, r in again] == [r["hits"] for _s, r in first]
+        take()
+        steps["cache_clear"] = time.perf_counter() - t0
+
+        # -- one call of each remaining route --------------------------------
+        t0 = time.perf_counter()
+        day = day_name(n_days - 1)
+
+        def status(method, path, body=None) -> int:
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                c.request(method, path, body=None if body is None else json.dumps(body),
+                          headers={"Content-Type": "application/json"})
+                resp = c.getresponse()
+                resp.read()
+                return resp.status
+            finally:
+                c.close()
+
+        rest = {
+            "validate": http_json(conn, "POST", f"/{day}/_validate/query",
+                                  {"query": {"match": {"message": "t1"}}}),
+            "analyze": http_json(conn, "GET", f"/{day}/_analyze?field=user_id&text=u7"),
+            "field_mapping": http_json(conn, "GET", f"/{day}/_mapping/field/user_id"),
+            "gateway_snapshot": http_json(conn, "POST", "/_gateway/snapshot"),
+            "settings": http_json(conn, "GET", f"/{day}/_settings"),
+            "aliases": http_json(conn, "GET", f"/{day}/_aliases"),
+            "templates": http_json(conn, "GET", "/_template/logs"),
+            "warmers": http_json(conn, "GET", f"/{day}/_warmer"),
+        }
+        assert rest["validate"][1]["valid"] is True and \
+            rest["validate"][1]["_shards"]["total"] == 1, rest["validate"]
+        assert [t["token"] for t in rest["analyze"][1]["tokens"]] == ["u7"]
+        assert rest["field_mapping"][1][day]["mappings"]["event"]["user_id"][
+            "mapping"]["user_id"]["index"] == "not_analyzed"
+        assert rest["gateway_snapshot"][1]["_shards"]["total"] == 0
+        assert rest["settings"][1][day]["settings"]["index"]["number_of_shards"] == "1"
+        assert {"last_7_days", "logs_current", f"user_{users[0]}"} <= \
+            set(rest["aliases"][1][day]["aliases"])
+        assert rest["templates"][1]["logs"]["template"] == "logs-*"
+        assert "day_warmer" in rest["warmers"][1][day]["warmers"]
+        assert all(st == 200 for st, _r in rest.values()), \
+            {k: st for k, (st, _r) in rest.items()}
+        heads = {"index": status("HEAD", f"/{day}"), "type": status("HEAD", f"/{day}/event"),
+                 "alias": status("HEAD", f"/{day}/_alias/logs_current"),
+                 "missing index": status("HEAD", f"/{day_name(0)}")}
+        assert heads == {"index": 200, "type": 200, "alias": 200, "missing index": 404}, heads
+        steps["rest"] = time.perf_counter() - t0
+        conn.close()
+        take()
+        recorder.close()
+
+        # -- the kernel at phase 23's shapes ---------------------------------
+        t0 = time.perf_counter()
+        recorded = sum(n for _args, _kwargs, n in recorder.shapes.values())
+        if on_card:  # every counted launch is one the shapes' checks hold
+            assert launches.get("sparse_score", 0) == recorded, (launches, recorded)
+        max_err = check_shapes(recorder.shapes)
+        shapes = [dict(Qb=int(args[0].shape[0]), TB=int(args[0].shape[1]),
+                       tf=str(args[10].dtype), k=kwargs["k"], launches=n)
+                  for _key, (args, kwargs, n) in recorder.shapes.items()]
+        steps["kernel_checks"] = time.perf_counter() - t0
+
+        def p50_max(v):
+            return dict(p50_ms=float(np.percentile(v, 50)), max_ms=float(max(v)), n=len(v))
+
+        out = dict(days=n_days, day_docs=day_docs, cycles=cycles, card=card,
+                   bulk_s=bulk_s, walls={k: p50_max(v) for k, v in walls.items() if v},
+                   legs={k: stats_of(v) for k, v in legs.items()},
+                   refresh=dict(ms=refresh_ms, warmer_launches=warm_launches,
+                                warmers=n_days),
+                   released=released, profiled=profiled, hits_checked=hits_checked,
+                   search_launches=search_launches, cache_before_clear=before_clear,
+                   heads=heads, launches=launches, kernel_shapes=shapes,
+                   kernel_max_abs_err=max_err)
+        log(f"[23] `logs-*` on {device}: {n_days} days of {day_docs} events by the "
+            f"template (bulk {bulk_s:.1f} s, {n_days * day_docs / bulk_s:.1f} docs/s), "
+            f"a warmer a day, `logs_current` moved each day, {LIFE_USERS} `user_<n>` "
+            f"filtered aliases; {card}")
+        for k, v in out["walls"].items():
+            log(f"[23] {k:10s} wall p50 {v['p50_ms']:.2f} ms, max {v['max_ms']:.2f} ms "
+                f"({v['n']} calls)")
+        for k, v in out["legs"].items():
+            log(f"[23] {k:17s} {v['requests']:4d} searches from {n_conn} connections: "
+                f"{v['searches_per_s']:.1f} searches/s"
+                + (f", p50 {v['p50_ms']:.2f} ms, p99 {v['p99_ms']:.2f} ms"
+                   if "p50_ms" in v else "") + f"; {card}")
+        log(f"[23] the refresh running the {n_days} warmers: {refresh_ms:.1f} ms, "
+            f"{warm_launches} sparse_score launches ({warm_launches / n_days:.1f} a warmer)")
+        for what, v in released.items():
+            log(f"[23] {what}: {v['resident']} B resident, memory_allocated() fell "
+                f"{v['released']} B" + (f" ({v['released'] / v['resident']:.3f} of it)"
+                                       if v["resident"] else ""))
+        log(f"[23] {n_cycles} cycles of create, fill, search, delete: allocated after each "
+            f"{[c['allocated'] for c in cycles]} B, a day resident "
+            f"{[c['resident'] for c in cycles]} B")
+        log(f"[23] _cache/clear: filter masks {before_clear['filter']} B and request cache "
+            f"{before_clear['request']} B -> 0; the breakers at 0; the filtered searches "
+            f"answer as before")
+        if profiled and profiled["device_busy_ms"]:
+            log(f"[23] profiled window of {2 * LIFE_PROFILED} searches: wall "
+                f"{profiled['wall_ms']:.2f} ms, device busy {profiled['device_busy_ms']:.3f} "
+                f"ms, idle share {profiled['idle_share']:.4f}; {card}")
+        elif on_card:
+            log("[23] profiled window: the profiler saw no device time "
+                "(device idle share not measured)")
+        log(f"[23] checks: {hits_checked} hits == the shards' host query phases (within "
+            f"{ULPS} ulp, tie-tolerant); a closed day refuses reads and writes (403), "
+            f"`_open` restores its count and hits; HEAD {heads}")
+        for sh in shapes:
+            log(f"[23]   sparse_score Qb {sh['Qb']} TB {sh['TB']} {sh['tf']} k {sh['k']}: "
+                f"{sh['launches']} launches")
+        log(f"[23] sparse_score == plain (bitwise) at all {len(shapes)} shapes phase 23 "
+            f"launched ({launches.get('sparse_score', 0)} launches in the phase, "
+            f"{recorded} of them recorded at those shapes); max abs err {max_err}")
+        out["wall_phase_s"] = time.perf_counter() - t_phase
+        out["steps_s"] = steps
+        log(f"[23] phase 23 took {out['wall_phase_s']:.1f} s; by step (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+        return out
+    finally:
+        if recorder is not None:
+            recorder.close()
+        node.close()
+        shutil.rmtree(data_path, ignore_errors=True)
 
 
 def small_sources(n_docs: int, seed: int) -> list[dict]:

@@ -1,13 +1,23 @@
 """Action layer: the API kernel over the transport (a trimmed copy of the JAX
 package's `actions.py`), in the reference's interaction patterns:
 
-- master-node: create an index, apply a dynamic-mapping update, shard
-  started — forwarded to the master, which mutates the cluster state on its
-  single state thread;
+- master-node: create an index (the matching templates' settings,
+  mappings and aliases applied lowest `order` first, then the body's
+  aliases and warmers), delete, open and close indices, update settings
+  (`index.blocks.*` install and lift index blocks; a new
+  `number_of_replicas` resizes the groups), aliases, templates and search
+  warmers, apply a dynamic-mapping update, shard started — forwarded to the
+  master, which mutates the cluster state on its single state thread. A
+  close drops the index's routing and blocks it (reads and writes answer
+  403); an open gives it fresh routing, and its shards recover from their
+  stores;
 - replication, primary only (a one-node cluster leaves every replica
   unassigned): `index_doc` routes a document to its primary by djb2, with
-  its `timestamp` and `ttl`; `bulk` groups the ops per shard and sends
-  every group at once;
+  its `timestamp` and `ttl`, through an alias that names one index; the
+  primary first checks the write consistency (`quorum` by default: more
+  than half of a group of more than two copies must be active, else 503);
+  `bulk` groups the ops per shard and sends every group at once (no
+  consistency check, as in the JAX package);
 - the update API (`update_doc`): get → modify → index on the coordinator,
   with the read version as a compare-and-set and `retry_on_conflict`
   retries; `doc` merges deep, `upsert` / `doc_as_upsert` create, a
@@ -38,8 +48,15 @@ package's `actions.py`), in the reference's interaction patterns:
   false (a degraded answer is bitwise the card's). A DFS request never
   uses the cache. `warm_shard_queries` is the warmer's re-prime of a new
   view;
-- broadcast: `refresh`, `flush` and `optimize` on every active shard, and
-  `delete_by_query`: each shard resolves the query's matches on the host
+- filtered aliases: a search that names a filtered alias wraps each of
+  that index's shard requests in a `filtered` query with the alias's filter
+  before the shard's request-cache fingerprint is taken, so a filtered
+  alias never reads the unfiltered body's entry;
+- broadcast: `refresh` (a refresh that installs a new view runs the
+  index's search warmers through the query phase, on the node's batcher;
+  a failing warmer is logged), `flush`, `optimize`, `clear_cache` (the
+  shard's filter masks and request-cache entries, each tier selectable)
+  on every active shard, and `delete_by_query`: each shard resolves the query's matches on the host
   (`host_match_mask` over live parent documents: a nested parent takes its
   children), tombstones them in one logged op (`Engine.delete_by_uids`)
   and refreshes, so the next view leaves them out; `_m_delete_mapping`
@@ -82,30 +99,43 @@ with Retry-After before the fan-out.
 
 Not in this slice: the SPMD mesh branch, insights, tracing, profiles, the
 slowlog, cache-affinity routing, failover across copies and hedging,
-replica writes (of index, delete, update and delete-by-query alike),
-aliases and templates."""
+replica writes (of index, delete, update and delete-by-query alike), and
+the alias routing values (stored and rendered; no write or search reads
+them, as in the JAX package)."""
 
 from __future__ import annotations
 
 import base64
+import json
 import pickle
 import threading
 import time
 import uuid
+from dataclasses import replace
 
 import numpy as np
 
 from .cluster.allocation import new_index_routing
 from .cluster.service import HIGH, URGENT
-from .cluster.state import ClusterState, IndexMetaData, ShardRouting
+from .cluster.state import (
+    BLOCK_INDEX_CLOSED,
+    ClusterState,
+    IndexMetaData,
+    IndexRoutingTable,
+    IndexShardRoutingTable,
+    IndexTemplateMetaData,
+    ShardRouting,
+)
 from .common.deadline import NO_DEADLINE, Deadline
 from .common.errors import (
     ActionRequestValidationError,
+    AliasesMissingError,
     CircuitBreakingError,
     DocumentMissingError,
     IllegalArgumentError,
     IndexAlreadyExistsError,
     IndexMissingError,
+    IndexWarmerMissingError,
     MasterNotDiscoveredError,
     RejectedExecutionError,
     RoutingMissingError,
@@ -130,6 +160,7 @@ from .search.controller import (
 )
 from .script import compile_update_script
 from .search.execute import ShardContext, host_match_mask
+from .search.filters import clear_segment_masks
 from .search.queries import MatchAllQuery, parse_query, resolve_terms_lookups
 from .search.request_cache import cache_policy, request_fingerprint
 from .search.service import (
@@ -142,6 +173,15 @@ from .search.service import (
 from .transport import fut_result
 
 A_CREATE_INDEX = "indices:admin/create"
+A_DELETE_INDEX = "indices:admin/delete"
+A_OPEN_INDEX = "indices:admin/open"
+A_CLOSE_INDEX = "indices:admin/close"
+A_UPDATE_SETTINGS = "indices:admin/settings/update"
+A_ALIASES = "indices:admin/aliases"
+A_PUT_TEMPLATE = "indices:admin/template/put"
+A_DELETE_TEMPLATE = "indices:admin/template/delete"
+A_PUT_WARMER = "indices:admin/warmers/put"
+A_DELETE_WARMER = "indices:admin/warmers/delete"
 A_PUT_MAPPING = "indices:admin/mapping/put"
 A_DELETE_MAPPING = "indices:admin/mapping/delete"
 A_MAPPING_UPDATED = "internal:cluster/mapping_updated"
@@ -161,6 +201,36 @@ A_SHARD_BROADCAST = "indices:admin/broadcast[s]"
 QUERY_PHASE_TIMEOUT = 60.0
 DFS_PHASE_TIMEOUT = 30.0
 DFS_SEARCH_TYPES = ("dfs_query_then_fetch", "dfs_query_and_fetch")
+
+# `index.blocks.*` settings and the index block each installs
+_BLOCK_SETTINGS = {"index.blocks.read_only": ("index_read_only", "write"),
+                   "index.blocks.read": ("index_read", "read"),
+                   "index.blocks.write": ("index_write", "write"),
+                   "index.blocks.metadata": ("index_metadata", "metadata")}
+
+
+def _normalize_alias_specs(aliases: dict) -> dict:
+    """An alias keeps `filter`, `index_routing` and `search_routing`; a bare
+    `routing` sets both routings."""
+    out = {}
+    for name, spec in aliases.items():
+        spec = {k: v for k, v in dict(spec or {}).items()
+                if k in ("filter", "index_routing", "search_routing", "routing")}
+        if "routing" in spec:
+            r = spec.pop("routing")
+            spec.setdefault("index_routing", r)
+            spec.setdefault("search_routing", r)
+        out[name] = spec
+    return out
+
+
+def _normalize_warmer(body) -> dict:
+    """A warmer is `{types, source}`; a bare search body is the source."""
+    body = dict(body or {})
+    if "source" in body:
+        return {"types": body.get("types") or [], "source": body["source"]}
+    types = body.pop("types", []) or []
+    return {"types": types, "source": body}
 
 
 class ActionModule:
@@ -186,6 +256,15 @@ class ActionModule:
         self.admission = SearchAdmissionController()
         t = self.transport
         for action, fn in [(A_CREATE_INDEX, self._m_create_index),
+                           (A_DELETE_INDEX, self._m_delete_index),
+                           (A_OPEN_INDEX, self._m_open_index),
+                           (A_CLOSE_INDEX, self._m_close_index),
+                           (A_UPDATE_SETTINGS, self._m_update_settings),
+                           (A_ALIASES, self._m_aliases),
+                           (A_PUT_TEMPLATE, self._m_put_template),
+                           (A_DELETE_TEMPLATE, self._m_delete_template),
+                           (A_PUT_WARMER, self._m_put_warmer),
+                           (A_DELETE_WARMER, self._m_delete_warmer),
                            (A_PUT_MAPPING, self._m_put_mapping),
                            (A_DELETE_MAPPING, self._m_delete_mapping),
                            (A_MAPPING_UPDATED, self._m_mapping_updated),
@@ -225,9 +304,23 @@ class ActionModule:
         def update(state: ClusterState) -> ClusterState:
             if state.metadata.has_index(index):
                 raise IndexAlreadyExistsError(index)
+            settings = {(k if k.startswith("index.") else f"index.{k}"): v
+                        for k, v in Settings.from_flat(
+                            body.get("settings") or {}).as_dict().items()}
+            mappings = dict(body.get("mappings") or {})
+            aliases = dict(body.get("aliases") or {})
+            # the matching templates, lowest order first: the body's
+            # settings win, a template's mapping or alias fills a gap only
+            for tpl in state.metadata.templates_for(index):
+                merged = dict(tpl.settings_map)
+                merged.update(Settings.from_flat(settings).as_dict())
+                settings = merged
+                for ttype, m in tpl.mappings:
+                    mappings.setdefault(ttype, json.loads(m) if isinstance(m, str) else m)
+                for a, spec in tpl.aliases:
+                    aliases.setdefault(a, spec)
             flat = {(k if k.startswith("index.") else f"index.{k}"): v
-                    for k, v in Settings.from_flat(
-                        body.get("settings") or {}).as_dict().items()}
+                    for k, v in Settings.from_flat(settings).as_dict().items()}
             flat.setdefault("index.number_of_shards", 5)
             flat.setdefault("index.number_of_replicas", 1)
             flat["index.number_of_shards"] = int(flat["index.number_of_shards"])
@@ -236,9 +329,13 @@ class ActionModule:
             # the mappings are parsed before the state changes (a mapping the
             # port refuses answers 400 and creates nothing) and kept as given
             svc = MapperService(meta.settings)
-            for t, m in (body.get("mappings") or {}).items():
+            for t, m in mappings.items():
                 svc.put_mapping(t, m)
                 meta = meta.with_mapping(t, m)
+            if aliases:
+                meta = meta.with_aliases(_normalize_alias_specs(aliases))
+            for wname, wbody in (body.get("warmers") or {}).items():
+                meta = meta.with_warmer(wname, _normalize_warmer(wbody))
             new = state.next_version(
                 metadata=state.metadata.with_index(meta),
                 routing_table=state.routing_table.with_index(new_index_routing(
@@ -248,6 +345,236 @@ class ActionModule:
         self._submit(f"create-index[{index}]", update, priority=URGENT)
         ok = self._wait_for_active_primaries(index, timeout=10.0)
         return {"acknowledged": True, "index": index, "primaries_active": ok}
+
+    def _m_delete_index(self, request, channel):
+        """Drop the resolved indices from the metadata, the routing table
+        and the blocks; each node's indices service then closes their
+        shards, wipes their data and releases what they held."""
+        indices = self.cluster_service.state.metadata.resolve_indices(request["index"])
+
+        def update(state: ClusterState) -> ClusterState:
+            md, rt, blocks = state.metadata, state.routing_table, state.blocks
+            for index in indices:
+                md = md.without_index(index)
+                rt = rt.without_index(index)
+                blocks = blocks.without_index(index)
+            return state.next_version(metadata=md, routing_table=rt, blocks=blocks)
+
+        self._submit(f"delete-index{indices}", update, priority=URGENT)
+        self._drop_pins(indices)
+        return {"acknowledged": True}
+
+    def _m_open_index(self, request, channel):
+        return self._set_index_state(request["index"], "open")
+
+    def _m_close_index(self, request, channel):
+        return self._set_index_state(request["index"], "close")
+
+    def _set_index_state(self, index_expr, target: str) -> dict:
+        """`close`: the index keeps its metadata and data, loses its routing
+        (its shards close) and is blocked; `open`: fresh routing, the block
+        lifted, and the reroute assigns its primaries again."""
+        indices = self.cluster_service.state.metadata.resolve_indices(index_expr)
+
+        def update(state: ClusterState) -> ClusterState:
+            md, rt, blocks = state.metadata, state.routing_table, state.blocks
+            for index in indices:
+                meta = md.require_index(index)
+                md = md.with_index(replace(meta, state=target,
+                                           version=meta.version + 1))
+                if target == "close":
+                    rt = rt.without_index(index)
+                    blocks = blocks.with_index_block(index, BLOCK_INDEX_CLOSED)
+                else:
+                    rt = rt.with_index(new_index_routing(
+                        index, meta.number_of_shards, meta.number_of_replicas))
+                    blocks = blocks.without_index(index)
+            return self.allocation.reroute(
+                state.next_version(metadata=md, routing_table=rt, blocks=blocks))
+
+        self._submit(f"{target}-index{indices}", update, priority=URGENT)
+        if target == "close":
+            self._drop_pins(indices)
+        return {"acknowledged": True}
+
+    def _drop_pins(self, indices) -> None:
+        """Forget the query-phase contexts pinned on `indices` (closed or
+        deleted): their searchers must not hold the index's segments, and
+        with them its device memory, until the pins expire. A fetch that
+        comes later reads the shard's current searcher, as an expired pin
+        does."""
+        names = set(indices)
+        with self._pinned_lock:
+            for cid in [cid for cid, v in self._pinned.items() if v[1] in names]:
+                del self._pinned[cid]
+
+    def _m_update_settings(self, request, channel):
+        """Merge the body's settings into each resolved index's; an
+        `index.blocks.*` key installs or lifts its index block and a new
+        `number_of_replicas` resizes the index's groups."""
+        indices = self.cluster_service.state.metadata.resolve_indices(request["index"])
+        flat = Settings.from_flat(request["body"].get("settings", request["body"])) \
+            .as_dict()
+        normalized = {(k if k.startswith("index.") else f"index.{k}"): v
+                      for k, v in flat.items()}
+
+        def update(state: ClusterState) -> ClusterState:
+            md, rt, blocks = state.metadata, state.routing_table, state.blocks
+            for index in indices:
+                meta = md.require_index(index)
+                old_replicas = meta.number_of_replicas
+                meta = meta.with_settings(normalized)
+                md = md.with_index(meta)
+                if meta.number_of_replicas != old_replicas:
+                    rt = self._resize_replicas(rt, index, meta.number_of_replicas)
+                for key, block in _BLOCK_SETTINGS.items():
+                    if key in normalized:
+                        if str(normalized[key]).lower() in ("true", "1"):
+                            blocks = blocks.with_index_block(index, block)
+                        else:
+                            blocks = blocks.without_index_block(index, block)
+            return self.allocation.reroute(
+                state.next_version(metadata=md, routing_table=rt, blocks=blocks))
+
+        self._submit(f"update-settings{indices}", update)
+        return {"acknowledged": True}
+
+    @staticmethod
+    def _resize_replicas(rt, index: str, target: int):
+        """Each of the index's groups with `target` replicas (new ones
+        unassigned)."""
+        table = rt.index(index)
+        groups = []
+        for grp in table.shards:
+            primary = [s for s in grp.shards if s.primary]
+            replicas = [s for s in grp.shards if not s.primary]
+            while len(replicas) > target:
+                replicas.pop()
+            while len(replicas) < target:
+                replicas.append(ShardRouting(index, grp.shards[0].shard_id, None, False))
+            groups.append(IndexShardRoutingTable(tuple(primary + replicas)))
+        return rt.with_index(IndexRoutingTable(index, tuple(groups)))
+
+    def _m_aliases(self, request, channel):
+        """Apply `add` and `remove` actions in order; the index expressions
+        resolve before anything changes, and a `remove` whose alias
+        expressions match no alias of its indices answers 404
+        AliasesMissingException."""
+        state0 = self.cluster_service.state
+        resolved = []
+        for entry in request["body"].get("actions", []):
+            (op, spec), = entry.items()
+            indices = state0.metadata.resolve_indices(
+                spec.get("index") or spec.get("indices") or "_all")
+            aliases = spec.get("alias") or spec.get("aliases") or []
+            if not isinstance(aliases, list):
+                aliases = [a.strip() for a in str(aliases).split(",")]
+            resolved.append((op, spec, indices, aliases))
+        for op, _spec, indices, alias_exprs in resolved:
+            if op == "remove" and not any(
+                    name_matches(a, expr)
+                    for index in indices
+                    for a, _ in state0.metadata.require_index(index).aliases
+                    for expr in alias_exprs):
+                raise AliasesMissingError(alias_exprs)
+
+        def update(state: ClusterState) -> ClusterState:
+            md = state.metadata
+            for op, spec, indices, alias_exprs in resolved:
+                for index in indices:
+                    meta = md.require_index(index)
+                    aliases = dict(meta.aliases)
+                    if op == "add":
+                        for alias in alias_exprs:
+                            aliases.update(_normalize_alias_specs({alias: spec}))
+                    elif op == "remove":
+                        for expr in alias_exprs:
+                            for a in [a for a in aliases if name_matches(a, expr)]:
+                                aliases.pop(a)
+                    md = md.with_index(meta.with_aliases(aliases))
+            return state.next_version(metadata=md)
+
+        self._submit("aliases", update)
+        return {"acknowledged": True}
+
+    def _m_put_template(self, request, channel):
+        name, body = request["name"], request["body"]
+        flat_settings = {
+            (k if k.startswith("index.") else f"index.{k}"): v
+            for k, v in Settings.from_flat(body.get("settings", {})).as_dict().items()}
+
+        def update(state: ClusterState) -> ClusterState:
+            tpl = IndexTemplateMetaData(
+                name=name, template=body.get("template", "*"),
+                order=int(body.get("order", 0)),
+                settings_map=tuple(sorted(flat_settings.items())),
+                mappings=tuple((t, json.dumps(m))
+                               for t, m in (body.get("mappings") or {}).items()),
+                aliases=tuple(sorted((body.get("aliases") or {}).items())))
+            return state.next_version(metadata=state.metadata.with_template(tpl))
+
+        self._submit(f"put-template[{name}]", update)
+        return {"acknowledged": True}
+
+    def _m_delete_template(self, request, channel):
+        name = request["name"]
+        self._submit(f"delete-template[{name}]", lambda state: state.next_version(
+            metadata=state.metadata.without_template(name)))
+        return {"acknowledged": True}
+
+    def _m_put_warmer(self, request, channel):
+        """Register a search warmer on each resolved index: its body runs
+        on every explicit refresh that installs a new view (`_run_warmers`)."""
+        indices = self.cluster_service.state.metadata.resolve_indices(request["index"])
+        name, body = request["name"], _normalize_warmer(request.get("body"))
+
+        def update(state: ClusterState) -> ClusterState:
+            md = state.metadata
+            for index in indices:
+                md = md.with_index(md.require_index(index).with_warmer(name, body))
+            return state.next_version(metadata=md)
+
+        self._submit(f"put-warmer[{name}]", update)
+        return {"acknowledged": True}
+
+    def _m_delete_warmer(self, request, channel):
+        state0 = self.cluster_service.state
+        indices = state0.metadata.resolve_indices(request["index"])
+        name_expr = request["name"] or "_all"
+        matched = {index: [w for w, _ in state0.metadata.require_index(index).warmers
+                           if name_matches(w, name_expr)]
+                   for index in indices}
+        if not any(matched.values()):
+            raise IndexWarmerMissingError(name_expr)
+
+        def update(state: ClusterState) -> ClusterState:
+            md = state.metadata
+            for index, names in matched.items():
+                meta = md.require_index(index)
+                for w in names:
+                    meta = meta.with_warmer(w, None)
+                md = md.with_index(meta)
+            return state.next_version(metadata=md)
+
+        self._submit(f"delete-warmer[{name_expr}]", update)
+        return {"acknowledged": True}
+
+    def _run_warmers(self, index: str, shard_id: int):
+        """Run the index's registered warmers on the shard's new view,
+        through the query phase and the node's batcher, as any search runs
+        (filter masks and packs warm before user traffic). A failing warmer
+        is logged, never raised."""
+        meta = self.cluster_service.state.metadata.index(index)
+        if meta is None or not meta.warmers:
+            return
+        for name, body in meta.warmers_dict().items():
+            try:
+                ctx = self._shard_ctx(index, shard_id)
+                execute_query_phase(ctx, parse_search_body(body.get("source", body)),
+                                    shard_id=shard_id)
+            except SearchEngineError as e:
+                self.logger.debug("warmer [%s] failed on [%s][%d]: %s",
+                                  name, index, shard_id, e)
 
     def _m_put_mapping(self, request, channel):
         """Merge a type's mapping into each named index's mapping in the
@@ -352,7 +679,8 @@ class ActionModule:
         return False
 
     def _ensure_index(self, index: str):
-        """Auto-create a missing index with the defaults."""
+        """Auto-create a missing index with the defaults (a `_bulk` item's
+        index: an alias's name too, as in the JAX package)."""
         if self.cluster_service.state.metadata.has_index(index):
             return
         try:
@@ -386,10 +714,12 @@ class ActionModule:
     def index_doc(self, index: str, type_name: str, doc_id: str | None,
                   source: dict, routing=None, version=None,
                   version_type="internal", op_type="index", refresh=False,
-                  parent=None, timestamp=None, ttl=None) -> dict:
-        """Index a document on its primary; a child's `parent` routes it
-        when no `routing` is given."""
-        self._ensure_index(index)
+                  parent=None, timestamp=None, ttl=None,
+                  consistency="quorum") -> dict:
+        """Index a document on its primary (through an alias that names one
+        index); a child's `parent` routes it when no `routing` is given.
+        The primary checks `consistency` before it writes."""
+        index = self._resolve_index_write(index, create=True)
         if doc_id is None:
             doc_id = uuid.uuid4().hex[:20]
         effective_routing = routing if routing is not None else parent
@@ -397,7 +727,7 @@ class ActionModule:
         req = {"index": index, "type": type_name, "id": doc_id, "source": source,
                "routing": routing, "parent": parent, "timestamp": timestamp,
                "ttl": ttl, "version": version, "version_type": version_type,
-               "op_type": op_type, "refresh": refresh}
+               "op_type": op_type, "refresh": refresh, "consistency": consistency}
         return self._route_to_primary(index, doc_id, effective_routing,
                                       A_INDEX_PRIMARY, req)
 
@@ -406,7 +736,7 @@ class ActionModule:
         """Send a single-document write to its shard's primary, waiting up to
         10 s for the primary to be active."""
         state = self.cluster_service.state
-        state.blocks.check("write")
+        state.blocks.check("write", index)
         deadline = time.monotonic() + 10.0
         while True:
             sid = self.routing.shard_id(state, index, doc_id, routing)
@@ -432,8 +762,28 @@ class ActionModule:
             self.node.percolator.register_query(index, request["id"],
                                                 request.get("source") or {})
 
+    def _check_consistency(self, index: str, shard_id: int, consistency: str):
+        """The write-consistency precheck of the group: `one` needs one
+        active copy, `all` every copy, `quorum` (the default) more than half
+        of a group of more than two copies and one copy otherwise; too few
+        active copies answer 503."""
+        group = self.cluster_service.state.routing_table.index(index).shard(shard_id)
+        size = group.size()
+        active = len(group.active_shards())
+        if consistency == "one":
+            required = 1
+        elif consistency == "all":
+            required = size
+        else:
+            required = size // 2 + 1 if size > 2 else 1
+        if active < required:
+            raise UnavailableShardsError(
+                f"not enough active copies for [{index}][{shard_id}]: "
+                f"{active} < required {required}")
+
     def _p_index(self, request, channel):
         index, shard_id = request["index"], request["shard"]
+        self._check_consistency(index, shard_id, request.get("consistency", "quorum"))
         self._register_percolator(index, request)
         shard = self.indices.index_service(index).shard(shard_id)
         mapper = shard.engine.mapper_service.mapper_for(request["type"])
@@ -459,9 +809,20 @@ class ActionModule:
         return {"_index": index, "_type": request["type"], "_id": request["id"],
                 "_version": version, "created": created}
 
-    def _resolve_index_write(self, index: str) -> str:
-        """A write names one concrete index (aliases come with A6d)."""
-        resolved = self.cluster_service.state.metadata.resolve_indices(index)
+    def _resolve_index_write(self, index: str, create: bool = False) -> str:
+        """A write names one concrete index, or an alias (or wildcard) that
+        resolves to exactly one; with `create`, a name that resolves to
+        nothing is created with the defaults first."""
+        md = self.cluster_service.state.metadata
+        if md.has_index(index):
+            return index
+        try:
+            resolved = md.resolve_indices(index)
+        except IndexMissingError:
+            if not create:
+                raise
+            self._ensure_index(index)
+            return self._resolve_index_write(index)
         if len(resolved) != 1:
             raise IndexMissingError(index)
         return resolved[0]
@@ -497,8 +858,7 @@ class ActionModule:
         the index carrying the read version (a compare-and-set), a
         VersionConflictError retried `retry_on_conflict` times; a missing
         index is created as the index action creates it."""
-        self._ensure_index(index)
-        index = self._resolve_index_write(index)
+        index = self._resolve_index_write(index, create=True)
         effective_routing = routing if routing is not None else parent
         self._required_routing_check(index, type_name, doc_id, effective_routing)
         if isinstance(fields, str):
@@ -674,7 +1034,11 @@ class ActionModule:
         t0 = time.monotonic()
         state = self.cluster_service.state
         indices = state.metadata.resolve_indices(index_expr)
-        state.blocks.check("read")
+        for i in indices:
+            state.blocks.check("read", i)
+        # a filtered alias the expression names composes into its index's
+        # shard requests
+        alias_filters = {i: state.metadata.alias_filter(i, index_expr) for i in indices}
         # terms lookups resolve here, once, against the GET path: every
         # shard sees the same literal values
         body = resolve_terms_lookups(body, self._lookup_get)
@@ -700,7 +1064,8 @@ class ActionModule:
             futs.append((ordinal, copy, self.transport.send_request(
                 state.nodes.get(copy.node_id), A_QUERY_PHASE, {
                     "index": copy.index, "shard": copy.shard_id, "body": body or {},
-                    "deadline_s": deadline.remaining(), "dfs": dfs_stats})))
+                    "deadline_s": deadline.remaining(), "dfs": dfs_stats,
+                    "alias_filter": alias_filters.get(copy.index)})))
         for _o, _copy, fut in futs:
             # the phase's latency ends at its resolution, not when this loop
             # collects it behind a slower shard
@@ -912,7 +1277,12 @@ class ActionModule:
 
     def _s_query_phase(self, request, channel):
         index, shard_id = request["index"], request["shard"]
-        body = request.get("body") or {}
+        body = dict(request.get("body") or {})
+        alias_filter = request.get("alias_filter")
+        if alias_filter:
+            # the wrapped body is the one the request cache fingerprints
+            body["query"] = {"filtered": {"query": body.get("query") or {"match_all": {}},
+                                          "filter": alias_filter}}
         req = parse_search_body(body)
         dfs = request.get("dfs")
         ctx = self._shard_ctx(index, shard_id, dfs)
@@ -1011,7 +1381,7 @@ class ActionModule:
     def get_doc(self, index: str, type_name: str, doc_id: str, routing=None,
                 realtime=True, refresh=False, parent=None) -> dict:
         state = self.cluster_service.state
-        state.blocks.check("read")
+        state.blocks.check("read", index)
         index = state.metadata.resolve_indices(index)[0]
         effective_routing = routing if routing is not None else parent
         copy = self.routing.get_shard_copy(state, index, doc_id, effective_routing)
@@ -1105,7 +1475,7 @@ class ActionModule:
         """The term vectors of one document, read on one copy of its shard
         (`_s_termvector`)."""
         state = self.cluster_service.state
-        state.blocks.check("read")
+        state.blocks.check("read", index)
         index = state.metadata.resolve_indices(index)[0]
         copy = self.routing.get_shard_copy(state, index, doc_id, routing)
         return self.transport.submit_request(
@@ -1236,8 +1606,10 @@ class ActionModule:
                 deleted[index] += r.get("deleted", 0)
         return {"_indices": {i: {"deleted": n} for i, n in deleted.items()}}
 
-    def broadcast(self, index_expr, op: str) -> dict:
-        """refresh, flush or optimize on every active shard copy."""
+    def broadcast(self, index_expr, op: str, extra: dict | None = None) -> dict:
+        """refresh, flush, optimize or clear_cache on every active shard
+        copy; `extra` rides each shard's request (the cache clear's tier
+        selectors)."""
         state = self.cluster_service.state
         indices = state.metadata.resolve_indices(index_expr) if index_expr else \
             state.metadata.index_names()
@@ -1250,7 +1622,8 @@ class ActionModule:
                 for copy in group.active_shards():
                     futs.append(self.transport.send_request(
                         state.nodes.get(copy.node_id), A_SHARD_BROADCAST,
-                        {"index": index, "shard": copy.shard_id, "op": op}))
+                        {"index": index, "shard": copy.shard_id, "op": op,
+                         **(extra or {})}))
         ok = 0
         for fut in futs:
             try:
@@ -1266,11 +1639,24 @@ class ActionModule:
             .shard(request["shard"]).engine
         op = request["op"]
         if op == "refresh":
-            engine.refresh()
+            # the search warmers run on an explicit refresh's new view only
+            if engine.refresh():
+                self._run_warmers(request["index"], request["shard"])
         elif op == "flush":
             engine.flush()
         elif op == "optimize":
             engine.optimize()
+        elif op == "clear_cache":
+            # `request` and `filter` select the tiers (both by default)
+            cleared = {"request": 0, "filter": 0}
+            if request.get("filter", True) is not False:
+                for seg in engine.acquire_searcher().segments:
+                    clear_segment_masks(seg)  # the host masks
+                    cleared["filter"] += self.node.filter_cache.clear_segment(seg)
+            if request.get("request", True) is not False:
+                cleared["request"] = self.node.request_cache.invalidate_shard(
+                    request["index"], request["shard"], None)
+            return {"ok": True, "cleared": cleared}
         elif op == "delete_by_query":
             ctx = self._shard_ctx(request["index"], request["shard"])
             query_body = (request.get("body") or {}).get("query")

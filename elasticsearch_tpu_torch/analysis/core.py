@@ -752,6 +752,18 @@ def _builtin_analyzers() -> dict[str, Analyzer]:
     }
 
 
+# the built-in analyzers by name, for a request that names one without an
+# index (`_analyze?analyzer=`)
+ANALYZERS = _builtin_analyzers()
+
+
+def get_analyzer(name: str) -> Analyzer:
+    a = ANALYZERS.get(name)
+    if a is None:
+        raise IllegalArgumentError(f"unknown analyzer [{name}]")
+    return a
+
+
 class AnalysisService:
     """Per-index analyzer registry built from index settings
     (`index.analysis.{analyzer,tokenizer,filter,char_filter}.*` groups), mirroring

@@ -4,10 +4,12 @@ DiscoveryNodes, ClusterBlocks}. Every mutation produces a NEW state with
 version+1.
 
 Trimmed to what a one-node cluster reads: index metadata keeps settings,
-mappings, state and version (aliases, warmers and templates are later
-slices), and `resolve_indices` resolves names and wildcards. `to_dict` and
-`from_dict` round-trip the metadata the gateway persists under
-`path.data/_state`."""
+mappings, aliases (each with its filter and routing), search warmers,
+state (open or close) and version; the metadata keeps the index templates,
+and `resolve_indices` resolves names, wildcards and aliases. Blocks are
+global (no master, state not recovered) or per index (a closed index,
+`index.blocks.*`). `to_dict` and `from_dict` round-trip the metadata the
+gateway persists under `path.data/_state`."""
 
 from __future__ import annotations
 
@@ -112,6 +114,9 @@ class IndexShardRoutingTable:
     def active_shards(self) -> list[ShardRouting]:
         return [s for s in self.shards if s.active]
 
+    def size(self) -> int:
+        return len(self.shards)
+
 
 @dataclass(frozen=True)
 class IndexRoutingTable:
@@ -146,15 +151,21 @@ class RoutingTable:
         others = tuple((n, t) for n, t in self.indices if n != table.index)
         return RoutingTable(tuple(sorted(others + ((table.index, table),))))
 
+    def without_index(self, name: str) -> "RoutingTable":
+        return RoutingTable(tuple((n, t) for n, t in self.indices if n != name))
+
 
 @dataclass(frozen=True)
 class IndexMetaData:
-    """Settings + mappings + open/close state of one index; number_of_shards
-    is immutable after creation (documents are routed by it)."""
+    """Settings, mappings, aliases, warmers and the open/close state of one
+    index; number_of_shards is immutable after creation (documents are
+    routed by it)."""
 
     name: str
     settings_map: tuple = ()
     mappings: tuple = ()  # ((type, mapping_dict_json), ...)
+    aliases: tuple = ()  # ((alias, {filter, index_routing, search_routing}), ...)
+    warmers: tuple = ()  # ((name, {types, source} as json), ...)
     state: str = "open"
     version: int = 1
 
@@ -193,21 +204,77 @@ class IndexMetaData:
         others = tuple((t, m) for t, m in self.mappings if t != type_name)
         return replace(self, mappings=others, version=self.version + 1)
 
+    def with_settings(self, settings: dict) -> "IndexMetaData":
+        merged = dict(self.settings_map)
+        merged.update(settings)
+        return replace(self, settings_map=tuple(sorted(merged.items())),
+                       version=self.version + 1)
+
+    def with_aliases(self, aliases: dict) -> "IndexMetaData":
+        return replace(self, aliases=tuple(sorted(aliases.items(), key=lambda kv: kv[0])),
+                       version=self.version + 1)
+
+    def aliases_dict(self) -> dict:
+        return dict(self.aliases)
+
+    def with_warmer(self, name: str, body: dict | None) -> "IndexMetaData":
+        """Add or replace a warmer; None removes it."""
+        others = tuple((n, b) for n, b in self.warmers if n != name)
+        if body is not None:
+            others = others + ((name, json.dumps(body)),)
+        return replace(self, warmers=others, version=self.version + 1)
+
+    def warmers_dict(self) -> dict:
+        return {n: json.loads(b) for n, b in self.warmers}
+
     def to_dict(self) -> dict:
         return {"name": self.name, "settings": dict(self.settings_map),
-                "mappings": dict(self.mappings), "state": self.state,
-                "version": self.version}
+                "mappings": dict(self.mappings),
+                "aliases": {k: dict(v) if isinstance(v, dict) else v
+                            for k, v in self.aliases},
+                "warmers": dict(self.warmers),
+                "state": self.state, "version": self.version}
 
     @classmethod
     def from_dict(cls, d: dict) -> "IndexMetaData":
         return cls(d["name"], tuple(sorted(d.get("settings", {}).items())),
                    tuple(d.get("mappings", {}).items()),
+                   tuple(sorted(d.get("aliases", {}).items())),
+                   tuple(sorted(d.get("warmers", {}).items())),
                    d.get("state", "open"), d.get("version", 1))
+
+
+@dataclass(frozen=True)
+class IndexTemplateMetaData:
+    """The settings, mappings and aliases an index whose name matches
+    `template` is created with (lowest `order` applied first)."""
+
+    name: str
+    template: str  # a pattern such as "logs-*"
+    order: int = 0
+    settings_map: tuple = ()
+    mappings: tuple = ()  # ((type, mapping_dict_json), ...)
+    aliases: tuple = ()
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "template": self.template, "order": self.order,
+                "settings": {k: (str(v).lower() if isinstance(v, bool) else str(v))
+                             for k, v in self.settings_map},
+                "mappings": dict(self.mappings),
+                "aliases": dict(self.aliases)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "IndexTemplateMetaData":
+        return cls(d["name"], d["template"], d.get("order", 0),
+                   tuple(sorted(d.get("settings", {}).items())),
+                   tuple(d.get("mappings", {}).items()),
+                   tuple(sorted(d.get("aliases", {}).items())))
 
 
 @dataclass(frozen=True)
 class MetaData:
     indices: tuple = ()  # ((name, IndexMetaData), ...)
+    templates: tuple = ()  # ((name, IndexTemplateMetaData), ...)
     version: int = 0
 
     def index(self, name: str) -> IndexMetaData | None:
@@ -229,8 +296,9 @@ class MetaData:
         return any(n == name for n, _ in self.indices)
 
     def resolve_indices(self, expr) -> list[str]:
-        """Names and wildcards → concrete index names; a missing name that
-        is not a wildcard raises IndexMissingError."""
+        """Names, wildcards and aliases → concrete index names; a missing
+        name that is not a wildcard raises IndexMissingError. An alias
+        expression matches by name or as a wildcard over alias names."""
         if expr in (None, "_all", "*", ""):
             return self.index_names()
         names = expr if isinstance(expr, list) else [p.strip() for p in str(expr).split(",")]
@@ -240,47 +308,108 @@ class MetaData:
                 out.append(name)
                 continue
             matched = [n for n in self.index_names() if fnmatch.fnmatch(n, name)]
+            for n, m in self.indices:
+                if any(a == name or fnmatch.fnmatch(a, name) for a, _ in m.aliases):
+                    matched.append(n)
             if not matched and "*" not in name:
                 raise IndexMissingError(name)
             out.extend(matched)
         seen = set()
         return [n for n in out if not (n in seen or seen.add(n))]
 
+    def alias_filter(self, index: str, expr) -> dict | None:
+        """The filter of the first filtered alias of `index` that `expr`
+        names exactly (a wildcard over aliases applies no filter)."""
+        m = self.index(index)
+        if m is None or expr is None:
+            return None
+        names = expr if isinstance(expr, list) else [p.strip() for p in str(expr).split(",")]
+        for alias, spec in m.aliases:
+            if alias in names and isinstance(spec, dict) and spec.get("filter"):
+                return spec["filter"]
+        return None
+
+    def templates_for(self, index_name: str) -> list[IndexTemplateMetaData]:
+        out = [t for _, t in self.templates if fnmatch.fnmatch(index_name, t.template)]
+        out.sort(key=lambda t: t.order)
+        return out
+
     def with_index(self, meta: IndexMetaData) -> "MetaData":
         others = tuple((n, m) for n, m in self.indices if n != meta.name)
         return replace(self, indices=tuple(sorted(others + ((meta.name, meta),))),
                        version=self.version + 1)
 
+    def without_index(self, name: str) -> "MetaData":
+        return replace(self, indices=tuple((n, m) for n, m in self.indices if n != name),
+                       version=self.version + 1)
+
+    def with_template(self, t: IndexTemplateMetaData) -> "MetaData":
+        others = tuple((n, m) for n, m in self.templates if n != t.name)
+        return replace(self, templates=tuple(sorted(others + ((t.name, t),))),
+                       version=self.version + 1)
+
+    def without_template(self, name: str) -> "MetaData":
+        return replace(self, templates=tuple((n, t) for n, t in self.templates
+                                             if n != name),
+                       version=self.version + 1)
+
     def to_dict(self) -> dict:
         return {"indices": {n: m.to_dict() for n, m in self.indices},
+                "templates": {n: t.to_dict() for n, t in self.templates},
                 "version": self.version}
 
     @classmethod
     def from_dict(cls, d: dict) -> "MetaData":
         """The inverse of `to_dict`; a file the JAX package wrote loads too
-        (its templates, aliases, warmers and cluster settings are not read:
-        the port has none of them yet)."""
+        (its cluster settings are not read: the port has none yet)."""
         return cls(tuple(sorted((n, IndexMetaData.from_dict(m))
                                 for n, m in d.get("indices", {}).items())),
+                   tuple(sorted((n, IndexTemplateMetaData.from_dict(t))
+                                for n, t in d.get("templates", {}).items())),
                    d.get("version", 0))
 
 
 BLOCK_NO_MASTER = ("no_master", "all")
 BLOCK_STATE_NOT_RECOVERED = ("state_not_recovered", "all")
+BLOCK_INDEX_CLOSED = ("index_closed", "all")
 
 
 @dataclass(frozen=True)
 class ClusterBlocks:
     global_blocks: tuple = ()  # ((id, level), ...)
+    index_blocks: tuple = ()  # ((index, (id, level)), ...)
 
-    def check(self, level: str):
-        blocks = [b for b in self.global_blocks if b[1] in ("all", level)]
+    def blocked(self, level: str, index: str | None = None) -> list:
+        out = [b for b in self.global_blocks if b[1] in ("all", level)]
+        if index:
+            out += [b for i, b in self.index_blocks
+                    if i == index and b[1] in ("all", level)]
+        return out
+
+    def check(self, level: str, index: str | None = None):
+        """Raise ClusterBlockError when a global block, or a block of
+        `index`, covers `level` ("read", "write", "metadata")."""
+        blocks = self.blocked(level, index)
         if blocks:
             raise ClusterBlockError(blocks)
 
     def without_global(self, block) -> "ClusterBlocks":
         return replace(self, global_blocks=tuple(
             b for b in self.global_blocks if b != block))
+
+    def with_index_block(self, index: str, block) -> "ClusterBlocks":
+        entry = (index, block)
+        if entry in self.index_blocks:
+            return self
+        return replace(self, index_blocks=self.index_blocks + (entry,))
+
+    def without_index_block(self, index: str, block) -> "ClusterBlocks":
+        return replace(self, index_blocks=tuple(
+            e for e in self.index_blocks if e != (index, block)))
+
+    def without_index(self, index: str) -> "ClusterBlocks":
+        return replace(self, index_blocks=tuple(
+            e for e in self.index_blocks if e[0] != index))
 
 
 @dataclass(frozen=True)

@@ -127,8 +127,9 @@ class MasterNotDiscoveredError(SearchEngineError):
 
 
 class ClusterBlockError(SearchEngineError):
-    """Rejected by a cluster-level block: 503 when every block is retryable
-    (no master, state not recovered), else 403."""
+    """Rejected by a cluster-level or index-level block: 503 when every
+    block is retryable (no master, state not recovered), else 403 (a closed
+    index, `index.blocks.*`)."""
 
     RETRYABLE = {"no_master", "state_not_recovered"}
 
@@ -154,6 +155,30 @@ class ScriptError(SearchEngineError):
 
 class PercolateError(SearchEngineError):
     pass
+
+
+class AliasesMissingError(SearchEngineError):
+    """An alias `remove` or a `GET /_alias/{name}` that matched nothing."""
+
+    status = 404
+
+    def __init__(self, aliases):
+        super().__init__(f"aliases {list(aliases)} missing")
+        self.aliases = list(aliases)
+
+
+class IndexTemplateMissingError(SearchEngineError):
+    status = 404
+
+    def __init__(self, name):
+        super().__init__(f"index_template [{name}] missing")
+
+
+class IndexWarmerMissingError(SearchEngineError):
+    status = 404
+
+    def __init__(self, name):
+        super().__init__(f"index_warmer [{name}] missing")
 
 
 class NotPortedError(IllegalArgumentError):

@@ -1,19 +1,22 @@
 """Local gateway: cluster metadata persistence and startup recovery (a
 trimmed copy of the JAX package's `gateway.py`, ROADMAP A5a).
 
-The node persists the cluster MetaData (indices, settings, mappings) under
-`path.data/_state` on every change. On start, `maybe_recover` restores the
-persisted indices once `gateway.recover_after_nodes` nodes are present and
-lifts the state-not-recovered block; the restored indices get fresh
-routing, and the post-recovery reroute assigns their primaries to this
-node, whose shards then recover from their stores and translogs
-(indices_service). A fresh `path.data` recovers nothing and only lifts the
-block.
+The node persists the cluster MetaData (indices with their settings,
+mappings, aliases, warmers and state; the index templates) under
+`path.data/_state` on every change, and on `persist_now` (the
+`_gateway/snapshot` API). On start, `maybe_recover` restores the persisted
+indices and templates once `gateway.recover_after_nodes` nodes are present
+and lifts the state-not-recovered block; the restored open indices get
+fresh routing, and the post-recovery reroute assigns their primaries to
+this node, whose shards then recover from their stores and translogs
+(indices_service). A closed index comes back closed, with no routing and,
+as in the JAX package, without its closed block; the templates come back
+only when at least one index does (the JAX package's order). A fresh
+`path.data` recovers nothing and only lifts the block.
 
 A lone port node is all the cluster there is, so `recover_after_nodes`
 above 1 could never be met: it raises NotPortedError at construction (two
-nodes are the slice with zen discovery, ROADMAP A5). Index templates are
-not restored: the port has none yet (A6)."""
+nodes are the slice with zen discovery, ROADMAP A5)."""
 
 from __future__ import annotations
 
@@ -105,6 +108,10 @@ class LocalGateway:
                     if meta.state == "open":
                         rt = rt.with_index(new_index_routing(
                             name, meta.number_of_shards, meta.number_of_replicas))
+                # as in the JAX package, templates come back only beside at
+                # least one index
+                for _tname, tpl in persisted.templates if names else ():
+                    md = md.with_template(tpl)
                 return current.next_version(
                     metadata=md, routing_table=rt,
                     blocks=current.blocks.without_global(BLOCK_STATE_NOT_RECOVERED))

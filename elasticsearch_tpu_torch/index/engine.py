@@ -29,6 +29,7 @@ Recovery holds and replica operations wait for the slice with replicas."""
 
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -50,6 +51,11 @@ from .translog import CREATE, DELETE, DELETE_BY_QUERY, INDEX, Translog, Translog
 logger = get_logger("index.engine")
 
 INTERNAL, EXTERNAL = "internal", "external"
+
+# view versions, unique in the process: every searcher any engine installs
+# takes the next, so a recreated or reopened index's views never share a
+# version (and a request-cache key) with the engine it replaced
+_VIEW_VERSIONS = itertools.count()
 
 
 class Searcher:
@@ -156,11 +162,11 @@ class Engine:
         self._uid_index: dict[str, tuple[int, int]] = {}  # uid -> (gen, local)
         self._pending_deletes: list[tuple] = []  # locations to tombstone at refresh
         self._closed = False
+        self._last_write = 0.0  # wall clock of the last index or delete
         self.merge_policy = TieredMergePolicy(settings)
         # one merge computes at a time, outside _lock (non-blocking acquire)
         self._merge_mutex = threading.Lock()
-        self._searcher_version = 0
-        self._searcher = Searcher([], version=0)
+        self._searcher = Searcher([], version=next(_VIEW_VERSIONS))
         # callables (new searcher, segments the old view held that the new
         # one does not) run on every view install, under _lock: they must
         # be leaves (dict, counter and breaker work only)
@@ -174,6 +180,10 @@ class Engine:
     def _check_open(self):
         if self._closed:
             raise EngineClosedError("engine is closed")
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def _current_version(self, uid: str) -> tuple[int | None, bool]:
         """(version, deleted) of the latest copy, or (None, False)."""
@@ -245,6 +255,7 @@ class Engine:
                     timestamp=timestamp, ttl=ttl))
             self._tombstone_latest(uid)
             local = self._buffer.add(parsed, version=new_version)
+            self._last_write = time.time()
             self._version_map[uid] = VersionEntry(
                 version=new_version, location=("buffer", local), source=source,
                 routing=parsed.routing, parent=parsed.parent,
@@ -266,6 +277,7 @@ class Engine:
                                              version=new_version))
             self._tombstone_latest(uid)
             self._version_map[uid] = VersionEntry(version=new_version, deleted=True)
+            self._last_write = time.time()
             return new_version, found
 
     def delete_by_uids(self, uids: list[str], query: dict | None = None,
@@ -334,8 +346,7 @@ class Engine:
         view held that the new one does not (an identity diff: a tombstone
         view is a new object, a merge drops its sources)."""
         old = self._searcher
-        self._searcher_version += 1
-        self._searcher = Searcher(list(self._segments), version=self._searcher_version)
+        self._searcher = Searcher(list(self._segments), version=next(_VIEW_VERSIONS))
         if self.view_listeners:
             current = {id(s) for s in self._searcher.segments}
             dropped = [s for s in old.segments if id(s) not in current]
@@ -395,6 +406,15 @@ class Engine:
         with self._lock:
             self._check_open()
             return self._searcher
+
+    def indexing_buffer_bytes(self) -> int:
+        """The un-refreshed buffer's estimated RAM (the indexing-memory
+        controller's input)."""
+        return self._buffer.ram_bytes
+
+    @property
+    def last_write_time(self) -> float:
+        return self._last_write
 
     # ------------------------------------------------------------------ durability
     def _commit(self, translog_gen: int, extra: dict | None = None):
@@ -600,6 +620,8 @@ class Engine:
         return len(self._segments)
 
     def close(self):
+        """Close the translog (the shard's device packs and masks leave with
+        its caches, indices_service)."""
         with self._lock:
             if not self._closed:
                 self.translog.close()

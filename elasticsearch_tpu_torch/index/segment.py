@@ -71,6 +71,10 @@ class SegmentBuilder:
         self._parent_mask: list[bool] = []
         self._nested_paths: list[str | None] = []
         self.doc_count = 0
+        # the buffer's RAM estimate for the indexing-memory controller (the
+        # JAX package's accounting: postings, doc values and a per-document
+        # overhead; monotonic, not exact)
+        self.ram_bytes = 0
 
     def add(self, doc: ParsedDocument, version: int = 1) -> int:
         """Add one parsed document, its nested children first (block
@@ -85,6 +89,9 @@ class SegmentBuilder:
                  version: int, top_level: bool, path: str | None) -> int:
         local = self.doc_count
         self.doc_count += 1
+        self.ram_bytes += 128 + sum(40 * len(t) for t in doc.postings.values()) \
+            + sum(24 * len(v) for v in doc.doc_values_num.values()) \
+            + sum(48 + 2 * len(str(x)) for v in doc.doc_values_str.values() for x in v)
         for field_name, terms in doc.postings.items():
             per_term: dict[str, list[int]] = {}
             for term, pos in terms:

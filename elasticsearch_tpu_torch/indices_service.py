@@ -4,14 +4,24 @@ copy of the JAX package's `indices_service.py`).
 - `IndexService`: one index on this node — its MapperService,
   SimilarityService and shards.
 - `IndicesService.cluster_changed` (IndicesClusterStateService's role): on
-  every cluster-state change, create the shards the routing table assigns
-  here, recover each primary from its local store (a fresh shard recovers
-  nothing; a restarted node's shard reloads its last commit, tombstones
-  included, and replays its translog) on a thread of its own, and report
-  shard-started to the master.
+  every cluster-state change, first remove the indices the metadata no
+  longer holds (each shard's caches and device packs released and its
+  engine closed, its data directory wiped, its percolator registry and `PACK_LEDGER` entry
+  dropped), then the shards no longer
+  assigned here (a closed index: caches released, engine closed, data
+  kept), then create the shards the routing table assigns here, recover
+  each primary from its local store (a fresh shard recovers nothing; a
+  restarted node's shard reloads its last commit, tombstones included, and
+  replays its translog) on a thread of its own, and report shard-started to
+  the master. A removed shard's engine leaves the warmer first, so no warm
+  pack or re-prime starts on it.
 - `periodic_refresh`: the scheduled NRT refresh per shard honouring
   `index.refresh_interval` (-1 disables it), then a merge-policy check on
   the `merge` pool.
+- `check_indexing_memory` (the indexing-memory controller, every 5 s from
+  the node): when the started shards' un-refreshed buffers together pass
+  the node's budget, the largest are refreshed first until under it; a
+  shard idle for 300 s is refreshed too.
 - Each engine's view listeners drop the shard's request-cache entries of
   every superseded view (the node's `ShardRequestCache`) and evict the
   device filter masks of the segments a new view dropped (the node's
@@ -19,12 +29,16 @@ copy of the JAX package's `indices_service.py`).
   packs it off the query path and re-primes the shard's hot cached bodies.
   A closing shard releases every cache byte it holds.
 
-Peer recovery of replicas, index deletion and the indexing-memory
-controller belong to later slices."""
+Peer recovery of replicas belongs to the slice with two nodes. The
+removal runs on the cluster-state thread under the indices lock: it closes
+engines and drops references (no device sync, no launch); the device
+memory goes back to the allocator once the last search holding a view of
+the index ends."""
 
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 import time
 from dataclasses import dataclass
@@ -35,12 +49,13 @@ from .common.logging import get_logger
 from .common.settings import Settings
 from .index.engine import Engine
 from .mapper import MapperService
+from .ops.device_index import PACK_LEDGER, drop_segment_packs
 from .search.similarity import SimilarityService
 
 ACTION_SHARD_STARTED = "internal:cluster/shard/started"
 
 # shard lifecycle
-CREATED, RECOVERING, SHARD_STARTED = "CREATED", "RECOVERING", "STARTED"
+CREATED, RECOVERING, SHARD_STARTED, CLOSED = "CREATED", "RECOVERING", "STARTED", "CLOSED"
 
 
 @dataclass
@@ -81,10 +96,17 @@ class IndexService:
         self.shards[shard_id] = shard
         return shard
 
+    def remove_shard(self, shard_id: int):
+        shard = self.shards.pop(shard_id, None)
+        if shard is not None:
+            shard.state = CLOSED
+            shard.engine.close()
+
 
 class IndicesService:
     def __init__(self, node_id: str, data_path: str, transport, cluster_service,
-                 threadpool, filter_cache=None, warmer=None, request_cache=None):
+                 threadpool, filter_cache=None, warmer=None, request_cache=None,
+                 percolator=None):
         self.node_id = node_id
         # the node's DeviceFilterCache (None in unwired contexts): the masks
         # of segments an engine view drops leave with them
@@ -94,6 +116,9 @@ class IndicesService:
         self.request_cache = request_cache
         # the node's IndexWarmerService (None in unwired contexts)
         self.warmer = warmer
+        # the node's PercolatorService (None in unwired contexts): a removed
+        # index's queries go with it
+        self.percolator = percolator
         self.data_path = data_path
         self.transport = transport
         self.cluster_service = cluster_service
@@ -108,6 +133,33 @@ class IndicesService:
         if svc is None:
             raise IndexMissingError(name)
         return svc
+
+    # ------------------------------------------------------------ memory control
+    def check_indexing_memory(self, budget_bytes: int | None = None,
+                              inactive_after: float = 300.0) -> int:
+        """Refresh the largest un-refreshed buffers first while the started
+        shards' buffers together exceed `budget_bytes` (64 MiB by default),
+        and every shard idle for `inactive_after` seconds with a buffer.
+        Returns the shards refreshed."""
+        budget = budget_bytes if budget_bytes is not None else 64 * 1024 ** 2
+        shards = [s for svc in list(self.indices.values())
+                  for s in list(svc.shards.values()) if s.state == SHARD_STARTED]
+        now = time.time()
+        sized = sorted(((s.engine.indexing_buffer_bytes(), s) for s in shards),
+                       key=lambda t: -t[0])
+        total = sum(b for b, _ in sized)
+        refreshed = 0
+        for nbytes, shard in sized:
+            if nbytes <= 0:
+                continue
+            if total > budget or now - shard.engine.last_write_time > inactive_after:
+                try:
+                    shard.engine.refresh()
+                except SearchEngineError:
+                    continue
+                total -= nbytes
+                refreshed += 1
+        return refreshed
 
     # ------------------------------------------------------------ nrt loop
     def periodic_refresh(self):
@@ -150,9 +202,28 @@ class IndicesService:
             self._apply_state(event.state)
 
     def _apply_state(self, state: ClusterState):
-        """Build each assigned shard's index service and shard, and start
-        its recovery. An index whose service or shard fails to build is
-        logged and skipped: the other indexes' shards still start."""
+        """Remove the indices the metadata dropped and the shards no longer
+        assigned here, then build each assigned shard's index service and
+        shard, and start its recovery. An index whose service or shard
+        fails to build is logged and skipped: the other indexes' shards
+        still start."""
+        meta_names = set(state.metadata.index_names())
+        for name in [n for n in self.indices if n not in meta_names]:
+            svc = self.indices.pop(name)
+            for sid in list(svc.shards):
+                self._remove_shard(svc, sid)
+            # a recreated index of the same name must not recover this one
+            shutil.rmtree(os.path.join(svc.data_path, name), ignore_errors=True)
+            PACK_LEDGER.forget(name)
+            if self.percolator is not None:
+                self.percolator.registries.pop(name, None)
+            self.logger.info("removed index [%s]", name)
+        mine = {(s.index, s.shard_id) for s in state.routing_table.all_shards()
+                if s.node_id == self.node_id and s.state in (INITIALIZING, STARTED)}
+        for name, svc in list(self.indices.items()):
+            for sid in [sid for sid in svc.shards if (name, sid) not in mine]:
+                self._remove_shard(svc, sid)
+                self.logger.info("removed shard [%s][%d]", name, sid)
         for s in state.routing_table.all_shards():
             if s.node_id != self.node_id or s.state not in (INITIALIZING, STARTED):
                 continue
@@ -210,18 +281,31 @@ class IndicesService:
 
         engine.view_listeners.append(on_view_change)
 
-    def _drop_shard_caches(self, shard: IndexShard):
+    def _remove_shard(self, svc: IndexService, shard_id: int):
+        """A shard leaving this node: out of the warmer, its caches
+        released, its engine closed, its segments' device packs dropped."""
+        shard = svc.shards.get(shard_id)
+        if shard is None:
+            return
+        if self.warmer is not None:
+            self.warmer.unwire(shard.engine)
+        segs = self._drop_shard_caches(shard)
+        svc.remove_shard(shard_id)
+        drop_segment_packs(segs)
+
+    def _drop_shard_caches(self, shard: IndexShard) -> list:
         """A closing shard releases every cache byte it holds: its
         request-cache entries of every view and the filter masks of the
-        segments of its last view."""
+        segments of its last view. Returns those segments."""
         if self.request_cache is not None:
             self.request_cache.invalidate_shard(shard.index, shard.shard_id, None)
+        try:
+            segs = shard.engine.acquire_searcher().segments
+        except SearchEngineError:
+            segs = []
         if self.filter_cache is not None:
-            try:
-                segs = shard.engine.acquire_searcher().segments
-            except SearchEngineError:
-                segs = []
             self.filter_cache.evict_dropped(segs, ())
+        return segs
 
     def _recover_shard(self, shard: IndexShard, routing: ShardRouting):
         shard.state = RECOVERING
@@ -254,7 +338,6 @@ class IndicesService:
     def close(self):
         with self._lock:
             for svc in self.indices.values():
-                for shard in svc.shards.values():
-                    self._drop_shard_caches(shard)
-                    shard.engine.close()
+                for sid in list(svc.shards):
+                    self._remove_shard(svc, sid)
             self.indices.clear()

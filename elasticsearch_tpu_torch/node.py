@@ -36,9 +36,16 @@ on the `warmer` and `merge` pools and re-primes the hot cached bodies, as
 in the JAX node.
 
 `percolator`, the node's PercolatorService, keeps a query registry per
-index fed by the single-document writes of `.percolator` documents and
-percolates on the node's device. `script_service` is the node's
+index fed by the single-document writes of `.percolator` documents (the
+indices service drops an index's registry with the index) and percolates
+on the node's device. `script_service` is the node's
 ScriptService (its named scripts in the port's process registry).
+
+The indexing-memory controller (every 5 s on the management pool) refreshes
+the largest un-refreshed shard buffers while they together pass
+`indices.memory.index_buffer_size` ("10%" of the host's RAM by default, at
+least 16 MiB, or a byte size), and any shard idle for 300 s
+(indices_service `check_indexing_memory`).
 
 The TTL purger (`_purge_expired`, every `indices.ttl.interval`, 60 s by
 default, on the generic pool) reads each primary shard's `_expiry` doc
@@ -46,23 +53,42 @@ values and deletes the documents whose expiry has passed, in one logged
 tombstone op a shard, then refreshes; `close()` cancels it. Replicas wait
 for A5, as every replica write does.
 
-`Client` is trimmed to `create_index`, `put_mapping`, `get_mapping`,
-`delete_mapping`, `index`, `create`, `get`, `mget`, `delete`, `update`,
-`bulk`, `delete_by_query`, `refresh`, `flush`, `optimize`, `search`,
-`msearch`, `count`, `suggest`, `termvector`, `mtermvectors`, `mlt`,
-`explain`, `percolate`, `count_percolate`, `mpercolate` and
-`cluster_health`."""
+`Client` is trimmed to `create_index`, `delete_index`, `open_index`,
+`close_index`, `exists_index`, `exists_type`, `put_mapping`, `get_mapping`,
+`get_field_mapping`, `delete_mapping`, `update_settings`, `get_settings`,
+`update_aliases`, `get_aliases`, `get_alias`, `exists_alias`,
+`put_template`, `delete_template`, `get_template`, `put_warmer`,
+`delete_warmer`, `get_warmer`, `index`, `create`, `get`, `mget`,
+`delete`, `update`, `bulk`, `delete_by_query`, `refresh`, `flush`,
+`optimize`, `clear_cache`, `gateway_snapshot`, `search`, `msearch`,
+`count`, `suggest`, `termvector`, `mtermvectors`, `mlt`, `explain`,
+`percolate`, `count_percolate`, `mpercolate` and `cluster_health`."""
 
 from __future__ import annotations
 
+import os
 import tempfile
 import time
 import uuid
 
 import numpy as np
 
-from .actions import (A_CREATE_INDEX, A_DELETE_MAPPING, A_PUT_MAPPING, ActionModule,
-                      shape_get)
+from .actions import (
+    A_ALIASES,
+    A_CLOSE_INDEX,
+    A_CREATE_INDEX,
+    A_DELETE_INDEX,
+    A_DELETE_MAPPING,
+    A_DELETE_TEMPLATE,
+    A_DELETE_WARMER,
+    A_OPEN_INDEX,
+    A_PUT_MAPPING,
+    A_PUT_TEMPLATE,
+    A_PUT_WARMER,
+    A_UPDATE_SETTINGS,
+    ActionModule,
+    shape_get,
+)
 from .cluster.allocation import AllocationService
 from .cluster.routing import OperationRouting
 from .cluster.service import ClusterService
@@ -71,10 +97,18 @@ from .common import cudaenv
 from .common.breaker import CircuitBreakerService
 from .common.cudaenv import default_device
 from .common.devicehealth import DEVICE_HEALTH
-from .common.errors import NotPortedError, SearchEngineError
+from .common.errors import (
+    AliasesMissingError,
+    IndexTemplateMissingError,
+    NotPortedError,
+    SearchEngineError,
+    TypeMissingError,
+)
 from .common.events import EventJournal, StallWatchdog
 from .common.logging import get_logger
+from .common.names import is_pattern, name_matches
 from .common.settings import prepare_settings
+from .common.units import parse_bytes
 from .discovery.zen import ZenDiscovery
 from .gateway import LocalGateway
 from .indices_service import IndicesService
@@ -152,18 +186,25 @@ class Node:
         self.transport.in_flight_breaker = self.breakers.breaker("in_flight_requests")
         self.allocation = AllocationService()
         self.operation_routing = OperationRouting()
+        self.percolator = PercolatorService(self)
         self.indices = IndicesService(self.node_id, self.data_path, self.transport,
                                       self.cluster_service, self.threadpool,
                                       filter_cache=self.filter_cache,
                                       warmer=self.warmer,
-                                      request_cache=self.request_cache)
+                                      request_cache=self.request_cache,
+                                      percolator=self.percolator)
         self.actions = ActionModule(self)
-        self.percolator = PercolatorService(self)
         self.script_service = ScriptService()
         # scheduled NRT refresh and merge-policy check (each index's
         # refresh_interval is honoured inside periodic_refresh)
         self.threadpool.schedule_with_fixed_delay(
             0.5, self.indices.periodic_refresh, name="refresh")
+        # the indexing-memory controller: a node-wide budget for the
+        # shards' un-refreshed buffers
+        self._imc_budget = self._resolve_index_buffer_size()
+        self._imc_task = self.threadpool.schedule_with_fixed_delay(
+            5.0, lambda: self.indices.check_indexing_memory(self._imc_budget),
+            name="management")
         # the TTL purger: expired documents leave every primary shard
         self._ttl_task = self.threadpool.schedule_with_fixed_delay(
             self.settings.get_time("indices.ttl.interval", 60.0),
@@ -218,6 +259,7 @@ class Node:
             return
         self._closed = True
         self._ttl_task.cancel()
+        self._imc_task.cancel()
         DEVICE_HEALTH.unregister_publisher(self.node_id)
         self.watchdog.stop()
         if self.http is not None:
@@ -234,6 +276,19 @@ class Node:
 
     def client(self) -> "Client":
         return Client(self)
+
+    def _resolve_index_buffer_size(self) -> int:
+        """`indices.memory.index_buffer_size`: a share of the host's RAM
+        ("10%", the default; at least 16 MiB) or a byte size."""
+        raw = self.settings.get("indices.memory.index_buffer_size", "10%")
+        if isinstance(raw, str) and raw.strip().endswith("%"):
+            try:
+                frac = float(raw.strip()[:-1]) / 100.0
+                total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+                return max(int(total * frac), 16 * 1024 ** 2)
+            except (ValueError, OSError):
+                return 64 * 1024 ** 2
+        return parse_bytes(raw) or 64 * 1024 ** 2
 
     def _purge_expired(self):
         """Delete, on every primary shard, the live documents whose `_expiry`
@@ -276,22 +331,221 @@ class Client:
         self.node = node
         self.actions = node.actions
 
+    def _local(self, action: str, body: dict):
+        """A master action on this (the master) node."""
+        return self.node.transport.submit_request(self.node.local_node, action, body,
+                                                  timeout=30.0)
+
+    # --- indices admin ------------------------------------------------------
     def create_index(self, index, body=None):
-        return self.node.transport.submit_request(
-            self.node.local_node, A_CREATE_INDEX, {"index": index, "body": body or {}})
+        return self._local(A_CREATE_INDEX, {"index": index, "body": body or {}})
+
+    def delete_index(self, index):
+        return self._local(A_DELETE_INDEX, {"index": index})
+
+    def open_index(self, index):
+        return self._local(A_OPEN_INDEX, {"index": index})
+
+    def close_index(self, index):
+        return self._local(A_CLOSE_INDEX, {"index": index})
+
+    def exists_index(self, index) -> bool:
+        try:
+            return bool(self.node.cluster_service.state.metadata.resolve_indices(index))
+        except SearchEngineError:
+            return False
 
     def put_mapping(self, index, doc_type, body):
-        return self.node.transport.submit_request(
-            self.node.local_node, A_PUT_MAPPING,
-            {"index": index or "_all", "type": doc_type, "body": body})
+        return self._local(A_PUT_MAPPING,
+                           {"index": index or "_all", "type": doc_type, "body": body})
 
     def get_mapping(self, index=None, doc_type=None):
         return self.actions.get_mapping(index, doc_type)
 
     def delete_mapping(self, index, doc_type):
-        return self.node.transport.submit_request(
-            self.node.local_node, A_DELETE_MAPPING,
-            {"index": index or "_all", "type": doc_type})
+        return self._local(A_DELETE_MAPPING, {"index": index or "_all", "type": doc_type})
+
+    def get_field_mapping(self, index=None, doc_type=None, field=None,
+                          include_defaults=False):
+        """Per index, per type, per field, the field's slice of the mapping.
+        A field resolves by its full path first, then by its index name (an
+        `index_name` attribute, or the leaf name under an object with `path:
+        just_name`); the response key is the name it matched by. A type
+        expression that matches no type answers 404 TypeMissingException."""
+        state = self.node.cluster_service.state
+        out = {}
+        type_seen = False
+        for name in state.metadata.resolve_indices(index or "_all"):
+            for t, mapping in state.metadata.index(name).mappings_dict().items():
+                if doc_type and not name_matches(t, doc_type):
+                    continue
+                type_seen = True
+                props = _flatten_properties(mapping.get("properties") or {})
+                index_names: dict[str, str] = {}  # alternate name -> full path
+                for fname, fdef in props.items():
+                    alts = set()
+                    if isinstance(fdef, dict):
+                        if fdef.get("index_name"):
+                            alts.add(fdef["index_name"])
+                        if fdef.get("_just_name"):
+                            alts.add(fname.rsplit(".", 1)[-1])
+                    for alt in alts:
+                        if alt != fname:
+                            index_names.setdefault(alt, fname)
+                wanted: dict[str, str] = {}  # response key -> full path
+                exprs = ([field] if not isinstance(field, list) else field) if field \
+                    else ["*"]
+                exprs = [e for expr in exprs for e in str(expr).split(",")]
+                for expr in exprs:
+                    for fname in props:
+                        if name_matches(fname, expr):
+                            wanted[fname] = fname
+                    # an index name matches only where no full name claimed
+                    # the key and its field was not matched by full name
+                    for alt, fname in index_names.items():
+                        if alt not in wanted and fname not in wanted.values() \
+                                and name_matches(alt, expr):
+                            wanted[alt] = fname
+                for key, fname in sorted(wanted.items()):
+                    fdef = {k: v for k, v in props[fname].items() if k != "_just_name"}
+                    if include_defaults:
+                        fdef.setdefault("type", "string")
+                        fdef.setdefault("index", "analyzed")
+                        fdef.setdefault("analyzer", "default")
+                    out.setdefault(name, {"mappings": {}})["mappings"] \
+                        .setdefault(t, {})[key] = {
+                            "full_name": fname,
+                            "mapping": {fname.rsplit(".", 1)[-1]: fdef}}
+        if doc_type and not type_seen:
+            raise TypeMissingError(f"type[[{doc_type}]] missing")
+        return out
+
+    def exists_type(self, index, doc_type) -> bool:
+        """True only when every resolved index has a type the expression
+        matches."""
+        state = self.node.cluster_service.state
+        try:
+            names = state.metadata.resolve_indices(index or "_all")
+        except SearchEngineError:
+            return False
+        if not names:
+            return False
+        return all(any(name_matches(t, doc_type)
+                       for t in state.metadata.index(n).mappings_dict())
+                   for n in names)
+
+    def update_settings(self, index, body):
+        return self._local(A_UPDATE_SETTINGS, {"index": index or "_all", "body": body})
+
+    def get_settings(self, index=None, name=None):
+        """Each index's settings as strings in nested form; `name` filters
+        the flat keys (wildcards), and an index left with none is left
+        out."""
+        state = self.node.cluster_service.state
+        out = {}
+        for idx in state.metadata.resolve_indices(index or "_all"):
+            flat = {k: _settings_str(v)
+                    for k, v in state.metadata.index(idx).settings.as_dict().items()}
+            if name:
+                flat = {k: v for k, v in flat.items() if name_matches(k, name)}
+            if flat:
+                out[idx] = {"settings": _nest_keys(flat)}
+        return out
+
+    def update_aliases(self, body):
+        return self._local(A_ALIASES, {"body": body})
+
+    def get_aliases(self, index=None, name=None):
+        """The plural form (`/_aliases`): an index the expression names
+        explicitly appears even with no matching alias."""
+        state = self.node.cluster_service.state
+        explicit = set()
+        if index and not is_pattern(index) and index not in ("_all", "*"):
+            explicit = {p.strip() for p in str(index).split(",")}
+        out = {}
+        for idx in state.metadata.resolve_indices(index or "_all"):
+            aliases = state.metadata.index(idx).aliases_dict()
+            if name is not None:
+                aliases = {a: sp for a, sp in aliases.items() if name_matches(a, name)}
+                if not aliases and idx not in explicit:
+                    continue
+            out[idx] = {"aliases": aliases}
+        return out
+
+    def get_alias(self, index=None, name=None):
+        """The singular form (`/_alias`): indices with a matching alias; a
+        name that matches nothing on any index answers 404 (an index given
+        explicitly makes it an empty 200)."""
+        state = self.node.cluster_service.state
+        out = {}
+        for idx in state.metadata.resolve_indices(index or "_all"):
+            aliases = state.metadata.index(idx).aliases_dict()
+            if name is not None:
+                aliases = {a: sp for a, sp in aliases.items() if name_matches(a, name)}
+            if aliases:
+                out[idx] = {"aliases": aliases}
+        if not out and name is not None and index is None:
+            raise AliasesMissingError([name])
+        return out
+
+    def exists_alias(self, index=None, name=None) -> bool:
+        try:
+            return bool(self.get_alias(index, name))
+        except SearchEngineError:
+            return False
+
+    def put_template(self, name, body):
+        return self._local(A_PUT_TEMPLATE, {"name": name, "body": body})
+
+    def delete_template(self, name):
+        return self._local(A_DELETE_TEMPLATE, {"name": name})
+
+    def get_template(self, name=None):
+        state = self.node.cluster_service.state
+        out = {n: t.to_dict() for n, t in state.metadata.templates
+               if name is None or name_matches(n, name)}
+        if name is not None and not out and not is_pattern(name):
+            raise IndexTemplateMissingError(name)
+        return out
+
+    def put_warmer(self, index, name, body, doc_type=None):
+        if doc_type:
+            body = dict(body or {})
+            body["types"] = [t for t in str(doc_type).split(",") if t]
+        return self._local(A_PUT_WARMER, {"index": index or "_all", "name": name,
+                                          "body": body})
+
+    def delete_warmer(self, index, name):
+        return self._local(A_DELETE_WARMER, {"index": index or "_all", "name": name})
+
+    def get_warmer(self, index=None, name=None):
+        state = self.node.cluster_service.state
+        out = {}
+        for idx in state.metadata.resolve_indices(index or "_all"):
+            warmers = state.metadata.index(idx).warmers_dict()
+            if name is not None:
+                warmers = {w: sp for w, sp in warmers.items() if name_matches(w, name)}
+                if not warmers:
+                    continue
+            if not warmers and (index is None or is_pattern(index)):
+                continue
+            out[idx] = {"warmers": warmers}
+        return out
+
+    def clear_cache(self, index=None, request=None, filter=None):  # noqa: A002
+        extra = {}
+        if request is not None:
+            extra["request"] = bool(request)
+        if filter is not None:
+            extra["filter"] = bool(filter)
+        return self.actions.broadcast(index, "clear_cache", extra=extra)
+
+    def gateway_snapshot(self, index=None):
+        """The legacy `_gateway/snapshot`: flush, then persist the cluster
+        metadata; it answers zero `_shards`, as the JAX node does."""
+        self.flush(index)
+        self.node.gateway.persist_now()
+        return {"_shards": {"total": 0, "successful": 0, "failed": 0}}
 
     def index(self, index, doc_type, body, id=None, routing=None, version=None,
               version_type="internal", op_type="index", refresh=False,
@@ -453,3 +707,47 @@ class Client:
 
 
 _STATUS_ORDER = {"red": 0, "yellow": 1, "green": 2}
+
+
+def _settings_str(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return str(v)
+
+
+def _nest_keys(flat: dict) -> dict:
+    """{"index.number_of_shards": "5"} → {"index": {"number_of_shards": "5"}}."""
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split(".")
+        cur = out
+        for p in parts[:-1]:
+            nxt = cur.get(p)
+            if not isinstance(nxt, dict):
+                nxt = {}
+                cur[p] = nxt
+            cur = nxt
+        cur[parts[-1]] = v
+    return out
+
+
+def _flatten_properties(props: dict, prefix: str = "", just_name: bool = False) -> dict:
+    """A mapping's properties tree → {"a.b": leaf definition}, multi-fields
+    included; a leaf under an object with `path: just_name` is tagged, so it
+    answers to its bare name too."""
+    out = {}
+    for name, fdef in (props or {}).items():
+        full = f"{prefix}{name}"
+        if isinstance(fdef, dict) and isinstance(fdef.get("properties"), dict) and \
+                fdef.get("type", "object") in ("object", "nested"):
+            sub_just = just_name or fdef.get("path") == "just_name"
+            out.update(_flatten_properties(fdef["properties"], full + ".", sub_just))
+        else:
+            leaf = dict(fdef) if isinstance(fdef, dict) else {}
+            if just_name:
+                leaf["_just_name"] = True
+            out[full] = leaf
+            if isinstance(fdef, dict) and isinstance(fdef.get("fields"), dict):
+                for sub, sdef in fdef["fields"].items():
+                    out[f"{full}.{sub}"] = dict(sdef) if isinstance(sdef, dict) else {}
+    return out

@@ -18,7 +18,8 @@ plane is uploaded lazily (`ensure_blk_freqs`) the first time a segment feeds
 the dense path.
 
 A segment's pack for a device lives in its `_device_cache` under
-`pack_cache_key(device)`. `packed_for` returns a resident, current pack
+`pack_cache_key(device)`; `drop_segment_packs` takes a closing shard's
+packs out. `packed_for` returns a resident, current pack
 with one dict read and no lock; a cold pack or remask is coordinated by a
 claimable per-segment, per-device Future (`begin_warm`, `run_warm`, the
 warmer's half in `warmer.py`), and runs with no lock held: `_PACK_LOCK`
@@ -402,9 +403,23 @@ _PACK_LOCK = threading.Lock()
 SIM_SWAPS = {"changed": 0}
 
 
+_PACK = "packed"
+
+
 def pack_cache_key(device: torch.device) -> tuple:
     """The key of a segment's pack for `device` in its `_device_cache`."""
-    return ("packed", str(device))
+    return (_PACK, str(device))
+
+
+def drop_segment_packs(segs) -> None:
+    """Take every device's pack out of `segs`' caches (a closing shard's
+    segments), so its engine reaches no pack; a search still holding a
+    view keeps its own references until it ends."""
+    with _PACK_LOCK:
+        for seg in segs:
+            for key in [k for k in list(seg._device_cache)
+                        if isinstance(k, tuple) and k[:1] == (_PACK,)]:
+                seg._device_cache.pop(key, None)
 
 
 def pack_future_keys(device: torch.device) -> tuple[tuple, tuple]:

@@ -36,7 +36,18 @@ section the `_source` parameters ask for), `_termvector` and
 `_termvectors` of a document, `_mtermvectors` (at `/`, `/{index}` and
 `/{index}/{type}`; the query parameters are each document's defaults) and
 `/{index}/{type}/{id}/_mlt`. `?fields=` on `_search` reads as the body's
-`fields`, on `_explain` as a GET's. `DELETE` of a mapping (at
+`fields`, on `_explain` as a GET's. Index administration: `DELETE` and
+`HEAD /{index}`, `HEAD /{index}/{type}`, `_open`, `_close`, `_settings`
+(GET and PUT, at `/` and `/{index}`, GET by a name expression),
+`_aliases` (POST actions; GET), `_alias` and `_aliases/{name}` (PUT, POST,
+DELETE, GET, HEAD), `_template` (PUT, POST, DELETE, GET), `_warmer` and
+`_warmers` (at `/`, `/{index}` and `/{index}/{type}`), `_mapping/field`
+(at four routes), `_validate/query` (the query parsed without the index:
+`_shards.total` is 1, as on the JAX node), `_analyze` (an analyzer by name,
+a tokenizer with filters, or a mapped field's analyzer; every token's type
+reads `<ALPHANUM>`, as on the JAX node), `_cache/clear` (`?request=`,
+`?filter=`) and `_gateway/snapshot` (a flush and a metadata persist; zero
+`_shards`). `DELETE` of a mapping (at
 `/{index}/{type}/_mapping` and `/{index}/_mapping/{type}`, `_mappings` too)
 drops the types and deletes their documents. The `_search` parameters
 `profile` and `trace` answer 400 naming their later slice. The
@@ -72,12 +83,21 @@ from dataclasses import dataclass, field as dc_field
 from typing import Callable
 
 from ..actions import filter_source, shape_get
+from ..analysis.core import (
+    _PARAMETRIC_FILTERS,
+    TOKEN_FILTERS,
+    TOKENIZERS,
+    Analyzer,
+    get_analyzer,
+)
 from ..common.errors import (
     IllegalArgumentError,
     NotPortedError,
     SearchContextMissingError,
     SearchEngineError,
 )
+from ..common.settings import Settings
+from ..search.queries import parse_query
 
 VERSION = "0.2.0"
 
@@ -234,32 +254,6 @@ _LATER_SEARCH_PARAMS = ("profile", "trace")
 # POST to `/{index}/_close` would otherwise index a document of type
 # `_close`). A slice that lands deletes its rows.
 _LATER_ROUTES = {
-    "A6d, index administration": [
-        ("DELETE,HEAD", "/{index}"), ("HEAD", "/{index}/{type}"),
-        ("POST", "/{index}/_open"), ("POST", "/{index}/_close"),
-        ("GET", "/_mapping/field/{field}"), ("GET", "/{index}/_mapping/field/{field}"),
-        ("GET", "/_mapping/{type}/field/{field}"),
-        ("GET", "/{index}/_mapping/{type}/field/{field}"),
-        ("PUT,GET", "/{index}/_settings"), ("PUT,GET", "/_settings"),
-        ("GET", "/{index}/_settings/{name}"), ("GET", "/_settings/{name}"),
-        ("POST,GET", "/_aliases"), ("GET", "/{index}/_aliases"),
-        ("PUT,POST,DELETE,GET,HEAD", "/{index}/_alias/{name}"),
-        ("PUT,POST,GET,HEAD", "/_alias/{name}"),
-        ("PUT,POST,DELETE,GET", "/{index}/_aliases/{name}"),
-        ("PUT,POST,GET", "/_aliases/{name}"), ("GET", "/_alias"),
-        ("GET,HEAD", "/{index}/_alias"),
-        ("PUT,POST,DELETE,GET", "/_template/{name}"), ("GET", "/_template"),
-        ("PUT,POST,GET", "/_warmer/{name}"),
-        ("PUT,POST,DELETE,GET", "/{index}/_warmer/{name}"),
-        ("PUT,POST,GET", "/{index}/{type}/_warmer/{name}"),
-        ("PUT,POST", "/_warmers/{name}"), ("PUT,POST,DELETE", "/{index}/_warmers/{name}"),
-        ("PUT,POST", "/{index}/{type}/_warmers/{name}"),
-        ("GET", "/_warmer"), ("GET", "/{index}/_warmer"),
-        ("GET,POST", "/_validate/query"), ("GET,POST", "/{index}/_validate/query"),
-        ("GET,POST", "/_analyze"), ("GET,POST", "/{index}/_analyze"),
-        ("POST", "/_cache/clear"), ("POST", "/{index}/_cache/clear"),
-        ("POST", "/_gateway/snapshot"), ("POST", "/{index}/_gateway/snapshot"),
-    ],
     "A7, observability and the admin REST surface": [
         ("GET", "/_stats"), ("GET", "/{index}/_stats"),
         ("GET", "/_status"), ("GET", "/{index}/_status"),
@@ -735,6 +729,188 @@ def build_rest_controller(node) -> RestController:
 
     rc.register("PUT,POST", "/{index}",
                 lambda r: client.create_index(r.path_params["index"], _parse_body(r)))
+    rc.register("DELETE", "/{index}",
+                lambda r: client.delete_index(r.path_params["index"]))
+    rc.register("HEAD", "/{index}", lambda r: RestResponse(
+        200 if client.exists_index(r.path_params["index"]) else 404, ""))
+    rc.register("POST", "/{index}/_open", lambda r: client.open_index(r.path_params["index"]))
+    rc.register("POST", "/{index}/_close",
+                lambda r: client.close_index(r.path_params["index"]))
+    rc.register("HEAD", "/{index}/{type}", lambda r: RestResponse(
+        200 if client.exists_type(r.path_params["index"], r.path_params["type"])
+        else 404, ""))
+
+    def validate_query(req):
+        body = _parse_body(req)
+        try:
+            parse_query(body.get("query"))
+            return {"valid": True, "_shards": {"total": 1, "successful": 1, "failed": 0}}
+        except SearchEngineError as e:
+            return {"valid": False, "explanations": [{"error": str(e)}]}
+
+    rc.register("GET,POST", "/{index}/_validate/query", validate_query)
+    rc.register("GET,POST", "/_validate/query", validate_query)
+
+    def get_field_mapping(req):
+        return client.get_field_mapping(
+            req.path_params.get("index"), req.path_params.get("type"),
+            req.path_params.get("field"),
+            include_defaults=req.bool_param("include_defaults"))
+
+    rc.register("GET", "/_mapping/field/{field}", get_field_mapping)
+    rc.register("GET", "/{index}/_mapping/field/{field}", get_field_mapping)
+    rc.register("GET", "/_mapping/{type}/field/{field}", get_field_mapping)
+    rc.register("GET", "/{index}/_mapping/{type}/field/{field}", get_field_mapping)
+
+    rc.register("PUT", "/{index}/_settings",
+                lambda r: client.update_settings(r.path_params["index"], _parse_body(r)))
+    rc.register("PUT", "/_settings", lambda r: client.update_settings(None, _parse_body(r)))
+    rc.register("GET", "/{index}/_settings",
+                lambda r: client.get_settings(r.path_params["index"]))
+    rc.register("GET", "/{index}/_settings/{name}",
+                lambda r: client.get_settings(r.path_params["index"],
+                                              r.path_params["name"]))
+    rc.register("GET", "/_settings", lambda r: client.get_settings())
+    rc.register("GET", "/_settings/{name}",
+                lambda r: client.get_settings(None, r.path_params["name"]))
+
+    rc.register("POST", "/_aliases", lambda r: client.update_aliases(_parse_body(r)))
+    rc.register("GET", "/_aliases", lambda r: client.get_aliases())
+    rc.register("GET", "/{index}/_aliases",
+                lambda r: client.get_aliases(r.path_params["index"]))
+
+    def put_alias(req):
+        return client.update_aliases({"actions": [{"add": {
+            "index": req.path_params.get("index", "_all"),
+            "alias": req.path_params["name"], **_parse_body(req)}}]})
+
+    def delete_alias(req):
+        return client.update_aliases({"actions": [{"remove": {
+            "index": req.path_params["index"], "alias": req.path_params["name"]}}]})
+
+    def get_alias(req):
+        return client.get_alias(req.path_params.get("index"), req.path_params.get("name"))
+
+    def get_aliases(req):
+        return client.get_aliases(req.path_params.get("index"),
+                                  req.path_params.get("name"))
+
+    def exists_alias(req):
+        ok = client.exists_alias(req.path_params.get("index"), req.path_params.get("name"))
+        return RestResponse(200 if ok else 404, "")
+
+    for suffix in ("_alias", "_aliases"):
+        rc.register("PUT,POST", "/{index}/" + suffix + "/{name}", put_alias)
+        rc.register("PUT,POST", "/" + suffix + "/{name}", put_alias)
+        rc.register("DELETE", "/{index}/" + suffix + "/{name}", delete_alias)
+    rc.register("GET", "/_alias", get_alias)
+    rc.register("GET", "/_alias/{name}", get_alias)
+    rc.register("GET", "/{index}/_alias", get_alias)
+    rc.register("GET", "/{index}/_alias/{name}", get_alias)
+    rc.register("GET", "/_aliases/{name}", get_aliases)
+    rc.register("GET", "/{index}/_aliases/{name}", get_aliases)
+    rc.register("HEAD", "/_alias/{name}", exists_alias)
+    rc.register("HEAD", "/{index}/_alias", exists_alias)
+    rc.register("HEAD", "/{index}/_alias/{name}", exists_alias)
+
+    rc.register("PUT,POST", "/_template/{name}",
+                lambda r: client.put_template(r.path_params["name"], _parse_body(r)))
+    rc.register("DELETE", "/_template/{name}",
+                lambda r: client.delete_template(r.path_params["name"]))
+    rc.register("GET", "/_template/{name}",
+                lambda r: client.get_template(r.path_params["name"]))
+    rc.register("GET", "/_template", lambda r: client.get_template())
+
+    def put_warmer(req):
+        return client.put_warmer(req.path_params.get("index"), req.path_params["name"],
+                                 _parse_body(req), doc_type=req.path_params.get("type"))
+
+    def get_warmer(req):
+        return client.get_warmer(req.path_params.get("index"),
+                                 req.path_params.get("name"))
+
+    for suffix in ("_warmer", "_warmers"):
+        rc.register("PUT,POST", "/" + suffix + "/{name}", put_warmer)
+        rc.register("PUT,POST", "/{index}/" + suffix + "/{name}", put_warmer)
+        rc.register("PUT,POST", "/{index}/{type}/" + suffix + "/{name}", put_warmer)
+        rc.register("DELETE", "/{index}/" + suffix + "/{name}",
+                    lambda r: client.delete_warmer(r.path_params["index"],
+                                                   r.path_params["name"]))
+    rc.register("GET", "/_warmer", get_warmer)
+    rc.register("GET", "/_warmer/{name}", get_warmer)
+    rc.register("GET", "/{index}/_warmer", get_warmer)
+    rc.register("GET", "/{index}/_warmer/{name}", get_warmer)
+    rc.register("GET", "/{index}/{type}/_warmer/{name}", get_warmer)
+
+    def cache_clear(req):
+        """`?request=` and `?filter=` select the tiers (both by default)."""
+        kwargs = {}
+        if req.param("request") is not None:
+            kwargs["request"] = req.bool_param("request")
+        if req.param("filter") is not None:
+            kwargs["filter"] = req.bool_param("filter")
+        return client.clear_cache(req.path_params.get("index"), **kwargs)
+
+    rc.register("POST", "/_cache/clear", cache_clear)
+    rc.register("POST", "/{index}/_cache/clear", cache_clear)
+
+    def analyze(req):
+        """An analyzer by name, a tokenizer with token filters, or a mapped
+        field's analyzer when the path names an index."""
+        body = _parse_body(req)
+        text = body.get("text") or req.param("text") or (
+            req.body if isinstance(req.body, str) and not req.body.startswith("{") else "")
+        analyzer_name = body.get("analyzer") or req.param("analyzer")
+        field = body.get("field") or req.param("field")
+        tokenizer_name = body.get("tokenizer") or req.param("tokenizer")
+        raw_filters = (body.get("filters") or body.get("token_filters")
+                       or req.param("filters") or req.param("token_filters"))
+        svc = None
+        index = req.path_params.get("index")
+        if index:
+            names = node.cluster_service.state.metadata.resolve_indices(index)
+            svc = node.indices.index_service(names[0])
+        if tokenizer_name:
+            tk = TOKENIZERS.get(tokenizer_name)
+            if tk is None:
+                raise IllegalArgumentError(f"unknown tokenizer [{tokenizer_name}]")
+            names_list = ([f.strip() for f in str(raw_filters).split(",") if f.strip()]
+                          if isinstance(raw_filters, str) else list(raw_filters or []))
+            filters = []
+            for fn in names_list:
+                if fn in TOKEN_FILTERS:
+                    filters.append(TOKEN_FILTERS[fn])
+                elif fn in _PARAMETRIC_FILTERS:
+                    filters.append(_PARAMETRIC_FILTERS[fn](Settings.EMPTY))
+                else:
+                    raise IllegalArgumentError(f"unknown token filter [{fn}]")
+            a = Analyzer("_custom_", tk, filters)
+        elif field and svc is not None:
+            ms = svc.mapper_service
+            ft = ms.field_type(field)
+            if ft is not None and ft.is_text and ft.index == "not_analyzed":
+                a = get_analyzer("keyword")
+            elif ft is not None and ft.is_text:
+                a = ms.analysis.analyzer(ft.analyzer)
+            else:
+                a = ms.analysis.analyzer("default")
+        elif analyzer_name:
+            a = (svc.mapper_service.analysis.analyzer(analyzer_name) if svc is not None
+                 else get_analyzer(analyzer_name))
+        else:
+            a = (svc.mapper_service.analysis.analyzer("default") if svc is not None
+                 else get_analyzer("standard"))
+        return {"tokens": [
+            {"token": t.term, "start_offset": t.start, "end_offset": t.end,
+             "type": "<ALPHANUM>", "position": t.position + 1}
+            for t in a.analyze(text if isinstance(text, str) else " ".join(text))]}
+
+    rc.register("GET,POST", "/_analyze", analyze)
+    rc.register("GET,POST", "/{index}/_analyze", analyze)
+
+    rc.register("POST", "/_gateway/snapshot", lambda r: client.gateway_snapshot())
+    rc.register("POST", "/{index}/_gateway/snapshot",
+                lambda r: client.gateway_snapshot(r.path_params["index"]))
 
     def put_mapping(req):
         return client.put_mapping(req.path_params.get("index"),

@@ -86,6 +86,12 @@ def segment_mask(seg: FrozenSegment, f: Filter, ctx) -> np.ndarray:
     return m
 
 
+def clear_segment_masks(seg: FrozenSegment) -> None:
+    """Drop the segment's cached host masks (they rebuild on later use)."""
+    with _CACHE_LOCK:
+        seg._device_cache.pop(FILTER_CACHE_KEY, None)
+
+
 def _postings_mask(seg: FrozenSegment, field: str, term: str) -> np.ndarray:
     mask = np.zeros(seg.doc_count, dtype=bool)
     docs, _ = seg.postings(field, str(term))

@@ -9,7 +9,9 @@ fetch of the global winners still runs.
 - **Key** = (index, shard, searcher view version, fingerprint). The view
   version advances with every searcher the engine installs (a refresh with
   changes, a merge, an optimize, a recovery), so an entry never outlives the
-  view it was computed on. The fingerprint hashes the body's canonical JSON
+  view it was computed on; it is unique in the process, so a query phase
+  that outlives its engine (its index deleted or closed, then recreated or
+  reopened) stores under a key no later view reads. The fingerprint hashes the body's canonical JSON
   (sorted keys, compact separators) without the execution knobs `profile`,
   `request_cache` and `timeout`.
 - **Policy** (`cache_policy`): a body with `request_cache: true` always, one

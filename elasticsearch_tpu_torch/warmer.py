@@ -41,6 +41,22 @@ with no lock held.
 `indices.warmer.enabled: false` switches the re-prime off and leaves pack
 warming on, as in the JAX package.
 
+A shard that leaves the node (its index closed or deleted) is unwired
+(`unwire`) before its engine closes: its view listener is removed, and a
+pack already queued for it stands down when it sees the engine closed
+(`packs_abandoned`), so no warm pack or re-prime runs on a closed engine.
+
+What runs on one explicit refresh of a shard with search warmers: the
+refresh installs a view; the view listener schedules its packs on the
+pools and, when the shard has hot cached bodies, the re-prime; the refresh
+broadcast then runs the index's search warmers (`actions._run_warmers`) on
+the management pool through the query phase and the batcher. A warmer
+body whose segment pack has not started steals it (one pack, counted in
+`packs_stolen`); a re-prime replays only cached bodies and a search warmer
+is not one unless a user sent the same body, so each body launches once a
+refresh unless a user's body equals a warmer's (then the re-prime and the
+warmer each run it once).
+
 A warm pack that fails on the card (a transient or persistent CUDA error,
 common/devicehealth) is retried on its pool, up to
 `indices.warmer.pack_retries` (2) times after decorrelated-jitter backoffs
@@ -97,7 +113,9 @@ class IndexWarmerService:
         self.queries_warmed = 0
         self.query_failures = 0
         self.filters_seeded = 0
+        self.packs_abandoned = 0  # queued packs whose engine closed first
         self.closed = False
+        self._wired: dict[int, object] = {}  # id(engine) -> its listener
 
     def wire(self, index: str, shard_id: int, engine) -> None:
         """Append this shard's warm listener to the engine's view
@@ -107,7 +125,14 @@ class IndexWarmerService:
             if searcher is not None:
                 self.on_view_installed(index, shard_id, engine, searcher, dropped)
 
+        self._wired[id(engine)] = on_view_change
         engine.view_listeners.append(on_view_change)
+
+    def unwire(self, engine) -> None:
+        """Remove this warmer's listener from a leaving shard's engine."""
+        listener = self._wired.pop(id(engine), None)
+        if listener is not None and listener in engine.view_listeners:
+            engine.view_listeners.remove(listener)
 
     def on_view_installed(self, index: str, shard_id: int, engine, searcher,
                           dropped=()) -> None:
@@ -116,10 +141,10 @@ class IndexWarmerService:
         A leaf under the engine lock; a rejected submit withdraws its
         marker, so the query path packs inline instead of waiting on work
         nobody will do."""
-        if self.closed:
+        if self.closed or engine.closed:
             return
         if engine.search_active:
-            self._schedule_packs(index, searcher)
+            self._schedule_packs(index, searcher, engine)
         rcache = getattr(self.node, "request_cache", None)
         if (not self.enabled or rcache is None or not rcache.enabled
                 or not rcache.has_hot(index, shard_id)):
@@ -131,7 +156,7 @@ class IndexWarmerService:
             with self._lock:
                 self.rejected += 1
 
-    def _schedule_packs(self, index: str, searcher) -> None:
+    def _schedule_packs(self, index: str, searcher, engine) -> None:
         for seg in searcher.segments:
             fut = begin_warm(seg, self.device)
             if fut is None:
@@ -139,7 +164,7 @@ class IndexWarmerService:
             hint = seg._device_cache.get("pack_hint") or {}
             pool = "merge" if hint.get("kind") == "compact" else "warmer"
             try:
-                self.threadpool.submit(pool, self._run_pack, seg, fut, index)
+                self.threadpool.submit(pool, self._run_pack, seg, fut, index, engine)
             except Exception:  # noqa: BLE001 — a rejected or shut-down pool
                 cancel_warm(seg, self.device, fut)
                 with self._lock:
@@ -148,12 +173,19 @@ class IndexWarmerService:
             with self._lock:
                 self.packs_scheduled += 1
 
-    def _run_pack(self, seg, fut, index: str) -> None:
+    def _run_pack(self, seg, fut, index: str, engine) -> None:
         """The pool's body: claim and pack. A failure (a breaker trip, a
         device error) reached any waiter through the future; a failure of
         the card is retried here after a backoff while the budget lasts, and
         the final failure is counted and recorded against `pack:<index>` (a
-        defect of the program is neither retried nor recorded)."""
+        defect of the program is neither retried nor recorded). A pack whose
+        engine closed while it was queued stands down."""
+        if engine.closed:
+            cancel_warm(seg, self.device, fut)
+            with self._lock:
+                self.packs_done += 1
+                self.packs_abandoned += 1
+            return
         attempts = 0
         prev_sleep = None
         while True:
@@ -243,4 +275,5 @@ class IndexWarmerService:
                     "queries_warmed": self.queries_warmed,
                     "query_failures": self.query_failures,
                     "filters_seeded": self.filters_seeded,
+                    "packs_abandoned": self.packs_abandoned,
                     "rejected": self.rejected}
