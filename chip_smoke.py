@@ -431,6 +431,29 @@ those paths against its plain torch version on the card. Phases:
      device's idle share, and `sparse_score`'s launches and shapes, each
      held bitwise against its plain version.
 
+ 24. observing a search on the card, on phase 10's node before it closes:
+     (a) 64 of phase 10's `bool` bodies with `?profile=true` from one
+     connection: hits equal to the unprofiled answer, every shard's profile
+     `device_sparse` with its segments and its device phase timed by CUDA
+     events (a pair a launch); the phases' p50 and the device phase a launch
+     against the kernel's own time at the shapes launched. (b) 512 of them
+     from 64 connections at `search.trace.sample_rate` 0.0, then 1.0:
+     requests/s of each and the ratio; one `PendingPull.wait` a batch and no
+     `torch.cuda.synchronize` in either leg; every `rest` trace of `/_traces`
+     holds rest → coordinator → transport → shard → batcher queue, dispatch
+     and merge → device_pull, each device span a pull window its batch
+     stamped. (d) `POST /_nodes/_local/profiler/start`, 16 warm-up
+     searches, a sentinel kernel, 16 searches, `stop`: the Chrome trace's
+     `sparse_score` kernel events after the sentinel equal the launches
+     counted over those 16 (a capture on this node loses its first kernel
+     records; a second start and a second stop answer 400). (c)
+     `/_nodes/stats` twice (monotone counters; an unknown metric 400),
+     `/_prometheus/metrics` under the text grammar, `/_insights/queries`
+     holding the traffic's shape, and `corpus`'s resident bytes by the
+     ledger against `torch.cuda.memory_allocated()` as its packs are dropped
+     and packed again by one search (0.9-1.1). The kernel bitwise against
+     its plain version at every shape the phase launched.
+
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed. Without CUDA the script exits non-zero and prints no result.
@@ -594,6 +617,9 @@ RUNTIME_CONN = 16
 # documents and shards
 FETCH_REQUESTS, FETCH_CONN, FETCH_PROFILED = 128, 16, 64
 FETCH_SMALL_DOCS, FETCH_SHARDS = 2000, 3
+# phase 24 on phase 10's node: profiled bodies, the traffic of each traced
+# leg and its connections, and the searches in the device profiler's window
+OBS_PROFILED, OBS_TRACED, OBS_CONN, OBS_WINDOW = 64, 512, 64, 16
 # phase 22 on a node of its own: `website` posts (5,000, cut from a site's
 # hundreds of thousands: from 20,000 after a 190 s phase on the card, and
 # from 10,000 after a 136 s phase on a slow host, where the background
@@ -1555,10 +1581,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        # phase 10's timed run and phase 20's and 21's legs, on phase 10's node
+        # phase 10's timed run and phase 20's, 21's and 24's legs, on phase
+        # 10's node
         node_launches=node["launches"].get("sparse_score", 0)
         + node["runtime"]["launches"].get("sparse_score", 0)
-        + node["fetch"]["launches"].get("sparse_score", 0),
+        + node["fetch"]["launches"].get("sparse_score", 0)
+        + node["observe"]["launches"].get("sparse_score", 0),
         node_max_abs_err=node["kernel_max_abs_err"],
         runtime_launches=node["runtime"]["launches"].get("sparse_score", 0),
         runtime_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
@@ -1568,6 +1596,10 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         fetch_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                       for s in node["fetch"]["kernel_shapes"]],
         fetch_max_abs_err=node["fetch"]["kernel_max_abs_err"],
+        observe_launches=node["observe"]["launches"].get("sparse_score", 0),
+        observe_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                        for s in node["observe"]["kernel_shapes"]],
+        observe_max_abs_err=node["observe"]["kernel_max_abs_err"],
         mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
         mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"],
         dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"],
@@ -2428,12 +2460,416 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
         # -- 21. fetch: highlighting, suggesters, term vectors ---------------
         out["fetch"] = fetch_phase(device, node, port, texts=texts, bodies=bodies,
                                    seed=seed + 21, **(fetch or {}))
+        # -- 24. observing a search on the card -------------------------------
+        recorder.shapes.clear()  # its kept inputs would hold corpus packs
+        out["observe"] = observe_phase(device, node, port, bodies=bodies)
         return out
     finally:
         if recorder is not None:
             recorder.close()
         node.close()
         shutil.rmtree(data_path, ignore_errors=True)
+
+
+def prom_families(text: str) -> dict:
+    """The Prometheus text format, line by line: `# TYPE name type` or a
+    sample `name{label="v",...} value`, every family's samples one
+    contiguous group (a histogram's _bucket, _sum and _count under its
+    name). Returns {family: samples}; raises AssertionError otherwise."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+                        r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? (\S+)$')
+    types, counts, seen, current = {}, {}, set(), None
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE"):
+            _h, _t, name, typ = line.split()
+            assert name not in types and typ in ("counter", "gauge", "histogram"), line
+            types[name] = typ
+            continue
+        m = sample.match(line)
+        assert m, f"malformed sample line {line!r}"
+        float(m.group(4).replace("+Inf", "inf"))
+        name = family = m.group(1)
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and types.get(name[: -len(suffix)]) == "histogram":
+                family = name[: -len(suffix)]
+        assert family in types, f"sample of untyped family {family}"
+        if family != current:
+            assert family not in seen, f"family {family} interleaved"
+            seen.add(family)
+            current = family
+        counts[family] = counts.get(family, 0) + 1
+    return counts
+
+
+def observe_phase(device, node, port: int, *, bodies,
+                  n_profiled: int = OBS_PROFILED, n_traced: int = OBS_TRACED,
+                  n_conn: int = OBS_CONN, n_window: int = OBS_WINDOW) -> dict:
+    """Phase 24, on phase 10's node before it closes: observing a search on
+    the card. (a) `n_profiled` of phase 10's `bool` bodies with
+    `?profile=true` from one connection (a shard's event pairs time what the
+    one stream runs between its records, so concurrent profiled requests
+    would time each other's kernels): hits equal to the unprofiled answer,
+    every shard's
+    profile `device_sparse` with its segments, its device phase timed by
+    CUDA events (every DeviceClock read on the card, one pair a launch);
+    the per-phase split at p50 and the device phase a launch against the
+    kernel's own time at the shapes launched. (b) `n_traced` bodies from
+    `n_conn` connections at `search.trace.sample_rate` 0.0, then 1.0:
+    requests/s of each and their ratio; each leg waits once a batch
+    (`PendingPull.wait` counted against the batcher's batches) and never
+    calls `torch.cuda.synchronize`; every `rest` trace in `/_traces` holds
+    the chain rest → coordinator → transport → shard → batcher.queue →
+    batcher.dispatch → batcher.merge → device_pull, each device_pull span
+    exactly a pull window its batch's merge stamped. (c) `/_nodes/stats`
+    twice (monotone counters), `/_prometheus/metrics` under the text
+    grammar, `/_insights/queries` holding the traffic's shape with every
+    shard phase counted, and the ledger's resident bytes of `corpus`
+    against `torch.cuda.memory_allocated()` when its packs are dropped and
+    packed again. (d) `torch.profiler` through the REST routes: `n_window`
+    warm-up searches, a sentinel kernel (`torch.cuda._sleep`), then
+    `n_window` searches whose launches are counted: the Chrome trace's
+    `sparse_score` kernel events after the sentinel equal them (on phase
+    10's node a capture loses its first kernel records, PERF.md §7). `sparse_score` against its
+    plain version at every shape the phase launched."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.common import profile as tprofile
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import (
+        drop_segment_packs, pack_cache_key)
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import execute as texecute
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    launches: dict = {}
+    recorder = LaunchRecorder(scoring, sparse_score, copy_inputs=True)
+
+    def take() -> dict:
+        snap = cudaenv.LAUNCHES.snapshot()
+        cudaenv.LAUNCHES.reset()
+        for name, n in snap.items():
+            launches[name] = launches.get(name, 0) + n
+        return snap
+
+    def search_reqs(bs, params=""):
+        return [("POST", f"/corpus/_search{params}", b, None) for b in bs]
+
+    try:
+        cudaenv.LAUNCHES.reset()  # what earlier phases launched is not this one's
+        # -- (a) profiled searches ---------------------------------------------
+        chosen = bodies[:n_profiled]
+        plain, _l, _w = http_requests(port, search_reqs(chosen), n_conn)
+        clocks = []
+        orig_elapsed = tprofile.DeviceClock.elapsed_s
+
+        def elapsed(clock):
+            s = orig_elapsed(clock)
+            clocks.append((clock.cuda, clock.launches, len(clock._pairs)))
+            return s
+
+        tprofile.DeviceClock.elapsed_s = elapsed
+        try:
+            take()
+            # one connection: a shard's event pairs share the stream with
+            # whatever other threads launch between its records, so
+            # concurrent profiled traffic would time its neighbours' kernels
+            prof_resp, prof_lat, prof_wall = http_requests(
+                port, search_reqs(chosen, "?profile=true"), 1)
+            prof_launches = take().get("sparse_score", 0)
+        finally:
+            tprofile.DeviceClock.elapsed_s = orig_elapsed
+        phases: dict = {}
+        per_launch = []
+        for i, ((st0, p), (st1, r)) in enumerate(zip(plain, prof_resp)):
+            assert st0 == st1 == 200 and r["_shards"] == SHARDS_OK, (i, r)
+            assert r["hits"] == p["hits"], f"profiled request {i}: hits differ"
+            shards = r["profile"]["shards"]
+            assert sorted(s["shard"] for s in shards) == list(range(NODE_SHARDS)), i
+            for s in shards:
+                assert s["plan"]["outcome"] == "device_sparse", (i, s["plan"])
+                assert s["segments"] and s["batcher"] == {"bypassed": True,
+                                                          "reason": "profile"}
+                assert all(seg["path"] == ("sparse_fused" if on_card else "sparse_composed")
+                           for seg in s["segments"]), s["segments"]
+                for name, ms in s["phases_ms"].items():
+                    phases.setdefault(name, []).append(ms)
+                n = sum(seg["buckets"] for seg in s["segments"])
+                if n:
+                    per_launch.append(s["phases_ms"]["device"] / n)
+        assert clocks and len(clocks) == n_profiled * NODE_SHARDS, len(clocks)
+        if on_card:
+            # every clock timed its launches with a CUDA event pair each
+            assert all(cuda and pairs == n_l > 0 for cuda, n_l, pairs in clocks), clocks[:4]
+            assert prof_launches > 0
+        kernel_ms = []
+        for args, kwargs, n_l in recorder.shapes.values():
+            kernel_ms.append((time_ms(lambda a=args, k=kwargs: sparse_score(*a, **k),
+                                      device, 20), n_l))
+        own = (sum(ms * n for ms, n in kernel_ms) / max(sum(n for _m, n in kernel_ms), 1)
+               if kernel_ms else None)
+        split = {k: float(np.percentile(v, 50)) for k, v in phases.items()}
+        out["profiled"] = dict(requests=n_profiled, wall_s=prof_wall,
+                               p50_ms=float(np.percentile(prof_lat, 50)),
+                               phases_p50_ms=split, launches=prof_launches,
+                               device_ms_a_launch_p50=float(np.percentile(per_launch, 50)),
+                               kernel_ms_a_launch=own, clocks=len(clocks))
+        log(f"[24] (a) {n_profiled} of phase 10's bool bodies with ?profile=true from "
+            f"one connection: every page == the unprofiled answer; every shard "
+            f"device_sparse, its device phase timed by "
+            + ("CUDA events (one pair a launch)" if on_card else "perf_counter")
+            + f"; {prof_launches} sparse_score launches; phases p50 (ms) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        log(f"[24] (a) device phase a launch p50 {out['profiled']['device_ms_a_launch_p50']:.4f}"
+            f" ms against the kernel's own {own if own is None else round(own, 4)} ms at the "
+            f"{len(kernel_ms)} shapes launched (CUDA events, 20 reps a shape)")
+
+        # -- (b) traced against untraced ---------------------------------------
+        waits, syncs, windows = [0], [0], []
+        lock = threading.Lock()
+        orig_wait = cudaenv.PendingPull.wait
+        orig_sync = torch.cuda.synchronize
+        orig_merge = texecute._PendingFlat.merge
+
+        def counted_wait(self):
+            with lock:
+                waits[0] += 1
+            return orig_wait(self)
+
+        def counted_sync(*a, **k):
+            with lock:
+                syncs[0] += 1
+            return orig_sync(*a, **k)
+
+        def stamped_merge(self):
+            res = orig_merge(self)
+            with lock:
+                windows.append((self.pull_t0, self.pull_t1))
+            return res
+
+        traced = bodies[:n_traced]
+        legs = {}
+        old_rate = node.tracer.sample_rate
+        cudaenv.PendingPull.wait = counted_wait
+        torch.cuda.synchronize = counted_sync
+        texecute._PendingFlat.merge = stamped_merge
+        try:
+            for rate in (0.0, 1.0):
+                node.tracer.sample_rate = rate
+                waits[0] = syncs[0] = 0
+                b0 = node.search_batcher.stats()["launches"]
+                s0 = node.tracer.stats()["sampled"]
+                take()
+                got, lat, wall = http_requests(port, search_reqs(traced), n_conn)
+                sparse = take().get("sparse_score", 0)
+                batches = node.search_batcher.stats()["launches"] - b0
+                for i, (st, r) in enumerate(got):
+                    assert st == 200 and r["_shards"] == SHARDS_OK, (rate, i, r)
+                legs[rate] = dict(requests_per_s=n_traced / wall, wall_s=wall,
+                                  p50_ms=float(np.percentile(lat, 50)),
+                                  p99_ms=float(np.percentile(lat, 99)),
+                                  waits=waits[0], batches=batches, syncs=syncs[0],
+                                  sampled=node.tracer.stats()["sampled"] - s0,
+                                  sparse_launches=sparse)
+                assert waits[0] == batches > 0 and syncs[0] == 0, legs[rate]
+        finally:
+            node.tracer.sample_rate = old_rate
+            cudaenv.PendingPull.wait = orig_wait
+            torch.cuda.synchronize = orig_sync
+            texecute._PendingFlat.merge = orig_merge
+        assert legs[0.0]["sampled"] == 0 and legs[1.0]["sampled"] >= n_traced
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        st, tr = http_json(conn, "GET", "/_traces")
+        assert st == 200
+        window_set = set(windows)
+        rest_traces = [t for t in tr["traces"] if t["name"] == "rest"]
+        assert rest_traces
+        chain = ("rest", "coordinator", "transport[indices:data/read/search[phase/query]]",
+                 "shard", "batcher.queue", "batcher.dispatch", "batcher.merge", "device_pull")
+        pulls = 0
+        for t in rest_traces:
+            by_id = {s["id"]: s for s in t["spans"]}
+            names = {s["name"] for s in t["spans"]}
+            assert set(chain) <= names, (t["trace_id"], sorted(names))
+            for s in t["spans"]:
+                if s["name"] != "device_pull":
+                    continue
+                merge = by_id[s["parent"]]
+                assert merge["name"] == "batcher.merge"
+                assert by_id[merge["parent"]]["name"] == "shard"
+                assert (s["t0"], s["t1"]) in window_set, "device span off its pull window"
+                assert merge["t0"] <= s["t0"] <= s["t1"] <= merge["t1"]
+                pulls += 1
+        ratio = legs[1.0]["requests_per_s"] / legs[0.0]["requests_per_s"]
+        out["traced"] = dict(untraced=legs[0.0], traced=legs[1.0], ratio=ratio,
+                             rest_traces_checked=len(rest_traces), device_spans=pulls)
+        for rate, leg in legs.items():
+            log(f"[24] (b) sample rate {rate}: {n_traced} requests from {n_conn} "
+                f"connections, {leg['requests_per_s']:.1f} requests/s, p50 "
+                f"{leg['p50_ms']:.2f} ms p99 {leg['p99_ms']:.2f} ms; {leg['batches']} "
+                f"batches, {leg['waits']} PendingPull.wait calls, {leg['syncs']} "
+                f"torch.cuda.synchronize calls, {leg['sampled']} traces sampled")
+        log(f"[24] (b) traced/untraced requests/s {ratio:.4f}; {len(rest_traces)} rest "
+            f"traces in /_traces hold the chain {' -> '.join(chain)}; each of their "
+            f"{pulls} device spans is a pull window its batch's merge stamped")
+
+        # -- (d) the device profiler -------------------------------------------
+        st, r = http_json(conn, "POST", "/_nodes/_local/profiler/start")
+        assert st == 200 and r["started"], r
+        try:
+            st2, r2 = http_json(conn, "POST", "/_nodes/_local/profiler/start")
+            assert st2 == 400, r2
+            # the window follows a warm-up inside the capture and a sentinel
+            # kernel: on this node a capture's first kernel records are lost
+            # (PERF.md §7), so the window is the kernels after the sentinel
+            take()
+            http_requests(port, search_reqs(bodies[n_window: 2 * n_window]), 4)
+            warm_launches = take().get("sparse_score", 0)
+            if on_card:
+                torch.cuda._sleep(1000)
+            got, _lat, pwall = http_requests(port, search_reqs(bodies[:n_window]), 4)
+            counted = take()
+            window_launches = counted.get("sparse_score", 0)
+            assert all(s == 200 for s, _r in got)
+        finally:
+            st, r = http_json(conn, "POST", "/_nodes/_local/profiler/stop")
+        assert st == 200 and r["stopped"] and r["files"], r
+        with open(r["files"][0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        captured = [e for e in events if e.get("cat") == "kernel"
+                    and "sparse_score" in str(e.get("name"))]
+        sentinel = [e["ts"] for e in events if e.get("cat") == "kernel"
+                    and "spin_kernel" in str(e.get("name"))]
+        if on_card:
+            assert len(sentinel) == 1, f"{len(sentinel)} sentinel kernels in the trace"
+        kernels = [e for e in captured if not sentinel or e["ts"] > sentinel[0]]
+        by_symbol: dict = {}
+        for e in kernels:
+            by_symbol[e["name"]] = by_symbol.get(e["name"], 0) + 1
+        trace_bytes = os.path.getsize(r["files"][0])
+        shutil.rmtree(r["dir"], ignore_errors=True)
+        st, r = http_json(conn, "POST", "/_nodes/_local/profiler/stop")
+        assert st == 400, r
+        out["profiler"] = dict(searches=n_window, wall_s=pwall, launches=window_launches,
+                               counted=counted, kernel_events=len(kernels),
+                               trace_bytes=trace_bytes, by_symbol=by_symbol,
+                               capture_launches=warm_launches + window_launches,
+                               capture_kernel_events=len(captured))
+        log(f"[24] (d) torch.profiler over {n_window} warm-up and {n_window} window "
+            f"searches: {len(kernels)} sparse_score kernel events after the sentinel in "
+            f"the Chrome trace ({trace_bytes} B), {window_launches} launches counted over "
+            f"the window ({counted}); by symbol {by_symbol}; the whole capture held "
+            f"{len(captured)} of {warm_launches + window_launches} launches")
+        if on_card:
+            assert len(kernels) == window_launches > 0, (len(kernels), window_launches)
+
+        # -- (c) stats against the card ----------------------------------------
+        st, s1 = http_json(conn, "GET", "/_nodes/stats")
+        assert st == 200
+        http_requests(port, search_reqs(bodies[:8]), 4)
+        st, s2 = http_json(conn, "GET", "/_nodes/stats")
+        (a,), (b,) = s1["nodes"].values(), s2["nodes"].values()
+        monotone = [
+            ("transport.tx_count", lambda x: x["transport"]["tx_count"]),
+            ("transport.rx_count", lambda x: x["transport"]["rx_count"]),
+            ("search.latency.count", lambda x: x["search"]["latency"]["count"]),
+            ("search.batcher.launches", lambda x: x["search"]["batcher"]["launches"]),
+            ("search.batcher.coalesced", lambda x: x["search"]["batcher"]["coalesced"]),
+            ("search_serving.device_sparse", lambda x: x["search_serving"]["device_sparse"]),
+            ("tracing.finished", lambda x: x["tracing"]["finished"]),
+            ("thread_pool.search.completed",
+             lambda x: x["thread_pool"]["search"]["completed"]),
+            ("device.kernels.launches", lambda x: sum(x["device"]["kernels"]["launches"]
+                                                      .values()))]
+        for name, get in monotone:
+            assert get(b) >= get(a), (name, get(a), get(b))
+        assert b["search"]["latency"]["count"] > a["search"]["latency"]["count"]
+        st, _h = http_json(conn, "GET", "/_nodes/stats/bogus")
+        assert st == 400
+        conn.request("GET", "/_prometheus/metrics")
+        resp = conn.getresponse()
+        prom = resp.read().decode()
+        assert resp.status == 200
+        families = prom_families(prom)
+        assert families["estpu_cuda_kernel_launches_total"] >= 1
+        assert "estpu_jax_compile_events_total" not in families
+        sid, _shape = node.insights.fingerprint(bodies[0])
+        expect = {node.insights.fingerprint(bd)[0] for bd in bodies[:n_traced]}
+        st, ins = http_json(conn, "GET", "/_insights/queries?size=1000")
+        assert st == 200
+        shapes = {e["shape_id"]: e for e in ins["shapes"]}
+        assert expect == {sid} and sid in shapes, (expect, list(shapes)[:5])
+        assert shapes[sid]["outcomes"].get("device_sparse", 0) >= \
+            (2 * n_profiled + 2 * n_traced + n_window + 8) * NODE_SHARDS
+        # the ledger's resident bytes of `corpus` against the allocator: drop
+        # the packs, then pack them again with one search
+        st, dev = http_json(conn, "GET", "/_nodes/stats/device")
+        ledger = next(iter(dev["nodes"].values()))["device"]["indices"]["corpus"]
+        svc = node.indices.index_service("corpus")
+        segs = [seg for sid_ in range(NODE_SHARDS)
+                for seg in svc.shard(sid_).engine.acquire_searcher().segments]
+        recorder.close()
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated(device) if on_card else 0
+        drop_segment_packs(segs)
+        for seg in segs:
+            node.filter_cache.clear_segment(seg)
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        alloc1 = torch.cuda.memory_allocated(device) if on_card else 0
+        assert not any(seg._device_cache.get(pack_cache_key(device)) for seg in segs)
+        got, _lat, _w = http_requests(port, search_reqs(bodies[:1]), 1)
+        assert got[0][0] == 200
+        if on_card:
+            torch.cuda.synchronize()
+        alloc2 = torch.cuda.memory_allocated(device) if on_card else 0
+        st, dev = http_json(conn, "GET", "/_nodes/stats/device")
+        ledger2 = next(iter(dev["nodes"].values()))["device"]["indices"]["corpus"]
+        conn.close()
+        released, packed = alloc0 - alloc1, alloc2 - alloc1
+        out["resident"] = dict(
+            ledger_bytes=ledger["total_bytes"], ledger_tiers=ledger["totals"],
+            released_bytes=released, repacked_ledger_bytes=ledger2["total_bytes"],
+            repacked_bytes=packed,
+            release_ratio=(ledger["total_bytes"] / released) if released else None,
+            repack_ratio=(ledger2["total_bytes"] / packed) if packed else None)
+        res = out["resident"]
+        if on_card:
+            assert 0.9 <= res["repack_ratio"] <= 1.1, res
+        log(f"[24] (c) /_nodes/stats twice: {len(monotone)} counters monotone; "
+            f"/_prometheus/metrics parses ({len(families)} families, each one contiguous "
+            f"group, estpu_cuda_kernel_* present, no estpu_jax_*); /_insights/queries "
+            f"holds the traffic's shape {sid} ({shapes[sid]['count']} shard phases)")
+        log(f"[24] (c) corpus resident by the ledger {res['ledger_bytes']} B "
+            f"{res['ledger_tiers']}; memory_allocated() released {released} B when its "
+            f"packs dropped (ledger/released "
+            f"{'not measured' if res['release_ratio'] is None else round(res['release_ratio'], 4)}"
+            f"), grew {packed} B when one search packed them again against the ledger's "
+            f"{res['repacked_ledger_bytes']} B (ledger/allocated "
+            f"{'not measured' if res['repack_ratio'] is None else round(res['repack_ratio'], 4)})")
+        out["kernel_shapes"] = [dict(Qb=k[0][0], TB=k[0][1], k=k[2], launches=v[2])
+                                for k, v in recorder.shapes.items()]
+        out["kernel_max_abs_err"] = check_shapes(recorder.shapes)
+        take()
+        out["launches"] = launches
+        out["wall_s"] = time.perf_counter() - t_phase
+        log(f"[24] sparse_score == plain (bitwise) at all {len(recorder.shapes)} shapes "
+            f"phase 24 launched ({launches.get('sparse_score', 0)} launches); max abs err "
+            f"{out['kernel_max_abs_err']}; phase 24 took {out['wall_s']:.1f} s")
+        return out
+    finally:
+        recorder.close()
 
 
 def term_docs(offsets, inv_docs, terms) -> np.ndarray:

@@ -97,8 +97,25 @@ latency, from the fan-out to its future's resolution, failed phases too
 remaining `timeout` budget cannot cover one expected phase answers 429
 with Retry-After before the fan-out.
 
-Not in this slice: the SPMD mesh branch, insights, tracing, profiles, the
-slowlog, cache-affinity routing, failover across copies and hedging,
+Observability, as in the JAX package's `actions.py`: `search` roots a
+trace (or nests a `coordinator` span under the REST ingress's span) and
+observes its wall in `search_latency`; every transport send under it
+carries the trace context (transport/service.py). A shard's query phase
+continues the trace (`shard` span), runs under a ProfileCollector when the
+body asks `profile`, classifies the body into the node's query-shape
+insights (count, latency from the phase's own clock pair, the batcher's
+queue and pull windows, the serving outcome, the request-cache hit or
+miss) and writes the slowlog line (`_maybe_slowlog`: thresholds from the
+index settings, then the cluster's transient and persistent settings, with
+the trace id, the shape id and the queue/device/merge breakdown). Its span
+list and profile ride the response; the coordinator stitches the spans
+into its trace and the profiles into the response's `profile` section. A
+profiled request never answers from the request cache (it peeks, and
+records the hit or miss as a profile event), and one whose device clock
+cannot record its CUDA events fails the whole search (500).
+
+Not in this slice: the SPMD mesh branch, cache-affinity routing, failover
+across copies and hedging,
 replica writes (of index, delete, update and delete-by-query alike), and
 the alias routing values (stored and rendered; no write or search reads
 them, as in the JAX package)."""
@@ -126,6 +143,9 @@ from .cluster.state import (
     IndexTemplateMetaData,
     ShardRouting,
 )
+from .common import insights as _insights
+from .common import profile as profiling
+from .common import tracing
 from .common.deadline import NO_DEADLINE, Deadline
 from .common.errors import (
     ActionRequestValidationError,
@@ -137,6 +157,7 @@ from .common.errors import (
     IndexMissingError,
     IndexWarmerMissingError,
     MasterNotDiscoveredError,
+    ProfileTimingError,
     RejectedExecutionError,
     RoutingMissingError,
     SearchEngineError,
@@ -145,9 +166,11 @@ from .common.errors import (
     VersionConflictError,
 )
 from .common.logging import get_logger
+from .common.metrics import HistogramMetric
 from .common.names import is_pattern, name_matches
 from .common.settings import Settings, validate_index_name
 from .common.stream import StreamInput, StreamOutput
+from .common.units import parse_time
 from .index.segment import FieldStats
 from .indices_service import ACTION_SHARD_STARTED
 from .mapper import MapperService
@@ -254,6 +277,12 @@ class ActionModule:
         # deadline-aware admission: a search whose budget cannot cover one
         # expected shard phase is rejected (429) before the fan-out
         self.admission = SearchAdmissionController()
+        # the cluster-level slowlog thresholds, parsed once a metadata
+        # version: (version, {level: seconds | None})
+        self._slowlog_cluster: tuple | None = None
+        # the coordinator's search latency, accept to response (the
+        # /_nodes/stats search.latency percentiles and Prometheus series)
+        self.search_latency = HistogramMetric()
         t = self.transport
         for action, fn in [(A_CREATE_INDEX, self._m_create_index),
                            (A_DELETE_INDEX, self._m_delete_index),
@@ -1031,6 +1060,26 @@ class ActionModule:
     # ================= scatter-gather search =================
     def search(self, index_expr, body: dict | None = None, routing=None,
                search_type: str = "query_then_fetch", preference=None) -> dict:
+        """The tracing and latency wrapper of the scatter-gather: a thread
+        that carries a span (the REST ingress rooted the trace, or decided
+        against it) nests a `coordinator` span under it; a direct call roots
+        a trace here, at the tracer's rate."""
+        t0 = time.monotonic()
+        parent = tracing.current_span()
+        if parent is not None:
+            span = parent.child("coordinator")
+        else:
+            span = self.node.tracer.start_trace("coordinator").root
+        try:
+            with tracing.activate(span):
+                return self._search_inner(index_expr, body, routing,
+                                          search_type, preference)
+        finally:
+            span.end()
+            self.search_latency.observe(time.monotonic() - t0)
+
+    def _search_inner(self, index_expr, body: dict | None, routing,
+                      search_type: str, preference) -> dict:
         t0 = time.monotonic()
         state = self.cluster_service.state
         indices = state.metadata.resolve_indices(index_expr)
@@ -1072,6 +1121,10 @@ class ActionModule:
             fut.add_done_callback(
                 lambda f: setattr(f, "completed_at", time.monotonic()))
         results: list[ShardQueryResult] = []
+        # the sampled trace the shards' span lists stitch into (None:
+        # untraced)
+        cur_span = tracing.current_span()
+        trace_ref = cur_span.trace if cur_span else None
         # ordinal -> (index, real shard id, node, pinned context id): the
         # coordinator's merge identity is the ordinal, as (index, shard)
         # pairs of two indices can share a shard id
@@ -1083,6 +1136,10 @@ class ActionModule:
                 try:
                     r = fut_result(fut, max(0.0, wait_by - time.monotonic()))
                 except SearchEngineError as e:
+                    if isinstance(e, ProfileTimingError):
+                        # a profile's device clock failed: the request
+                        # fails, no shard answers with host timings
+                        raise
                     failures.append({"index": copy.index, "shard": copy.shard_id,
                                      "node": copy.node_id, "reason": str(e)})
                     terminals.append(e)
@@ -1097,6 +1154,13 @@ class ActionModule:
                     continue
                 self.admission.observe(
                     getattr(fut, "completed_at", time.monotonic()) - t_fanout)
+                if trace_ref is not None:
+                    trace_ref.add_remote(r.get("spans"))
+                prof = r.get("profile")
+                if isinstance(prof, dict):
+                    # a lone node has no hedges: every profile is the
+                    # primary attempt's
+                    prof = {**prof, "winner": "primary"}
                 shard_meta[ordinal] = (copy.index, copy.shard_id,
                                        state.nodes.get(copy.node_id), r.get("ctx_id"))
                 results.append(ShardQueryResult(
@@ -1107,7 +1171,7 @@ class ActionModule:
                     facet_partials=_decode_partials(r.get("facet_partials")),
                     shard_id=ordinal, timed_out=bool(r.get("timed_out")),
                     context_id=r.get("ctx_id"), degraded=bool(r.get("degraded")),
-                    suggest=r.get("suggest")))
+                    suggest=r.get("suggest"), profile=prof))
         except Exception:
             # an error that is not a shard failure (a host bug; a device
             # error degrades inside the shard) fails the search: no shard
@@ -1283,37 +1347,165 @@ class ActionModule:
             # the wrapped body is the one the request cache fingerprints
             body["query"] = {"filtered": {"query": body.get("query") or {"match_all": {}},
                                           "filter": alias_filter}}
+        # `"profile": true`, peeked before the parse, so the unprofiled path
+        # reads no clock: the collector's t0 covers the parse it times
+        prof = None
+        if bool(body.get("profile")):
+            prof = profiling.ProfileCollector(node=self.node.name, index=index,
+                                              shard=shard_id)
         req = parse_search_body(body)
+        if prof is not None:
+            prof.phase_s("parse", time.monotonic() - prof.t0)
         dfs = request.get("dfs")
         ctx = self._shard_ctx(index, shard_id, dfs)
         budget = request.get("deadline_s")
         if req.timeout_s is not None:
             budget = req.timeout_s if budget is None else min(budget, req.timeout_s)
         deadline = Deadline.after(budget) if budget is not None else NO_DEADLINE
+        # the coordinator's trace continues from the wire context (sent only
+        # for sampled traces): every batcher span of this phase hangs under
+        # the shard span
+        trace = self.node.tracer.continue_trace(request.get(tracing.TRACE_WIRE_KEY),
+                                                "shard")
+        shard_span = trace.root.tag(index=index, shard=shard_id)
         # the shard request cache: a hit answers before the query phase, with
-        # no launch; a DFS request's weights are its own and never cache
+        # no launch; a DFS request's weights are its own and never cache; a
+        # profiled request always runs, and records the hit or miss
         rcache = self.node.request_cache
         cache_key = None
+        peek_hit = False
         if rcache.enabled and dfs is None and cache_policy(body):
             cache_key = (index, shard_id, ctx.searcher.version,
                          request_fingerprint(body))
-            data = rcache.get(cache_key)
-            if data is not None:
-                out = _decode_cached_partial(data)
-                out["ctx_id"] = self._pin_context(index, shard_id, ctx)
-                return out
-        result = execute_query_phase(ctx, req, shard_id=shard_id, deadline=deadline)
+        # every search classifies into the node's query-shape insights
+        insights_reg = self.node.insights
+        shape_id = shape = None
+        if insights_reg.enabled:
+            shape_id, shape = insights_reg.fingerprint(body)
+        if cache_key is not None:
+            if prof is None:
+                data = rcache.get(cache_key)
+                if data is not None:
+                    try:
+                        shard_span.tag(request_cache="hit")
+                    finally:
+                        shard_span.end()
+                    if shape_id is not None:
+                        insights_reg.record(shape_id, shape, cache="hit")
+                    out = _decode_cached_partial(data)
+                    out["ctx_id"] = self._pin_context(index, shard_id, ctx)
+                    if trace:
+                        out["spans"] = trace.span_dicts()
+                    return out
+            else:
+                peek_hit = rcache.peek(cache_key)
+                prof.event("request_cache", cache="hit" if peek_hit else "miss")
+        t_q = time.monotonic()
+        obs = _insights.Observation() if shape_id is not None else None
+        try:
+            with tracing.activate(shard_span):
+                if obs is not None:
+                    with _insights.activate(obs):
+                        result = self._execute_qp(ctx, req, shard_id, deadline,
+                                                  prof)
+                else:
+                    result = self._execute_qp(ctx, req, shard_id, deadline, prof)
+        except Exception:
+            # a failing shape still classifies (outcome "error")
+            if shape_id is not None:
+                obs.outcome = "error"
+                insights_reg.record(shape_id, shape, time.monotonic() - t_q, obs,
+                                    cache="miss" if cache_key is not None else None)
+            raise
+        finally:
+            shard_span.end()
+        took_s = time.monotonic() - t_q
         partial = _shard_partial_dict(result)
-        if cache_key is not None and not result.timed_out:
+        if shape_id is not None:
+            insights_reg.record(shape_id, shape, took_s, obs,
+                                cache=("hit" if peek_hit else "miss")
+                                if cache_key is not None else None)
+        self._maybe_slowlog(index, shard_id, body, took_s, trace=trace,
+                            shape_id=shape_id)
+        if cache_key is not None and not result.timed_out and not peek_hit:
             # `degraded` says how this run was served, not what it found:
             # the host path's partial is bitwise the card's, and a hit is
             # served from memory; `body` enters the shard's hot bodies
             data = _encode_cached_partial({**partial, "degraded": False})
-            if data is not None:
-                rcache.put(cache_key, data, body=body)
+            if data is not None and rcache.put(cache_key, data, body=body) \
+                    and prof is not None:
+                prof.event("request_cache", cache="store")
         # the fetch must read the SAME point-in-time searcher these doc ids
         # come from
-        return {**partial, "ctx_id": self._pin_context(index, shard_id, ctx)}
+        out = {**partial, "ctx_id": self._pin_context(index, shard_id, ctx)}
+        if trace:
+            # the shard's spans ride the response for the coordinator's tree;
+            # this node's ring keeps its own copy too
+            out["spans"] = trace.span_dicts()
+        if prof is not None:
+            out["profile"] = prof.to_dict()
+        return out
+
+    @staticmethod
+    def _execute_qp(ctx, req, shard_id: int, deadline, prof):
+        """One shard query phase, under the profiler only when the request
+        asked for it (`activate(None)` is never entered)."""
+        if prof is None:
+            return execute_query_phase(ctx, req, shard_id=shard_id,
+                                       deadline=deadline)
+        with profiling.activate(prof):
+            return execute_query_phase(ctx, req, shard_id=shard_id,
+                                       deadline=deadline)
+
+    def _cluster_slowlog_levels(self, md) -> dict:
+        """The cluster-level slowlog thresholds {level: seconds | None},
+        parsed again only when the metadata version moves (transient
+        settings win over persistent ones)."""
+        cached = self._slowlog_cluster
+        if cached is not None and cached[0] == md.version:
+            return cached[1]
+        flat = dict(md.persistent_settings)
+        flat.update(dict(md.transient_settings))
+        levels: dict = {}
+        for level in ("warn", "info", "debug"):
+            raw = flat.get(f"index.search.slowlog.threshold.query.{level}")
+            value = None
+            if raw is not None:
+                try:
+                    value = parse_time(raw)
+                except IllegalArgumentError:
+                    value = None
+            levels[level] = value
+        self._slowlog_cluster = (md.version, levels)
+        return levels
+
+    def _maybe_slowlog(self, index: str, shard_id: int, body: dict, took_s: float,
+                       trace=None, shape_id: str | None = None):
+        """The shard query slowlog: warn, info and debug thresholds from the
+        index settings, else the cluster's transient and persistent
+        settings. The line carries the trace id (`-` untraced), the shape id
+        (joinable to `GET /_insights/queries`) and the trace's queue,
+        device and merge milliseconds (zeros untraced)."""
+        md = self.cluster_service.state.metadata
+        meta = md.index(index)
+        if meta is None:
+            return
+        cluster_levels = self._cluster_slowlog_levels(md)
+        for level, log in (("warn", self.logger.warning), ("info", self.logger.info),
+                           ("debug", self.logger.debug)):
+            threshold = meta.settings.get_time(
+                f"index.search.slowlog.threshold.query.{level}", None)
+            if threshold is None:
+                threshold = cluster_levels.get(level)
+            if threshold is not None and threshold >= 0 and took_s >= threshold:
+                phases = tracing.phase_breakdown(trace)
+                log("slowlog [%s][%d] took[%.1fms] trace[%s] shape[%s] "
+                    "queue[%.1fms] device[%.1fms] merge[%.1fms] source[%s]",
+                    index, shard_id, took_s * 1000,
+                    trace.trace_id if trace else "-", shape_id or "-",
+                    phases["queue_ms"], phases["device_ms"],
+                    phases["merge_ms"], str(body)[:500])
+                return
 
     def warm_shard_queries(self, index: str, shard_id: int, bodies: list[dict],
                            budget_s: float = 5.0) -> tuple[int, int]:

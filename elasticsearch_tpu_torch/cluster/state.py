@@ -276,6 +276,11 @@ class MetaData:
     indices: tuple = ()  # ((name, IndexMetaData), ...)
     templates: tuple = ()  # ((name, IndexTemplateMetaData), ...)
     version: int = 0
+    # cluster-level settings, ((key, value), ...): the slowlog reads its
+    # thresholds here (actions._cluster_slowlog_levels); the REST setter
+    # comes with `_cluster/settings`
+    transient_settings: tuple = ()
+    persistent_settings: tuple = ()
 
     def index(self, name: str) -> IndexMetaData | None:
         for n, m in self.indices:
@@ -356,17 +361,20 @@ class MetaData:
     def to_dict(self) -> dict:
         return {"indices": {n: m.to_dict() for n, m in self.indices},
                 "templates": {n: t.to_dict() for n, t in self.templates},
+                "transient_settings": dict(self.transient_settings),
+                "persistent_settings": dict(self.persistent_settings),
                 "version": self.version}
 
     @classmethod
     def from_dict(cls, d: dict) -> "MetaData":
-        """The inverse of `to_dict`; a file the JAX package wrote loads too
-        (its cluster settings are not read: the port has none yet)."""
+        """The inverse of `to_dict`; a file the JAX package wrote loads too."""
         return cls(tuple(sorted((n, IndexMetaData.from_dict(m))
                                 for n, m in d.get("indices", {}).items())),
                    tuple(sorted((n, IndexTemplateMetaData.from_dict(t))
                                 for n, t in d.get("templates", {}).items())),
-                   d.get("version", 0))
+                   d.get("version", 0),
+                   tuple(sorted(d.get("transient_settings", {}).items())),
+                   tuple(sorted(d.get("persistent_settings", {}).items())))
 
 
 BLOCK_NO_MASTER = ("no_master", "all")

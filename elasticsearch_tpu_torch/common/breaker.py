@@ -21,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
+from . import profile
 from .errors import CircuitBreakingError
 from .units import parse_bytes, parse_ratio_or_bytes
 
@@ -123,6 +124,11 @@ def reserve(breaker: MemoryCircuitBreaker | None, bytes_: int, label: str = ""):
         yield 0
         return
     breaker.add_estimate_and_maybe_break(int(bytes_), label)
+    # a profiled request records each estimate it was granted (one
+    # thread-local read on the unprofiled path)
+    prof = profile.current()
+    if prof is not None:
+        prof.breaker_reserve(breaker.name, label, int(bytes_))
     try:
         yield int(bytes_)
     finally:

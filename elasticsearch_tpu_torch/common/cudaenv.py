@@ -227,6 +227,13 @@ class PendingPull:
             self._tensors = None
         return [h.numpy() for h in self._hosts]
 
+    def synchronize(self) -> None:
+        """Wait on the batch's event and leave its arrays for `wait()`: the
+        opt-in precise timing of a traced batch (`ESTPU_TRACE_SYNC=1`,
+        search/batcher.py); no serving path calls it."""
+        if self._done is not None:
+            self._done.synchronize()
+
     def abandon(self, context_lost: bool = False) -> None:
         """Drop the batch's staging after a failed wait, with no CUDA call
         (no event query, no synchronise: after a sticky error each would

@@ -233,3 +233,8 @@ class SearchContextMissingError(SearchEngineError):
 
     def __init__(self, context_id):
         super().__init__(f"no search context found for id [{context_id}]")
+
+
+class ProfileTimingError(SearchEngineError):
+    """A profiled request's CUDA events could not be recorded or read: the
+    request fails (no host timing stands in for the card's)."""

@@ -4,8 +4,9 @@ UTF-8 strings, optional strings and tagged generic values. The translog's
 records and every transport message go through it, so the port's translog
 files read back with the JAX package's reader and the other way round.
 
-Tag 7 (a tracing context) belongs to the tracing slice of the port; this
-codec refuses it."""
+Tag 7 is a tracing context (common/tracing.TraceContext: the trace id as a
+string, the parent span id as an unsigned varint): a sampled request's
+context rides its transport payload under `_trace`."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import struct
 from typing import Any
 
 from .errors import SearchEngineError
+from .tracing import TraceContext
 
 _NULL = 0xFF
 
@@ -60,7 +62,7 @@ class StreamOutput:
             self.write_string(s)
 
     def write_value(self, v: Any):
-        """Tagged any-value encoding (the JAX codec's tags 0-6)."""
+        """Tagged any-value encoding (the JAX codec's tags 0-7)."""
         if v is None:
             self.write_byte(_NULL)
         elif isinstance(v, bool):
@@ -89,6 +91,10 @@ class StreamOutput:
             for k, item in v.items():
                 self.write_string(str(k))
                 self.write_value(item)
+        elif isinstance(v, TraceContext):
+            self.write_byte(7)
+            self.write_string(v.trace_id)
+            self.write_vint(v.span_id)
         else:
             raise SearchEngineError(f"cannot serialize value of type {type(v)}")
 
@@ -159,4 +165,6 @@ class StreamInput:
         if tag == 6:
             return {self.read_string(): self.read_value()
                     for _ in range(self.read_vint())}
+        if tag == 7:
+            return TraceContext(self.read_string(), self.read_vint())
         raise SearchEngineError(f"unknown value tag {tag}")

@@ -175,6 +175,13 @@ class Engine:
         # off the query path only for a shard that has served a search (a
         # write-only shard's refreshes stay off the device)
         self.search_active = False
+        # the shard's indexing counters (`_stats`' `indexing`, as the JAX
+        # engine keeps them)
+        self.stats = {
+            "index_total": 0, "index_time_ms": 0.0, "delete_total": 0,
+            "refresh_total": 0, "refresh_time_ms": 0.0,
+            "flush_total": 0, "flush_time_ms": 0.0, "merge_total": 0,
+        }
 
     # ------------------------------------------------------------------ util
     def _check_open(self):
@@ -237,6 +244,7 @@ class Engine:
               _from_translog: bool = False) -> tuple[int, bool]:
         """Index or create a document (a child of `parent` when given).
         Returns (new_version, created)."""
+        t0 = time.monotonic()
         with self._lock:
             self._check_open()
             mapper = self.mapper_service.mapper_for(type_name)
@@ -260,6 +268,8 @@ class Engine:
                 version=new_version, location=("buffer", local), source=source,
                 routing=parsed.routing, parent=parsed.parent,
                 timestamp=parsed.timestamp, ttl=parsed.ttl)
+            self.stats["index_total"] += 1
+            self.stats["index_time_ms"] += (time.monotonic() - t0) * 1000
             return new_version, created
 
     def delete(self, type_name: str, doc_id: str, version=None,
@@ -278,6 +288,7 @@ class Engine:
             self._tombstone_latest(uid)
             self._version_map[uid] = VersionEntry(version=new_version, deleted=True)
             self._last_write = time.time()
+            self.stats["delete_total"] += 1
             return new_version, found
 
     def delete_by_uids(self, uids: list[str], query: dict | None = None,
@@ -367,6 +378,7 @@ class Engine:
     def refresh(self) -> bool:
         """Make buffered ops searchable: freeze the buffer into a new segment
         and apply pending tombstones, copy-on-write on older segments."""
+        t0 = time.monotonic()
         with self._lock:
             self._check_open()
             if self._buffer.doc_count == 0 and not self._pending_deletes:
@@ -400,6 +412,8 @@ class Engine:
                     self._uid_index.pop(uid, None)
                 del self._version_map[uid]
             self._install_searcher()
+            self.stats["refresh_total"] += 1
+            self.stats["refresh_time_ms"] += (time.monotonic() - t0) * 1000
             return True
 
     def acquire_searcher(self) -> Searcher:
@@ -435,6 +449,7 @@ class Engine:
 
     def flush(self, force: bool = False) -> bool:
         """Persist segments and a commit point, roll the translog."""
+        t0 = time.monotonic()
         with self._lock:
             self._check_open()
             self.refresh()
@@ -449,6 +464,8 @@ class Engine:
                 str(seg.gen): seg.live.tolist() if not seg.live.all() else None
                 for seg in self._segments}})
             self.translog.prune_before(new_tgen)
+            self.stats["flush_total"] += 1
+            self.stats["flush_time_ms"] += (time.monotonic() - t0) * 1000
             return True
 
     def maybe_flush(self):
@@ -500,6 +517,7 @@ class Engine:
             for seg in self._segments:
                 self._index_uids(seg)
             self._install_searcher()
+            self.stats["merge_total"] += 1
 
     def _publish_merge(self, sources: list[FrozenSegment],
                        merged: FrozenSegment) -> bool:
@@ -534,6 +552,7 @@ class Engine:
                     del self._uid_index[uid]
         self._index_uids(merged)
         self._install_searcher()
+        self.stats["merge_total"] += 1
         return True
 
     def maybe_merge(self, max_merges: int = 4):
@@ -618,6 +637,13 @@ class Engine:
     # ------------------------------------------------------------------ info
     def segment_count(self) -> int:
         return len(self._segments)
+
+    def doc_stats(self) -> dict:
+        """Live parent documents and the tombstoned ones of the view."""
+        s = self.acquire_searcher()
+        live = sum(seg.live_count() for seg in s.segments)
+        total = sum(seg.parent_mask.sum() for seg in s.segments)
+        return {"count": int(live), "deleted": int(total - live)}
 
     def close(self):
         """Close the translog (the shard's device packs and masks leave with

@@ -121,6 +121,10 @@ class Translog:
     def ops_count(self) -> int:
         return self._ops
 
+    def stats(self) -> dict:
+        return {"operations": self._ops, "size_in_bytes": self._size,
+                "generation": self.gen}
+
     def should_flush(self) -> bool:
         return self._ops >= FLUSH_THRESHOLD_OPS or self._size >= FLUSH_THRESHOLD_SIZE
 

@@ -335,6 +335,24 @@ class IndicesService:
         self.logger.warning("could not report [%s][%d] started to the master",
                             routing.index, routing.shard_id)
 
+    def stats(self) -> dict:
+        """Per index, per shard: state, primary, docs, segments, translog
+        and the engine's indexing counters (`_stats`, `_status`)."""
+        out = {}
+        for name, svc in list(self.indices.items()):
+            shards = {}
+            for sid, shard in list(svc.shards.items()):
+                shards[sid] = {
+                    "state": shard.state,
+                    "primary": shard.primary,
+                    "docs": shard.engine.doc_stats(),
+                    "segments": shard.engine.segment_count(),
+                    "translog": shard.engine.translog.stats(),
+                    "indexing": dict(shard.engine.stats),
+                }
+            out[name] = {"shards": shards}
+        return out
+
     def close(self):
         with self._lock:
             for svc in self.indices.values():

@@ -35,6 +35,13 @@ IndexWarmerService packs every new view's segments for the node's device
 on the `warmer` and `merge` pools and re-primes the hot cached bodies, as
 in the JAX node.
 
+`tracer` (common/tracing) samples searches into span trees
+(`search.trace.sample_rate`, `?trace=true`; finished traces in its ring,
+live ones as tasks); `insights` (common/insights) classifies every search
+into a bounded registry of query shapes; `monitor` reads the OS, the
+process, `path.data`'s filesystem and the runtime with the node's card
+(`torch.cuda`; nothing on a `cpu` node).
+
 `percolator`, the node's PercolatorService, keeps a query registry per
 index fed by the single-document writes of `.percolator` documents (the
 indices service drops an index's registry with the index) and percolates
@@ -62,7 +69,14 @@ for A5, as every replica write does.
 `delete`, `update`, `bulk`, `delete_by_query`, `refresh`, `flush`,
 `optimize`, `clear_cache`, `gateway_snapshot`, `search`, `msearch`,
 `count`, `suggest`, `termvector`, `mtermvectors`, `mlt`, `explain`,
-`percolate`, `count_percolate`, `mpercolate` and `cluster_health`."""
+`percolate`, `count_percolate`, `mpercolate`, `cluster_health`, and the
+stats surfaces: `stats` (with each index's device capacity stanza),
+`segments` (with each segment's pack), `indices_status`, `node_events`,
+`cluster_events`, `nodes_info` and `nodes_stats` (its sections by name,
+an unknown one a 400; `device` is the capacity ledger over the node's
+resident packs, the kernels' builds and launches, the start check's
+launches, the fault domains and, on a `cuda` node, the caching
+allocator's bytes)."""
 
 from __future__ import annotations
 
@@ -99,12 +113,15 @@ from .common.cudaenv import default_device
 from .common.devicehealth import DEVICE_HEALTH
 from .common.errors import (
     AliasesMissingError,
+    IllegalArgumentError,
     IndexTemplateMissingError,
     NotPortedError,
     SearchEngineError,
     TypeMissingError,
 )
 from .common.events import EventJournal, StallWatchdog
+from .common.insights import QueryShapeInsights
+from .common.tracing import Tracer
 from .common.logging import get_logger
 from .common.names import is_pattern, name_matches
 from .common.settings import prepare_settings
@@ -113,7 +130,14 @@ from .discovery.zen import ZenDiscovery
 from .gateway import LocalGateway
 from .indices_service import IndicesService
 from .ops import sparse_kernels
-from .ops.device_index import DeviceFilterCache
+from .monitor import MonitorService
+from .ops.device_index import (
+    DeviceFilterCache,
+    bytes_per_posting,
+    capacity_report,
+    pack_cache_key,
+    packed_resident_bytes,
+)
 from .percolator import PercolatorService
 from .script import ScriptService
 from .search.batcher import DeviceBatcher
@@ -164,6 +188,10 @@ class Node:
         self.events = EventJournal(self.settings, node_name=self.name,
                                    node_id=self.node_id)
         DEVICE_HEALTH.register_publisher(self.node_id, self.events.publish)
+        # request-scoped tracing (sample rate, ring of finished traces,
+        # in-flight registry) and the always-on query-shape insights
+        self.tracer = Tracer(self.settings, node_name=self.name)
+        self.insights = QueryShapeInsights(self.settings)
         # the shard request cache: a cache-eligible body's partial per shard
         # view, accounted on the request breaker
         self.request_cache = ShardRequestCache(
@@ -211,6 +239,7 @@ class Node:
             self._purge_expired, name="generic")
         self.discovery = ZenDiscovery(self.local_node, self.cluster_service,
                                       self.allocation)
+        self.monitor = MonitorService(self)
         self.watchdog = StallWatchdog(self, self.settings)
         self.http = None
         # the kernels the start built: {name: nvcc output} (empty when every
@@ -547,6 +576,203 @@ class Client:
         self.node.gateway.persist_now()
         return {"_shards": {"total": 0, "successful": 0, "failed": 0}}
 
+
+    # --- stats surfaces -----------------------------------------------------
+    def stats(self, index=None):
+        """Index stats: each index's shards and its device capacity stanza
+        (the resident bytes by tier and the pack rollup), filtered to the
+        indices `index` resolves to."""
+        out = self.node.indices.stats()
+        if index is not None:
+            names = set(self.node.cluster_service.state.metadata
+                        .resolve_indices(index))
+            out = {n: v for n, v in out.items() if n in names}
+        device = capacity_report(self.node.indices, self.node.device,
+                                 index=set(out))["indices"]
+        for name, entry in out.items():
+            if name in device:
+                entry["device"] = device[name]
+        return out
+
+    def segments(self, index=None):
+        """Per shard, per segment: doc and posting counts and the segment's
+        pack on the node's device (tf layout, bytes a posting, resident
+        bytes, the dense plane's state, the similarity tables' fields).
+        Host reads only."""
+        state = self.node.cluster_service.state
+        names = state.metadata.resolve_indices(index or "_all")
+        key = pack_cache_key(self.node.device)
+        total = ok = failed = 0
+        indices_out = {}
+        for name in names:
+            table = state.routing_table.index(name)
+            if table is not None:
+                total += sum(1 for grp in table.shards for s in grp.shards
+                             if s.active)
+            svc = self.node.indices.indices.get(name)
+            if svc is None:
+                continue
+            shards_out = {}
+            for sid, shard in sorted(svc.shards.items()):
+                try:
+                    searcher = shard.engine.acquire_searcher()
+                except SearchEngineError:
+                    failed += 1
+                    continue
+                ok += 1
+                segs = {}
+                for seg in searcher.segments:
+                    live = int(seg.live.sum())
+                    entry = {
+                        "generation": int(seg.gen),
+                        "num_docs": live,
+                        "deleted_docs": int(seg.doc_count) - live,
+                        "doc_count": int(seg.doc_count),
+                        "postings": int(len(seg.post_docs)),
+                        "fields": len(seg.term_dict),
+                        "search": True,
+                        "committed": True,
+                    }
+                    packed = seg._device_cache.get(key)
+                    if packed is None:
+                        entry["device"] = {"packed": False}
+                    else:
+                        dense = packed.blk_freqs is not None
+                        sim = packed.sim
+                        entry["device"] = {
+                            "packed": True,
+                            "tf_layout": packed.tf_layout,
+                            "bytes_per_posting": bytes_per_posting(
+                                packed.tf_layout, dense_resident=dense),
+                            "resident_bytes": int(packed_resident_bytes(packed)),
+                            "doc_pad": int(packed.doc_pad),
+                            "dense_plane": "resident" if dense else "lazy",
+                            "sim_tables": ({"fields": list(sim.fields)}
+                                           if sim is not None else None),
+                        }
+                    segs[f"_{seg.gen}"] = entry
+                shards_out[str(sid)] = [{
+                    "routing": {"state": "STARTED", "primary": bool(shard.primary),
+                                "node": self.node.node_id},
+                    "num_search_segments": len(searcher.segments),
+                    "segments": segs,
+                }]
+            if shards_out:
+                indices_out[name] = {"shards": shards_out}
+        return {"_shards": {"total": total, "successful": ok, "failed": failed},
+                "indices": indices_out}
+
+    def indices_status(self, index=None):
+        """The legacy `_status` view: each index's shards."""
+        state = self.node.cluster_service.state
+        names = state.metadata.resolve_indices(index or "_all")
+        stats = self.node.indices.stats()
+        total = ok = 0
+        indices = {}
+        for name in names:
+            table = state.routing_table.index(name)
+            if table is not None:
+                for grp in table.shards:
+                    total += len(grp.shards)
+                    ok += sum(1 for s in grp.shards if s.active)
+            st = stats.get(name)
+            indices[name] = {"index": {"primary_size_in_bytes": 0},
+                             "shards": (st or {}).get("shards", {})}
+        return {"_shards": {"total": total, "successful": ok, "failed": 0},
+                "indices": indices}
+
+    def node_events(self, size=None):
+        """This node's event journal, newest first."""
+        return {"node": self.node.node_id, "name": self.node.name,
+                "events": self.node.events.events(size),
+                "stats": self.node.events.stats()}
+
+    def cluster_events(self, size=None, local=False):
+        """`GET /_events`: the cluster's events, newest first. A lone node's
+        journal is the cluster's, so `local` reads the same (the pull from
+        other nodes comes with them)."""
+        mine = self.node_events(size)
+        return {"cluster_name": self.node.cluster_service.state.cluster_name,
+                "total": len(mine["events"]), "events": mine["events"],
+                "nodes": {self.node.node_id: mine["stats"]}}
+
+    def nodes_info(self):
+        state = self.node.cluster_service.state
+        nodes = {}
+        for n in state.nodes.nodes:
+            d = n.to_dict()
+            if n.id == self.node.node_id:
+                d["plugins"] = []  # the plugin service comes with A9
+            nodes[n.id] = d
+        return {"cluster_name": state.cluster_name, "nodes": nodes}
+
+    def nodes_stats(self, metric=None):
+        """The node's stats by section; `metric` (a comma list, the
+        `/_nodes/stats/{metric}` path parameter) builds only those, and an
+        unknown one answers 400."""
+        from .search.service import SERVING_COUNTERS
+
+        node = self.node
+
+        def indices_stats():
+            out = node.indices.stats()
+            out["request_cache"] = node.request_cache.stats()
+            out["filter_cache"] = node.filter_cache.stats()
+            return out
+
+        sections = {
+            "indices": indices_stats,
+            "transport": lambda: dict(node.transport.stats),
+            "thread_pool": lambda: node.threadpool.stats(),
+            "breakers": lambda: node.breakers.stats(),
+            "admission_control": lambda: node.actions.admission.stats(),
+            "search": lambda: {
+                "batcher": node.search_batcher.stats(),
+                "latency": node.actions.search_latency.stats(),
+                "shapes": node.insights.stats()},
+            "device": self._device_section,
+            "warmer": lambda: node.warmer.stats(),
+            "events": lambda: {"journal": node.events.stats(),
+                               "watchdog": node.watchdog.stats()},
+            "search_serving": lambda: dict(SERVING_COUNTERS),
+            "tracing": lambda: node.tracer.stats(),
+            **node.monitor.sections(),
+        }
+        if metric and metric not in ("_all",):
+            wanted = [m.strip() for m in str(metric).split(",") if m.strip()]
+            unknown = [m for m in wanted if m not in sections and m != "_all"]
+            if unknown:
+                raise IllegalArgumentError(
+                    f"unknown metric {unknown} for [/_nodes/stats]; known "
+                    f"metrics are {sorted(sections)}")
+            if "_all" not in wanted:
+                sections = {k: sections[k] for k in sections if k in wanted}
+        return {"cluster_name": node.cluster_service.state.cluster_name,
+                "nodes": {node.node_id: {k: build() for k, build in sections.items()}}}
+
+    def _device_section(self):
+        """`/_nodes/stats` `device`: the capacity ledger over the node's
+        resident packs; the kernels (the sources the start built, each
+        kernel's launches since the process began, the build's seconds);
+        the start check's launches a kernel; the fault domains; and on a
+        `cuda` node the caching allocator's bytes (`torch.cuda`)."""
+        node = self.node
+        out = capacity_report(node.indices, node.device)
+        out["kernels"] = {"sources": cudaenv.kernel_sources(),
+                          "built": sorted(node.kernel_builds),
+                          "build_s": round(node.kernel_build_s, 3),
+                          "launches": cudaenv.LAUNCHES.snapshot()}
+        out["start_check"] = {"launches": dict(node.kernel_checks)}
+        out["health"] = DEVICE_HEALTH.stats()
+        if node.device.type == "cuda":
+            import torch
+
+            out["memory"] = {
+                "allocated_in_bytes": int(torch.cuda.memory_allocated(node.device)),
+                "reserved_in_bytes": int(torch.cuda.memory_reserved(node.device)),
+                "max_allocated_in_bytes": int(
+                    torch.cuda.max_memory_allocated(node.device))}
+        return out
     def index(self, index, doc_type, body, id=None, routing=None, version=None,
               version_type="internal", op_type="index", refresh=False,
               parent=None, timestamp=None, ttl=None):

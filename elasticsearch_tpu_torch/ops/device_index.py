@@ -53,6 +53,7 @@ from dataclasses import dataclass, field as dc_field
 import numpy as np
 import torch
 
+from ..common import profile as _profile
 from ..common.breaker import reserve
 from ..common.cudaenv import upload, upload_pinned
 from ..common.devicehealth import tag_domain
@@ -283,6 +284,41 @@ def packed_resident_bytes(packed: PackedSegment) -> int:
                          packed.blk_freqs) if t is not None)
 
 
+def _tensor_bytes(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def packed_tier_bytes(packed: PackedSegment) -> dict:
+    """Device-resident bytes of one pack by tier (the JAX package's
+    capacity taxonomy), from the tensors' own shapes and types:
+
+      postings     the quantized planes (blk_docs i32 + blk_tf + blk_nb)
+      dense_plane  the lazy f32 freqs plane (0 until a dense use)
+      sim_tables   the stacked similarity LUTs (modes + caches)
+      agg_rows     the aggregation stacks and the bucket aggs' (doc, bucket)
+                   pair columns (the port's; the JAX pack has no pairs)
+      norms        the live mask and each field's norm bytes
+
+    Host arithmetic only: no device call. The filter masks are counted
+    apart (their holder hangs on the segment, not the pack)."""
+    sim = 0
+    if packed.sim is not None:
+        sim = _tensor_bytes(packed.sim.caches) + _tensor_bytes(packed.sim.modes)
+    agg = sum(_tensor_bytes(stack) for stack in list(packed.agg_stacks.values()))
+    for pdoc, pbucket, _nb in list(packed.bucket_cols.values()):
+        agg += _tensor_bytes(pdoc) + _tensor_bytes(pbucket)
+    norms = _tensor_bytes(packed.live_parent) + sum(
+        _tensor_bytes(col) for col in list(packed.norm_bytes.values()))
+    return {
+        "postings": (_tensor_bytes(packed.blk_docs) + _tensor_bytes(packed.blk_tf)
+                     + _tensor_bytes(packed.blk_nb)),
+        "dense_plane": _tensor_bytes(packed.blk_freqs),
+        "sim_tables": sim,
+        "agg_rows": agg,
+        "norms": norms,
+    }
+
+
 def pack_estimate_bytes(seg: FrozenSegment) -> int:
     """Host staging + device bytes pack_segment allocates, the estimate the
     fielddata breaker checks before packing: per slot the host docs i32,
@@ -387,6 +423,84 @@ class PackLedger:
 
 
 PACK_LEDGER = PackLedger()
+
+
+def segment_capacity(seg: FrozenSegment, device: torch.device) -> dict | None:
+    """One live segment's row of the capacity ledger on `device`: its
+    pack's tier bytes and its filter-mask holder's bytes, or None when
+    nothing of it is resident there. Host reads only."""
+    cache = getattr(seg, "_device_cache", {})
+    packed = cache.get(pack_cache_key(device))
+    holder = cache.get(filter_masks_key(device))
+    mask_bytes = int(holder.bytes) if holder is not None else 0
+    if packed is None and mask_bytes == 0:
+        return None
+    tiers = packed_tier_bytes(packed) if packed is not None else {
+        "postings": 0, "dense_plane": 0, "sim_tables": 0, "agg_rows": 0,
+        "norms": 0}
+    tiers["filter_masks"] = mask_bytes
+    return {
+        "generation": int(seg.gen),
+        "tf_layout": packed.tf_layout if packed is not None else None,
+        "tiers": tiers,
+        "total_bytes": int(sum(tiers.values())),
+    }
+
+
+def capacity_report(indices_service, device: torch.device, index=None) -> dict:
+    """The device capacity ledger: per index and shard, each live segment's
+    resident bytes on `device` by tier, and the index's pack rollup
+    (PACK_LEDGER) — `/_nodes/stats` `device` and the `/{index}/_stats`
+    device stanza. Walks the node's live shard searchers (host arithmetic;
+    a closed engine is skipped). `index` narrows the walk to one name or a
+    collection of names."""
+    from ..common.errors import SearchEngineError
+
+    wanted = None
+    if index is not None:
+        wanted = set(index) if isinstance(index, (set, frozenset, list, tuple)) \
+            else {index}
+    indices_out = {}
+    node_totals: dict[str, int] = {}
+    for name, svc in list(indices_service.indices.items()):
+        if wanted is not None and name not in wanted:
+            continue
+        shards_out = {}
+        idx_totals: dict[str, int] = {}
+        for sid, shard in sorted(svc.shards.items()):
+            try:
+                searcher = shard.engine.acquire_searcher()
+            except SearchEngineError:
+                continue
+            segs = []
+            for seg in searcher.segments:
+                row = segment_capacity(seg, device)
+                if row is None:
+                    continue
+                segs.append(row)
+                for tier, b in row["tiers"].items():
+                    idx_totals[tier] = idx_totals.get(tier, 0) + b
+            if segs:
+                shards_out[str(sid)] = segs
+        indices_out[name] = {
+            "shards": shards_out,
+            "totals": dict(idx_totals),
+            "total_bytes": int(sum(idx_totals.values())),
+            "pack": PACK_LEDGER.stats(name),
+        }
+        for tier, b in idx_totals.items():
+            node_totals[tier] = node_totals.get(tier, 0) + b
+    return {
+        "indices": indices_out,
+        "totals": dict(node_totals),
+        "total_bytes": int(sum(node_totals.values())),
+    }
+
+
+def bytes_per_posting(layout: str, dense_resident: bool = False) -> int:
+    """Resident bytes a posting slot: docs i32 + tf + nb (+ the lazy dense
+    f32 plane once faulted in)."""
+    return 4 + tf_plane_itemsize(layout) + 1 + (4 if dense_resident else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -527,9 +641,15 @@ def _perform_pack(seg: FrozenSegment, device: torch.device, fut: Future,
                 cache.pop(fkey, None)
                 cache.pop(ckey, None)
                 cache.pop("pack_hint", None)  # drops the sources' refs
-            PACK_LEDGER.record(owner, seg.gen, (time.monotonic() - t0) * 1e3,
-                               packed_resident_bytes(new), new.tf_layout,
-                               kind=kind, method=method)
+            ms = (time.monotonic() - t0) * 1e3
+            PACK_LEDGER.record(owner, seg.gen, ms, packed_resident_bytes(new),
+                               new.tf_layout, kind=kind, method=method)
+            prof = _profile.current()
+            if prof is not None:
+                prof.event("packed_segment", gen=int(seg.gen), cache=kind,
+                           ms=round(ms, 4),
+                           resident_bytes=int(packed_resident_bytes(new)),
+                           tf_layout=new.tf_layout)
             fut.set_result(new)
             return new
         # remask: the pack is resident but this view's tombstones moved.
@@ -549,6 +669,9 @@ def _perform_pack(seg: FrozenSegment, device: torch.device, fut: Future,
         PACK_LEDGER.record(owner, seg.gen, (time.monotonic() - t0) * 1e3,
                            packed_resident_bytes(packed), packed.tf_layout,
                            kind="remask")
+        prof = _profile.current()
+        if prof is not None:
+            prof.event("packed_segment", gen=int(seg.gen), cache="live_remask")
         fut.set_result(packed)
         return packed
     except BaseException as e:  # noqa: BLE001 — waiters must never hang
@@ -584,6 +707,9 @@ def packed_for(seg: FrozenSegment, device: torch.device, breaker=None,
     key = pack_cache_key(device)
     packed = cache.get(key)
     if _current(seg, packed):
+        prof = _profile.current()
+        if prof is not None:
+            prof.event("packed_segment", gen=int(seg.gen), cache="hit")
         return packed
     fkey, ckey = pack_future_keys(device)
     while True:
@@ -603,6 +729,9 @@ def packed_for(seg: FrozenSegment, device: torch.device, breaker=None,
                 own = False
         if own:
             return _perform_pack(seg, device, fut, breaker, owner)
+        prof = _profile.current()
+        if prof is not None:
+            prof.event("packed_segment", gen=int(seg.gen), cache="pack_wait")
         fut.result()  # a pack running on another thread: wait, no lock held
         with _PACK_LOCK:
             # a resolved future is never waited on twice
@@ -619,10 +748,16 @@ def ensure_blk_freqs(packed: PackedSegment, breaker=None) -> torch.Tensor:
     tensor (two racing callers may both upload: the loser's copy is
     dropped)."""
     plane = packed.blk_freqs
+    prof = _profile.current()
     if plane is not None:
+        if prof is not None:
+            prof.event("blk_freqs", cache="resident")
         return plane
     with reserve(breaker, packed.host_freqs.nbytes, "<dense_freqs>"):
         plane = upload(packed.host_freqs.reshape(-1, BLOCK), packed.device)
+    if prof is not None:
+        prof.event("blk_freqs", cache="fault",
+                   bytes=int(packed.host_freqs.nbytes))
     with _PACK_LOCK:
         if packed.blk_freqs is None:
             packed.blk_freqs = plane
@@ -807,18 +942,26 @@ def ensure_sim_tables(packed: PackedSegment,
     the pack lock only if packed.sim is still the one they were merged
     from (else the merge reruns), so two dispatching threads never drop
     each other's fields."""
+    prof = _profile.current()
     while True:
         cur = packed.sim
         if _sim_current(cur, tables):
+            if prof is not None:
+                prof.event("sim_tables", cache="hit", fields=len(cur.fields))
             return cur
         merged = _merged_sim(packed, cur, tables)
         with _PACK_LOCK:
-            if packed.sim is cur:
+            swapped = packed.sim is cur
+            if swapped:
                 packed.sim = merged
                 if cur is not None and any(
                         f in cur.key and cur.key[f] != merged.key[f] for f in tables):
                     SIM_SWAPS["changed"] += 1
-                return merged
+        if swapped:
+            if prof is not None:
+                prof.event("sim_tables", cache="swap",
+                           fields=len(merged.fields))
+            return merged
 
 
 def _sim_current(cur: SimTables | None, tables: dict) -> bool:
@@ -1030,6 +1173,10 @@ class DeviceFilterCache:
             else:
                 self.misses += 1
                 holder.seen[key] = holder.seen.get(key, 0) + 1
+        prof = _profile.current()
+        if prof is not None:
+            prof.event("filter_cache", cache="hit" if entry else "miss",
+                       filter=key)
         return entry[0] if entry is not None else None
 
     def maybe_store(self, seg, key: str, padded_mask: np.ndarray, device):
@@ -1077,6 +1224,11 @@ class DeviceFilterCache:
                     self.builds += 1
         if release and self.breaker is not None:
             self.breaker.release(release)
+        if row is not None and release == 0:
+            prof = _profile.current()
+            if prof is not None:
+                prof.event("filter_cache", cache="build", filter=key,
+                           bytes=nbytes)
         return row
 
     def _drop(self, holder: _SegmentFilterMasks, dead: bool) -> int:

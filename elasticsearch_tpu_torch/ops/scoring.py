@@ -52,6 +52,7 @@ from dataclasses import dataclass, field as dc_field
 import numpy as np
 import torch
 
+from ..common import profile as _profile
 from ..common.breaker import reserve
 from ..common.cudaenv import pull, upload, upload_buffer
 from .device_index import (
@@ -690,6 +691,11 @@ class SparseScratchPool:
                 self.allocs += 1
             else:
                 self.reuses += 1
+        # profile attribution, outside the pool lock (record-only)
+        prof = _profile.current()
+        if prof is not None:
+            prof.event("scratch", cache="alloc" if st is None else "reuse",
+                       shape=[int(Qb), int(tb)])
         if st is None:
             st = StagingSet(Qb, tb, c1)
         st.reset(sentinel_row)

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from ..common import cudaenv
+from ..common.profile import timed_launch
 from .device_index import BLOCK, TFN_BM25
 
 GROUP_SHOULD, GROUP_MUST, GROUP_MUST_NOT = 0, 1, 2
@@ -185,13 +186,14 @@ def sparse_score(qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
                  passes: int, simple: bool, use_coord: bool):
     """Fused quantized sparse scoring → ([Qb, k] scores, [Qb, k] docs, [Qb]
     totals). Launches the CUDA kernel on card tensors; runs the plain version
-    on CPU tensors."""
+    on CPU tensors. Under a profiled request the launch alone (or the plain
+    version) is bracketed by its DeviceClock (common/profile.py)."""
     kwargs = dict(k=k, doc_pad=doc_pad, passes=passes, simple=simple,
                   use_coord=use_coord)
     args = (qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
             blk_docs, blk_tf, blk_nb, caches)
     if qblk.device.type == "cpu":
-        return sparse_score_plain(*args, **kwargs)
+        return timed_launch(sparse_score_plain, *args, **kwargs)
     if qblk.device.type != "cuda":
         raise ValueError(f"sparse_score: unsupported device [{qblk.device}]")
     return _sparse_score_cuda(*args, **kwargs)
@@ -304,7 +306,8 @@ def _sparse_score_cuda(qblk, qw, qconst, qcnt, qfid, qmode, n_must, msm, coord,
     totals = torch.empty((Qb,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     lib = _lib()
-    err = lib.sparse_score_launch(
+    err = timed_launch(
+        lib.sparse_score_launch,
         qblk.data_ptr(), qw.data_ptr(), qconst.data_ptr(), qcnt.data_ptr(),
         qfid.data_ptr(), qmode.data_ptr(), n_must.data_ptr(), msm.data_ptr(),
         coord.data_ptr(), C1,

@@ -39,7 +39,7 @@ from .index.segment import SegmentBuilder
 from .mapper import MapperService
 from .search.execute import HostScorer, ShardContext, execute_flat_batch, lower_flat
 from .search.queries import Query, parse_query
-from .search.service import _count, _guarded
+from .search.service import _bump, _guarded
 from .transport.faults import DEVICE_FAULTS
 
 PERCOLATOR_TYPE = ".percolator"
@@ -162,7 +162,7 @@ class PercolatorRegistry:
                     lambda: device_matches(plans, qids, ctx),
                     domains=(PERCOLATE_DOMAIN,))
                 if degraded:
-                    _count("device_percolate_fallbacks")
+                    _bump("device_percolate_fallbacks")
                 else:
                     matches, host_items = found, rest
         return sorted(matches + host_matches(host_items, ctx))

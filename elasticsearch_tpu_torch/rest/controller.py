@@ -49,9 +49,7 @@ reads `<ALPHANUM>`, as on the JAX node), `_cache/clear` (`?request=`,
 `?filter=`) and `_gateway/snapshot` (a flush and a metadata persist; zero
 `_shards`). `DELETE` of a mapping (at
 `/{index}/{type}/_mapping` and `/{index}/_mapping/{type}`, `_mappings` too)
-drops the types and deletes their documents. The `_search` parameters
-`profile` and `trace` answer 400 naming their later slice. The
-single-document index,
+drops the types and deletes their documents. The single-document index,
 GET, HEAD and DELETE take `?parent=`, which routes the document when no
 `routing` is given (a `_bulk` item's parent is ignored, as in the JAX
 package; GET answers no `_parent` key over REST, as there). Every other
@@ -70,14 +68,35 @@ is never enforced; `search_type=scan` answers its first page with no hits;
 an id the registry does not hold answers 404 SearchContextMissingException.
 `_msearch` runs each item on its header's `index` (`_all` when absent, the
 path's index is not read, as on the JAX node) and renders a failed item's
-error in its place."""
+error in its place.
+
+Observability, as on the JAX node: `?profile=true` on `_search` (and on a
+`?scroll=` search) reads as the body's `profile`, whose shard profiles the
+response carries under `profile`; the REST handler roots every search's
+trace, `?trace=true` samples it whatever the rate and answers its span
+tree inline under `trace`. `/_stats` and `/{index}/_stats` (with each
+index's device capacity stanza), `/_status`, `/_segments` (at `/` and
+`/{index}`), `/_nodes` (info), `/_nodes/stats` at four routes (a comma list
+of sections; an unknown one answers 400), `/_nodes/hot_threads` and
+`/_cluster/nodes/hot_threads` (`?interval=`, `?threads=`: two snapshots of
+every thread's CPU ticks and stack, the busiest first), `/_insights/queries`,
+`/_events` (`?local=`), `/_traces`, `/_tasks` (`?size=` on the three reads:
+a non-integer or negative answers 400), `/_prometheus/metrics` (the text
+format: one contiguous group a family) and `POST
+/_nodes/_local/profiler/start|stop`: `torch.profiler` on a thread of its
+own, with CPU and (on a `cuda` node) CUDA activity; `stop` writes a Chrome
+trace under `{path.data}/profiler/<time>/` (or the start body's `dir`). A
+second start, and a stop with none running, answer 400; a profiler that
+cannot start answers its error."""
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import threading
+import time
 import uuid
 from dataclasses import dataclass, field as dc_field
 from typing import Callable
@@ -90,6 +109,8 @@ from ..analysis.core import (
     Analyzer,
     get_analyzer,
 )
+from ..common import cudaenv, tracing
+from ..common.deadline import parse_timevalue
 from ..common.errors import (
     IllegalArgumentError,
     NotPortedError,
@@ -244,32 +265,19 @@ def _lenient_to_strict_json(text: str) -> str:
 
 _BULK_OPS = ("index", "create", "update", "delete")
 
-# `_search` query parameters the JAX node serves and the port does not yet:
-# profiles and traces (A7)
-_LATER_SEARCH_PARAMS = ("profile", "trace")
-
 # Every (methods, route) of the JAX node that a port node does not serve
 # yet, by the slice that brings it. Each answers 400 NotPortedError naming
 # its slice, so that no such request falls through to a wider route (a
 # POST to `/{index}/_close` would otherwise index a document of type
 # `_close`). A slice that lands deletes its rows.
 _LATER_ROUTES = {
-    "A7, observability and the admin REST surface": [
-        ("GET", "/_stats"), ("GET", "/{index}/_stats"),
-        ("GET", "/_status"), ("GET", "/{index}/_status"),
-        ("GET", "/_segments"), ("GET", "/{index}/_segments"),
+    "A7b, the admin REST surface": [
         ("GET", "/_cluster/state"), ("GET", "/_cluster/state/{metric}"),
         ("GET", "/_cluster/state/{metric}/{index}"), ("GET", "/_cluster/pending_tasks"),
         ("GET", "/_cluster/stats"), ("GET", "/_cluster/stats/nodes/{node_id}"),
         ("POST", "/_shutdown"), ("POST", "/_cluster/nodes/_shutdown"),
         ("POST", "/_cluster/nodes/{node_id}/_shutdown"),
         ("PUT,GET", "/_cluster/settings"), ("POST", "/_cluster/reroute"),
-        ("GET", "/_nodes"), ("GET", "/_nodes/stats"), ("GET", "/_nodes/stats/{metric}"),
-        ("GET", "/_nodes/{node_id}/stats"), ("GET", "/_nodes/{node_id}/stats/{metric}"),
-        ("GET", "/_cluster/nodes/hot_threads"), ("GET", "/_nodes/hot_threads"),
-        ("GET", "/_insights/queries"), ("GET", "/_events"), ("GET", "/_traces"),
-        ("GET", "/_tasks"), ("GET", "/_prometheus/metrics"),
-        ("POST", "/_nodes/_local/profiler/start"), ("POST", "/_nodes/_local/profiler/stop"),
         ("GET", "/_cat"), ("GET", "/_cat/health"), ("GET", "/_cat/nodes"),
         ("GET", "/_cat/indices"), ("GET", "/_cat/shards"), ("GET", "/_cat/shards/{index}"),
         ("GET", "/_cat/master"), ("GET", "/_cat/allocation"),
@@ -300,6 +308,378 @@ def _register_later_routes(rc: "RestController"):
                     f"of the port: {slice_})")
 
             rc.register(methods, template, refuse)
+
+
+def _prom_labels(labels: dict) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+def _prom_num(v) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    if isinstance(v, float) and v.is_integer():
+        return str(int(v))
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+class _PromWriter:
+    """Prometheus text exposition (v0.0.4): one `# TYPE` line a family,
+    emitted with its first sample; a histogram family from
+    HistogramMetric.cumulative()."""
+
+    def __init__(self):
+        self.lines: list[str] = []
+        self._typed: set[str] = set()
+
+    def _type(self, name: str, typ: str):
+        if name not in self._typed:
+            self._typed.add(name)
+            self.lines.append(f"# TYPE {name} {typ}")
+
+    def sample(self, name: str, typ: str, value, **labels):
+        self._type(name, typ)
+        self.lines.append(f"{name}{_prom_labels(labels)} {_prom_num(value)}")
+
+    def declare(self, name: str, typ: str):
+        """A family's `# TYPE` line with no sample this scrape (a label set
+        empty on a healthy node)."""
+        self._type(name, typ)
+
+    def gauge(self, name: str, value, **labels):
+        self.sample(name, "gauge", value, **labels)
+
+    def counter(self, name: str, value, **labels):
+        self.sample(name, "counter", value, **labels)
+
+    def histogram(self, name: str, hist, **labels):
+        self._type(name, "histogram")
+        buckets, total, vsum = hist.cumulative()
+        for bound, cum in buckets:
+            self.lines.append(
+                f"{name}_bucket{_prom_labels({**labels, 'le': _prom_num(bound)})} {cum}")
+        self.lines.append(f"{name}_sum{_prom_labels(labels)} {_prom_num(vsum)}")
+        self.lines.append(f"{name}_count{_prom_labels(labels)} {total}")
+
+    def text(self) -> str:
+        return "\n".join(self.lines) + "\n"
+
+
+def _prometheus_text(node) -> str:
+    """`GET /_prometheus/metrics`: the node's serving telemetry — breakers,
+    thread pools with their queue-wait histograms, the batcher, admission
+    control, search latency, the request and filter caches, query-shape
+    insights (labels bounded by the registry's LRU), the device capacity
+    ledger (per index and tier, capped at
+    `telemetry.device.max_label_indices`), the kernels (`estpu_cuda_kernel_*`:
+    launches by kernel, the sources the start built, the start check's
+    launches; the port compiles no XLA programs, so it has no
+    `estpu_jax_*` family), the resident bytes, the fault domains, the
+    event journal and the tracer. Each family's samples form one
+    contiguous group (one loop a family)."""
+    from ..common.devicehealth import DEVICE_HEALTH, HALF_OPEN, OPEN
+    from ..ops.device_index import capacity_report
+
+    w = _PromWriter()
+    breakers = node.breakers.stats()
+    for bname, b in breakers.items():
+        w.gauge("estpu_breaker_limit_bytes", b["limit"], breaker=bname)
+    for bname, b in breakers.items():
+        w.gauge("estpu_breaker_estimated_bytes", b["estimated"], breaker=bname)
+    for bname, b in breakers.items():
+        w.counter("estpu_breaker_tripped_total", b["tripped"], breaker=bname)
+    for bname, b in breakers.items():
+        w.counter("estpu_breaker_leaks_total", b.get("leak_detected", 0),
+                  breaker=bname)
+    pools = node.threadpool.stats()
+    for pool, st in pools.items():
+        w.gauge("estpu_threadpool_threads", st["threads"], pool=pool)
+    for pool, st in pools.items():
+        w.gauge("estpu_threadpool_active", st["active"], pool=pool)
+    for pool, st in pools.items():
+        w.gauge("estpu_threadpool_queue", st["queue"], pool=pool)
+    for pool, st in pools.items():
+        w.counter("estpu_threadpool_rejected_total", st["rejected"], pool=pool)
+    for pool, st in pools.items():
+        w.counter("estpu_threadpool_completed_total", st["completed"], pool=pool)
+    for pool, hist in node.threadpool.pool_histograms().items():
+        w.histogram("estpu_threadpool_queue_wait_seconds", hist, pool=pool)
+    bs = node.search_batcher.stats()
+    w.counter("estpu_batcher_launches_total", bs["launches"])
+    w.counter("estpu_batcher_coalesced_total", bs["coalesced"])
+    w.counter("estpu_batcher_bypassed_total", bs["bypassed"])
+    w.counter("estpu_batcher_splits_total", bs["splits"])
+    for reason in ("full", "linger", "deadline", "pending"):
+        w.counter("estpu_batcher_flushes_total", bs[f"{reason}_flushes"],
+                  reason=reason)
+    w.gauge("estpu_batcher_queue", bs["queue"])
+    w.histogram("estpu_batcher_batch_seconds", node.search_batcher.service_hist)
+    w.histogram("estpu_search_latency_seconds", node.actions.search_latency)
+    w.histogram("estpu_admission_shard_phase_seconds",
+                node.actions.admission.histogram)
+    w.counter("estpu_admission_rejected_total",
+              node.actions.admission.rejected.count)
+    rcs = node.request_cache.stats()
+    w.counter("estpu_request_cache_hits_total", rcs["hits"])
+    w.counter("estpu_request_cache_misses_total", rcs["misses"])
+    w.counter("estpu_request_cache_stores_total", rcs["stores"])
+    w.counter("estpu_request_cache_evictions_total", rcs["evictions"])
+    w.counter("estpu_request_cache_invalidations_total", rcs["invalidations"])
+    w.gauge("estpu_request_cache_bytes", rcs["memory_size_in_bytes"])
+    w.gauge("estpu_request_cache_entries", rcs["entries"])
+    fcs = node.filter_cache.stats()
+    w.counter("estpu_filter_cache_hits_total", fcs["hits"])
+    w.counter("estpu_filter_cache_misses_total", fcs["misses"])
+    w.counter("estpu_filter_cache_builds_total", fcs["builds"])
+    w.counter("estpu_filter_cache_evictions_total", fcs["evictions"])
+    w.gauge("estpu_filter_cache_bytes", fcs["memory_size_in_bytes"])
+    w.gauge("estpu_filter_cache_masks", fcs["masks"])
+    shapes = node.insights.prom_series()
+    for sid, st in shapes:
+        w.counter("estpu_query_shape_count_total", st.count, shape=sid)
+    for sid, st in shapes:
+        w.counter("estpu_query_shape_cost_seconds_total",
+                  round(st.cost_ms / 1000.0, 6), shape=sid)
+    for sid, st in shapes:
+        w.counter("estpu_query_shape_device_seconds_total",
+                  round(st.device.sum, 6), shape=sid)
+    for sid, st in shapes:
+        w.counter("estpu_query_shape_cache_hits_total", st.cache_hits, shape=sid)
+    w.counter("estpu_query_shape_demotions_total", node.insights.demotions)
+    cap = max(1, node.settings.get_int("telemetry.device.max_label_indices", 64))
+    report = capacity_report(node.indices, node.device)
+    ranked = sorted(report["indices"].items(), key=lambda kv: -kv[1]["total_bytes"])
+    emitted, omitted = ranked[:cap], ranked[cap:]
+    for iname, entry in emitted:
+        for tier in ("postings", "dense_plane", "sim_tables", "agg_rows",
+                     "norms", "filter_masks"):
+            w.gauge("estpu_device_index_bytes", entry["totals"].get(tier, 0),
+                    index=iname, tier=tier)
+    for iname, entry in emitted:
+        w.counter("estpu_device_pack_total",
+                  sum(entry["pack"].get(k, 0)
+                      for k in ("packs", "delta_packs", "remasks", "compacts")),
+                  index=iname)
+    for iname, entry in emitted:
+        w.counter("estpu_device_pack_seconds_total",
+                  round(entry["pack"].get("pack_ms_total", 0.0) / 1000.0, 6),
+                  index=iname)
+    w.gauge("estpu_device_ledger_omitted_indices", len(omitted))
+    # the kernels: every source's launches (zeros included, so the label
+    # set is the sources'), the sources the start built and the start
+    # check's launches
+    launches = cudaenv.LAUNCHES.snapshot()
+    sources = cudaenv.kernel_sources()
+    for kname in sources:
+        w.counter("estpu_cuda_kernel_launches_total", launches.get(kname, 0),
+                  kernel=kname)
+    for kname in sources:
+        w.gauge("estpu_cuda_kernel_built", int(kname in node.kernel_builds),
+                kernel=kname)
+    for kname in sources:
+        w.counter("estpu_cuda_kernel_start_check_launches_total",
+                  node.kernel_checks.get(kname, 0), kernel=kname)
+    w.gauge("estpu_cuda_kernel_build_seconds", round(node.kernel_build_s, 6))
+    w.gauge("estpu_hbm_resident_bytes",
+            sum(e["totals"].get("postings", 0) + e["totals"].get("dense_plane", 0)
+                for e in report["indices"].values()))
+    dh = DEVICE_HEALTH.stats()
+    for cls in ("transient", "persistent"):
+        w.counter("estpu_device_fault_total", dh["failures"].get(cls, 0),
+                  **{"class": cls})
+    w.counter("estpu_device_fault_trips_total", dh["trips"])
+    w.counter("estpu_device_fault_probes_total", dh["probes"])
+    w.counter("estpu_device_fault_recoveries_total", dh["recoveries"])
+    w.declare("estpu_device_domain_state", "gauge")
+    state_num = {OPEN: 2, HALF_OPEN: 1}
+    for dname, dstat in dh["domains"].items():
+        w.gauge("estpu_device_domain_state", state_num.get(dstat["state"], 0),
+                domain=dname)
+    es = node.events.stats()
+    for etype, n in sorted(es["by_type"].items()):
+        w.counter("estpu_events_emitted_total", n, type=etype)
+    w.counter("estpu_events_suppressed_total", es["suppressed"])
+    w.gauge("estpu_events_ring_entries", es["entries"])
+    w.counter("estpu_watchdog_ticks_total", node.watchdog.ticks)
+    ts = node.tracer.stats()
+    w.counter("estpu_traces_sampled_total", ts["sampled"])
+    w.counter("estpu_traces_finished_total", ts["finished"])
+    w.gauge("estpu_traces_in_flight", ts["in_flight"])
+    w.counter("estpu_traces_ring_evicted_total", ts["ring_evicted"])
+    w.counter("estpu_traces_late_stitch_dropped_total", ts["late_stitch_dropped"])
+    return w.text()
+
+
+def _size_param(req: RestRequest, endpoint: str, default=None):
+    """`?size=` of the telemetry reads (/_traces, /_insights/queries,
+    /_events): a non-integer or a negative answers 400."""
+    raw = req.param("size")
+    if raw is None:
+        return default
+    try:
+        size = int(raw)
+    except (TypeError, ValueError):
+        raise IllegalArgumentError(f"invalid size [{raw}] for [{endpoint}]") from None
+    if size < 0:
+        raise IllegalArgumentError(f"size must be >= 0 for [{endpoint}], got [{size}]")
+    return size
+
+
+class _DeviceProfiler:
+    """One `torch.profiler` capture at a time, on a thread of its own: the
+    profiler must start and stop on one thread, and a REST request's
+    handler thread is not the next one's. CPU activity (every thread's,
+    where the installed PyTorch can record them) and, on a `cuda` node,
+    CUDA activity; `stop` exports a Chrome trace into the capture's
+    directory."""
+
+    def __init__(self):
+        self.lock = threading.Lock()  # held by the routes across a start or stop
+        self.dir: str | None = None
+        self._stop: threading.Event | None = None
+        self._thread: threading.Thread | None = None
+        self._box: dict = {}
+
+    def start(self, trace_dir: str, cuda: bool) -> None:
+        """Start a capture; raises what the profiler raised when it cannot
+        start (no CPU-only capture stands in for a CUDA one)."""
+        started, stop, box = threading.Event(), threading.Event(), {}
+
+        def run():
+            try:
+                import torch.profiler as tp
+
+                acts = [tp.ProfilerActivity.CPU]
+                if cuda:
+                    acts.append(tp.ProfilerActivity.CUDA)
+                kwargs = {}
+                try:
+                    from torch._C._profiler import _ExperimentalConfig
+
+                    kwargs["experimental_config"] = _ExperimentalConfig(
+                        profile_all_threads=True)
+                except (ImportError, TypeError):
+                    pass  # older PyTorch: the starting thread's CPU ops only
+                prof = tp.profile(activities=acts, **kwargs)
+                prof.start()
+            except BaseException as e:  # noqa: BLE001 — the route answers it
+                box["error"] = e
+                started.set()
+                return
+            started.set()
+            stop.wait()
+            try:
+                prof.stop()
+                path = os.path.join(trace_dir, "trace.json")
+                prof.export_chrome_trace(path)
+                box["path"] = path
+            except BaseException as e:  # noqa: BLE001
+                box["error"] = e
+
+        t = threading.Thread(target=run, name="estpu_torch[profiler]", daemon=True)
+        t.start()
+        started.wait()
+        if "error" in box:
+            t.join()
+            raise box["error"]
+        self.dir, self._stop, self._thread, self._box = trace_dir, stop, t, box
+
+    def stop(self) -> str:
+        """Stop the capture and wait for its export; returns the directory."""
+        trace_dir, stop, t, box = self.dir, self._stop, self._thread, self._box
+        self.dir = self._stop = self._thread = None
+        stop.set()
+        t.join()
+        if "error" in box:
+            raise box["error"]
+        return trace_dir
+
+
+# top-of-stack functions of a parked thread: one that sits in one of them
+# at both snapshots with no CPU accrued is idle (pool workers waiting for
+# tasks, the scheduler, acceptors)
+_IDLE_FRAME_FUNCS = frozenset({
+    "wait", "_wait_for_tstate_lock", "select", "poll", "epoll", "accept",
+    "get", "sleep", "_recv_bytes", "recv", "recv_into", "readinto",
+    "read", "park", "acquire", "_eintr_retry", "kqueue",
+})
+
+
+def _thread_cpu_ticks() -> dict:
+    """Per native thread (utime + stime) ticks from /proc/self/task/<tid>/stat;
+    {} where procfs is missing (the frame diff alone ranks then)."""
+    ticks = {}
+    try:
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as fh:
+                    stat = fh.read()
+                fields = stat.rsplit(")", 1)[1].split()
+                ticks[int(tid)] = int(fields[11]) + int(fields[12])
+            except (OSError, ValueError, IndexError):
+                continue
+    except OSError:
+        return {}
+    return ticks
+
+
+def _hot_threads(node, req: RestRequest) -> RestResponse:
+    """Two snapshots `?interval=` apart (default 500ms, at most 30s) of
+    every thread's CPU ticks and stack; parked threads are skipped and the
+    busiest `?threads=` (default 3) reported, real CPU first, then a frame
+    that moved."""
+    import sys
+    import traceback
+
+    try:
+        interval_s = parse_timevalue(req.param("interval", "500ms"))
+        n_threads = int(req.param("threads", 3))
+    except (TypeError, ValueError) as e:
+        raise IllegalArgumentError(f"bad hot_threads parameter: {e}") from None
+    if interval_s is None or interval_s < 0:
+        interval_s = 0.5
+    interval_s = min(interval_s, 30.0)
+    me = threading.get_ident()
+    ticks0 = _thread_cpu_ticks()
+    frames0 = {tid: (id(f), f.f_lasti, f.f_lineno, f.f_code.co_name)
+               for tid, f in sys._current_frames().items()}
+    time.sleep(interval_s)
+    ticks1 = _thread_cpu_ticks()
+    frames1 = dict(sys._current_frames())
+    threads = {t.ident: t for t in threading.enumerate()}
+    try:
+        clk_tck = float(os.sysconf("SC_CLK_TCK")) or 100.0
+    except (OSError, ValueError, AttributeError):
+        clk_tck = 100.0
+    ranked = []
+    for tid, frame in frames1.items():
+        if tid == me:
+            continue  # the handler's own thread is busy by construction
+        t = threads.get(tid)
+        native = getattr(t, "native_id", None) if t is not None else None
+        dticks = (ticks1.get(native, 0) - ticks0.get(native, 0)) \
+            if native is not None and ticks0 else 0
+        cpu_pct = min(100.0, (dticks / clk_tck) / max(interval_s, 1e-6) * 100.0)
+        f0 = frames0.get(tid)
+        sig1 = (id(frame), frame.f_lasti, frame.f_lineno, frame.f_code.co_name)
+        advanced = f0 is None or f0[:3] != sig1[:3]
+        if not advanced and dticks == 0 and sig1[3] in _IDLE_FRAME_FUNCS:
+            continue  # parked
+        ranked.append((cpu_pct, 1 if advanced else 0, tid, frame))
+    ranked.sort(key=lambda e: (-e[0], -e[1], threads[e[2]].name
+                               if e[2] in threads else str(e[2])))
+    out = [f"::: [{node.name}] hot_threads: interval={interval_s * 1000:.0f}ms, "
+           f"busiest {min(n_threads, len(ranked))} of {len(frames1)} "
+           f"threads ({len(frames1) - 1 - len(ranked)} idle/parked skipped)"]
+    for cpu_pct, advanced, tid, frame in ranked[: max(n_threads, 0)]:
+        name = threads[tid].name if tid in threads else str(tid)
+        state = "running" if advanced else "stalled"
+        stack = "".join(traceback.format_stack(frame, limit=10))
+        out.append(f"   {cpu_pct:.1f}% cpu usage ({state}) by thread "
+                   f"'{name}'\n{stack}")
+    return RestResponse(200, "\n".join(out) + "\n", content_type="text/plain")
 
 
 def build_rest_controller(node) -> RestController:
@@ -523,22 +903,37 @@ def build_rest_controller(node) -> RestController:
             # overrides the cache's size-0 default (search/request_cache.py);
             # it rides the body to the shards
             body["request_cache"] = req.bool_param("request_cache")
+        if req.param("profile") is not None:
+            # the body's `profile`: each shard's query phase runs under a
+            # ProfileCollector
+            body["profile"] = req.bool_param("profile")
         return body
 
     def search(req):
-        later = [p for p in _LATER_SEARCH_PARAMS if req.param(p) is not None]
-        if later:
-            raise IllegalArgumentError(
-                f"search parameter(s) {later} are not ported yet (later slices "
-                "of the port: profiles and traces come with observability, A7)")
         body = search_body(req)
         index = req.path_params.get("index", "_all")
         search_type = req.param("search_type", "query_then_fetch")
-        if req.param("scroll"):
-            return scrolled_search(index, body, scan=search_type == "scan")
-        return client.search(index, body, routing=req.param("routing"),
-                             search_type=search_type,
-                             preference=req.param("preference"))
+        # the REST ingress roots the trace: `?trace=true` samples it whatever
+        # the rate and answers the span tree inline; the scroll's first
+        # search is traced too (its pages are not)
+        want_trace = req.bool_param("trace")
+        trace = node.tracer.start_trace("rest", force=want_trace)
+        root = trace.root.tag(path=req.path, index=index)
+        try:
+            with tracing.activate(root):
+                if req.param("scroll"):
+                    r = scrolled_search(index, body, scan=search_type == "scan")
+                else:
+                    r = client.search(index, body, routing=req.param("routing"),
+                                      search_type=search_type,
+                                      preference=req.param("preference"))
+        finally:
+            root.end()
+        if want_trace and trace:
+            r = dict(r)
+            r["trace"] = {"trace_id": trace.trace_id,
+                          "tree": tracing.span_tree(trace.span_dicts())}
+        return r
 
     # scroll id -> (buffered hits, page size, next position)
     scrolls: dict[str, tuple] = {}
@@ -945,5 +1340,83 @@ def build_rest_controller(node) -> RestController:
                     timeout=float(str(r.param("timeout", "10")).rstrip("s"))))
     rc.register("GET", "/_cluster/health/{index}",
                 lambda r: client.cluster_health(index=r.path_params["index"]))
+
+    # --- stats and observability --------------------------------------------
+    rc.register("GET", "/_stats", lambda r: {"indices": client.stats()})
+    rc.register("GET", "/{index}/_stats",
+                lambda r: {"indices": client.stats(r.path_params["index"])})
+    rc.register("GET", "/_status", lambda r: client.indices_status())
+    rc.register("GET", "/{index}/_status",
+                lambda r: client.indices_status(r.path_params["index"]))
+    rc.register("GET", "/_segments", lambda r: client.segments())
+    rc.register("GET", "/{index}/_segments",
+                lambda r: client.segments(r.path_params["index"]))
+    rc.register("GET", "/_nodes", lambda r: client.nodes_info())
+    rc.register("GET", "/_nodes/stats", lambda r: client.nodes_stats())
+    rc.register("GET", "/_nodes/stats/{metric}",
+                lambda r: client.nodes_stats(metric=r.path_params["metric"]))
+    rc.register("GET", "/_nodes/{node_id}/stats", lambda r: client.nodes_stats())
+    rc.register("GET", "/_nodes/{node_id}/stats/{metric}",
+                lambda r: client.nodes_stats(metric=r.path_params["metric"]))
+    rc.register("GET", "/_cluster/nodes/hot_threads", lambda r: _hot_threads(node, r))
+    rc.register("GET", "/_nodes/hot_threads", lambda r: _hot_threads(node, r))
+
+    def get_traces(req):
+        """This node's ring of finished traces, newest first."""
+        traces = node.tracer.traces(_size_param(req, "/_traces"))
+        return {"node": node.node_id, "total": len(traces),
+                "tracing": node.tracer.stats(), "traces": traces}
+
+    def get_tasks(req):
+        """The traced requests in flight (cancellable: false)."""
+        return {"nodes": {node.node_id: {"name": node.name,
+                                         "tasks": node.tracer.tasks()}}}
+
+    def get_insights(req):
+        """The top query shapes by accumulated cost, with their histograms
+        (joinable to the slowlog by shape id)."""
+        limit = _size_param(req, "/_insights/queries", default=10)
+        return {"node": node.node_id, "insights": node.insights.stats(),
+                "shapes": node.insights.top(limit)}
+
+    def get_events(req):
+        return client.cluster_events(size=_size_param(req, "/_events"),
+                                     local=req.bool_param("local"))
+
+    rc.register("GET", "/_insights/queries", get_insights)
+    rc.register("GET", "/_events", get_events)
+    rc.register("GET", "/_traces", get_traces)
+    rc.register("GET", "/_tasks", get_tasks)
+    rc.register("GET", "/_prometheus/metrics",
+                lambda r: RestResponse(200, _prometheus_text(node),
+                                       content_type="text/plain; version=0.0.4"))
+
+    profiler = _DeviceProfiler()
+
+    def profiler_start(req):
+        with profiler.lock:
+            if profiler.dir is not None:
+                return RestResponse(400, {"error": "profiler already running",
+                                          "dir": profiler.dir, "status": 400})
+            body = _parse_body(req)
+            trace_dir = body.get("dir") or os.path.join(
+                node.data_path or ".", "profiler", time.strftime("%Y%m%d-%H%M%S"))
+            os.makedirs(trace_dir, exist_ok=True)
+            profiler.start(trace_dir, cuda=node.device.type == "cuda")
+            return {"started": True, "dir": trace_dir}
+
+    def profiler_stop(req):
+        with profiler.lock:
+            if profiler.dir is None:
+                return RestResponse(400, {"error": "profiler not running",
+                                          "status": 400})
+            trace_dir = profiler.stop()
+        files = []
+        for root_, _d, fs in os.walk(trace_dir):
+            files.extend(os.path.join(root_, f) for f in fs)
+        return {"stopped": True, "dir": trace_dir, "files": sorted(files)}
+
+    rc.register("POST", "/_nodes/_local/profiler/start", profiler_start)
+    rc.register("POST", "/_nodes/_local/profiler/stop", profiler_stop)
     _register_later_routes(rc)
     return rc

@@ -49,6 +49,17 @@ occupancy, index) before it dispatches a batch and pops it once the batch is
 merged; `inflight()` reads the oldest without a lock, for the stall
 watchdog (common/events), which ages a batch wedged in its pull.
 
+Tracing and insights ride clocks the drainer reads anyway: an item captures
+its request's active span and insights Observation at enqueue; the drainer
+records `batcher.queue` (enqueue → the batch taken), `batcher.dispatch`
+(the dispatch half) and `batcher.merge` with its `device_pull` child (the
+batch's one wait, `_PendingFlat.pull_t0/t1`) on every sampled member, and
+writes the queue wait, the pull window and the occupancy into each
+Observation. No wait is added: `ESTPU_TRACE_SYNC=1` (bench and debug only)
+makes the drainer wait on a traced batch's CUDA event after its dispatch,
+so the dispatch span covers its device work. A profiled request never
+enqueues (search/service.py); it is counted in `profile_bypassed`.
+
 When a coalesced batch fails (a breaker trip, a device error), the drainer
 replays each item on its own, on the device, so only the request that really
 fails carries the error; its neighbours keep their answers. The batch-level
@@ -66,6 +77,8 @@ import time
 from collections import deque
 from concurrent.futures import Future
 
+from ..common import insights as _insights
+from ..common import tracing
 from ..common.deadline import NO_DEADLINE, Deadline
 from ..common.devicehealth import DEGRADABLE, classify_device_error
 from ..common.errors import RejectedExecutionError
@@ -93,7 +106,7 @@ def _index_label(item) -> str:
 
 class _Item:
     __slots__ = ("family", "key", "payload", "k", "kb", "deadline", "future",
-                 "t_enq")
+                 "t_enq", "span", "obs")
 
     def __init__(self, family, key, payload, k: int, kb: int,
                  deadline: Deadline):
@@ -105,6 +118,10 @@ class _Item:
         self.deadline = deadline
         self.future: Future = Future()
         self.t_enq = time.monotonic()
+        # the enqueuing request's active span (None: untraced) and insights
+        # Observation (None: insights off), read on the caller's thread
+        self.span = tracing.current_span()
+        self.obs = _insights.current()
 
 
 class _FlatFamily:
@@ -193,6 +210,9 @@ class DeviceBatcher:
         self._deadline_flushes = 0
         self._pending_flushes = 0  # flushed early because a merge was waiting
         self._bypassed = 0  # queue full / drainer dead / shut down -> inline
+        # profiled requests launch from their own thread, never queued
+        # (service._execute_flat_single)
+        self._profile_bypassed = 0
         # plans their caller launched beside the drainer, never queued: the
         # DFS phase's global statistics are the plan's own (service.py)
         self._direct = 0
@@ -301,6 +321,15 @@ class DeviceBatcher:
             t0 = time.monotonic()
             family = items[0].family
             batch_id = next(self._batch_ids)
+            traced = [it for it in items if it.span]
+            # the queue wait, from the item's enqueue clock and t0 (span
+            # recording takes only the trace's leaf lock)
+            for it in traced:
+                it.span.record("batcher.queue", it.t_enq, t0, batch=batch_id,
+                               reason=reason, occupancy=len(items))
+            for it in items:
+                if it.obs is not None:
+                    it.obs.queue_s = t0 - it.t_enq
             self._inflight_q.append(
                 (batch_id, t0, "flat", len(items), _index_label(items[0])))
             try:
@@ -311,6 +340,16 @@ class DeviceBatcher:
                 self._retire_inflight(batch_id)
                 self._split(family, items, e)
                 continue
+            if traced and tracing.sync_armed():
+                # ESTPU_TRACE_SYNC=1 (bench and debug only): wait on the
+                # batch's CUDA event so the dispatch span covers its device
+                # work; this gives up the double-buffer overlap
+                handle.sync()
+            if traced:
+                t_disp = time.monotonic()
+                for it in traced:
+                    it.span.record("batcher.dispatch", t0, t_disp, batch=batch_id,
+                                   occupancy=len(items), family="flat")
             self._note_flush(reason)
             if pending is not None:
                 self._finish(*pending, overlapped=True)
@@ -380,14 +419,28 @@ class DeviceBatcher:
         """Merge a dispatched batch and fan results out to the item futures.
         `overlapped`: the next batch is already launched, so the merge's
         wait is recorded — it should cover this batch's device work alone."""
+        t_m0 = time.monotonic()
         try:
             results = family.fan_out(handle, items)
         except Exception as e:  # noqa: BLE001 — replay decides per item
             self._retire_inflight(batch_id)
             self._split(family, items, e)
             return
+        t_m1 = time.monotonic()
         self._retire_inflight(batch_id)  # merged: the stall marker retires
-        dt = time.monotonic() - t0
+        dt = t_m1 - t0
+        # the merge span and the batch's one wait, on every member: the pull
+        # window was stamped around PendingPull.wait by the merge itself
+        pull_t0, pull_t1 = handle.pull_t0, handle.pull_t1
+        for it in items:
+            if it.obs is not None:
+                it.obs.device_s = pull_t1 - pull_t0
+                it.obs.occupancy = len(items)
+            if it.span:
+                merge_span = it.span.record("batcher.merge", t_m0, t_m1,
+                                            batch=batch_id)
+                merge_span.record("device_pull", pull_t0, pull_t1,
+                                  batch=batch_id)
         # histogram locks are leaves — observed outside _stats_lock
         self.service_hist.observe(dt)
         if overlapped:
@@ -471,6 +524,12 @@ class DeviceBatcher:
         with self._stats_lock:
             self._direct += 1
 
+    def note_profile_bypass(self):
+        """Count a profiled request that launched from its own thread
+        instead of coalescing (service._execute_flat_single)."""
+        with self._stats_lock:
+            self._profile_bypassed += 1
+
     # -- lifecycle / observability -------------------------------------------
     def shutdown(self):
         with self._cv:
@@ -490,6 +549,7 @@ class DeviceBatcher:
                 "deadline_flushes": self._deadline_flushes,
                 "pending_flushes": self._pending_flushes,
                 "bypassed": self._bypassed,
+                "profile_bypassed": self._profile_bypassed,
                 "direct": self._direct,
                 "splits": self._splits,
                 "device_splits": self._device_splits,

@@ -156,8 +156,9 @@ def merge_responses(req: ParsedSearchRequest, merged: MergedTopDocs,
                     fetched_hits: list[dict], took_ms: int, total_shards: int,
                     successful: int, failures: list | None = None) -> dict:
     """The response: `took`, `timed_out`, `_shards`, `hits` (the hydrated
-    hits of the page), the `aggregations` and `facets` reduced from every
-    shard's partials, and the shards' `suggest` entries merged."""
+    hits of the page), the `profile` section of a profiled request, the
+    `aggregations` and `facets` reduced from every shard's partials, and the
+    shards' `suggest` entries merged."""
     resp: dict = {
         "took": took_ms,
         "timed_out": merged.timed_out,
@@ -178,6 +179,14 @@ def merge_responses(req: ParsedSearchRequest, merged: MergedTopDocs,
     }
     if failures:
         resp["_shards"]["failures"] = failures
+    if req.profile:
+        # one profile a shard that answered, by (index, shard): a failed
+        # shard contributes none, as it contributes no hits
+        shard_profiles = [r.profile for r in shard_results
+                          if r.profile is not None]
+        shard_profiles.sort(key=lambda p: (str(p.get("index", "")),
+                                           int(p.get("shard", 0))))
+        resp["profile"] = {"shards": shard_profiles}
     if req.aggs:
         partials = [p for r in shard_results for p in r.agg_partials]
         resp["aggregations"] = reduce_aggs(req.aggs, partials)

@@ -64,11 +64,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..common import profile as _profile
 from ..common.breaker import reserve
 from ..common.cudaenv import (PendingPull, default_device, pull_async, upload,
                               upload_pinned)
 from ..common.devicehealth import context_lost, tag_domain
 from ..common.errors import QueryParsingError, ScriptError, SimilarityNotSupportedError
+from ..common.profile import timed_launch
 from ..common.smallfloat import decode_norm_doclen
 from ..index.engine import Searcher
 from ..index.segment import FrozenSegment
@@ -85,6 +87,7 @@ from ..ops.scoring import (
     MODE_BM25,
     MODE_CONST,
     MODE_TFIDF,
+    SparseScratchPool,
     build_term_batch,
     collect_flat_sparse,
     dense_chunk,
@@ -97,7 +100,7 @@ from ..ops.scoring import (
     score_sorted_batch_async,
     score_term_batch_async,
 )
-from ..ops.sparse_kernels import GROUP_MUST, GROUP_MUST_NOT, GROUP_SHOULD
+from ..ops.sparse_kernels import BLOCK, GROUP_MUST, GROUP_MUST_NOT, GROUP_SHOULD
 from .aggregations import _bucket_cache_put, bucket_cache_key, bucket_cols_for
 from .filters import Filter, IdsFilter, RangeFilter, TermFilter, segment_mask
 from .queries import (
@@ -473,6 +476,75 @@ def _single_term(query: Query, ctx: ShardContext):
     return None
 
 
+_GROUP_NAMES = {GROUP_SHOULD: "should", GROUP_MUST: "must",
+                GROUP_MUST_NOT: "must_not"}
+
+
+def plan_profile(plan: FlatPlan, query: Query) -> dict:
+    """The resolved plan shape a profiled request reports: per clause
+    (field, term, boost, group), the bool semantics and the function tail's
+    kind; plain scalars, so it crosses the wire and renders as JSON."""
+    return {
+        "query_type": type(query).__name__,
+        "clauses": [{"field": c.field, "term": c.term,
+                     "boost": float(c.boost), "group": _GROUP_NAMES[c.group]}
+                    for c in plan.clauses],
+        "msm": int(plan.msm),
+        "n_must": int(plan.n_must),
+        "coord": bool(plan.coord_enabled),
+        "boost": float(plan.boost),
+        "function_score": plan.fs_kind,  # None | "rows" | "script"
+        "filtered": plan.filt is not None,
+    }
+
+
+def lower_fallback_reason(query: Query, ctx: ShardContext) -> str:
+    """Why lower_flat declined this query, in the profile's fallback-reason
+    vocabulary (common/profile.py). Profiled requests only: it walks the
+    query again. When the inner lowering succeeds, the decline was
+    lower_flat's similarity gate (DFR, IB and LM fields score on the
+    host)."""
+    if _lower_flat_inner(query, ctx) is not None:
+        return "similarity_not_fused"
+    if isinstance(query, TermQuery):
+        return "numeric_term"
+    if isinstance(query, MatchQuery):
+        return "fuzzy_match"
+    if isinstance(query, BoolQuery):
+        if query.filter:
+            return "bool_filter_clause"
+        subs = query.must + query.should + query.must_not
+        if any(_single_term(sub, ctx) is None for sub in subs):
+            return "non_term_subclause"
+        return "must_not_only"
+    if isinstance(query, FunctionScoreQuery):
+        if query.query is None:
+            return "function_score_no_query"
+        if _lower_flat_inner(query.query, ctx) is None:
+            return "non_flat_subquery"
+        return "function_score_ineligible"
+    if isinstance(query, FilteredQuery):
+        return "non_flat_subquery"
+    return f"unsupported_query:{type(query).__name__}"
+
+
+def _prof_dense_segment(prof, seg, packed, path: str, launches: int,
+                        t_seg: float) -> None:
+    """A dense-family segment's profile record (its blocks were counted as
+    its chunks' TermBatches were built, `_prof_blocks`)."""
+    prof.segment(seg.gen, docs=int(seg.doc_count), path=path,
+                 tf_layout=packed.tf_layout, launches=launches,
+                 ms=(time.monotonic() - t_seg) * 1000.0)
+
+
+def _prof_blocks(seg, cols) -> None:
+    """Count a dense chunk's (query, block) triples as the segment's
+    scanned blocks, when the request is profiled."""
+    prof = _profile.current()
+    if prof is not None:
+        prof.segment(seg.gen, blocks_scanned=int(len(cols[0])))
+
+
 def finalize_flat(plan: FlatPlan, ctx: ShardContext):
     """Resolve clause weights against shard stats; returns per-clause tuples
     (field, term, weight, fidx, group, mode, df), the plan's fields, their
@@ -671,6 +743,12 @@ class _PendingFlat:
         them."""
         return [t for part in self.parts for t in part.tensors()]
 
+    def sync(self) -> None:
+        """Wait until the batch's launches and copies are done, without
+        taking the arrays: `ESTPU_TRACE_SYNC=1` only (search/batcher.py);
+        the serving path's one wait is merge()'s."""
+        self.pull.synchronize()
+
     def merge(self) -> list[TopDocs | None]:
         """ONE wait — on the event recorded after this batch's own copies —
         drains every launch of the batch, then each part's pure-host
@@ -716,13 +794,16 @@ def _launch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
                 for (resolved, _f, _c, _coord) in finals
                 for (_f2, _t, w, _fi, g, mode, df) in resolved if df > 0))
 
+    prof = _profile.current()
     seg_work = []
     for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
+        t_seg = time.monotonic() if prof is not None else 0.0
         packed = packed_for(seg, ctx.device, breaker=ctx.breaker("fielddata"),
                             owner=ctx.index_name)
         # a 1 KB/field LUT swap when stats moved, never a postings re-bake
         sim = ensure_sim_tables(packed, sim_tables)
         clause_lists = []
+        blocks_scanned = postings_scanned = 0
         for (resolved, _f, _c, _coord) in finals:
             cl = []
             for (f, t, w, _fi, g, mode, df) in resolved:
@@ -731,6 +812,10 @@ def _launch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
                     continue
                 b0, b1 = packed.blocks_for_term(tid)
                 cl.append((b0, b1, w, g, mode == MODE_CONST, sim.fid[f]))
+                if prof is not None:
+                    blocks_scanned += b1 - b0
+                    postings_scanned += int(seg.post_offsets[tid + 1]
+                                            - seg.post_offsets[tid])
             clause_lists.append(cl)
         # the compile-family seams: a launch's failure is tagged with its
         # family's fault domain (a kernel fault itself surfaces at the pull)
@@ -746,6 +831,23 @@ def _launch_flat_plain(plans: list[FlatPlan], ctx: ShardContext,
                     n_must, msm, coord_tbl, packed, seg, k,
                     breaker=ctx.breaker("fielddata"))
         seg_work.append((seg, base, packed.doc_pad, launches, dense))
+        if prof is not None:
+            # the hand-written kernel on the card; its plain version on the
+            # CPU. plane_bytes: the blocks' bytes in the device planes
+            # (blk_docs i32, blk_tf u8, blk_nb u8: 6 B a slot)
+            prof.segment(
+                seg.gen, docs=int(seg.doc_count),
+                path=("sparse_fused" if packed.device.type == "cuda"
+                      else "sparse_composed"),
+                tf_layout=packed.tf_layout,
+                blocks_scanned=int(blocks_scanned),
+                postings_scanned=int(postings_scanned),
+                staged_bytes=sum(SparseScratchPool.staging_bytes(*sb.staging.key)
+                                 for (sb, _r) in launches),
+                plane_bytes=int(blocks_scanned) * BLOCK * 6,
+                buckets=len(launches),
+                dense_overflow=len(overflow),
+                ms=(time.monotonic() - t_seg) * 1000.0)
     return seg_work
 
 
@@ -823,7 +925,7 @@ def _launch_dense_fallback(overflow, finals, field_idx, all_fields,
         batch = build_term_batch(cols, len(chunk), n_must[sub], msm[sub],
                                  coord_tbl[sub], list(all_fields), caches_stack,
                                  nb_pad_row=packed.blk_docs.shape[0] - 1)
-        out.append((sub, score_term_batch_async(packed, batch, k)))
+        out.append((sub, timed_launch(score_term_batch_async, packed, batch, k)))
     return out
 
 
@@ -850,6 +952,7 @@ def _dense_segments(plans: list[FlatPlan], ctx: ShardContext):
 
     def chunk_batch(sub, seg, packed):
         cols = _dense_entries([finals[i] for i in sub], seg, packed, field_idx)
+        _prof_blocks(seg, cols)
         return build_term_batch(cols, len(sub), n_must[sub], msm[sub],
                                 coord_tbl[sub], list(all_fields), caches_stack,
                                 nb_pad_row=packed.blk_docs.shape[0] - 1)
@@ -970,15 +1073,21 @@ def _launch_filtered(idx: list, plans: list[FlatPlan], masks: list,
     (`prepare_dense`), stacked here on the device. Fault domain
     `compile:filtered`."""
     part = _DensePart(idx)
+    prof = _profile.current()
     with _domain_seam("compile:filtered"):
         segs, chunk_batch = _dense_segments(plans, ctx)
         for j, (seg, base, packed) in enumerate(segs):
+            t_seg = time.monotonic() if prof is not None else 0.0
             launches = []
             for sub in _chunks(len(plans), packed.doc_pad):
                 fmask = torch.stack([masks[i][j] for i in sub])
-                launches.append((sub, score_filtered_batch_async(
-                    packed, chunk_batch(sub, seg, packed), k, fmask)))
+                launches.append((sub, timed_launch(
+                    score_filtered_batch_async, packed,
+                    chunk_batch(sub, seg, packed), k, fmask)))
             part.seg_work.append((seg, base, packed.doc_pad, launches))
+            if prof is not None:
+                _prof_dense_segment(prof, seg, packed, "dense_filtered",
+                                    len(launches), t_seg)
     return part
 
 
@@ -1017,23 +1126,29 @@ def _launch_fs_group(idx: list, plans: list[FlatPlan], seg_rows: list,
         sf = fsq.functions[0]
         script = compile_script(sf.script, sf.params)
         used_fields = script_vector_info(script)[1]
+    prof = _profile.current()
     segs, chunk_batch = _dense_segments(plans, ctx)
     for (seg, base, packed), rows in zip(segs, seg_rows):
+        t_seg = time.monotonic() if prof is not None else 0.0
         launches = []
         for sub in _chunks(len(plans), packed.doc_pad):
             batch = chunk_batch(sub, seg, packed)
             fb = [fboost[i] for i in sub]
             ms = [min_score[i] for i in sub]
             if kind == "rows":
-                r = score_fs_rows_batch_async(
-                    packed, batch, k, rows[0], rows[1], fsq.max_boost, fb, ms,
-                    fsq.boost_mode)
+                r = timed_launch(
+                    score_fs_rows_batch_async, packed, batch, k, rows[0],
+                    rows[1], fsq.max_boost, fb, ms, fsq.boost_mode)
             else:
-                r = score_fs_script_batch_async(
-                    packed, batch, k, script, used_fields, *rows, sf.weight,
-                    fsq.max_boost, fb, ms, fsq.boost_mode)
+                r = timed_launch(
+                    score_fs_script_batch_async, packed, batch, k, script,
+                    used_fields, *rows, sf.weight, fsq.max_boost, fb, ms,
+                    fsq.boost_mode)
             launches.append((sub, r))
         part.seg_work.append((seg, base, packed.doc_pad, launches))
+        if prof is not None:
+            _prof_dense_segment(prof, seg, packed, "dense_function_score",
+                                len(launches), t_seg)
     return part
 
 
@@ -1082,8 +1197,27 @@ def execute_flat_batch(plans: list[FlatPlan], ctx: ShardContext,
                        k: int) -> list[TopDocs]:
     """Run a batch of flat plans: dispatch every family's launches, merge
     the per-segment top-k on the host, then serve the queries handed back
-    to the host scorer."""
-    return host_reruns(plans, dispatch_flat_batch(plans, ctx, k).merge(), ctx, k)
+    to the host scorer.
+
+    A profiled request (common/profile.py: it bypassed the batcher, so this
+    runs on its own thread) records its dispatch, pull (the one wait) and
+    merge phases from host clocks; its launches' device time is its
+    DeviceClock's, read once at the end of its query phase
+    (search/service.py). The unprofiled path takes the first return."""
+    prof = _profile.current()
+    if prof is None:
+        return host_reruns(plans, dispatch_flat_batch(plans, ctx, k).merge(),
+                           ctx, k)
+    t0 = time.monotonic()
+    pending = dispatch_flat_batch(plans, ctx, k)
+    t1 = time.monotonic()
+    merged = pending.merge()
+    t2 = time.monotonic()
+    pull_s = pending.pull_t1 - pending.pull_t0
+    prof.phase_s("dispatch", t1 - t0)
+    prof.phase_s("pull", pull_s)
+    prof.phase_s("merge", max(t2 - t1 - pull_s, 0.0))
+    return host_reruns(plans, merged, ctx, k)
 
 
 # ---------------------------------------------------------------------------
@@ -1106,6 +1240,7 @@ def _single_plan_segments(plan: FlatPlan, ctx: ShardContext):
     def seg_batch(seg, packed):
         _ensure_norm_rows(packed, all_fields, ctx.breaker("fielddata"))
         entries = _dense_entries(finals, seg, packed, field_idx)
+        _prof_blocks(seg, entries)
         return build_term_batch(entries, 1, n_must, msm, coord_tbl,
                                 list(all_fields), caches_stack,
                                 nb_pad_row=packed.blk_docs.shape[0] - 1)
@@ -1178,12 +1313,17 @@ def launch_flat_sorted(plan: FlatPlan, ctx: ShardContext, k: int, spec,
     without synchronising, ordered by `key_rows` (`sort_key_rows`). Fault
     domain `compile:sorted`."""
     part = _SortedPart(spec, k)
+    prof = _profile.current()
     with _domain_seam("compile:sorted"):
         segs, seg_batch = _single_plan_segments(plan, ctx)
         for si, ((seg, base, packed), row) in enumerate(zip(segs, key_rows)):
-            part.seg_work.append((si, base, score_sorted_batch_async(
-                packed, seg_batch(seg, packed), k, upload_pinned(row, packed.device),
-                spec.reverse, fmask=_plan_fmask(plan, seg, packed, ctx))))
+            t_seg = time.monotonic() if prof is not None else 0.0
+            part.seg_work.append((si, base, timed_launch(
+                score_sorted_batch_async, packed, seg_batch(seg, packed), k,
+                upload_pinned(row, packed.device), spec.reverse,
+                fmask=_plan_fmask(plan, seg, packed, ctx))))
+            if prof is not None:
+                _prof_dense_segment(prof, seg, packed, "dense_sorted", 1, t_seg)
     return part
 
 
@@ -1292,15 +1432,20 @@ def _launch_aggs(plan: FlatPlan, ctx: ShardContext, k: int, fields: list[str],
             subs.append(sub)
         rows.append((stack, subs))
     part = _AggPart(k)
+    prof = _profile.current()
     for (seg, base, packed), (stack, subs) in zip(segs, rows):
+        t_seg = time.monotonic() if prof is not None else 0.0
         pairs, seg_keys = [], []
         for (agg, _order), sub in zip(bucket_aggs, subs):
             (pdoc, pbucket, nb), keys = _bucket_pairs_on(agg, seg, packed, ctx)
             pairs.append((pdoc, pbucket, nb, sub))
             seg_keys.append(keys)
-        r = score_agg_batch_async(packed, seg_batch(seg, packed), k, stack,
-                                  pairs, fmask=_plan_fmask(plan, seg, packed, ctx))
+        r = timed_launch(score_agg_batch_async, packed, seg_batch(seg, packed),
+                         k, stack, pairs,
+                         fmask=_plan_fmask(plan, seg, packed, ctx))
         part.seg_work.append((seg, base, packed.doc_pad, seg_keys, r))
+        if prof is not None:
+            _prof_dense_segment(prof, seg, packed, "dense_aggs", 1, t_seg)
     return part
 
 
@@ -2424,12 +2569,17 @@ def _host_search(ctx: ShardContext, query: Query, k: int,
     total = 0
     timed_out = False
     masks = iter_match_masks(ctx, query)
-    for base in ctx.searcher.bases:
+    prof = _profile.current()
+    for seg, base in zip(ctx.searcher.segments, ctx.searcher.bases):
         # host-side segment boundary: expiry keeps the segments already scored
         if deadline is not None and deadline.expired():
             timed_out = True
             break
+        t_seg = time.monotonic() if prof is not None else 0.0
         scores, match = next(masks)
+        if prof is not None:
+            prof.segment(seg.gen, docs=int(seg.doc_count), path="host",
+                         ms=(time.monotonic() - t_seg) * 1000.0)
         idx = np.nonzero(match)[0]
         total += len(idx)
         if len(idx):

@@ -7,11 +7,11 @@ A body may carry `query` (none: match_all), `from`, `size`, `timeout`,
 `post_filter` (and the top-level `filter`, its older name), `min_score`,
 `sort`, `track_scores`, `aggs` (or `aggregations`), `facets`, `rescore`,
 `suggest`, `explain`, `request_cache` (read by the shard's request cache,
-actions.py) and the keys the fetch phase reads (`execute_fetch_phase`,
-fetch.py): `_source`, `fields`, `stored_fields`, `script_fields`, `version`
-and `highlight`. `profile` belongs to a later slice of the port (A7): it
-raises QueryParsingError rather than being silently ignored, as does any
-other key.
+actions.py), `profile` (the shard's query phase runs under a
+ProfileCollector, common/profile.py) and the keys the fetch phase reads
+(`execute_fetch_phase`, fetch.py): `_source`, `fields`, `stored_fields`,
+`script_fields`, `version` and `highlight`. Any other key raises
+QueryParsingError rather than being silently ignored.
 
 `execute_query_phase` takes the JAX package's branches (its
 `search/service.py` :290-603). The body's suggesters run first
@@ -81,16 +81,28 @@ program fault behind the card (the JAX package degrades any exception).
 `SearchAdmissionController` is the coordinator's admission control (the JAX
 package's, copied): a search whose remaining budget cannot cover one
 expected shard phase answers 429 before the fan-out.
+
+Profiles and insights, as in the JAX package's `search/service.py`
+:156-290: the serving path a request resolves to is recorded on its
+ProfileCollector (`outcome`) and insights Observation once; a device
+failure or an open domain records its fallback reason; a profiled request
+records its lowering time and plan (or why it does not lower), launches
+its plan from its own thread (`batcher: {bypassed, reason: "profile"}`,
+the batcher's `profile_bypassed`), and its launches' device time is read
+from its DeviceClock once, at the end of its query phase.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 
+from ..common import insights as _insights
+from ..common import profile as _profile
 from ..common.breaker import reserve as breaker_reserve
 from ..common.cudaenv import pull_async
 from ..common.deadline import NO_DEADLINE, Deadline, parse_timevalue
@@ -124,7 +136,9 @@ from .execute import (
     iter_match_masks,
     launch_flat_aggs,
     launch_flat_sorted,
+    lower_fallback_reason,
     lower_flat,
+    plan_profile,
     prepare_dense,
     query_norm_for,
     sort_key_rows,
@@ -147,11 +161,12 @@ from .sorting import (
 )
 from .suggest import run_suggest
 
-# the body keys the port serves; the rest belong to later slices
+# the body keys the port serves; any other raises
 _SERVED_KEYS = ("query", "from", "size", "timeout", "_source", "post_filter",
                 "filter", "min_score", "sort", "aggs", "aggregations", "facets",
                 "track_scores", "rescore", "request_cache", "suggest", "explain",
-                "highlight", "fields", "stored_fields", "script_fields", "version")
+                "highlight", "fields", "stored_fields", "script_fields", "version",
+                "profile")
 
 
 @dataclass
@@ -173,15 +188,16 @@ class ParsedSearchRequest:
     # the body's `suggest` section (None: no suggester)
     suggest: dict | None = None
     explain: bool = False
+    # `"profile": true` / `?profile=true`: the shard's query phase runs under
+    # a ProfileCollector (common/profile.py)
+    profile: bool = False
 
 
 def parse_search_body(body: dict | None) -> ParsedSearchRequest:
     body = body or {}
-    later = sorted(k for k in body if k not in _SERVED_KEYS)
-    if later:
-        raise QueryParsingError(
-            f"search body key(s) {later} are not ported yet (later slices of "
-            "the port: profiles come with observability, A7)")
+    unknown = sorted(k for k in body if k not in _SERVED_KEYS)
+    if unknown:
+        raise QueryParsingError(f"search body key(s) {unknown} are not served")
     try:
         timeout_s = parse_timevalue(body.get("timeout"))
     except ValueError as e:
@@ -209,6 +225,7 @@ def parse_search_body(body: dict | None) -> ParsedSearchRequest:
         rescore=rescore,
         suggest=body.get("suggest"),
         explain=bool(body.get("explain", False)),
+        profile=bool(body.get("profile", False)),
     )
 
 
@@ -234,6 +251,8 @@ class ShardQueryResult:
     degraded: bool = False
     # the shard's suggester output, {name: entries} (None: no suggester)
     suggest: dict | None = None
+    # the shard's query-phase profile (plain scalars; None: unprofiled)
+    profile: dict | None = None
 
 
 # process-wide serving counters of the port (its own singleton: a process
@@ -254,9 +273,21 @@ _COUNTERS_LOCK = threading.Lock()
 _device_error_logged: set = set()
 
 
-def _count(path: str):
+def _bump(name: str):
     with _COUNTERS_LOCK:
-        SERVING_COUNTERS[path] += 1
+        SERVING_COUNTERS[name] += 1
+
+
+def _count(path: str):
+    """The serving path a query phase resolved to: its counter, and the
+    request's profile outcome and insights outcome (each written once)."""
+    _bump(path)
+    prof = _profile.current()
+    if prof is not None:
+        prof.outcome(path)
+    obs = _insights.current()
+    if obs is not None and obs.outcome is None:
+        obs.outcome = path
 
 
 def _device_failed(e: BaseException, ctx: ShardContext) -> None:
@@ -270,6 +301,10 @@ def _device_failed(e: BaseException, ctx: ShardContext) -> None:
         SERVING_COUNTERS["degraded"] += 1
     domain = getattr(e, "_estpu_device_domain", None) or f"pull:{ctx.index_name}"
     DEVICE_HEALTH.record_failure(domain, e)
+    prof = _profile.current()
+    if prof is not None:
+        prof.event("device_error", error=type(e).__name__)
+        prof.fallback(f"device_error:{type(e).__name__}")
     key = type(e).__name__
     if key not in _device_error_logged:
         _device_error_logged.add(key)
@@ -297,9 +332,14 @@ def _blocked_domain(ctx: ShardContext, families: tuple,
     return DEVICE_HEALTH.blocked(domains or _domains_for(ctx, families))
 
 
-def _device_degraded() -> None:
-    """An open fault domain skipped the device path: count the degrade."""
-    _count("degraded")
+def _device_degraded(domain: str) -> None:
+    """An open fault domain skipped the device path: count and profile the
+    degrade."""
+    _bump("degraded")
+    prof = _profile.current()
+    if prof is not None:
+        prof.event("device_degraded", domain=domain)
+        prof.fallback(f"device_degraded:{domain}")
 
 
 def _note_device_ok(ctx: ShardContext, families: tuple,
@@ -317,12 +357,46 @@ def _execute_flat_single(ctx: ShardContext, plan, k: int,
     into one bucketed launch; search/batcher.py), else a direct single-plan
     launch. A plan under the DFS phase's global statistics always launches
     directly: its clause weights and similarity tables are its own, and a
-    shared batch launches with its leader's context."""
+    shared batch launches with its leader's context.
+
+    A profiled request launches directly too (`batcher: {bypassed, reason:
+    "profile"}`): a coalesced batch's device phases belong to the batch,
+    and the profile's device clock must time its own launches alone."""
     if ctx.batcher is not None:
-        if not ctx.global_stats:
-            return ctx.batcher.execute(plan, ctx, k, deadline=deadline)
-        ctx.batcher.note_direct()
+        if ctx.global_stats:
+            ctx.batcher.note_direct()
+        else:
+            prof = _profile.current()
+            if prof is None:
+                return ctx.batcher.execute(plan, ctx, k, deadline=deadline)
+            prof.batcher_bypass("profile")
+            ctx.batcher.note_profile_bypass()
     return execute_flat_batch([plan], ctx, k)[0]
+
+
+def _prof_record_plan(prof, plan, req: ParsedSearchRequest, ctx: ShardContext,
+                      use_device: bool) -> None:
+    """Record the resolved plan shape, or the fallback reason when the
+    query does not lower flat (profiled requests only)."""
+    if plan is not None:
+        prof.set_plan(plan_profile(plan, req.query))
+    else:
+        prof.set_plan({"query_type": type(req.query).__name__})
+        prof.fallback("device_disabled" if not use_device
+                      else lower_fallback_reason(req.query, ctx))
+
+
+def _prof_host_features(prof, req: ParsedSearchRequest) -> None:
+    """The general host path serves the body's mask-needing features:
+    record which (a lowering reason recorded first wins)."""
+    feats = [name for name, present in (
+        ("aggs", bool(req.aggs)), ("facets", bool(req.facets)),
+        ("sort", bool(req.sort)), ("post_filter", req.post_filter is not None),
+        ("rescore", bool(req.rescore)),
+        ("min_score", req.min_score is not None), ("explain", req.explain),
+    ) if present]
+    if feats:
+        prof.fallback("features:" + ",".join(feats))
 
 
 def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
@@ -334,7 +408,24 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
     request's own `timeout`; an expired budget answers `timed_out` with
     nothing scored, the host scorer stops between segments, and a launched
     batch always completes whole. `use_device=False` serves every body on
-    the host scorer."""
+    the host scorer.
+
+    Under a ProfileCollector the lowering time and plan are recorded first,
+    and the device time of the request's launches (its DeviceClock) once,
+    at the end."""
+    prof = _profile.current()
+    if prof is None:
+        return _query_phase(ctx, req, use_device, shard_id, deadline, None)
+    if use_device:
+        prof.clock = _profile.DeviceClock(ctx.device)
+    res = _query_phase(ctx, req, use_device, shard_id, deadline, prof)
+    if prof.clock is not None and prof.clock.launches:
+        prof.phase_s("device", prof.clock.elapsed_s())
+    return res
+
+
+def _query_phase(ctx: ShardContext, req: ParsedSearchRequest, use_device: bool,
+                 shard_id: int, deadline: Deadline | None, prof):
     if deadline is None:
         deadline = Deadline.after(req.timeout_s) if req.timeout_s is not None \
             else NO_DEADLINE
@@ -346,6 +437,11 @@ def execute_query_phase(ctx: ShardContext, req: ParsedSearchRequest,
         return ShardQueryResult(total=0, docs=[], max_score=float("nan"),
                                 shard_id=shard_id, timed_out=True,
                                 suggest=suggest_out)
+    if prof is not None:
+        t_low = time.monotonic()
+        plan = lower_flat(req.query, ctx) if use_device else None
+        prof.phase_s("lower", time.monotonic() - t_low)
+        _prof_record_plan(prof, plan, req, ctx, use_device)
     degraded = False
     if use_device:
         device, degraded = _device_branch(ctx, req, k, shard_id, deadline)
@@ -419,8 +515,9 @@ def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt,
     or parent trip, a SearchEngineError, a defect and a host bug raise.
     `domains` replaces the shard's domains of `families` (`_domains_for`)
     for a branch that owns a domain of its own (the percolator's)."""
-    if _blocked_domain(ctx, families, domains) is not None:
-        _device_degraded()  # an open fault domain: no launch
+    blocked = _blocked_domain(ctx, families, domains)
+    if blocked is not None:
+        _device_degraded(blocked)  # an open fault domain: no launch
         return None, True
     try:
         res = attempt()
@@ -433,7 +530,7 @@ def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt,
         raise  # parsing and script errors are the answer itself
     except Exception as e:  # noqa: BLE001 — classified right below
         if classify_device_error(e) not in DEGRADABLE:
-            _count("device_errors")
+            _bump("device_errors")
             raise  # a defect or a host bug: no circuit moves, the caller sees it
         _device_failed(e, ctx)
         return None, True
@@ -631,8 +728,11 @@ def _general_host_path(ctx: ShardContext, req: ParsedSearchRequest, k: int,
     JAX package's Python sort over (keys, global doc), computed as one
     lexsort over the same keys."""
     est = ctx.searcher.max_doc * (5 + 16 * (len(req.aggs) + len(req.facets)))
+    prof = _profile.current()
     with breaker_reserve(ctx.breaker("request"), est, "<query_phase_host>"):
         _count("host")
+        if prof is not None:
+            _prof_host_features(prof, req)
         timed_out = False
         seg_results = []
         masks_iter = iter_match_masks(ctx, req.query)
@@ -645,7 +745,11 @@ def _general_host_path(ctx: ShardContext, req: ParsedSearchRequest, k: int,
             if si > 0 and deadline.expired():
                 timed_out = True
                 break
+            t_seg = time.monotonic() if prof is not None else 0.0
             scores, match = next(masks_iter)
+            if prof is not None:
+                prof.segment(seg.gen, docs=int(seg.doc_count), path="host",
+                             ms=(time.monotonic() - t_seg) * 1000.0)
             seg_results.append((scores, match))
             if req.min_score is not None:
                 match = match & (scores >= np.float32(req.min_score))

@@ -107,9 +107,12 @@ class _BoundedPool:
 
     def stats(self) -> dict:
         with self._lock:
-            return {"threads": self.size, "queue": self.queued,
-                    "queue_size": self.queue_size, "active": self.active,
-                    "rejected": self.rejected, "completed": self.completed}
+            out = {"threads": self.size, "queue": self.queued,
+                   "queue_size": self.queue_size, "active": self.active,
+                   "rejected": self.rejected, "completed": self.completed}
+        # the histogram's own stripe locks, outside _lock
+        out["queue_wait"] = self.queue_wait.stats()
+        return out
 
 
 class ThreadPool:

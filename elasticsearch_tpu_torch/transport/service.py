@@ -8,10 +8,14 @@ wire codec (`common/stream.py`) even in-process, so a payload the TCP
 transport could not carry fails here too. The encoded request is reserved
 on the `in_flight_requests` breaker until its response future resolves.
 
-Not in this slice: tracing spans and their wire context, the fault-injection
-policy, the per-request response timer and the backstop sweep of stale
-reservations (every in-process future resolves: a handler answers or
-fails)."""
+A request sent from a thread that carries a sampled span
+(common/tracing.py) is wrapped in a `transport[<action>]` span, and its
+trace context rides the payload under `_trace` (a tagged value of the
+codec); the span ends when the response future resolves.
+
+Not in this slice: the fault-injection policy, the per-request response
+timer and the backstop sweep of stale reservations (every in-process
+future resolves: a handler answers or fails)."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from concurrent.futures import Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Callable
 
+from ..common import tracing
 from ..common.errors import (
     ActionNotFoundError,
     ReceiveTimeoutError,
@@ -93,6 +98,8 @@ class TransportService:
         self.logger = get_logger("transport")
         # the node's in_flight_requests breaker (None: unaccounted)
         self.in_flight_breaker = None
+        # messages sent and received (`/_nodes/stats` transport)
+        self.stats = {"rx_count": 0, "tx_count": 0}
         backend.bind(self)
 
     def register_handler(self, action: str, fn: Callable, executor: str = "same"):
@@ -107,6 +114,15 @@ class TransportService:
         """Dispatch `request` to `node`; the Future resolves to the response
         (or its error)."""
         fut: Future = Future()
+        self.stats["tx_count"] += 1
+        # a sampled caller's trace context rides the payload; unsampled
+        # requests pay one thread-local read
+        parent_span = tracing.current_span()
+        if parent_span:
+            tspan = parent_span.child(f"transport[{action}]")
+            request = {**request,
+                       tracing.TRACE_WIRE_KEY: tracing.wire_context(tspan)}
+            fut.add_done_callback(lambda _f: tspan.end())
         try:
             raw = _encode(request)
             self._charge_in_flight(len(raw), action, fut)
@@ -147,6 +163,7 @@ class TransportService:
     def dispatch(self, action: str, request: Any, channel: TransportChannel):
         """Run the action's handler on its executor; a bounded-queue rejection
         travels back as the response's error (a typed 429)."""
+        self.stats["rx_count"] += 1
         handler = self.handlers.get(action)
         if handler is None:
             channel.send_failure(ActionNotFoundError(f"no handler for action [{action}]"))

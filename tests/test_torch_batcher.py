@@ -449,7 +449,7 @@ def test_stats_shape(shard_ctx):
         b.shutdown()
     assert set(st) == {"launches", "coalesced", "occupancy_mean",
                        "full_flushes", "linger_flushes", "deadline_flushes",
-                       "pending_flushes", "bypassed", "direct", "splits",
+                       "pending_flushes", "bypassed", "profile_bypassed", "direct", "splits",
                        "device_splits", "queue", "ewma_batch_ms", "batch", "merge_wait"}
     assert st["launches"] >= 1 and st["batch"]["count"] == st["launches"]
     assert st["merge_wait"]["count"] <= st["launches"]

@@ -294,17 +294,17 @@ def test_whole_cluster_search_and_health_match_jax_node(nodes):
 def test_port_refuses_what_it_does_not_serve(nodes):
     pbase, jbase, _p = nodes
     st, r = call(pbase, "POST", "/three/_search",
-                 {"query": {"match": {"body": "w1"}}, "profile": True})
+                 {"query": {"match": {"body": "w1"}}, "no_such_key": True})
     assert st == 400 and r["error"]["type"] == "QueryParsingException"
-    assert "later slice" in r["error"]["reason"]
+    assert "not served" in r["error"]["reason"]
     for base in (pbase, jbase):
         st, r = call(base, "POST", "/missing/_search", {"query": {"match": {"body": "w1"}}})
         assert st == 404 and r["error"]["type"] == "IndexMissingException", r
     # a JAX route of a later slice names it; a route neither node has
     # answers "No handler found"
-    st, r = call(pbase, "GET", "/_nodes/stats")
+    st, r = call(pbase, "GET", "/_cluster/stats")
     assert st == 400 and r["error"]["type"] == "NotPortedException"
-    assert "A7" in r["error"]["reason"]
+    assert "A7b" in r["error"]["reason"]
     st, r = call(pbase, "GET", "/_foo/bar")
     assert st == 400 and "No handler found" in r["error"]
     # a clause on a numeric field answers from its doc-value column, with

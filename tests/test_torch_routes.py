@@ -11,7 +11,9 @@ its path filled in (an existing index `p3`, type `doc`, id `1`), answers
 mappings stay as they were (before the repair, `POST /p3/_close` answered
 201 and indexed a document of type `_close`; index administration, which
 served that route since, is held against the JAX node in
-`tests/test_torch_index_admin.py`)."""
+`tests/test_torch_index_admin.py`). The 20 pairs of the observability
+slice (A7a), which left that table, are each served on the port node:
+200, and the index untouched (a profiler's stop after its start)."""
 
 import json
 import re
@@ -69,7 +71,7 @@ def test_port_registers_every_jax_route_and_no_other():
     assert port == jax, (sorted(jax - port), sorted(port - jax))
     later = {(m, re.sub(r"\{\w+\}", "{}", t)) for m, t, _s in LATER}
     assert len(later) == len(LATER)  # no pair twice in the table
-    assert len(jax) == 255 and len(later) == 64
+    assert len(jax) == 255 and len(later) == 44
 
 
 @pytest.fixture(scope="module")
@@ -117,4 +119,34 @@ def test_later_route_answers_400_and_writes_nothing(port, method, template, slic
     if method != "HEAD":
         err = json.loads(payload)["error"]
         assert err["type"] == "NotPortedException" and slice_ in err["reason"], err
+    assert _state(port) == before == (3, before[1])
+
+
+# the pairs the observability slice (A7a) serves; none is in _LATER_ROUTES
+A7A = [("GET", "/_stats"), ("GET", "/{index}/_stats"), ("GET", "/_status"),
+       ("GET", "/{index}/_status"), ("GET", "/_segments"), ("GET", "/{index}/_segments"),
+       ("GET", "/_nodes"), ("GET", "/_nodes/stats"), ("GET", "/_nodes/stats/{metric}"),
+       ("GET", "/_nodes/{node_id}/stats"), ("GET", "/_nodes/{node_id}/stats/{metric}"),
+       ("GET", "/_cluster/nodes/hot_threads"), ("GET", "/_nodes/hot_threads"),
+       ("GET", "/_insights/queries"), ("GET", "/_events"), ("GET", "/_traces"),
+       ("GET", "/_tasks"), ("GET", "/_prometheus/metrics"),
+       ("POST", "/_nodes/_local/profiler/start"), ("POST", "/_nodes/_local/profiler/stop")]
+
+
+@pytest.mark.parametrize("method,template", A7A, ids=[f"{m} {t}" for m, t in A7A])
+def test_observability_route_is_served_and_writes_nothing(port, method, template):
+    assert (method, template) not in {(m, t) for m, t, _s in LATER}
+    path = template.replace("{index}", "p3").replace("{metric}", "search,tracing") \
+        .replace("{node_id}", "_local")
+    if "hot_threads" in path:
+        path += "?interval=1ms"
+    before = _state(port)
+    if path.endswith("/profiler/stop"):
+        assert _send(port, "POST", "/_nodes/_local/profiler/start")[0] == 200
+    st, payload = _send(port, method, path)
+    assert st == 200, (method, path, payload)
+    if path.endswith("/profiler/start"):
+        assert _send(port, "POST", "/_nodes/_local/profiler/stop")[0] == 200
+    if not path.startswith(("/_nodes/hot", "/_cluster/nodes/hot", "/_prometheus")):
+        assert "NotPorted" not in json.dumps(json.loads(payload))
     assert _state(port) == before == (3, before[1])

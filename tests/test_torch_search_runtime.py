@@ -23,10 +23,11 @@ place; `?q=` query strings; `?preference=` `_shards:`, `_primary`,
 `search_type` value the JAX node
 serves, and an unknown one, which both serve as `query_then_fetch`.
 `split_preference` equals the JAX one over a grammar table. The `_search`
-parameters `profile` and `trace` and the body key `profile` answer 400 on
-the port, naming their slice (A7); the parameter `fields` and the body keys
+parameters `profile` and `trace` and the body key `profile`, refused until
+the observability slice (A7a), and the parameter `fields` and the body keys
 `suggest`, `highlight` and `explain`, refused until the fetch slice (A6b),
-give the JAX node's answer."""
+give the JAX node's hits (tests/test_torch_profile.py and
+tests/test_torch_tracing.py hold the profile and the trace against it)."""
 
 import json
 
@@ -352,36 +353,37 @@ def test_search_types_match_jax(nodes, search_type):
 
 @pytest.mark.parametrize("param", ["fields=body", "profile=true", "trace=true"])
 def test_later_search_params_answer_400(nodes, param):
-    """`profile` and `trace` answer 400 naming A7; `fields`, served since
-    the fetch slice (A6b), gives the JAX node's hits."""
+    """Each parameter refused by an earlier slice of the port is served now:
+    `fields` since the fetch slice (A6b), `profile` and `trace` since the
+    observability slice (A7a), each with the JAX node's hits and the
+    section it asks for."""
+    pr = _same_hits(nodes, "GET", f"/rt/_search?{param}&q=body:w1", None)
     if param.startswith("fields"):
-        pr = _same_hits(nodes, "GET", f"/rt/_search?{param}&q=body:w1", None)
         assert all("fields" in h and "_source" not in h for h in pr["hits"]["hits"])
-        return
-    st, r = call(nodes[0], "GET", f"/rt/_search?{param}")
-    assert st == 400 and "later slices" in r["error"]["reason"]
-    assert "A7" in r["error"]["reason"]
+    elif param.startswith("profile"):
+        assert len(pr["profile"]["shards"]) == pr["_shards"]["successful"]
+    else:
+        assert pr["trace"]["tree"]["name"] == "rest"
 
 
 @pytest.mark.parametrize("key,value", [("suggest", {"s": {"text": "w1", "term": {"field": "body"}}}),
                                        ("highlight", {"fields": {"body": {}}}),
                                        ("explain", True), ("profile", True)])
 def test_later_body_keys_answer_400(nodes, key, value):
-    """`profile` answers 400 naming A7; `suggest`, `highlight` and `explain`,
-    served since the fetch slice (A6b), give the JAX node's answer."""
+    """`suggest`, `highlight` and `explain`, served since the fetch slice
+    (A6b), and `profile`, since the observability slice (A7a), give the JAX
+    node's answer."""
     body = {"query": {"match": {"body": "w1"}}, key: value}
-    if key != "profile":
-        pr = _same_hits(nodes, "POST", "/rt/_search", body)
-        if key == "suggest":
-            _st, pr, jr = _both(nodes, "POST", "/rt/_search", body)
-            assert pr["suggest"] and pr["suggest"] == jr["suggest"]
-        if key == "highlight":
-            assert all("highlight" in h for h in pr["hits"]["hits"])
-        return
-    st, r = call(nodes[0], "POST", "/rt/_search", body)
-    assert st == 400 and r["error"]["type"] == "QueryParsingException"
-    assert "later slices" in r["error"]["reason"]
-    assert "A7" in r["error"]["reason"]
+    pr = _same_hits(nodes, "POST", "/rt/_search", body)
+    if key == "suggest":
+        _st, pr, jr = _both(nodes, "POST", "/rt/_search", body)
+        assert pr["suggest"] and pr["suggest"] == jr["suggest"]
+    if key == "highlight":
+        assert all("highlight" in h for h in pr["hits"]["hits"])
+    if key == "profile":
+        _st, pr, jr = _both(nodes, "POST", "/rt/_search", body)
+        assert [p["plan"]["outcome"] for p in pr["profile"]["shards"]] == \
+            [p["plan"]["outcome"] for p in jr["profile"]["shards"]]
 
 
 def test_only_node_preference_matches_jax(nodes):

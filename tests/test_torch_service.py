@@ -196,22 +196,20 @@ _SERVED_FEATURES = {"post_filter": {"term": {"body": "w1"}},
                     "aggregations": {"m": {"max": {"field": "n"}}},
                     "sort": [{"n": "desc"}], "rescore": _RESCORE,
                     "suggest": _SUGGEST, "highlight": {"fields": {"body": {}}},
-                    "explain": True}
+                    "explain": True, "profile": True}
 
 
 @pytest.mark.parametrize("key", ["aggs", "aggregations", "sort", "post_filter",
                                  "filter", "rescore", "min_score", "suggest",
                                  "highlight", "explain", "profile"])
 def test_unported_request_features_raise(key):
-    """The request features of later slices (`profile`) raise;
-    `post_filter`, its older name `filter`, `min_score`, `sort`, the
-    aggregations, `rescore`, `suggest`, `highlight` and `explain` parse into
-    the request."""
-    body = {"query": {"match": {"body": "w1"}}, key: _SERVED_FEATURES.get(key, {})}
-    if key not in _SERVED_FEATURES:
-        with pytest.raises(QueryParsingError, match="later slice"):
-            parse_search_body(body)
-        return
+    """`post_filter`, its older name `filter`, `min_score`, `sort`, the
+    aggregations, `rescore`, `suggest`, `highlight`, `explain` and (since
+    the observability slice) `profile` parse into the request; a key the
+    port does not serve raises beside any of them."""
+    body = {"query": {"match": {"body": "w1"}}, key: _SERVED_FEATURES[key]}
+    with pytest.raises(QueryParsingError, match="not served"):
+        parse_search_body({**body, "no_such_key": {}})
     req = parse_search_body(body)
     if key in ("aggs", "aggregations"):
         assert list(req.aggs) == ["m"] and req.post_filter is None
@@ -221,6 +219,8 @@ def test_unported_request_features_raise(key):
         assert (req.min_score, req.post_filter) == (0.5, None)
     elif key == "rescore":
         assert req.rescore == [_RESCORE] and req.post_filter is None
+    elif key == "profile":
+        assert req.profile and req.post_filter is None
     elif key in ("suggest", "highlight", "explain"):
         assert (req.suggest, req.explain, req.body[key]) == (
             _SUGGEST if key == "suggest" else None, key == "explain",
