@@ -62,11 +62,12 @@ those paths against its plain torch version on the card. Phases:
  10. the node over HTTP: a port `Node` on the card, every thread pool at
      its default size, serves REST on an ephemeral port; `PUT /corpus` with
      the defaults (5 shards, 1 replica: health yellow on one node) and
-     `refresh_interval: -1`; 100,000 docs (200,000 before phase 19 joined
-     the run, 150,000 before phase 21 did) (phase 2's generator rendered as tokens `t<rank>`) in `_bulk`
+     `refresh_interval: -1`; 50,000 docs (200,000 before phase 19 joined
+     the run, 150,000 before phase 21 did, 100,000 before phase 25 did)
+     (phase 2's generator rendered as tokens `t<rank>`) in `_bulk`
      requests of 1,000 through the host analyzer into each shard's durable
-     Engine, then `_refresh`; 1,024 `_search` requests (2,048 before phase
-     19) (phase 3's 4-term `bool` of
+     Engine, then `_refresh`; 512 `_search` requests (2,048 before phase
+     19, 1,024 before phase 25) (phase 3's 4-term `bool` of
      `should` terms, size 10, `_source` returned) from 64 client threads in
      a process of their own, each on its own keep-alive connection, the
      whole timed run under `set_sync_debug_mode("error")`. Every response's
@@ -143,8 +144,9 @@ those paths against its plain torch version on the card. Phases:
      request by family (CUDA events and host wall), launches and copies a
      request, the resident bytes of the agg rows and bucket columns, and
      the top device ops of one `aggs_terms` request. The node leg, on phase
-     10's node before it closes: a `catalog` index (5 shards) of 25,000 of
-     phase 10's texts (50,000 before phase 18 joined the run) with `pop`,
+     10's node before it closes: a `catalog` index (5 shards) of 12,500 of
+     phase 10's texts (50,000 before phase 18 joined the run, 25,000
+     before phase 25 did) with `pop`,
      `likes` and `cat`, bulked over HTTP, then 128 `_search` requests (256
      before phase 18) from the same 64 connections drawn in a seeded
      order from the library leg's families, a `facets` body and a
@@ -436,8 +438,8 @@ those paths against its plain torch version on the card. Phases:
      connection: hits equal to the unprofiled answer, every shard's profile
      `device_sparse` with its segments and its device phase timed by CUDA
      events (a pair a launch); the phases' p50 and the device phase a launch
-     against the kernel's own time at the shapes launched. (b) 512 of them
-     from 64 connections at `search.trace.sample_rate` 0.0, then 1.0:
+     against the kernel's own time at the shapes launched. (b) 256 of them
+     (512 before phase 25 joined the run) from 64 connections at `search.trace.sample_rate` 0.0, then 1.0:
      requests/s of each and the ratio; one `PendingPull.wait` a batch and no
      `torch.cuda.synchronize` in either leg; every `rest` trace of `/_traces`
      holds rest → coordinator → transport → shard → batcher queue, dispatch
@@ -453,6 +455,41 @@ those paths against its plain torch version on the card. Phases:
      ledger against `torch.cuda.memory_allocated()` as its packs are dropped
      and packed again by one search (0.9-1.1). The kernel bitwise against
      its plain version at every shape the phase launched.
+ 25. the admin REST surface, on phase 10's node after phase 24; it ends the
+     node. (a) `GET /_cat` and every route it lists, 200 `text/plain`; the
+     nine tables built on the renderer read with `?v` (its header names the
+     `?help` columns), `?help` and `?h=` of two aliases;
+     `_cat/segments/corpus` all packed, the segments' resident bytes (from
+     `/_segments`) equal to the ledger's postings and dense-plane tiers of
+     `/corpus/_stats`; `_cat/batcher` around 256 of phase 10's `bool` bodies
+     from 16 connections: `coalesced` up by the shard requests, `launches`
+     up by the batches, `sparse_score` (smem plus global) up by at least
+     the batches; `_cat/health` `device_ok`, then
+     `device_degraded:pull:corpus` while that domain is open, then
+     `device_ok` once a probe closes it; `_cat/caches` request hits up on a
+     repeated size-0 body. (b) a transient
+     `index.search.slowlog.threshold.query.warn` of `0ms` by `PUT
+     /_cluster/settings`: the next search logs a slowlog line a shard; `1h`:
+     none; `_cluster/stats` `docs.count` equal to the sum of `_count` over
+     the node's indexes; `_cluster/state/metadata,routing_table/corpus` of
+     `corpus` alone; `_cluster/pending_tasks` empty; a reroute with no
+     commands acknowledged, the routing unchanged. (c) 64 of the bodies as
+     SMILE and as CBOR bodies, and as JSON with `?format=smile`, `cbor` and
+     `yaml` (where PyYAML imports; else `?format=yaml` must answer 500
+     `serialization_exception` and a YAML body 400 `parse_exception`):
+     every decoded answer's ids and scores bitwise the JSON answer's. (d) in
+     a child (this script, `--locktrace-child`, 45 s limit) the port's lock
+     tracer installed before anything of the port is imported, then a node
+     on the card, 5,000 of phase 10's texts into 2 shards and 256 searches
+     from 16 connections with a write, a `_refresh` and an `_optimize` among
+     them: no lock-order cycle, `held_device_gets` 0 (no wait on the card
+     under a held port lock), no `lock_stall` journalled; the locks,
+     acquisitions and order edges printed. (e) `POST
+     /_cluster/nodes/_local/_shutdown` answers the node's id; within 5 s the
+     HTTP port refuses and the batcher's drainer has exited;
+     `torch.cuda.memory_allocated()` before and after beside the ledger's
+     resident bytes just before. The kernel bitwise against its plain
+     version at every shape the phase and its child launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -487,8 +524,9 @@ K1, B = 1.2, 0.75
 
 SERVE_REQUESTS, SERVE_CALLERS = 8192, 128  # phase 9's traffic
 # phase 10's load and traffic (200,000 docs and 2,048 requests before phase
-# 19 joined the run, 150,000 docs before phase 21 did: cut for the run's time)
-NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 100_000, 1024, 64
+# 19 joined the run, 150,000 docs before phase 21 did, 100,000 docs and
+# 1,024 requests before phase 25 did: cut for the run's time)
+NODE_DOCS, NODE_REQUESTS, NODE_CALLERS = 50_000, 512, 64
 NODE_BULK, NODE_SIZE, NODE_SHARDS = 1000, 10, 5  # docs a _bulk, hits a request, shards
 NODE_PROFILED = 256  # requests in phase 10's profiled window (512 before phase 19)
 # a search response's `_shards` on phase 10's node: every shard answered from
@@ -533,9 +571,9 @@ SORT_AGG_COUNTER = {"sort_asc": "device_sort", "sort_desc_scores": "device_sort"
                     "sort_url": "device_sort"}
 # phase 13's node leg: the `catalog` index (5 shards) and its traffic, the
 # library leg's families plus a `facets` body and a `?sort=pop:desc` URL
-# (50,000 docs and 256 requests before phase 18 joined the run: cut for the
-# run's time)
-CATALOG_DOCS, CATALOG_REQUESTS = 25_000, 128
+# (50,000 docs and 256 requests before phase 18 joined the run, 25,000 docs
+# before phase 25 did: cut for the run's time)
+CATALOG_DOCS, CATALOG_REQUESTS = 12_500, 128
 AGG_RTOL = 1e-5  # a sum or average from the card (tests/test_device_aggs.py)
 # phase 14's node leg: the `writes` index (5 shards), its rounds of a _bulk
 # of NODE_BULK docs, _refresh and WRITE_REQUESTS _search requests
@@ -618,8 +656,19 @@ RUNTIME_CONN = 16
 FETCH_REQUESTS, FETCH_CONN, FETCH_PROFILED = 128, 16, 64
 FETCH_SMALL_DOCS, FETCH_SHARDS = 2000, 3
 # phase 24 on phase 10's node: profiled bodies, the traffic of each traced
-# leg and its connections, and the searches in the device profiler's window
-OBS_PROFILED, OBS_TRACED, OBS_CONN, OBS_WINDOW = 64, 512, 64, 16
+# leg (512 before phase 25 joined the run: cut for the run's time) and its
+# connections, and the searches in the device profiler's window
+OBS_PROFILED, OBS_TRACED, OBS_CONN, OBS_WINDOW = 64, 256, 64, 16
+# phase 25 on phase 10's node: the `_cat` routes built on the table renderer,
+# the burst read through `_cat/batcher` and its connections, the bodies sent
+# in each content format, and the seconds a shutdown may take
+ADMIN_CAT_TABLES = ("shards", "allocation", "count", "aliases", "thread_pool",
+                    "batcher", "caches", "segments", "events")
+ADMIN_BURST, ADMIN_CONN, ADMIN_FORMATS, ADMIN_SHUTDOWN_S = 256, 16, 64, 5.0
+# phase 25 (d)'s child: documents, shards and searches, its time limit, and
+# the held-wait threshold of the lock tracer's long-held list
+LOCKTRACE_DOCS, LOCKTRACE_SHARDS, LOCKTRACE_SEARCHES = 5_000, 2, 256
+LOCKTRACE_TIMEOUT_S, LOCKTRACE_HELD_MS = 45, 50.0
 # phase 22 on a node of its own: `website` posts (5,000, cut from a site's
 # hundreds of thousands: from 20,000 after a 190 s phase on the card, and
 # from 10,000 after a 136 s phase on a slow host, where the background
@@ -673,8 +722,13 @@ KERNELS = {
 }
 
 
+_T0 = time.monotonic()
+
+
 def log(*parts) -> None:
-    print(*parts, flush=True)
+    """A line of the run's log, after the seconds since the script started
+    (where a run's time goes, phase by phase)."""
+    print(f"{time.monotonic() - _T0:7.1f}s", *parts, flush=True)
 
 
 def card_line() -> str:
@@ -1547,14 +1601,15 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         device, csr, vocab, [[t for t, _g in c] for c in batches[1][0]], seed=seed + 14)
 
     # phases 1-14 served nothing on the host path by degrade: every degrade
-    # and device error of the process is phase 15's or phase 16's armed
-    # percolations'
+    # and device error of the process is phase 15's, phase 16's armed
+    # percolations' or phase 25 (a)'s armed health window's
     from elasticsearch_tpu_torch.search import SERVING_COUNTERS
     faults, perc = node["faults"]["counted"], node["percolate"]["counted"]
+    admin = node["admin"]["counted"]
     for key in ("degraded", "device_errors"):
-        assert SERVING_COUNTERS[key] == faults[key] + perc[key], \
+        assert SERVING_COUNTERS[key] == faults[key] + perc[key] + admin[key], \
             (f"{key}: {SERVING_COUNTERS[key]} in the run, {faults[key]} of them phase "
-             f"15's, {perc[key]} phase 16's")
+             f"15's, {perc[key]} phase 16's, {admin[key]} phase 25's")
 
     # -- 18. analysis, similarities and the flat mapper on a node of its own --
     report["analysis"] = analysis = analysis_phase(
@@ -1581,12 +1636,14 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        # phase 10's timed run and phase 20's, 21's and 24's legs, on phase
-        # 10's node
+        # phase 10's timed run and phase 20's, 21's, 24's and 25's legs, on
+        # phase 10's node, and phase 25's lock-trace child
         node_launches=node["launches"].get("sparse_score", 0)
         + node["runtime"]["launches"].get("sparse_score", 0)
         + node["fetch"]["launches"].get("sparse_score", 0)
-        + node["observe"]["launches"].get("sparse_score", 0),
+        + node["observe"]["launches"].get("sparse_score", 0)
+        + node["admin"]["launches"].get("sparse_score", 0)
+        + node["admin"]["locktrace"]["launches"],
         node_max_abs_err=node["kernel_max_abs_err"],
         runtime_launches=node["runtime"]["launches"].get("sparse_score", 0),
         runtime_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
@@ -1600,6 +1657,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         observe_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                         for s in node["observe"]["kernel_shapes"]],
         observe_max_abs_err=node["observe"]["kernel_max_abs_err"],
+        admin_launches=node["admin"]["launches"].get("sparse_score", 0),
+        admin_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                      for s in node["admin"]["kernel_shapes"]],
+        admin_max_abs_err=node["admin"]["kernel_max_abs_err"],
+        locktrace_launches=node["admin"]["locktrace"]["launches"],
+        locktrace_max_abs_err=node["admin"]["locktrace"]["max_abs_err"],
         mixed_launches=node["mixed"]["launches"].get("sparse_score", 0),
         mixed_max_abs_err=node["mixed"]["kernel_max_abs_err"],
         dense_family_max_abs_err=report["dense_family"]["kernel_max_abs_err"],
@@ -2463,6 +2526,8 @@ def node_phase(device, *, vocab: int, seed: int, n_docs: int, n_requests: int,
         # -- 24. observing a search on the card -------------------------------
         recorder.shapes.clear()  # its kept inputs would hold corpus packs
         out["observe"] = observe_phase(device, node, port, bodies=bodies)
+        # -- 25. the admin REST surface; it ends the node ---------------------
+        out["admin"] = admin_phase(device, node, port, texts=texts, bodies=bodies)
         return out
     finally:
         if recorder is not None:
@@ -2870,6 +2935,492 @@ def observe_phase(device, node, port: int, *, bodies,
         return out
     finally:
         recorder.close()
+
+
+def http_raw(conn, method: str, path: str, data: bytes | None = None,
+             ctype: str | None = None):
+    """One request of raw bytes on a keep-alive connection: (status,
+    Content-Type, body bytes)."""
+    conn.request(method, path, body=data, headers={"Content-Type": ctype} if ctype else {})
+    resp = conn.getresponse()
+    return resp.status, resp.getheader("Content-Type"), resp.read()
+
+
+def cat_text(port: int, path: str) -> str:
+    """A `_cat` route's answer, which must be 200 `text/plain`."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        st, ctype, raw = http_raw(conn, "GET", path)
+    finally:
+        conn.close()
+    assert (st, ctype) == (200, "text/plain"), (path, st, ctype, raw[:300])
+    return raw.decode()
+
+
+def cat_numbers(port: int, path: str) -> list[float]:
+    """The one row of a `_cat` table read with `?h=`, as numbers."""
+    return [float(c) for c in cat_text(port, path).split()]
+
+
+def refuses(port: int) -> bool:
+    import socket
+
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=1).close()
+    except OSError:
+        return True
+    return False
+
+
+def admin_phase(device, node, port: int, *, texts, bodies,
+                n_burst: int = ADMIN_BURST, n_formats: int = ADMIN_FORMATS) -> dict:
+    """Phase 25, on phase 10's node after phase 24, which it ends: the admin
+    REST surface on a node whose packs are on the card. (a) `/_cat` and
+    every route it lists (200 `text/plain`); the `_cat_table` routes with
+    `?v`, `?help` and `?h=` of two aliases; `_cat/segments/corpus` packed,
+    its resident bytes (from `/_segments`) equal to the ledger's postings
+    and dense-plane tiers; `_cat/batcher` across a burst of `n_burst`
+    `bool` bodies from ADMIN_CONN connections; `_cat/health` through an
+    open `pull:corpus` domain and its recovery; `_cat/caches` request hits
+    on a repeated size-0 body. (b) `_cluster/settings` arming and disarming
+    the slowlog, `_cluster/stats` against `_count`, `_cluster/state` of one
+    index, `pending_tasks`, a reroute with no commands. (c) `n_formats`
+    bodies as SMILE and as CBOR bodies and with `?format=` smile, cbor and
+    yaml: the JSON answer's hits. (d) the lock tracer in a child process.
+    (e) `_shutdown` of the node: its HTTP port and the batcher's drainer
+    stop within ADMIN_SHUTDOWN_S; `torch.cuda.memory_allocated()` before
+    and after beside the ledger's resident bytes. `sparse_score` against
+    its plain version at every shape the phase launched."""
+    import http.client
+    import logging
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv, xcontent
+    from elasticsearch_tpu_torch.common.devicehealth import CLOSED, DEVICE_HEALTH
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+    from elasticsearch_tpu_torch.transport.faults import DEVICE_FAULTS
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    launches: dict = {}
+    recorder = LaunchRecorder(scoring, sparse_score, copy_inputs=True)
+
+    def take() -> dict:
+        snap = cudaenv.LAUNCHES.snapshot()
+        cudaenv.LAUNCHES.reset()
+        for name, n in snap.items():
+            launches[name] = launches.get(name, 0) + n
+        return snap
+
+    def search_reqs(bs, params=""):
+        return [("POST", f"/corpus/_search{params}", b, None) for b in bs]
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    counted0 = dict(SERVING_COUNTERS)
+    try:
+        cudaenv.LAUNCHES.reset()  # what earlier phases launched is not this one's
+        # -- (a) _cat ----------------------------------------------------------
+        t0 = time.perf_counter()
+        listing = [ln.split("/_cat/")[1] for ln in cat_text(port, "/_cat").splitlines()]
+        assert set(ADMIN_CAT_TABLES) < set(listing), listing
+        for route in listing:
+            cat_text(port, f"/_cat/{route}")
+        for route in ADMIN_CAT_TABLES:
+            help_rows = [ln.split(" | ") for ln in
+                         cat_text(port, f"/_cat/{route}?help").splitlines()]
+            names = [r[0] for r in help_rows]
+            header = cat_text(port, f"/_cat/{route}?v").splitlines()[0].split()
+            # thread_pool's default view is a part of its columns
+            assert header == names or (route == "thread_pool" and set(header) < set(names)), \
+                (route, header, names)
+            aliases = [r[1] for r in help_rows if r[1] != r[0]][:2]
+            got = cat_text(port, f"/_cat/{route}?v&h={','.join(aliases)}")
+            assert got.splitlines()[0].split() == aliases, (route, aliases, got)
+        seg_rows = [ln.split() for ln in
+                    cat_text(port, "/_cat/segments/corpus?v").splitlines()]
+        col = seg_rows[0].index("packed")
+        assert seg_rows[1:] and all(r[col] == "true" for r in seg_rows[1:]), seg_rows[:3]
+        st, segs = http_json(conn, "GET", "/corpus/_segments")
+        assert st == 200
+        resident = sum(seg["device"]["resident_bytes"]
+                       for shard in segs["indices"]["corpus"]["shards"].values()
+                       for copy in shard for seg in copy["segments"].values())
+        st, stats = http_json(conn, "GET", "/corpus/_stats")
+        tiers = stats["indices"]["corpus"]["device"]["totals"]
+        assert resident == tiers["postings"] + tiers["dense_plane"], (resident, tiers)
+        assert len(seg_rows) - 1 == sum(len(copy["segments"]) for shard in
+                                        segs["indices"]["corpus"]["shards"].values()
+                                        for copy in shard)
+        cat_s = time.perf_counter() - t0
+        # the batcher across a burst
+        take()
+        b0 = cat_numbers(port, "/_cat/batcher?h=launches,coalesced,bypassed")
+        burst, _lat, burst_wall = http_requests(port, search_reqs(bodies[:n_burst]),
+                                                ADMIN_CONN)
+        b1 = cat_numbers(port, "/_cat/batcher?h=launches,coalesced,bypassed")
+        burst_launches = take()
+        for i, (st, r) in enumerate(burst):
+            assert st == 200 and r["_shards"] == SHARDS_OK, (i, r.get("_shards", r))
+        d_launch, d_items, d_bypass = (int(b - a) for a, b in zip(b0, b1))
+        assert d_items == n_burst * NODE_SHARDS - d_bypass and d_bypass == 0, (b0, b1)
+        assert 0 < d_launch <= d_items, (b0, b1)
+        kernel_launches = (burst_launches.get("sparse_score.smem", 0)
+                           + burst_launches.get("sparse_score.global", 0))
+        if on_card:
+            assert kernel_launches >= d_launch, (burst_launches, d_launch)
+        out["batcher"] = dict(requests=n_burst, batches=d_launch, coalesced=d_items,
+                              occupancy=d_items / d_launch, wall_s=burst_wall,
+                              requests_per_s=n_burst / burst_wall,
+                              sparse_score=kernel_launches)
+        log(f"[25] (a) /_cat lists {len(listing)} routes, each 200 text/plain; the "
+            f"{len(ADMIN_CAT_TABLES)} tables' ?v headers name their ?help columns and "
+            f"?h= takes aliases ({cat_s:.2f} s); _cat/segments/corpus: "
+            f"{len(seg_rows) - 1} segments all packed, their resident bytes {resident} B "
+            f"== the ledger's postings + dense_plane tiers")
+        log(f"[25] (a) _cat/batcher across {n_burst} searches from {ADMIN_CONN} "
+            f"connections ({out['batcher']['requests_per_s']:.1f} requests/s): coalesced "
+            f"+{d_items} (= {n_burst} x {NODE_SHARDS} shards), launches +{d_launch} "
+            f"(occupancy {d_items / d_launch:.2f}), sparse_score smem+global +"
+            f"{kernel_launches}")
+        # health through an open fault domain
+        health = [cat_text(port, "/_cat/health").split()[-1]]
+        assert health[0] == "device_ok", health
+        window0 = dict(SERVING_COUNTERS)
+        DEVICE_FAULTS.arm(error="transfer", domain="pull:corpus", times=10 ** 6)
+        try:
+            got, _l, _w = http_requests(port, search_reqs(bodies[:1]), 1)
+            assert got[0][0] == 200 and got[0][1]["_shards"]["degraded"] >= 1, got[0]
+            health.append(cat_text(port, "/_cat/health").split()[-1])
+            assert health[1] == "device_degraded:pull:corpus", health
+        finally:
+            DEVICE_FAULTS.disarm()
+        t_dis = time.perf_counter()
+        while DEVICE_HEALTH.state("pull:corpus") != CLOSED:
+            assert time.perf_counter() - t_dis < RECOVER_S, DEVICE_HEALTH.stats()
+            http_requests(port, search_reqs(bodies[:1]), 1)
+        recover_s = time.perf_counter() - t_dis
+        health.append(cat_text(port, "/_cat/health").split()[-1])
+        assert health[2] == "device_ok", health
+        DEVICE_HEALTH.reset()
+        # the armed window's degrades: the run holds every degrade of the
+        # process to the phases that arm faults
+        window = {k: SERVING_COUNTERS[k] - window0[k] for k in ("degraded", "device_errors")}
+        # the request cache's hits on a repeated size-0 body
+        c0 = cat_numbers(port, "/_cat/caches?h=hits")
+        zero = {"query": bodies[0]["query"], "size": 0}
+        for _ in range(2):
+            st, r = http_json(conn, "POST", "/corpus/_search", zero)
+            assert st == 200, r
+        c1 = cat_numbers(port, "/_cat/caches?h=hits")
+        assert c1[0] - c0[0] >= NODE_SHARDS and c1[1] == c0[1], (c0, c1)
+        out["cat"] = dict(routes=listing, tables=list(ADMIN_CAT_TABLES), wall_s=cat_s,
+                          segments=len(seg_rows) - 1, resident_bytes=resident,
+                          health=health, recover_s=recover_s,
+                          request_cache_hits=int(c1[0] - c0[0]))
+        log(f"[25] (a) _cat/health {health[0]} -> {health[1]} while the domain is open "
+            f"-> {health[2]} {recover_s:.3f} s after the disarm; _cat/caches request "
+            f"hits +{int(c1[0] - c0[0])} on a repeated size-0 body")
+
+        # -- (b) _cluster/* ----------------------------------------------------
+        key = "index.search.slowlog.threshold.query.warn"
+        lines = {}
+
+        class Capture(logging.Handler):
+            def __init__(self):
+                super().__init__()
+                self.n = 0
+
+            def emit(self, record):
+                self.n += "slowlog" in record.getMessage()
+
+        settings = {}
+        for value in ("0ms", "1h"):
+            st, r = http_json(conn, "PUT", "/_cluster/settings",
+                              {"transient": {key: value}})
+            assert st == 200 and r["acknowledged"], r
+            st, settings[value] = http_json(conn, "GET", "/_cluster/settings")
+            assert settings[value]["transient"]["index"]["search"]["slowlog"][
+                "threshold"]["query"]["warn"] == value, settings[value]
+            handler = Capture()
+            logging.getLogger("estpu_torch.action").addHandler(handler)
+            try:
+                st, r = http_json(conn, "POST", "/corpus/_search", bodies[1])
+            finally:
+                logging.getLogger("estpu_torch.action").removeHandler(handler)
+            assert st == 200
+            lines[value] = handler.n
+        assert lines == {"0ms": NODE_SHARDS, "1h": 0}, lines
+        st, flat = http_json(conn, "GET", "/_cluster/settings?flat_settings=true")
+        assert flat["transient"] == {key: "1h"}, flat
+        st, cstats = http_json(conn, "GET", "/_cluster/stats")
+        assert st == 200
+        names = sorted(node.cluster_service.state.metadata.index_names())
+        counts = {n: http_json(conn, "GET", f"/{n}/_count")[1]["count"] for n in names}
+        assert cstats["indices"]["docs"]["count"] == sum(counts.values()), (cstats, counts)
+        assert cstats["indices"]["count"] == len(names)
+        st, one = http_json(conn, "GET", "/_cluster/state/metadata,routing_table/corpus")
+        assert st == 200 and list(one["metadata"]["indices"]) == ["corpus"] and \
+            list(one["routing_table"]["indices"]) == ["corpus"], list(one)
+        st, tasks = http_json(conn, "GET", "/_cluster/pending_tasks")
+        assert st == 200 and tasks == {"tasks": []}, tasks
+        st, before = http_json(conn, "GET", "/_cluster/state/routing_table")
+        st, rr = http_json(conn, "POST", "/_cluster/reroute")
+        assert st == 200 and rr["acknowledged"], rr
+        st, after = http_json(conn, "GET", "/_cluster/state/routing_table")
+        assert after["routing_table"] == before["routing_table"]
+        out["cluster"] = dict(slowlog_lines=lines, docs=cstats["indices"]["docs"],
+                              indices=counts, state_version=rr["state_version"])
+        log(f"[25] (b) PUT _cluster/settings transient {key}: 0ms -> {lines['0ms']} "
+            f"slowlog lines on the next search (one a shard), 1h -> {lines['1h']}; "
+            f"_cluster/stats docs.count {cstats['indices']['docs']['count']} == the sum "
+            f"of _count over {len(names)} indexes; _cluster/state of corpus alone; "
+            f"pending_tasks empty; reroute acknowledged, routing unchanged")
+
+        # -- (c) content formats -----------------------------------------------
+        chosen = bodies[2: 2 + n_formats]
+        plain, _l, _w = http_requests(port, search_reqs(chosen), ADMIN_CONN)
+        want = [[(h["_id"], h["_score"]) for h in r["hits"]["hits"]] for _st, r in plain]
+        try:
+            import yaml  # noqa: F401 — the YAML leg needs PyYAML
+            yaml_ok = True
+        except ImportError:
+            yaml_ok = False
+        legs = [("smile body", xcontent.SMILE, ""), ("cbor body", xcontent.CBOR, ""),
+                ("?format=smile", xcontent.SMILE, "?format=smile"),
+                ("?format=cbor", xcontent.CBOR, "?format=cbor")]
+        if yaml_ok:
+            legs.append(("?format=yaml", xcontent.YAML, "?format=yaml"))
+        formats = {}
+        for name, fmt, params in legs:
+            if name.endswith("body"):
+                def send(c, i, fmt=fmt):
+                    return http_raw(c, "POST", "/corpus/_search",
+                                    xcontent.dumps(chosen[i], fmt),
+                                    xcontent.CONTENT_TYPES[fmt])
+            else:
+                def send(c, i, params=params):
+                    return http_raw(c, "POST", f"/corpus/_search{params}",
+                                    json.dumps(chosen[i]).encode(), "application/json")
+            answers, _lat, wall = pooled_requests(port, len(chosen), ADMIN_CONN, send)
+            for i, (st, ctype, raw) in enumerate(answers):
+                assert (st, ctype) == (200, xcontent.CONTENT_TYPES[fmt]), (name, i, st, raw[:200])
+                r = xcontent.loads(raw, fmt)
+                got = [(h["_id"], h["_score"]) for h in r["hits"]["hits"]]
+                assert got == want[i], (name, i)
+            formats[name] = dict(requests=len(chosen), wall_s=wall)
+        if not yaml_ok:
+            st, ctype, raw = http_raw(conn, "POST", "/corpus/_search?format=yaml",
+                                      json.dumps(chosen[0]).encode(), "application/json")
+            err = json.loads(raw)
+            assert st == 500 and err["error"]["type"] == "serialization_exception", raw
+            st, ctype, raw = http_raw(conn, "POST", "/corpus/_search", b"query: {}",
+                                      "application/yaml")
+            err = json.loads(raw)
+            assert st == 400 and err["error"]["type"] == "parse_exception", raw
+        out["formats"] = dict(legs=formats, yaml="served" if yaml_ok else
+                              "PyYAML missing: ?format=yaml 500 serialization_exception, "
+                              "a YAML body 400 parse_exception")
+        log(f"[25] (c) {len(chosen)} bool bodies each way "
+            + ", ".join(f"{k} {v['requests'] / v['wall_s']:.1f}/s" for k, v in formats.items())
+            + f": every answer's ids and scores bitwise the JSON answer's; YAML: "
+            f"{out['formats']['yaml']}")
+
+        # -- (d) the lock tracer on the card, in a child -----------------------
+        out["locktrace"] = locktrace_phase(device, texts, bodies)
+
+        counted = {k: SERVING_COUNTERS[k] - counted0[k] for k in ("degraded", "device_errors")}
+        assert counted == window and counted["degraded"] >= NODE_SHARDS, (counted, window)
+        out["counted"] = counted
+        # the phase's kernel shapes against the plain version, before the
+        # shutdown (the recorder's copies must not count as resident)
+        out["kernel_shapes"] = [dict(Qb=k[0][0], TB=k[0][1], k=k[2], launches=v[2])
+                                for k, v in recorder.shapes.items()]
+        out["kernel_max_abs_err"] = check_shapes(recorder.shapes)
+        recorder.close()
+        recorder.shapes.clear()
+        take()
+
+        # -- (e) shutdown ------------------------------------------------------
+        st, dev = http_json(conn, "GET", "/_nodes/stats/device")
+        ledger = next(iter(dev["nodes"].values()))["device"]
+        drainer = node.search_batcher.drainer_thread
+        assert drainer is not None and drainer.is_alive()
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated(device) if on_card else 0
+        st, r = http_json(conn, "POST", "/_cluster/nodes/_local/_shutdown")
+        t_shut = time.perf_counter()
+        assert st == 200 and r["nodes"] == {node.node_id: {"name": node.name}}, r
+        conn.close()
+        while not (refuses(port) and not drainer.is_alive()):
+            assert time.perf_counter() - t_shut < ADMIN_SHUTDOWN_S, \
+                ("the node still runs", refuses(port), drainer.is_alive())
+            time.sleep(0.02)
+        stop_s = time.perf_counter() - t_shut
+        assert node._closed
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        alloc1 = torch.cuda.memory_allocated(device) if on_card else 0
+        released = alloc0 - alloc1
+        out["shutdown"] = dict(
+            stop_s=stop_s, ledger_bytes=ledger["total_bytes"], ledger_tiers=ledger["totals"],
+            allocated_before=alloc0, allocated_after=alloc1, released_bytes=released,
+            released_over_ledger=(released / ledger["total_bytes"])
+            if on_card and ledger["total_bytes"] else None)
+        sd = out["shutdown"]
+        log(f"[25] (e) POST /_cluster/nodes/_local/_shutdown: the HTTP port refuses and "
+            f"the batcher's drainer has exited {stop_s:.3f} s after the answer; "
+            f"memory_allocated() {alloc0} B -> {alloc1} B (released {released} B) beside "
+            f"the ledger's {ledger['total_bytes']} B resident just before "
+            f"({ledger['totals']}); released/ledger "
+            f"{'not measured' if sd['released_over_ledger'] is None else round(sd['released_over_ledger'], 4)}")
+        out["launches"] = launches
+        out["wall_s"] = time.perf_counter() - t_phase
+        log(f"[25] sparse_score == plain (bitwise) at all {len(out['kernel_shapes'])} "
+            f"shapes phase 25 launched ({launches.get('sparse_score', 0)} launches, the "
+            f"lock-trace child's {out['locktrace']['launches']} apart, its own shapes "
+            f"checked there); phase 25 took {out['wall_s']:.1f} s")
+        return out
+    finally:
+        recorder.close()
+        DEVICE_FAULTS.disarm()
+        conn.close()
+
+
+def locktrace_phase(device, texts, bodies) -> dict:
+    """Phase 25 (d): the lock tracer over a node on the card, in a child
+    process (this script with `--locktrace-child`, LOCKTRACE_TIMEOUT_S):
+    no lock-order cycle, no wait on the card under a held lock, no
+    `lock_stall` journalled."""
+    here = Path(__file__).resolve().parent
+    work = here / "build" / f"chip_smoke_locktrace_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    inp = work / "input.json"
+    inp.write_text(json.dumps({"texts": texts[:LOCKTRACE_DOCS],
+                               "bodies": bodies[:LOCKTRACE_SEARCHES],
+                               "device": str(device), "work": str(work)}))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--locktrace-child", str(inp)], cwd=here,
+                              capture_output=True, text=True, timeout=LOCKTRACE_TIMEOUT_S)
+    finally:
+        wall_s = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert proc.returncode == 0 and lines, (
+        f"the lock-trace child failed (exit {proc.returncode}):\n"
+        + proc.stdout[-2000:] + proc.stderr[-4000:])
+    res = json.loads(lines[-1])
+    assert res["cycle"] is None, res["cycle"]
+    assert res["held_device_gets"] == 0 and res["long_held"] == [], res
+    assert res["lock_stall"] == 0, res
+    assert res["searches"] == LOCKTRACE_SEARCHES and res["locks_created"] > 0, res
+    if device.type == "cuda":
+        assert res["launches"] > 0, res
+    res["wall_s"] = wall_s
+    log(f"[25] (d) lock tracer in a child ({wall_s:.1f} s): a node on {device}, "
+        f"{LOCKTRACE_DOCS} docs bulked into {LOCKTRACE_SHARDS} shards "
+        f"({res['bulk_docs_per_s']:.1f} docs/s), {LOCKTRACE_SEARCHES} searches from "
+        f"{ADMIN_CONN} connections with a _refresh and an _optimize among them "
+        f"({res['requests_per_s']:.1f} requests/s, {res['launches']} sparse_score "
+        f"launches, bitwise == plain at {res['shapes']} shapes): {res['locks_created']} "
+        f"port locks created, {res['acquisitions']} acquisitions, {res['edges']} order "
+        f"edges, no cycle; held_device_gets {res['held_device_gets']} (no wait on the "
+        f"card under a held lock); lock_stall events {res['lock_stall']}")
+    return res
+
+
+def locktrace_child(path: str) -> None:
+    """The child of phase 25 (d): arms the port's lock tracer before any of
+    the port is imported, then a node on the card, its bulk and its
+    traffic; prints one JSON line."""
+    from elasticsearch_tpu_torch.common import locktrace
+
+    tracer = locktrace.install(held_ms_threshold=LOCKTRACE_HELD_MS)
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    inp = json.loads(Path(path).read_text())
+    device = torch.device(inp["device"])
+    texts, bodies = inp["texts"], inp["bodies"]
+    node = Node(name="locktrace", registry=LocalTransportRegistry(),
+                data_path=str(Path(inp["work"]) / "data"),
+                settings={"node.device": str(device), "watchdog.interval": "250ms"}).start()
+    recorder = LaunchRecorder(scoring, sparse_score)
+    try:
+        port = node.start_http(0).port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        st, r = http_json(conn, "PUT", "/traced", {"settings": {
+            "number_of_shards": LOCKTRACE_SHARDS, "refresh_interval": -1}})
+        assert st == 200, r
+        t0 = time.perf_counter()
+        for lo in range(0, len(texts), NODE_BULK):
+            lines = []
+            for i in range(lo, min(lo + NODE_BULK, len(texts))):
+                lines.append(json.dumps({"index": {"_index": "traced", "_type": "doc",
+                                                   "_id": str(i)}}))
+                lines.append(json.dumps({"body": texts[i]}))
+            st, r = http_json(conn, "POST", "/_bulk", ndjson="\n".join(lines) + "\n")
+            assert st == 200 and not r["errors"], r
+        bulk_s = time.perf_counter() - t0
+        st, r = http_json(conn, "POST", "/traced/_refresh")
+        assert st == 200, r
+        st, r = http_json(conn, "POST", "/traced/_search", bodies[0])  # the warmer's gate
+        assert st == 200, r
+        conn.close()
+        cudaenv.LAUNCHES.reset()
+        reqs = [("POST", "/traced/_search", b, None) for b in bodies]
+        # a write, a refresh and an optimize among the searches: the warmer
+        # and merge pools pack beside the drainer
+        mid = len(reqs) // 2
+        reqs[mid: mid] = [("PUT", "/traced/doc/extra", {"body": texts[0]}, None),
+                          ("POST", "/traced/_refresh", None, None),
+                          ("POST", "/traced/_optimize", None, None)]
+        t0 = time.perf_counter()
+        got, _lat, wall = http_requests(port, reqs, ADMIN_CONN)
+        searches = 0
+        for (method, p, _b, _n), (st, r) in zip(reqs, got):
+            assert st in (200, 201), (method, p, r)
+            searches += p.endswith("_search")
+        deadline = time.monotonic() + 10.0
+        while True:  # the warmer's packs finish before the counts are read
+            w = node.warmer.stats()
+            if w["packs_done"] >= w["packs_scheduled"] or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        time.sleep(0.3)  # a watchdog tick after the traffic
+        node.watchdog.tick()
+        launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+        stalls = sum(1 for e in node.events.events() if e["type"] == "lock_stall")
+        snap = tracer.snapshot()
+        cycle = tracer.find_cycle()
+        recorder.close()
+        max_err = check_shapes(recorder.shapes)
+    finally:
+        recorder.close()
+        node.close()
+    print(json.dumps({
+        **snap, "cycle": cycle, "lock_stall": stalls, "searches": searches,
+        "launches": launches, "shapes": len(recorder.shapes), "max_abs_err": max_err,
+        "bulk_docs_per_s": len(texts) / bulk_s, "requests_per_s": len(reqs) / wall}),
+        flush=True)
 
 
 def term_docs(offsets, inv_docs, terms) -> np.ndarray:
@@ -4559,35 +5110,45 @@ def fetch_small_index(port: int, texts, n_docs: int, seed: int, take) -> dict:
         conn.close()
 
 
-def http_requests(port: int, requests: list, n_conn: int) -> tuple[list, np.ndarray, float]:
-    """`requests` [(method, path, JSON body or None, NDJSON text or None)]
-    sent by `n_conn` threads of this process, each on its own keep-alive
-    connection: (responses, per-request ms, wall s)."""
+def pooled_requests(port: int, n: int, n_conn: int, send) -> tuple[list, np.ndarray, float]:
+    """`send(conn, i)` for each i < n from `n_conn` threads of this process,
+    each on its own keep-alive connection: (results, per-request ms, wall
+    s)."""
     import http.client
     from concurrent.futures import ThreadPoolExecutor
 
-    out, lat_ms = [None] * len(requests), np.zeros(len(requests))
+    out, lat_ms = [None] * n, np.zeros(n)
     local = threading.local()
     conns = []
 
-    def send(i):
+    def one(i):
         conn = getattr(local, "conn", None)
         if conn is None:
             conn = local.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
             conns.append(conn)
-        method, path, body, ndjson = requests[i]
         t0 = time.perf_counter()
-        out[i] = http_json(conn, method, path, body, ndjson=ndjson)
+        out[i] = send(conn, i)
         lat_ms[i] = (time.perf_counter() - t0) * 1e3
 
     t0 = time.perf_counter()
     try:
         with ThreadPoolExecutor(n_conn) as ex:
-            list(ex.map(send, range(len(requests))))
+            list(ex.map(one, range(n)))
     finally:
         for conn in conns:
             conn.close()
     return out, lat_ms, time.perf_counter() - t0
+
+
+def http_requests(port: int, requests: list, n_conn: int) -> tuple[list, np.ndarray, float]:
+    """`requests` [(method, path, JSON body or None, NDJSON text or None)]
+    sent by `n_conn` threads of this process, each on its own keep-alive
+    connection: (responses, per-request ms, wall s)."""
+    def send(conn, i):
+        method, path, body, ndjson = requests[i]
+        return http_json(conn, method, path, body, ndjson=ndjson)
+
+    return pooled_requests(port, len(requests), n_conn, send)
 
 
 def http_burst(port: int, requests: list, n_conn: int) -> tuple[list, float]:
@@ -8520,7 +9081,11 @@ def main() -> int:
     ap.add_argument("--report", help="also write the full report as JSON here")
     ap.add_argument("--sticky-child", help=argparse.SUPPRESS)  # phase 15 (b)'s child
     ap.add_argument("--restart-child", help=argparse.SUPPRESS)  # ... and its restart
+    ap.add_argument("--locktrace-child", help=argparse.SUPPRESS)  # phase 25 (d)'s child
     args = ap.parse_args()
+    if args.locktrace_child:
+        locktrace_child(args.locktrace_child)
+        return 0
     if args.sticky_child:
         sticky_child(args.sticky_child)  # leaves with os._exit
     if args.restart_child:

@@ -6,8 +6,10 @@ package's `actions.py`), in the reference's interaction patterns:
   aliases and warmers), delete, open and close indices, update settings
   (`index.blocks.*` install and lift index blocks; a new
   `number_of_replicas` resizes the groups), aliases, templates and search
-  warmers, apply a dynamic-mapping update, shard started — forwarded to the
-  master, which mutates the cluster state on its single state thread. A
+  warmers, apply a dynamic-mapping update, the cluster's transient and
+  persistent settings, a reroute with explicit commands (URGENT), shard
+  started — forwarded to the master, which mutates the cluster state on
+  its single state thread. A
   close drops the index's routing and blocks it (reads and writes answer
   403); an open gives it fresh routing, and its shards recover from their
   stores;
@@ -114,6 +116,10 @@ profiled request never answers from the request cache (it peeks, and
 records the hit or miss as a profile event), and one whose device clock
 cannot record its CUDA events fails the whole search (500).
 
+A node shutdown (`nodes_shutdown`) sends `_s_shutdown_node` to each named
+node on its `management` pool; the node closes itself on a thread of its
+own after a short delay, so the answer leaves first.
+
 Not in this slice: the SPMD mesh branch, cache-affinity routing, failover
 across copies and hedging,
 replica writes (of index, delete, update and delete-by-query alike), and
@@ -207,6 +213,9 @@ A_PUT_WARMER = "indices:admin/warmers/put"
 A_DELETE_WARMER = "indices:admin/warmers/delete"
 A_PUT_MAPPING = "indices:admin/mapping/put"
 A_DELETE_MAPPING = "indices:admin/mapping/delete"
+A_CLUSTER_SETTINGS = "cluster:admin/settings/update"
+A_REROUTE = "cluster:admin/reroute"
+A_SHUTDOWN_NODE = "cluster:admin/nodes/shutdown"
 A_MAPPING_UPDATED = "internal:cluster/mapping_updated"
 A_INDEX_PRIMARY = "indices:data/write/index[p]"
 A_BULK_SHARD = "indices:data/write/bulk[s]"
@@ -297,6 +306,8 @@ class ActionModule:
                            (A_PUT_MAPPING, self._m_put_mapping),
                            (A_DELETE_MAPPING, self._m_delete_mapping),
                            (A_MAPPING_UPDATED, self._m_mapping_updated),
+                           (A_CLUSTER_SETTINGS, self._m_cluster_settings),
+                           (A_REROUTE, self._m_reroute),
                            (ACTION_SHARD_STARTED, self._m_shard_started)]:
             t.register_handler(action, self._master_wrap(fn))
         # data-path actions, each on its named pool
@@ -310,6 +321,8 @@ class ActionModule:
         t.register_handler(A_FREE_CONTEXT, self._s_free_context, executor="search")
         t.register_handler(A_DFS_PHASE, self._s_dfs_phase, executor="search")
         t.register_handler(A_SHARD_BROADCAST, self._s_broadcast,
+                           executor="management")
+        t.register_handler(A_SHUTDOWN_NODE, self._s_shutdown_node,
                            executor="management")
 
     # ================= master-node pattern =================
@@ -691,6 +704,64 @@ class ActionModule:
             out[name] = {"mappings": mappings}
         return out
 
+    def _m_cluster_settings(self, request, channel):
+        body = request["body"]
+
+        def update(state: ClusterState) -> ClusterState:
+            md = state.metadata
+            transient = dict(md.transient_settings)
+            transient.update(Settings.from_flat(body.get("transient", {})).as_dict())
+            persistent = dict(md.persistent_settings)
+            persistent.update(Settings.from_flat(body.get("persistent", {})).as_dict())
+            md = replace(md, transient_settings=tuple(sorted(transient.items())),
+                         persistent_settings=tuple(sorted(persistent.items())),
+                         version=md.version + 1)
+            return state.next_version(metadata=md)
+
+        self._submit("cluster-settings", update)
+        return {"acknowledged": True,
+                "transient": body.get("transient", {}),
+                "persistent": body.get("persistent", {})}
+
+    def _m_reroute(self, request, channel):
+        """The explicit commands, in order, on the routing table: `move`
+        (an active copy on `from_node` goes INITIALIZING on `to_node`),
+        `cancel` (the replica on `node` goes UNASSIGNED), `allocate` and
+        `allocate_replica` (the group's first unassigned replica goes
+        INITIALIZING on `node`); then the allocation's own reroute."""
+        commands = (request.get("body") or {}).get("commands", [])
+
+        def update(state: ClusterState) -> ClusterState:
+            for entry in commands:
+                (cmd, spec), = entry.items()
+                index, shard = spec["index"], int(spec["shard"])
+                table = state.routing_table.index(index)
+                group = table.shard(shard)
+                shards = list(group.shards)
+                if cmd in ("move",):
+                    for i, s in enumerate(shards):
+                        if s.node_id == spec["from_node"] and s.active:
+                            shards[i] = replace(s, node_id=spec["to_node"],
+                                                state="INITIALIZING")
+                elif cmd in ("cancel",):
+                    for i, s in enumerate(shards):
+                        if s.node_id == spec.get("node") and not s.primary:
+                            shards[i] = replace(s, node_id=None, state="UNASSIGNED")
+                elif cmd in ("allocate", "allocate_replica"):
+                    for i, s in enumerate(shards):
+                        if not s.assigned and not s.primary:
+                            shards[i] = replace(s, node_id=spec["node"],
+                                                state="INITIALIZING")
+                            break
+                groups = list(table.shards)
+                groups[shard] = IndexShardRoutingTable(tuple(shards))
+                state = state.next_version(routing_table=state.routing_table.with_index(
+                    IndexRoutingTable(index, tuple(groups))))
+            return self.allocation.reroute(state)
+
+        new_state = self._submit("reroute", update, priority=URGENT)
+        return {"acknowledged": True, "state_version": new_state.version}
+
     def _m_shard_started(self, request, channel):
         shard = ShardRouting.from_dict(request["shard"])
         self._submit(f"shard-started[{shard.index}][{shard.shard_id}]",
@@ -723,6 +794,51 @@ class ActionModule:
         if primary is None or not primary.active:
             return None
         return state.nodes.get(primary.node_id)
+
+    # ================= node shutdown =================
+    def nodes_shutdown(self, node_ids=None, delay_s: float = 0.2) -> dict:
+        """Send a shutdown order to the resolved nodes (None or `_all`,
+        `_local`, `_master`, ids or names; an unknown one is skipped); each
+        closes itself after `delay_s`, so the answer leaves first."""
+        state = self.cluster_service.state
+        targets = []
+        spec = node_ids
+        if spec in (None, "", "_all"):
+            targets = list(state.nodes.nodes)
+        else:
+            wanted = [s.strip() for s in str(spec).split(",") if s.strip()]
+            for w in wanted:
+                if w == "_local":
+                    targets.append(state.nodes.get(self.node.local_node.id))
+                elif w == "_master":
+                    targets.append(state.nodes.master)
+                else:
+                    targets.extend(n for n in state.nodes.nodes
+                                   if n.id == w or n.name == w)
+        targets = [t2 for t2 in targets if t2 is not None]
+        acked = {}
+        for n in targets:
+            try:
+                self.transport.submit_request(
+                    n, A_SHUTDOWN_NODE, {"delay_s": delay_s}, timeout=10.0)
+                acked[n.id] = {"name": n.name}
+            except SearchEngineError:
+                pass  # already gone: a shutdown is best-effort
+        return {"cluster_name": state.cluster_name, "nodes": acked}
+
+    def _s_shutdown_node(self, request, channel):
+        delay = float(request.get("delay_s", 0.2))
+
+        def _close():
+            time.sleep(delay)
+            try:
+                self.node.close()
+            except Exception:  # noqa: BLE001 — a shutdown must not raise upward
+                self.logger.warning("node close failed", exc_info=True)
+
+        threading.Thread(target=_close, daemon=True,
+                         name=f"estpu_torch-shutdown[{self.node.name}]").start()
+        return {"ok": True}
 
     # ================= writes, primary only =================
     def _required_routing_check(self, index: str, type_name: str, doc_id: str,

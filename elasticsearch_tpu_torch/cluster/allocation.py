@@ -2,6 +2,9 @@
 `cluster/allocation.py`): `reroute` assigns every UNASSIGNED primary to the
 one data node; `apply_started_shards` moves INITIALIZING → STARTED;
 `new_index_routing` builds a created or restored (gateway) index's table.
+`reroute` also follows the explicit commands of `_cluster/reroute`
+(actions `_m_reroute`), as in the JAX package: a replica a command put
+INITIALIZING beside its primary, or a copy it moved, stays as it is.
 
 A replica never lands beside its primary, so on one node every replica
 stays unassigned and health is yellow. The decider chain (filters,

@@ -3,14 +3,16 @@ trimmed copy of the JAX package's `cluster/service.py`).
 
 Every cluster-state mutation runs on ONE thread in priority order: a task
 takes the current state and returns a new one; when the state changed,
-listeners fire with a ClusterChangedEvent. Publishing to other nodes belongs
-to the slice with two nodes."""
+listeners fire with a ClusterChangedEvent. `pending_tasks` lists the queued
+tasks (`_cluster/pending_tasks`). Publishing to other nodes belongs to the
+slice with two nodes."""
 
 from __future__ import annotations
 
 import heapq
 import itertools
 import threading
+import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field as dc_field
 from typing import Callable
@@ -28,6 +30,7 @@ class _Task:
     source: str = dc_field(compare=False)
     fn: Callable = dc_field(compare=False)
     future: Future = dc_field(compare=False)
+    insertion_time: float = dc_field(compare=False, default=0.0)
 
 
 @dataclass
@@ -66,7 +69,7 @@ class ClusterService:
         """fn runs ON the cluster-state thread; the Future resolves to the
         resulting state."""
         fut: Future = Future()
-        task = _Task(priority, next(self._seq), source, fn, fut)
+        task = _Task(priority, next(self._seq), source, fn, fut, time.monotonic())
         with self._cv:
             if self._stopped:
                 fut.set_exception(RuntimeError("cluster service stopped"))
@@ -74,6 +77,14 @@ class ClusterService:
             heapq.heappush(self._queue, task)
             self._cv.notify()
         return fut
+
+    def pending_tasks(self) -> list[dict]:
+        with self._cv:
+            return [
+                {"source": t.source, "priority": t.priority,
+                 "time_in_queue_millis": int((time.monotonic() - t.insertion_time) * 1000)}
+                for t in sorted(self._queue)
+            ]
 
     def _loop(self):
         while True:

@@ -70,6 +70,17 @@ class IndexMissingError(SearchEngineError):
         self.index = index
 
 
+class NodeMissingError(SearchEngineError):
+    """A node-addressed API named an id or name no node of the cluster
+    answers to (`/_cluster/stats/nodes/{node_id}`)."""
+
+    status = 404
+
+    def __init__(self, node_id: str):
+        super().__init__(f"node [{node_id}] missing")
+        self.node_id = node_id
+
+
 class IndexAlreadyExistsError(SearchEngineError):
     status = 400
 

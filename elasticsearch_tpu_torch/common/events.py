@@ -20,15 +20,17 @@ package's `common/events.py`).
                       baseline
     breaker_pressure  a breaker dwelling `dwell` consecutive ticks or more
                       above BREAKER_HIGH_RATIO of its limit
+    lock_stall        the lock tracer's (common/locktrace.py, when armed)
+                      counters of waits on the card made under a held lock
+                      grew since the last tick
 
 The event vocabulary is bounded: batch_stall | queue_spike |
 breaker_pressure | lock_stall | watchdog | device_degraded |
 device_recovered (the last two are the device fault domains' trips and
 recoveries, published by common/devicehealth).
 
-Left for later slices: the watchdog's gossip of each event to the other
-nodes (two nodes, ROADMAP A5) and its `lock_stall` check over the lock
-tracer (observability, A7); `lock_stall` stays in the vocabulary for it.
+Left for a later slice: the watchdog's gossip of each event to the other
+nodes (two nodes, ROADMAP A5).
 
 Hot-path contract: the watchdog runs on the management pool and reads
 serving-side state as plain attributes or through leaf-locked stats()
@@ -196,6 +198,9 @@ class StallWatchdog:
         self._pool_totals: dict[str, int] = {}
         self._pool_baseline: dict[str, float] = {}
         self._breaker_dwell: dict[str, int] = {}
+        # the lock tracer's counters at the last tick
+        self._held_gets = 0
+        self._long_held = 0
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
@@ -219,6 +224,7 @@ class StallWatchdog:
             self._check_batch_stall()
             self._check_queue_waits()
             self._check_breakers()
+            self._check_locktrace()
         except Exception:  # noqa: BLE001 — a broken check must not end the
             # schedule; the next tick tries again
             get_logger("watchdog").warning("watchdog tick failed", exc_info=True)
@@ -304,6 +310,29 @@ class StallWatchdog:
                         estimated=b.get("estimated", 0), limit=limit)
             else:
                 self._breaker_dwell[name] = 0
+
+    def _check_locktrace(self):
+        from .locktrace import TRACER
+
+        if not TRACER.enabled:
+            return
+        snap = TRACER.snapshot()
+        held = int(snap.get("held_device_gets", 0))
+        long_held = len(snap.get("long_held", ()))
+        grew_held = held - self._held_gets
+        grew_long = long_held - self._long_held
+        self._held_gets = held
+        self._long_held = long_held
+        if grew_held > 0 or grew_long > 0:
+            worst = snap.get("long_held", [])[-1] if grew_long > 0 else None
+            self._emit(
+                "lock_stall",
+                f"{grew_held} device pull(s) timed under a held lock, "
+                f"{grew_long} above the long-held threshold"
+                + (f" (worst: {worst[0]} {worst[1]}ms)" if worst else ""),
+                key="locktrace",
+                held_device_gets=held, long_held=long_held,
+                max_ms=snap.get("held_device_get_max_ms", 0.0))
 
     def stats(self) -> dict:
         return {

@@ -1,5 +1,6 @@
-"""Byte-size and time-value units (a trimmed copy of the JAX package's
-`common/units.py`): settings accept "512mb" and "30s" style strings."""
+"""Byte-size and time-value units (a copy of the JAX package's
+`common/units.py`): settings accept "512mb" and "30s" style strings, and
+the `_cat` tables print sizes and times back the same way."""
 
 from __future__ import annotations
 
@@ -67,3 +68,20 @@ def parse_time(value, default: float | None = None) -> float:
     if suffix not in _TIME_SUFFIXES:
         raise IllegalArgumentError(f"unknown time unit [{suffix}] in [{value}]")
     return float(num) * _TIME_SUFFIXES[suffix]
+
+
+def format_bytes(n: int) -> str:
+    for suffix, mult in (("pb", 1024**5), ("tb", 1024**4), ("gb", 1024**3), ("mb", 1024**2), ("kb", 1024)):
+        if n >= mult:
+            return f"{n / mult:.1f}{suffix}"
+    return f"{n}b"
+
+
+def format_time(seconds: float) -> str:
+    if seconds >= 3600:
+        return f"{seconds / 3600:.1f}h"
+    if seconds >= 60:
+        return f"{seconds / 60:.1f}m"
+    if seconds >= 1:
+        return f"{seconds:.1f}s"
+    return f"{seconds * 1000:.0f}ms"

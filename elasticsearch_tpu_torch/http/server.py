@@ -1,12 +1,17 @@
-"""HTTP server: the REST surface over real sockets (a trimmed copy of the JAX
+"""HTTP server: the REST surface over real sockets (a copy of the JAX
 package's `http/server.py`): the standard library's ThreadingHTTPServer,
-HTTP/1.1 keep-alive, one handler thread per connection, JSON in and out.
+HTTP/1.1 keep-alive, one handler thread per connection.
 
-A JSON body is parsed here when it is one line (or its Content-Type says
-JSON); multi-line bodies (the `_bulk` NDJSON) and lenient JSON reach their
-handlers as text. A SMILE, CBOR or YAML body answers 400 (those formats are
-a later slice of the port); a body that does not decode answers 400. A
-response that does not encode answers 500 with the encoding error."""
+Content negotiation both ways, as on the JAX node. A request body's format
+comes from its Content-Type, else from sniffing its first bytes for SMILE
+and CBOR; a SMILE, CBOR or YAML body decodes to objects here. A JSON body
+is parsed here when it is one line (or its Content-Type says JSON);
+multi-line bodies (the `_bulk` NDJSON) and lenient JSON reach their
+handlers as text. A body that does not decode answers 400. The response
+rides the request's format, or an explicit `?format=` (json, smile, cbor,
+yaml); it is re-encoded only when the handler answered a dict or a list as
+JSON, so the `_cat` text passes as it is. A response that does not encode
+answers 500 with the encoding error, never a dropped connection."""
 
 from __future__ import annotations
 
@@ -20,14 +25,22 @@ from ..common.logging import get_logger
 from ..rest.controller import RestController, RestRequest, RestResponse
 
 
-def _parse_request_body(raw_bytes: bytes, ctype: str):
+def _request_format(raw_bytes: bytes, ctype: str) -> str | None:
+    """The body's format: the Content-Type's, else SMILE or CBOR by their
+    first bytes, else None (JSON or text)."""
+    fmt = xcontent.from_content_type(ctype)
+    if fmt is None and raw_bytes:
+        sniffed = xcontent.detect(raw_bytes)
+        if sniffed in (xcontent.SMILE, xcontent.CBOR):
+            fmt = sniffed
+    return fmt
+
+
+def _parse_request_body(raw_bytes: bytes, ctype: str, fmt: str | None):
     if not raw_bytes:
         return ""
-    fmt = xcontent.from_content_type(ctype)
-    if fmt is None and xcontent.detect(raw_bytes) in (xcontent.SMILE, xcontent.CBOR):
-        fmt = xcontent.detect(raw_bytes)
-    if fmt not in (None, xcontent.JSON):
-        return xcontent.loads(raw_bytes, fmt)  # raises: not ported
+    if fmt in (xcontent.SMILE, xcontent.CBOR, xcontent.YAML):
+        return xcontent.loads(raw_bytes, fmt)
     raw = raw_bytes.decode()
     if "json" in ctype or (raw.lstrip().startswith(("{", "["))
                            and "\n" not in raw.strip()):
@@ -70,9 +83,10 @@ class HttpServer:
                 parsed = urlparse(self.path)
                 length = int(self.headers.get("Content-Length") or 0)
                 raw_bytes = self.rfile.read(length) if length else b""
+                ctype = self.headers.get("Content-Type", "")
+                fmt = _request_format(raw_bytes, ctype)
                 try:
-                    body = _parse_request_body(
-                        raw_bytes, self.headers.get("Content-Type", ""))
+                    body = _parse_request_body(raw_bytes, ctype, fmt)
                 except Exception as e:  # noqa: BLE001 — a malformed body is a 400
                     self._send(method, 400, json.dumps({"error": {
                         "type": "parse_exception",
@@ -84,17 +98,28 @@ class HttpServer:
                 for seg in parsed.query.split("&"):
                     if seg and "=" not in seg:
                         params.setdefault(unquote_plus(seg), "")
-                response = rest.dispatch(RestRequest(
-                    method=method, path=parsed.path, params=params, body=body))
+                request = RestRequest(method=method, path=parsed.path,
+                                      params=params, body=body)
+                response = rest.dispatch(request)
+                out_fmt = xcontent.from_content_type(
+                    "application/" + request.params.get("format", "")) or fmt
                 try:
-                    payload = response.payload()
+                    if (out_fmt and out_fmt != xcontent.JSON
+                            and response.content_type == "application/json"
+                            and isinstance(response.body, (dict, list))):
+                        payload = xcontent.dumps(response.body, out_fmt)
+                        content_type = xcontent.CONTENT_TYPES[out_fmt]
+                    else:
+                        payload = response.payload()
+                        content_type = response.content_type
                 except Exception as e:  # noqa: BLE001 — unencodable response → 500
                     response = RestResponse(500, {"error": {
                         "type": "serialization_exception", "reason": str(e)},
                         "status": 500})
                     payload = response.payload()
-                self._send(method, response.status, payload,
-                           response.content_type, response.headers)
+                    content_type = "application/json"
+                self._send(method, response.status, payload, content_type,
+                           response.headers)
 
             def do_GET(self):
                 self._handle("GET")

@@ -69,8 +69,12 @@ for A5, as every replica write does.
 `delete`, `update`, `bulk`, `delete_by_query`, `refresh`, `flush`,
 `optimize`, `clear_cache`, `gateway_snapshot`, `search`, `msearch`,
 `count`, `suggest`, `termvector`, `mtermvectors`, `mlt`, `explain`,
-`percolate`, `count_percolate`, `mpercolate`, `cluster_health`, and the
-stats surfaces: `stats` (with each index's device capacity stanza),
+`percolate`, `count_percolate`, `mpercolate`, `cluster_health`, the
+cluster admin methods (`cluster_state` in its REST view, `cluster_stats`
+over the local node's stats, `cluster_get_settings`,
+`cluster_update_settings`, `cluster_reroute`, `pending_tasks`,
+`nodes_shutdown`; a node id that names no node answers 404 where the JAX
+node's does), and the stats surfaces: `stats` (with each index's device capacity stanza),
 `segments` (with each segment's pack), `indices_status`, `node_events`,
 `cluster_events`, `nodes_info` and `nodes_stats` (its sections by name,
 an unknown one a 400; `device` is the capacity ledger over the node's
@@ -90,6 +94,7 @@ import numpy as np
 from .actions import (
     A_ALIASES,
     A_CLOSE_INDEX,
+    A_CLUSTER_SETTINGS,
     A_CREATE_INDEX,
     A_DELETE_INDEX,
     A_DELETE_MAPPING,
@@ -99,6 +104,7 @@ from .actions import (
     A_PUT_MAPPING,
     A_PUT_TEMPLATE,
     A_PUT_WARMER,
+    A_REROUTE,
     A_UPDATE_SETTINGS,
     ActionModule,
     shape_get,
@@ -115,6 +121,7 @@ from .common.errors import (
     AliasesMissingError,
     IllegalArgumentError,
     IndexTemplateMissingError,
+    NodeMissingError,
     NotPortedError,
     SearchEngineError,
     TypeMissingError,
@@ -905,6 +912,178 @@ class Client:
                 h["timed_out"] = not ok
                 return h
             time.sleep(0.05)
+
+    def cluster_state(self, metric=None, index=None, index_templates=None):
+        """The cluster state's REST view; `metric` (a comma list) keeps
+        those parts, `routing_table` bringing `routing_nodes` and
+        `allocations` along, as in the JAX package. Blocks show only their
+        non-empty sections; `index` narrows the routing and the metadata's
+        indices, `index_templates` the metadata's templates."""
+        state = self.node.cluster_service.state
+        full = {
+            "cluster_name": state.cluster_name,
+            "version": state.version,
+            "nodes": {"nodes": [n.to_dict() for n in state.nodes.nodes],
+                      "master_id": state.nodes.master_id},
+            "metadata": state.metadata.to_dict(),
+            "routing_table": None,  # the REST views below, in the JAX order
+            "blocks": None,
+            "master_node": state.nodes.master_id,
+        }
+        blocks = {}
+        if state.blocks.global_blocks:
+            blocks["global"] = {b[0]: {"description": b[0], "levels": [b[1]]}
+                                for b in state.blocks.global_blocks}
+        idx_blocks = {}
+        for i, b in state.blocks.index_blocks:
+            idx_blocks.setdefault(i, {})[b[0]] = {"description": b[0], "levels": [b[1]]}
+        if idx_blocks:
+            blocks["indices"] = idx_blocks
+        full["blocks"] = blocks
+        names = set(state.metadata.resolve_indices(index)) if index else None
+        rt_indices, routing_nodes = {}, {"unassigned": [], "nodes": {}}
+        for tname, t in state.routing_table.indices:
+            if names is not None and tname not in names:
+                continue
+            shards = {}
+            for gid, grp in enumerate(t.shards):
+                # no copy relocates on one node
+                rows = [{**s.to_dict(), "relocating_node": None} for s in grp.shards]
+                shards[str(gid)] = rows
+                for s, row in zip(grp.shards, rows):
+                    if s.node_id is None:
+                        routing_nodes["unassigned"].append(row)
+                    else:
+                        routing_nodes["nodes"].setdefault(s.node_id, []).append(row)
+            rt_indices[tname] = {"shards": shards}
+        full["routing_table"] = {"indices": rt_indices}
+        full["routing_nodes"] = routing_nodes
+        full["allocations"] = []
+        metrics = None
+        if metric and metric not in ("_all",):
+            metrics = set(str(metric).split(","))
+        if metrics is not None and "routing_table" in metrics:
+            metrics |= {"routing_nodes", "allocations"}
+        out = full
+        if metrics is not None:
+            out = {"cluster_name": state.cluster_name}
+            for m in metrics:
+                if m == "master_node":
+                    out["master_node"] = full["master_node"]
+                elif m == "version":
+                    out["version"] = full["version"]
+                elif m in full:
+                    out[m] = full[m]
+        if "metadata" in out:
+            md = dict(out["metadata"])
+            if names is not None:
+                md["indices"] = {n: v for n, v in md.get("indices", {}).items()
+                                 if n in names}
+            if index_templates:
+                wanted = [t.strip() for t in str(index_templates).split(",") if t.strip()]
+                md["templates"] = {n: v for n, v in md.get("templates", {}).items()
+                                   if n in wanted}
+            out["metadata"] = md
+        return out
+
+    def cluster_reroute(self, body=None):
+        return self._local(A_REROUTE, {"body": body or {}})
+
+    def cluster_update_settings(self, body, flat=False):
+        self._local(A_CLUSTER_SETTINGS, {"body": body})
+        r = self.cluster_get_settings(flat=flat)
+        r["acknowledged"] = True
+        return r
+
+    def cluster_get_settings(self, flat=False):
+        md = self.node.cluster_service.state.metadata
+        out = {}
+        for section, stored in (("persistent", md.persistent_settings),
+                                ("transient", md.transient_settings)):
+            flat_map = {k: _settings_str(v) for k, v in stored}
+            out[section] = flat_map if flat else _nest_keys(flat_map)
+        return out
+
+    def pending_tasks(self):
+        return {"tasks": self.node.cluster_service.pending_tasks()}
+
+    def _resolve_node_ids(self, node_id):
+        """A comma list of node ids or names (`_all` or None: every node;
+        `_local`, `_master`) against the cluster state; an unknown one
+        answers 404 (NodeMissingError)."""
+        state = self.node.cluster_service.state
+        if node_id in (None, "", "_all"):
+            return list(state.nodes.nodes)
+        out = []
+        for w in [s.strip() for s in str(node_id).split(",") if s.strip()]:
+            if w == "_local":
+                n = state.nodes.get(self.node.node_id)
+                matched = [n] if n is not None else []
+            elif w == "_master":
+                matched = [state.nodes.master] if state.nodes.master else []
+            else:
+                matched = [n for n in state.nodes.nodes
+                           if n.id == w or n.name == w]
+            if not matched:
+                raise NodeMissingError(w)
+            out.extend(matched)
+        seen = set()
+        return [n for n in out if n.id not in seen and not seen.add(n.id)]
+
+    def cluster_stats(self, node_id=None):
+        """The cluster's rollup: index, shard and document counts from the
+        named nodes' stats (primaries only), node counts from the state.
+        On one node the rollup reads the local `nodes_stats`; the fan-out
+        to other nodes comes with them. `node_id` narrows the shards to
+        those nodes'; an unknown one answers 404."""
+        state = self.node.cluster_service.state
+        wanted = self._resolve_node_ids(node_id)
+        wanted_ids = {n.id for n in wanted}
+        all_nodes = node_id in (None, "", "_all")
+        shards = [s for s in state.routing_table.all_shards()
+                  if all_nodes or s.node_id in wanted_ids]
+        doc_count = deleted = segments = 0
+        per_node = {}
+        for n in wanted:
+            if n.id == self.node.node_id:
+                per_node[n.id] = self.nodes_stats(metric="indices")["nodes"][n.id]
+        for stats in per_node.values():
+            for idx in stats.get("indices", {}).values():
+                for shard in idx.get("shards", {}).values():
+                    if not shard.get("primary"):
+                        continue  # docs count primaries only
+                    doc_count += shard.get("docs", {}).get("count", 0)
+                    deleted += shard.get("docs", {}).get("deleted", 0)
+                    segments += shard.get("segments", 0)
+        nodes = wanted
+        count = {
+            "total": len(nodes),
+            "master_only": sum(1 for n in nodes if n.master_eligible and not n.data),
+            "data_only": sum(1 for n in nodes if n.data and not n.master_eligible),
+            "master_data": sum(1 for n in nodes if n.master_eligible and n.data),
+            "client": sum(1 for n in nodes if not n.master_eligible and not n.data),
+        }
+        primaries = sum(1 for s in shards if s.primary)
+        return {
+            "timestamp": int(time.time() * 1000),
+            "cluster_name": state.cluster_name,
+            "status": self._health()["status"],
+            "indices": {
+                "count": len(state.metadata.index_names()),
+                "shards": {
+                    "total": len(shards),
+                    "primaries": primaries,
+                    "replication": (len(shards) - primaries) / max(primaries, 1),
+                },
+                "docs": {"count": doc_count, "deleted": deleted},
+                "segments": {"count": segments},
+            },
+            # no `versions`: the port's discovery node carries no version
+            "nodes": {"count": count},
+        }
+
+    def nodes_shutdown(self, node_ids=None, delay_s: float = 0.2):
+        return self.node.actions.nodes_shutdown(node_ids, delay_s=delay_s)
 
     def _health(self, index=None):
         state = self.node.cluster_service.state

@@ -87,7 +87,24 @@ format: one contiguous group a family) and `POST
 own, with CPU and (on a `cuda` node) CUDA activity; `stop` writes a Chrome
 trace under `{path.data}/profiler/<time>/` (or the start body's `dir`). A
 second start, and a stop with none running, answer 400; a profiler that
-cannot start answers its error."""
+cannot start answers its error.
+
+The admin surface, as on the JAX node: `/_cluster/state` (whole, by a
+comma list of metrics, and narrowed to an index expression;
+`?index_templates=`), `/_cluster/stats` (and `/nodes/{node_id}`: an
+unknown id answers 404), `/_cluster/pending_tasks`, `/_cluster/settings`
+(PUT transient and persistent, GET; `?flat_settings`), `POST
+/_cluster/reroute` (`move`, `cancel`, `allocate`, `allocate_replica`),
+`POST /_shutdown`, `/_cluster/nodes/_shutdown` and
+`/_cluster/nodes/{node_id}/_shutdown` (the node closes itself after its
+answer), and the `_cat` tables (`/_cat` lists them): `health` (its last
+column the open device fault domains), `nodes`, `indices`, `shards`,
+`master`, `allocation`, `count`, `aliases`, `pending_tasks`, `recovery`,
+`thread_pool`, `batcher` (the node's DeviceBatcher), `caches` (the request
+cache and the DeviceFilterCache), `segments` (each segment's pack on the
+node's device) and `events`, the tables through one renderer
+(`_cat_table`: `?help`, `?v`, `?h=` by name or alias, numbers
+right-aligned)."""
 
 from __future__ import annotations
 
@@ -95,6 +112,8 @@ import json
 import math
 import os
 import re
+import shutil
+import socket
 import threading
 import time
 import uuid
@@ -110,6 +129,7 @@ from ..analysis.core import (
     get_analyzer,
 )
 from ..common import cudaenv, tracing
+from ..common.devicehealth import CLOSED as DEVICE_CLOSED, DEVICE_HEALTH, HALF_OPEN, OPEN
 from ..common.deadline import parse_timevalue
 from ..common.errors import (
     IllegalArgumentError,
@@ -118,6 +138,7 @@ from ..common.errors import (
     SearchEngineError,
 )
 from ..common.settings import Settings
+from ..common.units import format_bytes
 from ..search.queries import parse_query
 
 VERSION = "0.2.0"
@@ -266,28 +287,11 @@ def _lenient_to_strict_json(text: str) -> str:
 _BULK_OPS = ("index", "create", "update", "delete")
 
 # Every (methods, route) of the JAX node that a port node does not serve
-# yet, by the slice that brings it. Each answers 400 NotPortedError naming
+# yet, by the slice that brings it (since the admin slice, A9's alone). Each answers 400 NotPortedError naming
 # its slice, so that no such request falls through to a wider route (a
 # POST to `/{index}/_close` would otherwise index a document of type
 # `_close`). A slice that lands deletes its rows.
 _LATER_ROUTES = {
-    "A7b, the admin REST surface": [
-        ("GET", "/_cluster/state"), ("GET", "/_cluster/state/{metric}"),
-        ("GET", "/_cluster/state/{metric}/{index}"), ("GET", "/_cluster/pending_tasks"),
-        ("GET", "/_cluster/stats"), ("GET", "/_cluster/stats/nodes/{node_id}"),
-        ("POST", "/_shutdown"), ("POST", "/_cluster/nodes/_shutdown"),
-        ("POST", "/_cluster/nodes/{node_id}/_shutdown"),
-        ("PUT,GET", "/_cluster/settings"), ("POST", "/_cluster/reroute"),
-        ("GET", "/_cat"), ("GET", "/_cat/health"), ("GET", "/_cat/nodes"),
-        ("GET", "/_cat/indices"), ("GET", "/_cat/shards"), ("GET", "/_cat/shards/{index}"),
-        ("GET", "/_cat/master"), ("GET", "/_cat/allocation"),
-        ("GET", "/_cat/allocation/{node_id}"), ("GET", "/_cat/count"),
-        ("GET", "/_cat/count/{index}"), ("GET", "/_cat/aliases"),
-        ("GET", "/_cat/aliases/{name}"), ("GET", "/_cat/pending_tasks"),
-        ("GET", "/_cat/recovery"), ("GET", "/_cat/thread_pool"), ("GET", "/_cat/batcher"),
-        ("GET", "/_cat/caches"), ("GET", "/_cat/segments"),
-        ("GET", "/_cat/segments/{index}"), ("GET", "/_cat/events"),
-    ],
     "A9, the sidecars": [
         ("PUT,POST,GET,DELETE", "/_snapshot/{repo}"), ("GET", "/_snapshot"),
         ("POST", "/_snapshot/{repo}/_verify"),
@@ -308,6 +312,453 @@ def _register_later_routes(rc: "RestController"):
                     f"of the port: {slice_})")
 
             rc.register(methods, template, refuse)
+
+
+
+# --- the admin surface: _cluster/* and _cat ----------------------------------
+def _cat_table(req: RestRequest, columns, rows) -> RestResponse:
+    """The `_cat` table renderer: `?help` lists the columns, `?v` adds a
+    header row, `?h=` selects columns by name or alias; numbers
+    right-align, text left-aligns. `columns` are (name, alias, help) and
+    `rows` dicts keyed by column name."""
+    if req.bool_param("help"):
+        text = "".join(f"{name} | {alias or name} | {help_}\n"
+                       for name, alias, help_ in columns)
+        return RestResponse(200, text, content_type="text/plain")
+    by_key = {}
+    for c in columns:
+        by_key[c[0]] = c
+        if c[1]:
+            by_key.setdefault(c[1], c)
+    if req.param("h"):
+        selected = [(h, by_key[h]) for h in str(req.param("h")).split(",")
+                    if h in by_key]
+    else:
+        selected = [(c[0], c) for c in columns]
+    table = []
+    if req.bool_param("v"):
+        table.append([disp for disp, _ in selected])
+    for row in rows:
+        table.append([str(row.get(c[0], "")) for _, c in selected])
+    if not table:
+        return RestResponse(200, "", content_type="text/plain")
+    widths = [max(len(r[i]) for r in table) for i in range(len(selected))]
+    num_col = [all(r[i].replace(".", "", 1).isdigit()
+                   for r in (table[1:] if req.bool_param("v") else table)
+                   if r[i] != "")
+               for i in range(len(selected))]
+    lines = []
+    for ri, r in enumerate(table):
+        is_header = req.bool_param("v") and ri == 0
+        cells = [cell.ljust(w) if is_header or not num_col[i]
+                 else cell.rjust(w)
+                 for i, (cell, w) in enumerate(zip(r, widths))]
+        lines.append(" ".join(cells) + " ")
+    return RestResponse(200, "".join(ln + "\n" for ln in lines),
+                        content_type="text/plain")
+
+
+def _text(body: str) -> RestResponse:
+    return RestResponse(200, body, content_type="text/plain")
+
+
+def _node_host_ip():
+    try:
+        host = socket.gethostname()
+    except OSError:
+        host = "localhost"
+    return host, "127.0.0.1"
+
+
+_CAT_ROUTES = ("health", "nodes", "indices", "shards", "master", "allocation", "count",
+               "aliases", "pending_tasks", "recovery", "thread_pool", "batcher",
+               "caches", "segments", "events")
+
+_POOL_ALIASES = {
+    "bulk": "b", "flush": "f", "generic": "ge", "get": "g", "index": "i",
+    "management": "ma", "merge": "m", "optimize": "o", "percolate": "p",
+    "refresh": "r", "search": "s", "snapshot": "sn", "suggest": "su",
+    "warmer": "w",
+}
+
+
+def _register_cluster_routes(rc: "RestController", client):
+    rc.register("GET", "/_cluster/state",
+                lambda r: client.cluster_state(index_templates=r.param("index_templates")))
+    rc.register("GET", "/_cluster/state/{metric}",
+                lambda r: client.cluster_state(metric=r.path_params["metric"],
+                                               index_templates=r.param("index_templates")))
+    rc.register("GET", "/_cluster/state/{metric}/{index}",
+                lambda r: client.cluster_state(metric=r.path_params["metric"],
+                                               index=r.path_params["index"],
+                                               index_templates=r.param("index_templates")))
+    rc.register("GET", "/_cluster/pending_tasks", lambda r: client.pending_tasks())
+    rc.register("GET", "/_cluster/stats", lambda r: client.cluster_stats())
+    rc.register("GET", "/_cluster/stats/nodes/{node_id}",
+                lambda r: client.cluster_stats(node_id=r.path_params["node_id"]))
+    rc.register("POST", "/_shutdown", lambda r: client.nodes_shutdown(None))
+    rc.register("POST", "/_cluster/nodes/_shutdown", lambda r: client.nodes_shutdown(None))
+    rc.register("POST", "/_cluster/nodes/{node_id}/_shutdown",
+                lambda r: client.nodes_shutdown(r.path_params["node_id"]))
+    rc.register("PUT", "/_cluster/settings",
+                lambda r: client.cluster_update_settings(
+                    _parse_body(r), flat=r.bool_param("flat_settings")))
+    rc.register("GET", "/_cluster/settings",
+                lambda r: client.cluster_get_settings(flat=r.bool_param("flat_settings")))
+    rc.register("POST", "/_cluster/reroute",
+                lambda r: client.cluster_reroute(_parse_body(r)))
+
+
+def _register_cat_routes(rc: "RestController", node, client):
+    """The `_cat` tables, as on the JAX node. The device columns read the
+    port's own state: `health` the open fault domains (DEVICE_HEALTH),
+    `segments` each segment's pack on the node's device, `batcher` the
+    node's DeviceBatcher, `caches` its request cache and DeviceFilterCache."""
+
+    def cat_health(req):
+        h = client.cluster_health()
+        # the tail column: the device fault domains not closed (serving
+        # degraded to the host there), else "device_ok"
+        if not DEVICE_HEALTH.any_open:
+            dev = "device_ok"
+        else:
+            open_domains = sorted(
+                d for d, st in DEVICE_HEALTH.stats()["domains"].items()
+                if st["state"] != DEVICE_CLOSED)
+            dev = ("device_degraded:" + ",".join(open_domains)
+                   if open_domains else "device_ok")
+        return _text(f"{h['cluster_name']} {h['status']} "
+                     f"{h['number_of_nodes']} {h['number_of_data_nodes']} "
+                     f"{h['active_shards']} {h['unassigned_shards']} {dev}\n")
+
+    def cat_nodes(req):
+        state = node.cluster_service.state
+        lines = []
+        for n in state.nodes.nodes:
+            marker = "*" if n.id == state.nodes.master_id else "-"
+            lines.append(f"{n.name} {marker} {n.transport_address} "
+                         f"master_eligible={n.master_eligible} data={n.data}")
+        return _text("\n".join(lines) + "\n")
+
+    def cat_indices(req):
+        state = node.cluster_service.state
+        lines = []
+        for name in state.metadata.index_names():
+            meta = state.metadata.index(name)
+            h = client.cluster_health(index=name)
+            try:
+                cnt = client.count(name)["count"]
+            except SearchEngineError:
+                cnt = "-"
+            lines.append(f"{h['status']} {name} {meta.number_of_shards} "
+                         f"{meta.number_of_replicas} {cnt}")
+        return _text("\n".join(lines) + "\n")
+
+    def cat_shards(req):
+        state = node.cluster_service.state
+        host, ip = _node_host_ip()
+        local_stats = node.indices.stats()
+        index_filter = req.path_params.get("index")
+        wanted_indices = set(state.metadata.resolve_indices(index_filter)) \
+            if index_filter else None
+        rows = []
+        for s in state.routing_table.all_shards():
+            if wanted_indices is not None and s.index not in wanted_indices:
+                continue
+            row = {"index": s.index, "shard": s.shard_id,
+                   "prirep": "p" if s.primary else "r", "state": s.state}
+            if s.node_id is not None:
+                n = state.nodes.get(s.node_id)
+                row["node"] = n.name if n else s.node_id
+                row["ip"] = ip
+                st = local_stats.get(s.index, {}).get("shards", {}).get(s.shard_id)
+                if st:
+                    row["docs"] = st["docs"]["count"]
+                    path = os.path.join(node.data_path, "indices", s.index,
+                                        str(s.shard_id))
+                    size = 0
+                    for dp, _, fs in os.walk(path):
+                        for f in fs:
+                            try:
+                                size += os.path.getsize(os.path.join(dp, f))
+                            except OSError:
+                                pass
+                    row["store"] = format_bytes(size)
+            rows.append(row)
+        return _cat_table(req, [
+            ("index", "i", "index name"), ("shard", "s", "shard id"),
+            ("prirep", "p", "primary or replica"), ("state", "st", "shard state"),
+            ("docs", "d", "number of docs"), ("store", "sto", "store size"),
+            ("ip", None, "node ip"), ("node", "n", "node name"),
+        ], rows)
+
+    def cat_master(req):
+        m = node.cluster_service.state.nodes.master
+        return _text(f"{m.id} {m.name}\n" if m else "-\n")
+
+    def cat_allocation(req):
+        state = node.cluster_service.state
+        counts: dict[str, int] = {}
+        for s in state.routing_table.all_shards():
+            if s.node_id:
+                counts[s.node_id] = counts.get(s.node_id, 0) + 1
+        node_filter = req.path_params.get("node_id")
+        host, ip = _node_host_ip()
+        rows = []
+        unassigned = sum(1 for s in state.routing_table.all_shards()
+                         if s.node_id is None)
+        for n in state.nodes.nodes:
+            if node_filter and node_filter not in ("_all",):
+                if node_filter == "_master":
+                    if n.id != state.nodes.master_id:
+                        continue
+                elif node_filter not in (n.id, n.name):
+                    continue
+            try:
+                du = shutil.disk_usage(node.data_path)
+                used, avail, total = du.used, du.free, du.total
+            except OSError:
+                used = avail = total = 0
+            unit = req.param("bytes")  # raw integers in a fixed unit when given
+            div = {"b": 1, "k": 1024, "m": 1024 ** 2, "g": 1024 ** 3,
+                   "t": 1024 ** 4}.get(unit)
+            fmt = (lambda v: str(int(v / div))) if div else format_bytes
+            rows.append({
+                "shards": counts.get(n.id, 0),
+                "disk.used": fmt(used), "disk.avail": fmt(avail),
+                "disk.total": fmt(total),
+                "disk.percent": int(used * 100 / total) if total else 0,
+                "host": host, "ip": ip, "node": n.name,
+            })
+        if unassigned and not node_filter:
+            rows.append({"shards": unassigned, "node": "UNASSIGNED"})
+        return _cat_table(req, [
+            ("shards", None, "number of shards on node"),
+            ("disk.used", "du", "disk used"),
+            ("disk.avail", "da", "disk available"),
+            ("disk.total", "dt", "total disk capacity"),
+            ("disk.percent", "dp", "percent of disk used"),
+            ("host", "h", "host name"), ("ip", None, "ip address"),
+            ("node", "n", "node name"),
+        ], rows)
+
+    def cat_count(req):
+        index = req.path_params.get("index")
+        c = client.count(index or "_all")["count"]
+        now = int(time.time())
+        return _cat_table(req, [
+            ("epoch", "t", "seconds since 1970-01-01 00:00:00"),
+            ("timestamp", "ts", "time in HH:MM:SS"),
+            ("count", "dc", "the document count"),
+        ], [{"epoch": now,
+             "timestamp": time.strftime("%H:%M:%S", time.localtime(now)),
+             "count": c}])
+
+    def cat_aliases(req):
+        rows = []
+        for index, spec in client.get_aliases(
+                None, req.path_params.get("name")).items():
+            for alias, aspec in spec["aliases"].items():
+                rows.append({
+                    "alias": alias, "index": index,
+                    "filter": "*" if aspec.get("filter") else "-",
+                    "routing.index": aspec.get("index_routing", "-"),
+                    "routing.search": aspec.get("search_routing", "-"),
+                })
+        return _cat_table(req, [
+            ("alias", "a", "alias name"), ("index", "i", "index the alias points to"),
+            ("filter", "f", "whether the alias has a filter"),
+            ("routing.index", "ri", "index routing"),
+            ("routing.search", "rs", "search routing"),
+        ], rows)
+
+    def cat_pending_tasks(req):
+        tasks = client.pending_tasks()["tasks"]
+        return _text("\n".join(f"{t['priority']} {t['time_in_queue_millis']}ms "
+                               f"{t['source']}" for t in tasks) + "\n")
+
+    def cat_recovery(req):
+        lines = []
+        for index, spec in node.indices.stats().items():
+            for sid, st in spec["shards"].items():
+                lines.append(f"{index} {sid} {st['state']} "
+                             f"docs={st['docs']['count']}")
+        return _text("\n".join(lines) + "\n")
+
+    def cat_thread_pool(req):
+        host, ip = _node_host_ip()
+        stats = node.threadpool.stats()
+        columns = [
+            ("pid", None, "process id"), ("id", None, "node id"),
+            ("host", "h", "host name"), ("ip", "i", "ip address"),
+            ("port", "po", "bound transport port"),
+        ]
+        pool_cols = []
+        for pool, alias in _POOL_ALIASES.items():
+            pool_cols += [
+                (f"{pool}.active", f"{alias}a", f"number of active {pool} threads"),
+                (f"{pool}.queue", f"{alias}q", f"number of {pool} threads in queue"),
+                (f"{pool}.rejected", f"{alias}r", f"number of rejected {pool} threads"),
+            ]
+        columns += pool_cols
+        node_id = node.node_id if req.bool_param("full_id") else node.node_id[:4]
+        row = {"pid": os.getpid(), "id": node_id, "host": host, "ip": ip,
+               "port": 9300}
+        for pool in _POOL_ALIASES:
+            st = stats.get(pool, {})
+            row[f"{pool}.active"] = st.get("active", 0)
+            row[f"{pool}.queue"] = st.get("queue", 0)
+            row[f"{pool}.rejected"] = st.get("rejected", 0)
+        # the default view: host, ip and the bulk, index and search pools
+        default = [columns[2], columns[3]] + [
+            c for c in pool_cols if c[0].split(".")[0] in ("bulk", "index", "search")]
+        if req.param("h") or req.bool_param("help"):
+            return _cat_table(req, columns, [row])
+        return _cat_table(req, default, [row])
+
+    def cat_batcher(req):
+        """The node's DeviceBatcher: launches against the requests they
+        coalesced, mean occupancy, and which flush trigger fires."""
+        host, ip = _node_host_ip()
+        st = node.search_batcher.stats()
+        columns = [
+            ("host", "h", "host name"), ("ip", "i", "ip address"),
+            ("launches", "l", "coalesced device launches"),
+            ("coalesced", "c", "requests served via coalesced launches"),
+            ("occupancy_mean", "o", "mean requests per launch"),
+            ("full_flushes", "ff", "flushes on batch-full"),
+            ("linger_flushes", "lf", "flushes on linger expiry"),
+            ("deadline_flushes", "df", "flushes on request deadline"),
+            ("queue", "q", "plans waiting to coalesce"),
+            ("bypassed", "by", "requests served outside the batcher"),
+        ]
+        row = {"host": host, "ip": ip}
+        row.update({name: st.get(name, 0) for (name, _a, _d) in columns[2:]})
+        return _cat_table(req, columns, [row])
+
+    def cat_caches(req):
+        """The request cache and the device filter cache: entries and bytes
+        against the bound, hits, misses and evictions."""
+        host, ip = _node_host_ip()
+        columns = [
+            ("host", "h", "host name"), ("ip", "i", "ip address"),
+            ("tier", "t", "cache tier (request|filter)"),
+            ("entries", "e", "resident entries/masks"),
+            ("bytes", "b", "resident bytes"),
+            ("limit", "lb", "configured byte bound (- = breaker-bounded)"),
+            ("hits", "ht", "lookup hits"),
+            ("misses", "ms", "lookup misses"),
+            ("hit_rate", "hr", "lifetime hit rate"),
+            ("evictions", "ev", "evicted entries"),
+        ]
+        rcs = node.request_cache.stats()
+        fcs = node.filter_cache.stats()
+        rows = [
+            {"host": host, "ip": ip, "tier": "request",
+             "entries": rcs["entries"],
+             "bytes": rcs["memory_size_in_bytes"],
+             "limit": rcs["limit_size_in_bytes"],
+             "hits": rcs["hits"], "misses": rcs["misses"],
+             "hit_rate": rcs["hit_rate"], "evictions": rcs["evictions"]},
+            {"host": host, "ip": ip, "tier": "filter",
+             "entries": fcs["masks"],
+             "bytes": fcs["memory_size_in_bytes"], "limit": "-",
+             "hits": fcs["hits"], "misses": fcs["misses"],
+             "hit_rate": fcs["hit_rate"], "evictions": fcs["evictions"]},
+        ]
+        return _cat_table(req, columns, rows)
+
+    def cat_segments(req):
+        """`Client.segments` as a table: documents, postings and each
+        segment's pack on the node's device (tf rung, bytes a posting,
+        resident bytes, the dense plane's state)."""
+        rows = []
+        for index, ispec in client.segments(
+                req.path_params.get("index")).get("indices", {}).items():
+            for sid, copies in sorted(ispec["shards"].items(),
+                                      key=lambda kv: int(kv[0])):
+                for copy in copies:
+                    prirep = "p" if copy["routing"]["primary"] else "r"
+                    for seg_name, seg in sorted(
+                            copy["segments"].items(),
+                            key=lambda kv: kv[1]["generation"]):
+                        dev = seg.get("device") or {}
+                        rows.append({
+                            "index": index, "shard": sid, "prirep": prirep,
+                            "segment": seg_name,
+                            "generation": seg["generation"],
+                            "docs.count": seg["num_docs"],
+                            "docs.deleted": seg["deleted_docs"],
+                            "postings": seg["postings"],
+                            "packed": str(bool(dev.get("packed"))).lower(),
+                            "tf.layout": dev.get("tf_layout", "-"),
+                            "bytes.posting": dev.get("bytes_per_posting", "-"),
+                            "size": (format_bytes(dev["resident_bytes"])
+                                     if dev.get("packed") else "-"),
+                            "dense.plane": dev.get("dense_plane", "-"),
+                            "searchable": "true",
+                        })
+        return _cat_table(req, [
+            ("index", "i", "index name"), ("shard", "s", "shard id"),
+            ("prirep", "p", "primary or replica"),
+            ("segment", "seg", "segment name"),
+            ("generation", "g", "segment generation"),
+            ("docs.count", "dc", "number of live docs"),
+            ("docs.deleted", "dd", "number of deleted docs"),
+            ("postings", "po", "postings in the segment"),
+            ("packed", "pk", "device-packed"),
+            ("tf.layout", "tf", "quantized tf plane rung (u8/i16/f32)"),
+            ("bytes.posting", "bp", "resident bytes per posting"),
+            ("size", "sz", "device-resident postings bytes"),
+            ("dense.plane", "dp", "dense f32 plane resident or lazy"),
+            ("searchable", "se", "segment is searchable"),
+        ], rows)
+
+    def cat_events(req):
+        """The event journal, one row an event, newest first."""
+        rows = []
+        for e in client.cluster_events(local=req.bool_param("local"))["events"]:
+            attrs = e.get("attrs") or {}
+            rows.append({
+                "timestamp": time.strftime(
+                    "%H:%M:%S", time.localtime(float(e.get("ts", 0.0)))),
+                "node": e.get("node_name") or e.get("node", "-"),
+                "type": e.get("type", "-"),
+                "severity": e.get("severity", "-"),
+                "shard": attrs.get("shard", attrs.get("pool",
+                                                      attrs.get("breaker", "-"))),
+                "message": e.get("message", ""),
+            })
+        return _cat_table(req, [
+            ("timestamp", "ts", "event time (HH:MM:SS)"),
+            ("node", "n", "originating node"),
+            ("type", "t", "event type"),
+            ("severity", "sev", "info or warn"),
+            ("shard", "s", "subject (shard/pool/breaker)"),
+            ("message", "m", "human-readable event message"),
+        ], rows)
+
+    rc.register("GET", "/_cat/health", cat_health)
+    rc.register("GET", "/_cat/nodes", cat_nodes)
+    rc.register("GET", "/_cat/indices", cat_indices)
+    rc.register("GET", "/_cat/shards", cat_shards)
+    rc.register("GET", "/_cat/shards/{index}", cat_shards)
+    rc.register("GET", "/_cat/master", cat_master)
+    rc.register("GET", "/_cat/allocation", cat_allocation)
+    rc.register("GET", "/_cat/allocation/{node_id}", cat_allocation)
+    rc.register("GET", "/_cat/count", cat_count)
+    rc.register("GET", "/_cat/count/{index}", cat_count)
+    rc.register("GET", "/_cat/aliases", cat_aliases)
+    rc.register("GET", "/_cat/aliases/{name}", cat_aliases)
+    rc.register("GET", "/_cat/pending_tasks", cat_pending_tasks)
+    rc.register("GET", "/_cat/recovery", cat_recovery)
+    rc.register("GET", "/_cat/thread_pool", cat_thread_pool)
+    rc.register("GET", "/_cat/batcher", cat_batcher)
+    rc.register("GET", "/_cat/caches", cat_caches)
+    rc.register("GET", "/_cat/segments", cat_segments)
+    rc.register("GET", "/_cat/segments/{index}", cat_segments)
+    rc.register("GET", "/_cat/events", cat_events)
+    rc.register("GET", "/_cat", lambda r: _text("".join(f"/_cat/{n}\n" for n in _CAT_ROUTES)))
 
 
 def _prom_labels(labels: dict) -> str:
@@ -379,7 +830,6 @@ def _prometheus_text(node) -> str:
     `estpu_jax_*` family), the resident bytes, the fault domains, the
     event journal and the tracer. Each family's samples form one
     contiguous group (one loop a family)."""
-    from ..common.devicehealth import DEVICE_HEALTH, HALF_OPEN, OPEN
     from ..ops.device_index import capacity_report
 
     w = _PromWriter()
@@ -1418,5 +1868,7 @@ def build_rest_controller(node) -> RestController:
 
     rc.register("POST", "/_nodes/_local/profiler/start", profiler_start)
     rc.register("POST", "/_nodes/_local/profiler/stop", profiler_stop)
+    _register_cluster_routes(rc, client)
+    _register_cat_routes(rc, node, client)
     _register_later_routes(rc)
     return rc

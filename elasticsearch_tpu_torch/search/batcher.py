@@ -197,7 +197,9 @@ class DeviceBatcher:
         self._queue: deque[_Item] = deque()
         self._cv = threading.Condition()
         self._shutdown = False
-        self._drainer_started = False
+        # the drainer, started by the first submit; kept so a node's close
+        # can be seen to end it
+        self.drainer_thread: threading.Thread | None = None
         self._drainer_dead = False
         # EWMA of batch service time (dispatch start -> fan-out done): what the
         # deadline flush subtracts so launch + merge still fit in the budget
@@ -275,14 +277,14 @@ class DeviceBatcher:
 
     # -- drainer -------------------------------------------------------------
     def _ensure_drainer(self):
-        if self._drainer_started:
+        if self.drainer_thread is not None:
             return
         with self._cv:
-            if self._drainer_started or self._shutdown:
+            if self.drainer_thread is not None or self._shutdown:
                 return
-            self._drainer_started = True
-        threading.Thread(target=self._drain_loop, daemon=True,
-                         name="estpu_torch[search_batcher]").start()
+            self.drainer_thread = threading.Thread(
+                target=self._drain_loop, daemon=True, name="estpu_torch[search_batcher]")
+        self.drainer_thread.start()
 
     def _drain_loop(self):
         try:

@@ -164,9 +164,10 @@ def _dsl_bulks() -> list[str]:
     return ["\n".join(json.dumps(x) for x in part) + "\n" for part in bulks]
 
 
-def _node_pair(tmp_path_factory, fill):
-    """Boot a port node and a JAX node, run `fill(base URL)` on each, yield
-    (port base URL, JAX base URL, port node), then close both."""
+def _node_pair(tmp_path_factory, fill, names=("port", "jax")):
+    """Boot a port node and a JAX node (named `names`), run `fill(base URL)`
+    on each, yield (port base URL, JAX base URL, port node), then close
+    both."""
     from elasticsearch_tpu.node import Node as JNode
     from elasticsearch_tpu.transport.local import LocalTransportRegistry as JReg
 
@@ -174,9 +175,9 @@ def _node_pair(tmp_path_factory, fill):
     # one intra-op thread each keeps them from oversubscribing the cores
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    p = PNode(name="port", settings={"node.device": "cpu"}, registry=PReg(),
+    p = PNode(name=names[0], settings={"node.device": "cpu"}, registry=PReg(),
               data_path=str(tmp_path_factory.mktemp("port_node"))).start()
-    j = JNode(name="jax", settings={"search.mesh.enabled": "false",
+    j = JNode(name=names[1], settings={"search.mesh.enabled": "false",
                                     "indices.warmer.enabled": "false"},
               registry=JReg(), data_path=str(tmp_path_factory.mktemp("jax_node")))
     try:
@@ -302,9 +303,9 @@ def test_port_refuses_what_it_does_not_serve(nodes):
         assert st == 404 and r["error"]["type"] == "IndexMissingException", r
     # a JAX route of a later slice names it; a route neither node has
     # answers "No handler found"
-    st, r = call(pbase, "GET", "/_cluster/stats")
+    st, r = call(pbase, "GET", "/_snapshot")
     assert st == 400 and r["error"]["type"] == "NotPortedException"
-    assert "A7b" in r["error"]["reason"]
+    assert "A9" in r["error"]["reason"]
     st, r = call(pbase, "GET", "/_foo/bar")
     assert st == 400 and "No handler found" in r["error"]
     # a clause on a numeric field answers from its doc-value column, with

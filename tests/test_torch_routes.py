@@ -13,7 +13,11 @@ mappings stay as they were (before the repair, `POST /p3/_close` answered
 served that route since, is held against the JAX node in
 `tests/test_torch_index_admin.py`). The 20 pairs of the observability
 slice (A7a), which left that table, are each served on the port node:
-200, and the index untouched (a profiler's stop after its start)."""
+200, and the index untouched (a profiler's stop after its start). So is
+each GET pair of the admin slice (A7b: `_cat`, `_cluster/state`, `stats`,
+`pending_tasks`, `settings`); its PUT and POST pairs (settings, reroute,
+shutdown) are held against the JAX node in
+`tests/test_torch_cluster_admin.py`."""
 
 import json
 import re
@@ -71,7 +75,7 @@ def test_port_registers_every_jax_route_and_no_other():
     assert port == jax, (sorted(jax - port), sorted(port - jax))
     later = {(m, re.sub(r"\{\w+\}", "{}", t)) for m, t, _s in LATER}
     assert len(later) == len(LATER)  # no pair twice in the table
-    assert len(jax) == 255 and len(later) == 44
+    assert len(jax) == 255 and len(later) == 11
 
 
 @pytest.fixture(scope="module")
@@ -149,4 +153,37 @@ def test_observability_route_is_served_and_writes_nothing(port, method, template
         assert _send(port, "POST", "/_nodes/_local/profiler/stop")[0] == 200
     if not path.startswith(("/_nodes/hot", "/_cluster/nodes/hot", "/_prometheus")):
         assert "NotPorted" not in json.dumps(json.loads(payload))
+    assert _state(port) == before == (3, before[1])
+
+
+# the GET pairs the admin slice (A7b) serves; none is in _LATER_ROUTES
+A7B = [("GET", "/_cluster/state"), ("GET", "/_cluster/state/{metric}"),
+       ("GET", "/_cluster/state/{metric}/{index}"), ("GET", "/_cluster/pending_tasks"),
+       ("GET", "/_cluster/stats"), ("GET", "/_cluster/stats/nodes/{node_id}"),
+       ("GET", "/_cluster/settings"), ("GET", "/_cat"), ("GET", "/_cat/health"),
+       ("GET", "/_cat/nodes"), ("GET", "/_cat/indices"), ("GET", "/_cat/shards"),
+       ("GET", "/_cat/shards/{index}"), ("GET", "/_cat/master"),
+       ("GET", "/_cat/allocation"), ("GET", "/_cat/allocation/{node_id}"),
+       ("GET", "/_cat/count"), ("GET", "/_cat/count/{index}"), ("GET", "/_cat/aliases"),
+       ("GET", "/_cat/aliases/{name}"), ("GET", "/_cat/pending_tasks"),
+       ("GET", "/_cat/recovery"), ("GET", "/_cat/thread_pool"), ("GET", "/_cat/batcher"),
+       ("GET", "/_cat/caches"), ("GET", "/_cat/segments"),
+       ("GET", "/_cat/segments/{index}"), ("GET", "/_cat/events")]
+
+
+@pytest.mark.parametrize("method,template", A7B, ids=[f"{m} {t}" for m, t in A7B])
+def test_admin_route_is_served(port, method, template):
+    assert (method, template) not in {(m, t) for m, t, _s in LATER}
+    path = template.replace("{index}", "p3").replace("{metric}", "metadata,routing_table") \
+        .replace("{node_id}", "routes").replace("{name}", "*")
+    before = _state(port)
+    st, payload = _send(port, method, path)
+    assert st == 200, (method, path, payload)
+    assert b"NotPorted" not in payload
+    if path.startswith("/_cat"):
+        assert path == "/_cat" or b"error" not in payload, payload
+    else:
+        json.loads(payload)
+    if path == "/_cat/count/p3":
+        assert payload.split()[-1] == b"3"
     assert _state(port) == before == (3, before[1])
