@@ -120,7 +120,8 @@ those paths against its plain torch version on the card. Phases:
      `set_sync_debug_mode("error")`. 16 queries a family (32 before phase
      20 joined the run) equal the host
      scorer (2 ulp, tie-tolerant, totals exact; the script at 5 decimals)
-     and every query the same ops on CPU tensors; no query reruns on the
+     and the same ops on CPU tensors (every query of the batch until phase
+     26 joined the run); no query reruns on the
      host; the script on `pop` (missing on 1 doc in 7) flags its query,
      which reruns on the host scorer and raises ScriptError there, as in the
      JAX package. Ms a batch by family (CUDA events and host wall), dense
@@ -705,6 +706,13 @@ LIFE_LEVELS = (("info", 0.8), ("warn", 0.15), ("error", 0.05))
 # memory_allocated() must give back, and the growth over the cycles it may
 # show, as shares of one day's resident bytes
 LIFE_RELEASED_SHARE, LIFE_GROWTH_SHARE = 0.9, 0.05
+# phase 26: two nodes over TCP beside a one-node reference: the documents
+# (20,000 of phase 10's texts in 5 shards at 0 replicas), the searches of
+# the timed run and their connections, and the searches after the leave
+TWO_DOCS, TWO_REQUESTS, TWO_CONN, TWO_AFTER = 20_000, 256, 16, 64
+# its warm-up searches a node, and the seconds its reference child may take
+# to serve (its start, the bulk, the warm-up)
+TWO_WARM, TWO_REF_TIMEOUT_S = 8, 120
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -1632,6 +1640,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     report["lifecycle"] = lifecycle = lifecycle_phase(device, vocab=vocab,
                                                       seed=seed + 23)
 
+    # -- 26. two nodes over TCP, beside a one-node reference -------------------
+    report["two_nodes"] = two = two_node_phase(device, vocab=vocab, seed=seed + 9)
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1686,7 +1697,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
         lifecycle_warmer_launches=lifecycle["refresh"]["warmer_launches"],
         lifecycle_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                           for s in lifecycle["kernel_shapes"]],
-        lifecycle_max_abs_err=lifecycle["kernel_max_abs_err"])]
+        lifecycle_max_abs_err=lifecycle["kernel_max_abs_err"],
+        two_node_launches={n: v["launches"] for n, v in two["by_node"].items()
+                           if n != "other"},
+        two_node_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                         for s in two["kernel_shapes"]],
+        two_node_max_abs_err=two["kernel_max_abs_err"])]
     return report
 
 
@@ -3853,8 +3869,10 @@ def dense_family_phase(device, segs, ranked, *, seed: int, batch: int,
         assert len(reruns) == 1
         texecute._host_search = host_search
 
-        # correctness: n_check queries a family against the host scorer, every
-        # query against the same ops on CPU tensors
+        # correctness: n_check queries a family against the host scorer and
+        # against the same ops on CPU tensors (every query of the batch on
+        # CPU tensors until phase 26 joined the run: 57-60 s of the
+        # command, cut for its time)
         checked = {}
         for f in DENSE_FAMILIES:
             idx = rng.choice(batch, min(n_check, batch), replace=False)
@@ -3868,18 +3886,20 @@ def dense_family_phase(device, segs, ranked, *, seed: int, batch: int,
                 else:
                     assert tie_tolerant_equal(got, want), (f, i, "host")
             t0 = time.perf_counter()
-            cpu_plans = [device_plan(cpu_ctx, r)[0] for r in reqs[f]]
+            cpu_plans = [device_plan(cpu_ctx, reqs[f][i])[0] for i in idx]
             cpu_res = texecute.dispatch_flat_batch(cpu_plans, cpu_ctx, K).merge()
             cpu_s = time.perf_counter() - t0
             bitwise = 0
-            for i, (a, b) in enumerate(zip(results[f], cpu_res)):
+            for i, b in zip(idx, cpu_res):
+                a = results[f][i]
                 assert a.total == b.total, (f, i, "total vs cpu")
                 if f == "fs_script":
                     assert tie_tolerant_close(a.hits, b.hits, 1e-5), (f, i, "cpu")
                 else:
                     assert tie_tolerant_equal(a.hits, b.hits), (f, i, "cpu")
                 bitwise += a.hits == b.hits
-            checked[f] = dict(host=len(idx), cpu=batch, cpu_bitwise_share=bitwise / batch,
+            checked[f] = dict(host=len(idx), cpu=len(idx),
+                              cpu_bitwise_share=bitwise / len(idx),
                               cpu_s=cpu_s, matched=sum(r.total for r in results[f]))
         out["checked"] = checked
     finally:
@@ -3905,7 +3925,7 @@ def dense_family_phase(device, segs, ranked, *, seed: int, batch: int,
     for f, c in out["checked"].items():
         log(f"[12]   {f:11s} {c['host']} queries == the host scorer ("
             + ("5 decimals" if f == "fs_script" else f"{ULPS} ulp, tie-tolerant")
-            + f", totals exact), all {c['cpu']} == the same ops on CPU tensors "
+            + f", totals exact), the same {c['cpu']} == the same ops on CPU tensors "
             f"({c['cpu_bitwise_share']:.4f} bitwise; {c['cpu_s']:.1f} s on the CPU); "
             f"{c['matched']} matches")
     log(f"[12] no query reran on the host scorer; the script on pop (missing on 1 "
@@ -8565,8 +8585,12 @@ def lifecycle_phase(device, *, vocab: int, seed: int, n_days: int = LIFE_DAYS,
 
     data_path = Path(__file__).resolve().parent / "build" / f"chip_smoke_life_{os.getpid()}"
     shutil.rmtree(data_path, ignore_errors=True)
+    # the guide's hot-warm layout on one node: the node is the `cold` box
+    # too, so a retired day (`include.box_type: cold`) stays allocated here
+    # under the allocator's filter decider
     node = Node(name="lifecycle", registry=LocalTransportRegistry(),
-                data_path=str(data_path), settings={"node.device": str(device)}).start()
+                data_path=str(data_path), settings={"node.device": str(device),
+                                                    "node.attr.box_type": "cold"}).start()
     recorder = None
     launches: dict = {}
     steps: dict = {}
@@ -9032,6 +9056,399 @@ def lifecycle_phase(device, *, vocab: int, seed: int, n_days: int = LIFE_DAYS,
         shutil.rmtree(data_path, ignore_errors=True)
 
 
+def two_node_inputs(vocab: int, seed: int, n_docs: int, n_requests: int,
+                    corpus_docs: int):
+    """Phase 26's documents and bodies: phase 10's corpus of `corpus_docs`
+    (the same draws) and its `bool` bodies, the first `n_docs` texts and
+    `n_requests` bodies."""
+    texts, offsets, _inv = node_corpus(corpus_docs, vocab, seed)
+    ranked = np.argsort(-np.diff(offsets), kind="stable")
+    rng = np.random.default_rng(seed + 1)
+    rows = rng.choice(ranked[RANKS[0]: RANKS[1]], size=(n_requests, TERMS_PER_QUERY))
+    return texts[:n_docs], [
+        {"query": {"bool": {"should": [{"term": {"body": term_name(int(t))}}
+                                       for t in row]}}, "size": NODE_SIZE}
+        for row in rows]
+
+
+def two_node_fill(client, texts: list) -> None:
+    """`corpus` (5 shards, 0 replicas, no refresh interval) created through
+    `client`, the texts bulked under their ordinals as ids, a refresh."""
+    r = client.create_index("corpus", {"settings": {
+        "number_of_shards": NODE_SHARDS, "number_of_replicas": 0,
+        "refresh_interval": -1}})
+    assert r["acknowledged"], r
+    h = client.cluster_health("corpus", wait_for_status="green", timeout=60)
+    assert h["status"] == "green", h
+    for lo in range(0, len(texts), NODE_BULK):
+        r = client.bulk([{"action": {"index": {"_index": "corpus", "_type": "doc",
+                                               "_id": str(i)}},
+                          "source": {"body": texts[i]}}
+                         for i in range(lo, min(lo + NODE_BULK, len(texts)))])
+        assert not r["errors"], r["items"][:2]
+    r = client.refresh("corpus")
+    assert r["_shards"]["failed"] == 0, r
+
+
+def two_node_ref_child(path: str) -> None:
+    """Phase 26's one-node reference, in a child process so its bulk runs
+    beside the cluster's instead of after it under one interpreter lock: a
+    `cuda` node on its own in-process transport takes the same texts
+    (`two_node_fill`), warms its shards, serves HTTP, writes `{"port":
+    ...}` to the input's `out` once it serves, and serves until its
+    standard input closes (the parent closes it, or dies)."""
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry
+
+    inp = json.loads(Path(path).read_text())
+    t0 = time.perf_counter()
+    texts, bodies = two_node_inputs(inp["vocab"], inp["seed"], inp["docs"],
+                                    inp["warm"], inp["corpus_docs"])
+    node = Node(name="n26ref", registry=LocalTransportRegistry(),
+                settings={"node.device": inp["device"]},
+                data_path=str(Path(inp["work"]) / "ref")).start()
+    try:
+        two_node_fill(node.client(), texts)
+        port = node.start_http(0).port
+        warm, _lat, _w = http_requests(port, [("POST", "/corpus/_search", b, None)
+                                              for b in bodies], len(bodies))
+        assert all(st == 200 for st, _r in warm)
+        tmp = Path(inp["out"] + ".tmp")
+        tmp.write_text(json.dumps({"port": port, "ready_s": time.perf_counter() - t0}))
+        tmp.rename(inp["out"])
+        sys.stdin.read()
+    finally:
+        node.close()
+
+
+def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
+                   n_requests: int = TWO_REQUESTS, n_conn: int = TWO_CONN,
+                   n_after: int = TWO_AFTER) -> dict:
+    """Phase 26: two port Nodes on `device` in this process form one cluster
+    over the TCP transport (127.0.0.1, port 0, the second seeded with the
+    first's address), beside a one-node reference on its own in-process
+    transport in a child process (`--two-node-ref-child`: its bulk runs
+    beside the cluster's). The cluster's index (5 shards, 0 replicas: a small cluster
+    spreading an index's primaries over its data nodes) and the
+    reference's (the same shard count) take the same `n_docs` of phase
+    10's texts under the same ids. Then `n_requests` of phase 10's `bool`
+    bodies, half to each node's HTTP from `n_conn` connections, each hits
+    JSON bitwise the reference's; each node launches `sparse_score` from
+    its own batcher with one `PendingPull.wait` a batch and no
+    `torch.cuda.synchronize`; `_cluster/stats`, `/_nodes` and `_cat/nodes`
+    name both nodes. The second node closes: the master removes it and
+    starts its primaries again, empty, on itself (the JAX master's
+    behaviour at 0 replicas); `memory_allocated()` falls by the bytes the
+    closed node's packs held; the first node answers the bodies over the
+    shards it holds as the reference answers them restricted to those
+    shards. The kernel bitwise against its plain version at every shape
+    either node launched."""
+    import http.client
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.device_index import (
+        _SegmentFilterMasks, pack_cache_key, packed_resident_bytes)
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_two_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    # the reference starts first: its start and bulk run beside ours
+    ref_out = root / "ref.json"
+    (root / "ref_in.json").write_text(json.dumps({
+        "vocab": vocab, "seed": seed, "docs": n_docs, "warm": TWO_WARM,
+        "corpus_docs": max(n_docs, NODE_DOCS),
+        "device": str(device), "work": str(root), "out": str(ref_out)}))
+    ref_log = open(root / "ref.log", "w")
+    child = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--two-node-ref-child",
+         str(root / "ref_in.json")], cwd=Path(__file__).resolve().parent,
+        stdin=subprocess.PIPE, stdout=subprocess.DEVNULL, stderr=ref_log, text=True)
+    conf = {"node.device": str(device), "transport.type": "tcp",
+            "transport.tcp.host": "127.0.0.1", "transport.tcp.port": 0}
+    nodes: list = []
+    steps: dict = {}
+    recorder = None
+    names = ("n26a", "n26b")
+    # per node: sparse_score launches and PendingPull.waits, told apart by
+    # the batcher's drainer thread (`estpu_torch[search_batcher][<node>]`)
+    by_node = {n: dict(launches=0, waits=0) for n in (*names, "other")}
+    syncs = [0]
+    lock = threading.Lock()
+    orig_wait, orig_sync = cudaenv.PendingPull.wait, torch.cuda.synchronize
+
+    def owner() -> str:
+        t = threading.current_thread().name
+        return next((n for n in names if f"[{n}]" in t), "other")
+
+    def counted_wait(self):
+        with lock:
+            by_node[owner()]["waits"] += 1
+        return orig_wait(self)
+
+    def counted_sync(*a, **k):
+        with lock:
+            syncs[0] += 1
+        return orig_sync(*a, **k)
+
+    def wait_for(pred, what: str, timeout: float = 60.0):
+        deadline = time.perf_counter() + timeout
+        while not pred():
+            assert time.perf_counter() < deadline, f"phase 26: {what} not reached"
+            time.sleep(0.02)
+
+    def resident(node) -> int:
+        """The bytes the port counts resident for a node's shards: packed
+        planes (`packed_resident_bytes`) and filter masks."""
+        out = 0
+        for svc in list(node.indices.indices.values()):
+            for shard in list(svc.shards.values()):
+                for seg in shard.engine.acquire_searcher().segments:
+                    packed = seg._device_cache.get(pack_cache_key(device))
+                    if packed is not None:
+                        out += packed_resident_bytes(packed)
+                    out += sum(h.bytes for h in list(seg._device_cache.values())
+                               if isinstance(h, _SegmentFilterMasks))
+        return out
+
+    def allocated() -> int:
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - recorder.held_bytes
+
+    def drained(node) -> bool:
+        st = node.warmer.stats()
+        return st["packs_done"] >= st["packs_scheduled"] and \
+            node.search_batcher.stats()["queue"] == 0
+
+    try:
+        texts, bodies = two_node_inputs(vocab, seed, n_docs, n_requests,
+                                        max(n_docs, NODE_DOCS))
+        t0 = time.perf_counter()
+        a = Node(name=names[0], settings=dict(conf), data_path=str(root / "a"))
+        nodes.append(a)
+        a.start(seeds=[])
+        b = Node(name=names[1], settings={
+            **conf, "discovery.zen.ping.unicast.hosts": [a.local_node.transport_address]},
+            data_path=str(root / "b"))
+        nodes.append(b)
+        b.start()
+        wait_for(lambda: all(n.cluster_service.state.nodes.size == 2 and
+                             n.cluster_service.state.nodes.master_id == names[0]
+                             for n in (a, b)), "two nodes under one master")
+        if on_card:  # every node ran its own start check on the shared build
+            for n in (a, b):
+                assert n.kernel_checks.get("sparse_score"), (n.name, n.kernel_checks)
+        steps["boot"] = time.perf_counter() - t0
+
+        # -- the index: created through the node that is not master ----------
+        t0 = time.perf_counter()
+        two_node_fill(b.client(), texts)  # created through the node that is not master
+        placed = {}
+        for s in a.cluster_service.state.routing_table.index("corpus").all_shards():
+            placed.setdefault(s.node_id, []).append(s.shard_id)
+        assert sorted(map(len, placed.values())) == [2, 3], placed
+        assert a.client().count("corpus")["count"] == n_docs
+        steps["index_and_bulk"] = time.perf_counter() - t0
+
+        # -- the surfaces that name both nodes --------------------------------
+        ports = {n.name: n.start_http(0).port for n in (a, b)}
+        conn = http.client.HTTPConnection("127.0.0.1", ports[names[1]], timeout=120)
+        st, cs = http_json(conn, "GET", "/_cluster/stats")
+        assert st == 200 and cs["nodes"]["count"]["total"] == 2, cs
+        assert cs["indices"]["docs"]["count"] == n_docs, cs["indices"]
+        st, ni = http_json(conn, "GET", "/_nodes")
+        assert st == 200 and sorted(ni["nodes"]) == sorted(names), ni
+        conn.close()
+        cat = cat_text(ports[names[0]], "/_cat/nodes")
+        assert sorted(line.split()[0] for line in cat.strip().splitlines()) == \
+            sorted(names), cat
+
+        # -- traffic: warm (each shard packs at its first search), wait for
+        # the reference to serve (its bulk and warm-up then share neither
+        # the card nor the host's cores with the timed run), then the
+        # cluster's run half to each node ---------------------------------------
+        t0 = time.perf_counter()
+        for port in ports.values():
+            warm, _lat, _w = http_requests(
+                port, [("POST", "/corpus/_search", body, None)
+                       for body in bodies[:TWO_WARM]], TWO_WARM)
+            assert all(s == 200 for s, _r in warm)
+        for n in (a, b):
+            wait_for(lambda n=n: drained(n), f"{n.name}'s warmer drained")
+        steps["warm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wait_for(lambda: ref_out.exists() or child.poll() is not None,
+                 "the reference child serving", timeout=TWO_REF_TIMEOUT_S)
+        assert ref_out.exists(), (child.returncode,
+                                  (root / "ref.log").read_text()[-4000:])
+        ref_port = json.loads(ref_out.read_text())["port"]
+        steps["reference_wait"] = time.perf_counter() - t0
+
+        recorder = LaunchRecorder(scoring, sparse_score, copy_inputs=True)
+        inner = scoring.sparse_score
+
+        def attributed(*args, **kwargs):
+            with lock:
+                by_node[owner()]["launches"] += 1
+            return inner(*args, **kwargs)
+
+        scoring.sparse_score = attributed
+        cudaenv.PendingPull.wait = counted_wait
+        torch.cuda.synchronize = counted_sync
+        batches0 = {n.name: n.search_batcher.stats()["launches"] for n in (a, b)}
+        errors0 = SERVING_COUNTERS["device_errors"]
+        cudaenv.LAUNCHES.reset()
+        results: dict = {}
+
+        def leg(name, part):
+            results[name] = http_requests(
+                ports[name], [("POST", "/corpus/_search", body, None) for body in part],
+                max(1, n_conn // 2))
+
+        t0 = time.perf_counter()
+        legs = [threading.Thread(target=leg, args=(names[i], bodies[i::2]))
+                for i in range(2)]
+        for t in legs:
+            t.start()
+        for t in legs:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = cudaenv.LAUNCHES.snapshot()
+        torch.cuda.synchronize = orig_sync
+        cudaenv.PendingPull.wait = orig_wait
+        scoring.sparse_score = inner
+        batches = {n.name: n.search_batcher.stats()["launches"] - batches0[n.name]
+                   for n in (a, b)}
+        assert SERVING_COUNTERS["device_errors"] == errors0
+
+        # -- the reference's answers ------------------------------------------
+        t0 = time.perf_counter()
+        want, _lat, _w = http_requests(
+            ref_port, [("POST", "/corpus/_search", body, None) for body in bodies], n_conn)
+        steps["reference"] = time.perf_counter() - t0
+        lat = np.concatenate([results[n][1] for n in names])
+        got = [None] * n_requests
+        for i, name in enumerate(names):
+            got[i::2] = results[name][0]
+        for i, ((st, r), (wst, w)) in enumerate(zip(got, want)):
+            assert st == wst == 200, (i, r)
+            assert r["_shards"] == SHARDS_OK, (i, r["_shards"])
+            assert r["hits"] == w["hits"], f"request {i}: hits differ from the one-node reference"
+        for name in names:
+            assert by_node[name]["waits"] == batches[name] > 0, (name, by_node, batches)
+            if on_card:
+                assert by_node[name]["launches"] > 0, (name, by_node)
+        assert syncs[0] == 0 and by_node["other"]["launches"] == 0, (syncs, by_node)
+        if on_card:
+            assert launches.get("sparse_score", 0) == \
+                sum(by_node[n]["launches"] for n in names), (launches, by_node)
+        steps["traffic"] = wall
+
+        # -- the kernel at every shape either node launched --------------------
+        t0 = time.perf_counter()
+        max_err = check_shapes(recorder.shapes)
+        shapes = [dict(Qb=int(args[0].shape[0]), TB=int(args[0].shape[1]),
+                       tf=str(args[10].dtype), k=kwargs["k"], launches=n)
+                  for _key, (args, kwargs, n) in recorder.shapes.items()]
+        steps["kernel_checks"] = time.perf_counter() - t0
+
+        # -- the second node leaves --------------------------------------------
+        t0 = time.perf_counter()
+        a_shards = sorted(placed[names[0]])
+        b_shards = sorted(placed[names[1]])
+        wait_for(lambda: drained(b), "the second node drained")
+        b_resident = resident(b)
+        before = allocated()
+        b.close()
+        wait_for(lambda: a.cluster_service.state.nodes.size == 1, "the node removed")
+        wait_for(lambda: a.client().cluster_health("corpus", timeout=0)["status"] == "green",
+                 "green on one node")
+        after = allocated()
+        released = before - after
+        rows_after = [(s.shard_id, s.node_id) for s in
+                      a.cluster_service.state.routing_table.index("corpus").all_shards()]
+        assert rows_after == [(sid, names[0]) for sid in range(NODE_SHARDS)], rows_after
+        if on_card:
+            assert 0.97 * b_resident <= released <= 1.03 * b_resident, \
+                (b_resident, before, after)
+        pref = "_shards:" + ",".join(map(str, a_shards))
+        part = bodies[:n_after]
+        got_after, _l, _w = http_requests(
+            ports[names[0]], [("POST", "/corpus/_search", body, None) for body in part],
+            n_conn)
+        want_after, _l, _w = http_requests(
+            ref_port, [("POST", f"/corpus/_search?preference={pref}", body, None)
+                       for body in part], n_conn)
+        for i, ((st, r), (wst, w)) in enumerate(zip(got_after, want_after)):
+            assert st == wst == 200 and r["_shards"]["failed"] == 0, (i, r)
+            assert r["hits"] == w["hits"], f"request {i} after the leave"
+        steps["leave"] = time.perf_counter() - t0
+
+        out = dict(card=card, docs=n_docs, requests=n_requests, conn=n_conn,
+                   ref_ready_s=json.loads(ref_out.read_text())["ready_s"],
+                   placed={k: sorted(v) for k, v in placed.items()},
+                   requests_per_s=n_requests / wall, wall_s=wall,
+                   p50_ms=float(np.percentile(lat, 50)),
+                   p99_ms=float(np.percentile(lat, 99)),
+                   by_node={k: dict(v) for k, v in by_node.items()}, batches=batches,
+                   launches=launches, kernel_shapes=shapes, kernel_max_abs_err=max_err,
+                   departed=dict(shards=b_shards, resident=b_resident, released=released,
+                                 share=(released / b_resident) if b_resident else None),
+                   steps_s=steps)
+        log(f"[26] two nodes on {device} over TCP, master {names[0]}: {n_docs} docs into "
+            f"{NODE_SHARDS} shards at 0 replicas placed {out['placed']}; a one-node "
+            f"reference with the same bulk in a child (serving after "
+            f"{out['ref_ready_s']:.1f} s); {card}")
+        log(f"[26] {n_requests} `bool` bodies, half to each node, from {n_conn} "
+            f"connections: {out['requests_per_s']:.1f} requests/s, p50 "
+            f"{out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms; every hits JSON == the "
+            f"reference's (bitwise); {card}")
+        for name in names:
+            log(f"[26]   {name}: {by_node[name]['launches']} sparse_score launches, "
+                f"{batches[name]} batches, {by_node[name]['waits']} PendingPull.wait "
+                f"calls; torch.cuda.synchronize calls {syncs[0]}")
+        log(f"[26] `_cluster/stats`, `/_nodes` and `_cat/nodes` name both nodes")
+        log(f"[26] {names[1]} closed: shards {b_shards} started again, empty, on "
+            f"{names[0]}; resident {b_resident} B, memory_allocated() fell {released} B"
+            + (f" ({released / b_resident:.4f} of it)" if b_resident else "")
+            + f"; {n_after} bodies on {names[0]} == the reference over shards {a_shards}")
+        for sh in shapes:
+            log(f"[26]   sparse_score Qb {sh['Qb']} TB {sh['TB']} {sh['tf']} k {sh['k']}: "
+                f"{sh['launches']} launches")
+        log(f"[26] sparse_score == plain (bitwise) at all {len(shapes)} shapes phase 26 "
+            f"launched; max abs err {max_err}")
+        out["wall_phase_s"] = time.perf_counter() - t_phase
+        log(f"[26] phase 26 took {out['wall_phase_s']:.1f} s; by step (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+        return out
+    finally:
+        torch.cuda.synchronize = orig_sync
+        cudaenv.PendingPull.wait = orig_wait
+        if recorder is not None:
+            recorder.close()
+        for n in reversed(nodes):
+            n.close()
+        try:
+            child.stdin.close()  # the reference serves until this closes
+            child.wait(timeout=30)
+        except (OSError, subprocess.TimeoutExpired):
+            child.kill()
+            child.wait()
+        ref_log.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def small_sources(n_docs: int, seed: int) -> list[dict]:
     """Phase 7's documents: a zipf(1.1) text over 400 words, a short title
     and a body of 10-120 words each."""
@@ -9082,7 +9499,11 @@ def main() -> int:
     ap.add_argument("--sticky-child", help=argparse.SUPPRESS)  # phase 15 (b)'s child
     ap.add_argument("--restart-child", help=argparse.SUPPRESS)  # ... and its restart
     ap.add_argument("--locktrace-child", help=argparse.SUPPRESS)  # phase 25 (d)'s child
+    ap.add_argument("--two-node-ref-child", help=argparse.SUPPRESS)  # phase 26's reference
     args = ap.parse_args()
+    if args.two_node_ref_child:
+        two_node_ref_child(args.two_node_ref_child)
+        return 0
     if args.locktrace_child:
         locktrace_child(args.locktrace_child)
         return 0

@@ -14,8 +14,9 @@ bucket of queries with the hand-written CUDA kernel `sparse_score`
 dense torch program for queries over too many postings blocks, pulls the whole
 batch to the host once and merges the segments' top-k. Every query that does
 not lower to that path runs on the numpy host scorer
-(`search.execute.HostScorer`, with `search.filters`). A one-node `node.Node`
-serves both over REST.
+(`search.execute.HostScorer`, with `search.filters`). A `node.Node` serves
+both over REST, alone or in a cluster of port nodes (zen discovery over the
+in-process or the TCP transport).
 
 Entry points run on the card unless the caller passes `device="cpu"`
 (`common.cudaenv.default_device`); on the CPU every kernel wrapper runs its

@@ -8,15 +8,17 @@ package's `actions.py`), in the reference's interaction patterns:
   `number_of_replicas` resizes the groups), aliases, templates and search
   warmers, apply a dynamic-mapping update, the cluster's transient and
   persistent settings, a reroute with explicit commands (URGENT), shard
-  started — forwarded to the master, which mutates the cluster state on
-  its single state thread. A
+  started and shard failed — run on the elected master (`_master_wrap`:
+  a node that is not master forwards the request to it, and with no
+  master it answers 503 MasterNotDiscoveredError), which mutates the
+  cluster state on its single state thread and publishes it. A
   close drops the index's routing and blocks it (reads and writes answer
   403); an open gives it fresh routing, and its shards recover from their
   stores;
-- replication, primary only (a one-node cluster leaves every replica
-  unassigned): `index_doc` routes a document to its primary by djb2, with
-  its `timestamp` and `ttl`, through an alias that names one index; the
-  primary first checks the write consistency (`quorum` by default: more
+- replication, primary only (a port cluster leaves every replica
+  unassigned until replicas and recovery, ROADMAP A5c): `index_doc`
+  routes a document to its primary by djb2, with its `timestamp` and
+  `ttl`, through an alias that names one index; the primary first checks the write consistency (`quorum` by default: more
   than half of a group of more than two copies must be active, else 503);
   `bulk` groups the ops per shard and sends every group at once (no
   consistency check, as in the JAX package);
@@ -118,7 +120,12 @@ cannot record its CUDA events fails the whole search (500).
 
 A node shutdown (`nodes_shutdown`) sends `_s_shutdown_node` to each named
 node on its `management` pool; the node closes itself on a thread of its
-own after a short delay, so the answer leaves first.
+own after a short delay, so the answer leaves first; a named node may be
+another node of the cluster.
+
+The TransportClient's surface (client.py): `_s_client_nodes` answers the
+cluster's node list, and `_s_client_exec` runs one whitelisted Client
+method on this node, coordinated as a REST request would be.
 
 Not in this slice: the SPMD mesh branch, cache-affinity routing, failover
 across copies and hedging,
@@ -154,6 +161,7 @@ from .common import profile as profiling
 from .common import tracing
 from .common.deadline import NO_DEADLINE, Deadline
 from .common.errors import (
+    ActionNotFoundError,
     ActionRequestValidationError,
     AliasesMissingError,
     CircuitBreakingError,
@@ -178,7 +186,7 @@ from .common.settings import Settings, validate_index_name
 from .common.stream import StreamInput, StreamOutput
 from .common.units import parse_time
 from .index.segment import FieldStats
-from .indices_service import ACTION_SHARD_STARTED
+from .indices_service import ACTION_SHARD_FAILED, ACTION_SHARD_STARTED
 from .mapper import MapperService
 from .search.controller import (
     DfsResult,
@@ -266,7 +274,7 @@ def _normalize_warmer(body) -> dict:
 
 
 class ActionModule:
-    """Registers every handler on one node and provides the coordinator entry
+    """Registers every handler on a node and provides the coordinator entry
     points."""
 
     def __init__(self, node):
@@ -276,7 +284,7 @@ class ActionModule:
         self.indices = node.indices
         self.routing = node.operation_routing
         self.allocation = node.allocation
-        self.logger = get_logger("action")
+        self.logger = get_logger("action", node=node.name)
         # point-in-time contexts pinned between the query and fetch phases: a
         # refresh or merge between them must not move local doc ids under
         # the fetch
@@ -308,8 +316,9 @@ class ActionModule:
                            (A_MAPPING_UPDATED, self._m_mapping_updated),
                            (A_CLUSTER_SETTINGS, self._m_cluster_settings),
                            (A_REROUTE, self._m_reroute),
-                           (ACTION_SHARD_STARTED, self._m_shard_started)]:
-            t.register_handler(action, self._master_wrap(fn))
+                           (ACTION_SHARD_STARTED, self._m_shard_started),
+                           (ACTION_SHARD_FAILED, self._m_shard_failed)]:
+            t.register_handler(action, self._master_wrap(action, fn))
         # data-path actions, each on its named pool
         t.register_handler(A_INDEX_PRIMARY, self._p_index, executor="index")
         t.register_handler(A_BULK_SHARD, self._p_bulk_shard, executor="bulk")
@@ -324,12 +333,42 @@ class ActionModule:
                            executor="management")
         t.register_handler(A_SHUTDOWN_NODE, self._s_shutdown_node,
                            executor="management")
+        # the TransportClient's surface: the node list its sampler asks
+        # for, and every API call as a named client method
+        from .client import A_CLIENT_EXEC, A_CLIENT_NODES
+
+        t.register_handler(A_CLIENT_NODES, self._s_client_nodes, executor="management")
+        t.register_handler(A_CLIENT_EXEC, self._s_client_exec, executor="generic")
+
+    # ================= transport-client proxy =================
+    def _s_client_nodes(self, request, channel):
+        state = self.cluster_service.state
+        return {"nodes": [[n.id, n.name, n.transport_address]
+                          for n in state.nodes.nodes]}
+
+    def _s_client_exec(self, request, channel):
+        """One proxied client method, coordinated here as if it had come
+        over REST."""
+        from .client import CLIENT_PROXY_METHODS
+
+        method = str(request.get("method"))
+        if method not in CLIENT_PROXY_METHODS:
+            raise ActionNotFoundError(f"client method [{method}] is not proxied")
+        fn = getattr(self.node.client(), method)
+        return {"r": fn(**(request.get("kwargs") or {}))}
 
     # ================= master-node pattern =================
-    def _master_wrap(self, fn):
+    def _master_wrap(self, action, fn):
+        """Run a master operation here when this node is master, else
+        forward it to the elected master; with no master, 503."""
         def handler(request, channel):
-            if self.cluster_service.state.nodes.master_id != self.node.node_id:
+            state = self.cluster_service.state
+            if state.nodes.master_id is None:
                 raise MasterNotDiscoveredError("no master")
+            if state.nodes.master_id != self.node.node_id:
+                master = state.nodes.master
+                return self.transport.submit_request(master.transport_address, action,
+                                                     request, timeout=30.0)
             return fn(request, channel)
 
         return handler
@@ -728,7 +767,10 @@ class ActionModule:
         (an active copy on `from_node` goes INITIALIZING on `to_node`),
         `cancel` (the replica on `node` goes UNASSIGNED), `allocate` and
         `allocate_replica` (the group's first unassigned replica goes
-        INITIALIZING on `node`); then the allocation's own reroute."""
+        INITIALIZING on `node`); then the allocation's own reroute. A
+        command that would place a replica is refused when a decider
+        answers NO (`_refuse_unless_allowed`): a port node allocates no
+        replica until peer recovery is ported (ROADMAP A5c)."""
         commands = (request.get("body") or {}).get("commands", [])
 
         def update(state: ClusterState) -> ClusterState:
@@ -741,6 +783,9 @@ class ActionModule:
                 if cmd in ("move",):
                     for i, s in enumerate(shards):
                         if s.node_id == spec["from_node"] and s.active:
+                            if not s.primary:
+                                self._refuse_unless_allowed(cmd, state, s,
+                                                            spec["to_node"])
                             shards[i] = replace(s, node_id=spec["to_node"],
                                                 state="INITIALIZING")
                 elif cmd in ("cancel",):
@@ -750,6 +795,7 @@ class ActionModule:
                 elif cmd in ("allocate", "allocate_replica"):
                     for i, s in enumerate(shards):
                         if not s.assigned and not s.primary:
+                            self._refuse_unless_allowed(cmd, state, s, spec["node"])
                             shards[i] = replace(s, node_id=spec["node"],
                                                 state="INITIALIZING")
                             break
@@ -762,10 +808,27 @@ class ActionModule:
         new_state = self._submit("reroute", update, priority=URGENT)
         return {"acknowledged": True, "state_version": new_state.version}
 
+    def _refuse_unless_allowed(self, cmd: str, state: ClusterState,
+                               shard: ShardRouting, node_id: str):
+        """An explicit command places a replica only where no decider
+        answers NO; else it is refused with their explanations."""
+        noes = self.allocation.explain_no(state, shard, node_id)
+        if noes:
+            raise IllegalArgumentError(
+                f"[{cmd}] allocation of [{shard.index}][{shard.shard_id}] on node "
+                f"[{node_id}] is not allowed, reason: {'; '.join(noes)}")
+
     def _m_shard_started(self, request, channel):
         shard = ShardRouting.from_dict(request["shard"])
         self._submit(f"shard-started[{shard.index}][{shard.shard_id}]",
                      lambda state: self.allocation.apply_started_shards(state, [shard]),
+                     priority=URGENT)
+        return {"ok": True}
+
+    def _m_shard_failed(self, request, channel):
+        shard = ShardRouting.from_dict(request["shard"])
+        self._submit(f"shard-failed[{shard.index}][{shard.shard_id}]",
+                     lambda state: self.allocation.apply_failed_shard(state, shard),
                      priority=URGENT)
         return {"ok": True}
 
@@ -1274,8 +1337,8 @@ class ActionModule:
                     trace_ref.add_remote(r.get("spans"))
                 prof = r.get("profile")
                 if isinstance(prof, dict):
-                    # a lone node has no hedges: every profile is the
-                    # primary attempt's
+                    # no hedges before replica selection (A5c): every
+                    # profile is the primary attempt's
                     prof = {**prof, "winner": "primary"}
                 shard_meta[ordinal] = (copy.index, copy.shard_id,
                                        state.nodes.get(copy.node_id), r.get("ctx_id"))
@@ -1305,9 +1368,10 @@ class ActionModule:
     def _dfs_round(self, state, shards, body, deadline: Deadline):
         """Every shard's DFS phase at once, then the global statistics every
         query phase weighs its clauses with: (the wire form of
-        `aggregate_dfs`, the ordinals whose DFS phase failed). A lone node
-        holds one copy of a shard, so a failed phase has no copy to fail
-        over to (failover across copies comes with replicas, A5)."""
+        `aggregate_dfs`, the ordinals whose DFS phase failed). A phase runs
+        on the node that holds the shard's one started copy, local or over
+        the transport; a failed phase has no other copy to fail over to
+        until replicas come (ROADMAP A5c)."""
         futs = [self.transport.send_request(
             state.nodes.get(copy.node_id), A_DFS_PHASE, {
                 "index": copy.index, "shard": copy.shard_id, "body": body or {}})

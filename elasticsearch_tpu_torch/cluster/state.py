@@ -3,13 +3,17 @@
 DiscoveryNodes, ClusterBlocks}. Every mutation produces a NEW state with
 version+1.
 
-Trimmed to what a one-node cluster reads: index metadata keeps settings,
-mappings, aliases (each with its filter and routing), search warmers,
-state (open or close) and version; the metadata keeps the index templates,
-and `resolve_indices` resolves names, wildcards and aliases. Blocks are
-global (no master, state not recovered) or per index (a closed index,
-`index.blocks.*`). `to_dict` and `from_dict` round-trip the metadata the
-gateway persists under `path.data/_state`."""
+Index metadata keeps settings, mappings, aliases (each with its filter
+and routing), search warmers, state (open or close) and version; the
+metadata keeps the index templates, and `resolve_indices` resolves names,
+wildcards and aliases. Blocks are global (no master, state not recovered)
+or per index (a closed index, `index.blocks.*`). A discovery node carries
+its `node.attr.*` attributes and version (the allocation deciders read
+both); a shard copy may be RELOCATING, with `relocating_node` on both
+halves of the pair. `to_dict` and `from_dict` round-trip the whole state
+(the master publishes it to the other nodes) and the metadata the gateway
+persists under `path.data/_state`; a state the JAX package wrote loads
+too."""
 
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from dataclasses import dataclass, field as dc_field, replace
 from ..common.errors import ClusterBlockError, IndexMissingError
 from ..common.settings import Settings
 
-UNASSIGNED, INITIALIZING, STARTED = "UNASSIGNED", "INITIALIZING", "STARTED"
+UNASSIGNED, INITIALIZING, STARTED, RELOCATING = (
+    "UNASSIGNED", "INITIALIZING", "STARTED", "RELOCATING")
 
 
 @dataclass(frozen=True)
@@ -28,13 +33,27 @@ class DiscoveryNode:
     id: str
     name: str
     transport_address: str
+    attrs: tuple = ()  # ((key, value), ...) from the node.attr.* settings
     master_eligible: bool = True
     data: bool = True
+    version_id: int = 10000  # the JAX package's node version
+
+    def attr(self, key: str, default=None):
+        return dict(self.attrs).get(key, default)
 
     def to_dict(self) -> dict:
-        return {"id": self.id, "name": self.name,
-                "transport_address": self.transport_address,
-                "master_eligible": self.master_eligible, "data": self.data}
+        return {
+            "id": self.id, "name": self.name, "transport_address": self.transport_address,
+            "attrs": dict(self.attrs), "master_eligible": self.master_eligible,
+            "data": self.data, "version_id": self.version_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DiscoveryNode":
+        return cls(d["id"], d["name"], d["transport_address"],
+                   tuple(sorted(d.get("attrs", {}).items())),
+                   d.get("master_eligible", True), d.get("data", True),
+                   d.get("version_id", 10000))
 
 
 @dataclass(frozen=True)
@@ -54,18 +73,43 @@ class DiscoveryNodes:
         return self.get(self.master_id) if self.master_id else None
 
     @property
+    def local(self) -> DiscoveryNode | None:
+        return self.get(self.local_id) if self.local_id else None
+
+    @property
     def size(self) -> int:
         return len(self.nodes)
 
     def data_nodes(self) -> list[DiscoveryNode]:
         return [n for n in self.nodes if n.data]
 
+    def master_eligible_nodes(self) -> list[DiscoveryNode]:
+        return [n for n in self.nodes if n.master_eligible]
+
     def with_node(self, node: DiscoveryNode) -> "DiscoveryNodes":
         others = tuple(n for n in self.nodes if n.id != node.id)
         return replace(self, nodes=tuple(sorted(others + (node,), key=lambda n: n.id)))
 
+    def without_node(self, node_id: str) -> "DiscoveryNodes":
+        return replace(
+            self,
+            nodes=tuple(n for n in self.nodes if n.id != node_id),
+            master_id=None if self.master_id == node_id else self.master_id,
+        )
+
     def with_master(self, master_id: str | None) -> "DiscoveryNodes":
         return replace(self, master_id=master_id)
+
+    def with_local(self, local_id: str) -> "DiscoveryNodes":
+        return replace(self, local_id=local_id)
+
+    def to_dict(self) -> dict:
+        return {"nodes": [n.to_dict() for n in self.nodes], "master_id": self.master_id}
+
+    @classmethod
+    def from_dict(cls, d: dict, local_id: str | None = None) -> "DiscoveryNodes":
+        return cls(tuple(DiscoveryNode.from_dict(n) for n in d.get("nodes", [])),
+                   d.get("master_id"), local_id)
 
 
 @dataclass(frozen=True)
@@ -75,11 +119,12 @@ class ShardRouting:
     node_id: str | None
     primary: bool
     state: str = UNASSIGNED
+    relocating_node: str | None = None
     unassigned_reason: str | None = None
 
     @property
     def active(self) -> bool:
-        return self.state == STARTED
+        return self.state in (STARTED, RELOCATING)
 
     @property
     def assigned(self) -> bool:
@@ -89,13 +134,16 @@ class ShardRouting:
         return (self.index, self.shard_id)
 
     def to_dict(self) -> dict:
-        return {"index": self.index, "shard": self.shard_id, "node": self.node_id,
-                "primary": self.primary, "state": self.state}
+        return {
+            "index": self.index, "shard": self.shard_id, "node": self.node_id,
+            "primary": self.primary, "state": self.state,
+            "relocating_node": self.relocating_node,
+        }
 
     @classmethod
     def from_dict(cls, d: dict) -> "ShardRouting":
         return cls(d["index"], d["shard"], d.get("node"), d["primary"],
-                   d.get("state", UNASSIGNED))
+                   d.get("state", UNASSIGNED), d.get("relocating_node"))
 
 
 @dataclass(frozen=True)
@@ -111,8 +159,14 @@ class IndexShardRoutingTable:
                 return s
         return None
 
+    def replicas(self) -> list[ShardRouting]:
+        return [s for s in self.shards if not s.primary]
+
     def active_shards(self) -> list[ShardRouting]:
         return [s for s in self.shards if s.active]
+
+    def assigned_shards(self) -> list[ShardRouting]:
+        return [s for s in self.shards if s.assigned]
 
     def size(self) -> int:
         return len(self.shards)
@@ -129,6 +183,9 @@ class IndexRoutingTable:
     def all_shards(self) -> list[ShardRouting]:
         return [s for grp in self.shards for s in grp.shards]
 
+    def all_active(self) -> bool:
+        return all(s.active for s in self.all_shards())
+
     def primaries_active(self) -> bool:
         return all(grp.primary is not None and grp.primary.active
                    for grp in self.shards)
@@ -144,6 +201,9 @@ class RoutingTable:
                 return t
         return None
 
+    def index_names(self) -> list[str]:
+        return [n for n, _ in self.indices]
+
     def all_shards(self) -> list[ShardRouting]:
         return [s for _, t in self.indices for s in t.all_shards()]
 
@@ -153,6 +213,23 @@ class RoutingTable:
 
     def without_index(self, name: str) -> "RoutingTable":
         return RoutingTable(tuple((n, t) for n, t in self.indices if n != name))
+
+    def to_dict(self) -> dict:
+        return {
+            n: [[s.to_dict() for s in grp.shards] for grp in t.shards]
+            for n, t in self.indices
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RoutingTable":
+        out = cls()
+        for name, groups in d.items():
+            table = IndexRoutingTable(name, tuple(
+                IndexShardRoutingTable(tuple(ShardRouting.from_dict(s) for s in grp))
+                for grp in groups
+            ))
+            out = out.with_index(table)
+        return out
 
 
 @dataclass(frozen=True)
@@ -419,6 +496,20 @@ class ClusterBlocks:
         return replace(self, index_blocks=tuple(
             e for e in self.index_blocks if e[0] != index))
 
+    def with_global(self, block) -> "ClusterBlocks":
+        if block in self.global_blocks:
+            return self
+        return replace(self, global_blocks=self.global_blocks + (block,))
+
+    def to_dict(self) -> dict:
+        return {"global": [list(b) for b in self.global_blocks],
+                "indices": [[i, list(b)] for i, b in self.index_blocks]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ClusterBlocks":
+        return cls(tuple(tuple(b) for b in d.get("global", [])),
+                   tuple((i, tuple(b)) for i, b in d.get("indices", [])))
+
 
 @dataclass(frozen=True)
 class ClusterState:
@@ -434,3 +525,18 @@ class ClusterState:
 
     def next_version(self, **changes) -> "ClusterState":
         return replace(self, version=self.version + 1, **changes)
+
+    def to_dict(self) -> dict:
+        """The whole state as plain values: what the master publishes."""
+        return {"cluster_name": self.cluster_name, "version": self.version,
+                "nodes": self.nodes.to_dict(), "metadata": self.metadata.to_dict(),
+                "routing_table": self.routing_table.to_dict(),
+                "blocks": self.blocks.to_dict()}
+
+    @classmethod
+    def from_dict(cls, d: dict, local_id: str | None = None) -> "ClusterState":
+        return cls(d.get("cluster_name", "elasticsearch-tpu"), d.get("version", 0),
+                   DiscoveryNodes.from_dict(d.get("nodes", {}), local_id),
+                   MetaData.from_dict(d.get("metadata", {})),
+                   RoutingTable.from_dict(d.get("routing_table", {})),
+                   ClusterBlocks.from_dict(d.get("blocks", {})))

@@ -54,6 +54,25 @@ class QueryParsingError(ParsingError):
     pass
 
 
+class BodyValueError(QueryParsingError):
+    """A value of a search body that does not parse (`minimum_should_match:
+    "abc"`, `min_score: "abc"`, `window_size: "x"`, an unknown
+    `boost_mode`). Its message is the JAX node's shard failure's reason
+    (Python's own for a conversion), and the shard that reads the value
+    fails with it. A device attempt that meets one hands its shard to the
+    host path, as the JAX node's device attempts do with any error, and
+    the host path meets it again where it reads the value."""
+
+
+def body_value(convert, value):
+    """`convert(value)`, a conversion's ValueError or TypeError raised as a
+    BodyValueError with the same message."""
+    try:
+        return convert(value)
+    except (TypeError, ValueError) as e:
+        raise BodyValueError(str(e)) from None
+
+
 class InvalidIndexNameError(IllegalArgumentError):
     pass
 
@@ -134,6 +153,12 @@ class ReceiveTimeoutError(TransportError):
 
 
 class MasterNotDiscoveredError(SearchEngineError):
+    status = 503
+
+
+class NoNodeAvailableError(SearchEngineError):
+    """Every node a TransportClient knows refused or timed out."""
+
     status = 503
 
 

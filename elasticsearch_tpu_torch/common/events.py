@@ -30,7 +30,8 @@ device_recovered (the last two are the device fault domains' trips and
 recoveries, published by common/devicehealth).
 
 Left for a later slice: the watchdog's gossip of each event to the other
-nodes (two nodes, ROADMAP A5).
+nodes (ROADMAP A5c; `GET /_events` pulls every node's journal meanwhile,
+node.py `cluster_events`).
 
 Hot-path contract: the watchdog runs on the management pool and reads
 serving-side state as plain attributes or through leaf-locked stats()

@@ -1,8 +1,9 @@
 """Logging facade (a trimmed copy of the JAX package's `common/logging.py`):
 component loggers under the port's own root, `estpu_torch`, so a process
-that runs both packages never shares handlers or levels between them. The
-node/shard prefixes and the `logger.*` level settings belong to a later
-slice of the port's Node."""
+that runs both packages never shares handlers or levels between them, with
+the optional node and shard prefixes that tell apart two nodes' lines in
+one process. (The JAX module's `set_level` and `apply_logger_settings`
+have no caller in either package.)"""
 
 from __future__ import annotations
 
@@ -30,7 +31,23 @@ def _ensure_configured():
     _configured = True
 
 
-def get_logger(component: str) -> logging.Logger:
-    """`get_logger("search.batcher")` → the logger estpu_torch.search.batcher."""
+class PrefixLogger(logging.LoggerAdapter):
+    def process(self, msg, kwargs):
+        return f"{self.extra['prefix']} {msg}", kwargs
+
+
+def get_logger(component: str, node: str | None = None, shard=None):
+    """`get_logger("index.engine", node="node_1", shard=("idx", 3))` → the
+    logger estpu_torch.index.engine, its lines prefixed "[node_1][idx][3]"."""
     _ensure_configured()
-    return logging.getLogger(f"{_ROOT}.{component}")
+    logger = logging.getLogger(f"{_ROOT}.{component}")
+    prefix_parts = []
+    if node:
+        prefix_parts.append(f"[{node}]")
+    if shard is not None:
+        index, shard_id = shard
+        prefix_parts.append(f"[{index}][{shard_id}]")
+    if prefix_parts:
+        return PrefixLogger(logger, {"prefix": "".join(prefix_parts)})
+    return logger
+

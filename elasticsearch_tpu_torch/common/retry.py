@@ -4,8 +4,8 @@ package's `common/retry.py`.
 The device fault domains (common/devicehealth) space their half-open probes
 with it, and the warmer its warm-pack retries. The JAX module's retry loop
 (`RetryPolicy.call`, `RetryExhaustedError`) and its transport taxonomy
-(`is_transient`) serve the write path's replica fan-out and come with the
-slice that has two nodes.
+(`is_transient`) serve the write path's replica fan-out and come with
+replicas and recovery (ROADMAP A5c).
 """
 
 from __future__ import annotations

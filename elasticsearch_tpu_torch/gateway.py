@@ -4,19 +4,22 @@ trimmed copy of the JAX package's `gateway.py`, ROADMAP A5a).
 The node persists the cluster MetaData (indices with their settings,
 mappings, aliases, warmers and state; the index templates) under
 `path.data/_state` on every change, and on `persist_now` (the
-`_gateway/snapshot` API). On start, `maybe_recover` restores the persisted
-indices and templates once `gateway.recover_after_nodes` nodes are present
-and lifts the state-not-recovered block; the restored open indices get
-fresh routing, and the post-recovery reroute assigns their primaries to
-this node, whose shards then recover from their stores and translogs
+`_gateway/snapshot` API). The elected master's `maybe_recover` restores the
+persisted indices and templates once `gateway.recover_after_nodes` nodes
+(1 by default) are in the cluster and lifts the state-not-recovered block;
+until then the block stays (reads and writes answer 503) and every node
+that joins checks again. The restored open indices get fresh routing, and
+the post-recovery reroute assigns their primaries over the data nodes,
+whose shards then recover from their stores and translogs
 (indices_service). A closed index comes back closed, with no routing and,
 as in the JAX package, without its closed block; the templates come back
 only when at least one index does (the JAX package's order). A fresh
-`path.data` recovers nothing and only lifts the block.
+`path.data` recovers nothing and only lifts the block. A node that is not
+master recovers nothing: it installs the master's published state.
 
-A lone port node is all the cluster there is, so `recover_after_nodes`
-above 1 could never be met: it raises NotPortedError at construction (two
-nodes are the slice with zen discovery, ROADMAP A5)."""
+The JAX gateway checks the count once, when its master starts, and its
+fresh state carries no block; the port holds the block and checks again at
+every join (ROADMAP, declared differences)."""
 
 from __future__ import annotations
 
@@ -24,28 +27,25 @@ import json
 import os
 import threading
 
-from .cluster.allocation import AllocationService, new_index_routing
+from .cluster.allocation import new_index_routing
 from .cluster.service import URGENT
 from .cluster.state import BLOCK_STATE_NOT_RECOVERED, ClusterState, MetaData
-from .common.errors import NotPortedError
 from .common.logging import get_logger
 from .common.settings import Settings
 
 
 class LocalGateway:
-    def __init__(self, data_path: str, cluster_service,
-                 settings: Settings | None = None):
+    def __init__(self, data_path: str, cluster_service, settings: Settings,
+                 allocation, node_name: str | None = None):
         self.dir = os.path.join(data_path, "_state")
         self.cluster_service = cluster_service
-        self.settings = settings or Settings.EMPTY
+        self.settings = settings
+        # the node's allocation service: its deciders place the restored
+        # shards
+        self.allocation = allocation
         self.recover_after_nodes = self.settings.get_int(
             "gateway.recover_after_nodes", 1)
-        if self.recover_after_nodes > 1:
-            raise NotPortedError(
-                f"gateway.recover_after_nodes [{self.recover_after_nodes}] "
-                "cannot be met: the port runs one node until the slice with "
-                "two nodes (zen discovery, ROADMAP A5)")
-        self.logger = get_logger("gateway")
+        self.logger = get_logger("gateway", node=node_name)
         self._recovered = False
         self._lock = threading.Lock()
         os.makedirs(self.dir, exist_ok=True)
@@ -59,6 +59,14 @@ class LocalGateway:
     def _on_change(self, event):
         if event.metadata_changed():
             self.persist_now()
+        if not self._recovered and event.nodes_added() and \
+                event.previous_state.nodes.master_id is not None:
+            # a join to an elected master may complete recover_after_nodes:
+            # check again (only the recovery lifts the not-recovered block),
+            # off the cluster-state thread (the recovery waits on it); the
+            # election itself is checked by the node's start
+            threading.Thread(target=self.maybe_recover, daemon=True,
+                             name="estpu_torch-gateway-recover").start()
 
     def persist_now(self):
         try:
@@ -92,7 +100,11 @@ class LocalGateway:
             state = self.cluster_service.state
             if state.nodes.master_id != state.nodes.local_id or \
                     state.nodes.local_id is None:
-                return  # no master elected yet: discovery starts first
+                return  # not master: the master's published state comes
+            if state.nodes.size < self.recover_after_nodes:
+                self.logger.info("waiting for %d nodes before recovery (have %d)",
+                                 self.recover_after_nodes, state.nodes.size)
+                return
             persisted = self.load_metadata()
             self._recovered = True
             names = [] if persisted is None else persisted.index_names()
@@ -125,4 +137,4 @@ class LocalGateway:
             # allocation of the restored shards goes through the reroute
             self.cluster_service.submit_state_update_task(
                 "gateway-post-recovery-reroute",
-                AllocationService().reroute).result(10)
+                self.allocation.reroute).result(10)

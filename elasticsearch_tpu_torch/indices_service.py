@@ -12,9 +12,14 @@ copy of the JAX package's `indices_service.py`).
   kept), then create the shards the routing table assigns here, recover
   each primary from its local store (a fresh shard recovers nothing; a
   restarted node's shard reloads its last commit, tombstones included, and
-  replays its translog) on a thread of its own, and report shard-started to
-  the master. A removed shard's engine leaves the warmer first, so no warm
-  pack or re-prime starts on it.
+  replays its translog) on a thread of its own, and report shard-started
+  to the master, or shard-failed with the reason when the recovery fails
+  (`_send_to_master`: the master may be another node; retried while no
+  master is known). A shard the routing moves off this node, or that a
+  departed node's reroute re-creates here as a fresh primary, follows the
+  same two paths: the removal releases its caches and device packs as an
+  index removal does. A removed shard's engine leaves the warmer first, so
+  no warm pack or re-prime starts on it.
 - `periodic_refresh`: the scheduled NRT refresh per shard honouring
   `index.refresh_interval` (-1 disables it), then a merge-policy check on
   the `merge` pool.
@@ -29,8 +34,10 @@ copy of the JAX package's `indices_service.py`).
   packs it off the query path and re-primes the shard's hot cached bodies.
   A closing shard releases every cache byte it holds.
 
-Peer recovery of replicas belongs to the slice with two nodes. The
-removal runs on the cluster-state thread under the indices lock: it closes
+Peer recovery of replicas belongs to replicas and recovery (ROADMAP A5c);
+a port cluster allocates primaries only, and a replica copy that reaches
+a node all the same is reported failed, never started empty. The removal
+runs on the cluster-state thread under the indices lock: it closes
 engines and drops references (no device sync, no launch); the device
 memory goes back to the allocator once the last search holding a view of
 the index ends."""
@@ -43,8 +50,13 @@ import threading
 import time
 from dataclasses import dataclass
 
-from .cluster.state import INITIALIZING, STARTED, ClusterState, ShardRouting
-from .common.errors import IndexMissingError, IndexShardMissingError, SearchEngineError
+from .cluster.state import INITIALIZING, RELOCATING, STARTED, ClusterState, ShardRouting
+from .common.errors import (
+    IndexMissingError,
+    IndexShardMissingError,
+    NotPortedError,
+    SearchEngineError,
+)
 from .common.logging import get_logger
 from .common.settings import Settings
 from .index.engine import Engine
@@ -53,6 +65,7 @@ from .ops.device_index import PACK_LEDGER, drop_segment_packs
 from .search.similarity import SimilarityService
 
 ACTION_SHARD_STARTED = "internal:cluster/shard/started"
+ACTION_SHARD_FAILED = "internal:cluster/shard/failed"
 
 # shard lifecycle
 CREATED, RECOVERING, SHARD_STARTED, CLOSED = "CREATED", "RECOVERING", "STARTED", "CLOSED"
@@ -106,7 +119,7 @@ class IndexService:
 class IndicesService:
     def __init__(self, node_id: str, data_path: str, transport, cluster_service,
                  threadpool, filter_cache=None, warmer=None, request_cache=None,
-                 percolator=None):
+                 percolator=None, node_name: str | None = None):
         self.node_id = node_id
         # the node's DeviceFilterCache (None in unwired contexts): the masks
         # of segments an engine view drops leave with them
@@ -124,7 +137,7 @@ class IndicesService:
         self.cluster_service = cluster_service
         self.threadpool = threadpool
         self.indices: dict[str, IndexService] = {}
-        self.logger = get_logger("indices")
+        self.logger = get_logger("indices", node=node_name)
         self._lock = threading.RLock()
         cluster_service.add_listener(self.cluster_changed)
 
@@ -218,14 +231,16 @@ class IndicesService:
             if self.percolator is not None:
                 self.percolator.registries.pop(name, None)
             self.logger.info("removed index [%s]", name)
+        # a RELOCATING source keeps serving until its target takes over
+        live = (INITIALIZING, STARTED, RELOCATING)
         mine = {(s.index, s.shard_id) for s in state.routing_table.all_shards()
-                if s.node_id == self.node_id and s.state in (INITIALIZING, STARTED)}
+                if s.node_id == self.node_id and s.state in live}
         for name, svc in list(self.indices.items()):
             for sid in [sid for sid in svc.shards if (name, sid) not in mine]:
                 self._remove_shard(svc, sid)
                 self.logger.info("removed shard [%s][%d]", name, sid)
         for s in state.routing_table.all_shards():
-            if s.node_id != self.node_id or s.state not in (INITIALIZING, STARTED):
+            if s.node_id != self.node_id or s.state not in live:
                 continue
             meta = state.metadata.index(s.index)
             if meta is None:
@@ -249,7 +264,10 @@ class IndicesService:
                     svc.mapper_service.put_mapping(t, m)
                 except SearchEngineError:
                     pass
-        if s.shard_id not in svc.shards and s.state == INITIALIZING:
+        local = svc.shards.get(s.shard_id)
+        if local is not None:
+            local.primary = s.primary
+        elif s.state == INITIALIZING:
             shard = svc.create_shard(s.shard_id, s.primary)
             self._wire_cache_listeners(shard.engine, s.index, s.shard_id)
             if self.warmer is not None:
@@ -308,8 +326,16 @@ class IndicesService:
         return segs
 
     def _recover_shard(self, shard: IndexShard, routing: ShardRouting):
+        """A primary recovers from its store and is reported started. A
+        replica copy is reported failed: it would need peer recovery from
+        its primary (ROADMAP A5c), and started empty it would serve
+        searches without the primary's documents."""
         shard.state = RECOVERING
         try:
+            if not routing.primary:
+                raise NotPortedError(
+                    f"replica [{shard.index}][{shard.shard_id}] needs peer recovery, "
+                    "which a port node does not run yet")
             replayed = shard.engine.recover_from_store()
             self.logger.info("recovered primary [%s][%d] from store (%d ops)",
                              shard.index, shard.shard_id, replayed)
@@ -319,21 +345,27 @@ class IndicesService:
         except Exception as e:  # noqa: BLE001
             self.logger.warning("recovery failed [%s][%d]: %s", shard.index,
                                 shard.shard_id, e)
+            self._report_failed(routing, str(e))
 
-    def _report_started(self, routing: ShardRouting, retries: int = 10):
+    def _report_started(self, routing: ShardRouting):
+        self._send_to_master(ACTION_SHARD_STARTED, {"shard": routing.to_dict()})
+
+    def _report_failed(self, routing: ShardRouting, reason: str):
+        self._send_to_master(ACTION_SHARD_FAILED,
+                             {"shard": routing.to_dict(), "reason": reason})
+
+    def _send_to_master(self, action: str, body: dict, retries: int = 10):
         for _ in range(retries):
             master = self.cluster_service.state.nodes.master
             if master is not None:
                 try:
-                    self.transport.submit_request(
-                        master, ACTION_SHARD_STARTED, {"shard": routing.to_dict()},
-                        timeout=5.0)
+                    self.transport.submit_request(master.transport_address, action,
+                                                  body, timeout=5.0)
                     return
                 except SearchEngineError:
                     pass
             time.sleep(0.1)
-        self.logger.warning("could not report [%s][%d] started to the master",
-                            routing.index, routing.shard_id)
+        self.logger.warning("could not reach the master for %s", action)
 
     def stats(self) -> dict:
         """Per index, per shard: state, primary, docs, segments, translog

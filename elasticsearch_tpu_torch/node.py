@@ -1,21 +1,33 @@
 """Node assembly and client (a trimmed copy of the JAX package's `node.py`).
 
-A Node builds its services in dependency order — cluster service → gateway →
-thread pools → breakers → the node-level ShardRequestCache, DeviceFilterCache
-and DeviceBatcher → the warmer → transport → allocation → indices → actions
-→ discovery — and
-`start()` builds every kernel of `csrc/` on a CUDA device (the port's
-counterpart of the JAX node's compile-warm cycle: one nvcc per source, all
-at once, and each library loaded, so no search runs nvcc) and launches each
-once on a tiny input against its plain version (`KERNEL_START_CHECKS`); a
+A Node binds its transport first (`transport.type`: `local`, in-process
+through a LocalTransportRegistry, the tests' default; or `tcp`, framed
+sockets on `transport.tcp.host`/`transport.tcp.port`, so its discovery node
+carries the address), then builds its services in dependency order —
+cluster service → allocation → gateway → thread pools → breakers → the
+node-level ShardRequestCache, DeviceFilterCache and DeviceBatcher → the
+warmer → transport → indices → actions → discovery — and `start()`
+builds every kernel of `csrc/` on a CUDA device (the port's counterpart of
+the JAX node's compile-warm cycle: one nvcc per source, all at once, and
+each library loaded, so no search runs nvcc) and launches each once on a
+tiny input against its plain version (`KERNEL_START_CHECKS`); a
 kernel that does not build, launch or agree stops the start, the node does
-not degrade past it. Then it elects itself master of a one-node cluster,
-and the gateway restores the indices an earlier run persisted under
-`path.data` (a fresh `path.data` restores nothing) and lifts the
-not-recovered block; each restored shard recovers from its store and
-translog (indices_service). `start_http(port)` binds the REST surface (port
-0 = ephemeral). `device_health()` reads the device fault domains
-(common/devicehealth) and the warmer's pack counters in process.
+not degrade past it; a second node in the process reuses the built
+library and launches its own check. Then zen discovery (discovery/zen.py)
+pings the seeds, joins the elected master or elects one (the lowest
+master-eligible node id), and the master's gateway restores the indices an
+earlier run persisted under `path.data` once `gateway.recover_after_nodes`
+nodes are in (a fresh `path.data` restores nothing) and lifts the
+not-recovered block; the master spreads each index's primaries over the
+data nodes (cluster/allocation.py) and each node's shards recover from
+their stores and translogs (indices_service). A node that is not master
+forwards every master operation to the master. `close()` leaves the
+cluster first: the master removes the node, and with no replica its
+primaries start again, empty, on the nodes that remain. Replicas stay
+unassigned until replicas and recovery are ported (ROADMAP A5c).
+`start_http(port)` binds the REST surface (port 0 = ephemeral).
+`device_health()` reads the device fault domains (common/devicehealth) and
+the warmer's pack counters in process.
 
 `events` is the node's EventJournal (common/events): the StallWatchdog
 (`watchdog`, ticking on the management pool) journals batches stalled in
@@ -58,7 +70,7 @@ The TTL purger (`_purge_expired`, every `indices.ttl.interval`, 60 s by
 default, on the generic pool) reads each primary shard's `_expiry` doc
 values and deletes the documents whose expiry has passed, in one logged
 tombstone op a shard, then refreshes; `close()` cancels it. Replicas wait
-for A5, as every replica write does.
+for A5c, as every replica write does.
 
 `Client` is trimmed to `create_index`, `delete_index`, `open_index`,
 `close_index`, `exists_index`, `exists_type`, `put_mapping`, `get_mapping`,
@@ -71,16 +83,18 @@ for A5, as every replica write does.
 `count`, `suggest`, `termvector`, `mtermvectors`, `mlt`, `explain`,
 `percolate`, `count_percolate`, `mpercolate`, `cluster_health`, the
 cluster admin methods (`cluster_state` in its REST view, `cluster_stats`
-over the local node's stats, `cluster_get_settings`,
+over every named node's stats, `cluster_get_settings`,
 `cluster_update_settings`, `cluster_reroute`, `pending_tasks`,
 `nodes_shutdown`; a node id that names no node answers 404 where the JAX
 node's does), and the stats surfaces: `stats` (with each index's device capacity stanza),
 `segments` (with each segment's pack), `indices_status`, `node_events`,
-`cluster_events`, `nodes_info` and `nodes_stats` (its sections by name,
+`cluster_events` (every node's journal), `nodes_info` (every node of the
+state) and `nodes_stats` (this node's sections by name, as on the JAX node,
 an unknown one a 400; `device` is the capacity ledger over the node's
-resident packs, the kernels' builds and launches, the start check's
-launches, the fault domains and, on a `cuda` node, the caching
-allocator's bytes)."""
+resident packs, the kernels' builds, the start check's launches, and
+three process-wide readings every node of the process shares: the
+kernels' launches (`cudaenv.LAUNCHES`), the fault domains
+(`DEVICE_HEALTH`) and, on a `cuda` node, the caching allocator's bytes)."""
 
 from __future__ import annotations
 
@@ -109,7 +123,11 @@ from .actions import (
     ActionModule,
     shape_get,
 )
-from .cluster.allocation import AllocationService
+from .cluster.allocation import (
+    DEFAULT_DECIDERS,
+    AllocationService,
+    ReplicasWaitForRecoveryDecider,
+)
 from .cluster.routing import OperationRouting
 from .cluster.service import ClusterService
 from .cluster.state import DiscoveryNode
@@ -122,7 +140,6 @@ from .common.errors import (
     IllegalArgumentError,
     IndexTemplateMissingError,
     NodeMissingError,
-    NotPortedError,
     SearchEngineError,
     TypeMissingError,
 )
@@ -151,7 +168,8 @@ from .search.batcher import DeviceBatcher
 from .search.request_cache import ShardRequestCache
 from .threadpool import ThreadPool
 from .transport.local import DEFAULT_REGISTRY, LocalTransport
-from .transport.service import TransportService
+from .transport.service import TransportService, fut_result
+from .transport.tcp import TcpTransport
 from .warmer import IndexWarmerService
 
 # each kernel source of csrc/ and the check a node's start launches it with
@@ -168,25 +186,39 @@ class Node:
         self.node_id = self.settings.get_str("node.id") or self.name
         self.data_path = data_path or self.settings.get_str("path.data") or \
             tempfile.mkdtemp(prefix=f"estpu_torch_{self.name}_")
-        self.logger = get_logger("node")
-        if self.settings.get_str("transport.type", "local") != "local":
-            raise NotPortedError(
-                "transport.type [tcp] is not ported yet (the slice with two "
-                "nodes); the port node runs the local transport")
-        # settings a lone node cannot meet raise here, before any pool or
-        # transport thread starts
-        self.cluster_service = ClusterService(self.name)
-        try:
-            self.gateway = LocalGateway(self.data_path, self.cluster_service,
-                                        self.settings)
-        except Exception:
-            self.cluster_service.close()
-            raise
+        self.logger = get_logger("node", node=self.name)
         self.registry = registry or DEFAULT_REGISTRY
-        address = f"local://{self.node_id}"
-        # a lone node is master-eligible and holds data
-        self.local_node = DiscoveryNode(id=self.node_id, name=self.name,
-                                        transport_address=address)
+        # transport.type: "local" (in-process, the tests' default) or "tcp"
+        # (framed sockets between processes; the address is bound now, so
+        # the discovery node carries it)
+        transport_type = self.settings.get_str("transport.type", "local")
+        if transport_type == "tcp":
+            backend = TcpTransport(
+                host=self.settings.get_str("transport.tcp.host", "127.0.0.1"),
+                port=self.settings.get_int("transport.tcp.port", 0),
+                compress=self.settings.get_bool("transport.tcp.compress", False))
+            address = backend.address
+        elif transport_type == "local":
+            backend = None
+            address = f"local://{self.node_id}"
+        else:
+            raise IllegalArgumentError(
+                f"unknown transport.type [{transport_type}] (local or tcp)")
+        attrs = tuple(sorted(
+            (k[len("node.attr."):], str(v)) for k, v in self.settings.as_dict().items()
+            if k.startswith("node.attr.")))
+        self.local_node = DiscoveryNode(
+            id=self.node_id, name=self.name, transport_address=address, attrs=attrs,
+            master_eligible=self.settings.get_bool("node.master", True),
+            data=self.settings.get_bool("node.data", True))
+        self.cluster_service = ClusterService(self.name)
+        # the JAX decider chain, and replicas held unassigned until peer
+        # recovery and the replica writes are ported (ROADMAP A5c)
+        self.allocation = AllocationService(
+            self.settings, deciders=DEFAULT_DECIDERS + (ReplicasWaitForRecoveryDecider(),))
+        self.gateway = LocalGateway(self.data_path, self.cluster_service,
+                                    self.settings, allocation=self.allocation,
+                                    node_name=self.name)
         self.threadpool = ThreadPool(self.settings)
         self.breakers = CircuitBreakerService(self.settings)
         # the bounded journal of stall and pressure events, fed by the
@@ -210,16 +242,16 @@ class Node:
             self.settings, breaker=self.breakers.breaker("fielddata"))
         # cross-request device micro-batching: concurrent query phases on
         # this node's shards coalesce into bucketed launches
-        self.search_batcher = DeviceBatcher(self.settings)
+        self.search_batcher = DeviceBatcher(self.settings, node_name=self.name)
         # every searcher install schedules the new view's packs and remasks
         # on the warmer and merge pools, off the query path
         self.warmer = IndexWarmerService(
             self.settings, self.device, self.threadpool,
             breaker=self.breakers.breaker("fielddata"), node=self)
-        self.transport = TransportService(LocalTransport(address, self.registry),
-                                          self.local_node, self.threadpool)
+        if backend is None:
+            backend = LocalTransport(address, self.registry)
+        self.transport = TransportService(backend, self.local_node, self.threadpool)
         self.transport.in_flight_breaker = self.breakers.breaker("in_flight_requests")
-        self.allocation = AllocationService()
         self.operation_routing = OperationRouting()
         self.percolator = PercolatorService(self)
         self.indices = IndicesService(self.node_id, self.data_path, self.transport,
@@ -227,7 +259,8 @@ class Node:
                                       filter_cache=self.filter_cache,
                                       warmer=self.warmer,
                                       request_cache=self.request_cache,
-                                      percolator=self.percolator)
+                                      percolator=self.percolator,
+                                      node_name=self.name)
         self.actions = ActionModule(self)
         self.script_service = ScriptService()
         # scheduled NRT refresh and merge-policy check (each index's
@@ -244,8 +277,9 @@ class Node:
         self._ttl_task = self.threadpool.schedule_with_fixed_delay(
             self.settings.get_time("indices.ttl.interval", 60.0),
             self._purge_expired, name="generic")
-        self.discovery = ZenDiscovery(self.local_node, self.cluster_service,
-                                      self.allocation)
+        self.discovery = ZenDiscovery(self.local_node, self.transport,
+                                      self.cluster_service, self.allocation,
+                                      self.settings)
         self.monitor = MonitorService(self)
         self.watchdog = StallWatchdog(self, self.settings)
         self.http = None
@@ -258,10 +292,13 @@ class Node:
         self._closed = False
 
     def start(self, seeds: list[str] | None = None) -> "Node":
-        """Build, load and check every kernel on a CUDA device, then elect
-        this node master of its one-node cluster, recover the cluster state
-        persisted under `path.data` and start the watchdog; seeds naming
-        other nodes raise."""
+        """Build, load and check every kernel on a CUDA device (every node
+        runs its own check, the build is shared), then join the cluster:
+        ping `seeds` (by default `discovery.zen.ping.unicast.hosts`, or on
+        the local transport every node of the registry), join the master
+        or elect one; the master's gateway recovers the cluster state
+        persisted under `path.data`. Then start the watchdog, and HTTP when
+        `http.enabled` is set (on `http.port`, 9200 by default)."""
         if self.device.type == "cuda":
             t0 = time.monotonic()
             try:
@@ -276,10 +313,23 @@ class Node:
             self.logger.info("kernels %s current in %.1f s (built %s)",
                              cudaenv.kernel_sources(), self.kernel_build_s,
                              sorted(self.kernel_builds))
-        self.discovery.start(seeds or [])
+        if seeds is not None:
+            addresses = list(seeds)
+        else:
+            unicast = self.settings.get_list("discovery.zen.ping.unicast.hosts", [])
+            if unicast:
+                addresses = list(unicast)
+            elif self.local_node.transport_address.startswith("local://"):
+                addresses = self.registry.addresses()
+            else:
+                addresses = []
+        self.discovery.start(addresses)
         self.gateway.maybe_recover()
         self.watchdog.start()
-        self.logger.info("started [%s] on [%s]", self.name, self.device)
+        if self.settings.get_bool("http.enabled", False):
+            self.start_http(self.settings.get_int("http.port", 9200))
+        self.logger.info("started [%s] on [%s] (master=%s)", self.name, self.device,
+                         self.cluster_service.state.nodes.master_id)
         return self
 
     def start_http(self, port: int = 0):
@@ -300,6 +350,10 @@ class Node:
         self.watchdog.stop()
         if self.http is not None:
             self.http.stop()
+        # tell the master first, so the removal does not wait for fault
+        # detection
+        self.discovery.leave()
+        self.discovery.stop()
         self.warmer.close()
         self.gateway.persist_now()
         self.indices.close()
@@ -312,6 +366,17 @@ class Node:
 
     def client(self) -> "Client":
         return Client(self)
+
+    def is_master(self) -> bool:
+        return self.cluster_service.state.nodes.master_id == self.node_id
+
+    def wait_for_master(self, timeout: float = 5.0) -> bool:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.cluster_service.state.nodes.master_id is not None:
+                return True
+            time.sleep(0.02)
+        return False
 
     def _resolve_index_buffer_size(self) -> int:
         """`indices.memory.index_buffer_size`: a share of the host's RAM
@@ -368,7 +433,8 @@ class Client:
         self.actions = node.actions
 
     def _local(self, action: str, body: dict):
-        """A master action on this (the master) node."""
+        """A master action, sent to this node (which forwards it to the
+        elected master)."""
         return self.node.transport.submit_request(self.node.local_node, action, body,
                                                   timeout=30.0)
 
@@ -695,13 +761,44 @@ class Client:
                 "stats": self.node.events.stats()}
 
     def cluster_events(self, size=None, local=False):
-        """`GET /_events`: the cluster's events, newest first. A lone node's
-        journal is the cluster's, so `local` reads the same (the pull from
-        other nodes comes with them)."""
+        """`GET /_events`: the cluster's events, newest first. Every other
+        node's journal is pulled at once through the client proxy under one
+        shared 5 s deadline (a node that does not answer is skipped), merged
+        with this node's and deduplicated by (origin node, seq); `local`
+        reads this node's journal alone."""
+        from .client import A_CLIENT_EXEC
+
+        state = self.node.cluster_service.state
         mine = self.node_events(size)
-        return {"cluster_name": self.node.cluster_service.state.cluster_name,
-                "total": len(mine["events"]), "events": mine["events"],
-                "nodes": {self.node.node_id: mine["stats"]}}
+        if local:
+            return {"cluster_name": state.cluster_name,
+                    "total": len(mine["events"]), "events": mine["events"],
+                    "nodes": {self.node.node_id: mine["stats"]}}
+        futs = [(n, self.node.transport.send_request(
+            n, A_CLIENT_EXEC, {"method": "node_events", "kwargs": {"size": size}}))
+            for n in state.nodes.nodes if n.id != self.node.node_id]
+        node_stats = {self.node.node_id: mine["stats"]}
+        merged = list(mine["events"])
+        collect_by = time.monotonic() + 5.0
+        for n, fut in futs:
+            try:
+                r = fut_result(fut, timeout=max(0.0, collect_by - time.monotonic()))["r"]
+            except SearchEngineError:
+                continue
+            node_stats[n.id] = r["stats"]
+            merged.extend(r["events"])
+        seen = set()
+        events = []
+        for e in sorted(merged, key=lambda ev: -float(ev.get("ts", 0.0))):
+            k = (e.get("node"), e.get("seq"))
+            if k in seen:
+                continue  # a gossiped copy of an event pulled from its origin
+            seen.add(k)
+            events.append(e)
+        if size is not None:
+            events = events[: max(int(size), 0)]
+        return {"cluster_name": state.cluster_name, "total": len(events),
+                "events": events, "nodes": node_stats}
 
     def nodes_info(self):
         state = self.node.cluster_service.state
@@ -902,12 +999,14 @@ class Client:
     def mpercolate(self, requests):
         return self.node.percolator.multi_percolate(requests)
 
-    def cluster_health(self, index=None, wait_for_status=None, timeout=10.0):
+    def cluster_health(self, index=None, wait_for_status=None, wait_for_nodes=None,
+                       timeout=10.0):
         deadline = time.monotonic() + timeout
         while True:
             h = self._health(index)
-            ok = wait_for_status is None or _STATUS_ORDER.get(h["status"], 0) >= \
-                _STATUS_ORDER.get(wait_for_status, 0)
+            ok = (wait_for_status is None or _STATUS_ORDER.get(h["status"], 0) >=
+                  _STATUS_ORDER.get(wait_for_status, 0)) and \
+                (wait_for_nodes is None or h["number_of_nodes"] >= int(wait_for_nodes))
             if ok or time.monotonic() > deadline:
                 h["timed_out"] = not ok
                 return h
@@ -947,8 +1046,7 @@ class Client:
                 continue
             shards = {}
             for gid, grp in enumerate(t.shards):
-                # no copy relocates on one node
-                rows = [{**s.to_dict(), "relocating_node": None} for s in grp.shards]
+                rows = [s.to_dict() for s in grp.shards]
                 shards[str(gid)] = rows
                 for s, row in zip(grp.shards, rows):
                     if s.node_id is None:
@@ -1032,10 +1130,12 @@ class Client:
 
     def cluster_stats(self, node_id=None):
         """The cluster's rollup: index, shard and document counts from the
-        named nodes' stats (primaries only), node counts from the state.
-        On one node the rollup reads the local `nodes_stats`; the fan-out
-        to other nodes comes with them. `node_id` narrows the shards to
-        those nodes'; an unknown one answers 404."""
+        named nodes' `indices` stats (primaries only; another node's read
+        through the client proxy, a node that does not answer skipped),
+        node counts and versions from the state. `node_id` narrows the
+        shards to those nodes'; an unknown one answers 404."""
+        from .client import A_CLIENT_EXEC
+
         state = self.node.cluster_service.state
         wanted = self._resolve_node_ids(node_id)
         wanted_ids = {n.id for n in wanted}
@@ -1045,8 +1145,17 @@ class Client:
         doc_count = deleted = segments = 0
         per_node = {}
         for n in wanted:
-            if n.id == self.node.node_id:
-                per_node[n.id] = self.nodes_stats(metric="indices")["nodes"][n.id]
+            try:
+                if n.id == self.node.node_id:
+                    per_node[n.id] = self.nodes_stats(metric="indices")["nodes"][n.id]
+                else:
+                    r = self.node.transport.submit_request(
+                        n, A_CLIENT_EXEC, {"method": "nodes_stats",
+                                           "kwargs": {"metric": "indices"}},
+                        timeout=10.0)
+                    per_node[n.id] = r["r"]["nodes"][n.id]
+            except SearchEngineError:
+                continue
         for stats in per_node.values():
             for idx in stats.get("indices", {}).values():
                 for shard in idx.get("shards", {}).values():
@@ -1078,8 +1187,8 @@ class Client:
                 "docs": {"count": doc_count, "deleted": deleted},
                 "segments": {"count": segments},
             },
-            # no `versions`: the port's discovery node carries no version
-            "nodes": {"count": count},
+            "nodes": {"count": count,
+                      "versions": sorted({str(n.version_id) for n in nodes})},
         }
 
     def nodes_shutdown(self, node_ids=None, delay_s: float = 0.2):
@@ -1087,8 +1196,11 @@ class Client:
 
     def _health(self, index=None):
         state = self.node.cluster_service.state
+        # a relocation target is a surplus copy of an active shard: it does
+        # not make the health yellow
         shards = [s for s in state.routing_table.all_shards()
-                  if index is None or s.index == index]
+                  if (index is None or s.index == index)
+                  and not (s.state == "INITIALIZING" and s.relocating_node is not None)]
         active = sum(1 for s in shards if s.active)
         primaries = [s for s in shards if s.primary]
         active_primaries = sum(1 for s in primaries if s.active)
@@ -1105,7 +1217,7 @@ class Client:
             "number_of_data_nodes": len(state.nodes.data_nodes()),
             "active_primary_shards": active_primaries,
             "active_shards": active,
-            "relocating_shards": 0,
+            "relocating_shards": sum(1 for s in shards if s.state == "RELOCATING"),
             "initializing_shards": sum(1 for s in shards if s.state == "INITIALIZING"),
             "unassigned_shards": sum(1 for s in shards if s.state == "UNASSIGNED"),
         }

@@ -55,6 +55,7 @@ import torch
 from ..common import profile as _profile
 from ..common.breaker import reserve
 from ..common.cudaenv import pull, upload, upload_buffer
+from ..common.errors import BodyValueError, body_value
 from .device_index import (
     BLOCK,
     PackedSegment,
@@ -253,7 +254,7 @@ def _bmode_combine(sub, comb, applied, bmode: str):
         return torch.maximum(sub, comb)
     if bmode == "min":
         return torch.minimum(sub, comb)
-    raise ValueError(f"unknown boost_mode [{bmode}]")
+    raise BodyValueError(f"unknown boost_mode [{bmode}]")
 
 
 def _fs_tail(scores, match, comb, applied, max_boost: float, fboost, min_score,
@@ -484,7 +485,8 @@ def _tail_rows(packed: PackedSegment, fboost, min_score) -> tuple:
     dev = packed.device
     gate = np.asarray([m is not None for m in min_score], bool)
     return (upload(np.asarray([_f32(b) for b in fboost], np.float32), dev),
-            upload(np.asarray([_f32(0.0 if m is None else m) for m in min_score],
+            upload(np.asarray([body_value(_f32, 0.0 if m is None else m)
+                               for m in min_score],
                               np.float32), dev),
             upload(gate, dev))
 

@@ -1,5 +1,5 @@
-"""REST layer: path-template routing and the handlers of the one-node slice
-(a trimmed copy of the JAX package's `rest/controller.py`).
+"""REST layer: path-template routing and the handlers of a port node (a
+trimmed copy of the JAX package's `rest/controller.py`).
 
 Routes: `GET /`, `PUT|POST /{index}`, `PUT|POST /{index}/{type}/{id}`
 (with `?timestamp=` and `?ttl=`), `POST /{index}/{type}`, `PUT|POST
@@ -96,8 +96,9 @@ unknown id answers 404), `/_cluster/pending_tasks`, `/_cluster/settings`
 (PUT transient and persistent, GET; `?flat_settings`), `POST
 /_cluster/reroute` (`move`, `cancel`, `allocate`, `allocate_replica`),
 `POST /_shutdown`, `/_cluster/nodes/_shutdown` and
-`/_cluster/nodes/{node_id}/_shutdown` (the node closes itself after its
-answer), and the `_cat` tables (`/_cat` lists them): `health` (its last
+`/_cluster/nodes/{node_id}/_shutdown` (each named node of the cluster,
+this one or another, closes itself after its answer), and the `_cat`
+tables (`/_cat` lists them): `health` (its last
 column the open device fault domains), `nodes`, `indices`, `shards`,
 `master`, `allocation`, `count`, `aliases`, `pending_tasks`, `recovery`,
 `thread_pool`, `batcher` (the node's DeviceBatcher), `caches` (the request

@@ -43,7 +43,7 @@ import threading
 import numpy as np
 
 from ..common.breaker import reserve
-from ..common.errors import QueryParsingError
+from ..common.errors import QueryParsingError, body_value
 from ..common.geo import geohash_encode
 from ..mapper.core import parse_date_math, parse_ip
 from .filters import haversine_m, parse_distance, parse_point, segment_mask
@@ -816,7 +816,7 @@ class RangeAgg(_BucketAgg):
             return None
         if self.key_is_date and isinstance(v, str):
             return float(parse_date_math(v))
-        return float(v)
+        return body_value(float, v)
 
     def _selector(self, vals: np.ndarray, r: dict):
         """(membership bool over vals, from, to) — the ONE half-open range

@@ -185,15 +185,16 @@ class DeviceBatcher:
     segment view — so this IS per-shard batching; one queue simply lets a
     single drainer double-buffer across shards too."""
 
-    def __init__(self, settings: Settings | None = None):
+    def __init__(self, settings: Settings | None = None, node_name: str | None = None):
         settings = settings or Settings.EMPTY
+        self.node_name = node_name  # the drainer's thread name carries it
         self.max_batch = max(1, settings.get_int("search.batch.max_batch", 64))
         self.linger_s = max(
             0.0, settings.get_float("search.batch.linger_ms", 1.5)) / 1000.0
         self.min_linger_s = max(
             0.0, settings.get_float("search.batch.min_linger_ms", 0.1)) / 1000.0
         self.queue_cap = max(1, settings.get_int("search.batch.queue_size", 1024))
-        self.logger = get_logger("search.batcher")
+        self.logger = get_logger("search.batcher", node=node_name)
         self._queue: deque[_Item] = deque()
         self._cv = threading.Condition()
         self._shutdown = False
@@ -283,7 +284,9 @@ class DeviceBatcher:
             if self.drainer_thread is not None or self._shutdown:
                 return
             self.drainer_thread = threading.Thread(
-                target=self._drain_loop, daemon=True, name="estpu_torch[search_batcher]")
+                target=self._drain_loop, daemon=True,
+                name="estpu_torch[search_batcher]"
+                + (f"[{self.node_name}]" if self.node_name else ""))
         self.drainer_thread.start()
 
     def _drain_loop(self):

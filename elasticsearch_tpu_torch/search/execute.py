@@ -69,7 +69,8 @@ from ..common.breaker import reserve
 from ..common.cudaenv import (PendingPull, default_device, pull_async, upload,
                               upload_pinned)
 from ..common.devicehealth import context_lost, tag_domain
-from ..common.errors import QueryParsingError, ScriptError, SimilarityNotSupportedError
+from ..common.errors import (QueryParsingError, ScriptError, SimilarityNotSupportedError,
+                             body_value)
 from ..common.profile import timed_launch
 from ..common.smallfloat import decode_norm_doclen
 from ..index.engine import Searcher
@@ -313,7 +314,7 @@ def calculate_msm(spec, clause_count: int) -> int:
             result = clause_count
             for combo in s.split():
                 cond, _, value = combo.partition("<")
-                if clause_count > int(cond):
+                if clause_count > body_value(int, cond):
                     result = _msm_value(value, clause_count)
                     break
         else:
@@ -325,11 +326,11 @@ def calculate_msm(spec, clause_count: int) -> int:
 def _msm_value(s: str, clause_count: int) -> int:
     s = s.strip()
     if s.endswith("%"):
-        pct = float(s[:-1])
+        pct = body_value(float, s[:-1])
         if pct < 0:
             return clause_count + int(clause_count * pct / 100.0)
         return int(clause_count * pct / 100.0)
-    v = int(s)
+    v = body_value(int, s)
     return clause_count + v if v < 0 else v
 
 

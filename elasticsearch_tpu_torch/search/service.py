@@ -108,10 +108,12 @@ from ..common.cudaenv import pull_async
 from ..common.deadline import NO_DEADLINE, Deadline, parse_timevalue
 from ..common.devicehealth import DEGRADABLE, DEVICE_HEALTH, classify_device_error
 from ..common.errors import (
+    BodyValueError,
     CircuitBreakingError,
     QueryParsingError,
     RejectedExecutionError,
     SearchEngineError,
+    body_value,
 )
 from ..common.metrics import CounterMetric, HistogramMetric, MeanMetric
 from ..common.logging import get_logger
@@ -511,8 +513,11 @@ def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt,
     """One device branch inside the fault domains: (result, degraded).
     Skipped, degraded, when one of its domains is open; degraded on a
     failure of the card or a fielddata breaker trip (`_device_failed`); on
-    success the serving counter moves and a probed domain closes. A request
-    or parent trip, a SearchEngineError, a defect and a host bug raise.
+    success the serving counter moves and a probed domain closes. A
+    malformed body value (BodyValueError) degrades with no device error
+    counted, so the host path answers or fails the shard with it. A request
+    or parent trip, another SearchEngineError, a defect and a host bug
+    raise.
     `domains` replaces the shard's domains of `families` (`_domains_for`)
     for a branch that owns a domain of its own (the percolator's)."""
     blocked = _blocked_domain(ctx, families, domains)
@@ -525,6 +530,10 @@ def _guarded(ctx: ShardContext, families: tuple, counter: str, attempt,
         if getattr(e, "breaker", None) != "fielddata":
             raise  # request/parent trip: load shedding (429), not degradable
         _device_failed(e, ctx)  # out of device-pack budget: the host serves
+        return None, True
+    except BodyValueError:
+        # the host path meets it again where it reads the value (no
+        # circuit moves: the card did not fail)
         return None, True
     except SearchEngineError:
         raise  # parsing and script errors are the answer itself
@@ -752,7 +761,7 @@ def _general_host_path(ctx: ShardContext, req: ParsedSearchRequest, k: int,
                              ms=(time.monotonic() - t_seg) * 1000.0)
             seg_results.append((scores, match))
             if req.min_score is not None:
-                match = match & (scores >= np.float32(req.min_score))
+                match = match & (scores >= body_value(np.float32, req.min_score))
             seg_masks_for_aggs.append((seg, match, scores))
             hit_mask = match
             if req.post_filter is not None:
@@ -817,11 +826,11 @@ def _apply_rescore(ctx: ShardContext, req: ParsedSearchRequest, top: list) -> li
     within the window by (-score, doc), whatever order the body's sort gave
     it; the entries past the window keep their place."""
     for rspec in req.rescore:
-        window = int(rspec.get("window_size", 10))
+        window = body_value(int, rspec.get("window_size", 10))
         qspec = rspec.get("query", {})
         rq = parse_query(qspec.get("rescore_query"))
-        qw = float(qspec.get("query_weight", 1.0))
-        rw = float(qspec.get("rescore_query_weight", 1.0))
+        qw = body_value(float, qspec.get("query_weight", 1.0))
+        rw = body_value(float, qspec.get("rescore_query_weight", 1.0))
         mode = qspec.get("score_mode", "total")
         qn = query_norm_for(rq, ctx)
         window_entries = top[:window]

@@ -2,8 +2,8 @@
 trimmed copy of the JAX package's `threadpool.py`).
 
 A pool whose queue is full rejects the task with RejectedExecutionError
-(HTTP 429) instead of queueing it forever. The pools are the ones the
-one-node slice runs work on: `generic` (transport dispatch, recoveries),
+(HTTP 429) instead of queueing it forever. The pools are the ones a port
+node runs work on: `generic` (transport dispatch, recoveries),
 `index`, `bulk`, `get`, `search`, `management`, `refresh`, `merge` (merges and
 compaction packs) and `warmer` (the other packs off the query path). The JAX
 package's one-shot timer wheel serves hedged and timed shard attempts, which

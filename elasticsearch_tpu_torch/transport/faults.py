@@ -1,8 +1,18 @@
-"""Seeded device-error injection for the fault-domain circuits, and stall
-injection for the batch's one pull — the port of the JAX package's
-`transport/faults.py` `DeviceFaults`, `make_device_error` and
-`DevicePullFaults` (its transport `FaultPolicy` comes with the slice with
-two nodes).
+"""Fault injection, the port of the JAX package's `transport/faults.py`:
+the transport's `FaultPolicy` (seeded rules that drop, delay, or fail a
+message by action and address, installed on one TransportService), the
+seeded device-error injection for the fault-domain circuits
+(`DeviceFaults`, `make_device_error`) and the stall injection for the
+batch's one pull (`DevicePullFaults`).
+
+A transport rule is `drop` (the message vanishes: only a response timeout
+surfaces it), `delay` (delivered after `delay_s`), `error` (an error
+instance or factory) or `disconnect` (NodeNotConnectedError at once). It
+applies on the send side, or with `direction="recv"` inside the receiving
+service's `dispatch` (a slow or lost handler). Matching is fnmatch over the
+action and the target address (brackets literal), plus an optional
+`where(action, address, request)`; `probability` draws from the policy's
+seeded RNG only for rules that match, and `max_hits` disarms a rule.
 
 The kinds are the JAX package's, and each keeps its JAX class under the
 port's classifier (common/devicehealth), so one arm moves both packages'
@@ -30,11 +40,16 @@ FAILED_PRECONDITION; `internal` has no code of its own and takes 999.
 from __future__ import annotations
 
 import fnmatch
+import random
 import threading
+from dataclasses import dataclass, field
 
 import torch
 
 from ..common.cudaenv import CudaError
+from ..common.errors import NodeNotConnectedError, TransportError
+
+KINDS = ("drop", "delay", "error", "disconnect")
 
 
 def _glob_match(value: str, pattern: str) -> bool:
@@ -43,6 +58,119 @@ def _glob_match(value: str, pattern: str) -> bool:
     if "*" not in pattern and "?" not in pattern:
         return value == pattern
     return fnmatch.fnmatchcase(value, pattern.replace("[", "[[]"))
+
+
+@dataclass
+class FaultRule:
+    kind: str = "disconnect"
+    action: str = "*"             # fnmatch pattern over the action string
+    node: str = "*"               # fnmatch pattern over the target address
+    direction: str = "send"       # "send" (on the sender) | "recv" (in dispatch)
+    delay_s: float = 0.0          # for kind="delay"
+    error: object = None          # Exception prototype or factory; for "error"
+    probability: float = 1.0      # matched via the policy's seeded RNG
+    max_hits: int | None = None   # disarm after N injections (None = forever)
+    where: object = None          # optional (action, address, request) -> bool
+    hits: int = field(default=0, compare=False)
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown fault kind [{self.kind}] (want one of {KINDS})")
+        if self.direction not in ("send", "recv"):
+            raise ValueError(f"unknown fault direction [{self.direction}]")
+
+    def make_error(self) -> Exception:
+        """A fresh exception per injection (one instance raised from many
+        threads would share its traceback)."""
+        if self.error is None:
+            return TransportError(f"injected fault ({self.action} -> {self.node})")
+        if isinstance(self.error, Exception):
+            try:
+                return type(self.error)(*self.error.args)
+            except TypeError:  # error classes with exotic signatures: best effort
+                return self.error
+        err = self.error("injected fault") if callable(self.error) else None
+        return err if isinstance(err, Exception) else TransportError(str(self.error))
+
+
+class FaultPolicy:
+    """A seeded rule set installable on one TransportService. Thread-safe:
+    the transport consults it from sender and dispatcher threads; one
+    seeded RNG makes a run replay from its seed."""
+
+    def __init__(self, seed: int | None = 0):
+        self.rng = random.Random(seed)
+        self._rules: list[FaultRule] = []
+        self._lock = threading.Lock()
+        self.injected = 0  # total injections, all rules
+
+    # --- rule management ---------------------------------------------------
+    def add_rule(self, rule: FaultRule) -> FaultRule:
+        with self._lock:
+            self._rules.append(rule)
+        return rule
+
+    def drop(self, action: str = "*", node: str = "*", **kw) -> FaultRule:
+        return self.add_rule(FaultRule(kind="drop", action=action, node=node, **kw))
+
+    def delay(self, delay_s: float, action: str = "*", node: str = "*",
+              **kw) -> FaultRule:
+        return self.add_rule(FaultRule(kind="delay", delay_s=delay_s, action=action,
+                                       node=node, **kw))
+
+    def error(self, error=None, action: str = "*", node: str = "*",
+              **kw) -> FaultRule:
+        return self.add_rule(FaultRule(kind="error", error=error, action=action,
+                                       node=node, **kw))
+
+    def disconnect(self, action: str = "*", node: str = "*", **kw) -> FaultRule:
+        return self.add_rule(
+            FaultRule(kind="disconnect",
+                      error=NodeNotConnectedError("injected disconnect"),
+                      action=action, node=node, **kw))
+
+    def clear(self):
+        with self._lock:
+            self._rules.clear()
+
+    def remove_rule(self, rule: FaultRule):
+        with self._lock:
+            if rule in self._rules:
+                self._rules.remove(rule)
+
+    # --- matching ----------------------------------------------------------
+    def decide(self, action: str, address: str, request=None,
+               direction: str = "send") -> FaultRule | None:
+        """The first armed matching rule, its hit recorded, or None."""
+        with self._lock:
+            for rule in self._rules:
+                if rule.direction != direction:
+                    continue
+                if rule.max_hits is not None and rule.hits >= rule.max_hits:
+                    continue
+                if not _glob_match(action, rule.action):
+                    continue
+                if not _glob_match(str(address), rule.node):
+                    continue
+                if rule.where is not None and not rule.where(action, address, request):
+                    continue
+                if rule.probability < 1.0 and self.rng.random() >= rule.probability:
+                    continue
+                rule.hits += 1
+                self.injected += 1
+                return rule
+        return None
+
+    # --- installation ------------------------------------------------------
+    def install(self, transport_service) -> "FaultPolicy":
+        """Attach to a live TransportService (a node's `transport`),
+        replacing any policy it had."""
+        transport_service.fault_policy = self
+        return self
+
+    @staticmethod
+    def uninstall(transport_service):
+        transport_service.fault_policy = None
 
 
 # kind -> (cudaError_t, message); None: torch's out-of-memory class

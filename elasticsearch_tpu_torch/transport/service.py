@@ -1,24 +1,32 @@
-"""TransportService: action-string-keyed async RPC (a trimmed copy of the
-JAX package's `transport/service.py`).
+"""TransportService: action-string-keyed async RPC (a copy of the JAX
+package's `transport/service.py`).
 
 A handler registry (`register_handler(action, fn, executor)`),
-`send_request(node, action, body)` returning a Future and the blocking
-`submit_request`. Every message and every response round-trips through the
-wire codec (`common/stream.py`) even in-process, so a payload the TCP
-transport could not carry fails here too. The encoded request is reserved
-on the `in_flight_requests` breaker until its response future resolves.
+`send_request(node, action, body, timeout)` returning a Future and the
+blocking `submit_request`, over a pluggable backend: the in-process
+`LocalTransport` or the socket `TcpTransport` (transport/tcp.py). Every
+message and every response round-trips through the wire codec
+(`common/stream.py`) even in-process, so a payload the TCP transport could
+not carry fails here too; the TCP backend encodes for real and skips the
+round trip. The encoded request is reserved on the `in_flight_requests`
+breaker until its response future resolves; a reservation whose response
+never comes is failed by a lazy sweep after `INFLIGHT_BACKSTOP_S`.
+
+A `timeout` on `send_request` arms a timer that fails the future with
+ReceiveTimeoutError (a late response is dropped). A FaultPolicy
+(transport/faults.py) installed on the service drops, delays, or fails a
+send, or a receive in `dispatch`, by action and address.
 
 A request sent from a thread that carries a sampled span
 (common/tracing.py) is wrapped in a `transport[<action>]` span, and its
 trace context rides the payload under `_trace` (a tagged value of the
 codec); the span ends when the response future resolves.
-
-Not in this slice: the fault-injection policy, the per-request response
-timer and the backstop sweep of stale reservations (every in-process
-future resolves: a handler answers or fails)."""
+"""
 
 from __future__ import annotations
 
+import threading
+import time
 from concurrent.futures import Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Callable
@@ -90,16 +98,26 @@ def _roundtrip(payload: Any) -> Any:
 
 
 class TransportService:
+    # a reservation older than this is failed by the next send's sweep
+    INFLIGHT_BACKSTOP_S = 300.0
+
     def __init__(self, backend, local_node=None, threadpool=None):
         self.backend = backend
         self.local_node = local_node
         self.threadpool = threadpool
         self.handlers: dict[str, TransportRequestHandler] = {}
         self.logger = get_logger("transport")
+        # messages sent and received, timed out and injected
+        # (`/_nodes/stats` transport)
+        self.stats = {"rx_count": 0, "tx_count": 0, "timed_out_count": 0,
+                      "faults_injected": 0}
+        # a FaultPolicy installed by a test (None: no faults)
+        self.fault_policy = None
         # the node's in_flight_requests breaker (None: unaccounted)
         self.in_flight_breaker = None
-        # messages sent and received (`/_nodes/stats` transport)
-        self.stats = {"rx_count": 0, "tx_count": 0}
+        # outstanding reservations, future -> expiry (the backstop sweep)
+        self._inflight: dict = {}
+        self._inflight_lock = threading.Lock()
         backend.bind(self)
 
     def register_handler(self, action: str, fn: Callable, executor: str = "same"):
@@ -110,9 +128,12 @@ class TransportService:
         return self.local_node is not None and \
             address == self.local_node.transport_address
 
-    def send_request(self, node, action: str, request: dict) -> Future:
+    def send_request(self, node, action: str, request: dict,
+                     timeout: float | None = None) -> Future:
         """Dispatch `request` to `node`; the Future resolves to the response
-        (or its error)."""
+        (or its error). A `timeout` arms a timer that fails the future with
+        ReceiveTimeoutError, for callers that park no thread on it (a
+        blocking caller bounds its own wait in `fut_result`)."""
         fut: Future = Future()
         self.stats["tx_count"] += 1
         # a sampled caller's trace context rides the payload; unsampled
@@ -123,47 +144,139 @@ class TransportService:
             request = {**request,
                        tracing.TRACE_WIRE_KEY: tracing.wire_context(tspan)}
             fut.add_done_callback(lambda _f: tspan.end())
+        if timeout is not None:
+            self._arm_response_timeout(fut, action, timeout)
         try:
-            raw = _encode(request)
-            self._charge_in_flight(len(raw), action, fut)
-            payload = StreamInput(raw).read_value()
-            if self._is_local(node):
-                # self-addressed: past the backend, onto the generic pool
-                def respond(response, error):
-                    if error is not None:
-                        complete_fut(fut, error=error)
-                    else:
-                        complete_fut(fut, _roundtrip(response))
-
-                self.threadpool.submit("generic", self.dispatch, action,
-                                       payload, TransportChannel(respond))
-            else:
-                self.backend.send(node, action, payload, fut)
+            rule = None if self.fault_policy is None else \
+                self.fault_policy.decide(action, getattr(node, "transport_address",
+                                                         node), request, "send")
+            if rule is not None:
+                self.stats["faults_injected"] += 1
+                if self._apply_send_fault(rule, fut, node, action, request):
+                    return fut
+            self._send_now(node, action, request, fut)
         except SearchEngineError as e:
             complete_fut(fut, error=e)
         except Exception as e:  # noqa: BLE001
             complete_fut(fut, error=TransportError(str(e), cause=e))
         return fut
 
-    def _charge_in_flight(self, size: int, action: str, fut: Future):
+    def _charge_in_flight(self, raw: bytes, action: str, fut: Future):
         """Reserve the encoded message's bytes until the response future
         resolves (released exactly once, by its done-callback). A trip
-        raises CircuitBreakingError, which fails the future."""
+        raises CircuitBreakingError, which fails the future. Reservations
+        past their expiry are failed first (their callbacks release them),
+        so a breaker full of lost responses cannot refuse every send."""
         br = self.in_flight_breaker
         if br is None:
             return
+        now = time.monotonic()
+        with self._inflight_lock:
+            expired = [f for f, expiry in self._inflight.items() if expiry <= now]
+        for f in expired:
+            complete_fut(f, error=ReceiveTimeoutError(
+                "in-flight reservation expired with no response "
+                f"(> {self.INFLIGHT_BACKSTOP_S:.0f}s)"))
+        size = len(raw)
         br.add_estimate_and_maybe_break(size, f"<transport_request>[{action}]")
-        fut.add_done_callback(lambda _f: br.release(size))
+        with self._inflight_lock:
+            self._inflight[fut] = now + self.INFLIGHT_BACKSTOP_S
+
+        def on_done(_f):
+            br.release(size)
+            with self._inflight_lock:
+                self._inflight.pop(fut, None)
+
+        fut.add_done_callback(on_done)
+
+    def _send_now(self, node, action: str, request: dict, fut: Future):
+        """Self-addressed: past the backend onto the generic pool, both ways
+        through the codec. A backend that serializes (TCP) charges the
+        breaker from its own frame; the in-process one from the bytes
+        encoded here."""
+        if self._is_local(node):
+            raw = _encode(request)
+            self._charge_in_flight(raw, action, fut)
+            payload = StreamInput(raw).read_value()
+
+            def respond(response, error):
+                if error is not None:
+                    complete_fut(fut, error=error)
+                else:
+                    complete_fut(fut, _roundtrip(response))
+
+            self.threadpool.submit("generic", self.dispatch, action, payload,
+                                   TransportChannel(respond))
+            return
+        if getattr(self.backend, "serializes", False):
+            payload = request
+        else:
+            raw = _encode(request)
+            self._charge_in_flight(raw, action, fut)
+            payload = StreamInput(raw).read_value()
+        self.backend.send(node, action, payload, fut)
+
+    def _apply_send_fault(self, rule, fut: Future, node, action: str,
+                          request: dict) -> bool:
+        """Apply a send-side rule. True: the send was consumed (a drop, an
+        error, or a delay that re-sends on a timer)."""
+        if rule.kind == "drop":
+            return True  # lost: only a response timeout resolves the future
+        if rule.kind in ("disconnect", "error"):
+            complete_fut(fut, error=rule.make_error())
+            return True
+
+        def fire():
+            try:
+                self._send_now(node, action, request, fut)
+            except Exception as e:  # noqa: BLE001 — a timer thread must not die silent
+                complete_fut(fut, error=TransportError(str(e), cause=e))
+
+        t = threading.Timer(rule.delay_s, fire)
+        t.daemon = True
+        t.start()
+        return True
+
+    def _arm_response_timeout(self, fut: Future, action: str, timeout: float):
+        def on_timeout():
+            if complete_fut(fut, error=ReceiveTimeoutError(
+                    f"[{action}] received no response within [{timeout}s]")):
+                self.stats["timed_out_count"] += 1
+
+        timer = threading.Timer(max(0.0, timeout), on_timeout)
+        timer.daemon = True
+        timer.start()
+        fut.add_done_callback(lambda _f: timer.cancel())
 
     def submit_request(self, node, action: str, request: dict,
                        timeout: float | None = 30.0) -> dict:
-        """Blocking convenience over send_request."""
+        """Blocking convenience over send_request; the wait is bounded by
+        `fut_result`, with no timer thread."""
         return fut_result(self.send_request(node, action, request), timeout)
 
     def dispatch(self, action: str, request: Any, channel: TransportChannel):
         """Run the action's handler on its executor; a bounded-queue rejection
-        travels back as the response's error (a typed 429)."""
+        travels back as the response's error (a typed 429). A receive-side
+        fault rule matches this node's own address."""
         self.stats["rx_count"] += 1
+        rule = None if self.fault_policy is None else \
+            self.fault_policy.decide(action, getattr(self.backend, "address", ""),
+                                     request, "recv")
+        if rule is not None:
+            self.stats["faults_injected"] += 1
+            if rule.kind == "drop":
+                return  # the handler never runs: the sender's timeout shows it
+            if rule.kind in ("disconnect", "error"):
+                channel.send_failure(rule.make_error())
+                return
+            t = threading.Timer(rule.delay_s,
+                                lambda: self._dispatch_now(action, request, channel))
+            t.daemon = True
+            t.start()
+            return
+        self._dispatch_now(action, request, channel)
+
+    def _dispatch_now(self, action: str, request: Any, channel: TransportChannel):
         handler = self.handlers.get(action)
         if handler is None:
             channel.send_failure(ActionNotFoundError(f"no handler for action [{action}]"))
@@ -177,7 +290,7 @@ class TransportService:
             except Exception as e:  # noqa: BLE001
                 channel.send_failure(e)
 
-        if handler.executor == "same":
+        if handler.executor == "same" or self.threadpool is None:
             run()
             return
         try:

@@ -101,7 +101,8 @@ class IndexWarmerService:
             "indices.warmer.pack_retries", 2))
         self._retry_policy = RetryPolicy(base_s=settings.get_float(
             "indices.warmer.pack_retry_base", 0.05), cap_s=1.0)
-        self.logger = get_logger("indices.warmer")
+        self.logger = get_logger("indices.warmer",
+                                 node=getattr(node, "name", None))
         self._lock = threading.Lock()  # leaf: counters only
         self.packs_scheduled = 0
         self.packs_done = 0

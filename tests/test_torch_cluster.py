@@ -5,14 +5,17 @@ gateway, the master-node actions) against the JAX package's.
   (ASCII, digits, unicode) on the JAX package's shard for 1-7 shards: a
   document lands on the same shard of both nodes. Tolerance: none.
 - `new_index_routing` and a one-node `reroute` build the same routing
-  tables (replicas stay unassigned: health yellow).
+  tables, step by step as the throttling decider lets two primaries
+  initialize at a time (replicas stay unassigned: health yellow).
 - A created index's metadata — settings, and mappings after dynamic mapping
   through the index API — equals the JAX node's, as does cluster health.
-- A node started with another node's address, a gateway that waits for
-  more than one node, and the tcp transport raise NotPortedError naming
-  the later slice; a restart over the same `path.data` starts
-  (tests/test_torch_gateway.py holds what it recovers); the state's blocks
-  lift only once the node elected itself and recovered."""
+- What the one-node slice refused is served: a node on the tcp transport,
+  a node started with another node's address, and a gateway that waits
+  for two nodes each form the JAX cluster's two-node state (master, node
+  count, health, primaries spread over both); a restart over the same
+  `path.data` starts (tests/test_torch_gateway.py holds what it recovers);
+  the state's blocks lift only once a master is elected and the state
+  recovered."""
 
 import numpy as np
 import pytest
@@ -22,7 +25,7 @@ from elasticsearch_tpu_torch.cluster.routing import OperationRouting, djb2_hash
 from elasticsearch_tpu_torch.cluster.state import (
     BLOCK_NO_MASTER, BLOCK_STATE_NOT_RECOVERED, ClusterState, DiscoveryNode,
     DiscoveryNodes, IndexMetaData)
-from elasticsearch_tpu_torch.common.errors import ClusterBlockError, NotPortedError
+from elasticsearch_tpu_torch.common.errors import ClusterBlockError
 from elasticsearch_tpu_torch.node import Node as PNode
 from elasticsearch_tpu_torch.transport.local import LocalTransportRegistry as PReg
 
@@ -91,12 +94,11 @@ def test_index_routing_and_one_node_reroute_match_jax(shards, replicas):
     j = j.next_version(routing_table=j.routing_table.with_index(jt))
     ta, ja = AllocationService(), JAlloc()
     t, j = ta.reroute(t), ja.reroute(j)
-    # the lone node takes every primary at once (the JAX package's throttling
-    # decider lets two initialize at a time; it waits for the slice with two
-    # nodes); replicas stay unassigned
-    assert [[(s.node_id, s.state) for s in grp.shards]
-            for grp in t.routing_table.index("i").shards] == \
-        [[("n1", "INITIALIZING")] + [(None, "UNASSIGNED")] * replicas] * shards
+    # the throttling decider lets two primaries initialize at a time;
+    # replicas stay unassigned
+    assert _table(t.routing_table.index("i")) == _table(j.routing_table.index("i"))
+    assert [s.state for s in t.routing_table.all_shards() if s.primary] == \
+        ["INITIALIZING"] * min(shards, 2) + ["UNASSIGNED"] * max(shards - 2, 0)
     # start what initialized until nothing moves: both end on the same table
     for _ in range(shards + 1):
         tinit = [s for s in t.routing_table.all_shards() if s.state == "INITIALIZING"]
@@ -162,10 +164,7 @@ def test_created_index_metadata_matches_jax(nodes, body):
     assert ph["status"] == ("green" if "number_of_replicas" in str(body) else "yellow")
 
 
-def test_lone_node_raises_for_what_a_later_slice_serves(tmp_path):
-    with pytest.raises(NotPortedError, match="slice with two"):
-        PNode(name="t1", settings={"node.device": "cpu", "transport.type": "tcp"},
-              registry=PReg(), data_path=str(tmp_path / "a"))
+def test_blocks_lift_once_a_master_is_elected_and_recovered(tmp_path):
     node = PNode(name="t2", settings={"node.device": "cpu"}, registry=PReg(),
                  data_path=str(tmp_path / "b"))
     try:
@@ -175,17 +174,11 @@ def test_lone_node_raises_for_what_a_later_slice_serves(tmp_path):
         assert err.value.status == 503
         assert set(node.cluster_service.state.blocks.global_blocks) == {
             BLOCK_NO_MASTER, BLOCK_STATE_NOT_RECOVERED}
-        with pytest.raises(NotPortedError, match="slice with two"):
-            node.start(["local://somebody-else"])
         node.start([node.local_node.transport_address])
         assert node.cluster_service.state.blocks.global_blocks == ()
         assert node.cluster_service.state.nodes.master_id == "t2"
     finally:
         node.close()
-    with pytest.raises(NotPortedError, match="slice with two"):
-        PNode(name="t3", settings={"node.device": "cpu",
-                                   "gateway.recover_after_nodes": 2},
-              registry=PReg(), data_path=str(tmp_path / "b"))
     node = PNode(name="t3", settings={"node.device": "cpu"}, registry=PReg(),
                  data_path=str(tmp_path / "b"))
     try:
@@ -193,3 +186,34 @@ def test_lone_node_raises_for_what_a_later_slice_serves(tmp_path):
         assert node.cluster_service.state.blocks.global_blocks == ()
     finally:
         node.close()
+
+
+# what the one-node slice refused: the tcp transport (a unicast seed), a
+# node started with another node's address, a gateway waiting for 2 nodes
+LIFTED = {"tcp": ({}, "tcp"), "seeds": ({}, "local"),
+          "recover_after_nodes": ({"gateway.recover_after_nodes": 2}, "local")}
+
+
+@pytest.mark.parametrize("case", list(LIFTED))
+def test_lifted_path_forms_the_jax_two_node_cluster(tmp_path, case):
+    from tests.test_torch_node import call
+    from tests.test_torch_two_nodes import _both, _placement
+
+    settings, transport = LIFTED[case]
+    p, j = _both(tmp_path, ["a", "b"], settings=settings, transport=transport)
+    try:
+        for c in (p, j):
+            st, r = call(c.base("b"), "PUT", "/two", {"settings": {
+                "number_of_shards": 2, "number_of_replicas": 0}})
+            assert st == 200 and r["acknowledged"], r
+            assert c.settled("two")
+        (_, ph), (_, jh) = (call(c.base("a"), "GET", "/_cluster/health/two") for c in (p, j))
+        assert ph == jh and ph["number_of_nodes"] == 2 and ph["status"] == "green"
+        assert [s.nodes.master_id for s in p.states()] == \
+            [s.nodes.master_id for s in j.states()] == ["a", "a"]
+        placed = _placement(p.states()[1], "two")
+        assert placed == _placement(j.states()[1], "two")
+        assert sorted(row[0][0] for row in placed) == ["a", "b"]
+    finally:
+        p.close()
+        j.close()

@@ -18,8 +18,9 @@ tests/test_cluster.py::TestAliasesTemplatesGateway::
 test_gateway_restores_metadata_after_full_restart.
 
 Also: `MetaData.from_dict(to_dict())` round-trips the port's metadata (and
-reads the JAX package's file); `gateway.recover_after_nodes: 2` raises
-NotPortedError; a fresh `path.data` starts as before; neither package
+reads the JAX package's file); under `gateway.recover_after_nodes: 2` a
+restarted node and a second one restore the persisted index as the JAX
+pair does; a fresh `path.data` starts as before; neither package
 re-registers the `.percolator` documents of a restarted index (its
 registry is filled by the single-document index only), so the two answer a
 percolation after the restart alike; and the warmer's gate holds after a
@@ -41,7 +42,6 @@ from elasticsearch_tpu.transport.faults import DEVICE_FAULTS as J_FAULTS
 from elasticsearch_tpu.transport.faults import DEVICE_PULL as J_PULL
 from elasticsearch_tpu_torch.cluster.state import MetaData
 from elasticsearch_tpu_torch.common.devicehealth import DEVICE_HEALTH
-from elasticsearch_tpu_torch.common.errors import NotPortedError
 from elasticsearch_tpu_torch.node import Node as PNode
 from elasticsearch_tpu_torch.ops.device_index import PACK_LEDGER
 from elasticsearch_tpu_torch.transport.faults import DEVICE_FAULTS, DEVICE_PULL
@@ -332,11 +332,36 @@ def test_metadata_round_trips_and_reads_the_jax_file(restarted):
         assert jmd.index(name).mappings_dict() == md.index(name).mappings_dict()
 
 
-def test_recover_after_nodes_above_one_raises(tmp_path):
-    with pytest.raises(NotPortedError, match="recover_after_nodes"):
-        PNode(name="r", settings={"node.device": "cpu",
-                                  "gateway.recover_after_nodes": 2},
-              registry=PReg(), data_path=str(tmp_path))
+def test_recover_after_nodes_two_restores_the_persisted_index_as_jax(tmp_path):
+    """Node a persists an index alone; restarted beside b under
+    `gateway.recover_after_nodes: 2`, each package's master restores it
+    once both nodes are in and spreads its primaries over both."""
+    from tests.test_torch_node import call
+    from tests.test_torch_two_nodes import Cluster, _placement
+
+    for pkg in ("port", "jax"):
+        first = Cluster(pkg, ["a"], tmp_path)
+        try:
+            st, r = call(first.base("a"), "PUT", "/kept", {"settings": {
+                "number_of_shards": 2, "number_of_replicas": 0}})
+            assert st == 200 and first.settled("kept")
+        finally:
+            first.close()
+    both = []
+    try:
+        for pkg in ("port", "jax"):
+            both.append(Cluster(pkg, ["a", "b"], tmp_path,
+                                settings={"gateway.recover_after_nodes": 2}))
+        for c in both:
+            assert c.settled("kept")
+        p, j = both
+        assert p.states()[0].metadata.index_names() == \
+            j.states()[0].metadata.index_names() == ["kept"]
+        assert _placement(p.states()[0], "kept") == _placement(j.states()[0], "kept")
+        assert p.states()[0].blocks.global_blocks == j.states()[0].blocks.global_blocks
+    finally:
+        for c in both:
+            c.close()
 
 
 def test_fresh_path_data_starts_as_before(tmp_path):

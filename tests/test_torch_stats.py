@@ -15,8 +15,7 @@ postings and pack: layout, bytes a posting, resident bytes, the padded
 doc count, the dense plane and the similarity tables) answer the JAX
 node's JSON, the wall times of the indexing counters masked by name;
 `/_events` (local, cluster-wide, `?size=`) has the JAX node's shape.
-`/_nodes` has the JAX node's keys but `attrs` and `version_id` (the
-port's discovery node has neither).
+`/_nodes` has the JAX node's keys, `attrs` and `version_id` included.
 The `/_nodes/stats` `device` section: the JAX node's capacity ledger,
 whose resident bytes are each pack's own tensors' bytes and whose postings
 tier equals the JAX node's for the same segments; the port's `kernels`
@@ -275,7 +274,8 @@ def test_nodes_info_has_the_jax_keys(nodes):
     (pst, pr), (jst, jr) = (call(b, "GET", "/_nodes") for b in nodes[:2])
     assert pst == jst == 200 and pr["cluster_name"] == jr["cluster_name"]
     ((pn,), (jn,)) = (pr["nodes"].values(), jr["nodes"].values())
-    assert set(pn) == set(jn) - {"attrs", "version_id"}
+    assert set(pn) == set(jn)
+    assert (pn["attrs"], pn["version_id"]) == (jn["attrs"], jn["version_id"])
     assert pn["plugins"] == jn["plugins"] == []
 
 
