@@ -271,8 +271,9 @@ those paths against its plain torch version on the card. Phases:
  18. analysis, similarities and the flat mapper, on a port node of its own
      on the card (5 shards, `refresh_interval: -1`, as phase 10's): a
      site-search index `library` in the shape Elasticsearch's 1.x guide
-     documents, 10,000 seeded English-like documents (20,000 before phase
-     19 joined the run; 2,000 generated stems
+     documents, 4,000 seeded English-like documents (20,000 before phase
+     19 joined the run, 10,000 before phase 27 did, 6,000 until its
+     review; 2,000 generated stems
      under the suffixes "", s, es, ed, ing, ation, ness, drawn zipf(1.2);
      Lucene's 33 English stop words at about 40% of the tokens; bodies of
      poisson(60) tokens with a little HTML, titles of 6-12), an `english`
@@ -287,7 +288,8 @@ those paths against its plain torch version on the card. Phases:
      `GET /library/_mapping` renders the sub-fields and copy_to; a
      single-document write without routing into a `_routing.required` type
      answers 400, a `_bulk` item without one is indexed (both as the JAX
-     node does). 512 `_search` requests from 32 connections in a seeded
+     node does). 256 `_search` requests (512 until phase 27's review)
+     from 32 connections in a seeded
      order, an eighth each of `match` on `body`, `match` on the title's
      shingles, an exact title, `query_string` on the catch-all with the
      english analyzer, a 4-term `bool` across title and body, `multi_match`,
@@ -304,13 +306,16 @@ those paths against its plain torch version on the card. Phases:
  19. nested documents, parent/child joins and geo fields, on a port node of
      its own on the card (5 shards, 0 replicas, `refresh_interval: -1`), in
      the shapes of the Elasticsearch 1.x guide's own examples: `blogposts`
-     (10,000 posts around 50 seeded city centres with a `location`
-     geo_point and 0-8 nested `comments` of name, comment, age, stars and
-     date, about 40,000 Lucene documents, by `_bulk` with a refresh half
+     (5,000 posts, 10,000 before phase 27 and 7,000 until its review,
+     around 50 seeded city centres with a `location` geo_point and 0-8
+     nested `comments` of name, comment, age, stars and date, about
+     20,000 Lucene documents, by
+     `_bulk` with a refresh half
      way) and `company` (100 branches with a `geo_shape` area, 2,000
      `employee` children under `_parent: {type: branch}`, written one by
-     one with `PUT ?parent=`: a `_bulk` sets no parent). 384 `_search`
-     requests from 32 connections in a seeded order, a twelfth each: a flat
+     one with `PUT ?parent=`: a `_bulk` sets no parent). 192 `_search`
+     requests (384 until phase 27's review) from 32 connections in a
+     seeded order, a twelfth each: a flat
      `match` (the card's `sparse_score` over nested packs), `nested` with
      `score_mode: avg`, a `bool` with a nested range filter, `filtered` with
      that filter, `filtered` with `geo_distance` (50 km), size-0
@@ -377,16 +382,17 @@ those paths against its plain torch version on the card. Phases:
      The kernel bitwise equal to its plain version at every shape phase 21
      launched.
  22. documents under search, on a node of its own (`indices.ttl.interval:
-     1s`): `website` (5 shards, `refresh_interval: 1s`; type `blog`, 5,000
-     posts of phase 10's texts with `title`, `body`, one of 50 not-analyzed
+     1s`): `website` (5 shards, `refresh_interval: 1s`; type `blog`, 3,000
+     posts (5,000 until phase 27's review) of phase 10's texts with `title`, `body`, one of 50 not-analyzed
      `tags` and `views`, `_timestamp` on; type `draft`, 500) and `sessions`
-     (1 shard, `_ttl` default 3s). Timed: 512 requests from 16
+     (1 shard, `_ttl` default 3s). Timed: 256 requests (512 until phase
+     27's review) from 16
      connections, 40% phase 10's `bool` searches, 25% `_update` scripts
      `ctx._source.views += n` on a zipf-hot set of 200 posts with
      `retry_on_conflict: 5`, 10% `_update` with a `doc` that replaces
      `title` and `body`, 10% `_mget` of 10 (half `docs`, half `ids`), 10%
      GET `_source` with `_source_include`, 5% `_create` (half taken: 409);
-     then a `_bulk` of 500 `update` items, a delete-by-query of 5 tags
+     then a `_bulk` of 250 `update` items, a delete-by-query of 5 tags
      (about 10% of the posts) while 128 searches run, `DELETE
      _mapping/draft`, and the TTL leg (2,000 sessions, then `_count` polled
      to 0). Checked, after a final `_refresh`: every acknowledged write read
@@ -491,6 +497,28 @@ those paths against its plain torch version on the card. Phases:
      `torch.cuda.memory_allocated()` before and after beside the ledger's
      resident bytes just before. The kernel bitwise against its plain
      version at every shape the phase and its child launched.
+ 26. two nodes over TCP in this process beside a one-node reference in a
+     child process: 20,000 of phase 10's texts in 5 shards at 0 replicas,
+     256 `bool` bodies half to each node bitwise the reference's, per node
+     launches == batches == pulls; the second node closes and the first
+     answers over the shards it holds.
+ 27. a replicated cluster: two nodes over TCP in this process; `replicas`
+     (20,000 of phase 10's texts) and `replicas_live` (2,000 more), 5
+     shards each at 0 replicas, flushed; a kept leg of 256 `bool` bodies
+     over the primaries; then `number_of_replicas: 1` on both while a
+     writer indexes new ids into `replicas_live` through the first node's
+     HTTP, until green: each replica's recovery (files, bytes, reused,
+     throttle), every acknowledged write on both copies at the same
+     version, the `replicas` replicas' packs equal to the primaries' plane
+     for plane, the 256 bodies half `_only_node` on each node bitwise the
+     kept leg, `replicas_live` bodies on both nodes with bitwise scores
+     and tie-tolerant hits, per node launches == batches == pulls and no
+     synchronize; the second node is lost under a burst on the first,
+     its query phases disconnected so that shards fail over (counted),
+     then it closes: every `_shards.failed` 0, the promoted primaries
+     answer bitwise,
+     `memory_allocated()` falls by the departed node's resident bytes
+     (0.99-1.01). The kernel bitwise at every shape either node launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -509,6 +537,7 @@ import subprocess
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -617,7 +646,7 @@ STICKY_DOCS, STICKY_SHARDS, STICKY_SEARCHES, STICKY_TIMEOUT_S = 5000, 2, 32, 60
 # node's watchdog period
 RESTART_DOCS, RESTART_SEARCHES, RESTART_STALL_S = 10_000, 64, 2.0
 RESTART_SETTINGS = {"watchdog.interval": "250ms"}
-ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_dense.py)
+ULPS = 2  # the dense path sums in clause order, a reference in its own (tests/test_torch_dense.py)
 # phase 16: the library leg's registry and documents (16, cut from 64 and
 # then 32 for the run's time); the node leg's registered queries (1,000, cut from
 # PERC_QUERIES), _percolate requests (128, cut from 256) and connections,
@@ -626,23 +655,26 @@ ULPS = 2  # the dense path's scatter-add order is not fixed (tests/test_torch_de
 PERC_QUERIES, PERC_DOCS = 10_000, 16
 PERC_NODE_QUERIES, PERC_REQUESTS, PERC_CONNECTIONS = 1000, 128, 16
 PERC_MULTI, PERC_MULTI_ITEMS, PERC_EXISTING, PERC_DELETES = 8, 8, 16, 100
-# phase 18: the `library` index (10,000 docs, cut from a real deployment's
-# millions for the run's time; 20,000 before phase 19 joined the run),
-# `library_dfr` (2,500 of them; 5,000 before), the traffic
-# and its connections; the text: stems, their zipf exponent, the stop words'
+# phase 18: the `library` index (4,000 docs, cut from a real deployment's
+# millions for the run's time; 20,000 before phase 19 joined the run,
+# 10,000 before phase 27 did, 6,000 until a 1146 s run on a slow host),
+# `library_dfr` (2,500 of them; 5,000 before), the traffic (256 requests,
+# 512 until that run) and its connections; the text: stems, their zipf exponent, the stop words'
 # share of tokens, mean tokens a body, synonym groups, tenants
-ANALYSIS_DOCS, ANALYSIS_DFR_DOCS = 10_000, 2_500
-ANALYSIS_REQUESTS, ANALYSIS_CALLERS = 512, 32
+ANALYSIS_DOCS, ANALYSIS_DFR_DOCS = 4_000, 2_500
+ANALYSIS_REQUESTS, ANALYSIS_CALLERS = 256, 32
 ANALYSIS_PROFILED = 128  # `library` requests in phase 18's profiled window
 ANALYSIS_STEMS, ANALYSIS_ZIPF, ANALYSIS_STOP_SHARE = 2000, 1.2, 0.4
 ANALYSIS_BODY, ANALYSIS_SYNONYMS, ANALYSIS_TENANTS = 60, 50, 16
-# phase 19: `blogposts` (10,000 posts, cut from a real blog's hundreds of
-# thousands for the run's time; about 40,000 Lucene documents with their
-# nested comments) around GEO_CITIES seeded city centres, `company` (100
+# phase 19: `blogposts` (5,000 posts, cut from a real blog's hundreds of
+# thousands for the run's time, 10,000 before phase 27 joined the run,
+# 7,000 until a 1146 s run on a slow host; about 20,000 Lucene documents
+# with their nested comments) around GEO_CITIES seeded city centres, `company` (100
 # branches, 2,000 employees, written one by one: a _bulk sets no parent),
-# the traffic, its connections and the profiled window
-GEO_POSTS, GEO_BRANCHES, GEO_EMPLOYEES, GEO_CITIES = 10_000, 100, 2_000, 50
-GEO_REQUESTS, GEO_CALLERS, GEO_PROFILED = 384, 32, 48
+# the traffic (192 requests, 384 until that run), its connections and the
+# profiled window
+GEO_POSTS, GEO_BRANCHES, GEO_EMPLOYEES, GEO_CITIES = 5_000, 100, 2_000, 50
+GEO_REQUESTS, GEO_CALLERS, GEO_PROFILED = 192, 32, 48
 # phase 20 on phase 10's node: (a) phase 10's `bool` bodies sent as DFS and
 # as plain, a BM25 index of phase 10's texts for the similarity-table flips
 # and its mixed DFS + plain burst; (b) the request cache's size-0 bodies on
@@ -670,23 +702,24 @@ ADMIN_BURST, ADMIN_CONN, ADMIN_FORMATS, ADMIN_SHUTDOWN_S = 256, 16, 64, 5.0
 # the held-wait threshold of the lock tracer's long-held list
 LOCKTRACE_DOCS, LOCKTRACE_SHARDS, LOCKTRACE_SEARCHES = 5_000, 2, 256
 LOCKTRACE_TIMEOUT_S, LOCKTRACE_HELD_MS = 45, 50.0
-# phase 22 on a node of its own: `website` posts (5,000, cut from a site's
-# hundreds of thousands: from 20,000 after a 190 s phase on the card, and
+# phase 22 on a node of its own: `website` posts (3,000, cut from a site's
+# hundreds of thousands: from 20,000 after a 190 s phase on the card,
 # from 10,000 after a 136 s phase on a slow host, where the background
-# merges' Python walk took 36 CPU s of the mix) and drafts, `sessions`;
-# the timed traffic (512 requests, cut from 2,048 after the first run and
-# from 1,024 after a 160 s phase at 10,000 posts) and
-# its connections, its mix by family, the hot posts and their zipf
-# exponent, the tags and the tags deleted by query; the bulk of updates
-# (500, cut from 1,000 with it), the searches beside the delete-by-query,
+# merges' Python walk took 36 CPU s of the mix, and from 5,000 after a
+# 100 s phase in a 1146 s run) and drafts, `sessions`;
+# the timed traffic (256 requests, cut from 2,048 after the first run,
+# from 1,024 after a 160 s phase at 10,000 posts and from 512 with the
+# posts) and its connections, its mix by family, the hot posts and their
+# zipf exponent, the tags and the tags deleted by query; the bulk of
+# updates (250, cut from 1,000 and 500 with it), the searches beside the delete-by-query,
 # the checked searches, the update CPU leg, the no-write search leg and the
 # profiled window (64 each, cut from 256 with it)
-DOC_POSTS, DOC_DRAFTS, DOC_SESSIONS = 5_000, 500, 2_000
-DOC_REQUESTS, DOC_CONN = 512, 16
+DOC_POSTS, DOC_DRAFTS, DOC_SESSIONS = 3_000, 500, 2_000
+DOC_REQUESTS, DOC_CONN = 256, 16
 DOC_MIX = (("search", 0.40), ("increment", 0.25), ("doc", 0.10), ("mget", 0.10),
            ("source", 0.10), ("create", 0.05))
 DOC_HOT, DOC_HOT_ZIPF, DOC_TAGS, DOC_DBQ_TAGS = 200, 1.1, 50, 5
-DOC_BULK_UPDATES, DOC_DBQ_SEARCHES, DOC_CHECKS = 500, 128, 256
+DOC_BULK_UPDATES, DOC_DBQ_SEARCHES, DOC_CHECKS = 250, 128, 256
 DOC_UPDATE_CPU, DOC_SEARCH_ONLY, DOC_PROFILED = 64, 64, 64
 DOC_TTL_S = 3.0  # `sessions`' default TTL; the purger runs every second
 # phase 23 on a node of its own: time-based `logs-*` indexes, a day each
@@ -713,6 +746,13 @@ TWO_DOCS, TWO_REQUESTS, TWO_CONN, TWO_AFTER = 20_000, 256, 16, 64
 # its warm-up searches a node, and the seconds its reference child may take
 # to serve (its start, the bulk, the warm-up)
 TWO_WARM, TWO_REF_TIMEOUT_S = 8, 120
+# phase 27: a replicated cluster of two nodes over TCP: `replicas` (20,000
+# of phase 10's texts, as phase 26's corpus) and `replicas_live` (2,000 more,
+# and the writer's), 5 shards each, raised from 0 to 1 replica; the bodies
+# of the kept and `_only_node` legs, the `replicas_live` bodies sent to
+# both nodes, the connections, and the burst run across the node's loss
+REP_DOCS, REP_LIVE_DOCS = 20_000, 2_000
+REP_REQUESTS, REP_AFTER, REP_CONN, REP_LOSS = 256, 32, 16, 64
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -1643,6 +1683,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     # -- 26. two nodes over TCP, beside a one-node reference -------------------
     report["two_nodes"] = two = two_node_phase(device, vocab=vocab, seed=seed + 9)
 
+    # -- 27. a replicated cluster: replicas, peer recovery, a node's loss -----
+    report["replicas"] = rep = replica_phase(device, vocab=vocab, seed=seed + 9)
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1702,7 +1745,12 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                            if n != "other"},
         two_node_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                          for s in two["kernel_shapes"]],
-        two_node_max_abs_err=two["kernel_max_abs_err"])]
+        two_node_max_abs_err=two["kernel_max_abs_err"],
+        replica_launches={n: v["launches"] for n, v in rep["by_node"].items()
+                          if n != "other"},
+        replica_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                        for s in rep["kernel_shapes"]],
+        replica_max_abs_err=rep["kernel_max_abs_err"])]
     return report
 
 
@@ -1798,8 +1846,8 @@ def serving_phase(device, base, packs, pool, *, seed: int, n_requests: int,
     bodies = [{"query": {"bool": {"should": [{"term": {"body": term_name(int(t))}}
                                              for t in row]}},
                "size": int(size)} for row, size in zip(rows, sizes)]
-    # a (query, segment) pair past tb_max takes the dense path, whose
-    # scatter-add order is not fixed: those queries are held within ULPS
+    # a (query, segment) pair past tb_max takes the dense path, which sums
+    # in clause order, not the reference's: those queries are held within ULPS
     blocks = np.stack([np.diff(p.term_blk_start)[rows].sum(axis=1) for p in packs],
                       axis=1)
     dense = (blocks > TB_MAX).any(axis=1)
@@ -4597,7 +4645,8 @@ def write_path_phase(device, csr: list, vocab: int, query_rows, *, seed: int) ->
     for i, (m, s) in enumerate(zip(results["merged"], results["sources"])):
         assert m.total == s.total, f"query {i}: total {m.total} != {s.total}"
         if dense(concat, rows[i]) or any(dense(p, rows[i]) for p in src_packs):
-            # the dense fallback adds in no fixed order: 2 ulp, tie-tolerant
+            # the dense fallback's sums differ in the last place between the
+            # merged segment and its sources: 2 ulp, tie-tolerant
             assert tie_tolerant_equal(m.hits, s.hits), f"query {i}: hits differ"
             tolerant += 1
         else:
@@ -5119,7 +5168,7 @@ def fetch_small_index(port: int, texts, n_docs: int, seed: int, take) -> dict:
             "index": "fetch_small", "type": "lists", "id": "l1", "path": "tags"}}}}}
         want = req("terms literal", "POST", "/fetch_small/_search", {"query": literal})
         r = req("terms lookup", "POST", "/fetch_small/_search", {"query": lookup})
-        assert r["hits"] == want["hits"]
+        assert r["hits"] == want["hits"], ("terms lookup", r["hits"], want["hits"])
         log(f"[21] (b) `fetch_small` ({FETCH_SHARDS} shards, {n_docs} docs with a "
             f"completion and a binary field) loaded in {load_s:.1f} s; each request "
             f"checked, wall ms and sparse_score launches:")
@@ -9071,22 +9120,22 @@ def two_node_inputs(vocab: int, seed: int, n_docs: int, n_requests: int,
         for row in rows]
 
 
-def two_node_fill(client, texts: list) -> None:
-    """`corpus` (5 shards, 0 replicas, no refresh interval) created through
+def two_node_fill(client, texts: list, index: str = "corpus") -> None:
+    """`index` (5 shards, 0 replicas, no refresh interval) created through
     `client`, the texts bulked under their ordinals as ids, a refresh."""
-    r = client.create_index("corpus", {"settings": {
+    r = client.create_index(index, {"settings": {
         "number_of_shards": NODE_SHARDS, "number_of_replicas": 0,
         "refresh_interval": -1}})
     assert r["acknowledged"], r
-    h = client.cluster_health("corpus", wait_for_status="green", timeout=60)
+    h = client.cluster_health(index, wait_for_status="green", timeout=60)
     assert h["status"] == "green", h
     for lo in range(0, len(texts), NODE_BULK):
-        r = client.bulk([{"action": {"index": {"_index": "corpus", "_type": "doc",
+        r = client.bulk([{"action": {"index": {"_index": index, "_type": "doc",
                                                "_id": str(i)}},
                           "source": {"body": texts[i]}}
                          for i in range(lo, min(lo + NODE_BULK, len(texts)))])
         assert not r["errors"], r["items"][:2]
-    r = client.refresh("corpus")
+    r = client.refresh(index)
     assert r["_shards"]["failed"] == 0, r
 
 
@@ -9121,6 +9170,139 @@ def two_node_ref_child(path: str) -> None:
         node.close()
 
 
+class NodePair:
+    """Two port Nodes on `device` in this process forming one cluster over
+    the TCP transport (127.0.0.1, port 0; the second seeded with the
+    first's address), for phases 26 and 27, and what they read of each
+    node: its resident bytes, whether its warmer and batcher are drained,
+    and, inside `counting()`, its `sparse_score` launches and
+    `PendingPull.wait` calls, told apart by the batcher's drainer thread
+    (`estpu_torch[search_batcher][<node>]`), beside the process's
+    `torch.cuda.synchronize` calls. `close()` closes the nodes, the second
+    first."""
+
+    def __init__(self, device, names: tuple, root: Path, phase: int):
+        self.device, self.names, self.root, self.phase = device, names, root, phase
+        self.on_card = device.type == "cuda"
+        self.nodes: list = []
+        self.by_node = {n: dict(launches=0, waits=0) for n in (*names, "other")}
+        self.syncs = 0
+        self.lock = threading.Lock()
+
+    def start(self) -> tuple:
+        """Boot both nodes and wait for one master; on the card each node
+        ran its own kernel start check on the shared build."""
+        from elasticsearch_tpu_torch.node import Node
+
+        conf = {"node.device": str(self.device), "transport.type": "tcp",
+                "transport.tcp.host": "127.0.0.1", "transport.tcp.port": 0}
+        a = Node(name=self.names[0], settings=dict(conf), data_path=str(self.root / "a"))
+        self.nodes.append(a)
+        a.start(seeds=[])
+        b = Node(name=self.names[1], settings={
+            **conf, "discovery.zen.ping.unicast.hosts": [a.local_node.transport_address]},
+            data_path=str(self.root / "b"))
+        self.nodes.append(b)
+        b.start()
+        self.wait_for(lambda: all(n.cluster_service.state.nodes.size == 2 and
+                                  n.cluster_service.state.nodes.master_id == self.names[0]
+                                  for n in (a, b)), "two nodes under one master")
+        if self.on_card:
+            for n in (a, b):
+                assert n.kernel_checks.get("sparse_score"), (n.name, n.kernel_checks)
+        return a, b
+
+    def wait_for(self, pred, what: str, timeout: float = 60.0) -> None:
+        deadline = time.perf_counter() + timeout
+        while not pred():
+            assert time.perf_counter() < deadline, f"phase {self.phase}: {what} not reached"
+            time.sleep(0.02)
+
+    def owner(self) -> str:
+        t = threading.current_thread().name
+        return next((n for n in self.names if f"[{n}]" in t), "other")
+
+    def resident(self, node) -> int:
+        """The bytes the port counts resident for a node's shards: packed
+        planes (`packed_resident_bytes`) and filter masks."""
+        from elasticsearch_tpu_torch.ops.device_index import (
+            _SegmentFilterMasks, pack_cache_key, packed_resident_bytes)
+
+        out = 0
+        for svc in list(node.indices.indices.values()):
+            for shard in list(svc.shards.values()):
+                for seg in shard.engine.acquire_searcher().segments:
+                    packed = seg._device_cache.get(pack_cache_key(self.device))
+                    if packed is not None:
+                        out += packed_resident_bytes(packed)
+                    out += sum(h.bytes for h in list(seg._device_cache.values())
+                               if isinstance(h, _SegmentFilterMasks))
+        return out
+
+    def allocated(self, held_bytes: int) -> int:
+        """`memory_allocated()` less the bytes a recorder holds (0 off the
+        card)."""
+        import torch
+
+        gc.collect()
+        if not self.on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - held_bytes
+
+    @staticmethod
+    def drained(node) -> bool:
+        st = node.warmer.stats()
+        return st["packs_done"] >= st["packs_scheduled"] and \
+            node.search_batcher.stats()["queue"] == 0
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return {k: dict(v) for k, v in self.by_node.items()}
+
+    @contextmanager
+    def counting(self):
+        """Count, until the block ends, each node's `sparse_score` launches
+        (through the scoring module's current `sparse_score`) and
+        `PendingPull.wait` calls, and every `torch.cuda.synchronize`."""
+        import torch
+
+        from elasticsearch_tpu_torch.common import cudaenv
+        from elasticsearch_tpu_torch.ops import scoring
+
+        inner, orig_wait, orig_sync = (scoring.sparse_score, cudaenv.PendingPull.wait,
+                                       torch.cuda.synchronize)
+
+        def attributed(*args, **kwargs):
+            with self.lock:
+                self.by_node[self.owner()]["launches"] += 1
+            return inner(*args, **kwargs)
+
+        def counted_wait(pull):
+            with self.lock:
+                self.by_node[self.owner()]["waits"] += 1
+            return orig_wait(pull)
+
+        def counted_sync(*a, **k):
+            with self.lock:
+                self.syncs += 1
+            return orig_sync(*a, **k)
+
+        scoring.sparse_score = attributed
+        cudaenv.PendingPull.wait = counted_wait
+        torch.cuda.synchronize = counted_sync
+        try:
+            yield self
+        finally:
+            torch.cuda.synchronize = orig_sync
+            cudaenv.PendingPull.wait = orig_wait
+            scoring.sparse_score = inner
+
+    def close(self) -> None:
+        for n in reversed(self.nodes):
+            n.close()
+
+
 def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
                    n_requests: int = TWO_REQUESTS, n_conn: int = TWO_CONN,
                    n_after: int = TWO_AFTER) -> dict:
@@ -9145,13 +9327,8 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
     either node launched."""
     import http.client
 
-    import torch
-
     from elasticsearch_tpu_torch.common import cudaenv
-    from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.ops import scoring
-    from elasticsearch_tpu_torch.ops.device_index import (
-        _SegmentFilterMasks, pack_cache_key, packed_resident_bytes)
     from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
     from elasticsearch_tpu_torch.search import SERVING_COUNTERS
 
@@ -9172,83 +9349,16 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
         [sys.executable, str(Path(__file__).resolve()), "--two-node-ref-child",
          str(root / "ref_in.json")], cwd=Path(__file__).resolve().parent,
         stdin=subprocess.PIPE, stdout=subprocess.DEVNULL, stderr=ref_log, text=True)
-    conf = {"node.device": str(device), "transport.type": "tcp",
-            "transport.tcp.host": "127.0.0.1", "transport.tcp.port": 0}
-    nodes: list = []
     steps: dict = {}
     recorder = None
     names = ("n26a", "n26b")
-    # per node: sparse_score launches and PendingPull.waits, told apart by
-    # the batcher's drainer thread (`estpu_torch[search_batcher][<node>]`)
-    by_node = {n: dict(launches=0, waits=0) for n in (*names, "other")}
-    syncs = [0]
-    lock = threading.Lock()
-    orig_wait, orig_sync = cudaenv.PendingPull.wait, torch.cuda.synchronize
-
-    def owner() -> str:
-        t = threading.current_thread().name
-        return next((n for n in names if f"[{n}]" in t), "other")
-
-    def counted_wait(self):
-        with lock:
-            by_node[owner()]["waits"] += 1
-        return orig_wait(self)
-
-    def counted_sync(*a, **k):
-        with lock:
-            syncs[0] += 1
-        return orig_sync(*a, **k)
-
-    def wait_for(pred, what: str, timeout: float = 60.0):
-        deadline = time.perf_counter() + timeout
-        while not pred():
-            assert time.perf_counter() < deadline, f"phase 26: {what} not reached"
-            time.sleep(0.02)
-
-    def resident(node) -> int:
-        """The bytes the port counts resident for a node's shards: packed
-        planes (`packed_resident_bytes`) and filter masks."""
-        out = 0
-        for svc in list(node.indices.indices.values()):
-            for shard in list(svc.shards.values()):
-                for seg in shard.engine.acquire_searcher().segments:
-                    packed = seg._device_cache.get(pack_cache_key(device))
-                    if packed is not None:
-                        out += packed_resident_bytes(packed)
-                    out += sum(h.bytes for h in list(seg._device_cache.values())
-                               if isinstance(h, _SegmentFilterMasks))
-        return out
-
-    def allocated() -> int:
-        gc.collect()
-        if not on_card:
-            return 0
-        torch.cuda.synchronize()
-        return torch.cuda.memory_allocated() - recorder.held_bytes
-
-    def drained(node) -> bool:
-        st = node.warmer.stats()
-        return st["packs_done"] >= st["packs_scheduled"] and \
-            node.search_batcher.stats()["queue"] == 0
-
+    pair = NodePair(device, names, root, phase=26)
+    wait_for, drained = pair.wait_for, pair.drained
     try:
         texts, bodies = two_node_inputs(vocab, seed, n_docs, n_requests,
                                         max(n_docs, NODE_DOCS))
         t0 = time.perf_counter()
-        a = Node(name=names[0], settings=dict(conf), data_path=str(root / "a"))
-        nodes.append(a)
-        a.start(seeds=[])
-        b = Node(name=names[1], settings={
-            **conf, "discovery.zen.ping.unicast.hosts": [a.local_node.transport_address]},
-            data_path=str(root / "b"))
-        nodes.append(b)
-        b.start()
-        wait_for(lambda: all(n.cluster_service.state.nodes.size == 2 and
-                             n.cluster_service.state.nodes.master_id == names[0]
-                             for n in (a, b)), "two nodes under one master")
-        if on_card:  # every node ran its own start check on the shared build
-            for n in (a, b):
-                assert n.kernel_checks.get("sparse_score"), (n.name, n.kernel_checks)
+        a, b = pair.start()
         steps["boot"] = time.perf_counter() - t0
 
         # -- the index: created through the node that is not master ----------
@@ -9296,16 +9406,6 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
         steps["reference_wait"] = time.perf_counter() - t0
 
         recorder = LaunchRecorder(scoring, sparse_score, copy_inputs=True)
-        inner = scoring.sparse_score
-
-        def attributed(*args, **kwargs):
-            with lock:
-                by_node[owner()]["launches"] += 1
-            return inner(*args, **kwargs)
-
-        scoring.sparse_score = attributed
-        cudaenv.PendingPull.wait = counted_wait
-        torch.cuda.synchronize = counted_sync
         batches0 = {n.name: n.search_batcher.stats()["launches"] for n in (a, b)}
         errors0 = SERVING_COUNTERS["device_errors"]
         cudaenv.LAUNCHES.reset()
@@ -9316,18 +9416,17 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
                 ports[name], [("POST", "/corpus/_search", body, None) for body in part],
                 max(1, n_conn // 2))
 
-        t0 = time.perf_counter()
-        legs = [threading.Thread(target=leg, args=(names[i], bodies[i::2]))
-                for i in range(2)]
-        for t in legs:
-            t.start()
-        for t in legs:
-            t.join()
-        wall = time.perf_counter() - t0
-        launches = cudaenv.LAUNCHES.snapshot()
-        torch.cuda.synchronize = orig_sync
-        cudaenv.PendingPull.wait = orig_wait
-        scoring.sparse_score = inner
+        with pair.counting():
+            t0 = time.perf_counter()
+            legs = [threading.Thread(target=leg, args=(names[i], bodies[i::2]))
+                    for i in range(2)]
+            for t in legs:
+                t.start()
+            for t in legs:
+                t.join()
+            wall = time.perf_counter() - t0
+            launches = cudaenv.LAUNCHES.snapshot()
+        by_node, syncs = pair.snapshot(), pair.syncs
         batches = {n.name: n.search_batcher.stats()["launches"] - batches0[n.name]
                    for n in (a, b)}
         assert SERVING_COUNTERS["device_errors"] == errors0
@@ -9349,7 +9448,7 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
             assert by_node[name]["waits"] == batches[name] > 0, (name, by_node, batches)
             if on_card:
                 assert by_node[name]["launches"] > 0, (name, by_node)
-        assert syncs[0] == 0 and by_node["other"]["launches"] == 0, (syncs, by_node)
+        assert syncs == 0 and by_node["other"]["launches"] == 0, (syncs, by_node)
         if on_card:
             assert launches.get("sparse_score", 0) == \
                 sum(by_node[n]["launches"] for n in names), (launches, by_node)
@@ -9368,13 +9467,13 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
         a_shards = sorted(placed[names[0]])
         b_shards = sorted(placed[names[1]])
         wait_for(lambda: drained(b), "the second node drained")
-        b_resident = resident(b)
-        before = allocated()
+        b_resident = pair.resident(b)
+        before = pair.allocated(recorder.held_bytes)
         b.close()
         wait_for(lambda: a.cluster_service.state.nodes.size == 1, "the node removed")
         wait_for(lambda: a.client().cluster_health("corpus", timeout=0)["status"] == "green",
                  "green on one node")
-        after = allocated()
+        after = pair.allocated(recorder.held_bytes)
         released = before - after
         rows_after = [(s.shard_id, s.node_id) for s in
                       a.cluster_service.state.routing_table.index("corpus").all_shards()]
@@ -9401,7 +9500,7 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
                    requests_per_s=n_requests / wall, wall_s=wall,
                    p50_ms=float(np.percentile(lat, 50)),
                    p99_ms=float(np.percentile(lat, 99)),
-                   by_node={k: dict(v) for k, v in by_node.items()}, batches=batches,
+                   by_node=by_node, batches=batches,
                    launches=launches, kernel_shapes=shapes, kernel_max_abs_err=max_err,
                    departed=dict(shards=b_shards, resident=b_resident, released=released,
                                  share=(released / b_resident) if b_resident else None),
@@ -9417,7 +9516,7 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
         for name in names:
             log(f"[26]   {name}: {by_node[name]['launches']} sparse_score launches, "
                 f"{batches[name]} batches, {by_node[name]['waits']} PendingPull.wait "
-                f"calls; torch.cuda.synchronize calls {syncs[0]}")
+                f"calls; torch.cuda.synchronize calls {syncs}")
         log(f"[26] `_cluster/stats`, `/_nodes` and `_cat/nodes` name both nodes")
         log(f"[26] {names[1]} closed: shards {b_shards} started again, empty, on "
             f"{names[0]}; resident {b_resident} B, memory_allocated() fell {released} B"
@@ -9433,12 +9532,9 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
             + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
         return out
     finally:
-        torch.cuda.synchronize = orig_sync
-        cudaenv.PendingPull.wait = orig_wait
         if recorder is not None:
             recorder.close()
-        for n in reversed(nodes):
-            n.close()
+        pair.close()
         try:
             child.stdin.close()  # the reference serves until this closes
             child.wait(timeout=30)
@@ -9446,6 +9542,428 @@ def two_node_phase(device, *, vocab: int, seed: int, n_docs: int = TWO_DOCS,
             child.kill()
             child.wait()
         ref_log.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def shard_copies(node, index: str) -> dict:
+    """shard id -> {document id: version} of the node's copy of each shard
+    of `index` (its current view)."""
+    out = {}
+    svc = node.indices.indices.get(index)
+    for sid, shard in list(svc.shards.items()) if svc is not None else []:
+        docs = {}
+        for seg in shard.engine.acquire_searcher().segments:
+            for local in np.flatnonzero(seg.live & seg.parent_mask):
+                docs[str(seg.ids[local])] = int(seg.versions[local])
+        out[sid] = docs
+    return out
+
+
+def same_scores_tie_tolerant(a: dict, b: dict) -> bool:
+    """Two answers of one body over copies whose segment layouts differ:
+    the same total and max score, the page's scores bitwise in order, and
+    the same ids inside every group of equal scores but the page's last
+    (whose ties may go on past the page)."""
+    ha, hb = a["hits"], b["hits"]
+    if ha["total"] != hb["total"] or ha["max_score"] != hb["max_score"]:
+        return False
+    sa = [h["_score"] for h in ha["hits"]]
+    if sa != [h["_score"] for h in hb["hits"]]:
+        return False
+    last = sa[-1] if sa else None
+    group = lambda hits: sorted((h["_score"], h["_id"]) for h in hits  # noqa: E731
+                                if h["_score"] != last)
+    return group(ha["hits"]) == group(hb["hits"])
+
+
+def replica_packs_diff(nodes, index: str, device) -> tuple[dict, int]:
+    """Each shard's segments on the node holding its primary against the
+    node holding its replica, pack by pack: ({shard/gen: differing
+    fields}, segments compared). Holds no pack past its return."""
+    from elasticsearch_tpu_torch.ops.device_index import pack_cache_key
+
+    diffs, compared = {}, 0
+    for sid in sorted(nodes[0].indices.indices[index].shards):
+        segs = {}
+        for n in nodes:
+            shard = n.indices.indices[index].shards[sid]
+            segs[shard.primary] = shard.engine.acquire_searcher().segments
+        assert len(segs[True]) == len(segs[False]), sid
+        for sp, sr in zip(segs[True], segs[False]):
+            pp = sp._device_cache.get(pack_cache_key(device))
+            pr = sr._device_cache.get(pack_cache_key(device))
+            assert pp is not None and pr is not None and pp is not pr, sid
+            bad = packs_equal(pp, pr)
+            if bad:
+                diffs[f"{sid}/{sp.gen}"] = bad
+            compared += 1
+    return diffs, compared
+
+
+def replica_phase(device, *, vocab: int, seed: int, n_docs: int = REP_DOCS,
+                  n_live: int = REP_LIVE_DOCS, n_requests: int = REP_REQUESTS,
+                  n_after: int = REP_AFTER, n_conn: int = REP_CONN,
+                  n_loss: int = REP_LOSS) -> dict:
+    """Phase 27: a replicated cluster on the card. Two port Nodes on
+    `device` in this process over the TCP transport, as in phase 26. Two
+    indexes of 5 shards at 0 replicas: `replicas` (`n_docs` of phase 10's
+    texts, flushed) and `replicas_live` (`n_live` more, flushed). A leg of
+    `n_requests` `bool` bodies on `replicas` (its primaries) is kept; then
+    a writer thread indexes new ids into `replicas_live` one at a time
+    through the first node's HTTP while `number_of_replicas` goes to 1 on
+    both indexes, until the cluster is green (60 s at most). Checked: every
+    replica's recovery (files, bytes, reused, throttle); after a refresh
+    `_count` of `replicas_live` with `_only_node` of either node equals the
+    acknowledged writes, and each shard's copies hold the same ids at the
+    same versions; each `replicas` segment's pack on the replica equals
+    the primary's plane for plane (`packs_equal`: the replica loaded the
+    flushed commit); the `n_requests` bodies again, half with
+    `_only_node:<a>` to a and half with `_only_node:<b>` to b (each node
+    reading its mix of primaries and replicas), each hits JSON bitwise the
+    kept leg's; `n_after` bodies on `replicas_live` to both nodes, each
+    node's copies only, scores bitwise and hits tie-tolerant between the
+    nodes (the replicas replayed translog ops, so their segment layouts
+    differ); per node, `sparse_score` launches == batches ==
+    `PendingPull.wait` calls, and no `torch.cuda.synchronize`. Then the
+    second node is lost while `n_loss` bodies run against the first: every
+    query phase the first node sends it fails (a disconnect injected on
+    the first node's transport), so the shards the burst routed there fail
+    over to the first node's copies (at least one, counted), and it
+    closes; every answer `_shards.failed` 0 and bitwise the kept leg; the
+    first node's promoted primaries answer `n_loss` bodies bitwise too;
+    `_count` equals the acknowledged writes; `memory_allocated()` falls
+    0.99-1.01 of the closed node's resident bytes. The kernel bitwise
+    against its plain version at every shape either node launched."""
+    import http.client
+
+    from elasticsearch_tpu_torch.actions import A_QUERY_PHASE
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+    from elasticsearch_tpu_torch.transport.faults import FaultPolicy
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_rep_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    names = ("n27a", "n27b")
+    steps: dict = {}
+    recorder = None
+    pair = NodePair(device, names, root, phase=27)
+    wait_for, drained = pair.wait_for, pair.drained
+    stop_writer = threading.Event()
+    writer = None
+    policy = None
+
+    def done(step: str, t0: float):
+        steps[step] = time.perf_counter() - t0
+        log(f"[27] {step} {steps[step]:.1f} s")
+
+    def health(node, index) -> str:
+        return node.client().cluster_health(index, timeout=0)["status"]
+
+    def searches(port, index, part, pref=None):
+        path = f"/{index}/_search" + (f"?preference={pref}" if pref else "")
+        return http_requests(port, [("POST", path, body, None) for body in part],
+                             max(1, min(n_conn, len(part))))
+
+    try:
+        texts, bodies = two_node_inputs(vocab, seed, max(n_docs, NODE_DOCS),
+                                        n_requests, max(n_docs, NODE_DOCS))
+        assert len(texts) >= n_docs + n_live + 1000, len(texts)
+        t0 = time.perf_counter()
+        a, b = pair.start()
+        ports = {n.name: n.start_http(0).port for n in (a, b)}
+        done("boot", t0)
+
+        # -- both indexes at 0 replicas, flushed -----------------------------
+        t0 = time.perf_counter()
+        two_node_fill(b.client(), texts[:n_docs], index="replicas")
+        two_node_fill(b.client(), texts[n_docs:n_docs + n_live], index="replicas_live")
+        for index in ("replicas", "replicas_live"):
+            assert a.client().flush(index)["_shards"]["failed"] == 0
+        done("index_bulk_flush", t0)
+
+        # -- the kept leg: every body over the primaries ------------------------
+        t0 = time.perf_counter()
+        kept, _l, _w = searches(ports[names[0]], "replicas", bodies)
+        for i, (st, r) in enumerate(kept):
+            assert st == 200 and r["_shards"] == SHARDS_OK, (i, r.get("_shards"))
+        done("kept_leg", t0)
+
+        # -- a writer thread while both indexes go to 1 replica ----------------
+        t0 = time.perf_counter()
+        acked: dict = {}
+        errors: list = []
+        extra = texts[n_docs + n_live:]
+
+        def write():
+            conn = http.client.HTTPConnection("127.0.0.1", ports[names[0]], timeout=60)
+            try:
+                j = 0
+                while not stop_writer.is_set() and j < len(extra):
+                    st, r = http_json(conn, "PUT", f"/replicas_live/doc/w{j}",
+                                      {"body": extra[j]})
+                    if st == 201:
+                        acked[f"w{j}"] = r["_version"]
+                    else:
+                        errors.append((st, r))
+                    j += 1
+            finally:
+                conn.close()
+
+        writer = threading.Thread(target=write, name="phase27-writer", daemon=True)
+        writer.start()
+        wait_for(lambda: len(acked) >= 20 or errors, "the writer's first writes")
+        conn = http.client.HTTPConnection("127.0.0.1", ports[names[0]], timeout=120)
+        st, r = http_json(conn, "PUT", "/replicas,replicas_live/_settings",
+                          {"number_of_replicas": 1})
+        conn.close()
+        assert st == 200 and r.get("acknowledged"), r
+        at_raise = len(acked)
+        wait_for(lambda: health(a, None) == "green", "green", timeout=60)
+        stop_writer.set()
+        writer.join(timeout=30)
+        assert not writer.is_alive() and not errors, errors[:2]
+        done("recovery_under_writes", t0)
+        recoveries = {}
+        for n in (a, b):
+            for index, svc in n.indices.indices.items():
+                for sid, shard in svc.shards.items():
+                    if not shard.primary:
+                        recoveries[f"{index}/{sid}@{n.name}"] = dict(shard.recovery_info)
+        assert len(recoveries) == 2 * NODE_SHARDS, recoveries
+        assert all(r["files"] > 0 and r["bytes"] > 0 for r in recoveries.values()), \
+            recoveries
+
+        # -- every acknowledged write on both copies ---------------------------
+        t0 = time.perf_counter()
+        for index in ("replicas", "replicas_live"):
+            assert a.client().refresh(index)["_shards"]["failed"] == 0
+        counts = {n: a.client().search("replicas_live", {"size": 0},
+                                       preference=f"_only_node:{n}")["hits"]["total"]
+                  for n in names}
+        assert counts[names[0]] == counts[names[1]] == n_live + len(acked), \
+            (counts, n_live, len(acked))
+        copies = {n.name: shard_copies(n, "replicas_live") for n in (a, b)}
+        assert sorted(copies[names[0]]) == sorted(copies[names[1]]) == \
+            list(range(NODE_SHARDS))
+        for sid in range(NODE_SHARDS):
+            assert copies[names[0]][sid] == copies[names[1]][sid], sid
+        held = {k: v for docs in copies[names[0]].values() for k, v in docs.items()}
+        assert all(held.get(k) == v for k, v in acked.items())
+        placed = {n.name: {index: sorted(
+            (sid, "p" if sh.primary else "r") for sid, sh in svc.shards.items())
+            for index, svc in n.indices.indices.items()} for n in (a, b)}
+        for n in names:  # each node reads a mix of primaries and replicas
+            kinds = {k for _sid, k in placed[n]["replicas"]}
+            assert kinds == {"p", "r"}, placed
+        done("writes_checked", t0)
+
+        # -- warm the replicas (a copy packs at its first search), then the
+        # packs of the flushed commit, plane for plane -------------------------
+        t0 = time.perf_counter()
+        for n in names:
+            for index in ("replicas", "replicas_live"):
+                warm, _l, _w = searches(ports[n], index, bodies[:TWO_WARM],
+                                        pref=f"_only_node:{n}")
+                assert all(st == 200 for st, _r in warm)
+        for n in (a, b):
+            wait_for(lambda n=n: drained(n), f"{n.name}'s warmer drained")
+        pack_diffs, pack_segments = replica_packs_diff((a, b), "replicas", device)
+        assert pack_segments >= NODE_SHARDS and not pack_diffs, pack_diffs
+        resident_by = {n.name: pair.resident(n) for n in (a, b)}
+        done("warm_and_packs", t0)
+
+        # -- each node's copies: bitwise the kept leg; after the writes,
+        # scores bitwise and hits tie-tolerant between the nodes ---------------
+        recorder = LaunchRecorder(scoring, sparse_score, copy_inputs=True)
+        batches0 = {n.name: n.search_batcher.stats()["launches"] for n in (a, b)}
+        errors0 = SERVING_COUNTERS["device_errors"]
+        cudaenv.LAUNCHES.reset()
+        results: dict = {}
+
+        def leg(name, index, part):
+            results[(name, index)] = searches(ports[name], index, part,
+                                              pref=f"_only_node:{name}")
+
+        def legs(args):
+            threads = [threading.Thread(target=leg, args=a) for a in args]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        with pair.counting():
+            t0 = time.perf_counter()
+            legs([(names[i], "replicas", bodies[i::2]) for i in range(2)])
+            wall = time.perf_counter() - t0
+            # the `replicas` leg's own counts: one segment a shard copy, so
+            # one launch a batch (the `replicas_live` copies hold several
+            # segments, a launch each)
+            kept_counts = pair.snapshot()
+            kept_batches = {n.name: n.search_batcher.stats()["launches"] - batches0[n.name]
+                            for n in (a, b)}
+            kept_launches = cudaenv.LAUNCHES.snapshot()
+            t0 = time.perf_counter()
+            legs([(n, "replicas_live", bodies[:n_after]) for n in names])
+            wall_after = time.perf_counter() - t0
+            launches = cudaenv.LAUNCHES.snapshot()
+        by_node, syncs = pair.snapshot(), pair.syncs
+        batches = {n.name: n.search_batcher.stats()["launches"] - batches0[n.name]
+                   for n in (a, b)}
+        assert SERVING_COUNTERS["device_errors"] == errors0
+        got = [None] * n_requests
+        for i, name in enumerate(names):
+            got[i::2] = results[(name, "replicas")][0]
+        for i, ((st, r), (_kst, k)) in enumerate(zip(got, kept)):
+            assert st == 200 and r["_shards"] == SHARDS_OK, (i, r.get("_shards"))
+            assert r["hits"] == k["hits"], f"request {i}: hits differ from the kept leg"
+        live_a, live_b = (results[(n, "replicas_live")][0] for n in names)
+        for i, ((sa, ra), (sb, rb)) in enumerate(zip(live_a, live_b)):
+            assert sa == sb == 200 and ra["_shards"] == rb["_shards"] == SHARDS_OK, i
+            assert same_scores_tie_tolerant(ra, rb), f"live request {i}"
+        for name in names:
+            assert kept_counts[name]["waits"] == kept_batches[name] > 0, \
+                (name, kept_counts, kept_batches)
+            assert by_node[name]["waits"] == batches[name], (name, by_node, batches)
+            if on_card:
+                assert kept_counts[name]["launches"] == kept_batches[name], \
+                    (name, kept_counts, kept_batches)
+                assert by_node[name]["launches"] >= batches[name], (name, by_node, batches)
+        assert syncs == 0 and by_node["other"]["launches"] == 0, (syncs, by_node)
+        if on_card:
+            assert kept_launches.get("sparse_score", 0) == \
+                sum(kept_counts[n]["launches"] for n in names), (kept_launches, kept_counts)
+            assert launches.get("sparse_score", 0) == \
+                sum(by_node[n]["launches"] for n in names), (launches, by_node)
+        lat = np.concatenate([results[(n, "replicas")][1] for n in names])
+        steps["searches"] = wall + wall_after
+        log(f"[27] searches {steps['searches']:.1f} s")
+
+        t0 = time.perf_counter()
+        max_err = check_shapes(recorder.shapes)
+        shapes = [dict(Qb=int(args[0].shape[0]), TB=int(args[0].shape[1]),
+                       tf=str(args[10].dtype), k=kwargs["k"], launches=n)
+                  for _key, (args, kwargs, n) in recorder.shapes.items()]
+        done("kernel_checks", t0)
+
+        # -- the second node is lost under a burst on the first: first every
+        # query phase the first node sends it fails (a disconnect injected
+        # on the first node's transport), so each shard the burst routed
+        # there fails over to the first node's copy; then it leaves and
+        # the master promotes the first node's replicas -----------------------
+        t0 = time.perf_counter()
+        wait_for(lambda: drained(b), "the second node drained")
+        b_resident = pair.resident(b)
+        before = pair.allocated(recorder.held_bytes)
+        burst: dict = {}
+
+        def run_burst():
+            burst["out"] = searches(ports[names[0]], "replicas", bodies[:n_loss])
+
+        policy = FaultPolicy(seed).install(a.transport)
+        failed_over = policy.disconnect(action=A_QUERY_PHASE,
+                                        node=b.local_node.transport_address)
+        bt = threading.Thread(target=run_burst, name="phase27-burst")
+        bt.start()
+        wait_for(lambda: failed_over.hits >= 1 or not bt.is_alive(),
+                 "a query phase failed over")
+        b.close()
+        bt.join()
+        FaultPolicy.uninstall(a.transport)
+        assert failed_over.hits >= 1, "no query phase failed over"
+        wait_for(lambda: a.cluster_service.state.nodes.size == 1, "the node removed")
+        wait_for(lambda: health(a, "replicas") == "yellow" and
+                 health(a, "replicas_live") == "yellow", "every primary on one node")
+        for i, (st, r) in enumerate(burst["out"][0]):
+            assert st == 200 and r["_shards"]["failed"] == 0, (i, r.get("_shards"))
+            assert r["hits"] == kept[i][1]["hits"], f"burst request {i}"
+        after = pair.allocated(recorder.held_bytes)
+        released = before - after
+        if on_card:
+            assert 0.99 * b_resident <= released <= 1.01 * b_resident, \
+                (b_resident, before, after)
+        rows = [(s.shard_id, s.primary, s.node_id, s.state) for s in
+                a.cluster_service.state.routing_table.index("replicas").all_shards()]
+        assert sorted(r for r in rows if r[1]) == \
+            [(sid, True, names[0], "STARTED") for sid in range(NODE_SHARDS)], rows
+        promoted, _l, _w = searches(ports[names[0]], "replicas", bodies[:n_loss])
+        for i, (st, r) in enumerate(promoted):
+            assert st == 200 and r["_shards"] == SHARDS_OK, (i, r.get("_shards"))
+            assert r["hits"] == kept[i][1]["hits"], f"request {i} after the loss"
+        count_after = a.client().count("replicas_live")["count"]
+        assert count_after == n_live + len(acked), (count_after, len(acked))
+        done("node_loss", t0)
+
+        out = dict(card=card, docs=n_docs, live_docs=n_live, writes=len(acked),
+                   writes_at_raise=at_raise, recoveries=recoveries, placed=placed,
+                   pack_segments=pack_segments, resident=resident_by,
+                   requests=n_requests, requests_per_s=n_requests / wall,
+                   p50_ms=float(np.percentile(lat, 50)),
+                   p99_ms=float(np.percentile(lat, 99)),
+                   by_node=by_node, batches=batches,
+                   kept_by_node=kept_counts, kept_batches=kept_batches,
+                   launches=launches, kernel_shapes=shapes, kernel_max_abs_err=max_err,
+                   departed=dict(resident=b_resident, released=released,
+                                 share=(released / b_resident) if b_resident else None,
+                                 failed_over=failed_over.hits,
+                                 close_drain=b.close_drain),
+                   steps_s=steps)
+        log(f"[27] two nodes on {device} over TCP, master {names[0]}: `replicas` "
+            f"{n_docs} docs and `replicas_live` {n_live}, 5 shards each, flushed, "
+            f"raised to 1 replica under {len(acked)} single-document writes "
+            f"({at_raise} before the raise); green in "
+            f"{steps['recovery_under_writes']:.1f} s; {card}")
+        for key, rec in sorted(recoveries.items()):
+            log(f"[27]   recovery {key}: {rec['files']} files, {rec['bytes']} B, "
+                f"{rec['reused']} reused, throttled {rec['throttle_ms']} ms")
+        log(f"[27] `replicas_live` `_count` {counts[names[0]]} on either node's copies "
+            f"== {n_live} bulked + {len(acked)} acknowledged; each shard's copies hold "
+            f"the same ids at the same versions")
+        log(f"[27] `replicas`: {pack_segments} segments' replica packs == the "
+            f"primary's (plane for plane); resident {names[0]} {resident_by[names[0]]} B, "
+            f"{names[1]} {resident_by[names[1]]} B; placement {placed}")
+        log(f"[27] {n_requests} `bool` bodies, half `_only_node` on each node, from "
+            f"{n_conn} connections: {out['requests_per_s']:.1f} requests/s, p50 "
+            f"{out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms; every hits JSON == the "
+            f"kept leg's (bitwise); {n_after} bodies on `replicas_live` per node: scores "
+            f"bitwise, hits tie-tolerant between the nodes; {card}")
+        for name in names:
+            log(f"[27]   {name}: `replicas` leg {kept_counts[name]['launches']} "
+                f"sparse_score launches, {kept_batches[name]} batches, "
+                f"{kept_counts[name]['waits']} PendingPull.wait calls; both legs "
+                f"{by_node[name]['launches']} launches, {batches[name]} batches, "
+                f"{by_node[name]['waits']} waits; torch.cuda.synchronize calls {syncs}")
+        log(f"[27] {names[1]} lost under {n_loss} bodies on {names[0]}: "
+            f"{failed_over.hits} query phases failed over from it to {names[0]}'s "
+            f"copies, then it left (its close waited {b.close_drain['waited_s']:.3f} s "
+            f"for {b.close_drain['contexts']} pinned contexts); every "
+            f"`_shards.failed` 0, hits == the kept leg's; promoted primaries answer "
+            f"{n_loss} more bitwise; `_count` {count_after}; resident {b_resident} B, "
+            f"memory_allocated() fell {released} B"
+            + (f" ({released / b_resident:.4f} of it)" if b_resident else ""))
+        for sh in shapes:
+            log(f"[27]   sparse_score Qb {sh['Qb']} TB {sh['TB']} {sh['tf']} k {sh['k']}: "
+                f"{sh['launches']} launches")
+        log(f"[27] sparse_score == plain (bitwise) at all {len(shapes)} shapes phase 27 "
+            f"launched; max abs err {max_err}")
+        out["wall_phase_s"] = time.perf_counter() - t_phase
+        log(f"[27] phase 27 took {out['wall_phase_s']:.1f} s; by step (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+        return out
+    finally:
+        stop_writer.set()
+        if writer is not None:
+            writer.join(timeout=30)
+        if policy is not None:
+            FaultPolicy.uninstall(pair.nodes[0].transport)
+        if recorder is not None:
+            recorder.close()
+        pair.close()
         shutil.rmtree(root, ignore_errors=True)
 
 

@@ -15,13 +15,21 @@ package's `actions.py`), in the reference's interaction patterns:
   close drops the index's routing and blocks it (reads and writes answer
   403); an open gives it fresh routing, and its shards recover from their
   stores;
-- replication, primary only (a port cluster leaves every replica
-  unassigned until replicas and recovery, ROADMAP A5c): `index_doc`
-  routes a document to its primary by djb2, with its `timestamp` and
-  `ttl`, through an alias that names one index; the primary first checks the write consistency (`quorum` by default: more
-  than half of a group of more than two copies must be active, else 503);
-  `bulk` groups the ops per shard and sends every group at once (no
-  consistency check, as in the JAX package);
+- replication: `index_doc` routes a document to its primary by djb2,
+  with its `timestamp` and `ttl`, through an alias that names one index;
+  the primary first checks the write consistency (`quorum` by default:
+  more than half of a group of more than two copies must be active, else
+  503), writes, then sends the op to every assigned replica at once and
+  waits for their acks (`_replicate`: an index at the primary's version as
+  an external one, a delete without a version check, on each node's
+  `replica` pool); a replica that fails the op past `retry_policy`'s
+  retries is reported shard-failed to the master, which routes it out and
+  recovers it again. `bulk` groups the ops per shard and sends every group
+  at once (no consistency check, as in the JAX package), retrying once
+  against a fresh state a group whose primary had no node; the shard's
+  primary then sends each applied item to its replicas in order
+  (`_replicate_bulk`). The update API and delete-by-query replicate
+  through these legs and the broadcast;
 - the update API (`update_doc`): get → modify → index on the coordinator,
   with the read version as a compare-and-set and `retry_on_conflict`
   retries; `doc` merges deep, `upsert` / `doc_as_upsert` create, a
@@ -31,7 +39,11 @@ package's `actions.py`), in the reference's interaction patterns:
   which it never holds, so nesting cannot deadlock. No lock is held
   across either round trip;
 - scatter-gather search, `query_then_fetch`: one query phase per shard, all
-  in flight at once over the transport; each runs `execute_query_phase` on
+  in flight at once over the transport, each a failover chain across the
+  group's active copies (`_query_shard_async`: a timer bounds each
+  attempt, a failed attempt or a copy whose node left sends the next
+  copy, and every failed attempt is a `_shards.failures` entry when no
+  copy answers); each runs `execute_query_phase` on
   the shard's point-in-time searcher through the node's one DeviceBatcher
   onto the card, and pins that context for the fetch. The coordinator
   reduces the shards' top-k (`sort_docs`), fetches the winners from the
@@ -43,8 +55,9 @@ package's `actions.py`), in the reference's interaction patterns:
   `collect_dfs`), all in flight at once; the coordinator sums the shards'
   statistics (`aggregate_dfs`) and sends them with every query phase, whose
   context weighs its clauses with them (`_shard_ctx(dfs=)`) and launches
-  outside the batcher (search/service.py). A shard whose DFS phase fails
-  is left out of the query phase and reported in `_shards.failures`;
+  outside the batcher (search/service.py). A DFS phase fails over across
+  the group's copies; a shard no copy answers is left out of the query
+  phase and reported in `_shards.failures`;
 - the shard request cache (search/request_cache.py, `node.request_cache`):
   a cache-eligible body's query phase first looks up (index, shard, view
   version, fingerprint) and a hit answers the stored partial with no
@@ -127,9 +140,8 @@ The TransportClient's surface (client.py): `_s_client_nodes` answers the
 cluster's node list, and `_s_client_exec` runs one whitelisted Client
 method on this node, coordinated as a REST request would be.
 
-Not in this slice: the SPMD mesh branch, cache-affinity routing, failover
-across copies and hedging,
-replica writes (of index, delete, update and delete-by-query alike), and
+Not in this slice: the SPMD mesh branch, adaptive replica selection,
+cache-affinity routing and hedging (the second half of ROADMAP A5c), and
 the alias routing values (stored and rendered; no write or search reads
 them, as in the JAX package)."""
 
@@ -141,6 +153,8 @@ import pickle
 import threading
 import time
 import uuid
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeoutError
 from dataclasses import replace
 
 import numpy as np
@@ -169,9 +183,12 @@ from .common.errors import (
     IllegalArgumentError,
     IndexAlreadyExistsError,
     IndexMissingError,
+    IndexShardMissingError,
     IndexWarmerMissingError,
     MasterNotDiscoveredError,
+    NoShardAvailableError,
     ProfileTimingError,
+    ReceiveTimeoutError,
     RejectedExecutionError,
     RoutingMissingError,
     SearchEngineError,
@@ -182,6 +199,7 @@ from .common.errors import (
 from .common.logging import get_logger
 from .common.metrics import HistogramMetric
 from .common.names import is_pattern, name_matches
+from .common.retry import RetryPolicy
 from .common.settings import Settings, validate_index_name
 from .common.stream import StreamInput, StreamOutput
 from .common.units import parse_time
@@ -207,7 +225,7 @@ from .search.service import (
     execute_query_phase,
     parse_search_body,
 )
-from .transport import fut_result
+from .transport import complete_fut, fut_result
 
 A_CREATE_INDEX = "indices:admin/create"
 A_DELETE_INDEX = "indices:admin/delete"
@@ -226,8 +244,10 @@ A_REROUTE = "cluster:admin/reroute"
 A_SHUTDOWN_NODE = "cluster:admin/nodes/shutdown"
 A_MAPPING_UPDATED = "internal:cluster/mapping_updated"
 A_INDEX_PRIMARY = "indices:data/write/index[p]"
+A_INDEX_REPLICA = "indices:data/write/index[r]"
 A_BULK_SHARD = "indices:data/write/bulk[s]"
 A_DELETE_PRIMARY = "indices:data/write/delete[p]"
+A_DELETE_REPLICA = "indices:data/write/delete[r]"
 A_GET = "indices:data/read/get[s]"
 A_TERMVECTOR = "indices:data/read/termvector[s]"
 A_QUERY_PHASE = "indices:data/read/search[phase/query]"
@@ -236,9 +256,8 @@ A_FREE_CONTEXT = "indices:data/read/search[free-context]"
 A_DFS_PHASE = "indices:data/read/search[phase/dfs]"
 A_SHARD_BROADCAST = "indices:admin/broadcast[s]"
 
-# how long the coordinator waits for a shard phase when the request set no
-# budget of its own
-QUERY_PHASE_TIMEOUT = 60.0
+# how long the coordinator waits for one DFS attempt when the request set
+# no budget of its own (a query attempt's is QUERY_ATTEMPT_TIMEOUT)
 DFS_PHASE_TIMEOUT = 30.0
 DFS_SEARCH_TYPES = ("dfs_query_then_fetch", "dfs_query_and_fetch")
 
@@ -291,6 +310,11 @@ class ActionModule:
         self._pinned: dict[int, tuple] = {}  # cid -> (expiry, index, shard, ctx)
         self._pinned_lock = threading.Lock()
         self._pinned_next = 1
+        # the write path's retry schedule (the replica fan-out, shard-failed
+        # reports): transient transport failures back off with jitter, and
+        # exhaustion is reported to the master, never swallowed (tests swap
+        # in a faster policy)
+        self.retry_policy = RetryPolicy(max_attempts=3, base_s=0.05, cap_s=1.0)
         # deadline-aware admission: a search whose budget cannot cover one
         # expected shard phase is rejected (429) before the fan-out
         self.admission = SearchAdmissionController()
@@ -321,8 +345,10 @@ class ActionModule:
             t.register_handler(action, self._master_wrap(action, fn))
         # data-path actions, each on its named pool
         t.register_handler(A_INDEX_PRIMARY, self._p_index, executor="index")
+        t.register_handler(A_INDEX_REPLICA, self._r_index, executor="replica")
         t.register_handler(A_BULK_SHARD, self._p_bulk_shard, executor="bulk")
         t.register_handler(A_DELETE_PRIMARY, self._p_delete, executor="index")
+        t.register_handler(A_DELETE_REPLICA, self._r_delete, executor="replica")
         t.register_handler(A_GET, self._s_get, executor="get")
         t.register_handler(A_TERMVECTOR, self._s_termvector, executor="get")
         t.register_handler(A_QUERY_PHASE, self._s_query_phase, executor="search")
@@ -767,10 +793,9 @@ class ActionModule:
         (an active copy on `from_node` goes INITIALIZING on `to_node`),
         `cancel` (the replica on `node` goes UNASSIGNED), `allocate` and
         `allocate_replica` (the group's first unassigned replica goes
-        INITIALIZING on `node`); then the allocation's own reroute. A
-        command that would place a replica is refused when a decider
-        answers NO (`_refuse_unless_allowed`): a port node allocates no
-        replica until peer recovery is ported (ROADMAP A5c)."""
+        INITIALIZING on `node`, and recovers from its primary); then the
+        allocation's own reroute. Each command applies as given, as on the
+        JAX node."""
         commands = (request.get("body") or {}).get("commands", [])
 
         def update(state: ClusterState) -> ClusterState:
@@ -783,9 +808,6 @@ class ActionModule:
                 if cmd in ("move",):
                     for i, s in enumerate(shards):
                         if s.node_id == spec["from_node"] and s.active:
-                            if not s.primary:
-                                self._refuse_unless_allowed(cmd, state, s,
-                                                            spec["to_node"])
                             shards[i] = replace(s, node_id=spec["to_node"],
                                                 state="INITIALIZING")
                 elif cmd in ("cancel",):
@@ -795,7 +817,6 @@ class ActionModule:
                 elif cmd in ("allocate", "allocate_replica"):
                     for i, s in enumerate(shards):
                         if not s.assigned and not s.primary:
-                            self._refuse_unless_allowed(cmd, state, s, spec["node"])
                             shards[i] = replace(s, node_id=spec["node"],
                                                 state="INITIALIZING")
                             break
@@ -807,16 +828,6 @@ class ActionModule:
 
         new_state = self._submit("reroute", update, priority=URGENT)
         return {"acknowledged": True, "state_version": new_state.version}
-
-    def _refuse_unless_allowed(self, cmd: str, state: ClusterState,
-                               shard: ShardRouting, node_id: str):
-        """An explicit command places a replica only where no decider
-        answers NO; else it is refused with their explanations."""
-        noes = self.allocation.explain_no(state, shard, node_id)
-        if noes:
-            raise IllegalArgumentError(
-                f"[{cmd}] allocation of [{shard.index}][{shard.shard_id}] on node "
-                f"[{node_id}] is not allowed, reason: {'; '.join(noes)}")
 
     def _m_shard_started(self, request, channel):
         shard = ShardRouting.from_dict(request["shard"])
@@ -1011,11 +1022,29 @@ class ActionModule:
                      "mapping": mapper.to_mapping()}, timeout=10.0)
             except SearchEngineError as e:
                 self.logger.warning("mapping update propagation failed: %s", e)
+        self._replicate(index, shard_id, A_INDEX_REPLICA,
+                        {**request, "version": version, "version_type": "external"})
         if request.get("refresh"):
             shard.engine.refresh()
         shard.engine.maybe_flush()
         return {"_index": index, "_type": request["type"], "_id": request["id"],
                 "_version": version, "created": created}
+
+    def _r_index(self, request, channel):
+        """A replica's index: the primary's version, applied as an external
+        one (a copy that already holds a newer version keeps it); the op's
+        parent, timestamp and ttl are not applied, as on the JAX node."""
+        self._register_percolator(request["index"], request)
+        shard = self.indices.index_service(request["index"]).shard(request["shard"])
+        try:
+            shard.engine.index(request["type"], request["id"], request["source"],
+                               routing=request.get("routing"),
+                               version=request.get("version"), version_type="external")
+        except VersionConflictError:
+            pass  # the replica already holds a newer copy
+        if request.get("refresh"):
+            shard.engine.refresh()
+        return {"ok": True}
 
     def _resolve_index_write(self, index: str, create: bool = False) -> str:
         """A write names one concrete index, or an alias (or wildcard) that
@@ -1053,10 +1082,83 @@ class ActionModule:
         version, found = shard.engine.delete(
             request["type"], request["id"], version=request.get("version"),
             version_type=request.get("version_type", "internal"))
+        self._replicate(index, shard_id, A_DELETE_REPLICA, dict(request))
         if request.get("refresh"):
             shard.engine.refresh()
         return {"_index": index, "_type": request["type"], "_id": request["id"],
                 "_version": version, "found": found}
+
+    def _r_delete(self, request, channel):
+        """A replica's delete, with no version check (the JAX node's)."""
+        shard = self.indices.index_service(request["index"]).shard(request["shard"])
+        try:
+            shard.engine.delete(request["type"], request["id"])
+        except SearchEngineError:
+            pass
+        return {"ok": True}
+
+    # how long one replica op may take, its retries included
+    REPLICA_OP_TIMEOUT = 30.0
+
+    def _replicate(self, index: str, shard_id: int, action: str, request: dict):
+        """Send the op to every assigned replica at once and wait for every
+        ack (synchronous replication). Transient failures retry through
+        `retry_policy`; a copy that exhausts them is reported shard-failed
+        to the master, which routes it out and recovers it again. A copy
+        its node has not created yet (the node has not applied the state
+        that assigned it) answers that it is missing, and is left alone:
+        its peer recovery starts after this op reached the primary, so it
+        copies the op. The JAX node reports such a copy failed and recovers
+        it again."""
+        state = self.cluster_service.state
+        group = state.routing_table.index(index).shard(shard_id)
+        futs = []
+        for replica in group.replicas():
+            if not replica.assigned:
+                continue
+            node = state.nodes.get(replica.node_id)
+            if node is None:
+                continue
+            futs.append((replica, node, self.transport.send_request(node, action, request)))
+        for replica, node, fut in futs:
+            try:
+                self._await_replica_op(node, action, request, fut)
+            except (IndexMissingError, IndexShardMissingError):
+                pass  # not created there yet: its recovery copies this op
+            except SearchEngineError as e:
+                self._report_replica_failed(index, shard_id, replica, e)
+
+    def _await_replica_op(self, node, action: str, request: dict, first_fut=None):
+        """One replica's ack: the first attempt may be in flight already,
+        retries re-send with backoff, and the whole sequence shares one
+        REPLICA_OP_TIMEOUT deadline."""
+        deadline = Deadline.after(self.REPLICA_OP_TIMEOUT)
+        pending = [first_fut] if first_fut is not None else []
+
+        def one_attempt():
+            fut = pending.pop() if pending else \
+                self.transport.send_request(node, action, request)
+            return fut_result(fut, deadline.clamp(self.REPLICA_OP_TIMEOUT))
+
+        return self.retry_policy.call(one_attempt, deadline=deadline,
+                                      describe=f"replica op [{action}]")
+
+    def _report_replica_failed(self, index: str, shard_id: int, replica, error):
+        """Mark a replica copy failed on the master; the report retries, and
+        if even that gives up the failure is logged at error level."""
+        self.logger.warning("replica [%s][%d] on %s failed: %s — reporting "
+                            "shard-failed", index, shard_id, replica.node_id, error)
+        try:
+            self.retry_policy.call(
+                lambda: self.transport.submit_request(
+                    self.node.local_node, ACTION_SHARD_FAILED,
+                    {"shard": replica.to_dict(), "reason": str(error)}, timeout=10.0),
+                deadline=Deadline.after(20.0), describe="shard-failed report")
+        except SearchEngineError as e:
+            self.logger.error(
+                "could not report shard-failed for [%s][%d] on %s (%s); the copy "
+                "may serve stale reads until the next cluster-state change or "
+                "recovery", index, shard_id, replica.node_id, e)
 
     def update_doc(self, index: str, type_name: str, doc_id: str, body: dict,
                    routing=None, retry_on_conflict: int = 0, parent=None,
@@ -1177,15 +1279,32 @@ class ActionModule:
                 "version": meta.get("_version")}))
         results: dict[int, dict] = {}
         futs = []
-        for (index, shard_id), items in by_shard.items():
-            node = self._primary_node(state, index, shard_id)
-            if node is None:
-                for i, item in items:
-                    results[i] = {"error": "primary unavailable", "status": 503, **item}
-                continue
+
+        def dispatch(node, index, shard_id, items):
             futs.append((items, self.transport.send_request(node, A_BULK_SHARD, {
                 "index": index, "shard": shard_id, "refresh": refresh,
                 "items": [item for _, item in items]})))
+
+        unrouted = []
+        for (index, shard_id), items in by_shard.items():
+            node = self._primary_node(state, index, shard_id)
+            if node is None:
+                unrouted.append((index, shard_id, items))
+            else:
+                dispatch(node, index, shard_id, items)
+        if unrouted:
+            # one retry against a fresh state: a primary with no node is
+            # usually mid-failover, and the next state names its new home
+            time.sleep(0.1)
+            state = self.cluster_service.state
+            for index, shard_id, items in unrouted:
+                node = self._primary_node(state, index, shard_id)
+                if node is None:
+                    for i, item in items:
+                        results[i] = {"error": "primary unavailable", "status": 503,
+                                      **item}
+                else:
+                    dispatch(node, index, shard_id, items)
         for items, fut in futs:
             try:
                 resp = fut_result(fut, 60.0)
@@ -1231,10 +1350,49 @@ class ActionModule:
             except SearchEngineError as e:
                 out.append({**base, "error": e.to_dict(), "status": e.status,
                             "op": op})
+        self._replicate_bulk(index, shard_id, request["items"], out)
         if request.get("refresh"):
             shard.engine.refresh()
         shard.engine.maybe_flush()
         return {"items": out}
+
+    def _replicate_bulk(self, index: str, shard_id: int, items: list, out: list):
+        """The replica leg of a shard's bulk: each item the primary applied
+        goes to every assigned replica as its own op, in order (an index,
+        create or update as an index at the primary's version; an update's
+        own index round trip replicated it already, so its copy here is a
+        version no-op, as on the JAX node). A replica that exhausts its
+        retries is reported shard-failed and gets no further op: its
+        recovery resyncs the whole copy."""
+        state = self.cluster_service.state
+        group = state.routing_table.index(index).shard(shard_id)
+        for replica in group.replicas():
+            if not replica.assigned:
+                continue
+            node = state.nodes.get(replica.node_id)
+            if node is None:
+                continue
+            for item, r in zip(items, out):
+                if "error" in r:
+                    continue
+                base = {"index": index, "shard": shard_id, "type": item["type"],
+                        "id": item["id"]}
+                if item.get("op") in ("index", "create", "update"):
+                    action, req = A_INDEX_REPLICA, {
+                        **base, "source": item.get("source") or {},
+                        "routing": item.get("routing"), "version": r.get("_version"),
+                        "version_type": "external"}
+                elif item.get("op") == "delete":
+                    action, req = A_DELETE_REPLICA, base
+                else:
+                    continue
+                try:
+                    self._await_replica_op(node, action, req)
+                except (IndexMissingError, IndexShardMissingError):
+                    break  # not created there yet: its recovery copies these ops
+                except SearchEngineError as e:
+                    self._report_replica_failed(index, shard_id, replica, e)
+                    break
 
     # ================= scatter-gather search =================
     def search(self, index_expr, body: dict | None = None, routing=None,
@@ -1279,8 +1437,10 @@ class ActionModule:
         dfs_stats, dfs_failed = None, set()
         if search_type in DFS_SEARCH_TYPES:
             dfs_stats, dfs_failed = self._dfs_round(state, shards, body, deadline)
-        # every shard's query phase in flight at once (a shard whose DFS
-        # phase failed is left out: stats that omit it would skew the rest)
+        # every shard's query phase in flight at once, each a failover chain
+        # across the group's copies driven by future callbacks (a shard
+        # whose DFS phase failed is left out: stats that omit it would skew
+        # the rest)
         t_fanout = time.monotonic()
         failures, terminals = [], []
         futs = []
@@ -1289,16 +1449,8 @@ class ActionModule:
                 failures.append({"index": copy.index, "shard": copy.shard_id,
                                  "reason": "dfs phase failed on every copy"})
                 continue
-            futs.append((ordinal, copy, self.transport.send_request(
-                state.nodes.get(copy.node_id), A_QUERY_PHASE, {
-                    "index": copy.index, "shard": copy.shard_id, "body": body or {},
-                    "deadline_s": deadline.remaining(), "dfs": dfs_stats,
-                    "alias_filter": alias_filters.get(copy.index)})))
-        for _o, _copy, fut in futs:
-            # the phase's latency ends at its resolution, not when this loop
-            # collects it behind a slower shard
-            fut.add_done_callback(
-                lambda f: setattr(f, "completed_at", time.monotonic()))
+            futs.append((ordinal, copy, self._query_shard_async(
+                state, copy, body, alias_filters, dfs_stats, deadline)))
         results: list[ShardQueryResult] = []
         # the sampled trace the shards' span lists stitch into (None:
         # untraced)
@@ -1308,28 +1460,43 @@ class ActionModule:
         # coordinator's merge identity is the ordinal, as (index, shard)
         # pairs of two indices can share a shard id
         shard_meta: dict[int, tuple] = {}
-        wait_by = time.monotonic() + (QUERY_PHASE_TIMEOUT if deadline.remaining() is None
-                                      else deadline.remaining() + 5.0)
+        # the backstop: every attempt is timer-bounded, so this only
+        # catches a wedged chain
+        max_chain = max((f.max_attempts for _o, _c, f in futs), default=1)
+        wait_by = time.monotonic() + deadline.clamp(
+            self.QUERY_ATTEMPT_TIMEOUT * max(1, max_chain)) + 5.0
         try:
             for ordinal, copy, fut in futs:
                 try:
-                    r = fut_result(fut, max(0.0, wait_by - time.monotonic()))
-                except SearchEngineError as e:
-                    if isinstance(e, ProfileTimingError):
-                        # a profile's device clock failed: the request
-                        # fails, no shard answers with host timings
-                        raise
-                    failures.append({"index": copy.index, "shard": copy.shard_id,
-                                     "node": copy.node_id, "reason": str(e)})
-                    terminals.append(e)
+                    r, used, node, err = fut.result(
+                        timeout=max(0.0, wait_by - time.monotonic()))
+                except FutureTimeoutError:
+                    fut.cancel_chain()  # an abandoned chain sends no more attempts
+                    r, used, node, err = None, None, None, \
+                        ReceiveTimeoutError("query phase timed out")
+                if err is not None and _fails_the_search(err):
+                    # a host bug, or a profile whose device clock failed: the
+                    # request fails, no shard answers with host timings
+                    raise err
+                if r is None:
+                    # one failure entry per attempted copy, and the chain's
+                    # terminal error when it is not the last attempt's
+                    per_copy = list(fut.attempt_errors)
+                    if err is not None and (not per_copy or per_copy[-1][1] is not err):
+                        per_copy.append((copy.node_id, err))
+                    for node_id, copy_err in per_copy:
+                        failures.append({"index": copy.index, "shard": copy.shard_id,
+                                         "node": node_id, "reason": str(copy_err)})
+                    terminal = err if err is not None \
+                        else per_copy[-1][1] if per_copy else None
+                    terminals.append(terminal)
                     # a failed phase feeds admission too (a node whose phases
                     # time out must raise the signal), an overload rejection
                     # not: it resolves at once and would drag the signal down
-                    if not isinstance(e, (CircuitBreakingError,
-                                          RejectedExecutionError)):
+                    if not isinstance(terminal, (CircuitBreakingError,
+                                                 RejectedExecutionError)):
                         self.admission.observe(
-                            getattr(fut, "completed_at", time.monotonic())
-                            - t_fanout)
+                            getattr(fut, "completed_at", time.monotonic()) - t_fanout)
                     continue
                 self.admission.observe(
                     getattr(fut, "completed_at", time.monotonic()) - t_fanout)
@@ -1337,11 +1504,10 @@ class ActionModule:
                     trace_ref.add_remote(r.get("spans"))
                 prof = r.get("profile")
                 if isinstance(prof, dict):
-                    # no hedges before replica selection (A5c): every
-                    # profile is the primary attempt's
+                    # no hedges before replica selection (A5c, second half):
+                    # every profile is the primary attempt's
                     prof = {**prof, "winner": "primary"}
-                shard_meta[ordinal] = (copy.index, copy.shard_id,
-                                       state.nodes.get(copy.node_id), r.get("ctx_id"))
+                shard_meta[ordinal] = (used.index, used.shard_id, node, r.get("ctx_id"))
                 results.append(ShardQueryResult(
                     total=r["total"], docs=[tuple(d) for d in r["docs"]],
                     max_score=r["max_score"] if r["max_score"] is not None
@@ -1365,24 +1531,154 @@ class ActionModule:
         return self._finish_search(req, body, results, failures, shards,
                                    shard_meta, t0, timed_out=deadline.expired())
 
+    # one query-phase attempt's budget, clamped by the request's deadline
+    QUERY_ATTEMPT_TIMEOUT = 60.0
+
+    def _query_shard_async(self, state, copy: ShardRouting, body, alias_filters,
+                           dfs_stats, deadline: Deadline = NO_DEADLINE) -> Future:
+        """One shard's query phase with failover across its copies, driven by
+        future callbacks (the coordinator parks no thread per shard). The
+        candidates are `routing.ranked_copies`: the chosen copy, then the
+        group's other active copies; a candidate whose node is not in the
+        state is passed over. Each attempt is bounded by a timer from the
+        node's wheel (`QUERY_ATTEMPT_TIMEOUT` clamped by the deadline); any
+        failure of an attempt, a transport error to a node that just left
+        included, sends the next candidate, until the candidates or the
+        deadline run out. An error that fails the whole search
+        (`_fails_the_search`) ends the chain at once. No hedged attempt
+        runs (the second half of A5c).
+
+        Resolves to (response | None, the copy that answered, its node,
+        error | None); the future's `attempt_errors` lists each failed
+        attempt as (node id, error), `cancel_chain()` stops it sending, and
+        a response that arrives after the chain was cancelled or resolved
+        frees its pinned context."""
+        done: Future = Future()
+        # the phase's latency ends at its resolution, not when the
+        # coordinator collects it behind a slower shard
+        done.add_done_callback(lambda f: setattr(f, "completed_at", time.monotonic()))
+        # retry attempts run on timer and transport-callback threads: each
+        # send re-activates the coordinator's span so it carries the trace
+        cur_span = tracing.current_span()
+        group = state.routing_table.index(copy.index).shard(copy.shard_id)
+        candidates = self.routing.ranked_copies(group, copy)
+        cancelled = [False]
+        attempt_errors: list = []
+        position = [0]
+        # guards `position` and each attempt's consumption
+        chain_lock = threading.Lock()
+
+        def cancel_chain():
+            cancelled[0] = True
+
+        done.cancel_chain = cancel_chain  # type: ignore[attr-defined]
+        done.max_attempts = len(candidates)  # type: ignore[attr-defined]
+        done.attempt_errors = attempt_errors  # type: ignore[attr-defined]
+
+        def resolve(r, used, node, err) -> bool:
+            return complete_fut(done, (r, used, node, err))
+
+        def try_next(last_err):
+            with chain_lock:
+                nxt = None
+                while position[0] < len(candidates):
+                    cand = candidates[position[0]]
+                    position[0] += 1
+                    node = state.nodes.get(cand.node_id)
+                    if node is not None:
+                        nxt = (cand, node)
+                        break
+            if nxt is None:
+                resolve(None, None, None, last_err or NoShardAvailableError(
+                    f"no active copy of [{copy.index}][{copy.shard_id}] on a live node"))
+            else:
+                launch(*nxt)
+
+        def attempt_failed(cand, err):
+            attempt_errors.append((cand.node_id, err))
+            if cancelled[0] or done.done():
+                return
+            if deadline.expired():
+                # another copy could only answer after the caller stopped
+                # caring
+                resolve(None, None, None, ReceiveTimeoutError(
+                    f"search budget exhausted after {len(attempt_errors)} "
+                    f"attempt(s) on [{copy.index}][{copy.shard_id}]: {err}"))
+                return
+            try_next(err)
+
+        def launch(cand, node):
+            payload = {"index": cand.index, "shard": cand.shard_id, "body": body or {},
+                       "alias_filter": alias_filters.get(cand.index), "dfs": dfs_stats,
+                       # the remaining budget as a duration: the shard
+                       # restarts its own clock from it
+                       "deadline_s": deadline.remaining()}
+            with tracing.activate(cur_span):
+                fut = self.transport.send_request(node, A_QUERY_PHASE, payload)
+            # exactly one of the response and the attempt timer consumes
+            # the attempt
+            consumed = [False]
+
+            def consume() -> bool:
+                with chain_lock:
+                    if consumed[0]:
+                        return False
+                    consumed[0] = True
+                    return True
+
+            def on_timeout():
+                if consume():
+                    attempt_failed(cand, ReceiveTimeoutError(
+                        f"query phase attempt to [{cand.node_id}] timed out"))
+
+            timer = self.node.threadpool.schedule(
+                deadline.clamp(self.QUERY_ATTEMPT_TIMEOUT), "generic", on_timeout)
+
+            def on_done(f):
+                err = f.exception()
+                if not consume():
+                    if err is None:
+                        self._free_late_context(cand, node, f.result())
+                    return
+                timer.cancel()
+                if err is not None:
+                    if _fails_the_search(err):
+                        attempt_errors.append((cand.node_id, err))
+                        resolve(None, cand, node, err)
+                    else:
+                        attempt_failed(cand, err)
+                    return
+                r = f.result()
+                if cancelled[0] or not resolve(r, cand, node, None):
+                    self._free_late_context(cand, node, r)
+
+            fut.add_done_callback(on_done)
+
+        try_next(None)
+        return done
+
+    def _free_late_context(self, copy: ShardRouting, node, response):
+        """Free the context a query phase pinned for a fetch that will not
+        come (its attempt timed out, or its chain was abandoned)."""
+        cid = response.get("ctx_id") if isinstance(response, dict) else None
+        if cid is not None and node is not None:
+            self.transport.send_request(node, A_FREE_CONTEXT, {
+                "index": copy.index, "shard": copy.shard_id, "ctx": cid})
+
     def _dfs_round(self, state, shards, body, deadline: Deadline):
         """Every shard's DFS phase at once, then the global statistics every
         query phase weighs its clauses with: (the wire form of
-        `aggregate_dfs`, the ordinals whose DFS phase failed). A phase runs
-        on the node that holds the shard's one started copy, local or over
-        the transport; a failed phase has no other copy to fail over to
-        until replicas come (ROADMAP A5c)."""
+        `aggregate_dfs`, the ordinals whose DFS phase failed). A failed
+        phase fails over to the group's other active copies in turn
+        (`_dfs_shard_result`); a shard no copy answers is left out."""
         futs = [self.transport.send_request(
             state.nodes.get(copy.node_id), A_DFS_PHASE, {
                 "index": copy.index, "shard": copy.shard_id, "body": body or {}})
             for copy in shards]
         results, failed = [], set()
         for ordinal, (copy, fut) in enumerate(zip(shards, futs)):
-            remaining = deadline.remaining()
-            try:
-                r = fut_result(fut, DFS_PHASE_TIMEOUT if remaining is None
-                               else min(DFS_PHASE_TIMEOUT, remaining))
-            except SearchEngineError:
+            r = self._dfs_shard_result(state, copy, body, fut, deadline)
+            if r is None:
                 failed.add(ordinal)
                 continue
             results.append(DfsResult(
@@ -1395,6 +1691,31 @@ class ActionModule:
                 "field_stats": {f: [s.doc_count, s.sum_ttf, s.sum_dfs]
                                 for f, s in agg["field_stats"].items()}}, failed
 
+    def _dfs_shard_result(self, state, copy: ShardRouting, body, first_fut,
+                          deadline: Deadline = NO_DEADLINE):
+        """One shard's DFS phase: the first attempt is in flight already,
+        failover attempts to the group's other active copies are sent one
+        after another. None when no copy on a live node answers or the
+        deadline runs out."""
+        group = state.routing_table.index(copy.index).shard(copy.shard_id)
+        candidates = [copy] + [s for s in group.active_shards()
+                               if s.node_id != copy.node_id]
+        fut = first_fut
+        for cand in candidates:
+            if fut is None:
+                if deadline.expired():
+                    return None
+                node = state.nodes.get(cand.node_id)
+                if node is None:
+                    continue
+                fut = self.transport.send_request(node, A_DFS_PHASE, {
+                    "index": cand.index, "shard": cand.shard_id, "body": body or {}})
+            try:
+                return fut_result(fut, deadline.clamp(DFS_PHASE_TIMEOUT))
+            except SearchEngineError:
+                fut = None  # the next copy
+        return None
+
     def count(self, index_expr, body=None) -> dict:
         """`_count`: a `size: 0` search's total and `_shards`."""
         r = self.search(index_expr, {**(body or {}), "size": 0})
@@ -1402,19 +1723,24 @@ class ActionModule:
 
     def _free_after_failure(self, futs, shard_meta: dict, wait_by: float):
         """Free the pinned context of every shard whose query phase answered
-        or still answers before `wait_by`, and wait for the frees."""
+        or still answers before `wait_by`, and wait for the frees; a chain
+        still open at `wait_by` is cancelled (a late answer frees its own
+        context)."""
         pinned = [(index, shard, node, cid)
                   for (index, shard, node, cid) in shard_meta.values()]
-        state = self.cluster_service.state
-        for ordinal, copy, fut in futs:
+        for ordinal, _copy, fut in futs:
             if ordinal in shard_meta:
                 continue
             try:
-                r = fut_result(fut, max(0.0, wait_by - time.monotonic()))
-            except Exception:  # noqa: BLE001 — a failed shard pinned nothing
-                continue
-            pinned.append((copy.index, copy.shard_id,
-                           state.nodes.get(copy.node_id), r.get("ctx_id")))
+                r, used, node, _err = fut.result(
+                    timeout=max(0.0, wait_by - time.monotonic()))
+            except FutureTimeoutError:
+                fut.cancel_chain()
+                if not fut.done():
+                    continue
+                r, used, node, _err = fut.result()
+            if r is not None:
+                pinned.append((used.index, used.shard_id, node, r.get("ctx_id")))
         frees = [self.transport.send_request(node, A_FREE_CONTEXT, {
             "index": index, "shard": shard, "ctx": cid})
             for (index, shard, node, cid) in pinned if cid is not None]
@@ -2044,6 +2370,14 @@ class ActionModule:
         else:
             raise IllegalArgumentError(f"broadcast op [{op}] is not ported yet")
         return {"ok": True}
+
+
+def _fails_the_search(error: BaseException) -> bool:
+    """An error no other copy can answer around: a host bug (not a
+    SearchEngineError) or a profile whose device clock failed. Every other
+    failure of an attempt fails over."""
+    return not isinstance(error, SearchEngineError) or \
+        isinstance(error, ProfileTimingError)
 
 
 def filter_source(src: dict, includes, excludes) -> dict:

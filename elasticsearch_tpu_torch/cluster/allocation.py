@@ -20,15 +20,9 @@ The decider chain (`DEFAULT_DECIDERS`) is the JAX package's: same shard,
 replica after primary, `enable`, include/require/exclude filters,
 awareness, throttling (`node_concurrent_recoveries`, 2), the disk
 watermark, `total_shards_per_node`, snapshot in progress, node version,
-`allow_rebalance` and `cluster_concurrent_rebalance`. A port node appends
-`ReplicasWaitForRecoveryDecider`, which answers NO for every replica: a
-replica needs peer recovery and the replica write legs, which come with
-replicas and recovery (ROADMAP A5c), so a port cluster keeps its replicas
-unassigned (health yellow) and never holds one in INITIALIZING, where the
-throttling decider would count it against later primaries. An explicit
-`_cluster/reroute` command that would place a replica asks the whole
-chain (`explain_no`) and is refused with the explanations of the deciders
-that answer NO."""
+`allow_rebalance` and `cluster_concurrent_rebalance`. A replica is
+allocated as on the JAX node: it starts INITIALIZING and peer-recovers
+from its primary (indices_service)."""
 
 from __future__ import annotations
 
@@ -53,8 +47,6 @@ YES, NO, THROTTLE = "YES", "NO", "THROTTLE"
 
 class Decider:
     name = "base"
-    # why the decider answers NO, quoted when an explicit command is refused
-    explanation = ""
 
     def can_allocate(self, shard: ShardRouting, node_id: str, ctx: "AllocationContext") -> str:
         return YES
@@ -67,7 +59,6 @@ class Decider:
 
 class SameShardDecider(Decider):
     name = "same_shard"
-    explanation = "a copy of the shard is already on the node"
 
     def can_allocate(self, shard, node_id, ctx):
         for s in ctx.shards_on_node(node_id):
@@ -317,18 +308,6 @@ class AllocationContext:
             self._by_node.setdefault(new.node_id, []).append(new)
 
 
-class ReplicasWaitForRecoveryDecider(Decider):
-    """NO for every replica copy: a port node allocates primaries only until
-    peer recovery and the replica write legs are ported (ROADMAP A5c)."""
-
-    name = "replicas_wait_for_recovery"
-    explanation = ("a replica needs peer recovery and the replica write legs, "
-                   "which a port node does not run yet")
-
-    def can_allocate(self, shard, node_id, ctx):
-        return YES if shard.primary else NO
-
-
 class AllocationService:
     """reroute / apply_started_shards / apply_failed_shard / remove_node."""
 
@@ -351,15 +330,6 @@ class AllocationService:
             if v == THROTTLE:
                 throttled = True
         return THROTTLE if throttled else YES
-
-    def explain_no(self, state: ClusterState, shard: ShardRouting,
-                   node_id: str) -> list[str]:
-        """The deciders that answer NO for `shard` on `node_id`, each as
-        `[name]` with its explanation where it has one."""
-        ctx = AllocationContext(state, self._merged_settings(state),
-                                self.disk_usages, self.snapshotting_indices)
-        return [f"[{d.name}] {d.explanation}".rstrip() for d in self.deciders
-                if d.can_allocate(shard, node_id, ctx) == NO]
 
     def _decide_rebalance(self, shard: ShardRouting, ctx: AllocationContext) -> str:
         throttled = False

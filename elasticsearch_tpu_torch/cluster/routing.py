@@ -9,9 +9,11 @@ package's does: `_shards:N,M` (with an optional `;<preference>` for the
 copy) searches only those shard groups (`split_preference`), `_primary` the
 primary, `_local` and `_prefer_node:x` a copy on that node when there is
 one, `_only_node:x` only that node's copy, and any other string a copy
-fixed by its djb2; without a preference, round-robin. Adaptive replica
-selection, cache-affinity routing and hedging belong to the slice with
-replicas."""
+fixed by its djb2; without a preference, round-robin. `ranked_copies` is a
+search's failover order for one group: the chosen copy first, then the
+group's other active copies in group order. Adaptive replica selection
+(which would rank them), cache-affinity routing and hedging come with the
+second half of replicas and recovery (ROADMAP A5c)."""
 
 from __future__ import annotations
 
@@ -122,3 +124,10 @@ class OperationRouting:
             s = group.shards[0]
             raise NoShardAvailableError(f"no active copy for [{s.index}][{s.shard_id}]")
         return active[next(self._rr) % len(active)]
+
+    @staticmethod
+    def ranked_copies(group: IndexShardRoutingTable,
+                      first: ShardRouting) -> list[ShardRouting]:
+        """A failover chain's order for one group: `first`, the copy already
+        chosen, then the group's other active copies in group order."""
+        return [first] + [s for s in group.active_shards() if s.node_id != first.node_id]

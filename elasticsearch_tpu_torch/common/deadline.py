@@ -58,6 +58,10 @@ class Deadline:
             return cls(None)
         return cls(time.monotonic() + max(0.0, float(seconds)))
 
+    @property
+    def bounded(self) -> bool:
+        return self._expires_at is not None
+
     def remaining(self) -> float | None:
         """Seconds left (>= 0.0), or None when unbounded."""
         if self._expires_at is None:
@@ -66,6 +70,16 @@ class Deadline:
 
     def expired(self) -> bool:
         return self._expires_at is not None and time.monotonic() >= self._expires_at
+
+    def clamp(self, timeout: float | None) -> float | None:
+        """The tighter of `timeout` and the remaining budget; an expired
+        deadline clamps to 0.0 (the caller decides how expiry surfaces)."""
+        rem = self.remaining()
+        if rem is None:
+            return timeout
+        if timeout is None:
+            return rem
+        return min(float(timeout), rem)
 
 
 #: Shared unbounded deadline, the default argument of the serving path.

@@ -11,7 +11,7 @@ import re
 from typing import Any, Iterator, Mapping
 
 from .errors import IllegalArgumentError, InvalidIndexNameError
-from .units import parse_time
+from .units import parse_bytes, parse_time
 
 _TRUE = {"true", "1", "on", "yes"}
 _FALSE = {"false", "0", "off", "no"}
@@ -98,6 +98,14 @@ class Settings(Mapping[str, Any]):
         if v is None:
             return parse_time(default) if isinstance(default, str) else default
         return parse_time(v)
+
+    def get_bytes(self, key: str, default=None) -> int | None:
+        """Bytes (`512kb`, `40mb`, a bare number); a string default parses
+        like a value."""
+        v = self._map.get(key)
+        if v is None:
+            return parse_bytes(default) if isinstance(default, str) else default
+        return parse_bytes(v)
 
     def get_list(self, key: str, default: list | None = None) -> list:
         v = self._map.get(key)

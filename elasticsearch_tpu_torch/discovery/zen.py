@@ -13,18 +13,17 @@ the JAX package's `discovery/zen.py`).
 - fault detection: every `discovery.zen.fd.ping_interval` (0.5 s) the
   master pings each node and each node pings the master; after
   `ping_retries` (3) failures in a row the master removes the node (its
-  copies fail, and with no replica its primaries come back as fresh empty
-  primaries on the nodes that remain) and a node re-joins (a lost master
-  means a new election);
+  copies fail: a started replica of each of its primaries is promoted,
+  and with no replica its primaries come back as fresh empty primaries on
+  the nodes that remain) and a node re-joins (a lost master means a new
+  election);
 - quorum: a master that drops below `minimum_master_nodes` steps down and
   installs the no-master block; the nodes re-join when they can;
 - leave: a closing node tells the master first (`close()`), so its
   removal does not wait for fault detection.
 
 The handlers run on the transport's dispatching thread (`executor="same"`),
-as in the JAX package. Replicas and their recovery wait for ROADMAP A5c:
-a port cluster keeps its replicas unassigned
-(cluster/allocation `ReplicasWaitForRecoveryDecider`)."""
+as in the JAX package."""
 
 from __future__ import annotations
 

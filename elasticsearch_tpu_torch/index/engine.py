@@ -23,9 +23,17 @@ trimmed copy of the JAX package's `index/engine.py`: `Searcher` and
   beside older segments, `pack` on an empty shard), a merged one a
   `compact` hint naming its sources when every source has a resident pack
   (ops/device_index.pack_segment_concat reads them); the warmer schedules
-  the packs from the view listeners once `search_active` is set.
-
-Recovery holds and replica operations wait for the slice with replicas."""
+  the packs from the view listeners once `search_active` is set;
+- peer recovery, primary side: a recovery hold (`acquire_recovery_hold`,
+  kept alive by `touch_recovery_hold`, a TTL bounding a dead target's
+  leak) stops a flush from pruning translog generations and defers the
+  deletion of merged-away segment files until the last hold drops, since
+  the target pulls those files outside the engine lock;
+  `translog_ops_since` reads the op tail under the engine lock (phase 3);
+- replica side: `apply_replicated_op` applies an op a primary streamed
+  (a replica write, recovery phases 2 and 3) with its external version, so
+  the copies converge on the primary's versions; a delete is applied
+  without a version check (the JAX engine's behaviour, kept)."""
 
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import itertools
 import os
 import threading
 import time
+import uuid
 from dataclasses import dataclass
 
 import numpy as np
@@ -161,6 +170,8 @@ class Engine:
         self._version_map: dict[str, VersionEntry] = {}
         self._uid_index: dict[str, tuple[int, int]] = {}  # uid -> (gen, local)
         self._pending_deletes: list[tuple] = []  # locations to tombstone at refresh
+        self._recovery_holds: dict[str, float] = {}  # hold id -> expiry (wall clock)
+        self._deferred_segment_deletes: list[int] = []  # gens pinned by holds
         self._closed = False
         self._last_write = 0.0  # wall clock of the last index or delete
         self.merge_policy = TieredMergePolicy(settings)
@@ -463,7 +474,10 @@ class Engine:
             self._commit(new_tgen, extra={"tombstones": {
                 str(seg.gen): seg.live.tolist() if not seg.live.all() else None
                 for seg in self._segments}})
-            self.translog.prune_before(new_tgen)
+            if not self._recovery_held():
+                # a peer recovery in flight still replays the older
+                # generations (phases 2 and 3)
+                self.translog.prune_before(new_tgen)
             self.stats["flush_total"] += 1
             self.stats["flush_time_ms"] += (time.monotonic() - t0) * 1000
             return True
@@ -471,6 +485,59 @@ class Engine:
     def maybe_flush(self):
         if self.translog.should_flush():
             self.flush()
+
+    # ------------------------------------------------------------------ peer recovery
+    def acquire_recovery_hold(self, ttl: float = 600.0) -> str:
+        """Pin this engine's files for a peer recovery: flushes stop pruning
+        translog generations and merged-away segment files wait. The TTL
+        bounds the pin when a target dies mid-flight; a recovery touches
+        its hold as it makes progress."""
+        hid = uuid.uuid4().hex
+        with self._lock:
+            self._recovery_holds[hid] = time.time() + ttl
+        return hid
+
+    def touch_recovery_hold(self, hold_id: str | None, ttl: float = 600.0) -> bool:
+        """Extend a live hold; False when it already expired or was released
+        (the recovery must start again: its pinned files may be gone)."""
+        with self._lock:
+            self._recovery_held()
+            if hold_id not in self._recovery_holds:
+                return False
+            self._recovery_holds[hold_id] = time.time() + ttl
+            return True
+
+    def release_recovery_hold(self, hold_id: str | None):
+        with self._lock:
+            self._recovery_holds.pop(hold_id, None)
+            self._recovery_held()  # the last hold's release runs the deletes
+
+    def _recovery_held(self) -> bool:
+        """Drop expired holds; with none left, delete the deferred segment
+        files. Caller holds _lock."""
+        now = time.time()
+        for hid in [h for h, exp in self._recovery_holds.items() if exp < now]:
+            del self._recovery_holds[hid]
+        if not self._recovery_holds and self._deferred_segment_deletes:
+            for g in self._deferred_segment_deletes:
+                self.store.delete_segment(g)
+            self._deferred_segment_deletes = []
+        return bool(self._recovery_holds)
+
+    def _delete_segment_files(self, gen: int):
+        """A merged-away segment's files go at once, unless a recovery hold
+        is live: a target may still be pulling them."""
+        if self._recovery_held():
+            self._deferred_segment_deletes.append(gen)
+        else:
+            self.store.delete_segment(gen)
+
+    def translog_ops_since(self, gen: int, count: int) -> list:
+        """Recovery phase 3: every op logged after the phase-2 snapshot (the
+        first `count` ops from generation `gen` on), read under the engine
+        lock, so no write lands between this read and live replication."""
+        with self._lock:
+            return self.translog.read_ops(from_gen=gen)[count:]
 
     def _replace_segments(self, sources: list[FrozenSegment],
                           merged: FrozenSegment, start: int):
@@ -499,7 +566,7 @@ class Engine:
         for g in old_gens:
             self._persisted_gens.discard(g)
             self._segment_files.pop(str(g), None)
-            self.store.delete_segment(g)
+            self._delete_segment_files(g)
 
     def optimize(self, max_num_segments: int = 1):
         """Force-merge down to one segment."""
@@ -633,6 +700,21 @@ class Engine:
                                     _from_translog=True)
         except VersionConflictError:
             pass  # replay after a delete can revisit a version; newest wins
+
+    def apply_replicated_op(self, op: TranslogOp):
+        """Apply an op a primary streamed (a replica write, recovery phases 2
+        and 3): an index with the primary's version as an external one, a
+        delete without a version check; an op the copy already holds a
+        newer version of is dropped. The op's parent, timestamp and ttl are
+        not applied, as in the JAX engine."""
+        try:
+            if op.op in (CREATE, INDEX):
+                self.index(op.type, op.id, op.source or {}, routing=op.routing,
+                           version=op.version, version_type=EXTERNAL)
+            elif op.op == DELETE:
+                self.delete(op.type, op.id)
+        except VersionConflictError:
+            pass  # the copy already holds a newer version
 
     # ------------------------------------------------------------------ info
     def segment_count(self) -> int:

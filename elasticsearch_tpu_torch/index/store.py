@@ -1,7 +1,8 @@
 """Checksummed on-disk segment store (a trimmed copy of the JAX package's
 `index/store.py`): a directory per shard holding write-once segment files
 and a commit point. Every file's CRC32 is recorded in the commit, and a read
-verifies it.
+verifies it. `list_files` lists every file with its length and CRC32,
+the manifest a peer recovery diffs.
 
 Layout:
   <dir>/seg_<gen>.npz        — postings / positions / norms / doc-value arrays
@@ -152,6 +153,16 @@ class Store:
             return None
         with open(os.path.join(self.dir, f"commit_{max(ids)}.json")) as fh:
             return json.load(fh)
+
+    def list_files(self) -> dict[str, dict]:
+        """name -> {length, checksum} of every finished file (a peer
+        recovery's manifest diff)."""
+        out = {}
+        for name in sorted(os.listdir(self.dir)):
+            p = os.path.join(self.dir, name)
+            if os.path.isfile(p) and not name.endswith(".tmp"):
+                out[name] = {"length": os.path.getsize(p), "checksum": _crc_file(p)}
+        return out
 
     def delete_segment(self, gen: int):
         for suffix in (".npz", ".meta.json"):

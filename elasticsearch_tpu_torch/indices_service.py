@@ -20,6 +20,24 @@ copy of the JAX package's `indices_service.py`).
   same two paths: the removal releases its caches and device packs as an
   index removal does. A removed shard's engine leaves the warmer first, so
   no warm pack or re-prime starts on it.
+- Peer recovery of a replica from its primary's node (`_peer_recover`),
+  in three phases: (1) the primary flushes and answers its file manifest
+  with checksums under a recovery hold; the target keeps the files it
+  already has with the same checksum, deletes every other local file, and
+  pulls the rest in `indices.recovery.file_chunk_size` chunks (512 KB),
+  throttled on the target side to `indices.recovery.max_bytes_per_sec`
+  (40 MB/s), each file checked against its checksum; then it loads that
+  commit; (2) it replays the primary's translog from the commit's
+  generation while the primary goes on taking writes (the hold keeps those
+  generations); (3) it applies the op tail the primary reads under its
+  engine lock, which releases the hold. Writes the primary replicated to
+  the copy meanwhile are dropped by the load of phase 1 and come back
+  through phases 2 and 3. `IndexShard.recovery_info` keeps the files,
+  reused files, bytes and throttle of phase 1. The primary's four
+  handlers (files, chunk, translog, finalize) each touch the hold and
+  fail the recovery when it expired. A recovered copy is refreshed before
+  it is reported started, so its first search packs its segments on the
+  query path, as a primary's does.
 - `periodic_refresh`: the scheduled NRT refresh per shard honouring
   `index.refresh_interval` (-1 disables it), then a merge-policy check on
   the `merge` pool.
@@ -34,41 +52,41 @@ copy of the JAX package's `indices_service.py`).
   packs it off the query path and re-primes the shard's hot cached bodies.
   A closing shard releases every cache byte it holds.
 
-Peer recovery of replicas belongs to replicas and recovery (ROADMAP A5c);
-a port cluster allocates primaries only, and a replica copy that reaches
-a node all the same is reported failed, never started empty. The removal
-runs on the cluster-state thread under the indices lock: it closes
+The removal runs on the cluster-state thread under the indices lock: it closes
 engines and drops references (no device sync, no launch); the device
 memory goes back to the allocator once the last search holding a view of
 the index ends."""
 
 from __future__ import annotations
 
+import base64
 import os
 import shutil
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from .cluster.state import INITIALIZING, RELOCATING, STARTED, ClusterState, ShardRouting
-from .common.errors import (
-    IndexMissingError,
-    IndexShardMissingError,
-    NotPortedError,
-    SearchEngineError,
-)
+from .common.errors import IndexMissingError, IndexShardMissingError, SearchEngineError
 from .common.logging import get_logger
 from .common.settings import Settings
 from .index.engine import Engine
+from .index.store import _crc_file
+from .index.translog import TranslogOp
 from .mapper import MapperService
 from .ops.device_index import PACK_LEDGER, drop_segment_packs
 from .search.similarity import SimilarityService
 
 ACTION_SHARD_STARTED = "internal:cluster/shard/started"
 ACTION_SHARD_FAILED = "internal:cluster/shard/failed"
+ACTION_RECOVERY_FILES = "internal:index/shard/recovery/files"
+ACTION_RECOVERY_CHUNK = "internal:index/shard/recovery/chunk"
+ACTION_RECOVERY_TRANSLOG = "internal:index/shard/recovery/translog"
+ACTION_RECOVERY_FINALIZE = "internal:index/shard/recovery/finalize"
 
 # shard lifecycle
-CREATED, RECOVERING, SHARD_STARTED, CLOSED = "CREATED", "RECOVERING", "STARTED", "CLOSED"
+CREATED, RECOVERING, POST_RECOVERY, SHARD_STARTED, CLOSED = (
+    "CREATED", "RECOVERING", "POST_RECOVERY", "STARTED", "CLOSED")
 
 
 @dataclass
@@ -78,6 +96,8 @@ class IndexShard:
     engine: Engine
     primary: bool
     state: str = CREATED
+    # a peer recovery's phase 1: files, reused, bytes, throttle_ms
+    recovery_info: dict = field(default_factory=dict)
     last_scheduled_refresh: float = 0.0
 
 
@@ -139,6 +159,12 @@ class IndicesService:
         self.indices: dict[str, IndexService] = {}
         self.logger = get_logger("indices", node=node_name)
         self._lock = threading.RLock()
+        transport.register_handler(ACTION_RECOVERY_FILES, self._handle_recovery_files)
+        transport.register_handler(ACTION_RECOVERY_CHUNK, self._handle_recovery_chunk)
+        transport.register_handler(ACTION_RECOVERY_TRANSLOG,
+                                   self._handle_recovery_translog)
+        transport.register_handler(ACTION_RECOVERY_FINALIZE,
+                                   self._handle_recovery_finalize)
         cluster_service.add_listener(self.cluster_changed)
 
     def index_service(self, name: str) -> IndexService:
@@ -146,6 +172,10 @@ class IndicesService:
         if svc is None:
             raise IndexMissingError(name)
         return svc
+
+    def shard_or_none(self, index: str, shard_id: int) -> IndexShard | None:
+        svc = self.indices.get(index)
+        return svc.shards.get(shard_id) if svc else None
 
     # ------------------------------------------------------------ memory control
     def check_indexing_memory(self, budget_bytes: int | None = None,
@@ -246,12 +276,12 @@ class IndicesService:
             if meta is None:
                 continue
             try:
-                self._apply_shard(s, meta)
+                self._apply_shard(s, meta, state)
             except Exception:  # noqa: BLE001 — one index must not stop the rest
                 self.logger.warning("failed to start shard [%s][%d]", s.index,
                                     s.shard_id, exc_info=True)
 
-    def _apply_shard(self, s, meta):
+    def _apply_shard(self, s, meta, state: ClusterState):
         svc = self.indices.get(s.index)
         if svc is None:
             svc = IndexService(s.index, meta.settings, meta.mappings_dict(),
@@ -275,7 +305,7 @@ class IndicesService:
                 # the warmer sees a view whose superseded entries and
                 # dropped masks are gone (a re-prime never races them)
                 self.warmer.wire(s.index, s.shard_id, shard.engine)
-            threading.Thread(target=self._recover_shard, args=(shard, s),
+            threading.Thread(target=self._recover_shard, args=(shard, s, state),
                              daemon=True,
                              name=f"estpu_torch-recover[{s.index}][{s.shard_id}]"
                              ).start()
@@ -325,27 +355,199 @@ class IndicesService:
             self.filter_cache.evict_dropped(segs, ())
         return segs
 
-    def _recover_shard(self, shard: IndexShard, routing: ShardRouting):
-        """A primary recovers from its store and is reported started. A
-        replica copy is reported failed: it would need peer recovery from
-        its primary (ROADMAP A5c), and started empty it would serve
-        searches without the primary's documents."""
+    def _recover_shard(self, shard: IndexShard, routing: ShardRouting,
+                       state: ClusterState):
+        """A primary recovers from its store, a replica from its primary's
+        node (`_peer_recover`); the shard is refreshed, then reported
+        started, or failed with the reason."""
         shard.state = RECOVERING
         try:
-            if not routing.primary:
-                raise NotPortedError(
-                    f"replica [{shard.index}][{shard.shard_id}] needs peer recovery, "
-                    "which a port node does not run yet")
-            replayed = shard.engine.recover_from_store()
-            self.logger.info("recovered primary [%s][%d] from store (%d ops)",
-                             shard.index, shard.shard_id, replayed)
+            if routing.primary:
+                replayed = shard.engine.recover_from_store()
+                self.logger.info("recovered primary [%s][%d] from store (%d ops)",
+                                 shard.index, shard.shard_id, replayed)
+            else:
+                self._peer_recover(shard, state)
+            shard.state = POST_RECOVERY
             shard.engine.refresh()
-            shard.state = SHARD_STARTED
             self._report_started(routing)
+            shard.state = SHARD_STARTED
         except Exception as e:  # noqa: BLE001
             self.logger.warning("recovery failed [%s][%d]: %s", shard.index,
                                 shard.shard_id, e)
             self._report_failed(routing, str(e))
+
+    def _peer_recover(self, shard: IndexShard, state: ClusterState):
+        """The three phases from the primary's node (the module docstring)."""
+        group = state.routing_table.index(shard.index).shard(shard.shard_id)
+        primary = group.primary
+        if primary is None or not primary.assigned:
+            raise SearchEngineError("no primary to recover from")
+        primary_node = state.nodes.get(primary.node_id)
+        if primary_node is None:
+            raise SearchEngineError("primary node not in cluster")
+        svc = self.indices[shard.index]
+        chunk_size = svc.settings.get_bytes("indices.recovery.file_chunk_size",
+                                            512 * 1024)
+        max_bps = svc.settings.get_bytes("indices.recovery.max_bytes_per_sec",
+                                         40 * 1024 * 1024)
+        addr = primary_node.transport_address
+        key = {"index": shard.index, "shard": shard.shard_id}
+
+        # phase 1: the manifest, then the missing files in chunks
+        local_files = shard.engine.store.list_files()
+        resp = self.transport.submit_request(
+            addr, ACTION_RECOVERY_FILES,
+            {**key, "have": {n: f["checksum"] for n, f in local_files.items()}},
+            timeout=60.0)
+        hold = resp.get("hold")
+        try:
+            store_dir = shard.engine.store.dir
+            # the store must end up exactly the primary's file set: a stale
+            # local commit (a demoted primary's) would beat the copied one
+            keep = set(resp.get("names", ()))
+            for name in local_files:
+                if name not in keep:
+                    os.unlink(os.path.join(store_dir, name))
+            received, throttle_s = 0, 0.0
+            t0 = time.monotonic()
+            for name, length, checksum in resp["manifest"]:
+                tmp = os.path.join(store_dir, name + ".tmp")
+                with open(tmp, "wb") as fh:
+                    off = 0
+                    while off < length:
+                        r = self.transport.submit_request(
+                            addr, ACTION_RECOVERY_CHUNK,
+                            {**key, "name": name, "offset": off,
+                             "length": min(chunk_size, length - off), "hold": hold},
+                            timeout=60.0)
+                        data = base64.b64decode(r["data"])
+                        if not data:
+                            raise SearchEngineError(
+                                f"short read recovering [{name}] at {off}")
+                        fh.write(data)
+                        off += len(data)
+                        received += len(data)
+                        if max_bps and max_bps > 0:
+                            # the target paces its pulls against the budget
+                            ahead = received / max_bps - (time.monotonic() - t0)
+                            if ahead > 0:
+                                time.sleep(ahead)
+                                throttle_s += ahead
+                if _crc_file(tmp) != checksum:
+                    raise SearchEngineError(f"checksum mismatch recovering [{name}]")
+                os.replace(tmp, os.path.join(store_dir, name))
+            reused = resp.get("reused", 0)
+            shard.recovery_info = {"files": len(resp["manifest"]), "reused": reused,
+                                   "bytes": received,
+                                   "throttle_ms": int(throttle_s * 1000)}
+            shard.engine.recover_from_store()
+
+            # phase 2: the translog from the copied commit's generation
+            resp2 = self.transport.submit_request(
+                addr, ACTION_RECOVERY_TRANSLOG,
+                {**key, "from_gen": resp.get("base_gen"), "hold": hold}, timeout=60.0)
+            for op_b64 in resp2["ops"]:
+                shard.engine.apply_replicated_op(
+                    TranslogOp.decode(base64.b64decode(op_b64)))
+
+            # phase 3: the tail, read under the primary's engine lock
+            resp3 = self.transport.submit_request(
+                addr, ACTION_RECOVERY_FINALIZE,
+                {**key, "gen": resp2["gen"], "count": resp2["count"], "hold": hold},
+                timeout=60.0)
+            hold = None  # the finalize released it
+            for op_b64 in resp3["ops"]:
+                shard.engine.apply_replicated_op(
+                    TranslogOp.decode(base64.b64decode(op_b64)))
+            self.logger.info(
+                "peer-recovered [%s][%d]: %d files (%d reused, %d bytes, "
+                "throttled %.0fms), %d + %d translog ops", shard.index,
+                shard.shard_id, len(resp["manifest"]), reused, received,
+                throttle_s * 1000, len(resp2["ops"]), len(resp3["ops"]))
+        finally:
+            if hold is not None:
+                # a recovery that died mid-flight releases the primary's pin
+                # now rather than at the hold's expiry
+                try:
+                    self.transport.submit_request(
+                        addr, ACTION_RECOVERY_FINALIZE,
+                        {**key, "release_only": True, "hold": hold}, timeout=10.0)
+                except SearchEngineError:
+                    pass  # the expiry cleans up
+
+    def _shard_engine(self, request) -> Engine:
+        shard = self.shard_or_none(request["index"], request["shard"])
+        if shard is None:
+            raise IndexShardMissingError(f"[{request['index']}][{request['shard']}]")
+        return shard.engine
+
+    @staticmethod
+    def _touch_hold(eng: Engine, request):
+        """Keep the recovery hold alive; an expired one fails the recovery
+        (its pinned files may be gone) rather than serve a short replay."""
+        hold = request.get("hold")
+        if hold is not None and not eng.touch_recovery_hold(hold):
+            raise SearchEngineError("recovery hold expired — restart recovery")
+
+    def _handle_recovery_files(self, request, channel):
+        """Phase 1, primary side: a flush, a hold and the commit's translog
+        generation taken together under the engine lock (a flush between
+        them would leave ops in neither the files nor phase 2), then the
+        checksums outside it (the hold keeps the write-once files)."""
+        eng = self._shard_engine(request)
+        with eng._lock:
+            eng.flush(force=True)
+            hold = eng.acquire_recovery_hold()
+            base_gen = eng.translog.gen
+            names = [n for n in sorted(os.listdir(eng.store.dir))
+                     if os.path.isfile(os.path.join(eng.store.dir, n))
+                     and not n.endswith(".tmp")]
+        have = request.get("have", {})
+        manifest, reused = [], 0
+        for name in names:
+            p = os.path.join(eng.store.dir, name)
+            checksum = _crc_file(p)
+            if have.get(name) == checksum:
+                reused += 1
+                continue
+            manifest.append((name, os.path.getsize(p), checksum))
+        return {"manifest": manifest, "reused": reused, "hold": hold,
+                "base_gen": base_gen, "names": names}
+
+    def _handle_recovery_chunk(self, request, channel):
+        """One bounded slice of one store file (the target paces the pulls)."""
+        eng = self._shard_engine(request)
+        self._touch_hold(eng, request)
+        path = os.path.join(eng.store.dir, os.path.basename(str(request["name"])))
+        with open(path, "rb") as fh:
+            fh.seek(int(request["offset"]))
+            data = fh.read(int(request["length"]))
+        return {"data": base64.b64encode(data).decode("ascii")}
+
+    def _handle_recovery_translog(self, request, channel):
+        eng = self._shard_engine(request)
+        self._touch_hold(eng, request)
+        gen = request.get("from_gen")
+        if gen is None:
+            gen = eng.translog.gen
+        ops = eng.translog.read_ops(from_gen=int(gen))
+        return {"ops": [base64.b64encode(op.encode()).decode("ascii") for op in ops],
+                "gen": int(gen), "count": len(ops)}
+
+    def _handle_recovery_finalize(self, request, channel):
+        """Phase 3, primary side: the op tail since the phase-2 read, taken
+        under the engine lock, then the hold released."""
+        eng = self._shard_engine(request)
+        try:
+            if request.get("release_only"):
+                return {"ops": []}
+            self._touch_hold(eng, request)
+            tail = eng.translog_ops_since(int(request["gen"]), int(request["count"]))
+            return {"ops": [base64.b64encode(op.encode()).decode("ascii")
+                            for op in tail]}
+        finally:
+            eng.release_recovery_hold(request.get("hold"))
 
     def _report_started(self, routing: ShardRouting):
         self._send_to_master(ACTION_SHARD_STARTED, {"shard": routing.to_dict()})

@@ -22,9 +22,12 @@ not-recovered block; the master spreads each index's primaries over the
 data nodes (cluster/allocation.py) and each node's shards recover from
 their stores and translogs (indices_service). A node that is not master
 forwards every master operation to the master. `close()` leaves the
-cluster first: the master removes the node, and with no replica its
-primaries start again, empty, on the nodes that remain. Replicas stay
-unassigned until replicas and recovery are ported (ROADMAP A5c).
+cluster first: the master removes the node, promotes a started replica of
+each primary it held, and with no replica starts the primary again, empty,
+on a node that remains. It then waits up to a second for the contexts its
+query phases pinned to be fetched or freed (a port-only step, ROADMAP);
+`close_drain` records the contexts pinned when the wait began, those left
+when it ended and the seconds it took.
 `start_http(port)` binds the REST surface (port 0 = ephemeral).
 `device_health()` reads the device fault domains (common/devicehealth) and
 the warmer's pack counters in process.
@@ -69,8 +72,9 @@ least 16 MiB, or a byte size), and any shard idle for 300 s
 The TTL purger (`_purge_expired`, every `indices.ttl.interval`, 60 s by
 default, on the generic pool) reads each primary shard's `_expiry` doc
 values and deletes the documents whose expiry has passed, in one logged
-tombstone op a shard, then refreshes; `close()` cancels it. Replicas wait
-for A5c, as every replica write does.
+tombstone op a shard, then refreshes; `close()` cancels it. A replica is
+not purged, and its purge is not replicated: it keeps an expired document
+until its next recovery, as on the JAX node.
 
 `Client` is trimmed to `create_index`, `delete_index`, `open_index`,
 `close_index`, `exists_index`, `exists_type`, `put_mapping`, `get_mapping`,
@@ -123,11 +127,7 @@ from .actions import (
     ActionModule,
     shape_get,
 )
-from .cluster.allocation import (
-    DEFAULT_DECIDERS,
-    AllocationService,
-    ReplicasWaitForRecoveryDecider,
-)
+from .cluster.allocation import AllocationService
 from .cluster.routing import OperationRouting
 from .cluster.service import ClusterService
 from .cluster.state import DiscoveryNode
@@ -212,10 +212,7 @@ class Node:
             master_eligible=self.settings.get_bool("node.master", True),
             data=self.settings.get_bool("node.data", True))
         self.cluster_service = ClusterService(self.name)
-        # the JAX decider chain, and replicas held unassigned until peer
-        # recovery and the replica writes are ported (ROADMAP A5c)
-        self.allocation = AllocationService(
-            self.settings, deciders=DEFAULT_DECIDERS + (ReplicasWaitForRecoveryDecider(),))
+        self.allocation = AllocationService(self.settings)
         self.gateway = LocalGateway(self.data_path, self.cluster_service,
                                     self.settings, allocation=self.allocation,
                                     node_name=self.name)
@@ -289,6 +286,8 @@ class Node:
         self.kernel_builds: dict = {}
         self.kernel_checks: dict = {}
         self.kernel_build_s = 0.0
+        # `close()`'s wait for pinned contexts: {contexts, left, waited_s}
+        self.close_drain: dict | None = None
         self._closed = False
 
     def start(self, seeds: list[str] | None = None) -> "Node":
@@ -353,6 +352,19 @@ class Node:
         # tell the master first, so the removal does not wait for fault
         # detection
         self.discovery.leave()
+        # a query phase this node answered before the master removed it is
+        # fetched from it: its pinned context goes before the shards close
+        # (a second at most; a context whose fetch never comes expires)
+        pinned = self.actions.pinned_contexts()
+        t0 = time.monotonic()
+        while self.actions.pinned_contexts() and time.monotonic() < t0 + 1.0:
+            time.sleep(0.01)
+        self.close_drain = dict(contexts=pinned, left=self.actions.pinned_contexts(),
+                                waited_s=time.monotonic() - t0)
+        if pinned:
+            self.logger.info("closing: %d pinned contexts, %d left after %.3f s",
+                             pinned, self.close_drain["left"],
+                             self.close_drain["waited_s"])
         self.discovery.stop()
         self.warmer.close()
         self.gateway.persist_now()

@@ -13,8 +13,11 @@ packed segment:
   (query, block) triple, scatter-add contributions and packed match counters
   into [Q, doc_pad+1] accumulators, apply the bool semantics and the coord
   factor, take the top k. It is torch ops (the JAX package's XLA program
-  `_score_batch_impl`, not a Pallas kernel); `index_add_` on the card adds in
-  no fixed order, so it is held to ≤ 2 ulp of the reference.
+  `_score_batch_impl`, not a Pallas kernel). Its float32 accumulation adds
+  each doc's contributions in clause order on the card as on the CPU
+  (`_dense_accumulate`), so a repeated query gets the same scores; it is
+  held to ≤ 2 ulp of the JAX package's scatter, which adds in its own
+  order.
 
 The dense family runs the dense program's core (`_dense_accumulate`,
 `_dense_semantics`) with a tail per request feature, all torch ops (the JAX
@@ -101,6 +104,9 @@ class TermBatch:
     coord: np.ndarray  # float32 [Q, C+1]
     norm_fields: list = dc_field(default_factory=list)  # field names, order = fidx
     caches: np.ndarray | None = None  # float32 [F, 256]
+    # row offsets of the clause slots (slot j: rows slots[j]..slots[j+1]);
+    # within one slot no two rows of a query share a doc
+    slots: tuple = ()
 
 
 @dataclass
@@ -112,10 +118,12 @@ class ScoreResult:
 
 
 def _dense_accumulate(blk_docs, blk_freqs, norms_stack, caches, qidx, blk,
-                      weight, fidx, group, tfmode, *, Q: int, doc_pad: int):
+                      weight, fidx, group, tfmode, *, Q: int, doc_pad: int,
+                      slots: tuple = ()):
     """Gather the postings blocks, compute per-posting contributions (tf
     factor first, then the weight — Lucene's rounding order) and scatter-add
-    them into the [Q, doc_pad] accumulator. Returns (scores, flat_idx, valid)."""
+    them into the [Q, doc_pad] accumulator, each doc's in clause order.
+    Returns (scores, flat_idx, valid)."""
     rows = blk.long()
     docs = blk_docs[rows]  # [M, B]
     freqs = blk_freqs[rows]
@@ -138,7 +146,17 @@ def _dense_accumulate(blk_docs, blk_freqs, norms_stack, caches, qidx, blk,
                            Q * stride).reshape(-1)
     scores = torch.zeros(Q * stride + 1, dtype=torch.float32,
                          device=blk_docs.device)
-    scores.index_add_(0, flat_idx, contrib.reshape(-1))
+    src = contrib.reshape(-1)
+    if slots:
+        # the card's index_add_ adds with atomics in no fixed order: one call
+        # a clause slot, inside which no cell takes two contributions (only
+        # +0.0s meet in the spare cell), so each doc's sum runs in clause
+        # order on the card as on the CPU
+        B = docs.shape[1]
+        for lo, hi in zip(slots[:-1], slots[1:]):
+            scores.index_add_(0, flat_idx[lo * B: hi * B], src[lo * B: hi * B])
+    else:
+        scores.index_add_(0, flat_idx, src)
     scores = scores[: Q * stride].view(Q, stride)[:, :doc_pad]
     return scores, flat_idx, valid
 
@@ -173,14 +191,14 @@ def _dense_semantics(scores, flat_idx, valid, group, live_parent, n_must, msm,
 def _score_batch_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
                       qidx, blk, weight, fidx, group, tfmode,
                       n_must, msm, coord, *, n_queries: int, k: int,
-                      doc_pad: int, simple: bool = False):
+                      doc_pad: int, simple: bool = False, slots: tuple = ()):
     """The dense program. simple=True: every clause is a SHOULD with msm<=1
     and no coord — match reduces to score>0 and the counters are skipped.
     Returns ([Q, k] scores, [Q, k] int32 docs, [Q] int32 totals)."""
     Q = n_queries
     scores, flat_idx, valid = _dense_accumulate(
         blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
-        group, tfmode, Q=Q, doc_pad=doc_pad)
+        group, tfmode, Q=Q, doc_pad=doc_pad, slots=slots)
     if simple:
         match = (scores > 0.0) & live_parent[None, :doc_pad]
     else:
@@ -231,7 +249,7 @@ def score_term_batch_async(packed: PackedSegment, batch: TermBatch, k: int):
                                    batch.fidx, batch.group, batch.tfmode,
                                    batch.n_must, batch.msm, batch.coord)),
         n_queries=batch.n_queries, k=min(k, packed.doc_pad),
-        doc_pad=packed.doc_pad, simple=_detect_simple(batch))
+        doc_pad=packed.doc_pad, simple=_detect_simple(batch), slots=batch.slots)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +297,7 @@ def _fs_rows_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
                   qidx, blk, weight, fidx, group, tfmode, n_must, msm, coord,
                   g_row, applies_row, fboost, min_score, gate,
                   *, n_queries: int, k: int, doc_pad: int, bmode: str,
-                  max_boost: float):
+                  max_boost: float, slots: tuple = ()):
     """Dense core + host-combined function rows (g_row f32 [Dpad], applies_row
     bool [Dpad]; both None when the spec has no function: then the tail is
     the outer boost and min_score alone). fboost/min_score f32 [Q], gate
@@ -287,7 +305,7 @@ def _fs_rows_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
     Q = n_queries
     scores, flat_idx, valid = _dense_accumulate(
         blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
-        group, tfmode, Q=Q, doc_pad=doc_pad)
+        group, tfmode, Q=Q, doc_pad=doc_pad, slots=slots)
     scores, match = _dense_semantics(scores, flat_idx, valid, group,
                                      live_parent, n_must, msm, coord,
                                      Q=Q, doc_pad=doc_pad)
@@ -305,7 +323,7 @@ def _fs_script_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
                     fboost, min_score, gate,
                     *, n_queries: int, k: int, doc_pad: int, script,
                     used_fields: tuple, bmode: str, max_boost: float,
-                    weight_s: float | None):
+                    weight_s: float | None, slots: tuple = ()):
     """Dense core + one `_score`-reading script evaluated over the [Q, Dpad]
     sub-scores (the torch twin of the script vectorizer), its doc columns
     as f32 [Dpad] rows (NaN = missing). fmask_row: the function's filter
@@ -318,7 +336,7 @@ def _fs_script_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
     Q = n_queries
     scores, flat_idx, valid = _dense_accumulate(
         blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
-        group, tfmode, Q=Q, doc_pad=doc_pad)
+        group, tfmode, Q=Q, doc_pad=doc_pad, slots=slots)
     scores, match = _dense_semantics(scores, flat_idx, valid, group,
                                      live_parent, n_must, msm, coord,
                                      Q=Q, doc_pad=doc_pad)
@@ -403,7 +421,7 @@ def _bucket_scatter(match, pdoc, pbucket, nb: int, sub_stack):
 def _dense_aggstats_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
                          qidx, blk, weight, fidx, group, tfmode, n_must, msm,
                          coord, agg_rows, bucket_pairs, fmask, *, n_queries: int,
-                         k: int, doc_pad: int):
+                         k: int, doc_pad: int, slots: tuple = ()):
     """Dense core + aggregations: per-query filter masks (fmask bool
     [Q, Dpad], None: none) gate matching; the metric stats of `agg_rows`
     (f32 [F, 5, Dpad], None: F = 0) and each bucket agg of `bucket_pairs`
@@ -414,7 +432,7 @@ def _dense_aggstats_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
     Q = n_queries
     scores, flat_idx, valid = _dense_accumulate(
         blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
-        group, tfmode, Q=Q, doc_pad=doc_pad)
+        group, tfmode, Q=Q, doc_pad=doc_pad, slots=slots)
     scores, match = _dense_semantics(scores, flat_idx, valid, group,
                                      live_parent, n_must, msm, coord,
                                      Q=Q, doc_pad=doc_pad)
@@ -433,7 +451,7 @@ def _dense_aggstats_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
 def _dense_sort_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
                      qidx, blk, weight, fidx, group, tfmode, n_must, msm, coord,
                      fmask, key_row, *, n_queries: int, k: int, doc_pad: int,
-                     descending: bool):
+                     descending: bool, slots: tuple = ()):
     """Dense core + field-sort top-k over a pre-folded f32 [Dpad] key row
     (ascending semantics; sorting.device_sort_key_row bakes in the mode and
     the missing policy). Ties go to the lower doc, as `lax.top_k` gives
@@ -443,7 +461,7 @@ def _dense_sort_impl(blk_docs, blk_freqs, live_parent, norms_stack, caches,
     Q = n_queries
     scores, flat_idx, valid = _dense_accumulate(
         blk_docs, blk_freqs, norms_stack, caches, qidx, blk, weight, fidx,
-        group, tfmode, Q=Q, doc_pad=doc_pad)
+        group, tfmode, Q=Q, doc_pad=doc_pad, slots=slots)
     scores, match = _dense_semantics(scores, flat_idx, valid, group,
                                      live_parent, n_must, msm, coord,
                                      Q=Q, doc_pad=doc_pad)
@@ -497,7 +515,7 @@ def score_filtered_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
     pack's device. Returns device (scores, docs, totals) unsynchronised."""
     return _dense_aggstats_impl(
         *_batch_args(packed, batch), None, (), fmask, n_queries=batch.n_queries,
-        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad)[:3]
+        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad, slots=batch.slots)[:3]
 
 
 def score_agg_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
@@ -510,7 +528,7 @@ def score_agg_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
     return _dense_aggstats_impl(
         *_batch_args(packed, batch), agg_rows, tuple(bucket_pairs), fmask,
         n_queries=batch.n_queries, k=min(k, packed.doc_pad),
-        doc_pad=packed.doc_pad)
+        doc_pad=packed.doc_pad, slots=batch.slots)
 
 
 def score_sorted_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
@@ -522,7 +540,8 @@ def score_sorted_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
     totals) unsynchronised."""
     return _dense_sort_impl(
         *_batch_args(packed, batch), fmask, key_row, n_queries=batch.n_queries,
-        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad, descending=descending)
+        k=min(k, packed.doc_pad), doc_pad=packed.doc_pad, descending=descending,
+        slots=batch.slots)
 
 
 def score_fs_rows_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
@@ -536,7 +555,8 @@ def score_fs_rows_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
         *_batch_args(packed, batch), g_row, applies_row,
         *_tail_rows(packed, fboost, min_score),
         n_queries=batch.n_queries, k=min(k, packed.doc_pad),
-        doc_pad=packed.doc_pad, bmode=bmode, max_boost=_f32(max_boost))
+        doc_pad=packed.doc_pad, bmode=bmode, max_boost=_f32(max_boost),
+        slots=batch.slots)
 
 
 def score_fs_script_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
@@ -553,7 +573,7 @@ def score_fs_script_batch_async(packed: PackedSegment, batch: TermBatch, k: int,
         n_queries=batch.n_queries, k=min(k, packed.doc_pad),
         doc_pad=packed.doc_pad, script=script, used_fields=tuple(used_fields),
         bmode=bmode, max_boost=_f32(max_boost),
-        weight_s=None if weight is None else _f32(weight))
+        weight_s=None if weight is None else _f32(weight), slots=batch.slots)
 
 
 def finalize_score_result(scores: np.ndarray, docs: np.ndarray,
@@ -570,10 +590,17 @@ def build_term_batch(cols: tuple, n_queries: int, n_must: np.ndarray,
                      msm: np.ndarray, coord: np.ndarray, norm_fields: list[str],
                      caches: np.ndarray, nb_pad_row: int) -> TermBatch:
     """Assemble + bucket-pad the flat triple arrays. `cols` = (qidx, blk_row,
-    weight, fidx, group, tfmode) columns of equal length (weight float64:
-    each rounds to float32 once, here); padding rows point at `nb_pad_row`,
-    a row of doc_pad sentinels that contributes nothing."""
+    weight, fidx, group, tfmode, slot) columns of equal length (weight
+    float64: each rounds to float32 once, here; slot: the row's clause
+    ordinal in its query). The rows are ordered by slot, stably, so each
+    query's rows keep their clause order, and `slots` holds each slot's
+    first row; padding rows point at `nb_pad_row`, a row of doc_pad
+    sentinels that contributes nothing."""
     n = len(cols[0])
+    order = np.argsort(cols[6], kind="stable")
+    cols = tuple(np.asarray(c)[order] for c in cols)
+    starts = np.flatnonzero(np.diff(cols[6], prepend=-1))
+    slots = tuple(int(i) for i in starts) + (n,)
     M = _pow2_bucket(max(n, 1), 16)
     qidx = np.zeros(M, np.int32)
     blk = np.full(M, nb_pad_row, np.int32)
@@ -587,7 +614,7 @@ def build_term_batch(cols: tuple, n_queries: int, n_must: np.ndarray,
         n_queries=n_queries, qidx=qidx, blk=blk, weight=weight, fidx=fidx,
         group=group, tfmode=tfmode, n_must=n_must.astype(np.int32),
         msm=msm.astype(np.int32), coord=coord.astype(np.float32),
-        norm_fields=norm_fields, caches=caches)
+        norm_fields=norm_fields, caches=caches, slots=slots)
 
 
 # ---------------------------------------------------------------------------

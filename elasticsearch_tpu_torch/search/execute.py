@@ -872,27 +872,31 @@ def _merge_seg_hits(seg_hits, totals, Q: int, k: int) -> list[TopDocs]:
 
 
 def _dense_entries(finals, seg, packed, field_idx) -> tuple:
-    """The (qidx, block_row, weight, fidx, group, mode) columns of the dense
-    program's triples, qidx = position in `finals`: per query, per clause,
-    per block of the clause's term, in that order (the host scorer's clause
-    order, which the CPU's scatter-add keeps)."""
-    rows = []  # (qi, b0, nblocks, w, fidx, group, mode) per clause with blocks
+    """The (qidx, block_row, weight, fidx, group, mode, slot) columns of the
+    dense program's triples, qidx = position in `finals`: per query, per
+    clause, per block of the clause's term, in that order (the host
+    scorer's clause order, which the scatter-add keeps); slot = the
+    clause's ordinal among its query's clauses with blocks."""
+    rows = []  # (qi, b0, nblocks, w, fidx, group, mode, slot) per clause with blocks
     for qi, (resolved, _f, _c, _coord) in enumerate(finals):
+        slot = 0
         for (f, t, w, _fi, g, mode, df) in resolved:
             tid = seg.term_id(f, t)
             if tid is None:
                 continue
             b0, b1 = packed.blocks_for_term(tid)
             if b1 > b0:
-                rows.append((qi, b0, b1 - b0, w, field_idx[f], g, mode))
+                rows.append((qi, b0, b1 - b0, w, field_idx[f], g, mode, slot))
+                slot += 1
     if not rows:
         return tuple(np.zeros(0, dt) for dt in
-                     (np.int32, np.int32, np.float64, np.int32, np.int32, np.int32))
-    qi, b0, nb, w, fi, g, mode = (np.asarray(c) for c in zip(*rows))
+                     (np.int32, np.int32, np.float64, np.int32, np.int32, np.int32,
+                      np.int32))
+    qi, b0, nb, w, fi, g, mode, slot = (np.asarray(c) for c in zip(*rows))
     nb = nb.astype(np.int64)
     return (np.repeat(qi, nb), expand_ranges(b0, nb),
             np.repeat(w.astype(np.float64), nb), np.repeat(fi, nb),
-            np.repeat(g, nb), np.repeat(mode, nb))
+            np.repeat(g, nb), np.repeat(mode, nb), np.repeat(slot, nb))
 
 
 def _ensure_norm_rows(packed, all_fields, breaker=None):

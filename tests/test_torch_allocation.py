@@ -12,10 +12,9 @@
 - The invariants of tests/test_allocation_deciders.py (shards limit, node
   version, snapshot in progress, rebalancing, relocation pairs), copied
   onto the port's classes.
-- The port node's `ReplicasWaitForRecoveryDecider`: with it every replica
-  stays unassigned and no replica is ever INITIALIZING, so the throttling
-  decider never counts one against a later primary; a departed node's
-  primaries come back as fresh primaries on the node that remains."""
+- A port node's chain (the JAX default): a departed node's primaries
+  come back as fresh primaries on the node that remains when they have no
+  replica."""
 
 import pytest
 
@@ -358,39 +357,8 @@ def _jax_shards(shards):
 
 
 # ----------------------------------------------------------------------------
-# the port node's replica decider
+# a port node's chain
 # ----------------------------------------------------------------------------
-
-def _node_service():
-    from elasticsearch_tpu_torch.cluster.allocation import (
-        DEFAULT_DECIDERS, ReplicasWaitForRecoveryDecider)
-
-    return AllocationService(deciders=DEFAULT_DECIDERS + (ReplicasWaitForRecoveryDecider(),))
-
-
-@pytest.mark.parametrize("n_nodes,shards,replicas", [(2, 5, 1), (3, 7, 2), (1, 3, 1)])
-def test_replica_decider_keeps_every_replica_unassigned(n_nodes, shards, replicas):
-    svc = _node_service()
-    state = _start_all(svc, _state(n_nodes=n_nodes, shards=shards, replicas=replicas))
-    for _ in range(shards):  # throttled primaries start two at a time
-        init = [s for s in state.routing_table.all_shards() if s.state == INITIALIZING]
-        state = svc.apply_started_shards(svc.reroute(state), init)
-    rows = state.routing_table.all_shards()
-    assert all(s.state == STARTED for s in rows if s.primary)
-    assert [s.state for s in rows if not s.primary] == [UNASSIGNED] * (shards * replicas)
-
-
-def test_replica_decider_answers_no_for_replicas_only():
-    from elasticsearch_tpu_torch.cluster.allocation import (
-        NO, YES, AllocationContext, ReplicasWaitForRecoveryDecider)
-
-    state = _state(n_nodes=2, shards=1, replicas=1)
-    ctx = AllocationContext(state, Settings.EMPTY)
-    primary, replica = state.routing_table.index("idx").shard(0).shards
-    d = ReplicasWaitForRecoveryDecider()
-    assert d.can_allocate(primary, "n0", ctx) == YES
-    assert d.can_allocate(replica, "n1", ctx) == NO
-
 
 def test_departed_node_primaries_come_back_fresh_on_both_packages():
     """0 replicas: the departed node's primaries fail and are assigned again
@@ -398,7 +366,7 @@ def test_departed_node_primaries_come_back_fresh_on_both_packages():
     behaviour, kept)."""
     from elasticsearch_tpu.cluster.allocation import AllocationService as JAlloc
 
-    svc = _node_service()
+    svc = AllocationService()
     t = _start_all(svc, _state(n_nodes=2, shards=4, replicas=0))
     j = _jax_state(t)
     on_n1 = sorted(s.shard_id for s in t.routing_table.all_shards() if s.node_id == "n1")

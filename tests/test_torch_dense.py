@@ -3,9 +3,10 @@
 
 Tolerance: per-doc scores within 2 ulp, hit order identical except inside
 groups of near-equal scores, totals exact (the rule of
-tests/test_randomized_differential.py `_tie_tolerant_equal`). The reason: a
-scatter-add adds a doc's contributions in no specified order — XLA's and
-torch's `index_add_` may differ, and on the card `index_add_` uses atomics."""
+tests/test_randomized_differential.py `_tie_tolerant_equal`). The reason:
+XLA's scatter-add adds a doc's contributions in its own order; the port
+adds them in clause order (one `index_add_` a clause slot, so the card's
+atomics never meet in a cell), which the last test pins bitwise."""
 
 import numpy as np
 import pytest
@@ -110,3 +111,62 @@ def test_dense_program_matches_jax(kind):
         assert rt == ot
         assert _tie_tolerant_equal(oh, rh), (oh[:5], rh[:5])
 
+
+
+@pytest.mark.parametrize("seed", [3, 17, 29])
+def test_slot_calls_sum_in_clause_order(seed):
+    """`build_term_batch` orders the rows by clause slot; `_dense_accumulate`
+    adds one slot a call, and no slot holds one query's doc twice. Each doc's
+    sum is bitwise the one sequential scatter over the rows in (query,
+    clause, block) order gives."""
+    rng = np.random.default_rng(seed)
+    Q, C, F, doc_pad, NT = 6, 5, 2, 4096, 12
+    # NT terms, each a run of blocks over its own sorted distinct docs
+    blocks, term_b0, term_nb = [], [], []
+    for _t in range(NT):
+        docs = np.sort(rng.choice(3000, int(rng.integers(40, 400)), replace=False))
+        nb = -(-len(docs) // BLOCK)
+        padded = np.full(nb * BLOCK, doc_pad, np.int32)
+        padded[:len(docs)] = docs
+        term_b0.append(len(blocks))
+        term_nb.append(nb)
+        blocks.extend(padded.reshape(nb, BLOCK))
+    blocks.append(np.full(BLOCK, doc_pad, np.int32))  # the padding row
+    blk_docs = torch.from_numpy(np.stack(blocks).astype(np.int32))
+    blk_freqs = torch.from_numpy(
+        rng.integers(1, 40, blk_docs.shape).astype(np.float32))
+    norms = torch.from_numpy(rng.integers(0, 256, (F, doc_pad)).astype(np.uint8))
+    caches = torch.from_numpy((rng.random((F, 256)) * 2 + 0.1).astype(np.float32))
+    cols = [[] for _ in range(7)]
+    for q in range(Q):
+        for slot, t in enumerate(rng.choice(NT, C, replace=False)):
+            for b in range(term_b0[t], term_b0[t] + term_nb[t]):
+                for col, v in zip(cols, (q, b, rng.random() * 3 + 0.1,
+                                         int(rng.integers(0, F)), 0,
+                                         int(rng.integers(0, 2)), slot)):
+                    col.append(v)
+    cols = tuple(np.asarray(c) for c in cols)
+    batch = tscoring.build_term_batch(
+        cols, Q, np.zeros(Q), np.ones(Q), np.ones((Q, C + 1)), ["a", "b"],
+        caches.numpy(), nb_pad_row=blk_docs.shape[0] - 1)
+    assert len(batch.slots) == C + 1
+    n = len(cols[0])
+    for lo, hi in zip(batch.slots[:-1], batch.slots[1:]):
+        keys = [(int(q), int(d)) for q, b in zip(batch.qidx[lo:hi], batch.blk[lo:hi])
+                for d in blocks[b] if d < doc_pad]
+        assert len(keys) == len(set(keys))
+
+    def accumulate(qidx, blk, weight, fidx, group, tfmode, slots):
+        return tscoring._dense_accumulate(
+            blk_docs, blk_freqs, norms, caches, *(torch.from_numpy(np.asarray(a))
+                                                  for a in (qidx, blk, weight, fidx,
+                                                            group, tfmode)),
+            Q=Q, doc_pad=doc_pad, slots=slots)[0]
+
+    got = accumulate(batch.qidx, batch.blk, batch.weight, batch.fidx, batch.group,
+                     batch.tfmode, batch.slots)
+    want = accumulate(cols[0].astype(np.int32), cols[1].astype(np.int32),
+                      cols[2].astype(np.float32), cols[3].astype(np.int32),
+                      cols[4].astype(np.int32), cols[5].astype(np.int32), ())
+    assert n > C and torch.count_nonzero(want) > 0
+    assert torch.equal(got, want)

@@ -9,7 +9,7 @@ tests/test_transport_client.py and tests/test_multiprocess_cluster.py.
   method, sniffing finds both nodes from one seed, a call round-trips
   through the proxy, a method off the list is refused, and when the seed
   node dies the client fails over to the other (the document lives on the
-  survivor: a port cluster holds no replica, ROADMAP A5c).
+  survivor: its index has no replica to promote).
 - Three `python -m elasticsearch_tpu_torch --transport tcp --seeds …
   -Dnode.device=cpu` processes form one cluster, serve writes sent to one
   and searches sent to another, and after one is killed the survivors

@@ -29,12 +29,13 @@ deadline (no fixed sleep), and every node is closed in a fixture or a
 - Quorum: under `minimum_master_nodes: 2`, a master left alone steps down
   and installs the no-master block, as the JAX master does.
 - `gateway.recover_after_nodes: 2` recovers once the second node joins.
-- A replica stays unassigned on a port cluster (the node's one extra
-  decider, ROADMAP declared differences): health yellow where the JAX
-  cluster starts its replicas (green). A `_cluster/reroute` that would
-  place one is refused with the deciders' explanation, and a replica copy
-  placed past the deciders is reported failed, never started empty: the
-  searches answer the JAX cluster's hits throughout."""
+- A replica starts on the node without its primary by peer recovery and
+  the cluster turns green, as the JAX cluster does. A `_cluster/reroute`
+  `allocate_replica` of a replica held back by
+  `cluster.routing.allocation.enable: primaries` is applied as given on
+  both packages: the copy recovers, the cluster turns green, and the
+  searches sent to either node, each node's own copies alone included,
+  answer the JAX cluster's hits."""
 
 import json
 import time
@@ -310,105 +311,92 @@ def test_events_pull_reads_the_other_node(pair):
 
 
 def test_replica_stays_unassigned_on_a_port_cluster(pair):
+    """The name is the one the test had while a port cluster kept its
+    replicas unassigned. Since replicas and recovery, a 1-replica index
+    places each replica on the node without its primary, the replica
+    peer-recovers and starts, and the cluster is green: the routing table
+    and the health body are the JAX cluster's."""
     p, j = pair
     for c in (p, j):
         st, r = call(c.base("a"), "PUT", "/rep", {"settings": {
             "number_of_shards": 2, "number_of_replicas": 1}})
         assert st == 200 and r["acknowledged"]
-    assert p.settled("rep", status="yellow")
-    assert j.settled("rep", status="green")
-    rows = [s for s in p.states()[0].routing_table.index("rep").all_shards()]
-    assert [(s.primary, s.state) for s in rows if not s.primary] == \
-        [(False, "UNASSIGNED")] * 2
-    assert all(s.state == "STARTED" for s in rows if s.primary)
-    (_, h), = [call(p.base("b"), "GET", "/_cluster/health/rep")]
-    assert h["status"] == "yellow" and h["unassigned_shards"] == 2
-
-
-def _place_replica_past_the_deciders(index, shard_id, node_id):
-    """A state update that puts a replica INITIALIZING on `node_id`, as no
-    decider of a port node would."""
-    from dataclasses import replace
-
-    from elasticsearch_tpu_torch.cluster.state import (
-        IndexRoutingTable, IndexShardRoutingTable)
-
-    def update(state):
-        table = state.routing_table.index(index)
-        groups = list(table.shards)
-        groups[shard_id] = IndexShardRoutingTable(tuple(
-            s if s.primary else replace(s, node_id=node_id, state="INITIALIZING")
-            for s in groups[shard_id].shards))
-        return state.next_version(routing_table=state.routing_table.with_index(
-            IndexRoutingTable(index, tuple(groups))))
-    return update
+        assert c.settled("rep", status="green")
+    rows = p.states()[0].routing_table.index("rep").all_shards()
+    assert sorted((s.primary, s.state) for s in rows) == \
+        [(False, "STARTED")] * 2 + [(True, "STARTED")] * 2
+    for grp in p.states()[0].routing_table.index("rep").shards:
+        assert sorted(s.node_id for s in grp.shards) == ["a", "b"]
+    assert _placement(p.states()[0], "rep") == _placement(j.states()[0], "rep")
+    (_, ph), (_, jh) = (call(c.base("b"), "GET", "/_cluster/health/rep") for c in (p, j))
+    assert ph == jh and ph["status"] == "green" and ph["unassigned_shards"] == 0, (ph, jh)
+    for c in (p, j):
+        assert call(c.base("a"), "DELETE", "/rep")[0] == 200
 
 
 def test_reroute_of_a_replica_is_refused_and_searches_answer_as_jax(pair):
-    """`allocate_replica` to the node without the primary is refused on a
-    port cluster with the deciders' explanation: the replica stays
-    UNASSIGNED, health yellow, and every search sent to either node answers
-    the JAX cluster's hits (whose replicas start). A replica copy placed on
-    a node past the deciders is reported failed by that node, never started
-    empty, and the searches still answer as the JAX cluster's."""
+    """The name is the one the test had while a port node refused the
+    command. With `cluster.routing.allocation.enable: primaries` each
+    replica stays unassigned (yellow, on both packages); `allocate_replica`
+    to the node without the primary, sent to either node (from b it is
+    forwarded to the master), is applied as on the JAX node: the copy
+    peer-recovers the bulked documents and starts, the cluster turns
+    green, and every search sent to either node, with no preference and
+    with each node's own copies only, answers the JAX cluster's hits."""
     p, j = pair
     raw = _bulk().replace('"_index": "docs"', '"_index": "rrep"')
-    for c in (p, j):
-        st, r = call(c.base("a"), "PUT", "/rrep", {"settings": {
-            "number_of_shards": 2, "number_of_replicas": 1, "refresh_interval": -1}})
-        assert st == 200 and r["acknowledged"], r
-        assert c.settled("rrep", status="yellow" if c is p else "green")
-        st, r = call(c.base("b"), "POST", "/_bulk", raw=raw)
-        assert st == 200 and not r["errors"]
-        assert call(c.base("a"), "POST", "/rrep/_refresh")[0] == 200
-    master = p.node("a")
-    primaries = {s.shard_id: s.node_id for s in
-                 master.cluster_service.state.routing_table.index("rrep").all_shards()
-                 if s.primary}
-    assert sorted(primaries.values()) == ["a", "b"], primaries
-    for sid, holder in primaries.items():
-        other = "b" if holder == "a" else "a"
-        cmd = {"allocate_replica": {"index": "rrep", "shard": sid, "node": other}}
-        for node in ("a", "b"):  # from b, forwarded to the master
-            st, r = call(p.base(node), "POST", "/_cluster/reroute", {"commands": [cmd]})
-            assert st == 400, r
-            assert r["error"]["reason"] == (
-                f"[allocate_replica] allocation of [rrep][{sid}] on node [{other}] is "
-                "not allowed, reason: [replicas_wait_for_recovery] a replica needs peer "
-                "recovery and the replica write legs, which a port node does not run "
-                "yet"), r
-
-    def answers_as_jax():
-        assert p.settled("rrep", status="yellow")
-        rows = p.states()[1].routing_table.index("rrep").all_shards()
-        assert [s.state for s in rows if not s.primary] == ["UNASSIGNED"] * 2
-        (_, h), = [call(p.base("b"), "GET", "/_cluster/health/rrep")]
-        assert h["status"] == "yellow" and h["unassigned_shards"] == 2, h
+    hold = {"transient": {"cluster.routing.allocation.enable": "primaries"}}
+    try:
+        for c in (p, j):
+            assert call(c.base("a"), "PUT", "/_cluster/settings", hold)[0] == 200
+            st, r = call(c.base("a"), "PUT", "/rrep", {"settings": {
+                "number_of_shards": 2, "number_of_replicas": 1, "refresh_interval": -1}})
+            assert st == 200 and r["acknowledged"], r
+            assert c.settled("rrep", status="yellow")
+            st, r = call(c.base("b"), "POST", "/_bulk", raw=raw)
+            assert st == 200 and not r["errors"]
+            assert call(c.base("a"), "POST", "/rrep/_refresh")[0] == 200
+        primaries = {s.shard_id: s.node_id for s in
+                     p.node("a").cluster_service.state.routing_table.index("rrep")
+                     .all_shards() if s.primary}
+        assert sorted(primaries.values()) == ["a", "b"], primaries
+        assert primaries == {s.shard_id: s.node_id for s in
+                             j.node("a").cluster_service.state.routing_table
+                             .index("rrep").all_shards() if s.primary}
+        for sid, holder in primaries.items():
+            other = "b" if holder == "a" else "a"
+            cmd = {"allocate_replica": {"index": "rrep", "shard": sid, "node": other}}
+            for c in (p, j):
+                # shard 0 from the master, shard 1 forwarded from b
+                st, r = call(c.base("ab"[sid]), "POST", "/_cluster/reroute",
+                             {"commands": [cmd]})
+                assert st == 200 and r["acknowledged"], r
+        for c in (p, j):
+            assert c.settled("rrep", status="green"), c.states()
+        assert _placement(p.states()[1], "rrep") == _placement(j.states()[1], "rrep")
+        (_, ph), (_, jh) = (call(c.base("b"), "GET", "/_cluster/health/rrep")
+                            for c in (p, j))
+        assert ph == jh and ph["status"] == "green", (ph, jh)
         for node in ("a", "b"):
-            for name in ("match", "bool", "paged", "count", "dfs"):
-                path, body = SEARCHES[name]
-                path = path.replace("/docs/", "/rrep/")
-                (pst, pr), (jst, jr) = (call(c.base(node), "POST", path, body)
-                                        for c in (p, j))
-                assert pst == jst == 200, (pr, jr)
-                assert pr["_shards"] == jr["_shards"], (name, pr["_shards"], jr["_shards"])
-                if name == "count":
-                    assert pr["count"] == jr["count"] > 0
-                else:
-                    assert pr["hits"] == jr["hits"] and pr["hits"]["total"] > 0, name
-
-    answers_as_jax()
-    sid, holder = 0, primaries[0]
-    other = "b" if holder == "a" else "a"
-    version = master.cluster_service.submit_state_update_task(
-        "place a replica", _place_replica_past_the_deciders("rrep", sid, other)
-    ).result(30).version
-    assert wait_until(lambda: all(
-        st.version > version and
-        [s.state for s in st.routing_table.index("rrep").shard(sid).shards
-         if not s.primary] == ["UNASSIGNED"] for st in p.states()), timeout=60), p.states()
-    assert wait_until(lambda: sid not in p.node(other).indices.indices["rrep"].shards)
-    answers_as_jax()
+            for pref in ("", "?preference=_only_node:a", "?preference=_only_node:b"):
+                for name in ("match", "bool", "paged", "count", "dfs"):
+                    path, body = SEARCHES[name]
+                    path = path.replace("/docs/", "/rrep/")
+                    path += pref if "?" not in path else pref.replace("?", "&")
+                    (pst, pr), (jst, jr) = (call(c.base(node), "POST", path, body)
+                                            for c in (p, j))
+                    assert pst == jst == 200, (pr, jr)
+                    assert pr["_shards"] == jr["_shards"], (name, pr["_shards"])
+                    if name == "count":
+                        assert pr["count"] == jr["count"] > 0
+                    else:
+                        assert pr["hits"] == jr["hits"] and pr["hits"]["total"] > 0, \
+                            (node, pref, name)
+    finally:
+        for c in (p, j):
+            call(c.base("a"), "PUT", "/_cluster/settings", {
+                "transient": {"cluster.routing.allocation.enable": "all"}})
+            call(c.base("a"), "DELETE", "/rrep")
 
 
 @pytest.fixture()
