@@ -519,6 +519,33 @@ those paths against its plain torch version on the card. Phases:
      answer bitwise,
      `memory_allocated()` falls by the departed node's resident bytes
      (0.99-1.01). The kernel bitwise at every shape either node launched.
+ 28. a slow copy and a snapshot: two nodes over TCP in this process
+     (`search.hedge.burst: 24`); `adaptive` (10,000 of phase 10's texts,
+     5 shards) flushed at 0 replicas, then raised to 1 (the replicas
+     recover the flushed commit); each copy warmed until the coordinator's
+     selector has `min_samples` on every copy and the EWMAs within 3x; 128
+     `_primary` reference answers. From 16 connections: (a) 256 healthy
+     bodies, bitwise the reference, each node's copies taking >= 0.3 of the
+     query phases; (b) the second node's received query phases delayed
+     0.75 s (a seeded FaultPolicy): first the JAX chaos test's shape (one
+     group, one connection, 40 requests), p95 under 0.7 s with hedges won;
+     then 256 bodies, its share <= 0.35, hedges issued and won within the
+     budget, p50 under the delay, bitwise the reference, a profiled subset
+     with a `winner: "hedge"` shard; (c) the fault cleared: within 15
+     chunks of 16 the second node's copies take 5 selections a group in
+     one chunk, with probes; (d) 32 `size: 0` bodies 4 times: every
+     selection by affinity or a probe turn, each affinity pick the
+     rendezvous winner of its spread set, every revisit of a copy a
+     request-cache hit and no launch in a pass of revisits; (e) an fs
+     repository, snapshot `s1`, `DELETE /adaptive` (`memory_allocated()`
+     falls by the index's resident bytes, 0.99-1.01), restore and green:
+     the primaries' packs equal the deleted ones, the allocated bytes
+     return by the restored index's resident bytes (0.99-1.01), 128
+     `_primary` bodies bitwise the reference, each node's `_count` the
+     kept behaviour's (the replicas stay empty), a second snapshot reusing
+     every segment blob. Per node launches + batches that found no block
+     == batches == pulls and no synchronize throughout, no context left
+     pinned, the kernel bitwise at every shape either node launched.
 
 Every phase asserts. The line before the last holds the kernels' JSON record;
 the last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -528,6 +555,7 @@ phase passed. Without CUDA the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import fnmatch
 import gc
 import json
@@ -655,26 +683,29 @@ ULPS = 2  # the dense path sums in clause order, a reference in its own (tests/t
 PERC_QUERIES, PERC_DOCS = 10_000, 16
 PERC_NODE_QUERIES, PERC_REQUESTS, PERC_CONNECTIONS = 1000, 128, 16
 PERC_MULTI, PERC_MULTI_ITEMS, PERC_EXISTING, PERC_DELETES = 8, 8, 16, 100
-# phase 18: the `library` index (4,000 docs, cut from a real deployment's
+# phase 18: the `library` index (3,000 docs, cut from a real deployment's
 # millions for the run's time; 20,000 before phase 19 joined the run,
-# 10,000 before phase 27 did, 6,000 until a 1146 s run on a slow host),
-# `library_dfr` (2,500 of them; 5,000 before), the traffic (256 requests,
-# 512 until that run) and its connections; the text: stems, their zipf exponent, the stop words'
-# share of tokens, mean tokens a body, synonym groups, tenants
-ANALYSIS_DOCS, ANALYSIS_DFR_DOCS = 4_000, 2_500
-ANALYSIS_REQUESTS, ANALYSIS_CALLERS = 256, 32
+# 10,000 before phase 27 did, 6,000 until a 1146 s run on a slow host,
+# 4,000 before phase 28 joined the run), `library_dfr` (2,000 of them;
+# 5,000, then 2,500 before), the traffic (192 requests, 512 until that
+# run, 256 before phase 28) and its connections; the text: stems, their
+# zipf exponent, the stop words' share of tokens, mean tokens a body,
+# synonym groups, tenants
+ANALYSIS_DOCS, ANALYSIS_DFR_DOCS = 3_000, 2_000
+ANALYSIS_REQUESTS, ANALYSIS_CALLERS = 192, 32
 ANALYSIS_PROFILED = 128  # `library` requests in phase 18's profiled window
 ANALYSIS_STEMS, ANALYSIS_ZIPF, ANALYSIS_STOP_SHARE = 2000, 1.2, 0.4
 ANALYSIS_BODY, ANALYSIS_SYNONYMS, ANALYSIS_TENANTS = 60, 50, 16
-# phase 19: `blogposts` (5,000 posts, cut from a real blog's hundreds of
+# phase 19: `blogposts` (3,500 posts, cut from a real blog's hundreds of
 # thousands for the run's time, 10,000 before phase 27 joined the run,
-# 7,000 until a 1146 s run on a slow host; about 20,000 Lucene documents
+# 7,000 until a 1146 s run on a slow host, 5,000 before phase 28 joined
+# it; about 14,000 Lucene documents
 # with their nested comments) around GEO_CITIES seeded city centres, `company` (100
 # branches, 2,000 employees, written one by one: a _bulk sets no parent),
-# the traffic (192 requests, 384 until that run), its connections and the
-# profiled window
-GEO_POSTS, GEO_BRANCHES, GEO_EMPLOYEES, GEO_CITIES = 5_000, 100, 2_000, 50
-GEO_REQUESTS, GEO_CALLERS, GEO_PROFILED = 192, 32, 48
+# the traffic (128 requests, 384 until that run, 192 before phase 28), its
+# connections and the profiled window
+GEO_POSTS, GEO_BRANCHES, GEO_EMPLOYEES, GEO_CITIES = 3_500, 100, 2_000, 50
+GEO_REQUESTS, GEO_CALLERS, GEO_PROFILED = 128, 32, 48
 # phase 20 on phase 10's node: (a) phase 10's `bool` bodies sent as DFS and
 # as plain, a BM25 index of phase 10's texts for the similarity-table flips
 # and its mixed DFS + plain burst; (b) the request cache's size-0 bodies on
@@ -702,38 +733,41 @@ ADMIN_BURST, ADMIN_CONN, ADMIN_FORMATS, ADMIN_SHUTDOWN_S = 256, 16, 64, 5.0
 # the held-wait threshold of the lock tracer's long-held list
 LOCKTRACE_DOCS, LOCKTRACE_SHARDS, LOCKTRACE_SEARCHES = 5_000, 2, 256
 LOCKTRACE_TIMEOUT_S, LOCKTRACE_HELD_MS = 45, 50.0
-# phase 22 on a node of its own: `website` posts (3,000, cut from a site's
+# phase 22 on a node of its own: `website` posts (2,000, cut from a site's
 # hundreds of thousands: from 20,000 after a 190 s phase on the card,
 # from 10,000 after a 136 s phase on a slow host, where the background
-# merges' Python walk took 36 CPU s of the mix, and from 5,000 after a
-# 100 s phase in a 1146 s run) and drafts, `sessions`;
-# the timed traffic (256 requests, cut from 2,048 after the first run,
-# from 1,024 after a 160 s phase at 10,000 posts and from 512 with the
-# posts) and its connections, its mix by family, the hot posts and their
+# merges' Python walk took 36 CPU s of the mix, from 5,000 after a
+# 100 s phase in a 1146 s run, and from 3,000 when phase 28 joined the
+# run) and drafts, `sessions`;
+# the timed traffic (192 requests, cut from 2,048 after the first run,
+# from 1,024 after a 160 s phase at 10,000 posts, from 512 and from 256
+# with the posts) and its connections, its mix by family, the hot posts and their
 # zipf exponent, the tags and the tags deleted by query; the bulk of
-# updates (250, cut from 1,000 and 500 with it), the searches beside the delete-by-query,
+# updates (200, cut from 1,000, 500 and 250 with it), the searches beside the delete-by-query,
 # the checked searches, the update CPU leg, the no-write search leg and the
 # profiled window (64 each, cut from 256 with it)
-DOC_POSTS, DOC_DRAFTS, DOC_SESSIONS = 3_000, 500, 2_000
-DOC_REQUESTS, DOC_CONN = 256, 16
+DOC_POSTS, DOC_DRAFTS, DOC_SESSIONS = 2_000, 500, 2_000
+DOC_REQUESTS, DOC_CONN = 192, 16
 DOC_MIX = (("search", 0.40), ("increment", 0.25), ("doc", 0.10), ("mget", 0.10),
            ("source", 0.10), ("create", 0.05))
 DOC_HOT, DOC_HOT_ZIPF, DOC_TAGS, DOC_DBQ_TAGS = 200, 1.1, 50, 5
-DOC_BULK_UPDATES, DOC_DBQ_SEARCHES, DOC_CHECKS = 250, 128, 256
+DOC_BULK_UPDATES, DOC_DBQ_SEARCHES, DOC_CHECKS = 200, 128, 256
 DOC_UPDATE_CPU, DOC_SEARCH_ONLY, DOC_PROFILED = 64, 64, 64
 DOC_TTL_S = 3.0  # `sessions`' default TTL; the purger runs every second
 # phase 23 on a node of its own: time-based `logs-*` indexes, a day each
-# (2,000 events a day, cut from a deployment's millions for the phase's
-# 60 s; 7 days and 3 create-fill-search-delete cycles of one more), the
+# (1,500 events a day, cut from a deployment's millions for the phase's
+# 60 s, 2,000 before phase 28 joined the run; 7 days and 3
+# create-fill-search-delete cycles of one more), the
 # users their `user_id` is drawn from (zipf over 50) and the users given a
 # filtered alias searched, the searches of each leg and their connections,
 # the checked searches (half through `last_7_days`, half through the user
-# aliases) and the profiled window of each kind (legs of 64, 16 checks and
+# aliases) and the profiled window of each kind (legs of 48, 16 checks and
 # windows of 32, cut from 128, 64 and 64 after a 93.9 s phase on the card,
-# 57.9 s of it the searches and their host checks)
-LIFE_DAYS, LIFE_DAY_DOCS, LIFE_CYCLES = 7, 2_000, 3
+# 57.9 s of it the searches and their host checks, and the legs from 64
+# when phase 28 joined the run)
+LIFE_DAYS, LIFE_DAY_DOCS, LIFE_CYCLES = 7, 1_500, 3
 LIFE_USERS, LIFE_USER_ZIPF, LIFE_ALIAS_USERS = 50, 1.2, 8
-LIFE_REQUESTS, LIFE_CONN, LIFE_CHECKS, LIFE_PROFILED = 64, 16, 16, 32
+LIFE_REQUESTS, LIFE_CONN, LIFE_CHECKS, LIFE_PROFILED = 48, 16, 16, 32
 LIFE_LEVELS = (("info", 0.8), ("warn", 0.15), ("error", 0.05))
 # a closed or deleted day's device bytes (its packs and filter masks) that
 # memory_allocated() must give back, and the growth over the cycles it may
@@ -753,6 +787,22 @@ TWO_WARM, TWO_REF_TIMEOUT_S = 8, 120
 # both nodes, the connections, and the burst run across the node's loss
 REP_DOCS, REP_LIVE_DOCS = 20_000, 2_000
 REP_REQUESTS, REP_AFTER, REP_CONN, REP_LOSS = 256, 32, 16, 64
+# phase 28: a slow copy and a snapshot on two nodes over TCP: `adaptive`
+# (10,000 of phase 10's texts, 5 shards, 1 replica), the reference bodies
+# and the bodies of each timed leg, the connections, the delay injected on
+# the second node's received query phases (the JAX chaos test's) and the
+# hedge burst (its setting); the recovery's chunks and their requests, the
+# affinity leg's bodies and passes, the profiled subset, and the most
+# warm-up chunks before the EWMAs must have converged
+ADAPT_DOCS, ADAPT_REFS, ADAPT_LEG, ADAPT_CONN = 10_000, 128, 256, 16
+ADAPT_DELAY_S, ADAPT_BURST = 0.75, 24
+ADAPT_CHUNKS, ADAPT_CHUNK, ADAPT_AFFINITY, ADAPT_PASSES = 15, 16, 32, 4
+ADAPT_PROFILED, ADAPT_WARM_CHUNKS = 16, 40
+# ... the bodies of leg (b)'s round-robin run under the same fault
+ADAPT_RR = 64
+# ... and the JAX chaos test's own shape inside leg (b): one shard group,
+# one connection, its healthy baseline and its timed requests
+ADAPT_ONE_HEALTHY, ADAPT_ONE_SLOW = 10, 40
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor float32
@@ -1686,6 +1736,9 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
     # -- 27. a replicated cluster: replicas, peer recovery, a node's loss -----
     report["replicas"] = rep = replica_phase(device, vocab=vocab, seed=seed + 9)
 
+    # -- 28. a slow copy, hedges, cache affinity, snapshot and restore --------
+    report["adaptive"] = adapt = adaptive_phase(device, vocab=vocab, seed=seed + 9)
+
     report["kernels"] = [dict(
         name="sparse_score", **KERNELS["sparse_score"],
         launches=main_launches.get("sparse_score", 0), max_abs_err=max_err,
@@ -1750,7 +1803,13 @@ def run(device, *, n_docs: int, vocab: int, n_batches: int, batch: int,
                           if n != "other"},
         replica_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
                         for s in rep["kernel_shapes"]],
-        replica_max_abs_err=rep["kernel_max_abs_err"])]
+        replica_max_abs_err=rep["kernel_max_abs_err"],
+        adaptive_launches={n: v["launches"] for n, v in adapt["by_node"].items()
+                           if n != "other"},
+        adaptive_hedges=adapt["slow"]["hedges_issued"],
+        adaptive_shapes=[(s["Qb"], s["TB"], s["k"], s["launches"])
+                         for s in adapt["kernel_shapes"]],
+        adaptive_max_abs_err=adapt["kernel_max_abs_err"])]
     return report
 
 
@@ -9173,7 +9232,7 @@ def two_node_ref_child(path: str) -> None:
 class NodePair:
     """Two port Nodes on `device` in this process forming one cluster over
     the TCP transport (127.0.0.1, port 0; the second seeded with the
-    first's address), for phases 26 and 27, and what they read of each
+    first's address; `settings` added to both), for phases 26-28, and what they read of each
     node: its resident bytes, whether its warmer and batcher are drained,
     and, inside `counting()`, its `sparse_score` launches and
     `PendingPull.wait` calls, told apart by the batcher's drainer thread
@@ -9181,13 +9240,20 @@ class NodePair:
     `torch.cuda.synchronize` calls. `close()` closes the nodes, the second
     first."""
 
-    def __init__(self, device, names: tuple, root: Path, phase: int):
+    def __init__(self, device, names: tuple, root: Path, phase: int,
+                 settings: dict | None = None):
         self.device, self.names, self.root, self.phase = device, names, root, phase
+        self.settings = settings or {}
         self.on_card = device.type == "cuda"
         self.nodes: list = []
-        self.by_node = {n: dict(launches=0, waits=0) for n in (*names, "other")}
+        self.by_node = {n: dict(launches=0, waits=0, unlaunched=0)
+                        for n in (*names, "other")}
         self.syncs = 0
         self.lock = threading.Lock()
+        # set while a `counting()` block runs work it must not count
+        self.paused = False
+        # inside `counting()`, the real `torch.cuda.synchronize`
+        self.uncounted_sync = None
 
     def start(self) -> tuple:
         """Boot both nodes and wait for one master; on the card each node
@@ -9195,7 +9261,8 @@ class NodePair:
         from elasticsearch_tpu_torch.node import Node
 
         conf = {"node.device": str(self.device), "transport.type": "tcp",
-                "transport.tcp.host": "127.0.0.1", "transport.tcp.port": 0}
+                "transport.tcp.host": "127.0.0.1", "transport.tcp.port": 0,
+                **self.settings}
         a = Node(name=self.names[0], settings=dict(conf), data_path=str(self.root / "a"))
         self.nodes.append(a)
         a.start(seeds=[])
@@ -9241,13 +9308,14 @@ class NodePair:
 
     def allocated(self, held_bytes: int) -> int:
         """`memory_allocated()` less the bytes a recorder holds (0 off the
-        card)."""
+        card), after a synchronize of its own that `counting()` does not
+        count."""
         import torch
 
         gc.collect()
         if not self.on_card:
             return 0
-        torch.cuda.synchronize()
+        (self.uncounted_sync or torch.cuda.synchronize)()
         return torch.cuda.memory_allocated() - held_bytes
 
     @staticmethod
@@ -9263,37 +9331,59 @@ class NodePair:
     @contextmanager
     def counting(self):
         """Count, until the block ends, each node's `sparse_score` launches
-        (through the scoring module's current `sparse_score`) and
-        `PendingPull.wait` calls, and every `torch.cuda.synchronize`."""
+        (through the scoring module's current `sparse_score`),
+        `PendingPull.wait` calls and the batches its drainer dispatched that
+        launched no `sparse_score` (`unlaunched`: every query of the batch
+        found no block of its terms in the shard, so it scores nothing), and
+        every `torch.cuda.synchronize`; none while `paused` is set."""
         import torch
 
         from elasticsearch_tpu_torch.common import cudaenv
         from elasticsearch_tpu_torch.ops import scoring
+        from elasticsearch_tpu_torch.search import batcher
 
         inner, orig_wait, orig_sync = (scoring.sparse_score, cudaenv.PendingPull.wait,
                                        torch.cuda.synchronize)
+        orig_dispatch = batcher._FlatFamily.dispatch
+
+        def counted_dispatch(items, kb):
+            owner = self.owner()
+            with self.lock:
+                before = self.by_node[owner]["launches"]
+            handle = orig_dispatch(items, kb)
+            with self.lock:
+                if not self.paused and self.by_node[owner]["launches"] == before:
+                    self.by_node[owner]["unlaunched"] += 1
+            return handle
 
         def attributed(*args, **kwargs):
             with self.lock:
-                self.by_node[self.owner()]["launches"] += 1
+                if not self.paused:
+                    self.by_node[self.owner()]["launches"] += 1
             return inner(*args, **kwargs)
 
         def counted_wait(pull):
             with self.lock:
-                self.by_node[self.owner()]["waits"] += 1
+                if not self.paused:
+                    self.by_node[self.owner()]["waits"] += 1
             return orig_wait(pull)
 
         def counted_sync(*a, **k):
             with self.lock:
-                self.syncs += 1
+                if not self.paused:
+                    self.syncs += 1
             return orig_sync(*a, **k)
 
         scoring.sparse_score = attributed
         cudaenv.PendingPull.wait = counted_wait
         torch.cuda.synchronize = counted_sync
+        batcher._FlatFamily.dispatch = staticmethod(counted_dispatch)
+        self.uncounted_sync = orig_sync
         try:
             yield self
         finally:
+            self.uncounted_sync = None
+            batcher._FlatFamily.dispatch = staticmethod(orig_dispatch)
             torch.cuda.synchronize = orig_sync
             cudaenv.PendingPull.wait = orig_wait
             scoring.sparse_score = inner
@@ -9961,6 +10051,838 @@ def replica_phase(device, *, vocab: int, seed: int, n_docs: int = REP_DOCS,
             writer.join(timeout=30)
         if policy is not None:
             FaultPolicy.uninstall(pair.nodes[0].transport)
+        if recorder is not None:
+            recorder.close()
+        pair.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class QueryPhaseTally:
+    """Counts, until `close()`, the query phases each node's transport
+    hands to its handler (after any received-side fault's delay): by node,
+    primary attempts and hedged attempts apart, for each (body, shard)
+    the nodes that ran it, and every arrival in order as ((body, shard),
+    node). `take()` returns the three since the last take."""
+
+    def __init__(self, nodes):
+        from elasticsearch_tpu_torch.actions import A_QUERY_PHASE
+
+        self.lock = threading.Lock()
+        self.names = [n.name for n in nodes]
+        self._reset()
+        self._wrapped = []
+        for n in nodes:
+            handler = n.transport.handlers[A_QUERY_PHASE]
+            inner = handler.fn
+
+            def counted(request, channel, name=n.name, inner=inner):
+                key = (json.dumps(request.get("body"), sort_keys=True), request["shard"])
+                with self.lock:
+                    self.by_node[name]["hedge" if request.get("hedge") else "primary"] += 1
+                    self.landed.setdefault(key, set()).add(name)
+                    self.arrivals.append((key, name))
+                return inner(request, channel)
+
+            handler.fn = counted
+            self._wrapped.append((handler, inner))
+
+    def _reset(self):
+        self.by_node = {n: dict(primary=0, hedge=0) for n in self.names}
+        self.landed: dict = {}
+        self.arrivals: list = []
+
+    def take(self) -> tuple[dict, dict, list]:
+        with self.lock:
+            out = ({k: dict(v) for k, v in self.by_node.items()}, dict(self.landed),
+                   list(self.arrivals))
+            self._reset()
+        return out
+
+    def close(self) -> None:
+        for handler, inner in self._wrapped:
+            handler.fn = inner
+
+
+@contextlib.contextmanager
+def phase_timer(node):
+    """Time each shard query phase `node` coordinates while the block runs,
+    from its first attempt to the answer of its chain (a hedge's too), in
+    ms: the latency that replica selection and hedging act on."""
+    actions = node.actions
+    inner = actions._query_shard_async
+    out: list = []
+
+    def timed(*args, **kwargs):
+        t0 = time.monotonic()
+        fut = inner(*args, **kwargs)
+        fut.add_done_callback(lambda f: out.append(
+            1000.0 * (getattr(f, "completed_at", None) or time.monotonic()) - 1000.0 * t0))
+        return fut
+
+    actions._query_shard_async = timed
+    try:
+        yield out
+    finally:
+        del actions._query_shard_async
+
+
+def hold_restore_swaps(nodes) -> None:
+    """Hold each node's restore-shard handler until every copy of the
+    restored index is started, so each replica has finished its recovery
+    from the still-empty primary before the primary's files are replaced:
+    the order a quiet cluster shows (which comes first is a race on both
+    packages; tests/test_torch_snapshots.py holds the JAX cluster's swaps
+    the same way)."""
+    from elasticsearch_tpu_torch.snapshots import A_RESTORE_SHARD
+
+    for n in nodes:
+        handler = n.transport.handlers[A_RESTORE_SHARD]
+        inner = handler.fn
+
+        def held(request, channel, n=n, inner=inner):
+            deadline = time.perf_counter() + 60.0
+            while True:
+                table = n.cluster_service.state.routing_table.index(request["index"])
+                if table is not None and all(s.state == "STARTED"
+                                             for s in table.all_shards()):
+                    break
+                assert time.perf_counter() < deadline, "the restored copies never started"
+                time.sleep(0.01)
+            return inner(request, channel)
+
+        handler.fn = held
+
+
+def pack_copy(p):
+    """A host copy of a pack's fields that `packs_equal` reads, holding
+    nothing on the card."""
+    from types import SimpleNamespace
+
+    fields = {f: getattr(p, f) for f in ("gen", "doc_count", "doc_pad", "tf_layout",
+                                         "tf_integral", "live_gen", "term_blk_start",
+                                         "host_docs", "host_freqs")}
+    for f in ("blk_docs", "blk_tf", "blk_nb", "live_parent"):
+        fields[f] = getattr(p, f).cpu()
+    fields["norm_bytes"] = {k: v.cpu() for k, v in p.norm_bytes.items()}
+    return SimpleNamespace(**fields)
+
+
+def primary_packs(nodes, index: str, device) -> dict:
+    """(shard, segment gen) -> a host copy of the primary's pack, for every
+    segment of `index`'s primaries that holds a pack on `device`."""
+    from elasticsearch_tpu_torch.ops.device_index import pack_cache_key
+
+    out = {}
+    for n in nodes:
+        svc = n.indices.indices.get(index)
+        for sid, shard in list(svc.shards.items()) if svc is not None else []:
+            if not shard.primary:
+                continue
+            for seg in shard.engine.acquire_searcher().segments:
+                p = seg._device_cache.get(pack_cache_key(device))
+                if p is not None:
+                    out[(sid, seg.gen)] = pack_copy(p)
+    return out
+
+
+def adaptive_phase(device, *, vocab: int, seed: int, n_docs: int = ADAPT_DOCS,
+                   n_refs: int = ADAPT_REFS, n_leg: int = ADAPT_LEG,
+                   n_conn: int = ADAPT_CONN, delay_s: float = ADAPT_DELAY_S,
+                   n_chunks: int = ADAPT_CHUNKS, chunk: int = ADAPT_CHUNK,
+                   n_affinity: int = ADAPT_AFFINITY, n_profiled: int = ADAPT_PROFILED,
+                   n_rr: int = ADAPT_RR, settings: dict | None = None) -> dict:
+    """Phase 28: adaptive replica selection, hedged query phases,
+    cache-affinity routing and snapshot/restore on the card. Two port Nodes
+    on `device` in this process over the TCP transport, as in phases 26-27,
+    with the JAX chaos test's hedge burst (and `settings`, JAX keys, on
+    both nodes). `adaptive` (`n_docs` of phase
+    10's texts, 5 shards) is bulked and flushed at 0 replicas, then raised
+    to 1 replica, so each replica recovers its primary's flushed commit and
+    either copy answers a body bitwise. Each copy is warmed with
+    `_only_node` to each node, then with preference-free traffic until the
+    first node's selector (the coordinator's: every leg is sent to it) has
+    `min_samples` on all 10 copies and their EWMAs are within 3x. Then
+    `n_refs` `bool` bodies with `preference=_primary` are the reference.
+    Each leg is sent from `n_conn` connections to the first node, with no
+    preference unless it says so:
+
+    (a) healthy, `n_leg` bodies: every hits JSON bitwise the reference,
+        each node taking >= 0.3 of the query phases (a tally of the phases
+        each node's transport ran);
+    (b) a seeded FaultPolicy on the second node delays every query phase
+        it receives by `delay_s`. First the JAX chaos test's own shape
+        (tests/test_adaptive_routing.py): one group (`_shards:0`, which
+        keeps hedging), one connection, `ADAPT_ONE_HEALTHY` requests before
+        the fault and `ADAPT_ONE_SLOW` from its start: p95 < 0.7 s and <
+        max(2 x the healthy p99, 0.45 s), hedges issued and won, bitwise
+        the shard's `_primary` answers. Then `n_leg` bodies: its share of
+        the query phases <= 0.35, hedges issued and won (> 0) and issued
+        <= the budget's ratio x primary attempts + its burst, every hits
+        JSON bitwise the reference; then `n_profiled` profiled bodies with
+        the soft `_prefer_node:<second>` (which keeps hedging) from 4
+        connections, bitwise too, at least one shard's profile `winner:
+        "hedge"`; then `n_rr` bodies with the coordinator's selector off
+        (round-robin, hedging on), bitwise too, measured beside the leg.
+        Each shard phase of the leg is timed from its first attempt to its
+        chain's answer (`phase_timer`): their p50 is under the delay.
+        (Under `n_conn` connections the selector's (1 + outstanding) term
+        keeps the slow copy in the spread set while the fast one is busy,
+        and the budget hedges about a quarter of its attempts, so under the
+        JAX selector's rules a request of five groups waits for the delay
+        about half the time: its p50 and p95 are printed, not held);
+    (c) the fault cleared: within `n_chunks` chunks of `chunk` requests,
+        the second node's copies are selected 5 times a group in one chunk
+        (the JAX test's 5 of 16 for one copy, summed over the 5 groups),
+        and the selector counted probes;
+    (d) `n_affinity` bodies at `size: 0`, each sent `ADAPT_PASSES` times
+        (pass by pass) from one connection, every selection recorded with
+        the spread set it was made from: each is an affinity selection or
+        a probe turn (a copy outside the spread set, every 8th selection
+        of its group), each affinity pick is the rendezvous winner of its
+        spread set and each probe lies outside it, every query phase a
+        copy had run before is a request-cache hit there (and every first
+        one a miss), and a pass of revisits only launches no
+        `sparse_score`; then `n_affinity` more from `n_conn` connections,
+        measured;
+    (e) `PUT /_snapshot/backup` (fs, a directory under the phase's root),
+        `PUT /_snapshot/backup/s1`, `DELETE /adaptive`:
+        `memory_allocated()` falls by 0.99-1.01 of the bytes the port
+        counts resident for the index; `POST .../s1/_restore`, green; after
+        128 `_primary` bodies (bitwise the reference) the restored
+        primaries' packs equal the deleted primaries' (`packs_equal`) and
+        `memory_allocated()` rose by 0.99-1.01 of the restored index's
+        resident bytes; each node's `_only_node` `_count` is the kept
+        behaviour's (the primaries hold every document, the replicas
+        recovered from the still-empty primaries: as on the JAX cluster,
+        pinned in tests/test_torch_snapshots.py); snapshot `s2` reuses
+        every segment blob of `s1`.
+
+    The checks of (a)-(e) are each logged as they are made and the phase
+    fails after (e) if any failed. Throughout (a)-(e), per node,
+    `sparse_score` launches + batches whose queries found no block of
+    their terms (which launch nothing) == batches == `PendingPull.wait`
+    calls, and no `torch.cuda.synchronize`; at the end
+    no context is pinned on either node, and the kernel is bitwise against
+    its plain version at every shape either node launched."""
+    import http.client
+
+    from elasticsearch_tpu_torch.actions import A_QUERY_PHASE
+    from elasticsearch_tpu_torch.cluster.routing import OperationRouting
+    from elasticsearch_tpu_torch.common import cudaenv
+    from elasticsearch_tpu_torch.ops import scoring
+    from elasticsearch_tpu_torch.ops.sparse_kernels import sparse_score
+    from elasticsearch_tpu_torch.search import SERVING_COUNTERS
+    from elasticsearch_tpu_torch.transport.faults import FaultPolicy
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else f"{device} (a rehearsal: no card)"
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_adapt_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    names = ("n28a", "n28b")
+    index = "adaptive"
+    steps: dict = {}
+    recorder = tally = None
+    pair = NodePair(device, names, root, phase=28,
+                    settings={"search.hedge.burst": ADAPT_BURST, **(settings or {})})
+    wait_for = pair.wait_for
+    failed: list = []
+
+    def check(ok: bool, what: str, *values) -> bool:
+        if not ok:
+            failed.append(f"{what}: {values}")
+            log(f"[28] CHECK FAILED {what}: {values}")
+        return ok
+
+    by_step: dict = {}  # step -> node -> [batches, launches, waits] in it
+    last = {}
+
+    def done(step: str, t0: float):
+        steps[step] = time.perf_counter() - t0
+        counts = pair.snapshot()
+        now = {n.name: [n.search_batcher.stats()["launches"]] +
+               [counts[n.name][c] for c in ("launches", "unlaunched", "waits")]
+               for n in pair.nodes}
+        by_step[step] = {k: [x - y for x, y in zip(v, last.get(k, [0, 0, 0, 0]))]
+                         for k, v in now.items()}
+        last.update(now)
+        log(f"[28] {step} {steps[step]:.1f} s; batches, launches, batches without "
+            f"a launch, waits by node {by_step[step]}")
+
+    def send(port, part, pref=None, profile=False, conn=n_conn):
+        params = [f"preference={pref}"] if pref else []
+        if profile:
+            params.append("profile=true")
+        path = f"/{index}/_search" + ("?" + "&".join(params) if params else "")
+        return http_requests(port, [("POST", path, body, None) for body in part],
+                             max(1, min(conn, len(part))))
+
+    def ok_hits(results, refs, what, shards=SHARDS_OK):
+        for i, ((st, r), want) in enumerate(zip(results, refs)):
+            assert st == 200 and r["_shards"] == shards, (what, i, st, r.get("_shards"))
+            assert r["hits"] == want["hits"], f"{what} request {i}: hits differ"
+
+    ONE_SHARD_OK = {"total": 1, "successful": 1, "degraded": 0, "failed": 0}
+
+    def copy_keys(node_name):
+        return [f"{node_name}/{index}/{sid}" for sid in range(NODE_SHARDS)]
+
+    try:
+        texts, bodies = two_node_inputs(vocab, seed, n_docs, n_refs,
+                                        max(n_docs, NODE_DOCS))
+        t0 = time.perf_counter()
+        a, b = pair.start()
+        ports = {n.name: n.start_http(0).port for n in (a, b)}
+        sel = a.adaptive_routing
+        done("boot", t0)
+
+        # -- `adaptive` flushed at 0 replicas, then a replica of each shard
+        # recovers the flushed commit ----------------------------------------
+        t0 = time.perf_counter()
+        two_node_fill(b.client(), texts, index=index)
+        assert a.client().flush(index)["_shards"]["failed"] == 0
+        r = a.client().update_settings(index, {"number_of_replicas": 1})
+        assert r.get("acknowledged"), r
+        wait_for(lambda: a.client().cluster_health(index, timeout=0)["status"] == "green",
+                 "green", timeout=60)
+        done("index_flush_replicate", t0)
+
+        # -- warm each copy, then until the selector is warm and even -------
+        t0 = time.perf_counter()
+        for n in names:
+            warm, _l, _w = send(ports[n], bodies[:TWO_WARM], pref=f"_only_node:{n}")
+            assert all(st == 200 for st, _r in warm)
+        for n in (a, b):
+            wait_for(lambda n=n: pair.drained(n), f"{n.name}'s warmer drained")
+        keys = copy_keys(names[0]) + copy_keys(names[1])
+        warm_chunks = 0
+        while True:
+            warm, _l, _w = send(ports[names[0]], bodies[:2 * n_conn])
+            assert all(st == 200 for st, _r in warm)
+            warm_chunks += 1
+            copies = sel.stats()["copies"]
+            if all(k in copies and copies[k]["samples"] >= sel.min_samples for k in keys):
+                ew = [copies[k]["ewma_ms"] for k in keys]
+                if max(ew) <= 3.0 * min(ew):
+                    break
+            assert warm_chunks < ADAPT_WARM_CHUNKS, \
+                f"phase 28: the EWMAs never converged: {copies}"
+        warm_ewma = {k: copies[k]["ewma_ms"] for k in keys}
+        refs, _l, _w = send(ports[names[0]], bodies, pref="_primary")
+        for i, (st, r) in enumerate(refs):
+            assert st == 200 and r["_shards"] == SHARDS_OK, (i, r.get("_shards"))
+        refs = [r for _st, r in refs]
+        # the one-group references: shard 0's primary alone
+        one_bodies = bodies[:ADAPT_ONE_SLOW]
+        one_refs, _l, _w = send(ports[names[0]], one_bodies, pref="_shards:0;_primary")
+        assert all(st == 200 for st, _r in one_refs)
+        one_refs = [r for _st, r in one_refs]
+        done("warm_and_reference", t0)
+
+        leg_bodies = [bodies[i % n_refs] for i in range(n_leg)]
+        leg_refs = [refs[i % n_refs] for i in range(n_leg)]
+        recorder = LaunchRecorder(scoring, sparse_score, copy_inputs=True)
+        tally = QueryPhaseTally((a, b))
+        batches0 = {n.name: n.search_batcher.stats()["launches"] for n in (a, b)}
+        errors0 = SERVING_COUNTERS["device_errors"]
+        cudaenv.LAUNCHES.reset()
+        out: dict = {}
+        with pair.counting():
+            # -- (a) healthy ---------------------------------------------------
+            t0 = time.perf_counter()
+            tally.take()
+            got, lat_a, wall = send(ports[names[0]], leg_bodies)
+            ok_hits(got, leg_refs, "healthy")
+            phases_a, _landed, _arr = tally.take()
+            total = sum(v["primary"] + v["hedge"] for v in phases_a.values())
+            share_a = {n: (v["primary"] + v["hedge"]) / total for n, v in phases_a.items()}
+            check(all(s >= 0.3 for s in share_a.values()), "(a) each node's share >= 0.3",
+                  share_a, phases_a)
+            out["healthy"] = dict(requests_per_s=n_leg / wall,
+                                  p50_ms=float(np.percentile(lat_a, 50)),
+                                  p95_ms=float(np.percentile(lat_a, 95)),
+                                  p99_ms=float(np.percentile(lat_a, 99)),
+                                  phases=phases_a, share=share_a)
+            done("healthy", t0)
+
+            # -- (b) the second node's received query phases delayed ----------
+            t0 = time.perf_counter()
+            # first the JAX chaos test's shape: one shard group (`_shards:0`
+            # keeps hedging), one connection, a healthy baseline, then the
+            # fault and its timed requests from the moment it is installed
+            one_h, lat_1h, _w = send(ports[names[0]], one_bodies[:ADAPT_ONE_HEALTHY],
+                                     pref="_shards:0", conn=1)
+            ok_hits(one_h, one_refs, "one group, healthy", ONE_SHARD_OK)
+            policy = FaultPolicy(seed).install(b.transport)
+            rule = policy.delay(delay_s, action=A_QUERY_PHASE, direction="recv")
+            h00 = sel.hedges.stats()
+            one_s, lat_1s, _w = send(ports[names[0]], one_bodies, pref="_shards:0", conn=1)
+            ok_hits(one_s, one_refs, "one group, slow copy", ONE_SHARD_OK)
+            h0 = sel.hedges.stats()
+            one_phases, _landed, _arr = tally.take()
+            one_sorted = sorted(lat_1s)
+            one_p95 = float(one_sorted[int(0.95 * len(one_sorted)) - 1])
+            one_p99h = float(max(lat_1h))
+            check(one_p95 < 700.0, "(b) one group: p95 < 700 ms", one_p95, one_sorted[-5:])
+            check(one_p95 < max(2.0 * one_p99h, 450.0),
+                  "(b) one group: p95 < max(2 x healthy p99, 450 ms)", one_p95, one_p99h)
+            check(h0["issued"] > h00["issued"] and h0["won"] > h00["won"],
+                  "(b) one group: hedges issued and won", h00, h0)
+            out["one_group"] = dict(requests=len(one_bodies), healthy_p99_ms=one_p99h,
+                                    p50_ms=float(np.percentile(lat_1s, 50)), p95_ms=one_p95,
+                                    max_ms=float(one_sorted[-1]), phases=one_phases,
+                                    hedges_issued=h0["issued"] - h00["issued"],
+                                    hedges_won=h0["won"] - h00["won"])
+            # then the leg: every group, `n_conn` connections, each shard's
+            # query phase timed from its first attempt to the chain's answer
+            st0 = sel.stats()
+            with phase_timer(a) as phase_b:
+                got, lat_b, wall = send(ports[names[0]], leg_bodies)
+            h1 = sel.hedges.stats()
+            st1 = sel.stats()
+            phases_b, _landed, _arr = tally.take()
+            kinds_b = {k: v - st0["selections"][k] for k, v in st1["selections"].items()}
+            picked_b = {n: sum(st1["copies"][k]["selected"] - st0["copies"][k]["selected"]
+                               for k in copy_keys(n)) for n in names}
+            copies_b = {k: {f: st1["copies"][k][f] for f in
+                            ("ewma_ms", "p99_ms", "outstanding", "queue")}
+                        for k in keys}
+            ok_hits(got, leg_refs, "slow copy")
+            total = sum(v["primary"] + v["hedge"] for v in phases_b.values())
+            share_b = (phases_b[names[1]]["primary"] + phases_b[names[1]]["hedge"]) / total
+            primaries = sum(v["primary"] for v in phases_b.values())
+            issued, won = h1["issued"] - h0["issued"], h1["won"] - h0["won"]
+            p95_b = float(np.percentile(lat_b, 95))
+            log(f"[28] (b) p50 {np.percentile(lat_b, 50):.2f} ms, p95 {p95_b:.2f} ms, "
+                f"query phases {phases_b} (share {share_b:.3f}), hedges issued {issued}, "
+                f"won {won}, budget exhausted "
+                f"{h1['budget_exhausted'] - h0['budget_exhausted']}, {primaries} primary "
+                f"attempts; healthy p50 {out['healthy']['p50_ms']:.2f} ms, p95 "
+                f"{out['healthy']['p95_ms']:.2f} ms")
+            check(share_b <= 0.35, "(b) the slow node's share <= 0.35", share_b, phases_b)
+            check(issued > 0 and won > 0, "(b) hedges issued and won", h0, h1)
+            check(issued <= h1["ratio"] * primaries + h1["burst"],
+                  "(b) hedges within the budget", issued, primaries, h1)
+            log(f"[28] (b) selections in the leg {kinds_b}, copies picked by node "
+                f"{picked_b}; the copies after it {copies_b}")
+            # under `n_conn` connections the selector's (1 + outstanding)
+            # term keeps the slow copy in the spread set while the fast one
+            # is busy, and the budget hedges about a quarter of its
+            # attempts: the JAX selector's rules bound a shard's query
+            # phase, not a request of five, whose p50 and p95 follow the
+            # host's speed around the delay (printed, not held; the
+            # one-group run above holds the request's p95)
+            check(len(phase_b) == NODE_SHARDS * n_leg, "(b) every shard phase timed",
+                  len(phase_b))
+            check(float(np.percentile(phase_b, 50)) < 1000.0 * delay_s,
+                  "(b) the shard phases' p50 under the delay",
+                  float(np.percentile(phase_b, 50)), float(np.percentile(phase_b, 95)))
+            # a profiled shard phase launches on its search thread, outside
+            # the batcher: those launches and pulls are left out of the
+            # per-node counts (and of the process's launch count)
+            pair.paused = True
+            k0 = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0)
+            prof, _l, _w = send(ports[names[0]], leg_bodies[:n_profiled],
+                                pref=f"_prefer_node:{names[1]}", profile=True, conn=4)
+            profiled_launches = cudaenv.LAUNCHES.snapshot().get("sparse_score", 0) - k0
+            pair.paused = False
+            winners = {}
+            for i, ((st, r), want) in enumerate(zip(prof, leg_refs)):
+                assert st == 200 and r["_shards"]["failed"] == 0, (i, r.get("_shards"))
+                assert r["hits"] == want["hits"], f"profiled request {i}: hits differ"
+                for sh in r["profile"]["shards"]:
+                    winners[sh["winner"]] = winners.get(sh["winner"], 0) + 1
+            check(winners.get("hedge", 0) >= 1, "(b) a profiled `winner: hedge`", winners)
+            h2 = sel.hedges.stats()
+            tally.take()
+            # the same load with the coordinator's selector off (measured):
+            # the routing round-robins, hedging and its budget stay on
+            sel.enabled = False
+            try:
+                with phase_timer(a) as phase_rr:
+                    got, lat_rr, _w = send(ports[names[0]], leg_bodies[:n_rr])
+            finally:
+                sel.enabled = True
+            ok_hits(got, leg_refs[:n_rr], "slow copy, round-robin")
+            phases_rr, _landed, _arr = tally.take()
+            h3 = sel.hedges.stats()
+            total = sum(v["primary"] + v["hedge"] for v in phases_rr.values())
+            share_rr = (phases_rr[names[1]]["primary"] +
+                        phases_rr[names[1]]["hedge"]) / total
+            over = {"adaptive": float(np.mean(np.asarray(lat_b) >= 1000.0 * delay_s)),
+                    "round_robin": float(np.mean(np.asarray(lat_rr) >= 1000.0 * delay_s))}
+            mean_b, mean_rr = float(np.mean(lat_b)), float(np.mean(lat_rr))
+            log(f"[28] (b) round-robin under the delay, {n_rr} bodies: mean "
+                f"{mean_rr:.2f} ms (adaptive {mean_b:.2f}), p50 "
+                f"{np.percentile(lat_rr, 50):.2f} ms (adaptive "
+                f"{np.percentile(lat_b, 50):.2f}), share over the delay {over}, "
+                f"{names[1]}'s share {share_rr:.3f}, hedges issued "
+                f"{h3['issued'] - h2['issued']}; shard phases p50 "
+                f"{np.percentile(phase_rr, 50):.2f} ms (adaptive "
+                f"{np.percentile(phase_b, 50):.2f}), p95 {np.percentile(phase_rr, 95):.2f} "
+                f"ms (adaptive {np.percentile(phase_b, 95):.2f})")
+            out["slow"] = dict(delay_s=delay_s, delayed=rule.hits,
+                               requests_per_s=n_leg / wall,
+                               p50_ms=float(np.percentile(lat_b, 50)), p95_ms=p95_b,
+                               p99_ms=float(np.percentile(lat_b, 99)),
+                               phases=phases_b, share=share_b, primary_attempts=primaries,
+                               hedges_issued=issued, hedges_won=won,
+                               budget_exhausted=h1["budget_exhausted"] - h0["budget_exhausted"],
+                               profiled=n_profiled, winners=winners,
+                               profiled_launches=profiled_launches,
+                               profiled_hedges_issued=h2["issued"] - h1["issued"],
+                               selections=kinds_b, picked=picked_b, copies=copies_b,
+                               mean_ms=mean_b, over_delay=over,
+                               phase_p50_ms=float(np.percentile(phase_b, 50)),
+                               phase_p95_ms=float(np.percentile(phase_b, 95)),
+                               round_robin=dict(requests=n_rr, mean_ms=mean_rr,
+                                                phase_p50_ms=float(np.percentile(phase_rr, 50)),
+                                                phase_p95_ms=float(np.percentile(phase_rr, 95)),
+                                                p50_ms=float(np.percentile(lat_rr, 50)),
+                                                p95_ms=float(np.percentile(lat_rr, 95)),
+                                                phases=phases_rr, share=share_rr,
+                                                hedges_issued=h3["issued"] - h2["issued"]))
+            done("slow_copy", t0)
+
+            # -- (c) the fault cleared: the copy rejoins the rotation ----------
+            t0 = time.perf_counter()
+            policy.clear()
+            FaultPolicy.uninstall(b.transport)
+            probes0 = sel.stats()["probes"]
+            rejoined = None
+            picks = []
+            for c in range(n_chunks):
+                before = sel.stats()["copies"]
+                got, _l, _w = send(ports[names[0]], leg_bodies[c * chunk:(c + 1) * chunk])
+                ok_hits(got, leg_refs[c * chunk:(c + 1) * chunk], "recovery")
+                after = sel.stats()["copies"]
+                picked = sum(after[k]["selected"] - before[k]["selected"]
+                             for k in copy_keys(names[1]))
+                picks.append(picked)
+                if picked >= 5 * NODE_SHARDS:
+                    rejoined = c
+                    break
+            probes = sel.stats()["probes"] - probes0
+            check(rejoined is not None and probes > 0, "(c) the copy rejoins, with probes",
+                  picks, probes, sel.stats()["copies"])
+            tally.take()
+            out["recovery"] = dict(chunks=None if rejoined is None else rejoined + 1,
+                                   picks=picks, probes=probes)
+            done("recovery", t0)
+
+            # -- (d) cache affinity: pass by pass, from one connection (held
+            # to every check), then from `n_conn` (measured) -----------------
+            t0 = time.perf_counter()
+
+            def spread_set(active) -> set:
+                """The copies `select` may pick by affinity right now: the
+                ones within the spread of the best score among those not
+                quarantined (all of them when every copy is), as
+                `AdaptiveReplicaSelector.select` computes them."""
+                now = time.monotonic()
+                hl, qt = sel.failure_halflife_s, sel.quarantine_failures
+                scored = [(sel._copy(sel.key(c)).score(now, hl), c,
+                           sel._copy(sel.key(c)).quarantined(now, hl, qt)) for c in active]
+                healthy = [(sc, c) for sc, c, q in scored if not q] or \
+                    [(sc, c) for sc, c, _q in scored]
+                best = min(sc for sc, _c in healthy)
+                return {c.node_id for sc, c in healthy if sc <= best * sel.spread + 1e-4}
+
+            def affinity_leg(part, conn, record: bool):
+                """`ADAPT_PASSES` passes of `part` from `conn` connections.
+                With `record`, every selection is logged with its kind and
+                the spread set it was made from (a serial leg: no other
+                selection runs between the two reads)."""
+                selections: list = []
+                if record:
+                    inner_select = sel.select
+
+                    def recording(active, affinity=None):
+                        spread = spread_set(active)
+                        k0 = dict(sel.selections)
+                        pick = inner_select(active, affinity=affinity)
+                        kind = next(k for k, v in sel.selections.items() if v != k0[k])
+                        selections.append((affinity, active[0].shard_id, kind,
+                                           pick.node_id, spread, len(active)))
+                        return pick
+
+                    sel.select = recording
+                kinds0 = dict(sel.stats()["selections"])
+                hits0 = [sum(n.request_cache.stats()["hits"] for n in (a, b))]
+                totals, by_pass, hits_by_pass, kinds_by_pass, ewma_by_pass = \
+                    None, [], [], [], []
+                seen: dict = {}  # (body, shard) -> the nodes that ran it so far
+                revisits, new_visits = [], []
+                tally.take()
+                try:
+                    for p in range(ADAPT_PASSES):
+                        before = pair.snapshot()
+                        k_before = dict(sel.stats()["selections"])
+                        copies = sel.stats()["copies"]
+                        ewma_by_pass.append({n: [copies[k]["ewma_ms"] for k in copy_keys(n)]
+                                             for n in names})
+                        got, _l, _w = send(ports[names[0]], part, conn=conn)
+                        after = pair.snapshot()
+                        by_pass.append(sum(after[n]["launches"] - before[n]["launches"]
+                                           for n in names))
+                        kinds_by_pass.append({k: v - k_before[k] for k, v in
+                                              sel.stats()["selections"].items()
+                                              if v - k_before[k]})
+                        hits_now = sum(n.request_cache.stats()["hits"] for n in (a, b))
+                        hits_by_pass.append(hits_now - hits0[-1])
+                        hits0.append(hits_now)
+                        for i, (st, r) in enumerate(got):
+                            assert st == 200 and r["_shards"] == SHARDS_OK, \
+                                (p, i, r.get("_shards"))
+                        now = [r["hits"]["total"] for _st, r in got]
+                        assert totals is None or now == totals, (p, now, totals)
+                        totals = now
+                        _phases, _landed, arrivals = tally.take()
+                        old = new = 0
+                        for key, node in arrivals:
+                            if node in seen.get(key, ()):
+                                old += 1
+                            else:
+                                new += 1
+                                seen.setdefault(key, set()).add(node)
+                        revisits.append(old)
+                        new_visits.append(new)
+                finally:
+                    if record:
+                        del sel.select
+                kinds = sel.stats()["selections"]
+                wrong = [x for x in selections
+                         if (x[2] == "affinity" and x[3] != OperationRouting.rendezvous(
+                             x[0], [c for c in a.cluster_service.state.routing_table
+                                    .index(index).shard(x[1]).active_shards()
+                                    if c.node_id in x[4]]).node_id)
+                         or (x[2] == "probe" and x[3] in x[4])]
+                narrowed = sum(1 for x in selections
+                               if x[2] == "affinity" and len(x[4]) < x[5])
+                return dict(bodies=len(part), conn=conn,
+                            selections=kinds["affinity"] - kinds0["affinity"],
+                            by_kind={k: v - kinds0[k] for k, v in kinds.items()},
+                            recorded=len(selections), wrong=len(wrong), wrong_first=wrong[:4],
+                            narrowed=narrowed,
+                            launches_by_pass=by_pass, hits_by_pass=hits_by_pass,
+                            revisits_by_pass=revisits, new_visits_by_pass=new_visits,
+                            kinds_by_pass=kinds_by_pass, ewma_ms_by_pass=ewma_by_pass,
+                            pairs=len(seen),
+                            spread=sum(1 for v in seen.values() if len(v) != 1))
+
+            zero = [{**body, "size": 0} for body in bodies[:2 * n_affinity]]
+            af = affinity_leg(zero[:n_affinity], 1, record=True)
+            want = ADAPT_PASSES * n_affinity * NODE_SHARDS
+            # every selection by affinity but the probe turns (every 8th
+            # selection of a group while one of its copies is outside the
+            # spread set), each affinity pick the rendezvous winner of its
+            # spread set and each probe outside it
+            check(af["recorded"] == want and
+                  af["by_kind"].get("affinity", 0) + af["by_kind"].get("probe", 0) == want,
+                  "(d) every selection by affinity or a probe turn", af)
+            check(af["wrong"] == 0, "(d) each pick the rendezvous winner of its spread set", af)
+            # each (body, shard) that a copy ran before is a request-cache
+            # hit there, and a pass whose every phase was such a revisit
+            # launches nothing
+            check(af["hits_by_pass"][0] == 0 and af["hits_by_pass"][1:] == af["revisits_by_pass"][1:],
+                  "(d) every revisit a request-cache hit, every first visit a miss", af)
+            if on_card:
+                check(af["launches_by_pass"][0] > 0 and
+                      all(n == 0 for n, new in zip(af["launches_by_pass"][1:],
+                                                   af["new_visits_by_pass"][1:]) if new == 0),
+                      "(d) no launch in a pass of revisits only", af)
+            out["affinity"] = af
+            out["affinity_concurrent"] = affinity_leg(zero[n_affinity:], n_conn, record=False)
+            done("affinity", t0)
+
+            # -- (e) snapshot, delete, restore ----------------------------------
+            t0 = time.perf_counter()
+            repo = root / "repo"
+            conn = http.client.HTTPConnection("127.0.0.1", ports[names[0]], timeout=300)
+            try:
+                st, r = http_json(conn, "PUT", "/_snapshot/backup",
+                                  {"type": "fs", "settings": {"location": str(repo)}})
+                assert st == 200 and r["acknowledged"], r
+                st, r = http_json(conn, "PUT", "/_snapshot/backup/s1", {"indices": index})
+                assert st == 200 and r["snapshot"]["state"] == "SUCCESS", r
+                blobs_s1 = set(os.listdir(repo / "blobs"))
+                for n in (a, b):
+                    wait_for(lambda n=n: pair.drained(n), f"{n.name}'s warmer drained")
+                deleted_packs = primary_packs((a, b), index, device)
+                resident = sum(pair.resident(n) for n in (a, b))
+                before = pair.allocated(recorder.held_bytes)
+                st, r = http_json(conn, "DELETE", f"/{index}")
+                assert st == 200 and r["acknowledged"], r
+                wait_for(lambda: all(index not in n.indices.indices for n in (a, b)),
+                         "the index removed on both nodes")
+                after_delete = pair.allocated(recorder.held_bytes)
+                released = before - after_delete
+                hold_restore_swaps((a, b))
+                st, r = http_json(conn, "POST", "/_snapshot/backup/s1/_restore")
+                assert st == 200 and r["snapshot"]["indices"] == [index], r
+                st, r = http_json(conn, "GET", f"/_cluster/health/{index}"
+                                  "?wait_for_status=green&timeout=60s")
+                assert st == 200 and r["status"] == "green", r
+            finally:
+                conn.close()
+            got, _l, _w = send(ports[names[0]], bodies, pref="_primary")
+            ok_hits(got, refs, "restored")
+            for n in (a, b):
+                wait_for(lambda n=n: pair.drained(n), f"{n.name}'s warmer drained")
+            restored_packs = primary_packs((a, b), index, device)
+            assert sorted(restored_packs) == sorted(deleted_packs), \
+                (sorted(restored_packs), sorted(deleted_packs))
+            pack_diffs = {k: bad for k in deleted_packs
+                          if (bad := packs_equal(deleted_packs[k], restored_packs[k]))}
+            assert not pack_diffs, pack_diffs
+            packs_compared = len(deleted_packs)
+            del deleted_packs, restored_packs
+            restored_resident = sum(pair.resident(n) for n in (a, b))
+            rose = pair.allocated(recorder.held_bytes) - after_delete
+            if on_card:
+                check(0.99 * resident <= released <= 1.01 * resident,
+                      "(e) the delete gives back the resident bytes", resident, released)
+                check(0.99 * restored_resident <= rose <= 1.01 * restored_resident,
+                      "(e) the restore takes the restored resident bytes",
+                      restored_resident, rose)
+            state = a.cluster_service.state
+            per_shard = {}
+            for sid in range(NODE_SHARDS):
+                per_shard[sid] = a.client().search(
+                    index, {"size": 0}, preference=f"_shards:{sid};_primary")["hits"]["total"]
+            kept = {n: sum(per_shard[s.shard_id] for s in
+                           state.routing_table.index(index).all_shards()
+                           if s.primary and s.node_id == n) for n in names}
+            counts = {n: a.client().search(index, {"size": 0},
+                                           preference=f"_only_node:{n}")["hits"]["total"]
+                      for n in names}
+            check(counts == kept and sum(per_shard.values()) == n_docs,
+                  "(e) each node's count the kept behaviour's", counts, kept, per_shard)
+            conn = http.client.HTTPConnection("127.0.0.1", ports[names[0]], timeout=300)
+            try:
+                st, r = http_json(conn, "PUT", "/_snapshot/backup/s2", {"indices": index})
+                assert st == 200 and r["snapshot"]["state"] == "SUCCESS", r
+            finally:
+                conn.close()
+            s2 = json.loads((repo / "snapshots" / "s2.json").read_text())
+            s2_files = [blob for sh in s2["indices"][index]["shards"].values()
+                        for blob in sh["files"].values()]
+            s2_segs = [f for f in s2_files if "_seg_" in f]
+            reused = [f for f in s2_files if f in blobs_s1]
+            assert s2_segs and set(s2_segs) <= blobs_s1, (s2_segs, sorted(blobs_s1))
+            out["snapshot"] = dict(resident=resident, released=released,
+                                   restored_resident=restored_resident, rose=rose,
+                                   packs_compared=packs_compared,
+                                   counts=counts, kept=kept, per_shard=per_shard,
+                                   s1_blobs=len(blobs_s1), s2_files=len(s2_files),
+                                   s2_reused=len(reused), s2_segment_files=len(s2_segs))
+            done("snapshot_restore", t0)
+            launches = cudaenv.LAUNCHES.snapshot()
+        by_node, syncs = pair.snapshot(), pair.syncs
+        batches = {n.name: n.search_batcher.stats()["launches"] - batches0[n.name]
+                   for n in (a, b)}
+        assert SERVING_COUNTERS["device_errors"] == errors0
+        for name in names:
+            # one launch a batch (one segment a shard, one bucket), but for a
+            # batch whose queries found no block of their terms in the shard
+            assert by_node[name]["waits"] == batches[name] > 0, (name, by_node, batches)
+            assert by_node[name]["launches"] + by_node[name]["unlaunched"] == \
+                batches[name], (name, by_node, batches, by_step)
+        assert syncs == 0 and by_node["other"]["launches"] == 0, (syncs, by_node)
+        if on_card:
+            assert launches.get("sparse_score", 0) - out["slow"]["profiled_launches"] == \
+                sum(by_node[n]["launches"] for n in names), (launches, by_node)
+        wait_for(lambda: not a.actions._pinned and not b.actions._pinned,
+                 "no context pinned", timeout=30)
+        assert not failed, f"phase 28: {len(failed)} checks failed: {failed}"
+        t0 = time.perf_counter()
+        max_err = check_shapes(recorder.shapes)
+        shapes = [dict(Qb=int(args[0].shape[0]), TB=int(args[0].shape[1]),
+                       tf=str(args[10].dtype), k=kwargs["k"], launches=n)
+                  for _key, (args, kwargs, n) in recorder.shapes.items()]
+        done("kernel_checks", t0)
+        out.update(card=card, docs=n_docs, warm_chunks=warm_chunks, warm_ewma_ms=warm_ewma,
+                   by_node=by_node, batches=batches, launches=launches,
+                   kernel_shapes=shapes, kernel_max_abs_err=max_err, steps_s=steps)
+        h, s, rc, af, afc, sn = (out[k] for k in ("healthy", "slow", "recovery", "affinity",
+                                                   "affinity_concurrent", "snapshot"))
+        log(f"[28] two nodes on {device} over TCP, master {names[0]}: `{index}` "
+            f"{n_docs} docs, 5 shards, flushed, then 1 replica (recovered from the "
+            f"flush); warmed in {warm_chunks} chunks to EWMAs "
+            f"{min(warm_ewma.values()):.2f}-{max(warm_ewma.values()):.2f} ms; {card}")
+        log(f"[28] (a) healthy: {n_leg} bodies from {n_conn} connections: "
+            f"{h['requests_per_s']:.1f} requests/s, p50 {h['p50_ms']:.2f} ms, p95 "
+            f"{h['p95_ms']:.2f} ms, p99 {h['p99_ms']:.2f} ms; query phases {h['phases']} "
+            f"(shares {', '.join(f'{k} {v:.3f}' for k, v in h['share'].items())}); "
+            f"hits bitwise the `_primary` reference")
+        log(f"[28] (b) {names[1]}'s received query phases delayed {delay_s} s "
+            f"({s['delayed']} delayed): {s['requests_per_s']:.1f} requests/s, p50 "
+            f"{s['p50_ms']:.2f} ms, p95 {s['p95_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms; "
+            f"query phases {s['phases']} ({names[1]}'s share {s['share']:.3f}); hedges "
+            f"issued {s['hedges_issued']}, won {s['hedges_won']}, budget exhausted "
+            f"{s['budget_exhausted']} for {s['primary_attempts']} primary attempts; "
+            f"hits bitwise; {n_profiled} profiled with `_prefer_node:{names[1]}`: "
+            f"winners {s['winners']}")
+        rr = s["round_robin"]
+        log(f"[28] (b) shard phases p50 {s['phase_p50_ms']:.2f} ms, p95 "
+            f"{s['phase_p95_ms']:.2f} ms; request mean {s['mean_ms']:.2f} ms; the leg's "
+            f"selections {s['selections']}; share of requests over the delay "
+            f"{s['over_delay']}; round-robin under the same fault ({rr['requests']} "
+            f"bodies, measured): request mean {rr['mean_ms']:.2f} ms, p50 "
+            f"{rr['p50_ms']:.2f} ms, p95 {rr['p95_ms']:.2f} ms, shard phases p50 "
+            f"{rr['phase_p50_ms']:.2f} ms, p95 {rr['phase_p95_ms']:.2f} ms, "
+            f"{names[1]}'s share {rr['share']:.3f}, hedges issued {rr['hedges_issued']}")
+        og = out["one_group"]
+        log(f"[28] (b) one group (`_shards:0`), one connection, as the JAX chaos test: "
+            f"healthy p99 {og['healthy_p99_ms']:.2f} ms; {og['requests']} requests under "
+            f"the delay: p50 {og['p50_ms']:.2f} ms, p95 {og['p95_ms']:.2f} ms, max "
+            f"{og['max_ms']:.2f} ms, query phases {og['phases']}, hedges issued "
+            f"{og['hedges_issued']}, won {og['hedges_won']}")
+        log(f"[28] (c) fault cleared: {names[1]}'s copies selected {rc['picks']} in "
+            f"chunks of {chunk}; rejoined in chunk {rc['chunks']}, {rc['probes']} probes")
+        for leg in (af, afc):
+            recorded = (f"; {leg['narrowed']} affinity picks from a spread set of one "
+                        f"copy, {leg['wrong']} not the rendezvous winner"
+                        if leg["recorded"] else "")
+            log(f"[28] (d) {leg['bodies']} `size: 0` bodies x {ADAPT_PASSES} from "
+                f"{leg['conn']} connection(s): selections {leg['by_kind']} (by pass "
+                f"{leg['kinds_by_pass']}{recorded}), "
+                f"{leg['spread']} of {leg['pairs']} (body, shard) pairs on two copies; by "
+                f"pass: request-cache hits {leg['hits_by_pass']}, revisits "
+                f"{leg['revisits_by_pass']}, first visits {leg['new_visits_by_pass']}, "
+                f"sparse_score launches {leg['launches_by_pass']}")
+        log(f"[28] (e) snapshot s1 ({sn['s1_blobs']} blobs), DELETE: resident "
+            f"{sn['resident']} B, memory_allocated() fell {sn['released']} B"
+            + (f" ({sn['released'] / sn['resident']:.4f} of it)" if sn['resident'] else "")
+            + f"; restored, green, {n_refs} `_primary` bodies bitwise, the primaries' "
+            f"{sn['packs_compared']} packs == the deleted ones; resident {sn['restored_resident']} B, memory_allocated() rose "
+            f"{sn['rose']} B"
+            + (f" ({sn['rose'] / sn['restored_resident']:.4f} of it)"
+               if sn['restored_resident'] else "")
+            + f"; `_only_node` `_count` {sn['counts']} == the kept behaviour's "
+            f"{sn['kept']} (primaries per shard {sn['per_shard']}); s2: {sn['s2_reused']} "
+            f"of {sn['s2_files']} files reused, every one of its {sn['s2_segment_files']} "
+            f"segment files")
+        for name in names:
+            log(f"[28]   {name}: {by_node[name]['launches']} sparse_score launches, "
+                f"{batches[name]} batches ({by_node[name]['unlaunched']} of them found no "
+                f"block to score), {by_node[name]['waits']} PendingPull.wait calls; "
+                f"torch.cuda.synchronize calls {syncs}")
+        for sh in shapes:
+            log(f"[28]   sparse_score Qb {sh['Qb']} TB {sh['TB']} {sh['tf']} k {sh['k']}: "
+                f"{sh['launches']} launches")
+        log(f"[28] sparse_score == plain (bitwise) at all {len(shapes)} shapes phase 28 "
+            f"launched; max abs err {max_err}")
+        out["wall_phase_s"] = time.perf_counter() - t_phase
+        log(f"[28] phase 28 took {out['wall_phase_s']:.1f} s; by step (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+        return out
+    finally:
+        if tally is not None:
+            tally.close()
+        if pair.nodes:
+            FaultPolicy.uninstall(pair.nodes[-1].transport)
         if recorder is not None:
             recorder.close()
         pair.close()

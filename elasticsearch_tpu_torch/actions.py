@@ -40,10 +40,12 @@ package's `actions.py`), in the reference's interaction patterns:
   across either round trip;
 - scatter-gather search, `query_then_fetch`: one query phase per shard, all
   in flight at once over the transport, each a failover chain across the
-  group's active copies (`_query_shard_async`: a timer bounds each
-  attempt, a failed attempt or a copy whose node left sends the next
-  copy, and every failed attempt is a `_shards.failures` entry when no
-  copy answers); each runs `execute_query_phase` on
+  group's active copies, ranked by the adaptive replica selector
+  (`_query_shard_async`: a timer bounds each attempt, a failed attempt or
+  a copy whose node left sends the next copy, an attempt that outlives
+  its copy's p99 is hedged to the next copy within the hedge budget, and
+  every failed attempt is a `_shards.failures` entry when no copy
+  answers); each runs `execute_query_phase` on
   the shard's point-in-time searcher through the node's one DeviceBatcher
   onto the card, and pins that context for the fetch. The coordinator
   reduces the shards' top-k (`sort_docs`), fetches the winners from the
@@ -140,9 +142,11 @@ The TransportClient's surface (client.py): `_s_client_nodes` answers the
 cluster's node list, and `_s_client_exec` runs one whitelisted Client
 method on this node, coordinated as a REST request would be.
 
-Not in this slice: the SPMD mesh branch, adaptive replica selection,
-cache-affinity routing and hedging (the second half of ROADMAP A5c), and
-the alias routing values (stored and rendered; no write or search reads
+The watchdog's events another node gossips arrive at `_s_event_publish`
+(the `management` pool) and land in this node's journal, deduplicated by
+their origin's seq.
+
+Not in this slice: the SPMD mesh branch, and the alias routing values (stored and rendered; no write or search reads
 them, as in the JAX package)."""
 
 from __future__ import annotations
@@ -255,6 +259,7 @@ A_FETCH_PHASE = "indices:data/read/search[phase/fetch]"
 A_FREE_CONTEXT = "indices:data/read/search[free-context]"
 A_DFS_PHASE = "indices:data/read/search[phase/dfs]"
 A_SHARD_BROADCAST = "indices:admin/broadcast[s]"
+A_EVENTS_PUBLISH = "internal:cluster/events/publish"
 
 # how long the coordinator waits for one DFS attempt when the request set
 # no budget of its own (a query attempt's is QUERY_ATTEMPT_TIMEOUT)
@@ -359,12 +364,19 @@ class ActionModule:
                            executor="management")
         t.register_handler(A_SHUTDOWN_NODE, self._s_shutdown_node,
                            executor="management")
+        t.register_handler(A_EVENTS_PUBLISH, self._s_event_publish,
+                           executor="management")
         # the TransportClient's surface: the node list its sampler asks
         # for, and every API call as a named client method
         from .client import A_CLIENT_EXEC, A_CLIENT_NODES
 
         t.register_handler(A_CLIENT_NODES, self._s_client_nodes, executor="management")
         t.register_handler(A_CLIENT_EXEC, self._s_client_exec, executor="generic")
+
+    def _s_event_publish(self, request, channel):
+        """A peer watchdog's event lands in this node's journal,
+        deduplicated by its origin's seq (`EventJournal.ingest`)."""
+        return {"stored": self.node.events.ingest(request.get("event") or {})}
 
     # ================= transport-client proxy =================
     def _s_client_nodes(self, request, channel):
@@ -1433,7 +1445,15 @@ class ActionModule:
             else NO_DEADLINE
         # a budget that cannot cover one expected shard phase: 429 now
         self.admission.admit(deadline)
-        shards = self.routing.search_shards(state, indices, routing, preference)
+        # cache-affinity routing: a cache-eligible body (the shard's own
+        # `cache_policy`) carries its fingerprint into copy selection, so
+        # the same hot body lands on the same healthy copy and the copies'
+        # request caches partition instead of duplicating
+        affinity = None
+        if self.node.request_cache.enabled and cache_policy(body):
+            affinity = request_fingerprint(body)
+        shards = self.routing.search_shards(state, indices, routing, preference,
+                                            affinity=affinity)
         dfs_stats, dfs_failed = None, set()
         if search_type in DFS_SEARCH_TYPES:
             dfs_stats, dfs_failed = self._dfs_round(state, shards, body, deadline)
@@ -1443,6 +1463,13 @@ class ActionModule:
         # the rest)
         t_fanout = time.monotonic()
         failures, terminals = [], []
+        # a hard copy pin (`_only_node:`, `_primary`, also after a
+        # `_shards:N;` prefix) never hedges: an answer from a copy the
+        # caller pinned away from breaks the preference even on success.
+        # Soft preferences name a starting point and keep hedging
+        _, pin = self.routing.split_preference(preference)
+        pin = pin or ""
+        allow_hedge = not pin.startswith("_only_node:") and pin != "_primary"
         futs = []
         for ordinal, copy in enumerate(shards):
             if ordinal in dfs_failed:
@@ -1450,12 +1477,9 @@ class ActionModule:
                                  "reason": "dfs phase failed on every copy"})
                 continue
             futs.append((ordinal, copy, self._query_shard_async(
-                state, copy, body, alias_filters, dfs_stats, deadline)))
+                state, copy, body, alias_filters, dfs_stats, deadline,
+                allow_hedge=allow_hedge)))
         results: list[ShardQueryResult] = []
-        # the sampled trace the shards' span lists stitch into (None:
-        # untraced)
-        cur_span = tracing.current_span()
-        trace_ref = cur_span.trace if cur_span else None
         # ordinal -> (index, real shard id, node, pinned context id): the
         # coordinator's merge identity is the ordinal, as (index, shard)
         # pairs of two indices can share a shard id
@@ -1500,13 +1524,7 @@ class ActionModule:
                     continue
                 self.admission.observe(
                     getattr(fut, "completed_at", time.monotonic()) - t_fanout)
-                if trace_ref is not None:
-                    trace_ref.add_remote(r.get("spans"))
                 prof = r.get("profile")
-                if isinstance(prof, dict):
-                    # no hedges before replica selection (A5c, second half):
-                    # every profile is the primary attempt's
-                    prof = {**prof, "winner": "primary"}
                 shard_meta[ordinal] = (used.index, used.shard_id, node, r.get("ctx_id"))
                 results.append(ShardQueryResult(
                     total=r["total"], docs=[tuple(d) for d in r["docs"]],
@@ -1535,37 +1553,63 @@ class ActionModule:
     QUERY_ATTEMPT_TIMEOUT = 60.0
 
     def _query_shard_async(self, state, copy: ShardRouting, body, alias_filters,
-                           dfs_stats, deadline: Deadline = NO_DEADLINE) -> Future:
-        """One shard's query phase with failover across its copies, driven by
-        future callbacks (the coordinator parks no thread per shard). The
-        candidates are `routing.ranked_copies`: the chosen copy, then the
-        group's other active copies; a candidate whose node is not in the
-        state is passed over. Each attempt is bounded by a timer from the
-        node's wheel (`QUERY_ATTEMPT_TIMEOUT` clamped by the deadline); any
-        failure of an attempt, a transport error to a node that just left
-        included, sends the next candidate, until the candidates or the
-        deadline run out. An error that fails the whole search
-        (`_fails_the_search`) ends the chain at once. No hedged attempt
-        runs (the second half of A5c).
+                           dfs_stats, deadline: Deadline = NO_DEADLINE,
+                           allow_hedge: bool = True) -> Future:
+        """One shard's query phase with ranked failover and hedged attempts
+        across its copies, driven by future callbacks (the coordinator parks
+        no thread per shard).
+
+        Failover: the candidates are `routing.ranked_copies`, the chosen
+        copy first, then the group's other active copies best-first by the
+        adaptive health rank (cluster/stats.py); a candidate whose node is
+        not in the state is passed over. Each attempt is bounded by a timer
+        from the node's wheel (`QUERY_ATTEMPT_TIMEOUT` clamped by the
+        deadline); any failure of an attempt, a transport error to a node
+        that just left included, sends the next candidate, until the
+        candidates or the deadline run out (an attempt still in flight keeps
+        the chain open). An error that fails the whole search
+        (`_fails_the_search`) ends the chain at once.
+
+        Hedging ("The Tail at Scale"): when the primary attempt outlives its
+        copy's own p99 (`hedge_delay_s`: warm copies only, clamped by the
+        best alternative's EWMA and by the deadline) and the `HedgeBudget`
+        grants a token, the best copy not yet tried is sent the same phase;
+        the first success resolves the chain, and the loser's answer frees
+        its pinned context. `allow_hedge=False` (hard pins) never hedges,
+        and a dead hedge never advances the chain while the attempt it
+        shadowed is in flight. Every attempt feeds the selector: latency
+        and the response's `load` on success (a loser's and a late one's
+        too), a decayed failure on an error or a timeout. No selector call
+        runs under an engine lock or across a pull: they run on transport
+        callback and timer threads.
 
         Resolves to (response | None, the copy that answered, its node,
-        error | None); the future's `attempt_errors` lists each failed
-        attempt as (node id, error), `cancel_chain()` stops it sending, and
-        a response that arrives after the chain was cancelled or resolved
-        frees its pinned context."""
+        error | None); a response's profile carries `winner` (`primary` or
+        `hedge`). The future's `attempt_errors` lists each failed attempt as
+        (node id, error), `cancel_chain()` stops it sending, and a response
+        that arrives after the chain was cancelled or resolved frees its
+        pinned context."""
         done: Future = Future()
         # the phase's latency ends at its resolution, not when the
         # coordinator collects it behind a slower shard
         done.add_done_callback(lambda f: setattr(f, "completed_at", time.monotonic()))
-        # retry attempts run on timer and transport-callback threads: each
-        # send re-activates the coordinator's span so it carries the trace
+        # attempts run on timer and transport-callback threads: each send
+        # re-activates the coordinator's span so it carries the trace, and
+        # every response's spans stitch in here (a hedge race's loser's too)
         cur_span = tracing.current_span()
+        trace_ref = cur_span.trace if cur_span else None
         group = state.routing_table.index(copy.index).shard(copy.shard_id)
+        # one wiring point: the selector that ranks the chain also takes the
+        # observations and holds the hedge budget
+        selector = self.routing.selector
         candidates = self.routing.ranked_copies(group, copy)
         cancelled = [False]
         attempt_errors: list = []
-        position = [0]
-        # guards `position` and each attempt's consumption
+        # the candidates claimed (sent, or passed over for a departed node)
+        # and the attempts in flight; the chain fails only when every
+        # candidate is claimed and none is in flight
+        launched: set[int] = set()
+        in_flight = [0]
         chain_lock = threading.Lock()
 
         def cancel_chain():
@@ -1578,79 +1622,171 @@ class ActionModule:
         def resolve(r, used, node, err) -> bool:
             return complete_fut(done, (r, used, node, err))
 
-        def try_next(last_err):
+        def attempt_failed(cand, err, hedge: bool):
             with chain_lock:
-                nxt = None
-                while position[0] < len(candidates):
-                    cand = candidates[position[0]]
-                    position[0] += 1
-                    node = state.nodes.get(cand.node_id)
-                    if node is not None:
-                        nxt = (cand, node)
-                        break
-            if nxt is None:
-                resolve(None, None, None, last_err or NoShardAvailableError(
-                    f"no active copy of [{copy.index}][{copy.shard_id}] on a live node"))
-            else:
-                launch(*nxt)
-
-        def attempt_failed(cand, err):
-            attempt_errors.append((cand.node_id, err))
+                in_flight[0] -= 1
+                alive = in_flight[0]
+                attempt_errors.append((cand.node_id, err))
+                attempts = len(attempt_errors)
             if cancelled[0] or done.done():
                 return
             if deadline.expired():
                 # another copy could only answer after the caller stopped
-                # caring
-                resolve(None, None, None, ReceiveTimeoutError(
-                    f"search budget exhausted after {len(attempt_errors)} "
-                    f"attempt(s) on [{copy.index}][{copy.shard_id}]: {err}"))
+                # caring; an attempt still in flight may yet answer
+                if alive == 0:
+                    resolve(None, None, None, ReceiveTimeoutError(
+                        f"search budget exhausted after {attempts} "
+                        f"attempt(s) on [{copy.index}][{copy.shard_id}]: {err}"))
                 return
+            if hedge and alive > 0:
+                return  # the attempt it shadowed is still in flight
             try_next(err)
 
-        def launch(cand, node):
+        def try_next(last_err, hedge: bool = False) -> bool:
+            """Claim and send the best candidate not yet tried on a live
+            node; False when none is left (the chain then resolves its
+            error if nothing is in flight)."""
+            with chain_lock:
+                j = None
+                for i in range(len(candidates)):
+                    if i in launched:
+                        continue
+                    launched.add(i)
+                    if state.nodes.get(candidates[i].node_id) is None:
+                        continue  # a departed node: passed over
+                    j = i
+                    in_flight[0] += 1
+                    break
+                alive = in_flight[0]
+            if j is None:
+                if alive == 0:
+                    resolve(None, None, None, last_err or NoShardAvailableError(
+                        f"no active copy of [{copy.index}][{copy.shard_id}] on a live node"))
+                return False
+            launch(candidates[j], hedge)
+            return True
+
+        def launch(cand, hedge: bool):
+            node = state.nodes.get(cand.node_id)
             payload = {"index": cand.index, "shard": cand.shard_id, "body": body or {},
                        "alias_filter": alias_filters.get(cand.index), "dfs": dfs_stats,
                        # the remaining budget as a duration: the shard
                        # restarts its own clock from it
                        "deadline_s": deadline.remaining()}
+            if hedge:
+                payload["hedge"] = True  # the shard tags its span
             with tracing.activate(cur_span):
                 fut = self.transport.send_request(node, A_QUERY_PHASE, payload)
-            # exactly one of the response and the attempt timer consumes
-            # the attempt
-            consumed = [False]
+            t_sent = time.monotonic()
+            if selector is not None:
+                selector.begin_attempt(cand)
+                if hedge:
+                    selector.hedges.record_issued()
+                else:
+                    selector.hedges.note_request()
+            # exactly one of the response and the attempt timer consumes the
+            # attempt for the chain; `settled` drops the selector's
+            # outstanding count exactly once
+            consumed, settled = [False], [False]
+            attempt_lock = threading.Lock()
 
             def consume() -> bool:
-                with chain_lock:
+                with attempt_lock:
                     if consumed[0]:
                         return False
                     consumed[0] = True
                     return True
 
+            def settle() -> bool:
+                with attempt_lock:
+                    if settled[0]:
+                        return False
+                    settled[0] = True
+                    return True
+
             def on_timeout():
+                if selector is not None and settle():
+                    selector.end_attempt(cand)
+                    selector.failure(cand)
                 if consume():
                     attempt_failed(cand, ReceiveTimeoutError(
-                        f"query phase attempt to [{cand.node_id}] timed out"))
+                        f"query phase attempt to [{cand.node_id}] timed out"), hedge)
 
             timer = self.node.threadpool.schedule(
                 deadline.clamp(self.QUERY_ATTEMPT_TIMEOUT), "generic", on_timeout)
 
+            if allow_hedge and not hedge and selector is not None:
+                with chain_lock:
+                    alts = [candidates[i] for i in range(len(candidates))
+                            if i not in launched]
+                delay = selector.hedge_delay_s(cand, deadline.remaining(), others=alts)
+                if delay is not None:
+                    def on_hedge():
+                        if cancelled[0] or done.done():
+                            return
+                        with attempt_lock:
+                            if consumed[0]:
+                                return  # failed over already
+                        with chain_lock:
+                            has_next = any(
+                                i not in launched and
+                                state.nodes.get(candidates[i].node_id) is not None
+                                for i in range(len(candidates)))
+                        if not has_next or not selector.hedges.try_acquire():
+                            return  # nothing to hedge to, or no budget
+                        if not try_next(None, hedge=True):
+                            selector.hedges.refund()  # lost the claim race
+
+                    hedge_timer = self.node.threadpool.schedule(
+                        delay, "generic", on_hedge)
+                    done.add_done_callback(lambda _f: hedge_timer.cancel())
+
             def on_done(f):
                 err = f.exception()
+                lat = time.monotonic() - t_sent
+                if selector is not None and settle():
+                    selector.end_attempt(cand)
                 if not consume():
+                    # the timer failed this attempt over: a late answer
+                    # still teaches the selector the copy's true latency
                     if err is None:
-                        self._free_late_context(cand, node, f.result())
+                        r = f.result()
+                        if selector is not None:
+                            selector.observe(cand, lat, load=r.get("load")
+                                             if isinstance(r, dict) else None)
+                        self._free_late_context(cand, node, r)
                     return
                 timer.cancel()
                 if err is not None:
                     if _fails_the_search(err):
-                        attempt_errors.append((cand.node_id, err))
+                        with chain_lock:
+                            in_flight[0] -= 1
+                            attempt_errors.append((cand.node_id, err))
                         resolve(None, cand, node, err)
-                    else:
-                        attempt_failed(cand, err)
+                        return
+                    if selector is not None:
+                        selector.failure(cand)
+                    attempt_failed(cand, err, hedge)
                     return
                 r = f.result()
-                if cancelled[0] or not resolve(r, cand, node, None):
+                if selector is not None:
+                    selector.observe(cand, lat, load=r.get("load")
+                                     if isinstance(r, dict) else None)
+                if trace_ref is not None:
+                    trace_ref.add_remote(r.get("spans"))
+                if isinstance(r.get("profile"), dict):
+                    r = {**r, "profile": {**r["profile"],
+                                          "winner": "hedge" if hedge else "primary"}}
+                # resolve before dropping the in-flight count: the other
+                # attempt's failure must not read 0 in flight and resolve
+                # the chain with its error first
+                won = not cancelled[0] and resolve(r, cand, node, None)
+                with chain_lock:
+                    in_flight[0] -= 1
+                if not won:
                     self._free_late_context(cand, node, r)
+                elif hedge and selector is not None:
+                    selector.hedges.record_won()
 
             fut.add_done_callback(on_done)
 
@@ -1874,6 +2010,10 @@ class ActionModule:
         trace = self.node.tracer.continue_trace(request.get(tracing.TRACE_WIRE_KEY),
                                                 "shard")
         shard_span = trace.root.tag(index=index, shard=shard_id)
+        if request.get("hedge"):
+            # a hedged attempt: its shard span shows as a sibling of the
+            # primary attempt's in the stitched `?trace=true` tree
+            shard_span.tag(hedge=True)
         # the shard request cache: a hit answers before the query phase, with
         # no launch; a DFS request's weights are its own and never cache; a
         # profiled request always runs, and records the hit or miss
@@ -1900,6 +2040,7 @@ class ActionModule:
                         insights_reg.record(shape_id, shape, cache="hit")
                     out = _decode_cached_partial(data)
                     out["ctx_id"] = self._pin_context(index, shard_id, ctx)
+                    out["load"] = self._load_signal()
                     if trace:
                         out["spans"] = trace.span_dicts()
                     return out
@@ -1942,8 +2083,10 @@ class ActionModule:
                     and prof is not None:
                 prof.event("request_cache", cache="store")
         # the fetch must read the SAME point-in-time searcher these doc ids
-        # come from
-        out = {**partial, "ctx_id": self._pin_context(index, shard_id, ctx)}
+        # come from; `load` is the coordinator's adaptive replica selection
+        # signal (plain attribute reads: no lock, clock or device traffic)
+        out = {**partial, "ctx_id": self._pin_context(index, shard_id, ctx),
+               "load": self._load_signal()}
         if trace:
             # the shard's spans ride the response for the coordinator's tree;
             # this node's ring keeps its own copy too
@@ -1951,6 +2094,20 @@ class ActionModule:
         if prof is not None:
             out["profile"] = prof.to_dict()
         return out
+
+    def _load_signal(self) -> dict:
+        """A query-phase response's load sample: the search pool's queue
+        depth, the request breaker's headroom fraction and the request
+        cache's hit rate, read as plain attributes (an unlocked read is
+        exact enough for a decayed routing signal). The hit rate is
+        reported per copy in `/_nodes/stats`, never a rank input."""
+        queue = self.node.threadpool.queue_depth("search")
+        br = self.node.breakers.breaker("request")
+        headroom = 1.0 if br.limit <= 0 else max(0.0, 1.0 - br.used / br.limit)
+        rc = self.node.request_cache
+        lookups = rc.hits + rc.misses
+        return {"queue": queue, "headroom": round(headroom, 4),
+                "rc_hit_rate": round(rc.hits / lookups, 4) if lookups else 0.0}
 
     @staticmethod
     def _execute_qp(ctx, req, shard_id: int, deadline, prof):

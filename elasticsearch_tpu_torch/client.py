@@ -9,8 +9,8 @@ connection failure drops the node and tries the next; a timeout does so
 only for a read (`IDEMPOTENT_METHODS`), since a write may already be
 applied. Each call runs one whitelisted method of the receiving node's
 Client (`CLIENT_PROXY_METHODS`, keyword arguments only), coordinated there
-as a REST request would be. The snapshot and repository methods of the
-JAX list wait for their slice (ROADMAP A9)."""
+as a REST request would be; the list is the JAX client's, the snapshot and
+repository methods included."""
 
 from __future__ import annotations
 
@@ -38,8 +38,8 @@ IDEMPOTENT_METHODS = frozenset({
     "get_mapping", "get_field_mapping", "get_settings", "get_aliases",
     "get_alias", "get_template", "get_warmer", "cluster_health",
     "cluster_state", "cluster_get_settings", "pending_tasks", "nodes_info",
-    "nodes_stats", "stats", "indices_status", "cluster_stats", "node_events",
-    "cluster_events",
+    "nodes_stats", "stats", "indices_status", "get_snapshots", "get_repository",
+    "snapshot_status", "cluster_stats", "node_events", "cluster_events",
 })
 
 # the proxied API surface: every name is a method of node.Client (a test
@@ -49,7 +49,9 @@ CLIENT_PROXY_METHODS = IDEMPOTENT_METHODS | frozenset({
     "create_index", "delete_index", "open_index", "close_index", "refresh",
     "flush", "optimize", "clear_cache", "put_mapping", "delete_mapping",
     "put_template", "delete_template", "update_settings", "update_aliases",
-    "put_warmer", "delete_warmer",
+    "put_warmer", "delete_warmer", "put_repository", "delete_repository",
+    "verify_repository", "create_snapshot", "restore_snapshot",
+    "delete_snapshot",
 })
 
 

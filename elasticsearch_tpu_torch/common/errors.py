@@ -217,8 +217,20 @@ class IndexWarmerMissingError(SearchEngineError):
         super().__init__(f"index_warmer [{name}] missing")
 
 
-class NotPortedError(IllegalArgumentError):
-    """A feature of the JAX package that a later slice of the port serves."""
+class SnapshotError(SearchEngineError):
+    pass
+
+
+class SnapshotMissingError(SnapshotError):
+    status = 404
+
+
+class RepositoryError(SearchEngineError):
+    pass
+
+
+class RepositoryMissingError(RepositoryError):
+    status = 404
 
 
 class CircuitBreakingError(SearchEngineError):

@@ -29,9 +29,10 @@ breaker_pressure | lock_stall | watchdog | device_degraded |
 device_recovered (the last two are the device fault domains' trips and
 recoveries, published by common/devicehealth).
 
-Left for a later slice: the watchdog's gossip of each event to the other
-nodes (ROADMAP A5c; `GET /_events` pulls every node's journal meanwhile,
-node.py `cluster_events`).
+Each event the watchdog emits is gossiped to the other nodes of the
+cluster (`_gossip`: fire-and-forget sends from the tick), whose journals
+ingest it; `GET /_events` (node.py `cluster_events`) pulls every node's
+journal and deduplicates.
 
 Hot-path contract: the watchdog runs on the management pool and reads
 serving-side state as plain attributes or through leaf-locked stats()
@@ -232,8 +233,30 @@ class StallWatchdog:
 
     def _emit(self, type_: str, message: str, key: str | None = None, **attrs):
         journal = getattr(self.node, "events", None)
-        if journal is not None:
-            journal.publish(type_, message, key=key, **attrs)
+        if journal is None:
+            return
+        event = journal.publish(type_, message, key=key, **attrs)
+        if event is not None:
+            self._gossip(event)
+
+    def _gossip(self, event: dict):
+        """Push one event to every other node of the cluster (their
+        journals deduplicate by origin seq): fire-and-forget sends from the
+        watchdog tick, never from a serving thread."""
+        try:
+            from ..actions import A_EVENTS_PUBLISH
+
+            state = self.node.cluster_service.state
+            for n in state.nodes.nodes:
+                if n.id == self.node.node_id:
+                    continue
+                try:
+                    self.node.transport.send_request(n, A_EVENTS_PUBLISH,
+                                                     {"event": event})
+                except Exception:  # noqa: BLE001 — a departing peer is the
+                    continue       # journal's business, not the watchdog's
+        except Exception:  # noqa: BLE001 — no cluster service, or a shutdown race
+            pass
 
     # -- checks --------------------------------------------------------------
     def _check_batch_stall(self):

@@ -341,6 +341,35 @@ class IndicesService:
         svc.remove_shard(shard_id)
         drop_segment_packs(segs)
 
+    def restore_shard(self, index: str, shard_id: int, fill) -> IndexShard:
+        """A snapshot restore's swap of this node's copy of a shard: the
+        old shard leaves as any departing shard does (`_remove_shard`: out
+        of the warmer, its request-cache entries and filter masks dropped,
+        its engine closed, its segments' packs dropped), its store and
+        translog are emptied, `fill(store_dir)` writes the snapshot's files,
+        and a new shard, wired to the caches and the warmer, recovers from
+        that store, refreshes and is started."""
+        svc = self.index_service(index)
+        old = svc.shard(shard_id)
+        primary = old.primary
+        store_dir, translog_dir = old.engine.store.dir, old.engine.translog.dir
+        self._remove_shard(svc, shard_id)
+        for d in (store_dir, translog_dir):
+            for name in list(os.listdir(d)):
+                os.unlink(os.path.join(d, name))
+        fill(store_dir)
+        shard = svc.create_shard(shard_id, primary)
+        self._wire_cache_listeners(shard.engine, index, shard_id)
+        if self.warmer is not None:
+            self.warmer.wire(index, shard_id, shard.engine)
+        shard.engine.recover_from_store()
+        shard.engine.refresh()
+        shard.state = SHARD_STARTED
+        if self.request_cache is not None:
+            # an entry a search stored during the swap, under the old view
+            self.request_cache.invalidate_shard(index, shard_id, None)
+        return shard
+
     def _drop_shard_caches(self, shard: IndexShard) -> list:
         """A closing shard releases every cache byte it holds: its
         request-cache entries of every view and the filter masks of the

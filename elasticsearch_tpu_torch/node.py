@@ -35,7 +35,14 @@ the warmer's pack counters in process.
 `events` is the node's EventJournal (common/events): the StallWatchdog
 (`watchdog`, ticking on the management pool) journals batches stalled in
 their pull, pool queue-wait spikes and breakers dwelling near their limit,
-and DEVICE_HEALTH publishes each fault domain's trip and recovery there.
+and gossips each to the other nodes; DEVICE_HEALTH publishes each fault
+domain's trip and recovery there.
+
+`adaptive_routing` (cluster/stats.py AdaptiveReplicaSelector) is the
+coordinator's health record of every shard copy it sends query phases to:
+`operation_routing` picks copies by it, and `actions` hedges by it.
+`snapshots` (snapshots.py) holds the node's repositories and drives
+snapshots and restores.
 
 The node serves on the card unless told otherwise: its device is the
 `node.device` setting ("cpu" in the tests) resolved through
@@ -83,7 +90,10 @@ until its next recovery, as on the JAX node.
 `put_template`, `delete_template`, `get_template`, `put_warmer`,
 `delete_warmer`, `get_warmer`, `index`, `create`, `get`, `mget`,
 `delete`, `update`, `bulk`, `delete_by_query`, `refresh`, `flush`,
-`optimize`, `clear_cache`, `gateway_snapshot`, `search`, `msearch`,
+`optimize`, `clear_cache`, `gateway_snapshot`, the snapshot methods
+(`put_repository`, `get_repository`, `delete_repository`,
+`verify_repository`, `create_snapshot`, `get_snapshots`,
+`snapshot_status`, `delete_snapshot`, `restore_snapshot`), `search`, `msearch`,
 `count`, `suggest`, `termvector`, `mtermvectors`, `mlt`, `explain`,
 `percolate`, `count_percolate`, `mpercolate`, `cluster_health`, the
 cluster admin methods (`cluster_state` in its REST view, `cluster_stats`
@@ -129,6 +139,7 @@ from .actions import (
 )
 from .cluster.allocation import AllocationService
 from .cluster.routing import OperationRouting
+from .cluster.stats import AdaptiveReplicaSelector
 from .cluster.service import ClusterService
 from .cluster.state import DiscoveryNode
 from .common import cudaenv
@@ -166,6 +177,7 @@ from .percolator import PercolatorService
 from .script import ScriptService
 from .search.batcher import DeviceBatcher
 from .search.request_cache import ShardRequestCache
+from .snapshots import SnapshotsService
 from .threadpool import ThreadPool
 from .transport.local import DEFAULT_REGISTRY, LocalTransport
 from .transport.service import TransportService, fut_result
@@ -249,7 +261,12 @@ class Node:
             backend = LocalTransport(address, self.registry)
         self.transport = TransportService(backend, self.local_node, self.threadpool)
         self.transport.in_flight_breaker = self.breakers.breaker("in_flight_requests")
-        self.operation_routing = OperationRouting()
+        # adaptive replica selection and hedging (cluster/stats.py): per-copy
+        # health records fed by the coordinator's query-phase attempts, the
+        # rank behind preference-free copy choice and failover order, and
+        # the hedge delay and budget
+        self.adaptive_routing = AdaptiveReplicaSelector(self.settings)
+        self.operation_routing = OperationRouting(selector=self.adaptive_routing)
         self.percolator = PercolatorService(self)
         self.indices = IndicesService(self.node_id, self.data_path, self.transport,
                                       self.cluster_service, self.threadpool,
@@ -259,6 +276,7 @@ class Node:
                                       percolator=self.percolator,
                                       node_name=self.name)
         self.actions = ActionModule(self)
+        self.snapshots = SnapshotsService(self)
         self.script_service = ScriptService()
         # scheduled NRT refresh and merge-policy check (each index's
         # refresh_interval is honoured inside periodic_refresh)
@@ -661,6 +679,33 @@ class Client:
         self.node.gateway.persist_now()
         return {"_shards": {"total": 0, "successful": 0, "failed": 0}}
 
+    # --- snapshots ----------------------------------------------------------
+    def put_repository(self, name, body):
+        return self.node.snapshots.put_repository(name, body)
+
+    def get_repository(self, name=None):
+        return self.node.snapshots.get_repository(name)
+
+    def delete_repository(self, name):
+        return self.node.snapshots.delete_repository(name)
+
+    def verify_repository(self, name):
+        return self.node.snapshots.verify_repository(name)
+
+    def create_snapshot(self, repo, snapshot, body=None):
+        return self.node.snapshots.create_snapshot(repo, snapshot, body)
+
+    def get_snapshots(self, repo, snapshot=None):
+        return self.node.snapshots.get_snapshots(repo, snapshot)
+
+    def snapshot_status(self, repo, snapshot):
+        return self.node.snapshots.snapshot_status(repo, snapshot)
+
+    def delete_snapshot(self, repo, snapshot):
+        return self.node.snapshots.delete_snapshot(repo, snapshot)
+
+    def restore_snapshot(self, repo, snapshot, body=None):
+        return self.node.snapshots.restore_snapshot(repo, snapshot, body)
 
     # --- stats surfaces -----------------------------------------------------
     def stats(self, index=None):
@@ -852,6 +897,7 @@ class Client:
                                "watchdog": node.watchdog.stats()},
             "search_serving": lambda: dict(SERVING_COUNTERS),
             "tracing": lambda: node.tracer.stats(),
+            "adaptive_routing": lambda: node.adaptive_routing.stats(),
             **node.monitor.sections(),
         }
         if metric and metric not in ("_all",):

@@ -47,16 +47,16 @@ DELETE, GET, HEAD), `_template` (PUT, POST, DELETE, GET), `_warmer` and
 a tokenizer with filters, or a mapped field's analyzer; every token's type
 reads `<ALPHANUM>`, as on the JAX node), `_cache/clear` (`?request=`,
 `?filter=`) and `_gateway/snapshot` (a flush and a metadata persist; zero
-`_shards`). `DELETE` of a mapping (at
+`_shards`), and the snapshot routes (`_snapshot`: repositories PUT, POST,
+GET, DELETE and `_verify`; snapshots PUT, GET, DELETE, `_status` and
+`_restore`; snapshots.py). `DELETE` of a mapping (at
 `/{index}/{type}/_mapping` and `/{index}/_mapping/{type}`, `_mappings` too)
 drops the types and deletes their documents. The single-document index,
 GET, HEAD and DELETE take `?parent=`, which routes the document when no
 `routing` is given (a `_bulk` item's parent is ignored, as in the JAX
-package; GET answers no `_parent` key over REST, as there). Every other
-route of the JAX node answers 400 NotPortedError naming the slice that
-brings it (`_LATER_ROUTES`), so that none falls through to a wider route
-such as the document write; a route the JAX node lacks too answers 400 "No
-handler found", as the JAX controller answers it; a missing index answers
+package; GET answers no `_parent` key over REST, as there). A port node
+serves every route of the JAX node; a route the JAX node lacks too answers
+400 "No handler found", as the JAX controller answers it; a missing index answers
 404. Handlers call the node Client: REST is a thin adapter, as in the JAX
 package.
 
@@ -134,7 +134,6 @@ from ..common.devicehealth import CLOSED as DEVICE_CLOSED, DEVICE_HEALTH, HALF_O
 from ..common.deadline import parse_timevalue
 from ..common.errors import (
     IllegalArgumentError,
-    NotPortedError,
     SearchContextMissingError,
     SearchEngineError,
 )
@@ -286,35 +285,6 @@ def _lenient_to_strict_json(text: str) -> str:
 
 
 _BULK_OPS = ("index", "create", "update", "delete")
-
-# Every (methods, route) of the JAX node that a port node does not serve
-# yet, by the slice that brings it (since the admin slice, A9's alone). Each answers 400 NotPortedError naming
-# its slice, so that no such request falls through to a wider route (a
-# POST to `/{index}/_close` would otherwise index a document of type
-# `_close`). A slice that lands deletes its rows.
-_LATER_ROUTES = {
-    "A9, the sidecars": [
-        ("PUT,POST,GET,DELETE", "/_snapshot/{repo}"), ("GET", "/_snapshot"),
-        ("POST", "/_snapshot/{repo}/_verify"),
-        ("PUT,GET,DELETE", "/_snapshot/{repo}/{snapshot}"),
-        ("GET", "/_snapshot/{repo}/{snapshot}/_status"),
-        ("POST", "/_snapshot/{repo}/{snapshot}/_restore"),
-    ],
-}
-
-
-def _register_later_routes(rc: "RestController"):
-    """A handler that answers 400 for every row of `_LATER_ROUTES`."""
-    for slice_, routes in _LATER_ROUTES.items():
-        for methods, template in routes:
-            def refuse(req, template=template, slice_=slice_):
-                raise NotPortedError(
-                    f"[{req.method} {template}] is not ported yet (a later slice "
-                    f"of the port: {slice_})")
-
-            rc.register(methods, template, refuse)
-
-
 
 # --- the admin surface: _cluster/* and _cat ----------------------------------
 def _cat_table(req: RestRequest, columns, rows) -> RestResponse:
@@ -822,7 +792,9 @@ class _PromWriter:
 def _prometheus_text(node) -> str:
     """`GET /_prometheus/metrics`: the node's serving telemetry — breakers,
     thread pools with their queue-wait histograms, the batcher, admission
-    control, search latency, the request and filter caches, query-shape
+    control, search latency, the hedges and each copy's routing rank
+    (`estpu_search_hedges_*`, `estpu_routing_*`), the request and filter
+    caches, query-shape
     insights (labels bounded by the registry's LRU), the device capacity
     ledger (per index and tier, capped at
     `telemetry.device.max_label_indices`), the kernels (`estpu_cuda_kernel_*`:
@@ -872,6 +844,25 @@ def _prometheus_text(node) -> str:
                 node.actions.admission.histogram)
     w.counter("estpu_admission_rejected_total",
               node.actions.admission.rejected.count)
+    # adaptive replica selection and hedged shard requests: the hedge
+    # counters, and per copy the rank inputs that say why routing prefers it
+    ar = node.adaptive_routing.stats()
+    hs = ar["hedges"]
+    w.counter("estpu_search_hedges_issued_total", hs["issued"])
+    w.counter("estpu_search_hedges_won_total", hs["won"])
+    w.counter("estpu_search_hedges_budget_exhausted_total", hs["budget_exhausted"])
+    w.gauge("estpu_search_hedges_budget_tokens", hs["tokens"])
+    copies = ar["copies"]
+    for ckey, c in copies.items():
+        w.gauge("estpu_routing_rank_ewma_seconds", c["ewma_ms"] / 1000.0, copy=ckey)
+    for ckey, c in copies.items():
+        w.gauge("estpu_routing_rank_queue", c["queue"], copy=ckey)
+    for ckey, c in copies.items():
+        w.gauge("estpu_routing_rank_outstanding", c["outstanding"], copy=ckey)
+    for ckey, c in copies.items():
+        w.gauge("estpu_routing_rank_failures", c["failures"], copy=ckey)
+    w.counter("estpu_routing_probes_total", ar["probes"])
+    w.gauge("estpu_routing_quarantined", ar["quarantined"])
     rcs = node.request_cache.stats()
     w.counter("estpu_request_cache_hits_total", rcs["hits"])
     w.counter("estpu_request_cache_misses_total", rcs["misses"])
@@ -1758,6 +1749,34 @@ def build_rest_controller(node) -> RestController:
     rc.register("POST", "/{index}/_gateway/snapshot",
                 lambda r: client.gateway_snapshot(r.path_params["index"]))
 
+    # --- snapshot and restore -------------------------------------------------
+    rc.register("PUT,POST", "/_snapshot/{repo}",
+                lambda r: client.put_repository(r.path_params["repo"], _parse_body(r)))
+    rc.register("GET", "/_snapshot", lambda r: client.get_repository())
+    rc.register("GET", "/_snapshot/{repo}",
+                lambda r: client.get_repository(r.path_params["repo"]))
+    rc.register("DELETE", "/_snapshot/{repo}",
+                lambda r: client.delete_repository(r.path_params["repo"]))
+    rc.register("POST", "/_snapshot/{repo}/_verify",
+                lambda r: client.verify_repository(r.path_params["repo"]))
+    rc.register("PUT", "/_snapshot/{repo}/{snapshot}",
+                lambda r: client.create_snapshot(r.path_params["repo"],
+                                                 r.path_params["snapshot"],
+                                                 _parse_body(r)))
+    rc.register("GET", "/_snapshot/{repo}/{snapshot}",
+                lambda r: client.get_snapshots(r.path_params["repo"],
+                                               r.path_params["snapshot"]))
+    rc.register("GET", "/_snapshot/{repo}/{snapshot}/_status",
+                lambda r: client.snapshot_status(r.path_params["repo"],
+                                                 r.path_params["snapshot"]))
+    rc.register("DELETE", "/_snapshot/{repo}/{snapshot}",
+                lambda r: client.delete_snapshot(r.path_params["repo"],
+                                                 r.path_params["snapshot"]))
+    rc.register("POST", "/_snapshot/{repo}/{snapshot}/_restore",
+                lambda r: client.restore_snapshot(r.path_params["repo"],
+                                                  r.path_params["snapshot"],
+                                                  _parse_body(r)))
+
     def put_mapping(req):
         return client.put_mapping(req.path_params.get("index"),
                                   req.path_params["type"], _parse_body(req))
@@ -1871,5 +1890,4 @@ def build_rest_controller(node) -> RestController:
     rc.register("POST", "/_nodes/_local/profiler/stop", profiler_stop)
     _register_cluster_routes(rc, client)
     _register_cat_routes(rc, node, client)
-    _register_later_routes(rc)
     return rc

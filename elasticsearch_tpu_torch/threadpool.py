@@ -262,6 +262,14 @@ class ThreadPool:
     def stats(self) -> dict:
         return {name: pool.stats() for name, pool in self._pools.items()}
 
+    def queue_depth(self, name: str) -> int:
+        """One pool's queued backlog as a plain unlocked int read: the load
+        signal a query-phase response carries back for adaptive replica
+        selection (a torn read is at worst one task stale, which a decayed
+        routing signal absorbs)."""
+        pool = self._pools.get(name)
+        return 0 if pool is None else pool.queued
+
     def pool_histograms(self) -> dict:
         """name -> that pool's queue-wait HistogramMetric."""
         return {name: pool.queue_wait for name, pool in self._pools.items()}

@@ -3,8 +3,10 @@ events.py), `DevicePullFaults` (transport/faults.py) and the device fault
 domains' publishers (common/devicehealth.py), on the CPU: port copies of
 tests/test_watchdog_events.py's `TestEventJournal`, `TestWatchdogChecks`,
 `TestLiveWatchdog::test_device_pull_stall_detected_within_two_periods` and
-`TestDevicePullFaults` (the gossip case waits for two nodes), each also run
-on the JAX package's classes with the same inputs where they take no node.
+`TestDevicePullFaults`, each also run on the JAX package's classes with the
+same inputs where they take no node, and the gossip case
+(`test_gossip_reaches_peer_journals_and_events_dedup`) on a pair of nodes
+of each package.
 
 - Journal: the ring bound, the per-(type, key) rate limit, the bounded
   vocabulary, remote ingest with its dedup and its stamping of a missing
@@ -378,6 +380,35 @@ class TestLiveWatchdog:
         finally:
             DEVICE_PULL.disarm()
             node.close()
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_gossip_reaches_peer_journals_and_events_dedup(pkg, tmp_path):
+    """The port's copy of tests/test_watchdog_events.py's gossip case, on a
+    pair of nodes of each package: an event the origin's watchdog emits
+    (`_emit`, which gossips it) lands in the peer's journal under the
+    origin's node id, and `/_events` on the peer counts it once."""
+    from tests.test_torch_two_nodes import Cluster
+
+    cluster = Cluster(pkg, ["a", "b"], tmp_path)
+    try:
+        origin, peer = cluster.nodes
+        origin.watchdog._emit("breaker_pressure", "breaker [request] dwelling",
+                              key="breaker:request", breaker="request")
+        _wait(lambda: peer.events.stats()["remote_ingested"] >= 1,
+              what="the gossiped event ingested")
+        remote = [e for e in peer.events.events() if e["type"] == "breaker_pressure"]
+        assert remote and remote[0]["node"] == origin.node_id
+        matching = [e for e in peer.client().cluster_events()["events"]
+                    if e["type"] == "breaker_pressure"]
+        assert len(matching) == 1, matching
+        # a second gossip of the same event is a duplicate, stored once
+        origin.watchdog._gossip(remote[0])
+        _wait(lambda: peer.events.stats()["remote_duplicates"] >= 1,
+              what="the duplicate counted")
+        assert peer.events.stats()["remote_ingested"] == 1
+    finally:
+        cluster.close()
 
 
 class TestDevicePullFaults:

@@ -49,6 +49,6 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "percolator", "common.events", "common.metrics",
                  "analysis.core", "search.similarity", "common.names",
                  "common.settings", "common.errors", "search.suggest",
-                 "search.request_cache"):
+                 "search.request_cache", "cluster.stats", "snapshots"):
         assert f"elasticsearch_tpu_torch.{name}" in report["imported"], name
     assert report["leaked"] == []

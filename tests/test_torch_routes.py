@@ -2,16 +2,16 @@
 where such a request fell through to the document write).
 
 Both packages' `build_rest_controller` run against a recording stub: every
-(method, route) pair the JAX controller registers is registered on the
-port's too, either served or in the port's table of later slices
-(`rest/controller.py _LATER_ROUTES`), and the port registers no pair the
-JAX controller lacks. Each pair of that table, sent to a port node with
-its path filled in (an existing index `p3`, type `doc`, id `1`), answers
-400 `NotPortedError` naming its slice, and the index's document count and
-mappings stay as they were (before the repair, `POST /p3/_close` answered
-201 and indexed a document of type `_close`; index administration, which
-served that route since, is held against the JAX node in
-`tests/test_torch_index_admin.py`). The 20 pairs of the observability
+(method, route) pair the JAX controller registers, all 255, is served by
+the port's too, and the port registers no pair the JAX controller lacks.
+The 11 snapshot pairs (the last rows of the port's table of later slices,
+which is gone), each sent to a port node and to a JAX node with its path
+filled in (an existing index `p3`, type `doc`, id `1`, names `x`) and the
+same body, answer the same status and error type, and the index's
+document count and mappings stay as they were (before the repair,
+`POST /p3/_close` answered 201 and indexed a document of type `_close`;
+index administration, which served that route since, is held against
+the JAX node in `tests/test_torch_index_admin.py`). The 20 pairs of the observability
 slice (A7a), which left that table, are each served on the port node:
 200, and the index untouched (a profiler's stop after its start). So is
 each GET pair of the admin slice (A7b: `_cat`, `_cluster/state`, `stats`,
@@ -64,8 +64,15 @@ def _route_pairs(module) -> set[tuple[str, str]]:
     return {(m, re.sub(r"\{\w+\}", "{}", t.rstrip("/") or "/")) for m, t in pairs}
 
 
-LATER = [(m, template, slice_) for slice_, routes in tcontroller._LATER_ROUTES.items()
-         for methods, template in routes for m in methods.split(",")]
+# the snapshot pairs (A9), the last rows of the table of later slices
+SNAPSHOT_ROUTES = [
+    ("PUT,POST,GET,DELETE", "/_snapshot/{repo}"), ("GET", "/_snapshot"),
+    ("POST", "/_snapshot/{repo}/_verify"),
+    ("PUT,GET,DELETE", "/_snapshot/{repo}/{snapshot}"),
+    ("GET", "/_snapshot/{repo}/{snapshot}/_status"),
+    ("POST", "/_snapshot/{repo}/{snapshot}/_restore")]
+LATER = [(m, template) for methods, template in SNAPSHOT_ROUTES
+         for m in methods.split(",")]
 
 
 def test_port_registers_every_jax_route_and_no_other():
@@ -73,9 +80,19 @@ def test_port_registers_every_jax_route_and_no_other():
 
     jax, port = _route_pairs(jcontroller), _route_pairs(tcontroller)
     assert port == jax, (sorted(jax - port), sorted(port - jax))
-    later = {(m, re.sub(r"\{\w+\}", "{}", t)) for m, t, _s in LATER}
-    assert len(later) == len(LATER)  # no pair twice in the table
-    assert len(jax) == 255 and len(later) == 11
+    snapshot = {(m, re.sub(r"\{\w+\}", "{}", t)) for m, t in LATER}
+    assert len(snapshot) == len(LATER)  # no pair twice
+    assert len(jax) == 255 and len(snapshot) == 11 and snapshot <= port
+    assert not hasattr(tcontroller, "_LATER_ROUTES")
+
+
+def _fill_p3(base):
+    st, r = call(base, "PUT", "/p3", {"settings": {"number_of_shards": 2,
+                                                   "refresh_interval": -1}})
+    assert st == 200, r
+    for i in range(3):
+        assert call(base, "PUT", f"/p3/doc/{i}", {"body": f"w{i}"})[0] == 201
+    assert call(base, "POST", "/p3/_refresh")[0] == 200
 
 
 @pytest.fixture(scope="module")
@@ -84,12 +101,26 @@ def port(tmp_path_factory):
                  data_path=str(tmp_path_factory.mktemp("routes"))).start()
     try:
         base = f"http://127.0.0.1:{node.start_http(0).port}"
-        st, r = call(base, "PUT", "/p3", {"settings": {"number_of_shards": 2,
-                                                       "refresh_interval": -1}})
-        assert st == 200, r
-        for i in range(3):
-            assert call(base, "PUT", f"/p3/doc/{i}", {"body": f"w{i}"})[0] == 201
-        assert call(base, "POST", "/p3/_refresh")[0] == 200
+        _fill_p3(base)
+        yield base
+    finally:
+        node.close()
+
+
+@pytest.fixture(scope="module")
+def jax(tmp_path_factory):
+    """A JAX node named as the port node, holding the same `p3`."""
+    from elasticsearch_tpu.node import Node as JNode
+    from elasticsearch_tpu.transport.local import LocalTransportRegistry as JReg
+
+    node = JNode(name="routes", settings={"search.mesh.enabled": "false",
+                                          "indices.warmer.enabled": "false"},
+                 registry=JReg(), data_path=str(tmp_path_factory.mktemp("routes_jax")))
+    try:
+        node.start([node.local_node.transport_address])
+        node.wait_for_master()
+        base = f"http://127.0.0.1:{node.start_http(0).port}"
+        _fill_p3(base)
         yield base
     finally:
         node.close()
@@ -111,22 +142,23 @@ def _send(base, method, path):
         return e.code, e.read()
 
 
-@pytest.mark.parametrize("method,template,slice_", LATER,
-                         ids=[f"{m} {t}" for m, t, _s in LATER])
-def test_later_route_answers_400_and_writes_nothing(port, method, template, slice_):
+@pytest.mark.parametrize("method,template", LATER, ids=[f"{m} {t}" for m, t in LATER])
+def test_snapshot_route_answers_as_the_jax_node(port, jax, method, template):
     path = template.replace("{index}", "p3").replace("{type}", "doc") \
         .replace("{id}", "1")
     path = re.sub(r"\{\w+\}", "x", path)
-    before = _state(port)
-    st, payload = _send(port, method, path)
-    assert st == 400, (method, path, payload)
-    if method != "HEAD":
-        err = json.loads(payload)["error"]
-        assert err["type"] == "NotPortedException" and slice_ in err["reason"], err
-    assert _state(port) == before == (3, before[1])
+    answers = []
+    for base in (port, jax):
+        before = _state(base)
+        st, payload = _send(base, method, path)
+        err = json.loads(payload).get("error") if st >= 400 else None
+        answers.append((st, err["type"] if isinstance(err, dict) else err))
+        assert _state(base) == before == (3, before[1])
+    assert answers[0] == answers[1], (method, path, answers)
+    assert "NotPorted" not in json.dumps(answers[0])
 
 
-# the pairs the observability slice (A7a) serves; none is in _LATER_ROUTES
+# the pairs the observability slice (A7a) serves
 A7A = [("GET", "/_stats"), ("GET", "/{index}/_stats"), ("GET", "/_status"),
        ("GET", "/{index}/_status"), ("GET", "/_segments"), ("GET", "/{index}/_segments"),
        ("GET", "/_nodes"), ("GET", "/_nodes/stats"), ("GET", "/_nodes/stats/{metric}"),
@@ -139,7 +171,7 @@ A7A = [("GET", "/_stats"), ("GET", "/{index}/_stats"), ("GET", "/_status"),
 
 @pytest.mark.parametrize("method,template", A7A, ids=[f"{m} {t}" for m, t in A7A])
 def test_observability_route_is_served_and_writes_nothing(port, method, template):
-    assert (method, template) not in {(m, t) for m, t, _s in LATER}
+    assert (method, template) not in set(LATER)
     path = template.replace("{index}", "p3").replace("{metric}", "search,tracing") \
         .replace("{node_id}", "_local")
     if "hot_threads" in path:
@@ -156,7 +188,7 @@ def test_observability_route_is_served_and_writes_nothing(port, method, template
     assert _state(port) == before == (3, before[1])
 
 
-# the GET pairs the admin slice (A7b) serves; none is in _LATER_ROUTES
+# the GET pairs the admin slice (A7b) serves
 A7B = [("GET", "/_cluster/state"), ("GET", "/_cluster/state/{metric}"),
        ("GET", "/_cluster/state/{metric}/{index}"), ("GET", "/_cluster/pending_tasks"),
        ("GET", "/_cluster/stats"), ("GET", "/_cluster/stats/nodes/{node_id}"),
@@ -173,7 +205,7 @@ A7B = [("GET", "/_cluster/state"), ("GET", "/_cluster/state/{metric}"),
 
 @pytest.mark.parametrize("method,template", A7B, ids=[f"{m} {t}" for m, t in A7B])
 def test_admin_route_is_served(port, method, template):
-    assert (method, template) not in {(m, t) for m, t, _s in LATER}
+    assert (method, template) not in set(LATER)
     path = template.replace("{index}", "p3").replace("{metric}", "metadata,routing_table") \
         .replace("{node_id}", "routes").replace("{name}", "*")
     before = _state(port)

@@ -20,10 +20,11 @@ same hits; a `?scroll=` search is traced too; an untraced response has no
 `trace`; `/_traces` and `/_tasks` have the JAX node's keys; the slowlog
 line carries the trace id, the shape id and the phase breakdown, from an
 index threshold and from a cluster-level one; `/_nodes/stats` has the JAX
-node's sections but `adaptive_routing` (A5), each addressable alone, an
+node's sections, `adaptive_routing` included, each addressable alone, an
 unknown one a 400 on both; the Prometheus text parses under the text
 grammar with every family one contiguous group, and holds the JAX node's
-families but the declared ones. The zero-added-waits pin: a warmed loop
+families but the declared ones (XLA compiles, the compile-warming
+registry). The zero-added-waits pin: a warmed loop
 through the batcher with tracing at 1.0 and insights on waits once a
 batch (`PendingPull.wait`) and never calls `torch.cuda.synchronize`;
 `ESTPU_TRACE_SYNC=1` is opt-in and returns the same hits."""
@@ -470,8 +471,7 @@ def test_nodes_stats_sections_match_jax_but_declared(nodes):
     (pst, pr), (jst, jr) = _both(nodes, "GET", "/_nodes/stats")
     assert pst == jst == 200
     ((psec,), (jsec,)) = (pr["nodes"].values(), jr["nodes"].values())
-    # adaptive replica selection comes with two nodes (A5)
-    assert set(psec) == set(jsec) - {"adaptive_routing"}
+    assert set(psec) == set(jsec)
     for metric in psec:
         st, one = call(nodes[0], "GET", f"/_nodes/stats/{metric}")
         assert st == 200 and list(next(iter(one["nodes"].values()))) == [metric]
@@ -540,9 +540,8 @@ def parse_prometheus(text: str) -> tuple[dict, dict]:
 
 
 # the families the port declares different: XLA compile events and the
-# compile-warming registry (the port's are estpu_cuda_kernel_*), and
-# adaptive replica selection with hedging (A5)
-_DECLARED = re.compile(r"^estpu_(jax_|compile_warm|search_hedges|routing_)")
+# compile-warming registry (the port's are estpu_cuda_kernel_*)
+_DECLARED = re.compile(r"^estpu_(jax_|compile_warm)")
 
 
 def test_prometheus_text_parses_and_holds_the_jax_families(nodes):
